@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (flink_siddhi_tpu_torch) on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one CUDA device and nvcc (it builds the port's CUDA kernels from
+flink_siddhi_tpu_torch/csrc/ into build/torch_kernels/). It imports nothing
+of JAX and nothing of the JAX package. Phases, each failing the run on any
+fault:
+
+1. device: the card's name and power limit;
+2. build: both kernels compiled from the checkout's sources (seconds);
+3. kernels: each kernel held exactly (int32) to its plain PyTorch version
+   at the shapes the main path uses and at edge shapes;
+4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
+   through compile_plan -> BatchSource -> Job at batch 524,288 over a
+   10,485,760-event stream, with the launch counters reset just before
+   and read just after; rows checked against the port's own CPU path on
+   the first 1,048,576 events;
+5. filter: the bench's filter query, the same way;
+6. api: the README's quick start and pattern through SiddhiCEP on the
+   default device, checked against the CPU;
+7. kernels: each kernel timed on the inputs it was given on the headline
+   path — its device time (profiler trace over 25 calls) and its per-call
+   time (CUDA events, median) — beside its plain version, the library
+   call that computes the same function, and its bound.
+
+The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
+the card's nvidia-smi line come before it. Exits non-zero, printing no
+result, when CUDA is unavailable or any phase fails.
+"""
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BATCH = 524_288
+N_BATCHES = 20
+CHECK_BATCHES = 2  # rows held to the CPU path over these micro-batches
+N_IDS = 50
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
+
+HEADLINE = (
+    "from every s1 = inputStream[id == 1] -> s2 = inputStream[id == 2] -> "
+    "s3 = inputStream[id == 3] within 5 sec "
+    "select s1.timestamp as t1, s3.timestamp as t3, s3.price as price "
+    "insert into matches"
+)
+FILTER = (
+    "from inputStream[id == 2] select id, name, price insert into matches"
+)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi():
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def device_activity(prof):
+    """Device time in a profiler trace: the union of every kernel / copy
+    interval on the card (us; overlaps counted once) and the summed
+    duration per name."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    )
+    busy, lo, hi, per_name = 0.0, None, None, {}
+    for a, b, name in spans:
+        per_name[name] = per_name.get(name, 0.0) + (b - a)
+        if hi is None or a > hi:
+            busy += (hi - lo) if hi is not None else 0.0
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += (hi - lo) if hi is not None else 0.0
+    return busy, per_name
+
+
+def timed(fn, runs=25, warmup=3):
+    """(device ms per call, call ms). Device ms: the card's busy time over
+    ``runs`` calls in a profiler trace, divided by ``runs`` — the kernels'
+    own time. Call ms: the median of CUDA events around single calls,
+    which also holds the host's launch overhead while the card waits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    busy_us, _ = device_activity(prof)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return busy_us / runs / 1e3, statistics.median(times)
+
+
+def same(a, b, what):
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        raise AssertionError(f"{what}: kernel and plain version disagree")
+    if a.dtype == torch.bool:
+        return 0
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+# -- phase 3: kernels against their plain versions -----------------------------
+
+def check_reverse_cummin(co, dev, gen):
+    import torch
+
+    err = 0
+    for C in (1, 2, 8):
+        for E in (65_536, 524_288, 70_001):
+            x = torch.randint(0, E + 1, (C, E), generator=gen,
+                              dtype=torch.int32).to(dev)
+            got = co.multi_reverse_cummin(x)
+            ref = co.reverse_cummin_plain(x)
+            torch.cuda.synchronize()
+            err = max(err, same(got, ref, f"reverse_cummin C={C} E={E}"))
+            log(f"  reverse_cummin C={C} E={E}: exact")
+    return err
+
+
+def chain_inputs(co, dev, gen, K, n_guards, E=65_536, P=1024, density=0.3):
+    """A candidate set shaped like the headline's compacted step: P
+    carried partials plus one fresh start per tape position."""
+    import torch
+
+    rows = []
+    for _ in range(K - 1 + n_guards):
+        hits = torch.rand(E, generator=gen) < density
+        idx = torch.where(hits, torch.arange(E, dtype=torch.int32), E)
+        rows.append(co.reverse_cummin_plain(idx[None])[0])
+    nxt = torch.cat([torch.stack(rows),
+                     torch.full((len(rows), 1), E, dtype=torch.int32)], 1)
+    V = P + E
+    ts = torch.cumsum(torch.randint(0, 3, (E,), generator=gen), 0)
+    ts_pad = torch.cat([ts.to(torch.int32), torch.zeros(1, dtype=torch.int32)])
+    act = torch.rand(V, generator=gen) < 0.5
+    step = torch.randint(1, K, (V,), generator=gen, dtype=torch.int32)
+    pos = torch.randint(0, E + 1, (V,), generator=gen, dtype=torch.int32)
+    start = torch.randint(0, int(ts[-1]) + 1, (V,), generator=gen,
+                          dtype=torch.int32)
+    t = [x.to(dev) for x in (nxt, ts_pad, act, step, pos, start)]
+    return t[0], t[1], t[2], t[3], t[4], t[5]
+
+
+def check_chain_advance(co, dev, gen):
+    import torch
+
+    err = 0
+    cases = [
+        # (name, K, guard rows per step 1..K-1, within)
+        ("headline K=3 R=2 P=1024 E=65536", 3, [[], []], 5000),
+        ("guard K=3, one mid-chain guard", 3, [[], [2]], 1 << 18),
+        ("K=4", 4, [[], [], []], 5000),
+        ("K=4 no within, guards", 4, [[3], [], [4]], None),
+    ]
+    for name, K, guards, within in cases:
+        n_guards = sum(len(g) for g in guards)
+        nxt, ts_pad, act, step, pos, start = chain_inputs(
+            co, dev, gen, K, n_guards
+        )
+        pos_rows = list(range(K - 1))
+        got = co.chain_advance(nxt, pos_rows, guards, ts_pad, act, step,
+                               pos, start, within)
+        ref = co.chain_advance_plain(nxt, pos_rows, guards, ts_pad, act,
+                                     step, pos, start, within)
+        torch.cuda.synchronize()
+        for g, r, what in zip(got, ref, ("act", "step", "pos", "jmat")):
+            err = max(err, same(g, r, f"chain_advance {name} {what}"))
+        log(f"  chain_advance {name}: exact")
+    return err
+
+
+# -- phases 4 and 5: the main path end to end ----------------------------------
+
+def bench_stream(fpt, n_events, batch):
+    """The bench's synthetic stream (bench.py make_batches): rng seed 7,
+    id uniform in [0, 50), name "test_event", price uniform x 100,
+    timestamp 1000 + i ms."""
+    schema = fpt.StreamSchema([("id", "int"), ("name", "string"),
+                               ("price", "double"), ("timestamp", "long")])
+    rng = np.random.default_rng(7)
+    code = schema.string_tables["name"].intern("test_event")
+    out = []
+    for start in range(0, n_events, batch):
+        m = min(batch, n_events - start)
+        ids = rng.integers(0, N_IDS, size=m).astype(np.int32)
+        cols = {
+            "id": ids,
+            "name": np.full(m, code, dtype=np.int32),
+            "price": rng.random(m, dtype=np.float64) * 100.0,
+            "timestamp": 1000 + start + np.arange(m, dtype=np.int64),
+        }
+        out.append(fpt.EventBatch("inputStream", schema, cols,
+                                  cols["timestamp"]))
+    return schema, out
+
+
+def run_job(fpt, cql, schema, batches, device):
+    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="bench")
+    job = fpt.Job([plan], [fpt.BatchSource("inputStream", schema,
+                                           iter(batches))],
+                  batch_size=BATCH, time_mode="processing", device=device)
+    t0 = time.perf_counter()
+    job.run()
+    rows = job.results_with_ts("matches")
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0, job
+
+
+def end_to_end(fpt, co, name, cql, schema, batches, kernels_expected):
+    import torch
+
+    check = batches[:CHECK_BATCHES]
+    n_check = sum(len(b) for b in check)
+    cpu_rows, cpu_s, _ = run_job(fpt, cql, schema, check, "cpu")
+    # warm-up on the card over the same micro-batches: also a second row
+    # check, of a job that ends where the CPU job ends
+    warm_rows, _, _ = run_job(fpt, cql, schema, check, "cuda")
+    if warm_rows != cpu_rows:
+        raise AssertionError(f"{name}: card rows differ from CPU rows")
+    n_events = sum(len(b) for b in batches)
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launches()
+    rows, wall, job = run_job(fpt, cql, schema, batches, "cuda")
+    launches = co.launch_counts()
+    last_ts = int(check[-1].timestamps[-1])
+    head = [r for r in rows if r[0] <= last_ts]
+    if head != cpu_rows:
+        raise AssertionError(
+            f"{name}: rows of the first {n_check} events differ from the "
+            "CPU path"
+        )
+    if not rows or job.processed_events != n_events:
+        raise AssertionError(f"{name}: no rows or events lost")
+    ts = np.asarray([r[0] for r in rows])
+    if not np.all(np.diff(ts) >= 0):
+        raise AssertionError(f"{name}: rows out of emission order")
+    for k in kernels_expected:
+        if launches[k] < N_BATCHES:
+            raise AssertionError(
+                f"{name}: {k} launched {launches[k]} times over "
+                f"{N_BATCHES} micro-batches"
+            )
+    result = {
+        "path": name,
+        "events": n_events,
+        "batch": BATCH,
+        "matches": len(rows),
+        "wall_s": wall,
+        "events_per_s": n_events / wall,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "host_syncs": job.host_syncs,
+        "launches": launches,
+        "cpu_check_events": n_check,
+        "cpu_check_rows": len(cpu_rows),
+        "cpu_check_s": cpu_s,
+    }
+    log(json.dumps(result))
+    breakdown(fpt, name, cql, schema, batches)
+    return result
+
+
+def breakdown(fpt, name, cql, schema, batches):
+    """Where one path's time goes, measured around the program's own
+    calls: host tape build + upload of every batch, the device steps on
+    pre-staged tapes, and a profiler-traced run of the whole job for the
+    device busy share (memcpy and kernels) and the heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_siddhi_tpu_torch.runtime.tape import build_tape
+
+    dev = torch.device("cuda")
+    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="bench")
+    epoch = int(batches[0].timestamps.min())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tapes = [build_tape(plan.spec, [b], epoch).to(dev) for b in batches]
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    states, acc = plan.init_state(dev), plan.init_acc(dev)
+    t0 = time.perf_counter()
+    for tape in tapes:
+        states, acc = plan.step_acc(states, acc, tape)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del tapes, states, acc
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, traced_s, _ = run_job(fpt, cql, schema, batches, "cuda")
+    busy_us, per_name = device_activity(prof)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {
+        "path": name,
+        "stage_tapes_s": stage_s,
+        "device_steps_s": step_s,
+        "traced_wall_s": traced_s,
+        "traced_device_busy_s": busy_us / 1e6,
+        "traced_idle_share": 1 - busy_us / 1e6 / traced_s,
+        "top_device_ms": [[k[:70], v / 1e3] for k, v in top],
+    }
+    log(json.dumps(out))
+    return out
+
+
+class Recorder:
+    """Forwards to a kernel wrapper and keeps a copy of the inputs of its
+    ``keep``-th call (the main path's real inputs for phase 7)."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.calls, self.args = fn, keep, 0, None
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == self.keep:
+            self.args = tuple(
+                a.clone() if hasattr(a, "clone") else a for a in args
+            )
+        return self.fn(*args)
+
+
+# -- phase 7: kernel timing on main-path inputs -------------------------------
+
+def time_reverse_cummin(co, x, launches, err):
+    import torch
+
+    C, E = x.shape
+    ms, call_ms = timed(lambda: co.multi_reverse_cummin(x))
+    plain_ms, plain_call_ms = timed(lambda: co.reverse_cummin_plain(x))
+    # the one PyTorch call computing the same function: cummin of the
+    # flipped rows (the plain version is exactly that call)
+    lib_ms, _ = timed(
+        lambda: torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values,
+                           [-1])
+    )
+    nbytes = 2 * C * E * 4  # read each input once, write each output once
+    ops = C * E  # one min per element
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    return {
+        "name": co.multi_reverse_cummin.name, "route": "cuda",
+        "source": co.multi_reverse_cummin.source,
+        "replaces": "flink_siddhi_tpu/compiler/pallas_ops.py:65",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / INT32_OPS_PER_S else "operations",
+        "library_ms": lib_ms, "call_ms": call_ms,
+        "plain_call_ms": plain_call_ms, "shape": [C, E],
+    }
+
+
+def chain_work(nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start,
+               within):
+    """(bytes, gathers) the advance must do for THESE inputs: the
+    candidate rows streamed in and out, plus one 4-byte read per gather
+    that a live candidate issues (table and ts reads, capped at their
+    sizes). Candidates not at step k issue no gather at step k."""
+    import torch
+
+    E = int(ts_pad.shape[0]) - 1
+    V = int(act.shape[0])
+    n_steps = len(pos_rows)
+    gathers = 0
+    a, s, p = act, step, pos
+    for k in range(1, n_steps + 1):
+        at_k = a & (s == k)
+        gathers += int(at_k.sum()) * (1 + len(guard_rows[k - 1]))
+        idx = p.clamp(0, E).long()
+        j = nxt[pos_rows[k - 1]][idx]
+        found = at_k & (j < E)
+        for g in guard_rows[k - 1]:
+            jg = nxt[g][idx]
+            bad = at_k & (jg <= j) & (jg < E)
+            a = a & ~bad
+            found = found & ~bad
+        if within is not None:
+            gathers += int(found.sum())  # ts[j]
+            ok = (ts_pad[j.long()] - start) <= within
+            a = a & ~(found & ~ok)
+            found = found & ok
+        s = torch.where(found, k + 1, s)
+        p = torch.where(found, j + 1, p)
+    # act 1 B + step/pos/start 12 B in; act 1 B + step/pos 8 B + jmat out
+    streamed = V * 13 + V * 9 + n_steps * V * 4
+    tables = (int(nxt.numel()) + E + 1) * 4
+    return streamed + min(tables, 4 * gathers), gathers
+
+
+def time_chain_advance(co, args, launches, err):
+    nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start, within = args
+    ms, call_ms = timed(lambda: co.chain_advance(*args))
+    plain_ms, plain_call_ms = timed(lambda: co.chain_advance_plain(*args))
+    nbytes, gathers = chain_work(*args)
+    ops = gathers * 4  # compares/selects per gather
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    return {
+        "name": co.chain_advance.name, "route": "cuda",
+        "source": co.chain_advance.source,
+        "replaces": "flink_siddhi_tpu/compiler/pallas_ops.py:297",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / INT32_OPS_PER_S else "operations",
+        "library_ms": None, "call_ms": call_ms,
+        "plain_call_ms": plain_call_ms,
+        "shape": {"rows": int(nxt.shape[0]), "E": int(ts_pad.shape[0]) - 1,
+                  "V": int(act.shape[0]), "K": len(pos_rows) + 1,
+                  "gathers": gathers},
+    }
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs one CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import flink_siddhi_tpu_torch as fpt
+        from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+        from flink_siddhi_tpu_torch.compiler import nfa
+    except ImportError as e:
+        print(f"chip_smoke: run it from the root of a checkout: {e}",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+
+    # 1. device
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1/7] device: {kind} | nvidia-smi: {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    dev = torch.device("cuda")
+
+    # 2. build
+    build_s = co.build()
+    log(f"[2/7] build: {len(co.SOURCES)} kernels in {build_s:.2f} s")
+    for name, out in co.LIBRARIES.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3. kernels against their plain versions (synthetic inputs)
+    gen = torch.Generator().manual_seed(7)
+    log("[3/7] kernels vs plain versions (exact, int32)")
+    err_k1 = check_reverse_cummin(co, dev, gen)
+    err_k2 = check_chain_advance(co, dev, gen)
+
+    # 4. headline end to end; record each kernel's inputs mid-run
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    log(f"[4/7] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
+        f"micro-batches of {BATCH}")
+    rec_k1 = Recorder(co.multi_reverse_cummin, keep=10)
+    rec_k2 = Recorder(co.chain_advance, keep=10)
+    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+    try:
+        head = end_to_end(fpt, co, "headline", HEADLINE, schema, batches,
+                          kernels_expected=("multi_reverse_cummin",
+                                            "chain_advance"))
+    finally:
+        nfa.multi_reverse_cummin = co.multi_reverse_cummin
+        nfa.chain_advance = co.chain_advance
+
+    # 5. filter end to end (no kernel on this path)
+    log("[5/7] filter")
+    end_to_end(fpt, co, "filter", FILTER, schema, batches,
+               kernels_expected=())
+
+    # 6. the API on the default device
+    log("[6/7] api")
+
+    @dataclasses.dataclass
+    class Event:
+        id: int
+        name: str
+        price: float
+        timestamp: int
+
+    events = [Event(i % 4, f"n{i % 3}", float(i), 1000 + 1000 * i)
+              for i in range(50)]
+    fields = ["id", "name", "price", "timestamp"]
+    rows = fpt.SiddhiCEP.define("inputStream", events, fields).cql(
+        "from inputStream[id == 2] select name, price insert into out"
+    ).returns("out")
+    if rows[:2] != [("n2", 2.0), ("n0", 6.0)] or len(rows) != 12:
+        raise AssertionError(f"api filter rows: {rows[:4]}")
+    pat = ("from every s1 = A[id == 2] -> s2 = A[id == 3] "
+           "select s1.id as a, s2.timestamp as t insert into o")
+    got = fpt.SiddhiCEP.define("A", events, fields).cql(pat) \
+        .return_as_map("o")
+    ref = fpt.SiddhiCEP.define("A", events, fields, device="cpu") \
+        .cql(pat).return_as_map("o")
+    if got != ref or got[0] != {"a": 2, "t": 4000} or len(got) != 12:
+        raise AssertionError(f"api pattern rows: {got[:3]} vs {ref[:3]}")
+    log(f"  quick start: {len(rows)} rows; pattern: {len(got)} rows; "
+        "equal to the CPU")
+
+    # 7. kernel timing on the headline path's own inputs
+    log("[7/7] kernels on the headline path's inputs")
+    if rec_k1.args is None or rec_k2.args is None:
+        raise AssertionError("no kernel inputs recorded on the main path")
+    x = rec_k1.args[0]
+    err_k1 = max(err_k1, same(co.multi_reverse_cummin(x),
+                              co.reverse_cummin_plain(x),
+                              "reverse_cummin main-path input"))
+    got = co.chain_advance(*rec_k2.args)
+    ref = co.chain_advance_plain(*rec_k2.args)
+    for g, r in zip(got, ref):
+        err_k2 = max(err_k2, same(g, r, "chain_advance main-path input"))
+    kernels = [
+        time_reverse_cummin(co, x, head["launches"]["multi_reverse_cummin"],
+                            err_k1),
+        time_chain_advance(co, rec_k2.args,
+                           head["launches"]["chain_advance"], err_k2),
+    ]
+    torch.cuda.synchronize()
+    log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,349 @@
+"""Hand-written CUDA kernels for the engine's hot scan primitives.
+
+The counterpart of ``flink_siddhi_tpu/compiler/pallas_ops.py`` for an
+NVIDIA Hopper card. Two kernels live here, both CUDA C++ under ``csrc/``:
+
+* **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
+  the chain matcher's "next match at/after position p" tables: one
+  suffix-min per pattern row, all rows in one launch pair.
+* **chain advance** (``chain_advance``, csrc/chain_advance.cu) — every
+  candidate partial match advanced through the pattern's remaining
+  positive steps, absence guards and ``within`` in one pass, returning the
+  per-step match positions the caller replays capture gathers from.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU, and
+only then. For a CUDA tensor it launches its kernel or raises: there is no
+probe that disables a kernel, no switch that forces the plain version and no
+``try`` that falls back. Each wrapper counts its launches in ``launches``
+(a plain integer, bumped only where the kernel is launched).
+
+The kernels build at their first CUDA use (or through ``build``) with
+``nvcc`` into ``build/torch_kernels/`` beside the package — one shared
+library per source with a plain C interface, loaded with ``ctypes``, all
+sources compiled in parallel. Importing this module needs no ``nvcc``,
+no GPU and no build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+# kernel name -> its source under csrc/
+SOURCES = {
+    "reverse_cummin": "reverse_cummin.cu",
+    "chain_advance": "chain_advance.cu",
+}
+_TILE = 1024  # events per block in reverse_cummin.cu
+_MAX_STEPS = 32  # chain_advance.cu ChainPlan limits
+_MAX_GUARDS = 64
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "fst_reverse_cummin": [_P, _P, _P, _I, _I, _P],
+    "fst_chain_advance": [
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+    ],
+}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+        "and PATH); the CUDA kernels cannot be built"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+class _Libraries:
+    """The loaded kernel libraries, built on first use."""
+
+    def __init__(self) -> None:
+        self._libs: Dict[str, ctypes.CDLL] = {}
+        self._lock = threading.Lock()
+        # per kernel: nvcc's output (ptxas register / spill report)
+        self.build_log: Dict[str, str] = {}
+
+    def build(self, names: Optional[Sequence[str]] = None) -> float:
+        """Compile (one nvcc per source, all started together) and load
+        every named kernel library not loaded yet. Returns the seconds
+        spent; a source whose library is already on disk only loads."""
+        names = list(SOURCES if names is None else names)
+        t0 = time.perf_counter()
+        with self._lock:
+            todo = [n for n in names if n not in self._libs]
+            procs = []
+            for n in todo:
+                path = _lib_path(n)
+                if path.exists():
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / SOURCES[n])]
+                procs.append((n, path, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                )))
+            failed = []
+            for n, path, tmp, proc in procs:
+                out, _ = proc.communicate()
+                self.build_log[n] = out
+                if proc.returncode != 0:
+                    failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
+                else:
+                    os.replace(tmp, path)
+            if failed:
+                raise KernelBuildError("\n".join(failed))
+            for n in todo:
+                lib = ctypes.CDLL(str(_lib_path(n)))
+                for fn_name, argtypes in _ARGTYPES.items():
+                    fn = getattr(lib, fn_name, None)
+                    if fn is not None:
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                self._libs[n] = lib
+        return time.perf_counter() - t0
+
+    def get(self, name: str) -> ctypes.CDLL:
+        lib = self._libs.get(name)
+        if lib is None:
+            self.build([name])
+            lib = self._libs[name]
+        return lib
+
+
+LIBRARIES = _Libraries()
+
+
+def build(names: Optional[Sequence[str]] = None) -> float:
+    """Build and load the kernels ahead of their first use (seconds)."""
+    return LIBRARIES.build(names)
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError {err}"
+        )
+
+
+def _check(t: torch.Tensor, what: str, dtype, device, shape=None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}"
+        )
+
+
+def _device_kind(t: torch.Tensor, what: str) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return kind
+
+
+# --------------------------------------------------------------------------
+# K1: multi-channel reverse cummin
+# --------------------------------------------------------------------------
+
+def reverse_cummin_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain version: suffix min along the last axis, int32 in/out."""
+    return torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values, [-1])
+
+
+class ReverseCummin:
+    """``out[c, e] = min(x[c, e:])`` for an int32 ``[C, E]`` tensor."""
+
+    name = "multi_reverse_cummin"
+    source = "flink_siddhi_tpu_torch/csrc/reverse_cummin.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if _device_kind(x, "x") == "cpu":
+            return reverse_cummin_plain(x)
+        if x.dim() != 2:
+            raise ValueError(f"x: expected [C, E], got {tuple(x.shape)}")
+        _check(x, "x", torch.int32, x.device)
+        C, E = (int(s) for s in x.shape)
+        if not 1 <= C <= 65535 or not 1 <= E < 2 ** 30:
+            raise ValueError(f"x: unsupported shape {(C, E)}")
+        lib = LIBRARIES.get("reverse_cummin")
+        out = torch.empty_like(x)
+        n_tiles = -(-E // _TILE)
+        scratch = torch.empty(C * n_tiles, dtype=torch.int32,
+                              device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.fst_reverse_cummin(
+                x.data_ptr(), out.data_ptr(), scratch.data_ptr(), C, E,
+                stream,
+            )
+        _check_launch(self.name, err)
+        self.launches += 1
+        return out
+
+
+multi_reverse_cummin = ReverseCummin()
+
+
+# --------------------------------------------------------------------------
+# K2: chain advance
+# --------------------------------------------------------------------------
+
+def chain_advance_plain(nxt, pos_rows, guard_rows, ts_pad, act, step, pos,
+                        start, within):
+    """The plain version: the unfused advance loop of nfa._chain_core
+    (without its capture gathers), in torch."""
+    E = int(ts_pad.shape[0]) - 1
+    V = int(act.shape[0])
+    jmat = torch.empty((len(pos_rows), V), dtype=torch.int32,
+                       device=act.device)
+    for k in range(1, len(pos_rows) + 1):
+        at_k = act & (step == k)
+        idx = pos.clamp(0, E).long()
+        j = nxt[pos_rows[k - 1]][idx]
+        found = at_k & (j < E)
+        for g in guard_rows[k - 1]:
+            jg = nxt[g][idx]
+            violated = at_k & (jg <= j) & (jg < E)
+            act = act & ~violated
+            found = found & ~violated
+        if within is not None:
+            ts_j = ts_pad[j.long()]
+            ok = (ts_j - start) <= within
+            dead = found & ~ok
+            found = found & ok
+            act = act & ~dead
+        jmat[k - 1] = torch.where(found, j, E)
+        step = torch.where(found, k + 1, step)
+        pos = torch.where(found, j + 1, pos)
+    return act, step, pos, jmat
+
+
+class ChainAdvance:
+    """Advance ``V`` candidates through positive steps ``1..K-1``.
+
+    ``nxt``: int32 ``[rows, E + 1]`` next-match table (position E = "no
+    match"); ``pos_rows[k-1]``: its row for positive step k;
+    ``guard_rows[k-1]``: its rows of step k's absence guards; ``ts_pad``:
+    int32 ``[E + 1]``; ``act`` bool and ``step``/``pos``/``start`` int32
+    ``[V]``; ``within``: int, or None without a ``within`` clause.
+    Returns ``(act, step, pos, jmat int32[K-1, V])``."""
+
+    name = "chain_advance"
+    source = "flink_siddhi_tpu_torch/csrc/chain_advance.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __call__(self, nxt, pos_rows, guard_rows, ts_pad, act, step, pos,
+                 start, within: Optional[int]):
+        if _device_kind(act, "act") == "cpu":
+            return chain_advance_plain(
+                nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start,
+                within,
+            )
+        n_steps = len(pos_rows)
+        if len(guard_rows) != n_steps:
+            raise ValueError("guard_rows needs one entry per step")
+        n_guards = sum(len(g) for g in guard_rows)
+        if not 1 <= n_steps <= _MAX_STEPS or n_guards > _MAX_GUARDS:
+            raise ValueError(
+                f"chain_advance takes 1..{_MAX_STEPS} steps and at most "
+                f"{_MAX_GUARDS} guards, got {n_steps} and {n_guards}"
+            )
+        dev = act.device
+        E = int(ts_pad.shape[0]) - 1
+        V = int(act.shape[0])
+        n_rows = int(nxt.shape[0])
+        _check(nxt, "nxt", torch.int32, dev, (n_rows, E + 1))
+        rows = list(pos_rows) + [g for gs in guard_rows for g in gs]
+        if any(not 0 <= r < n_rows for r in rows):
+            raise ValueError(f"row index out of range 0..{n_rows - 1}")
+        _check(ts_pad, "ts_pad", torch.int32, dev, (E + 1,))
+        _check(act, "act", torch.bool, dev, (V,))
+        for t, what in ((step, "step"), (pos, "pos"), (start, "start")):
+            _check(t, what, torch.int32, dev, (V,))
+        g_begin = [0]
+        for gs in guard_rows:
+            g_begin.append(g_begin[-1] + len(gs))
+        plan = (
+            [n_steps, int(within is not None)]
+            + list(pos_rows)
+            + g_begin
+            + [g for gs in guard_rows for g in gs]
+        )
+        plan_c = (ctypes.c_int * len(plan))(*plan)
+        lib = LIBRARIES.get("chain_advance")
+        act_o = torch.empty_like(act)
+        step_o = torch.empty_like(step)
+        pos_o = torch.empty_like(pos)
+        jmat = torch.empty((n_steps, V), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fst_chain_advance(
+                nxt.data_ptr(), E, ts_pad.data_ptr(), act.data_ptr(),
+                step.data_ptr(), pos.data_ptr(), start.data_ptr(),
+                act_o.data_ptr(), step_o.data_ptr(), pos_o.data_ptr(),
+                jmat.data_ptr(), V, ctypes.cast(plan_c, ctypes.c_void_p),
+                len(plan), int(within or 0), stream,
+            )
+        _check_launch(self.name, err)
+        self.launches += 1
+        return act_o, step_o, pos_o, jmat
+
+
+chain_advance = ChainAdvance()
+
+KERNELS = (multi_reverse_cummin, chain_advance)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}

@@ -1,0 +1,332 @@
+"""AST for the SiddhiQL-compatible query language.
+
+The reference delegates parsing to the external ``SiddhiCompiler.parse``
+(utils/SiddhiExecutionPlanner.java:76); this framework owns the front-end.
+Node set covers the capability surface of siddhi-core 4.2.40 as exercised by the
+reference (SURVEY.md §2.10): stream DDL, filters, projections with ``as``,
+windows, windowed joins with ``on``, group-by, having, patterns
+(``every A -> B``), sequences (``A+, B?``) with ``within``, aggregations, event
+tables, and namespaced extension calls (``custom:plus(...)``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple, Union
+
+from ..schema.types import AttributeType
+
+
+# --------------------------------------------------------------------------
+# Expressions
+# --------------------------------------------------------------------------
+
+class Expr:
+    pass
+
+
+@dataclass(frozen=True)
+class Literal(Expr):
+    value: object
+    atype: AttributeType
+
+
+@dataclass(frozen=True)
+class TimeLiteral(Expr):
+    """A duration constant, canonicalized to milliseconds."""
+    ms: int
+
+
+@dataclass(frozen=True)
+class Attr(Expr):
+    """Attribute reference: ``name``, ``stream.name``, or ``var[0].name`` /
+    ``var[last].name`` for quantified pattern captures."""
+    name: str
+    qualifier: Optional[str] = None
+    index: Optional[Union[int, str]] = None  # int, or "last"
+
+
+@dataclass(frozen=True)
+class Unary(Expr):
+    op: str  # 'not' | '-'
+    operand: Expr
+
+
+@dataclass(frozen=True)
+class Binary(Expr):
+    op: str  # or and == != < <= > >= + - * / %
+    left: Expr
+    right: Expr
+
+
+@dataclass(frozen=True)
+class Call(Expr):
+    """Function / aggregation / extension call. ``namespace`` is the extension
+    namespace (``custom:plus`` -> namespace='custom', name='plus')."""
+    name: str
+    args: Tuple[Expr, ...]
+    namespace: Optional[str] = None
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.namespace}:{self.name}" if self.namespace else self.name
+
+
+AGGREGATION_NAMES = frozenset(
+    {"sum", "count", "avg", "min", "max", "distinctcount", "stddev"}
+)
+
+
+def is_aggregate_call(e: Expr) -> bool:
+    return (
+        isinstance(e, Call)
+        and e.namespace is None
+        and e.name.lower() in AGGREGATION_NAMES
+    )
+
+
+def contains_aggregate(e: Expr) -> bool:
+    if is_aggregate_call(e):
+        return True
+    if isinstance(e, Unary):
+        return contains_aggregate(e.operand)
+    if isinstance(e, Binary):
+        return contains_aggregate(e.left) or contains_aggregate(e.right)
+    if isinstance(e, Call):
+        return any(contains_aggregate(a) for a in e.args)
+    return False
+
+
+def map_expr(e: Expr, leaf_fn) -> Expr:
+    """Rebuild an expression tree with ``leaf_fn`` applied to every Attr
+    node (THE tree-rewrite helper; each hand-rolled copy of this
+    recursion has to be fixed in lockstep otherwise)."""
+    import dataclasses
+
+    if isinstance(e, Attr):
+        return leaf_fn(e)
+    if isinstance(e, Unary):
+        return dataclasses.replace(e, operand=map_expr(e.operand, leaf_fn))
+    if isinstance(e, Binary):
+        return dataclasses.replace(
+            e,
+            left=map_expr(e.left, leaf_fn),
+            right=map_expr(e.right, leaf_fn),
+        )
+    if isinstance(e, Call):
+        return dataclasses.replace(
+            e, args=tuple(map_expr(a, leaf_fn) for a in e.args)
+        )
+    return e
+
+
+def split_group_key(name: str) -> "Attr":
+    """Group-by keys keep their stream qualifier as ``q.name`` text;
+    turn one back into an Attr."""
+    if "." in name:
+        q, n = name.split(".", 1)
+        return Attr(n, q)
+    return Attr(name)
+
+
+def bare_group_key(name: str) -> str:
+    return name.split(".", 1)[-1]
+
+
+def iter_attrs(e: Expr):
+    """Yield every Attr node in an expression tree."""
+    if isinstance(e, Attr):
+        yield e
+    elif isinstance(e, Unary):
+        yield from iter_attrs(e.operand)
+    elif isinstance(e, Binary):
+        yield from iter_attrs(e.left)
+        yield from iter_attrs(e.right)
+    elif isinstance(e, Call):
+        for a in e.args:
+            yield from iter_attrs(a)
+
+
+# --------------------------------------------------------------------------
+# Selection
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SelectItem:
+    expr: Expr
+    alias: Optional[str] = None
+
+    def output_name(self) -> str:
+        if self.alias:
+            return self.alias
+        if isinstance(self.expr, Attr):
+            return self.expr.name
+        raise ValueError(
+            f"select item {self.expr!r} needs an 'as' alias"
+        )
+
+
+@dataclass(frozen=True)
+class Selector:
+    items: Tuple[SelectItem, ...]  # empty tuple == select *
+    group_by: Tuple[str, ...] = ()
+    having: Optional[Expr] = None
+
+    @property
+    def is_star(self) -> bool:
+        return not self.items
+
+
+# --------------------------------------------------------------------------
+# Input streams
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Window:
+    """``#window.<name>(args)`` handler."""
+    name: str  # length | lengthBatch | time | timeBatch | externalTime | ...
+    args: Tuple[Expr, ...]
+
+
+@dataclass(frozen=True)
+class StreamInput:
+    """``streamId[filter]#window.x(...) as alias``"""
+    stream_id: str
+    alias: Optional[str] = None
+    filters: Tuple[Expr, ...] = ()
+    windows: Tuple[Window, ...] = ()
+
+    @property
+    def ref_name(self) -> str:
+        return self.alias or self.stream_id
+
+
+@dataclass(frozen=True)
+class JoinInput:
+    left: StreamInput
+    right: StreamInput
+    join_type: str  # 'join' | 'left outer join' | 'right outer join' | 'full outer join'
+    on: Optional[Expr] = None
+    within: Optional[int] = None  # ms
+
+
+@dataclass(frozen=True)
+class PatternElement:
+    """One step of a pattern/sequence: ``alias = streamId[filter]<quantifier>``.
+
+    ``min_count``/``max_count`` encode quantifiers: (1,1) plain, (1,-1) ``+``,
+    (0,-1) ``*``, (0,1) ``?``, (m,n) ``<m:n>``; -1 = unbounded.
+    """
+    alias: str
+    stream_id: str
+    filter: Optional[Expr] = None
+    min_count: int = 1
+    max_count: int = 1
+    # 'not' patterns (absence)
+    negated: bool = False
+    # timed terminal absence (`A -> not B for 5 sec`): emit when the
+    # window elapses with no B; only valid on the last, negated element
+    absent_for: Optional[int] = None  # ms
+    # logical groups (`e1 = A and e2 = B`, `e1 = A or e2 = B`): 'and'/'or'
+    # links this element into the SAME step as the previous element
+    group_link: Optional[str] = None
+    # mid-chain re-arming (`A -> every B [-> C]`): once the prefix has
+    # matched, EVERY event matching this element spawns a fresh instance
+    # continuing from here, while the prefix stays armed
+    every_marked: bool = False
+    # first-occurrence-only guard (set by the sequence-absence rewrite,
+    # never by the parser): `A, not B, C+` folds `not B` here rather
+    # than into ``filter`` — the guard constrains only the event that
+    # ENTERS this quantified element, not its later absorbed repeats
+    # (whose predecessor is the previous repeat, not B's window)
+    entry_filter: Optional[Expr] = None
+
+
+@dataclass(frozen=True)
+class PatternInput:
+    """A followed-by chain. ``kind`` distinguishes pattern (``->``, any number
+    of irrelevant events may intervene) from sequence (``,``, strictly
+    consecutive events). ``every_`` re-arms the chain after each start
+    (ControlEvent of the reference's `every` semantics)."""
+    elements: Tuple[PatternElement, ...]
+    kind: str  # 'pattern' | 'sequence'
+    every_: bool = False
+    within: Optional[int] = None  # ms
+    # `every (A -> B)`: grouped-every restarts matching only after each
+    # COMPLETE occurrence (one instance in flight), while ungrouped
+    # `every A -> B` starts an instance at every first-element event
+    every_grouped: bool = False
+
+
+InputClause = Union[StreamInput, JoinInput, PatternInput]
+
+
+# --------------------------------------------------------------------------
+# Top level
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StreamDef:
+    stream_id: str
+    fields: Tuple[Tuple[str, AttributeType], ...]
+
+
+@dataclass(frozen=True)
+class TableDef:
+    table_id: str
+    fields: Tuple[Tuple[str, AttributeType], ...]
+
+
+@dataclass(frozen=True)
+class OutputRate:
+    """``output [all|last|first] every N events | <duration>`` — thins or
+    batches a query's OUTPUT stream (siddhi-core rate limiters)."""
+    mode: str  # 'events' | 'time' | 'snapshot'
+    which: str = "all"  # all | last | first
+    n_events: int = 0
+    ms: int = 0
+
+
+@dataclass(frozen=True)
+class Query:
+    input: InputClause
+    selector: Selector
+    output_stream: str
+    output_action: str = "insert"  # insert | update | delete (tables)
+    name: Optional[str] = None  # @info(name='...')
+    # update/delete row-match condition: ``update T on T.x == x``
+    on_condition: Optional[Expr] = None
+    # `partition with (attr of Stream, ...) begin ... end`: per-key
+    # isolated execution — (stream_id -> key attribute) for this query
+    partition_with: Tuple[Tuple[str, str], ...] = ()
+    # output event category: 'current' (default) | 'expired' | 'all' —
+    # ``insert expired events into O`` emits events as they LEAVE the
+    # window, not as they arrive
+    output_events: str = "current"
+    # output rate limiting (None = every output event)
+    output_rate: Optional["OutputRate"] = None
+    # chained-group provenance (synthesized queries only): flattened
+    # intermediate field -> source tape key ("stream.field"), letting a
+    # downstream group-by intern its keys from the SOURCE column
+    group_sources: Tuple[Tuple[str, str], ...] = ()
+
+    def input_stream_ids(self) -> Tuple[str, ...]:
+        inp = self.input
+        if isinstance(inp, StreamInput):
+            return (inp.stream_id,)
+        if isinstance(inp, JoinInput):
+            return (inp.left.stream_id, inp.right.stream_id)
+        if isinstance(inp, PatternInput):
+            seen: List[str] = []
+            for el in inp.elements:
+                if el.stream_id not in seen:
+                    seen.append(el.stream_id)
+            return tuple(seen)
+        raise TypeError(type(inp))
+
+
+@dataclass(frozen=True)
+class ExecutionPlan:
+    stream_defs: Tuple[StreamDef, ...]
+    table_defs: Tuple[TableDef, ...]
+    queries: Tuple[Query, ...]

@@ -1,0 +1,734 @@
+"""Recursive-descent parser for the SiddhiQL-compatible language.
+
+Owns the role the reference outsources to ``SiddhiCompiler.parse``
+(utils/SiddhiExecutionPlanner.java:76). Supported surface (SURVEY.md §2.10):
+
+* ``define stream S (a string, b int, ...)`` / ``define table T (...)``
+* ``from S[filter]#window.length(5) select a, b as c insert into Out``
+* windowed joins: ``from A#window.length(5) as s1 join B#window.time(500) as s2
+  on s1.id == s2.id select ... insert into Out``
+* patterns: ``from every s1 = A[id == 2] -> s2 = B[id == 3] select ...``
+* sequences: ``from every s1 = A[id == 2]+ , s2 = B[id == 3]? within 1000
+  second select s1[0].name, s2.name ...``
+* group by / having, aggregation calls, extension calls ``custom:plus(x, y)``
+* multiple ';'-separated queries and definitions per plan string
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+from ..schema.types import AttributeType, attribute_type_of
+from . import ast
+from .lexer import SiddhiQLError, Token, TokenStream, tokenize
+
+__all__ = ["parse_plan", "parse_query", "SiddhiQLError"]
+
+
+_TIME_UNITS_MS = {
+    "millisec": 1,  # Siddhi's short form
+    "millisecond": 1,
+    "milliseconds": 1,
+    "ms": 1,
+    "sec": 1000,
+    "second": 1000,
+    "seconds": 1000,
+    "min": 60_000,
+    "minute": 60_000,
+    "minutes": 60_000,
+    "hour": 3_600_000,
+    "hours": 3_600_000,
+    "day": 86_400_000,
+    "days": 86_400_000,
+    "week": 604_800_000,
+    "weeks": 604_800_000,
+    "month": 2_592_000_000,
+    "months": 2_592_000_000,
+    "year": 31_536_000_000,
+    "years": 31_536_000_000,
+}
+
+_TYPE_KEYWORDS = {
+    "string", "int", "long", "float", "double", "bool", "object",
+}
+
+# keywords that terminate an expression context
+_CLAUSE_KEYWORDS = {
+    "select", "insert", "group", "having", "within", "join", "on",
+    "output", "from", "define", "partition", "update", "delete", "as",
+    "left", "right", "full", "outer", "unidirectional", "every", "into",
+}
+
+
+def parse_plan(text: str) -> ast.ExecutionPlan:
+    """Parse a full ';'-separated execution plan (definitions + queries)."""
+    ts = TokenStream(tokenize(text))
+    stream_defs: List[ast.StreamDef] = []
+    table_defs: List[ast.TableDef] = []
+    queries: List[ast.Query] = []
+    while ts.current.kind != "EOF":
+        if ts.accept_op(";"):
+            continue
+        pending_name = _parse_annotations(ts)
+        if ts.at_keyword("define"):
+            kind, d = _parse_definition(ts)
+            if kind == "stream":
+                stream_defs.append(d)
+            else:
+                table_defs.append(d)
+        elif ts.at_keyword("partition"):
+            queries.extend(_parse_partition(ts, name=pending_name))
+        elif ts.at_keyword("from"):
+            queries.append(_parse_query(ts, name=pending_name))
+        else:
+            ts.error(
+                f"expected 'define', 'partition' or 'from', found "
+                f"{ts.current.text!r}"
+            )
+    return ast.ExecutionPlan(
+        tuple(stream_defs), tuple(table_defs), tuple(queries)
+    )
+
+
+def parse_query(text: str) -> ast.Query:
+    """Parse exactly one query (no definitions)."""
+    plan = parse_plan(text)
+    if len(plan.queries) != 1 or plan.stream_defs or plan.table_defs:
+        raise SiddhiQLError("expected exactly one query")
+    return plan.queries[0]
+
+
+# --------------------------------------------------------------------------
+# statements
+# --------------------------------------------------------------------------
+
+def _parse_annotations(ts: TokenStream) -> Optional[str]:
+    """Consume leading @annotations; return @info(name='...') if present."""
+    name = None
+    while ts.current.kind == "ANNOT":
+        annot = ts.advance().text[1:]
+        if ts.accept_op("("):
+            depth = 1
+            last_key = None
+            while depth > 0 and ts.current.kind != "EOF":
+                tok = ts.advance()
+                if tok.kind == "OP" and tok.text == "(":
+                    depth += 1
+                elif tok.kind == "OP" and tok.text == ")":
+                    depth -= 1
+                elif tok.kind == "ID":
+                    last_key = tok.text
+                elif (
+                    tok.kind == "STRING"
+                    and annot.lower() == "info"
+                    and last_key == "name"
+                ):
+                    name = tok.text[1:-1]
+    return name
+
+
+def _parse_definition(
+    ts: TokenStream,
+) -> Tuple[str, Union[ast.StreamDef, ast.TableDef]]:
+    ts.expect_keyword("define")
+    if ts.accept_keyword("stream"):
+        kind = "stream"
+    elif ts.accept_keyword("table"):
+        kind = "table"
+    else:
+        ts.error("expected 'stream' or 'table' after 'define'")
+    name = ts.expect_id().text
+    ts.expect_op("(")
+    fields: List[Tuple[str, AttributeType]] = []
+    while True:
+        fname = ts.expect_id().text
+        ftok = ts.expect_id()
+        if ftok.text.lower() not in _TYPE_KEYWORDS:
+            ts.error(f"unknown attribute type {ftok.text!r}")
+        fields.append((fname, attribute_type_of(ftok.text)))
+        if not ts.accept_op(","):
+            break
+    ts.expect_op(")")
+    if kind == "stream":
+        return kind, ast.StreamDef(name, tuple(fields))
+    return kind, ast.TableDef(name, tuple(fields))
+
+
+def _parse_query(ts: TokenStream, name: Optional[str] = None) -> ast.Query:
+    ts.expect_keyword("from")
+    input_clause = _parse_input(ts)
+    selector = _parse_selector(ts)
+    rate = _parse_output_rate(ts)
+    action, out, on, events = _parse_output(ts)
+    return ast.Query(
+        input_clause, selector, out, action, name, on,
+        output_events=events, output_rate=rate,
+    )
+
+
+def _parse_partition(
+    ts: TokenStream, name: Optional[str] = None
+) -> List[ast.Query]:
+    """``partition with (attr of Stream, ...) begin <query>+ end``:
+    per-key isolated execution of the enclosed queries (Siddhi partition
+    semantics). Each enclosed query carries the key map."""
+    ts.expect_keyword("partition")
+    ts.expect_keyword("with")
+    ts.expect_op("(")
+    keys: List[Tuple[str, str]] = []
+    while True:
+        attr = ts.expect_id().text
+        ts.expect_keyword("of")
+        stream = ts.expect_id().text
+        keys.append((stream, attr))
+        if not ts.accept_op(","):
+            break
+    ts.expect_op(")")
+    ts.expect_keyword("begin")
+    out: List[ast.Query] = []
+    import dataclasses
+
+    while not ts.at_keyword("end"):
+        ts.accept_op(";")
+        if ts.at_keyword("end"):
+            break
+        inner_name = _parse_annotations(ts) or (
+            f"{name}_{len(out)}" if name else None
+        )
+        q = _parse_query(ts, name=inner_name)
+        out.append(
+            dataclasses.replace(q, partition_with=tuple(keys))
+        )
+        ts.accept_op(";")
+    ts.expect_keyword("end")
+    if not out:
+        ts.error("partition block contains no queries")
+    return out
+
+
+# --------------------------------------------------------------------------
+# input clause
+# --------------------------------------------------------------------------
+
+def _parse_input(ts: TokenStream) -> ast.InputClause:
+    if (
+        ts.at_keyword("every")
+        or ts.at_keyword("not")
+        or _looks_like_pattern_element(ts)
+    ):
+        return _parse_pattern(ts)
+    left = _parse_stream_input(ts)
+    if ts.at_keyword("join", "left", "right", "full", "inner"):
+        return _parse_join(ts, left)
+    return left
+
+
+def _looks_like_pattern_element(ts: TokenStream) -> bool:
+    return (
+        ts.current.kind == "ID"
+        and ts.current.text.lower() not in _CLAUSE_KEYWORDS
+        and ts.peek().kind == "OP"
+        and ts.peek().text == "="
+    )
+
+
+def _parse_stream_input(ts: TokenStream) -> ast.StreamInput:
+    stream_id = ts.expect_id().text
+    filters: List[ast.Expr] = []
+    windows: List[ast.Window] = []
+    while True:
+        if ts.accept_op("["):
+            filters.append(_parse_expr(ts))
+            ts.expect_op("]")
+        elif ts.at_op("#"):
+            ts.advance()
+            first = ts.expect_id().text
+            wname = None
+            if ts.accept_op("."):
+                wname = ts.expect_id().text
+            elif ts.accept_op(":"):
+                wname = ts.expect_id().text
+            args: List[ast.Expr] = []
+            if ts.accept_op("("):
+                if not ts.at_op(")"):
+                    args.append(_parse_expr(ts))
+                    while ts.accept_op(","):
+                        args.append(_parse_expr(ts))
+                ts.expect_op(")")
+            if first.lower() == "window" and wname is not None:
+                windows.append(ast.Window(wname, tuple(args)))
+            else:
+                # stream functions (#str:..., #log, ...) — represented as
+                # windows with a namespaced name; compiled later
+                full = f"{first}:{wname}" if wname else first
+                windows.append(ast.Window(full, tuple(args)))
+        else:
+            break
+    alias = None
+    if ts.accept_keyword("as"):
+        alias = ts.expect_id().text
+    return ast.StreamInput(stream_id, alias, tuple(filters), tuple(windows))
+
+
+def _parse_join(ts: TokenStream, left: ast.StreamInput) -> ast.JoinInput:
+    join_type = "join"
+    if ts.at_keyword("left", "right", "full"):
+        side = ts.advance().text.lower()
+        ts.expect_keyword("outer")
+        ts.expect_keyword("join")
+        join_type = f"{side} outer join"
+    elif ts.accept_keyword("inner"):
+        ts.expect_keyword("join")
+    else:
+        ts.expect_keyword("join")
+    right = _parse_stream_input(ts)
+    on = None
+    if ts.accept_keyword("on"):
+        on = _parse_expr(ts)
+    within = None
+    if ts.accept_keyword("within"):
+        within = _parse_time_duration(ts)
+    return ast.JoinInput(left, right, join_type, on, within)
+
+
+def _paren_wraps_chain(ts: TokenStream) -> bool:
+    """Lookahead from a '(' at the cursor: does it wrap a connector
+    chain (``every (A -> B)`` — the canonical Siddhi grouping) rather
+    than a logical and/or step? Connectors at nesting depth 1 decide."""
+    depth = 0
+    i = 0
+    while True:
+        tok = ts.peek(i)
+        if tok.kind == "EOF":
+            return False
+        if tok.kind == "OP":
+            if tok.text in ("(", "["):
+                depth += 1
+            elif tok.text in (")", "]"):
+                depth -= 1
+                if depth == 0:
+                    return False
+            elif depth == 1 and tok.text in ("->", ","):
+                return True
+        i += 1
+
+
+def _parse_chain(
+    ts: TokenStream,
+    elements: Optional[List[ast.PatternElement]] = None,
+    kind: Optional[str] = None,
+) -> Tuple[List[ast.PatternElement], Optional[str]]:
+    """Parse (or continue) a connector chain of pattern steps."""
+    if elements is None:
+        elements = list(_parse_pattern_step(ts))
+    while True:
+        if ts.at_op("->"):
+            connector = "pattern"
+        elif ts.at_op(","):
+            connector = "sequence"
+        else:
+            break
+        if kind is None:
+            kind = connector
+        elif kind != connector:
+            ts.error("cannot mix '->' (pattern) and ',' (sequence) connectors")
+        ts.advance()
+        if ts.accept_keyword("every"):
+            # `A -> every B`: mid-chain re-arming — every B after the
+            # matched prefix spawns its own continuing instance
+            import dataclasses
+
+            if kind == "sequence":
+                ts.error(
+                    "mid-chain 'every' is only valid in '->' patterns"
+                )
+            step = _parse_pattern_step(ts)
+            if len(step) != 1:
+                ts.error(
+                    "mid-chain 'every' cannot mark an and/or group"
+                )
+            el = step[0]
+            if el.min_count != 1 or el.max_count != 1 or el.negated:
+                ts.error(
+                    "mid-chain 'every' element must be a plain (1,1) "
+                    "positive element"
+                )
+            elements.append(
+                dataclasses.replace(el, every_marked=True)
+            )
+            continue
+        elements.extend(_parse_pattern_step(ts))
+    return elements, kind
+
+
+def _parse_pattern(ts: TokenStream) -> ast.PatternInput:
+    every = bool(ts.accept_keyword("every"))
+    elements: Optional[List[ast.PatternElement]] = None
+    kind: Optional[str] = None
+    grouped = False
+    if every and ts.at_op("(") and _paren_wraps_chain(ts):
+        # `every (A -> B)`: grouped-every restarts matching only after a
+        # complete occurrence (Siddhi: one instance in flight), unlike
+        # `every A -> B` which starts an instance at every A
+        grouped = True
+        ts.advance()
+        elements, kind = _parse_chain(ts)
+        ts.expect_op(")")
+        if ts.at_op("->") or ts.at_op(","):
+            ts.error(
+                "'every (...)' followed by further pattern steps is not "
+                "supported; the restart unit must be the whole pattern"
+            )
+    elements, kind = _parse_chain(ts, elements, kind)
+    within = None
+    if ts.accept_keyword("within"):
+        within = _parse_time_duration(ts)
+    return ast.PatternInput(
+        tuple(elements), kind or "pattern", every, within,
+        every_grouped=grouped,
+    )
+
+
+def _parse_pattern_step(ts: TokenStream) -> List[ast.PatternElement]:
+    """One logical step: a single element, or an and/or group
+    (``e1 = A and e2 = B``, optionally parenthesized)."""
+    import dataclasses
+
+    paren = bool(ts.accept_op("("))
+    members = [_parse_pattern_element(ts)]
+    op: Optional[str] = None
+    while ts.at_keyword("and") or ts.at_keyword("or"):
+        if ts.accept_keyword("and"):
+            this_op = "and"
+        else:
+            ts.accept_keyword("or")
+            this_op = "or"
+        if op is None:
+            op = this_op
+        elif op != this_op:
+            ts.error("cannot mix 'and' and 'or' in one pattern step")
+        el = _parse_pattern_element(ts)
+        members.append(dataclasses.replace(el, group_link=op))
+    if paren:
+        ts.expect_op(")")
+    return members
+
+
+def _parse_pattern_element(ts: TokenStream) -> ast.PatternElement:
+    negated = bool(ts.accept_keyword("not"))
+    alias_tok = ts.expect_id()
+    alias = alias_tok.text
+    if ts.accept_op("="):
+        stream_id = ts.expect_id().text
+    else:
+        if negated:
+            stream_id, alias = alias, f"_not_{alias_tok.line}_{alias_tok.col}"
+        else:
+            ts.error("pattern element must be 'alias = streamId[filter]'")
+    filt = None
+    if ts.accept_op("["):
+        filt = _parse_expr(ts)
+        ts.expect_op("]")
+    min_count, max_count = 1, 1
+    if ts.accept_op("+"):
+        min_count, max_count = 1, -1
+    elif ts.accept_op("*"):
+        min_count, max_count = 0, -1
+    elif ts.accept_op("?"):
+        min_count, max_count = 0, 1
+    elif ts.at_op("<") and ts.peek().kind == "INT":
+        ts.advance()
+        min_count = int(ts.advance().text)
+        if ts.accept_op(":"):
+            if ts.current.kind == "INT":
+                max_count = int(ts.advance().text)
+            else:
+                max_count = -1
+        else:
+            max_count = min_count
+        ts.expect_op(">")
+    absent_for = None
+    if negated and ts.accept_keyword("for"):
+        absent_for = _parse_time_duration(ts)
+    return ast.PatternElement(
+        alias, stream_id, filt, min_count, max_count, negated,
+        absent_for,
+    )
+
+
+# --------------------------------------------------------------------------
+# selector / output
+# --------------------------------------------------------------------------
+
+def _parse_selector(ts: TokenStream) -> ast.Selector:
+    items: List[ast.SelectItem] = []
+    group_by: List[str] = []
+    having = None
+    if ts.accept_keyword("select"):
+        if ts.accept_op("*"):
+            pass
+        else:
+            items.append(_parse_select_item(ts))
+            while ts.accept_op(","):
+                items.append(_parse_select_item(ts))
+    if ts.accept_keyword("group"):
+        ts.expect_keyword("by")
+        group_by.append(_parse_group_key(ts))
+        while ts.accept_op(","):
+            group_by.append(_parse_group_key(ts))
+    if ts.accept_keyword("having"):
+        having = _parse_expr(ts)
+    return ast.Selector(tuple(items), tuple(group_by), having)
+
+
+def _parse_group_key(ts: TokenStream) -> str:
+    name = ts.expect_id().text
+    if ts.accept_op("."):
+        # preserve the qualifier: on a join, `group by S.id` vs `T.id`
+        # name different columns (ast.split_group_key undoes this)
+        name = f"{name}.{ts.expect_id().text}"
+    return name
+
+
+def _parse_select_item(ts: TokenStream) -> ast.SelectItem:
+    expr = _parse_expr(ts)
+    alias = None
+    if ts.accept_keyword("as"):
+        alias = ts.expect_id().text
+    return ast.SelectItem(expr, alias)
+
+
+def _parse_output_rate(ts: TokenStream):
+    """``output [all|last|first] every N events | <duration>`` or
+    ``output snapshot every <duration>`` (rate-limited emission)."""
+    if not ts.at_keyword("output"):
+        return None
+    ts.advance()
+    if ts.at_keyword("snapshot"):
+        ts.advance()
+        ts.expect_keyword("every")
+        ms = _parse_time_duration(ts)
+        return ast.OutputRate("snapshot", "all", 0, ms)
+    which = "all"
+    if ts.at_keyword("all", "last", "first"):
+        which = ts.advance().text.lower()
+    ts.expect_keyword("every")
+    if ts.current.kind == "INT" and ts.peek().kind == "ID" and (
+        ts.peek().text.lower() in ("events", "event")
+    ):
+        n = int(ts.advance().text.rstrip("lL"))
+        ts.advance()  # 'events'
+        return ast.OutputRate("events", which, n, 0)
+    ms = _parse_time_duration(ts)
+    return ast.OutputRate("time", which, 0, ms)
+
+
+def _parse_output(ts: TokenStream) -> Tuple[str, str, object, str]:
+    events = "current"
+    if ts.accept_keyword("insert"):
+        action = "insert"
+        # output event category: current | expired | all [events]
+        if ts.at_keyword("current", "expired", "all"):
+            events = ts.current.text.lower()
+            ts.advance()
+            ts.accept_keyword("events")
+        ts.expect_keyword("into")
+    elif ts.accept_keyword("update"):
+        action = "update"
+        ts.accept_keyword("into")
+    elif ts.accept_keyword("delete"):
+        action = "delete"
+        ts.accept_keyword("from")
+    else:
+        ts.error(f"expected 'insert into', found {ts.current.text!r}")
+        raise AssertionError  # unreachable
+    target = ts.expect_id().text
+    on = None
+    if action in ("update", "delete") and ts.accept_keyword("on"):
+        on = _parse_expr(ts)
+    return action, target, on, events
+
+
+# --------------------------------------------------------------------------
+# expressions (precedence climbing)
+# --------------------------------------------------------------------------
+
+def _parse_expr(ts: TokenStream) -> ast.Expr:
+    return _parse_or(ts)
+
+
+def _parse_or(ts: TokenStream) -> ast.Expr:
+    left = _parse_and(ts)
+    while ts.at_keyword("or"):
+        ts.advance()
+        left = ast.Binary("or", left, _parse_and(ts))
+    return left
+
+
+def _parse_and(ts: TokenStream) -> ast.Expr:
+    left = _parse_not(ts)
+    while ts.at_keyword("and"):
+        ts.advance()
+        left = ast.Binary("and", left, _parse_not(ts))
+    return left
+
+
+def _parse_not(ts: TokenStream) -> ast.Expr:
+    if ts.at_keyword("not"):
+        ts.advance()
+        return ast.Unary("not", _parse_not(ts))
+    return _parse_comparison(ts)
+
+
+def _parse_comparison(ts: TokenStream) -> ast.Expr:
+    left = _parse_additive(ts)
+    while ts.at_op("==", "!=", "<", "<=", ">", ">="):
+        op = ts.advance().text
+        left = ast.Binary(op, left, _parse_additive(ts))
+    return left
+
+
+def _parse_additive(ts: TokenStream) -> ast.Expr:
+    left = _parse_multiplicative(ts)
+    while ts.at_op("+", "-"):
+        op = ts.advance().text
+        left = ast.Binary(op, left, _parse_multiplicative(ts))
+    return left
+
+
+def _parse_multiplicative(ts: TokenStream) -> ast.Expr:
+    left = _parse_unary(ts)
+    while ts.at_op("*", "/", "%"):
+        op = ts.advance().text
+        left = ast.Binary(op, left, _parse_unary(ts))
+    return left
+
+
+def _parse_unary(ts: TokenStream) -> ast.Expr:
+    if ts.at_op("-"):
+        ts.advance()
+        return ast.Unary("-", _parse_unary(ts))
+    if ts.at_op("+"):
+        ts.advance()
+        return _parse_unary(ts)
+    return _parse_primary(ts)
+
+
+def _parse_time_duration(ts: TokenStream) -> int:
+    """``1000 second``, ``1 min 30 sec`` -> total milliseconds."""
+    total = 0
+    seen = False
+    while ts.current.kind in ("INT", "FLOAT"):
+        unit_tok = ts.peek()
+        if not (
+            unit_tok.kind == "ID"
+            and unit_tok.text.lower() in _TIME_UNITS_MS
+        ):
+            break
+        value = float(ts.advance().text.rstrip("lLfFdD"))
+        unit = ts.advance().text.lower()
+        total += int(value * _TIME_UNITS_MS[unit])
+        seen = True
+    if not seen:
+        # bare integer = milliseconds (Siddhi accepts plain ms constants)
+        if ts.current.kind == "INT":
+            return int(ts.advance().text.rstrip("lL"))
+        ts.error("expected a time duration (e.g. '5 sec')")
+    return total
+
+
+def _parse_primary(ts: TokenStream) -> ast.Expr:
+    tok = ts.current
+    if tok.kind == "INT":
+        unit = ts.peek()
+        if unit.kind == "ID" and unit.text.lower() in _TIME_UNITS_MS:
+            return ast.TimeLiteral(_parse_time_duration(ts))
+        ts.advance()
+        text = tok.text
+        if text[-1] in "lL":
+            return ast.Literal(int(text[:-1]), AttributeType.LONG)
+        return ast.Literal(int(text), AttributeType.INT)
+    if tok.kind == "FLOAT":
+        unit = ts.peek()
+        if unit.kind == "ID" and unit.text.lower() in _TIME_UNITS_MS:
+            return ast.TimeLiteral(_parse_time_duration(ts))
+        ts.advance()
+        text = tok.text
+        if text[-1] in "fF":
+            return ast.Literal(float(text[:-1]), AttributeType.FLOAT)
+        if text[-1] in "dD":
+            return ast.Literal(float(text[:-1]), AttributeType.DOUBLE)
+        return ast.Literal(float(text), AttributeType.DOUBLE)
+    if tok.kind == "STRING":
+        ts.advance()
+        raw = tok.text[1:-1]
+        raw = (
+            raw.replace("\\'", "'")
+            .replace('\\"', '"')
+            .replace("\\\\", "\\")
+        )
+        return ast.Literal(raw, AttributeType.STRING)
+    if tok.kind == "ID":
+        low = tok.text.lower()
+        if low == "true":
+            ts.advance()
+            return ast.Literal(True, AttributeType.BOOL)
+        if low == "false":
+            ts.advance()
+            return ast.Literal(False, AttributeType.BOOL)
+        return _parse_ref_or_call(ts)
+    if ts.accept_op("("):
+        inner = _parse_expr(ts)
+        ts.expect_op(")")
+        return inner
+    ts.error(f"unexpected token {tok.text!r} in expression")
+    raise AssertionError  # unreachable
+
+
+def _parse_ref_or_call(ts: TokenStream) -> ast.Expr:
+    first = ts.expect_id().text
+    # namespaced extension call custom:plus(...)
+    if ts.at_op(":") and ts.peek().kind == "ID":
+        ts.advance()
+        name = ts.expect_id().text
+        ts.expect_op("(")
+        args = _parse_call_args(ts)
+        return ast.Call(name, args, namespace=first)
+    # plain call sum(...), count(), str(...)
+    if ts.at_op("("):
+        ts.advance()
+        args = _parse_call_args(ts)
+        return ast.Call(first, args)
+    # indexed pattern ref: s1[0].name / s1[last].name
+    if ts.at_op("[") and ts.peek().kind in ("INT", "ID"):
+        save_peek = ts.peek()
+        if save_peek.kind == "INT" or save_peek.text.lower() == "last":
+            ts.advance()
+            idx_tok = ts.advance()
+            index: Union[int, str] = (
+                int(idx_tok.text)
+                if idx_tok.kind == "INT"
+                else "last"
+            )
+            ts.expect_op("]")
+            ts.expect_op(".")
+            name = ts.expect_id().text
+            return ast.Attr(name, qualifier=first, index=index)
+    # qualified ref: stream.attr
+    if ts.at_op(".") and ts.peek().kind == "ID":
+        ts.advance()
+        name = ts.expect_id().text
+        return ast.Attr(name, qualifier=first)
+    return ast.Attr(first)
+
+
+def _parse_call_args(ts: TokenStream) -> Tuple[ast.Expr, ...]:
+    args: List[ast.Expr] = []
+    if ts.at_op("*"):  # count(*)
+        ts.advance()
+    elif not ts.at_op(")"):
+        args.append(_parse_expr(ts))
+        while ts.accept_op(","):
+            args.append(_parse_expr(ts))
+    ts.expect_op(")")
+    return tuple(args)

@@ -1,0 +1,243 @@
+"""Per-input-stream partition inference.
+
+The TPU re-expression of ``utils/SiddhiExecutionPlanner.java:75-241``: for each
+input stream of each query, decide whether events must be key-partitioned
+(GROUPBY with a key list — queries with windows + group-by need all events of a
+key on the same shard) or may be freely sharded (SHUFFLE). The result doubles
+as the sharding spec for the device mesh (key axis) and as the routing rule for
+the ingest partitioner (router/partitioners.py).
+
+Unlike the reference, joins are NOT rejected on the dynamic path (the reference
+throws "Join is not supported now!", SiddhiExecutionPlanner.java:99-100); a
+join stream partitions by the equi-join key when one exists, else broadcast.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from . import ast
+from .lexer import SiddhiQLError
+
+
+@dataclass(frozen=True)
+class StreamPartition:
+    """Partitioning requirement for one input stream."""
+
+    kind: str  # 'groupby' | 'shuffle' | 'broadcast'
+    keys: Tuple[str, ...] = ()
+
+    def compatible(self, other: "StreamPartition") -> bool:
+        if self.kind != other.kind:
+            return False
+        return set(self.keys) == set(other.keys)
+
+
+def _segmentable_chain(inp: "ast.PatternInput") -> bool:
+    """Whether an every-pattern can run time-segmented across shards:
+    a plain (1,1) '->' chain — no quantifiers, no and/or groups, no
+    cross-element filter references, no terminal timed absence, not
+    grouped-every (single instance in flight can't parallelize)."""
+    if inp.kind != "pattern" or not inp.every_ or inp.every_grouped:
+        return False
+    aliases = {el.alias for el in inp.elements}
+    for el in inp.elements:
+        if el.min_count != 1 or el.max_count != 1:
+            return False
+        if getattr(el, "group_link", None):
+            return False
+        if getattr(el, "every_marked", False):
+            return False  # forking runs on the (unsegmented) slot engine
+        if el.negated and el.absent_for is not None:
+            return False
+        if el.filter is not None:
+            for a in ast.iter_attrs(el.filter):
+                if (
+                    a.qualifier is not None
+                    and a.qualifier in aliases
+                    and a.qualifier != el.alias
+                ):
+                    return False  # cross-element ref -> slot engine
+    return True
+
+
+def _time_windowed(si: ast.StreamInput) -> bool:
+    """Whether the join side declares a #window.time — the only window
+    whose membership is shard-independent (see JoinInput partitioning)."""
+    for w in si.windows:
+        if w.name.split(".")[-1] == "time":
+            return True
+    return False
+
+
+def _equi_join_keys(
+    on: Optional[ast.Expr], left: ast.StreamInput, right: ast.StreamInput
+) -> Tuple[Optional[str], Optional[str]]:
+    """Extract a single equality join key pair from the on-condition."""
+    if not isinstance(on, ast.Binary) or on.op != "==":
+        return None, None
+    l, r = on.left, on.right
+    if not (isinstance(l, ast.Attr) and isinstance(r, ast.Attr)):
+        return None, None
+    pair = {}
+    for a in (l, r):
+        if a.qualifier == left.ref_name:
+            pair["left"] = a.name
+        elif a.qualifier == right.ref_name:
+            pair["right"] = a.name
+    if len(pair) == 2:
+        return pair["left"], pair["right"]
+    return None, None
+
+
+def infer_stream_partitions(
+    queries: Tuple[ast.Query, ...]
+) -> Dict[str, StreamPartition]:
+    """Map streamId -> partitioning across all queries in a plan, rejecting
+    incompatible requirements on the same stream (parity with
+    SiddhiExecutionPlanner.retrievePartition, :174-192)."""
+    partitions: Dict[str, StreamPartition] = {}
+    # (left, right) of replicate-scheme joins: the scheme is only exact
+    # as a PAIR (spread left, replicate right); if either side's
+    # requirement merges away, both degrade to owner-pinning together
+    replicate_pairs: List[Tuple[str, str]] = []
+
+    def put(stream_id: str, part: StreamPartition) -> None:
+        """Merge partitioning requirements across queries sharing a
+        stream. 'shuffle' (stateless consumer) is satisfied by any
+        exactly-once distribution — EXCEPT 'replicate', which sends
+        every shard a full copy and would duplicate the stateless
+        query's output. Any other mixed requirement degrades to
+        'broadcast' (single-owner pinning: exact for every consumer,
+        just unscaled), except two different group-by key sets, which
+        stay a hard error (no single routing satisfies both)."""
+        existing = partitions.get(stream_id)
+        if existing is None or existing.compatible(part):
+            partitions.setdefault(stream_id, part)
+            return
+        kinds = {existing.kind, part.kind}
+        if "shuffle" in kinds:
+            stronger = existing if part.kind == "shuffle" else part
+            partitions[stream_id] = (
+                StreamPartition("broadcast")
+                if stronger.kind == "replicate"
+                else stronger
+            )
+            return
+        if kinds == {"groupby"}:
+            raise SiddhiQLError(
+                f"stream {stream_id!r} has incompatible partitioning "
+                f"requirements: {existing} vs {part}"
+            )
+        partitions[stream_id] = StreamPartition("broadcast")
+
+    for q in queries:
+        inp = q.input
+        group_keys = tuple(
+            ast.bare_group_key(n) for n in q.selector.group_by
+        )
+        if isinstance(inp, ast.StreamInput):
+            if q.partition_with:
+                # `partition with (key of S)`: per-key state (windows,
+                # aggregates) — every key's events owned by one shard
+                attr = dict(q.partition_with).get(inp.stream_id)
+                if attr is not None:
+                    put(
+                        inp.stream_id,
+                        StreamPartition("groupby", (attr,)),
+                    )
+                    continue
+            if group_keys:
+                # group-by forces key partitioning (the reference requires
+                # windows+groupBy, findStreamPartition :194-210; here
+                # aggregation state is keyed even without a window, so
+                # group-by alone is sufficient)
+                put(inp.stream_id, StreamPartition("groupby", group_keys))
+            else:
+                put(inp.stream_id, StreamPartition("shuffle"))
+        elif isinstance(inp, ast.JoinInput):
+            lk, rk = _equi_join_keys(inp.on, inp.left, inp.right)
+            if lk and rk:
+                put(inp.left.stream_id, StreamPartition("groupby", (lk,)))
+                put(inp.right.stream_id, StreamPartition("groupby", (rk,)))
+            elif _time_windowed(inp.left) and _time_windowed(inp.right):
+                # non-equi join over TIME windows: replicate one side to
+                # every shard and spread the other — each pair forms
+                # exactly once (an l-arrival sees the full replicated
+                # r-window; an r-arrival copy pairs only with the l rows
+                # its shard owns). Time-window membership is
+                # shard-independent, so results are exact. Reference
+                # analog: broadcast partitioning,
+                # DynamicPartitioner.java:46-52.
+                replicate_pairs.append(
+                    (inp.left.stream_id, inp.right.stream_id)
+                )
+                put(inp.left.stream_id, StreamPartition("shuffle"))
+                put(inp.right.stream_id, StreamPartition("replicate"))
+            else:
+                # length windows are GLOBAL last-n state: spreading a
+                # side would turn them into per-shard last-n. Pin the
+                # single join instance to one owner shard.
+                put(inp.left.stream_id, StreamPartition("broadcast"))
+                put(inp.right.stream_id, StreamPartition("broadcast"))
+        elif isinstance(inp, ast.PatternInput):
+            if q.partition_with:
+                # `partition with (key of S)`: per-key NFA instances,
+                # every key's events owned by one shard -> key-hash
+                # routing scales patterns across the mesh with exact
+                # results (reference analog: keyBy passthrough,
+                # SiddhiStream.java:88-97)
+                keymap = dict(q.partition_with)
+                for sid in q.input_stream_ids():
+                    attr = keymap.get(sid)
+                    if attr is None:
+                        raise SiddhiQLError(
+                            f"stream {sid!r} has no partition key in "
+                            "the partition clause"
+                        )
+                    put(sid, StreamPartition("groupby", (attr,)))
+            elif _segmentable_chain(inp):
+                # unkeyed `every` chain: time-SEGMENT the stream across
+                # shards — each shard matches its contiguous slice in
+                # parallel and partial matches hop shard-to-shard through
+                # later segments (sequence parallelism for CEP; exact
+                # results, unlike the reference's subtask-local matches
+                # under random channels, DynamicPartitioner.java:53-55)
+                for sid in q.input_stream_ids():
+                    put(sid, StreamPartition("segment"))
+            else:
+                # pattern state is a single NFA instance over the whole
+                # stream: all events of all involved streams must reach
+                # that instance -> broadcast to its shard; group-by on
+                # selector keys only affects aggregation
+                for sid in q.input_stream_ids():
+                    put(sid, StreamPartition("broadcast"))
+        else:
+            raise TypeError(type(inp))
+    # replicate-scheme joins are exact only as an intact (shuffle,
+    # replicate) pair; a merge on EITHER side degrades BOTH to pinning —
+    # a spread left with a pinned right would silently drop pairs
+    for l_sid, r_sid in replicate_pairs:
+        lp = partitions.get(l_sid)
+        rp = partitions.get(r_sid)
+        if (
+            lp is not None
+            and rp is not None
+            and lp.kind == "shuffle"
+            and rp.kind == "replicate"
+        ):
+            continue
+        partitions[l_sid] = StreamPartition("broadcast")
+        partitions[r_sid] = StreamPartition("broadcast")
+    return partitions
+
+
+def query_output_fields(q: ast.Query) -> List[str]:
+    """Output attribute names of a query (for typed `returns`)."""
+    if q.selector.is_star:
+        raise SiddhiQLError(
+            "select * output fields depend on the input schema; resolved "
+            "at compile time"
+        )
+    return [item.output_name() for item in q.selector.items]

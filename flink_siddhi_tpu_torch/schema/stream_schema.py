@@ -1,0 +1,190 @@
+"""Named, typed stream schemas and the record -> row bridge.
+
+Re-expresses the reference's schema layer (schema/StreamSchema.java:39-149,
+schema/SiddhiStreamSchema.java:36-71, schema/StreamSerializer.java:38-82) for a
+columnar engine: a schema resolves *any* supported record shape — mapping/dict,
+tuple/list, dataclass or plain object with attributes ("POJO"), namedtuple
+("case class"), or a bare scalar (atomic type) — to a fixed field order, and
+generates the SiddhiQL ``define stream`` DDL. Unlike the reference's per-event
+uncached reflection (StreamSerializer.java:68-82, TODO at :69), accessors are
+resolved once per (schema, record-shape) and reused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .types import AttributeType, attribute_type_of
+from .strings import StringTable
+
+_DDL_TEMPLATE = "define stream {name} ({fields});"
+
+
+class StreamSchema:
+    """Ordered, typed attribute list for one stream."""
+
+    def __init__(
+        self,
+        fields: Sequence[Tuple[str, Any]] | Mapping[str, Any],
+        shared_strings: Optional[StringTable] = None,
+    ) -> None:
+        if isinstance(fields, Mapping):
+            items = list(fields.items())
+        else:
+            items = [(n, t) for (n, t) in fields]
+        if not items:
+            raise ValueError("a stream schema needs at least one field")
+        seen = set()
+        self.field_names: List[str] = []
+        self.field_types: List[AttributeType] = []
+        for name, spec in items:
+            if name in seen:
+                raise ValueError(f"duplicate field name {name!r}")
+            seen.add(name)
+            self.field_names.append(name)
+            self.field_types.append(attribute_type_of(spec))
+        self._index: Dict[str, int] = {
+            n: i for i, n in enumerate(self.field_names)
+        }
+        # one intern table per encoded field (string/object); a CEP
+        # environment passes one shared table so cross-stream string
+        # comparisons (joins, unions) are sound code comparisons
+        self.string_tables: Dict[str, StringTable] = {
+            n: (shared_strings if shared_strings is not None else StringTable())
+            for n, t in zip(self.field_names, self.field_types)
+            if t.is_encoded
+        }
+        self._row_getter = None  # resolved lazily from the first record shape
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def arity(self) -> int:
+        return len(self.field_names)
+
+    def field_index(self, name: str) -> int:
+        try:
+            return self._index[name]
+        except KeyError:
+            raise KeyError(
+                f"unknown field {name!r}; schema has {self.field_names}"
+            ) from None
+
+    def field_type(self, name: str) -> AttributeType:
+        return self.field_types[self.field_index(name)]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._index
+
+    def __repr__(self) -> str:
+        inner = ", ".join(
+            f"{n} {t.value}"
+            for n, t in zip(self.field_names, self.field_types)
+        )
+        return f"StreamSchema({inner})"
+
+    # -- DDL (parity: SiddhiStreamSchema.getStreamDefinitionExpression) -----
+    def ddl(self, stream_id: str) -> str:
+        fields = ", ".join(
+            f"{n} {t.value}" for n, t in zip(self.field_names, self.field_types)
+        )
+        return _DDL_TEMPLATE.format(name=stream_id, fields=fields)
+
+    # -- record -> row -------------------------------------------------------
+    def get_row(self, record: Any) -> Tuple[Any, ...]:
+        """Flatten one record into a tuple ordered by the schema fields.
+
+        Accepts dicts, sequences, namedtuples, dataclasses, attribute objects,
+        and (for arity-1 schemas) bare scalars.
+        """
+        getter = self._row_getter
+        if getter is None or not getter[0](record):
+            getter = self._resolve_getter(record)
+            self._row_getter = getter
+        return getter[1](record)
+
+    def _resolve_getter(self, record: Any):
+        names = self.field_names
+        n = len(names)
+        if isinstance(record, Mapping):
+            return (
+                lambda r: isinstance(r, Mapping),
+                lambda r: tuple(r[nm] for nm in names),
+            )
+        if isinstance(record, (tuple, list, np.ndarray)) and not hasattr(
+            record, "_fields"
+        ):
+            def check(r):
+                return (
+                    isinstance(r, (tuple, list, np.ndarray))
+                    and len(r) >= n
+                )
+            return (check, lambda r: tuple(r[i] for i in range(n)))
+        if hasattr(record, "_fields"):  # namedtuple ("case class")
+            return (
+                lambda r: hasattr(r, "_fields"),
+                lambda r: tuple(getattr(r, nm) for nm in names),
+            )
+        if dataclasses.is_dataclass(record) or all(
+            hasattr(record, nm) for nm in names
+        ):  # "POJO"
+            return (
+                lambda r: all(hasattr(r, nm) for nm in names),
+                lambda r: tuple(getattr(r, nm) for nm in names),
+            )
+        if n == 1:  # atomic type
+            def is_scalar(r):
+                return not isinstance(
+                    r, (Mapping, tuple, list, np.ndarray)
+                ) and not hasattr(r, "_fields")
+            return (is_scalar, lambda r: (r,))
+        raise TypeError(
+            f"cannot map record of type {type(record).__name__} onto schema "
+            f"{self.field_names}"
+        )
+
+    # -- row -> host columns -------------------------------------------------
+    def encode_columns(
+        self, rows: Sequence[Tuple[Any, ...]]
+    ) -> Dict[str, np.ndarray]:
+        """Columnarize rows into device-dtype numpy arrays (strings interned)."""
+        cols: Dict[str, np.ndarray] = {}
+        for i, (name, atype) in enumerate(
+            zip(self.field_names, self.field_types)
+        ):
+            vals = [r[i] for r in rows]
+            if atype.is_encoded:
+                table = self.string_tables[name]
+                cols[name] = np.fromiter(
+                    (table.intern(v) for v in vals),
+                    dtype=np.int32,
+                    count=len(vals),
+                )
+            else:
+                cols[name] = np.asarray(vals, dtype=atype.device_dtype)
+        return cols
+
+    def decode_value(self, name: str, device_value: Any) -> Any:
+        """Device scalar -> host value for one field."""
+        atype = self.field_type(name)
+        if atype.is_encoded:
+            return self.string_tables[name].value(int(device_value))
+        if atype == AttributeType.BOOL:
+            return bool(device_value)
+        if atype in (AttributeType.INT, AttributeType.LONG):
+            return int(device_value)
+        return float(device_value)
+
+
+def schema_from_sample(record: Any, field_names: Sequence[str]) -> StreamSchema:
+    """Build a schema by inferring types from one sample record (the analog of
+    registering a stream by TypeInformation, SiddhiCEP.java:174-185)."""
+    from .types import infer_attribute_type
+
+    tmp = StreamSchema([(n, AttributeType.OBJECT) for n in field_names])
+    row = tmp.get_row(record)
+    return StreamSchema(
+        [(n, infer_attribute_type(v)) for n, v in zip(field_names, row)]
+    )

@@ -1,0 +1,273 @@
+"""The torch port's kernels, held against the JAX package (CPU lane).
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
+each against its plain version there). Here, on the CPU, every wrapper
+takes its plain PyTorch version, and these tests hold that plain version —
+the kernel's specification in the port — to the JAX package's own CPU
+path: ``lax.cummin(..., reverse=True)`` and the numpy oracle for the
+reverse cummin, ``pallas_ops._ref_chain_advance`` for the chain advance,
+and ``nfa._chain_core(..., use_pallas=False)`` for the whole chain core.
+Inputs are made with numpy from a seed and handed to both packages. Every
+comparison is exact: the data is int32 and bool, and captures copy float32
+values without arithmetic.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flink_siddhi_tpu.compiler import nfa as jnfa
+from flink_siddhi_tpu.compiler import pallas_ops
+from flink_siddhi_tpu.compiler.plan import compile_plan as jax_compile
+from flink_siddhi_tpu.schema.stream_schema import StreamSchema as JaxSchema
+
+from flink_siddhi_tpu_torch.compiler import cuda_ops
+from flink_siddhi_tpu_torch.compiler import nfa as tnfa
+from flink_siddhi_tpu_torch.compiler.plan import compile_plan as torch_compile
+from flink_siddhi_tpu_torch.schema.stream_schema import (
+    StreamSchema as TorchSchema,
+)
+
+torch.set_num_threads(2)
+
+_FIELDS = [("id", "int"), ("price", "double"), ("timestamp", "long")]
+
+
+# --------------------------------------------------------------------------
+# K1: multi-channel reverse cummin
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("E", [1, 7, 1000, 4099])
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+def test_reverse_cummin_plain_matches_lax_and_numpy(C, E):
+    rng = np.random.default_rng(C * 10_007 + E)
+    x = rng.integers(0, 2 ** 30, (C, E)).astype(np.int32)
+    got = cuda_ops.multi_reverse_cummin(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    ref_np = np.minimum.accumulate(x[:, ::-1], axis=1)[:, ::-1]
+    ref_lax = np.stack(
+        [np.asarray(jax.lax.cummin(jnp.asarray(r), axis=0, reverse=True))
+         for r in x]
+    )
+    assert np.array_equal(got.numpy(), ref_np)
+    assert np.array_equal(got.numpy(), ref_lax)
+
+
+def test_reverse_cummin_plain_full_int32_range():
+    # the CUDA kernel's identity is INT_MAX; the plain version must be
+    # exact over the whole int32 range too (no 2**30 clamp)
+    x = np.array([[2 ** 31 - 1, -(2 ** 31), 5, 2 ** 31 - 2]], np.int32)
+    got = cuda_ops.reverse_cummin_plain(torch.from_numpy(x)).numpy()
+    assert got.tolist() == [[-(2 ** 31), -(2 ** 31), 5, 2 ** 31 - 2]]
+
+
+# --------------------------------------------------------------------------
+# K2: chain advance
+# --------------------------------------------------------------------------
+
+def _next_match_rows(rng, n_rows, E, density):
+    """Next-match tables as the chain core builds them: reverse cummin of
+    where(pred, position, E), padded with E."""
+    rows = []
+    for _ in range(n_rows):
+        hits = rng.random(E) < density
+        idx = np.where(hits, np.arange(E, dtype=np.int32), E).astype(np.int32)
+        row = np.full(E + 1, E, np.int32)
+        row[:E] = np.minimum.accumulate(idx[::-1])[::-1]
+        rows.append(row)
+    return np.stack(rows)
+
+
+# (positive element ids, guards per positive step, within or None)
+_ADVANCE_CASES = {
+    "k2": ((0, 1), ((), ()), None),
+    "k2_within": ((0, 1), ((), ()), 300),
+    "k3": ((0, 1, 2), ((), (), ()), None),
+    "k3_guard_within": ((0, 1, 3), ((), (), (2,)), 1 << 12),
+    "k3_guards_first_step": ((0, 2, 3), ((), (1,), ()), None),
+    "k4_two_guards_within": ((0, 1, 3, 5), ((), (), (2,), (4, 6)), 900),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ADVANCE_CASES))
+def test_chain_advance_plain_matches_numpy_oracle(case):
+    positive, guards, within = _ADVANCE_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + len(positive))
+    E, P = 1500, 64
+    V = P + E
+    K = len(positive)
+    n_el = max(positive + tuple(g for gs in guards for g in gs)) + 1
+    table = _next_match_rows(rng, n_el, E, 0.08)
+    tsp = np.concatenate(
+        [np.sort(rng.integers(0, 1 << 13, E)).astype(np.int32),
+         np.zeros(1, np.int32)]
+    )
+    act = rng.random(V) < 0.6
+    step = rng.integers(1, K, V).astype(np.int32)
+    pos = rng.integers(0, E + 1, V).astype(np.int32)
+    pos[:40] = E  # candidates whose search already ran off the batch
+    start = rng.integers(0, 1 << 13, V).astype(np.int32)
+    ref = pallas_ops._ref_chain_advance(
+        positive, guards, within is not None,
+        {e: table[e] for e in range(n_el)}, tsp, act, step, pos, start,
+        np.int32(within or 0),
+    )
+    # the port addresses table rows by index; here row e is element e
+    got = cuda_ops.chain_advance(
+        torch.from_numpy(table),
+        list(positive[1:]),
+        [list(guards[k]) for k in range(1, K)],
+        torch.from_numpy(tsp), torch.from_numpy(act),
+        torch.from_numpy(step), torch.from_numpy(pos),
+        torch.from_numpy(start), within,
+    )
+    for g, r, name in zip(got, ref, ("act", "step", "pos", "jmat")):
+        assert np.array_equal(g.numpy(), np.asarray(r)), name
+
+
+# --------------------------------------------------------------------------
+# The chain core: port vs JAX (use_pallas=False), same preds/state/ts
+# --------------------------------------------------------------------------
+
+_CORE_CASES = {
+    "every_within": (
+        "from every s1 = S[id == 1] -> s2 = S[id == 2] -> s3 = S[id == 3] "
+        "within 400 milliseconds "
+        "select s1.timestamp as t1, s3.price as p insert into out"
+    ),
+    "non_every": (
+        "from s1 = S[id == 1] -> s2 = S[id == 2] "
+        "select s1.price as p1, s2.timestamp as t2 insert into out"
+    ),
+    "mid_chain_absence": (
+        "from every s1 = S[id == 1] -> not S[id == 4] -> s2 = S[id == 2] "
+        "select s1.price as p1, s2.price as p2 insert into out"
+    ),
+    "timed_absence": (
+        "from every s1 = S[id == 1] -> s2 = S[id == 2] -> "
+        "not S[id == 4] for 300 milliseconds "
+        "select s1.price as p1, s2.timestamp as t2 insert into out"
+    ),
+    "timed_absence_non_every": (
+        "from s1 = S[id == 1] -> not S[id == 4] for 200 milliseconds "
+        "select s1.price as p1 insert into out"
+    ),
+}
+
+
+def _artifacts(cql):
+    ja = jax_compile(cql, {"S": JaxSchema(_FIELDS)}).artifacts[0]
+    ta = torch_compile(cql, {"S": TorchSchema(_FIELDS)}).artifacts[0]
+    return ja, ta
+
+
+@pytest.mark.parametrize("case", sorted(_CORE_CASES))
+def test_chain_core_matches_jax(case):
+    ja, ta = _artifacts(_CORE_CASES[case])
+    jcfg, tcfg = jnfa._ChainCfg.of(ja.spec), tnfa._ChainCfg.of(ta.spec)
+    assert (jcfg.K, jcfg.positive, jcfg.guards, jcfg.t_guard, jcfg.pairs) \
+        == (tcfg.K, tcfg.positive, tcfg.guards, tcfg.t_guard, tcfg.pairs)
+    rng = np.random.default_rng(sorted(_CORE_CASES).index(case))
+    E, P = 700, 32
+    K = jcfg.K
+    n_el = ja.spec.n_elements
+    ts = np.sort(rng.integers(0, 3000, E)).astype(np.int32)
+    valid = np.ones(E, bool)
+    valid[-25:] = False  # a padded tail, as the tape has
+    ts[-25:] = ts[-26]
+    # positive elements match ids 1, 2, 3 in order; absent elements match
+    # the rare id 4, so some partials survive their guards
+    ids = rng.choice(5, E, p=[0.4, 0.2, 0.2, 0.18, 0.02])
+    el_id, nxt_id = [], 1
+    for el in ja.spec.elements:
+        el_id.append(4 if el.negated else nxt_id)
+        nxt_id += 0 if el.negated else 1
+    preds = np.stack([(ids == el_id[e]) & valid for e in range(n_el)])
+    # carried pool: live partials at every positive step (timed absence
+    # also carries partials waiting at step K)
+    top = K + 1 if jcfg.t_guard is not None else K
+    state = {
+        "enabled": np.asarray(True),
+        "active": rng.random(P) < 0.7,
+        "step": rng.integers(1, max(top, 2), P).astype(np.int32),
+        "start": rng.integers(0, 200, P).astype(np.int32),
+        "done": np.asarray(False),
+        "overflow": np.asarray(3, np.int32),
+    }
+    if jcfg.t_guard is not None:
+        state["emit_ts"] = rng.integers(0, 400, P).astype(np.int32)
+    srcs = {}
+    for pair, dt in zip(jcfg.pairs, jcfg.cap_dtypes):
+        if np.dtype(dt) == np.float32:
+            state[f"cap:{pair[0]}:{pair[1]}"] = (
+                rng.random(P) * 100).astype(np.float32)
+            srcs[pair] = (rng.random(E) * 100).astype(np.float32)
+        else:
+            state[f"cap:{pair[0]}:{pair[1]}"] = rng.integers(
+                0, 5000, P).astype(np.int32)
+            srcs[pair] = rng.integers(0, 5000, E).astype(np.int32)
+    within = ja.spec.within or 0
+    tfor = ja._tfor_ms() or 0
+
+    jout = jnfa._chain_core(
+        jcfg, P, {k: jnp.asarray(v) for k, v in state.items()},
+        jnp.asarray(preds), {k: jnp.asarray(v) for k, v in srcs.items()},
+        jnp.int32(within), jnp.asarray(ts), jnp.asarray(valid),
+        use_pallas=False, tfor_val=jnp.int32(tfor),
+    )
+    tout = tnfa._chain_core(
+        tcfg, P, {k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+        torch.from_numpy(preds),
+        {k: torch.from_numpy(v) for k, v in srcs.items()},
+        within, torch.from_numpy(ts), torch.from_numpy(valid),
+        tfor_val=tfor,
+    )
+    jst, jcomplete, jemit, jcaps = jout
+    tst, tcomplete, temit, tcaps = tout
+    assert set(jst) == set(tst)
+    for k in jst:
+        assert np.array_equal(np.asarray(jst[k]), tst[k].numpy()), k
+    assert np.asarray(jcomplete).any(), "case produced no completion"
+    assert np.array_equal(np.asarray(jcomplete), tcomplete.numpy())
+    assert np.array_equal(np.asarray(jemit), temit.numpy())
+    for pair in jcaps:
+        assert np.array_equal(
+            np.asarray(jcaps[pair]), tcaps[pair].numpy()
+        ), pair
+
+
+def test_non_every_winner_takes_the_first_of_tied_minima():
+    # several completions share the earliest start AND the earliest
+    # completion ts: both frameworks' argmin pick the first index
+    ja, ta = _artifacts(_CORE_CASES["non_every"])
+    jcfg, tcfg = jnfa._ChainCfg.of(ja.spec), tnfa._ChainCfg.of(ta.spec)
+    E, P = 16, 4
+    ts = np.zeros(E, np.int32)  # every event at the same instant
+    valid = np.ones(E, bool)
+    ids = np.array([1, 1, 2, 2] * 4)
+    preds = np.stack([ids == 1, ids == 2])
+    state = {
+        "enabled": np.asarray(True), "active": np.zeros(P, bool),
+        "step": np.ones(P, np.int32), "start": np.zeros(P, np.int32),
+        "done": np.asarray(False), "overflow": np.asarray(0, np.int32),
+        "cap:0:price": np.zeros(P, np.float32),
+        "cap:1:timestamp": np.zeros(P, np.int32),
+    }
+    srcs = {(0, "price"): np.arange(E, dtype=np.float32),
+            (1, "timestamp"): np.arange(E, dtype=np.int32)}
+    jst, jc, je, jcaps = jnfa._chain_core(
+        jcfg, P, {k: jnp.asarray(v) for k, v in state.items()},
+        jnp.asarray(preds), {k: jnp.asarray(v) for k, v in srcs.items()},
+        jnp.int32(0), jnp.asarray(ts), jnp.asarray(valid),
+    )
+    tst, tc, te, tcaps = tnfa._chain_core(
+        tcfg, P, {k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+        torch.from_numpy(preds),
+        {k: torch.from_numpy(v) for k, v in srcs.items()},
+        0, torch.from_numpy(ts), torch.from_numpy(valid),
+    )
+    assert int(np.asarray(jc).sum()) == 1
+    assert np.array_equal(np.asarray(jc), tc.numpy())
+    assert bool(tst["done"]) and bool(np.asarray(jst["done"]))
