@@ -11,29 +11,52 @@ of JAX and nothing of the JAX package. Phases, each failing the run on any
 fault:
 
 1. device: the card's name and power limit;
-2. build: both kernels compiled from the checkout's sources (seconds);
-3. kernels: each kernel held exactly (int32) to its plain PyTorch version
-   at the shapes the main path uses and at edge shapes;
+2. build: the three kernels compiled from the checkout's sources, one nvcc
+   per source, all started together (seconds);
+3. kernels: each kernel held to its plain PyTorch version at the shapes the
+   main paths use and at edge shapes — the reverse cummin and the chain
+   advance exactly (int32); the unique-window fold with its table, counts,
+   minima and maxima exact and its sums and averages within rtol 1e-4;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
    and read just after; rows checked against the port's own CPU path on
    the first 1,048,576 events;
 5. filter: the bench's filter query, the same way;
-6. api: the README's quick start and pattern through SiddhiCEP on the
-   default device, checked against the CPU;
-7. kernels: each kernel timed on the inputs it was given on the headline
-   path — its device time (profiler trace over 25 calls) and its per-call
-   time (CUDA events, median) — beside its plain version, the library
-   call that computes the same function, and its bound.
+6. quote board: `#window.unique(symbol)` with count/sum/avg/min/max over
+   StockStream, 10,000 Zipf-weighted symbols (a 16,384-slot table), at
+   batch 524,288 over 2,097,152 events, the unique-window fold launched
+   once per micro-batch and host syncs counted (drains only); rows checked
+   against the port's CPU path on the first 32,768 events;
+7. kernels: each kernel timed on the inputs it was given on its path — its
+   device time (profiler trace) and its per-call time (CUDA events,
+   median) — beside its plain version, the library call that computes the
+   same function where there is one, and its bound;
+8. where the quote board's time goes: tape staging, device steps (under
+   torch's sync debug mode "error": a host wait inside a step fails the
+   run) and a profiler-traced run for the card's idle share;
+9. api: the README's quick start, pattern and quote board through
+   SiddhiCEP on the default device, checked against the CPU.
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
 the card's nvidia-smi line come before it. Exits non-zero, printing no
 result, when CUDA is unavailable or any phase fails.
+
+    python3 chip_smoke.py --ab DIR [DIR ...]
+
+compares checkouts on one card instead: each DIR is the root of a
+checkout (its own chip_smoke.py and flink_siddhi_tpu_torch/), run in the
+order given, each in a process of its own that builds its own kernels and
+drives the headline and filter paths (phases 4 and 5, without their row
+checks) once on two micro-batches to warm up and then AB_REPEATS times in
+full, printing one JSON line per path with every wall time and events/s.
+Give the two versions as A B B A, so that drift of the card or the host
+during the call shows.
 """
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -47,6 +70,12 @@ CHECK_BATCHES = 2  # rows held to the CPU path over these micro-batches
 N_IDS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
+F32_OPS_PER_S = 67e12  # non-tensor-core float32 rate, same source
+QUOTE_BATCHES = 4  # the quote board's stream: 4 x 524,288 events
+QUOTE_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
+N_SYMBOLS = 10_000
+FOLD_RTOL = 1e-4  # float32 sums added in another order (kernel vs plain)
+AB_REPEATS = 3  # full runs of each path per checkout with --ab
 
 HEADLINE = (
     "from every s1 = inputStream[id == 1] -> s2 = inputStream[id == 2] -> "
@@ -57,6 +86,14 @@ HEADLINE = (
 FILTER = (
     "from inputStream[id == 2] select id, name, price insert into matches"
 )
+QUOTE_BOARD = (
+    "from StockStream#window.unique(symbol) "
+    "select symbol, count() as symbols, sum(price * volume) as notional, "
+    "avg(price) as avg_price, min(price) as lo, max(price) as hi "
+    "insert into Board"
+)
+QUOTE_SLOTS = [("count", -1), ("sum", 0), ("avg", 1), ("min", 1),
+               ("max", 1)]
 
 
 def log(*a):
@@ -125,6 +162,51 @@ def timed(fn, runs=25, warmup=3):
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return busy_us / runs / 1e3, statistics.median(times)
+
+
+def timed_back_to_back(fn, runs, warmup=1):
+    """(ms per call, call ms) for a call that takes a good part of a
+    second: CUDA events around ``runs`` back-to-back calls, over ``runs``
+    (the host's launch work hides behind the card's), and the median of
+    CUDA events around single calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs, statistics.median(times)
+
+
+def profiled_records(fn, runs, name):
+    """How many device records named ``name`` a profiler trace of ``runs``
+    calls holds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name in e.name)
 
 
 def same(a, b, what):
@@ -207,6 +289,91 @@ def check_chain_advance(co, dev, gen):
     return err
 
 
+def zipf_codes(gen, n, n_keys):
+    """n key codes drawn with Zipf rank weights (s = 1) over n_keys."""
+    import torch
+
+    w = 1.0 / torch.arange(1, n_keys + 1, dtype=torch.float64)
+    return torch.multinomial(w, n, replacement=True,
+                             generator=gen).to(torch.int32)
+
+
+def fold_inputs(dev, gen, E, C, A, codes=None, p_mask=0.7):
+    """A batch of E events and a carried table of C slots, a third valid.
+    Codes past either end of the table clip to its edge slots."""
+    import torch
+
+    mask = torch.rand(E, generator=gen) < p_mask
+    if codes is None:
+        codes = torch.randint(-2, C + 3, (E,), generator=gen,
+                              dtype=torch.int32)
+    vals = torch.round(torch.rand((A, E), generator=gen) * 49_900 + 100) / 100
+    valid0 = torch.rand(C, generator=gen) < 0.3
+    bufs0 = torch.where(valid0, torch.rand((A, C), generator=gen) * 500, 0.0)
+    t = [x.to(dev) for x in (mask, codes, vals, valid0, bufs0)]
+    return t[0], t[1], t[2], t[3], t[4]
+
+
+def fold_err(got, ref, slots, what):
+    """Kernel vs plain fold: the table, counts, minima and maxima exact,
+    sums and averages within FOLD_RTOL. Returns the rows' max abs and max
+    relative error."""
+    import torch
+
+    for g, r, name in zip(got[:2], ref[:2], ("valid", "bufs")):
+        if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
+            raise AssertionError(f"{what}: {name} differs")
+    rows, ref_rows = got[2], ref[2]
+    if rows.shape != ref_rows.shape:
+        raise AssertionError(f"{what}: rows shape differs")
+    for s, (kind, _) in enumerate(slots):
+        if kind in ("count", "min", "max"):
+            ok = torch.equal(rows[s], ref_rows[s])
+        else:
+            ok = torch.allclose(rows[s], ref_rows[s], rtol=FOLD_RTOL, atol=0)
+        if not ok:
+            raise AssertionError(f"{what}: {kind} row {s} differs")
+    fin = torch.isfinite(ref_rows)
+    diff = (rows - ref_rows).abs()[fin]
+    if not diff.numel():
+        return 0.0, 0.0
+    rel = diff / ref_rows.abs()[fin].clamp(min=1e-30)
+    return float(diff.max()), float(rel.max())
+
+
+def check_unique_fold(co, dev, gen):
+    import torch
+
+    all5 = [("count", -1), ("sum", 0), ("avg", 0), ("min", 1), ("max", 1),
+            ("sum", 1)]
+    cases = [
+        # (name, E, C, A, slots, codes, what shared memory holds: 2 the
+        # trees and the table, 1 the trees only)
+        ("small E=3001 C=128 A=2", 3001, 128, 2, all5, None, 2),
+        ("edge E=1 C=128 A=0", 1, 128, 0, [("count", -1)], None, 2),
+        ("main E=524288 C=16384 A=2", BATCH, 16_384, 2, QUOTE_SLOTS,
+         zipf_codes(gen, BATCH, N_SYMBOLS), 2),
+        ("global table E=20000 C=65536 A=2", 20_000, 65_536, 2, all5,
+         None, 1),
+    ]
+    err = rel = 0.0
+    for name, E, C, A, slots, codes, placement in cases:
+        args = fold_inputs(dev, gen, E, C, A, codes=codes)
+        got = co.unique_window_fold(*args, slots)
+        ref = co.unique_window_fold_plain(*args, slots)
+        torch.cuda.synchronize()
+        e, r = fold_err(got, ref, slots, f"unique_window_fold {name}")
+        if co.unique_window_fold.placement != placement:
+            raise AssertionError(
+                f"unique_window_fold {name}: placement "
+                f"{co.unique_window_fold.placement}, expected {placement}"
+            )
+        err, rel = max(err, e), max(rel, r)
+        log(f"  unique_window_fold {name}: table exact, rows max abs err "
+            f"{e:.6g}, max rel err {r:.3g}")
+    return err, rel
+
+
 # -- phases 4 and 5: the main path end to end ----------------------------------
 
 def bench_stream(fpt, n_events, batch):
@@ -232,14 +399,14 @@ def bench_stream(fpt, n_events, batch):
     return schema, out
 
 
-def run_job(fpt, cql, schema, batches, device):
-    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="bench")
-    job = fpt.Job([plan], [fpt.BatchSource("inputStream", schema,
-                                           iter(batches))],
+def run_job(fpt, cql, schema, batches, device, stream="inputStream",
+            out="matches"):
+    plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench")
+    job = fpt.Job([plan], [fpt.BatchSource(stream, schema, iter(batches))],
                   batch_size=BATCH, time_mode="processing", device=device)
     t0 = time.perf_counter()
     job.run()
-    rows = job.results_with_ts("matches")
+    rows = job.results_with_ts(out)
     if device != "cpu":
         import torch
 
@@ -300,18 +467,21 @@ def end_to_end(fpt, co, name, cql, schema, batches, kernels_expected):
     return result
 
 
-def breakdown(fpt, name, cql, schema, batches):
+def breakdown(fpt, name, cql, schema, batches, stream="inputStream",
+              out="matches", sync_free=False):
     """Where one path's time goes, measured around the program's own
     calls: host tape build + upload of every batch, the device steps on
     pre-staged tapes, and a profiler-traced run of the whole job for the
-    device busy share (memcpy and kernels) and the heaviest kernels."""
+    device busy share (memcpy and kernels) and the heaviest kernels. With
+    ``sync_free`` the steps run under torch's sync debug mode "error": any
+    host wait for the device inside a step fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from flink_siddhi_tpu_torch.runtime.tape import build_tape
 
     dev = torch.device("cuda")
-    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="bench")
+    plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench")
     epoch = int(batches[0].timestamps.min())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -320,19 +490,26 @@ def breakdown(fpt, name, cql, schema, batches):
     stage_s = time.perf_counter() - t0
     states, acc = plan.init_state(dev), plan.init_acc(dev)
     t0 = time.perf_counter()
-    for tape in tapes:
-        states, acc = plan.step_acc(states, acc, tape)
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for tape in tapes:
+            states = plan.grow_state(states)
+            states, acc = plan.step_acc(states, acc, tape)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     del tapes, states, acc
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, traced_s, _ = run_job(fpt, cql, schema, batches, "cuda")
+        _, traced_s, _ = run_job(fpt, cql, schema, batches, "cuda",
+                                 stream=stream, out=out)
     busy_us, per_name = device_activity(prof)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
-    out = {
+    res = {
         "path": name,
         "stage_tapes_s": stage_s,
         "device_steps_s": step_s,
@@ -340,9 +517,123 @@ def breakdown(fpt, name, cql, schema, batches):
         "traced_device_busy_s": busy_us / 1e6,
         "traced_idle_share": 1 - busy_us / 1e6 / traced_s,
         "top_device_ms": [[k[:70], v / 1e3] for k, v in top],
+        "steps_checked_sync_free": sync_free,
     }
-    log(json.dumps(out))
-    return out
+    log(json.dumps(res))
+    return res
+
+
+# -- phase 6: the quote board (#window.unique aggregation) -------------------
+
+def quote_stream(fpt, n_events, batch, seed=11):
+    """Siddhi's StockStream (symbol string, price double, volume long):
+    10,000 symbols "S00000".."S09999" drawn with Zipf rank weights (s = 1),
+    price uniform in [1, 500) to the cent, volume an integer in [1, 10,000],
+    timestamp 1000 + i ms; numpy, from ``seed``."""
+    schema = fpt.StreamSchema([("symbol", "string"), ("price", "double"),
+                               ("volume", "long")])
+    table = schema.string_tables["symbol"]
+    codes = np.array([table.intern(f"S{i:05d}") for i in range(N_SYMBOLS)],
+                     np.int32)
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, N_SYMBOLS + 1)
+    sym = rng.choice(N_SYMBOLS, size=n_events, p=w / w.sum())
+    price = np.round(rng.uniform(1.0, 500.0, n_events), 2)
+    volume = rng.integers(1, 10_001, n_events)
+    ts = 1000 + np.arange(n_events, dtype=np.int64)
+    out = []
+    for start in range(0, n_events, batch):
+        sl = slice(start, start + batch)
+        out.append(fpt.EventBatch(
+            "StockStream", schema,
+            {"symbol": codes[sym[sl]], "price": price[sl],
+             "volume": volume[sl]}, ts[sl],
+        ))
+    return schema, out, len(np.unique(sym))
+
+
+def board_err(got, ref, what):
+    """Quote-board rows: timestamps, symbol, count, lo and hi exact;
+    notional and avg_price within FOLD_RTOL. Returns the max relative
+    error of those two."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} rows, expected {len(ref)}")
+    if [t for t, _ in got] != [t for t, _ in ref]:
+        raise AssertionError(f"{what}: timestamps differ")
+    for i in (0, 1, 4, 5):
+        if [r[i] for _, r in got] != [r[i] for _, r in ref]:
+            raise AssertionError(f"{what}: column {i} differs")
+    rel = 0.0
+    for i in (2, 3):
+        g = np.array([r[i] for _, r in got])
+        r = np.array([r[i] for _, r in ref])
+        if not np.allclose(g, r, rtol=FOLD_RTOL, atol=0):
+            raise AssertionError(f"{what}: column {i} beyond rtol")
+        rel = max(rel, float(np.max(np.abs(g - r) / np.abs(r))))
+    return rel
+
+
+def quote_board(fpt, co):
+    import torch
+
+    n_events = QUOTE_BATCHES * BATCH
+    schema, batches, n_keys = quote_stream(fpt, n_events, BATCH)
+    check = [batches[0].slice(0, QUOTE_CHECK_EVENTS)]
+    kw = dict(stream="StockStream", out="Board")
+    cpu_rows, cpu_s, _ = run_job(fpt, QUOTE_BOARD, schema, check, "cpu", **kw)
+    warm_rows, _, _ = run_job(fpt, QUOTE_BOARD, schema, check, "cuda", **kw)
+    board_err(warm_rows, cpu_rows, "quote board warm-up vs CPU")
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launches()
+    rows, wall, job = run_job(fpt, QUOTE_BOARD, schema, batches, "cuda",
+                              **kw)
+    launches = co.launch_counts()
+    rel = board_err(rows[:QUOTE_CHECK_EVENTS], cpu_rows,
+                    f"quote board: rows of the first {QUOTE_CHECK_EVENTS} "
+                    "events vs the CPU path")
+    if len(rows) != n_events or job.processed_events != n_events:
+        raise AssertionError("quote board: one row per event expected")
+    if rows[-1][1][1] != n_keys:
+        raise AssertionError("quote board: final count is not the number "
+                             "of distinct symbols")
+    if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
+                    "unique_window_fold": QUOTE_BATCHES}:
+        raise AssertionError(
+            f"quote board: launches {launches}, expected the unique fold "
+            f"once per micro-batch ({QUOTE_BATCHES})"
+        )
+    if job.host_syncs != job.drain_syncs:
+        raise AssertionError("quote board: host syncs beyond the drains")
+    state = job._plans["bench"].states["query_0"]
+    slots = int(state["valid"].shape[0])
+    bucket = 128
+    while bucket < n_keys:
+        bucket *= 2
+    if slots != bucket or int(state["valid"].sum()) != n_keys:
+        raise AssertionError(
+            f"quote board: a table of {slots} slots for {n_keys} symbols"
+        )
+    result = {
+        "path": "quote_board",
+        "events": n_events,
+        "batch": BATCH,
+        "rows": len(rows),
+        "symbols": n_keys,
+        "table_slots": slots,
+        "fold_placement": co.unique_window_fold.placement,
+        "wall_s": wall,
+        "events_per_s": n_events / wall,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "host_syncs": job.host_syncs,
+        "drain_syncs": job.drain_syncs,
+        "launches": launches,
+        "cpu_check_events": QUOTE_CHECK_EVENTS,
+        "cpu_check_rows": len(cpu_rows),
+        "cpu_check_s": cpu_s,
+        "cpu_check_max_rel_err": rel,
+    }
+    log(json.dumps(result))
+    return result, schema, batches
 
 
 class Recorder:
@@ -451,74 +742,68 @@ def time_chain_advance(co, args, launches, err):
     }
 
 
-def main():
-    import torch
+def time_unique_fold(co, args, launches, err, rel):
+    import math
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
-              "run needs one CUDA device", file=sys.stderr)
-        return 2
-    try:
-        import flink_siddhi_tpu_torch as fpt
-        from flink_siddhi_tpu_torch.compiler import cuda_ops as co
-        from flink_siddhi_tpu_torch.compiler import nfa
-    except ImportError as e:
-        print(f"chip_smoke: run it from the root of a checkout: {e}",
-              file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
+    mask, codes, vals, valid0, bufs0, slots = args
+    # the fold takes a good part of a second at the main path's width: a
+    # few calls, timed back to back with CUDA events (a profiler trace of
+    # such calls held fewer kernel records than launches)
+    ms, call_ms = timed_back_to_back(lambda: co.unique_window_fold(*args),
+                                     runs=3)
+    plain_ms, plain_call_ms = timed_back_to_back(
+        lambda: co.unique_window_fold_plain(*args), runs=2
+    )
+    records = profiled_records(lambda: co.unique_window_fold(*args), 3,
+                               "unique_fold_kernel")
+    E, C, A, S = (int(mask.shape[0]), int(valid0.shape[0]),
+                  int(vals.shape[0]), len(slots))
+    # read mask 1 B + code 4 B + A values per event and both tables once,
+    # write S rows and the new tables once
+    nbytes = E * (1 + 4 + 4 * A) + S * E * 4 + 2 * (C + 4 * A * C)
+    # the least exact in-order work: one leaf update and log2(C) combines
+    # of a segment tree per event and statistic
+    n_stats = co._fold_plan(slots)[1]
+    ops = E * n_stats * max(1, math.ceil(math.log2(C)))
+    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    return {
+        "name": co.unique_window_fold.name, "route": "cuda",
+        "source": co.unique_window_fold.source,
+        "replaces": "flink_siddhi_tpu/compiler/pallas_ops.py:539",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / F32_OPS_PER_S else "operations",
+        "library_ms": None, "call_ms": call_ms,
+        "plain_call_ms": plain_call_ms,
+        "max_rel_err": rel,
+        "ms_by": "cuda events over back-to-back calls",
+        "profiler_kernel_records_of_3_launches": records,
+        "shape": {"E": E, "C": C, "A": A, "S": S, "stats": n_stats,
+                  "active_events": int(mask.sum()),
+                  "placement": co.unique_window_fold.placement},
+    }
 
-    # 1. device
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    log(f"[1/7] device: {kind} | nvidia-smi: {smi} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
-    dev = torch.device("cuda")
 
-    # 2. build
-    build_s = co.build()
-    log(f"[2/7] build: {len(co.SOURCES)} kernels in {build_s:.2f} s")
-    for name, out in co.LIBRARIES.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+@dataclasses.dataclass
+class Event:
+    id: int
+    name: str
+    price: float
+    timestamp: int
 
-    # 3. kernels against their plain versions (synthetic inputs)
-    gen = torch.Generator().manual_seed(7)
-    log("[3/7] kernels vs plain versions (exact, int32)")
-    err_k1 = check_reverse_cummin(co, dev, gen)
-    err_k2 = check_chain_advance(co, dev, gen)
 
-    # 4. headline end to end; record each kernel's inputs mid-run
-    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
-    log(f"[4/7] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
-        f"micro-batches of {BATCH}")
-    rec_k1 = Recorder(co.multi_reverse_cummin, keep=10)
-    rec_k2 = Recorder(co.chain_advance, keep=10)
-    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
-    try:
-        head = end_to_end(fpt, co, "headline", HEADLINE, schema, batches,
-                          kernels_expected=("multi_reverse_cummin",
-                                            "chain_advance"))
-    finally:
-        nfa.multi_reverse_cummin = co.multi_reverse_cummin
-        nfa.chain_advance = co.chain_advance
+@dataclasses.dataclass
+class Quote:
+    symbol: str
+    price: float
+    volume: int
+    timestamp: int
 
-    # 5. filter end to end (no kernel on this path)
-    log("[5/7] filter")
-    end_to_end(fpt, co, "filter", FILTER, schema, batches,
-               kernels_expected=())
 
-    # 6. the API on the default device
-    log("[6/7] api")
-
-    @dataclasses.dataclass
-    class Event:
-        id: int
-        name: str
-        price: float
-        timestamp: int
-
+def api_check(fpt):
+    """The README's quick start, pattern and quote board through SiddhiCEP
+    on the default device, against the CPU."""
     events = [Event(i % 4, f"n{i % 3}", float(i), 1000 + 1000 * i)
               for i in range(50)]
     fields = ["id", "name", "price", "timestamp"]
@@ -535,13 +820,99 @@ def main():
         .cql(pat).return_as_map("o")
     if got != ref or got[0] != {"a": 2, "t": 4000} or len(got) != 12:
         raise AssertionError(f"api pattern rows: {got[:3]} vs {ref[:3]}")
+    quotes = [Quote(sym, price, vol, 1000 + i) for i, (sym, price, vol)
+              in enumerate([("IBM", 75.5, 100), ("WSO2", 57.25, 10),
+                            ("IBM", 76.0, 50), ("ORCL", 32.5, 200)] * 5)]
+    qfields = ["symbol", "price", "volume", "timestamp"]
+    board = fpt.SiddhiCEP.define("StockStream", quotes, qfields) \
+        .cql(QUOTE_BOARD).returns("Board")
+    board_cpu = fpt.SiddhiCEP.define("StockStream", quotes, qfields,
+                                     device="cpu") \
+        .cql(QUOTE_BOARD).returns("Board")
+    board_err([(0, r) for r in board], [(0, r) for r in board_cpu],
+              "api quote board")
+    if board[3] != ("ORCL", 3, 76.0 * 50 + 57.25 * 10 + 32.5 * 200,
+                    (76.0 + 57.25 + 32.5) / 3, 32.5, 76.0):
+        raise AssertionError(f"api quote board rows: {board[:4]}")
     log(f"  quick start: {len(rows)} rows; pattern: {len(got)} rows; "
-        "equal to the CPU")
+        f"quote board: {len(board)} rows; equal to the CPU")
 
-    # 7. kernel timing on the headline path's own inputs
-    log("[7/7] kernels on the headline path's inputs")
-    if rec_k1.args is None or rec_k2.args is None:
-        raise AssertionError("no kernel inputs recorded on the main path")
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs one CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import flink_siddhi_tpu_torch as fpt
+        from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+        from flink_siddhi_tpu_torch.compiler import nfa, scan_windows
+    except ImportError as e:
+        print(f"chip_smoke: run it from the root of a checkout: {e}",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+
+    # 1. device
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1/9] device: {kind} | nvidia-smi: {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    dev = torch.device("cuda")
+
+    # 2. build
+    build_s = co.build()
+    log(f"[2/9] build: {len(co.SOURCES)} kernels in {build_s:.2f} s")
+    for name, out in co.LIBRARIES.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3. kernels against their plain versions (synthetic inputs)
+    gen = torch.Generator().manual_seed(7)
+    log("[3/9] kernels vs plain versions")
+    err_k1 = check_reverse_cummin(co, dev, gen)
+    err_k2 = check_chain_advance(co, dev, gen)
+    err_k3, rel_k3 = check_unique_fold(co, dev, gen)
+
+    # 4. headline end to end; record each kernel's inputs mid-run
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    log(f"[4/9] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
+        f"micro-batches of {BATCH}")
+    rec_k1 = Recorder(co.multi_reverse_cummin, keep=10)
+    rec_k2 = Recorder(co.chain_advance, keep=10)
+    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+    try:
+        head = end_to_end(fpt, co, "headline", HEADLINE, schema, batches,
+                          kernels_expected=("multi_reverse_cummin",
+                                            "chain_advance"))
+    finally:
+        nfa.multi_reverse_cummin = co.multi_reverse_cummin
+        nfa.chain_advance = co.chain_advance
+
+    # 5. filter end to end (no kernel on this path)
+    log("[5/9] filter")
+    end_to_end(fpt, co, "filter", FILTER, schema, batches,
+               kernels_expected=())
+    del schema, batches
+
+    # 6. the quote board end to end; record the fold's inputs of the
+    # second micro-batch (calls 1 and 2 are the CPU check and the warm-up)
+    log(f"[6/9] quote board: {QUOTE_BATCHES * BATCH} events in "
+        f"{QUOTE_BATCHES} micro-batches of {BATCH}")
+    rec_k3 = Recorder(co.unique_window_fold, keep=4)
+    scan_windows.unique_window_fold = rec_k3
+    try:
+        board, qschema, qbatches = quote_board(fpt, co)
+    finally:
+        scan_windows.unique_window_fold = co.unique_window_fold
+
+    # 7. kernel timing on each path's own inputs
+    log("[7/9] kernels on their paths' inputs")
+    if rec_k1.args is None or rec_k2.args is None or rec_k3.args is None:
+        raise AssertionError("no kernel inputs recorded on the main paths")
     x = rec_k1.args[0]
     err_k1 = max(err_k1, same(co.multi_reverse_cummin(x),
                               co.reverse_cummin_plain(x),
@@ -550,12 +921,35 @@ def main():
     ref = co.chain_advance_plain(*rec_k2.args)
     for g, r in zip(got, ref):
         err_k2 = max(err_k2, same(g, r, "chain_advance main-path input"))
+    if rec_k3.args[0].device.type != "cuda":
+        raise AssertionError("the recorded fold call did not run on the card")
+    slots = rec_k3.args[-1]
+    e3, r3 = fold_err(co.unique_window_fold(*rec_k3.args),
+                      co.unique_window_fold_plain(*rec_k3.args), slots,
+                      "unique_window_fold main-path input")
+    err_k3, rel_k3 = max(err_k3, e3), max(rel_k3, r3)
     kernels = [
         time_reverse_cummin(co, x, head["launches"]["multi_reverse_cummin"],
                             err_k1),
         time_chain_advance(co, rec_k2.args,
                            head["launches"]["chain_advance"], err_k2),
+        time_unique_fold(co, rec_k3.args,
+                         board["launches"]["unique_window_fold"], err_k3,
+                         rel_k3),
     ]
+
+    # 8. where the quote board's time goes (after the kernel timing: a
+    # profiler session after this traced run recorded no device time on
+    # the card)
+    log("[8/9] quote board: where the time goes")
+    breakdown(fpt, "quote_board", QUOTE_BOARD, qschema, qbatches,
+              stream="StockStream", out="Board", sync_free=True)
+    del qschema, qbatches
+
+    # 9. the API on the default device
+    log("[9/9] api")
+    api_check(fpt)
+
     torch.cuda.synchronize()
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -567,5 +961,53 @@ def main():
     return 0
 
 
+def ab_one(root):
+    """The headline and filter paths of the checkout at ``root``, with its
+    own package, kernels and chip_smoke.py helpers."""
+    root = os.path.abspath(root)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs  # the checkout's own, not this file
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    schema, batches = cs.bench_stream(fpt, cs.BATCH * cs.N_BATCHES, cs.BATCH)
+    n_events = sum(len(b) for b in batches)
+    for name, cql in (("headline", cs.HEADLINE), ("filter", cs.FILTER)):
+        cs.run_job(fpt, cql, schema, batches[:2], "cuda")
+        walls = []
+        for _ in range(AB_REPEATS):
+            rows, wall, _ = cs.run_job(fpt, cql, schema, batches, "cuda")
+            walls.append(wall)
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "checkout": root, "path": name, "events": n_events,
+            "rows": len(rows), "wall_s": walls,
+            "events_per_s": [n_events / w for w in walls],
+        }), flush=True)
+    return 0
+
+
+def ab(roots):
+    for root in roots:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--ab-one", root])
+        if r.returncode != 0:
+            print(f"chip_smoke --ab: {root} failed ({r.returncode})",
+                  file=sys.stderr)
+            return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-one":
+        sys.exit(ab_one(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab":
+        sys.exit(ab(sys.argv[2:]))
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

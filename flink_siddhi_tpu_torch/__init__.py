@@ -2,13 +2,16 @@
 
 The same SiddhiQL engine, run by PyTorch on an NVIDIA GPU (the target is
 one H100) instead of JAX on a TPU: queries compile to dense artifacts — a
-masked filter/projection pass, the chain pattern matcher — that advance a
-whole columnar micro-batch per step, with the matcher's two hot scans as
-hand-written CUDA kernels (``compiler/cuda_ops.py``, ``csrc/``).
+masked filter/projection pass, the chain pattern matcher, the unique
+window's slot table — that advance a whole columnar micro-batch per step,
+with the hot scans as hand-written CUDA kernels (``compiler/cuda_ops.py``,
+``csrc/``).
 
 The port goes slice by slice; this package holds the filter/projection
-path and chain patterns (``every``, ``within``, mid-chain and timed
-absence). Everything else raises ``SiddhiQLError`` naming the later slice;
+path (also over a window), chain patterns (``every``, ``within``,
+mid-chain and timed absence) and ``#window.unique(attr)`` with
+count/sum/avg/min/max. Everything else raises ``SiddhiQLError`` naming the
+later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.
 

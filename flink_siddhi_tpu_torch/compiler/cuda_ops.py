@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the engine's hot scan primitives.
 
 The counterpart of ``flink_siddhi_tpu/compiler/pallas_ops.py`` for an
-NVIDIA Hopper card. Two kernels live here, both CUDA C++ under ``csrc/``:
+NVIDIA Hopper card. Three kernels live here, all CUDA C++ under ``csrc/``:
 
 * **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
   the chain matcher's "next match at/after position p" tables: one
@@ -10,6 +10,9 @@ NVIDIA Hopper card. Two kernels live here, both CUDA C++ under ``csrc/``:
   candidate partial match advanced through the pattern's remaining
   positive steps, absence guards and ``within`` in one pass, returning the
   per-step match positions the caller replays capture gathers from.
+* **unique-window fold** (``unique_window_fold``, csrc/unique_fold.cu) —
+  one micro-batch folded, in event order, into the ``#window.unique`` slot
+  table, with every event's count/sum/avg/min/max over the valid slots.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
@@ -50,10 +53,14 @@ NVCC_FLAGS = (
 SOURCES = {
     "reverse_cummin": "reverse_cummin.cu",
     "chain_advance": "chain_advance.cu",
+    "unique_fold": "unique_fold.cu",
 }
 _TILE = 1024  # events per block in reverse_cummin.cu
 _MAX_STEPS = 32  # chain_advance.cu ChainPlan limits
 _MAX_GUARDS = 64
+FOLD_MAX_SLOTS = 64  # unique_fold.cu FoldPlan limits
+FOLD_MAX_ARGS = 64
+_FOLD_TILE = 32  # unique_fold.cu: table slots under one tree leaf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +68,10 @@ _ARGTYPES = {
     "fst_reverse_cummin": [_P, _P, _P, _I, _I, _P],
     "fst_chain_advance": [
         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+    ],
+    "fst_unique_fold": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+        _P, _I, _P, _P,
     ],
 }
 
@@ -337,7 +348,170 @@ class ChainAdvance:
 
 chain_advance = ChainAdvance()
 
-KERNELS = (multi_reverse_cummin, chain_advance)
+
+# --------------------------------------------------------------------------
+# K3: unique-window fold
+# --------------------------------------------------------------------------
+
+# slot kinds, and the statistics they read (unique_fold.cu's codes)
+_FOLD_KINDS = {"count": 0, "sum": 1, "avg": 2, "min": 3, "max": 4}
+_STAT_OP = {"count": 0, "sum": 1, "avg": 1, "min": 2, "max": 3}
+# the plain version folds this many table cells (events x slots) at a time:
+# 256 events a chunk at C = 16,384 slots
+_PLAIN_CHUNK_CELLS = 1 << 22
+
+
+def _fold_rows(valid, bufs, slots):
+    """Every aggregate slot over the valid slots of ``[T, C]`` tables:
+    ``valid`` bool and ``bufs[a]`` float32. Returns float32 ``[S, T]``
+    (the reference's ``ScanWindowArtifact._agg_rows``, per event row)."""
+    cnt = valid.sum(1).to(torch.float32)
+    sums: Dict[int, torch.Tensor] = {}
+    out = []
+    for kind, a in slots:
+        if kind == "count":
+            out.append(cnt)
+        elif kind in ("sum", "avg"):
+            if a not in sums:
+                sums[a] = torch.where(valid, bufs[a], 0.0).sum(1)
+            out.append(sums[a] if kind == "sum"
+                       else sums[a] / torch.clamp(cnt, min=1.0))
+        else:
+            ident = float("inf") if kind == "min" else float("-inf")
+            masked = torch.where(valid, bufs[a], ident)
+            out.append(masked.amin(1) if kind == "min" else masked.amax(1))
+    return torch.stack(out)
+
+
+def unique_window_fold_plain(mask, codes, vals, valid0, bufs0, slots):
+    """The plain version, in chunks of events: for T events at a time the
+    ``[T, C]`` table of each slot's latest writer in the chunk comes from
+    one scatter and a cummax down the chunk; the T table states follow by
+    gathers, and masked reductions over C give the T aggregate rows."""
+    E = int(mask.shape[0])
+    C = int(valid0.shape[0])
+    dev = mask.device
+    rows = torch.empty((len(slots), E), dtype=torch.float32, device=dev)
+    valid, bufs = valid0.clone(), bufs0.clone()
+    code = codes.clamp(0, C - 1)
+    T = max(1, min(E, _PLAIN_CHUNK_CELLS // C))
+    for t0 in range(0, E, T):
+        n = min(T, E - t0)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        # writes of masked-out events go to a dump column C
+        col = torch.where(mask[t0:t0 + n], code[t0:t0 + n], C).long()
+        last = torch.full((n, C + 1), -1, dtype=torch.int32, device=dev)
+        last.scatter_(1, col[:, None], idx[:, None])
+        last = torch.cummax(last[:, :C], 0).values
+        hit = last >= 0
+        at = last.clamp(min=0).long()
+        v_t = valid[None, :] | hit
+        b_t = [
+            torch.where(hit, vals[a, t0:t0 + n][at], bufs[a][None, :])
+            for a in range(int(bufs.shape[0]))
+        ]
+        rows[:, t0:t0 + n] = _fold_rows(v_t, b_t, slots)
+        valid = v_t[-1].clone()
+        for a, b in enumerate(b_t):
+            bufs[a] = b[-1]
+    return valid, bufs, rows
+
+
+def _fold_plan(slots) -> list:
+    """unique_fold.cu's FoldPlan: slot kinds, and the distinct statistics
+    ``(op, column)`` the slots read (statistic 0 the count)."""
+    stats = [(_STAT_OP["count"], -1)]
+    slot_stat = []
+    for kind, a in slots:
+        if kind not in _FOLD_KINDS:
+            raise ValueError(f"unique_window_fold: no {kind!r} aggregate")
+        key = stats[0] if kind == "count" else (_STAT_OP[kind], a)
+        if key not in stats:
+            stats.append(key)
+        slot_stat.append(stats.index(key))
+    return (
+        [len(slots), len(stats)]
+        + [_FOLD_KINDS[k] for k, _ in slots]
+        + slot_stat
+        + [op for op, _ in stats]
+        + [a for _, a in stats]
+    )
+
+
+class UniqueWindowFold:
+    """Fold a micro-batch, in event order, into a ``#window.unique`` table.
+
+    ``mask`` bool and ``codes`` int32 ``[E]``; ``vals`` float32 ``[A, E]``
+    (the events' value columns); ``valid0`` bool ``[C]`` and ``bufs0``
+    float32 ``[A, C]`` (the carried table); ``slots``: ``(kind, arg)`` per
+    aggregate, kind one of count/sum/avg/min/max (arg -1 for count).
+    Event t with ``mask[t]`` sets slot ``clip(codes[t], 0, C - 1)``; then
+    every slot is computed over the valid slots. Returns ``(valid bool[C],
+    bufs float32[A, C], rows float32[S, E])``."""
+
+    name = "unique_window_fold"
+    source = "flink_siddhi_tpu_torch/csrc/unique_fold.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        # what the last launch kept in shared memory: 2 the statistic trees
+        # and the table, 1 the trees only, 0 neither
+        self.placement: Optional[int] = None
+
+    def __call__(self, mask, codes, vals, valid0, bufs0, slots):
+        if _device_kind(mask, "mask") == "cpu":
+            return unique_window_fold_plain(mask, codes, vals, valid0,
+                                            bufs0, slots)
+        dev = mask.device
+        E = int(mask.shape[0])
+        C = int(valid0.shape[0])
+        A = int(vals.shape[0])
+        S = len(slots)
+        if not 1 <= S <= FOLD_MAX_SLOTS or A > FOLD_MAX_ARGS or C < 1:
+            raise ValueError(
+                f"unique_window_fold takes 1..{FOLD_MAX_SLOTS} aggregates, "
+                f"at most {FOLD_MAX_ARGS} value columns and C >= 1, got "
+                f"{S}, {A} and {C}"
+            )
+        if any(kind != "count" and not 0 <= a < A for kind, a in slots):
+            raise ValueError("unique_window_fold: slot column out of range")
+        _check(mask, "mask", torch.bool, dev, (E,))
+        _check(codes, "codes", torch.int32, dev, (E,))
+        _check(vals, "vals", torch.float32, dev, (A, E))
+        _check(valid0, "valid0", torch.bool, dev, (C,))
+        _check(bufs0, "bufs0", torch.float32, dev, (A, C))
+        plan = _fold_plan(slots)
+        plan_c = (ctypes.c_int * len(plan))(*plan)
+        # one tree per statistic: 2T nodes over T >= C / 32 leaves; the
+        # kernel uses this scratch when the trees do not fit shared memory
+        T = 1
+        while T * _FOLD_TILE < C:
+            T *= 2
+        tree_floats = plan[1] * 2 * T
+        placement = ctypes.c_int(-1)
+        lib = LIBRARIES.get("unique_fold")
+        valid = torch.empty_like(valid0)
+        bufs = torch.empty_like(bufs0)
+        rows = torch.empty((S, E), dtype=torch.float32, device=dev)
+        scratch = torch.empty(tree_floats, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fst_unique_fold(
+                mask.data_ptr(), codes.data_ptr(), vals.data_ptr(),
+                valid0.data_ptr(), bufs0.data_ptr(), valid.data_ptr(),
+                bufs.data_ptr(), rows.data_ptr(), scratch.data_ptr(),
+                tree_floats, E, C, A, ctypes.cast(plan_c, ctypes.c_void_p),
+                len(plan), ctypes.addressof(placement), stream,
+            )
+        _check_launch(self.name, err)
+        self.launches += 1
+        self.placement = placement.value
+        return valid, bufs, rows
+
+
+unique_window_fold = UniqueWindowFold()
+
+KERNELS = (multi_reverse_cummin, chain_advance, unique_window_fold)
 
 
 def reset_launches() -> None:

@@ -8,11 +8,11 @@ embedded interpreters but ONE step function: every query in the plan is an
 artifact contributing to ``step(states, tape) -> (states, outputs)``, run
 eagerly by torch on the plan's device.
 
-This port covers plain stream queries (filter / projection) and chain
-patterns. Windows, aggregation, joins, tables, partitions, query chaining
-and output rate limiting raise ``SiddhiQLError`` naming the later slice of
-the port (ROADMAP.md Queue 1); the JAX package ``flink_siddhi_tpu`` runs
-them.
+This port covers plain stream queries (filter / projection, also over a
+window), chain patterns, and ``#window.unique`` aggregation. Other windows
+and aggregation, joins, tables, partitions, query chaining and output rate
+limiting raise ``SiddhiQLError`` naming the later slice of the port
+(ROADMAP.md Queue 1); the JAX package ``flink_siddhi_tpu`` runs them.
 """
 
 from __future__ import annotations
@@ -54,6 +54,16 @@ class CompiledPlan:
 
     def init_state(self, device) -> Dict:
         return {a.name: a.init_state(device) for a in self.artifacts}
+
+    def grow_state(self, states: Dict) -> Dict:
+        """Re-bucket keyed state tables after host interning discovered
+        new keys (their sizes are known on the host: no device wait)."""
+        out = dict(states)
+        for a in self.artifacts:
+            grow = getattr(a, "grow_state", None)
+            if grow is not None:
+                out[a.name] = grow(states[a.name])
+        return out
 
     def step(self, states: Dict, tape) -> Tuple[Dict, Dict]:
         """Advance every query one micro-batch."""
@@ -325,20 +335,22 @@ def compile_plan(
 
     artifacts = []
     used_names = set()
+    encoded = []
     for qi, q in enumerate(parsed.queries):
         qname = q.name or f"query_{qi}"
         if qname in used_names:
             raise SiddhiQLError(f"duplicate query name {qname!r}")
         used_names.add(qname)
-        artifacts.append(
-            _compile_query(
-                q, qname, all_schemas, stream_codes, extensions, config
-            )
+        art = _compile_query(
+            q, qname, all_schemas, stream_codes, extensions, config
         )
+        encoded.extend(getattr(art, "encoded_columns", ()))
+        artifacts.append(art)
 
     return CompiledPlan(
         plan_id=plan_id,
-        spec=TapeSpec(stream_codes, tuple(columns), column_types),
+        spec=TapeSpec(stream_codes, tuple(columns), column_types,
+                      tuple(encoded)),
         artifacts=artifacts,
         schemas=all_schemas,
         config=config,
@@ -368,7 +380,11 @@ def _compile_query(
             ast.contains_aggregate(i.expr) for i in q.selector.items
         )
         if inp.windows or has_agg or q.selector.group_by:
-            raise _later("windows and aggregation", 6)
+            from .window import compile_window_query
+
+            return compile_window_query(
+                q, name, schemas, stream_codes, extensions
+            )
         ref = inp.ref_name
         resolver = ExprResolver(
             {ref: (inp.stream_id, schemas[inp.stream_id])},
@@ -445,13 +461,23 @@ def _referenced_field_names(parsed):
 # Engine state carried across packages
 # --------------------------------------------------------------------------
 
-def state_from_numpy(plan: CompiledPlan, states_np: Dict,
-                     device) -> Dict:
+def state_from_numpy(plan: CompiledPlan, states_np: Dict, device,
+                     encoders: Optional[Dict[str, dict]] = None) -> Dict:
     """Engine state as numpy arrays (for example the JAX plan's state,
-    fetched to the host) -> this plan's state tensors on ``device``. The
-    per-artifact key sets must match the port's own ``init_state``."""
+    fetched to the host) -> this plan's state tensors on ``device``.
+    ``encoders`` — ``{enc.out_key: enc.encoder.state_dict()}`` over the
+    source plan's ``spec.encoded``, the form the JAX package's checkpoints
+    keep them in — loads the group-key encoders first: a keyed table's
+    size follows its encoder, and its slots follow the encoder's codes.
+    The per-artifact key sets must match the port's own ``init_state``;
+    every shape and dtype must match it after growth to the loaded
+    encoders."""
     device = torch.device(device)
-    fresh = plan.init_state("cpu")
+    for enc in plan.spec.encoded:
+        if encoders is None or enc.out_key not in encoders:
+            raise KeyError(f"no encoder state for group key {enc.out_key!r}")
+        enc.encoder.load_state_dict(encoders[enc.out_key])
+    fresh = plan.grow_state(plan.init_state("cpu"))
     out = {}
     for a in plan.artifacts:
         if a.name not in states_np:

@@ -294,6 +294,9 @@ class Job:
     def _step_plan(self, rt: _PlanRuntime, ready: List[EventBatch]) -> None:
         for involved in self._plan_windows(rt, ready):
             tape = self._stage_tape(rt, involved)
+            # host interning may have discovered new keys: re-bucket the
+            # keyed state tables before the step (host-known sizes)
+            rt.states = rt.plan.grow_state(rt.states)
             rt.states, rt.acc = rt.plan.step_acc(rt.states, rt.acc, tape)
             rt.acc_dirty = True
             if rt.dirty_since is None:

@@ -10,6 +10,9 @@ lengths so every artifact sees a handful of widths, not one per batch.
 
 ``build_tape`` assembles the host (numpy) tape; ``Tape.to`` stages it onto
 the plan's device, through pinned host memory when the device is a GPU.
+Group keys (``EncodedColumn``) are interned into dense int32 codes on the
+host while the tape is built, so the device never looks a key up and the
+host learns every new key without waiting for the device.
 """
 
 from __future__ import annotations
@@ -34,12 +37,31 @@ def bucket_size(n: int, minimum: int = MIN_BUCKET) -> int:
 
 
 @dataclass(frozen=True)
+class EncodedColumn:
+    """A host-computed dense-code column: rows of ``in_keys`` (for events of
+    ``stream_code``) interned through ``encoder`` into ``out_key``. Used for
+    group-keyed state tables (schema/encoders.py).
+
+    ``select_fn`` (cols -> bool mask), when set, restricts interning to rows
+    the owning query's filters accept — otherwise a heavily filtered query
+    over a high-cardinality stream would grow its state table for keys that
+    can never emit. It takes the host tape's numpy columns."""
+
+    out_key: str
+    in_keys: Tuple[str, ...]
+    stream_code: int
+    encoder: object  # GroupEncoder
+    select_fn: object = None
+
+
+@dataclass(frozen=True)
 class TapeSpec:
     """What the step needs materialized."""
 
     stream_codes: Dict[str, int]  # stream_id -> dense code
     columns: Tuple[str, ...]  # "stream.field" keys
     column_types: Dict[str, AttributeType]
+    encoded: Tuple[EncodedColumn, ...] = ()
 
 
 @dataclass
@@ -113,7 +135,8 @@ def build_tape(
     capacity: Optional[int] = None,
 ) -> Tape:
     """Merge per-stream batches into one padded, ts-sorted host tape
-    (numpy arrays; ``Tape.to`` moves it to the device)."""
+    (numpy arrays; ``Tape.to`` moves it to the device). Every encoded
+    column's keys are interned here, growing its encoder."""
     total = sum(len(b) for b in batches)
     cap = capacity if capacity is not None else bucket_size(total)
     if total > cap:
@@ -164,4 +187,16 @@ def build_tape(
         if vals is not None:
             col[:total] = vals
         cols[key] = col
+
+    for enc in spec.encoded:
+        select = stream[:total] == enc.stream_code
+        if enc.select_fn is not None:
+            view = {k: v[:total] for k, v in cols.items()}
+            select = select & np.asarray(enc.select_fn(view))
+        # key columns are referenced by the query, so they are on the tape
+        in_cols = [cols[k][:total] for k in enc.in_keys]
+        codes = enc.encoder.intern_rows(in_cols, select)
+        col = np.zeros(cap, dtype=np.int32)
+        col[:total] = codes
+        cols[enc.out_key] = col
     return Tape(ts, stream, valid, cols)

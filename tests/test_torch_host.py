@@ -9,8 +9,9 @@
 * The port runs on the CUDA device by default and raises without one; a
   kernel wrapper takes its plain version for CPU tensors only (its launch
   counter stays 0) and raises for any other device.
-* Every zoo plan outside this slice raises ``SiddhiQLError`` naming the
-  torch port, instead of running something else.
+* Every zoo plan outside the slices ported so far raises
+  ``SiddhiQLError`` naming the torch port, instead of running something
+  else.
 """
 
 import dataclasses
@@ -49,7 +50,7 @@ _PORT = _REPO / "flink_siddhi_tpu_torch"
 # importing them from flink_siddhi_tpu would run its __init__, which does)
 _COPIED = [
     "schema/__init__.py", "schema/types.py", "schema/strings.py",
-    "schema/stream_schema.py", "schema/batch.py",
+    "schema/stream_schema.py", "schema/batch.py", "schema/encoders.py",
     "query/__init__.py", "query/lexer.py", "query/ast.py",
     "query/parser.py", "query/planner.py",
     "compiler/config.py", "compiler/output.py",
@@ -156,8 +157,17 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors_only():
         torch.zeros(V, dtype=torch.int32), None,
     )
     assert out[3].tolist() == [[1, 3, E]]
+    valid, bufs, rows = cuda_ops.unique_window_fold(
+        torch.tensor([True, False, True]),
+        torch.tensor([1, 0, 1], dtype=torch.int32),
+        torch.tensor([[2.0, 9.0, 5.0]]), torch.zeros(2, dtype=torch.bool),
+        torch.zeros((1, 2)), [("count", -1), ("sum", 0)],
+    )
+    assert rows.tolist() == [[1.0, 1.0, 1.0], [2.0, 2.0, 5.0]]
+    assert valid.tolist() == [False, True] and bufs.tolist() == [[0.0, 5.0]]
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
+        "unique_window_fold": 0,
     }
     # a tensor on any other device is refused, never quietly computed
     meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
@@ -181,13 +191,14 @@ def test_cpu_run_builds_no_kernel():
     assert cuda_ops.LIBRARIES._libs == {}
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
+        "unique_window_fold": 0,
     }
 
 
 _OUTSIDE_SLICE = sorted(
     set(PLAN_ZOO) - {"filter_select", "chain_pattern",
                      "chain_pattern_within", "pattern_absence",
-                     "multiquery_stack6"}
+                     "multiquery_stack6", "unique_window", "sort_window"}
 )
 
 

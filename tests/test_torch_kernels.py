@@ -9,7 +9,10 @@ reverse cummin, ``pallas_ops._ref_chain_advance`` for the chain advance,
 and ``nfa._chain_core(..., use_pallas=False)`` for the whole chain core.
 Inputs are made with numpy from a seed and handed to both packages. Every
 comparison is exact: the data is int32 and bool, and captures copy float32
-values without arithmetic.
+values without arithmetic. The unique-window fold's plain version is held
+to the literal per-event fold of ``pallas_ops._warmup_fold``'s probe: the
+table, counts, minima and maxima exactly, sums and averages within
+``np.allclose``'s defaults (float32 sums added in another order).
 """
 
 import jax
@@ -271,3 +274,93 @@ def test_non_every_winner_takes_the_first_of_tied_minima():
     assert int(np.asarray(jc).sum()) == 1
     assert np.array_equal(np.asarray(jc), tc.numpy())
     assert bool(tst["done"]) and bool(np.asarray(jst["done"]))
+
+
+# --------------------------------------------------------------------------
+# K3: unique-window fold
+# --------------------------------------------------------------------------
+
+_FOLD_SLOTS = [("count", -1), ("sum", 0), ("avg", 0), ("min", 1),
+               ("max", 1), ("sum", 1)]
+
+
+def _literal_fold(mask, codes, vals, valid0, bufs0, slots):
+    """The per-event fold, literally (pallas_ops._warmup_fold's oracle,
+    with a carried-in table and any slot list)."""
+    C = len(valid0)
+    valid, bufs = valid0.copy(), bufs0.copy()
+    rows = np.zeros((len(slots), len(mask)), np.float32)
+    for t in range(len(mask)):
+        if mask[t]:
+            c = min(max(int(codes[t]), 0), C - 1)
+            valid[c] = True
+            bufs[:, c] = vals[:, t]
+        cnt = np.float32(valid.sum())
+        for s, (kind, a) in enumerate(slots):
+            if kind == "count":
+                rows[s, t] = cnt
+            elif kind in ("sum", "avg"):
+                v = np.float32(np.where(valid, bufs[a], 0).sum())
+                rows[s, t] = v if kind == "sum" else v / max(cnt, 1)
+            elif kind == "min":
+                rows[s, t] = np.where(valid, bufs[a], np.inf).min()
+            else:
+                rows[s, t] = np.where(valid, bufs[a], -np.inf).max()
+    return valid, bufs, rows
+
+
+@pytest.mark.parametrize("E,C,chunk_cells", [
+    (1, 128, 1 << 22),      # a single event
+    (3001, 128, 1 << 22),   # E not a multiple of 1024, one chunk
+    (2500, 1000, 1 << 15),  # C not a power of two, 32-event chunks
+])
+def test_unique_window_fold_plain_matches_literal_fold(E, C, chunk_cells,
+                                                       monkeypatch):
+    monkeypatch.setattr(cuda_ops, "_PLAIN_CHUNK_CELLS", chunk_cells)
+    rng = np.random.default_rng(E + C)
+    mask = rng.random(E) < 0.7
+    # codes past the table clip to its last slot, as in the reference
+    codes = rng.integers(-2, C + 3, E).astype(np.int32)
+    vals = np.stack([rng.random(E) * 100, rng.random(E) * 10]).astype(
+        np.float32)
+    valid0 = rng.random(C) < 0.3  # a carried, non-empty table
+    bufs0 = np.where(valid0, rng.random((2, C)) * 50, 0).astype(np.float32)
+    ref = _literal_fold(mask, codes, vals, valid0, bufs0, _FOLD_SLOTS)
+    got = cuda_ops.unique_window_fold(
+        torch.from_numpy(mask), torch.from_numpy(codes),
+        torch.from_numpy(vals), torch.from_numpy(valid0),
+        torch.from_numpy(bufs0), _FOLD_SLOTS,
+    )
+    assert np.array_equal(got[0].numpy(), ref[0])
+    assert np.array_equal(got[1].numpy(), ref[1])
+    rows, ref_rows = got[2].numpy(), ref[2]
+    exact = [s for s, (k, _) in enumerate(_FOLD_SLOTS)
+             if k in ("count", "min", "max")]
+    close = [s for s in range(len(_FOLD_SLOTS)) if s not in exact]
+    assert np.array_equal(rows[exact], ref_rows[exact])
+    assert np.allclose(rows[close], ref_rows[close])
+    assert cuda_ops.unique_window_fold.launches == 0
+
+
+def test_unique_window_fold_plain_count_only_empty_table():
+    # A = 0 (count() alone) from an empty table; masked events add nothing
+    mask = np.array([False, True, True, False, True])
+    codes = np.array([3, 3, 0, 1, 3], np.int32)
+    got = cuda_ops.unique_window_fold_plain(
+        torch.from_numpy(mask), torch.from_numpy(codes),
+        torch.zeros((0, 5)), torch.zeros(128, dtype=torch.bool),
+        torch.zeros((0, 128)), [("count", -1)],
+    )
+    assert got[2].tolist() == [[0.0, 1.0, 2.0, 2.0, 2.0]]
+    assert got[0].nonzero().flatten().tolist() == [0, 3]
+
+
+def test_unique_fold_plan_dedups_statistics():
+    # avg and sum of one column share a statistic; the count is statistic 0
+    plan = cuda_ops._fold_plan([("avg", 1), ("sum", 1), ("count", -1),
+                                ("min", 0)])
+    n_slots, n_stats = plan[:2]
+    assert (n_slots, n_stats) == (4, 3)
+    assert plan[2:6] == [2, 1, 0, 3]  # slot kinds
+    assert plan[6:10] == [1, 1, 0, 2]  # statistic of each slot
+    assert plan[10:13] == [0, 1, 2] and plan[13:16] == [-1, 1, 0]

@@ -11,7 +11,8 @@ columns identically on both sides, and projections copy float32 values.
 Covered: the bench's filter, headline and pattern2 queries at batch 8,192
 (the relevance-compacted branch of the chain matcher) and on a stream dense
 enough to force its full-width branch; the zoo plans filter_select,
-chain_pattern, chain_pattern_within and pattern_absence; partials carried
+chain_pattern, chain_pattern_within, pattern_absence, and the plain
+projections over unique_window and sort_window; partials carried
 across micro-batch boundaries; the pool overflow counter; non-every and
 timed-absence patterns (incl. the end-of-stream flush); event-time mode
 through the fluent API; and engine state carried from the JAX plan into
@@ -135,7 +136,7 @@ def test_headline_dense_stream_takes_full_width_branch():
 
 
 _ZOO_SLICE = ["filter_select", "chain_pattern", "chain_pattern_within",
-              "pattern_absence"]
+              "pattern_absence", "unique_window", "sort_window"]
 
 
 @pytest.mark.parametrize("name", _ZOO_SLICE)
