@@ -15,8 +15,11 @@ fault:
    per source, all started together (seconds);
 3. kernels: each kernel held to its plain PyTorch version at the shapes the
    main paths use and at edge shapes — the reverse cummin and the chain
-   advance exactly (int32); the unique-window fold with its table, counts,
-   minima and maxima exact and its sums and averages within rtol 1e-4;
+   advance exactly (int32); the unique-window fold (NaN-aware) with its
+   table bitwise equal, NaN at the same places, counts, minima and maxima
+   exact and its sums and averages within rtol 1e-4, also with NaN, +inf
+   and -inf values, a hot key, no event masked, codes past both ends,
+   E = 3,001 and 524,287, C = 1 and C = 2^20;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -25,13 +28,15 @@ fault:
 5. filter: the bench's filter query, the same way;
 6. quote board: `#window.unique(symbol)` with count/sum/avg/min/max over
    StockStream, 10,000 Zipf-weighted symbols (a 16,384-slot table), at
-   batch 524,288 over 2,097,152 events, the unique-window fold launched
+   batch 524,288 over 10,485,760 events, the unique-window fold called
    once per micro-batch and host syncs counted (drains only); rows checked
    against the port's CPU path on the first 32,768 events;
 7. kernels: each kernel timed on the inputs it was given on its path — its
-   device time (profiler trace) and its per-call time (CUDA events,
-   median) — beside its plain version, the library call that computes the
-   same function where there is one, and its bound;
+   device time (profiler trace; for the unique fold CUDA events over 25
+   back-to-back calls and each stage kernel's traced device time) and its
+   per-call time (CUDA events, median) — beside its plain version, the
+   library call that computes the same function where there is one, and
+   its bound;
 8. where the quote board's time goes: tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
    run) and a profiler-traced run for the card's idle share;
@@ -71,10 +76,10 @@ N_IDS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
 F32_OPS_PER_S = 67e12  # non-tensor-core float32 rate, same source
-QUOTE_BATCHES = 4  # the quote board's stream: 4 x 524,288 events
+QUOTE_BATCHES = 20  # the quote board's stream: 20 x 524,288 events
 QUOTE_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
 N_SYMBOLS = 10_000
-FOLD_RTOL = 1e-4  # float32 sums added in another order (kernel vs plain)
+FOLD_RTOL = 1e-5  # sums: the kernel's fp64 scan vs the plain float32 fold
 AB_REPEATS = 3  # full runs of each path per checkout with --ab
 
 HEADLINE = (
@@ -193,22 +198,6 @@ def timed_back_to_back(fn, runs, warmup=1):
     return a.elapsed_time(b) / runs, statistics.median(times)
 
 
-def profiled_records(fn, runs, name):
-    """How many device records named ``name`` a profiler trace of ``runs``
-    calls holds."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name in e.name)
-
-
 def same(a, b, what):
     import torch
 
@@ -298,9 +287,10 @@ def zipf_codes(gen, n, n_keys):
                              generator=gen).to(torch.int32)
 
 
-def fold_inputs(dev, gen, E, C, A, codes=None, p_mask=0.7):
-    """A batch of E events and a carried table of C slots, a third valid.
-    Codes past either end of the table clip to its edge slots."""
+def fold_inputs(dev, gen, E, C, A, codes=None, p_mask=0.7, p_valid=0.3):
+    """A batch of E events and a carried table of C slots, a share p_valid
+    of it valid. Codes past either end of the table clip to its edge
+    slots."""
     import torch
 
     mask = torch.rand(E, generator=gen) < p_mask
@@ -308,29 +298,58 @@ def fold_inputs(dev, gen, E, C, A, codes=None, p_mask=0.7):
         codes = torch.randint(-2, C + 3, (E,), generator=gen,
                               dtype=torch.int32)
     vals = torch.round(torch.rand((A, E), generator=gen) * 49_900 + 100) / 100
-    valid0 = torch.rand(C, generator=gen) < 0.3
+    valid0 = torch.rand(C, generator=gen) < p_valid
     bufs0 = torch.where(valid0, torch.rand((A, C), generator=gen) * 500, 0.0)
     t = [x.to(dev) for x in (mask, codes, vals, valid0, bufs0)]
     return t[0], t[1], t[2], t[3], t[4]
 
 
-def fold_err(got, ref, slots, what):
-    """Kernel vs plain fold: the table, counts, minima and maxima exact,
-    sums and averages within FOLD_RTOL. Returns the rows' max abs and max
-    relative error."""
+def non_finite(dev, gen, args):
+    """The same batch with non-finite values: column 0 takes +inf and -inf
+    (0.2% of events each, so both are often valid at once), column 1 NaN
+    (0.1%); the carried table holds a NaN, an inf and a -inf."""
     import torch
 
-    for g, r, name in zip(got[:2], ref[:2], ("valid", "bufs")):
-        if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
-            raise AssertionError(f"{what}: {name} differs")
+    mask, codes, vals, valid0, bufs0 = (x.cpu() for x in args)
+    E, C = int(mask.shape[0]), int(valid0.shape[0])
+    vals, bufs0, valid0 = vals.clone(), bufs0.clone(), valid0.clone()
+    r = torch.rand(E, generator=gen)
+    vals[0] = torch.where(r < 0.002, float("inf"), vals[0])
+    vals[0] = torch.where((r >= 0.002) & (r < 0.004), float("-inf"), vals[0])
+    vals[1] = torch.where(torch.rand(E, generator=gen) < 0.001,
+                          float("nan"), vals[1])
+    valid0[:3] = True
+    bufs0[0, 0], bufs0[0, 1], bufs0[1, 2] = (float("inf"), float("-inf"),
+                                             float("nan"))
+    t = [x.to(dev) for x in (mask, codes, vals, valid0, bufs0)]
+    return t[0], t[1], t[2], t[3], t[4]
+
+
+def fold_err(got, ref, slots, what):
+    """Kernel vs plain fold, NaN-aware: the table bitwise equal; NaN at the
+    same places of every row; elsewhere counts, minima and maxima equal and
+    sums and averages within FOLD_RTOL. Returns the rows' max abs and max
+    relative error over the finite values."""
+    import torch
+
+    if not torch.equal(got[0], ref[0]):
+        raise AssertionError(f"{what}: valid differs")
+    g, r = got[1], ref[1]
+    if (g.dtype != r.dtype or g.shape != r.shape
+            or not torch.equal(g.view(torch.int32), r.view(torch.int32))):
+        raise AssertionError(f"{what}: bufs differ")
     rows, ref_rows = got[2], ref[2]
     if rows.shape != ref_rows.shape:
         raise AssertionError(f"{what}: rows shape differs")
     for s, (kind, _) in enumerate(slots):
+        nan = torch.isnan(ref_rows[s])
+        if not torch.equal(torch.isnan(rows[s]), nan):
+            raise AssertionError(f"{what}: {kind} row {s}: NaN elsewhere")
+        a, b = rows[s][~nan], ref_rows[s][~nan]
         if kind in ("count", "min", "max"):
-            ok = torch.equal(rows[s], ref_rows[s])
+            ok = torch.equal(a, b)
         else:
-            ok = torch.allclose(rows[s], ref_rows[s], rtol=FOLD_RTOL, atol=0)
+            ok = torch.allclose(a, b, rtol=FOLD_RTOL, atol=0)
         if not ok:
             raise AssertionError(f"{what}: {kind} row {s} differs")
     fin = torch.isfinite(ref_rows)
@@ -346,31 +365,50 @@ def check_unique_fold(co, dev, gen):
 
     all5 = [("count", -1), ("sum", 0), ("avg", 0), ("min", 1), ("max", 1),
             ("sum", 1)]
+    both = all5 + [("min", 0), ("max", 0), ("avg", 1)]
+    zipf = zipf_codes(gen, BATCH, N_SYMBOLS)
     cases = [
-        # (name, E, C, A, slots, codes, what shared memory holds: 2 the
-        # trees and the table, 1 the trees only)
-        ("small E=3001 C=128 A=2", 3001, 128, 2, all5, None, 2),
-        ("edge E=1 C=128 A=0", 1, 128, 0, [("count", -1)], None, 2),
-        ("main E=524288 C=16384 A=2", BATCH, 16_384, 2, QUOTE_SLOTS,
-         zipf_codes(gen, BATCH, N_SYMBOLS), 2),
-        ("global table E=20000 C=65536 A=2", 20_000, 65_536, 2, all5,
-         None, 1),
+        # (name, E, C, A, slots, codes, fold_inputs keywords)
+        ("small E=3001 C=128 A=2", 3001, 128, 2, all5, None, {}),
+        ("edge E=1 C=128 A=0", 1, 128, 0, [("count", -1)], None, {}),
+        ("main E=524288 C=16384 A=2", BATCH, 16_384, 2, QUOTE_SLOTS, zipf,
+         {}),
+        ("carried table 30% valid E=524288 C=16384", BATCH, 16_384, 2, both,
+         zipf, {"p_valid": 0.3}),
+        ("table E=20000 C=65536 A=2", 20_000, 65_536, 2, all5, None, {}),
+        ("E=524287 C=16384", BATCH - 1, 16_384, 2, all5,
+         zipf[:BATCH - 1], {}),
+        ("hot key: every event on one slot", BATCH, 16_384, 2, both,
+         torch.full((BATCH,), 77, dtype=torch.int32), {}),
+        ("no event masked", 50_000, 4096, 2, both, None, {"p_mask": 0.0}),
+        ("codes past both ends", 50_000, 4096, 2, both,
+         torch.randint(-10_000, 14_096, (50_000,), generator=gen,
+                       dtype=torch.int32), {}),
+        ("C=1", 20_000, 1, 2, both, None, {}),
+        ("C=2^20 E=8192", 8192, 1 << 20, 2, both, None, {}),
+        ("empty carried table E=65536 C=16384", 65_536, 16_384, 2, both,
+         None, {"p_valid": 0.0}),
+    ]
+    nonfinite = [
+        ("NaN, +inf and -inf E=20000 C=128", 20_000, 128, 2, both, None, {}),
+        ("NaN, +inf and -inf E=524288 C=16384", BATCH, 16_384, 2, both,
+         zipf, {}),
     ]
     err = rel = 0.0
-    for name, E, C, A, slots, codes, placement in cases:
-        args = fold_inputs(dev, gen, E, C, A, codes=codes)
+    for i, (name, E, C, A, slots, codes, kw) in enumerate(cases + nonfinite):
+        args = fold_inputs(dev, gen, E, C, A, codes=codes, **kw)
+        if i >= len(cases):
+            args = non_finite(dev, gen, args)
         got = co.unique_window_fold(*args, slots)
         ref = co.unique_window_fold_plain(*args, slots)
         torch.cuda.synchronize()
         e, r = fold_err(got, ref, slots, f"unique_window_fold {name}")
-        if co.unique_window_fold.placement != placement:
-            raise AssertionError(
-                f"unique_window_fold {name}: placement "
-                f"{co.unique_window_fold.placement}, expected {placement}"
-            )
+        n_nan = int(torch.isnan(ref[2]).sum())
         err, rel = max(err, e), max(rel, r)
         log(f"  unique_window_fold {name}: table exact, rows max abs err "
-            f"{e:.6g}, max rel err {r:.3g}")
+            f"{e:.6g}, max rel err {r:.3g}, NaN cells {n_nan}, "
+            f"{co.unique_window_fold.kernel_launches} kernel launches, "
+            f"{co.unique_window_fold.scratch_bytes} B scratch")
     return err, rel
 
 
@@ -620,7 +658,9 @@ def quote_board(fpt, co):
         "rows": len(rows),
         "symbols": n_keys,
         "table_slots": slots,
-        "fold_placement": co.unique_window_fold.placement,
+        "fold_kernel_launches_per_call":
+            co.unique_window_fold.kernel_launches,
+        "fold_scratch_bytes": co.unique_window_fold.scratch_bytes,
         "wall_s": wall,
         "events_per_s": n_events / wall,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -742,20 +782,65 @@ def time_chain_advance(co, args, launches, err):
     }
 
 
+# the unique fold's stage kernels (csrc/unique_fold.cu), by name
+FOLD_STAGES = ("init_kernel", "radix_hist", "scan_reduce", "scan_mid",
+               "scan_apply", "radix_scatter", "neighbours", "table_kernel",
+               "delta_kernel", "interval_kernel", "rows_kernel")
+
+
+def fold_stage_ms(fn, runs, launches_per_call, attempts=3):
+    """Device ms per call of each stage kernel in a profiler trace of
+    ``runs`` calls after two warm-up calls (None for a stage the trace does
+    not hold). A trace that holds another number of kernel records than
+    ``runs`` x ``launches_per_call`` is taken again, up to ``attempts``
+    times, since a dropped record would lower a stage's time unseen; then
+    every stage is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warmup = 2
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warmup, active=runs,
+                                       repeat=1)) as prof:
+            for i in range(warmup + runs):
+                fn()
+                if i in (warmup - 1, warmup + runs - 1):
+                    # the active window holds only its own calls' kernels
+                    torch.cuda.synchronize()
+                prof.step()
+        us = {stage: 0.0 for stage in FOLD_STAGES}
+        n = {stage: 0 for stage in FOLD_STAGES}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for stage in FOLD_STAGES:
+                if f"{stage}(" in e.name or e.name.endswith(stage):
+                    us[stage] += e.time_range.end - e.time_range.start
+                    n[stage] += 1
+        if sum(n.values()) == runs * launches_per_call:
+            return {stage: us[stage] / runs / 1e3 if n[stage] else None
+                    for stage in FOLD_STAGES}
+        print(f"  unique_window_fold trace: {sum(n.values())} stage records,"
+              f" expected {runs * launches_per_call}")
+    print("  unique_window_fold stage times not kept")
+    return {stage: None for stage in FOLD_STAGES}
+
+
 def time_unique_fold(co, args, launches, err, rel):
     import math
 
     mask, codes, vals, valid0, bufs0, slots = args
-    # the fold takes a good part of a second at the main path's width: a
-    # few calls, timed back to back with CUDA events (a profiler trace of
-    # such calls held fewer kernel records than launches)
+    runs = 25
     ms, call_ms = timed_back_to_back(lambda: co.unique_window_fold(*args),
-                                     runs=3)
+                                     runs=runs)
+    stages = fold_stage_ms(lambda: co.unique_window_fold(*args), runs,
+                           co.unique_window_fold.kernel_launches)
     plain_ms, plain_call_ms = timed_back_to_back(
         lambda: co.unique_window_fold_plain(*args), runs=2
     )
-    records = profiled_records(lambda: co.unique_window_fold(*args), 3,
-                               "unique_fold_kernel")
     E, C, A, S = (int(mask.shape[0]), int(valid0.shape[0]),
                   int(vals.shape[0]), len(slots))
     # read mask 1 B + code 4 B + A values per event and both tables once,
@@ -766,6 +851,7 @@ def time_unique_fold(co, args, launches, err, rel):
     n_stats = co._fold_plan(slots)[1]
     ops = E * n_stats * max(1, math.ceil(math.log2(C)))
     bound_s = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    traced = [v for v in stages.values() if v is not None]
     return {
         "name": co.unique_window_fold.name, "route": "cuda",
         "source": co.unique_window_fold.source,
@@ -777,11 +863,13 @@ def time_unique_fold(co, args, launches, err, rel):
         "library_ms": None, "call_ms": call_ms,
         "plain_call_ms": plain_call_ms,
         "max_rel_err": rel,
-        "ms_by": "cuda events over back-to-back calls",
-        "profiler_kernel_records_of_3_launches": records,
+        "ms_by": f"cuda events over {runs} back-to-back calls",
+        "kernel_launches_per_call": co.unique_window_fold.kernel_launches,
+        "scratch_bytes": co.unique_window_fold.scratch_bytes,
+        "stage_device_ms": stages,
+        "stage_device_ms_sum": sum(traced) if traced else None,
         "shape": {"E": E, "C": C, "A": A, "S": S, "stats": n_stats,
-                  "active_events": int(mask.sum()),
-                  "placement": co.unique_window_fold.placement},
+                  "active_events": int(mask.sum())},
     }
 
 

@@ -11,8 +11,10 @@ NVIDIA Hopper card. Three kernels live here, all CUDA C++ under ``csrc/``:
   positive steps, absence guards and ``within`` in one pass, returning the
   per-step match positions the caller replays capture gathers from.
 * **unique-window fold** (``unique_window_fold``, csrc/unique_fold.cu) —
-  one micro-batch folded, in event order, into the ``#window.unique`` slot
-  table, with every event's count/sum/avg/min/max over the valid slots.
+  one micro-batch folded into the ``#window.unique`` slot table, with every
+  event's count/sum/avg/min/max over the valid slots, as a pipeline of
+  data-parallel kernels (a radix sort by slot, device-wide scans and
+  interval-stabbing trees over the event axis).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
@@ -58,9 +60,8 @@ SOURCES = {
 _TILE = 1024  # events per block in reverse_cummin.cu
 _MAX_STEPS = 32  # chain_advance.cu ChainPlan limits
 _MAX_GUARDS = 64
-FOLD_MAX_SLOTS = 64  # unique_fold.cu FoldPlan limits
+FOLD_MAX_SLOTS = 64  # unique_fold.cu plan limits
 FOLD_MAX_ARGS = 64
-_FOLD_TILE = 32  # unique_fold.cu: table slots under one tree leaf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +73,9 @@ _ARGTYPES = {
     "fst_unique_fold": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
         _P, _I, _P, _P,
+    ],
+    "fst_unique_fold_scratch": [
+        ctypes.c_longlong, ctypes.c_longlong, _I, _P, _I, _P,
     ],
 }
 
@@ -418,7 +422,7 @@ def unique_window_fold_plain(mask, codes, vals, valid0, bufs0, slots):
 
 
 def _fold_plan(slots) -> list:
-    """unique_fold.cu's FoldPlan: slot kinds, and the distinct statistics
+    """unique_fold.cu's plan: slot kinds, and the distinct statistics
     ``(op, column)`` the slots read (statistic 0 the count)."""
     stats = [(_STAT_OP["count"], -1)]
     slot_stat = []
@@ -439,7 +443,7 @@ def _fold_plan(slots) -> list:
 
 
 class UniqueWindowFold:
-    """Fold a micro-batch, in event order, into a ``#window.unique`` table.
+    """Fold a micro-batch into a ``#window.unique`` table, as if in order.
 
     ``mask`` bool and ``codes`` int32 ``[E]``; ``vals`` float32 ``[A, E]``
     (the events' value columns); ``valid0`` bool ``[C]`` and ``bufs0``
@@ -447,16 +451,20 @@ class UniqueWindowFold:
     aggregate, kind one of count/sum/avg/min/max (arg -1 for count).
     Event t with ``mask[t]`` sets slot ``clip(codes[t], 0, C - 1)``; then
     every slot is computed over the valid slots. Returns ``(valid bool[C],
-    bufs float32[A, C], rows float32[S, E])``."""
+    bufs float32[A, C], rows float32[S, E])``.
+
+    On CUDA one call launches the kernel pipeline of csrc/unique_fold.cu
+    (``kernel_launches`` kernels, ``scratch_bytes`` of scratch from
+    ``torch.empty``); ``launches`` counts the calls."""
 
     name = "unique_window_fold"
     source = "flink_siddhi_tpu_torch/csrc/unique_fold.cu"
 
     def __init__(self) -> None:
         self.launches = 0
-        # what the last launch kept in shared memory: 2 the statistic trees
-        # and the table, 1 the trees only, 0 neither
-        self.placement: Optional[int] = None
+        # of the last call: kernels launched and scratch bytes allocated
+        self.kernel_launches = 0
+        self.scratch_bytes = 0
 
     def __call__(self, mask, codes, vals, valid0, bufs0, slots):
         if _device_kind(mask, "mask") == "cpu":
@@ -467,11 +475,10 @@ class UniqueWindowFold:
         C = int(valid0.shape[0])
         A = int(vals.shape[0])
         S = len(slots)
-        if not 1 <= S <= FOLD_MAX_SLOTS or A > FOLD_MAX_ARGS or C < 1:
+        if not 1 <= S <= FOLD_MAX_SLOTS or A > FOLD_MAX_ARGS:
             raise ValueError(
-                f"unique_window_fold takes 1..{FOLD_MAX_SLOTS} aggregates, "
-                f"at most {FOLD_MAX_ARGS} value columns and C >= 1, got "
-                f"{S}, {A} and {C}"
+                f"unique_window_fold takes 1..{FOLD_MAX_SLOTS} aggregates and "
+                f"at most {FOLD_MAX_ARGS} value columns, got {S} and {A}"
             )
         if any(kind != "count" and not 0 <= a < A for kind, a in slots):
             raise ValueError("unique_window_fold: slot column out of range")
@@ -482,30 +489,32 @@ class UniqueWindowFold:
         _check(bufs0, "bufs0", torch.float32, dev, (A, C))
         plan = _fold_plan(slots)
         plan_c = (ctypes.c_int * len(plan))(*plan)
-        # one tree per statistic: 2T nodes over T >= C / 32 leaves; the
-        # kernel uses this scratch when the trees do not fit shared memory
-        T = 1
-        while T * _FOLD_TILE < C:
-            T *= 2
-        tree_floats = plan[1] * 2 * T
-        placement = ctypes.c_int(-1)
+        plan_p = ctypes.cast(plan_c, ctypes.c_void_p)
         lib = LIBRARIES.get("unique_fold")
+        nbytes, n_launch = ctypes.c_longlong(0), ctypes.c_int(0)
+        if lib.fst_unique_fold_scratch(E, C, A, plan_p, len(plan),
+                                       ctypes.addressof(nbytes)) != 0:
+            raise ValueError(
+                f"unique_window_fold: unique_fold.cu refuses {E} events, "
+                f"{C} slots or the plan {plan}"
+            )
         valid = torch.empty_like(valid0)
         bufs = torch.empty_like(bufs0)
         rows = torch.empty((S, E), dtype=torch.float32, device=dev)
-        scratch = torch.empty(tree_floats, dtype=torch.float32, device=dev)
+        scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fst_unique_fold(
                 mask.data_ptr(), codes.data_ptr(), vals.data_ptr(),
                 valid0.data_ptr(), bufs0.data_ptr(), valid.data_ptr(),
                 bufs.data_ptr(), rows.data_ptr(), scratch.data_ptr(),
-                tree_floats, E, C, A, ctypes.cast(plan_c, ctypes.c_void_p),
-                len(plan), ctypes.addressof(placement), stream,
+                nbytes.value, E, C, A, plan_p, len(plan),
+                ctypes.addressof(n_launch), stream,
             )
         _check_launch(self.name, err)
         self.launches += 1
-        self.placement = placement.value
+        self.kernel_launches = n_launch.value
+        self.scratch_bytes = nbytes.value
         return valid, bufs, rows
 
 

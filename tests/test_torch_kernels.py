@@ -309,13 +309,43 @@ def _literal_fold(mask, codes, vals, valid0, bufs0, slots):
     return valid, bufs, rows
 
 
-@pytest.mark.parametrize("E,C,chunk_cells", [
-    (1, 128, 1 << 22),      # a single event
-    (3001, 128, 1 << 22),   # E not a multiple of 1024, one chunk
-    (2500, 1000, 1 << 15),  # C not a power of two, 32-event chunks
+def _non_finite(vals, bufs0, valid0, kind, rng):
+    """Non-finite values in the batch and the carried table: ``nan``,
+    ``inf`` (+inf only), ``inf_ninf`` (+inf and -inf in one column, often
+    valid at once) or ``nan_overwritten`` (a NaN that later events of its
+    slot overwrite)."""
+    E = vals.shape[1]
+    r = rng.random(E)
+    if kind == "nan":
+        vals[1, r < 0.01] = np.nan
+        bufs0[1, np.flatnonzero(valid0)[:2]] = np.nan
+    elif kind == "inf":
+        vals[0, r < 0.01] = np.inf
+    elif kind == "inf_ninf":
+        vals[0, r < 0.01] = np.inf
+        vals[0, (r >= 0.01) & (r < 0.02)] = -np.inf
+        bufs0[0, np.flatnonzero(valid0)[:1]] = -np.inf
+    elif kind == "nan_overwritten":
+        vals[:, :5] = np.nan
+    return vals, bufs0
+
+
+@pytest.mark.parametrize("E,C,chunk_cells,values", [
+    # a single event
+    pytest.param(1, 128, 1 << 22, None, id="1-128-4194304"),
+    # E not a multiple of 1024, one chunk
+    pytest.param(3001, 128, 1 << 22, None, id="3001-128-4194304"),
+    # C not a power of two, 32-event chunks
+    pytest.param(2500, 1000, 1 << 15, None, id="2500-1000-32768"),
+    # non-finite values: they last only while their slot holds them
+    pytest.param(3001, 128, 1 << 22, "nan", id="nan"),
+    pytest.param(2500, 100, 1 << 14, "inf", id="inf"),
+    pytest.param(3001, 128, 1 << 22, "inf_ninf", id="inf_and_ninf"),
+    pytest.param(2500, 60, 1 << 13, "nan_overwritten",
+                 id="nan_overwritten"),
 ])
 def test_unique_window_fold_plain_matches_literal_fold(E, C, chunk_cells,
-                                                       monkeypatch):
+                                                       values, monkeypatch):
     monkeypatch.setattr(cuda_ops, "_PLAIN_CHUNK_CELLS", chunk_cells)
     rng = np.random.default_rng(E + C)
     mask = rng.random(E) < 0.7
@@ -325,6 +355,8 @@ def test_unique_window_fold_plain_matches_literal_fold(E, C, chunk_cells,
         np.float32)
     valid0 = rng.random(C) < 0.3  # a carried, non-empty table
     bufs0 = np.where(valid0, rng.random((2, C)) * 50, 0).astype(np.float32)
+    if values is not None:
+        vals, bufs0 = _non_finite(vals, bufs0, valid0, values, rng)
     ref = _literal_fold(mask, codes, vals, valid0, bufs0, _FOLD_SLOTS)
     got = cuda_ops.unique_window_fold(
         torch.from_numpy(mask), torch.from_numpy(codes),
@@ -332,13 +364,17 @@ def test_unique_window_fold_plain_matches_literal_fold(E, C, chunk_cells,
         torch.from_numpy(bufs0), _FOLD_SLOTS,
     )
     assert np.array_equal(got[0].numpy(), ref[0])
-    assert np.array_equal(got[1].numpy(), ref[1])
+    assert np.array_equal(got[1].numpy(), ref[1], equal_nan=True)
     rows, ref_rows = got[2].numpy(), ref[2]
     exact = [s for s, (k, _) in enumerate(_FOLD_SLOTS)
              if k in ("count", "min", "max")]
     close = [s for s in range(len(_FOLD_SLOTS)) if s not in exact]
-    assert np.array_equal(rows[exact], ref_rows[exact])
-    assert np.allclose(rows[close], ref_rows[close])
+    assert np.array_equal(rows[exact], ref_rows[exact], equal_nan=True)
+    assert np.allclose(rows[close], ref_rows[close], equal_nan=True)
+    if values is not None:
+        # the non-finite values reach a row, and leave it again
+        bad = ~np.isfinite(ref_rows)
+        assert any(b.any() and not b[np.argmax(b):].all() for b in bad)
     assert cuda_ops.unique_window_fold.launches == 0
 
 

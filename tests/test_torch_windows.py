@@ -124,6 +124,36 @@ def test_quote_board_matches_jax(n_symbols, batch):
     assert int(state["valid"].sum()) == ref[-1][1][1]
 
 
+def test_quote_board_non_finite_prices_match_jax():
+    # NaN, +inf and -inf prices over few symbols, so that later quotes
+    # overwrite them: a NaN lasts only while its slot holds it, and an inf
+    # with a -inf valid at once gives a NaN sum
+    data = _quotes(4000, 40, seed=17)
+    r = np.random.default_rng(17).random(4000)
+    data["price"][r < 0.004] = np.nan
+    data["price"][(r >= 0.004) & (r < 0.008)] = np.inf
+    data["price"][(r >= 0.008) & (r < 0.012)] = -np.inf
+    ref, _ = _run("jax", QUOTE_BOARD, data, 1024, 40)
+    got, _ = _run("torch", QUOTE_BOARD, data, 1024, 40)
+    assert len(got) == len(ref) == 4000
+    assert [t for t, _ in got] == [t for t, _ in ref]
+    for i in range(6):
+        g = np.array([row[i] for _, row in got])
+        e = np.array([row[i] for _, row in ref])
+        if i == 0:
+            assert list(g) == list(e)
+            continue
+        g, e = g.astype(np.float64), e.astype(np.float64)
+        assert np.array_equal(np.isnan(g), np.isnan(e)), i
+        if i in _EXACT:
+            assert np.array_equal(g, e, equal_nan=True), i
+        else:
+            assert np.allclose(g, e, rtol=1e-5, equal_nan=True), i
+        if i > 1:  # each value column shows non-finite rows, and loses them
+            bad = ~np.isfinite(e)
+            assert bad.any() and not bad[np.argmax(bad):].all(), i
+
+
 def test_table_grows_past_first_bucket_across_batches():
     # ~300 keys arrive over batches of 64: the table re-buckets 128 -> 256
     # -> 512 between micro-batches, carrying every slot across
