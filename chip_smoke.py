@@ -11,11 +11,19 @@ of JAX and nothing of the JAX package. Phases, each failing the run on any
 fault:
 
 1. device: the card's name and power limit;
-2. build: the three kernels compiled from the checkout's sources, one nvcc
-   per source, all started together (seconds);
+2. build: the three kernels (and an empty one, the launch floor) compiled
+   from the checkout's sources, one nvcc per source, all started together
+   (seconds);
 3. kernels: each kernel held to its plain PyTorch version at the shapes the
-   main paths use and at edge shapes — the reverse cummin and the chain
-   advance exactly (int32); the unique-window fold (NaN-aware) with its
+   main paths use and at edge shapes — the reverse cummin exactly (int32)
+   at E from 1 to 2^24 (more tiles than can be resident, so the look-back
+   must progress), with and without the pad column, over random,
+   all-INT_MAX, ascending, descending and full-range rows, and over 1,000
+   back-to-back calls; the chain advance exactly on headline-shaped inputs
+   whose gathers are local (each fresh start searching from the next
+   position) and on inputs with random positions, with padded and
+   contiguous table rows, V = 0 (no kernel on the card), E = 0 and a
+   `within` that wraps int32; the unique-window fold (NaN-aware) with its
    table bitwise equal, NaN at the same places, counts, minima and maxima
    exact and its sums and averages within rtol 1e-4, also with NaN, +inf
    and -inf values, a hot key, no event masked, codes past both ends,
@@ -35,8 +43,11 @@ fault:
    device time (profiler trace; for the unique fold CUDA events over 25
    back-to-back calls and each stage kernel's traced device time) and its
    per-call time (CUDA events, median) — beside its plain version, the
-   library call that computes the same function where there is one, and
-   its bound;
+   library call that computes the same function where there is one, its
+   bound and the launch floor (an empty kernel's device time). The reverse
+   cummin and the chain advance also at full width (the headline's own
+   524,288-event tapes with relevance compaction off), and their kernel
+   launches per call counted in a profiler trace (each must be 1);
 8. where the quote board's time goes: tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
    run) and a profiler-traced run for the card's idle share;
@@ -54,12 +65,16 @@ checkout (its own chip_smoke.py and flink_siddhi_tpu_torch/), run in the
 order given, each in a process of its own that builds its own kernels and
 drives the headline and filter paths (phases 4 and 5, without their row
 checks) once on two micro-batches to warm up and then AB_REPEATS times in
-full, printing one JSON line per path with every wall time and events/s.
+full, printing one JSON line per path with every wall time and events/s,
+and one line per chain kernel, and one for the padded next-match table
+as that checkout's chain core builds it, with device and call time on the
+headline's inputs of that checkout.
 Give the two versions as A B B A, so that drift of the card or the host
 during the call shows.
 """
 
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -139,13 +154,16 @@ def device_activity(prof):
     return busy, per_name
 
 
-def timed(fn, runs=25, warmup=3):
-    """(device ms per call, call ms). Device ms: the card's busy time over
-    ``runs`` calls in a profiler trace, divided by ``runs`` — the kernels'
-    own time. Call ms: the median of CUDA events around single calls,
-    which also holds the host's launch overhead while the card waits."""
+def timed(fn, runs=25, warmup=3, attempts=3):
+    """(device ms per call, call ms). Device ms: the summed duration of the
+    card's records in a trace of ``runs`` calls (``kernel_records``; one
+    stream, so they do not overlap), over ``runs`` — the kernels' own time.
+    Call ms: the median of CUDA events around single calls, which also
+    holds the host's launch overhead while the card waits. Every call
+    launches the same work, so a trace whose record count is not a
+    multiple of ``runs`` has lost records (or holds none) and is taken
+    again, up to ``attempts`` times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
@@ -159,14 +177,15 @@ def timed(fn, runs=25, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    busy_us, _ = device_activity(prof)
-    if busy_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return busy_us / runs / 1e3, statistics.median(times)
+    for _ in range(attempts):
+        records = kernel_records(fn, runs)
+        n = sum(count for count, _ in records.values())
+        if n and n % runs == 0:
+            us = sum(t for _, t in records.values())
+            return us / runs / 1e3, statistics.median(times)
+        log(f"  trace of {runs} calls holds {n} device records; again")
+    raise RuntimeError(f"no trace of {runs} calls held a whole number of "
+                       "device records per call")
 
 
 def timed_back_to_back(fn, runs, warmup=1):
@@ -198,6 +217,56 @@ def timed_back_to_back(fn, runs, warmup=1):
     return a.elapsed_time(b) / runs, statistics.median(times)
 
 
+def kernel_records(fn, runs, warmup=10):
+    """Per name, (records, device us) of every kernel and copy on the card
+    in a profiler trace of ``runs`` calls of ``fn``, with a sync at both
+    edges of the active window, so that it holds only its own calls' work.
+    The tracer starts recording only some time after it is enabled: after
+    earlier traces in a process, a window that followed two warm-up calls
+    lost its first two calls' records. So ``warmup`` calls, and a pause,
+    run traced but unrecorded before the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=runs,
+                                   repeat=1)) as prof:
+        for i in range(warmup + runs):
+            fn()
+            if i == warmup - 1:
+                time.sleep(0.02)
+            if i in (warmup - 1, warmup + runs - 1):
+                torch.cuda.synchronize()
+            prof.step()
+    records = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = records.get(e.name, (0, 0.0))
+            records[e.name] = (n + 1, us + e.time_range.end
+                               - e.time_range.start)
+    return records
+
+
+def launches_per_call(fn, kernel, runs=25, attempts=3):
+    """Kernel launches per call of ``fn``, counted on the card: the records
+    of a trace of ``runs`` calls (``kernel_records``), over ``runs``. Fails
+    unless every record is the kernel named ``kernel``. A trace whose count
+    is not a multiple of ``runs`` has lost records and is taken again, up
+    to ``attempts`` times."""
+    for _ in range(attempts):
+        records = kernel_records(fn, runs)
+        total = sum(n for n, _ in records.values())
+        if total % runs == 0:
+            break
+        log(f"  {kernel} trace: {total} records for {runs} calls; again")
+    others = [name for name in records if kernel not in name]
+    if others:
+        raise AssertionError(f"{kernel}: the call also ran {others}")
+    return total / runs
+
+
 def same(a, b, what):
     import torch
 
@@ -210,71 +279,163 @@ def same(a, b, what):
 
 # -- phase 3: kernels against their plain versions -----------------------------
 
+INT_MAX = 2 ** 31 - 1
+K1_SHAPES_E = (1, 3, 1_023, 1_025, 4_097, 65_536, 70_001, 524_288, 1 << 24)
+K1_REPEATS = 1_000
+
+
+def special_rows(C, E, dev, gen):
+    """C rows cycling through all INT_MAX, ascending, descending and
+    full-range int32 values."""
+    import torch
+
+    ar = torch.arange(E, dtype=torch.int32, device=dev)
+    kinds = [
+        torch.full((E,), INT_MAX, dtype=torch.int32, device=dev),
+        ar,
+        E - 1 - ar,
+        torch.randint(-2 ** 31, INT_MAX, (E,), generator=gen, device=dev,
+                      dtype=torch.int32),
+    ]
+    return torch.stack([kinds[c % len(kinds)] for c in range(C)])
+
+
 def check_reverse_cummin(co, dev, gen):
+    """Exact at every shape, kind of row and pad; then K1_REPEATS
+    back-to-back calls over changing inputs (a stale look-back state or a
+    race shows as a mismatch)."""
     import torch
 
     err = 0
     for C in (1, 2, 8):
-        for E in (65_536, 524_288, 70_001):
-            x = torch.randint(0, E + 1, (C, E), generator=gen,
-                              dtype=torch.int32).to(dev)
-            got = co.multi_reverse_cummin(x)
-            ref = co.reverse_cummin_plain(x)
-            torch.cuda.synchronize()
-            err = max(err, same(got, ref, f"reverse_cummin C={C} E={E}"))
-            log(f"  reverse_cummin C={C} E={E}: exact")
+        for E in K1_SHAPES_E:
+            inputs = {
+                "matcher": torch.randint(0, E + 1, (C, E), generator=gen,
+                                         device=dev, dtype=torch.int32),
+                "special": special_rows(C, E, dev, gen),
+            }
+            for kind, x in inputs.items():
+                for pad in (None, E):
+                    got = co.multi_reverse_cummin(x, pad=pad)
+                    ref = co.reverse_cummin_plain(x, pad)
+                    torch.cuda.synchronize()
+                    err = max(err, same(got, ref, f"reverse_cummin C={C} "
+                                        f"E={E} {kind} pad={pad}"))
+            del inputs
+            log(f"  reverse_cummin C={C} E={E}: exact (matcher and special "
+                "rows, pad on and off)")
+    E = 65_536
+    xs = [torch.randint(0, E + 1, (2, E), generator=gen, device=dev,
+                        dtype=torch.int32) for _ in range(4)]
+    refs = [co.reverse_cummin_plain(x, E) for x in xs]
+    wrong = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(K1_REPEATS):
+        got = co.multi_reverse_cummin(xs[i % 4], pad=E)
+        wrong += (got != refs[i % 4]).sum()
+    if int(wrong):
+        raise AssertionError(f"reverse_cummin: {int(wrong)} wrong values "
+                             f"over {K1_REPEATS} back-to-back calls")
+    log(f"  reverse_cummin C=2 E={E}: {K1_REPEATS} back-to-back calls exact")
     return err
 
 
-def chain_inputs(co, dev, gen, K, n_guards, E=65_536, P=1024, density=0.3):
+def chain_inputs(co, dev, gen, K, n_guards, E=65_536, P=1024, density=0.3,
+                 local=False, aligned=True, ts0=0):
     """A candidate set shaped like the headline's compacted step: P
-    carried partials plus one fresh start per tape position."""
+    carried partials plus one fresh start per tape position. With
+    ``local`` the candidates sit where the matcher puts them (carried
+    partials at pos 0, the fresh start at e searching from e + 1, all at
+    step 1, starts at their own ts), so neighbouring candidates gather
+    neighbouring table entries; otherwise pos, step and start are random.
+    ``aligned``: the table as the matcher builds it (the reverse cummin's
+    padded rows, 16-byte aligned), else contiguous [R, E + 1] rows.
+    ``ts0``: the tape's first timestamp."""
     import torch
 
-    rows = []
-    for _ in range(K - 1 + n_guards):
-        hits = torch.rand(E, generator=gen) < density
-        idx = torch.where(hits, torch.arange(E, dtype=torch.int32), E)
-        rows.append(co.reverse_cummin_plain(idx[None])[0])
-    nxt = torch.cat([torch.stack(rows),
-                     torch.full((len(rows), 1), E, dtype=torch.int32)], 1)
+    R = K - 1 + n_guards
+    hits = torch.rand((R, E), generator=gen, device=dev) < density
+    idx = torch.where(hits, torch.arange(E, dtype=torch.int32, device=dev),
+                      E).to(torch.int32)
+    if aligned:
+        nxt = co.multi_reverse_cummin(idx, pad=E)
+    else:
+        nxt = co.reverse_cummin_plain(idx, E)
     V = P + E
-    ts = torch.cumsum(torch.randint(0, 3, (E,), generator=gen), 0)
-    ts_pad = torch.cat([ts.to(torch.int32), torch.zeros(1, dtype=torch.int32)])
-    act = torch.rand(V, generator=gen) < 0.5
-    step = torch.randint(1, K, (V,), generator=gen, dtype=torch.int32)
-    pos = torch.randint(0, E + 1, (V,), generator=gen, dtype=torch.int32)
-    start = torch.randint(0, int(ts[-1]) + 1, (V,), generator=gen,
-                          dtype=torch.int32)
-    t = [x.to(dev) for x in (nxt, ts_pad, act, step, pos, start)]
-    return t[0], t[1], t[2], t[3], t[4], t[5]
+    ts = (ts0 + torch.cumsum(torch.randint(0, 3, (E,), generator=gen,
+                                           device=dev), 0)).to(torch.int32)
+    ts_pad = torch.cat([ts, torch.zeros(1, dtype=torch.int32, device=dev)])
+    act = torch.rand(V, generator=gen, device=dev) < 0.5
+    if local:
+        step = torch.ones(V, dtype=torch.int32, device=dev)
+        pos = torch.cat([torch.zeros(P, dtype=torch.int32, device=dev),
+                         torch.arange(1, E + 1, dtype=torch.int32,
+                                      device=dev)])
+        start = torch.cat([torch.full((P,), ts0, dtype=torch.int32,
+                                      device=dev), ts])
+    else:
+        step = torch.randint(1, K, (V,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        pos = torch.randint(0, E + 1, (V,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        hi = int(ts.max()) + 1 if E else ts0 + 1
+        start = torch.randint(ts0, hi, (V,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    return nxt, ts_pad, act, step, pos, start
 
 
 def check_chain_advance(co, dev, gen):
+    """Exact on local and random-position inputs, padded and contiguous
+    table rows, V = 0 (which must launch no kernel on the card), E = 0 and
+    a `within` that wraps int32."""
     import torch
 
     err = 0
+    wrap = -2 ** 31 + 10  # ts near INT_MIN: ts[j] - start wraps for starts
     cases = [
-        # (name, K, guard rows per step 1..K-1, within)
-        ("headline K=3 R=2 P=1024 E=65536", 3, [[], []], 5000),
-        ("guard K=3, one mid-chain guard", 3, [[], [2]], 1 << 18),
-        ("K=4", 4, [[], [], []], 5000),
-        ("K=4 no within, guards", 4, [[3], [], [4]], None),
+        # (name, K, guard rows per step 1..K-1, within, chain_inputs kwargs)
+        ("headline-shaped, local", 3, [[], []], 5000,
+         dict(local=True)),
+        ("headline-shaped, local, unaligned rows", 3, [[], []], 5000,
+         dict(local=True, aligned=False)),
+        ("local K=4, guards", 4, [[3], [], [4]], 900,
+         dict(local=True, density=0.1)),
+        ("headline K=3 R=2 P=1024 E=65536, random pos", 3,
+         [[], []], 5000, {}),
+        ("guard K=3, one mid-chain guard", 3, [[], [2]], 1 << 18, {}),
+        ("K=4", 4, [[], [], []], 5000, {}),
+        ("K=4 no within, guards, unaligned rows", 4, [[3], [], [4]], None,
+         dict(aligned=False)),
+        ("V=0", 3, [[], []], 5000, dict(E=1000, P=0, density=0.0)),
+        ("E=0", 3, [[], []], 5000, dict(E=0, P=100)),
+        ("within wraps int32", 3, [[], []], 4000,
+         dict(ts0=wrap, E=4096, P=64)),
     ]
-    for name, K, guards, within in cases:
+    for name, K, guards, within, kw in cases:
         n_guards = sum(len(g) for g in guards)
         nxt, ts_pad, act, step, pos, start = chain_inputs(
-            co, dev, gen, K, n_guards
+            co, dev, gen, K, n_guards, **kw
         )
-        pos_rows = list(range(K - 1))
-        got = co.chain_advance(nxt, pos_rows, guards, ts_pad, act, step,
-                               pos, start, within)
-        ref = co.chain_advance_plain(nxt, pos_rows, guards, ts_pad, act,
-                                     step, pos, start, within)
+        if name == "V=0":
+            act, step, pos, start = (t[:0] for t in (act, step, pos, start))
+        if name == "within wraps int32":
+            # starts just below INT_MAX and ts just above INT_MIN:
+            # ts[j] - start wraps round to spans of 15 .. ~8,200, so
+            # `within` keeps some completions and kills others
+            start = torch.full_like(start, INT_MAX - 5)
+        args = (nxt, list(range(K - 1)), guards, ts_pad, act, step, pos,
+                start, within)
+        got = co.chain_advance(*args)
+        ref = co.chain_advance_plain(*args)
         torch.cuda.synchronize()
         for g, r, what in zip(got, ref, ("act", "step", "pos", "jmat")):
             err = max(err, same(g, r, f"chain_advance {name} {what}"))
-        log(f"  chain_advance {name}: exact")
+        note = ""
+        if name == "V=0":
+            records = kernel_records(lambda: co.chain_advance(*args), runs=5)
+            if records:
+                raise AssertionError(f"chain_advance V=0 ran {records}")
+            note = ", no kernel on the card"
+        log(f"  chain_advance {name}: exact{note}")
     return err
 
 
@@ -676,60 +837,139 @@ def quote_board(fpt, co):
     return result, schema, batches
 
 
+def keep_copy(a):
+    """A copy of a kernel argument; a tensor keeps its strides (the
+    padded next-match table's rows stay 16-byte aligned)."""
+    import torch
+
+    if not isinstance(a, torch.Tensor):
+        return a
+    return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                               device=a.device).copy_(a)
+
+
 class Recorder:
     """Forwards to a kernel wrapper and keeps a copy of the inputs of its
     ``keep``-th call (the main path's real inputs for phase 7)."""
 
     def __init__(self, fn, keep):
-        self.fn, self.keep, self.calls, self.args = fn, keep, 0, None
+        self.fn, self.keep, self.calls = fn, keep, 0
+        self.args, self.kwargs = None, {}
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         self.calls += 1
         if self.calls == self.keep:
-            self.args = tuple(
-                a.clone() if hasattr(a, "clone") else a for a in args
-            )
-        return self.fn(*args)
+            self.args = tuple(keep_copy(a) for a in args)
+            self.kwargs = dict(kwargs)
+        return self.fn(*args, **kwargs)
+
+
+def full_width_inputs(fpt, co, nfa, schema, batches, keep=3):
+    """The chain kernels' inputs at full width: the headline's own tapes
+    (E = 524,288 events) stepped through ChainPatternArtifact.step with
+    relevance compaction off, recorded at the ``keep``-th step (a pool
+    carried from the steps before)."""
+    import torch
+
+    from flink_siddhi_tpu_torch.runtime.tape import build_tape
+
+    dev = torch.device("cuda")
+    plan = fpt.compile_plan(HEADLINE, {"inputStream": schema},
+                            plan_id="bench")
+    epoch = int(batches[0].timestamps.min())
+    rec_k1 = Recorder(co.multi_reverse_cummin, keep=keep)
+    rec_k2 = Recorder(co.chain_advance, keep=keep)
+    saved = nfa._COMPACT_MIN_E
+    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+    nfa._COMPACT_MIN_E = BATCH + 1
+    try:
+        states, acc = plan.init_state(dev), plan.init_acc(dev)
+        for b in batches[:keep]:
+            tape = build_tape(plan.spec, [b], epoch).to(dev)
+            states = plan.grow_state(states)
+            states, acc = plan.step_acc(states, acc, tape)
+        torch.cuda.synchronize()
+    finally:
+        nfa._COMPACT_MIN_E = saved
+        nfa.multi_reverse_cummin = co.multi_reverse_cummin
+        nfa.chain_advance = co.chain_advance
+    if rec_k1.args is None or rec_k2.args is None:
+        raise AssertionError("no full-width kernel inputs recorded")
+    if int(rec_k2.args[3].shape[0]) - 1 != BATCH:
+        raise AssertionError("the full-width step ran compacted")
+    return rec_k1, rec_k2
 
 
 # -- phase 7: kernel timing on main-path inputs -------------------------------
 
-def time_reverse_cummin(co, x, launches, err):
+def bound_of(nbytes, ops, ops_per_s):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def reverse_cummin_times(co, x, pad):
+    """Device and call ms of the kernel, its plain version and the library
+    call, and the bound, on one input."""
     import torch
 
-    C, E = x.shape
-    ms, call_ms = timed(lambda: co.multi_reverse_cummin(x))
-    plain_ms, plain_call_ms = timed(lambda: co.reverse_cummin_plain(x))
-    # the one PyTorch call computing the same function: cummin of the
-    # flipped rows (the plain version is exactly that call)
+    C, E = (int(s) for s in x.shape)
+    ms, call_ms = timed(lambda: co.multi_reverse_cummin(x, pad=pad))
+    plain_ms, plain_call_ms = timed(lambda: co.reverse_cummin_plain(x, pad))
+    # the one PyTorch call computing the same function (without the pad
+    # column): cummin of the flipped rows
     lib_ms, _ = timed(
         lambda: torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values,
                            [-1])
     )
-    nbytes = 2 * C * E * 4  # read each input once, write each output once
-    ops = C * E  # one min per element
-    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    # read each input once, write each output once (the pad column too)
+    nbytes = C * E * 4 + C * (E + (pad is not None)) * 4
+    bound_ms, bound_by = bound_of(nbytes, C * E, INT32_OPS_PER_S)
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "plain_call_ms": plain_call_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": [C, E],
+            "pad": pad}
+
+
+def time_reverse_cummin(co, rec, rec_full, launches, err, floor_ms):
+    """The reverse cummin on the main path's input and at full width, with
+    its kernel launches per call counted on the card at both (must be 1)."""
+    k = co.multi_reverse_cummin
+    main = reverse_cummin_times(co, rec.args[0], rec.kwargs.get("pad"))
+    full = reverse_cummin_times(co, rec_full.args[0],
+                                rec_full.kwargs.get("pad"))
+    for r, t in ((rec, main), (rec_full, full)):
+        t["kernel_launches_per_call"] = launches_per_call(
+            lambda: k(r.args[0], **r.kwargs), "suffix_min_kernel"
+        )
+        if t["kernel_launches_per_call"] != 1:
+            raise AssertionError(f"reverse_cummin: "
+                                 f"{t['kernel_launches_per_call']} kernel "
+                                 f"launches a call at {t['shape']}")
     return {
-        "name": co.multi_reverse_cummin.name, "route": "cuda",
-        "source": co.multi_reverse_cummin.source,
+        "name": k.name, "route": "cuda", "source": k.source,
         "replaces": "flink_siddhi_tpu/compiler/pallas_ops.py:65",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= ops / INT32_OPS_PER_S else "operations",
-        "library_ms": lib_ms, "call_ms": call_ms,
-        "plain_call_ms": plain_call_ms, "shape": [C, E],
+        "launches": launches, "max_abs_err": err,
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "call_ms",
+                                      "plain_call_ms", "shape", "pad",
+                                      "kernel_launches_per_call")},
+        "kernel_launches_by": "profiler trace of 25 calls",
+        "floor_ms": floor_ms,
+        "tile": co.CUMMIN_TILE,
+        "full_width": full,
     }
 
 
-def chain_work(nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start,
-               within):
-    """(bytes, gathers) the advance must do for THESE inputs: the
-    candidate rows streamed in and out, plus one 4-byte read per gather
-    that a live candidate issues (table and ts reads, capped at their
-    sizes). Candidates not at step k issue no gather at step k."""
+def chain_work(args):
+    """(bytes, gathers) of the advance on THESE inputs: the candidate rows
+    streamed in and out, plus one 4-byte read per gather that a live
+    candidate issues (table and ts reads, capped at their sizes);
+    candidates not at step k issue no gather at step k."""
     import torch
 
+    nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start, within = args
     E = int(ts_pad.shape[0]) - 1
     V = int(act.shape[0])
     n_steps = len(pos_rows)
@@ -737,8 +977,8 @@ def chain_work(nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start,
     a, s, p = act, step, pos
     for k in range(1, n_steps + 1):
         at_k = a & (s == k)
-        gathers += int(at_k.sum()) * (1 + len(guard_rows[k - 1]))
         idx = p.clamp(0, E).long()
+        gathers += (1 + len(guard_rows[k - 1])) * int(at_k.sum())
         j = nxt[pos_rows[k - 1]][idx]
         found = at_k & (j < E)
         for g in guard_rows[k - 1]:
@@ -755,30 +995,52 @@ def chain_work(nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start,
         p = torch.where(found, j + 1, p)
     # act 1 B + step/pos/start 12 B in; act 1 B + step/pos 8 B + jmat out
     streamed = V * 13 + V * 9 + n_steps * V * 4
-    tables = (int(nxt.numel()) + E + 1) * 4
+    tables = (int(nxt.shape[0]) * (E + 1) + E + 1) * 4
     return streamed + min(tables, 4 * gathers), gathers
 
 
-def time_chain_advance(co, args, launches, err):
+def chain_advance_times(co, args):
+    """Device and call ms of the kernel and its plain version, the bound
+    and the kernel launches per call (counted on the card), on one
+    input."""
     nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start, within = args
     ms, call_ms = timed(lambda: co.chain_advance(*args))
     plain_ms, plain_call_ms = timed(lambda: co.chain_advance_plain(*args))
-    nbytes, gathers = chain_work(*args)
-    ops = gathers * 4  # compares/selects per gather
-    bound_s = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    nbytes, gathers = chain_work(args)
+    bound_ms, bound_by = bound_of(nbytes, gathers * 4,  # compares/selects
+                                  INT32_OPS_PER_S)
+    per_call = launches_per_call(lambda: co.chain_advance(*args),
+                                 "chain_advance_kernel")
+    if per_call != 1:
+        raise AssertionError(f"chain_advance: {per_call} kernel launches a "
+                             f"call")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "plain_call_ms": plain_call_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_launches_per_call": per_call,
+            "shape": {"rows": int(nxt.shape[0]),
+                      "row_stride": int(nxt.stride(0)),
+                      "E": int(ts_pad.shape[0]) - 1,
+                      "V": int(act.shape[0]), "K": len(pos_rows) + 1,
+                      "gathers": gathers}}
+
+
+def time_chain_advance(co, rec, rec_full, launches, err, floor_ms):
+    """The chain advance on the main path's input and at full width."""
+    k = co.chain_advance
+    main = chain_advance_times(co, rec.args)
+    full = chain_advance_times(co, rec_full.args)
     return {
-        "name": co.chain_advance.name, "route": "cuda",
-        "source": co.chain_advance.source,
+        "name": k.name, "route": "cuda", "source": k.source,
         "replaces": "flink_siddhi_tpu/compiler/pallas_ops.py:297",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= ops / INT32_OPS_PER_S else "operations",
-        "library_ms": None, "call_ms": call_ms,
-        "plain_call_ms": plain_call_ms,
-        "shape": {"rows": int(nxt.shape[0]), "E": int(ts_pad.shape[0]) - 1,
-                  "V": int(act.shape[0]), "K": len(pos_rows) + 1,
-                  "gathers": gathers},
+        "launches": launches, "max_abs_err": err,
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "call_ms",
+                                      "plain_call_ms",
+                                      "kernel_launches_per_call", "shape")},
+        "kernel_launches_by": "profiler trace of 25 calls",
+        "floor_ms": floor_ms,
+        "full_width": full,
     }
 
 
@@ -789,37 +1051,20 @@ FOLD_STAGES = ("init_kernel", "radix_hist", "scan_reduce", "scan_mid",
 
 
 def fold_stage_ms(fn, runs, launches_per_call, attempts=3):
-    """Device ms per call of each stage kernel in a profiler trace of
-    ``runs`` calls after two warm-up calls (None for a stage the trace does
-    not hold). A trace that holds another number of kernel records than
-    ``runs`` x ``launches_per_call`` is taken again, up to ``attempts``
-    times, since a dropped record would lower a stage's time unseen; then
-    every stage is None."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    warmup = 2
+    """Device ms per call of each stage kernel in a trace of ``runs``
+    calls (``kernel_records``; None for a stage the trace does not hold). A
+    trace that holds another number of kernel records than ``runs`` x
+    ``launches_per_call`` is taken again, up to ``attempts`` times, since a
+    dropped record would lower a stage's time unseen; then every stage is
+    None."""
     for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=warmup, active=runs,
-                                       repeat=1)) as prof:
-            for i in range(warmup + runs):
-                fn()
-                if i in (warmup - 1, warmup + runs - 1):
-                    # the active window holds only its own calls' kernels
-                    torch.cuda.synchronize()
-                prof.step()
         us = {stage: 0.0 for stage in FOLD_STAGES}
         n = {stage: 0 for stage in FOLD_STAGES}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
+        for name, (count, t) in kernel_records(fn, runs).items():
             for stage in FOLD_STAGES:
-                if f"{stage}(" in e.name or e.name.endswith(stage):
-                    us[stage] += e.time_range.end - e.time_range.start
-                    n[stage] += 1
+                if f"{stage}(" in name or name.endswith(stage):
+                    us[stage] += t
+                    n[stage] += count
         if sum(n.values()) == runs * launches_per_call:
             return {stage: us[stage] / runs / 1e3 if n[stage] else None
                     for stage in FOLD_STAGES}
@@ -829,7 +1074,7 @@ def fold_stage_ms(fn, runs, launches_per_call, attempts=3):
     return {stage: None for stage in FOLD_STAGES}
 
 
-def time_unique_fold(co, args, launches, err, rel):
+def time_unique_fold(co, args, launches, err, rel, floor_ms):
     import math
 
     mask, codes, vals, valid0, bufs0, slots = args
@@ -863,6 +1108,7 @@ def time_unique_fold(co, args, launches, err, rel):
         "library_ms": None, "call_ms": call_ms,
         "plain_call_ms": plain_call_ms,
         "max_rel_err": rel,
+        "floor_ms": floor_ms,
         "ms_by": f"cuda events over {runs} back-to-back calls",
         "kernel_launches_per_call": co.unique_window_fold.kernel_launches,
         "scratch_bytes": co.unique_window_fold.scratch_bytes,
@@ -952,7 +1198,8 @@ def main():
 
     # 2. build
     build_s = co.build()
-    log(f"[2/9] build: {len(co.SOURCES)} kernels in {build_s:.2f} s")
+    log(f"[2/9] build: {len(co.SOURCES)} kernel sources in "
+        f"{build_s:.2f} s")
     for name, out in co.LIBRARIES.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -960,9 +1207,10 @@ def main():
 
     # 3. kernels against their plain versions (synthetic inputs)
     gen = torch.Generator().manual_seed(7)
+    gen_dev = torch.Generator(device=dev).manual_seed(7)
     log("[3/9] kernels vs plain versions")
-    err_k1 = check_reverse_cummin(co, dev, gen)
-    err_k2 = check_chain_advance(co, dev, gen)
+    err_k1 = check_reverse_cummin(co, dev, gen_dev)
+    err_k2 = check_chain_advance(co, dev, gen_dev)
     err_k3, rel_k3 = check_unique_fold(co, dev, gen)
 
     # 4. headline end to end; record each kernel's inputs mid-run
@@ -979,6 +1227,7 @@ def main():
     finally:
         nfa.multi_reverse_cummin = co.multi_reverse_cummin
         nfa.chain_advance = co.chain_advance
+    full_k1, full_k2 = full_width_inputs(fpt, co, nfa, schema, batches)
 
     # 5. filter end to end (no kernel on this path)
     log("[5/9] filter")
@@ -1001,14 +1250,21 @@ def main():
     log("[7/9] kernels on their paths' inputs")
     if rec_k1.args is None or rec_k2.args is None or rec_k3.args is None:
         raise AssertionError("no kernel inputs recorded on the main paths")
-    x = rec_k1.args[0]
-    err_k1 = max(err_k1, same(co.multi_reverse_cummin(x),
-                              co.reverse_cummin_plain(x),
-                              "reverse_cummin main-path input"))
-    got = co.chain_advance(*rec_k2.args)
-    ref = co.chain_advance_plain(*rec_k2.args)
-    for g, r in zip(got, ref):
-        err_k2 = max(err_k2, same(g, r, "chain_advance main-path input"))
+    for rec, what in ((rec_k1, "main-path"), (full_k1, "full-width")):
+        pad = rec.kwargs.get("pad")
+        err_k1 = max(err_k1, same(
+            co.multi_reverse_cummin(rec.args[0], pad=pad),
+            co.reverse_cummin_plain(rec.args[0], pad),
+            f"reverse_cummin {what} input",
+        ))
+    for rec, what in ((rec_k2, "main-path"), (full_k2, "full-width")):
+        got = co.chain_advance(*rec.args)
+        ref = co.chain_advance_plain(*rec.args)
+        for g, r in zip(got, ref):
+            err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
+    floor_ms, floor_call_ms = timed(co.launch_empty)
+    log(f"  launch floor: an empty kernel's device time {floor_ms} ms "
+        f"(call {floor_call_ms} ms)")
     if rec_k3.args[0].device.type != "cuda":
         raise AssertionError("the recorded fold call did not run on the card")
     slots = rec_k3.args[-1]
@@ -1017,14 +1273,20 @@ def main():
                       "unique_window_fold main-path input")
     err_k3, rel_k3 = max(err_k3, e3), max(rel_k3, r3)
     kernels = [
-        time_reverse_cummin(co, x, head["launches"]["multi_reverse_cummin"],
-                            err_k1),
-        time_chain_advance(co, rec_k2.args,
-                           head["launches"]["chain_advance"], err_k2),
+        time_reverse_cummin(co, rec_k1, full_k1,
+                            head["launches"]["multi_reverse_cummin"],
+                            err_k1, floor_ms),
+        time_chain_advance(co, rec_k2, full_k2,
+                           head["launches"]["chain_advance"], err_k2,
+                           floor_ms),
         time_unique_fold(co, rec_k3.args,
                          board["launches"]["unique_window_fold"], err_k3,
-                         rel_k3),
+                         rel_k3, floor_ms),
     ]
+    for k in kernels[:2]:
+        log(f"  {k['name']}: {k['ms']} ms (call {k['call_ms']}), full "
+            f"width {k['full_width']['ms']} ms, bound {k['bound_ms']}, "
+            f"floor {floor_ms}")
 
     # 8. where the quote board's time goes (after the kernel timing: a
     # profiler session after this traced run recorded no device time on
@@ -1060,10 +1322,48 @@ def ab_one(root):
     import chip_smoke as cs  # the checkout's own, not this file
     import flink_siddhi_tpu_torch as fpt
     from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+    from flink_siddhi_tpu_torch.compiler import nfa
 
     co.build()
     schema, batches = cs.bench_stream(fpt, cs.BATCH * cs.N_BATCHES, cs.BATCH)
     n_events = sum(len(b) for b in batches)
+    # the checkout's chain kernels on its own headline inputs (the second
+    # micro-batch, and the third at full width), timed the same way for
+    # every checkout
+    rec_k1 = Recorder(co.multi_reverse_cummin, keep=2)
+    rec_k2 = Recorder(co.chain_advance, keep=2)
+    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+    try:
+        cs.run_job(fpt, cs.HEADLINE, schema, batches[:2], "cuda")
+    finally:
+        nfa.multi_reverse_cummin = co.multi_reverse_cummin
+        nfa.chain_advance = co.chain_advance
+    full_k1, full_k2 = full_width_inputs(fpt, co, nfa, schema, batches)
+    for what, recs in (("main-path", (rec_k1, rec_k2)),
+                       ("full-width", (full_k1, full_k2))):
+        for rec in recs:
+            ms, call_ms = timed(lambda: rec.fn(*rec.args, **rec.kwargs))
+            print(json.dumps({"checkout": root, "kernel": rec.fn.name,
+                              "input": what, "ms": ms, "call_ms": call_ms}),
+                  flush=True)
+        # the whole padded table build the checkout's chain core does: the
+        # kernel with its pad column, or the kernel and a cat with a full
+        x = recs[0].args[0]
+        C, E = (int(s) for s in x.shape)
+        if "pad" in inspect.signature(
+                type(co.multi_reverse_cummin).__call__).parameters:
+            def table():
+                return co.multi_reverse_cummin(x, pad=E)
+        else:
+            def table():
+                col = torch.full((C, 1), E, dtype=torch.int32,
+                                 device=x.device)
+                return torch.cat([co.multi_reverse_cummin(x), col], 1)
+        ms, call_ms = timed(table)
+        print(json.dumps({"checkout": root,
+                          "kernel": "padded next-match table",
+                          "input": what, "ms": ms, "call_ms": call_ms}),
+              flush=True)
     for name, cql in (("headline", cs.HEADLINE), ("filter", cs.FILTER)):
         cs.run_job(fpt, cql, schema, batches[:2], "cuda")
         walls = []

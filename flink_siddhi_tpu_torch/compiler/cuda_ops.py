@@ -5,7 +5,8 @@ NVIDIA Hopper card. Three kernels live here, all CUDA C++ under ``csrc/``:
 
 * **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
   the chain matcher's "next match at/after position p" tables: one
-  suffix-min per pattern row, all rows in one launch pair.
+  suffix-min per pattern row, all rows and the "no match" column in one
+  launch (a single-pass scan with decoupled look-back).
 * **chain advance** (``chain_advance``, csrc/chain_advance.cu) — every
   candidate partial match advanced through the pattern's remaining
   positive steps, absence guards and ``within`` in one pass, returning the
@@ -19,8 +20,8 @@ NVIDIA Hopper card. Three kernels live here, all CUDA C++ under ``csrc/``:
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
 probe that disables a kernel, no switch that forces the plain version and no
-``try`` that falls back. Each wrapper counts its launches in ``launches``
-(a plain integer, bumped only where the kernel is launched).
+``try`` that falls back. Each wrapper counts its CUDA calls in
+``launches`` (a plain integer, bumped only where its kernel is launched).
 
 The kernels build at their first CUDA use (or through ``build``) with
 ``nvcc`` into ``build/torch_kernels/`` beside the package — one shared
@@ -31,7 +32,9 @@ no GPU and no build.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,7 +42,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,20 +59,25 @@ SOURCES = {
     "reverse_cummin": "reverse_cummin.cu",
     "chain_advance": "chain_advance.cu",
     "unique_fold": "unique_fold.cu",
+    "empty": "empty.cu",
 }
-_TILE = 1024  # events per block in reverse_cummin.cu
-_MAX_STEPS = 32  # chain_advance.cu ChainPlan limits
+CUMMIN_TILE = 2048  # reverse_cummin.cu's kTile: events per block
+_EPOCH_LIMIT = (1 << 30) - 1  # the look-back states' epoch field
+_MAX_STEPS = 32  # chain_advance.cu's ChainPlan limits
 _MAX_GUARDS = 64
 FOLD_MAX_SLOTS = 64  # unique_fold.cu plan limits
 FOLD_MAX_ARGS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _ARGTYPES = {
-    "fst_reverse_cummin": [_P, _P, _P, _I, _I, _P],
+    "fst_reverse_cummin": [_P, _P, _P, _I, _I, _L, _I, _I, ctypes.c_uint,
+                           _P],
     "fst_chain_advance": [
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+        _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
     ],
+    "fst_empty": [_P],
     "fst_unique_fold": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
         _P, _I, _P, _P,
@@ -197,43 +205,126 @@ def _device_kind(t: torch.Tensor, what: str) -> str:
     return kind
 
 
+def _on_device(dev: torch.device):
+    """The context a launch on ``dev`` needs: none when ``dev`` is the
+    current device (a kernel launches on the current device)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch_empty() -> None:
+    """One launch of an empty kernel (csrc/empty.cu, one block) on the
+    current stream: the floor under every kernel's device time, measured
+    by chip_smoke.py. No path calls it."""
+    err = LIBRARIES.get("empty").fst_empty(
+        _stream(torch.cuda.current_device())
+    )
+    _check_launch("empty", err)
+
+
 # --------------------------------------------------------------------------
 # K1: multi-channel reverse cummin
 # --------------------------------------------------------------------------
 
-def reverse_cummin_plain(x: torch.Tensor) -> torch.Tensor:
-    """The plain version: suffix min along the last axis, int32 in/out."""
-    return torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values, [-1])
+def reverse_cummin_plain(x: torch.Tensor,
+                         pad: Optional[int] = None) -> torch.Tensor:
+    """The plain version: suffix min along the last axis, int32 in/out;
+    with ``pad``, one more column holding ``pad``."""
+    out = torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values, [-1])
+    if pad is None:
+        return out
+    col = torch.full((x.shape[0], 1), pad, dtype=x.dtype, device=x.device)
+    return torch.cat([out, col], 1)
+
+
+def padded_stride(E: int) -> int:
+    """Row stride of a padded next-match table: E + 1 rounded up to 4
+    ints, so that every row starts on a 16-byte boundary (the reverse
+    cummin's 16-byte stores)."""
+    return (E + 4) // 4 * 4
+
+
+def cummin_scratch_words(C: int, E: int, tile: int = CUMMIN_TILE) -> int:
+    """64-bit words of look-back scratch one call needs: the ticket
+    counter, then one state per (channel, tile), at least one tile."""
+    return 1 + C * max(1, -(-E // tile))
+
+
+class LookbackScratch:
+    """The look-back states of reverse_cummin.cu, kept per (device,
+    stream) and grown when a call needs more words. Each call takes the
+    next epoch, so the states of earlier calls read "not ready" without a
+    clearing launch; when the epoch passes ``epoch_limit`` the buffer is
+    zeroed once and the epochs start again at 1."""
+
+    def __init__(self, epoch_limit: int = _EPOCH_LIMIT) -> None:
+        self.epoch_limit = epoch_limit
+        self._bufs: Dict[Tuple, list] = {}  # key -> [int64 buffer, epoch]
+
+    def take(self, device: torch.device, stream: int,
+             words: int) -> Tuple[torch.Tensor, int]:
+        """(buffer of at least ``words`` words, this call's epoch)."""
+        key = (device, stream)
+        ent = self._bufs.get(key)
+        if ent is None or ent[0].numel() < words:
+            # zeros: every state reads epoch 0, which no call uses
+            ent = [torch.zeros(words, dtype=torch.int64, device=device), 0]
+            self._bufs[key] = ent
+        ent[1] += 1
+        if ent[1] > self.epoch_limit:
+            ent[0].zero_()
+            ent[1] = 1
+        return ent[0], ent[1]
 
 
 class ReverseCummin:
-    """``out[c, e] = min(x[c, e:])`` for an int32 ``[C, E]`` tensor."""
+    """``out[c, e] = min(x[c, e:])`` for an int32 ``[C, E]`` tensor; with
+    ``pad``, ``[C, E + 1]`` whose column E holds ``pad`` (on the card
+    with a row stride of ``padded_stride(E)``). On CUDA one call is one
+    kernel launch."""
 
     name = "multi_reverse_cummin"
     source = "flink_siddhi_tpu_torch/csrc/reverse_cummin.cu"
 
     def __init__(self) -> None:
         self.launches = 0
+        self.scratch = LookbackScratch()
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor,
+                 pad: Optional[int] = None) -> torch.Tensor:
         if _device_kind(x, "x") == "cpu":
-            return reverse_cummin_plain(x)
+            return reverse_cummin_plain(x, pad)
         if x.dim() != 2:
             raise ValueError(f"x: expected [C, E], got {tuple(x.shape)}")
-        _check(x, "x", torch.int32, x.device)
+        dev = x.device
+        _check(x, "x", torch.int32, dev)
         C, E = (int(s) for s in x.shape)
-        if not 1 <= C <= 65535 or not 1 <= E < 2 ** 30:
+        if not 1 <= C <= 65535 or not 0 <= E < 2 ** 30:
             raise ValueError(f"x: unsupported shape {(C, E)}")
+        if pad is not None and not -2 ** 31 <= pad < 2 ** 31:
+            raise ValueError(f"pad {pad} is not an int32")
         lib = LIBRARIES.get("reverse_cummin")
-        out = torch.empty_like(x)
-        n_tiles = -(-E // _TILE)
-        scratch = torch.empty(C * n_tiles, dtype=torch.int32,
-                              device=x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
+        if pad is None:
+            ld = E
+            out = torch.empty((C, E), dtype=torch.int32, device=dev)
+        else:
+            ld = padded_stride(E)
+            out = torch.empty_strided((C, E + 1), (ld, 1),
+                                      dtype=torch.int32, device=dev)
+        with _on_device(dev):
+            stream = _stream(dev.index)
+            states, epoch = self.scratch.take(
+                dev, stream, cummin_scratch_words(C, E)
+            )
             err = lib.fst_reverse_cummin(
-                x.data_ptr(), out.data_ptr(), scratch.data_ptr(), C, E,
-                stream,
+                x.data_ptr(), out.data_ptr(), states.data_ptr(), C, E, ld,
+                int(pad is not None), int(pad or 0), epoch, stream,
             )
         _check_launch(self.name, err)
         self.launches += 1
@@ -277,15 +368,35 @@ def chain_advance_plain(nxt, pos_rows, guard_rows, ts_pad, act, step, pos,
     return act, step, pos, jmat
 
 
+@functools.lru_cache(maxsize=256)
+def chain_plan(pos_rows: Tuple[int, ...],
+               guard_rows: Tuple[Tuple[int, ...], ...],
+               has_within: bool) -> ctypes.Array:
+    """chain_advance.cu's plan as a ctypes int array, one per pattern
+    layout: ``[n_steps, has_within, pos_row..., g_begin..., g_row...]``."""
+    g_begin = [0]
+    for gs in guard_rows:
+        g_begin.append(g_begin[-1] + len(gs))
+    plan = (
+        [len(pos_rows), int(has_within)]
+        + list(pos_rows)
+        + g_begin
+        + [g for gs in guard_rows for g in gs]
+    )
+    return (ctypes.c_int * len(plan))(*plan)
+
+
 class ChainAdvance:
     """Advance ``V`` candidates through positive steps ``1..K-1``.
 
     ``nxt``: int32 ``[rows, E + 1]`` next-match table (position E = "no
-    match"); ``pos_rows[k-1]``: its row for positive step k;
+    match"), rows contiguous, any row stride; ``pos_rows[k-1]``: its row
+    for positive step k;
     ``guard_rows[k-1]``: its rows of step k's absence guards; ``ts_pad``:
     int32 ``[E + 1]``; ``act`` bool and ``step``/``pos``/``start`` int32
     ``[V]``; ``within``: int, or None without a ``within`` clause.
-    Returns ``(act, step, pos, jmat int32[K-1, V])``."""
+    Returns ``(act, step, pos, jmat int32[K-1, V])``. On CUDA one call is
+    one kernel launch, none when ``V`` is 0."""
 
     name = "chain_advance"
     source = "flink_siddhi_tpu_torch/csrc/chain_advance.cu"
@@ -313,7 +424,15 @@ class ChainAdvance:
         E = int(ts_pad.shape[0]) - 1
         V = int(act.shape[0])
         n_rows = int(nxt.shape[0])
-        _check(nxt, "nxt", torch.int32, dev, (n_rows, E + 1))
+        ld = nxt.stride(0) if n_rows > 1 else E + 1
+        if (nxt.dtype != torch.int32 or nxt.device != dev
+                or tuple(nxt.shape) != (n_rows, E + 1)
+                or nxt.stride(1) != 1 or ld < E + 1):
+            raise ValueError(
+                f"nxt: expected int32 [rows, {E + 1}] on {dev} with "
+                f"contiguous rows, got {nxt.dtype} {tuple(nxt.shape)} "
+                f"stride {nxt.stride()} on {nxt.device}"
+            )
         rows = list(pos_rows) + [g for gs in guard_rows for g in gs]
         if any(not 0 <= r < n_rows for r in rows):
             raise ValueError(f"row index out of range 0..{n_rows - 1}")
@@ -321,29 +440,22 @@ class ChainAdvance:
         _check(act, "act", torch.bool, dev, (V,))
         for t, what in ((step, "step"), (pos, "pos"), (start, "start")):
             _check(t, what, torch.int32, dev, (V,))
-        g_begin = [0]
-        for gs in guard_rows:
-            g_begin.append(g_begin[-1] + len(gs))
-        plan = (
-            [n_steps, int(within is not None)]
-            + list(pos_rows)
-            + g_begin
-            + [g for gs in guard_rows for g in gs]
-        )
-        plan_c = (ctypes.c_int * len(plan))(*plan)
+        plan = chain_plan(tuple(pos_rows),
+                          tuple(tuple(g) for g in guard_rows),
+                          within is not None)
         lib = LIBRARIES.get("chain_advance")
         act_o = torch.empty_like(act)
         step_o = torch.empty_like(step)
         pos_o = torch.empty_like(pos)
         jmat = torch.empty((n_steps, V), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        with _on_device(dev):
+            stream = _stream(dev.index)
             err = lib.fst_chain_advance(
-                nxt.data_ptr(), E, ts_pad.data_ptr(), act.data_ptr(),
-                step.data_ptr(), pos.data_ptr(), start.data_ptr(),
-                act_o.data_ptr(), step_o.data_ptr(), pos_o.data_ptr(),
-                jmat.data_ptr(), V, ctypes.cast(plan_c, ctypes.c_void_p),
-                len(plan), int(within or 0), stream,
+                nxt.data_ptr(), ld, E, ts_pad.data_ptr(),
+                act.data_ptr(), step.data_ptr(), pos.data_ptr(),
+                start.data_ptr(), act_o.data_ptr(), step_o.data_ptr(),
+                pos_o.data_ptr(), jmat.data_ptr(), V, plan, len(plan),
+                int(within or 0), stream,
             )
         _check_launch(self.name, err)
         self.launches += 1
@@ -502,14 +614,13 @@ class UniqueWindowFold:
         bufs = torch.empty_like(bufs0)
         rows = torch.empty((S, E), dtype=torch.float32, device=dev)
         scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        with _on_device(dev):
             err = lib.fst_unique_fold(
                 mask.data_ptr(), codes.data_ptr(), vals.data_ptr(),
                 valid0.data_ptr(), bufs0.data_ptr(), valid.data_ptr(),
                 bufs.data_ptr(), rows.data_ptr(), scratch.data_ptr(),
                 nbytes.value, E, C, A, plan_p, len(plan),
-                ctypes.addressof(n_launch), stream,
+                ctypes.addressof(n_launch), _stream(dev.index),
             )
         _check_launch(self.name, err)
         self.launches += 1

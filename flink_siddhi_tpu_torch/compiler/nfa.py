@@ -462,7 +462,7 @@ def _chain_core(
 
     # nxt[row][p] = min q >= p with preds[e][q], else E, one row per
     # element the advance reads (positive targets, then guards, then the
-    # timed-absence guard); column E reads "no match"
+    # timed-absence guard); column E reads "no match" (the kernel's pad)
     scan_rows = list(positive[1:]) + [g for gs in guards for g in gs]
     if cfg.t_guard is not None:
         scan_rows.append(cfg.t_guard)
@@ -472,13 +472,7 @@ def _chain_core(
         idxs = torch.stack(
             [torch.where(preds[e], arange, E) for e in scan_rows]
         )
-        nxt = torch.cat(
-            [
-                multi_reverse_cummin(idxs),
-                torch.full((len(scan_rows), 1), E, dtype=_I32, device=dev),
-            ],
-            dim=1,
-        )
+        nxt = multi_reverse_cummin(idxs, pad=E)
     ts_pad = torch.cat([ts, torch.zeros(1, dtype=_I32, device=dev)])
     env_pad = {
         pair: torch.cat(

@@ -15,21 +15,34 @@
 // for `within`; then it advances (step = k + 1, pos = j + 1) or dies.
 // jmat[k - 1, v] is j where the candidate advanced at step k, else E.
 //
-// What bounds it on an H100: memory latency, not bandwidth. The streamed
-// bytes are small (act 1 B, step/pos/start 12 B in, 9 B out, 4 B of jmat
-// per step and candidate), but each step is a chain of dependent gathers
-// into the next-match table: 2 rows x (E + 1) x 4 B = 512 KiB for the
-// headline pattern after relevance compaction (E = 65,536), 4 MiB at the
-// full 524,288-event width. That is over a block's 227 KB of shared memory,
-// so the table is read through the 50 MB L2, where it stays resident.
+// What bounds it on an H100: the latency of dependent gathers, not
+// bandwidth. The streamed bytes are small (act 1 B, step/pos/start 12 B in,
+// 9 B out, 4 B of jmat per step and candidate), but every live candidate
+// runs a chain: nxt[row][pos], then ts[j], and the next step's position is
+// j + 1, one access after another with nothing to hide them. The table
+// (2 rows x (E + 1) x 4 B = 512 KiB for the headline pattern after
+// relevance compaction, E = 65,536; 4 MiB at the full 524,288-event width)
+// is over a block's 227 KB of shared memory and stays resident in the
+// 50 MB L2.
 //
 // Design: candidates not at step k skip every gather of step k (their
 // outcome is fixed: jmat = E, no state change), so the gathers issued are
-// what the batch's live candidates need. The per-pattern row layout (which
-// table row each positive step and guard reads) is a small struct passed by
-// value as a kernel argument: no device copy and no host sync per call.
-// Unlike the Pallas kernel, which declined tables over its 8 MiB VMEM
-// budget, this one takes every R and E.
+// what the batch's live candidates need. The gathers are local: a fresh
+// start at tape position e searches from e + 1, and a block holds 256
+// consecutive candidates, so after the first miss of a neighbourhood the
+// read-only (__ldg) gathers of its neighbours can be served by the SM's L1. A per-block window of the table copied
+// into shared memory (cp.async, from the block's smallest search position)
+// served every gather of the headline's step and was still slower on the
+// card: it puts a block barrier on the candidates' own loads and a copy
+// round trip in front of the chain, to save L1 hits (PERF.md §6).
+//
+// The table's row stride ld is passed by value: the chain matcher's table
+// comes from the reverse cummin's padded output, whose rows start on
+// 16-byte boundaries (ld = E + 1 rounded up to 4). The per-pattern row
+// layout (which table row each positive step and guard reads) is a small
+// struct passed by value as a kernel argument: no device copy and no host
+// sync per call. Unlike the Pallas kernel, which declined tables over its
+// 8 MiB VMEM budget, this one takes every R and E.
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,7 +60,7 @@ struct ChainPlan {
 };
 
 __global__ void __launch_bounds__(kThreads)
-chain_advance_kernel(const int* __restrict__ nxt, int E,
+chain_advance_kernel(const int* __restrict__ nxt, long long ld, int E,
                      const int* __restrict__ ts_pad,
                      const bool* __restrict__ act_in,
                      const int* __restrict__ step_in,
@@ -58,7 +71,6 @@ chain_advance_kernel(const int* __restrict__ nxt, int E,
                      const ChainPlan plan, int within) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
-  const size_t W = static_cast<size_t>(E) + 1;
   bool act = act_in[v];
   int step = step_in[v];
   int pos = pos_in[v];
@@ -67,10 +79,10 @@ chain_advance_kernel(const int* __restrict__ nxt, int E,
     int jk = E;
     if (act && step == k) {
       const int idx = min(max(pos, 0), E);
-      const int j = __ldg(nxt + plan.pos_row[k - 1] * W + idx);
+      const int j = __ldg(nxt + plan.pos_row[k - 1] * ld + idx);
       bool found = j < E;
       for (int g = plan.g_begin[k - 1]; g < plan.g_begin[k]; ++g) {
-        const int jg = __ldg(nxt + plan.g_row[g] * W + idx);
+        const int jg = __ldg(nxt + plan.g_row[g] * ld + idx);
         if (jg <= j && jg < E) {
           act = false;
           found = false;
@@ -100,18 +112,22 @@ chain_advance_kernel(const int* __restrict__ nxt, int E,
 
 }  // namespace
 
-// nxt: int32 [rows, E + 1]; ts_pad: int32 [E + 1]; act (bool), step, pos,
-// start: [V]; outputs act/step/pos [V] and jmat int32 [K - 1, V].
+// nxt: int32 [rows, E + 1] with row stride ld >= E + 1; ts_pad: int32
+// [E + 1]; act (bool), step, pos, start: [V]; outputs act/step/pos [V] and
+// jmat int32 [K - 1, V].
 // plan_host: [n_steps, has_within, pos_row x n_steps,
-// g_begin x (n_steps + 1), g_row x n_guards] in host memory. Launches on
-// `stream`; returns a cudaError_t.
-extern "C" int fst_chain_advance(const int* nxt, int E, const int* ts_pad,
+// g_begin x (n_steps + 1), g_row x n_guards] in host memory. One launch on
+// `stream` (none when V == 0); returns a cudaError_t.
+extern "C" int fst_chain_advance(const int* nxt, long long ld, int E,
+                                 const int* ts_pad,
                                  const void* act_in, const int* step_in,
                                  const int* pos_in, const int* start,
                                  void* act_out, int* step_out, int* pos_out,
                                  int* jmat, int V, const int* plan_host,
                                  int plan_len, int within, void* stream) {
-  if (plan_len < 3 || E < 0 || V < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (plan_len < 3 || E < 0 || V < 0 || ld < static_cast<long long>(E) + 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ChainPlan plan = {};
   plan.n_steps = plan_host[0];
   plan.has_within = plan_host[1];
@@ -130,7 +146,7 @@ extern "C" int fst_chain_advance(const int* nxt, int E, const int* ts_pad,
   if (V == 0) return 0;
   const int blocks = (V + kThreads - 1) / kThreads;
   chain_advance_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nxt, E, ts_pad, static_cast<const bool*>(act_in), step_in, pos_in, start,
+      nxt, ld, E, ts_pad, static_cast<const bool*>(act_in), step_in, pos_in, start,
       static_cast<bool*>(act_out), step_out, pos_out, jmat, V, plan, within);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,137 +5,282 @@
 // up to 8 channels; the chain matcher's next-match tables, nfa.py
 // `_chain_core`).
 //
-// out[c, e] = min(x[c, e], x[c, e + 1], ..., x[c, E - 1]) for c < C, e < E.
+// out[c, e] = min(x[c, e], x[c, e + 1], ..., x[c, E - 1]) for c < C, e < E;
+// with a pad, out has a row stride ld >= E + 1 (the wrapper takes E + 1
+// rounded up to 4 ints, so every row starts on a 16-byte boundary) and
+// out[c, E] = pad: column E reads "no match", written by the same launch.
 //
-// What bounds it on an H100: memory. The function must read C * E int32 and
-// write C * E int32; it does one integer min per element, far below the
-// card's integer rate. At the chain matcher's shapes (C = 2, E = 65,536
-// after relevance compaction) the 1 MiB it moves takes well under a
-// microsecond at 3.35 TB/s, so two kernel launches dominate its time.
+// What bounds it on an H100: bytes. The function reads C * E int32 and
+// writes C * (E + 1) int32, one integer min per element, far below the
+// card's integer rate: at the chain matcher's compacted shape (C = 2,
+// E = 65,536) the 1 MiB it moves takes 0.31 us at 3.35 TB/s, under the
+// device time of one empty launch (chip_smoke.py phase 7 measures that
+// floor, about 0.75 us). So one launch and one pass over memory is all the
+// design spends; at that shape the rest of its time is latency: the ticket
+// atomic, the tile's loads, one round trip through L2 for the look-back,
+// the stores.
 //
-// Design: the Pallas kernel walks its grid right to left and threads a
-// running minimum through a carry; Hopper blocks run in parallel and in no
-// order, so that carry cannot exist. Two passes instead:
-//   1. tile_min_kernel: one block per (1024-event tile, channel) writes the
-//      tile's minimum (a C x n_tiles scratch array).
-//   2. suffix_min_kernel: each block reduces the tile minima to its right
-//      into a carry, then runs an in-tile suffix scan — 4 consecutive events
-//      per thread, a warp-shuffle suffix scan across lanes, and the per-warp
-//      minima through shared memory — seeded with that carry.
-// The input is read twice (the second read mostly from L2); any E >= 1 and
-// any 1 <= C <= 65,535 are taken, with no padding channels. The identity is
-// INT_MAX, so every int32 value is exact.
+// Design: a single-pass suffix scan with decoupled look-back (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// 2016), run right to left. The Pallas kernel threads a running minimum
+// through a sequential grid; Hopper blocks run in no order, so:
+//   - each block draws a ticket (atomicAdd) and takes tile
+//     n_tiles - 1 - ticket: a block waits only on tiles that blocks which
+//     started before it hold, so the scan progresses at any grid size;
+//   - one block covers its tile for all C channels, kGroup channels at a
+//     time held in registers; it loads and stores 16-byte vectors where the
+//     row is aligned (a scalar edge for the ragged end and misaligned rows);
+//   - inside the tile: each thread's consecutive events suffix-min'ed in
+//     registers, a warp-shuffle suffix scan across lanes, warp totals
+//     through shared memory;
+//   - each (channel, tile) publishes its aggregate at once, then warp g
+//     looks back over the tiles to its right for channel g, 32 tiles at a
+//     time, until it meets a tile whose inclusive prefix is published, and
+//     publishes its own prefix. A state is one 64-bit word (tag, value),
+//     so device-scope relaxed loads and stores are enough (acquire/release
+//     would order other data, and there is none; timed during development,
+//     they cost more than the whole look-back). The tag holds the status
+//     and the call's epoch, so the scratch needs no clearing launch: a word
+//     of an earlier call reads "not ready". The block that draws the last
+//     ticket resets the ticket counter; stream order serialises calls on
+//     one scratch.
+// The identity is INT_MAX, so every int32 value is exact.
+//
+// Tile: 2,048 events and 256 threads (8 events a thread and channel, 4
+// channels in registers at once), fixed at compile time. Measured on an
+// H100 against 1,024 and 4,096 at the chain matcher's compacted shape
+// (C = 2, E = 65,536) and at full width (E = 524,288), PERF.md §6: 1,024
+// doubles the tiles, so the look-back walks twice as many states and more
+// blocks spin on it; 4,096 leaves 16 blocks at E = 65,536, so 16 of the
+// 132 SMs carry all the loads. 2,048 was fastest at both shapes.
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kTile = 2048;    // events a block scans
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 4;
-constexpr int kTile = kThreads * kPerThread;  // events per block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kAggregate = 1u;  // the tile's own minimum
+constexpr unsigned kPrefix = 2u;     // the minimum of the tile and all to its right
+
+// The look-back states are single 64-bit words holding their status and
+// value together, so relaxed (single-copy atomic) accesses at device scope
+// suffice: no other data is published with them.
+__device__ __forceinline__ unsigned long long ld_state(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_state(unsigned long long* p,
+                                         unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long pack(unsigned epoch,
+                                                   unsigned status, int v) {
+  return (static_cast<unsigned long long>((epoch << 2) | status) << 32) |
+         static_cast<unsigned>(v);
+}
+
+// The status of a state word in this call: 0 (not ready, or an earlier
+// call's word), kAggregate or kPrefix.
+__device__ __forceinline__ unsigned status_of(unsigned long long w,
+                                              unsigned epoch) {
+  const unsigned tag = static_cast<unsigned>(w >> 32);
+  return (tag >> 2) == epoch ? (tag & 3u) : 0u;
+}
 
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = min(v, __shfl_xor_sync(kFull, v, off));
   }
   return v;
 }
 
-// Block-wide minimum, returned to every thread.
-__device__ __forceinline__ int block_min(int v, int* smem) {
-  v = warp_min(v);
-  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = INT_MAX;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) r = min(r, smem[w]);
-  return r;
-}
-
-__global__ void __launch_bounds__(kThreads)
-tile_min_kernel(const int* __restrict__ x, int E, int n_tiles,
-                int* __restrict__ tile_min) {
-  __shared__ int smem[kWarps];
-  const int c = blockIdx.y;
-  const int t = blockIdx.x;
-  const int* row = x + static_cast<size_t>(c) * E;
-  const long long base = static_cast<long long>(t) * kTile;
-  int m = INT_MAX;
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const long long e = base + i;
-    if (e < E) m = min(m, row[e]);
+// Warp-wide: the minimum over the tiles right of `tile` (the exclusive
+// carry), read from their published states, 32 tiles a round, until the
+// nearest published prefix.
+__device__ int look_back(const unsigned long long* st, int tile, int n_tiles,
+                         unsigned epoch, int lane) {
+  int carry = INT_MAX;
+  for (int j = tile + 1;; j += 32) {
+    const int i = j + lane;
+    unsigned status = kPrefix;  // past the last tile: the identity
+    int val = INT_MAX;
+    if (i < n_tiles) {
+      unsigned long long w;
+      do {
+        w = ld_state(st + i);
+        status = status_of(w, epoch);
+      } while (status == 0);
+      val = static_cast<int>(static_cast<unsigned>(w));
+    }
+    const unsigned prefixes = __ballot_sync(kFull, status == kPrefix);
+    // lanes up to the nearest published prefix contribute
+    const int last = prefixes ? __ffs(prefixes) - 1 : 31;
+    carry = min(carry, warp_min(lane <= last ? val : INT_MAX));
+    if (prefixes) return carry;
   }
-  m = block_min(m, smem);
-  if (threadIdx.x == 0) tile_min[static_cast<size_t>(c) * n_tiles + t] = m;
+}
+
+template <int kPer>
+__device__ __forceinline__ void load_run(const int* __restrict__ row,
+                                         long long e0, int E, int* v) {
+  const int* p = row + e0;
+  if (e0 + kPer <= E && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(p) + q);
+      v[4 * q] = a.x;
+      v[4 * q + 1] = a.y;
+      v[4 * q + 2] = a.z;
+      v[4 * q + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = e0 + k < E ? __ldg(p + k) : INT_MAX;
+  }
+}
+
+template <int kPer>
+__device__ __forceinline__ void store_run(int* __restrict__ row, long long e0,
+                                          int E, const int* v) {
+  int* p = row + e0;
+  if (e0 + kPer <= E && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      reinterpret_cast<int4*>(p)[q] =
+          make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (e0 + k < E) p[k] = v[k];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-suffix_min_kernel(const int* __restrict__ x, int E, int n_tiles,
-                  const int* __restrict__ tile_min, int* __restrict__ out) {
-  __shared__ int smem[kWarps];
-  __shared__ int warp_total[kWarps];
-  const int c = blockIdx.y;
-  const int t = blockIdx.x;
+suffix_min_kernel(const int* __restrict__ x, int* __restrict__ out, int C,
+                  int E, long long ld, int n_tiles, int has_pad, int pad,
+                  unsigned epoch, unsigned long long* states,
+                  unsigned* ticket) {
+  constexpr int kPer = kTile / kThreads;  // events per thread and channel
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kGroup = 32 / kPer < kWarps ? 32 / kPer : kWarps;
+  static_assert(kPer % 4 == 0 && kGroup >= 1, "tile");
+  __shared__ int s_tile;
+  __shared__ int warp_tot[kGroup][kWarps];
+  __shared__ int carry[kGroup];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int* row = x + static_cast<size_t>(c) * E;
-  int* orow = out + static_cast<size_t>(c) * E;
-  const int* tmin = tile_min + static_cast<size_t>(c) * n_tiles;
 
-  // carry: the minimum of every tile to the right of this one
-  int carry = INT_MAX;
-  for (int j = t + 1 + threadIdx.x; j < n_tiles; j += kThreads) {
-    carry = min(carry, tmin[j]);
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    if (t == static_cast<unsigned>(n_tiles - 1)) *ticket = 0u;
+    s_tile = n_tiles - 1 - static_cast<int>(t);
   }
-  carry = block_min(carry, smem);
-
-  // this thread's kPerThread consecutive events, suffix-min'ed locally
-  const long long base =
-      static_cast<long long>(t) * kTile + threadIdx.x * kPerThread;
-  int v[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long e = base + k;
-    v[k] = e < E ? row[e] : INT_MAX;
-  }
-#pragma unroll
-  for (int k = kPerThread - 2; k >= 0; --k) v[k] = min(v[k], v[k + 1]);
-
-  // inclusive suffix min across lanes: s = min over lanes >= this lane
-  int s = v[0];
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_down_sync(0xffffffffu, s, off);
-    if (lane + off < 32) s = min(s, o);
-  }
-  if (lane == 0) warp_total[warp] = s;
   __syncthreads();
-  int right = carry;
-  for (int w = warp + 1; w < kWarps; ++w) right = min(right, warp_total[w]);
-  const int later_lanes = __shfl_down_sync(0xffffffffu, s, 1);
-  if (lane < 31) right = min(right, later_lanes);
+  const int tile = s_tile;
+  const long long e0 =
+      static_cast<long long>(tile) * kTile + threadIdx.x * kPer;
+
+  for (int c0 = 0; c0 < C; c0 += kGroup) {
+    int v[kGroup][kPer];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long e = base + k;
-    if (e < E) orow[e] = min(v[k], right);
+    for (int g = 0; g < kGroup; ++g) {
+      if (c0 + g < C) {
+        load_run<kPer>(x + static_cast<size_t>(c0 + g) * E, e0, E, v[g]);
+      }
+    }
+    int s[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (c0 + g >= C) continue;
+#pragma unroll
+      for (int k = kPer - 2; k >= 0; --k) v[g][k] = min(v[g][k], v[g][k + 1]);
+      // inclusive suffix min across lanes: over lanes >= this one
+      int m = v[g][0];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_down_sync(kFull, m, off);
+        if (lane + off < 32) m = min(m, o);
+      }
+      s[g] = m;
+      if (lane == 0) warp_tot[g][warp] = m;
+    }
+    __syncthreads();
+    // warp g publishes channel c0 + g's aggregate, looks back, publishes
+    // its prefix
+    if (warp < kGroup && c0 + warp < C) {
+      int agg = INT_MAX;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) agg = min(agg, warp_tot[warp][w]);
+      unsigned long long* st =
+          states + static_cast<size_t>(c0 + warp) * n_tiles;
+      int ex = INT_MAX;
+      if (tile == n_tiles - 1) {
+        if (lane == 0) st_state(st + tile, pack(epoch, kPrefix, agg));
+      } else {
+        if (lane == 0) st_state(st + tile, pack(epoch, kAggregate, agg));
+        ex = look_back(st, tile, n_tiles, epoch, lane);
+        if (lane == 0) st_state(st + tile, pack(epoch, kPrefix, min(ex, agg)));
+      }
+      if (lane == 0) carry[warp] = ex;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (c0 + g >= C) continue;
+      int right = carry[g];
+      for (int w = warp + 1; w < kWarps; ++w) right = min(right, warp_tot[g][w]);
+      const int later = __shfl_down_sync(kFull, s[g], 1);
+      if (lane < 31) right = min(right, later);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) v[g][k] = min(v[g][k], right);
+      store_run<kPer>(out + static_cast<size_t>(c0 + g) * ld, e0, E, v[g]);
+    }
+    if (c0 + kGroup < C) __syncthreads();  // warp_tot and carry are reused
+  }
+
+  // the pad column E of every row, from the block of the last tile
+  if (has_pad && tile == n_tiles - 1) {
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      out[static_cast<size_t>(c) * ld + E] = pad;
+    }
   }
 }
 
 }  // namespace
 
-// x, out: int32 [C, E] row-major; tile_min: int32 scratch of
-// C * ceil(E / 1024). Launches on `stream`; returns a cudaError_t.
-extern "C" int fst_reverse_cummin(const int* x, int* out, int* tile_min,
-                                  int C, int E, void* stream) {
-  if (C < 1 || C > 65535 || E < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (E + kTile - 1) / kTile;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, C);
-  tile_min_kernel<<<grid, kThreads, 0, s>>>(x, E, n_tiles, tile_min);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  suffix_min_kernel<<<grid, kThreads, 0, s>>>(x, E, n_tiles, tile_min, out);
+// x: int32 [C, E] row-major; out: int32 rows of stride ld (ld == E without
+// a pad; with one, ld >= E + 1, and column E holds the pad); states:
+// 1 + C * ceil(E / 2048) 64-bit words (at least one tile; word 0 the
+// ticket counter), zeroed once when allocated, then reused with a new
+// epoch (1 .. 2^30 - 1) per call. One launch on `stream`; returns a
+// cudaError_t.
+extern "C" int fst_reverse_cummin(const int* x, int* out, void* states,
+                                  int C, int E, long long ld, int has_pad,
+                                  int pad, unsigned epoch, void* stream) {
+  if (C < 1 || E < 0 || epoch == 0 || epoch >= (1u << 30) ||
+      (!has_pad && ld != E) ||
+      (has_pad && ld < static_cast<long long>(E) + 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = E > 0 ? (E + kTile - 1) / kTile : 1;
+  // word 0 holds the ticket counter at every shape; the states follow
+  unsigned long long* st = static_cast<unsigned long long*>(states);
+  suffix_min_kernel<<<n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, C, E, ld, n_tiles, has_pad, pad, epoch, st + 1,
+      reinterpret_cast<unsigned*>(st));
   return static_cast<int>(cudaGetLastError());
 }

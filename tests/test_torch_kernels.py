@@ -58,12 +58,103 @@ def test_reverse_cummin_plain_matches_lax_and_numpy(C, E):
     assert np.array_equal(got.numpy(), ref_lax)
 
 
+@pytest.mark.parametrize("E", [1, 7, 1000, 4099])
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+def test_reverse_cummin_pad_matches_lax(C, E):
+    # pad=E appends the "no match" column the chain core reads at E
+    rng = np.random.default_rng(C * 7_919 + E)
+    x = rng.integers(0, E + 1, (C, E)).astype(np.int32)
+    got = cuda_ops.multi_reverse_cummin(torch.from_numpy(x), pad=E)
+    ref = np.stack(
+        [np.append(np.asarray(jax.lax.cummin(jnp.asarray(r), axis=0,
+                                             reverse=True)), E)
+         for r in x]
+    )
+    assert got.dtype == torch.int32 and tuple(got.shape) == (C, E + 1)
+    assert np.array_equal(got.numpy(), ref)
+
+
 def test_reverse_cummin_plain_full_int32_range():
     # the CUDA kernel's identity is INT_MAX; the plain version must be
     # exact over the whole int32 range too (no 2**30 clamp)
     x = np.array([[2 ** 31 - 1, -(2 ** 31), 5, 2 ** 31 - 2]], np.int32)
     got = cuda_ops.reverse_cummin_plain(torch.from_numpy(x)).numpy()
     assert got.tolist() == [[-(2 ** 31), -(2 ** 31), 5, 2 ** 31 - 2]]
+
+
+@pytest.mark.parametrize("C,E,tile,words", [
+    (1, 1, 1024, 2),  # the ticket word and one tile
+    (3, 0, 4096, 4),  # no events: still one tile a channel
+    (2, 2048, 2048, 3),
+    (2, 2049, 2048, 5),
+    (2, 65_536, 2048, 65),
+    (8, 1 << 24, 1024, 1 + 8 * 16_384),
+])
+def test_cummin_scratch_words(C, E, tile, words):
+    assert cuda_ops.cummin_scratch_words(C, E, tile) == words
+
+
+@pytest.mark.parametrize("E,ld", [(0, 4), (3, 4), (4, 8), (1023, 1024),
+                                  (65_536, 65_540)])
+def test_padded_stride_keeps_rows_16_byte_aligned(E, ld):
+    assert cuda_ops.padded_stride(E) == ld
+    assert ld >= E + 1 and ld % 4 == 0
+
+
+def test_lookback_scratch_epoch_wrap_zeroes_exactly_once():
+    sc = cuda_ops.LookbackScratch(epoch_limit=3)
+    dev = torch.device("cpu")
+    epochs = []
+    for _ in range(3):
+        buf, epoch = sc.take(dev, 0, 10)
+        epochs.append(epoch)
+    assert epochs == [1, 2, 3] and int(buf.abs().sum()) == 0
+    buf.fill_(7)  # states the calls of epochs 1-3 left behind
+    again, epoch = sc.take(dev, 0, 10)
+    assert again is buf and epoch == 1 and int(buf.abs().sum()) == 0
+    buf.fill_(7)
+    for want in (2, 3):
+        again, epoch = sc.take(dev, 0, 10)
+        assert again is buf and epoch == want
+        assert bool((buf == 7).all()), "zeroed again before the wrap"
+
+
+def test_lookback_scratch_grows_and_is_kept_per_stream():
+    sc = cuda_ops.LookbackScratch()
+    dev = torch.device("cpu")
+    a, ea = sc.take(dev, 0, 10)
+    b, eb = sc.take(dev, 0, 4)  # smaller: the same buffer, next epoch
+    assert b is a and (ea, eb) == (1, 2)
+    c, ec = sc.take(dev, 0, 11)  # larger: a new zeroed buffer
+    assert c is not a and c.numel() >= 11 and ec == 1
+    d, ed = sc.take(dev, 1, 4)  # another stream: its own buffer
+    assert d is not c and ed == 1
+    assert sc.take(dev, 0, 4) == (c, 2)
+
+
+def test_chain_plan_is_cached_per_layout():
+    p1 = cuda_ops.chain_plan((0, 1), ((), ()), True)
+    assert cuda_ops.chain_plan((0, 1), ((), ()), True) is p1
+    p2 = cuda_ops.chain_plan((0, 1), ((), (2,)), True)
+    p3 = cuda_ops.chain_plan((0, 1), ((), ()), False)
+    assert p2 is not p1 and list(p2) != list(p1)
+    assert p3 is not p1 and list(p3) != list(p1)
+    # [n_steps, has_within, pos_row.., g_begin.., g_row..]
+    assert list(p1) == [2, 1, 0, 1, 0, 0, 0]
+    assert list(p2) == [2, 1, 0, 1, 0, 0, 1, 2]
+
+
+def test_chain_plan_lays_out_each_steps_guards():
+    # step k's guards are g_row[g_begin[k-1] : g_begin[k]], in step order
+    pos_rows = (0, 1, 2, 3)
+    guard_rows = ((9, 8), (7,), (), (6, 5, 4))
+    plan = list(cuda_ops.chain_plan(pos_rows, guard_rows, False))
+    n = len(pos_rows)
+    assert plan[:2 + n] == [n, 0, 0, 1, 2, 3]
+    g_begin, g_row = plan[2 + n:3 + 2 * n], plan[3 + 2 * n:]
+    assert g_begin == [0, 2, 3, 3, 6]
+    assert [g_row[g_begin[k]:g_begin[k + 1]] for k in range(n)] == \
+        [list(g) for g in guard_rows]
 
 
 # --------------------------------------------------------------------------
@@ -157,7 +248,21 @@ _CORE_CASES = {
         "from s1 = S[id == 1] -> not S[id == 4] for 200 milliseconds "
         "select s1.price as p1 insert into out"
     ),
+    # R = 8 scan rows (4 positive targets, 4 guards), the most K1 takes
+    # on the TPU
+    "wide_eight_scan_rows": (
+        "from every s1 = S[id == 1] -> not S[id == 6] -> s2 = S[id == 2] "
+        "-> not S[id == 6] -> s3 = S[id == 3] -> not S[id == 6] -> "
+        "s4 = S[id == 4] -> not S[id == 6] -> s5 = S[id == 5] "
+        "within 2 sec "
+        "select s1.timestamp as t1, s5.price as p insert into out"
+    ),
 }
+# per case: (events, id probabilities: noise 0, positives 1.., absent last)
+_CORE_DATA = {
+    "wide_eight_scan_rows": (1500, [0.2, 0.15, 0.15, 0.15, 0.15, 0.15, 0.05]),
+}
+_CORE_DATA_DEFAULT = (700, [0.4, 0.2, 0.2, 0.18, 0.02])
 
 
 def _artifacts(cql):
@@ -173,19 +278,20 @@ def test_chain_core_matches_jax(case):
     assert (jcfg.K, jcfg.positive, jcfg.guards, jcfg.t_guard, jcfg.pairs) \
         == (tcfg.K, tcfg.positive, tcfg.guards, tcfg.t_guard, tcfg.pairs)
     rng = np.random.default_rng(sorted(_CORE_CASES).index(case))
-    E, P = 700, 32
+    E, probs = _CORE_DATA.get(case, _CORE_DATA_DEFAULT)
+    P = 32
     K = jcfg.K
     n_el = ja.spec.n_elements
     ts = np.sort(rng.integers(0, 3000, E)).astype(np.int32)
     valid = np.ones(E, bool)
     valid[-25:] = False  # a padded tail, as the tape has
     ts[-25:] = ts[-26]
-    # positive elements match ids 1, 2, 3 in order; absent elements match
-    # the rare id 4, so some partials survive their guards
-    ids = rng.choice(5, E, p=[0.4, 0.2, 0.2, 0.18, 0.02])
+    # positive elements match ids 1, 2, ... in order; absent elements match
+    # the rare last id, so some partials survive their guards
+    ids = rng.choice(len(probs), E, p=probs)
     el_id, nxt_id = [], 1
     for el in ja.spec.elements:
-        el_id.append(4 if el.negated else nxt_id)
+        el_id.append(len(probs) - 1 if el.negated else nxt_id)
         nxt_id += 0 if el.negated else 1
     preds = np.stack([(ids == el_id[e]) & valid for e in range(n_el)])
     # carried pool: live partials at every positive step (timed absence
