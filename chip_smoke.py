@@ -34,6 +34,20 @@ fault:
    and read just after; rows checked against the port's own CPU path on
    the first 1,048,576 events;
 5. filter: the bench's filter query, the same way;
+5b. bench main path: the headline and the filter as bench.py runs them,
+   with EngineConfig(lazy_projection=True, pred_pushdown=True): the
+   streaming Job over the whole stream (rows of the first 1,048,576 events
+   held to the CPU path under the same settings; for the headline, host
+   syncs equal to the drain fetches alone), then ResidentReplay
+   counts-only — stage seconds, run() + flush() and three rerun()s
+   (events/s median and best of the reruns), emitted counts equal to the
+   streaming run's, the chain kernels launched once per compacted step
+   (every step compacted on the host-known bound, with no read), one
+   staged segment's steps under sync debug mode "error", wire bytes per
+   event from the staged tensors, peak device memory, a profiler-traced
+   rerun's idle share — and a resident run with a collector over the
+   first 1,048,576 events whose rows equal the streaming rows, with no
+   lazy-ring miss;
 6. quote board: `#window.unique(symbol)` with count/sum/avg/min/max over
    StockStream, 10,000 Zipf-weighted symbols (a 16,384-slot table), at
    batch 524,288 over 10,485,760 events, the unique-window fold called
@@ -154,7 +168,7 @@ def device_activity(prof):
     return busy, per_name
 
 
-def timed(fn, runs=25, warmup=3, attempts=3):
+def timed(fn, runs=25, warmup=3, attempts=5):
     """(device ms per call, call ms). Device ms: the summed duration of the
     card's records in a trace of ``runs`` calls (``kernel_records``; one
     stream, so they do not overlap), over ``runs`` — the kernels' own time.
@@ -249,16 +263,16 @@ def kernel_records(fn, runs, warmup=10):
     return records
 
 
-def launches_per_call(fn, kernel, runs=25, attempts=3):
+def launches_per_call(fn, kernel, runs=25, attempts=5):
     """Kernel launches per call of ``fn``, counted on the card: the records
     of a trace of ``runs`` calls (``kernel_records``), over ``runs``. Fails
     unless every record is the kernel named ``kernel``. A trace whose count
-    is not a multiple of ``runs`` has lost records and is taken again, up
-    to ``attempts`` times."""
+    is not a multiple of ``runs``, or that holds none, has lost records and
+    is taken again, up to ``attempts`` times."""
     for _ in range(attempts):
         records = kernel_records(fn, runs)
         total = sum(n for n, _ in records.values())
-        if total % runs == 0:
+        if total and total % runs == 0:
             break
         log(f"  {kernel} trace: {total} records for {runs} calls; again")
     others = [name for name in records if kernel not in name]
@@ -599,8 +613,9 @@ def bench_stream(fpt, n_events, batch):
 
 
 def run_job(fpt, cql, schema, batches, device, stream="inputStream",
-            out="matches"):
-    plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench")
+            out="matches", config=None):
+    plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench",
+                            config=config)
     job = fpt.Job([plan], [fpt.BatchSource(stream, schema, iter(batches))],
                   batch_size=BATCH, time_mode="processing", device=device)
     t0 = time.perf_counter()
@@ -666,25 +681,40 @@ def end_to_end(fpt, co, name, cql, schema, batches, kernels_expected):
     return result
 
 
+def stage_wire_tapes(plan, batches, epoch, dev):
+    """One wire tape a batch on ``dev``, built and uploaded as the Job's
+    ``_stage_tape`` and ``WireTape.to`` do (widths sticky across the
+    batches)."""
+    from flink_siddhi_tpu_torch.runtime.tape import build_wire_tape
+
+    kinds = {}
+    return [
+        build_wire_tape(plan.spec, [b], epoch, kinds, want_prov=False)[0]
+        .to(dev)
+        for b in batches
+    ]
+
+
 def breakdown(fpt, name, cql, schema, batches, stream="inputStream",
               out="matches", sync_free=False):
     """Where one path's time goes, measured around the program's own
-    calls: host tape build + upload of every batch, the device steps on
-    pre-staged tapes, and a profiler-traced run of the whole job for the
-    device busy share (memcpy and kernels) and the heaviest kernels. With
-    ``sync_free`` the steps run under torch's sync debug mode "error": any
-    host wait for the device inside a step fails the run."""
+    calls: the wire tape build + upload of every batch as the Job stages
+    it (``build_wire_tape`` with sticky widths, ``WireTape.to``), the
+    device steps on those pre-staged wire tapes (each step expands its
+    tape on the device first, as the Job's do), and a profiler-traced run
+    of the whole job for the device busy share (memcpy and kernels) and
+    the heaviest kernels. With ``sync_free`` the steps run under torch's
+    sync debug mode "error": any host wait for the device inside a step
+    fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from flink_siddhi_tpu_torch.runtime.tape import build_tape
 
     dev = torch.device("cuda")
     plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench")
     epoch = int(batches[0].timestamps.min())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tapes = [build_tape(plan.spec, [b], epoch).to(dev) for b in batches]
+    tapes = stage_wire_tapes(plan, batches, epoch, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
     states, acc = plan.init_state(dev), plan.init_acc(dev)
@@ -720,6 +750,175 @@ def breakdown(fpt, name, cql, schema, batches, stream="inputStream",
     }
     log(json.dumps(res))
     return res
+
+
+# -- phase 5b: the bench main path (bench.py's settings and driver) -----------
+
+def bench_config(fpt):
+    """bench.py:build_job's engine settings: late materialization and wire
+    predicate pushdown."""
+    return fpt.EngineConfig(lazy_projection=True, pred_pushdown=True)
+
+
+def replay_job(fpt, cql, schema, batches, retain):
+    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="bench",
+                            config=bench_config(fpt))
+    return fpt.Job([plan], [fpt.BatchSource("inputStream", schema,
+                                            iter(batches))],
+                   batch_size=BATCH, time_mode="processing",
+                   retain_results=retain, device="cuda")
+
+
+def bench_main_path(fpt, co, name, cql, schema, batches, chain):
+    """One path as bench.py runs it: EngineConfig(lazy_projection=True,
+    pred_pushdown=True) over the whole stream, through the streaming Job
+    (rows of the first micro-batches held to the CPU path under the same
+    settings; host syncs) and through ResidentReplay, counts-only as
+    bench.py's resident mode runs it: stage, run() + flush(), three
+    rerun()s. Then the steps of one staged segment under torch's sync debug
+    mode "error", a resident run with a collector over the first
+    micro-batches (rows equal to the streaming run's, no lazy miss), and a
+    profiler-traced rerun for the card's idle share. With ``chain`` the
+    chain kernels must launch once per compacted step, and every step must
+    have been compacted on the host-known bound (no read)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bench_config(fpt)
+    check = batches[:CHECK_BATCHES]
+    n_events = sum(len(b) for b in batches)
+    last_ts = int(check[-1].timestamps[-1])
+    cpu_rows, cpu_s, _ = run_job(fpt, cql, schema, check, "cpu", config=cfg)
+    run_job(fpt, cql, schema, check, "cuda", config=cfg)  # warm-up
+
+    # the streaming Job over the whole stream, rows kept
+    rows, wall, job = run_job(fpt, cql, schema, batches, "cuda", config=cfg)
+    if [r for r in rows if r[0] <= last_ts] != cpu_rows:
+        raise AssertionError(f"{name}: streaming rows of the first "
+                             f"{sum(len(b) for b in check)} events differ "
+                             "from the CPU path")
+    rt = job._plans["bench"]
+    if rt.lazy.missed:
+        raise AssertionError(f"{name}: {rt.lazy.missed} lazy misses")
+    if chain and job.host_syncs != job.drain_syncs:
+        raise AssertionError(
+            f"{name}: {job.host_syncs} host syncs, {job.drain_syncs} of "
+            "them drain fetches"
+        )
+    streaming = {"rows": len(rows), "wall_s": wall,
+                 "events_per_s": n_events / wall,
+                 "host_syncs": job.host_syncs,
+                 "drain_syncs": job.drain_syncs}
+    del rows, job, rt
+
+    # ResidentReplay, counts-only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    job = replay_job(fpt, cql, schema, batches, retain=False)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    (pid, segs), = rep.segments.items()
+    tapes = [t for seg in segs for t in seg]
+    # the bytes each staged tape holds on the card (n_valid and the ts
+    # base stay on the host as scalars)
+    wire_bytes = sum(a.nbytes for t in tapes for a in t.arrays())
+    ts_kinds = sorted({t.ts_kind for t in tapes})
+    seg_lens = [len(seg) for seg in segs]
+    art = job._plans[pid].plan.artifacts[0]
+    co.reset_launches()
+    syncs0 = getattr(art, "host_syncs", 0)
+    t0 = time.perf_counter()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = co.launch_counts()
+    count = job.emitted_counts.get("matches", 0)
+    if count != streaming["rows"]:
+        raise AssertionError(f"{name}: resident run emitted {count} rows, "
+                             f"the streaming run {streaming['rows']}")
+    if chain:
+        from flink_siddhi_tpu_torch.compiler.nfa import _compact_width
+
+        R = _compact_width(BATCH)
+        compacted = sum(t.bounds[art.name] <= R for t in tapes)
+        if compacted != len(tapes) or art.host_syncs != syncs0:
+            raise AssertionError(f"{name}: {compacted} of {len(tapes)} "
+                                 "steps compacted without a read")
+        for k in ("multi_reverse_cummin", "chain_advance"):
+            if launches[k] != compacted:
+                raise AssertionError(
+                    f"{name}: {k} launched {launches[k]} times for "
+                    f"{compacted} compacted steps"
+                )
+    reruns = []
+    for _ in range(3):
+        before = job.emitted_counts["matches"]
+        reruns.append(rep.rerun())
+        if job.emitted_counts["matches"] - before != count:
+            raise AssertionError(f"{name}: a rerun emitted another count")
+    peak = torch.cuda.max_memory_allocated()
+
+    # one staged segment's steps with no host wait
+    job.reset_engine_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep.run_segment(pid, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    # a profiler-traced rerun: the card's idle share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_s = rep.rerun()
+    busy_us, per_name = device_activity(prof)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    stage_s = rep.stage_seconds
+    del rep, job, tapes, segs
+
+    # resident rows with a collector, over the first micro-batches
+    rjob = replay_job(fpt, cql, schema, check, retain=True)
+    fpt.ResidentReplay(rjob).execute()
+    res_rows = rjob.results_with_ts("matches")
+    if res_rows != cpu_rows or rjob._plans["bench"].lazy.missed:
+        raise AssertionError(f"{name}: resident rows differ from the "
+                             "streaming and CPU rows")
+    result = {
+        "path": f"bench_{name}",
+        "config": "EngineConfig(lazy_projection=True, pred_pushdown=True)",
+        "events": n_events,
+        "batch": BATCH,
+        "streaming": streaming,
+        "resident": {
+            "stage_s": stage_s,
+            "first_run_s": first_s,
+            "rerun_s": reruns,
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "events_per_s_best": n_events / min(reruns),
+            "rows": count,
+            "segments": seg_lens,
+            "launches": launches,
+            "max_memory_allocated_bytes": peak,
+            "traced_rerun_s": traced_s,
+            "traced_device_busy_s": busy_us / 1e6,
+                "traced_idle_share": 1 - busy_us / 1e6 / traced_s,
+            "top_device_ms": [[k[:70], v / 1e3] for k, v in top],
+            "segment_steps_sync_free": True,
+        },
+        "wire_bytes_per_event": wire_bytes / n_events,
+        "wire_bytes": wire_bytes,
+        "ts_kinds": ts_kinds,
+        "cpu_check_events": sum(len(b) for b in check),
+        "cpu_check_rows": len(cpu_rows),
+        "cpu_check_s": cpu_s,
+        "resident_check_rows": len(res_rows),
+    }
+    log(json.dumps(result))
+    return result
 
 
 # -- phase 6: the quote board (#window.unique aggregation) -------------------
@@ -871,8 +1070,6 @@ def full_width_inputs(fpt, co, nfa, schema, batches, keep=3):
     carried from the steps before)."""
     import torch
 
-    from flink_siddhi_tpu_torch.runtime.tape import build_tape
-
     dev = torch.device("cuda")
     plan = fpt.compile_plan(HEADLINE, {"inputStream": schema},
                             plan_id="bench")
@@ -884,8 +1081,7 @@ def full_width_inputs(fpt, co, nfa, schema, batches, keep=3):
     nfa._COMPACT_MIN_E = BATCH + 1
     try:
         states, acc = plan.init_state(dev), plan.init_acc(dev)
-        for b in batches[:keep]:
-            tape = build_tape(plan.spec, [b], epoch).to(dev)
+        for tape in stage_wire_tapes(plan, batches[:keep], epoch, dev):
             states = plan.grow_state(states)
             states, acc = plan.step_acc(states, acc, tape)
         torch.cuda.synchronize()
@@ -1233,6 +1429,14 @@ def main():
     log("[5/9] filter")
     end_to_end(fpt, co, "filter", FILTER, schema, batches,
                kernels_expected=())
+
+    # 5b. both paths as bench.py runs them: its EngineConfig, the streaming
+    # Job and ResidentReplay
+    log("[5b/9] bench main path: lazy projection + predicate pushdown, "
+        "streaming Job and ResidentReplay")
+    bench_head = bench_main_path(fpt, co, "headline", HEADLINE, schema,
+                                 batches, chain=True)
+    bench_main_path(fpt, co, "filter", FILTER, schema, batches, chain=False)
     del schema, batches
 
     # 6. the quote board end to end; record the fold's inputs of the
@@ -1283,6 +1487,10 @@ def main():
                          board["launches"]["unique_window_fold"], err_k3,
                          rel_k3, floor_ms),
     ]
+    # the kernels' launches in the bench main path's first resident run
+    for k in kernels:
+        k["launches_bench_main_path"] = \
+            bench_head["resident"]["launches"][k["name"]]
     for k in kernels[:2]:
         log(f"  {k['name']}: {k['ms']} ms (call {k['call_ms']}), full "
             f"width {k['full_width']['ms']} ms, bound {k['bound_ms']}, "

@@ -10,8 +10,12 @@ with the hot scans as hand-written CUDA kernels (``compiler/cuda_ops.py``,
 The port goes slice by slice; this package holds the filter/projection
 path (also over a window), chain patterns (``every``, ``within``,
 mid-chain and timed absence) and ``#window.unique(attr)`` with
-count/sum/avg/min/max. Everything else raises ``SiddhiQLError`` naming the
-later slice;
+count/sum/avg/min/max, driven by the streaming ``Job`` or, over a bounded
+stream staged on the device beforehand, by ``ResidentReplay``; with
+``EngineConfig(lazy_projection=True, pred_pushdown=True)`` (the bench's
+settings) a plan of one select or one chain ships only packed predicate
+bits and the columns the device needs. Everything else raises
+``SiddhiQLError`` naming the later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.
 
@@ -23,8 +27,10 @@ compile at their first CUDA use.
 
 from .api.cep import CEPEnvironment, SiddhiCEP
 from .api.stream import ExecutionStream, Row
+from .compiler.config import EngineConfig
 from .compiler.plan import CompiledPlan, compile_plan, state_from_numpy
 from .runtime.executor import Job
+from .runtime.replay import ResidentReplay
 from .runtime.sources import BatchSource, ListSource, Source
 from .schema.batch import EventBatch
 from .schema.stream_schema import StreamSchema
@@ -37,10 +43,12 @@ __all__ = [
     "BatchSource",
     "CEPEnvironment",
     "CompiledPlan",
+    "EngineConfig",
     "EventBatch",
     "ExecutionStream",
     "Job",
     "ListSource",
+    "ResidentReplay",
     "Row",
     "SiddhiCEP",
     "Source",

@@ -17,8 +17,9 @@ compile time, which keeps the mapping stable for the life of the plan.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as _np
 import torch
 
 from ..device import torch_dtype
@@ -356,3 +357,185 @@ def _compile_call(
 
     return CompiledExpr(fn, out_type)
 
+
+
+# --------------------------------------------------------------------------
+# Host (numpy) predicate backend — wire predicate pushdown
+# --------------------------------------------------------------------------
+# A predicate whose columns serve no other device purpose can be evaluated
+# on the host (numpy, at memory bandwidth) and shipped as ONE BIT per event
+# instead of its raw columns. This is the numpy twin of compile_expr,
+# restricted to the predicate-safe subset: literals, attribute reads,
+# comparisons, boolean and arithmetic operators. Calls / extensions and
+# indexed refs return None — those predicates stay on the device.
+#
+# Semantics note: host evaluation sees DOUBLE at float64 where the device
+# sees float32 — host predicates are strictly *more* precise than the
+# device path they replace (and match the reference's f64 semantics).
+# Kept equal to the JAX package's copy (tests/test_torch_wire.py).
+
+
+class _HostUnsupported(Exception):
+    pass
+
+
+@dataclass(frozen=True)
+class HostExpr:
+    fn: Callable  # Dict[str, np.ndarray] -> np.ndarray
+    atype: AttributeType
+    table: Optional[StringTable] = None
+    refs: Tuple[str, ...] = ()  # tape column keys the fn reads
+
+
+def compile_host_pred(
+    expr: ast.Expr, resolver: ExprResolver
+) -> Optional[HostExpr]:
+    """Compile a boolean predicate to a numpy closure over host columns,
+    or None when any sub-expression falls outside the host-safe subset."""
+    try:
+        he = _compile_host(expr, resolver)
+    except (_HostUnsupported, SiddhiQLError):
+        return None
+    if he.atype != AttributeType.BOOL:
+        return None
+    return he
+
+
+def _compile_host(expr: ast.Expr, resolver: ExprResolver) -> HostExpr:
+    if isinstance(expr, ast.Literal):
+        if expr.atype == AttributeType.STRING:
+            value = expr.value
+            return HostExpr(
+                lambda env, v=value: v, AttributeType.STRING, None, ()
+            )
+        value = _np.asarray(expr.value, dtype=expr.atype.host_dtype)
+        return HostExpr(lambda env, v=value: v, expr.atype, None, ())
+
+    if isinstance(expr, ast.TimeLiteral):
+        value = _np.asarray(expr.ms, dtype=_np.int64)
+        return HostExpr(lambda env, v=value: v, AttributeType.LONG, None, ())
+
+    if isinstance(expr, ast.Attr):
+        if expr.index is not None:
+            raise _HostUnsupported
+        r = resolver.resolve(expr)
+        key = r.key
+        return HostExpr(
+            lambda env, k=key: env[k], r.atype, r.table, (key,)
+        )
+
+    if isinstance(expr, ast.Unary):
+        inner = _compile_host(expr.operand, resolver)
+        if expr.op == "not":
+            if inner.atype != AttributeType.BOOL:
+                raise _HostUnsupported
+            f = inner.fn
+            return HostExpr(
+                lambda env: _np.logical_not(f(env)),
+                AttributeType.BOOL, None, inner.refs,
+            )
+        if expr.op == "-":
+            f = inner.fn
+            return HostExpr(
+                lambda env: -f(env), inner.atype, None, inner.refs
+            )
+        raise _HostUnsupported
+
+    if isinstance(expr, ast.Binary):
+        return _compile_host_binary(expr, resolver)
+
+    raise _HostUnsupported
+
+
+def _compile_host_binary(expr: ast.Binary, resolver) -> HostExpr:
+    op = expr.op
+    left = _compile_host(expr.left, resolver)
+    right = _compile_host(expr.right, resolver)
+    refs = tuple(sorted(set(left.refs) | set(right.refs)))
+
+    if op in ("and", "or"):
+        if (
+            left.atype != AttributeType.BOOL
+            or right.atype != AttributeType.BOOL
+        ):
+            raise _HostUnsupported
+        lf, rf = left.fn, right.fn
+        fn = (
+            (lambda env: _np.logical_and(lf(env), rf(env)))
+            if op == "and"
+            else (lambda env: _np.logical_or(lf(env), rf(env)))
+        )
+        return HostExpr(fn, AttributeType.BOOL, None, refs)
+
+    nops = {
+        "==": _np.equal, "!=": _np.not_equal, "<": _np.less,
+        "<=": _np.less_equal, ">": _np.greater, ">=": _np.greater_equal,
+    }
+    if op in nops:
+        nop = nops[op]
+        lt, rt = left.atype, right.atype
+        if AttributeType.STRING in (lt, rt):
+            if op not in ("==", "!=") or lt != rt:
+                raise _HostUnsupported
+            # column vs literal: intern through the same dictionary the
+            # device path uses, so codes agree
+            if left.table is not None and isinstance(
+                expr.right, ast.Literal
+            ):
+                code = left.table.intern(expr.right.value)
+                lf = left.fn
+                return HostExpr(
+                    lambda env: nop(lf(env), code),
+                    AttributeType.BOOL, None, refs,
+                )
+            if right.table is not None and isinstance(
+                expr.left, ast.Literal
+            ):
+                code = right.table.intern(expr.left.value)
+                rf = right.fn
+                return HostExpr(
+                    lambda env: nop(code, rf(env)),
+                    AttributeType.BOOL, None, refs,
+                )
+            if (
+                left.table is not None
+                and right.table is not None
+                and left.table is right.table
+            ):
+                lf, rf = left.fn, right.fn
+                return HostExpr(
+                    lambda env: nop(lf(env), rf(env)),
+                    AttributeType.BOOL, None, refs,
+                )
+            raise _HostUnsupported
+        if AttributeType.BOOL in (lt, rt):
+            if lt != rt or op not in ("==", "!="):
+                raise _HostUnsupported
+        lf, rf = left.fn, right.fn
+        return HostExpr(
+            lambda env: nop(lf(env), rf(env)),
+            AttributeType.BOOL, None, refs,
+        )
+
+    if op in ("+", "-", "*", "/", "%"):
+        out_type = promote(left.atype, right.atype)
+        lf, rf = left.fn, right.fn
+        dtype = out_type.host_dtype
+        if op == "/":
+            if out_type in (AttributeType.INT, AttributeType.LONG):
+                fn = lambda env: lf(env) // rf(env)
+            else:
+                fn = lambda env: (
+                    _np.asarray(lf(env), dtype) / _np.asarray(rf(env), dtype)
+                )
+        else:
+            nop2 = {
+                "+": _np.add, "-": _np.subtract,
+                "*": _np.multiply, "%": _np.mod,
+            }[op]
+            fn = lambda env: nop2(
+                _np.asarray(lf(env), dtype), _np.asarray(rf(env), dtype)
+            )
+        return HostExpr(fn, out_type, None, refs)
+
+    raise _HostUnsupported

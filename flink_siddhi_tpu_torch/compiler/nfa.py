@@ -29,6 +29,7 @@ int64 results of ``sum``/``cumsum``/``arange`` are cast back to int32.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -47,8 +48,9 @@ from .expr import (
     as_column,
     as_i32,
     compile_expr,
+    compile_host_pred,
 )
-from .output import OutputField, OutputSchema
+from .output import OutputField, OutputSchema, emission_order
 
 DEFAULT_PARTIAL_POOL = 1024  # chain matcher: carried partial matches
 _BIG = 2 ** 30
@@ -88,6 +90,20 @@ class CaptureResolver:
         for i, el in enumerate(elements):
             self._by_alias[el.alias] = (i, el.stream_id, schemas[el.stream_id])
         self.referenced: List[Tuple[int, str, str]] = []  # (elem, col, which)
+
+    def element_of(self, attr: ast.Attr) -> Optional[int]:
+        """The element index an attribute reference resolves to, or None
+        (unknown / ambiguous). Mirrors resolve()'s rules without raising
+        or recording."""
+        if attr.qualifier is not None:
+            info = self._by_alias.get(attr.qualifier)
+            return info[0] if info is not None else None
+        hits = [
+            info[0]
+            for alias, info in self._by_alias.items()
+            if attr.name in info[2] and alias not in self._negated
+        ]
+        return hits[0] if len(hits) == 1 else None
 
     def _note(self, elem: int, col: str, which: str) -> None:
         key = (elem, col, which)
@@ -166,6 +182,13 @@ class _PatternSpec:
     proj_fns: List
     out_fields: Tuple[OutputField, ...]
     output_stream: str
+    # per select item: the capture pair it reads when it is a plain
+    # reference (else None), and every capture pair it reads
+    proj_srcs: Tuple[Optional[Tuple[int, str]], ...] = ()
+    proj_ref_pairs: Tuple[Tuple[Tuple[int, str], ...], ...] = ()
+    # per element: the numpy twin of its filter (expr.compile_host_pred),
+    # None when it has none or the filter is not host-evaluable
+    host_pred_fns: Tuple = ()
 
     @property
     def n_elements(self) -> int:
@@ -231,10 +254,12 @@ def _build_spec(
     cap_resolver = CaptureResolver(inp.elements, schemas)
     alias_idx = {el.alias: i for i, el in enumerate(inp.elements)}
     pred_fns: List[Optional[Callable]] = []
+    host_pred_fns: List = []
     for i, el in enumerate(inp.elements):
         schema = schemas[el.stream_id]
         if el.filter is None:
             pred_fns.append(None)
+            host_pred_fns.append(None)
             continue
         foreign = {
             a.qualifier
@@ -259,11 +284,12 @@ def _build_spec(
         if ce.atype != AttributeType.BOOL:
             raise SiddhiQLError("pattern element filter must be boolean")
         pred_fns.append(ce.fn)
+        host_pred_fns.append(compile_host_pred(el.filter, resolver))
     if q.selector.is_star:
         raise SiddhiQLError(
             "select * is not valid for pattern queries; name the captures"
         )
-    proj_fns, out_fields = [], []
+    proj_fns, out_fields, proj_srcs, proj_ref_pairs = [], [], [], []
     for item in q.selector.items:
         if ast.contains_aggregate(item.expr):
             raise SiddhiQLError(
@@ -272,6 +298,28 @@ def _build_spec(
         ce = compile_expr(item.expr, cap_resolver, extensions)
         proj_fns.append(ce.fn)
         out_fields.append(OutputField(item.output_name(), ce.atype, ce.table))
+        pairs = set()
+        for a in ast.iter_attrs(item.expr):
+            e = cap_resolver.element_of(a)
+            if e is not None:
+                pairs.add((e, a.name))
+        proj_ref_pairs.append(tuple(sorted(pairs)))
+        src = None
+        if isinstance(item.expr, ast.Attr) and item.expr.index in (
+            None, 0, "last",
+        ):
+            # the reference's rule: unqualified names count every element
+            # carrying them, absent ones too
+            a = item.expr
+            infos = (
+                [cap_resolver._by_alias.get(a.qualifier)]
+                if a.qualifier is not None
+                else list(cap_resolver._by_alias.values())
+            )
+            hits = [i for i in infos if i is not None and a.name in i[2]]
+            if len(hits) == 1:
+                src = (hits[0][0], a.name)
+        proj_srcs.append(src)
     if q.selector.having is not None:
         raise SiddhiQLError("having is not valid on pattern queries")
 
@@ -295,6 +343,9 @@ def _build_spec(
         proj_fns=proj_fns,
         out_fields=tuple(out_fields),
         output_stream=q.output_stream,
+        proj_srcs=tuple(proj_srcs),
+        proj_ref_pairs=tuple(proj_ref_pairs),
+        host_pred_fns=tuple(host_pred_fns),
     )
 
 
@@ -644,32 +695,144 @@ class ChainPatternArtifact:
     name: str
     spec: _PatternSpec
     output_schema: OutputSchema
-    # 'packed': step returns (n, (1+C, V) int32 block) — ts row 0, one
-    # bitcast row per projection — the accumulator append layout
+    # 'packed': step returns (n, (rows, V) int32 block) in the accumulator
+    # append layout (``_row_plan``)
     output_mode: str = "packed"
     pool: int = DEFAULT_PARTIAL_POOL
-    # host syncs this artifact made: the relevance-compaction branch
-    # reads its relevant-event count once per micro-batch
+    # host syncs this artifact made: the relevance-compaction branch reads
+    # its relevant-event count when the tape's host-known bound exceeds
+    # the compact width
     host_syncs: int = 0
+    # late materialization: these capture pairs are PROJECTION-ONLY, so
+    # their columns never ship to the device — the matcher captures the
+    # event's global ordinal instead, and decode looks the value up in
+    # the host's retained batches (runtime/executor._LazyRing)
+    lazy_pairs: Tuple[Tuple[int, str], ...] = ()
+    # wire predicate pushdown: element indices whose event-only filters
+    # are host-evaluated and shipped as packed mask bits ("@p:<i>" cols)
+    pushed_preds: Tuple[int, ...] = ()
 
     def emit_block_width(self, tape_capacity: int) -> int:
         """Widest per-cycle emission block (drain-cadence contract)."""
         return tape_capacity + self.pool
 
+    def relevance(self) -> Tuple[Tuple[int, Optional[str]], ...]:
+        """Per element, (stream code, its pushed mask key or None): an
+        event outside every element's set can never be relevant, so the
+        host's count over them bounds the device's relevant count
+        (TapeSpec.relevance)."""
+        return tuple(
+            (code, f"@p:{k}" if k in self.pushed_preds else None)
+            for k, code in enumerate(self.spec.stream_code_of)
+        )
+
+    def _row_plan(self):
+        """Emission block layout. Without lazy pairs: [ts, one row per
+        projection]. Lazy plans compact it: projections that emit the SAME
+        element's ordinal share one row, and the ts row is dropped
+        entirely when it derives from the completing element's ordinal
+        (the host ring retains rebased timestamps under ``@ts``) — the
+        headline's block shrinks 4 rows -> 2.
+
+        Returns (rows, row_of, ts_row, ts_ord_row): ``rows`` is a list of
+        ("ts"|"ord"|"proj", proj_idx) sources, ``row_of[c]`` the block row
+        of projection c, ``ts_row`` the ts row index or None, and
+        ``ts_ord_row`` the row whose ordinals recover the emission ts
+        when ``ts_row`` is None."""
+        spec = self.spec
+        C = len(spec.proj_fns)
+        if not self.lazy_pairs:
+            rows = [("ts", None)] + [("proj", c) for c in range(C)]
+            return rows, list(range(1, 1 + C)), 0, None
+
+        lazyset = set(self.lazy_pairs)
+
+        def dedupable(elem: int) -> bool:
+            # one ordinal == one event: only elements matching exactly
+            # once (unquantified, non-negated) qualify
+            el = spec.elements[elem]
+            return (el.min_count, el.max_count) == (1, 1) and not el.negated
+
+        last = spec.n_elements - 1
+        drop_ts = (
+            self._tfor_ms() is None
+            and dedupable(last)
+            and any(
+                src is not None
+                and src in lazyset
+                and src[0] == last
+                for src in spec.proj_srcs
+            )
+        )
+        rows = []
+        row_of = [0] * C
+        ts_row = None
+        if not drop_ts:
+            ts_row = 0
+            rows.append(("ts", None))
+        ord_row: Dict[int, int] = {}
+        for c, src in enumerate(spec.proj_srcs):
+            if (
+                src is not None
+                and src in lazyset
+                and dedupable(src[0])
+            ):
+                e = src[0]
+                if e in ord_row:
+                    row_of[c] = ord_row[e]
+                    continue
+                ord_row[e] = row_of[c] = len(rows)
+                rows.append(("ord", c))
+            else:
+                row_of[c] = len(rows)
+                rows.append(("proj", c))
+        return rows, row_of, ts_row, (
+            ord_row.get(last) if drop_ts else None
+        )
+
     @property
     def acc_rows(self) -> int:
-        return 1 + len(self.spec.proj_fns)
+        return len(self._row_plan()[0])
+
+    @property
+    def ring_needs_ts(self) -> bool:
+        """True when decode recovers emission timestamps from the host
+        ring (the executor then retains a rebased ``@ts`` column)."""
+        return bool(self.lazy_pairs) and self._row_plan()[2] is None
 
     def _emit_block(self, emit_ts, emit_env, width: int) -> torch.Tensor:
-        """Stack the emission rows: [ts, one bitcast row per projection]."""
-        out = [as_i32(emit_ts)]
-        for p in self.spec.proj_fns:
-            out.append(as_i32(as_column(p(emit_env), width, emit_ts)))
+        """Stack the emission rows per ``_row_plan`` ("ord" rows evaluate
+        their representative projection — identical values by the dedup
+        criterion)."""
+        out = []
+        for kind, c in self._row_plan()[0]:
+            if kind == "ts":
+                out.append(as_i32(emit_ts))
+            else:
+                out.append(as_i32(as_column(
+                    self.spec.proj_fns[c](emit_env), width, emit_ts
+                )))
         return torch.stack(out)
 
     def _tfor_ms(self) -> Optional[int]:
         last = self.spec.elements[-1]
         return last.absent_for if last.negated else None
+
+    def _cap_dtype(self, pair) -> np.dtype:
+        if pair in self.lazy_pairs:
+            return np.dtype(np.int32)  # global event ordinal
+        return np.dtype(self.spec.cap_dtype[pair])
+
+    def _cfg(self) -> _ChainCfg:
+        cfg = _ChainCfg.of(self.spec)
+        if self.lazy_pairs:
+            cfg = dataclasses.replace(
+                cfg,
+                cap_dtypes=tuple(
+                    self._cap_dtype(p).name for p in cfg.pairs
+                ),
+            )
+        return cfg
 
     def init_state(self, device) -> Dict:
         P = self.pool
@@ -686,9 +849,13 @@ class ChainPatternArtifact:
         if self._tfor_ms() is not None:
             # timed-absence waiting partials carry their deadline base
             state["emit_ts"] = torch.zeros(P, dtype=_I32, device=device)
+        if self.lazy_pairs:
+            # ordinal base: counts every valid event ever seen, the same
+            # space the host's lazy ring is pushed in
+            state["seen"] = torch.tensor(0, dtype=_I32, device=device)
         for pair in _cap_pairs(self.spec):
             state[_skey("cap", *pair)] = torch.zeros(
-                P, dtype=torch_dtype(self.spec.cap_dtype[pair]),
+                P, dtype=torch_dtype(self._cap_dtype(pair)),
                 device=device,
             )
         return state
@@ -700,19 +867,37 @@ class ChainPatternArtifact:
         V = P + E  # virtual partial set: carried pool ++ fresh starts
         pairs = _cap_pairs(spec)
         preds = torch.stack(_element_preds(spec, tape, state["enabled"]))
-        cap_srcs = {
-            pair: tape.cols[spec.cap_src_key[pair]] for pair in pairs
-        }
+        seen_next = None
+        if self.lazy_pairs:
+            # capture the event's GLOBAL ordinal for projection-only
+            # columns; the column itself never shipped to the device
+            ordinals = state["seen"] + torch.arange(
+                E, dtype=_I32, device=tape.ts.device
+            )
+            cap_srcs = {
+                pair: (
+                    ordinals
+                    if pair in self.lazy_pairs
+                    else tape.cols[spec.cap_src_key[pair]]
+                )
+                for pair in pairs
+            }
+            seen_next = state["seen"] + tape.valid.sum(dtype=_I32)
+            state = {k: v for k, v in state.items() if k != "seen"}
+        else:
+            cap_srcs = {
+                pair: tape.cols[spec.cap_src_key[pair]] for pair in pairs
+            }
         within_val = spec.within if spec.within is not None else 0
         tfor_val = self._tfor_ms() or 0
-        cfg = _ChainCfg.of(spec)
+        cfg = self._cfg()
         # within-expiry / absence deadlines always see the full batch's
         # time horizon, even on the relevance-compacted path
         bm_full = torch.where(tape.valid, tape.ts, -_BIG).max()
 
         def run(ts, valid, preds_m, srcs):
             """Core + emission packing; the packed block is padded to the
-            full (1+C, P+E) accumulator layout so the compacted and full
+            full (rows, P+E) accumulator layout so the compacted and full
             paths return identical shapes."""
             st, complete, v_emit_ts, caps = _chain_core(
                 cfg, P, state, preds_m, srcs, within_val, ts, valid,
@@ -743,28 +928,125 @@ class ChainPatternArtifact:
         # and the chain advance is V-sized pointer-chase gathers —
         # shrinking V from P+E to P+E//8 cuts the step on selective
         # workloads. The full-width core runs in the (rare) batch where
-        # more than E//8 events are relevant. The branch reads the count
-        # on the host: one sync per micro-batch, counted in host_syncs.
+        # more than E//8 events are relevant: the reference's lax.cond on
+        # the device count. Here the host decides with no wait when the
+        # tape's host-known bound (TapeSpec.relevance) is at most R; only
+        # a larger bound reads the count, one host sync in host_syncs.
+        compact = False
         if E >= _COMPACT_MIN_E:
             R = _compact_width(E)
             rel = preds.any(dim=0) & tape.valid
             idx, cnt, cvalid = _compact_index(rel, R)
-            self.host_syncs += 1
-            if int(cnt) <= R:
-                il = idx.long()
-                st, n_matches, packed = run(
-                    tape.ts[il],
-                    cvalid,
-                    preds[:, il] & cvalid.unsqueeze(0),
-                    {p_: s_[il] for p_, s_ in cap_srcs.items()},
-                )
-                return st, (n_matches, packed)
-        st, n_matches, packed = run(tape.ts, tape.valid, preds, cap_srcs)
+            bound = tape.bounds.get(self.name)
+            if bound is not None and bound <= R:
+                compact = True
+            else:
+                self.host_syncs += 1
+                compact = int(cnt) <= R
+        if compact:
+            il = idx.long()
+            st, n_matches, packed = run(
+                tape.ts[il],
+                cvalid,
+                preds[:, il] & cvalid.unsqueeze(0),
+                {p_: s_[il] for p_, s_ in cap_srcs.items()},
+            )
+        else:
+            st, n_matches, packed = run(tape.ts, tape.valid, preds,
+                                        cap_srcs)
+        if seen_next is not None:
+            st["seen"] = seen_next
         return st, (n_matches, packed)
 
-    def decode_packed(self, n: int, block: np.ndarray):
+    @property
+    def wants_lookup(self) -> bool:
+        return bool(self.lazy_pairs)
+
+    @property
+    def lazy_src_keys(self) -> Tuple[str, ...]:
+        """Tape-column keys whose values the host ring must retain."""
+        return tuple(
+            sorted({self.spec.cap_src_key[p] for p in self.lazy_pairs})
+        )
+
+    def _lazy_ts(self, n: int, block: np.ndarray, lookup):
+        """The emission timestamps of a lazy block: its ts row, or the
+        completing element's ordinals resolved through the ring's ``@ts``
+        column by ``lookup`` (the ring's ``lookup`` or ``lookup_np``; an
+        evicted ordinal decodes ts 0 — its values decode None anyway)."""
+        _rows, _row_of, ts_row, ts_ord_row = self._row_plan()
+        if ts_row is not None:
+            return np.asarray(block[ts_row, :n]).astype(np.int64)
+        if lookup is None:
+            return np.zeros(n, dtype=np.int64)
+        tvals = lookup("@ts", np.asarray(block[ts_ord_row, :n]))
+        if isinstance(tvals, np.ndarray) and tvals.dtype != object:
+            return tvals.astype(np.int64)
+        return np.asarray(
+            [0 if v is None else int(v) for v in list(tvals)], np.int64
+        )
+
+    def decode_packed(self, n: int, block: np.ndarray, lookup=None):
+        """With lazy pairs, ordinal rows resolve against the host's
+        retained batches (the lazy ring's ``lookup``); evicted ordinals
+        decode as None (bounded-memory policy). On the compact layout the
+        emission ts itself recovers from the completing element's ordinal
+        (ring column ``@ts``)."""
+        from .select import _lazy_values
+
         schema = self.output_schema
-        return [(schema, schema.decode_packed_block(n, block))]
+        if not self.lazy_pairs:
+            return [(schema, schema.decode_packed_block(n, block))]
+        _rows, row_of, _ts_row, _ = self._row_plan()
+        ts_arr = self._lazy_ts(n, block, lookup)
+        order = emission_order(ts_arr, n)
+        ts_list = ts_arr[order].tolist()
+        col_lists = []
+        for c, f in enumerate(schema.fields):
+            raw = np.asarray(block[row_of[c], :n])[order]
+            src = self.spec.proj_srcs[c]
+            if src is not None and src in self.lazy_pairs:
+                col_lists.append(_lazy_values(
+                    raw, f, lookup, self.spec.cap_src_key[src]
+                ))
+            else:
+                if np.dtype(f.atype.device_dtype) == np.dtype(np.float32):
+                    raw = raw.view(np.float32)
+                col_lists.append(f.decode_column(raw))
+        rows = (
+            list(zip(ts_list, map(tuple, zip(*col_lists))))
+            if col_lists
+            else [(t, ()) for t in ts_list]
+        )
+        return [(schema, rows)]
+
+    def decode_packed_columns(self, n: int, block: np.ndarray,
+                              lookup_np=None):
+        """Columnar twin of :meth:`decode_packed`: the same emission order
+        and lazy-ordinal semantics, but typed numpy columns — lazy values
+        resolve through the ring's vectorized ``lookup_np``."""
+        from .output import ColumnBatch
+        from .select import _lazy_column_np
+
+        schema = self.output_schema
+        if not self.lazy_pairs:
+            return [(schema, schema.decode_packed_columns(n, block))]
+        _rows, row_of, _ts_row, _ = self._row_plan()
+        ts_arr = self._lazy_ts(n, block, lookup_np)
+        order = emission_order(ts_arr, n)
+        cols = {}
+        for c, f in enumerate(schema.fields):
+            raw = np.asarray(block[row_of[c], :n])[order]
+            src = self.spec.proj_srcs[c]
+            if src is not None and src in self.lazy_pairs:
+                cols[f.name] = _lazy_column_np(
+                    raw, f, lookup_np, self.spec.cap_src_key[src]
+                )
+            else:
+                if np.dtype(f.atype.device_dtype) == np.dtype(np.float32):
+                    raw = raw.view(np.float32)
+                cols[f.name] = f.decode_column_np(raw)
+        return [(schema, ColumnBatch(ts_arr[order], cols))]
 
     @property
     def flush_is_noop(self) -> bool:
@@ -818,6 +1100,115 @@ class ChainPatternArtifact:
         new_state = dict(state)
         new_state["active"] = state["active"] & ~waiting
         return new_state, (n, packed[:, :P])
+
+
+def apply_lazy_projection(
+    artifact: ChainPatternArtifact,
+    skip_pred_elements: frozenset = frozenset(),
+):
+    """Late materialization for a chain plan: capture pairs that are
+    PROJECTION-ONLY (their column feeds no predicate, and every select
+    item reading them is a plain reference) switch to ordinal capture,
+    and their columns drop off the device tape entirely. Returns the set
+    of tape columns the device still needs, or None when nothing is
+    lazy-eligible. ``skip_pred_elements``: elements whose filters were
+    pushed to the host wire — their columns no longer pin the tape."""
+    spec = artifact.spec
+    pred_cols = set()
+    for i, el in enumerate(spec.elements):
+        if el.filter is None or i in skip_pred_elements:
+            continue
+        for a in ast.iter_attrs(el.filter):
+            pred_cols.add(f"{el.stream_id}.{a.name}")
+    pairs = _cap_pairs(spec)
+    lazy = []
+    for pair in pairs:
+        key = spec.cap_src_key[pair]
+        if key in pred_cols:
+            continue
+        plain = True
+        for i, prs in enumerate(spec.proj_ref_pairs):
+            if pair in prs and spec.proj_srcs[i] != pair:
+                plain = False  # computed expression needs the value
+                break
+        if plain:
+            lazy.append(pair)
+    if not lazy:
+        return None
+    artifact.lazy_pairs = tuple(sorted(lazy))
+    needed = set(pred_cols)
+    for pair in pairs:
+        if pair not in artifact.lazy_pairs:
+            needed.add(spec.cap_src_key[pair])
+    return needed
+
+
+def chain_wire_opts(artifact: ChainPatternArtifact, config):
+    """Wire optimizations for a chain plan, in order: predicate pushdown
+    (host-evaluable element filters collapse to one packed mask bit per
+    element) then late materialization (with pushed predicate columns
+    now lazy-eligible). Returns (needed_device_columns, host_preds) or
+    None when nothing applies. (The port's chains have no cross-element
+    filters, so no event column is pinned by one.)"""
+    from ..runtime.tape import HostPred
+
+    spec = artifact.spec
+    host_preds = []
+    pushed = []
+    if config.pred_pushdown:
+        candidates = [
+            i
+            for i, he in enumerate(spec.host_pred_fns)
+            if he is not None and spec.pred_fns[i] is not None
+        ]
+        # push only elements whose masks FREE wire columns. Columns that
+        # stay regardless: unpushable element predicates, and capture
+        # sources that cannot go lazy (computed projections, or lazy
+        # projection disabled).
+        kept_base = set()
+        for i, el in enumerate(spec.elements):
+            if el.filter is None or i in candidates:
+                continue
+            for a in ast.iter_attrs(el.filter):
+                kept_base.add(f"{el.stream_id}.{a.name}")
+        for pair in _cap_pairs(spec):
+            if not config.lazy_projection:
+                kept_base.add(spec.cap_src_key[pair])
+                continue
+            for pi, prs in enumerate(spec.proj_ref_pairs):
+                if pair in prs and spec.proj_srcs[pi] != pair:
+                    kept_base.add(spec.cap_src_key[pair])
+                    break
+        for i in candidates:
+            he = spec.host_pred_fns[i]
+            if not (set(he.refs) - kept_base):
+                continue  # frees nothing: keep the device predicate
+            key = f"@p:{i}"
+            host_preds.append(HostPred(key, he.fn, he.refs))
+            spec.pred_fns[i] = lambda env, k=key: env[k]
+            pushed.append(i)
+        artifact.pushed_preds = tuple(pushed)
+
+    lazy_needed = None
+    if config.lazy_projection:
+        lazy_needed = apply_lazy_projection(
+            artifact, skip_pred_elements=frozenset(pushed)
+        )
+
+    if not host_preds and lazy_needed is None:
+        return None
+    if lazy_needed is not None:
+        needed = set(lazy_needed)
+    else:
+        needed = set()
+        for i, el in enumerate(spec.elements):
+            if el.filter is None or i in pushed:
+                continue
+            for a in ast.iter_attrs(el.filter):
+                needed.add(f"{el.stream_id}.{a.name}")
+        for pair in _cap_pairs(spec):
+            needed.add(spec.cap_src_key[pair])
+    return needed, tuple(host_preds)
 
 
 # --------------------------------------------------------------------------

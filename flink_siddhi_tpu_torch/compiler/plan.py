@@ -26,7 +26,7 @@ import torch
 from ..extensions.registry import ExtensionRegistry, builtin_registry
 from ..query import ast, parse_plan
 from ..query.lexer import SiddhiQLError
-from ..runtime.tape import TapeSpec
+from ..runtime.tape import TapeSpec, WireTape
 from ..schema.stream_schema import StreamSchema
 from .config import DEFAULT_CONFIG, EngineConfig
 from .expr import ExprResolver, as_i32
@@ -66,7 +66,10 @@ class CompiledPlan:
         return out
 
     def step(self, states: Dict, tape) -> Tuple[Dict, Dict]:
-        """Advance every query one micro-batch."""
+        """Advance every query one micro-batch (a staged wire tape is
+        expanded on the device first)."""
+        if isinstance(tape, WireTape):
+            tape = tape.expand()
         new_states = {}
         outputs = {}
         for a in self.artifacts:
@@ -209,11 +212,12 @@ class CompiledPlan:
             "buf": buf,
         }
 
-    def drain_decode(self, counts: np.ndarray,
-                     data: np.ndarray) -> Dict[str, List]:
+    def drain_decode(self, counts: np.ndarray, data: np.ndarray,
+                     lookup=None) -> Dict[str, List]:
         """Host side of a drain: unpack the fetched buffer slice into
         per-artifact lists of (output_schema, rows). ``data`` is
-        ``buf[:, :max(counts)]`` already on host."""
+        ``buf[:, :max(counts)]`` already on host; ``lookup`` resolves lazy
+        ordinals (the executor's lazy ring)."""
         out: Dict[str, List] = {}
         for ai, (a, (row0, n_rows)) in enumerate(
             zip(self.artifacts, self.acc_layout())
@@ -223,7 +227,9 @@ class CompiledPlan:
                 out[a.name] = []
                 continue
             block = data[row0:row0 + n_rows, :n]
-            if hasattr(a, "decode_packed"):
+            if getattr(a, "wants_lookup", False):
+                out[a.name] = a.decode_packed(n, block, lookup=lookup)
+            elif hasattr(a, "decode_packed"):
                 out[a.name] = a.decode_packed(n, block)
             else:
                 out[a.name] = [(
@@ -246,13 +252,6 @@ class CompiledPlan:
         return by_stream
 
 
-def _check_config(config: EngineConfig) -> None:
-    if config.lazy_projection:
-        raise _later("lazy projection (EngineConfig.lazy_projection)", 4)
-    if config.pred_pushdown:
-        raise _later("predicate pushdown (EngineConfig.pred_pushdown)", 4)
-
-
 def compile_plan(
     plan_text: str,
     schemas: Dict[str, StreamSchema],
@@ -269,7 +268,6 @@ def compile_plan(
         extensions = builtin_registry()
     if config is None:
         config = DEFAULT_CONFIG
-    _check_config(config)
     parsed = parse_plan(plan_text)
 
     # plan-internal DDL shares the environment's string dictionary (taken
@@ -347,10 +345,38 @@ def compile_plan(
         encoded.extend(getattr(art, "encoded_columns", ()))
         artifacts.append(art)
 
+    # late materialization and wire predicate pushdown (opt-in), for a
+    # plan of one chain pattern or one select: projection-only columns
+    # stay host-side and host-evaluable filters ship as packed mask bits.
+    # (The reference's third case, window_wire_opts, is for sliding
+    # windows, which the port does not compile yet: item 6.)
+    from .nfa import ChainPatternArtifact, chain_wire_opts
+    from .select import SelectArtifact, select_wire_opts
+
+    device_columns = None
+    host_preds = ()
+    if (
+        config.lazy_projection or config.pred_pushdown
+    ) and len(artifacts) == 1:
+        res = None
+        if isinstance(artifacts[0], ChainPatternArtifact):
+            res = chain_wire_opts(artifacts[0], config)
+        elif isinstance(artifacts[0], SelectArtifact):
+            res = select_wire_opts(artifacts[0], config)
+        if res is not None:
+            needed, host_preds = res
+            device_columns = tuple(k for k in columns if k in needed)
+    relevance = tuple(
+        (a.name, a.relevance())
+        for a in artifacts
+        if isinstance(a, ChainPatternArtifact)
+    )
+
     return CompiledPlan(
         plan_id=plan_id,
         spec=TapeSpec(stream_codes, tuple(columns), column_types,
-                      tuple(encoded)),
+                      tuple(encoded), device_columns=device_columns,
+                      host_preds=tuple(host_preds), relevance=relevance),
         artifacts=artifacts,
         schemas=all_schemas,
         config=config,

@@ -1,4 +1,6 @@
-from .tape import Tape, TapeSpec, build_tape
+from .tape import Tape, TapeSpec, WireTape, build_tape, build_wire_tape
 from .executor import Job
+from .replay import ResidentReplay
 
-__all__ = ["Tape", "TapeSpec", "build_tape", "Job"]
+__all__ = ["Tape", "TapeSpec", "WireTape", "build_tape", "build_wire_tape",
+           "Job", "ResidentReplay"]

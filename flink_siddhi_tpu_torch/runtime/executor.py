@@ -3,15 +3,18 @@
 A minimal ``Job`` of the torch port, after ``flink_siddhi_tpu/runtime/
 executor.py``: a run loop that pulls sources, releases event-time-ordered
 micro-batches through a watermark gate (or everything, in processing mode),
-builds each plan's tape on the host, stages it onto the device, steps the
-plan, and appends every emission to an on-device accumulator. The host
-drains the accumulator in bulk (two fetches: counts, then the used slice)
-and decodes rows for collectors and sinks.
+builds each plan's narrow wire tape on the host, stages it onto the
+device, steps the plan, and appends every emission to an on-device
+accumulator. The host drains the accumulator in bulk (two fetches: counts,
+then the used slice) and decodes rows for collectors and sinks; rows of a
+lazy-projected plan resolve their event ordinals against the host's lazy
+ring. ``runtime/replay.py:ResidentReplay`` drives the same job over a
+bounded stream staged on the device beforehand.
 
 Not in this port yet (ROADMAP.md Queue 1): the control plane, fused
-segments, resident replay, telemetry, checkpoints, shared subplans, the
-lazy ring, the narrow wire tape, and the late/idle/backpressure policies
-beyond the default (late rows are dropped and counted).
+segments, the overlapped drain, telemetry, checkpoints, shared subplans,
+and the late/idle/backpressure policies beyond the default (late rows are
+dropped and counted).
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
@@ -20,21 +23,114 @@ from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..compiler.plan import CompiledPlan
 from ..device import DeviceLike, resolve_device
 from ..schema.batch import EventBatch
 from .sources import Source
-from .tape import bucket_size, build_tape
+from .tape import WireTape, bucket_size, build_wire_tape
 
 _LOG = logging.getLogger(__name__)
 
 MAX_WM = np.iinfo(np.int64).max
 MIN_WM = -(2 ** 62)  # pre-first-event watermark sentinel
+_LAZY_ORD_WRAP = 1 << 30  # reset lazy ordinal space before int32 wrap
+
+
+class _LazyRing:
+    """Host-retained projection-only columns (late materialization).
+
+    Lazy-projected plans emit event ORDINALS; this ring maps them back
+    to values at decode time. Entries are evicted oldest-first past a
+    byte budget — an ordinal older than the horizon decodes as None
+    (bounded-memory policy, counted in ``missed``). Pushes and lookups
+    both run on the run-loop thread (drains are synchronous)."""
+
+    def __init__(self, budget_bytes: int = 256 << 20) -> None:
+        self.starts: List[int] = []
+        self.lens: List[int] = []
+        self.cols: List[Dict[str, np.ndarray]] = []
+        self.bytes = 0
+        self.budget = budget_bytes
+        self.missed = 0
+
+    def push(self, start: int, cols: Dict[str, np.ndarray]) -> None:
+        n = len(next(iter(cols.values()))) if cols else 0
+        self.starts.append(start)
+        self.lens.append(n)
+        self.cols.append(cols)
+        self.bytes += sum(c.nbytes for c in cols.values())
+        while self.bytes > self.budget and len(self.starts) > 1:
+            old = self.cols.pop(0)
+            self.starts.pop(0)
+            self.lens.pop(0)
+            self.bytes -= sum(c.nbytes for c in old.values())
+
+    def _locate(self, ords):
+        """(ords int64, entry index per ordinal, offset in it, hit mask)."""
+        ords = np.asarray(ords, dtype=np.int64)
+        starts = np.asarray(self.starts, dtype=np.int64)
+        lens = np.asarray(self.lens, dtype=np.int64)
+        idx = np.searchsorted(starts, ords, side="right") - 1
+        safe = np.clip(idx, 0, None)
+        ok = (idx >= 0) & (ords - starts[safe] < lens[safe])
+        return idx, ords - starts[safe], ok
+
+    def lookup(self, key: str, ords) -> List:
+        """Batch ordinal resolve to Python values (None where evicted):
+        one searchsorted + one gather per ring entry touched."""
+        n = len(ords)
+        out: List = [None] * n
+        if n == 0 or not self.starts:
+            self.missed += n
+            return out
+        idx, offs, ok = self._locate(ords)
+        self.missed += int(n - ok.sum())
+        for i in np.unique(idx[ok]).tolist():
+            sel = np.nonzero(ok & (idx == i))[0]
+            entry = self.cols[i]
+            if key not in entry:
+                self.missed += len(sel)
+                continue
+            vals = entry[key][offs[sel]].tolist()
+            for j, v in zip(sel.tolist(), vals):
+                out[j] = v
+        return out
+
+    def lookup_np(self, key: str, ords) -> np.ndarray:
+        """Vectorized ordinal resolve: the same gather as :meth:`lookup`,
+        kept a numpy array — typed when every ordinal hits, object-dtype
+        with None holes when any was evicted past the ring horizon."""
+        n = len(ords)
+        if n == 0 or not self.starts:
+            self.missed += n
+            return np.full(n, None, dtype=object)
+        idx, offs, ok = self._locate(ords)
+        out = None
+        found = np.zeros(n, dtype=bool)
+        for i in np.unique(idx[ok]).tolist():
+            sel = np.nonzero(ok & (idx == i))[0]
+            entry = self.cols[i]
+            if key not in entry:
+                continue
+            col = entry[key]
+            if out is None:
+                out = np.zeros(n, dtype=col.dtype)
+            out[sel] = col[offs[sel]]
+            found[sel] = True
+        self.missed += int(n - found.sum())
+        if out is None:
+            return np.full(n, None, dtype=object)
+        if not bool(found.all()):
+            obj = out.astype(object)
+            obj[~found] = None
+            return obj
+        return out
 
 
 @dataclass
@@ -42,6 +138,20 @@ class _PlanRuntime:
     plan: CompiledPlan
     states: Dict
     acc: Dict  # device-side output accumulator
+    # sticky per-column wire widths (build_wire_tape)
+    wire_kinds: Dict = field(default_factory=dict)
+    # lazy projection: the tape keys the ring retains, whether it also
+    # retains rebased timestamps ("@ts", for blocks without a ts row),
+    # the ring itself (None for a plan with no lazy artifact), the
+    # artifact whose state holds the device ordinal counter ``seen``, and
+    # lazy_base, the host's copy of that counter (both count every valid
+    # event staged, so the host never reads it from the device)
+    lazy_keys: Tuple[str, ...] = ()
+    lazy_ts: bool = False
+    lazy: Optional[_LazyRing] = None
+    lazy_state_name: Optional[str] = None
+    lazy_base: int = 0
+    lazy_miss_warned: int = 0
     # sticky tape capacity: once a capacity is used, smaller batches (the
     # end-of-stream tail) pad up to it instead of bucketing down
     tape_capacity: int = 0
@@ -64,9 +174,16 @@ class Job:
         time_mode: str = "event",  # 'event' | 'processing'
         retain_results: bool = True,  # keep emitted rows in collected[]
         device: DeviceLike = None,  # None = the CUDA device
+        control_sources: Sequence = (),
     ) -> None:
         if time_mode not in ("event", "processing"):
             raise ValueError(time_mode)
+        if control_sources:
+            raise NotImplementedError(
+                "control sources (the control plane, and control-in-replay "
+                "for ResidentReplay) are not in the torch port yet "
+                "(ROADMAP.md Queue 1 item 10)"
+            )
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.time_mode = time_mode
@@ -108,9 +225,22 @@ class Job:
     def add_plan(self, plan: CompiledPlan) -> None:
         if plan.plan_id in self._plans:
             raise ValueError(f"plan {plan.plan_id!r} is already running")
-        self._plans[plan.plan_id] = _PlanRuntime(
+        rt = _PlanRuntime(
             plan, plan.init_state(self.device), plan.init_acc(self.device)
         )
+        lazy_arts = [
+            a for a in plan.artifacts if getattr(a, "lazy_src_keys", ())
+        ]
+        if lazy_arts:
+            rt.lazy_keys = tuple(sorted(
+                {k for a in lazy_arts for k in a.lazy_src_keys}
+            ))
+            rt.lazy_ts = any(
+                getattr(a, "ring_needs_ts", False) for a in lazy_arts
+            )
+            rt.lazy = _LazyRing(plan.config.lazy_ring_budget_bytes)
+            rt.lazy_state_name = lazy_arts[0].name
+        self._plans[plan.plan_id] = rt
 
     def add_sink(self, output_stream: str, fn: Callable) -> None:
         """Attach a sink ``fn(abs_ts, row_tuple)``. Rows accumulated
@@ -129,6 +259,28 @@ class Job:
             for rt in self._plans.values()
             for a in rt.plan.artifacts
         )
+
+    def reset_engine_state(self) -> None:
+        """Rerun aid: fresh device state (re-grown to the interned encoder
+        sizes), zeroed accumulators, fresh lazy rings and the event-time
+        gate's phase, so the SAME job can replay an identical stream
+        again (``ResidentReplay.rerun``). Sticky wire widths and tape
+        capacities stay: the staged tapes were built with them."""
+        for rt in self._plans.values():
+            rt.states = rt.plan.grow_state(rt.plan.init_state(self.device))
+            rt.acc = rt.plan.init_acc(self.device)
+            rt.acc_dirty = False
+            rt.dirty_since = None
+            if rt.lazy is not None:
+                rt.lazy = _LazyRing(rt.lazy.budget)
+                rt.lazy_base = 0
+                rt.lazy_miss_warned = 0
+        self._cycles_since_drain = 0
+        # a rerun replays the SAME stream, so a carried released horizon
+        # would classify every row late
+        self._released_wm = MIN_WM
+        self._gate_wm = MIN_WM
+        self._max_event_ts = None
 
     # -- run loop ------------------------------------------------------------
     def run(self, max_cycles: Optional[int] = None) -> None:
@@ -149,7 +301,7 @@ class Job:
             if not rt.plan.has_flush:
                 continue
             rt.states, outputs = rt.plan.flush(rt.states)
-            self._decode_outputs(rt.plan, outputs)
+            self._decode_outputs(rt, outputs)
 
     @property
     def finished(self) -> bool:
@@ -293,7 +445,7 @@ class Job:
 
     def _step_plan(self, rt: _PlanRuntime, ready: List[EventBatch]) -> None:
         for involved in self._plan_windows(rt, ready):
-            tape = self._stage_tape(rt, involved)
+            tape = self._stage_tape(rt, involved).to(self.device)
             # host interning may have discovered new keys: re-bucket the
             # keyed state tables before the step (host-known sizes)
             rt.states = rt.plan.grow_state(rt.states)
@@ -303,16 +455,92 @@ class Job:
                 rt.dirty_since = time.monotonic()
             self._update_drain_hint(rt.plan, tape.capacity)
 
-    def _stage_tape(self, rt: _PlanRuntime, involved: List[EventBatch]):
-        """Host half of one step: build the tape (numpy), then stage it
-        onto the device (pinned host memory, asynchronous upload)."""
+    def _stage_tape(self, rt: _PlanRuntime,
+                    involved: List[EventBatch]) -> WireTape:
+        """Host half of one step: build the wire tape (interning group
+        keys as a side effect) and retain lazy-projection columns in the
+        ring. Shared by the streaming loop (which stages the tape onto
+        the device with ``WireTape.to``) and the bounded replay's
+        pre-stager (runtime/replay.py). The caller is responsible for
+        ``plan.grow_state`` before the step."""
+        plan = rt.plan
         total = sum(len(b) for b in involved)
         rt.tape_capacity = max(rt.tape_capacity, bucket_size(total))
-        tape = build_tape(
-            rt.plan.spec, involved, self._epoch_ms,
+        # lazy-ring retention is decode-side state: a plan NOBODY
+        # observes (no sinks, retention off) never decodes ordinals, so
+        # retaining projection columns for it is pure memcpy waste
+        retain_lazy = rt.lazy is not None and self._has_consumers(rt)
+        tape, prov = build_wire_tape(
+            plan.spec, involved, self._epoch_ms, rt.wire_kinds,
             capacity=rt.tape_capacity,
+            # the provenance map serves the multi-batch retention below
+            want_prov=retain_lazy and len(involved) > 1,
         )
-        return tape.to(self.device)
+        if rt.lazy is None:
+            return tape
+        if rt.lazy_base + total > _LAZY_ORD_WRAP:
+            # int32 ordinal space: reset both sides well before the
+            # device counter could wrap (undrained matches from before
+            # the reset decode None — one warned event per ~1B processed)
+            self._drain_plan(rt)
+            states = dict(rt.states)
+            sub = dict(states[rt.lazy_state_name])
+            sub["seen"] = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
+            states[rt.lazy_state_name] = sub
+            rt.states = states
+            rt.lazy_base = 0
+            rt.lazy = _LazyRing(rt.lazy.budget)
+            _LOG.warning(
+                "%s: lazy ordinal space reset (wrap horizon)", plan.plan_id
+            )
+        if retain_lazy:
+            rt.lazy.push(rt.lazy_base,
+                         self._lazy_columns(rt, involved, prov, total))
+        rt.lazy_base += total
+        return tape
+
+    def _lazy_columns(self, rt: _PlanRuntime, involved: List[EventBatch],
+                      prov, total: int) -> Dict[str, np.ndarray]:
+        """The merged-order values of the plan's projection-only columns
+        (and rebased timestamps under ``@ts`` when decode needs them) —
+        the device emits ordinals into this ring entry's space."""
+        lcols: Dict[str, np.ndarray] = {}
+        if len(involved) == 1:
+            # single sorted batch: merged order == batch order. The copy
+            # is NOT optional: sources may reuse column buffers across
+            # polls, and event-time releases are views into a larger base
+            b = involved[0]
+            for key in rt.lazy_keys:
+                sid, fname = key.split(".", 1)
+                if b.stream_id == sid:
+                    lcols[key] = np.array(b.columns[fname])
+            if rt.lazy_ts:
+                lcols["@ts"] = (b.timestamps - self._epoch_ms).astype(
+                    np.int32
+                )
+            return lcols
+        for key in rt.lazy_keys:
+            sid, fname = key.split(".", 1)
+            col = None
+            for bi, b in enumerate(involved):
+                if b.stream_id != sid:
+                    continue
+                sel = prov[:, 0] == bi
+                if col is None:
+                    col = np.zeros(total, dtype=b.columns[fname].dtype)
+                col[sel] = b.columns[fname][prov[sel, 1]]
+            if col is not None:
+                lcols[key] = col
+        if rt.lazy_ts:
+            tcol = np.zeros(total, dtype=np.int32)
+            for bi, b in enumerate(involved):
+                sel = prov[:, 0] == bi
+                tcol[sel] = (
+                    b.timestamps[prov[sel, 1]] - self._epoch_ms
+                ).astype(np.int32)
+            lcols["@ts"] = tcol
+        return lcols
 
     def _update_drain_hint(self, plan: CompiledPlan,
                            tape_capacity: int) -> None:
@@ -361,7 +589,10 @@ class Job:
         if self._has_consumers(rt) and max_n:
             data = rt.acc["buf"][:, :max_n].cpu().numpy()
             self.drain_syncs += 1
-            decoded = plan.drain_decode(counts, data)
+            decoded = plan.drain_decode(
+                counts, data,
+                lookup=rt.lazy.lookup if rt.lazy is not None else None,
+            )
             for a in plan.artifacts:
                 for schema, rows in decoded.get(a.name) or []:
                     self._emit_rows(schema, rows)
@@ -381,21 +612,39 @@ class Job:
                     "EngineConfig.acc_budget_bytes or drain more often)",
                     a.name, int(overflow[ai]),
                 )
+        # the only place the engine degrades instead of failing loudly: a
+        # lazy-projected value older than the ring budget decodes as None
+        # in user rows — surface it, once per newly missed count
+        if rt.lazy is not None and rt.lazy.missed > rt.lazy_miss_warned:
+            _LOG.warning(
+                "%s: %d lazy-projected values were evicted past the ring "
+                "horizon and decoded as None (raise "
+                "EngineConfig.lazy_ring_budget_bytes, or drain results "
+                "more often)",
+                plan.plan_id, rt.lazy.missed - rt.lazy_miss_warned,
+            )
+            rt.lazy_miss_warned = rt.lazy.missed
         rt.acc["meta"].zero_()
         rt.acc_dirty = False
         rt.dirty_since = None
 
-    def _decode_outputs(self, plan: CompiledPlan, outputs: Dict) -> None:
+    def _decode_outputs(self, rt: _PlanRuntime, outputs: Dict) -> None:
         """Decode step/flush outputs fetched straight from the device (the
         end-of-stream flush path; packed artifacts only)."""
-        for a in plan.artifacts:
+        for a in rt.plan.artifacts:
             if a.name not in outputs:
                 continue
             count, block = outputs[a.name][0], outputs[a.name][1]
             n = int(count)
             if n == 0:
                 continue
-            decoded = a.decode_packed(n, block.cpu().numpy())
+            if getattr(a, "wants_lookup", False):
+                decoded = a.decode_packed(
+                    n, block.cpu().numpy(),
+                    lookup=rt.lazy.lookup if rt.lazy is not None else None,
+                )
+            else:
+                decoded = a.decode_packed(n, block.cpu().numpy())
             for schema, rows in decoded:
                 self._emit_rows(schema, rows)
 

@@ -215,12 +215,20 @@ def test_zoo_plans_outside_the_slice_raise(name):
 
 
 def test_engine_config_wire_options_raise():
-    schema = fpt.StreamSchema([("id", "int")])
+    # the wire options compile for a plan of one select (and one chain,
+    # tests/test_torch_replay.py); their window case (the reference's
+    # window_wire_opts, over sliding windows) still raises, naming item 6
+    schema = fpt.StreamSchema([("id", "int"), ("v", "int")])
     for opt in ("lazy_projection", "pred_pushdown"):
         cfg = EngineConfig(**{opt: True})
-        with pytest.raises(SiddhiQLError, match="torch port"):
-            fpt.compile_plan("from S[id == 1] select id insert into o",
-                             {"S": schema}, config=cfg)
+        plan = fpt.compile_plan("from S[id == 1] select v insert into o",
+                                {"S": schema}, config=cfg)
+        assert plan.spec.device_columns is not None
+        with pytest.raises(SiddhiQLError, match="item 6"):
+            fpt.compile_plan(
+                "from S[id == 1]#window.length(4) select sum(id) as s "
+                "insert into o", {"S": schema}, config=cfg,
+            )
 
 
 def test_state_from_numpy_rejects_mismatched_state():
