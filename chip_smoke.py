@@ -53,7 +53,22 @@ fault:
    batch 524,288 over 10,485,760 events, the unique-window fold called
    once per micro-batch and host syncs counted (drains only); rows checked
    against the port's CPU path on the first 32,768 events;
-7. kernels: each kernel timed on the inputs it was given on its path — its
+7. windows (in a process of its own, `--windows`): the bench's
+   window_groupby (`#window.length(1000) select id,
+   sum(price), count() group by id`, 1,000 ids) as phase 5b runs the
+   bench main path — streaming rows of the first 1,048,576 events held to
+   the CPU path (float sums within rtol 1e-5), host syncs only the
+   drains', the raw id off the wire, then ResidentReplay counts-only with
+   10,485,760 rows a run (every event emits one), reruns, wire bytes, peak
+   memory, a traced rerun's idle share and one segment under sync debug
+   mode "error"; then every other window class through the streaming Job
+   over four micro-batches of 524,288 events (65,536 on the matrix path),
+   rows held to the CPU path and two staged steps under sync debug mode
+   "error": length min/max, event-time group-by avg, time min (matrix),
+   externalTime, timeLength, cumulative group-by, lengthBatch, timeBatch
+   group-by, externalTimeBatch, cron, expired events over length and time
+   windows, delay, and an INT sum that wraps int32 (exact);
+8. kernels: each kernel timed on the inputs it was given on its path — its
    device time (profiler trace; for the unique fold CUDA events over 25
    back-to-back calls and each stage kernel's traced device time) and its
    per-call time (CUDA events, median) — beside its plain version, the
@@ -62,10 +77,10 @@ fault:
    cummin and the chain advance also at full width (the headline's own
    524,288-event tapes with relevance compaction off), and their kernel
    launches per call counted in a profiler trace (each must be 1);
-8. where the quote board's time goes: tape staging, device steps (under
+9. where the quote board's time goes: tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
    run) and a profiler-traced run for the card's idle share;
-9. api: the README's quick start, pattern and quote board through
+10. api: the README's quick start, pattern and quote board through
    SiddhiCEP on the default device, checked against the CPU.
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
@@ -102,6 +117,10 @@ BATCH = 524_288
 N_BATCHES = 20
 CHECK_BATCHES = 2  # rows held to the CPU path over these micro-batches
 N_IDS = 50
+N_IDS_WINDOW = 1_000  # window_groupby's ids (bench.py:479)
+WINDOW_CLASS_BATCHES = 4  # micro-batches of each other window class
+MATRIX_BATCH = 65_536  # the matrix path's batch: [E, C] windows per column
+WINDOW_RTOL = 1e-5  # float sums and averages, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
 F32_OPS_PER_S = 67e12  # non-tensor-core float32 rate, same source
@@ -128,6 +147,10 @@ QUOTE_BOARD = (
 )
 QUOTE_SLOTS = [("count", -1), ("sum", 0), ("avg", 1), ("min", 1),
                ("max", 1)]
+WINDOW_GROUPBY = (
+    "from inputStream#window.length(1000) select id, sum(price) as total, "
+    "count() as cnt group by id insert into matches"
+)
 
 
 def log(*a):
@@ -589,9 +612,9 @@ def check_unique_fold(co, dev, gen):
 
 # -- phases 4 and 5: the main path end to end ----------------------------------
 
-def bench_stream(fpt, n_events, batch):
+def bench_stream(fpt, n_events, batch, n_ids=N_IDS):
     """The bench's synthetic stream (bench.py make_batches): rng seed 7,
-    id uniform in [0, 50), name "test_event", price uniform x 100,
+    id uniform in [0, n_ids), name "test_event", price uniform x 100,
     timestamp 1000 + i ms."""
     schema = fpt.StreamSchema([("id", "int"), ("name", "string"),
                                ("price", "double"), ("timestamp", "long")])
@@ -600,7 +623,7 @@ def bench_stream(fpt, n_events, batch):
     out = []
     for start in range(0, n_events, batch):
         m = min(batch, n_events - start)
-        ids = rng.integers(0, N_IDS, size=m).astype(np.int32)
+        ids = rng.integers(0, n_ids, size=m).astype(np.int32)
         cols = {
             "id": ids,
             "name": np.full(m, code, dtype=np.int32),
@@ -769,7 +792,34 @@ def replay_job(fpt, cql, schema, batches, retain):
                    retain_results=retain, device="cuda")
 
 
-def bench_main_path(fpt, co, name, cql, schema, batches, chain):
+def rows_match(got, ref, rtol, what):
+    """Fails unless the rows ``got`` equal ``ref``: the same timestamps in
+    the same order and every value equal, float values within ``rtol``
+    (0: exactly). Returns the largest relative difference of a float."""
+    if rtol == 0.0:
+        if got != ref:
+            raise AssertionError(f"{what}: rows differ")
+        return 0.0
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} rows, expected {len(ref)}")
+    worst = 0.0
+    for (tg, rg), (tr, rr) in zip(got, ref):
+        if tg != tr or len(rg) != len(rr):
+            raise AssertionError(f"{what}: row at {tr} differs: {rg} {rr}")
+        for a, b in zip(rg, rr):
+            if a == b:
+                continue
+            if not (isinstance(b, float) and isinstance(a, float)):
+                raise AssertionError(f"{what}: row at {tr}: {rg} vs {rr}")
+            rel = abs(a - b) / abs(b)
+            if not rel <= rtol:
+                raise AssertionError(f"{what}: row at {tr}: {rg} vs {rr}")
+            worst = max(worst, rel)
+    return worst
+
+
+def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
+                    expect_rows=None):
     """One path as bench.py runs it: EngineConfig(lazy_projection=True,
     pred_pushdown=True) over the whole stream, through the streaming Job
     (rows of the first micro-batches held to the CPU path under the same
@@ -780,7 +830,9 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain):
     micro-batches (rows equal to the streaming run's, no lazy miss), and a
     profiler-traced rerun for the card's idle share. With ``chain`` the
     chain kernels must launch once per compacted step, and every step must
-    have been compacted on the host-known bound (no read)."""
+    have been compacted on the host-known bound (no read). Floats of the
+    rows are held to the CPU path within ``rtol`` (0: exactly); with
+    ``expect_rows`` the run must emit that many rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -793,14 +845,15 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain):
 
     # the streaming Job over the whole stream, rows kept
     rows, wall, job = run_job(fpt, cql, schema, batches, "cuda", config=cfg)
-    if [r for r in rows if r[0] <= last_ts] != cpu_rows:
-        raise AssertionError(f"{name}: streaming rows of the first "
-                             f"{sum(len(b) for b in check)} events differ "
-                             "from the CPU path")
+    max_rel = rows_match(
+        [r for r in rows if r[0] <= last_ts], cpu_rows, rtol,
+        f"{name}: streaming rows of the first "
+        f"{sum(len(b) for b in check)} events against the CPU path",
+    )
     rt = job._plans["bench"]
-    if rt.lazy.missed:
+    if rt.lazy is not None and rt.lazy.missed:
         raise AssertionError(f"{name}: {rt.lazy.missed} lazy misses")
-    if chain and job.host_syncs != job.drain_syncs:
+    if job.host_syncs != job.drain_syncs:
         raise AssertionError(
             f"{name}: {job.host_syncs} host syncs, {job.drain_syncs} of "
             "them drain fetches"
@@ -834,7 +887,7 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain):
     first_s = time.perf_counter() - t0
     launches = co.launch_counts()
     count = job.emitted_counts.get("matches", 0)
-    if count != streaming["rows"]:
+    if count != streaming["rows"] or count != (expect_rows or count):
         raise AssertionError(f"{name}: resident run emitted {count} rows, "
                              f"the streaming run {streaming['rows']}")
     if chain:
@@ -884,9 +937,11 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain):
     rjob = replay_job(fpt, cql, schema, check, retain=True)
     fpt.ResidentReplay(rjob).execute()
     res_rows = rjob.results_with_ts("matches")
-    if res_rows != cpu_rows or rjob._plans["bench"].lazy.missed:
-        raise AssertionError(f"{name}: resident rows differ from the "
-                             "streaming and CPU rows")
+    max_rel = max(max_rel, rows_match(res_rows, cpu_rows, rtol,
+                                      f"{name}: resident rows"))
+    lazy = rjob._plans["bench"].lazy
+    if lazy is not None and lazy.missed:
+        raise AssertionError(f"{name}: resident rows missed lazy values")
     result = {
         "path": f"bench_{name}",
         "config": "EngineConfig(lazy_projection=True, pred_pushdown=True)",
@@ -916,9 +971,176 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain):
         "cpu_check_rows": len(cpu_rows),
         "cpu_check_s": cpu_s,
         "resident_check_rows": len(res_rows),
+        "max_rel_err_vs_cpu": max_rel,
     }
     log(json.dumps(result))
     return result
+
+
+# -- phase 7: windows and aggregation -----------------------------------------
+
+def int_stream(fpt, n_events, batch):
+    """A stream whose INT sums pass int32's range: IntStream (id int, vol
+    int, timestamp long), rng seed 13, id uniform in [0, 8), vol drawn
+    from values near +-2^31, timestamp 1000 + i ms."""
+    schema = fpt.StreamSchema([("id", "int"), ("vol", "int"),
+                               ("timestamp", "long")])
+    rng = np.random.default_rng(13)
+    near = np.array([2 ** 31 - 1, 2 ** 31 - 5, -2 ** 31, -2 ** 31 + 7, 3,
+                     -11], np.int64)
+    out = []
+    for start in range(0, n_events, batch):
+        m = min(batch, n_events - start)
+        cols = {
+            "id": rng.integers(0, 8, m).astype(np.int32),
+            "vol": rng.choice(near, m).astype(np.int32),
+            "timestamp": 1000 + start + np.arange(m, dtype=np.int64),
+        }
+        out.append(fpt.EventBatch("IntStream", schema, cols,
+                                  cols["timestamp"]))
+    return schema, out
+
+
+# (name, cql, matrix path?, float tolerance against the CPU): every other
+# window class, over the bench stream (ids in [0, 50)) or IntStream
+WINDOW_CLASSES = [
+    ("length_minmax",
+     "from inputStream[id < 5]#window.length(1000) select id, "
+     "min(price) as lo, max(price) as hi, count() as c group by id "
+     "insert into out", False, 0.0),
+    ("time_groupby_avg",
+     "from inputStream[id < 5]#window.time(400 milliseconds) select id, "
+     "avg(price) as a, count() as c group by id insert into out", False,
+     WINDOW_RTOL),
+    ("time_min_matrix",
+     "from inputStream[id < 5]#window.time(400 milliseconds) select "
+     "min(price) as lo, max(price) as hi, count() as c insert into out",
+     True, 0.0),
+    ("external_time",
+     "from inputStream[id < 5]#window.externalTime(timestamp, "
+     "300 milliseconds) select id, sum(price) as s group by id "
+     "insert into out", True, WINDOW_RTOL),
+    ("time_length",
+     "from inputStream[id < 5]#window.timeLength(300 milliseconds, 20) "
+     "select sum(price) as s, count() as c insert into out", True,
+     WINDOW_RTOL),
+    ("cumulative_groupby",
+     "from inputStream[id < 5] select id, sum(price) as s, avg(price) as a, "
+     "min(price) as lo, max(price) as hi group by id insert into out",
+     False, WINDOW_RTOL),
+    ("length_batch",
+     "from inputStream#window.lengthBatch(5000) select id, "
+     "sum(price) as s, count() as c group by id insert into out", False,
+     WINDOW_RTOL),
+    ("time_batch_groupby",
+     "from inputStream#window.timeBatch(10 sec) select id, sum(price) as s, "
+     "max(price) as hi group by id insert into out", False, WINDOW_RTOL),
+    ("external_time_batch",
+     "from inputStream#window.externalTimeBatch(timestamp, 10 sec) select "
+     "count() as c, avg(price) as a insert into out", False, WINDOW_RTOL),
+    ("cron",
+     "from inputStream#window.cron('*/10 * * * * ?') select id, "
+     "count() as c, sum(price) as s group by id insert into out", False,
+     WINDOW_RTOL),
+    ("expired_length",
+     "from inputStream[id == 3]#window.length(100) select id, price "
+     "insert expired events into out", False, 0.0),
+    ("expired_time",
+     "from inputStream[id == 4]#window.time(400 milliseconds) select id, "
+     "price insert expired events into out", False, 0.0),
+    ("delay",
+     "from inputStream[id == 5]#window.delay(250 milliseconds) select id, "
+     "price insert into out", False, 0.0),
+    ("int_sum_wrap",
+     "from IntStream[id < 2]#window.length(64) select id, sum(vol) as v, "
+     "count() as c group by id insert into out", False, 0.0),
+]
+
+
+def window_class(fpt, name, cql, schema, batches, stream, rtol):
+    """One window class through the streaming Job on the card, its rows
+    held to the CPU path's (floats within ``rtol``, 0: exactly; host syncs
+    only the drains'), then the staged wire tapes of its first two
+    micro-batches stepped under torch's sync debug mode "error"."""
+    import torch
+
+    cpu_rows, cpu_s, _ = run_job(fpt, cql, schema, batches, "cpu",
+                                 stream=stream, out="out")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, wall, job = run_job(fpt, cql, schema, batches, "cuda",
+                              stream=stream, out="out")
+    peak = torch.cuda.max_memory_allocated()
+    max_rel = rows_match(rows, cpu_rows, rtol, f"window class {name}")
+    if not rows or job.host_syncs != job.drain_syncs:
+        raise AssertionError(f"window class {name}: {len(rows)} rows, "
+                             f"{job.host_syncs} host syncs, "
+                             f"{job.drain_syncs} of them drains")
+    dev = torch.device("cuda")
+    plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench")
+    tapes = stage_wire_tapes(plan, batches[:2],
+                             int(batches[0].timestamps.min()), dev)
+    states, acc = plan.init_state(dev), plan.init_acc(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for tape in tapes:
+            states = plan.grow_state(states)
+            states, acc = plan.step_acc(states, acc, tape)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    art = plan.artifacts[0]
+    n_events = sum(len(b) for b in batches)
+    res = {
+        "class": name,
+        "artifact": type(art).__name__,
+        "sort_path": bool(getattr(art, "_blocked", lambda: False)()),
+        "batch": len(batches[0]),
+        "events": n_events,
+        "rows": len(rows),
+        "cpu_s": cpu_s,
+        "card_wall_s": wall,
+        "card_events_per_s": n_events / wall,
+        "max_memory_allocated_bytes": peak,
+        "max_rel_err_vs_cpu": max_rel,
+        "host_syncs": job.host_syncs,
+        "segment_steps_sync_free": True,
+    }
+    log(json.dumps(res))
+    return res
+
+
+def window_phase(fpt, co):
+    """The bench's window_groupby as bench.py runs it (phase 5b's runner,
+    1,000 ids), then every other window class through the streaming Job
+    at batch 524,288 (65,536 on the matrix path) over four micro-batches."""
+    wschema, wbatches = bench_stream(fpt, BATCH * N_BATCHES, BATCH,
+                                     n_ids=N_IDS_WINDOW)
+    plan = fpt.compile_plan(WINDOW_GROUPBY, {"inputStream": wschema},
+                            config=bench_config(fpt))
+    if plan.spec.device_columns != ("inputStream.price",):
+        raise AssertionError("window_groupby ships "
+                             f"{plan.spec.device_columns}")
+    bench = bench_main_path(fpt, co, "window_groupby", WINDOW_GROUPBY,
+                            wschema, wbatches, chain=False,
+                            rtol=WINDOW_RTOL,
+                            expect_rows=BATCH * N_BATCHES)
+    del wschema, wbatches
+    schema, batches = bench_stream(fpt, BATCH * WINDOW_CLASS_BATCHES, BATCH)
+    mschema, mbatches = bench_stream(fpt, MATRIX_BATCH * WINDOW_CLASS_BATCHES,
+                                     MATRIX_BATCH)
+    ischema, ibatches = int_stream(fpt, BATCH * WINDOW_CLASS_BATCHES, BATCH)
+    classes = []
+    for name, cql, matrix, rtol in WINDOW_CLASSES:
+        if name == "int_sum_wrap":
+            args = (ischema, ibatches, "IntStream")
+        elif matrix:
+            args = (mschema, mbatches, "inputStream")
+        else:
+            args = (schema, batches, "inputStream")
+        classes.append(window_class(fpt, name, cql, *args, rtol))
+    return {"bench": bench, "classes": classes}
 
 
 # -- phase 6: the quote board (#window.unique aggregation) -------------------
@@ -1049,7 +1271,7 @@ def keep_copy(a):
 
 class Recorder:
     """Forwards to a kernel wrapper and keeps a copy of the inputs of its
-    ``keep``-th call (the main path's real inputs for phase 7)."""
+    ``keep``-th call (the main path's real inputs for phase 8)."""
 
     def __init__(self, fn, keep):
         self.fn, self.keep, self.calls = fn, keep, 0
@@ -1096,7 +1318,7 @@ def full_width_inputs(fpt, co, nfa, schema, batches, keep=3):
     return rec_k1, rec_k2
 
 
-# -- phase 7: kernel timing on main-path inputs -------------------------------
+# -- phase 8: kernel timing on main-path inputs -------------------------------
 
 def bound_of(nbytes, ops, ops_per_s):
     """(bound ms, "bytes" or "operations"): the larger of the two times."""
@@ -1388,13 +1610,13 @@ def main():
     # 1. device
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/9] device: {kind} | nvidia-smi: {smi} | torch "
+    log(f"[1/10] device: {kind} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
 
     # 2. build
     build_s = co.build()
-    log(f"[2/9] build: {len(co.SOURCES)} kernel sources in "
+    log(f"[2/10] build: {len(co.SOURCES)} kernel sources in "
         f"{build_s:.2f} s")
     for name, out in co.LIBRARIES.build_log.items():
         for line in out.splitlines():
@@ -1404,14 +1626,14 @@ def main():
     # 3. kernels against their plain versions (synthetic inputs)
     gen = torch.Generator().manual_seed(7)
     gen_dev = torch.Generator(device=dev).manual_seed(7)
-    log("[3/9] kernels vs plain versions")
+    log("[3/10] kernels vs plain versions")
     err_k1 = check_reverse_cummin(co, dev, gen_dev)
     err_k2 = check_chain_advance(co, dev, gen_dev)
     err_k3, rel_k3 = check_unique_fold(co, dev, gen)
 
     # 4. headline end to end; record each kernel's inputs mid-run
     schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
-    log(f"[4/9] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
+    log(f"[4/10] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
         f"micro-batches of {BATCH}")
     rec_k1 = Recorder(co.multi_reverse_cummin, keep=10)
     rec_k2 = Recorder(co.chain_advance, keep=10)
@@ -1426,13 +1648,13 @@ def main():
     full_k1, full_k2 = full_width_inputs(fpt, co, nfa, schema, batches)
 
     # 5. filter end to end (no kernel on this path)
-    log("[5/9] filter")
+    log("[5/10] filter")
     end_to_end(fpt, co, "filter", FILTER, schema, batches,
                kernels_expected=())
 
     # 5b. both paths as bench.py runs them: its EngineConfig, the streaming
     # Job and ResidentReplay
-    log("[5b/9] bench main path: lazy projection + predicate pushdown, "
+    log("[5b/10] bench main path: lazy projection + predicate pushdown, "
         "streaming Job and ResidentReplay")
     bench_head = bench_main_path(fpt, co, "headline", HEADLINE, schema,
                                  batches, chain=True)
@@ -1441,7 +1663,7 @@ def main():
 
     # 6. the quote board end to end; record the fold's inputs of the
     # second micro-batch (calls 1 and 2 are the CPU check and the warm-up)
-    log(f"[6/9] quote board: {QUOTE_BATCHES * BATCH} events in "
+    log(f"[6/10] quote board: {QUOTE_BATCHES * BATCH} events in "
         f"{QUOTE_BATCHES} micro-batches of {BATCH}")
     rec_k3 = Recorder(co.unique_window_fold, keep=4)
     scan_windows.unique_window_fold = rec_k3
@@ -1450,8 +1672,21 @@ def main():
     finally:
         scan_windows.unique_window_fold = co.unique_window_fold
 
-    # 7. kernel timing on each path's own inputs
-    log("[7/9] kernels on their paths' inputs")
+    # 7. windows and aggregation: the bench's window_groupby and every other
+    # window class (no kernel on these paths)
+    log(f"[7/10] windows: window_groupby over {BATCH * N_BATCHES} events "
+        f"({N_IDS_WINDOW} ids), then {len(WINDOW_CLASSES)} window classes")
+    # in a process of its own: after this phase's traced rerun, the
+    # kernel timing's traces in the same process lost records
+    t_win = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--windows"], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"windows phase failed ({r.returncode})")
+    log(f"  windows phase {time.perf_counter() - t_win:.1f} s")
+
+    # 8. kernel timing on each path's own inputs
+    log("[8/10] kernels on their paths' inputs")
     if rec_k1.args is None or rec_k2.args is None or rec_k3.args is None:
         raise AssertionError("no kernel inputs recorded on the main paths")
     for rec, what in ((rec_k1, "main-path"), (full_k1, "full-width")):
@@ -1496,16 +1731,16 @@ def main():
             f"width {k['full_width']['ms']} ms, bound {k['bound_ms']}, "
             f"floor {floor_ms}")
 
-    # 8. where the quote board's time goes (after the kernel timing: a
+    # 9. where the quote board's time goes (after the kernel timing: a
     # profiler session after this traced run recorded no device time on
     # the card)
-    log("[8/9] quote board: where the time goes")
+    log("[9/10] quote board: where the time goes")
     breakdown(fpt, "quote_board", QUOTE_BOARD, qschema, qbatches,
               stream="StockStream", out="Board", sync_free=True)
     del qschema, qbatches
 
-    # 9. the API on the default device
-    log("[9/9] api")
+    # 10. the API on the default device
+    log("[10/10] api")
     api_check(fpt)
 
     torch.cuda.synchronize()
@@ -1598,7 +1833,23 @@ def ab(roots):
     return 0
 
 
+def windows_main():
+    """Phase 7 alone (``--windows``), run by ``main`` in a child process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    window_phase(fpt, co)
+    torch.cuda.synchronize()
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--windows"]:
+        sys.exit(windows_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-one":
         sys.exit(ab_one(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":

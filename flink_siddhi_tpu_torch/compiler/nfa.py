@@ -712,7 +712,7 @@ class ChainPatternArtifact:
     # are host-evaluated and shipped as packed mask bits ("@p:<i>" cols)
     pushed_preds: Tuple[int, ...] = ()
 
-    def emit_block_width(self, tape_capacity: int) -> int:
+    def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
         """Widest per-cycle emission block (drain-cadence contract)."""
         return tape_capacity + self.pool
 

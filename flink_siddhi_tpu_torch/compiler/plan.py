@@ -9,10 +9,12 @@ artifact contributing to ``step(states, tape) -> (states, outputs)``, run
 eagerly by torch on the plan's device.
 
 This port covers plain stream queries (filter / projection, also over a
-window), chain patterns, and ``#window.unique`` aggregation. Other windows
-and aggregation, joins, tables, partitions, query chaining and output rate
-limiting raise ``SiddhiQLError`` naming the later slice of the port
-(ROADMAP.md Queue 1); the JAX package ``flink_siddhi_tpu`` runs them.
+window), chain patterns, sliding, batch and cumulative aggregation with
+group-by and having, ``#window.unique``, ``#window.delay`` and
+``insert expired events``. Joins, tables, partitions, query chaining,
+``insert all events`` and output rate limiting raise ``SiddhiQLError``
+naming the later slice of the port (ROADMAP.md Queue 1); the JAX package
+``flink_siddhi_tpu`` runs them.
 """
 
 from __future__ import annotations
@@ -180,11 +182,10 @@ class CompiledPlan:
                     1, dest.unsqueeze(0).expand(src.shape[0], vlen), src
                 )
                 block = block[:, :vlen]
-            else:
-                raise ValueError(
-                    f"{a.name}: output mode {a.output_mode!r} is not in "
-                    "the torch port"
-                )
+            else:  # buffered: (count, ts, cols), emitted rows first
+                n, ts, cols = out
+                n = n.to(_I32)
+                block = torch.stack([as_i32(r) for r in (ts, *cols)])
             v = int(block.shape[1])
             n_true = n
             if v > cap:
@@ -346,12 +347,12 @@ def compile_plan(
         artifacts.append(art)
 
     # late materialization and wire predicate pushdown (opt-in), for a
-    # plan of one chain pattern or one select: projection-only columns
-    # stay host-side and host-evaluable filters ship as packed mask bits.
-    # (The reference's third case, window_wire_opts, is for sliding
-    # windows, which the port does not compile yet: item 6.)
+    # plan of one chain pattern, one select or one sliding window:
+    # projection-only columns stay host-side, host-evaluable filters ship
+    # as packed mask bits, and a window's group columns travel as codes
     from .nfa import ChainPatternArtifact, chain_wire_opts
     from .select import SelectArtifact, select_wire_opts
+    from .window import SlidingWindowArtifact, window_wire_opts
 
     device_columns = None
     host_preds = ()
@@ -363,9 +364,16 @@ def compile_plan(
             res = chain_wire_opts(artifacts[0], config)
         elif isinstance(artifacts[0], SelectArtifact):
             res = select_wire_opts(artifacts[0], config)
+        elif isinstance(artifacts[0], SlidingWindowArtifact):
+            res = window_wire_opts(artifacts[0], config)
         if res is not None:
             needed, host_preds = res
             device_columns = tuple(k for k in columns if k in needed)
+    # artifact-declared host-computed columns (#window.cron's per-event
+    # window ids: calendar math stays on the host)
+    host_preds = tuple(host_preds) + tuple(
+        hc for art in artifacts for hc in getattr(art, "host_columns", ())
+    )
     relevance = tuple(
         (a.name, a.relevance())
         for a in artifacts
@@ -376,7 +384,7 @@ def compile_plan(
         plan_id=plan_id,
         spec=TapeSpec(stream_codes, tuple(columns), column_types,
                       tuple(encoded), device_columns=device_columns,
-                      host_preds=tuple(host_preds), relevance=relevance),
+                      host_preds=host_preds, relevance=relevance),
         artifacts=artifacts,
         schemas=all_schemas,
         config=config,
@@ -396,11 +404,34 @@ def _compile_query(
         raise _later("'partition with'", 8)
     if q.output_action != "insert":
         raise _later(f"table {q.output_action}", 8)
-    if q.output_events != "current":
-        raise _later(f"'insert {q.output_events} events into'", 6)
+    if q.output_events == "all":
+        # the reference splits it into a current-events query and an
+        # expired one (its plan rewrite)
+        raise _later("'insert all events into'", 8)
     if q.output_rate is not None:
         raise _later("output rate limiting ('output ... every')", 9)
     inp = q.input
+    if (
+        isinstance(inp, ast.StreamInput)
+        and len(inp.windows) == 1
+        and inp.windows[0].name.split(".")[-1].lower() == "delay"
+        and q.output_events == "current"
+    ):
+        from .window import compile_delay_window
+
+        # #window.delay(t): events pass through t ms late — the emission
+        # schedule of a time window's EXPIRED stream (entry ts + span)
+        return compile_delay_window(
+            q, name, schemas, stream_codes, extensions, config
+        )
+    if q.output_events != "current":
+        from .window import compile_expired_window
+
+        # `insert expired events into`: emit events as they LEAVE the
+        # window
+        return compile_expired_window(
+            q, name, schemas, stream_codes, extensions, config
+        )
     if isinstance(inp, ast.StreamInput):
         has_agg = any(
             ast.contains_aggregate(i.expr) for i in q.selector.items
@@ -409,7 +440,7 @@ def _compile_query(
             from .window import compile_window_query
 
             return compile_window_query(
-                q, name, schemas, stream_codes, extensions
+                q, name, schemas, stream_codes, extensions, config
             )
         ref = inp.ref_name
         resolver = ExprResolver(
@@ -495,43 +526,45 @@ def state_from_numpy(plan: CompiledPlan, states_np: Dict, device,
     source plan's ``spec.encoded``, the form the JAX package's checkpoints
     keep them in — loads the group-key encoders first: a keyed table's
     size follows its encoder, and its slots follow the encoder's codes.
-    The per-artifact key sets must match the port's own ``init_state``;
-    every shape and dtype must match it after growth to the loaded
-    encoders."""
+    The per-artifact key sets (nested ones too, such as a window's
+    ``ring``) must match the port's own ``init_state``; every shape and
+    dtype must match it after growth to the loaded encoders."""
     device = torch.device(device)
     for enc in plan.spec.encoded:
         if encoders is None or enc.out_key not in encoders:
             raise KeyError(f"no encoder state for group key {enc.out_key!r}")
         enc.encoder.load_state_dict(encoders[enc.out_key])
     fresh = plan.grow_state(plan.init_state("cpu"))
+
+    def load(path: str, src, ref):
+        if isinstance(ref, dict):
+            if not isinstance(src, dict) or set(src) != set(ref):
+                raise KeyError(
+                    f"{path}: state keys "
+                    f"{sorted(src) if isinstance(src, dict) else src!r} "
+                    f"differ from the port's {sorted(ref)}"
+                )
+            return {k: load(f"{path}.{k}", src[k], v)
+                    for k, v in ref.items()}
+        t = torch.from_numpy(np.array(src))  # own, writable copy
+        if t.dtype != ref.dtype or t.shape != ref.shape:
+            raise ValueError(
+                f"{path}: {t.dtype}{tuple(t.shape)} differs from "
+                f"{ref.dtype}{tuple(ref.shape)}"
+            )
+        return t.to(device)
+
     out = {}
     for a in plan.artifacts:
         if a.name not in states_np:
             raise KeyError(f"no state for artifact {a.name!r}")
-        src = states_np[a.name]
-        if set(src) != set(fresh[a.name]):
-            raise KeyError(
-                f"{a.name}: state keys {sorted(src)} differ from the "
-                f"port's {sorted(fresh[a.name])}"
-            )
-        sub = {}
-        for k, ref in fresh[a.name].items():
-            arr = np.array(src[k])  # own, writable copy
-            t = torch.from_numpy(arr)
-            if t.dtype != ref.dtype or t.shape != ref.shape:
-                raise ValueError(
-                    f"{a.name}.{k}: {t.dtype}{tuple(t.shape)} differs "
-                    f"from {ref.dtype}{tuple(ref.shape)}"
-                )
-            sub[k] = t.to(device)
-        out[a.name] = sub
+        out[a.name] = load(a.name, states_np[a.name], fresh[a.name])
     return out
 
 
 def state_to_numpy(states: Dict) -> Dict:
     """The inverse of ``state_from_numpy``: every tensor fetched to the
-    host as a numpy array."""
-    return {
-        name: {k: v.detach().cpu().numpy() for k, v in sub.items()}
-        for name, sub in states.items()
-    }
+    host as a numpy array, nested dicts kept."""
+    if isinstance(states, dict):
+        return {k: state_to_numpy(v) for k, v in states.items()}
+    return states.detach().cpu().numpy()

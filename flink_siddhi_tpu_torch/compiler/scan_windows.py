@@ -44,16 +44,9 @@ from .cuda_ops import (
 from .expr import ColumnEnv, ExprResolver, as_column, compile_expr
 from .output import OutputField, OutputSchema
 from .plan import _later
-from .window import _Agg, _group_encoding, _SlotResolver
+from .window import _Agg, _bucket, _group_encoding, _SlotResolver
 
 _MIN_UNIQUE_CAPACITY = 128
-
-
-def _bucket(n: int, minimum: int) -> int:
-    b = minimum
-    while b < max(n, 1):
-        b *= 2
-    return b
 
 
 @dataclass

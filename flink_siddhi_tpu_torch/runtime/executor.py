@@ -453,7 +453,7 @@ class Job:
             rt.acc_dirty = True
             if rt.dirty_since is None:
                 rt.dirty_since = time.monotonic()
-            self._update_drain_hint(rt.plan, tape.capacity)
+            self._update_drain_hint(rt, tape.capacity)
 
     def _stage_tape(self, rt: _PlanRuntime,
                     involved: List[EventBatch]) -> WireTape:
@@ -542,15 +542,17 @@ class Job:
             lcols["@ts"] = tcol
         return lcols
 
-    def _update_drain_hint(self, plan: CompiledPlan,
+    def _update_drain_hint(self, rt: _PlanRuntime,
                            tape_capacity: int) -> None:
         """Capacity-bounding drain cadence: each artifact declares its
-        widest per-cycle emission block; a drain empties the accumulator,
+        widest per-cycle emission block (from its state: a batch window
+        flushes its whole group grid); a drain empties the accumulator,
         so no overflow requires (k+1)*block <= cap, with the reference's
         /2 safety margin."""
+        plan = rt.plan
         block = max(
             (
-                a.emit_block_width(tape_capacity)
+                a.emit_block_width(tape_capacity, rt.states.get(a.name))
                 if hasattr(a, "emit_block_width")
                 else tape_capacity
                 for a in plan.artifacts
@@ -629,22 +631,28 @@ class Job:
         rt.dirty_since = None
 
     def _decode_outputs(self, rt: _PlanRuntime, outputs: Dict) -> None:
-        """Decode step/flush outputs fetched straight from the device (the
-        end-of-stream flush path; packed artifacts only)."""
+        """Decode flush outputs fetched straight from the device (the
+        end-of-stream flush path): packed blocks, and the buffered
+        ``(count, ts, cols)`` of batch and expired windows."""
         for a in rt.plan.artifacts:
             if a.name not in outputs:
                 continue
-            count, block = outputs[a.name][0], outputs[a.name][1]
-            n = int(count)
+            out = outputs[a.name]
+            n = int(out[0])
             if n == 0:
                 continue
-            if getattr(a, "wants_lookup", False):
+            if a.output_mode == "buffered":
+                _, ts, cols = out
+                decoded = [(a.output_schema, a.output_schema.decode_buffered(
+                    n, ts.cpu().numpy(), [c.cpu().numpy() for c in cols]
+                ))]
+            elif getattr(a, "wants_lookup", False):
                 decoded = a.decode_packed(
-                    n, block.cpu().numpy(),
+                    n, out[1].cpu().numpy(),
                     lookup=rt.lazy.lookup if rt.lazy is not None else None,
                 )
             else:
-                decoded = a.decode_packed(n, block.cpu().numpy())
+                decoded = a.decode_packed(n, out[1].cpu().numpy())
             for schema, rows in decoded:
                 self._emit_rows(schema, rows)
 

@@ -45,6 +45,13 @@ from .executor import Job, _PlanRuntime
 from .tape import WireTape
 
 
+def _clone(tree):
+    """A copy of a (nested) dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 class ResidentReplay:
     """One bounded run of a ``Job`` with device-resident input.
 
@@ -99,7 +106,7 @@ class ResidentReplay:
         emissions (there is no mid-segment drain), so reuse the streaming
         drain-hint bound — widest per-cycle emission block, halved
         capacity safety margin."""
-        self.job._update_drain_hint(rt.plan, capacity)
+        self.job._update_drain_hint(rt, capacity)
         return max(1, self.job._drain_hints[rt.plan.plan_id])
 
     def _plan_wires(self, rt: _PlanRuntime, ready_sets) -> Optional[List]:
@@ -149,11 +156,8 @@ class ResidentReplay:
         # one warm step on cloned state and accumulator: the kernels'
         # build and first launches, and the caching allocator's first
         # blocks, land here instead of in the timed run
-        warm_states = {
-            name: {key: t.clone() for key, t in sub.items()}
-            for name, sub in rt.states.items()
-        }
-        warm_acc = {key: t.clone() for key, t in rt.acc.items()}
+        warm_states = _clone(rt.states)
+        warm_acc = _clone(rt.acc)
         rt.plan.step_acc(warm_states, warm_acc, tapes[0])
         return [tapes[i:i + k] for i in range(0, len(tapes), k)]
 

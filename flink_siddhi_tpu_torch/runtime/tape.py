@@ -62,11 +62,16 @@ class HostPred:
 
     Wire predicate pushdown: ``fn`` maps a dict of merged-order host
     columns (raw host dtypes — f64 for DOUBLE) to a bool mask that ships
-    as ONE BIT per event."""
+    as ONE BIT per event. With ``dtype`` set to an integer type it is a
+    host-computed VALUE column instead (``#window.cron``'s per-event
+    window index: calendar math stays on the host), narrowed on the wire
+    like any int column. A ref of ``"@ts"`` reads the merged-order
+    absolute event timestamps (int64 ms)."""
 
     out_key: str  # "@p:<n>" pseudo-column the device reads
     fn: object  # Dict[str, np.ndarray] -> np.ndarray
     refs: Tuple[str, ...]
+    dtype: object = np.bool_
 
 
 @dataclass(frozen=True)
@@ -574,6 +579,9 @@ def build_host_tape(
         henv: Dict[str, np.ndarray] = {}
         ref_keys = {k for hp in spec.host_preds for k in hp.refs}
         for key in ref_keys:
+            if key == "@ts":  # merged-order absolute timestamps
+                henv[key] = ts_sorted[:total]
+                continue
             stream_id, fname = key.split(".", 1)
             vals = _merged_stream_values(
                 batches, stream_id, fname, total, order, identity
@@ -585,9 +593,9 @@ def build_host_tape(
             )
         for hp in spec.host_preds:
             res = np.broadcast_to(
-                np.asarray(hp.fn(henv), dtype=np.bool_), (total,)
+                np.asarray(hp.fn(henv), dtype=hp.dtype), (total,)
             )
-            col = np.zeros(cap, dtype=np.bool_)
+            col = np.zeros(cap, dtype=hp.dtype)
             col[:total] = res
             cols[hp.out_key] = col
 

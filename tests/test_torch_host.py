@@ -53,7 +53,7 @@ _COPIED = [
     "schema/stream_schema.py", "schema/batch.py", "schema/encoders.py",
     "query/__init__.py", "query/lexer.py", "query/ast.py",
     "query/parser.py", "query/planner.py",
-    "compiler/config.py", "compiler/output.py",
+    "compiler/config.py", "compiler/output.py", "utils/cron.py",
 ]
 
 
@@ -198,7 +198,9 @@ def test_cpu_run_builds_no_kernel():
 _OUTSIDE_SLICE = sorted(
     set(PLAN_ZOO) - {"filter_select", "chain_pattern",
                      "chain_pattern_within", "pattern_absence",
-                     "multiquery_stack6", "unique_window", "sort_window"}
+                     "multiquery_stack6", "unique_window", "sort_window",
+                     "length_window_agg", "time_window_groupby",
+                     "timebatch_window", "expired_events"}
 )
 
 
@@ -214,21 +216,26 @@ def test_zoo_plans_outside_the_slice_raise(name):
         fpt.compile_plan(PLAN_ZOO[name], schemas)
 
 
-def test_engine_config_wire_options_raise():
+def test_engine_config_wire_options_leave_raw_group_column_off():
     # the wire options compile for a plan of one select (and one chain,
-    # tests/test_torch_replay.py); their window case (the reference's
-    # window_wire_opts, over sliding windows) still raises, naming item 6
+    # tests/test_torch_replay.py); over a grouped sliding window, lazy
+    # projection ships the group's code in place of its raw column (the
+    # reference's window_wire_opts), and pushdown alone changes nothing
     schema = fpt.StreamSchema([("id", "int"), ("v", "int")])
     for opt in ("lazy_projection", "pred_pushdown"):
         cfg = EngineConfig(**{opt: True})
         plan = fpt.compile_plan("from S[id == 1] select v insert into o",
                                 {"S": schema}, config=cfg)
         assert plan.spec.device_columns is not None
-        with pytest.raises(SiddhiQLError, match="item 6"):
-            fpt.compile_plan(
-                "from S[id == 1]#window.length(4) select sum(id) as s "
-                "insert into o", {"S": schema}, config=cfg,
-            )
+        plan = fpt.compile_plan(
+            "from S[v > 0]#window.length(4) select id, sum(v) as s "
+            "group by id insert into o", {"S": schema}, config=cfg,
+        )
+        if opt == "lazy_projection":
+            assert plan.spec.device_columns == ("S.v",)
+            assert plan.artifacts[0].group_code_proj == (0, None)
+        else:
+            assert plan.spec.device_columns is None
 
 
 def test_state_from_numpy_rejects_mismatched_state():

@@ -4,13 +4,16 @@ the JAX package: ``EngineConfig(lazy_projection=True, pred_pushdown=True)``
 columns resolved through the host's lazy ring), driven by the streaming
 ``Job`` and by ``ResidentReplay``.
 
-Inputs: the bench's headline, filter and pattern2 queries and the zoo's
-chain_pattern, chain_pattern_within and pattern_absence plans, over the
-bench's stream shape (numpy, seeded) at 65,536 events and batch 8,192, so
-the chain matcher's relevance compaction is on (E >= 4,096). Rows are
+Inputs: the bench's headline, filter, pattern2 and window_groupby queries
+and the zoo's chain_pattern, chain_pattern_within and pattern_absence
+plans, over the bench's stream shape (numpy, seeded) at 65,536 events and
+batch 8,192, so the chain matcher's relevance compaction is on (E >=
+4,096); window_groupby draws 1,000 ids, as bench.py does for it. Rows are
 compared exactly, timestamps and order included: pushed predicates run in
 float64 on the host in both packages, and lazy values come from the same
-host columns.
+host columns. window_groupby's float sums are held within rtol 1e-5, or
+to a float64 oracle (``tests/torch_windows_common.py:assert_rows``): the
+two packages add them in another order.
 
 Also covered: ``rerun()`` counts, the lazy ring's eviction (None rows and
 the ``missed`` count) against the reference's, and the chain matcher's
@@ -41,6 +44,8 @@ from flink_siddhi_tpu_torch.runtime.replay import (
     ShardedResidentReplay,
 )
 
+from torch_windows_common import assert_rows, last, stats, window_oracle
+
 torch.set_num_threads(2)
 
 BATCH = 8192
@@ -67,7 +72,12 @@ CASES = {
     "chain_pattern": (PLAN_ZOO["chain_pattern"], "S", "out"),
     "chain_pattern_within": (PLAN_ZOO["chain_pattern_within"], "S", "out"),
     "pattern_absence": (PLAN_ZOO["pattern_absence"], "S", "out"),
+    "window_groupby": ("from inputStream#window.length(1000) select id, "
+                       "sum(price) as total, count() as cnt group by id "
+                       "insert into matches", "inputStream", "matches"),
 }
+# ids the stream draws from, per case (bench.py: 1,000 for window_groupby)
+_N_IDS = {"window_groupby": 1000}
 _PKGS = {
     "jax": (JaxSchema, JaxBatch, JaxSource, jax_compile, JaxJob, JaxConfig,
             JaxReplay, {}),
@@ -126,16 +136,30 @@ def _resident(pkg, cql, data, stream, out, **config):
     return job.results_with_ts(out), job
 
 
+def _assert_same_rows(case, got, ref, data):
+    assert len(ref) >= 100
+    if case != "window_groupby":
+        assert got == ref
+        return
+    f = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    oracle = window_oracle(f, np.ones(len(f["id"]), bool), last(1000),
+                           stats(f, "price")[0])
+    assert_rows(got, ref, {1: oracle})
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_streaming_rows_match_jax(case):
     cql, stream, out = CASES[case]
-    data = _columns(50)
+    data = _columns(_N_IDS.get(case, 50))
     ref, _ = _streaming("jax", cql, data, stream, out, **BENCH)
     got, tjob = _streaming("torch", cql, data, stream, out, **BENCH)
-    assert len(ref) >= 100
-    assert got == ref
+    _assert_same_rows(case, got, ref, data)
     plan = tjob._plans["p"].plan
-    assert plan.spec.host_preds  # every case pushes its filters
+    if case == "window_groupby":
+        # no filter to push; the id travels as its group code only
+        assert plan.spec.device_columns == ("inputStream.price",)
+        return
+    assert plan.spec.host_preds  # every other case pushes its filters
     # the wire carries predicate bits and the columns the device needs
     assert plan.spec.device_columns is not None
 
@@ -143,20 +167,22 @@ def test_streaming_rows_match_jax(case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_resident_rows_match_jax_and_streaming(case):
     cql, stream, out = CASES[case]
-    data = _columns(50)
+    data = _columns(_N_IDS.get(case, 50))
     ref, _ = _resident("jax", cql, data, stream, out, **BENCH)
     got, tjob = _resident("torch", cql, data, stream, out, **BENCH)
     streamed, _ = _streaming("torch", cql, data, stream, out, **BENCH)
-    assert len(ref) >= 100
-    assert got == ref
+    _assert_same_rows(case, got, ref, data)
     assert got == streamed
-    assert tjob._plans["p"].lazy.missed == 0
+    # a window's rows decode through its encoder, not a lazy ring
+    lazy = tjob._plans["p"].lazy
+    assert lazy.missed == 0 if case != "window_groupby" else lazy is None
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_rerun_counts_equal_run(case):
     cql, stream, out = CASES[case]
-    job = _job("torch", cql, _columns(50), stream, retain=False, **BENCH)
+    job = _job("torch", cql, _columns(_N_IDS.get(case, 50)), stream,
+               retain=False, **BENCH)
     rep = ResidentReplay(job)
     rep.stage()
     rep.run()

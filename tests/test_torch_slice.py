@@ -11,8 +11,10 @@ columns identically on both sides, and projections copy float32 values.
 Covered: the bench's filter, headline and pattern2 queries at batch 8,192
 (the relevance-compacted branch of the chain matcher) and on a stream dense
 enough to force its full-width branch; the zoo plans filter_select,
-chain_pattern, chain_pattern_within, pattern_absence, and the plain
-projections over unique_window and sort_window; partials carried
+chain_pattern, chain_pattern_within, pattern_absence, the plain
+projections over unique_window and sort_window, and the window zoo plans
+length_window_agg, time_window_groupby, timebatch_window and
+expired_events; partials carried
 across micro-batch boundaries; the pool overflow counter; non-every and
 timed-absence patterns (incl. the end-of-stream flush); event-time mode
 through the fluent API; and engine state carried from the JAX plan into
@@ -40,6 +42,8 @@ import flink_siddhi_tpu_torch as fpt
 from flink_siddhi_tpu_torch.compiler.config import EngineConfig as TorchConfig
 from flink_siddhi_tpu_torch.compiler.plan import state_to_numpy
 from flink_siddhi_tpu_torch.runtime.tape import build_tape as torch_build_tape
+
+from torch_windows_common import assert_rows
 
 torch.set_num_threads(2)
 
@@ -136,15 +140,24 @@ def test_headline_dense_stream_takes_full_width_branch():
 
 
 _ZOO_SLICE = ["filter_select", "chain_pattern", "chain_pattern_within",
-              "pattern_absence", "unique_window", "sort_window"]
+              "pattern_absence", "unique_window", "sort_window",
+              "length_window_agg", "time_window_groupby", "timebatch_window",
+              "expired_events"]
+_ZOO_AGGREGATES = {"length_window_agg", "time_window_groupby",
+                   "timebatch_window"}
 
 
 @pytest.mark.parametrize("name", _ZOO_SLICE)
 def test_zoo_plans_match_jax(name):
     data = _columns(2 * 8192, 8192, 10, seed=3,
                     names=("alpha", "beta", "gamma"))
-    _assert_same(PLAN_ZOO[name], data, 8192, stream="S", out="out",
-                 names=("alpha", "beta", "gamma"), min_rows=10)
+    kw = dict(stream="S", out="out", names=("alpha", "beta", "gamma"))
+    if name not in _ZOO_AGGREGATES:
+        _assert_same(PLAN_ZOO[name], data, 8192, min_rows=10, **kw)
+        return
+    ref, _ = _run("jax", PLAN_ZOO[name], data, 8192, **kw)
+    got, _ = _run("torch", PLAN_ZOO[name], data, 8192, **kw)
+    assert_rows(got, ref, min_rows=4)
 
 
 def test_partials_carry_across_batch_boundaries():

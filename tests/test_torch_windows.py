@@ -272,9 +272,14 @@ _LATER = {
         "from StockStream#window.unique(symbol) "
         "select sum(volume) as v, max(volume) as m insert into Board"
     ),
-    "length_window": (
+    "partitioned_length_window": (
+        "partition with (symbol of StockStream) begin "
         "from StockStream#window.length(16) "
-        "select sum(price) as s insert into Board"
+        "select symbol, sum(price) as s insert into Board; end"
+    ),
+    "output_rate_limit": (
+        "from StockStream#window.length(16) select sum(price) as s "
+        "output last every 5 events insert into Board"
     ),
     "more_aggregates_than_the_fold_plan": (
         "from StockStream#window.unique(symbol) select "
