@@ -18,12 +18,15 @@ fault:
    main paths use and at edge shapes — the reverse cummin exactly (int32)
    at E from 1 to 2^24 (more tiles than can be resident, so the look-back
    must progress), with and without the pad column, over random,
-   all-INT_MAX, ascending, descending and full-range rows, and over 1,000
-   back-to-back calls; the chain advance exactly on headline-shaped inputs
+   all-INT_MAX, ascending, descending and full-range rows, over 1,000
+   back-to-back calls, and at a stack's shapes (64 rows of 8,192 and of
+   131,072 events); the chain advance exactly on headline-shaped inputs
    whose gathers are local (each fresh start searching from the next
    position) and on inputs with random positions, with padded and
    contiguous table rows, V = 0 (no kernel on the card), E = 0 and a
-   `within` that wraps int32; the unique-window fold (NaN-aware) with its
+   `within` that wraps int32, and with its query axis (Q = 1 and Q = 64,
+   a `within` per query or one for all, guards, E = 0, V = 0) against
+   its batched plain version; the unique-window fold (NaN-aware) with its
    table bitwise equal, NaN at the same places, counts, minima and maxima
    exact and its sums and averages within rtol 1e-4, also with NaN, +inf
    and -inf values, a hot key, no event masked, codes past both ends,
@@ -68,19 +71,31 @@ fault:
    externalTime, timeLength, cumulative group-by, lengthBatch, timeBatch
    group-by, externalTimeBatch, cron, expired events over length and time
    windows, delay, and an INT sum that wraps int32 (exact);
-8. kernels: each kernel timed on the inputs it was given on its path — its
+8. multiquery64 (in a process of its own, `--multiquery OUT`): the bench's
+   64 two-step chains (query q from id q mod 50 to id (7q + 1) mod 50,
+   each into its own stream) compiled to one stacked artifact stepping
+   131,072-event windows, as phase 5b runs the bench main path: streaming
+   rows of the first 1,048,576 events held to the CPU path in all 64
+   streams, host syncs only the drains', ResidentReplay counts-only with
+   both chain kernels launched once per step (80 a run) and no compaction
+   read, reruns, wire bytes, peak memory, a traced rerun's idle share and
+   one segment (two steps) under sync debug mode "error"; then one step on
+   the stack's full-width branch (its peak memory, its rows equal to the
+   compacted branch's). The chain kernels' stacked inputs go to phase 9;
+9. kernels: each kernel timed on the inputs it was given on its path — its
    device time (profiler trace; for the unique fold CUDA events over 25
    back-to-back calls and each stage kernel's traced device time) and its
    per-call time (CUDA events, median) — beside its plain version, the
    library call that computes the same function where there is one, its
    bound and the launch floor (an empty kernel's device time). The reverse
    cummin and the chain advance also at full width (the headline's own
-   524,288-event tapes with relevance compaction off), and their kernel
-   launches per call counted in a profiler trace (each must be 1);
-9. where the quote board's time goes: tape staging, device steps (under
+   524,288-event tapes with relevance compaction off) and at multiquery64's
+   stacked shapes (held exactly to their plain versions first), and their
+   kernel launches per call counted in a profiler trace (each must be 1);
+10. where the quote board's time goes: tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
    run) and a profiler-traced run for the card's idle share;
-10. api: the README's quick start, pattern and quote board through
+11. api: the README's quick start, pattern and quote board through
    SiddhiCEP on the default device, checked against the CPU.
 
 The last line is {"ok": true, "device": {...}}; the kernels' JSON line and
@@ -100,10 +115,21 @@ as that checkout's chain core builds it, with device and call time on the
 headline's inputs of that checkout.
 Give the two versions as A B B A, so that drift of the card or the host
 during the call shows.
+
+    python3 chip_smoke.py --ab-multiquery DIR [DIR ...]
+
+runs multiquery64 resident (counts-only, bench settings, this file's
+stream) with the package of each checkout, each in a process of its own,
+and prints one JSON line per checkout: its artifacts, steps, stage
+seconds, rerun seconds, events/s and host syncs, and the bench headline
+resident: the seconds and events/s of HEADLINE_RERUNS untraced reruns, and
+its device records and host torch ops per step (a traced rerun). Give the
+checkouts as A B B A here too.
 """
 
 import dataclasses
 import inspect
+import itertools
 import json
 import os
 import statistics
@@ -122,6 +148,7 @@ WINDOW_CLASS_BATCHES = 4  # micro-batches of each other window class
 MATRIX_BATCH = 65_536  # the matrix path's batch: [E, C] windows per column
 WINDOW_RTOL = 1e-5  # float sums and averages, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+L2_BYTES = 50 * 2**20  # H100 SXM L2, same source
 INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
 F32_OPS_PER_S = 67e12  # non-tensor-core float32 rate, same source
 QUOTE_BATCHES = 20  # the quote board's stream: 20 x 524,288 events
@@ -129,6 +156,10 @@ QUOTE_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
 N_SYMBOLS = 10_000
 FOLD_RTOL = 1e-5  # sums: the kernel's fp64 scan vs the plain float32 fold
 AB_REPEATS = 3  # full runs of each path per checkout with --ab
+HEADLINE_RERUNS = 15  # resident headline reruns per checkout, --ab-multiquery
+# phase 8's result and recorded kernel inputs, in the ignored build tree
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "smoke")
 
 HEADLINE = (
     "from every s1 = inputStream[id == 1] -> s2 = inputStream[id == 2] -> "
@@ -151,6 +182,16 @@ WINDOW_GROUPBY = (
     "from inputStream#window.length(1000) select id, sum(price) as total, "
     "count() as cnt group by id insert into matches"
 )
+# bench.py's multiquery64: 64 two-step chains, query q from id q mod 50
+# to id (7q + 1) mod 50, each into its own stream m<q>
+MULTIQUERY64 = "; ".join(
+    f"from every s1 = inputStream[id == {q % 50}] -> "
+    f"s2 = inputStream[id == {(q * 7 + 1) % 50}] "
+    f"select s1.timestamp as t1, s2.timestamp as t2 insert into m{q}"
+    for q in range(64)
+)
+MQ_OUTS = tuple(f"m{q}" for q in range(64))
+MQ_STEP_EVENTS = 131_072  # a stack of 16 or more queries steps this wide
 
 
 def log(*a):
@@ -191,6 +232,13 @@ def device_activity(prof):
     return busy, per_name
 
 
+def device_records(prof):
+    """The number of kernel and copy records on the card in a trace."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def timed(fn, runs=25, warmup=3, attempts=5):
     """(device ms per call, call ms). Device ms: the summed duration of the
     card's records in a trace of ``runs`` calls (``kernel_records``; one
@@ -223,6 +271,24 @@ def timed(fn, runs=25, warmup=3, attempts=5):
         log(f"  trace of {runs} calls holds {n} device records; again")
     raise RuntimeError(f"no trace of {runs} calls held a whole number of "
                        "device records per call")
+
+
+def rotating(fn, args):
+    """A zero-argument call of ``fn`` that cycles through copies of
+    ``args``, enough that a call's inputs were last touched more than four
+    L2 sizes of other inputs ago (up to 64 copies): a timed call then
+    reads them from HBM, as the byte bound assumes, and not from the L2
+    that the call before left them in. Inputs under L2_BYTES / 64 fit in
+    the L2 with all their copies and stay there, as they do on the path."""
+    import torch
+
+    size = sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+    n = max(1, min(64, -(-4 * L2_BYTES // max(size, 1)) + 1))
+    sets = [tuple(args)] + [tuple(keep_copy(a) for a in args)
+                            for _ in range(n - 1)]
+    sets = itertools.cycle(sets)
+    return lambda: fn(*next(sets))
 
 
 def timed_back_to_back(fn, runs, warmup=1):
@@ -319,6 +385,7 @@ def same(a, b, what):
 INT_MAX = 2 ** 31 - 1
 K1_SHAPES_E = (1, 3, 1_023, 1_025, 4_097, 65_536, 70_001, 524_288, 1 << 24)
 K1_REPEATS = 1_000
+K1_STACKED_SHAPES = ((64, 8_192), (64, 131_072))
 
 
 def special_rows(C, E, dev, gen):
@@ -361,6 +428,16 @@ def check_reverse_cummin(co, dev, gen):
             del inputs
             log(f"  reverse_cummin C={C} E={E}: exact (matcher and special "
                 "rows, pad on and off)")
+    # a stack's table build: one row per member query (multiquery64: 64
+    # members, a 8,192-event compacted window; 131,072 at full width)
+    for C, E in K1_STACKED_SHAPES:
+        x = torch.randint(0, E + 1, (C, E), generator=gen, device=dev,
+                          dtype=torch.int32)
+        got = co.multi_reverse_cummin(x, pad=E)
+        torch.cuda.synchronize()
+        err = max(err, same(got, co.reverse_cummin_plain(x, E),
+                            f"reverse_cummin stacked C={C} E={E}"))
+        log(f"  reverse_cummin stacked C={C} E={E}: exact (pad on)")
     E = 65_536
     xs = [torch.randint(0, E + 1, (2, E), generator=gen, device=dev,
                         dtype=torch.int32) for _ in range(4)]
@@ -471,6 +548,91 @@ def check_chain_advance(co, dev, gen):
             records = kernel_records(lambda: co.chain_advance(*args), runs=5)
             if records:
                 raise AssertionError(f"chain_advance V=0 ran {records}")
+            note = ", no kernel on the card"
+        log(f"  chain_advance {name}: exact{note}")
+    return err
+
+
+def stacked_chain_inputs(co, dev, gen, Q, K, n_guards, E=8_192, P=1024,
+                         density=0.05, local=True):
+    """Q queries' candidate sets as a stack's step gives them to the
+    advance: one reverse cummin over every query's rows (a padded
+    ``[Q * R, E + 1]`` table, each query's R rows together), each query's
+    own ts row ``[Q, E + 1]`` and candidates ``[Q, V]``; ``local`` as in
+    ``chain_inputs``, else random positions, steps and starts."""
+    import torch
+
+    R = K - 1 + n_guards
+    hits = torch.rand((Q * R, E), generator=gen, device=dev) < density
+    idx = torch.where(hits, torch.arange(E, dtype=torch.int32, device=dev),
+                      E).to(torch.int32)
+    nxt = co.multi_reverse_cummin(idx, pad=E)
+    V = P + E
+    ts = torch.cumsum(torch.randint(0, 40, (Q, E), generator=gen,
+                                    device=dev), 1).to(torch.int32)
+    ts_pad = torch.cat([ts, torch.zeros((Q, 1), dtype=torch.int32,
+                                        device=dev)], 1)
+    act = torch.rand((Q, V), generator=gen, device=dev) < 0.5
+    if local:
+        step = torch.ones((Q, V), dtype=torch.int32, device=dev)
+        pos = torch.cat([torch.zeros((Q, P), dtype=torch.int32, device=dev),
+                         torch.arange(1, E + 1, dtype=torch.int32,
+                                      device=dev).expand(Q, E)], 1)
+        start = torch.cat([torch.zeros((Q, P), dtype=torch.int32,
+                                       device=dev), ts], 1)
+    else:
+        step = torch.randint(1, K, (Q, V), generator=gen, device=dev,
+                             dtype=torch.int32)
+        pos = torch.randint(0, E + 1, (Q, V), generator=gen, device=dev,
+                            dtype=torch.int32)
+        start = torch.randint(0, max(int(ts.max()), 0) + 1, (Q, V),
+                              generator=gen, device=dev, dtype=torch.int32)
+    return nxt, ts_pad, act, step, pos, start
+
+
+def check_stacked_chain_advance(co, dev, gen):
+    """The advance with a query axis, exact against its batched plain
+    version: Q = 1 and Q = 64 (multiquery64's step shape), a `within`
+    per query (an int32 [Q] on the card) or one for all, guards, random
+    positions, E = 0, and V = 0 (no kernel on the card)."""
+    import torch
+
+    err = 0
+    cases = [
+        # (name, Q, K, guard rows per step 1..K-1, within, input kwargs)
+        ("Q=1, within per query", 1, 2, [[]], "per-query", {}),
+        ("Q=64 multiquery64-shaped, no within", 64, 2, [[]], None, {}),
+        ("Q=64, within per query", 64, 2, [[]], "per-query", {}),
+        ("Q=64 K=3, a guard, one within, random pos", 64, 3, [[], [2]],
+         3000, dict(local=False)),
+        ("Q=5 K=4, guards, within per query, random pos", 5, 4,
+         [[3], [], [4]], "per-query", dict(local=False, E=4_096, P=64)),
+        ("Q=3 E=0", 3, 2, [[]], None, dict(E=0, P=100)),
+        ("Q=64 V=0", 64, 2, [[]], None, dict(E=1000, P=0)),
+    ]
+    for name, Q, K, guards, within, kw in cases:
+        n_guards = sum(len(g) for g in guards)
+        nxt, ts_pad, act, step, pos, start = stacked_chain_inputs(
+            co, dev, gen, Q, K, n_guards, **kw
+        )
+        if name.endswith("V=0"):
+            act, step, pos, start = (t[:, :0] for t in (act, step, pos,
+                                                        start))
+        if within == "per-query":
+            within = torch.randint(100, 20_000, (Q,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        args = (nxt, list(range(K - 1)), guards, ts_pad, act, step, pos,
+                start, within)
+        got = co.chain_advance(*args)
+        ref = co.chain_advance_plain(*args)
+        torch.cuda.synchronize()
+        for g, r, what in zip(got, ref, ("act", "step", "pos", "jmat")):
+            err = max(err, same(g, r, f"chain_advance {name} {what}"))
+        note = ""
+        if name.endswith("V=0"):
+            records = kernel_records(lambda: co.chain_advance(*args), runs=5)
+            if records:
+                raise AssertionError(f"chain_advance {name} ran {records}")
             note = ", no kernel on the card"
         log(f"  chain_advance {name}: exact{note}")
     return err
@@ -818,8 +980,13 @@ def rows_match(got, ref, rtol, what):
     return worst
 
 
+def stream_rows(job, outs):
+    """Every output stream's rows (with timestamps) of a job."""
+    return {o: job.results_with_ts(o) for o in outs}
+
+
 def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
-                    expect_rows=None):
+                    expect_rows=None, outs=("matches",)):
     """One path as bench.py runs it: EngineConfig(lazy_projection=True,
     pred_pushdown=True) over the whole stream, through the streaming Job
     (rows of the first micro-batches held to the CPU path under the same
@@ -832,7 +999,8 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     chain kernels must launch once per compacted step, and every step must
     have been compacted on the host-known bound (no read). Floats of the
     rows are held to the CPU path within ``rtol`` (0: exactly); with
-    ``expect_rows`` the run must emit that many rows."""
+    ``expect_rows`` the run must emit that many rows. Every stream of
+    ``outs`` is checked; counts are summed over them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -840,16 +1008,25 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     check = batches[:CHECK_BATCHES]
     n_events = sum(len(b) for b in batches)
     last_ts = int(check[-1].timestamps[-1])
-    cpu_rows, cpu_s, _ = run_job(fpt, cql, schema, check, "cpu", config=cfg)
-    run_job(fpt, cql, schema, check, "cuda", config=cfg)  # warm-up
+    _, cpu_s, cpu_job = run_job(fpt, cql, schema, check, "cpu",
+                                out=outs[0], config=cfg)
+    cpu_rows = stream_rows(cpu_job, outs)
+    del cpu_job
+    run_job(fpt, cql, schema, check, "cuda", out=outs[0],
+            config=cfg)  # warm-up
 
     # the streaming Job over the whole stream, rows kept
-    rows, wall, job = run_job(fpt, cql, schema, batches, "cuda", config=cfg)
-    max_rel = rows_match(
-        [r for r in rows if r[0] <= last_ts], cpu_rows, rtol,
-        f"{name}: streaming rows of the first "
-        f"{sum(len(b) for b in check)} events against the CPU path",
-    )
+    _, wall, job = run_job(fpt, cql, schema, batches, "cuda", out=outs[0],
+                           config=cfg)
+    rows = stream_rows(job, outs)
+    max_rel = 0.0
+    for o in outs:
+        max_rel = max(max_rel, rows_match(
+            [r for r in rows[o] if r[0] <= last_ts], cpu_rows[o], rtol,
+            f"{name}: streaming rows of {o} of the first "
+            f"{sum(len(b) for b in check)} events against the CPU path",
+        ))
+    n_rows = sum(len(r) for r in rows.values())
     rt = job._plans["bench"]
     if rt.lazy is not None and rt.lazy.missed:
         raise AssertionError(f"{name}: {rt.lazy.missed} lazy misses")
@@ -858,7 +1035,7 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
             f"{name}: {job.host_syncs} host syncs, {job.drain_syncs} of "
             "them drain fetches"
         )
-    streaming = {"rows": len(rows), "wall_s": wall,
+    streaming = {"rows": n_rows, "wall_s": wall,
                  "events_per_s": n_events / wall,
                  "host_syncs": job.host_syncs,
                  "drain_syncs": job.drain_syncs}
@@ -886,15 +1063,13 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = co.launch_counts()
-    count = job.emitted_counts.get("matches", 0)
+    count = sum(job.emitted_counts.values())
     if count != streaming["rows"] or count != (expect_rows or count):
         raise AssertionError(f"{name}: resident run emitted {count} rows, "
                              f"the streaming run {streaming['rows']}")
     if chain:
-        from flink_siddhi_tpu_torch.compiler.nfa import _compact_width
-
-        R = _compact_width(BATCH)
-        compacted = sum(t.bounds[art.name] <= R for t in tapes)
+        compacted = sum(t.bounds[art.name] <= art.compact_width(t.capacity)
+                        for t in tapes)
         if compacted != len(tapes) or art.host_syncs != syncs0:
             raise AssertionError(f"{name}: {compacted} of {len(tapes)} "
                                  "steps compacted without a read")
@@ -906,9 +1081,9 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
                 )
     reruns = []
     for _ in range(3):
-        before = job.emitted_counts["matches"]
+        before = sum(job.emitted_counts.values())
         reruns.append(rep.rerun())
-        if job.emitted_counts["matches"] - before != count:
+        if sum(job.emitted_counts.values()) - before != count:
             raise AssertionError(f"{name}: a rerun emitted another count")
     peak = torch.cuda.max_memory_allocated()
 
@@ -929,16 +1104,19 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     busy_us, per_name = device_activity(prof)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    records = device_records(prof)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     stage_s = rep.stage_seconds
+    n_steps = len(tapes)
     del rep, job, tapes, segs
 
     # resident rows with a collector, over the first micro-batches
     rjob = replay_job(fpt, cql, schema, check, retain=True)
     fpt.ResidentReplay(rjob).execute()
-    res_rows = rjob.results_with_ts("matches")
-    max_rel = max(max_rel, rows_match(res_rows, cpu_rows, rtol,
-                                      f"{name}: resident rows"))
+    res_rows = stream_rows(rjob, outs)
+    for o in outs:
+        max_rel = max(max_rel, rows_match(res_rows[o], cpu_rows[o], rtol,
+                                          f"{name}: resident rows of {o}"))
     lazy = rjob._plans["bench"].lazy
     if lazy is not None and lazy.missed:
         raise AssertionError(f"{name}: resident rows missed lazy values")
@@ -960,17 +1138,19 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
             "max_memory_allocated_bytes": peak,
             "traced_rerun_s": traced_s,
             "traced_device_busy_s": busy_us / 1e6,
-                "traced_idle_share": 1 - busy_us / 1e6 / traced_s,
+            "traced_idle_share": 1 - busy_us / 1e6 / traced_s,
+            "traced_device_records_per_step": records / n_steps,
             "top_device_ms": [[k[:70], v / 1e3] for k, v in top],
             "segment_steps_sync_free": True,
+            "steps": n_steps,
         },
         "wire_bytes_per_event": wire_bytes / n_events,
         "wire_bytes": wire_bytes,
         "ts_kinds": ts_kinds,
         "cpu_check_events": sum(len(b) for b in check),
-        "cpu_check_rows": len(cpu_rows),
+        "cpu_check_rows": sum(len(r) for r in cpu_rows.values()),
         "cpu_check_s": cpu_s,
-        "resident_check_rows": len(res_rows),
+        "resident_check_rows": sum(len(r) for r in res_rows.values()),
         "max_rel_err_vs_cpu": max_rel,
     }
     log(json.dumps(result))
@@ -1143,6 +1323,118 @@ def window_phase(fpt, co):
     return {"bench": bench, "classes": classes}
 
 
+# -- phase 8: multiquery64, a stack of 64 chain queries -----------------------
+
+def full_branch_step(fpt, co, nfa, schema, batches):
+    """One multiquery64 step over a capped 131,072-event tape on the
+    stack's full-width branch (relevance compaction off): the branch's
+    peak device memory, its kernels' inputs (recorded), and its rows
+    equal to the compacted branch's on the same tape."""
+    import torch
+
+    plan = fpt.compile_plan(MULTIQUERY64, {"inputStream": schema},
+                            config=bench_config(fpt))
+    (art,) = plan.artifacts
+    cap = plan.tape_capacity_limit
+    epoch = int(batches[0].timestamps.min())
+    tape, = stage_wire_tapes(plan, [batches[1].slice(0, cap)], epoch,
+                             torch.device("cuda"))
+
+    def step():
+        states, acc = plan.init_state("cuda"), plan.init_acc("cuda")
+        # a pool carried from the batch before this tape
+        prev, = stage_wire_tapes(plan, [batches[0].slice(BATCH - cap,
+                                                         BATCH)],
+                                 epoch, torch.device("cuda"))
+        states, _ = plan.step_acc(states, plan.init_acc("cuda"), prev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        states, acc = plan.step_acc(states, acc, tape)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        meta = acc["meta"].cpu().numpy()
+        n = int(meta[0].max())
+        rows = plan.drain_decode(meta[0], acc["buf"][:, :n].cpu().numpy())
+        return peak, meta, rows
+
+    _, meta_c, rows_c = step()
+    rec_k1 = Recorder(co.multi_reverse_cummin, keep=2)
+    rec_k2 = Recorder(co.chain_advance, keep=2)
+    saved = nfa._COMPACT_MIN_E
+    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+    nfa._COMPACT_MIN_E = cap + 1
+    try:
+        peak, meta_f, rows_f = step()
+    finally:
+        nfa._COMPACT_MIN_E = saved
+        nfa.multi_reverse_cummin = co.multi_reverse_cummin
+        nfa.chain_advance = co.chain_advance
+    if int(rec_k2.args[4].shape[1]) != art.pool + cap:
+        raise AssertionError("the full-width stack step ran compacted")
+    key = lambda rows: [(sch.stream_id, r) for sch, r in rows[art.name]]
+    if (meta_c != meta_f).any() or key(rows_c) != key(rows_f):
+        raise AssertionError("multiquery64: the full-width branch's rows "
+                             "differ from the compacted branch's")
+    res = {"tape_events": cap, "peak_bytes": peak,
+           "rows": int(meta_f[0].sum())}
+    log(json.dumps({"path": "multiquery64_full_branch", **res}))
+    return res, rec_k1, rec_k2
+
+
+def multiquery_phase(fpt, co, out_path):
+    """The bench's multiquery64 as bench.py runs it (phase 5b's runner):
+    64 two-step chains, one stacked artifact, 131,072-event steps. Then
+    one step on the stack's full-width branch. The chain kernels' stacked
+    inputs (a compacted step of the warm-up run, and the full-width step)
+    are saved for the kernel timing with the phase's result."""
+    import torch
+    from flink_siddhi_tpu_torch.compiler import nfa
+
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    plan = fpt.compile_plan(MULTIQUERY64, {"inputStream": schema},
+                            config=bench_config(fpt))
+    (art,) = plan.artifacts
+    if (type(art).__name__ != "StackedChainArtifact"
+            or len(art.members) != 64
+            or plan.tape_capacity_limit != MQ_STEP_EVENTS):
+        raise AssertionError(f"multiquery64 compiled to {plan.artifacts} "
+                             f"capped at {plan.tape_capacity_limit}")
+    # the CPU check steps 8 tapes of 131,072 events: keep a compacted
+    # step of the warm-up run on the card (its 4th)
+    cpu_steps = CHECK_BATCHES * BATCH // MQ_STEP_EVENTS
+    rec_k1 = Recorder(co.multi_reverse_cummin, keep=cpu_steps + 4)
+    rec_k2 = Recorder(co.chain_advance, keep=cpu_steps + 4)
+    nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+    try:
+        bench = bench_main_path(fpt, co, "multiquery64", MULTIQUERY64,
+                                schema, batches, chain=True, outs=MQ_OUTS)
+    finally:
+        nfa.multi_reverse_cummin = co.multi_reverse_cummin
+        nfa.chain_advance = co.chain_advance
+    steps = N_BATCHES * BATCH // MQ_STEP_EVENTS
+    res = bench["resident"]
+    for k in ("multi_reverse_cummin", "chain_advance"):
+        if res["launches"][k] != steps:
+            raise AssertionError(f"multiquery64: {k} launched "
+                                 f"{res['launches'][k]} times in {steps} "
+                                 "steps")
+    if rec_k2.args is None or rec_k2.args[4].device.type != "cuda":
+        raise AssertionError("multiquery64: no stacked kernel input "
+                             "recorded on the card")
+    full, full_k1, full_k2 = full_branch_step(fpt, co, nfa, schema, batches)
+    torch.save({
+        "k1": [keep_copy(a, "cpu") for a in rec_k1.args],
+        "k1_kw": rec_k1.kwargs,
+        "k2": [keep_copy(a, "cpu") for a in rec_k2.args],
+        "k1_full": [keep_copy(a, "cpu") for a in full_k1.args],
+        "k1_full_kw": full_k1.kwargs,
+        "k2_full": [keep_copy(a, "cpu") for a in full_k2.args],
+    }, out_path + ".pt")
+    with open(out_path, "w") as f:
+        json.dump({"bench": bench, "full_branch": full}, f)
+
+
 # -- phase 6: the quote board (#window.unique aggregation) -------------------
 
 def quote_stream(fpt, n_events, batch, seed=11):
@@ -1258,20 +1550,21 @@ def quote_board(fpt, co):
     return result, schema, batches
 
 
-def keep_copy(a):
-    """A copy of a kernel argument; a tensor keeps its strides (the
-    padded next-match table's rows stay 16-byte aligned)."""
+def keep_copy(a, device=None):
+    """A copy of a kernel argument (on ``device``, else on its own); a
+    tensor keeps its strides (the padded next-match table's rows stay
+    16-byte aligned)."""
     import torch
 
     if not isinstance(a, torch.Tensor):
         return a
     return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
-                               device=a.device).copy_(a)
+                               device=device or a.device).copy_(a)
 
 
 class Recorder:
     """Forwards to a kernel wrapper and keeps a copy of the inputs of its
-    ``keep``-th call (the main path's real inputs for phase 8)."""
+    ``keep``-th call (the main path's real inputs for phase 9)."""
 
     def __init__(self, fn, keep):
         self.fn, self.keep, self.calls = fn, keep, 0
@@ -1318,7 +1611,7 @@ def full_width_inputs(fpt, co, nfa, schema, batches, keep=3):
     return rec_k1, rec_k2
 
 
-# -- phase 8: kernel timing on main-path inputs -------------------------------
+# -- phase 9: kernel timing on main-path inputs -------------------------------
 
 def bound_of(nbytes, ops, ops_per_s):
     """(bound ms, "bytes" or "operations"): the larger of the two times."""
@@ -1333,14 +1626,15 @@ def reverse_cummin_times(co, x, pad):
     import torch
 
     C, E = (int(s) for s in x.shape)
-    ms, call_ms = timed(lambda: co.multi_reverse_cummin(x, pad=pad))
-    plain_ms, plain_call_ms = timed(lambda: co.reverse_cummin_plain(x, pad))
+    ms, call_ms = timed(rotating(
+        lambda x: co.multi_reverse_cummin(x, pad=pad), (x,)))
+    plain_ms, plain_call_ms = timed(rotating(
+        lambda x: co.reverse_cummin_plain(x, pad), (x,)))
     # the one PyTorch call computing the same function (without the pad
     # column): cummin of the flipped rows
-    lib_ms, _ = timed(
-        lambda: torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values,
-                           [-1])
-    )
+    lib_ms, _ = timed(rotating(
+        lambda x: torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values,
+                             [-1]), (x,)))
     # read each input once, write each output once (the pad column too)
     nbytes = C * E * 4 + C * (E + (pad is not None)) * 4
     bound_ms, bound_by = bound_of(nbytes, C * E, INT32_OPS_PER_S)
@@ -1381,15 +1675,22 @@ def time_reverse_cummin(co, rec, rec_full, launches, err, floor_ms):
 
 
 def chain_work(args):
-    """(bytes, gathers) of the advance on THESE inputs: the candidate rows
-    streamed in and out, plus one 4-byte read per gather that a live
-    candidate issues (table and ts reads, capped at their sizes);
-    candidates not at step k issue no gather at step k."""
+    """(bytes, gathers) of the advance on THESE inputs (one query, or a
+    stack's Q): the candidate rows streamed in and out, plus one 4-byte
+    read per gather that a live candidate issues (table and ts reads,
+    capped at their sizes); candidates not at step k issue no gather at
+    step k."""
     import torch
 
     nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start, within = args
-    E = int(ts_pad.shape[0]) - 1
-    V = int(act.shape[0])
+    if act.dim() == 1:
+        ts_pad, act, step, pos, start = (
+            t.unsqueeze(0) for t in (ts_pad, act, step, pos, start)
+        )
+    Q, V = (int(x) for x in act.shape)
+    E = int(ts_pad.shape[1]) - 1
+    tables = nxt.view(Q, -1, E + 1)
+    w = within.unsqueeze(1) if isinstance(within, torch.Tensor) else within
     n_steps = len(pos_rows)
     gathers = 0
     a, s, p = act, step, pos
@@ -1397,24 +1698,26 @@ def chain_work(args):
         at_k = a & (s == k)
         idx = p.clamp(0, E).long()
         gathers += (1 + len(guard_rows[k - 1])) * int(at_k.sum())
-        j = nxt[pos_rows[k - 1]][idx]
+        j = torch.take_along_dim(tables[:, pos_rows[k - 1]], idx, 1)
         found = at_k & (j < E)
         for g in guard_rows[k - 1]:
-            jg = nxt[g][idx]
+            jg = torch.take_along_dim(tables[:, g], idx, 1)
             bad = at_k & (jg <= j) & (jg < E)
             a = a & ~bad
             found = found & ~bad
         if within is not None:
             gathers += int(found.sum())  # ts[j]
-            ok = (ts_pad[j.long()] - start) <= within
+            ok = (torch.take_along_dim(ts_pad, j.long(), 1) - start) <= w
             a = a & ~(found & ~ok)
             found = found & ok
         s = torch.where(found, k + 1, s)
         p = torch.where(found, j + 1, p)
     # act 1 B + step/pos/start 12 B in; act 1 B + step/pos 8 B + jmat out
-    streamed = V * 13 + V * 9 + n_steps * V * 4
-    tables = (int(nxt.shape[0]) * (E + 1) + E + 1) * 4
-    return streamed + min(tables, 4 * gathers), gathers
+    streamed = Q * V * (13 + 9 + n_steps * 4)
+    if isinstance(within, torch.Tensor):
+        streamed += Q * 4
+    table_bytes = (int(nxt.shape[0]) + Q) * (E + 1) * 4
+    return streamed + min(table_bytes, 4 * gathers), gathers
 
 
 def chain_advance_times(co, args):
@@ -1422,8 +1725,8 @@ def chain_advance_times(co, args):
     and the kernel launches per call (counted on the card), on one
     input."""
     nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start, within = args
-    ms, call_ms = timed(lambda: co.chain_advance(*args))
-    plain_ms, plain_call_ms = timed(lambda: co.chain_advance_plain(*args))
+    ms, call_ms = timed(rotating(co.chain_advance, args))
+    plain_ms, plain_call_ms = timed(rotating(co.chain_advance_plain, args))
     nbytes, gathers = chain_work(args)
     bound_ms, bound_by = bound_of(nbytes, gathers * 4,  # compares/selects
                                   INT32_OPS_PER_S)
@@ -1436,10 +1739,11 @@ def chain_advance_times(co, args):
             "plain_call_ms": plain_call_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_launches_per_call": per_call,
-            "shape": {"rows": int(nxt.shape[0]),
+            "shape": {"Q": int(act.shape[0]) if act.dim() == 2 else 1,
+                      "rows": int(nxt.shape[0]),
                       "row_stride": int(nxt.stride(0)),
-                      "E": int(ts_pad.shape[0]) - 1,
-                      "V": int(act.shape[0]), "K": len(pos_rows) + 1,
+                      "E": int(ts_pad.shape[-1]) - 1,
+                      "V": int(act.shape[-1]), "K": len(pos_rows) + 1,
                       "gathers": gathers}}
 
 
@@ -1610,13 +1914,13 @@ def main():
     # 1. device
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/10] device: {kind} | nvidia-smi: {smi} | torch "
+    log(f"[1/11] device: {kind} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
 
     # 2. build
     build_s = co.build()
-    log(f"[2/10] build: {len(co.SOURCES)} kernel sources in "
+    log(f"[2/11] build: {len(co.SOURCES)} kernel sources in "
         f"{build_s:.2f} s")
     for name, out in co.LIBRARIES.build_log.items():
         for line in out.splitlines():
@@ -1626,14 +1930,15 @@ def main():
     # 3. kernels against their plain versions (synthetic inputs)
     gen = torch.Generator().manual_seed(7)
     gen_dev = torch.Generator(device=dev).manual_seed(7)
-    log("[3/10] kernels vs plain versions")
+    log("[3/11] kernels vs plain versions")
     err_k1 = check_reverse_cummin(co, dev, gen_dev)
     err_k2 = check_chain_advance(co, dev, gen_dev)
+    err_k2 = max(err_k2, check_stacked_chain_advance(co, dev, gen_dev))
     err_k3, rel_k3 = check_unique_fold(co, dev, gen)
 
     # 4. headline end to end; record each kernel's inputs mid-run
     schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
-    log(f"[4/10] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
+    log(f"[4/11] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
         f"micro-batches of {BATCH}")
     rec_k1 = Recorder(co.multi_reverse_cummin, keep=10)
     rec_k2 = Recorder(co.chain_advance, keep=10)
@@ -1648,13 +1953,13 @@ def main():
     full_k1, full_k2 = full_width_inputs(fpt, co, nfa, schema, batches)
 
     # 5. filter end to end (no kernel on this path)
-    log("[5/10] filter")
+    log("[5/11] filter")
     end_to_end(fpt, co, "filter", FILTER, schema, batches,
                kernels_expected=())
 
     # 5b. both paths as bench.py runs them: its EngineConfig, the streaming
     # Job and ResidentReplay
-    log("[5b/10] bench main path: lazy projection + predicate pushdown, "
+    log("[5b/11] bench main path: lazy projection + predicate pushdown, "
         "streaming Job and ResidentReplay")
     bench_head = bench_main_path(fpt, co, "headline", HEADLINE, schema,
                                  batches, chain=True)
@@ -1663,7 +1968,7 @@ def main():
 
     # 6. the quote board end to end; record the fold's inputs of the
     # second micro-batch (calls 1 and 2 are the CPU check and the warm-up)
-    log(f"[6/10] quote board: {QUOTE_BATCHES * BATCH} events in "
+    log(f"[6/11] quote board: {QUOTE_BATCHES * BATCH} events in "
         f"{QUOTE_BATCHES} micro-batches of {BATCH}")
     rec_k3 = Recorder(co.unique_window_fold, keep=4)
     scan_windows.unique_window_fold = rec_k3
@@ -1674,7 +1979,7 @@ def main():
 
     # 7. windows and aggregation: the bench's window_groupby and every other
     # window class (no kernel on these paths)
-    log(f"[7/10] windows: window_groupby over {BATCH * N_BATCHES} events "
+    log(f"[7/11] windows: window_groupby over {BATCH * N_BATCHES} events "
         f"({N_IDS_WINDOW} ids), then {len(WINDOW_CLASSES)} window classes")
     # in a process of its own: after this phase's traced rerun, the
     # kernel timing's traces in the same process lost records
@@ -1685,8 +1990,24 @@ def main():
         raise AssertionError(f"windows phase failed ({r.returncode})")
     log(f"  windows phase {time.perf_counter() - t_win:.1f} s")
 
-    # 8. kernel timing on each path's own inputs
-    log("[8/10] kernels on their paths' inputs")
+    # 8. multiquery64: 64 chain queries stacked on one query axis (in a
+    # process of its own, as phase 7)
+    log(f"[8/11] multiquery64: 64 stacked chain queries over "
+        f"{BATCH * N_BATCHES} events, {MQ_STEP_EVENTS}-event steps")
+    t_mq = time.perf_counter()
+    mq_path = os.path.join(SMOKE_DIR, "multiquery64.json")
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--multiquery", mq_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"multiquery64 phase failed ({r.returncode})")
+    with open(mq_path) as f:
+        mq = json.load(f)
+    mq_inputs = torch.load(mq_path + ".pt")
+    log(f"  multiquery64 phase {time.perf_counter() - t_mq:.1f} s")
+
+    # 9. kernel timing on each path's own inputs
+    log("[9/11] kernels on their paths' inputs")
     if rec_k1.args is None or rec_k2.args is None or rec_k3.args is None:
         raise AssertionError("no kernel inputs recorded on the main paths")
     for rec, what in ((rec_k1, "main-path"), (full_k1, "full-width")):
@@ -1701,6 +2022,28 @@ def main():
         ref = co.chain_advance_plain(*rec.args)
         for g, r in zip(got, ref):
             err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
+    # the stack's recorded inputs (phase 8): K1 over 64 queries' rows,
+    # K2 with its query axis, compacted and at full width
+    mq_k1 = [keep_copy(a, "cuda") for a in mq_inputs["k1"]]
+    mq_k1_full = [keep_copy(a, "cuda") for a in mq_inputs["k1_full"]]
+    mq_k2 = [keep_copy(a, "cuda") for a in mq_inputs["k2"]]
+    mq_k2_full = [keep_copy(a, "cuda") for a in mq_inputs["k2_full"]]
+    for x, kw, what in ((mq_k1, mq_inputs["k1_kw"], "stacked"),
+                        (mq_k1_full, mq_inputs["k1_full_kw"],
+                         "stacked full-width")):
+        err_k1 = max(err_k1, same(
+            co.multi_reverse_cummin(x[0], pad=kw.get("pad")),
+            co.reverse_cummin_plain(x[0], kw.get("pad")),
+            f"reverse_cummin {what} input",
+        ))
+    for args, what in ((mq_k2, "stacked"), (mq_k2_full,
+                                            "stacked full-width")):
+        got = co.chain_advance(*args)
+        ref = co.chain_advance_plain(*args)
+        for g, r in zip(got, ref):
+            err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
+    log("  stacked kernel inputs: K1 and K2 exact against their plain "
+        "versions")
     floor_ms, floor_call_ms = timed(co.launch_empty)
     log(f"  launch floor: an empty kernel's device time {floor_ms} ms "
         f"(call {floor_call_ms} ms)")
@@ -1722,25 +2065,43 @@ def main():
                          board["launches"]["unique_window_fold"], err_k3,
                          rel_k3, floor_ms),
     ]
-    # the kernels' launches in the bench main path's first resident run
+    # the kernels' launches in the bench main path's first resident run,
+    # and in multiquery64's
+    mq_launches = mq["bench"]["resident"]["launches"]
     for k in kernels:
         k["launches_bench_main_path"] = \
             bench_head["resident"]["launches"][k["name"]]
+        k["launches_multiquery64"] = mq_launches[k["name"]]
+    # the chain kernels at the stack's shapes
+    kernels[0]["stacked"] = reverse_cummin_times(co, mq_k1[0],
+                                                 mq_inputs["k1_kw"].get(
+                                                     "pad"))
+    kernels[0]["stacked"]["full_width"] = reverse_cummin_times(
+        co, mq_k1_full[0], mq_inputs["k1_full_kw"].get("pad"))
+    kernels[1]["stacked"] = chain_advance_times(co, tuple(mq_k2))
+    kernels[1]["stacked"]["full_width"] = chain_advance_times(
+        co, tuple(mq_k2_full))
+    for k in kernels[:2]:
+        st = k["stacked"]
+        log(f"  {k['name']} stacked: {st['ms']} ms (call {st['call_ms']}), "
+            f"full width {st['full_width']['ms']} ms, bound "
+            f"{st['bound_ms']}, {k['launches_multiquery64']} launches in "
+            f"a multiquery64 resident run")
     for k in kernels[:2]:
         log(f"  {k['name']}: {k['ms']} ms (call {k['call_ms']}), full "
             f"width {k['full_width']['ms']} ms, bound {k['bound_ms']}, "
             f"floor {floor_ms}")
 
-    # 9. where the quote board's time goes (after the kernel timing: a
+    # 10. where the quote board's time goes (after the kernel timing: a
     # profiler session after this traced run recorded no device time on
     # the card)
-    log("[9/10] quote board: where the time goes")
+    log("[10/11] quote board: where the time goes")
     breakdown(fpt, "quote_board", QUOTE_BOARD, qschema, qbatches,
               stream="StockStream", out="Board", sync_free=True)
     del qschema, qbatches
 
-    # 10. the API on the default device
-    log("[10/10] api")
+    # 11. the API on the default device
+    log("[11/11] api")
     api_check(fpt)
 
     torch.cuda.synchronize()
@@ -1822,14 +2183,101 @@ def ab_one(root):
     return 0
 
 
-def ab(roots):
+def ab_multiquery_one(root):
+    """multiquery64 resident, counts-only, as bench.py runs it, with the
+    package of the checkout at ``root`` (this file's stream and settings):
+    stage, run() + flush(), AB_REPEATS rerun()s."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    if not os.path.abspath(fpt.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {fpt.__file__}, not {root}'s")
+    co.build()
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    n_events = sum(len(b) for b in batches)
+    job = replay_job(fpt, MULTIQUERY64, schema, batches, retain=False)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    (pid, segs), = rep.segments.items()
+    plan = job._plans[pid].plan
+    t0 = time.perf_counter()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    syncs = job.host_syncs
+    reruns = [rep.rerun() for _ in range(AB_REPEATS)]
+    head = headline_resident(fpt, schema, batches)
+    print(json.dumps({
+        "checkout": root, "path": "multiquery64_resident",
+        "artifacts": [type(a).__name__ for a in plan.artifacts][:2],
+        "n_artifacts": len(plan.artifacts),
+        "steps": sum(len(seg) for seg in segs),
+        "stage_s": rep.stage_seconds, "first_run_s": first_s,
+        "rerun_s": reruns,
+        "events_per_s_median": n_events / statistics.median(reruns),
+        "host_syncs_first_run": syncs,
+        "rows": sum(job.emitted_counts.values()) // (1 + AB_REPEATS),
+        "bench_headline": head,
+    }), flush=True)
+    return 0
+
+
+def headline_resident(fpt, schema, batches):
+    """The bench headline resident, as phase 5b runs it: the seconds and
+    events/s of HEADLINE_RERUNS untraced reruns, then, per step, the card's
+    kernel and copy records and the host's top-level torch ops, from a
+    profiler-traced rerun."""
+    from torch.profiler import ProfilerActivity, profile
+
+    job = replay_job(fpt, HEADLINE, schema, batches, retain=False)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    rep.run()
+    job.flush()
+    reruns = [rep.rerun() for _ in range(HEADLINE_RERUNS)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep.rerun()
+    steps = sum(len(seg) for segs in rep.segments.values() for seg in segs)
+    host_ops = sum(1 for e in prof.events()
+                   if e.cpu_parent is None and e.name.startswith("aten::"))
+    n_events = sum(len(b) for b in batches)
+    return {"steps": steps, "rerun_s": reruns,
+            "events_per_s": [n_events / t for t in reruns],
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "device_records_per_step": device_records(prof) / steps,
+            "host_ops_per_step": host_ops / steps}
+
+
+def ab(roots, mode="--ab-one"):
     for root in roots:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--ab-one", root])
+                            mode, root])
         if r.returncode != 0:
             print(f"chip_smoke --ab: {root} failed ({r.returncode})",
                   file=sys.stderr)
             return 1
+    return 0
+
+
+def multiquery_main(out_path):
+    """Phase 8 alone (``--multiquery OUT``), run by ``main`` in a child
+    process: its result goes to OUT, the stacked kernel inputs to
+    OUT.pt."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    multiquery_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
     return 0
 
 
@@ -1850,10 +2298,16 @@ def windows_main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--windows"]:
         sys.exit(windows_main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
+        sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-one":
         sys.exit(ab_one(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         sys.exit(ab(sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-multiquery-one":
+        sys.exit(ab_multiquery_one(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab-multiquery":
+        sys.exit(ab(sys.argv[2:], mode="--ab-multiquery-one"))
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

@@ -143,9 +143,9 @@ class ExecutionStream:
         ]
 
     def _fields(self, output_stream: str) -> List[str]:
-        for a in self.plan.artifacts:
-            if a.output_schema.stream_id == output_stream:
-                return a.output_schema.field_names
+        schemas = self.plan.output_streams().get(output_stream)
+        if schemas:
+            return schemas[0].field_names
         raise KeyError(
             f"plan has no query inserting into {output_stream!r}"
         )

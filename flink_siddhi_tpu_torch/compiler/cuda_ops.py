@@ -75,7 +75,8 @@ _ARGTYPES = {
     "fst_reverse_cummin": [_P, _P, _P, _I, _I, _L, _I, _I, ctypes.c_uint,
                            _P],
     "fst_chain_advance": [
-        _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+        _P, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+        _I, _P, _P,
     ],
     "fst_empty": [_P],
     "fst_unique_fold": [
@@ -341,28 +342,42 @@ multi_reverse_cummin = ReverseCummin()
 def chain_advance_plain(nxt, pos_rows, guard_rows, ts_pad, act, step, pos,
                         start, within):
     """The plain version: the unfused advance loop of nfa._chain_core
-    (without its capture gathers), in torch."""
-    E = int(ts_pad.shape[0]) - 1
-    V = int(act.shape[0])
-    jmat = torch.empty((len(pos_rows), V), dtype=torch.int32,
+    (without its capture gathers), in torch. One query: ``act`` etc.
+    ``[V]``, ``ts_pad [E + 1]``, ``jmat [K-1, V]``. Q queries: ``[Q, V]``,
+    ``ts_pad [Q, E + 1]``, ``nxt [Q * rows, E + 1]`` (each query's rows
+    together), ``within`` an int or an int32 ``[Q]``, ``jmat
+    [Q, K-1, V]``."""
+    if act.dim() == 1:
+        out = chain_advance_plain(
+            nxt, pos_rows, guard_rows, ts_pad.unsqueeze(0),
+            act.unsqueeze(0), step.unsqueeze(0), pos.unsqueeze(0),
+            start.unsqueeze(0), within,
+        )
+        return tuple(t[0] for t in out)
+    Q, V = (int(s) for s in act.shape)
+    E = int(ts_pad.shape[1]) - 1
+    tables = nxt.view(Q, -1, E + 1)
+    if isinstance(within, torch.Tensor):
+        within = within.unsqueeze(1)
+    jmat = torch.empty((Q, len(pos_rows), V), dtype=torch.int32,
                        device=act.device)
     for k in range(1, len(pos_rows) + 1):
         at_k = act & (step == k)
         idx = pos.clamp(0, E).long()
-        j = nxt[pos_rows[k - 1]][idx]
+        j = torch.take_along_dim(tables[:, pos_rows[k - 1]], idx, 1)
         found = at_k & (j < E)
         for g in guard_rows[k - 1]:
-            jg = nxt[g][idx]
+            jg = torch.take_along_dim(tables[:, g], idx, 1)
             violated = at_k & (jg <= j) & (jg < E)
             act = act & ~violated
             found = found & ~violated
         if within is not None:
-            ts_j = ts_pad[j.long()]
+            ts_j = torch.take_along_dim(ts_pad, j.long(), 1)
             ok = (ts_j - start) <= within
             dead = found & ~ok
             found = found & ok
             act = act & ~dead
-        jmat[k - 1] = torch.where(found, j, E)
+        jmat[:, k - 1] = torch.where(found, j, E)
         step = torch.where(found, k + 1, step)
         pos = torch.where(found, j + 1, pos)
     return act, step, pos, jmat
@@ -387,16 +402,23 @@ def chain_plan(pos_rows: Tuple[int, ...],
 
 
 class ChainAdvance:
-    """Advance ``V`` candidates through positive steps ``1..K-1``.
+    """Advance ``V`` candidates through positive steps ``1..K-1``, for one
+    query or for Q queries of one pattern shape in the same launch.
 
-    ``nxt``: int32 ``[rows, E + 1]`` next-match table (position E = "no
-    match"), rows contiguous, any row stride; ``pos_rows[k-1]``: its row
-    for positive step k;
-    ``guard_rows[k-1]``: its rows of step k's absence guards; ``ts_pad``:
-    int32 ``[E + 1]``; ``act`` bool and ``step``/``pos``/``start`` int32
-    ``[V]``; ``within``: int, or None without a ``within`` clause.
-    Returns ``(act, step, pos, jmat int32[K-1, V])``. On CUDA one call is
-    one kernel launch, none when ``V`` is 0."""
+    One query: ``nxt`` int32 ``[rows, E + 1]`` next-match table (position
+    E = "no match"), rows contiguous, any row stride; ``pos_rows[k-1]``:
+    its row for positive step k; ``guard_rows[k-1]``: its rows of step
+    k's absence guards; ``ts_pad``: int32 ``[E + 1]``; ``act`` bool and
+    ``step``/``pos``/``start`` int32 ``[V]``; ``within``: int, or None
+    without a ``within`` clause. Returns ``(act, step, pos, jmat
+    int32[K-1, V])``.
+
+    Q queries (``act`` ``[Q, V]``): ``nxt [Q * rows, E + 1]``, query q's
+    rows at ``q * rows`` (row indices are per query), ``ts_pad`` int32
+    ``[Q, E + 1]``, the candidates ``[Q, V]``, ``within`` an int or an
+    int32 ``[Q]`` on the device; ``jmat`` is ``[Q, K-1, V]``.
+
+    On CUDA one call is one kernel launch, none when ``V`` is 0."""
 
     name = "chain_advance"
     source = "flink_siddhi_tpu_torch/csrc/chain_advance.cu"
@@ -405,7 +427,7 @@ class ChainAdvance:
         self.launches = 0
 
     def __call__(self, nxt, pos_rows, guard_rows, ts_pad, act, step, pos,
-                 start, within: Optional[int]):
+                 start, within):
         if _device_kind(act, "act") == "cpu":
             return chain_advance_plain(
                 nxt, pos_rows, guard_rows, ts_pad, act, step, pos, start,
@@ -421,25 +443,37 @@ class ChainAdvance:
                 f"{_MAX_GUARDS} guards, got {n_steps} and {n_guards}"
             )
         dev = act.device
-        E = int(ts_pad.shape[0]) - 1
-        V = int(act.shape[0])
+        batched = act.dim() == 2
+        Q = int(act.shape[0]) if batched else 1
+        E = int(ts_pad.shape[-1]) - 1
+        V = int(act.shape[-1])
+        if not 1 <= Q <= 65535:
+            raise ValueError(f"chain_advance takes 1..65535 queries, got {Q}")
         n_rows = int(nxt.shape[0])
         ld = nxt.stride(0) if n_rows > 1 else E + 1
         if (nxt.dtype != torch.int32 or nxt.device != dev
                 or tuple(nxt.shape) != (n_rows, E + 1)
-                or nxt.stride(1) != 1 or ld < E + 1):
+                or nxt.stride(1) != 1 or ld < E + 1 or n_rows % Q):
             raise ValueError(
-                f"nxt: expected int32 [rows, {E + 1}] on {dev} with "
+                f"nxt: expected int32 [{Q} x rows, {E + 1}] on {dev} with "
                 f"contiguous rows, got {nxt.dtype} {tuple(nxt.shape)} "
                 f"stride {nxt.stride()} on {nxt.device}"
             )
+        rows_q = n_rows // Q
         rows = list(pos_rows) + [g for gs in guard_rows for g in gs]
-        if any(not 0 <= r < n_rows for r in rows):
-            raise ValueError(f"row index out of range 0..{n_rows - 1}")
-        _check(ts_pad, "ts_pad", torch.int32, dev, (E + 1,))
-        _check(act, "act", torch.bool, dev, (V,))
+        if any(not 0 <= r < rows_q for r in rows):
+            raise ValueError(f"row index out of range 0..{rows_q - 1}")
+        lead = (Q,) if batched else ()
+        _check(ts_pad, "ts_pad", torch.int32, dev, lead + (E + 1,))
+        _check(act, "act", torch.bool, dev, lead + (V,))
         for t, what in ((step, "step"), (pos, "pos"), (start, "start")):
-            _check(t, what, torch.int32, dev, (V,))
+            _check(t, what, torch.int32, dev, lead + (V,))
+        within_q = 0
+        if isinstance(within, torch.Tensor):
+            if not batched:
+                raise ValueError("a per-query within needs [Q, V] inputs")
+            _check(within, "within", torch.int32, dev, (Q,))
+            within_q = within.data_ptr()
         plan = chain_plan(tuple(pos_rows),
                           tuple(tuple(g) for g in guard_rows),
                           within is not None)
@@ -447,15 +481,17 @@ class ChainAdvance:
         act_o = torch.empty_like(act)
         step_o = torch.empty_like(step)
         pos_o = torch.empty_like(pos)
-        jmat = torch.empty((n_steps, V), dtype=torch.int32, device=dev)
+        jmat = torch.empty(lead + (n_steps, V), dtype=torch.int32,
+                           device=dev)
         with _on_device(dev):
             stream = _stream(dev.index)
             err = lib.fst_chain_advance(
-                nxt.data_ptr(), ld, E, ts_pad.data_ptr(),
+                nxt.data_ptr(), ld, rows_q * ld, E, ts_pad.data_ptr(),
                 act.data_ptr(), step.data_ptr(), pos.data_ptr(),
                 start.data_ptr(), act_o.data_ptr(), step_o.data_ptr(),
-                pos_o.data_ptr(), jmat.data_ptr(), V, plan, len(plan),
-                int(within or 0), stream,
+                pos_o.data_ptr(), jmat.data_ptr(), V, Q, plan, len(plan),
+                0 if isinstance(within, torch.Tensor) else int(within or 0),
+                within_q, stream,
             )
         _check_launch(self.name, err)
         self.launches += 1

@@ -8,7 +8,10 @@ are evaluated once for the whole batch; "next match at/after position p"
 becomes a reverse cummin per element (the ``multi_reverse_cummin`` kernel);
 every partial match then advances through the whole chain in one pass (the
 ``chain_advance`` kernel) — no per-event loop at all. Partial matches that
-outlive the batch carry in a fixed pool of slots.
+outlive the batch carry in a fixed pool of slots. Chain queries of one
+shape stack on a leading query axis (``StackedChainArtifact``, built by
+``group_chain_artifacts``): one core, and one launch of each kernel, per
+step for all of them.
 
 Patterns that need the general slot NFA (sequences, quantifiers, and/or
 groups, cross-element filters, grouped ``every``, mid-chain ``-> every``)
@@ -371,19 +374,36 @@ def _compact_width(E: int) -> int:
 
 
 def _compact_index(rel: torch.Tensor, R: int):
-    """Scatter-compact the True positions of ``rel`` (bool[E]) into an
-    ascending index buffer of width R. Returns (idx, cnt, cvalid);
-    positions beyond R land in a dump slot that is sliced off (callers
-    branch on cnt <= R)."""
-    E = int(rel.shape[0])
+    """Scatter-compact the True positions of each row of ``rel`` (bool[E],
+    or bool[Q, E] for a stack) into an ascending index buffer of width R per
+    row, in ONE scatter. Returns (idx, cnt, cvalid), cnt with a kept last
+    axis; positions beyond R land in a dump column that is sliced off
+    (callers branch on cnt <= R)."""
+    E = int(rel.shape[-1])
     dev = rel.device
-    cnt = rel.sum(dtype=_I32)
-    cpos = torch.cumsum(rel, 0, dtype=_I32) - 1
+    cnt = rel.sum(-1, keepdim=True, dtype=_I32)
+    cpos = torch.cumsum(rel, -1, dtype=_I32) - 1
     dest = torch.where(rel & (cpos < R), cpos, R).long()
-    idx = torch.zeros(R + 1, dtype=_I32, device=dev)
-    idx.scatter_(0, dest, torch.arange(E, dtype=_I32, device=dev))
+    idx = torch.zeros(rel.shape[:-1] + (R + 1,), dtype=_I32, device=dev)
+    src = torch.arange(E, dtype=_I32, device=dev)
+    idx.scatter_(-1, dest, src if rel.dim() == 1 else src.expand_as(rel))
     cvalid = torch.arange(R, dtype=_I32, device=dev) < torch.clamp(cnt, max=R)
-    return idx[:R], cnt, cvalid
+    return idx[..., :R], cnt, cvalid
+
+
+def _compaction(artifact, tape, rel: torch.Tensor, R: int):
+    """Relevance compaction of ``rel`` at width R: (idx, cvalid), or None
+    for the full-width branch — the reference's lax.cond on the device
+    count. The host decides with no wait when the tape's host-known bound
+    for ``artifact`` (TapeSpec.relevance) is at most R; only a larger bound
+    reads the largest count, one host sync in ``artifact.host_syncs``."""
+    idx, cnt, cvalid = _compact_index(rel, R)
+    bound = tape.bounds.get(artifact.name)
+    if bound is None or bound > R:
+        artifact.host_syncs += 1
+        if int(cnt.max()) > R:
+            return None
+    return idx, cvalid
 
 
 def _element_preds(spec: _PatternSpec, tape, enabled) -> List[torch.Tensor]:
@@ -475,30 +495,36 @@ class _ChainCfg:
 def _chain_core(
     cfg: _ChainCfg,
     P: int,
-    state: Dict,
-    preds: torch.Tensor,  # bool[n_elements, E] — positive AND guard rows,
-    # by ORIGINAL element index (cfg.K counts positive elements only)
-    cap_srcs: Dict,  # pair -> value[E]
-    within_val: int,  # ignored unless cfg.has_within
-    ts: torch.Tensor,  # int32[E]
-    valid: torch.Tensor,  # bool[E]
-    tfor_val: int = 0,  # the timed-absence window (cfg.t_guard set)
+    state: Dict,  # per key [P] or a scalar; with a query axis [Q, P], [Q]
+    preds: torch.Tensor,  # bool[(Q,) n_elements, E] — positive AND guard
+    # rows, by ORIGINAL element index (cfg.K counts positive elements only)
+    cap_srcs: Dict,  # pair -> value[(Q,) E]
+    within_val,  # int, or int32[Q] (ignored unless cfg.has_within)
+    ts: torch.Tensor,  # int32[(Q,) E]
+    valid: torch.Tensor,  # bool[(Q,) E]
+    tfor_val=0,  # int, or int32[Q]: the timed-absence window (t_guard)
     batch_max: Optional[torch.Tensor] = None,  # int32 scalar: max valid
     # ts of the FULL batch (a relevance-compacted caller passes it so
     # within-expiry and absence deadlines still see the whole batch's
-    # time horizon)
+    # time horizon; a stack passes it for every query)
 ):
-    """One micro-batch of the chain matcher for ONE query: advance carried
+    """One micro-batch of the chain matcher for one query, or for Q
+    queries of one ``cfg`` on a leading query axis: advance carried
     partials + fresh starts through all elements, find completions, and
-    compact survivors back into the pool. The two kernels run here: the
-    next-match tables (``multi_reverse_cummin``) and the advance
-    (``chain_advance``); capture and emit-ts gathers replay off the
-    advance's per-step match positions.
+    compact survivors back into each query's pool. The reference runs its
+    per-query core under ``jax.vmap`` for a stack; here every op works on
+    the last axis and broadcasts over the query axis, and the two kernels
+    serve every query at once: all next-match tables in one
+    ``multi_reverse_cummin`` launch, the advance in one ``chain_advance``
+    launch (its query grid axis). Capture and emit-ts gathers replay off
+    the advance's per-step match positions.
 
-    Returns (new_state, complete[V], emit_ts[V], caps{pair: [V]}).
+    Returns (new_state, complete[(Q,) V], emit_ts[(Q,) V],
+    caps{pair: [(Q,) V]}).
     """
     K = cfg.K
-    E = int(ts.shape[0])
+    E = int(ts.shape[-1])
+    lead = tuple(ts.shape[:-1])  # () or (Q,)
     V = P + E
     dev = ts.device
     pairs = list(cfg.pairs)
@@ -510,10 +536,18 @@ def _chain_core(
     if len(positive) != K or len(guards) != K:
         raise ValueError("chain cfg: positive/guards disagree with K")
     arange = torch.arange(E, dtype=_I32, device=dev)
+    # a per-query window broadcasts over each query's candidates
+    if isinstance(within_val, torch.Tensor):
+        within_b = within_val.unsqueeze(-1)
+    else:
+        within_b = within_val
+    if isinstance(tfor_val, torch.Tensor):
+        tfor_val = tfor_val.unsqueeze(-1)
 
     # nxt[row][p] = min q >= p with preds[e][q], else E, one row per
     # element the advance reads (positive targets, then guards, then the
-    # timed-absence guard); column E reads "no match" (the kernel's pad)
+    # timed-absence guard), every query's rows together; column E reads
+    # "no match" (the kernel's pad)
     scan_rows = list(positive[1:]) + [g for gs in guards for g in gs]
     if cfg.t_guard is not None:
         scan_rows.append(cfg.t_guard)
@@ -521,29 +555,41 @@ def _chain_core(
     nxt = None
     if scan_rows:
         idxs = torch.stack(
-            [torch.where(preds[e], arange, E) for e in scan_rows]
+            [torch.where(preds[..., e, :], arange, E) for e in scan_rows],
+            -2,
         )
+        if lead:
+            idxs = idxs.reshape(-1, E)
         nxt = multi_reverse_cummin(idxs, pad=E)
-    ts_pad = torch.cat([ts, torch.zeros(1, dtype=_I32, device=dev)])
+    ts_pad = torch.cat(
+        [ts, torch.zeros(lead + (1,), dtype=_I32, device=dev)], -1
+    )
     env_pad = {
         pair: torch.cat(
             [cap_srcs[pair],
-             torch.zeros(1, dtype=cap_srcs[pair].dtype, device=dev)]
+             torch.zeros(lead + (1,), dtype=cap_srcs[pair].dtype,
+                         device=dev)],
+            -1,
         )
         for pair in pairs
     }
 
     # fresh starts: one candidate per tape position matching element 0
-    starts = preds[0]
+    starts = preds[..., 0, :]
     if not cfg.every:
-        starts = starts & ~state["done"]
-    v_active = torch.cat([state["active"], starts])
+        starts = starts & ~state["done"].unsqueeze(-1)
+    v_active = torch.cat([state["active"], starts], -1)
     v_step = torch.cat(
-        [state["step"], torch.ones(E, dtype=_I32, device=dev)]
+        [state["step"], torch.ones(lead + (E,), dtype=_I32, device=dev)], -1
     )
     # search position: carried partials resume at batch start
-    v_pos = torch.cat([torch.zeros(P, dtype=_I32, device=dev), arange + 1])
-    v_start = torch.cat([state["start"], ts])
+    fresh_pos = arange + 1
+    if lead:
+        fresh_pos = fresh_pos.expand(lead + (E,))
+    v_pos = torch.cat(
+        [torch.zeros(lead + (P,), dtype=_I32, device=dev), fresh_pos], -1
+    )
+    v_start = torch.cat([state["start"], ts], -1)
     # fresh starts already completed element 0 at their own position, so a
     # single-element pattern (K == 1) emits at the start event's ts; K > 1
     # overwrites this on the final advance. With a terminal timed absence
@@ -551,18 +597,19 @@ def _chain_core(
     carried_emit = (
         state["emit_ts"]
         if cfg.t_guard is not None
-        else torch.zeros(P, dtype=_I32, device=dev)
+        else torch.zeros(lead + (P,), dtype=_I32, device=dev)
     )
-    v_emit_ts = torch.cat([carried_emit, ts])
+    v_emit_ts = torch.cat([carried_emit, ts], -1)
     caps = {}
     for pair in pairs:
         elem, _col = pair
         fresh = (
             cap_srcs[pair]
             if elem == 0
-            else torch.zeros(E, dtype=cap_dtypes[pair], device=dev)
+            else torch.zeros(lead + (E,), dtype=cap_dtypes[pair],
+                             device=dev)
         )
-        caps[pair] = torch.cat([state[_skey("cap", *pair)], fresh])
+        caps[pair] = torch.cat([state[_skey("cap", *pair)], fresh], -1)
 
     # advance every partial through all remaining positive elements in
     # one kernel pass; absence guards between steps kill a partial when a
@@ -578,16 +625,19 @@ def _chain_core(
         )
         for k in range(1, K):
             elem = positive[k]
-            jk = jmat[k - 1]
+            jk = jmat[..., k - 1, :]
             found = jk < E
             jl = jk.long()
             for pair in pairs:
                 if pair[0] == elem:
                     caps[pair] = torch.where(
-                        found, env_pad[pair][jl], caps[pair]
+                        found, torch.gather(env_pad[pair], -1, jl),
+                        caps[pair],
                     )
             if k == K - 1:
-                v_emit_ts = torch.where(found, ts_pad[jl], v_emit_ts)
+                v_emit_ts = torch.where(
+                    found, torch.gather(ts_pad, -1, jl), v_emit_ts
+                )
 
     if batch_max is None:
         batch_max = torch.where(valid, ts, -_BIG).max()
@@ -609,10 +659,15 @@ def _chain_core(
             torch.where(valid, ts, torch.iinfo(torch.int32).max),
             v_emit_ts, right=True, out_int32=True,
         )
-        jg = nxt[row_of[cfg.t_guard]][
-            torch.maximum(v_pos, past_emit).clamp(0, E).long()
-        ]
-        guard_hit = waiting & (jg < E) & (ts_pad[jg.long()] <= deadline)
+        r = row_of[cfg.t_guard]
+        guard_tbl = nxt.view(lead + (len(scan_rows), E + 1))[..., r, :]
+        jg = torch.gather(
+            guard_tbl, -1, torch.maximum(v_pos, past_emit).clamp(0, E).long()
+        )
+        guard_hit = (
+            waiting & (jg < E)
+            & (torch.gather(ts_pad, -1, jg.long()) <= deadline)
+        )
         matured = waiting & ~guard_hit & (deadline <= batch_max)
         complete = matured
         v_emit_ts = torch.where(matured, deadline, v_emit_ts)
@@ -620,35 +675,35 @@ def _chain_core(
     else:
         complete = v_active & (v_step == K)
     if not cfg.every:
-        # exactly one match: earliest start, then earliest completion
-        # (argmin takes the first minimum, as jnp.argmin does)
+        # exactly one match per query: earliest start, then earliest
+        # completion (argmin takes the first minimum, as jnp.argmin does)
         start_key = torch.where(complete, v_start, _BIG)
-        min_start = start_key.min()
+        min_start = start_key.amin(-1, keepdim=True)
         emit_key = torch.where(
             complete & (v_start == min_start), v_emit_ts, _BIG
         )
-        winner = torch.argmin(emit_key)
+        winner = torch.argmin(emit_key, -1, keepdim=True)
         one = torch.arange(V, device=dev) == winner
-        complete = complete & one & ~state["done"]
-        new_done = state["done"] | complete.any()
+        complete = complete & one & ~state["done"].unsqueeze(-1)
+        new_done = state["done"] | complete.any(-1)
         if still_waiting is not None:
             # the single match is taken: waiting partials are void
-            still_waiting = still_waiting & ~new_done
+            still_waiting = still_waiting & ~new_done.unsqueeze(-1)
     else:
         new_done = state["done"]
 
-    # survivors -> new pool: one scatter over a stacked (state-row, V)
-    # matrix. The v ordering (carried pool first, then fresh starts in
-    # tape order) is oldest-start-first for time-ordered batches, so on
-    # overflow the newest partials drop (into the dump column P).
+    # survivors -> new pool: one scatter over a stacked (state-row, (Q,)
+    # V) matrix, a dump column P per query. The v ordering (carried pool
+    # first, then fresh starts in tape order) is oldest-start-first for
+    # time-ordered batches, so on overflow the newest partials drop.
     survive = v_active & (v_step < K)
     if cfg.has_within:
-        survive = survive & ((batch_max - v_start) <= within_val)
+        survive = survive & ((batch_max - v_start) <= within_b)
     if still_waiting is not None:
         survive = survive | still_waiting
-    keep_pos = torch.cumsum(survive, 0, dtype=_I32) - 1
+    keep_pos = torch.cumsum(survive, -1, dtype=_I32) - 1
     pool_dest = torch.where(survive & (keep_pos < P), keep_pos, P).long()
-    n_survive = survive.sum(dtype=_I32)
+    n_survive = survive.sum(-1, dtype=_I32)
 
     fixed_rows = [as_i32(survive), v_step, v_start]
     if cfg.t_guard is not None:
@@ -658,12 +713,14 @@ def _chain_core(
         fixed_rows + [as_i32(caps[pair]) for pair in pairs]
     )
     n_rows = int(pool_rows.shape[0])
-    pool_packed = torch.zeros((n_rows, P + 1), dtype=_I32, device=dev)
+    pool_packed = torch.zeros(
+        (n_rows,) + lead + (P + 1,), dtype=_I32, device=dev
+    )
     pool_packed[1].fill_(1)  # free slots hold step 1
     pool_packed.scatter_(
-        1, pool_dest.unsqueeze(0).expand(n_rows, V), pool_rows
+        -1, pool_dest.unsqueeze(0).expand(pool_rows.shape), pool_rows
     )
-    pool_packed = pool_packed[:, :P]
+    pool_packed = pool_packed[..., :P]
     new_state = {
         "enabled": state["enabled"],
         "active": pool_packed[0].to(torch.bool),
@@ -716,15 +773,17 @@ class ChainPatternArtifact:
         """Widest per-cycle emission block (drain-cadence contract)."""
         return tape_capacity + self.pool
 
-    def relevance(self) -> Tuple[Tuple[int, Optional[str]], ...]:
-        """Per element, (stream code, its pushed mask key or None): an
-        event outside every element's set can never be relevant, so the
-        host's count over them bounds the device's relevant count
-        (TapeSpec.relevance)."""
-        return tuple(
-            (code, f"@p:{k}" if k in self.pushed_preds else None)
+    compact_width = staticmethod(_compact_width)
+
+    def relevance(self) -> Tuple:
+        """One member: per element, (stream code, its pushed mask key or
+        None, no literal conjuncts). An event outside every element's set
+        can never be relevant, so the host's count over them bounds the
+        device's relevant count (TapeSpec.relevance)."""
+        return (tuple(
+            (code, f"@p:{k}" if k in self.pushed_preds else None, ())
             for k, code in enumerate(self.spec.stream_code_of)
-        )
+        ),)
 
     def _row_plan(self):
         """Emission block layout. Without lazy pairs: [ts, one row per
@@ -928,22 +987,13 @@ class ChainPatternArtifact:
         # and the chain advance is V-sized pointer-chase gathers —
         # shrinking V from P+E to P+E//8 cuts the step on selective
         # workloads. The full-width core runs in the (rare) batch where
-        # more than E//8 events are relevant: the reference's lax.cond on
-        # the device count. Here the host decides with no wait when the
-        # tape's host-known bound (TapeSpec.relevance) is at most R; only
-        # a larger bound reads the count, one host sync in host_syncs.
-        compact = False
+        # more than E//8 events are relevant.
+        compacted = None
         if E >= _COMPACT_MIN_E:
-            R = _compact_width(E)
-            rel = preds.any(dim=0) & tape.valid
-            idx, cnt, cvalid = _compact_index(rel, R)
-            bound = tape.bounds.get(self.name)
-            if bound is not None and bound <= R:
-                compact = True
-            else:
-                self.host_syncs += 1
-                compact = int(cnt) <= R
-        if compact:
+            compacted = _compaction(self, tape, preds.any(dim=0) & tape.valid,
+                                    _compact_width(E))
+        if compacted is not None:
+            idx, cvalid = compacted
             il = idx.long()
             st, n_matches, packed = run(
                 tape.ts[il],
@@ -1209,6 +1259,489 @@ def chain_wire_opts(artifact: ChainPatternArtifact, config):
         for pair in _cap_pairs(spec):
             needed.add(spec.cap_src_key[pair])
     return needed, tuple(host_preds)
+
+
+# --------------------------------------------------------------------------
+# Multi-query stacking: structurally identical chain queries advanced
+# together on a leading query axis (the reference's one-runtime-per-plan
+# fan-out re-expressed as a device query axis; SURVEY.md §2.7-(5),
+# AbstractSiddhiOperator.java:112,301-313)
+# --------------------------------------------------------------------------
+
+# comparison operators a stacked element filter may use, by code
+_CMP_OPS = ("==", "!=", "<", "<=", ">", ">=")
+_CMP_CODE = {op: i for i, op in enumerate(_CMP_OPS)}
+_CMP_FNS = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
+
+
+def _template_conjuncts(el, column_types):
+    """Flatten an element filter into <=2 ``attr OP literal`` conjuncts,
+    sorted by column key: ``[(key, op code, literal)]``, or None when the
+    filter does not fit that family."""
+    conj: List = []
+    stack = [el.filter]
+    while stack:
+        f = stack.pop()
+        if isinstance(f, ast.Binary) and f.op == "and":
+            stack.append(f.left)
+            stack.append(f.right)
+            continue
+        if not isinstance(f, ast.Binary) or f.op not in _CMP_CODE:
+            return None
+        a, lit, op = f.left, f.right, f.op
+        if isinstance(a, ast.Literal) and isinstance(lit, ast.Attr):
+            # `5 < x` -> `x > 5`
+            a, lit = lit, a
+            op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+        if not (
+            isinstance(a, ast.Attr)
+            and a.qualifier in (None, el.alias, el.stream_id)
+            and a.index is None
+            and isinstance(lit, ast.Literal)
+        ):
+            return None
+        key = f"{el.stream_id}.{a.name}"
+        val = lit.value
+        if column_types is not None:
+            atype = column_types.get(key)
+            if atype is None:
+                return None
+            if atype == AttributeType.STRING and op not in ("==", "!="):
+                return None  # interned codes have no meaningful order
+            if (
+                np.dtype(atype.device_dtype).kind in "iu"
+                and isinstance(val, float)
+                and not float(val).is_integer()
+            ):
+                return None  # the literal would truncate in the column
+        conj.append((key, _CMP_CODE[op], val))
+    if len(conj) > 2:
+        return None
+    conj.sort(key=lambda c: c[0])  # deterministic key order
+    return conj
+
+
+def _stack_compact_width(E: int) -> int:
+    """A stack's per-query relevance window: its members are selective by
+    construction (structurally identical literal filters), so E // 16,
+    tighter than the single chain's E // 8."""
+    return max(2048, E // 16)
+
+
+# a stack's emission buffer is min(Q, _STACK_OUT_CAP)*E + Q*pool wide:
+# lossless for stacks of up to _STACK_OUT_CAP queries, bounded (with a
+# drained overflow counter) beyond that
+_STACK_OUT_CAP = 8
+
+
+@dataclass
+class StackedChainArtifact:
+    """A group of chain patterns sharing one ``_ChainCfg``: their
+    per-query predicates, captures and projections are stacked as data,
+    and the chain core runs once over a leading query axis — the device op
+    count per step does not grow with the number of queries, and each
+    kernel launches once per step for all of them.
+
+    Emissions of all members compact through one scatter into a single
+    packed block with a query-id row; the host splits the rows back to
+    each member's output stream at decode time."""
+
+    name: str
+    members: List[ChainPatternArtifact]
+    output_mode: str = "packed"
+    column_types: Optional[Dict] = None
+    # host syncs this artifact made: the relevance-compaction branch reads
+    # the members' largest relevant count when the tape's host-known bound
+    # exceeds the compact width
+    host_syncs: int = 0
+
+    def __post_init__(self):
+        self.pool = self.members[0].pool
+        self._cfg = _ChainCfg.of(self.members[0].spec)
+        assert all(
+            _ChainCfg.of(m.spec) == self._cfg for m in self.members
+        ), "stacked members must share a chain signature"
+        self._vec_info = self._build_vec_preds()
+        # per device: the members' windows and literals, uploaded once
+        self._consts: Dict = {}
+
+    def _build_vec_preds(self):
+        """Per-element conjunct vectors for the broadcast predicate path:
+        when every member's element-k filter flattens to the same ``attr
+        OP literal`` conjunct keys (numeric literals), the Q*K closure
+        evaluations collapse to a few (Q, E) broadcast compares. None =
+        fall back to the members' closures."""
+        specs = [m.spec for m in self.members]
+        K = specs[0].n_elements
+        info = []
+        for k in range(K):
+            el0 = specs[0].elements[k]
+            if el0.negated or (el0.min_count, el0.max_count) != (1, 1):
+                return None
+            if specs[0].pred_fns[k] is None:
+                if any(s.pred_fns[k] is not None for s in specs):
+                    return None
+                if any(s.elements[k].filter is not None for s in specs):
+                    return None  # cross filters stay on the slot path
+                info.append(())
+                continue
+            per_member = []
+            for s in specs:
+                el = s.elements[k]
+                if el.filter is None:
+                    return None
+                conj = _template_conjuncts(el, self.column_types)
+                if conj is None:
+                    return None
+                per_member.append(conj)
+            n_conj = len(per_member[0])
+            if any(len(c) != n_conj for c in per_member):
+                return None
+            conjs = []
+            for j in range(n_conj):
+                keys = {c[j][0] for c in per_member}
+                if len(keys) != 1:
+                    return None
+                vals = [c[j][2] for c in per_member]
+                if any(isinstance(v, (str, bool)) for v in vals):
+                    return None  # interned/string literals: closure path
+                # integer literals stay exact: float64 would corrupt
+                # int64 values past 2^53
+                vals_np = (
+                    np.asarray(vals, np.int64)
+                    if all(isinstance(v, int) for v in vals)
+                    else np.asarray(vals, np.float64)
+                )
+                conjs.append((
+                    next(iter(keys)),
+                    np.asarray([c[j][1] for c in per_member], np.int32),
+                    vals_np,
+                ))
+            info.append(tuple(conjs))
+        return tuple(info)
+
+    def _device_consts(self, device, dtypes) -> Dict:
+        """The members' ``within`` and timed-absence windows (int32
+        ``[Q]``) and, per conjunct of the broadcast path, its literals
+        ``[Q, 1]`` in the column's dtype and each distinct opcode's member
+        mask — on ``device``, built at the first step there and kept, so
+        that no step copies them again."""
+        key = (str(device), dtypes)
+        consts = self._consts.get(key)
+        if consts is not None:
+            return consts
+        consts = {
+            "within": torch.tensor(
+                [m.spec.within or 0 for m in self.members], dtype=_I32
+            ).to(device),
+            "tfor": torch.tensor(
+                [m._tfor_ms() or 0 for m in self.members], dtype=_I32
+            ).to(device),
+        }
+        for k, conjs in enumerate(self._vec_info or ()):
+            for j, (_key, opcodes, vals) in enumerate(conjs):
+                # the literal takes the column's dtype from the 32-bit
+                # value JAX holds it in (int32 or float32, x64 off)
+                lit = torch.from_numpy(vals.astype(
+                    np.int32 if vals.dtype.kind == "i" else np.float32
+                )).to(dtypes[k][j]).unsqueeze(1)
+                opc = torch.from_numpy(opcodes).unsqueeze(1)
+                consts[(k, j)] = (
+                    lit.to(device),
+                    {int(oc): (opc == oc).to(device)
+                     for oc in sorted(set(opcodes.tolist()))},
+                )
+        self._consts[key] = consts
+        return consts
+
+    def _vec_preds(self, tape, enabled, consts):
+        """(Q, K, E) element masks by broadcast compares."""
+        spec0 = self.members[0].spec
+        out = []
+        for k, conjs in enumerate(self._vec_info):
+            mk = (tape.valid & (tape.stream == spec0.stream_code_of[k]))
+            mk = mk.unsqueeze(0)
+            for j, (key, _opcodes, _vals) in enumerate(conjs):
+                col = tape.cols[key].unsqueeze(0)
+                lits, sel = consts[(k, j)]
+                cm = None
+                for oc, member_mask in sel.items():
+                    m = _CMP_FNS[oc](col, lits)
+                    cm = m if cm is None else torch.where(member_mask, m, cm)
+                mk = mk & cm
+            out.append(mk & enabled.unsqueeze(1))
+        return torch.stack(out, 1)
+
+    @property
+    def output_schema(self) -> OutputSchema:
+        # representative: members share the field structure; decode routes
+        # rows to each member's own stream by the qid row
+        return self.members[0].output_schema
+
+    @property
+    def acc_rows(self) -> int:
+        return 2 + len(self.output_schema.fields)  # ts + qid + columns
+
+    def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
+        q = len(self.members)
+        return min(q, _STACK_OUT_CAP) * tape_capacity + q * self.pool
+
+    compact_width = staticmethod(_stack_compact_width)
+
+    def relevance(self) -> Tuple:
+        """Per member, per element: (stream code, None, its ``col ==
+        int literal`` conjuncts) — TapeSpec.relevance. The host's count of
+        each literal in its column bounds the member's relevant events."""
+        out = []
+        for m in self.members:
+            elements = []
+            for k, el in enumerate(m.spec.elements):
+                eqs = ()
+                if el.filter is not None:
+                    conj = _template_conjuncts(el, self.column_types) or ()
+                    eqs = tuple(
+                        (key, val) for key, op, val in conj
+                        if op == _CMP_CODE["=="] and isinstance(val, int)
+                        and not isinstance(val, bool)
+                    )
+                elements.append((m.spec.stream_code_of[k], None, eqs))
+            out.append(tuple(elements))
+        return tuple(out)
+
+    def init_state(self, device) -> Dict:
+        Q, P = len(self.members), self.pool
+        state = {
+            "enabled": torch.ones(Q, dtype=torch.bool, device=device),
+            "active": torch.zeros((Q, P), dtype=torch.bool, device=device),
+            "step": torch.ones((Q, P), dtype=_I32, device=device),
+            "start": torch.zeros((Q, P), dtype=_I32, device=device),
+            "done": torch.zeros(Q, dtype=torch.bool, device=device),
+            "overflow": torch.zeros(Q, dtype=_I32, device=device),
+        }
+        if self._cfg.t_guard is not None:
+            state["emit_ts"] = torch.zeros((Q, P), dtype=_I32, device=device)
+        spec0 = self.members[0].spec
+        for pair in _cap_pairs(spec0):
+            state[_skey("cap", *pair)] = torch.zeros(
+                (Q, P), dtype=torch_dtype(spec0.cap_dtype[pair]),
+                device=device,
+            )
+        return state
+
+    def _emit_pack(self, new_state, complete, emit_ts, caps, E: int):
+        """Pack every member's completions into one fixed-width block of
+        rows (ts, qid, columns...), query-major: completions past the block
+        width ``min(Q, _STACK_OUT_CAP)*E + Q*P`` drop, counted in the
+        third element."""
+        Q, P = len(self.members), self.pool
+        dev = complete.device
+        V_ = int(complete.shape[1])
+        qid_row = torch.arange(Q, dtype=_I32, device=dev).unsqueeze(1)
+        # when every member's column c is the same plain capture, the
+        # stacked capture buffers ARE the output rows
+        col_srcs = []
+        for c in range(len(self.members[0].spec.proj_fns)):
+            srcs = {m.spec.proj_srcs[c] for m in self.members}
+            if len(srcs) != 1 or None in srcs:
+                col_srcs = None
+                break
+            col_srcs.append(next(iter(srcs)))
+        if col_srcs is not None:
+            rows = torch.stack(
+                [as_i32(emit_ts), qid_row.expand(Q, V_)]
+                + [as_i32(caps[pair]) for pair in col_srcs]
+            )  # (R, Q, V_)
+        else:
+            per_q = []
+            for qi, m in enumerate(self.members):
+                env = _emit_env(m.spec, {
+                    (e, c, w): caps[(e, c)][qi] for e, c, w in m.spec.captures
+                })
+                per_q.append(torch.stack(
+                    [as_i32(emit_ts[qi]), qid_row[qi].expand(V_)]
+                    + [as_i32(as_column(p(env), V_, emit_ts))
+                       for p in m.spec.proj_fns]
+                ))
+            rows = torch.stack(per_q, 1)  # (R, Q, V_)
+        R = int(rows.shape[0])
+        flat = rows.reshape(R, Q * V_)
+        cflat = complete.reshape(Q * V_)
+        n_total = cflat.sum(dtype=_I32)
+        out_w = min(Q * (P + E), min(Q, _STACK_OUT_CAP) * E + Q * P)
+        pos = torch.cumsum(cflat, 0, dtype=_I32) - 1
+        dest = torch.where(cflat & (pos < out_w), pos, out_w).long()
+        packed = torch.zeros((R, out_w + 1), dtype=_I32, device=dev)
+        packed.scatter_(1, dest.unsqueeze(0).expand(R, Q * V_), flat)
+        n_emitted = torch.clamp(n_total, max=out_w)
+        # completions beyond the emission buffer are dropped; the third
+        # element feeds the drained overflow counter
+        return new_state, (n_emitted, packed[:, :out_w], n_total - n_emitted)
+
+    def step(self, state: Dict, tape) -> Tuple[Dict, Tuple]:
+        cfg = self._cfg
+        E = tape.capacity
+        P = self.pool
+        Q = len(self.members)
+        dtypes = tuple(
+            tuple(tape.cols[key].dtype for key, _o, _v in conjs)
+            for conjs in (self._vec_info or ())
+        )
+        consts = self._device_consts(tape.ts.device, dtypes)
+        if self._vec_info is not None:
+            preds = self._vec_preds(tape, state["enabled"], consts)
+        else:
+            preds = torch.stack([
+                torch.stack(_element_preds(m.spec, tape, state["enabled"][qi]))
+                for qi, m in enumerate(self.members)
+            ])  # (Q, K, E)
+        cap_srcs = {}
+        for pair in cfg.pairs:
+            keys = [m.spec.cap_src_key[pair] for m in self.members]
+            cap_srcs[pair] = (
+                tape.cols[keys[0]].expand(Q, E) if len(set(keys)) == 1
+                else torch.stack([tape.cols[k] for k in keys])
+            )
+        # within/absence horizons always see the full batch (the
+        # compacted path's ts only covers each query's relevant events)
+        bm_full = torch.where(tape.valid, tape.ts, -_BIG).max()
+
+        def run(ts, valid, preds_q, srcs):
+            st, complete, emit_ts, caps = _chain_core(
+                cfg, P, state, preds_q, srcs, consts["within"], ts, valid,
+                tfor_val=consts["tfor"], batch_max=bm_full,
+            )
+            return self._emit_pack(st, complete, emit_ts, caps, E)
+
+        # Per-query relevance compaction ('->' ignores events that match
+        # none of the query's elements): each query advances over its own
+        # compacted window; the tape's bound is the largest member's.
+        compacted = None
+        if E >= _COMPACT_MIN_E:
+            Rw = _stack_compact_width(E)
+            compacted = _compaction(
+                self, tape, preds.any(1) & tape.valid.unsqueeze(0), Rw
+            )
+        if compacted is not None:
+            idxs, cvalid = compacted
+            il = idxs.long()
+            return run(
+                tape.ts[il],
+                cvalid,
+                torch.gather(preds, 2, il.unsqueeze(1).expand(
+                    Q, int(preds.shape[1]), Rw
+                )) & cvalid.unsqueeze(1),
+                {p_: torch.gather(s_, 1, il) for p_, s_ in cap_srcs.items()},
+            )
+        return run(tape.ts.expand(Q, E), tape.valid.expand(Q, E), preds,
+                   cap_srcs)
+
+    def decode_packed(self, n: int, block: np.ndarray):
+        """Split a fetched packed block into per-member (schema, rows)."""
+        return _decode_qid_block(
+            n, block,
+            ((qi, m.output_schema) for qi, m in enumerate(self.members)),
+        )
+
+    @property
+    def flush_is_noop(self) -> bool:
+        return self._cfg.t_guard is None
+
+    def flush(self, state: Dict) -> Tuple[Dict, Tuple]:
+        """Timed-absence maturation at end of stream, per member query."""
+        Q, P = len(self.members), self.pool
+        C = len(self.members[0].spec.proj_fns)
+        dev = state["active"].device
+        if self._cfg.t_guard is None:
+            return state, (
+                torch.tensor(0, dtype=_I32, device=dev),
+                torch.zeros((2 + C, 1), dtype=_I32, device=dev),
+                torch.tensor(0, dtype=_I32, device=dev),
+            )
+        blocks, keep, active = [], [], []
+        for qi, m in enumerate(self.members):
+            sub = {k: v[qi] for k, v in state.items()}
+            st_q, (n_q, packed_q) = m.flush(sub)
+            active.append(st_q["active"])
+            qid = torch.full((1, P), qi, dtype=_I32, device=dev)
+            blocks.append(torch.cat([packed_q[:1], qid, packed_q[1:]]))
+            keep.append(torch.arange(P, device=dev) < n_q)
+        new_state = dict(state)
+        new_state["active"] = torch.stack(active)
+        # each member's block is front-compacted and zero past its count:
+        # side by side, then compacted once
+        block = torch.cat(blocks, 1)  # (2 + C, Q * P)
+        kept = torch.cat(keep)
+        n_total = kept.sum(dtype=_I32)
+        pos = torch.cumsum(kept, 0, dtype=_I32) - 1
+        dest = torch.where(kept, pos, Q * P).long()
+        packed = torch.zeros((2 + C, Q * P + 1), dtype=_I32, device=dev)
+        packed.scatter_(1, dest.unsqueeze(0).expand(2 + C, Q * P), block)
+        return new_state, (
+            n_total, packed[:, :Q * P], torch.tensor(0, dtype=_I32,
+                                                     device=dev),
+        )
+
+
+def _decode_qid_block(n: int, block, slot_schemas):
+    """Split a packed (ts, qid, cols...) block by the qid row into
+    per-slot (schema, rows) lists. ``slot_schemas``: iterable of (slot,
+    OutputSchema)."""
+    out = []
+    qid = block[1, :n]
+    for slot, schema in slot_schemas:
+        sel = np.nonzero(qid == slot)[0]
+        if sel.size == 0:
+            continue
+        sub = block[:, :n][:, sel]
+        out.append(
+            (schema, schema.decode_packed_block(
+                int(sel.size), sub, data_row=2
+            ))
+        )
+    return out
+
+
+def group_chain_artifacts(
+    artifacts: List, exclude=frozenset(), column_types=None
+) -> List:
+    """Replace runs of structurally identical ChainPatternArtifacts (one
+    ``_ChainCfg``, pool and output dtypes) with one StackedChainArtifact,
+    named ``"@stack:" + its first member``, in the first member's place.
+    Artifacts in ``exclude`` stay standalone. ``column_types`` enables the
+    broadcast predicate path."""
+    groups: Dict = {}
+    for a in artifacts:
+        if isinstance(a, ChainPatternArtifact) and a.name not in exclude:
+            key = (
+                _ChainCfg.of(a.spec),
+                a.pool,
+                tuple(
+                    np.dtype(f.atype.device_dtype).name
+                    for f in a.output_schema.fields
+                ),
+            )
+            groups.setdefault(key, []).append(a)
+    stacked_of = {}
+    for members in groups.values():
+        if len(members) >= 2:
+            stacked = StackedChainArtifact(
+                name="@stack:" + members[0].name,
+                members=members,
+                column_types=column_types,
+            )
+            for m in members:
+                stacked_of[m.name] = stacked
+    if not stacked_of:
+        return artifacts
+    out, added = [], set()
+    for a in artifacts:
+        s = stacked_of.get(getattr(a, "name", None))
+        if s is None:
+            out.append(a)
+        elif s.name not in added:
+            out.append(s)
+            added.add(s.name)
+    return out
 
 
 # --------------------------------------------------------------------------

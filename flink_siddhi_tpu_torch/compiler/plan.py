@@ -9,7 +9,8 @@ artifact contributing to ``step(states, tape) -> (states, outputs)``, run
 eagerly by torch on the plan's device.
 
 This port covers plain stream queries (filter / projection, also over a
-window), chain patterns, sliding, batch and cumulative aggregation with
+window), chain patterns (structurally identical ones stacked on a query
+axis), sliding, batch and cumulative aggregation with
 group-by and having, ``#window.unique``, ``#window.delay`` and
 ``insert expired events``. Joins, tables, partitions, query chaining,
 ``insert all events`` and output rate limiting raise ``SiddhiQLError``
@@ -161,9 +162,13 @@ class CompiledPlan:
             out = outputs[a.name]
             over_ai = over[ai]
             if a.output_mode == "packed":
-                # the artifact already emits the accumulator block layout
+                # the artifact already emits the accumulator block layout;
+                # an optional third element counts the rows it dropped
+                # before packing (a stack's emission buffer overflow)
                 n, block = out[0], out[1]
                 n = n.to(_I32)
+                if len(out) > 2:
+                    over_ai = over_ai + out[2].to(_I32)
             elif a.output_mode == "aligned":
                 mask, ts, cols = out
                 n = mask.sum(dtype=_I32)
@@ -244,12 +249,14 @@ class CompiledPlan:
         return list(self.spec.stream_codes)
 
     def output_streams(self) -> Dict[str, List]:
-        """stream_id -> [OutputSchema] writing to it."""
+        """stream_id -> [OutputSchema] writing to it (a stack contributes
+        every member's schema)."""
         by_stream: Dict[str, List] = {}
         for a in self.artifacts:
-            by_stream.setdefault(a.output_schema.stream_id, []).append(
-                a.output_schema
-            )
+            for m in getattr(a, "members", None) or (a,):
+                by_stream.setdefault(
+                    m.output_schema.stream_id, []
+                ).append(m.output_schema)
         return by_stream
 
 
@@ -346,11 +353,22 @@ def compile_plan(
         encoded.extend(getattr(art, "encoded_columns", ()))
         artifacts.append(art)
 
+    # multi-query parallelism: structurally identical chain patterns
+    # stack onto a device query axis and advance together
+    from .nfa import (
+        ChainPatternArtifact,
+        StackedChainArtifact,
+        chain_wire_opts,
+        group_chain_artifacts,
+    )
+
+    artifacts = group_chain_artifacts(artifacts, column_types=column_types)
+
     # late materialization and wire predicate pushdown (opt-in), for a
-    # plan of one chain pattern, one select or one sliding window:
-    # projection-only columns stay host-side, host-evaluable filters ship
-    # as packed mask bits, and a window's group columns travel as codes
-    from .nfa import ChainPatternArtifact, chain_wire_opts
+    # plan of one chain pattern, one select or one sliding window (a stack
+    # gets neither): projection-only columns stay host-side,
+    # host-evaluable filters ship as packed mask bits, and a window's
+    # group columns travel as codes
     from .select import SelectArtifact, select_wire_opts
     from .window import SlidingWindowArtifact, window_wire_opts
 
@@ -377,8 +395,18 @@ def compile_plan(
     relevance = tuple(
         (a.name, a.relevance())
         for a in artifacts
-        if isinstance(a, ChainPatternArtifact)
+        if isinstance(a, (ChainPatternArtifact, StackedChainArtifact))
     )
+    # a wide stack steps in windows of at most 131,072 events, as the
+    # reference caps it (its compile time grows with width x queries):
+    # the step boundaries decide the rows' order within a stream and when
+    # a partial pool overflows, so the port keeps the same ones
+    cap_limit = config.max_tape_capacity
+    if cap_limit is None and any(
+        isinstance(a, StackedChainArtifact) and len(a.members) >= 16
+        for a in artifacts
+    ):
+        cap_limit = 131072
 
     return CompiledPlan(
         plan_id=plan_id,
@@ -388,7 +416,7 @@ def compile_plan(
         artifacts=artifacts,
         schemas=all_schemas,
         config=config,
-        tape_capacity_limit=config.max_tape_capacity,
+        tape_capacity_limit=cap_limit,
     )
 
 

@@ -13,7 +13,7 @@
 // j = nxt[pos_row[k], pos] (next match at or after its search position),
 // gathers each guard row of step k at the same position, and gathers ts[j]
 // for `within`; then it advances (step = k + 1, pos = j + 1) or dies.
-// jmat[k - 1, v] is j where the candidate advanced at step k, else E.
+// jmat[q, k - 1, v] is j where the candidate advanced at step k, else E.
 //
 // What bounds it on an H100: the latency of dependent gathers, not
 // bandwidth. The streamed bytes are small (act 1 B, step/pos/start 12 B in,
@@ -43,6 +43,15 @@
 // struct passed by value as a kernel argument: no device copy and no host
 // sync per call. Unlike the Pallas kernel, which declined tables over its
 // 8 MiB VMEM budget, this one takes every R and E.
+//
+// Query axis: a stack of Q chain queries with one pattern shape (nfa.py
+// `StackedChainArtifact`, which the reference runs under `jax.vmap` without
+// Pallas) advances in the same launch, blockIdx.y = query. Query q reads its
+// own rows of the table (the reverse cummin's [Q * rows, E + 1] output, the
+// rows of each query together), its own ts row (each query's relevance-
+// compacted tape differs), its own candidates and its own `within` (an
+// int32 [Q] device array the caller uploads once). Q = 1 is the single
+// query's launch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,8 +68,13 @@ struct ChainPlan {
   int g_row[kMaxGuards];
 };
 
+// kQueryAxis: blockIdx.y picks the query. The single query's launch
+// (Q = 1, one `within` by value) is compiled without the query offsets:
+// on the card they cost its call about 5% (PERF.md §6).
+template <bool kQueryAxis>
 __global__ void __launch_bounds__(kThreads)
-chain_advance_kernel(const int* __restrict__ nxt, long long ld, int E,
+chain_advance_kernel(const int* __restrict__ nxt, long long ld,
+                     long long q_table, int E,
                      const int* __restrict__ ts_pad,
                      const bool* __restrict__ act_in,
                      const int* __restrict__ step_in,
@@ -68,9 +82,27 @@ chain_advance_kernel(const int* __restrict__ nxt, long long ld, int E,
                      const int* __restrict__ start,
                      bool* __restrict__ act_out, int* __restrict__ step_out,
                      int* __restrict__ pos_out, int* __restrict__ jmat, int V,
-                     const ChainPlan plan, int within) {
+                     const ChainPlan plan, int within,
+                     const int* __restrict__ within_q) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
+  if (kQueryAxis) {
+    // query q (uniform over the block): its own table rows, ts row,
+    // candidates, jmat rows and within
+    const int q = blockIdx.y;
+    const size_t qv = static_cast<size_t>(q) * V;
+    nxt += q * q_table;
+    ts_pad += static_cast<size_t>(q) * (E + 1);
+    act_in += qv;
+    step_in += qv;
+    pos_in += qv;
+    start += qv;
+    act_out += qv;
+    step_out += qv;
+    pos_out += qv;
+    jmat += qv * plan.n_steps;
+    if (within_q != nullptr) within = __ldg(within_q + q);
+  }
   bool act = act_in[v];
   int step = step_in[v];
   int pos = pos_in[v];
@@ -112,20 +144,27 @@ chain_advance_kernel(const int* __restrict__ nxt, long long ld, int E,
 
 }  // namespace
 
-// nxt: int32 [rows, E + 1] with row stride ld >= E + 1; ts_pad: int32
-// [E + 1]; act (bool), step, pos, start: [V]; outputs act/step/pos [V] and
-// jmat int32 [K - 1, V].
+// Q queries, each with its own table, ts row, candidates and within:
+// nxt: int32 [Q * rows, E + 1] with row stride ld >= E + 1 (query q's rows
+// start at q * q_table = q * rows * ld); ts_pad: int32 [Q, E + 1]; act
+// (bool), step, pos, start: [Q, V]; outputs act/step/pos [Q, V] and jmat
+// int32 [Q, K - 1, V]. within_q: int32 [Q] on the device, or null for one
+// `within` for every query (by value). Q = 1 is the single-query call.
 // plan_host: [n_steps, has_within, pos_row x n_steps,
 // g_begin x (n_steps + 1), g_row x n_guards] in host memory. One launch on
 // `stream` (none when V == 0); returns a cudaError_t.
-extern "C" int fst_chain_advance(const int* nxt, long long ld, int E,
+extern "C" int fst_chain_advance(const int* nxt, long long ld,
+                                 long long q_table, int E,
                                  const int* ts_pad,
                                  const void* act_in, const int* step_in,
                                  const int* pos_in, const int* start,
                                  void* act_out, int* step_out, int* pos_out,
-                                 int* jmat, int V, const int* plan_host,
-                                 int plan_len, int within, void* stream) {
-  if (plan_len < 3 || E < 0 || V < 0 || ld < static_cast<long long>(E) + 1) {
+                                 int* jmat, int V, int Q,
+                                 const int* plan_host, int plan_len,
+                                 int within, const int* within_q,
+                                 void* stream) {
+  if (plan_len < 3 || E < 0 || V < 0 || Q < 1 || Q > 65535 ||
+      ld < static_cast<long long>(E) + 1 || q_table < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ChainPlan plan = {};
@@ -144,9 +183,12 @@ extern "C" int fst_chain_advance(const int* nxt, long long ld, int E,
   }
   for (int g = 0; g < n_guards; ++g) plan.g_row[g] = plan_host[3 + 2 * n + g];
   if (V == 0) return 0;
-  const int blocks = (V + kThreads - 1) / kThreads;
-  chain_advance_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nxt, ld, E, ts_pad, static_cast<const bool*>(act_in), step_in, pos_in, start,
-      static_cast<bool*>(act_out), step_out, pos_out, jmat, V, plan, within);
+  const dim3 grid((V + kThreads - 1) / kThreads, Q);
+  auto* kernel = Q == 1 && within_q == nullptr ? chain_advance_kernel<false>
+                                               : chain_advance_kernel<true>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nxt, ld, q_table, E, ts_pad, static_cast<const bool*>(act_in), step_in,
+      pos_in, start, static_cast<bool*>(act_out), step_out, pos_out, jmat, V,
+      plan, within, within_q);
   return static_cast<int>(cudaGetLastError());
 }

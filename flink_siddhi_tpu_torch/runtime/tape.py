@@ -88,12 +88,15 @@ class TapeSpec:
     device_columns: Optional[Tuple[str, ...]] = None
     # wire predicate pushdown: host-evaluated masks added to the tape
     host_preds: Tuple[HostPred, ...] = ()
-    # per chain matcher (artifact name), its elements as (stream code,
-    # pushed mask key or None): the host counts the events that could be
-    # relevant to it — an upper bound on the device's relevant count, so
-    # the matcher picks its compaction branch without a read
+    # per chain matcher (artifact name), its queries (one, or a stack's
+    # members), each as its elements' (stream code, pushed mask key or
+    # None, ``(column key, int literal)`` equality conjuncts): the host
+    # counts the events that could be relevant to each query — an upper
+    # bound on the device's relevant count, so the matcher picks its
+    # compaction branch without a read (``_relevance_bounds``)
     relevance: Tuple[
-        Tuple[str, Tuple[Tuple[int, Optional[str]], ...]], ...
+        Tuple[str, Tuple[Tuple[Tuple[int, Optional[str], Tuple], ...],
+                         ...]], ...
     ] = ()
 
     def built_columns(self) -> Tuple[str, ...]:
@@ -123,7 +126,8 @@ class Tape:
     valid: object  # bool[E]
     cols: Dict[str, object]  # "stream.field" -> array[E]
     # host-known upper bounds on each chain matcher's relevant-event
-    # count (TapeSpec.relevance), as Python ints
+    # count (TapeSpec.relevance; a stack's: its largest member's), as
+    # Python ints
     bounds: Dict[str, int] = field(default_factory=dict)
 
     @property
@@ -599,13 +603,82 @@ def build_host_tape(
             col[:total] = res
             cols[hp.out_key] = col
 
-    bounds = {}
-    for name, elements in spec.relevance:
-        rel = np.zeros(total, dtype=np.bool_)
-        for code, key in elements:
-            m = stream[:total] == code
-            if key is not None:
-                m &= cols[key][:total]
-            rel |= m
-        bounds[name] = int(np.count_nonzero(rel))
+    bounds = _relevance_bounds(spec, stream[:total], cols, total)
     return Tape(ts, stream, valid, cols, bounds), prov
+
+
+def _relevance_bounds(spec: TapeSpec, stream: np.ndarray, cols,
+                      total: int) -> Dict[str, int]:
+    """Per chain matcher, an upper bound on the relevant events of its
+    widest query. A query without literal conjuncts counts the union of
+    its elements' events (stream, and pushed mask), exactly. A query
+    whose elements carry ``col == literal`` conjuncts (a stack's members)
+    adds up its elements' bounds: the element's stream count, cut to the
+    count of each of its literals in the column, from one count of each
+    column's values over the stream (``np.bincount`` for small
+    non-negative values, else ``np.unique``)."""
+    masks: Dict[int, np.ndarray] = {}
+    base: Dict[Tuple[int, Optional[str]], int] = {}  # an element's events
+    # (stream code, column) -> (sorted values, their counts, the column's
+    # dtype), or None when the column is not an integer column of the tape
+    value_counts: Dict[Tuple[int, str], Optional[Tuple]] = {}
+
+    def in_stream(code: int) -> np.ndarray:
+        if code not in masks:
+            masks[code] = stream == code
+        return masks[code]
+
+    def literal_count(code: int, key: str, lit: int) -> Optional[int]:
+        if (code, key) not in value_counts:
+            col = cols.get(key)
+            vc = None
+            if col is not None and col.dtype.kind in "iu":
+                vals = col[:total]
+                if len(spec.stream_codes) > 1:
+                    vals = vals[in_stream(code)]
+                if vals.size and vals.min() >= 0 and (
+                    vals.max() <= 4 * vals.size + 1024
+                ):
+                    bc = np.bincount(vals)
+                    nz = np.flatnonzero(bc)
+                    vc = (nz, bc[nz], col.dtype)
+                else:
+                    vc = (*np.unique(vals, return_counts=True), col.dtype)
+            value_counts[(code, key)] = vc
+        vc = value_counts[(code, key)]
+        if vc is None:
+            return None
+        u, c, dtype = vc
+        info = np.iinfo(dtype)
+        if not info.min <= lit <= info.max:
+            return None  # the device's cast of this literal wraps
+        i = int(np.searchsorted(u, lit))
+        return int(c[i]) if i < len(u) and u[i] == lit else 0
+
+    bounds = {}
+    for name, members in spec.relevance:
+        best = 0
+        for elements in members:
+            if not any(eqs for _, _, eqs in elements):
+                rel = np.zeros(total, dtype=np.bool_)
+                for code, key, _ in elements:
+                    m = in_stream(code)
+                    rel |= m if key is None else m & cols[key][:total]
+                best = max(best, int(np.count_nonzero(rel)))
+                continue
+            n = 0
+            for code, key, eqs in elements:
+                if (code, key) not in base:
+                    m = in_stream(code)
+                    base[(code, key)] = int(np.count_nonzero(
+                        m if key is None else m & cols[key][:total]
+                    ))
+                el = base[(code, key)]
+                for col_key, lit in eqs:
+                    c = literal_count(code, col_key, lit)
+                    if c is not None:
+                        el = min(el, c)
+                n += el
+            best = max(best, n)
+        bounds[name] = best
+    return bounds

@@ -304,14 +304,18 @@ def test_state_carried_from_jax_into_port():
 
 
 def test_multi_query_plan_matches_jax_stacked_group():
-    # the JAX package stacks the zoo's six structurally identical chains
-    # onto one query axis; the port runs them as six chain artifacts.
-    # Each output stream gets the same rows either way.
+    # both packages stack the zoo's six structurally identical chains onto
+    # one query axis: one stacked artifact, the same rows in each stream
     data = _columns(2 * 8192, 8192, 10, seed=3,
                     names=("alpha", "beta", "gamma"))
     kw = dict(stream="S", out="out0", names=("alpha", "beta", "gamma"))
     _, jjob = _run("jax", PLAN_ZOO["multiquery_stack6"], data, 8192, **kw)
     _, tjob = _run("torch", PLAN_ZOO["multiquery_stack6"], data, 8192, **kw)
+    jarts = jjob._plans["p"].plan.artifacts
+    tarts = tjob._plans["p"].plan.artifacts
+    assert [type(a).__name__ for a in tarts] == ["StackedChainArtifact"]
+    assert [a.name for a in tarts] == [a.name for a in jarts]
+    assert len(tarts[0].members) == 6
     for i in range(6):
         ref = jjob.results_with_ts(f"out{i}")
         assert len(ref) > 100
