@@ -19,8 +19,12 @@ fault:
    at E from 1 to 2^24 (more tiles than can be resident, so the look-back
    must progress), with and without the pad column, over random,
    all-INT_MAX, ascending, descending and full-range rows, over 1,000
-   back-to-back calls, and at a stack's shapes (64 rows of 8,192 and of
-   131,072 events); the chain advance exactly on headline-shaped inputs
+   back-to-back calls, at a stack's shapes (64 rows of 8,192 and of
+   131,072 events), and captured into a CUDA graph replayed on four new
+   inputs at the headline's and the stack's shapes (each replay exact,
+   one kernel call a replay in a profiler trace of the replays and on the
+   host, one look-back epoch a replay); the chain advance exactly on
+   headline-shaped inputs
    whose gathers are local (each fresh start searching from the next
    position) and on inputs with random positions, with padded and
    contiguous table rows, V = 0 (no kernel on the card), E = 0 and a
@@ -37,25 +41,42 @@ fault:
    and read just after; rows checked against the port's own CPU path on
    the first 1,048,576 events;
 5. filter: the bench's filter query, the same way;
-5b. bench main path: the headline and the filter as bench.py runs them,
-   with EngineConfig(lazy_projection=True, pred_pushdown=True): the
-   streaming Job over the whole stream (rows of the first 1,048,576 events
-   held to the CPU path under the same settings; for the headline, host
-   syncs equal to the drain fetches alone), then ResidentReplay
-   counts-only — stage seconds, run() + flush() and three rerun()s
-   (events/s median and best of the reruns), emitted counts equal to the
-   streaming run's, the chain kernels launched once per compacted step
-   (every step compacted on the host-known bound, with no read), one
-   staged segment's steps under sync debug mode "error", wire bytes per
-   event from the staged tensors, peak device memory, a profiler-traced
-   rerun's idle share — and a resident run with a collector over the
-   first 1,048,576 events whose rows equal the streaming rows, with no
-   lazy-ring miss;
+5b. bench main path: the headline, the filter and pattern2 as bench.py
+   runs them, with EngineConfig(lazy_projection=True,
+   pred_pushdown=True): the streaming Job over the whole stream, one step
+   a micro-batch (rows of the first 1,048,576 events held to the CPU path
+   under the same settings; host syncs equal to the drain fetches alone),
+   then ResidentReplay counts-only, each segment one CUDA graph replay —
+   stage seconds (the graphs' warm-up and capture included), run() +
+   flush() and three rerun()s (events/s median and best of the reruns),
+   emitted counts equal to the streaming run's, the chain kernels
+   launched once per compacted step, as often as on the eager path (the
+   resident replay pads no segment; every step compacted on the
+   host-known bound, with no read), graphs captured,
+   no eager segment, one staged segment under sync debug mode "error",
+   wire bytes per event from the staged segments, peak device memory
+   allocated and reserved (the graph pools), a profiler-traced rerun's
+   idle share, device records and host ops a segment, and its kernel
+   calls on the card (kernel records in the trace, equal to the host's
+   counts, which a replay adds back rather than counts at a launch) —
+   and a resident run with a collector over the whole stream, whose rows
+   equal the streaming rows (a graph replays segments it was not
+   captured on), with no lazy-ring miss; then the fused streaming Job (8
+   tapes a segment, bench.py's settings): its rows over the whole stream
+   equal to the one-step-a-tape card path's and, on the first 1,048,576
+   events, to the CPU path's, then counts-only over the whole stream: a
+   warm run (the captures), three timed runs (events/s median and best,
+   launches, host syncs, uploads), a traced run (kernel calls on the card
+   equal to the host's counts); no eager segment, and no capture after
+   the warm run. A line "graphs" after phase 8 gathers every path's
+   resident and fused numbers;
 6. quote board: `#window.unique(symbol)` with count/sum/avg/min/max over
    StockStream, 10,000 Zipf-weighted symbols (a 16,384-slot table), at
    batch 524,288 over 10,485,760 events, the unique-window fold called
    once per micro-batch and host syncs counted (drains only); rows checked
-   against the port's CPU path on the first 32,768 events;
+   against the port's CPU path on the first 32,768 events; then the fused
+   streaming Job, as in phase 5b (its rows over the whole stream equal to
+   the one-step-a-tape card path's);
 7. windows (in a process of its own, `--windows`): the bench's
    window_groupby (`#window.length(1000) select id,
    sum(price), count() group by id`, 1,000 ids) as phase 5b runs the
@@ -77,9 +98,11 @@ fault:
    131,072-event windows, as phase 5b runs the bench main path: streaming
    rows of the first 1,048,576 events held to the CPU path in all 64
    streams, host syncs only the drains', ResidentReplay counts-only with
-   both chain kernels launched once per step (80 a run) and no compaction
-   read, reruns, wire bytes, peak memory, a traced rerun's idle share and
-   one segment (two steps) under sync debug mode "error"; then one step on
+   both chain kernels launched once per step (80 a run, on the host and
+   in the trace) and no compaction read, and the rest of phase 5b (fused
+   streaming included; the resident and fused rows over the first
+   1,048,576 events: 4 segments of 2 steps on one graph); then one
+   step on
    the stack's full-width branch (its peak memory, its rows equal to the
    compacted branch's). The chain kernels' stacked inputs go to phase 9;
 9. kernels: each kernel timed on the inputs it was given on its path — its
@@ -116,14 +139,17 @@ headline's inputs of that checkout.
 Give the two versions as A B B A, so that drift of the card or the host
 during the call shows.
 
-    python3 chip_smoke.py --ab-multiquery DIR [DIR ...]
+    python3 chip_smoke.py --ab-graphs DIR [DIR ...]
 
-runs multiquery64 resident (counts-only, bench settings, this file's
-stream) with the package of each checkout, each in a process of its own,
-and prints one JSON line per checkout: its artifacts, steps, stage
-seconds, rerun seconds, events/s and host syncs, and the bench headline
-resident: the seconds and events/s of HEADLINE_RERUNS untraced reruns, and
-its device records and host torch ops per step (a traced rerun). Give the
+runs the five bench configs (headline, filter, pattern2, window_groupby,
+multiquery64; bench settings, counts-only, this file's stream) with the
+package of each checkout, each in a process of its own, and prints one
+JSON line per checkout: per config, resident (stage seconds, AB_RERUNS
+reruns: events/s median and best; a traced rerun: idle share, device
+records and host torch ops per segment and per step; peak memory
+allocated and reserved) and streaming counts-only with
+fused_segment_len FUSED_K (a checkout before the fused mode steps one tape
+at a time): events/s median and best of AB_RERUNS runs. Give the
 checkouts as A B B A here too.
 """
 
@@ -156,7 +182,6 @@ QUOTE_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
 N_SYMBOLS = 10_000
 FOLD_RTOL = 1e-5  # sums: the kernel's fp64 scan vs the plain float32 fold
 AB_REPEATS = 3  # full runs of each path per checkout with --ab
-HEADLINE_RERUNS = 15  # resident headline reruns per checkout, --ab-multiquery
 # phase 8's result and recorded kernel inputs, in the ignored build tree
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "smoke")
@@ -169,6 +194,10 @@ HEADLINE = (
 )
 FILTER = (
     "from inputStream[id == 2] select id, name, price insert into matches"
+)
+PATTERN2 = (
+    "from every s1 = inputStream[id == 1] -> s2 = inputStream[id == 2] "
+    "select s1.timestamp as t1, s2.timestamp as t2 insert into matches"
 )
 QUOTE_BOARD = (
     "from StockStream#window.unique(symbol) "
@@ -320,6 +349,65 @@ def timed_back_to_back(fn, runs, warmup=1):
     return a.elapsed_time(b) / runs, statistics.median(times)
 
 
+# per kernel wrapper, the kernel that each of its calls launches exactly
+# once (the unique fold's pipeline ends with its rows kernel)
+TRACED_KERNELS = {"multi_reverse_cummin": "suffix_min_kernel",
+                  "chain_advance": "chain_advance_kernel",
+                  "unique_window_fold": "rows_kernel"}
+
+
+def traced_launches(prof):
+    """Per kernel wrapper, its calls that ran on the card in a profiler
+    trace: the records of the kernel it launches once a call
+    (TRACED_KERNELS)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    pats = {k: re.compile(rf"(?<!\w){n}(?!\w)")
+            for k, n in TRACED_KERNELS.items()}
+    out = dict.fromkeys(TRACED_KERNELS, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k, pat in pats.items():
+                if pat.search(e.name):
+                    out[k] += 1
+    return out
+
+
+def traced_run(co, run, what, prepare=None, attempts=3):
+    """``run()``, which returns its wall seconds, in a profiler trace of
+    the card and the host, after ``prepare()`` and with the wrappers'
+    launch counts reset. The launches each wrapper counted on the host
+    must equal its calls that ran on the card (``traced_launches``): on a
+    graph path each replay adds the launches its capture counted back to
+    the host counts, so only the trace shows that a replay ran each
+    kernel. A trace with fewer records than the host counted (the tracer
+    loses records at times, see ``kernel_records``) is taken again, up to
+    ``attempts`` times; one with more fails at once. Returns (trace,
+    seconds, launches counted in the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        if prepare is not None:
+            prepare()
+        co.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run()
+        host = co.launch_counts()
+        traced = traced_launches(prof)
+        if traced == host:
+            return prof, wall, traced
+        if any(traced[k] > host[k] for k in host):
+            raise AssertionError(f"{what}: the card ran {traced} kernel "
+                                 f"calls, the host counted {host}")
+        log(f"  {what}: a trace of {traced} kernel calls, {host} counted "
+            "on the host; again")
+    raise AssertionError(f"{what}: no trace held the kernel calls the host "
+                         f"counted ({host})")
+
+
 def kernel_records(fn, runs, warmup=10):
     """Per name, (records, device us) of every kernel and copy on the card
     in a profiler trace of ``runs`` calls of ``fn``, with a sync at both
@@ -450,6 +538,62 @@ def check_reverse_cummin(co, dev, gen):
         raise AssertionError(f"reverse_cummin: {int(wrong)} wrong values "
                              f"over {K1_REPEATS} back-to-back calls")
     log(f"  reverse_cummin C=2 E={E}: {K1_REPEATS} back-to-back calls exact")
+    return err
+
+
+K1_REPLAY_SHAPES = ((2, 65_536), (64, 8_192))  # headline's, the stack's
+K1_REPLAYS = 4
+
+
+def check_reverse_cummin_replay(co, graphs, dev, gen):
+    """The reverse cummin captured into a CUDA graph (one call, the pad
+    column on) and replayed K1_REPLAYS times on other inputs copied into
+    its static input, at the headline's and the stack's shapes: each
+    replay exact against the plain version (a look-back epoch baked into
+    the captured launch would read the last replay's prefixes), one kernel
+    call a replay on the card, counted in a profiler trace of the replays,
+    and as many on the host, and the scratch's epoch mirror advanced once
+    a replay."""
+    import torch
+
+    err = 0
+    for C, E in K1_REPLAY_SHAPES:
+        x = torch.randint(0, E + 1, (C, E), generator=gen, device=dev,
+                          dtype=torch.int32)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # sizes the stream's scratch
+            co.multi_reverse_cummin(x, pad=E)
+        torch.cuda.current_stream().wait_stream(side)
+        g, out = graphs.capture(lambda: co.multi_reverse_cummin(x, pad=E),
+                                side)
+        (buf, n), = g.calls
+        epochs = []
+
+        def replays():
+            nonlocal err
+            t0, used0 = time.perf_counter(), buf.used
+            for i in range(K1_REPLAYS):
+                new = (special_rows(C, E, dev, gen) if i % 2
+                       else torch.randint(0, E + 1, (C, E), generator=gen,
+                                          device=dev, dtype=torch.int32))
+                x.copy_(new)
+                g.replay()
+                torch.cuda.synchronize()
+                err = max(err, same(out, co.reverse_cummin_plain(new, E),
+                                    f"reverse_cummin replay {i} C={C} "
+                                    f"E={E}"))
+            epochs.append(buf.used - used0)
+            return time.perf_counter() - t0
+
+        _, _, calls = traced_run(co, replays,
+                                 f"reverse_cummin replays C={C} E={E}")
+        if (n != 1 or calls["multi_reverse_cummin"] != K1_REPLAYS
+                or set(epochs) != {K1_REPLAYS}):
+            raise AssertionError("reverse_cummin replay: kernel calls or "
+                                 "epochs not one a replay")
+        log(f"  reverse_cummin C={C} E={E}: {K1_REPLAYS} graph replays on "
+            "new inputs exact")
     return err
 
 
@@ -958,10 +1102,10 @@ def rows_match(got, ref, rtol, what):
     """Fails unless the rows ``got`` equal ``ref``: the same timestamps in
     the same order and every value equal, float values within ``rtol``
     (0: exactly). Returns the largest relative difference of a float."""
-    if rtol == 0.0:
-        if got != ref:
-            raise AssertionError(f"{what}: rows differ")
+    if got == ref:
         return 0.0
+    if rtol == 0.0:
+        raise AssertionError(f"{what}: rows differ")
     if len(got) != len(ref):
         raise AssertionError(f"{what}: {len(got)} rows, expected {len(ref)}")
     worst = 0.0
@@ -986,28 +1130,38 @@ def stream_rows(job, outs):
 
 
 def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
-                    expect_rows=None, outs=("matches",)):
+                    expect_rows=None, outs=("matches",), row_batches=None):
     """One path as bench.py runs it: EngineConfig(lazy_projection=True,
     pred_pushdown=True) over the whole stream, through the streaming Job
-    (rows of the first micro-batches held to the CPU path under the same
-    settings; host syncs) and through ResidentReplay, counts-only as
-    bench.py's resident mode runs it: stage, run() + flush(), three
-    rerun()s. Then the steps of one staged segment under torch's sync debug
-    mode "error", a resident run with a collector over the first
-    micro-batches (rows equal to the streaming run's, no lazy miss), and a
-    profiler-traced rerun for the card's idle share. With ``chain`` the
-    chain kernels must launch once per compacted step, and every step must
-    have been compacted on the host-known bound (no read). Floats of the
-    rows are held to the CPU path within ``rtol`` (0: exactly); with
-    ``expect_rows`` the run must emit that many rows. Every stream of
-    ``outs`` is checked; counts are summed over them."""
+    one step a micro-batch (rows of the first micro-batches held to the
+    CPU path under the same settings; host syncs), through ResidentReplay,
+    counts-only as bench.py's resident mode runs it (stage, run() +
+    flush(), three rerun()s; each segment one CUDA graph replay), and
+    through the fused streaming Job (``fused_segment``). Then one staged
+    segment under torch's sync debug mode "error", a profiler-traced rerun
+    for the card's idle share, its device records and host ops a segment
+    and the kernel calls that ran on the card (``traced_run``), and a
+    resident run with a collector over the first ``row_batches``
+    micro-batches (None: the whole stream), long enough that a graph
+    replays a segment it was not captured on: its rows equal to the
+    streaming run's and, on the CPU check's events, to the CPU path's,
+    with no lazy miss. With ``chain`` the chain kernels must launch once
+    per compacted step, as on the eager path, in the host counts and in
+    the trace, and every step must have been compacted on the host-known
+    bound (no read). No segment may run eagerly. Floats of the rows are
+    held to the CPU path and the eager card path within ``rtol`` (0:
+    exactly); with ``expect_rows`` the run must emit that many rows. Every
+    stream of ``outs`` is checked; counts are summed over them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from flink_siddhi_tpu_torch.compiler import nfa
 
     cfg = bench_config(fpt)
     check = batches[:CHECK_BATCHES]
+    rowed = batches[:row_batches]
     n_events = sum(len(b) for b in batches)
     last_ts = int(check[-1].timestamps[-1])
+    rowed_ts = int(rowed[-1].timestamps[-1])
     _, cpu_s, cpu_job = run_job(fpt, cql, schema, check, "cpu",
                                 out=outs[0], config=cfg)
     cpu_rows = stream_rows(cpu_job, outs)
@@ -1027,6 +1181,9 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
             f"{sum(len(b) for b in check)} events against the CPU path",
         ))
     n_rows = sum(len(r) for r in rows.values())
+    # the eager card path's rows over the row check's micro-batches
+    eager_rows = {o: [r for r in rows[o] if r[0] <= rowed_ts]
+                  for o in outs}
     rt = job._plans["bench"]
     if rt.lazy is not None and rt.lazy.missed:
         raise AssertionError(f"{name}: {rt.lazy.missed} lazy misses")
@@ -1048,30 +1205,40 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     rep = fpt.ResidentReplay(job)
     rep.stage()
     (pid, segs), = rep.segments.items()
-    tapes = [t for seg in segs for t in seg]
-    # the bytes each staged tape holds on the card (n_valid and the ts
-    # base stay on the host as scalars)
-    wire_bytes = sum(a.nbytes for t in tapes for a in t.arrays())
-    ts_kinds = sorted({t.ts_kind for t in tapes})
+    n_tapes = sum(len(seg) for seg in segs)
+    # the bytes the staged segments hold on the card: every tape's leaves,
+    # each 16-byte aligned
+    wire_bytes = sum(seg.nbytes for seg in segs)
+    ts_kinds = sorted({seg.template.ts_kind for seg in segs})
     seg_lens = [len(seg) for seg in segs]
     art = job._plans[pid].plan.artifacts[0]
+    captured = job.graphs_captured
     co.reset_launches()
     syncs0 = getattr(art, "host_syncs", 0)
+    host_syncs0 = job.host_syncs
     t0 = time.perf_counter()
     rep.run()
     job.flush()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = co.launch_counts()
+    run_syncs = job.host_syncs - host_syncs0
     count = sum(job.emitted_counts.values())
     if count != streaming["rows"] or count != (expect_rows or count):
         raise AssertionError(f"{name}: resident run emitted {count} rows, "
                              f"the streaming run {streaming['rows']}")
+    if job.eager_segments or job.graphs_captured != captured or not captured:
+        raise AssertionError(
+            f"{name}: {job.eager_segments} eager segments, "
+            f"{job.graphs_captured} graphs ({captured} at stage)"
+        )
     if chain:
-        compacted = sum(t.bounds[art.name] <= art.compact_width(t.capacity)
-                        for t in tapes)
-        if compacted != len(tapes) or art.host_syncs != syncs0:
-            raise AssertionError(f"{name}: {compacted} of {len(tapes)} "
+        compacted = sum(
+            nfa.step_branch(art, seg.template.capacity, b.get(art.name))
+            == "compact" for seg in segs for b in seg.bounds
+        )
+        if compacted != n_tapes or art.host_syncs != syncs0:
+            raise AssertionError(f"{name}: {compacted} of {n_tapes} "
                                  "steps compacted without a read")
         for k in ("multi_reverse_cummin", "chain_advance"):
             if launches[k] != compacted:
@@ -1085,9 +1252,12 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
         reruns.append(rep.rerun())
         if sum(job.emitted_counts.values()) - before != count:
             raise AssertionError(f"{name}: a rerun emitted another count")
+    if job.graphs_captured != captured:
+        raise AssertionError(f"{name}: a rerun captured a graph")
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
 
-    # one staged segment's steps with no host wait
+    # one staged segment with no host wait
     job.reset_engine_state()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1097,29 +1267,56 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
 
-    # a profiler-traced rerun: the card's idle share
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        traced_s = rep.rerun()
-    busy_us, per_name = device_activity(prof)
-    if busy_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    records = device_records(prof)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    # a profiler-traced rerun: the card's idle share, device records and
+    # host ops a segment, and the kernel calls that ran on the card
+    prof, traced_s, traced_launch = traced_run(
+        co, rep.rerun, f"{name}: traced resident rerun")
+    traced = traced_share(prof, traced_s, len(segs), n_tapes)
+    del prof
+    if chain:
+        for k in ("multi_reverse_cummin", "chain_advance"):
+            if traced_launch[k] != compacted:
+                raise AssertionError(
+                    f"{name}: {k} ran {traced_launch[k]} times on the card "
+                    f"in a rerun of {compacted} compacted steps"
+                )
     stage_s = rep.stage_seconds
-    n_steps = len(tapes)
-    del rep, job, tapes, segs
+    del rep, job, segs
 
-    # resident rows with a collector, over the first micro-batches
-    rjob = replay_job(fpt, cql, schema, check, retain=True)
-    fpt.ResidentReplay(rjob).execute()
+    # resident rows with a collector, over the row check's micro-batches
+    rjob = replay_job(fpt, cql, schema, rowed, retain=True)
+    rrep = fpt.ResidentReplay(rjob)
+    rrep.execute()
+    res_segments = sum(len(v) for v in rrep.segments.values())
+    if rjob.eager_segments or not res_segments > rjob.graphs_captured:
+        raise AssertionError(
+            f"{name}: the resident row check ran {rjob.eager_segments} "
+            f"eager segments, {res_segments} segments on "
+            f"{rjob.graphs_captured} graphs (none replayed on another "
+            "segment)"
+        )
     res_rows = stream_rows(rjob, outs)
     for o in outs:
-        max_rel = max(max_rel, rows_match(res_rows[o], cpu_rows[o], rtol,
-                                          f"{name}: resident rows of {o}"))
+        rows_match(res_rows[o], eager_rows[o], rtol,
+                   f"{name}: resident rows of {o} of "
+                   f"{len(rowed)} micro-batches vs the eager card path")
+        max_rel = max(max_rel, rows_match(
+            [r for r in res_rows[o] if r[0] <= last_ts], cpu_rows[o],
+            rtol, f"{name}: resident rows of {o} vs the CPU path"))
     lazy = rjob._plans["bench"].lazy
     if lazy is not None and lazy.missed:
         raise AssertionError(f"{name}: resident rows missed lazy values")
+    res_check_rows = sum(len(r) for r in res_rows.values())
+    del rjob, rrep, res_rows
+    fused, rel = fused_segment(
+        fpt, co, name, cql, schema, batches, outs=outs, config=cfg,
+        cpu_rows=cpu_rows, cpu_ts=last_ts, eager_rows=eager_rows,
+        rtol=rtol, row_batches=row_batches,
+        expect_launches=("multi_reverse_cummin", "chain_advance")
+        if chain else (),
+    )
+    del eager_rows
+    max_rel = max(max_rel, rel)
     result = {
         "path": f"bench_{name}",
         "config": "EngineConfig(lazy_projection=True, pred_pushdown=True)",
@@ -1135,25 +1332,213 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
             "rows": count,
             "segments": seg_lens,
             "launches": launches,
+            "launches_traced": traced_launch,
+            "graphs_captured": captured,
+            "eager_segments": 0,
+            "host_syncs_first_run": run_syncs,
             "max_memory_allocated_bytes": peak,
-            "traced_rerun_s": traced_s,
-            "traced_device_busy_s": busy_us / 1e6,
-            "traced_idle_share": 1 - busy_us / 1e6 / traced_s,
-            "traced_device_records_per_step": records / n_steps,
-            "top_device_ms": [[k[:70], v / 1e3] for k, v in top],
-            "segment_steps_sync_free": True,
-            "steps": n_steps,
+            "max_memory_reserved_bytes": peak_reserved,
+            **traced,
+            "segment_sync_free": True,
+            "steps": n_tapes,
         },
+        "fused_streaming": fused,
         "wire_bytes_per_event": wire_bytes / n_events,
         "wire_bytes": wire_bytes,
         "ts_kinds": ts_kinds,
         "cpu_check_events": sum(len(b) for b in check),
         "cpu_check_rows": sum(len(r) for r in cpu_rows.values()),
         "cpu_check_s": cpu_s,
-        "resident_check_rows": sum(len(r) for r in res_rows.values()),
+        "row_check_batches": len(rowed),
+        "resident_check_rows": res_check_rows,
         "max_rel_err_vs_cpu": max_rel,
     }
     log(json.dumps(result))
+    return result
+
+
+def traced_share(prof, wall_s, segments, steps):
+    """From a profiler trace of one run: the card's busy seconds and idle
+    share, its kernel and copy records, and the host's top-level torch ops,
+    per segment and per step, and the heaviest device names."""
+    busy_us, per_name = device_activity(prof)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    records = device_records(prof)
+    host_ops = sum(1 for e in prof.events()
+                   if e.cpu_parent is None and e.name.startswith("aten::"))
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "traced_run_s": wall_s,
+        "traced_device_busy_s": busy_us / 1e6,
+        "traced_idle_share": 1 - busy_us / 1e6 / wall_s,
+        "traced_device_records_per_segment": records / segments,
+        "traced_device_records_per_step": records / steps,
+        "traced_host_ops_per_segment": host_ops / segments,
+        "top_device_ms": [[k[:70], v / 1e3] for k, v in top],
+    }
+
+
+FUSED_K = 8  # bench.py's BENCH_SEGMENT default
+FUSED_RUNS = 3
+
+
+def fused_job(fpt, cql, schema, batches, retain, config=None,
+              stream="inputStream"):
+    """A streaming Job with bench.py's fused dispatch: segments of
+    FUSED_K tapes (at most the package's MAX_INFLIGHT_CYCLES, bench.py's
+    BENCH_INFLIGHT, unfinished on the card)."""
+    plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench",
+                            config=config)
+    job = fpt.Job([plan], [fpt.BatchSource(stream, schema, iter(batches))],
+                  batch_size=BATCH, time_mode="processing",
+                  retain_results=retain, device="cuda")
+    job.fused_segment_len = FUSED_K
+    return job
+
+
+def re_source(fpt, job, schema, batches, stream="inputStream"):
+    """Point ``job`` at a fresh source over the same batches (bench.py's
+    re_source): with ``Job.reset_engine_state`` a rerun of the stream."""
+    from flink_siddhi_tpu_torch.runtime.executor import MIN_WM
+
+    job._sources = [fpt.BatchSource(stream, schema, iter(batches))]
+    job._source_wm = [MIN_WM]
+    job._source_done = [False]
+
+
+def fused_segment(fpt, co, name, cql, schema, batches, outs, config,
+                  cpu_rows, cpu_ts, eager_rows, rtol, stream="inputStream",
+                  expect_launches=(), row_batches=None):
+    """The fused streaming Job (FUSED_K tapes a segment, one graph replay
+    a segment): its rows over the first ``row_batches`` micro-batches
+    (None: the whole stream; long enough that a graph replays a segment
+    it was not captured on) held to the eager card path's
+    (``eager_rows``, over the same micro-batches) and, up to ``cpu_ts``,
+    to the CPU path's; then counts-only over the whole stream, as
+    bench.py's streaming mode runs it (``streaming_counts``). Returns
+    (result, largest relative float difference to the CPU rows)."""
+    rowed = batches[:row_batches]
+    job = fused_job(fpt, cql, schema, rowed, True, config, stream)
+    job.run()
+    if (job.eager_segments or not job.graphs_captured
+            or not job.fusion_dispatches > job.graphs_captured):
+        raise AssertionError(
+            f"{name}: the fused row check ran {job.eager_segments} eager "
+            f"segments, {job.fusion_dispatches} segments on "
+            f"{job.graphs_captured} graphs (none replayed on another "
+            "segment)"
+        )
+    rows = stream_rows(job, outs)
+    del job
+    rel = 0.0
+    for o in outs:
+        rows_match(rows[o], eager_rows[o], rtol,
+                   f"{name}: fused rows of {o} of {len(rowed)} "
+                   "micro-batches vs the eager card path")
+        rel = max(rel, rows_match([r for r in rows[o] if r[0] <= cpu_ts],
+                                  cpu_rows[o], rtol,
+                                  f"{name}: fused rows of {o} vs the CPU"))
+    check_rows = sum(len(r) for r in rows.values())
+    del rows
+    result = streaming_counts(fpt, co, name, cql, schema, batches, config,
+                              stream, expect_launches)
+    result["row_check_batches"] = len(rowed)
+    result["check_rows"] = check_rows
+    log(json.dumps({"path": f"fused_{name}", **result}))
+    return result, rel
+
+
+def streaming_counts(fpt, co, name, cql, schema, batches, config, stream,
+                     expect_launches=()):
+    """The fused streaming Job counts-only over the whole stream, as
+    bench.py's streaming mode runs it: one warm run (the graphs are
+    captured there), FUSED_RUNS timed runs of the same job (reset and
+    re-sourced: events/s median and best, launches and host syncs of the
+    last), and a profiler-traced run (``traced_run``: the kernel calls
+    that ran on the card equal to the host's counts). No segment may run
+    eagerly, no timed or traced run may capture a graph, and the host
+    syncs are the drains'. Each kernel named in ``expect_launches``
+    launches once a step (padding tapes included), in the host counts and
+    in the trace."""
+    import torch
+
+    from flink_siddhi_tpu_torch.runtime.executor import MAX_INFLIGHT_CYCLES
+
+    n_events = sum(len(b) for b in batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    job = fused_job(fpt, cql, schema, batches, False, config, stream)
+    t0 = time.perf_counter()
+    job.run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captured = job.graphs_captured
+    counts = sum(job.emitted_counts.values())
+
+    def rerun():
+        job.reset_engine_state()
+        re_source(fpt, job, schema, batches, stream)
+
+    def run():
+        before = sum(job.emitted_counts.values())
+        t0 = time.perf_counter()
+        job.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sum(job.emitted_counts.values()) - before != counts:
+            raise AssertionError(f"{name}: a streaming run emitted another "
+                                 "count")
+        return wall
+
+    runs = []
+    for _ in range(FUSED_RUNS):
+        rerun()
+        co.reset_launches()
+        syncs0, drains0 = job.host_syncs, job.drain_syncs
+        disp0, up0 = job.fusion_dispatches, job.fusion_h2d_uploads
+        runs.append(run())
+    launches = co.launch_counts()
+    dispatches = job.fusion_dispatches - disp0
+    k = job._fused_k(job._plans["bench"])
+    steps = dispatches * k  # every segment padded to k tapes
+    if job.host_syncs - syncs0 != job.drain_syncs - drains0:
+        raise AssertionError(f"{name}: streaming host syncs beyond the "
+                             "drains")
+    result = {
+        "segment_len": k,
+        "max_inflight_cycles": MAX_INFLIGHT_CYCLES,
+        "warm_run_s": warm_s,
+        "run_s": runs,
+        "events_per_s_median": n_events / statistics.median(runs),
+        "events_per_s_best": n_events / min(runs),
+        "rows": counts,
+        "steps": steps,
+        "dispatches": dispatches,
+        "h2d_uploads": job.fusion_h2d_uploads - up0,
+        "graphs_captured": captured,
+        "eager_segments": job.eager_segments,
+        "host_syncs": job.host_syncs - syncs0,
+        "launches": launches,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+    }
+    prof, traced_s, traced_launch = traced_run(
+        co, run, f"{name}: traced fused run", prepare=rerun)
+    result["launches_traced"] = traced_launch
+    result.update(traced_share(prof, traced_s, dispatches, steps))
+    del prof
+    if job.eager_segments or job.graphs_captured != captured:
+        raise AssertionError(
+            f"{name}: {job.eager_segments} eager segments; "
+            f"{job.graphs_captured - captured} graphs captured after the "
+            "warm run"
+        )
+    for kname in expect_launches:
+        if launches[kname] != steps or traced_launch[kname] != steps:
+            raise AssertionError(
+                f"{name}: fused {kname} launched {launches[kname]} times "
+                f"(on the card {traced_launch[kname]}) in {steps} steps")
     return result
 
 
@@ -1306,6 +1691,9 @@ def window_phase(fpt, co):
                             wschema, wbatches, chain=False,
                             rtol=WINDOW_RTOL,
                             expect_rows=BATCH * N_BATCHES)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    with open(os.path.join(SMOKE_DIR, "window_groupby.json"), "w") as f:
+        json.dump(bench, f)
     del wschema, wbatches
     schema, batches = bench_stream(fpt, BATCH * WINDOW_CLASS_BATCHES, BATCH)
     mschema, mbatches = bench_stream(fpt, MATRIX_BATCH * WINDOW_CLASS_BATCHES,
@@ -1407,17 +1795,21 @@ def multiquery_phase(fpt, co, out_path):
     rec_k2 = Recorder(co.chain_advance, keep=cpu_steps + 4)
     nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
     try:
+        # rows over the CPU check's micro-batches: 8 steps of 131,072
+        # events, 4 segments on one graph
         bench = bench_main_path(fpt, co, "multiquery64", MULTIQUERY64,
-                                schema, batches, chain=True, outs=MQ_OUTS)
+                                schema, batches, chain=True, outs=MQ_OUTS,
+                                row_batches=CHECK_BATCHES)
     finally:
         nfa.multi_reverse_cummin = co.multi_reverse_cummin
         nfa.chain_advance = co.chain_advance
     steps = N_BATCHES * BATCH // MQ_STEP_EVENTS
     res = bench["resident"]
     for k in ("multi_reverse_cummin", "chain_advance"):
-        if res["launches"][k] != steps:
+        if res["launches"][k] != steps or res["launches_traced"][k] != steps:
             raise AssertionError(f"multiquery64: {k} launched "
-                                 f"{res['launches'][k]} times in {steps} "
+                                 f"{res['launches'][k]} times (on the card "
+                                 f"{res['launches_traced'][k]}) in {steps} "
                                  "steps")
     if rec_k2.args is None or rec_k2.args[4].device.type != "cuda":
         raise AssertionError("multiquery64: no stacked kernel input "
@@ -1516,6 +1908,7 @@ def quote_board(fpt, co):
         )
     if job.host_syncs != job.drain_syncs:
         raise AssertionError("quote board: host syncs beyond the drains")
+    host_syncs, drain_syncs = job.host_syncs, job.drain_syncs
     state = job._plans["bench"].states["query_0"]
     slots = int(state["valid"].shape[0])
     bucket = 128
@@ -1525,11 +1918,26 @@ def quote_board(fpt, co):
         raise AssertionError(
             f"quote board: a table of {slots} slots for {n_keys} symbols"
         )
+    peak = torch.cuda.max_memory_allocated()
+    n_rows = len(rows)
+    del job
+    # fused streaming: segments of the unique fold's steps, one graph
+    # replay each (the table grows, and its graphs are captured again, in
+    # the row check and the warm run); its rows over the whole stream
+    # held to the eager run's
+    fused, frel = fused_segment(
+        fpt, co, "quote_board", QUOTE_BOARD, schema, batches,
+        outs=("Board",), config=None, cpu_rows={"Board": cpu_rows},
+        cpu_ts=int(check[-1].timestamps[-1]), eager_rows={"Board": rows},
+        rtol=FOLD_RTOL, stream="StockStream",
+        expect_launches=("unique_window_fold",),
+    )
+    del rows
     result = {
         "path": "quote_board",
         "events": n_events,
         "batch": BATCH,
-        "rows": len(rows),
+        "rows": n_rows,
         "symbols": n_keys,
         "table_slots": slots,
         "fold_kernel_launches_per_call":
@@ -1537,14 +1945,15 @@ def quote_board(fpt, co):
         "fold_scratch_bytes": co.unique_window_fold.scratch_bytes,
         "wall_s": wall,
         "events_per_s": n_events / wall,
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "host_syncs": job.host_syncs,
-        "drain_syncs": job.drain_syncs,
+        "max_memory_allocated_bytes": peak,
+        "host_syncs": host_syncs,
+        "drain_syncs": drain_syncs,
         "launches": launches,
         "cpu_check_events": QUOTE_CHECK_EVENTS,
         "cpu_check_rows": len(cpu_rows),
         "cpu_check_s": cpu_s,
-        "cpu_check_max_rel_err": rel,
+        "cpu_check_max_rel_err": max(rel, frel),
+        "fused_streaming": fused,
     }
     log(json.dumps(result))
     return result, schema, batches
@@ -1905,6 +2314,7 @@ def main():
         import flink_siddhi_tpu_torch as fpt
         from flink_siddhi_tpu_torch.compiler import cuda_ops as co
         from flink_siddhi_tpu_torch.compiler import nfa, scan_windows
+        from flink_siddhi_tpu_torch.runtime import graphs
     except ImportError as e:
         print(f"chip_smoke: run it from the root of a checkout: {e}",
               file=sys.stderr)
@@ -1935,6 +2345,8 @@ def main():
     err_k2 = check_chain_advance(co, dev, gen_dev)
     err_k2 = max(err_k2, check_stacked_chain_advance(co, dev, gen_dev))
     err_k3, rel_k3 = check_unique_fold(co, dev, gen)
+    err_k1 = max(err_k1, check_reverse_cummin_replay(co, graphs, dev,
+                                                     gen_dev))
 
     # 4. headline end to end; record each kernel's inputs mid-run
     schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
@@ -1963,7 +2375,10 @@ def main():
         "streaming Job and ResidentReplay")
     bench_head = bench_main_path(fpt, co, "headline", HEADLINE, schema,
                                  batches, chain=True)
-    bench_main_path(fpt, co, "filter", FILTER, schema, batches, chain=False)
+    bench_filter = bench_main_path(fpt, co, "filter", FILTER, schema,
+                                   batches, chain=False)
+    bench_p2 = bench_main_path(fpt, co, "pattern2", PATTERN2, schema,
+                               batches, chain=True)
     del schema, batches
 
     # 6. the quote board end to end; record the fold's inputs of the
@@ -2005,6 +2420,14 @@ def main():
         mq = json.load(f)
     mq_inputs = torch.load(mq_path + ".pt")
     log(f"  multiquery64 phase {time.perf_counter() - t_mq:.1f} s")
+
+    # the graph phase: each path's segments as CUDA graph replays,
+    # resident and fused streaming, in one line
+    with open(os.path.join(SMOKE_DIR, "window_groupby.json")) as f:
+        bench_wg = json.load(f)
+    log(json.dumps({"graphs": graph_summary(
+        [bench_head, bench_filter, bench_p2, bench_wg, mq["bench"]], board,
+    )}))
 
     # 9. kernel timing on each path's own inputs
     log("[9/11] kernels on their paths' inputs")
@@ -2065,13 +2488,18 @@ def main():
                          board["launches"]["unique_window_fold"], err_k3,
                          rel_k3, floor_ms),
     ]
-    # the kernels' launches in the bench main path's first resident run,
-    # and in multiquery64's
-    mq_launches = mq["bench"]["resident"]["launches"]
+    # the kernels' calls that ran on the card in a traced rerun of the
+    # bench main path's resident headline and multiquery64's, and in a
+    # traced fused run of the quote board (kernel records in the profiler
+    # trace, equal to the host's counts: traced_run)
     for k in kernels:
         k["launches_bench_main_path"] = \
-            bench_head["resident"]["launches"][k["name"]]
-        k["launches_multiquery64"] = mq_launches[k["name"]]
+            bench_head["resident"]["launches_traced"][k["name"]]
+        k["launches_multiquery64"] = \
+            mq["bench"]["resident"]["launches_traced"][k["name"]]
+        k["launches_fused_quote_board"] = \
+            board["fused_streaming"]["launches_traced"][k["name"]]
+        k["launches_graph_paths_by"] = "kernel records in a profiler trace"
     # the chain kernels at the stack's shapes
     kernels[0]["stacked"] = reverse_cummin_times(co, mq_k1[0],
                                                  mq_inputs["k1_kw"].get(
@@ -2113,6 +2541,31 @@ def main():
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+GRAPH_KEYS = (
+    "events_per_s_median", "events_per_s_best", "stage_s", "warm_run_s",
+    "traced_host_ops_per_segment", "traced_device_records_per_segment",
+    "traced_idle_share", "max_memory_allocated_bytes",
+    "max_memory_reserved_bytes", "graphs_captured", "eager_segments",
+    "host_syncs", "host_syncs_first_run", "launches", "launches_traced",
+    "segment_len",
+    "dispatches",
+)
+
+
+def graph_summary(bench_paths, board):
+    """Per path, resident and fused streaming: the graph phase's metrics
+    (see GRAPH_KEYS) from the paths' results."""
+    out = []
+    for b in bench_paths:
+        for mode in ("resident", "fused_streaming"):
+            out.append({"path": b["path"], "mode": mode, **{
+                k: v for k, v in b[mode].items() if k in GRAPH_KEYS}})
+    out.append({"path": "quote_board", "mode": "fused_streaming", **{
+        k: v for k, v in board["fused_streaming"].items()
+        if k in GRAPH_KEYS}})
+    return out
 
 
 def ab_one(root):
@@ -2183,13 +2636,26 @@ def ab_one(root):
     return 0
 
 
-def ab_multiquery_one(root):
-    """multiquery64 resident, counts-only, as bench.py runs it, with the
-    package of the checkout at ``root`` (this file's stream and settings):
-    stage, run() + flush(), AB_REPEATS rerun()s."""
+AB_GRAPH_CONFIGS = (
+    ("headline", HEADLINE, N_IDS), ("filter", FILTER, N_IDS),
+    ("pattern2", PATTERN2, N_IDS),
+    ("window_groupby", WINDOW_GROUPBY, N_IDS_WINDOW),
+    ("multiquery64", MULTIQUERY64, N_IDS),
+)
+AB_RERUNS = 5
+
+
+def ab_graphs_one(root):
+    """The five bench configs with the package of the checkout at
+    ``root``, counts-only under the bench's settings: resident (stage,
+    run() + flush(), AB_RERUNS reruns, a traced rerun: idle share, device
+    records and host ops a segment and a step, peak memory) and streaming
+    with ``fused_segment_len`` FUSED_K (a checkout without the fused mode
+    steps one tape at a time), one warm run and AB_RERUNS timed runs."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import flink_siddhi_tpu_torch as fpt
     from flink_siddhi_tpu_torch.compiler import cuda_ops as co
@@ -2197,61 +2663,59 @@ def ab_multiquery_one(root):
     if not os.path.abspath(fpt.__file__).startswith(root + os.sep):
         raise AssertionError(f"imported {fpt.__file__}, not {root}'s")
     co.build()
-    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
-    n_events = sum(len(b) for b in batches)
-    job = replay_job(fpt, MULTIQUERY64, schema, batches, retain=False)
-    rep = fpt.ResidentReplay(job)
-    rep.stage()
-    (pid, segs), = rep.segments.items()
-    plan = job._plans[pid].plan
-    t0 = time.perf_counter()
-    rep.run()
-    job.flush()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    syncs = job.host_syncs
-    reruns = [rep.rerun() for _ in range(AB_REPEATS)]
-    head = headline_resident(fpt, schema, batches)
-    print(json.dumps({
-        "checkout": root, "path": "multiquery64_resident",
-        "artifacts": [type(a).__name__ for a in plan.artifacts][:2],
-        "n_artifacts": len(plan.artifacts),
-        "steps": sum(len(seg) for seg in segs),
-        "stage_s": rep.stage_seconds, "first_run_s": first_s,
-        "rerun_s": reruns,
-        "events_per_s_median": n_events / statistics.median(reruns),
-        "host_syncs_first_run": syncs,
-        "rows": sum(job.emitted_counts.values()) // (1 + AB_REPEATS),
-        "bench_headline": head,
-    }), flush=True)
-    return 0
-
-
-def headline_resident(fpt, schema, batches):
-    """The bench headline resident, as phase 5b runs it: the seconds and
-    events/s of HEADLINE_RERUNS untraced reruns, then, per step, the card's
-    kernel and copy records and the host's top-level torch ops, from a
-    profiler-traced rerun."""
-    from torch.profiler import ProfilerActivity, profile
-
-    job = replay_job(fpt, HEADLINE, schema, batches, retain=False)
-    rep = fpt.ResidentReplay(job)
-    rep.stage()
-    rep.run()
-    job.flush()
-    reruns = [rep.rerun() for _ in range(HEADLINE_RERUNS)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        rep.rerun()
-    steps = sum(len(seg) for segs in rep.segments.values() for seg in segs)
-    host_ops = sum(1 for e in prof.events()
-                   if e.cpu_parent is None and e.name.startswith("aten::"))
-    n_events = sum(len(b) for b in batches)
-    return {"steps": steps, "rerun_s": reruns,
-            "events_per_s": [n_events / t for t in reruns],
+    streams = {}
+    out = {"checkout": root, "paths": []}
+    for name, cql, n_ids in AB_GRAPH_CONFIGS:
+        if n_ids not in streams:
+            streams[n_ids] = bench_stream(fpt, BATCH * N_BATCHES, BATCH,
+                                          n_ids=n_ids)
+        schema, batches = streams[n_ids]
+        n_events = sum(len(b) for b in batches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        job = replay_job(fpt, cql, schema, batches, retain=False)
+        rep = fpt.ResidentReplay(job)
+        rep.stage()
+        rep.run()
+        job.flush()
+        reruns = [rep.rerun() for _ in range(AB_RERUNS)]
+        peak = (torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced_s = rep.rerun()
+        segs = rep.segments["bench"]
+        traced = traced_share(prof, traced_s, len(segs),
+                              sum(len(seg) for seg in segs))
+        del traced["top_device_ms"]
+        resident = {
+            "stage_s": rep.stage_seconds, "rerun_s": reruns,
             "events_per_s_median": n_events / statistics.median(reruns),
-            "device_records_per_step": device_records(prof) / steps,
-            "host_ops_per_step": host_ops / steps}
+            "events_per_s_best": n_events / min(reruns),
+            "segments": len(segs), "max_memory_allocated_bytes": peak[0],
+            "max_memory_reserved_bytes": peak[1], **traced,
+        }
+        del rep, job, prof
+        job = fused_job(fpt, cql, schema, batches, False, bench_config(fpt))
+        job.run()
+        runs = []
+        for _ in range(AB_RERUNS):
+            job.reset_engine_state()
+            re_source(fpt, job, schema, batches)
+            t0 = time.perf_counter()
+            job.run()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        streaming = {
+            "fused": hasattr(job, "fusion_dispatches"), "run_s": runs,
+            "events_per_s_median": n_events / statistics.median(runs),
+            "events_per_s_best": n_events / min(runs),
+        }
+        del job
+        out["paths"].append({"path": name, "resident": resident,
+                             "streaming_counts_only": streaming})
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def ab(roots, mode="--ab-one"):
@@ -2304,10 +2768,10 @@ if __name__ == "__main__":
         sys.exit(ab_one(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         sys.exit(ab(sys.argv[2:]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab-multiquery-one":
-        sys.exit(ab_multiquery_one(sys.argv[2]))
-    if len(sys.argv) > 2 and sys.argv[1] == "--ab-multiquery":
-        sys.exit(ab(sys.argv[2:], mode="--ab-multiquery-one"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-graphs-one":
+        sys.exit(ab_graphs_one(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab-graphs":
+        sys.exit(ab(sys.argv[2:], mode="--ab-graphs-one"))
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

@@ -21,7 +21,9 @@ Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
 probe that disables a kernel, no switch that forces the plain version and no
 ``try`` that falls back. Each wrapper counts its CUDA calls in
-``launches`` (a plain integer, bumped only where its kernel is launched).
+``launches`` (a plain integer, bumped only where its kernel is launched;
+a CUDA graph that captured a call adds it back at each replay:
+``runtime/graphs.py``).
 
 The kernels build at their first CUDA use (or through ``build``) with
 ``nvcc`` into ``build/torch_kernels/`` beside the package — one shared
@@ -72,8 +74,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "fst_reverse_cummin": [_P, _P, _P, _I, _I, _L, _I, _I, ctypes.c_uint,
-                           _P],
+    "fst_reverse_cummin": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "fst_chain_advance": [
         _P, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
         _I, _P, _P,
@@ -253,35 +254,78 @@ def padded_stride(E: int) -> int:
 
 def cummin_scratch_words(C: int, E: int, tile: int = CUMMIN_TILE) -> int:
     """64-bit words of look-back scratch one call needs: the ticket
-    counter, then one state per (channel, tile), at least one tile."""
+    word, then one state per (channel, tile), at least one tile."""
     return 1 + C * max(1, -(-E // tile))
 
 
+class ScratchBuffer:
+    """One look-back scratch of reverse_cummin.cu: ``words`` (int64, on
+    the device) and ``used``, the calls enqueued on it since it was last
+    zeroed. The kernel keeps its epoch in the buffer's ticket word and
+    advances it once a call, so ``used`` is the epoch that word holds once
+    those calls have run. ``reserve`` makes room for more calls: the host
+    zeroes the buffer (stream-ordered) before the epoch would pass
+    ``epoch_limit``."""
+
+    def __init__(self, words: int, device: torch.device,
+                 epoch_limit: int = _EPOCH_LIMIT) -> None:
+        # zeros: every state reads epoch 0, which no call uses
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.used = 0
+        self.epoch_limit = epoch_limit
+
+    def reserve(self, calls: int) -> int:
+        """Account for ``calls`` more calls; returns the epoch the last of
+        them runs with."""
+        if calls > self.epoch_limit:
+            raise ValueError(f"{calls} calls exceed the epoch limit")
+        if self.used + calls > self.epoch_limit:
+            if _capturing(self.words.device):
+                raise RuntimeError(
+                    "reverse cummin: the look-back epoch would wrap inside "
+                    "a CUDA graph capture"
+                )
+            self.words.zero_()
+            self.used = 0
+        self.used += calls
+        return self.used
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether work on ``device`` is being captured into a CUDA graph."""
+    return (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
 class LookbackScratch:
-    """The look-back states of reverse_cummin.cu, kept per (device,
-    stream) and grown when a call needs more words. Each call takes the
-    next epoch, so the states of earlier calls read "not ready" without a
-    clearing launch; when the epoch passes ``epoch_limit`` the buffer is
-    zeroed once and the epochs start again at 1."""
+    """The look-back scratch buffers of reverse_cummin.cu, one per
+    (device, stream), replaced by a larger one when a call needs more
+    words (a CUDA graph that captured the old buffer keeps it alive and
+    keeps its own count, ``runtime/graphs.py``). A capture takes the
+    buffer its stream already holds: it cannot allocate or zero one."""
 
     def __init__(self, epoch_limit: int = _EPOCH_LIMIT) -> None:
         self.epoch_limit = epoch_limit
-        self._bufs: Dict[Tuple, list] = {}  # key -> [int64 buffer, epoch]
+        self._bufs: Dict[Tuple, ScratchBuffer] = {}
 
     def take(self, device: torch.device, stream: int,
-             words: int) -> Tuple[torch.Tensor, int]:
-        """(buffer of at least ``words`` words, this call's epoch)."""
+             words: int) -> ScratchBuffer:
+        """A buffer of at least ``words`` words for calls on ``stream``."""
         key = (device, stream)
-        ent = self._bufs.get(key)
-        if ent is None or ent[0].numel() < words:
-            # zeros: every state reads epoch 0, which no call uses
-            ent = [torch.zeros(words, dtype=torch.int64, device=device), 0]
-            self._bufs[key] = ent
-        ent[1] += 1
-        if ent[1] > self.epoch_limit:
-            ent[0].zero_()
-            ent[1] = 1
-        return ent[0], ent[1]
+        buf = self._bufs.get(key)
+        if buf is None or buf.words.numel() < words:
+            if _capturing(device):
+                raise RuntimeError(
+                    "reverse cummin: no look-back scratch of "
+                    f"{words} words on the capturing stream; run the "
+                    "captured work once on that stream first"
+                )
+            buf = ScratchBuffer(words, device, self.epoch_limit)
+            self._bufs[key] = buf
+        return buf
+
+    def buffers(self) -> Tuple[ScratchBuffer, ...]:
+        return tuple(self._bufs.values())
 
 
 class ReverseCummin:
@@ -320,12 +364,12 @@ class ReverseCummin:
                                       dtype=torch.int32, device=dev)
         with _on_device(dev):
             stream = _stream(dev.index)
-            states, epoch = self.scratch.take(
-                dev, stream, cummin_scratch_words(C, E)
-            )
+            states = self.scratch.take(dev, stream,
+                                       cummin_scratch_words(C, E))
+            states.reserve(1)
             err = lib.fst_reverse_cummin(
-                x.data_ptr(), out.data_ptr(), states.data_ptr(), C, E, ld,
-                int(pad is not None), int(pad or 0), epoch, stream,
+                x.data_ptr(), out.data_ptr(), states.words.data_ptr(), C, E,
+                ld, int(pad is not None), int(pad or 0), stream,
             )
         _check_launch(self.name, err)
         self.launches += 1

@@ -391,6 +391,19 @@ def _compact_index(rel: torch.Tensor, R: int):
     return idx[..., :R], cnt, cvalid
 
 
+def step_branch(artifact, capacity: int, bound: Optional[int]) -> str:
+    """The branch a chain matcher's step takes on a tape of ``capacity``
+    events whose host-known relevance bound (``Tape.bounds``) is
+    ``bound``: "full" (too narrow to compact), "compact" (decided on the
+    host), or "read" (the bound exceeds the compact width: the step reads
+    the device count, a host sync, so no CUDA graph can capture it)."""
+    if capacity < _COMPACT_MIN_E:
+        return "full"
+    if bound is not None and bound <= artifact.compact_width(capacity):
+        return "compact"
+    return "read"
+
+
 def _compaction(artifact, tape, rel: torch.Tensor, R: int):
     """Relevance compaction of ``rel`` at width R: (idx, cvalid), or None
     for the full-width branch — the reference's lax.cond on the device
@@ -398,8 +411,8 @@ def _compaction(artifact, tape, rel: torch.Tensor, R: int):
     for ``artifact`` (TapeSpec.relevance) is at most R; only a larger bound
     reads the largest count, one host sync in ``artifact.host_syncs``."""
     idx, cnt, cvalid = _compact_index(rel, R)
-    bound = tape.bounds.get(artifact.name)
-    if bound is None or bound > R:
+    if step_branch(artifact, tape.capacity,
+                   tape.bounds.get(artifact.name)) == "read":
         artifact.host_syncs += 1
         if int(cnt.max()) > R:
             return None

@@ -41,9 +41,16 @@
 //     would order other data, and there is none; timed during development,
 //     they cost more than the whole look-back). The tag holds the status
 //     and the call's epoch, so the scratch needs no clearing launch: a word
-//     of an earlier call reads "not ready". The block that draws the last
-//     ticket resets the ticket counter; stream order serialises calls on
-//     one scratch.
+//     of an earlier call reads "not ready". The epoch lives in device
+//     memory, in the high half of the ticket word: each block's ticket
+//     atomic returns it with the ticket, and the block that draws the last
+//     ticket resets the ticket and stores this call's epoch for the next
+//     call. So no launch argument changes from call to call, and a CUDA
+//     graph that replays the launch gets a new epoch every time (a host
+//     epoch baked into a captured launch would make the look-back read
+//     the last replay's prefixes as published). Stream order serialises
+//     calls on one scratch; the host zeroes it before the 30-bit epoch
+//     would wrap (cuda_ops.py, ScratchBuffer).
 // The identity is INT_MAX, so every int32 value is exact.
 //
 // Tile: 2,048 events and 256 threads (8 events a thread and channel, 4
@@ -172,25 +179,34 @@ __device__ __forceinline__ void store_run(int* __restrict__ row, long long e0,
 __global__ void __launch_bounds__(kThreads)
 suffix_min_kernel(const int* __restrict__ x, int* __restrict__ out, int C,
                   int E, long long ld, int n_tiles, int has_pad, int pad,
-                  unsigned epoch, unsigned long long* states,
-                  unsigned* ticket) {
+                  unsigned long long* states, unsigned long long* ticket) {
   constexpr int kPer = kTile / kThreads;  // events per thread and channel
   constexpr int kWarps = kThreads / 32;
   constexpr int kGroup = 32 / kPer < kWarps ? 32 / kPer : kWarps;
   static_assert(kPer % 4 == 0 && kGroup >= 1, "tile");
   __shared__ int s_tile;
+  __shared__ unsigned s_epoch;
   __shared__ int warp_tot[kGroup][kWarps];
   __shared__ int carry[kGroup];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
   if (threadIdx.x == 0) {
-    const unsigned t = atomicAdd(ticket, 1u);
-    if (t == static_cast<unsigned>(n_tiles - 1)) *ticket = 0u;
+    // the ticket word: the last call's epoch in the high half, this
+    // call's ticket count in the low half
+    const unsigned long long w = atomicAdd(ticket, 1ull);
+    const unsigned t = static_cast<unsigned>(w);
+    const unsigned epoch = static_cast<unsigned>(w >> 32) + 1u;
+    if (t == static_cast<unsigned>(n_tiles - 1)) {
+      // every other block drew its ticket (and read the epoch) already
+      atomicExch(ticket, static_cast<unsigned long long>(epoch) << 32);
+    }
     s_tile = n_tiles - 1 - static_cast<int>(t);
+    s_epoch = epoch;
   }
   __syncthreads();
   const int tile = s_tile;
+  const unsigned epoch = s_epoch;
   const long long e0 =
       static_cast<long long>(tile) * kTile + threadIdx.x * kPer;
 
@@ -265,22 +281,21 @@ suffix_min_kernel(const int* __restrict__ x, int* __restrict__ out, int C,
 // x: int32 [C, E] row-major; out: int32 rows of stride ld (ld == E without
 // a pad; with one, ld >= E + 1, and column E holds the pad); states:
 // 1 + C * ceil(E / 2048) 64-bit words (at least one tile; word 0 the
-// ticket counter), zeroed once when allocated, then reused with a new
-// epoch (1 .. 2^30 - 1) per call. One launch on `stream`; returns a
-// cudaError_t.
+// ticket word: the epoch of the last call in its high half, which the
+// call advances), zeroed when allocated and again by the host before the
+// epoch would pass 2^30 - 1 calls. One launch on `stream`, with the same
+// arguments from call to call; returns a cudaError_t.
 extern "C" int fst_reverse_cummin(const int* x, int* out, void* states,
                                   int C, int E, long long ld, int has_pad,
-                                  int pad, unsigned epoch, void* stream) {
-  if (C < 1 || E < 0 || epoch == 0 || epoch >= (1u << 30) ||
-      (!has_pad && ld != E) ||
+                                  int pad, void* stream) {
+  if (C < 1 || E < 0 || (!has_pad && ld != E) ||
       (has_pad && ld < static_cast<long long>(E) + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_tiles = E > 0 ? (E + kTile - 1) / kTile : 1;
-  // word 0 holds the ticket counter at every shape; the states follow
+  // word 0 holds the ticket word at every shape; the states follow
   unsigned long long* st = static_cast<unsigned long long*>(states);
   suffix_min_kernel<<<n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, C, E, ld, n_tiles, has_pad, pad, epoch, st + 1,
-      reinterpret_cast<unsigned*>(st));
+      x, out, C, E, ld, n_tiles, has_pad, pad, st + 1, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,7 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 _TORCH_DTYPE = {
     np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int8): torch.int8,
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,

@@ -11,20 +11,29 @@ lazy-projected plan resolve their event ordinals against the host's lazy
 ring. ``runtime/replay.py:ResidentReplay`` drives the same job over a
 bounded stream staged on the device beforehand.
 
-Not in this port yet (ROADMAP.md Queue 1): the control plane, fused
-segments, the overlapped drain, telemetry, checkpoints, shared subplans,
-and the late/idle/backpressure policies beyond the default (late rows are
-dropped and counted).
+Fused streaming (``fused_segment_len`` K > 1, the reference's
+``_stage_fused``/``_dispatch_segment``): the host stages K tapes, stacks
+them into one pinned host buffer (``runtime/segment.py``), and advances
+the plan over the whole segment with one copy of that buffer into the
+graph's input slot and one CUDA graph replay (``runtime/graphs.py``); on
+the CPU the same segment body runs its steps in turn.
+``fused_segment_len=None`` keeps one step per tape.
+
+Not in this port yet (ROADMAP.md Queue 1): the control plane, the
+overlapped drain, telemetry, checkpoints, shared subplans, and the
+late/idle/backpressure policies beyond the default (late rows are dropped
+and counted).
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +41,14 @@ import torch
 from ..compiler.plan import CompiledPlan
 from ..device import DeviceLike, resolve_device
 from ..schema.batch import EventBatch
+from .graphs import SegmentGraphs
+from .segment import (
+    Segment,
+    pad_segment,
+    segment_nbytes,
+    stack_wires,
+    wire_sig,
+)
 from .sources import Source
 from .tape import WireTape, bucket_size, build_wire_tape
 
@@ -40,6 +57,22 @@ _LOG = logging.getLogger(__name__)
 MAX_WM = np.iinfo(np.int64).max
 MIN_WM = -(2 ** 62)  # pre-first-event watermark sentinel
 _LAZY_ORD_WRAP = 1 << 30  # reset lazy ordinal space before int32 wrap
+# fused streaming: at most this many dispatched segments unfinished on the
+# card (the host waits for the oldest beyond it); bench.py's BENCH_INFLIGHT
+MAX_INFLIGHT_CYCLES = 6
+
+
+def retire_tickets(tickets: Deque, limit: int) -> None:
+    """The in-flight window over ``tickets`` (events of dispatched
+    segments, oldest first): drop the finished ones from the front, and
+    while more than ``limit`` remain, wait for the oldest."""
+    while tickets:
+        if len(tickets) > limit:
+            tickets.popleft().synchronize()
+        elif tickets[0].query():
+            tickets.popleft()
+        else:
+            break
 
 
 class _LazyRing:
@@ -161,6 +194,14 @@ class _PlanRuntime:
     # when the accumulator FIRST became dirty after a drain: the age of
     # the oldest undrained match (the interval drain keys off it)
     dirty_since: Optional[float] = None
+    # fused streaming: staged, undispatched host tapes as (tape, its
+    # signature, staging time), and the CUDA events of dispatched
+    # segments, oldest first (the in-flight ticket window)
+    seg_pending: List = field(default_factory=list)
+    tickets: Deque = field(default_factory=collections.deque)
+    # the segment runner (graphs.py): the tensors segments update in
+    # place and, on a GPU, the captured graphs; made at the first segment
+    graphs: Optional[SegmentGraphs] = None
 
 
 class Job:
@@ -219,6 +260,17 @@ class Job:
         self._max_event_ts: Optional[int] = None
         self.late_events = 0
         self.late_dropped = 0
+        # fused streaming dispatch: K tapes a segment, one graph replay a
+        # segment (None or 1: one step per tape), and at most
+        # MAX_INFLIGHT_CYCLES dispatched segments unfinished on the card
+        self.fused_segment_len: Optional[int] = None
+        self.fusion_batches = 0  # tapes staged into segments
+        self.fusion_dispatches = 0  # segments dispatched
+        self.fusion_h2d_uploads = 0  # segment uploads (one a segment)
+        # segments (resident or fused) that no graph can capture (a tape's
+        # chain matcher must read its count): on a GPU they run their
+        # steps eagerly (graphs.py)
+        self.eager_segments = 0
         for p in plans:
             self.add_plan(p)
 
@@ -260,15 +312,26 @@ class Job:
             for a in rt.plan.artifacts
         )
 
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs captured so far, over every plan."""
+        return sum(rt.graphs.captured for rt in self._plans.values()
+                   if rt.graphs is not None)
+
     def reset_engine_state(self) -> None:
         """Rerun aid: fresh device state (re-grown to the interned encoder
         sizes), zeroed accumulators, fresh lazy rings and the event-time
         gate's phase, so the SAME job can replay an identical stream
         again (``ResidentReplay.rerun``). Sticky wire widths and tape
-        capacities stay: the staged tapes were built with them."""
+        capacities stay: the staged tapes were built with them. Tensors
+        that segment graphs are bound to are reset in place."""
         for rt in self._plans.values():
-            rt.states = rt.plan.grow_state(rt.plan.init_state(self.device))
-            rt.acc = rt.plan.init_acc(self.device)
+            fresh = rt.plan.grow_state(rt.plan.init_state(self.device))
+            if rt.graphs is None or not rt.graphs.reset(rt, fresh):
+                rt.states = fresh
+                rt.acc = rt.plan.init_acc(self.device)
+            rt.seg_pending = []
+            rt.tickets.clear()
             rt.acc_dirty = False
             rt.dirty_since = None
             if rt.lazy is not None:
@@ -324,6 +387,16 @@ class Job:
             for rt in self._plans.values():
                 self._step_plan(rt, ready)
             self._cycles_since_drain += 1
+        if self._fused_on():
+            # a partial segment must not wait forever for a slow source:
+            # once its oldest tape reaches the staleness budget, it
+            # dispatches short (the reference's rule)
+            age_s = (500.0 if self.drain_interval_ms is None
+                     else self.drain_interval_ms) / 1e3
+            now = time.monotonic()
+            for rt in self._plans.values():
+                if rt.seg_pending and now - rt.seg_pending[0][2] >= age_s:
+                    self._dispatch_segment(rt)
         if self.drain_interval_ms is not None:
             now = time.monotonic()
             for rt in self._plans.values():
@@ -445,6 +518,9 @@ class Job:
 
     def _step_plan(self, rt: _PlanRuntime, ready: List[EventBatch]) -> None:
         for involved in self._plan_windows(rt, ready):
+            if self._fused_on() and rt.plan.artifacts:
+                self._stage_fused(rt, involved)
+                continue
             tape = self._stage_tape(rt, involved).to(self.device)
             # host interning may have discovered new keys: re-bucket the
             # keyed state tables before the step (host-known sizes)
@@ -454,6 +530,93 @@ class Job:
             if rt.dirty_since is None:
                 rt.dirty_since = time.monotonic()
             self._update_drain_hint(rt, tape.capacity)
+
+    # -- segments: fused streaming dispatch ----------------------------------
+    def _fused_on(self) -> bool:
+        return bool(self.fused_segment_len) and self.fused_segment_len > 1
+
+    def _fused_k(self, rt: _PlanRuntime) -> int:
+        """This plan's segment length: the configured K, clamped so that
+        the accumulator holds a whole segment's emissions (no drain runs
+        inside a segment: the drain hint's bound, as the resident replay
+        applies it)."""
+        k = self.fused_segment_len
+        if not k or k <= 1 or not rt.plan.artifacts:
+            return 1
+        hint = self._drain_hints.get(rt.plan.plan_id)
+        if hint:
+            k = min(k, hint)
+        return max(1, k)
+
+    def _stage_fused(self, rt: _PlanRuntime,
+                     involved: List[EventBatch]) -> None:
+        """Stage one micro-batch tape toward the plan's segment (host side
+        only). A tape of another structure (a wire width widened, the
+        capacity grew) dispatches the shorter pending segment first."""
+        tape = self._stage_tape(rt, involved)
+        self._update_drain_hint(rt, tape.capacity)
+        sig = wire_sig(tape)
+        if rt.seg_pending and rt.seg_pending[0][1] != sig:
+            self._dispatch_segment(rt)
+        rt.seg_pending.append((tape, sig, time.monotonic()))
+        self.fusion_batches += 1
+        if len(rt.seg_pending) >= self._fused_k(rt):
+            self._dispatch_segment(rt)
+
+    def _dispatch_segment(self, rt: _PlanRuntime) -> None:
+        """Stack the pending tapes as one segment, padded with empty
+        tapes to K (row-inert: no valid event), and advance the plan over
+        it in one dispatch; keep at most ``MAX_INFLIGHT_CYCLES`` segments
+        unfinished on the card."""
+        pending = rt.seg_pending
+        if not pending:
+            return
+        rt.seg_pending = []
+        wires = [p[0] for p in pending]
+        k = max(self._fused_k(rt), len(wires))
+        seg = self._stack_segment(pad_segment(wires, k))
+        # host interning may have found new group keys: grow once a
+        # segment, before the call
+        rt.states = rt.plan.grow_state(rt.states)
+        if rt.dirty_since is None:
+            # its events have waited since the oldest tape was staged
+            rt.dirty_since = pending[0][2]
+        self._run_segment(rt, seg)
+        self.fusion_dispatches += 1
+        if self.device.type == "cuda":
+            ticket = torch.cuda.Event()
+            ticket.record(torch.cuda.current_stream(self.device))
+            rt.tickets.append(ticket)
+            retire_tickets(rt.tickets, MAX_INFLIGHT_CYCLES)
+
+    def _stack_segment(self, wires: List[WireTape]) -> Segment:
+        """The tapes stacked into one buffer: on a GPU in pinned host
+        memory, which the segment's run copies to the card in one
+        non-blocking upload on the current stream (``graphs.py``)."""
+        if self.device.type != "cuda":
+            return stack_wires(wires)
+        self.fusion_h2d_uploads += 1
+        return stack_wires(wires, out=torch.empty(
+            segment_nbytes(wires[0], len(wires)), dtype=torch.uint8,
+            pin_memory=True,
+        ))
+
+    def _segments(self, rt: _PlanRuntime) -> SegmentGraphs:
+        if rt.graphs is None:
+            rt.graphs = SegmentGraphs(rt.plan, self.device)
+        return rt.graphs
+
+    def _run_segment(self, rt: _PlanRuntime, seg: Segment) -> None:
+        """Advance the plan over one segment on the device: one graph
+        replay on a GPU, the same steps in turn on the CPU
+        (``graphs.py``). A segment that cannot be captured (a tape's chain
+        matcher must read its count) runs its steps eagerly, counted in
+        ``eager_segments`` on any device."""
+        if not self._segments(rt).run(rt, seg):
+            self.eager_segments += 1
+        rt.acc_dirty = True
+        if rt.dirty_since is None:
+            rt.dirty_since = time.monotonic()
 
     def _stage_tape(self, rt: _PlanRuntime,
                     involved: List[EventBatch]) -> WireTape:
@@ -580,7 +743,8 @@ class Job:
         consumer wants rows, the used slice of the buffer (a second);
         decode, emit, and reset the accumulator's counts in place (the
         stale buffer columns are overwritten by later appends and never
-        read)."""
+        read). Staged, undispatched tapes reach the device first."""
+        self._dispatch_segment(rt)
         if not rt.acc_dirty or not rt.plan.artifacts:
             return
         plan = rt.plan

@@ -7,16 +7,24 @@ without changing semantics:
 1. pull every source dry through the SAME reorder/watermark gate the
    streaming loop uses (``Job._pull_sources`` / ``_release_ready``);
 2. build every micro-batch's wire tape on the host (``Job._stage_tape`` —
-   identical interning, lazy-ring retention, width narrowing);
-3. stage every tape on the device;
-4. advance the plan over them segment by segment — a plain loop of
-   ``plan.step_acc`` over tapes already on the device, with no host wait
-   inside a segment — and drain the emission accumulator between
-   segments (``Job._drain_plan``, synchronous).
+   identical interning, lazy-ring retention, width narrowing), then
+   rebuild the early tapes against the final sticky widths so that every
+   tape has one structure (the reference's pass B);
+3. stack the tapes into segments of K, one buffer a segment
+   (``runtime/segment.py``), stage them on the device, and on a GPU warm
+   and capture each segment shape's CUDA graph (``runtime/graphs.py``).
+   The reference pads the last segment with empty tapes to keep one
+   compiled scan; here a shorter last segment gets a graph of its own,
+   captured off the clock, and steps no padding;
+4. advance the plan ONE device dispatch per segment — a copy of the
+   segment into the graph's slot and one graph replay, with no host wait
+   (on the CPU the same steps in turn) — and drain the emission
+   accumulator between segments (``Job._drain_plan``, synchronous).
 
-Per-batch semantics are those of streaming mode (the loop calls the same
-``plan.step_acc`` on the same tapes); ``tests/test_torch_replay.py`` holds
-streaming and resident rows equal, and both equal to the JAX package's.
+Per-batch semantics are those of streaming mode (the segment body is
+``plan.step_acc`` over the same tapes); ``tests/test_torch_replay.py``
+holds streaming and resident rows equal, and both equal to the JAX
+package's.
 
 Lazy projection note: resident mode stages the WHOLE stream before the
 first drain, so a lazy-projected plan with consumers retains every
@@ -42,14 +50,8 @@ import torch
 from ..schema.batch import EventBatch
 from . import executor
 from .executor import Job, _PlanRuntime
-from .tape import WireTape
-
-
-def _clone(tree):
-    """A copy of a (nested) dict of tensors."""
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.clone()
+from .segment import Segment, stack_wires, wire_sig
+from .tape import build_wire_tape
 
 
 class ResidentReplay:
@@ -71,14 +73,14 @@ class ResidentReplay:
     def __init__(self, job: Job) -> None:
         self.job = job
         self.total_events = 0
-        # plan_id -> segments, each a list of wire tapes on the device
-        self.segments: Dict[str, List[List[WireTape]]] = {}
+        # plan_id -> its segments on the device
+        self.segments: Dict[str, List[Segment]] = {}
         self.stage_seconds = 0.0
 
     # -- staging ----------------------------------------------------------
     def stage(self) -> None:
-        """Pull, tape building, upload and one warm step per plan, all
-        OFF the replay clock."""
+        """Pull, tape building, upload, and the segment graphs' warm-up
+        and capture, all OFF the replay clock."""
         t0 = time.perf_counter()
         job = self.job
         ready_sets: List[List[EventBatch]] = []
@@ -111,11 +113,12 @@ class ResidentReplay:
 
     def _plan_wires(self, rt: _PlanRuntime, ready_sets) -> Optional[List]:
         """Every host wire tape of one plan, in step order, or None when
-        the plan sees no events. The reference rebuilds the early tapes
-        against the final sticky widths and pads the last segment with
-        empty tapes, only so that ``lax.scan`` gets one stacked structure;
-        the port's segment is a loop over separate tapes, each expanded on
-        its own, so neither is needed."""
+        the plan sees no events: the streaming host half per window
+        (interning, lazy-ring retention, sticky widths), then the early
+        tapes rebuilt against the final sticky widths so that every tape
+        has the last one's structure and they stack (the reference's pass
+        B; widths and capacity only widen, so the last tape's are
+        final)."""
         job = self.job
         windows = []
         for ready in ready_sets:
@@ -126,6 +129,13 @@ class ResidentReplay:
         wires = [job._stage_tape(rt, w) for w in windows]
         # host interning discovered every key of the stream by now
         rt.states = rt.plan.grow_state(rt.states)
+        want = wire_sig(wires[-1])
+        for i, w in enumerate(wires[:-1]):
+            if wire_sig(w) != want:
+                wires[i] = build_wire_tape(
+                    rt.plan.spec, windows[i], job._epoch_ms, rt.wire_kinds,
+                    capacity=rt.tape_capacity, want_prov=False,
+                )[0]
         return wires
 
     def _check_ordinal_space(self, rt: _PlanRuntime, windows) -> None:
@@ -149,33 +159,31 @@ class ResidentReplay:
                 f"it in parts, run it streaming, or count only"
             )
 
-    def _stage_plan(self, rt: _PlanRuntime, wires) -> List[List[WireTape]]:
+    def _stage_plan(self, rt: _PlanRuntime, wires) -> List[Segment]:
+        """Segments of K tapes (the last may be shorter) staged on the
+        device, and on a GPU each segment shape's graph warmed and
+        captured."""
         job = self.job
         k = min(len(wires), self._segment_cycles(rt, wires[0].capacity))
-        tapes = [w.to(job.device) for w in wires]
-        # one warm step on cloned state and accumulator: the kernels'
-        # build and first launches, and the caching allocator's first
-        # blocks, land here instead of in the timed run
-        warm_states = _clone(rt.states)
-        warm_acc = _clone(rt.acc)
-        rt.plan.step_acc(warm_states, warm_acc, tapes[0])
-        return [tapes[i:i + k] for i in range(0, len(tapes), k)]
+        segs = [stack_wires(wires[i:i + k]).to(job.device)
+                for i in range(0, len(wires), k)]
+        runner = job._segments(rt)
+        for seg in segs:
+            runner.prepare(rt, seg)
+        return segs
 
     # -- execution --------------------------------------------------------
     def run_segment(self, plan_id: str, index: int) -> None:
-        """The steps of one staged segment: ``plan.step_acc`` over its
-        tapes, with no host wait (a chain matcher whose host-known
-        relevance bound exceeds its compact width reads its count, as in
-        streaming mode; ``Job.host_syncs`` counts it)."""
-        rt = self.job._plans[plan_id]
-        for tape in self.segments[plan_id][index]:
-            rt.states, rt.acc = rt.plan.step_acc(rt.states, rt.acc, tape)
-        rt.acc_dirty = True
-        if rt.dirty_since is None:
-            rt.dirty_since = time.monotonic()
+        """One staged segment: one graph replay on a GPU, with no host
+        wait (a segment whose chain matcher must read its relevant count
+        runs its steps eagerly instead, counted in ``Job.eager_segments``
+        and ``Job.host_syncs``); its steps in turn on the CPU."""
+        job = self.job
+        job._run_segment(job._plans[plan_id], self.segments[plan_id][index])
 
     def run(self) -> None:
-        """The replay itself: each segment's steps, then a drain."""
+        """The replay itself: each segment (one dispatch), then a
+        drain."""
         job = self.job
         for pid, segs in self.segments.items():
             rt = job._plans[pid]

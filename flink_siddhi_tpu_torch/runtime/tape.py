@@ -184,9 +184,13 @@ def _int_kind(lo: int, hi: int) -> str:
 @dataclass
 class WireTape:
     """Narrow micro-batch: numpy arrays from ``build_wire_tape``, device
-    tensors after ``to``; ``expand()`` -> ``Tape``. ``n_valid`` and
-    ``ts_base`` stay host arrays either way: the device reads them as
-    scalars, so staging never waits for the device."""
+    tensors after ``to``; ``expand()`` -> ``Tape``. The per-tape scalars
+    the step reads (valid count, timestamp base and step) travel as the
+    int32 leaf ``scalars``, so a step reads no tape value on the host and
+    a CUDA graph captured on one tape replays another of the same
+    structure (``runtime/segment.py``). ``n_valid`` and ``ts_base`` keep
+    host copies for staging; ``capacity``, ``kinds``, ``ts_kind``,
+    ``stream_const`` and ``epoch_i32`` are the tape's structure."""
 
     ts: object  # int8/int16 deltas, int32 absolute, or empty ('d0')
     n_valid: np.ndarray  # int32[1]
@@ -201,6 +205,8 @@ class WireTape:
     ts_base: Optional[np.ndarray] = None  # int32[1] first ts, or [2]
     cap: int = 0  # tape capacity ('d0' ships no ts array)
     bounds: Dict[str, int] = field(default_factory=dict)
+    # int32 [n_valid, ts base, ts step, last valid index (0 when empty)]
+    scalars: object = None
 
     @property
     def capacity(self) -> int:
@@ -211,6 +217,7 @@ class WireTape:
         out = [self.ts] + list(self.cols.values())
         if self.stream is not None:
             out.append(self.stream)
+        out.append(self.scalars)
         return out
 
     def to(self, device: torch.device) -> "WireTape":
@@ -230,6 +237,7 @@ class WireTape:
             ts_base=self.ts_base,
             cap=self.cap,
             bounds=dict(self.bounds),
+            scalars=_put(self.scalars, device),
         )
 
     def expand(self) -> Tape:
@@ -238,7 +246,8 @@ class WireTape:
         i32 = torch.int32
         dev = self.ts.device
         cap = self.capacity
-        n = int(self.n_valid[0])
+        # 0-d views of the staged scalars: no host read, no launch
+        n, base, step, last = (self.scalars[i] for i in range(4))
         iota = torch.arange(cap, dtype=i32, device=dev)
         valid = iota < n
         if self.ts_kind == "i32":
@@ -247,15 +256,12 @@ class WireTape:
             # regular cadence: ts = base + step*i, clamped so padding
             # repeats the last valid timestamp (build_tape contract:
             # padding must never look like the newest event)
-            base, step = int(self.ts_base[0]), int(self.ts_base[1])
-            ts = base + step * iota.clamp(max=max(n - 1, 0))
+            ts = torch.clamp(iota, max=last) * step + base
         else:
             # sorted timestamps travel as per-event deltas; the padding
             # deltas are 0, which reproduces build_tape's "padding repeats
             # the last timestamp"
-            ts = int(self.ts_base[0]) + torch.cumsum(
-                self.ts.to(i32), 0, dtype=i32
-            )
+            ts = base + torch.cumsum(self.ts.to(i32), 0, dtype=i32)
         if self.stream is None:
             stream = torch.full((cap,), -1, dtype=i32, device=dev)
             stream.masked_fill_(valid, self.stream_const)
@@ -411,6 +417,9 @@ def _finish_wire(
     single = len(spec.stream_codes) == 1
     stream_const = next(iter(spec.stream_codes.values())) if single else -1
     narrow_stream_ok = max(spec.stream_codes.values(), default=0) <= 127
+    base = (0, 0) if ts_base is None else (
+        int(ts_base[0]), int(ts_base[1]) if len(ts_base) > 1 else 0
+    )
     return WireTape(
         ts=ts_arr,
         n_valid=np.asarray([total], dtype=np.int32),
@@ -429,6 +438,8 @@ def _finish_wire(
         ts_base=ts_base,
         cap=tape.capacity,
         bounds=dict(tape.bounds),
+        scalars=np.asarray([total, base[0], base[1], max(total - 1, 0)],
+                           dtype=np.int32),
     )
 
 

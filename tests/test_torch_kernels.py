@@ -102,34 +102,45 @@ def test_padded_stride_keeps_rows_16_byte_aligned(E, ld):
 
 
 def test_lookback_scratch_epoch_wrap_zeroes_exactly_once():
+    # the kernel advances the epoch in the buffer's ticket word once a
+    # call; the host mirrors it in ``used`` and zeroes the buffer once
+    # before the epoch would pass the limit
     sc = cuda_ops.LookbackScratch(epoch_limit=3)
     dev = torch.device("cpu")
     epochs = []
     for _ in range(3):
-        buf, epoch = sc.take(dev, 0, 10)
-        epochs.append(epoch)
-    assert epochs == [1, 2, 3] and int(buf.abs().sum()) == 0
-    buf.fill_(7)  # states the calls of epochs 1-3 left behind
-    again, epoch = sc.take(dev, 0, 10)
-    assert again is buf and epoch == 1 and int(buf.abs().sum()) == 0
-    buf.fill_(7)
+        buf = sc.take(dev, 0, 10)
+        epochs.append(buf.reserve(1))
+    assert epochs == [1, 2, 3] and int(buf.words.abs().sum()) == 0
+    buf.words.fill_(7)  # states the calls of epochs 1-3 left behind
+    again = sc.take(dev, 0, 10)
+    assert again is buf and again.reserve(1) == 1
+    assert int(buf.words.abs().sum()) == 0
+    buf.words.fill_(7)
     for want in (2, 3):
-        again, epoch = sc.take(dev, 0, 10)
-        assert again is buf and epoch == want
-        assert bool((buf == 7).all()), "zeroed again before the wrap"
+        again = sc.take(dev, 0, 10)
+        assert again is buf and again.reserve(1) == want
+        assert bool((buf.words == 7).all()), "zeroed again before the wrap"
+    # a graph replay reserves all its calls at once: 3 + 2 > 3 zeroes
+    assert buf.reserve(2) == 2 and int(buf.words.abs().sum()) == 0
+    with pytest.raises(ValueError):
+        buf.reserve(4)
 
 
 def test_lookback_scratch_grows_and_is_kept_per_stream():
     sc = cuda_ops.LookbackScratch()
     dev = torch.device("cpu")
-    a, ea = sc.take(dev, 0, 10)
-    b, eb = sc.take(dev, 0, 4)  # smaller: the same buffer, next epoch
-    assert b is a and (ea, eb) == (1, 2)
-    c, ec = sc.take(dev, 0, 11)  # larger: a new zeroed buffer
-    assert c is not a and c.numel() >= 11 and ec == 1
-    d, ed = sc.take(dev, 1, 4)  # another stream: its own buffer
-    assert d is not c and ed == 1
-    assert sc.take(dev, 0, 4) == (c, 2)
+    a = sc.take(dev, 0, 10)
+    assert a.reserve(1) == 1
+    b = sc.take(dev, 0, 4)  # smaller: the same buffer, next epoch
+    assert b is a and b.reserve(1) == 2
+    c = sc.take(dev, 0, 11)  # larger: a new zeroed buffer
+    assert c is not a and c.words.numel() >= 11 and c.reserve(1) == 1
+    assert a.used == 2  # the old buffer keeps its own count
+    d = sc.take(dev, 1, 4)  # another stream: its own buffer
+    assert d is not c and d.reserve(1) == 1
+    assert sc.take(dev, 0, 4) is c and c.reserve(1) == 2
+    assert set(sc.buffers()) == {c, d}
 
 
 def test_chain_plan_is_cached_per_layout():
