@@ -69,14 +69,32 @@ fault:
    launches, host syncs, uploads), a traced run (kernel calls on the card
    equal to the host's counts); no eager segment, and no capture after
    the warm run. A line "graphs" after phase 8 gathers every path's
-   resident and fused numbers;
+   resident and fused numbers. Every drain is asynchronous: each resident
+   run's run loop waits at most once, at the end, besides its forced
+   completions (reported), the fetch thread's waits equal the drains'
+   fetches, and the drains whose counts reached the host while a later
+   segment still ran are counted (drains overlapped: the headline must
+   have some);
+5c. drain pipeline: the five bench configs in sink mode as bench.py's
+   _mode_sink runs them (fused, build_job's settings, prewarm_drains(), a
+   columnar counting sink on every output stream; a warm run over two
+   micro-batches, then one timed run): events/s, rows, an exact checksum
+   of the timestamps and numeric columns, the columnar flag read back
+   from the job (headline, filter, pattern2 and window_groupby must take
+   the lane); then the same with a row sink, whose rows and checksum must
+   be equal (window_groupby on 2,097,152 events and multiquery64 on
+   1,048,576, cut for time); then the headline paced as bench.py's
+   _latency_phase sets it (batch 131,072, drain interval 60 ms, 25% of
+   the fused headline's events/s from phase 5b, about 3 s): drain.total
+   and drain.staleness p50 and p99 from Job.telemetry. A line "drain"
+   after phase 8 gathers them;
 6. quote board: `#window.unique(symbol)` with count/sum/avg/min/max over
    StockStream, 10,000 Zipf-weighted symbols (a 16,384-slot table), at
    batch 524,288 over 10,485,760 events, the unique-window fold called
    once per micro-batch and host syncs counted (drains only); rows checked
    against the port's CPU path on the first 32,768 events; then the fused
-   streaming Job, as in phase 5b (its rows over the whole stream equal to
-   the one-step-a-tape card path's);
+   streaming Job, as in phase 5b (its rows over the first 8 micro-batches,
+   cut for time, equal to the one-step-a-tape card path's);
 7. windows (in a process of its own, `--windows`): the bench's
    window_groupby (`#window.length(1000) select id,
    sum(price), count() group by id`, 1,000 ids) as phase 5b runs the
@@ -86,7 +104,7 @@ fault:
    10,485,760 rows a run (every event emits one), reruns, wire bytes, peak
    memory, a traced rerun's idle share and one segment under sync debug
    mode "error"; then every other window class through the streaming Job
-   over four micro-batches of 524,288 events (65,536 on the matrix path),
+   over two micro-batches of 524,288 events (65,536 on the matrix path),
    rows held to the CPU path and two staged steps under sync debug mode
    "error": length min/max, event-time group-by avg, time min (matrix),
    externalTime, timeLength, cumulative group-by, lengthBatch, timeBatch
@@ -105,7 +123,9 @@ fault:
    step on
    the stack's full-width branch (its peak memory, its rows equal to the
    compacted branch's). The chain kernels' stacked inputs go to phase 9;
-9. kernels: each kernel timed on the inputs it was given on its path — its
+9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
+   a long process profiler traces lost records): each kernel timed on the
+   inputs it was given on its path — its
    device time (profiler trace; for the unique fold CUDA events over 25
    back-to-back calls and each stage kernel's traced device time) and its
    per-call time (CUDA events, median) — beside its plain version, the
@@ -115,7 +135,8 @@ fault:
    524,288-event tapes with relevance compaction off) and at multiquery64's
    stacked shapes (held exactly to their plain versions first), and their
    kernel launches per call counted in a profiler trace (each must be 1);
-10. where the quote board's time goes: tape staging, device steps (under
+10. where the quote board's time goes, over its first 4 micro-batches:
+   tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
    run) and a profiler-traced run for the card's idle share;
 11. api: the README's quick start, pattern and quote board through
@@ -138,6 +159,15 @@ as that checkout's chain core builds it, with device and call time on the
 headline's inputs of that checkout.
 Give the two versions as A B B A, so that drift of the card or the host
 during the call shows.
+
+    python3 chip_smoke.py --ab-drain DIR [DIR ...]
+
+runs, with the package of each checkout in a process of its own, the
+resident headline (stage, AB_RERUNS reruns: events/s median and best,
+peak memory allocated and reserved) and the headline's sink mode (phase
+5c's job, FUSED_RUNS timed runs; a checkout without the columnar lane
+gets the same sink as a row sink): events/s, rows and checksum. Give the
+checkouts as A B B A.
 
     python3 chip_smoke.py --ab-graphs DIR [DIR ...]
 
@@ -170,7 +200,7 @@ N_BATCHES = 20
 CHECK_BATCHES = 2  # rows held to the CPU path over these micro-batches
 N_IDS = 50
 N_IDS_WINDOW = 1_000  # window_groupby's ids (bench.py:479)
-WINDOW_CLASS_BATCHES = 4  # micro-batches of each other window class
+WINDOW_CLASS_BATCHES = 2  # micro-batches of each other window class
 MATRIX_BATCH = 65_536  # the matrix path's batch: [E, C] windows per column
 WINDOW_RTOL = 1e-5  # float sums and averages, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
@@ -179,6 +209,8 @@ INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
 F32_OPS_PER_S = 67e12  # non-tensor-core float32 rate, same source
 QUOTE_BATCHES = 20  # the quote board's stream: 20 x 524,288 events
 QUOTE_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
+BREAKDOWN_BATCHES = 4  # phase 10's traced quote-board run
+QUOTE_ROW_BATCHES = 8  # the quote board's fused rows against the eager run
 N_SYMBOLS = 10_000
 FOLD_RTOL = 1e-5  # sums: the kernel's fp64 scan vs the plain float32 fold
 AB_REPEATS = 3  # full runs of each path per checkout with --ab
@@ -415,7 +447,12 @@ def kernel_records(fn, runs, warmup=10):
     The tracer starts recording only some time after it is enabled: after
     earlier traces in a process, a window that followed two warm-up calls
     lost its first two calls' records. So ``warmup`` calls, and a pause,
-    run traced but unrecorded before the window."""
+    run traced but unrecorded before the window. On an H100, late in a
+    long process, a window lost its first 9 of 25 calls (all 25 of the
+    empty kernel's), as if the card's record times, converted to the
+    host's clock, fell before the window opened: a second pause after it
+    opens is meant to keep them inside (``main`` also runs the kernel
+    timing in a fresh process)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -431,6 +468,8 @@ def kernel_records(fn, runs, warmup=10):
             if i in (warmup - 1, warmup + runs - 1):
                 torch.cuda.synchronize()
             prof.step()
+            if i == warmup - 1:
+                time.sleep(0.05)
     records = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1129,6 +1168,40 @@ def stream_rows(job, outs):
     return {o: job.results_with_ts(o) for o in outs}
 
 
+def resident_waits(d, segments, what):
+    """A resident run's drain counts (``drain_accounts`` differences):
+    the run loop waits at most once, at the end (one plan), besides its
+    forced completions (a ring position freed for the next segment, when
+    the run is more segments ahead of the card than the ring holds; they
+    are reported, and one whose drain had finished waits for nothing);
+    one drain a segment."""
+    if d["drain_waits"] > 1 + d["drains_forced"]:
+        raise AssertionError(f"{what}: {d['drain_waits']} run-loop waits "
+                             f"({d['drains_forced']} forced) over "
+                             f"{segments} segments")
+    if d["drain_fetches"] < segments:
+        raise AssertionError(f"{what}: {d['drain_fetches']} fetches for "
+                             f"{segments} segments")
+
+
+def drain_accounts(job, what):
+    """Fails unless the run loop waited for the card only in drains (no
+    compaction read: host syncs = drain waits) and the fetch thread's
+    waits are the completed drains' fetches (none queued); returns the
+    counts."""
+    if job.host_syncs != job.drain_waits:
+        raise AssertionError(f"{what}: {job.host_syncs} run-loop waits, "
+                             f"{job.drain_waits} of them in drains")
+    if job.fetch_syncs != job.drain_fetches:
+        raise AssertionError(f"{what}: {job.fetch_syncs} fetch-thread "
+                             f"waits, {job.drain_fetches} drain fetches")
+    return {"host_syncs": job.host_syncs, "drain_waits": job.drain_waits,
+            "drains_forced": job.drains_forced,
+            "fetch_syncs": job.fetch_syncs,
+            "drain_fetches": job.drain_fetches,
+            "drains_overlapped": job.drains_overlapped}
+
+
 def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
                     expect_rows=None, outs=("matches",), row_batches=None):
     """One path as bench.py runs it: EngineConfig(lazy_projection=True,
@@ -1187,15 +1260,9 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     rt = job._plans["bench"]
     if rt.lazy is not None and rt.lazy.missed:
         raise AssertionError(f"{name}: {rt.lazy.missed} lazy misses")
-    if job.host_syncs != job.drain_syncs:
-        raise AssertionError(
-            f"{name}: {job.host_syncs} host syncs, {job.drain_syncs} of "
-            "them drain fetches"
-        )
     streaming = {"rows": n_rows, "wall_s": wall,
                  "events_per_s": n_events / wall,
-                 "host_syncs": job.host_syncs,
-                 "drain_syncs": job.drain_syncs}
+                 **drain_accounts(job, f"{name}: streaming")}
     del rows, job, rt
 
     # ResidentReplay, counts-only
@@ -1212,10 +1279,13 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     ts_kinds = sorted({seg.template.ts_kind for seg in segs})
     seg_lens = [len(seg) for seg in segs]
     art = job._plans[pid].plan.artifacts[0]
+    n_ring = len(job._plans[pid].ring)
     captured = job.graphs_captured
+    reserved_stage = torch.cuda.max_memory_reserved()
     co.reset_launches()
     syncs0 = getattr(art, "host_syncs", 0)
     host_syncs0 = job.host_syncs
+    acct0 = drain_accounts(job, f"{name}: resident stage")
     t0 = time.perf_counter()
     rep.run()
     job.flush()
@@ -1223,6 +1293,9 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     first_s = time.perf_counter() - t0
     launches = co.launch_counts()
     run_syncs = job.host_syncs - host_syncs0
+    acct = drain_accounts(job, f"{name}: resident run")
+    first_drains = {k: acct[k] - acct0[k] for k in acct}
+    resident_waits(first_drains, len(segs), f"{name}: resident run")
     count = sum(job.emitted_counts.values())
     if count != streaming["rows"] or count != (expect_rows or count):
         raise AssertionError(f"{name}: resident run emitted {count} rows, "
@@ -1249,9 +1322,13 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     reruns = []
     for _ in range(3):
         before = sum(job.emitted_counts.values())
+        acct0 = drain_accounts(job, f"{name}: resident rerun")
         reruns.append(rep.rerun())
         if sum(job.emitted_counts.values()) - before != count:
             raise AssertionError(f"{name}: a rerun emitted another count")
+        acct = drain_accounts(job, f"{name}: resident rerun")
+        resident_waits({k: acct[k] - acct0[k] for k in acct}, len(segs),
+                       f"{name}: resident rerun")
     if job.graphs_captured != captured:
         raise AssertionError(f"{name}: a rerun captured a graph")
     peak = torch.cuda.max_memory_allocated()
@@ -1288,13 +1365,14 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     rrep = fpt.ResidentReplay(rjob)
     rrep.execute()
     res_segments = sum(len(v) for v in rrep.segments.values())
-    if rjob.eager_segments or not res_segments > rjob.graphs_captured:
+    if rjob.eager_segments or not res_segments > rjob.graph_keys:
         raise AssertionError(
             f"{name}: the resident row check ran {rjob.eager_segments} "
             f"eager segments, {res_segments} segments on "
-            f"{rjob.graphs_captured} graphs (none replayed on another "
+            f"{rjob.graph_keys} graph keys (none replayed on another "
             "segment)"
         )
+    drain_accounts(rjob, f"{name}: resident rows")
     res_rows = stream_rows(rjob, outs)
     for o in outs:
         rows_match(res_rows[o], eager_rows[o], rtol,
@@ -1334,8 +1412,11 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
             "launches": launches,
             "launches_traced": traced_launch,
             "graphs_captured": captured,
+            "ring_positions": n_ring,
             "eager_segments": 0,
             "host_syncs_first_run": run_syncs,
+            "drains_first_run": first_drains,
+            "max_memory_reserved_after_stage_bytes": reserved_stage,
             "max_memory_allocated_bytes": peak,
             "max_memory_reserved_bytes": peak_reserved,
             **traced,
@@ -1386,7 +1467,7 @@ FUSED_RUNS = 3
 def fused_job(fpt, cql, schema, batches, retain, config=None,
               stream="inputStream"):
     """A streaming Job with bench.py's fused dispatch: segments of
-    FUSED_K tapes (at most the package's MAX_INFLIGHT_CYCLES, bench.py's
+    FUSED_K tapes (at most ``Job.max_inflight_cycles``, bench.py's
     BENCH_INFLIGHT, unfinished on the card)."""
     plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench",
                             config=config)
@@ -1422,13 +1503,14 @@ def fused_segment(fpt, co, name, cql, schema, batches, outs, config,
     job = fused_job(fpt, cql, schema, rowed, True, config, stream)
     job.run()
     if (job.eager_segments or not job.graphs_captured
-            or not job.fusion_dispatches > job.graphs_captured):
+            or not job.fusion_dispatches > job.graph_keys):
         raise AssertionError(
             f"{name}: the fused row check ran {job.eager_segments} eager "
             f"segments, {job.fusion_dispatches} segments on "
-            f"{job.graphs_captured} graphs (none replayed on another "
+            f"{job.graph_keys} graph keys (none replayed on another "
             "segment)"
         )
+    drain_accounts(job, f"{name}: fused rows")
     rows = stream_rows(job, outs)
     del job
     rel = 0.0
@@ -1463,8 +1545,6 @@ def streaming_counts(fpt, co, name, cql, schema, batches, config, stream,
     in the trace."""
     import torch
 
-    from flink_siddhi_tpu_torch.runtime.executor import MAX_INFLIGHT_CYCLES
-
     n_events = sum(len(b) for b in batches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1495,19 +1575,17 @@ def streaming_counts(fpt, co, name, cql, schema, batches, config, stream,
     for _ in range(FUSED_RUNS):
         rerun()
         co.reset_launches()
-        syncs0, drains0 = job.host_syncs, job.drain_syncs
+        acct0 = drain_accounts(job, f"{name}: fused run")
         disp0, up0 = job.fusion_dispatches, job.fusion_h2d_uploads
         runs.append(run())
     launches = co.launch_counts()
     dispatches = job.fusion_dispatches - disp0
     k = job._fused_k(job._plans["bench"])
     steps = dispatches * k  # every segment padded to k tapes
-    if job.host_syncs - syncs0 != job.drain_syncs - drains0:
-        raise AssertionError(f"{name}: streaming host syncs beyond the "
-                             "drains")
+    acct = drain_accounts(job, f"{name}: fused run")
     result = {
         "segment_len": k,
-        "max_inflight_cycles": MAX_INFLIGHT_CYCLES,
+        "max_inflight_cycles": job.max_inflight_cycles,
         "warm_run_s": warm_s,
         "run_s": runs,
         "events_per_s_median": n_events / statistics.median(runs),
@@ -1518,7 +1596,9 @@ def streaming_counts(fpt, co, name, cql, schema, batches, config, stream,
         "h2d_uploads": job.fusion_h2d_uploads - up0,
         "graphs_captured": captured,
         "eager_segments": job.eager_segments,
-        "host_syncs": job.host_syncs - syncs0,
+        "host_syncs": acct["host_syncs"] - acct0["host_syncs"],
+        "drains": {k: acct[k] - acct0[k] for k in acct},
+        "backpressure_waits": job.backpressure_waits,
         "launches": launches,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
@@ -1540,6 +1620,278 @@ def streaming_counts(fpt, co, name, cql, schema, batches, config, stream,
                 f"{name}: fused {kname} launched {launches[kname]} times "
                 f"(on the card {traced_launch[kname]}) in {steps} steps")
     return result
+
+
+# -- phase 5c: the drain pipeline (sink mode, paced latency) ----------------
+
+SINK_CUT = 4 * BATCH  # window_groupby in sink mode
+SINK_CUT_MQ = 2 * BATCH  # multiquery64 in sink mode (the row path)
+LAT_BATCH = 131_072  # bench.py:_latency_phase's micro-batch
+LAT_SECONDS = 3.0
+LAT_SHARE = 0.25  # offered rate: this share of the fused headline's
+
+
+class RowCount:
+    """A row sink (``fn(abs_ts, row)``) that counts rows and keeps an
+    exact checksum that does not depend on how rows are batched: the
+    wrapping sum of the float64 bit patterns of the timestamps and of
+    every numeric field (``fields``: (index, name) pairs)."""
+
+    def __init__(self, fields):
+        self.fields = fields
+        self.reset()
+
+    def reset(self):
+        self.rows = self.batches = 0
+        self.checksum = 0
+        self._ts, self._vals = [], []
+
+    @staticmethod
+    def bits(col):
+        return int(np.asarray(col, dtype=np.float64).view(np.int64)
+                   .sum(dtype=np.int64))
+
+    def _add(self, ts, cols):
+        self.checksum = (self.checksum + self.bits(ts)
+                         + sum(self.bits(c) for c in cols)) % 2**64
+
+    def __call__(self, ts, row):
+        self.rows += 1
+        self._ts.append(ts)
+        self._vals.append(row)
+        if len(self._ts) >= 1 << 16:
+            self.fold()
+
+    def fold(self):
+        if self._ts:
+            self._add(self._ts, [[r[i] for r in self._vals]
+                                 for i, _ in self.fields])
+            self._ts, self._vals = [], []
+        return self.rows, self.checksum
+
+
+class ColumnarCount(RowCount):
+    """bench.py's _CountingColumnarSink (``accept_columns``), with the
+    checksum of ``RowCount``; a checkout without the columnar lane calls
+    it as a row sink."""
+
+    def accept_columns(self, ts, cols):
+        self.rows += len(ts)
+        self.batches += 1
+        self._add(ts, [cols[n] for _, n in self.fields])
+
+
+def sink_job(fpt, cql, schema, batches, sink_cls):
+    """bench.py:_mode_sink's job: build_job's settings (bench settings,
+    counts-only, in-flight 6, p99 target 400 ms, drain interval 250 ms,
+    prewarm_drains()), fused dispatch of FUSED_K tapes, and one sink on
+    every output stream."""
+    job = fused_job(fpt, cql, schema, batches, False, bench_config(fpt))
+    job.max_inflight_cycles = 6
+    job.target_p99_ms = 400.0
+    job.drain_interval_ms = 250.0
+    sinks = []
+    for rt in job._plans.values():
+        for sid, schemas in rt.plan.output_streams().items():
+            fields = [(i, f.name) for i, f in enumerate(schemas[0].fields)
+                      if f.atype.name != "STRING"]
+            sinks.append(sink_cls(fields))
+            job.add_sink(sid, sinks[-1])
+    if hasattr(job, "prewarm_drains"):
+        job.prewarm_drains()
+    return job, sinks
+
+
+def sink_mode(fpt, cql, schema, batches, sink_cls, runs=1):
+    """A warm run over two micro-batches (the captures), then ``runs``
+    timed runs over ``batches``; returns (job, sinks, wall seconds)."""
+    import torch
+
+    job, sinks = sink_job(fpt, cql, schema, batches[:2], sink_cls)
+    job.run()
+    walls = []
+    for _ in range(runs):
+        for s in sinks:
+            s.reset()
+        job.reset_engine_state()
+        re_source(fpt, job, schema, batches)
+        if hasattr(job, "telemetry"):
+            job.telemetry = type(job.telemetry)()
+        t0 = time.perf_counter()
+        job.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return job, sinks, walls
+
+
+def sink_totals(sinks):
+    rows = checksum = 0
+    for s in sinks:
+        r, c = s.fold()
+        rows += r
+        checksum = (checksum + c) % 2**64
+    return rows, checksum
+
+
+def columnar_lane(job):
+    """bench.py:_mode_sink's flag, read back from the engine: every
+    output stream on the columnar lane and every artifact with a columnar
+    decode."""
+    return all(
+        sid in job._columnar_streams(rt)
+        for rt in job._plans.values() for sid in rt.plan.output_streams()
+    ) and all(
+        not hasattr(a, "decode_packed") or hasattr(a, "decode_packed_columns")
+        for rt in job._plans.values() for a in rt.plan.artifacts
+    )
+
+
+def hist_ms(job, name):
+    h = job.telemetry.histogram(name)
+    return {"count": h.count, "p50_ms": h.percentile_ms(50),
+            "p99_ms": h.percentile_ms(99)}
+
+
+def sink_phase(fpt, name, cql, schema, batches, want_columnar):
+    """One config in sink mode, as bench.py:_mode_sink runs it (the
+    columnar sink), and again with a row sink on every stream: the rows
+    and the checksum must be equal; the columnar flag is read back."""
+    job, sinks, (wall,) = sink_mode(fpt, cql, schema, batches,
+                                    ColumnarCount)
+    rows, checksum = sink_totals(sinks)
+    columnar = columnar_lane(job)
+    accounts = drain_accounts(job, f"{name}: sink mode")
+    total, stale = hist_ms(job, "drain.total"), hist_ms(job,
+                                                        "drain.staleness")
+    del job, sinks
+    rjob, rsinks, (rwall,) = sink_mode(fpt, cql, schema, batches, RowCount)
+    rrows, rchecksum = sink_totals(rsinks)
+    del rjob, rsinks
+    n_events = sum(len(b) for b in batches)
+    if not rows or (rows, checksum) != (rrows, rchecksum):
+        raise AssertionError(
+            f"{name}: sink mode delivered {rows} rows (checksum {checksum})"
+            f", a row sink {rrows} ({rchecksum})")
+    if columnar != want_columnar:
+        raise AssertionError(f"{name}: columnar lane {columnar}, expected "
+                             f"{want_columnar}")
+    res = {"path": f"sink_{name}", "events": n_events,
+           "cut": None if len(batches) == N_BATCHES else
+           f"{n_events} of {N_BATCHES * BATCH} events",
+           "events_per_s": n_events / wall, "wall_s": wall,
+           "rows": rows, "checksum": checksum, "columnar": columnar,
+           "row_sink_events_per_s": n_events / rwall,
+           "row_sink_wall_s": rwall,
+           "drain_total": total, "drain_staleness": stale, **accounts}
+    log(json.dumps(res))
+    return res
+
+
+class PacedSource:
+    """bench.py's _PacedSource: the i-th micro-batch of ``base`` (cycled,
+    its timestamps moved past the previous cycle's) is due at t0 + i *
+    ``period`` from the first poll; a poll releases every due batch, as
+    one."""
+
+    def __init__(self, fpt, base, n, period):
+        self.fpt, self.base, self.n, self.period = fpt, base, n, period
+        self.stream_id, self.schema = base[0].stream_id, base[0].schema
+        self.span = int(base[-1].timestamps[-1]) - int(
+            base[0].timestamps[0]) + 1
+        self.i, self.t0 = 0, None
+
+    def _batch(self, i):
+        b = self.base[i % len(self.base)]
+        shift = (i // len(self.base)) * self.span
+        if not shift:
+            return b
+        ts = b.timestamps + shift
+        return self.fpt.EventBatch(self.stream_id, self.schema,
+                                   {**b.columns, "timestamp": ts}, ts)
+
+    def poll(self, max_events):
+        now = time.perf_counter()
+        if self.t0 is None:
+            self.t0 = now
+        out = []
+        while self.i < self.n and self.t0 + self.i * self.period <= now:
+            out.append(self._batch(self.i))
+            self.i += 1
+        done = self.i >= self.n
+        if not out:
+            return None, None, done
+        b = out[0] if len(out) == 1 else self.fpt.EventBatch.concat(out)
+        return b, int(b.timestamps.max()), done
+
+
+def paced_latency(fpt, schema, batches, fused_events_per_s):
+    """The headline as bench.py:_latency_phase sets it: micro-batches of
+    LAT_BATCH, drain interval 60 ms, build_job's settings and a columnar
+    sink, warmed off the clock on the 1x, 2x and 4x tape shapes, then an
+    offered rate of LAT_SHARE of the fused headline's events/s, paced by
+    sleeping between run_cycle calls, for about LAT_SECONDS: drain.total
+    and drain.staleness from Job.telemetry."""
+    import torch
+
+    base = [b.slice(s, s + LAT_BATCH) for b in batches
+            for s in range(0, len(b), LAT_BATCH)]
+    rate = LAT_SHARE * fused_events_per_s
+    period = LAT_BATCH / rate
+    n = max(int(LAT_SECONDS / period), 16)
+    warm = [base[0], base[1], fpt.EventBatch.concat(base[2:4]),
+            fpt.EventBatch.concat(base[4:8])]
+    plan = fpt.compile_plan(HEADLINE, {"inputStream": schema},
+                            plan_id="bench", config=bench_config(fpt))
+    job = fpt.Job([plan], [fpt.BatchSource("inputStream", schema,
+                                           iter(warm))],
+                  batch_size=LAT_BATCH, time_mode="processing",
+                  retain_results=False, device="cuda")
+    job.max_inflight_cycles = 6
+    job.target_p99_ms = 400.0
+    job.drain_interval_ms = 60.0
+    job.prewarm_drains()
+    fields = [(i, f.name) for i, f in enumerate(
+        plan.output_streams()["matches"][0].fields)]
+    sink = ColumnarCount(fields)
+    job.add_sink("matches", sink)
+    while not job.finished:
+        job.run_cycle()
+    job.drain_outputs(wait=True)
+    job.telemetry = type(job.telemetry)()
+    sink.reset()
+    from flink_siddhi_tpu_torch.runtime.executor import MIN_WM
+
+    job._sources = [PacedSource(fpt, base[8:], n, period)]
+    job._source_wm, job._source_done = [MIN_WM], [False]
+    waits0, forced0 = job.drain_waits, job.drains_forced
+    ev0 = job.processed_events
+    t0 = time.perf_counter()
+    while not job.finished:
+        before = job.processed_events
+        job.run_cycle()
+        if job.processed_events == before:
+            time.sleep(0.0005)
+    job.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = job.processed_events - ev0
+    res = {"path": "paced_latency_headline", "batch": LAT_BATCH,
+           "drain_interval_ms": job.drain_interval_ms,
+           "offered_events_per_s": rate,
+           "offered_share_of_fused": LAT_SHARE,
+           "events": events, "wall_s": wall,
+           "achieved_events_per_s": events / wall, "rows": sink.rows,
+           "drain_total": hist_ms(job, "drain.total"),
+           "drain_staleness": hist_ms(job, "drain.staleness"),
+           "drains_completed": job.telemetry.counter_value(
+               "drains.completed"),
+           "drain_waits": job.drain_waits - waits0,
+           "drains_forced": job.drains_forced - forced0,
+           "max_inflight_cycles": job.max_inflight_cycles}
+    if not sink.rows or not res["drain_staleness"]["count"]:
+        raise AssertionError("paced latency: no rows or no drain recorded")
+    log(json.dumps(res))
+    return res
 
 
 # -- phase 7: windows and aggregation -----------------------------------------
@@ -1637,10 +1989,9 @@ def window_class(fpt, name, cql, schema, batches, stream, rtol):
                               stream=stream, out="out")
     peak = torch.cuda.max_memory_allocated()
     max_rel = rows_match(rows, cpu_rows, rtol, f"window class {name}")
-    if not rows or job.host_syncs != job.drain_syncs:
-        raise AssertionError(f"window class {name}: {len(rows)} rows, "
-                             f"{job.host_syncs} host syncs, "
-                             f"{job.drain_syncs} of them drains")
+    if not rows:
+        raise AssertionError(f"window class {name}: no rows")
+    drain_accounts(job, f"window class {name}")
     dev = torch.device("cuda")
     plan = fpt.compile_plan(cql, {stream: schema}, plan_id="bench")
     tapes = stage_wire_tapes(plan, batches[:2],
@@ -1679,7 +2030,8 @@ def window_class(fpt, name, cql, schema, batches, stream, rtol):
 def window_phase(fpt, co):
     """The bench's window_groupby as bench.py runs it (phase 5b's runner,
     1,000 ids), then every other window class through the streaming Job
-    at batch 524,288 (65,536 on the matrix path) over four micro-batches."""
+    at batch 524,288 (65,536 on the matrix path) over
+    WINDOW_CLASS_BATCHES micro-batches."""
     wschema, wbatches = bench_stream(fpt, BATCH * N_BATCHES, BATCH,
                                      n_ids=N_IDS_WINDOW)
     plan = fpt.compile_plan(WINDOW_GROUPBY, {"inputStream": wschema},
@@ -1906,9 +2258,7 @@ def quote_board(fpt, co):
             f"quote board: launches {launches}, expected the unique fold "
             f"once per micro-batch ({QUOTE_BATCHES})"
         )
-    if job.host_syncs != job.drain_syncs:
-        raise AssertionError("quote board: host syncs beyond the drains")
-    host_syncs, drain_syncs = job.host_syncs, job.drain_syncs
+    drains = drain_accounts(job, "quote board")
     state = job._plans["bench"].states["query_0"]
     slots = int(state["valid"].shape[0])
     bucket = 128
@@ -1923,14 +2273,16 @@ def quote_board(fpt, co):
     del job
     # fused streaming: segments of the unique fold's steps, one graph
     # replay each (the table grows, and its graphs are captured again, in
-    # the row check and the warm run); its rows over the whole stream
-    # held to the eager run's
+    # the row check and the warm run); its rows over the first
+    # QUOTE_ROW_BATCHES micro-batches held to the eager run's
     fused, frel = fused_segment(
         fpt, co, "quote_board", QUOTE_BOARD, schema, batches,
         outs=("Board",), config=None, cpu_rows={"Board": cpu_rows},
-        cpu_ts=int(check[-1].timestamps[-1]), eager_rows={"Board": rows},
+        cpu_ts=int(check[-1].timestamps[-1]),
+        eager_rows={"Board": rows[:QUOTE_ROW_BATCHES * BATCH]},
         rtol=FOLD_RTOL, stream="StockStream",
         expect_launches=("unique_window_fold",),
+        row_batches=QUOTE_ROW_BATCHES,
     )
     del rows
     result = {
@@ -1946,8 +2298,7 @@ def quote_board(fpt, co):
         "wall_s": wall,
         "events_per_s": n_events / wall,
         "max_memory_allocated_bytes": peak,
-        "host_syncs": host_syncs,
-        "drain_syncs": drain_syncs,
+        **drains,
         "launches": launches,
         "cpu_check_events": QUOTE_CHECK_EVENTS,
         "cpu_check_rows": len(cpu_rows),
@@ -2348,6 +2699,10 @@ def main():
     err_k1 = max(err_k1, check_reverse_cummin_replay(co, graphs, dev,
                                                      gen_dev))
 
+    def lap(what):
+        log(f"  {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    lap("phases 1-3")
     # 4. headline end to end; record each kernel's inputs mid-run
     schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
     log(f"[4/11] headline: {BATCH * N_BATCHES} events in {N_BATCHES} "
@@ -2364,6 +2719,7 @@ def main():
         nfa.chain_advance = co.chain_advance
     full_k1, full_k2 = full_width_inputs(fpt, co, nfa, schema, batches)
 
+    lap("phase 4")
     # 5. filter end to end (no kernel on this path)
     log("[5/11] filter")
     end_to_end(fpt, co, "filter", FILTER, schema, batches,
@@ -2379,8 +2735,34 @@ def main():
                                    batches, chain=False)
     bench_p2 = bench_main_path(fpt, co, "pattern2", PATTERN2, schema,
                                batches, chain=True)
+
+    lap("phases 5 and 5b")
+    # 5c. the drain pipeline: the five bench configs in sink mode (a
+    # columnar sink, then a row sink: the same rows and checksum), and the
+    # headline's paced latency
+    log("[5c/11] drain pipeline: sink mode (columnar lane and row sink), "
+        "paced latency")
+    t_drain = time.perf_counter()
+    sink_results = [
+        sink_phase(fpt, name, cql, schema, batches, True)
+        for name, cql in (("headline", HEADLINE), ("filter", FILTER),
+                          ("pattern2", PATTERN2))
+    ]
+    wschema, wbatches = bench_stream(fpt, SINK_CUT, BATCH,
+                                     n_ids=N_IDS_WINDOW)
+    sink_results.append(sink_phase(fpt, "window_groupby", WINDOW_GROUPBY,
+                                   wschema, wbatches, True))
+    del wschema, wbatches
+    # a stack routes rows to 64 streams: the row path, as in the reference
+    sink_results.append(sink_phase(fpt, "multiquery64", MULTIQUERY64,
+                                   schema, batches[:SINK_CUT_MQ // BATCH],
+                                   False))
+    paced = paced_latency(fpt, schema, batches,
+                          bench_head["fused_streaming"]["events_per_s_median"])
+    log(f"  drain phase {time.perf_counter() - t_drain:.1f} s")
     del schema, batches
 
+    lap("phase 5c")
     # 6. the quote board end to end; record the fold's inputs of the
     # second micro-batch (calls 1 and 2 are the CPU check and the warm-up)
     log(f"[6/11] quote board: {QUOTE_BATCHES * BATCH} events in "
@@ -2388,10 +2770,11 @@ def main():
     rec_k3 = Recorder(co.unique_window_fold, keep=4)
     scan_windows.unique_window_fold = rec_k3
     try:
-        board, qschema, qbatches = quote_board(fpt, co)
+        board, _, _ = quote_board(fpt, co)
     finally:
         scan_windows.unique_window_fold = co.unique_window_fold
 
+    lap("phase 6")
     # 7. windows and aggregation: the bench's window_groupby and every other
     # window class (no kernel on these paths)
     log(f"[7/11] windows: window_groupby over {BATCH * N_BATCHES} events "
@@ -2428,105 +2811,51 @@ def main():
     log(json.dumps({"graphs": graph_summary(
         [bench_head, bench_filter, bench_p2, bench_wg, mq["bench"]], board,
     )}))
+    overlapped = bench_head["resident"]["drains_first_run"][
+        "drains_overlapped"]
+    log(json.dumps({"drain": {
+        "resident": {b["path"]: b["resident"]["drains_first_run"]
+                     for b in (bench_head, bench_filter, bench_p2, bench_wg,
+                               mq["bench"])},
+        "sink_mode": [{k: r[k] for k in (
+            "path", "cut", "events_per_s", "row_sink_events_per_s", "rows",
+            "checksum", "columnar")} for r in sink_results],
+        "paced_latency": {k: paced[k] for k in (
+            "offered_events_per_s", "drain_total", "drain_staleness")},
+    }}))
+    if not overlapped:
+        raise AssertionError("resident headline: no drain overlapped a "
+                             "later segment")
 
-    # 9. kernel timing on each path's own inputs
-    log("[9/11] kernels on their paths' inputs")
+    lap("phases 7 and 8")
+    # 9 and 10 in a process of its own: late in a long process, profiler
+    # traces lost records (kernel_records); a fresh one held them
+    log("[9/11] kernels on their paths' inputs (in a process of its own)")
     if rec_k1.args is None or rec_k2.args is None or rec_k3.args is None:
         raise AssertionError("no kernel inputs recorded on the main paths")
-    for rec, what in ((rec_k1, "main-path"), (full_k1, "full-width")):
-        pad = rec.kwargs.get("pad")
-        err_k1 = max(err_k1, same(
-            co.multi_reverse_cummin(rec.args[0], pad=pad),
-            co.reverse_cummin_plain(rec.args[0], pad),
-            f"reverse_cummin {what} input",
-        ))
-    for rec, what in ((rec_k2, "main-path"), (full_k2, "full-width")):
-        got = co.chain_advance(*rec.args)
-        ref = co.chain_advance_plain(*rec.args)
-        for g, r in zip(got, ref):
-            err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
-    # the stack's recorded inputs (phase 8): K1 over 64 queries' rows,
-    # K2 with its query axis, compacted and at full width
-    mq_k1 = [keep_copy(a, "cuda") for a in mq_inputs["k1"]]
-    mq_k1_full = [keep_copy(a, "cuda") for a in mq_inputs["k1_full"]]
-    mq_k2 = [keep_copy(a, "cuda") for a in mq_inputs["k2"]]
-    mq_k2_full = [keep_copy(a, "cuda") for a in mq_inputs["k2_full"]]
-    for x, kw, what in ((mq_k1, mq_inputs["k1_kw"], "stacked"),
-                        (mq_k1_full, mq_inputs["k1_full_kw"],
-                         "stacked full-width")):
-        err_k1 = max(err_k1, same(
-            co.multi_reverse_cummin(x[0], pad=kw.get("pad")),
-            co.reverse_cummin_plain(x[0], kw.get("pad")),
-            f"reverse_cummin {what} input",
-        ))
-    for args, what in ((mq_k2, "stacked"), (mq_k2_full,
-                                            "stacked full-width")):
-        got = co.chain_advance(*args)
-        ref = co.chain_advance_plain(*args)
-        for g, r in zip(got, ref):
-            err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
-    log("  stacked kernel inputs: K1 and K2 exact against their plain "
-        "versions")
-    floor_ms, floor_call_ms = timed(co.launch_empty)
-    log(f"  launch floor: an empty kernel's device time {floor_ms} ms "
-        f"(call {floor_call_ms} ms)")
     if rec_k3.args[0].device.type != "cuda":
         raise AssertionError("the recorded fold call did not run on the card")
-    slots = rec_k3.args[-1]
-    e3, r3 = fold_err(co.unique_window_fold(*rec_k3.args),
-                      co.unique_window_fold_plain(*rec_k3.args), slots,
-                      "unique_window_fold main-path input")
-    err_k3, rel_k3 = max(err_k3, e3), max(rel_k3, r3)
-    kernels = [
-        time_reverse_cummin(co, rec_k1, full_k1,
-                            head["launches"]["multi_reverse_cummin"],
-                            err_k1, floor_ms),
-        time_chain_advance(co, rec_k2, full_k2,
-                           head["launches"]["chain_advance"], err_k2,
-                           floor_ms),
-        time_unique_fold(co, rec_k3.args,
-                         board["launches"]["unique_window_fold"], err_k3,
-                         rel_k3, floor_ms),
-    ]
-    # the kernels' calls that ran on the card in a traced rerun of the
-    # bench main path's resident headline and multiquery64's, and in a
-    # traced fused run of the quote board (kernel records in the profiler
-    # trace, equal to the host's counts: traced_run)
-    for k in kernels:
-        k["launches_bench_main_path"] = \
-            bench_head["resident"]["launches_traced"][k["name"]]
-        k["launches_multiquery64"] = \
-            mq["bench"]["resident"]["launches_traced"][k["name"]]
-        k["launches_fused_quote_board"] = \
-            board["fused_streaming"]["launches_traced"][k["name"]]
-        k["launches_graph_paths_by"] = "kernel records in a profiler trace"
-    # the chain kernels at the stack's shapes
-    kernels[0]["stacked"] = reverse_cummin_times(co, mq_k1[0],
-                                                 mq_inputs["k1_kw"].get(
-                                                     "pad"))
-    kernels[0]["stacked"]["full_width"] = reverse_cummin_times(
-        co, mq_k1_full[0], mq_inputs["k1_full_kw"].get("pad"))
-    kernels[1]["stacked"] = chain_advance_times(co, tuple(mq_k2))
-    kernels[1]["stacked"]["full_width"] = chain_advance_times(
-        co, tuple(mq_k2_full))
-    for k in kernels[:2]:
-        st = k["stacked"]
-        log(f"  {k['name']} stacked: {st['ms']} ms (call {st['call_ms']}), "
-            f"full width {st['full_width']['ms']} ms, bound "
-            f"{st['bound_ms']}, {k['launches_multiquery64']} launches in "
-            f"a multiquery64 resident run")
-    for k in kernels[:2]:
-        log(f"  {k['name']}: {k['ms']} ms (call {k['call_ms']}), full "
-            f"width {k['full_width']['ms']} ms, bound {k['bound_ms']}, "
-            f"floor {floor_ms}")
-
-    # 10. where the quote board's time goes (after the kernel timing: a
-    # profiler session after this traced run recorded no device time on
-    # the card)
-    log("[10/11] quote board: where the time goes")
-    breakdown(fpt, "quote_board", QUOTE_BOARD, qschema, qbatches,
-              stream="StockStream", out="Board", sync_free=True)
-    del qschema, qbatches
+    k_path = os.path.join(SMOKE_DIR, "kernels.json")
+    torch.save({
+        "recorded": {name: {"args": [keep_copy(x, "cpu") for x in r.args],
+                            "kwargs": r.kwargs}
+                     for name, r in (("k1", rec_k1), ("k1_full", full_k1),
+                                     ("k2", rec_k2), ("k2_full", full_k2),
+                                     ("k3", rec_k3))},
+        "err": [err_k1, err_k2, err_k3, rel_k3],
+        "launches": {"head": head["launches"], "board": board["launches"],
+                     "bench": bench_head["resident"]["launches_traced"],
+                     "mq": mq["bench"]["resident"]["launches_traced"],
+                     "fqb": board["fused_streaming"]["launches_traced"]},
+    }, k_path + ".pt")
+    del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--kernels", k_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"kernel phase failed ({r.returncode})")
+    with open(k_path) as f:
+        kernels = json.load(f)
+    lap("phases 9 and 10")
 
     # 11. the API on the default device
     log("[11/11] api")
@@ -2548,7 +2877,9 @@ GRAPH_KEYS = (
     "traced_host_ops_per_segment", "traced_device_records_per_segment",
     "traced_idle_share", "max_memory_allocated_bytes",
     "max_memory_reserved_bytes", "graphs_captured", "eager_segments",
-    "host_syncs", "host_syncs_first_run", "launches", "launches_traced",
+    "host_syncs", "host_syncs_first_run", "drains_first_run", "drains",
+    "ring_positions", "max_memory_reserved_after_stage_bytes",
+    "launches", "launches_traced",
     "segment_len",
     "dispatches",
 )
@@ -2718,6 +3049,97 @@ def ab_graphs_one(root):
     return 0
 
 
+def resident_timeline(rep):
+    """One rerun of a counts-only resident replay with each segment's
+    launch stamped on the host (ms from the start) and a CUDA event
+    recorded behind it (ms of the card's clock from an event before the
+    first): ``launched``, ``done``, the card's busy span (first segment's
+    start to last segment's end, by events around the run), and the wall
+    after the last segment's end (the final drain, flush and sync)."""
+    import torch
+
+    job = rep.job
+    inner = rep.run_segment
+    marks = []
+
+    def stamped(pid, i):
+        inner(pid, i)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((time.perf_counter(), ev))
+
+    job.reset_engine_state()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    rep.run_segment = stamped
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        rep.run()
+        job.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del rep.run_segment
+    done = [start.elapsed_time(ev) for _, ev in marks]
+    return {"wall_ms": wall * 1e3,
+            "launched_ms": [(t - t0) * 1e3 for t, _ in marks],
+            "done_ms": done, "tail_ms": wall * 1e3 - done[-1]}
+
+
+def ab_drain_one(root):
+    """The resident headline and the headline's sink mode with the
+    package of the checkout at ``root`` (bench settings): resident stage,
+    run() + flush() and AB_RERUNS reruns (events/s median and best, peak
+    memory allocated and reserved, the drain counts where the checkout
+    has them); sink mode (a ``ColumnarCount`` on the stream, which a
+    checkout without the columnar lane calls as a row sink) over
+    FUSED_RUNS timed runs: events/s, rows and checksum."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    if not os.path.abspath(fpt.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {fpt.__file__}, not {root}'s")
+    co.build()
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    n_events = sum(len(b) for b in batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    job = replay_job(fpt, HEADLINE, schema, batches, retain=False)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    rep.run()
+    job.flush()
+    reruns = [rep.rerun() for _ in range(AB_RERUNS)]
+    resident = {
+        "stage_s": rep.stage_seconds, "rerun_s": reruns,
+        "events_per_s_median": n_events / statistics.median(reruns),
+        "events_per_s_best": n_events / min(reruns),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "host_syncs": job.host_syncs,
+        "drains_overlapped": getattr(job, "drains_overlapped", None),
+        "timeline": [resident_timeline(rep) for _ in range(AB_RERUNS)],
+    }
+    del rep, job
+    job, sinks, walls = sink_mode(fpt, HEADLINE, schema, batches,
+                                  ColumnarCount, runs=FUSED_RUNS)
+    rows, checksum = sink_totals(sinks)
+    sink = {"run_s": walls,
+            "events_per_s_median": n_events / statistics.median(walls),
+            "events_per_s_best": n_events / min(walls),
+            "rows": rows, "checksum": checksum,
+            "columnar": hasattr(job, "_columnar_streams")
+            and columnar_lane(job)}
+    print(json.dumps({"checkout": root, "path": "headline",
+                      "resident": resident, "sink_mode": sink}), flush=True)
+    return 0
+
+
 def ab(roots, mode="--ab-one"):
     for root in roots:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -2726,6 +3148,133 @@ def ab(roots, mode="--ab-one"):
             print(f"chip_smoke --ab: {root} failed ({r.returncode})",
                   file=sys.stderr)
             return 1
+    return 0
+
+
+def kernels_main(path):
+    """Phases 9 and 10 alone (``--kernels OUT``), run by ``main`` in a
+    child process: the recorded kernel inputs and the counts come from
+    OUT.pt, the stacked inputs from phase 8's file; the kernels' line goes
+    to OUT."""
+    import types
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    saved = torch.load(path + ".pt")
+    rec_k1, full_k1, rec_k2, full_k2, rec_k3 = (
+        types.SimpleNamespace(
+            args=tuple(keep_copy(a, "cuda") for a in r["args"]),
+            kwargs=r["kwargs"])
+        for r in (saved["recorded"][k] for k in (
+            "k1", "k1_full", "k2", "k2_full", "k3"))
+    )
+    err_k1, err_k2, err_k3, rel_k3 = saved["err"]
+    launches = saved["launches"]
+    mq_inputs = torch.load(os.path.join(SMOKE_DIR, "multiquery64.json.pt"))
+    # 9. kernel timing on each path's own inputs
+    for rec, what in ((rec_k1, "main-path"), (full_k1, "full-width")):
+        pad = rec.kwargs.get("pad")
+        err_k1 = max(err_k1, same(
+            co.multi_reverse_cummin(rec.args[0], pad=pad),
+            co.reverse_cummin_plain(rec.args[0], pad),
+            f"reverse_cummin {what} input",
+        ))
+    for rec, what in ((rec_k2, "main-path"), (full_k2, "full-width")):
+        got = co.chain_advance(*rec.args)
+        ref = co.chain_advance_plain(*rec.args)
+        for g, r in zip(got, ref):
+            err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
+    # the stack's recorded inputs (phase 8): K1 over 64 queries' rows,
+    # K2 with its query axis, compacted and at full width
+    mq_k1 = [keep_copy(a, "cuda") for a in mq_inputs["k1"]]
+    mq_k1_full = [keep_copy(a, "cuda") for a in mq_inputs["k1_full"]]
+    mq_k2 = [keep_copy(a, "cuda") for a in mq_inputs["k2"]]
+    mq_k2_full = [keep_copy(a, "cuda") for a in mq_inputs["k2_full"]]
+    for x, kw, what in ((mq_k1, mq_inputs["k1_kw"], "stacked"),
+                        (mq_k1_full, mq_inputs["k1_full_kw"],
+                         "stacked full-width")):
+        err_k1 = max(err_k1, same(
+            co.multi_reverse_cummin(x[0], pad=kw.get("pad")),
+            co.reverse_cummin_plain(x[0], kw.get("pad")),
+            f"reverse_cummin {what} input",
+        ))
+    for args, what in ((mq_k2, "stacked"), (mq_k2_full,
+                                            "stacked full-width")):
+        got = co.chain_advance(*args)
+        ref = co.chain_advance_plain(*args)
+        for g, r in zip(got, ref):
+            err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
+    log("  stacked kernel inputs: K1 and K2 exact against their plain "
+        "versions")
+    floor_ms, floor_call_ms = timed(co.launch_empty)
+    log(f"  launch floor: an empty kernel's device time {floor_ms} ms "
+        f"(call {floor_call_ms} ms)")
+    slots = rec_k3.args[-1]
+    e3, r3 = fold_err(co.unique_window_fold(*rec_k3.args),
+                      co.unique_window_fold_plain(*rec_k3.args), slots,
+                      "unique_window_fold main-path input")
+    err_k3, rel_k3 = max(err_k3, e3), max(rel_k3, r3)
+    kernels = [
+        time_reverse_cummin(co, rec_k1, full_k1,
+                            launches["head"]["multi_reverse_cummin"],
+                            err_k1, floor_ms),
+        time_chain_advance(co, rec_k2, full_k2,
+                           launches["head"]["chain_advance"], err_k2,
+                           floor_ms),
+        time_unique_fold(co, rec_k3.args,
+                         launches["board"]["unique_window_fold"], err_k3,
+                         rel_k3, floor_ms),
+    ]
+    # the kernels' calls that ran on the card in a traced rerun of the
+    # bench main path's resident headline and multiquery64's, and in a
+    # traced fused run of the quote board (kernel records in the profiler
+    # trace, equal to the host's counts: traced_run)
+    for k in kernels:
+        k["launches_bench_main_path"] = \
+            launches["bench"][k["name"]]
+        k["launches_multiquery64"] = \
+            launches["mq"][k["name"]]
+        k["launches_fused_quote_board"] = \
+            launches["fqb"][k["name"]]
+        k["launches_graph_paths_by"] = "kernel records in a profiler trace"
+    # the chain kernels at the stack's shapes
+    kernels[0]["stacked"] = reverse_cummin_times(co, mq_k1[0],
+                                                 mq_inputs["k1_kw"].get(
+                                                     "pad"))
+    kernels[0]["stacked"]["full_width"] = reverse_cummin_times(
+        co, mq_k1_full[0], mq_inputs["k1_full_kw"].get("pad"))
+    kernels[1]["stacked"] = chain_advance_times(co, tuple(mq_k2))
+    kernels[1]["stacked"]["full_width"] = chain_advance_times(
+        co, tuple(mq_k2_full))
+    for k in kernels[:2]:
+        st = k["stacked"]
+        log(f"  {k['name']} stacked: {st['ms']} ms (call {st['call_ms']}), "
+            f"full width {st['full_width']['ms']} ms, bound "
+            f"{st['bound_ms']}, {k['launches_multiquery64']} launches in "
+            f"a multiquery64 resident run")
+    for k in kernels[:2]:
+        log(f"  {k['name']}: {k['ms']} ms (call {k['call_ms']}), full "
+            f"width {k['full_width']['ms']} ms, bound {k['bound_ms']}, "
+            f"floor {floor_ms}")
+
+    # 10. where the quote board's time goes (after the kernel timing: a
+    # profiler session after this traced run recorded no device time on
+    # the card)
+    log(f"[10/11] quote board: where the time goes (the first "
+        f"{BREAKDOWN_BATCHES} micro-batches)")
+    qschema, qbatches, _ = quote_stream(fpt, QUOTE_BATCHES * BATCH, BATCH)
+    breakdown(fpt, "quote_board", QUOTE_BOARD, qschema,
+              qbatches[:BREAKDOWN_BATCHES], stream="StockStream",
+              out="Board", sync_free=True)
+
+    torch.cuda.synchronize()
+    with open(path, "w") as f:
+        json.dump(kernels, f)
     return 0
 
 
@@ -2764,6 +3313,8 @@ if __name__ == "__main__":
         sys.exit(windows_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
+        sys.exit(kernels_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-one":
         sys.exit(ab_one(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
@@ -2772,6 +3323,10 @@ if __name__ == "__main__":
         sys.exit(ab_graphs_one(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab-graphs":
         sys.exit(ab(sys.argv[2:], mode="--ab-graphs-one"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-drain-one":
+        sys.exit(ab_drain_one(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab-drain":
+        sys.exit(ab(sys.argv[2:], mode="--ab-drain-one"))
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

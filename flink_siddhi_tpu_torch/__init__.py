@@ -29,7 +29,7 @@ from .api.cep import CEPEnvironment, SiddhiCEP
 from .api.stream import ExecutionStream, Row
 from .compiler.config import EngineConfig
 from .compiler.plan import CompiledPlan, compile_plan, state_from_numpy
-from .runtime.executor import Job
+from .runtime.executor import ColumnarSink, Job
 from .runtime.replay import ResidentReplay
 from .runtime.sources import BatchSource, ListSource, Source
 from .schema.batch import EventBatch
@@ -42,6 +42,7 @@ __all__ = [
     "AttributeType",
     "BatchSource",
     "CEPEnvironment",
+    "ColumnarSink",
     "CompiledPlan",
     "EngineConfig",
     "EventBatch",

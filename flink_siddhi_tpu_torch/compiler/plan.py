@@ -219,11 +219,22 @@ class CompiledPlan:
         }
 
     def drain_decode(self, counts: np.ndarray, data: np.ndarray,
-                     lookup=None) -> Dict[str, List]:
+                     lookup=None, columnar_streams=frozenset(),
+                     lookup_np=None) -> Dict[str, List]:
         """Host side of a drain: unpack the fetched buffer slice into
-        per-artifact lists of (output_schema, rows). ``data`` is
-        ``buf[:, :max(counts)]`` already on host; ``lookup`` resolves lazy
-        ordinals (the executor's lazy ring)."""
+        per-artifact lists of (output_schema, decoded payload). ``data``
+        is ``buf[:, :max(counts)]`` already on host; ``lookup`` resolves
+        lazy ordinals (the executor's lazy ring). Stacked artifacts route
+        their rows to each member's own stream.
+
+        A payload is a row list by default; for an artifact whose output
+        stream is in ``columnar_streams`` (every consumer speaks the
+        columnar protocol, ``Job._columnar_streams``) and that has a
+        columnar decode, it is a :class:`ColumnBatch`, with no per-row
+        tuple; ``lookup_np`` is the ring's vectorized resolver for it.
+        Every payload is a copy: no decode returns a view of ``data``
+        (each reorders by ``emission_order``), so the caller may reuse
+        the buffer ``data`` lies in."""
         out: Dict[str, List] = {}
         for ai, (a, (row0, n_rows)) in enumerate(
             zip(self.artifacts, self.acc_layout())
@@ -233,10 +244,25 @@ class CompiledPlan:
                 out[a.name] = []
                 continue
             block = data[row0:row0 + n_rows, :n]
-            if getattr(a, "wants_lookup", False):
-                out[a.name] = a.decode_packed(n, block, lookup=lookup)
-            elif hasattr(a, "decode_packed"):
-                out[a.name] = a.decode_packed(n, block)
+            if hasattr(a, "decode_packed"):
+                # columnar only for artifacts with the hook: a stack
+                # routes to many streams and stays on rows
+                if hasattr(a, "decode_packed_columns") and (
+                    a.output_schema.stream_id in columnar_streams
+                ):
+                    out[a.name] = a.decode_packed_columns(
+                        n, block, lookup_np=lookup_np
+                    )
+                elif getattr(a, "wants_lookup", False):
+                    out[a.name] = a.decode_packed(n, block, lookup=lookup)
+                else:
+                    out[a.name] = a.decode_packed(n, block)
+                continue
+            if a.output_schema.stream_id in columnar_streams:
+                out[a.name] = [(
+                    a.output_schema,
+                    a.output_schema.decode_packed_columns(n, block),
+                )]
             else:
                 out[a.name] = [(
                     a.output_schema,

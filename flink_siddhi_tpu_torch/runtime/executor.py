@@ -5,11 +5,8 @@ executor.py``: a run loop that pulls sources, releases event-time-ordered
 micro-batches through a watermark gate (or everything, in processing mode),
 builds each plan's narrow wire tape on the host, stages it onto the
 device, steps the plan, and appends every emission to an on-device
-accumulator. The host drains the accumulator in bulk (two fetches: counts,
-then the used slice) and decodes rows for collectors and sinks; rows of a
-lazy-projected plan resolve their event ordinals against the host's lazy
-ring. ``runtime/replay.py:ResidentReplay`` drives the same job over a
-bounded stream staged on the device beforehand.
+accumulator. ``runtime/replay.py:ResidentReplay`` drives the same job over
+a bounded stream staged on the device beforehand.
 
 Fused streaming (``fused_segment_len`` K > 1, the reference's
 ``_stage_fused``/``_dispatch_segment``): the host stages K tapes, stacks
@@ -17,12 +14,31 @@ them into one pinned host buffer (``runtime/segment.py``), and advances
 the plan over the whole segment with one copy of that buffer into the
 graph's input slot and one CUDA graph replay (``runtime/graphs.py``); on
 the CPU the same segment body runs its steps in turn.
-``fused_segment_len=None`` keeps one step per tape.
+``fused_segment_len=None`` keeps one step per tape. At most
+``Job.max_inflight_cycles`` segments are unfinished on the card.
 
-Not in this port yet (ROADMAP.md Queue 1): the control plane, the
-overlapped drain, telemetry, checkpoints, shared subplans, and the
-late/idle/backpressure policies beyond the default (late rows are dropped
-and counted).
+The drain is asynchronous (the reference's ``_drain_request`` /
+``_drain_poll``): a drain swaps the live accumulator for a free position
+of the plan's accumulator ring, in stream order, queues the old one, and
+issues the copy of its counts into pinned host memory on a copy stream,
+behind a CUDA event recorded after the work that filled it. Once that
+copy has completed, the job's one fetch thread reads the counts and, when
+some consumer wants rows and any were emitted, copies the used columns (a
+count-sized, bucketed width) on a second copy stream, releases the ring
+position (an event the compute stream waits on before it reuses the
+position), and decodes: to row tuples, or to ``ColumnBatch``es for a
+stream whose every consumer is columnar (``ColumnarSink``). The run loop
+completes finished drains in order and emits to collectors and sinks; it
+waits for the card only in a waiting drain (``results()``, ``flush()``,
+the end of a resident run) or when the queue or the ring is full (a
+forced completion, counted). On the CPU the same code runs, every drain
+ready at once. Drain latency legs go to ``Job.telemetry``
+(``telemetry/``).
+
+Not in this port yet (ROADMAP.md Queue 1): the control plane,
+checkpoints, shared subplans and loopback, output rate limiting, trace
+sampling and SLOs, and the late/idle/backpressure policies beyond the
+default (late rows are dropped and counted).
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
@@ -30,7 +46,9 @@ The job runs on the CUDA device unless ``device`` names another one.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
@@ -38,9 +56,11 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..compiler.output import ColumnBatch
 from ..compiler.plan import CompiledPlan
 from ..device import DeviceLike, resolve_device
 from ..schema.batch import EventBatch
+from ..telemetry import MetricsRegistry
 from .graphs import SegmentGraphs
 from .segment import (
     Segment,
@@ -57,22 +77,42 @@ _LOG = logging.getLogger(__name__)
 MAX_WM = np.iinfo(np.int64).max
 MIN_WM = -(2 ** 62)  # pre-first-event watermark sentinel
 _LAZY_ORD_WRAP = 1 << 30  # reset lazy ordinal space before int32 wrap
-# fused streaming: at most this many dispatched segments unfinished on the
-# card (the host waits for the oldest beyond it); bench.py's BENCH_INFLIGHT
-MAX_INFLIGHT_CYCLES = 6
 
 
-def retire_tickets(tickets: Deque, limit: int) -> None:
+def retire_tickets(tickets: Deque, limit: int) -> int:
     """The in-flight window over ``tickets`` (events of dispatched
     segments, oldest first): drop the finished ones from the front, and
-    while more than ``limit`` remain, wait for the oldest."""
+    while more than ``limit`` remain, wait for the oldest. Returns the
+    waits."""
+    waits = 0
     while tickets:
         if len(tickets) > limit:
             tickets.popleft().synchronize()
+            waits += 1
         elif tickets[0].query():
             tickets.popleft()
         else:
             break
+    return waits
+
+
+class ColumnarSink:
+    """Protocol/base for sinks opting into the columnar fast lane.
+
+    A sink exposing ``accept_columns(ts, cols)`` receives whole emission
+    batches as ``(abs_ts int64 ndarray, {field_name: ndarray})`` in
+    emission order, and no per-row tuple is built on streams where EVERY
+    attached sink is columnar (and host retention is off). On streams that
+    still decode row-wise (mixed consumers, a stacked artifact, retained
+    results) the job converts once per emission batch and calls
+    ``accept_columns`` with object-dtype columns, so a columnar sink
+    observes identical data either way. Duck-typed: any object with
+    ``accept_columns`` counts; subclassing this base is optional."""
+
+    def accept_columns(
+        self, ts: np.ndarray, cols: Dict[str, np.ndarray]
+    ) -> None:
+        raise NotImplementedError
 
 
 class _LazyRing:
@@ -81,8 +121,9 @@ class _LazyRing:
     Lazy-projected plans emit event ORDINALS; this ring maps them back
     to values at decode time. Entries are evicted oldest-first past a
     byte budget — an ordinal older than the horizon decodes as None
-    (bounded-memory policy, counted in ``missed``). Pushes and lookups
-    both run on the run-loop thread (drains are synchronous)."""
+    (bounded-memory policy, counted in ``missed``). The run loop pushes
+    and evicts while the drain fetch thread decodes, and so looks up:
+    every method holds the ring's lock."""
 
     def __init__(self, budget_bytes: int = 256 << 20) -> None:
         self.starts: List[int] = []
@@ -91,18 +132,20 @@ class _LazyRing:
         self.bytes = 0
         self.budget = budget_bytes
         self.missed = 0
+        self._lock = threading.Lock()
 
     def push(self, start: int, cols: Dict[str, np.ndarray]) -> None:
         n = len(next(iter(cols.values()))) if cols else 0
-        self.starts.append(start)
-        self.lens.append(n)
-        self.cols.append(cols)
-        self.bytes += sum(c.nbytes for c in cols.values())
-        while self.bytes > self.budget and len(self.starts) > 1:
-            old = self.cols.pop(0)
-            self.starts.pop(0)
-            self.lens.pop(0)
-            self.bytes -= sum(c.nbytes for c in old.values())
+        with self._lock:
+            self.starts.append(start)
+            self.lens.append(n)
+            self.cols.append(cols)
+            self.bytes += sum(c.nbytes for c in cols.values())
+            while self.bytes > self.budget and len(self.starts) > 1:
+                old = self.cols.pop(0)
+                self.starts.pop(0)
+                self.lens.pop(0)
+                self.bytes -= sum(c.nbytes for c in old.values())
 
     def _locate(self, ords):
         """(ords int64, entry index per ordinal, offset in it, hit mask)."""
@@ -117,6 +160,10 @@ class _LazyRing:
     def lookup(self, key: str, ords) -> List:
         """Batch ordinal resolve to Python values (None where evicted):
         one searchsorted + one gather per ring entry touched."""
+        with self._lock:
+            return self._lookup(key, ords)
+
+    def _lookup(self, key: str, ords) -> List:
         n = len(ords)
         out: List = [None] * n
         if n == 0 or not self.starts:
@@ -139,6 +186,10 @@ class _LazyRing:
         """Vectorized ordinal resolve: the same gather as :meth:`lookup`,
         kept a numpy array — typed when every ordinal hits, object-dtype
         with None holes when any was evicted past the ring horizon."""
+        with self._lock:
+            return self._lookup_np(key, ords)
+
+    def _lookup_np(self, key: str, ords) -> np.ndarray:
         n = len(ords)
         if n == 0 or not self.starts:
             self.missed += n
@@ -170,7 +221,24 @@ class _LazyRing:
 class _PlanRuntime:
     plan: CompiledPlan
     states: Dict
-    acc: Dict  # device-side output accumulator
+    acc: Dict  # the live device-side output accumulator
+    # the accumulator ring: ``acc`` is (a rebinding of) ring[acc_pos]; a
+    # drain swaps in a free position while the fetch thread reads the old
+    # one. ring_size positions at most (all of them before a graph is
+    # captured); ring_release[i]: the CUDA event behind the copies of the
+    # last fetch of position i, which the compute stream waits on before
+    # it reuses it (None: nothing to wait for)
+    ring: List[Dict] = field(default_factory=list)
+    acc_pos: int = 0
+    ring_size: int = 2
+    ring_release: List = field(default_factory=list)
+    # queued drains, oldest first (Job._drain_request)
+    drain_q: Deque = field(default_factory=collections.deque)
+    # host buffers: each ring position's counts, and the fetch thread's
+    # used columns (pinned on a GPU; Job.prewarm_drains allocates them up
+    # front)
+    host_meta: Optional[torch.Tensor] = None
+    host_buf: Optional[torch.Tensor] = None
     # sticky per-column wire widths (build_wire_tape)
     wire_kinds: Dict = field(default_factory=dict)
     # lazy projection: the tape keys the ring retains, whether it also
@@ -206,6 +274,13 @@ class _PlanRuntime:
 
 class Job:
     """One running pipeline: sources -> compiled plan(s) -> collectors/sinks."""
+
+    # queued drains per plan; past this the oldest is completed (each
+    # holds a ring position until its fetch has copied it)
+    MAX_PENDING_DRAINS = 6
+    # the smallest data-fetch width: a drain copies the used columns
+    # rounded up to a power of two of at least this
+    MIN_FETCH_WIDTH = 64
 
     def __init__(
         self,
@@ -250,9 +325,26 @@ class Job:
         # the oldest reaches this age (None disables; capacity drains
         # still happen)
         self.drain_interval_ms: Optional[float] = 500.0
-        # host syncs made by drains (the count fetch and the data fetch
-        # each wait for the device); artifacts count their own
-        self.drain_syncs = 0
+        # host waits, by thread. The run loop's in drains: a waiting
+        # poll that had to wait for the card or the fetch thread (once a
+        # poll), forced completions among them (drains_forced); the
+        # artifacts count their own (host_syncs). The fetch thread's:
+        # one per copy it waited for (fetch_syncs), which equals the
+        # completed drains' fetches (drain_fetches) once none is queued.
+        # drains_overlapped: drains whose counts reached the host while
+        # the dispatch after them was still unfinished on the card
+        self.drain_waits = 0
+        self.drains_forced = 0
+        self.fetch_syncs = 0
+        self.drain_fetches = 0
+        self.drains_overlapped = 0
+        # stage-attributed wall clock, drain latency legs, counters
+        self.telemetry = MetricsRegistry()
+        self._fetch_pool_: Optional[concurrent.futures.Executor] = None
+        # the drains' copy streams: counts (issued by the run loop) and
+        # data (by the fetch thread), apart so that a data copy never
+        # queues behind the counts of a later, unfinished dispatch
+        self._meta_stream = self._data_stream = None
         # event-time gate: the horizon released so far (rows at or below
         # it are late, dropped and counted) and the monotone gate wm
         self._released_wm: int = MIN_WM
@@ -261,12 +353,20 @@ class Job:
         self.late_events = 0
         self.late_dropped = 0
         # fused streaming dispatch: K tapes a segment, one graph replay a
-        # segment (None or 1: one step per tape), and at most
-        # MAX_INFLIGHT_CYCLES dispatched segments unfinished on the card
+        # segment (None or 1: one step per tape)
         self.fused_segment_len: Optional[int] = None
         self.fusion_batches = 0  # tapes staged into segments
         self.fusion_dispatches = 0  # segments dispatched
         self.fusion_h2d_uploads = 0  # segment uploads (one a segment)
+        # fused: at most this many dispatched segments unfinished on the
+        # card per plan; the host waits for the oldest beyond it (counted
+        # in backpressure_waits). With target_p99_ms set, run_cycle adapts
+        # it to the measured cycle pace
+        self.max_inflight_cycles = 6
+        self.target_p99_ms: Optional[float] = None
+        self._cycle_ema: Optional[float] = None
+        self._last_cycle_t: Optional[float] = None
+        self.backpressure_waits = 0
         # segments (resident or fused) that no graph can capture (a tape's
         # chain matcher must read its count): on a GPU they run their
         # steps eagerly (graphs.py)
@@ -277,9 +377,10 @@ class Job:
     def add_plan(self, plan: CompiledPlan) -> None:
         if plan.plan_id in self._plans:
             raise ValueError(f"plan {plan.plan_id!r} is already running")
-        rt = _PlanRuntime(
-            plan, plan.init_state(self.device), plan.init_acc(self.device)
-        )
+        acc = plan.init_acc(self.device)
+        rt = _PlanRuntime(plan, plan.init_state(self.device), acc,
+                          ring=[acc], ring_release=[None],
+                          ring_size=self.MAX_PENDING_DRAINS + 1)
         lazy_arts = [
             a for a in plan.artifacts if getattr(a, "lazy_src_keys", ())
         ]
@@ -295,18 +396,21 @@ class Job:
         self._plans[plan.plan_id] = rt
 
     def add_sink(self, output_stream: str, fn: Callable) -> None:
-        """Attach a sink ``fn(abs_ts, row_tuple)``. Rows accumulated
-        before the sink attached are drained first and not delivered to
-        it; rows after are."""
+        """Attach a sink: ``fn(abs_ts, row_tuple)``, or an object with
+        ``accept_columns(abs_ts_array, cols)`` (``ColumnarSink``). Rows
+        accumulated before the sink attached are drained first and not
+        delivered to it; rows after are."""
         for rt in self._plans.values():
             self._drain_plan(rt)
         self._sinks.setdefault(output_stream, []).append(fn)
 
     @property
     def host_syncs(self) -> int:
-        """Every host wait for the device so far: drain fetches plus the
-        artifacts' own (the chain matcher's compaction branch)."""
-        return self.drain_syncs + sum(
+        """The run loop's waits for a device value so far: waiting drains
+        (``drain_waits``) plus the artifacts' own reads (the chain
+        matcher's compaction branch). The fetch thread's waits are
+        ``fetch_syncs``; the in-flight window's, ``backpressure_waits``."""
+        return self.drain_waits + sum(
             getattr(a, "host_syncs", 0)
             for rt in self._plans.values()
             for a in rt.plan.artifacts
@@ -314,22 +418,35 @@ class Job:
 
     @property
     def graphs_captured(self) -> int:
-        """CUDA graphs captured so far, over every plan."""
+        """CUDA graphs captured so far, over every plan (one a ring
+        position of each graph key)."""
         return sum(rt.graphs.captured for rt in self._plans.values()
+                   if rt.graphs is not None)
+
+    @property
+    def graph_keys(self) -> int:
+        """Graph keys captured so far, over every plan: the segment
+        shapes, each captured once for every ring position."""
+        return sum(rt.graphs.keys for rt in self._plans.values()
                    if rt.graphs is not None)
 
     def reset_engine_state(self) -> None:
         """Rerun aid: fresh device state (re-grown to the interned encoder
-        sizes), zeroed accumulators, fresh lazy rings and the event-time
+        sizes), emptied accumulators, fresh lazy rings and the event-time
         gate's phase, so the SAME job can replay an identical stream
-        again (``ResidentReplay.rerun``). Sticky wire widths and tape
-        capacities stay: the staged tapes were built with them. Tensors
-        that segment graphs are bound to are reset in place."""
+        again (``ResidentReplay.rerun``). Queued drains complete first.
+        Sticky wire widths and tape capacities stay: the staged tapes were
+        built with them. Tensors that segment graphs are bound to, and
+        the accumulator ring, are reset in place."""
+        self._settle_drains()
         for rt in self._plans.values():
             fresh = rt.plan.grow_state(rt.plan.init_state(self.device))
             if rt.graphs is None or not rt.graphs.reset(rt, fresh):
                 rt.states = fresh
-                rt.acc = rt.plan.init_acc(self.device)
+            for acc in rt.ring:
+                acc["meta"].zero_()
+            rt.acc, rt.acc_pos = rt.ring[0], 0
+            rt.ring_release = [None] * len(rt.ring)
             rt.seg_pending = []
             rt.tickets.clear()
             rt.acc_dirty = False
@@ -339,6 +456,7 @@ class Job:
                 rt.lazy_base = 0
                 rt.lazy_miss_warned = 0
         self._cycles_since_drain = 0
+        self._cycle_ema = self._last_cycle_t = None
         # a rerun replays the SAME stream, so a carried released horizon
         # would classify every row late
         self._released_wm = MIN_WM
@@ -358,13 +476,14 @@ class Job:
 
     def flush(self) -> None:
         """End-of-stream: drain accumulated matches, then fire final
-        timer-driven emissions (timed-absence deadlines)."""
+        timer-driven emissions (timed-absence deadlines, batch windows)."""
         for rt in self._plans.values():
             self._drain_plan(rt)
             if not rt.plan.has_flush:
                 continue
-            rt.states, outputs = rt.plan.flush(rt.states)
-            self._decode_outputs(rt, outputs)
+            with self.telemetry.span("flush"):
+                rt.states, outputs = rt.plan.flush(rt.states)
+                self._decode_outputs(rt, outputs)
 
     @property
     def finished(self) -> bool:
@@ -373,9 +492,15 @@ class Job:
         )
 
     def run_cycle(self) -> int:
-        """Pull, reorder, step, drain when due. Returns events processed."""
-        self._pull_sources()
-        ready = self._release_ready()
+        """Pull, reorder, step, poll the drains, drain when due. Returns
+        events processed. Never waits for the card, except in the
+        in-flight window and a forced drain completion."""
+        tel = self.telemetry
+        tel.inc("cycles")
+        with tel.span("ingest"):
+            self._pull_sources()
+        with tel.span("reorder"):
+            ready = self._release_ready()
         total = 0
         if ready:
             total = sum(len(b) for b in ready)
@@ -387,6 +512,11 @@ class Job:
             for rt in self._plans.values():
                 self._step_plan(rt, ready)
             self._cycles_since_drain += 1
+            self._adapt_depth()
+        # advance any in-flight drain (never waits)
+        with tel.span("drain"):
+            for rt in self._plans.values():
+                self._drain_poll(rt)
         if self._fused_on():
             # a partial segment must not wait forever for a slow source:
             # once its oldest tape reaches the staleness budget, it
@@ -398,23 +528,44 @@ class Job:
                 if rt.seg_pending and now - rt.seg_pending[0][2] >= age_s:
                     self._dispatch_segment(rt)
         if self.drain_interval_ms is not None:
-            now = time.monotonic()
-            for rt in self._plans.values():
-                if (
-                    rt.dirty_since is not None
-                    and self._has_consumers(rt)
-                    and (now - rt.dirty_since) * 1e3
-                    >= self.drain_interval_ms
-                ):
-                    self._drain_plan(rt)
+            # deadline-driven drains: due when the OLDEST undrained match
+            # of a plan someone observes reaches the staleness budget
+            interval_s = self.drain_interval_ms / 1e3
+            due = min(
+                (rt.dirty_since + interval_s for rt in self._plans.values()
+                 if rt.dirty_since is not None and self._has_consumers(rt)),
+                default=None,
+            )
+            if due is not None and time.monotonic() >= due:
+                with tel.span("drain"):
+                    self._interval_drain()
         if ready and self._cycles_since_drain >= min(
             self.drain_every_cycles,
             min(self._drain_hints.values(), default=self.drain_every_cycles),
         ):
-            # capacity-bounding drain before the no-overflow horizon
-            self.drain_outputs()
+            # capacity-bounding swap before the no-overflow horizon,
+            # without a host wait
+            self.drain_outputs(wait=False)
             self._cycles_since_drain = 0
         return total
+
+    def _adapt_depth(self) -> None:
+        """With ``target_p99_ms``: the wall time between working cycles
+        tracks the device pace once the in-flight window is full, so keep
+        depth x pace (x K under fused dispatch, whose dispatches are
+        segments) within half the target (the reference's rule)."""
+        t_now = time.monotonic()
+        if self._last_cycle_t is not None:
+            dt = t_now - self._last_cycle_t
+            self._cycle_ema = (dt if self._cycle_ema is None
+                               else 0.8 * self._cycle_ema + 0.2 * dt)
+            if self.target_p99_ms:
+                budget_s = self.target_p99_ms / 2000.0
+                k_seg = self.fused_segment_len if self._fused_on() else 1
+                self.max_inflight_cycles = max(1, min(8, int(
+                    budget_s / max(self._cycle_ema * k_seg, 1e-3)
+                )))
+        self._last_cycle_t = t_now
 
     def _watermark(self) -> int:
         """min watermark across sources."""
@@ -522,14 +673,32 @@ class Job:
                 self._stage_fused(rt, involved)
                 continue
             tape = self._stage_tape(rt, involved).to(self.device)
-            # host interning may have discovered new keys: re-bucket the
-            # keyed state tables before the step (host-known sizes)
-            rt.states = rt.plan.grow_state(rt.states)
-            rt.states, rt.acc = rt.plan.step_acc(rt.states, rt.acc, tape)
-            rt.acc_dirty = True
-            if rt.dirty_since is None:
-                rt.dirty_since = time.monotonic()
+            with self.telemetry.span("dispatch"):
+                # host interning may have discovered new keys: re-bucket
+                # the keyed state tables before the step (host-known
+                # sizes)
+                rt.states = rt.plan.grow_state(rt.states)
+                rt.states, rt.acc = rt.plan.step_acc(rt.states, rt.acc,
+                                                     tape)
+                rt.acc_dirty = True
+                if rt.dirty_since is None:
+                    rt.dirty_since = time.monotonic()
             self._update_drain_hint(rt, tape.capacity)
+
+    def _ticket(self, rt: _PlanRuntime) -> None:
+        """On a GPU, an event behind the segment just dispatched, and the
+        in-flight window over the plan's segments."""
+        if self.device.type != "cuda":
+            return
+        ticket = torch.cuda.Event()
+        ticket.record(torch.cuda.current_stream(self.device))
+        rt.tickets.append(ticket)
+        if len(rt.tickets) > self.max_inflight_cycles:
+            with self.telemetry.span("backpressure_wait"):
+                self.backpressure_waits += retire_tickets(
+                    rt.tickets, self.max_inflight_cycles)
+        else:
+            retire_tickets(rt.tickets, self.max_inflight_cycles)
 
     # -- segments: fused streaming dispatch ----------------------------------
     def _fused_on(self) -> bool:
@@ -554,40 +723,40 @@ class Job:
         only). A tape of another structure (a wire width widened, the
         capacity grew) dispatches the shorter pending segment first."""
         tape = self._stage_tape(rt, involved)
-        self._update_drain_hint(rt, tape.capacity)
-        sig = wire_sig(tape)
+        with self.telemetry.span("tape_build"):
+            self._update_drain_hint(rt, tape.capacity)
+            sig = wire_sig(tape)
         if rt.seg_pending and rt.seg_pending[0][1] != sig:
             self._dispatch_segment(rt)
         rt.seg_pending.append((tape, sig, time.monotonic()))
         self.fusion_batches += 1
+        self.telemetry.inc("fusion.batches")
         if len(rt.seg_pending) >= self._fused_k(rt):
             self._dispatch_segment(rt)
 
     def _dispatch_segment(self, rt: _PlanRuntime) -> None:
         """Stack the pending tapes as one segment, padded with empty
         tapes to K (row-inert: no valid event), and advance the plan over
-        it in one dispatch; keep at most ``MAX_INFLIGHT_CYCLES`` segments
-        unfinished on the card."""
+        it in one dispatch, within the in-flight window."""
         pending = rt.seg_pending
         if not pending:
             return
         rt.seg_pending = []
         wires = [p[0] for p in pending]
         k = max(self._fused_k(rt), len(wires))
-        seg = self._stack_segment(pad_segment(wires, k))
-        # host interning may have found new group keys: grow once a
-        # segment, before the call
-        rt.states = rt.plan.grow_state(rt.states)
-        if rt.dirty_since is None:
-            # its events have waited since the oldest tape was staged
-            rt.dirty_since = pending[0][2]
-        self._run_segment(rt, seg)
+        tel = self.telemetry
+        with tel.span("dispatch"):
+            seg = self._stack_segment(pad_segment(wires, k))
+            # host interning may have found new group keys: grow once a
+            # segment, before the call
+            rt.states = rt.plan.grow_state(rt.states)
+            if rt.dirty_since is None:
+                # its events have waited since the oldest tape was staged
+                rt.dirty_since = pending[0][2]
+            self._run_segment(rt, seg)
         self.fusion_dispatches += 1
-        if self.device.type == "cuda":
-            ticket = torch.cuda.Event()
-            ticket.record(torch.cuda.current_stream(self.device))
-            rt.tickets.append(ticket)
-            retire_tickets(rt.tickets, MAX_INFLIGHT_CYCLES)
+        tel.inc("fusion.dispatches")
+        self._ticket(rt)
 
     def _stack_segment(self, wires: List[WireTape]) -> Segment:
         """The tapes stacked into one buffer: on a GPU in pinned host
@@ -596,14 +765,20 @@ class Job:
         if self.device.type != "cuda":
             return stack_wires(wires)
         self.fusion_h2d_uploads += 1
+        self.telemetry.inc("fusion.h2d_uploads")
         return stack_wires(wires, out=torch.empty(
             segment_nbytes(wires[0], len(wires)), dtype=torch.uint8,
             pin_memory=True,
         ))
 
     def _segments(self, rt: _PlanRuntime) -> SegmentGraphs:
+        """The plan's segment runner; made with the accumulator ring
+        full, since every graph key is captured for each position."""
         if rt.graphs is None:
-            rt.graphs = SegmentGraphs(rt.plan, self.device)
+            while len(rt.ring) < rt.ring_size:
+                self._grow_ring(rt)
+            rt.graphs = SegmentGraphs(rt.plan, self.device,
+                                      before_capture=self._settle_drains)
         return rt.graphs
 
     def _run_segment(self, rt: _PlanRuntime, seg: Segment) -> None:
@@ -626,6 +801,11 @@ class Job:
         the device with ``WireTape.to``) and the bounded replay's
         pre-stager (runtime/replay.py). The caller is responsible for
         ``plan.grow_state`` before the step."""
+        with self.telemetry.span("tape_build"):
+            return self._build_tape(rt, involved)
+
+    def _build_tape(self, rt: _PlanRuntime,
+                    involved: List[EventBatch]) -> WireTape:
         plan = rt.plan
         total = sum(len(b) for b in involved)
         rt.tape_capacity = max(rt.tape_capacity, bucket_size(total))
@@ -727,50 +907,387 @@ class Job:
         )
 
     # -- drain -----------------------------------------------------------------
-    def drain_outputs(self) -> None:
+    def drain_outputs(self, wait: bool = True) -> None:
         """Surface all on-device accumulated emissions to collectors and
-        sinks (synchronous)."""
+        sinks. ``wait=True`` (the contract of ``results()``) completes
+        every drain before it returns; ``wait=False`` only starts them:
+        each accumulator is swapped for a free ring position, and its
+        fetch overlaps later dispatches, completed by a later poll."""
         for rt in self._plans.values():
-            self._drain_plan(rt)
+            # staged, undispatched tapes reach the device first
+            self._dispatch_segment(rt)
+        with self.telemetry.span("drain"):
+            for rt in self._plans.values():
+                self._drain_request(rt)
+                self._drain_poll(rt, block=wait)
+
+    def _drain_plan(self, rt: _PlanRuntime) -> None:
+        """A waiting drain of one plan."""
+        self._dispatch_segment(rt)
+        with self.telemetry.span("drain"):
+            self._drain_request(rt)
+            self._drain_poll(rt, block=True)
+
+    def _settle_drains(self) -> None:
+        """Complete every queued drain of every plan (before a graph
+        capture: the fetch thread's CUDA calls must not overlap one)."""
+        for rt in self._plans.values():
+            self._drain_poll(rt, block=True)
+
+    def _interval_drain(self) -> None:
+        """The staleness pass over plans someone observes: plans whose
+        oldest undrained match reached the budget, stalest first, at most
+        two drains in flight per plan (the second's readiness wait
+        overlaps the first's fetch; more only grows a backlog), within a
+        budget of ``MAX_PENDING_DRAINS`` queued over all plans."""
+        now = time.monotonic()
+        interval_s = (self.drain_interval_ms or 0.0) / 1e3
+        for rt in self._plans.values():
+            self._drain_poll(rt)
+        budget = self.MAX_PENDING_DRAINS - sum(
+            len(rt.drain_q) for rt in self._plans.values()
+        )
+        cands = [
+            rt for rt in self._plans.values()
+            if rt.dirty_since is not None
+            and now - rt.dirty_since >= interval_s
+            and len(rt.drain_q) < 2
+            and self._has_consumers(rt)
+        ]
+        cands.sort(key=lambda rt: rt.dirty_since)  # stalest first
+        for rt in cands:
+            if budget <= 0:
+                break
+            self._drain_request(rt)
+            self._drain_poll(rt)
+            budget -= 1
+
+    def prewarm_drains(self) -> None:
+        """Allocate the drains' host buffers up front, pinned on a GPU:
+        the counts, and, for a plan someone observes, the used columns at
+        the widest fetch width (``acc_capacity()``), which every narrower
+        bucketed width views. Without it, the first drains allocate them
+        mid-run."""
+        for rt in self._plans.values():
+            if not rt.plan.artifacts:
+                continue
+            self._host_meta(rt)
+            if self._has_consumers(rt):
+                self._host_view(rt, rt.plan.acc_capacity())
+
+    def _host_meta(self, rt: _PlanRuntime) -> torch.Tensor:
+        """One host copy of the counts per ring position (a ring holds
+        at most ``MAX_PENDING_DRAINS`` + 1)."""
+        if rt.host_meta is None:
+            rt.host_meta = torch.empty(
+                (self.MAX_PENDING_DRAINS + 1, *rt.acc["meta"].shape),
+                dtype=torch.int32, pin_memory=self.device.type == "cuda",
+            )
+        return rt.host_meta
+
+    def _host_view(self, rt: _PlanRuntime, width: int) -> torch.Tensor:
+        """A contiguous [rows, width] view of the plan's host data buffer
+        (grown to it when smaller)."""
+        rows = int(rt.acc["buf"].shape[0])
+        if rt.host_buf is None or rt.host_buf.numel() < rows * width:
+            rt.host_buf = torch.empty(
+                rows * width, dtype=torch.int32,
+                pin_memory=self.device.type == "cuda",
+            )
+        return rt.host_buf[:rows * width].view(rows, width)
+
+    def _grow_ring(self, rt: _PlanRuntime) -> None:
+        """One more accumulator ring position (its buffer columns past a
+        count are never read, so only its counts start zeroed)."""
+        like = rt.ring[0]
+        rt.ring.append({
+            "meta": torch.zeros_like(like["meta"]),
+            "buf": torch.empty_like(like["buf"]),
+        })
+        rt.ring_release.append(None)
+
+    def _free_position(self, rt: _PlanRuntime) -> Optional[int]:
+        """A ring position neither live nor held by a queued drain whose
+        fetch has not copied it yet, round robin from the live one."""
+        busy = {rt.acc_pos} | {e["pos"] for e in rt.drain_q
+                               if not e.get("released")}
+        n = len(rt.ring)
+        for i in range(1, n + 1):
+            pos = (rt.acc_pos + i) % n
+            if pos not in busy:
+                return pos
+        return None
+
+    def _force_oldest(self, rt: _PlanRuntime) -> None:
+        """Complete the oldest queued drain on the run loop (a counted
+        wait)."""
+        self.drains_forced += 1
+        self.telemetry.inc("drains.forced")
+        self._drain_poll(rt, block=True, limit=1)
+
+    def _swap_acc(self, rt: _PlanRuntime) -> None:
+        """Make a free ring position the live accumulator: grow the ring
+        (up to ``ring_size``; no graph captures a position added later,
+        so a ring that graphs replay is full already) or, with every
+        position in flight, complete the oldest drain first. Its counts
+        are zeroed in stream order, after its last fetch's copies."""
+        pos = self._free_position(rt)
+        while pos is None:
+            if len(rt.ring) < rt.ring_size:
+                self._grow_ring(rt)
+            else:
+                self._force_oldest(rt)
+            pos = self._free_position(rt)
+        acc, release = rt.ring[pos], rt.ring_release[pos]
+        if release is not None:
+            torch.cuda.current_stream(self.device).wait_event(release)
+        acc["meta"].zero_()
+        rt.acc, rt.acc_pos = acc, pos
+
+    def _drain_request(self, rt: _PlanRuntime) -> None:
+        """Swap the live accumulator for a free ring position and queue
+        the old one for its fetch: a ready event behind the work that
+        filled it, the copy of its counts issued behind that event (on
+        the CPU done at once), the consumers' lane, and the clock stamps.
+        Past ``MAX_PENDING_DRAINS`` queued, the oldest completes."""
+        if not rt.plan.artifacts or not rt.acc_dirty:
+            return  # provably empty: nothing to swap or fetch
+        old, pos = rt.acc, rt.acc_pos
+        ready = None
+        if self.device.type == "cuda":
+            if self._meta_stream is None:
+                self._meta_stream = torch.cuda.Stream(self.device)
+                self._data_stream = torch.cuda.Stream(self.device)
+            ready = torch.cuda.Event(enable_timing=True)
+            ready.record(torch.cuda.current_stream(self.device))
+        # the counts' copy goes out now, behind the work that filled them:
+        # on the card it runs as soon as that work is done, while later
+        # dispatches run
+        meta_done = self._copy_to_host(self._host_meta(rt)[pos],
+                                       old["meta"], self._meta_stream,
+                                       after=ready)
+        self._swap_acc(rt)
+        rt.acc_dirty = False
+        t_dirty, rt.dirty_since = rt.dirty_since, None
+        want = self._has_consumers(rt)
+        # no consumer: counts only (no data fetch, no decode); the swap
+        # still happens (overflow accounting)
+        rt.drain_q.append({
+            "acc": old,
+            "pos": pos,
+            "ready": ready,
+            "meta_done": meta_done,
+            "want": want,
+            # resolved now, so that a sink attached later (add_sink
+            # drains first) cannot race it
+            "columnar": self._columnar_streams(rt) if want else frozenset(),
+            "t_req": time.monotonic(),
+            # staleness: only consumer-visible drains report it
+            "t_dirty": t_dirty if want else None,
+        })
+        self._advance_ready(rt)
+        if len(rt.drain_q) > self.MAX_PENDING_DRAINS:
+            self._force_oldest(rt)
+
+    def _columnar_streams(self, rt: _PlanRuntime) -> frozenset:
+        """Output streams of this plan whose rows never need to exist:
+        host retention off, and every attached sink speaks the columnar
+        protocol."""
+        if self.retain_results:
+            return frozenset()
+        return frozenset(
+            sid for sid in rt.plan.output_streams()
+            if self._sinks.get(sid)
+            and all(hasattr(s, "accept_columns") for s in self._sinks[sid])
+        )
 
     def _has_consumers(self, rt: _PlanRuntime) -> bool:
+        """Whether any host-side consumer observes this plan's rows."""
         if self.retain_results:
             return True
         return any(self._sinks.get(sid) for sid in rt.plan.output_streams())
 
-    def _drain_plan(self, rt: _PlanRuntime) -> None:
-        """Fetch the accumulator's counts (one host wait) and, when some
-        consumer wants rows, the used slice of the buffer (a second);
-        decode, emit, and reset the accumulator's counts in place (the
-        stale buffer columns are overwritten by later appends and never
-        read). Staged, undispatched tapes reach the device first."""
-        self._dispatch_segment(rt)
-        if not rt.acc_dirty or not rt.plan.artifacts:
-            return
-        plan = rt.plan
-        meta = rt.acc["meta"].cpu().numpy()
-        self.drain_syncs += 1
+    @property
+    def _fetch_pool(self) -> concurrent.futures.Executor:
+        """The job's one fetch thread: FIFO completion. Fetch and decode
+        run there (the lazy ring locks); sinks only ever run on the run
+        loop (``_drain_poll`` emits)."""
+        if self._fetch_pool_ is None:
+            self._fetch_pool_ = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="fpt-fetch"
+            )
+        return self._fetch_pool_
+
+    def _advance_ready(self, rt: _PlanRuntime, all_: bool = False) -> None:
+        """Hand queued drains whose counts have reached the host to the
+        fetch thread, in order (stop at the first whose have not): their
+        fetch then never waits for unfinished compute. With ``all_`` (a
+        waiting poll, whose caller waits anyway) every queued drain goes
+        at once, and the fetch thread takes them back to back, each
+        waiting for its counts there, with no round trip through the run
+        loop between them."""
+        for entry in rt.drain_q:
+            if "fut" in entry:
+                continue
+            done = entry["meta_done"]
+            if not all_ and done is not None and not done.query():
+                break
+            entry["t_ready"] = time.monotonic()
+            entry["stages"] = {}
+            entry["fut"] = self._fetch_pool.submit(
+                self._fetch_acc, rt, entry, entry.pop("acc"),
+                entry.pop("want"), entry.pop("columnar"),
+            )
+
+    def _copy_to_host(self, dst: torch.Tensor, src: torch.Tensor, stream,
+                      after=None):
+        """Copy ``src`` into the host tensor ``dst``: on a GPU a
+        non-blocking copy on ``stream`` (after the event ``after``);
+        returns the (timed) event behind it (None on the CPU, done
+        already)."""
+        if self.device.type != "cuda":
+            dst.copy_(src)
+            return None
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            if after is not None:
+                stream.wait_event(after)
+            dst.copy_(src, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record(stream)
+        return done
+
+    def _fetch_acc(self, rt: _PlanRuntime, entry: Dict, acc: Dict,
+                   want: bool, columnar: frozenset):
+        """The fetch thread's body, two-phase: the counts (their copy was
+        issued at the request); then, only when a consumer wants rows and
+        any were emitted, the used columns at a width bucketed from the
+        largest count, on the data stream, which also releases the ring
+        position; then the decode. Returns (counts, overflow, decoded or
+        None, fetches made)."""
+        stages = entry["stages"]
+        stages["t_fetch0"] = time.monotonic()
+        done = entry["meta_done"]
+        if done is not None:
+            done.synchronize()
+        self.fetch_syncs += 1
+        meta = self._host_meta(rt)[entry["pos"]].numpy().copy()
         counts, overflow = meta[0], meta[1]
         max_n = int(counts.max()) if counts.size else 0
-        if self._has_consumers(rt) and max_n:
-            data = rt.acc["buf"][:, :max_n].cpu().numpy()
-            self.drain_syncs += 1
-            decoded = plan.drain_decode(
-                counts, data,
-                lookup=rt.lazy.lookup if rt.lazy is not None else None,
-            )
-            for a in plan.artifacts:
-                for schema, rows in decoded.get(a.name) or []:
-                    self._emit_rows(schema, rows)
-        else:
-            # counts-only drain (no consumers): keep the counters truthful
-            for ai, a in enumerate(plan.artifacts):
-                c = int(counts[ai])
-                if c:
-                    sid = a.output_schema.stream_id
-                    self.emitted_counts[sid] = (
-                        self.emitted_counts.get(sid, 0) + c
-                    )
+        stages["t_meta"] = time.monotonic()
+        if not want or max_n == 0:
+            rt.ring_release[entry["pos"]] = done
+            entry["released"] = True
+            stages["t_dec0"] = stages["t_fetch1"] = time.monotonic()
+            return counts, overflow, None, 1
+        width = min(bucket_size(max_n, minimum=self.MIN_FETCH_WIDTH),
+                    rt.plan.acc_capacity())
+        host = self._host_view(rt, width)
+        done = self._copy_to_host(host, acc["buf"][:, :width],
+                                  self._data_stream)
+        rt.ring_release[entry["pos"]] = done
+        entry["released"] = True
+        if done is not None:
+            done.synchronize()
+        self.fetch_syncs += 1
+        stages["t_dec0"] = time.monotonic()
+        lazy = rt.lazy
+        decoded = rt.plan.drain_decode(
+            counts, host.numpy()[:, :max_n],
+            lookup=lazy.lookup if lazy is not None else None,
+            columnar_streams=columnar,
+            lookup_np=lazy.lookup_np if lazy is not None else None,
+        )
+        stages["t_fetch1"] = time.monotonic()
+        return counts, overflow, decoded, 2
+
+    def _drain_poll(self, rt: _PlanRuntime, block: bool = False,
+                    limit: int = 0) -> None:
+        """Complete finished drains in order and emit their decoded rows
+        (decoded on the fetch thread already) to collectors and sinks.
+        Without ``block`` this never waits; with it, every queued drain
+        (or the first ``limit``) completes, and a poll that had to wait
+        counts one run-loop wait."""
+        waited = False
+        try:
+            self._advance_ready(rt, all_=block)
+            done = 0
+            while rt.drain_q:
+                entry = rt.drain_q[0]
+                if "fut" not in entry:
+                    return
+                fut = entry["fut"]
+                if not fut.done():
+                    if not block:
+                        return
+                    waited = True
+                counts, overflow, decoded, fetches = fut.result()
+                rt.drain_q.popleft()
+                self.drain_fetches += fetches
+                if self._overlapped(entry, rt):
+                    self.drains_overlapped += 1
+                    self.telemetry.inc("drains.overlapped")
+                self._record_drain(entry)
+                self._complete_drain(rt, counts, overflow, decoded)
+                done += 1
+                if limit and done >= limit:
+                    return
+        finally:
+            if waited:
+                self.drain_waits += 1
+
+    @staticmethod
+    def _overlapped(entry: Dict, rt: _PlanRuntime) -> bool:
+        """Whether a completed drain's counts reached the host while the
+        dispatch after it was still unfinished on the card: the next
+        queued drain's ready event had not completed by then (on the
+        card's clock)."""
+        done = entry["meta_done"]
+        if done is None or not rt.drain_q:
+            return False
+        later = rt.drain_q[0]["ready"]
+        return not later.query() or done.elapsed_time(later) > 0
+
+    def _record_drain(self, entry: Dict) -> None:
+        """A completed drain's latency legs, into ``drain.*``
+        histograms: wait_ready (request to the hand-off to the fetch
+        thread: its counts on the host, or a waiting poll), queue (to the
+        fetch thread's start), fetch (the copies; fetch_meta the counts'
+        alone), decode, emit_lag (decoded to completed on the run loop),
+        total, transport (wait_ready + fetch) and staleness (the age of
+        the oldest match it surfaced)."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        now = time.monotonic()
+        st = entry.get("stages") or {}
+        t_req = entry["t_req"]
+        t_rdy = entry.get("t_ready", t_req)
+        t_f0 = st.get("t_fetch0", t_rdy)
+        t_f1 = st.get("t_fetch1", now)
+        t_d0 = st.get("t_dec0", t_f1)
+        legs = {
+            "wait_ready": t_rdy - t_req,
+            "queue": t_f0 - t_rdy,
+            "fetch": t_d0 - t_f0,
+            "decode": t_f1 - t_d0,
+            "emit_lag": now - t_f1,
+            "total": now - t_req,
+        }
+        if "t_meta" in st:
+            legs["fetch_meta"] = st["t_meta"] - t_f0
+        for leg, dt in legs.items():
+            tel.record_seconds(f"drain.{leg}", dt)
+        if entry.get("t_dirty") is not None:
+            tel.record_seconds("drain.staleness", now - entry["t_dirty"])
+        tel.record_seconds("drain.transport",
+                           legs["wait_ready"] + legs["fetch"])
+        tel.inc("drains.completed")
+
+    def _complete_drain(self, rt: _PlanRuntime, counts, overflow,
+                        decoded) -> None:
+        """The run loop's half of a drain: warnings, then the rows (or,
+        counts-only, the emitted counters)."""
+        plan = rt.plan
         for ai, a in enumerate(plan.artifacts):
             if overflow[ai] > 0:
                 _LOG.warning(
@@ -790,9 +1307,23 @@ class Job:
                 plan.plan_id, rt.lazy.missed - rt.lazy_miss_warned,
             )
             rt.lazy_miss_warned = rt.lazy.missed
-        rt.acc["meta"].zero_()
-        rt.acc_dirty = False
-        rt.dirty_since = None
+        if decoded is None:
+            # counts-only drain (no consumers, or nothing emitted): keep
+            # the counters truthful (a stack counts to its first member)
+            for ai, a in enumerate(plan.artifacts):
+                c = int(counts[ai])
+                if c:
+                    sid = a.output_schema.stream_id
+                    self.emitted_counts[sid] = (
+                        self.emitted_counts.get(sid, 0) + c
+                    )
+            return
+        for a in plan.artifacts:
+            for schema, payload in decoded.get(a.name) or []:
+                if isinstance(payload, ColumnBatch):
+                    self._emit_columns(schema, payload)
+                else:
+                    self._emit_rows(schema, payload)
 
     def _decode_outputs(self, rt: _PlanRuntime, outputs: Dict) -> None:
         """Decode flush outputs fetched straight from the device (the
@@ -821,20 +1352,51 @@ class Job:
                 self._emit_rows(schema, rows)
 
     def _emit_rows(self, schema, rows) -> None:
-        """Append decoded rows (relative ts) to collectors and sinks."""
+        """Append decoded rows (relative ts) to collectors and sinks; a
+        columnar sink on a stream that decodes row-wise gets them
+        converted once a batch (object-dtype columns)."""
         if not rows:
             return
         sid = schema.stream_id
         epoch = self._epoch_ms or 0
         self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(rows)
-        sinks = self._sinks.get(sid)
         if self.retain_results:
             self.collected.setdefault(sid, []).extend(
                 (epoch + rel_ts, row) for rel_ts, row in rows
             )
-        for sink in sinks or ():
-            for rel_ts, row in rows:
-                sink(epoch + rel_ts, row)
+        sinks = self._sinks.get(sid)
+        if not sinks:
+            return
+        with self.telemetry.span("sink"):
+            col_sinks = [s for s in sinks if hasattr(s, "accept_columns")]
+            if col_sinks:
+                abs_ts = np.fromiter((epoch + r[0] for r in rows), np.int64,
+                                     len(rows))
+                cols: Dict[str, np.ndarray] = {}
+                for i, name in enumerate(schema.field_names):
+                    c = np.empty(len(rows), dtype=object)
+                    c[:] = [r[1][i] for r in rows]
+                    cols[name] = c
+                for sink in col_sinks:
+                    sink.accept_columns(abs_ts, cols)
+            for sink in sinks:
+                if not hasattr(sink, "accept_columns"):
+                    for rel_ts, row in rows:
+                        sink(epoch + rel_ts, row)
+
+    def _emit_columns(self, schema, cb: ColumnBatch) -> None:
+        """The columnar lane's emission: counts and sink delivery account
+        arrays, never row tuples. Reached only for streams that
+        ``_columnar_streams`` approved (every consumer columnar)."""
+        if not len(cb):
+            return
+        sid = schema.stream_id
+        epoch = self._epoch_ms or 0
+        self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(cb)
+        abs_ts = cb.ts + np.int64(epoch)
+        with self.telemetry.span("sink"):
+            for sink in self._sinks.get(sid) or ():
+                sink.accept_columns(abs_ts, cb.cols)
 
     # -- results -------------------------------------------------------------
     def results(self, output_stream: str) -> List[Tuple]:

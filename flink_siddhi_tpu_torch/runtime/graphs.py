@@ -12,24 +12,33 @@ graph and replayed once per segment, by the resident replay
 
 Per plan runtime, ``SegmentGraphs`` holds:
 
-- **the binding**: the state and accumulator tensors every graph of the
-  plan reads and updates in place. Each graph ends by copying its new
-  states and accumulator meta back into them (the donation analog). A
-  runtime whose tensors were rebound to others of the same shapes (a
+- **the binding**: the state tensors every graph of the plan reads and
+  updates in place. Each graph ends by copying its new states and
+  accumulator meta back into the bound tensors (the donation analog). A
+  runtime whose states were rebound to others of the same shapes (a
   flush, an eager segment) has them copied in before the next replay; a
   new state signature (``grow_state``) becomes the new binding and drops
   every graph of the old one, which is never replayed on new tensors;
+- **the accumulator ring**: the runtime's accumulators (``_PlanRuntime.
+  ring``, owned by the executor), one graph per ring position. A drain
+  swaps the live accumulator for another position while its fetch reads
+  the old one (``executor.py``), so a segment replays the graph of the
+  live position; the ring is full before the first capture, and a new
+  graph key is captured for every position at once;
 - **the slots**: one static uint8 buffer per (wire signature, K) that a
   graph reads its tapes from. A replay is one copy of the segment's
   buffer (on the card, or in pinned host memory) into the slot, on the
   current stream, and one ``CUDAGraph.replay``;
 - **the graphs**, keyed by (wire signature, K, state signature, each
-  tape's chain-matcher branches), at most ``MAX_GRAPHS`` (oldest dropped),
-  all in one memory pool. A new key is warmed first by one eager run of
-  the segment on a side stream over copies of the states (the kernels'
-  build, lazily made constants, the reverse cummin's look-back scratch of
-  that stream), then captured on that stream with torch's sync debug mode
-  "error": a step that would wait for the device fails the capture, loudly.
+  tape's chain-matcher branches), one graph per ring position under a
+  key, at most ``MAX_GRAPHS`` keys (oldest dropped), all in one memory
+  pool. A new key is warmed first by one eager run of the segment on a
+  side stream over copies of the states (the kernels' build, lazily made
+  constants, the reverse cummin's look-back scratch of that stream), then
+  captured on that stream with torch's sync debug mode "error": a step
+  that would wait for the device fails the capture, loudly. Before that,
+  ``before_capture`` (the job's) completes every queued drain, so that a
+  capture and the drain fetch thread's CUDA calls never overlap.
 
 A segment with a tape whose chain matcher must read its relevant count (a
 host-known bound above the compact width) cannot be captured; it runs its
@@ -58,7 +67,7 @@ from ..compiler import cuda_ops
 from ..compiler.nfa import step_branch
 from .segment import Segment
 
-MAX_GRAPHS = 8  # per plan
+MAX_GRAPHS = 8  # graph keys per plan (each a graph per ring position)
 
 
 def step_segment(plan, states: Dict, acc: Dict, tapes) -> Tuple[Dict, Dict]:
@@ -167,75 +176,77 @@ def capture(fn: Callable, stream, pool=None,
 class SegmentGraphs:
     """The segments of one plan runtime: its binding, and on a CUDA device
     its slots and graphs. On the CPU it runs the same segment body (the
-    steps, then the copy back into the bound tensors) without a graph."""
+    steps, then the copy back into the bound tensors) without a graph.
+    ``before_capture()`` runs before a graph key is first captured (on the
+    CPU: first seen)."""
 
-    def __init__(self, plan, device: torch.device) -> None:
+    def __init__(self, plan, device: torch.device,
+                 before_capture: Callable[[], None] = lambda: None) -> None:
         self.plan = plan
         self.device = device
         self.cuda = device.type == "cuda"
+        self.before_capture = before_capture
         if self.cuda:
             self.stream = torch.cuda.Stream(device)  # warm-up and capture
             self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: "collections.OrderedDict[Tuple, Captured]" = (
+        # key -> one captured graph per ring position (None on the CPU)
+        self.graphs: "collections.OrderedDict[Tuple, List]" = (
             collections.OrderedDict()
         )
         self.slots: Dict[Tuple, torch.Tensor] = {}
         self.captured = 0  # graphs captured so far
-        self._bound = None  # {"states": ..., "acc": ...}
+        self.keys = 0  # graph keys captured so far (each for every position)
+        self._bound = None  # the bound states
         self._bound_flat: Optional[List] = None
         self._chains = [a for a in plan.artifacts
                         if a.name in dict(plan.spec.relevance)]
 
     # -- the binding --------------------------------------------------------
     def bind(self, rt) -> None:
-        """Make ``rt.states``/``rt.acc`` the bound tensors (see the module
-        docstring)."""
-        tree = {"states": rt.states, "acc": rt.acc}
-        flat = _flat(tree)
+        """Make ``rt.states`` the bound tensors and ``rt.acc`` its live
+        ring position's (see the module docstring)."""
+        flat = _flat(rt.states)
         if self._bound_flat is not None and len(flat) == len(
             self._bound_flat
         ) and all(a is b for (_, a), (_, b) in zip(flat, self._bound_flat)):
-            return
-        if self._bound_flat is not None and _sig(flat) == _sig(
+            pass
+        elif self._bound_flat is not None and _sig(flat) == _sig(
             self._bound_flat
         ):
-            _copy_into(self._bound, tree)
+            _copy_into(self._bound, rt.states)
         else:
-            self._bound = _tree_copy(tree)
+            self._bound = _tree_copy(rt.states)
             self._bound_flat = _flat(self._bound)
             self.graphs.clear()
-        self._publish(rt)
-
-    def _publish(self, rt) -> None:
-        rt.states = _tree_copy(self._bound["states"])
-        rt.acc = _tree_copy(self._bound["acc"])
+        rt.states = _tree_copy(self._bound)
+        live = rt.ring[rt.acc_pos]
+        if rt.acc is not live:
+            _copy_into(live, rt.acc)
+            rt.acc = live
 
     def reset(self, rt, states: Dict) -> bool:
-        """Reset the bound tensors in place to ``states`` and an empty
-        accumulator, when ``states`` has the bound signature; False (and
-        nothing done) otherwise."""
+        """Reset the bound tensors in place to ``states``, when ``states``
+        has the bound signature; False (and nothing done) otherwise."""
         if self._bound is None or _sig(_flat(states)) != _sig(
-            _flat(self._bound["states"])
+            self._bound_flat
         ):
             return False
-        _copy_into(self._bound["states"], states)
-        for t in self._bound["acc"].values():
-            t.zero_()
-        self._publish(rt)
+        _copy_into(self._bound, states)
+        rt.states = _tree_copy(self._bound)
         return True
 
-    def _body(self, tapes) -> Callable[[], None]:
+    def _body(self, tapes, acc: Dict) -> Callable[[], None]:
         """The segment body over ``tapes``: the steps from the bound
-        tensors, then their new values copied back into them."""
+        states and ``acc``, then their new values copied back into
+        them."""
         plan, bound = self.plan, self._bound
 
         def body():
-            states, acc = step_segment(
-                plan, _tree_copy(bound["states"]), _tree_copy(bound["acc"]),
-                tapes,
+            states, new_acc = step_segment(
+                plan, _tree_copy(bound), dict(acc), tapes,
             )
-            _copy_into(bound["states"], states)
-            _copy_into(bound["acc"], acc)
+            _copy_into(bound, states)
+            _copy_into(acc, new_acc)
 
         return body
 
@@ -262,12 +273,17 @@ class SegmentGraphs:
         return slot
 
     def prepare(self, rt, seg: Segment) -> Optional[Tuple]:
-        """Bind, and on a CUDA device warm and capture the graph of
-        ``seg`` unless it is cached; returns its key (None: the segment
-        cannot be captured)."""
+        """Bind, and unless ``seg``'s key is cached, run ``before_capture``
+        and on a CUDA device warm the segment and capture its graph for
+        every ring position; returns its key (None: the segment cannot be
+        captured)."""
         self.bind(rt)
         key = self.key(seg)
-        if not self.cuda or key is None or key in self.graphs:
+        if key is None or key in self.graphs:
+            return key
+        self.before_capture()
+        if not self.cuda:
+            self._keep(key, [None] * len(rt.ring))
             return key
         slot = self._slot(seg)
         tapes = seg.tapes(slot)
@@ -283,33 +299,39 @@ class SegmentGraphs:
                              {"meta": rt.acc["meta"].clone(),
                               "buf": rt.acc["buf"]}, tapes)
             cur.wait_stream(self.stream)
-            graph, _ = capture(self._body(tapes), self.stream, self.pool,
-                               counted=[a for a in self.plan.artifacts
-                                        if hasattr(a, "host_syncs")])
-        self.graphs[key] = graph
-        self.captured += 1
+            counted = [a for a in self.plan.artifacts
+                       if hasattr(a, "host_syncs")]
+            graphs = [capture(self._body(tapes, acc), self.stream,
+                              self.pool, counted=counted)[0]
+                      for acc in rt.ring]
+        self._keep(key, graphs)
+        self.captured += len(graphs)
+        self.keys += 1
+        return key
+
+    def _keep(self, key: Tuple, graphs: List) -> None:
+        self.graphs[key] = graphs
         while len(self.graphs) > MAX_GRAPHS:
             self.graphs.popitem(last=False)
-        return key
 
     # -- one segment --------------------------------------------------------
     def run(self, rt, seg: Segment) -> bool:
         """Advance ``rt`` over ``seg``: on a CUDA device one copy of its
         buffer (on the card, or in pinned host memory) into the slot, on
-        the current stream, and one graph replay, or for a segment that
-        cannot be captured the segment body over the slot; on the CPU the
-        segment body over its own buffer. Returns whether the segment
-        could be captured."""
+        the current stream, and one replay of the live ring position's
+        graph, or for a segment that cannot be captured the segment body
+        over the slot; on the CPU the segment body over its own buffer.
+        Returns whether the segment could be captured."""
         key = self.prepare(rt, seg)
         if not self.cuda:
-            self._body(seg.tapes())()
+            self._body(seg.tapes(), rt.acc)()
             return key is not None
         with torch.cuda.device(self.device):
             slot = self._slot(seg)
             slot.copy_(seg.data, non_blocking=True)
             if key is None:
-                self._body(seg.tapes(slot))()
+                self._body(seg.tapes(slot), rt.acc)()
                 return False
             self.graphs.move_to_end(key)
-            self.graphs[key].replay()
+            self.graphs[key][rt.acc_pos].replay()
         return True

@@ -18,8 +18,12 @@ without changing semantics:
    captured off the clock, and steps no padding;
 4. advance the plan ONE device dispatch per segment — a copy of the
    segment into the graph's slot and one graph replay, with no host wait
-   (on the CPU the same steps in turn) — and drain the emission
-   accumulator between segments (``Job._drain_plan``, synchronous).
+   (on the CPU the same steps in turn) — and after each a drain request
+   (the accumulator swapped for a free ring position, its fetch queued)
+   and a poll that never waits: the fetches overlap the next segments.
+   The run loop waits once per plan, at the end (a blocking poll), and,
+   when it runs more than ``Job.MAX_PENDING_DRAINS`` segments ahead of
+   the card, for the oldest drain (``Job.drains_forced``).
 
 Per-batch semantics are those of streaming mode (the segment body is
 ``plan.step_acc`` over the same tapes); ``tests/test_torch_replay.py``
@@ -83,22 +87,28 @@ class ResidentReplay:
         and capture, all OFF the replay clock."""
         t0 = time.perf_counter()
         job = self.job
+        tel = job.telemetry
         ready_sets: List[List[EventBatch]] = []
-        while not job.finished:
-            job._pull_sources()
-            ready = job._release_ready()
-            if ready:
-                if job._epoch_ms is None:
-                    job._epoch_ms = min(
-                        int(b.timestamps.min()) for b in ready
-                    )
-                ready_sets.append(ready)
-                self.total_events += sum(len(b) for b in ready)
+        with tel.span("stage.source_pull"):
+            while not job.finished:
+                job._pull_sources()
+                ready = job._release_ready()
+                if ready:
+                    if job._epoch_ms is None:
+                        job._epoch_ms = min(
+                            int(b.timestamps.min()) for b in ready
+                        )
+                    ready_sets.append(ready)
+                    self.total_events += sum(len(b) for b in ready)
         job.processed_events += self.total_events
         for pid, rt in job._plans.items():
             wires = self._plan_wires(rt, ready_sets)
             if wires is not None:
-                self.segments[pid] = self._stage_plan(rt, wires)
+                with tel.span("stage.h2d"):
+                    self.segments[pid] = self._stage_plan(rt, wires)
+        if self.segments:
+            with tel.span("stage.prewarm"):
+                job.prewarm_drains()
         if job.device.type == "cuda":
             torch.cuda.synchronize(job.device)
         self.stage_seconds = time.perf_counter() - t0
@@ -162,11 +172,16 @@ class ResidentReplay:
     def _stage_plan(self, rt: _PlanRuntime, wires) -> List[Segment]:
         """Segments of K tapes (the last may be shorter) staged on the
         device, and on a GPU each segment shape's graph warmed and
-        captured."""
+        captured, for every position of an accumulator ring that holds
+        one position per segment and one more, at most
+        ``Job.MAX_PENDING_DRAINS`` + 1 (a longer run completes the oldest
+        drain when it needs a position)."""
         job = self.job
         k = min(len(wires), self._segment_cycles(rt, wires[0].capacity))
         segs = [stack_wires(wires[i:i + k]).to(job.device)
                 for i in range(0, len(wires), k)]
+        if rt.graphs is None:
+            rt.ring_size = min(len(segs), job.MAX_PENDING_DRAINS) + 1
         runner = job._segments(rt)
         for seg in segs:
             runner.prepare(rt, seg)
@@ -182,14 +197,21 @@ class ResidentReplay:
         job._run_segment(job._plans[plan_id], self.segments[plan_id][index])
 
     def run(self) -> None:
-        """The replay itself: each segment (one dispatch), then a
-        drain."""
+        """The replay itself: each segment (one dispatch), then a drain
+        request and a poll that never waits, so that the fetches overlap
+        the next segments; per plan at the end, a waiting poll."""
         job = self.job
+        tel = job.telemetry
         for pid, segs in self.segments.items():
             rt = job._plans[pid]
             for i in range(len(segs)):
-                self.run_segment(pid, i)
-                job._drain_plan(rt)
+                with tel.span("replay.dispatch"):
+                    self.run_segment(pid, i)
+                with tel.span("replay.drain"):
+                    job._drain_request(rt)
+                    job._drain_poll(rt)
+            with tel.span("replay.drain"):
+                job._drain_poll(rt, block=True)
 
     def execute(self) -> None:
         """stage + run + end-of-stream flush."""
@@ -198,10 +220,11 @@ class ResidentReplay:
         self.job.flush()
 
     def rerun(self) -> float:
-        """Benchmarking aid: reset every plan's engine state and replay
-        the SAME staged tapes again, returning elapsed seconds (run and
-        flush, synchronized). Counts-only jobs only: collectors or sinks
-        would observe every row once per run."""
+        """Benchmarking aid: reset every plan's engine state (queued
+        drains complete first, so the rerun starts from an empty drain
+        queue) and replay the SAME staged tapes again, returning elapsed
+        seconds (run and flush, synchronized). Counts-only jobs only:
+        collectors or sinks would observe every row once per run."""
         job = self.job
         for pid in self.segments:
             if job._has_consumers(job._plans[pid]):

@@ -140,7 +140,8 @@ def test_fused_matches_per_batch_and_jax_fused_rowexact(config, seg):
     assert N_BATCHES % k  # a partial trailing segment, padded
     # under the bench's settings every segment could be captured
     assert job.eager_segments == 0
-    assert job.host_syncs == job.drain_syncs
+    assert job.host_syncs == job.drain_waits
+    assert job.fetch_syncs == job.drain_fetches > 0
 
 
 def test_padded_partial_segment_is_row_inert():
@@ -281,4 +282,5 @@ def test_default_settings_headline_counts_its_eager_segments():
     got, job = _run("torch", cql, data, 4, config={})
     assert got == ref
     assert job.eager_segments == job.fusion_dispatches == 3
-    assert job.host_syncs == job.drain_syncs + N_BATCHES
+    assert job.host_syncs == job.drain_waits + N_BATCHES
+    assert job.fetch_syncs == job.drain_fetches > 0

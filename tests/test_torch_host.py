@@ -54,6 +54,7 @@ _COPIED = [
     "query/__init__.py", "query/lexer.py", "query/ast.py",
     "query/parser.py", "query/planner.py",
     "compiler/config.py", "compiler/output.py", "utils/cron.py",
+    "telemetry/histogram.py", "telemetry/spans.py", "telemetry/registry.py",
 ]
 
 

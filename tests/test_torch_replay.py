@@ -267,7 +267,8 @@ def test_sparse_stream_compacts_with_no_per_batch_sync(advance_widths):
     assert got == ref
     assert advance_widths == [_compact_v()] * len(data)
     assert tjob._plans["p"].plan.artifacts[0].host_syncs == 0
-    assert tjob.host_syncs == tjob.drain_syncs
+    assert tjob.host_syncs == tjob.drain_waits
+    assert tjob.fetch_syncs == tjob.drain_fetches > 0
 
 
 def test_dense_stream_takes_full_width_branch(advance_widths):

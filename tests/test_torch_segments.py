@@ -300,14 +300,20 @@ def test_rerun_resets_the_bound_tensors_in_place(config):
     job.flush()
     first = dict(job.emitted_counts)
     assert sum(first.values()) > 0
-    bound = [t for _, t in _flat(rt.states)] + list(rt.acc.values())
+    # the bound states, and the accumulator ring (the live accumulator is
+    # one of its positions)
+    bound = [t for _, t in _flat(rt.states)]
+    ring = [t for acc in rt.ring for t in acc.values()]
+    assert len(rt.ring) == len(rep.segments["p"]) + 1
     for i in range(2):
         rep.rerun()
         assert {k: v // (i + 2) for k, v in job.emitted_counts.items()} \
             == first
         assert all(v % (i + 2) == 0 for v in job.emitted_counts.values())
-        now = [t for _, t in _flat(rt.states)] + list(rt.acc.values())
+        now = [t for _, t in _flat(rt.states)]
         assert all(a is b for a, b in zip(now, bound))
+        assert [t for acc in rt.ring for t in acc.values()] == ring
+        assert rt.acc is rt.ring[rt.acc_pos] and not rt.drain_q
     assert job.eager_segments == 0
 
 
@@ -324,7 +330,8 @@ def test_default_settings_headline_counts_eager_resident_segments():
     rep.job.flush()
     n_segs = len(rep.segments["p"])
     assert rep.job.eager_segments == n_segs >= 1
-    assert rep.job.host_syncs == rep.job.drain_syncs + 6
+    assert rep.job.host_syncs == rep.job.drain_waits + 6
+    assert rep.job.fetch_syncs == rep.job.drain_fetches > 0
 
 
 _QFIELDS = [("symbol", "string"), ("price", "double"), ("volume", "long")]

@@ -114,7 +114,8 @@ def test_multiquery64_matches_jax_per_stream(config, advance_widths):
     assert plan.spec.device_columns is None
     # the host-known bound is under E // 16: every step compacts with no
     # read, one chain advance for all 64 members
-    assert art.host_syncs == 0 and tjob.host_syncs == tjob.drain_syncs
+    assert art.host_syncs == 0 and tjob.host_syncs == tjob.drain_waits
+    assert tjob.fetch_syncs == tjob.drain_fetches > 0
     Rw = nfa._stack_compact_width(8192)
     assert advance_widths == [(64, 1024 + Rw)] * len(data)
 
