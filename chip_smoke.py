@@ -11,8 +11,9 @@ of JAX and nothing of the JAX package. Phases, each failing the run on any
 fault:
 
 1. device: the card's name and power limit;
-2. build: the three kernels (and an empty one, the launch floor) compiled
-   from the checkout's sources, one nvcc per source, all started together
+2. build: the four kernels (and empty ones: the launch floor, and the
+   slot scan's serial floor of empty barrier rounds) compiled from the
+   checkout's sources, one nvcc per source, all started together
    (seconds);
 3. kernels: each kernel held to its plain PyTorch version at the shapes the
    main paths use and at edge shapes — the reverse cummin exactly (int32)
@@ -34,7 +35,14 @@ fault:
    table bitwise equal, NaN at the same places, counts, minima and maxima
    exact and its sums and averages within rtol 1e-4, also with NaN, +inf
    and -inf values, a hot key, no event masked, codes past both ends,
-   E = 3,001 and 524,287, C = 1 and C = 2^20;
+   E = 3,001 and 524,287, C = 1 and C = 2^20; the slot NFA scan (K4)
+   exactly (its state, scalars and whole emission buffer) against its
+   plain version on CPU copies, from a carried state, on random inputs
+   for eight spec shapes (quantified, sequence, cross filter, or group,
+   grouped every, mid-chain every fork, and group, a full pool) at S = 64
+   and E = 4,096, some at S = 1,024 and E = 16,384, with a device count of
+   0 and of E, NaN and +-inf prices, and captured into a CUDA graph
+   replayed on new inputs;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -123,6 +131,18 @@ fault:
    step on
    the stack's full-width branch (its peak memory, its rows equal to the
    compacted branch's). The chain kernels' stacked inputs go to phase 9;
+8b. slot NFA (in a process of its own, `--slots OUT`): four slot-NFA
+   queries over the bench stream under bench.py's settings (SLOT_QUERIES:
+   a quantified middle element and an 'or' group, both relevance-
+   compacted; a sequence with `+` and a cross-element filter, both
+   scanning every event): rows of the first 32,768 events on the card
+   equal to the CPU path's; the streaming Job over the whole stream with
+   a row sink (rows, exact checksum, K4 once a micro-batch and no other
+   kernel, the pool's overflow); ResidentReplay with the sink (the same
+   rows and checksum), then counts-only: three reruns (events/s median
+   and best), graphs captured, no eager segment, K4 once a step on the
+   host and in a traced rerun, one staged segment under sync debug mode
+   "error". K4's inputs of each query's third step go to phase 9;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -135,6 +155,11 @@ fault:
    524,288-event tapes with relevance compaction off) and at multiquery64's
    stacked shapes (held exactly to their plain versions first), and their
    kernel launches per call counted in a profiler trace (each must be 1);
+   K4 on each slot query's recorded step (CUDA events around back-to-back
+   calls), per visited event, beside its byte bound and its serial floor
+   (the visited events' count of empty barrier rounds), held exactly to
+   its plain version on the quantified query's step (the plain version
+   timed on the CPU, where it runs);
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -385,7 +410,8 @@ def timed_back_to_back(fn, runs, warmup=1):
 # once (the unique fold's pipeline ends with its rows kernel)
 TRACED_KERNELS = {"multi_reverse_cummin": "suffix_min_kernel",
                   "chain_advance": "chain_advance_kernel",
-                  "unique_window_fold": "rows_kernel"}
+                  "unique_window_fold": "rows_kernel",
+                  "slot_nfa_scan": "slot_nfa_kernel"}
 
 
 def traced_launches(prof):
@@ -505,6 +531,13 @@ def same(a, b, what):
     if a.dtype == torch.bool:
         return 0
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def no_slot_scan(launches, what):
+    """The slot NFA scan (K4) runs on no path but the slot NFA's."""
+    if launches.get("slot_nfa_scan"):
+        raise AssertionError(f"{what}: slot_nfa_scan launched "
+                             f"{launches['slot_nfa_scan']} times")
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
@@ -955,6 +988,222 @@ def check_unique_fold(co, dev, gen):
     return err, rel
 
 
+# -- phase 3, K4: the slot NFA scan -----------------------------------------
+
+# the slot-NFA queries of phase 8b over the bench stream (ids uniform in
+# [0, 50), 1 ms apart), and phase 3's spec shapes
+SLOT_QUERIES = (
+    # (a) a quantified middle element, compacted (6% of events relevant)
+    ("quantified",
+     "from every s1 = inputStream[id == 1] -> "
+     "s2 = inputStream[id == 2]<2:4> -> s3 = inputStream[id == 3] "
+     "within 1 sec select s1.price as p1, s2[0].price as p2first, "
+     "s2[last].price as p2last, s3.timestamp as t3 insert into matches"),
+    # (b) a sequence with a `+` element: every event scanned
+    ("sequence",
+     "from every s1 = inputStream[id < 10], "
+     "s2 = inputStream[id >= 10 and id < 30]+, s3 = inputStream[id >= 30] "
+     "select s1.timestamp as t1, s2[0].price as p2first, "
+     "s2[last].price as p2last, s3.price as p3 insert into matches"),
+    # (c) a cross-element filter: its mask is the stream gate, so every
+    # event is relevant (a full scan)
+    ("cross",
+     "from every s1 = inputStream[id == 1] -> "
+     "s2 = inputStream[id == 2 and price > s1.price] within 1 sec "
+     "select s1.price as p1, s2.price as p2, s2.timestamp as t2 "
+     "insert into matches"),
+    # (d) an 'or' group whose unfired member decodes None, compacted
+    ("or_group",
+     "from every s1 = inputStream[id == 1] -> "
+     "(s2 = inputStream[id == 2] or s3 = inputStream[id == 4]) -> "
+     "s4 = inputStream[id == 3] within 1 sec select s1.price as p1, "
+     "s2.price as p2, s3.price as p3, s4.timestamp as t4 "
+     "insert into matches"),
+)
+# phase 3's further spec shapes: (name, cql, per-element mask density)
+SLOT_SHAPES = dict(
+    quantified=(SLOT_QUERIES[0][1], (0.02, 0.05, 0.02)),
+    sequence=(SLOT_QUERIES[1][1], (0.2, 0.4, 0.4)),
+    cross=(SLOT_QUERIES[2][1], (0.02, 1.0)),
+    or_group=(SLOT_QUERIES[3][1], (0.02, 0.02, 0.02, 0.02)),
+    grouped_every=(
+        "from every (s1 = inputStream[id == 1] -> s2 = inputStream[id == 2])"
+        " select s1.price as p1, s2.timestamp as t2 insert into matches",
+        (0.05, 0.05)),
+    midchain_fork=(
+        "from every s1 = inputStream[id == 1] -> "
+        "every s2 = inputStream[id == 2] -> "
+        "s3 = inputStream[id == 3 and price > s2.price] within 300 ms "
+        "select s1.price as p1, s2.price as p2, s3.price as p3 "
+        "insert into matches",
+        (0.03, 0.05, 0.05)),
+    and_group=(
+        "from every s1 = inputStream[id == 1] -> "
+        "(a = inputStream[id == 2] and b = inputStream[id == 3]) -> "
+        "s4 = inputStream[id == 4] within 1 sec select s1.price as p1, "
+        "a.price as pa, b.timestamp as tb, s4.price as p4 "
+        "insert into matches",
+        (0.03, 0.03, 0.03, 0.03)),
+    # every without within: partials pin the pool, which fills
+    full_pool=(
+        "from every s1 = inputStream[id < 25] -> "
+        "s2 = inputStream[id == 49]<2:3> select s1.price as p1, "
+        "s2[1].price as p2 insert into matches",
+        (0.5, 0.001)),
+)
+
+
+def slot_plan(fpt, cql, slots):
+    """The slot artifact of ``cql`` over the bench stream's schema, with a
+    pool of ``slots``."""
+    schema = fpt.StreamSchema([("id", "int"), ("name", "string"),
+                               ("price", "double"), ("timestamp", "long")])
+    plan = fpt.compile_plan(cql, {"inputStream": schema},
+                            config=fpt.EngineConfig(pattern_slots=slots))
+    (art,) = plan.artifacts
+    if type(art).__name__ != "SlotNFAArtifact":
+        raise AssertionError(f"{cql[:60]}: compiled to {type(art).__name__}")
+    return art
+
+
+def slot_inputs(art, E, density, rng, dev, compacted=None):
+    """Random scan inputs for ``art``: ts 1 ms apart, 1% invalid events,
+    element k's mask bit with probability ``density[k]`` (the entry masks a
+    random subset), the capture and program columns as the bench stream's
+    (prices float32 with NaN, +inf and -inf among them, ids in [0, 50),
+    timestamps), and for a compacted scan the relevant events' index and
+    count (``compacted``: None for the scan's own rule, else the count to
+    pass: 0 or E)."""
+    import torch
+
+    K = art.spec.n_elements
+    ts = 1000 + np.arange(E, dtype=np.int32)
+    valid = rng.random(E) < 0.99
+    mword = np.zeros(E, np.int32)
+    for k in range(K):
+        mword |= ((rng.random(E) < density[k]) & valid).astype(np.int32) << k
+    eword = mword & ~((rng.random(E) < 0.1).astype(np.int32) << (K - 1))
+    cols = []
+    for key in art._cols:
+        if key.endswith("price"):
+            v = (rng.random(E) * 100).astype(np.float32)
+            v[rng.random(E) < 0.01] = np.nan
+            v[rng.random(E) < 0.01] = np.inf
+            v[rng.random(E) < 0.01] = -np.inf
+            cols.append(v.view(np.int32))
+        elif key.endswith("timestamp"):
+            cols.append(ts)
+        else:
+            cols.append(rng.integers(0, 50, E).astype(np.int32))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = [t(ts), t(valid), t(mword), t(eword),
+            t(np.stack(cols)) if cols else
+            torch.zeros((0, E), dtype=torch.int32, device=dev)]
+    idx = cnt = None
+    if art.spec.kind == "pattern" and E >= 4096:
+        rel = (mword != 0) & valid
+        order = np.concatenate([np.flatnonzero(rel), np.flatnonzero(~rel)])
+        n = int(rel.sum()) if compacted is None else compacted
+        if compacted == E:
+            order = np.arange(E)
+        idx, cnt = t(order.astype(np.int32)), t(np.array([n], np.int32))
+    return args + [idx, cnt]
+
+
+def slot_check(co, art, E, density, rng, dev, what, compacted=None):
+    """K4 on the card against its plain version on CPU copies, from a
+    carried state (the plain version run over a random prefix first):
+    the state, the scalars and the whole emission buffer exactly. Returns
+    the emitted rows and the overflow."""
+    import torch
+
+    plan = art.scan_plan
+    mat, scal = art._pack_state(art.init_state("cpu"))
+    pre = slot_inputs(art, 1024, density, rng, "cpu")
+    mat, scal4, _ = co.slot_nfa_scan_plain(plan, mat, scal, *pre)
+    scal = scal4[:3].clone()
+    args = slot_inputs(art, E, density, rng, "cpu", compacted)
+    ref = co.slot_nfa_scan_plain(plan, mat, scal, *args)
+    got = co.slot_nfa_scan(plan, mat.to(dev), scal.to(dev),
+                           *[a.to(dev) if a is not None else None
+                             for a in args])
+    for g, r, name in zip(got, ref, ("state", "scalars", "buffer")):
+        same(g.cpu(), r, f"slot_nfa_scan {what}: {name}")
+    return int(ref[1][3]), int(ref[1][2])
+
+
+def slot_graph_check(co, art, E, density, rng, dev, replays=3):
+    """K4 captured into a CUDA graph, replayed on new inputs copied into
+    the captured tensors: each replay exact against the plain version."""
+    import torch
+
+    plan = art.scan_plan
+    mat, scal = art._pack_state(art.init_state("cpu"))
+    static = [a.to(dev) if a is not None else None
+              for a in [mat, scal] + slot_inputs(art, E, density, rng, "cpu")]
+    co.slot_nfa_scan(plan, *static)  # the plan's upload, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = co.slot_nfa_scan(plan, *static)
+    torch.cuda.current_stream().wait_stream(stream)
+    for r in range(replays):
+        pre = slot_inputs(art, 1024, density, rng, "cpu")
+        mat2, scal4, _ = co.slot_nfa_scan_plain(plan, mat, scal, *pre)
+        new = [mat2, scal4[:3].clone()] + slot_inputs(art, E, density, rng,
+                                                      "cpu")
+        for dst, src in zip(static, new):
+            if dst is not None:
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = co.slot_nfa_scan_plain(plan, *new)
+        for g, rr, name in zip(out, ref, ("state", "scalars", "buffer")):
+            same(g.cpu(), rr, f"slot_nfa_scan graph replay {r}: {name}")
+    return replays
+
+
+def check_slot_nfa(fpt, co, dev):
+    """K4 held exactly to its plain version on random inputs: every spec
+    shape at S = 64 and E = 4,096; the quantified, cross and fork shapes at
+    S = 1,024; the sequence and cross shapes at E = 16,384 (S = 64), the
+    quantified and sequence shapes at S = 1,024 and E = 16,384; a device
+    count of 0 and of E; a full pool (overflow); NaN and +-inf prices;
+    and a CUDA graph replayed on new inputs."""
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    cases = [(name, 64, 4096, None) for name in SLOT_SHAPES]
+    cases += [(n, 1024, 4096, None)
+              for n in ("quantified", "cross", "midchain_fork")]
+    cases += [(n, 64, 16384, None) for n in ("sequence", "cross")]
+    cases += [(n, 1024, 16384, None) for n in ("quantified", "sequence")]
+    cases += [("quantified", 64, 4096, 0), ("quantified", 64, 4096, 4096)]
+    out = {}
+    arts = {}
+    for name, S, E, forced in cases:
+        art = arts.get((name, S))
+        if art is None:
+            art = arts[(name, S)] = slot_plan(fpt, SLOT_SHAPES[name][0], S)
+        what = f"{name} S={S} E={E}" + (
+            f" count={forced}" if forced is not None else "")
+        rows, over = slot_check(co, art, E, SLOT_SHAPES[name][1], rng, dev,
+                                what, forced)
+        out[what] = {"rows": rows, "overflow": over}
+    if not out["full_pool S=64 E=4096"]["overflow"]:
+        raise AssertionError("slot_nfa_scan: the full pool did not overflow")
+    if not all(v["rows"] for k, v in out.items() if "count=0" not in k):
+        raise AssertionError(f"slot_nfa_scan: a case emitted nothing: {out}")
+    replays = slot_graph_check(co, arts[("cross", 64)], 4096,
+                               SLOT_SHAPES["cross"][1], rng, dev)
+    log(f"  slot_nfa_scan exact against its plain version in {len(cases)} "
+        f"cases and {replays} graph replays "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(out)}")
+    return 0
+
+
 # -- phases 4 and 5: the main path end to end ----------------------------------
 
 def bench_stream(fpt, n_events, batch, n_ids=N_IDS):
@@ -1024,6 +1273,7 @@ def end_to_end(fpt, co, name, cql, schema, batches, kernels_expected):
     ts = np.asarray([r[0] for r in rows])
     if not np.all(np.diff(ts) >= 0):
         raise AssertionError(f"{name}: rows out of emission order")
+    no_slot_scan(launches, name)
     for k in kernels_expected:
         if launches[k] < N_BATCHES:
             raise AssertionError(
@@ -1292,6 +1542,7 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = co.launch_counts()
+    no_slot_scan(launches, f"{name}: resident run")
     run_syncs = job.host_syncs - host_syncs0
     acct = drain_accounts(job, f"{name}: resident run")
     first_drains = {k: acct[k] - acct0[k] for k in acct}
@@ -1350,6 +1601,7 @@ def bench_main_path(fpt, co, name, cql, schema, batches, chain, rtol=0.0,
         co, rep.rerun, f"{name}: traced resident rerun")
     traced = traced_share(prof, traced_s, len(segs), n_tapes)
     del prof
+    no_slot_scan(traced_launch, f"{name}: traced resident rerun")
     if chain:
         for k in ("multi_reverse_cummin", "chain_advance"):
             if traced_launch[k] != compacted:
@@ -1579,6 +1831,7 @@ def streaming_counts(fpt, co, name, cql, schema, batches, config, stream,
         disp0, up0 = job.fusion_dispatches, job.fusion_h2d_uploads
         runs.append(run())
     launches = co.launch_counts()
+    no_slot_scan(launches, f"{name}: fused runs")
     dispatches = job.fusion_dispatches - disp0
     k = job._fused_k(job._plans["bench"])
     steps = dispatches * k  # every segment padded to k tapes
@@ -2179,6 +2432,205 @@ def multiquery_phase(fpt, co, out_path):
         json.dump({"bench": bench, "full_branch": full}, f)
 
 
+# -- phase 8b: the slot NFA (sequences, quantifiers, groups, cross filters) --
+
+SLOT_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
+SLOT_TIMED_RUNS = 5  # phase 9's timed calls of K4 on each query's input
+
+
+def slot_query(fpt, co, nfa, name, cql, schema, batches):
+    """One slot-NFA query over the bench stream, the bench's settings:
+    rows of the first SLOT_CHECK_EVENTS events on the card equal to the
+    CPU path's; the streaming Job over the whole stream with a row sink
+    (rows, an exact checksum, K4 launched once a micro-batch and no other
+    kernel); ResidentReplay (stage, run() + flush() with a row sink: the
+    same rows and checksum; then, its sink dropped, counts-only as
+    bench.py's resident mode runs it: three reruns, each the same count;
+    graphs captured, no eager segment, K4 once a step on the host and in a
+    traced rerun, one staged segment under sync debug mode "error").
+    Returns (result, K4's recorded inputs)."""
+    import torch
+
+    cfg = bench_config(fpt)
+    prefix = [batches[0].slice(0, SLOT_CHECK_EVENTS)]
+    cpu_rows, cpu_s, cpu_job = run_job(fpt, cql, schema, prefix, "cpu",
+                                       config=cfg)
+    art = cpu_job._plans["bench"].plan.artifacts[0]
+    if type(art).__name__ != "SlotNFAArtifact":
+        raise AssertionError(f"{name}: compiled to {type(art).__name__}")
+    del cpu_job
+    card_rows, _, _ = run_job(fpt, cql, schema, prefix, "cuda", config=cfg)
+    if card_rows != cpu_rows or len(cpu_rows) < 50:
+        raise AssertionError(f"{name}: {len(card_rows)} card rows, "
+                             f"{len(cpu_rows)} CPU rows over the first "
+                             f"{SLOT_CHECK_EVENTS} events, not equal")
+    fields = [(i, f.name) for i, f in enumerate(art.output_schema.fields)
+              if f.atype.name != "STRING"]
+    n_events = sum(len(b) for b in batches)
+
+    # the streaming Job over the whole stream (K4's inputs recorded)
+    sink = RowCount(fields)
+    job = replay_job(fpt, cql, schema, batches, retain=False)
+    job.add_sink("matches", sink)
+    rec = Recorder(co.slot_nfa_scan, keep=3)
+    nfa.slot_nfa_scan = rec
+    torch.cuda.synchronize()
+    co.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        job.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        nfa.slot_nfa_scan = co.slot_nfa_scan
+    launches = co.launch_counts()
+    if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
+                    "unique_window_fold": 0, "slot_nfa_scan": N_BATCHES}:
+        raise AssertionError(f"{name}: streaming launches {launches}, "
+                             f"expected K4 once a micro-batch")
+    drain_accounts(job, f"{name}: streaming")
+    rows, checksum = sink.fold()
+    if rows < 1000:
+        raise AssertionError(f"{name}: {rows} rows over the stream")
+    overflow = int(job._plans["bench"].states[art.name]["overflow"])
+    del job
+
+    # ResidentReplay: a run with a row sink (the streaming run's rows and
+    # checksum), then counts-only, as bench.py's resident mode runs it
+    torch.cuda.reset_peak_memory_stats()
+    rsink = RowCount(fields)
+    job = replay_job(fpt, cql, schema, batches, retain=False)
+    job.add_sink("matches", rsink)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    (pid, segs), = rep.segments.items()
+    steps = sum(len(seg) for seg in segs)
+    captured = job.graphs_captured
+    co.reset_launches()
+    t0 = time.perf_counter()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rlaunch = co.launch_counts()
+    drain_accounts(job, f"{name}: resident run")
+    if rsink.fold() != (rows, checksum):
+        raise AssertionError(f"{name}: resident rows/checksum "
+                             f"{rsink.fold()}, streaming {(rows, checksum)}")
+    if (rlaunch["slot_nfa_scan"] != steps or job.eager_segments
+            or not captured or job.graphs_captured != captured):
+        raise AssertionError(
+            f"{name}: K4 launched {rlaunch['slot_nfa_scan']} times in "
+            f"{steps} steps, {job.eager_segments} eager segments, "
+            f"{job.graphs_captured} graphs ({captured} at stage)")
+    job._sinks.clear()  # counts-only from here: rerun() replays
+    count = rows
+    reruns = []
+    for _ in range(3):
+        before = sum(job.emitted_counts.values())
+        reruns.append(rep.rerun())
+        if sum(job.emitted_counts.values()) - before != count:
+            raise AssertionError(f"{name}: a rerun emitted another count")
+    if job.graphs_captured != captured:
+        raise AssertionError(f"{name}: a rerun captured a graph")
+    peak = torch.cuda.max_memory_allocated()
+    # one staged segment with no host wait inside a step
+    job.reset_engine_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep.run_segment(pid, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    prof, traced_s, traced_launch = traced_run(
+        co, rep.rerun, f"{name}: traced resident rerun")
+    traced = traced_share(prof, traced_s, len(segs), steps)
+    del prof
+    if traced_launch["slot_nfa_scan"] != steps:
+        raise AssertionError(f"{name}: K4 ran {traced_launch} times on the "
+                             f"card in a rerun of {steps} steps")
+    scan_args = rec.args
+    result = {
+        "path": f"slot_{name}",
+        "cql": cql,
+        "events": n_events,
+        "batch": BATCH,
+        "kind": art.spec.kind,
+        # the scan visits the relevant events of a '->' pattern's tape; a
+        # sequence's, or a pattern's whose every event is relevant, is full
+        "scan": "compacted" if scan_args[-1] is not None
+        and int(scan_args[-1][0]) < int(scan_args[3].shape[0]) else "full",
+        "slots": art.slots,
+        "cpu_check_events": SLOT_CHECK_EVENTS,
+        "cpu_check_rows": len(cpu_rows),
+        "cpu_check_s": cpu_s,
+        "rows": rows,
+        "checksum": checksum,
+        "overflow": overflow,
+        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
+                      "launches": launches},
+        "resident": {
+            "stage_s": rep.stage_seconds,
+            "first_run_s": first_s,
+            "rerun_s": reruns,
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "events_per_s_best": n_events / min(reruns),
+            "steps": steps,
+            "segments": [len(seg) for seg in segs],
+            "launches": rlaunch,
+            "launches_traced": traced_launch,
+            "graphs_captured": captured,
+            "eager_segments": job.eager_segments,
+            "segment_sync_free": True,
+            "max_memory_allocated_bytes": peak,
+            **traced,
+        },
+    }
+    log(json.dumps(result))
+    return result, scan_args
+
+
+def slot_phase(fpt, co, out_path):
+    """The four slot-NFA queries (SLOT_QUERIES) over the bench stream; the
+    result goes to ``out_path``, K4's recorded inputs to
+    ``out_path``.pt."""
+    import torch
+
+    from flink_siddhi_tpu_torch.compiler import nfa
+
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    results, recorded = [], {}
+    for name, cql in SLOT_QUERIES:
+        t0 = time.perf_counter()
+        res, args = slot_query(fpt, co, nfa, name, cql, schema, batches)
+        res["phase_s"] = time.perf_counter() - t0
+        results.append(res)
+        recorded[name] = [keep_copy(a, "cpu") for a in args]
+        log(f"  slot {name}: {res['rows']} rows, overflow "
+            f"{res['overflow']}, resident "
+            f"{res['resident']['events_per_s_median']:.4g} events/s, "
+            f"{res['phase_s']:.1f} s")
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    torch.save(recorded, out_path + ".pt")
+
+
+def slots_main(out_path):
+    """Phase 8b alone (``--slots OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    slot_phase(fpt, co, out_path)
+    return 0
+
+
 # -- phase 6: the quote board (#window.unique aggregation) -------------------
 
 def quote_stream(fpt, n_events, batch, seed=11):
@@ -2253,7 +2705,8 @@ def quote_board(fpt, co):
         raise AssertionError("quote board: final count is not the number "
                              "of distinct symbols")
     if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
-                    "unique_window_fold": QUOTE_BATCHES}:
+                    "unique_window_fold": QUOTE_BATCHES,
+                    "slot_nfa_scan": 0}:
         raise AssertionError(
             f"quote board: launches {launches}, expected the unique fold "
             f"once per micro-batch ({QUOTE_BATCHES})"
@@ -2601,6 +3054,88 @@ def time_unique_fold(co, args, launches, err, rel, floor_ms):
     }
 
 
+def slot_scan_work(args):
+    """(bytes, events visited) of one scan call on THESE inputs: each event
+    it visits read once (ts, valid, both masks, the columns, the index
+    entry), the state read and written once, and the emission buffer it
+    returns written once."""
+    plan, state, _scal, ts, _valid, _m, _me, _cols, idx, cnt = args
+    E = int(ts.shape[0])
+    n = int(cnt[0]) if cnt is not None else E
+    per_event = 13 + 4 * plan.n_cols + (4 if idx is not None else 0)
+    nbytes = (n * per_event + 2 * state.numel() * 4 + 7 * 4
+              + plan.buf_rows * (E + plan.slots) * 4)
+    return nbytes, n
+
+
+def slot_scan_times(co, args, floor_ms):
+    """K4 on one recorded input: its time a call (CUDA events around
+    back-to-back calls: the kernel and its buffer's zero fill) and a
+    single call's, per visited event, its byte bound, and its serial floor
+    (the events' count of empty block barrier rounds in a block of the
+    scan's width, measured the same way)."""
+    plan = args[0]
+    fn = rotating(lambda *a: co.slot_nfa_scan(*a), args)
+    # a call lasts tens of ms to a second: CUDA events around
+    # back-to-back calls (a call's kernel and its buffer's zero fill)
+    ms, call_ms = timed_back_to_back(fn, SLOT_TIMED_RUNS)
+    nbytes, n = slot_scan_work(args)
+    bound_ms, bound_by = bound_of(nbytes, n * plan.slots, INT32_OPS_PER_S)
+    serial_ms, _ = timed_back_to_back(
+        lambda: co.launch_barrier_rounds(n, plan.slots), SLOT_TIMED_RUNS)
+    return {"ms": ms, "call_ms": call_ms,
+            "events_visited": n, "events": int(args[3].shape[0]),
+            "per_event_us": ms * 1e3 / max(n, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "serial_floor_ms": serial_ms, "floor_ms": floor_ms,
+            "slots": plan.slots, "bytes": nbytes}
+
+
+def time_slot_nfa(co, recorded, launches, floor_ms):
+    """K4 on each slot query's recorded main-path input (held exactly to
+    its plain version, on CPU copies, for the quantified query, whose
+    plain time is the one reported), with the quantified query's numbers
+    in the kernels' line and every query's beside them."""
+    import torch
+
+    queries = {}
+    for name, args in recorded.items():
+        args = tuple(a.to("cuda") if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        queries[name] = slot_scan_times(co, args, floor_ms)
+    args = recorded["quantified"]
+    got = co.slot_nfa_scan(*(a.to("cuda") if isinstance(a, torch.Tensor)
+                             else a for a in args))
+    t0 = time.perf_counter()
+    ref = co.slot_nfa_scan_plain(*args)
+    plain_s = time.perf_counter() - t0
+    err = 0
+    for g, r, what in zip(got, ref, ("state", "scalars", "buffer")):
+        err = max(err, same(g.cpu(), r, f"slot_nfa_scan main-path {what}"))
+    main = queries["quantified"]
+    entry = {
+        "name": co.slot_nfa_scan.name, "route": "cuda",
+        "source": co.slot_nfa_scan.source,
+        "replaces": "flink_siddhi_tpu/compiler/nfa.py:3107 (no Pallas "
+                    "counterpart: the reference's lax.scan)",
+        "launches": launches, "max_abs_err": err,
+        **{k: main[k] for k in ("ms", "call_ms", "bound_ms",
+                                "bound_by", "serial_floor_ms",
+                                "per_event_us", "events_visited")},
+        "plain_ms": plain_s * 1e3,
+        "plain_device": "cpu",
+        "library_ms": None,
+        "floor_ms": floor_ms,
+        "queries": queries,
+    }
+    for name, q in queries.items():
+        log(f"  slot_nfa_scan {name}: {q['ms']} ms a call on the card "
+            f"({q['call_ms']} ms single), {q['events_visited']} "
+            f"events, {q['per_event_us']} us/event, serial floor "
+            f"{q['serial_floor_ms']} ms, bound {q['bound_ms']} ms")
+    return entry
+
+
 @dataclasses.dataclass
 class Event:
     id: int
@@ -2698,6 +3233,7 @@ def main():
     err_k3, rel_k3 = check_unique_fold(co, dev, gen)
     err_k1 = max(err_k1, check_reverse_cummin_replay(co, graphs, dev,
                                                      gen_dev))
+    err_k4 = check_slot_nfa(fpt, co, dev)
 
     def lap(what):
         log(f"  {what} done at {time.perf_counter() - t_start:.1f} s")
@@ -2827,7 +3363,34 @@ def main():
         raise AssertionError("resident headline: no drain overlapped a "
                              "later segment")
 
-    lap("phases 7 and 8")
+    # 8b. the slot NFA: four slot-NFA queries over the bench stream (in a
+    # process of its own, as phases 7 and 8; K4's recorded inputs go to
+    # phase 9)
+    log(f"[8b/11] slot NFA: {len(SLOT_QUERIES)} queries over "
+        f"{BATCH * N_BATCHES} events")
+    t_slot = time.perf_counter()
+    slot_path = os.path.join(SMOKE_DIR, "slots.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--slots", slot_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"slot NFA phase failed ({r.returncode})")
+    with open(slot_path) as f:
+        slots = json.load(f)
+    log(f"  slot NFA phase {time.perf_counter() - t_slot:.1f} s")
+    log(json.dumps({"slots": [{k: q[k] for k in (
+        "path", "scan", "rows", "checksum", "overflow", "cpu_check_rows")}
+        | {"resident_events_per_s_median":
+           q["resident"]["events_per_s_median"],
+           "resident_events_per_s_best": q["resident"]["events_per_s_best"],
+           "streaming_events_per_s": q["streaming"]["events_per_s"],
+           "idle_share": q["resident"]["traced_idle_share"],
+           "eager_segments": q["resident"]["eager_segments"],
+           "steps": q["resident"]["steps"],
+           "launches_traced": q["resident"]["launches_traced"][
+               "slot_nfa_scan"]}
+        for q in slots]}))
+
+    lap("phases 7, 8 and 8b")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -2842,8 +3405,10 @@ def main():
                      for name, r in (("k1", rec_k1), ("k1_full", full_k1),
                                      ("k2", rec_k2), ("k2_full", full_k2),
                                      ("k3", rec_k3))},
-        "err": [err_k1, err_k2, err_k3, rel_k3],
+        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4],
         "launches": {"head": head["launches"], "board": board["launches"],
+                     "slots": sum(q["streaming"]["launches"]["slot_nfa_scan"]
+                                  for q in slots),
                      "bench": bench_head["resident"]["launches_traced"],
                      "mq": mq["bench"]["resident"]["launches_traced"],
                      "fqb": board["fused_streaming"]["launches_traced"]},
@@ -3173,7 +3738,7 @@ def kernels_main(path):
         for r in (saved["recorded"][k] for k in (
             "k1", "k1_full", "k2", "k2_full", "k3"))
     )
-    err_k1, err_k2, err_k3, rel_k3 = saved["err"]
+    err_k1, err_k2, err_k3, rel_k3, err_k4 = saved["err"]
     launches = saved["launches"]
     mq_inputs = torch.load(os.path.join(SMOKE_DIR, "multiquery64.json.pt"))
     # 9. kernel timing on each path's own inputs
@@ -3219,6 +3784,8 @@ def kernels_main(path):
                       co.unique_window_fold_plain(*rec_k3.args), slots,
                       "unique_window_fold main-path input")
     err_k3, rel_k3 = max(err_k3, e3), max(rel_k3, r3)
+    slot_recorded = torch.load(os.path.join(SMOKE_DIR, "slots.json.pt"),
+                               weights_only=False)
     kernels = [
         time_reverse_cummin(co, rec_k1, full_k1,
                             launches["head"]["multi_reverse_cummin"],
@@ -3229,7 +3796,9 @@ def kernels_main(path):
         time_unique_fold(co, rec_k3.args,
                          launches["board"]["unique_window_fold"], err_k3,
                          rel_k3, floor_ms),
+        time_slot_nfa(co, slot_recorded, launches["slots"], floor_ms),
     ]
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], err_k4)
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -3311,6 +3880,8 @@ def windows_main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--windows"]:
         sys.exit(windows_main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--slots":
+        sys.exit(slots_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

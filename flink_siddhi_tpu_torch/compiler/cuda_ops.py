@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the engine's hot scan primitives.
 
 The counterpart of ``flink_siddhi_tpu/compiler/pallas_ops.py`` for an
-NVIDIA Hopper card. Three kernels live here, all CUDA C++ under ``csrc/``:
+NVIDIA Hopper card. Four kernels live here, all CUDA C++ under ``csrc/``:
 
 * **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
   the chain matcher's "next match at/after position p" tables: one
@@ -16,6 +16,12 @@ NVIDIA Hopper card. Three kernels live here, all CUDA C++ under ``csrc/``:
   event's count/sum/avg/min/max over the valid slots, as a pipeline of
   data-parallel kernels (a radix sort by slot, device-wide scans and
   interval-stabbing trees over the event axis).
+* **slot NFA scan** (``slot_nfa_scan``, csrc/slot_nfa.cu) — the slot NFA's
+  walk over one micro-batch's events, every partial-match slot advanced at
+  each event (sequences, quantifiers, and/or groups, cross-element filters,
+  indexed captures, the ``every`` forms). It has no Pallas counterpart: the
+  reference runs this loop as ``lax.scan`` (``flink_siddhi_tpu/compiler/
+  nfa.py:3107``).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
@@ -43,6 +49,7 @@ import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -61,6 +68,7 @@ SOURCES = {
     "reverse_cummin": "reverse_cummin.cu",
     "chain_advance": "chain_advance.cu",
     "unique_fold": "unique_fold.cu",
+    "slot_nfa": "slot_nfa.cu",
     "empty": "empty.cu",
 }
 CUMMIN_TILE = 2048  # reverse_cummin.cu's kTile: events per block
@@ -80,12 +88,17 @@ _ARGTYPES = {
         _I, _P, _P,
     ],
     "fst_empty": [_P],
+    "fst_barrier_rounds": [_I, _I, _P],
     "fst_unique_fold": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
         _P, _I, _P, _P,
     ],
     "fst_unique_fold_scratch": [
         ctypes.c_longlong, ctypes.c_longlong, _I, _P, _I, _P,
+    ],
+    "fst_slot_nfa_scan": [
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+        _I, _I, _P,
     ],
 }
 
@@ -228,6 +241,17 @@ def launch_empty() -> None:
         _stream(torch.cuda.current_device())
     )
     _check_launch("empty", err)
+
+
+def launch_barrier_rounds(n: int, threads: int) -> None:
+    """One launch of ``n`` empty block barrier rounds in one block of
+    ``threads`` threads (csrc/empty.cu) on the current stream: the serial
+    floor under the slot NFA scan of ``n`` events, measured by
+    chip_smoke.py. No path calls it."""
+    err = LIBRARIES.get("empty").fst_barrier_rounds(
+        n, threads, _stream(torch.cuda.current_device())
+    )
+    _check_launch("barrier_rounds", err)
 
 
 # --------------------------------------------------------------------------
@@ -711,7 +735,546 @@ class UniqueWindowFold:
 
 unique_window_fold = UniqueWindowFold()
 
-KERNELS = (multi_reverse_cummin, chain_advance, unique_window_fold)
+
+# --------------------------------------------------------------------------
+# K4: slot NFA scan
+# --------------------------------------------------------------------------
+
+# slot_nfa.cu's SlotPlan limits
+SLOT_MAX_SLOTS = 1024
+SLOT_MAX_ELEMS = 32  # and groups; K + indexed captures <= 31 (mbits word)
+SLOT_MAX_PAIRS = 32
+SLOT_MAX_IDX = 16
+SLOT_MAX_CAP_ROWS = 64
+SLOT_MAX_COLS = 64
+SLOT_MAX_CODE = 1024
+SLOT_FIXED_ROWS = 7  # active, step, count, start, last, matched, idxv
+SLOT_STAGE_WORDS = 6  # a fork's staged scalar state
+SLOT_MAX_SHARED = 232448 - 1024  # an H100 block's, less the static arrays
+_SLOT_HEADER = 16
+SLOT_PLAN_WORDS = (_SLOT_HEADER + 11 * SLOT_MAX_ELEMS + 1
+                   + 4 * SLOT_MAX_PAIRS + 3 * SLOT_MAX_IDX
+                   + 2 * SLOT_MAX_CAP_ROWS + SLOT_MAX_CODE)
+
+
+@dataclass(frozen=True)
+class SlotScanPlan:
+    """The static tables of one slot-NFA pattern, as the scan reads them.
+
+    ``groups``: element indices per logical step; ``group_and``: whether
+    each is an 'and' group; ``mins``/``maxs``: each group's count bounds
+    (an unbounded max is 2^30); ``marked``: the groups of mid-chain ``->
+    every`` elements. ``cross[k]``: element k's linked slot program (None
+    without a cross filter), ``cross_ref[k]``/``cross_idx[k]``: the matched
+    bits and indexed-capture validity bits it requires. ``pair_elem`` and
+    ``pair_col``: per capture pair, its element and its event column (a row
+    of ``cols``); ``idx_caps``: per indexed capture, (element, pair, k);
+    ``cap_rows``: per emission capture row, (0 first / 1 last / 2 indexed,
+    pair or indexed capture). The state matrix has SLOT_FIXED_ROWS rows,
+    then first and last per pair, then one row per indexed capture."""
+
+    slots: int
+    n_elements: int
+    sequence: bool
+    every: bool
+    every_grouped: bool
+    within: Optional[int]
+    groups: Tuple[Tuple[int, ...], ...]
+    group_and: Tuple[bool, ...]
+    mins: Tuple[int, ...]
+    maxs: Tuple[int, ...]
+    marked: Tuple[int, ...]
+    cross: Tuple[Optional[Tuple[int, ...]], ...]
+    cross_ref: Tuple[int, ...]
+    cross_idx: Tuple[int, ...]
+    pair_elem: Tuple[int, ...]
+    pair_col: Tuple[int, ...]
+    idx_caps: Tuple[Tuple[int, int, int], ...]
+    cap_rows: Tuple[Tuple[int, int], ...]
+    needs_mbits: bool
+    n_cols: int
+
+    @property
+    def state_rows(self) -> int:
+        return SLOT_FIXED_ROWS + 2 * len(self.pair_elem) + len(self.idx_caps)
+
+    @property
+    def buf_rows(self) -> int:
+        """Emission rows: ts, the mbits row when needed, one per capture."""
+        return 1 + int(self.needs_mbits) + len(self.cap_rows)
+
+    @property
+    def shared_bytes(self) -> int:
+        """slot_nfa.cu's dynamic shared memory: the plan, each slot's
+        capture words and, with forks, its staged state."""
+        words = 2 * len(self.pair_elem) + len(self.idx_caps)
+        return 4 * (SLOT_PLAN_WORDS + self.slots * (
+            words + (SLOT_STAGE_WORDS if self.marked else 0)))
+
+    @property
+    def min_prefix(self) -> Tuple[int, ...]:
+        out = [0]
+        for m in self.mins:
+            out.append(out[-1] + m)
+        return tuple(out)
+
+    def check(self) -> None:
+        """Raise ValueError for a plan slot_nfa.cu cannot hold."""
+        G, K = len(self.groups), self.n_elements
+        code = sum(len(c) for c in self.cross if c is not None)
+        if not (1 <= self.slots <= SLOT_MAX_SLOTS and 1 <= G <= K
+                and K + len(self.idx_caps) <= 31
+                and len(self.pair_elem) <= SLOT_MAX_PAIRS
+                and len(self.idx_caps) <= SLOT_MAX_IDX
+                and len(self.cap_rows) <= SLOT_MAX_CAP_ROWS
+                and self.n_cols <= SLOT_MAX_COLS
+                and code <= SLOT_MAX_CODE
+                and self.shared_bytes <= SLOT_MAX_SHARED):
+            raise ValueError(
+                f"slot_nfa_scan: plan outside slot_nfa.cu's limits ({self.slots}"
+                f" slots, {K} elements, {len(self.pair_elem)} capture pairs, "
+                f"{len(self.idx_caps)} indexed, {self.n_cols} columns, "
+                f"{code} program words)"
+            )
+
+    def words(self) -> list:
+        """slot_nfa.cu's SlotPlan struct as int32 words."""
+        self.check()
+        G, P, I = len(self.groups), len(self.pair_elem), len(self.idx_caps)
+        g_of = {e: g for g, mem in enumerate(self.groups) for e in mem}
+
+        def pad(vals, n, fill=0):
+            return list(vals) + [fill] * (n - len(vals))
+
+        offs, lens, code = [], [], []
+        for c in self.cross:
+            offs.append(len(code) if c is not None else -1)
+            lens.append(len(c) if c is not None else 0)
+            code.extend(c or ())
+        marked = 0
+        for g in self.marked:
+            marked |= 1 << g
+        header = [
+            self.n_elements, G, self.slots, int(self.sequence),
+            int(self.every), int(self.every_grouped),
+            int(self.within is not None), int(self.within or 0),
+            marked, P, I, self.n_cols, self.buf_rows, int(self.needs_mbits),
+            int(any(c is not None for c in self.cross)), len(code),
+        ]
+        assert len(header) == _SLOT_HEADER
+        gmask = [sum(1 << e for e in mem) for mem in self.groups]
+        words = (
+            header
+            + pad(gmask, SLOT_MAX_ELEMS)
+            + pad([int(a) for a in self.group_and], SLOT_MAX_ELEMS)
+            + pad(self.mins, SLOT_MAX_ELEMS)
+            + pad(self.maxs, SLOT_MAX_ELEMS)
+            + pad(self.min_prefix, SLOT_MAX_ELEMS + 1)
+            + pad(offs, SLOT_MAX_ELEMS, -1)
+            + pad(lens, SLOT_MAX_ELEMS)
+            + pad(self.cross_ref, SLOT_MAX_ELEMS)
+            + pad(self.cross_idx, SLOT_MAX_ELEMS)
+            + pad(self.pair_elem, SLOT_MAX_PAIRS)
+            + pad(self.pair_col, SLOT_MAX_PAIRS)
+            + pad([g_of[e] for e in self.pair_elem], SLOT_MAX_PAIRS)
+            + pad([int(len(self.groups[g_of[e]]) == 1)
+                   for e in self.pair_elem], SLOT_MAX_PAIRS)
+            + pad([sum(1 << p for p, pe in enumerate(self.pair_elem)
+                       if pe == e) for e in range(self.n_elements)],
+                  SLOT_MAX_ELEMS)
+            + pad([sum(1 << j for j, (ie, _, _) in enumerate(self.idx_caps)
+                       if ie == e) for e in range(self.n_elements)],
+                  SLOT_MAX_ELEMS)
+            + pad([e for e, _, _ in self.idx_caps], SLOT_MAX_IDX)
+            + pad([p for _, p, _ in self.idx_caps], SLOT_MAX_IDX)
+            + pad([k for _, _, k in self.idx_caps], SLOT_MAX_IDX)
+            + pad([k for k, _ in self.cap_rows], SLOT_MAX_CAP_ROWS)
+            + pad([i for _, i in self.cap_rows], SLOT_MAX_CAP_ROWS)
+            + pad(code, SLOT_MAX_CODE)
+        )
+        assert len(words) == SLOT_PLAN_WORDS
+        return words
+
+
+def _wrap32(x: int) -> int:
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def slot_nfa_scan_plain(plan: SlotScanPlan, state, scal, ts, valid, mword,
+                        eword, cols, idx=None, cnt=None):
+    """The plain version: the reference's scan body (flink_siddhi_tpu/
+    compiler/nfa.py:3107-3495) in torch, vectorized over the slots, one
+    Python iteration an event. Event i of the loop is ``idx[i]`` for the
+    first ``cnt[0]`` entries of ``idx`` (relevance compaction), else i for
+    every one of the E events. Returns ``(state, scal, buf)``: the new
+    ``[W, S]`` state matrix, int32 ``[4]`` (done, started, overflow, n) and
+    the ``[R, E + S]`` emission buffer (ts, mbits, capture rows), zero past
+    its n rows.
+
+    It skips work whose outcome is known on the host (an event while no
+    slot is active, a transition no slot takes, a mask that is the same
+    for every slot) and computes the rest as the reference does."""
+    from .slot_program import eval_program
+
+    S = plan.slots
+    K, G = plan.n_elements, len(plan.groups)
+    P = len(plan.pair_elem)
+    E = int(ts.shape[0])
+    M = E + S
+    dev = ts.device
+    i32 = torch.int32
+    st = state.clone()
+    act = st[0] != 0
+    step, count, start, last = st[1], st[2], st[3], st[4]
+    matched, idxv = st[5], st[6]
+    caps = st[SLOT_FIXED_ROWS:]
+    done, started, overflow = (bool(scal[0]), bool(scal[1]), int(scal[2]))
+    buf = torch.zeros((plan.buf_rows, M), dtype=i32, device=dev)
+    n0 = 0
+    mins = torch.tensor(plan.mins, dtype=i32, device=dev)
+    maxs = torch.tensor(plan.maxs, dtype=i32, device=dev)
+    pre = torch.tensor(plan.min_prefix, dtype=i32, device=dev)
+    pre_l = plan.min_prefix
+    gmask = [sum(1 << e for e in mem) for mem in plan.groups]
+    is_marked = torch.tensor([g in plan.marked for g in range(G + 1)],
+                             device=dev)
+    g_of = {e: g for g, mem in enumerate(plan.groups) for e in mem}
+    has_cross = any(c is not None for c in plan.cross)
+    per_slot_need = has_cross or any(plan.group_and)
+    zero = torch.zeros(S, dtype=torch.bool, device=dev)
+    n_ev = E if idx is None else min(int(cnt.reshape(-1)[0]), E)
+    order = range(n_ev) if idx is None else idx[:n_ev].tolist()
+    ts_l, v_l = ts.tolist(), valid.tolist()
+    m_l, me_l = mword.tolist(), eword.tolist()
+    cols_l = cols.tolist()
+    for e in order:
+        ts_e, v_e, m, me = ts_l[e], v_l[e], m_l[e], me_l[e]
+        n_emit = fork_overflow = 0
+        if not bool(act.any()):
+            act2 = act  # no slot to advance: only arming below
+        else:
+            # cross-element filters, per slot: ``clear`` has bit k where
+            # element k's filter fails for the slot
+            eff, effe = m, me
+            if has_cross:
+                clear = 0
+                for k, code in enumerate(plan.cross):
+                    if code is None:
+                        continue
+                    ok = eval_program(code, lambda c: cols[c, e],
+                                      lambda w: caps[w]) != 0
+                    ref, iref = plan.cross_ref[k], plan.cross_idx[k]
+                    if ref:
+                        ok = ok & ((matched & ref) == ref)
+                    if iref:
+                        ok = ok & ((idxv & iref) == iref)
+                    clear = clear | torch.where(ok, 0, 1 << k)
+                eff, effe = m & ~clear, me & ~clear
+            if plan.within is not None and v_e:
+                act = act & ((ts_e - start) <= plan.within)
+            stepc = step.clamp(0, G - 1).long()
+            # the per-group masks: entry (advance INTO the group: any
+            # member, entry-guarded) and need (absorb AT the group; 'and'
+            # groups need a still-unmatched member)
+            if per_slot_need:
+                need = torch.stack([
+                    ((eff & ~matched & gm) != 0) if a
+                    else ((eff & gm) != 0) | zero
+                    for gm, a in zip(gmask, plan.group_and)
+                ])
+                m_at = need.gather(0, stepc[None])[0]
+            else:
+                need_l = [(eff & gm) != 0 for gm in gmask]
+                m_at = (torch.tensor(need_l, device=dev)[stepc]
+                        if any(need_l) else None)
+            absorb = zero
+            if v_e and m_at is not None:
+                absorb = act & m_at & (count < maxs[stepc])
+            can_leave = count >= mins[stepc]
+            from_pre = pre[(step + 1).clamp(0, G).long()]
+            # advance target: smallest t > step whose entry mask matches,
+            # with only optional groups skipped in between
+            adv_t = None
+            if v_e:
+                base = act & can_leave
+                for t in range(G - 1, 0, -1):
+                    ent = (effe & gmask[t]) != 0
+                    if ent is False:
+                        continue
+                    reach = base & (step < t) & (from_pre == pre_l[t])
+                    if ent is not True:
+                        reach = reach & ent
+                    adv_t = torch.where(reach, t, G if adv_t is None
+                                        else adv_t)
+            advance = zero if adv_t is None else ~absorb & (adv_t < G)
+            cnt_a = count + absorb.to(i32)
+            at_last_full = (act & (step == G - 1)
+                            & (cnt_a >= plan.maxs[G - 1])
+                            & (cnt_a >= plan.mins[G - 1]))
+            moved_to_last = zero
+            if adv_t is not None and plan.maxs[G - 1] == 1:
+                moved_to_last = advance & (adv_t == G - 1)
+            emit_on_break = killed = zero
+            if plan.sequence and v_e:
+                miss = act & ~absorb & ~advance
+                completable = act & can_leave & (from_pre == pre_l[G])
+                emit_on_break = miss & completable
+                killed = miss
+            emit = emit_on_break | at_last_full | moved_to_last
+            new_step, new_count, new_last = step, count, last
+            new_matched, new_idxv, new_caps = matched, idxv, caps
+            fire: Dict[int, torch.Tensor] = {}
+            if bool((absorb | advance).any()):
+                new_count = torch.where(absorb, count + 1, count)
+                if adv_t is not None:
+                    new_step = torch.where(advance, adv_t, step)
+                    new_count = torch.where(advance, 1, new_count)
+                new_last = torch.where(absorb | advance, ts_e, last)
+                # the member that fired: lowest matching (for 'and' groups
+                # lowest still unmatched) member of the group absorbed at
+                # or advanced into
+                fg = step if adv_t is None else torch.where(
+                    advance, adv_t, step)
+                fg = torch.where(absorb | advance, fg, -1)
+                for g, (mem, a) in enumerate(zip(plan.groups,
+                                                 plan.group_and)):
+                    at_g = taken = None
+                    for el in mem:
+                        cand = (eff >> el) & 1
+                        if a:
+                            cand = cand & ~((matched >> el) & 1)
+                        if isinstance(cand, int):
+                            if not cand:
+                                continue
+                            if at_g is None:
+                                at_g = fg == g
+                            f = at_g
+                        else:
+                            if at_g is None:
+                                at_g = fg == g
+                            f = at_g & (cand != 0)
+                        if taken is not None:
+                            f = f & ~taken
+                        taken = f if taken is None else taken | f
+                        fire[el] = f
+                for el, f in fire.items():
+                    new_matched = torch.where(f, new_matched | (1 << el),
+                                              new_matched)
+                new_caps = caps.clone()
+                for p, (el, c) in enumerate(zip(plan.pair_elem,
+                                                plan.pair_col)):
+                    took = fire.get(el)
+                    if took is None:
+                        continue
+                    g = g_of[el]
+                    if len(plan.groups[g]) == 1:
+                        moved = count == 0
+                        if adv_t is not None:
+                            moved = moved | (advance & (adv_t == g))
+                        first_take = took & moved
+                    else:
+                        first_take = took
+                    src = cols_l[c][e]
+                    new_caps[2 * p] = torch.where(first_take, src,
+                                                  caps[2 * p])
+                    new_caps[2 * p + 1] = torch.where(took, src,
+                                                      caps[2 * p + 1])
+                for j, (el, p, k) in enumerate(plan.idx_caps):
+                    if el not in fire:
+                        continue
+                    wr = fire[el] & (new_count == k + 1)
+                    new_caps[2 * P + j] = torch.where(
+                        wr, cols_l[plan.pair_col[p]][e], caps[2 * P + j])
+                    new_idxv = torch.where(wr, new_idxv | (1 << j),
+                                           new_idxv)
+            # emissions, in slot order, past n0; beyond M dropped
+            n_emit = int(emit.sum())
+            if n_emit:
+                pos = n0 + torch.cumsum(emit, 0) - 1
+                keep = emit & (pos < M)
+                dst = pos[keep]
+                buf[0, dst] = torch.where(emit_on_break, last, ts_e)[keep]
+                r = 1
+                if plan.needs_mbits:
+                    buf[1, dst] = (new_matched | (new_idxv << K))[keep]
+                    r = 2
+                for kind, j in plan.cap_rows:
+                    w = 2 * P + j if kind == 2 else 2 * j + kind
+                    buf[r, dst] = new_caps[w][keep]
+                    r += 1
+            n0 = min(n0 + n_emit, M)
+            # mid-chain `-> every` forks: the advanced instance moves to
+            # the lowest free slots in rank order (or emits, when it
+            # completes the pattern); the prefix slot reverts and stays
+            # armed
+            if plan.marked and adv_t is not None:
+                fork = advance & is_marked[adv_t.long()]
+                act2 = act & ~((emit & ~fork) | killed)
+                sources = torch.nonzero(fork & ~moved_to_last).flatten()
+                new_start = start
+                if sources.numel():
+                    free = torch.nonzero(~act2).flatten()
+                    placed = min(int(sources.numel()), int(free.numel()))
+                    fork_overflow = int(sources.numel()) - placed
+                    src, dst = sources[:placed], free[:placed]
+                    act2 = act2.clone()
+                    act2[dst] = True
+                    new_idxv = new_idxv.clone()
+                    new_start = start.clone()
+                    for t in (new_step, new_count, new_last, new_matched,
+                              new_idxv, new_start):
+                        t[dst] = t[src]
+                    new_caps[:, dst] = new_caps[:, src]
+                new_step = torch.where(fork, step, new_step)
+                new_count = torch.where(fork, count, new_count)
+                new_last = torch.where(fork, last, new_last)
+                new_matched = torch.where(fork, matched, new_matched)
+                new_caps[:2 * P] = torch.where(fork, caps[:2 * P],
+                                               new_caps[:2 * P])
+                start = new_start
+            else:
+                act2 = act & ~(emit | killed)
+            step, count, last = new_step, new_count, new_last
+            matched, idxv, caps = new_matched, new_idxv, new_caps
+        # arm a new slot on a first-group match; without every, "started"
+        # holds only while the armed partial is alive (or the single
+        # match is done)
+        any_act2 = bool(act2.any())
+        started_now = started and (any_act2 or done)
+        m0 = m & gmask[0]
+        if plan.every:
+            any_done = done
+            want = bool(m0) and v_e
+            if plan.every_grouped:
+                want = want and not any_act2 and n_emit == 0
+        else:
+            any_done = done or n_emit > 0
+            want = bool(m0) and v_e and not started_now and not any_done
+        has_free = False
+        if want:
+            free_slots = torch.nonzero(~act2).flatten()
+            has_free = bool(free_slots.numel())
+        if has_free:
+            fs = int(free_slots[0])
+            arm_e = (m0 & -m0).bit_length() - 1  # lowest matching member
+            act2 = act2.clone()
+            step, count, start, last = (step.clone(), count.clone(),
+                                        start.clone(), last.clone())
+            matched, idxv, caps = matched.clone(), idxv.clone(), caps.clone()
+            act2[fs] = True
+            step[fs], count[fs] = 0, 1
+            start[fs] = last[fs] = ts_e
+            matched[fs] = 1 << arm_e
+            idxv[fs] = 0
+            for p, (el, c) in enumerate(zip(plan.pair_elem, plan.pair_col)):
+                if el == arm_e:
+                    caps[2 * p, fs] = caps[2 * p + 1, fs] = cols_l[c][e]
+        overflow = _wrap32(overflow + int(want and not has_free)
+                           + fork_overflow)
+        started = started_now or want
+        done = any_done
+        act = act2
+    out = torch.cat([
+        torch.stack([act.to(i32), step, count, start, last, matched, idxv]),
+        caps,
+    ]).to(i32)
+    scal_out = torch.tensor([int(done), int(started), overflow, n0],
+                            dtype=i32, device=dev)
+    return out, scal_out, buf
+
+
+class SlotNFAScan:
+    """One micro-batch of the slot NFA: every event advances the ``S``
+    partial-match slots of ``plan`` (a ``SlotScanPlan``).
+
+    ``state`` int32 ``[plan.state_rows, S]`` and ``scal`` int32 ``[3]``
+    (done, started, overflow) are the carried state; ``ts``, ``mword``
+    (bit k: element k's mask), ``eword`` (the entry-guarded masks) int32 and
+    ``valid`` bool ``[E]``; ``cols`` int32 ``[plan.n_cols, E]`` (the event
+    columns the captures and cross programs read, float32 by bit pattern).
+    With ``idx`` (int32 ``[E]``) and ``cnt`` (int32 ``[1]``, on the device)
+    the scan visits events ``idx[0 .. cnt)`` (the caller's relevance
+    compaction; the count stays on the device), else every event. Returns
+    ``(state, scal [4] = done, started, overflow, n, buf [R, E + S])``.
+
+    On CUDA one call is one kernel launch: one block of S threads, thread s
+    owning slot s."""
+
+    name = "slot_nfa_scan"
+    source = "flink_siddhi_tpu_torch/csrc/slot_nfa.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._plans: Dict[Tuple, Tuple] = {}
+
+    def plan_buffers(self, plan: SlotScanPlan, dev) -> Tuple:
+        """The plan's struct as a host array and on ``dev``, made at its
+        first use there (never inside a CUDA graph capture: the first step
+        of a plan runs eagerly, warm-up included)."""
+        key = (plan, str(dev))
+        bufs = self._plans.get(key)
+        if bufs is None:
+            if _capturing(dev):
+                raise RuntimeError(
+                    "slot_nfa_scan: the plan is not on the capturing device "
+                    "yet; run the captured work once first"
+                )
+            words = plan.words()
+            bufs = ((ctypes.c_int * len(words))(*words),
+                    torch.tensor(words, dtype=torch.int32).to(dev))
+            self._plans[key] = bufs
+        return bufs
+
+    def __call__(self, plan: SlotScanPlan, state, scal, ts, valid, mword,
+                 eword, cols, idx=None, cnt=None):
+        if _device_kind(ts, "ts") == "cpu":
+            return slot_nfa_scan_plain(plan, state, scal, ts, valid, mword,
+                                       eword, cols, idx, cnt)
+        dev = ts.device
+        E = int(ts.shape[0])
+        S = plan.slots
+        plan_host, plan_dev = self.plan_buffers(plan, dev)
+        _check(state, "state", torch.int32, dev, (plan.state_rows, S))
+        _check(scal, "scal", torch.int32, dev, (3,))
+        _check(ts, "ts", torch.int32, dev, (E,))
+        _check(valid, "valid", torch.bool, dev, (E,))
+        _check(mword, "mword", torch.int32, dev, (E,))
+        _check(eword, "eword", torch.int32, dev, (E,))
+        _check(cols, "cols", torch.int32, dev, (plan.n_cols, E))
+        if (idx is None) != (cnt is None):
+            raise ValueError("slot_nfa_scan: idx and cnt go together")
+        if idx is not None:
+            _check(idx, "idx", torch.int32, dev, (E,))
+            _check(cnt, "cnt", torch.int32, dev, (1,))
+        if E >= 2 ** 30:
+            raise ValueError(f"slot_nfa_scan: {E} events")
+        lib = LIBRARIES.get("slot_nfa")
+        state_o = torch.empty_like(state)
+        scal_o = torch.empty(4, dtype=torch.int32, device=dev)
+        buf = torch.zeros((plan.buf_rows, E + S), dtype=torch.int32,
+                          device=dev)
+        null = 0
+        with _on_device(dev):
+            err = lib.fst_slot_nfa_scan(
+                ctypes.addressof(plan_host), len(plan_host),
+                plan_dev.data_ptr(), state.data_ptr(),
+                scal.data_ptr(), ts.data_ptr(), valid.data_ptr(),
+                mword.data_ptr(), eword.data_ptr(),
+                cols.data_ptr() if plan.n_cols else null,
+                idx.data_ptr() if idx is not None else null,
+                cnt.data_ptr() if cnt is not None else null, E, S,
+                state_o.data_ptr(), scal_o.data_ptr(), buf.data_ptr(),
+                plan.state_rows, plan.buf_rows, _stream(dev.index),
+            )
+        _check_launch(self.name, err)
+        self.launches += 1
+        return state_o, scal_o, buf
+
+
+slot_nfa_scan = SlotNFAScan()
+
+KERNELS = (multi_reverse_cummin, chain_advance, unique_window_fold,
+           slot_nfa_scan)
 
 
 def reset_launches() -> None:

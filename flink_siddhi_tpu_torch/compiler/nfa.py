@@ -1,28 +1,39 @@
-"""Chain pattern queries compiled to a dense, batch-parallel matcher.
+"""Pattern / sequence queries compiled to dense, batch-parallel matchers.
 
-The torch port of the chain matcher of ``flink_siddhi_tpu/compiler/nfa.py``
-— ``[every] e0 -> e1 -> ... -> eK`` where every element is a plain (1,1)
-occurrence, with mid-chain absence guards (``A -> not B -> C``), terminal
-timed absence (``A -> not B for t``) and ``within``. Per-element predicates
-are evaluated once for the whole batch; "next match at/after position p"
-becomes a reverse cummin per element (the ``multi_reverse_cummin`` kernel);
-every partial match then advances through the whole chain in one pass (the
-``chain_advance`` kernel) — no per-event loop at all. Partial matches that
-outlive the batch carry in a fixed pool of slots. Chain queries of one
-shape stack on a leading query axis (``StackedChainArtifact``, built by
-``group_chain_artifacts``): one core, and one launch of each kernel, per
-step for all of them.
+The torch port of ``flink_siddhi_tpu/compiler/nfa.py``. A pattern compiles
+to one of its two formulations, both consuming the whole micro-batch tape:
 
-Patterns that need the general slot NFA (sequences, quantifiers, and/or
-groups, cross-element filters, grouped ``every``, mid-chain ``-> every``)
-are not in this port yet: ``compile_pattern_query`` raises for them.
+* **Chain matcher** (fast path) — ``[every] e0 -> e1 -> ... -> eK`` where
+  every element is a plain (1,1) occurrence, with mid-chain absence guards
+  (``A -> not B -> C``), terminal timed absence (``A -> not B for t``) and
+  ``within``. Per-element predicates are evaluated once for the whole
+  batch; "next match at/after position p" becomes a reverse cummin per
+  element (the ``multi_reverse_cummin`` kernel); every partial match then
+  advances through the whole chain in one pass (the ``chain_advance``
+  kernel) — no per-event loop at all. Partial matches that outlive the
+  batch carry in a fixed pool of slots. Chain queries of one shape stack
+  on a leading query axis (``StackedChainArtifact``, built by
+  ``group_chain_artifacts``): one core, and one launch of each kernel, per
+  step for all of them.
+
+* **Slot NFA** (general path, ``SlotNFAArtifact``) — sequences (``,``
+  strict continuity), counting quantifiers (``+ ? * <m:n>``), ``and``/``or``
+  groups, cross-element filters (``s2 = S[price > s1.price]``), indexed
+  captures (``s[k].x``, ``s[last].x``), grouped ``every (A -> B)`` and
+  mid-chain ``-> every``. The reference walks the tape with ``lax.scan``
+  over a fixed array of partial-match slots; here that scan is one CUDA
+  kernel (``slot_nfa_scan``, csrc/slot_nfa.cu), one thread per slot, and
+  its plain version loops over the events in torch. Cross-element filters
+  run inside it as postfix programs (``slot_program.py``).
 
 Match semantics (pinned against the reference's integration tests,
 SiddhiCEPITCase.java:333-382): ``every`` starts an independent partial at
 each occurrence of the first element; without ``every`` the pattern matches
 exactly once (earliest start, earliest completion), then disarms; ``->``
-ignores unrelated events between steps; ``within t`` bounds the first-to-
-last span.
+ignores unrelated events between steps; ``,`` kills a partial at an event
+that neither extends it nor starts its next element (after emitting if all
+remaining elements are optional); quantifiers are greedy; ``within t``
+bounds the first-to-last span.
 
 JAX semantics that torch does not share, and what this module does:
 out-of-range gathers never happen (indices are clamped as the reference
@@ -33,6 +44,7 @@ int64 results of ``sum``/``cumsum``/``arange`` are cast back to int32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -43,7 +55,8 @@ from ..device import torch_dtype
 from ..query import ast
 from ..query.lexer import SiddhiQLError
 from ..schema.types import AttributeType
-from .cuda_ops import chain_advance, multi_reverse_cummin
+from . import cuda_ops
+from .cuda_ops import chain_advance, multi_reverse_cummin, slot_nfa_scan
 from .expr import (
     ColumnEnv,
     ExprResolver,
@@ -54,18 +67,12 @@ from .expr import (
     compile_host_pred,
 )
 from .output import OutputField, OutputSchema, emission_order
+from .slot_program import SlotProgram, compile_slot_program
 
 DEFAULT_PARTIAL_POOL = 1024  # chain matcher: carried partial matches
+DEFAULT_SLOTS = 64  # slot NFA: concurrent partial matches
 _BIG = 2 ** 30
 _I32 = torch.int32
-
-
-def _slot_nfa_only(what: str) -> SiddhiQLError:
-    return SiddhiQLError(
-        f"{what} needs the slot NFA, which the torch port does not have "
-        "yet (ROADMAP.md Queue 1 item 8); the JAX package "
-        "flink_siddhi_tpu runs it"
-    )
 
 
 # --------------------------------------------------------------------------
@@ -147,7 +154,12 @@ class CaptureResolver:
                         f"{alias}[{attr.index}] can never exist: the "
                         f"element absorbs at most {mx} event(s)"
                     )
-                raise _slot_nfa_only(f"indexed capture {alias}[{attr.index}]")
+                if attr.index >= 16:
+                    raise SiddhiQLError(
+                        f"indexed capture {alias}[{attr.index}] exceeds "
+                        "the supported index range (< 16)"
+                    )
+                which = f"idx{attr.index}"
             else:
                 raise SiddhiQLError(
                     f"indexed capture {alias}[{attr.index!r}] is not "
@@ -167,6 +179,79 @@ class CaptureResolver:
         return ResolvedAttr(_cap_key(alias, which, attr.name), atype, table)
 
 
+class _ElemFilterResolver:
+    """Resolves an element filter that references earlier elements'
+    captures: own attributes -> tape columns (recorded in ``evt_keys``),
+    foreign aliases -> capture env keys via the shared CaptureResolver
+    (which records the capture for slot state)."""
+
+    def __init__(
+        self,
+        own_idx: int,
+        own_el,
+        own_schema,
+        elements,
+        cap_resolver: CaptureResolver,
+        evt_keys: List[str],
+        g_of: Optional[Dict[int, int]] = None,
+    ) -> None:
+        self._own_idx = own_idx
+        self._own = own_el
+        self._schema = own_schema
+        self._elements = elements
+        self._cap = cap_resolver
+        self._evt_keys = evt_keys
+        self._aliases = {el.alias for el in elements}
+        self._g_of = g_of or {}
+
+    def resolve(self, attr: ast.Attr) -> ResolvedAttr:
+        q = attr.qualifier
+        own = q is None or q == self._own.alias or (
+            q == self._own.stream_id and q not in self._aliases
+        )
+        if own:
+            if attr.index is not None:
+                raise SiddhiQLError(
+                    "indexed references are not valid on the element's "
+                    "own attributes in a filter"
+                )
+            if attr.name not in self._schema:
+                raise SiddhiQLError(
+                    f"stream {self._own.stream_id!r} has no attribute "
+                    f"{attr.name!r}"
+                )
+            key = f"{self._own.stream_id}.{attr.name}"
+            if key not in self._evt_keys:
+                self._evt_keys.append(key)
+            return ResolvedAttr(
+                key,
+                self._schema.field_type(attr.name),
+                self._schema.string_tables.get(attr.name),
+            )
+        info = self._cap._by_alias.get(q)
+        if info is None:
+            raise SiddhiQLError(f"unknown stream reference {q!r}")
+        ref_idx = info[0]
+        if ref_idx >= self._own_idx:
+            raise SiddhiQLError(
+                f"element filter of {self._own.alias!r} can only "
+                f"reference EARLIER elements; {q!r} has not matched yet"
+            )
+        if self._g_of and self._g_of.get(ref_idx) == self._g_of.get(
+            self._own_idx
+        ):
+            raise SiddhiQLError(
+                f"element filter of {self._own.alias!r} cannot reference "
+                f"{q!r}: members of one 'and'/'or' group match in any "
+                "order"
+            )
+        if self._elements[ref_idx].negated:
+            raise SiddhiQLError(
+                f"cannot reference absent ('not') element {q!r} in a filter"
+            )
+        return self._cap.resolve(attr)
+
+
 # --------------------------------------------------------------------------
 # Compile-time spec
 # --------------------------------------------------------------------------
@@ -174,11 +259,16 @@ class CaptureResolver:
 @dataclass
 class _PatternSpec:
     elements: Tuple[ast.PatternElement, ...]
+    kind: str  # 'pattern' | 'sequence'
     every: bool
+    # grouped `every (A -> B)`: restart only after a complete occurrence
+    # (single instance in flight), vs ungrouped every's start-at-every-A
+    every_grouped: bool
     within: Optional[int]
     pred_fns: List[Optional[Callable[[ColumnEnv], torch.Tensor]]]
     stream_code_of: List[int]
-    # captures: (elem idx, col name, 'first'|'last'); col key per element
+    # captures: (elem idx, col name, 'first'|'last'|'idx<k>'); col key per
+    # element
     captures: List[Tuple[int, str, str]]
     cap_dtype: Dict[Tuple[int, str], np.dtype]
     cap_src_key: Dict[Tuple[int, str], str]  # tape column key
@@ -188,7 +278,41 @@ class _PatternSpec:
     # per select item: the capture pair it reads when it is a plain
     # reference (else None), and every capture pair it reads
     proj_srcs: Tuple[Optional[Tuple[int, str]], ...] = ()
+    # cross-element filters (`s2 = S[price > s1.price]`): per element, the
+    # full filter compiled to a slot program over BOTH the current event's
+    # columns and earlier elements' captures; such elements have pred_fns
+    # None (the event-only mask is just the stream gate) and are evaluated
+    # per slot inside the scan (the reference keeps compile_expr closures
+    # here, nfa.py:276)
+    cross_fns: Tuple[Optional[SlotProgram], ...] = ()
+    evt_keys: Tuple[str, ...] = ()  # tape columns the cross filters read
+    # per element: indices of earlier elements its cross filter reads; a
+    # referenced element that was SKIPPED (optional, min 0) makes the
+    # filter false (Siddhi: comparisons with null never hold)
+    cross_refs: Tuple[Tuple[int, ...], ...] = ()
+    # logical steps: each group is a tuple of element indices advancing
+    # as ONE step ('and': all must arrive, any order; 'or': any one)
+    groups: Tuple[Tuple[int, ...], ...] = ()
+    group_ops: Tuple[Optional[str], ...] = ()  # None for singletons
+    # per projection: 'or'-group member elements it references — exactly
+    # one member of an or-group fires, so projections over the OTHER
+    # member decode as None (Siddhi: null), not a zeroed capture
+    proj_or_deps: Tuple[Tuple[int, ...], ...] = ()
     proj_ref_pairs: Tuple[Tuple[Tuple[int, str], ...], ...] = ()
+    # per projection: (elem, col, k) for each s[k>=1] indexed reference —
+    # decodes None when the element absorbed fewer than k+1 events
+    proj_idx_refs: Tuple[Tuple[Tuple[int, str, int], ...], ...] = ()
+    # per element: (elem, col, k) indexed refs its cross filter reads — the
+    # filter can only hold once the referenced element absorbed > k events
+    cross_idx_refs: Tuple[Tuple[Tuple[int, str, int], ...], ...] = ()
+    # mid-chain `-> every X`: elements where every matching event FORKS a
+    # continuing instance while the matched prefix stays armed
+    every_marks: Tuple[bool, ...] = ()
+    # first-occurrence-only guards (sequence absence before a quantified
+    # element, `A, not B, C+`): per element, the event-only predicate the
+    # slot engine additionally requires on the ADVANCE-INTO-element path.
+    # None = unguarded.
+    entry_guard_fns: Tuple[Optional[Callable], ...] = ()
     # per element: the numpy twin of its filter (expr.compile_host_pred),
     # None when it has none or the filter is not host-evaluable
     host_pred_fns: Tuple = ()
@@ -197,6 +321,98 @@ class _PatternSpec:
     def n_elements(self) -> int:
         return len(self.elements)
 
+    @property
+    def has_cross(self) -> bool:
+        return any(f is not None for f in self.cross_fns)
+
+
+def _rewrite_sequence_absence(inp: ast.PatternInput) -> ast.PatternInput:
+    """``A, not B, C`` in a STRICT sequence: any intervening event already
+    breaks contiguity, so the absence collapses into the next element's
+    filter — the event after A must be C and must NOT match B (when B and C
+    read the same stream; a different-stream B could never be that event,
+    so the guard is vacuous). A QUANTIFIED next element (``C+``,
+    ``C<m:n>`` with ``m >= 1``) takes the guard as its ``entry_filter``
+    instead: it constrains only the first occurrence, on the slot engine's
+    advance-into-element path."""
+    els = list(inp.elements)
+    if els and els[0].negated:
+        raise SiddhiQLError(
+            "a sequence cannot start with an absent ('not') element"
+        )
+    if els and els[-1].negated:
+        raise SiddhiQLError(
+            "a sequence cannot end with an absent ('not') element"
+        )
+    out: List[ast.PatternElement] = []
+    pending: List[ast.PatternElement] = []  # consecutive absent run
+    for el in els:
+        if el.negated:
+            pending.append(el)
+            continue
+        if pending:
+            # every guard of the run applies to THIS (the next non-absent)
+            # element's event
+            quantified = (el.min_count, el.max_count) != (1, 1)
+            if quantified and el.min_count < 1:
+                raise SiddhiQLError(
+                    "absence before an OPTIONAL sequence element "
+                    "(min count 0) is not supported: when the element "
+                    "is skipped the guard has no event to constrain; "
+                    "make the first occurrence mandatory "
+                    "(`C*` -> `C+`, `C<0:n>` -> `C<1:n>`) or split it "
+                    "out: `A, not B, c1=C, crest=C*`"
+                )
+            nxt = el
+            for ab in pending:
+                if ab.stream_id != nxt.stream_id:
+                    continue  # vacuous under strict contiguity
+                if ab.filter is None:
+                    raise SiddhiQLError(
+                        f"'not {ab.stream_id}' without a filter before "
+                        "a same-stream element can never match; filter "
+                        "the absent element"
+                    )
+                guard = ast.Unary(
+                    "not", _rebind_alias(ab.filter, ab.alias, nxt.alias)
+                )
+                if quantified:
+                    nxt = dataclasses.replace(
+                        nxt,
+                        entry_filter=(
+                            guard
+                            if nxt.entry_filter is None
+                            else ast.Binary("and", nxt.entry_filter, guard)
+                        ),
+                    )
+                else:
+                    nxt = dataclasses.replace(
+                        nxt,
+                        filter=(
+                            guard
+                            if nxt.filter is None
+                            else ast.Binary("and", nxt.filter, guard)
+                        ),
+                    )
+            pending = []
+            out.append(nxt)
+        else:
+            out.append(el)
+    return dataclasses.replace(inp, elements=tuple(out))
+
+
+def _rebind_alias(expr: ast.Expr, old: str, new: str) -> ast.Expr:
+    """Rewrite attribute qualifiers ``old.x`` -> ``new.x`` (the absence
+    guard evaluates against the NEXT element's event)."""
+    return ast.map_expr(
+        expr,
+        lambda a: (
+            dataclasses.replace(a, qualifier=new)
+            if a.qualifier == old
+            else a
+        ),
+    )
+
 
 def _build_spec(
     q: ast.Query,
@@ -204,23 +420,51 @@ def _build_spec(
     stream_codes: Dict[str, int],
     extensions,
 ) -> _PatternSpec:
-    """The chain subset of the reference's ``_build_spec``: the same
-    validation, and a ``SiddhiQLError`` for every pattern form that needs
-    the slot NFA."""
+    """The reference's ``_build_spec``: the same validation, groups,
+    cross-element filters (compiled to slot programs), entry guards and
+    projection analyses."""
     inp = q.input
     if not isinstance(inp, ast.PatternInput):
         raise SiddhiQLError("not a pattern query")
-    if inp.kind == "sequence":
-        raise _slot_nfa_only("a sequence (',')")
+    if inp.kind == "sequence" and any(el.negated for el in inp.elements):
+        inp = _rewrite_sequence_absence(inp)
     aliases = [el.alias for el in inp.elements]
     if len(set(aliases)) != len(aliases):
         raise SiddhiQLError("pattern aliases must be unique")
+
+    # logical steps: group_link chains consecutive elements into one step
+    groups: List[Tuple[int, ...]] = []
+    group_ops: List[Optional[str]] = []
     for i, el in enumerate(inp.elements):
-        if el.group_link is not None:
-            raise _slot_nfa_only("an 'and'/'or' group")
+        if el.group_link is None:
+            groups.append((i,))
+            group_ops.append(None)
+        else:
+            groups[-1] = groups[-1] + (i,)
+            group_ops[-1] = el.group_link
+    g_of = {e: g for g, mem in enumerate(groups) for e in mem}
+    for g, mem in enumerate(groups):
+        if len(mem) == 1:
+            continue
+        for e in mem:
+            el = inp.elements[e]
+            if el.negated:
+                raise SiddhiQLError(
+                    "absent ('not') elements inside 'and'/'or' groups "
+                    "are not supported yet"
+                )
+            if (el.min_count, el.max_count) != (1, 1):
+                raise SiddhiQLError(
+                    "elements of an 'and'/'or' group cannot be quantified"
+                )
+    for i, el in enumerate(inp.elements):
         if el.negated:
             # mid-chain absence: `A -> not B -> C`; terminal TIMED
             # absence: `A -> not B for 5 sec`
+            if inp.kind == "sequence":
+                raise SiddhiQLError(
+                    "absence ('not') is not supported in sequences"
+                )
             if i == 0:
                 raise SiddhiQLError(
                     "a pattern cannot start with an absent ('not') element"
@@ -246,22 +490,41 @@ def _build_spec(
             )
         if el.stream_id not in stream_codes:
             raise SiddhiQLError(f"stream {el.stream_id!r} is not defined")
-    for el in inp.elements:
-        if (el.min_count, el.max_count) != (1, 1):
-            raise _slot_nfa_only("a quantified pattern element")
-        if getattr(el, "every_marked", False):
-            raise _slot_nfa_only("a mid-chain '-> every'")
-    if inp.every_grouped:
-        raise _slot_nfa_only("a grouped 'every (A -> B)'")
 
     cap_resolver = CaptureResolver(inp.elements, schemas)
+
+    # per-element predicates. A filter referencing ONLY the current event
+    # compiles to a whole-batch mask; one referencing earlier elements'
+    # captures (`s2 = S[price > s1.price]`) compiles to a slot program
+    # evaluated per partial-match slot inside the scan.
     alias_idx = {el.alias: i for i, el in enumerate(inp.elements)}
     pred_fns: List[Optional[Callable]] = []
+    cross_fns: List[Optional[SlotProgram]] = []
+    cross_refs: List[Tuple[int, ...]] = []
+    cross_idx_refs: List[Tuple[Tuple[int, str, int], ...]] = []
+    evt_keys: List[str] = []
+
+    def _indexed_refs(expr) -> Tuple[Tuple[int, str, int], ...]:
+        """(elem, col, k) for every s[k>=1] reference in the expression."""
+        out = set()
+        for a in ast.iter_attrs(expr):
+            if (
+                a.qualifier is not None
+                and a.qualifier in alias_idx
+                and isinstance(a.index, int)
+                and a.index >= 1
+            ):
+                out.add((alias_idx[a.qualifier], a.name, a.index))
+        return tuple(sorted(out))
+
     host_pred_fns: List = []
     for i, el in enumerate(inp.elements):
         schema = schemas[el.stream_id]
         if el.filter is None:
             pred_fns.append(None)
+            cross_fns.append(None)
+            cross_refs.append(())
+            cross_idx_refs.append(())
             host_pred_fns.append(None)
             continue
         foreign = {
@@ -271,33 +534,100 @@ def _build_spec(
             and a.qualifier in alias_idx
             and a.qualifier != el.alias
         }
-        if foreign:
-            if el.negated:
-                raise SiddhiQLError(
-                    "cross-element references are not supported in absent "
-                    "('not') element filters"
-                )
-            raise _slot_nfa_only("a cross-element filter")
-        scopes = {
-            el.alias: (el.stream_id, schema),
-            el.stream_id: (el.stream_id, schema),
-        }
-        resolver = ExprResolver(scopes, default_scope=el.alias)
+        if not foreign:
+            scopes = {
+                el.alias: (el.stream_id, schema),
+                el.stream_id: (el.stream_id, schema),
+            }
+            resolver = ExprResolver(scopes, default_scope=el.alias)
+            ce = compile_expr(el.filter, resolver, extensions)
+            if ce.atype != AttributeType.BOOL:
+                raise SiddhiQLError("pattern element filter must be boolean")
+            pred_fns.append(ce.fn)
+            cross_fns.append(None)
+            cross_refs.append(())
+            cross_idx_refs.append(())
+            host_pred_fns.append(compile_host_pred(el.filter, resolver))
+            continue
+        if el.negated:
+            raise SiddhiQLError(
+                "cross-element references are not supported in absent "
+                "('not') element filters"
+            )
+        resolver = _ElemFilterResolver(
+            i, el, schema, inp.elements, cap_resolver, evt_keys, g_of
+        )
+        # compile_expr first: its validation and messages, as the reference
         ce = compile_expr(el.filter, resolver, extensions)
         if ce.atype != AttributeType.BOOL:
             raise SiddhiQLError("pattern element filter must be boolean")
-        pred_fns.append(ce.fn)
-        host_pred_fns.append(compile_host_pred(el.filter, resolver))
+        pred_fns.append(None)  # event-only mask = stream gate
+        cross_fns.append(compile_slot_program(
+            el.filter, resolver, lambda key: key in evt_keys
+        ))
+        cross_refs.append(tuple(sorted(alias_idx[a] for a in foreign)))
+        cross_idx_refs.append(_indexed_refs(el.filter))
+        host_pred_fns.append(None)
+
+    # first-occurrence entry guards (sequence absence rewrite): compiled
+    # against the guarded element's OWN event only, into a whole-batch mask
+    entry_guard_fns: List[Optional[Callable]] = []
+    for i, el in enumerate(inp.elements):
+        ef = el.entry_filter
+        if ef is None:
+            entry_guard_fns.append(None)
+            continue
+        if any(
+            a.qualifier is not None
+            and a.qualifier in alias_idx
+            and a.qualifier != el.alias
+            for a in ast.iter_attrs(ef)
+        ):
+            raise SiddhiQLError(
+                "cross-element references are not supported in absent "
+                "('not') element filters"
+            )
+        schema = schemas[el.stream_id]
+        resolver = ExprResolver(
+            {
+                el.alias: (el.stream_id, schema),
+                el.stream_id: (el.stream_id, schema),
+            },
+            default_scope=el.alias,
+        )
+        ce = compile_expr(ef, resolver, extensions)
+        if ce.atype != AttributeType.BOOL:
+            raise SiddhiQLError("sequence absence guard must be boolean")
+        entry_guard_fns.append(ce.fn)
     if q.selector.is_star:
         raise SiddhiQLError(
             "select * is not valid for pattern queries; name the captures"
         )
+    or_members = {
+        e
+        for g, mem in enumerate(groups)
+        if len(mem) > 1 and group_ops[g] == "or"
+        for e in mem
+    }
+
+    def _or_deps(expr) -> Tuple[int, ...]:
+        deps = set()
+        for a in ast.iter_attrs(expr):
+            elem = cap_resolver.element_of(a)
+            if elem is not None and elem in or_members:
+                deps.add(elem)
+        return tuple(sorted(deps))
+
     proj_fns, out_fields, proj_srcs, proj_ref_pairs = [], [], [], []
+    proj_or_deps: List[Tuple[int, ...]] = []
+    proj_idx_refs: List[Tuple[Tuple[int, str, int], ...]] = []
     for item in q.selector.items:
         if ast.contains_aggregate(item.expr):
             raise SiddhiQLError(
                 "aggregations over pattern matches are not supported"
             )
+        proj_or_deps.append(_or_deps(item.expr))
+        proj_idx_refs.append(_indexed_refs(item.expr))
         ce = compile_expr(item.expr, cap_resolver, extensions)
         proj_fns.append(ce.fn)
         out_fields.append(OutputField(item.output_name(), ce.atype, ce.table))
@@ -327,6 +657,14 @@ def _build_spec(
         raise SiddhiQLError("having is not valid on pattern queries")
 
     captures = list(cap_resolver.referenced)
+    for elem, _col, which in captures:
+        if which.startswith("idx") and any(
+            elem in mem and len(mem) > 1 for mem in groups
+        ):
+            raise SiddhiQLError(
+                f"indexed capture on {inp.elements[elem].alias!r} is not "
+                "supported: 'and'/'or' group members match exactly once"
+            )
     cap_dtype, cap_src = {}, {}
     for elem, col, _which in captures:
         el = inp.elements[elem]
@@ -336,7 +674,9 @@ def _build_spec(
 
     return _PatternSpec(
         elements=inp.elements,
+        kind=inp.kind,
         every=inp.every_,
+        every_grouped=inp.every_grouped,
         within=inp.within,
         pred_fns=pred_fns,
         stream_code_of=[stream_codes[el.stream_id] for el in inp.elements],
@@ -347,7 +687,19 @@ def _build_spec(
         out_fields=tuple(out_fields),
         output_stream=q.output_stream,
         proj_srcs=tuple(proj_srcs),
+        cross_fns=tuple(cross_fns),
+        evt_keys=tuple(evt_keys),
+        cross_refs=tuple(cross_refs),
+        groups=tuple(groups),
+        group_ops=tuple(group_ops),
+        proj_or_deps=tuple(proj_or_deps),
         proj_ref_pairs=tuple(proj_ref_pairs),
+        proj_idx_refs=tuple(proj_idx_refs),
+        cross_idx_refs=tuple(cross_idx_refs),
+        every_marks=tuple(
+            getattr(el, "every_marked", False) for el in inp.elements
+        ),
+        entry_guard_fns=tuple(entry_guard_fns),
         host_pred_fns=tuple(host_pred_fns),
     )
 
@@ -363,6 +715,17 @@ def _cap_pairs(spec: _PatternSpec) -> List[Tuple[int, str]]:
 def _skey(prefix: str, elem: int, col: str) -> str:
     """Flat string key for state dicts (one key type across the state)."""
     return f"{prefix}:{elem}:{col}"
+
+
+def _idx_caps(spec: _PatternSpec) -> List[Tuple[int, str, int]]:
+    """Distinct (elem, col, k) indexed captures (``s[k>=1].col``), in a
+    deterministic order that doubles as the validity-bit layout on the
+    mbits wire row (bit K + position)."""
+    seen = set()
+    for elem, col, which in spec.captures:
+        if which.startswith("idx"):
+            seen.add((elem, col, int(which[3:])))
+    return sorted(seen)
 
 
 _COMPACT_MIN_E = 4096  # below this, compaction overhead beats the gain
@@ -1757,6 +2120,363 @@ def group_chain_artifacts(
     return out
 
 
+def _is_chain(spec: _PatternSpec) -> bool:
+    return (
+        spec.kind == "pattern"
+        and all(
+            el.min_count == 1 and el.max_count == 1
+            for el in spec.elements
+        )
+        and all(len(g) == 1 for g in spec.groups)
+        and not any(spec.every_marks)  # forking needs the slot engine
+    )
+
+
+# --------------------------------------------------------------------------
+# Engine 2: slot NFA (sequences, quantifiers, groups, cross filters)
+# --------------------------------------------------------------------------
+
+_SLOT_FIXED = ("active", "step", "count", "start", "last", "matched")
+
+
+@dataclass
+class SlotNFAArtifact:
+    """General pattern/sequence matcher: a scan over the tape advancing a
+    fixed pool of partial-match slots with greedy quantifier semantics
+    (the reference's ``lax.scan``), as one ``slot_nfa_scan`` call a step.
+
+    The step builds the scan's event words with torch ops: each element's
+    mask as bit k of one int32 word an event (and the entry-guarded masks
+    likewise), the columns the captures and cross programs read, and for a
+    ``->`` pattern over a tape of at least 4,096 events the stable index of
+    its relevant events with their count, at full width and on the device.
+    The reference instead compacts into ``max(2048, E // 8)`` events and
+    falls back to the full scan with a ``lax.cond`` when more are relevant;
+    an irrelevant event changes no slot of a ``->`` pattern, so both give
+    the same rows, and here no branch and no host read is needed. After the
+    scan, the projections run over the ``E + S`` emission buffer."""
+
+    name: str
+    spec: _PatternSpec
+    output_schema: OutputSchema
+    output_mode: str = "buffered"
+    slots: int = DEFAULT_SLOTS
+
+    def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
+        """Widest per-cycle emission block (drain-cadence contract)."""
+        return tape_capacity + self.slots
+
+    @property
+    def _needs_mbits(self) -> bool:
+        """Projections over 'or'-group members need the emitting slot's
+        matched bitmask on the wire so the unfired member decodes None;
+        indexed captures ride their validity bits on the same word."""
+        return any(self.spec.proj_or_deps) or bool(self._idx)
+
+    @property
+    def acc_rows(self) -> int:
+        return (
+            1
+            + len(self.output_schema.fields)
+            + (1 if self._needs_mbits else 0)
+        )
+
+    def decode_packed(self, n: int, block: np.ndarray):
+        """Accumulator block -> rows; with or-groups, the trailing mbits
+        row nullifies projections whose fired-member bit is absent."""
+        schema = self.output_schema
+        C = len(schema.fields)
+        if not self._needs_mbits:
+            return [(schema, schema.decode_packed_block(n, block))]
+        # the mbits row must follow decode's row permutation
+        mbits = np.asarray(block[1 + C, :n])[emission_order(block[0], n)]
+        rows = schema.decode_packed_block(n, block[: 1 + C])
+        deps = self.spec.proj_or_deps or ((),) * C
+        idx_refs = self.spec.proj_idx_refs or ((),) * C
+        K = self.spec.n_elements
+        bit_of = {cap: K + j for j, cap in enumerate(self._idx)}
+        out = []
+        for i, (ts_v, row) in enumerate(rows):
+            mb = int(mbits[i])
+            row = tuple(
+                None
+                if (d and any(not (mb >> e) & 1 for e in d))
+                or any(not (mb >> bit_of[r]) & 1 for r in ir)
+                else v
+                for v, d, ir in zip(row, deps, idx_refs)
+            )
+            out.append((ts_v, row))
+        return [(schema, out)]
+
+    def __post_init__(self):
+        spec = self.spec
+        self._idx = _idx_caps(spec)
+        if spec.n_elements + len(self._idx) > 31:
+            raise SiddhiQLError(
+                "too many pattern elements + indexed captures for the "
+                "match-bitmask wire word (limit 31)"
+            )
+        # mid-chain `-> every X` fork points, by GROUP index
+        marks = spec.every_marks or (False,) * spec.n_elements
+        if any(marks) and spec.kind != "pattern":
+            raise SiddhiQLError(
+                "mid-chain 'every' is only valid in '->' patterns"
+            )
+        if marks and marks[0]:
+            raise SiddhiQLError(
+                "use leading 'every' for the first pattern element"
+            )
+        last = spec.elements[-1]
+        if spec.kind == "pattern" and last.max_count < 0:
+            raise SiddhiQLError(
+                "a '->' pattern cannot end with an unbounded quantifier "
+                "(the match would never complete); bound it with <m:n>"
+            )
+        # step machinery is indexed by logical GROUP: singletons keep
+        # their element's quantifier; 'and' groups need all n members (any
+        # order, distinct members enforced per absorb); 'or' groups need
+        # any one
+        self._groups = spec.groups or tuple(
+            (i,) for i in range(spec.n_elements)
+        )
+        self._gops = spec.group_ops or (None,) * len(self._groups)
+        self._marked_groups = tuple(
+            g
+            for g, mem in enumerate(self._groups)
+            if len(mem) == 1 and marks[mem[0]]
+        )
+        mins, maxs = [], []
+        for mem, op in zip(self._groups, self._gops):
+            if len(mem) == 1:
+                el = spec.elements[mem[0]]
+                mins.append(el.min_count)
+                maxs.append(el.max_count if el.max_count >= 0 else 2**30)
+            elif op == "and":
+                mins.append(len(mem))
+                maxs.append(len(mem))
+            else:  # 'or'
+                mins.append(1)
+                maxs.append(1)
+        self._mins = np.array(mins, dtype=np.int32)
+        self._maxs = np.array(maxs, dtype=np.int32)
+        # prefix[i] = sum of min counts of groups [0, i); lets "all groups
+        # in (a, b] optional" be a subtraction
+        self._min_prefix = np.concatenate(
+            [[0], np.cumsum(self._mins)]
+        ).astype(np.int32)
+        if self.slots > cuda_ops.SLOT_MAX_SLOTS:
+            raise SiddhiQLError(
+                f"pattern_slots {self.slots} exceeds the slot NFA kernel's "
+                f"one block of {cuda_ops.SLOT_MAX_SLOTS} threads (ROADMAP.md "
+                "Queue 2, K4: a multi-block scan)"
+            )
+        self.scan_plan = self._scan_plan()
+
+    def _scan_plan(self) -> "cuda_ops.SlotScanPlan":
+        """The scan's tables: the event columns (capture sources, then the
+        cross programs' own columns), the capture words and the linked
+        cross programs."""
+        spec = self.spec
+        pairs = _cap_pairs(spec)
+        cols: List[str] = []
+        for key in [spec.cap_src_key[p] for p in pairs] + list(
+            spec.evt_keys
+        ):
+            if key not in cols:
+                cols.append(key)
+        self._cols = tuple(cols)
+        P = len(pairs)
+
+        def word_of(elem: int, col: str, which: str) -> int:
+            if which.startswith("idx"):
+                return 2 * P + self._idx.index((elem, col, int(which[3:])))
+            return 2 * pairs.index((elem, col)) + (which == "last")
+
+        cap_word = {
+            _cap_key(spec.elements[e].alias, w, c): word_of(e, c, w)
+            for e, c, w in spec.captures
+        }
+        cross = tuple(
+            None if prog is None
+            else prog.link(cols.index, cap_word.__getitem__)
+            for prog in (spec.cross_fns or (None,) * spec.n_elements)
+        )
+        plan = cuda_ops.SlotScanPlan(
+            slots=self.slots,
+            n_elements=spec.n_elements,
+            sequence=spec.kind == "sequence",
+            every=spec.every,
+            every_grouped=spec.every_grouped,
+            within=spec.within,
+            groups=tuple(self._groups),
+            group_and=tuple(
+                len(mem) > 1 and op == "and"
+                for mem, op in zip(self._groups, self._gops)
+            ),
+            mins=tuple(int(v) for v in self._mins),
+            maxs=tuple(int(v) for v in self._maxs),
+            marked=self._marked_groups,
+            cross=cross,
+            cross_ref=tuple(
+                sum(1 << r for r in refs)
+                for refs in (spec.cross_refs or ((),) * spec.n_elements)
+            ),
+            cross_idx=tuple(
+                sum(1 << self._idx.index(r) for r in refs)
+                for refs in (
+                    spec.cross_idx_refs or ((),) * spec.n_elements
+                )
+            ),
+            pair_elem=tuple(e for e, _ in pairs),
+            pair_col=tuple(cols.index(spec.cap_src_key[p]) for p in pairs),
+            idx_caps=tuple(
+                (e, pairs.index((e, c)), k) for e, c, k in self._idx
+            ),
+            cap_rows=tuple(
+                (2, self._idx.index((e, c, int(w[3:]))))
+                if w.startswith("idx")
+                else (int(w == "last"), pairs.index((e, c)))
+                for e, c, w in spec.captures
+            ),
+            needs_mbits=self._needs_mbits,
+            n_cols=len(cols),
+        )
+        try:
+            plan.check()
+        except ValueError as err:
+            raise SiddhiQLError(
+                f"{err}: the torch port's slot NFA kernel holds no more "
+                "(ROADMAP.md Queue 2, K4)"
+            ) from None
+        return plan
+
+    def init_state(self, device) -> Dict:
+        S = self.slots
+        z = functools.partial(torch.zeros, S, device=device)
+        state = {
+            "enabled": torch.tensor(True, device=device),
+            "active": z(dtype=torch.bool),
+            "step": z(dtype=_I32),
+            "count": z(dtype=_I32),
+            "start": z(dtype=_I32),
+            "last": z(dtype=_I32),
+            # bitmask of elements the slot has actually matched (vs
+            # skipped optionals) — gates cross-element filter references
+            "matched": z(dtype=_I32),
+            "done": torch.tensor(False, device=device),
+            "started": torch.tensor(False, device=device),
+            "overflow": torch.tensor(0, dtype=_I32, device=device),
+        }
+        for pair in _cap_pairs(self.spec):
+            dt = torch_dtype(self.spec.cap_dtype[pair])
+            state[_skey("first", *pair)] = z(dtype=dt)
+            state[_skey("last", *pair)] = z(dtype=dt)
+        for elem, col, k in self._idx:
+            dt = torch_dtype(self.spec.cap_dtype[(elem, col)])
+            state[_skey(f"idx{k}", elem, col)] = z(dtype=dt)
+            state[_skey(f"idxv{k}", elem, col)] = z(dtype=torch.bool)
+        return state
+
+    def _pack_state(self, state: Dict):
+        """The state as the scan's int32 ``[W, S]`` matrix and ``[3]``
+        scalars (done, started, overflow)."""
+        idxv = torch.zeros_like(state["step"])
+        for j, (elem, col, k) in enumerate(self._idx):
+            idxv = idxv | (
+                state[_skey(f"idxv{k}", elem, col)].to(_I32) << j
+            )
+        rows = [as_i32(state[k]) for k in _SLOT_FIXED] + [idxv]
+        for pair in _cap_pairs(self.spec):
+            rows.append(as_i32(state[_skey("first", *pair)]))
+            rows.append(as_i32(state[_skey("last", *pair)]))
+        for elem, col, k in self._idx:
+            rows.append(as_i32(state[_skey(f"idx{k}", elem, col)]))
+        scal = torch.stack([state["done"].to(_I32),
+                            state["started"].to(_I32), state["overflow"]])
+        return torch.stack(rows), scal
+
+    def _unpack_state(self, enabled, mat, scal) -> Dict:
+        new = {"enabled": enabled, "active": mat[0] != 0}
+        for r, k in enumerate(_SLOT_FIXED[1:], 1):
+            new[k] = mat[r]
+        new.update(done=scal[0] != 0, started=scal[1] != 0,
+                   overflow=scal[2])
+        r = len(_SLOT_FIXED) + 1
+        for pair in _cap_pairs(self.spec):
+            dt = torch_dtype(self.spec.cap_dtype[pair])
+            new[_skey("first", *pair)] = _from_i32(mat[r], dt)
+            new[_skey("last", *pair)] = _from_i32(mat[r + 1], dt)
+            r += 2
+        for j, (elem, col, k) in enumerate(self._idx):
+            dt = torch_dtype(self.spec.cap_dtype[(elem, col)])
+            new[_skey(f"idx{k}", elem, col)] = _from_i32(mat[r + j], dt)
+            new[_skey(f"idxv{k}", elem, col)] = ((mat[6] >> j) & 1) != 0
+        return new
+
+    def step(self, state: Dict, tape) -> Tuple[Dict, Tuple]:
+        spec = self.spec
+        E = tape.capacity
+        M = E + self.slots  # match buffer capacity
+        dev = tape.ts.device
+        preds = _element_preds(spec, tape, state["enabled"])
+        mword = torch.zeros(E, dtype=_I32, device=dev)
+        for k, p in enumerate(preds):
+            mword = mword | (p.to(_I32) << k)
+        # first-occurrence entry guards (sequence absence before a
+        # quantified element): a stricter per-event mask consulted only on
+        # the advance-into-element path — absorbs keep the plain mask
+        egf = spec.entry_guard_fns or ()
+        eword = mword
+        if any(f is not None for f in egf):
+            env: ColumnEnv = dict(tape.cols)
+            eword = torch.zeros(E, dtype=_I32, device=dev)
+            for k, (p, f) in enumerate(zip(preds, egf)):
+                if f is not None:
+                    p = p & f(env)
+                eword = eword | (p.to(_I32) << k)
+        cols = (
+            torch.stack([as_i32(tape.cols[key]) for key in self._cols])
+            if self._cols
+            else torch.zeros((0, E), dtype=_I32, device=dev)
+        )
+        idx = cnt = None
+        if spec.kind == "pattern" and E >= _COMPACT_MIN_E:
+            # '->' ignores events matching no element: the scan visits the
+            # relevant ones only, in order (a stable index built at full
+            # width; the count stays on the device)
+            rel = (mword != 0) & tape.valid
+            cpos = torch.cumsum(rel, 0, dtype=_I32) - 1
+            dest = torch.where(rel, cpos, E).long()
+            idx = torch.zeros(E + 1, dtype=_I32, device=dev)
+            idx.scatter_(0, dest, torch.arange(E, dtype=_I32, device=dev))
+            idx = idx[:E]
+            cnt = rel.sum(dtype=_I32).reshape(1)
+        mat, scal = self._pack_state(state)
+        mat, scal, buf = slot_nfa_scan(
+            self.scan_plan, mat, scal, tape.ts, tape.valid, mword, eword,
+            cols, idx, cnt,
+        )
+        new_state = self._unpack_state(state["enabled"], mat, scal)
+        r0 = 2 if self._needs_mbits else 1
+        emit_env = _emit_env(
+            spec,
+            {
+                (elem, col, which): _from_i32(
+                    buf[r0 + r], torch_dtype(spec.cap_dtype[(elem, col)])
+                )
+                for r, (elem, col, which) in enumerate(spec.captures)
+            },
+        )
+        out_cols = tuple(
+            as_column(p(emit_env), M, buf[0]) for p in spec.proj_fns
+        )
+        if self._needs_mbits:
+            # trailing wire row: the emitting slot's matched bitmask
+            # (decode_packed strips it and nullifies unfired or-members)
+            out_cols = out_cols + (buf[1],)
+        return new_state, (scal[3], buf[0], out_cols)
+
+
 # --------------------------------------------------------------------------
 # Entry point
 # --------------------------------------------------------------------------
@@ -1768,14 +2488,36 @@ def compile_pattern_query(
     stream_codes: Dict[str, int],
     extensions,
     config=None,
-) -> ChainPatternArtifact:
+):
     from .config import DEFAULT_CONFIG
 
     config = config or DEFAULT_CONFIG
     spec = _build_spec(q, schemas, stream_codes, extensions)
-    return ChainPatternArtifact(
-        name=name,
-        spec=spec,
-        output_schema=OutputSchema(spec.output_stream, spec.out_fields),
-        pool=config.pattern_pool,
+    out_schema = OutputSchema(spec.output_stream, spec.out_fields)
+    # grouped every needs per-partial arming state -> slot engine
+    if _is_chain(spec) and not spec.has_cross and not spec.every_grouped:
+        return ChainPatternArtifact(
+            name=name, spec=spec, output_schema=out_schema,
+            pool=config.pattern_pool,
+        )
+    if any(el.negated for el in spec.elements):
+        raise SiddhiQLError(
+            "absence ('not') elements require a plain chain pattern "
+            "(no quantifiers or cross-element references)"
+        )
+    if (
+        len(spec.groups) == 1
+        and len(spec.groups[0]) > 1
+        and spec.group_ops[0] == "or"
+    ):
+        raise SiddhiQLError(
+            "a pattern that is ONE 'or' group matches single events; "
+            "use a filter union (two queries into one output) instead"
+        )
+    # cross-element filters and and/or groups route to the slot engine
+    # even for plain chains: per-slot evaluation needs each partial's
+    # captures / member-matched bits
+    return SlotNFAArtifact(
+        name=name, spec=spec, output_schema=out_schema,
+        slots=config.pattern_slots,
     )

@@ -10,9 +10,9 @@ eagerly by torch on the plan's device.
 
 This port covers plain stream queries (filter / projection, also over a
 window), chain patterns (structurally identical ones stacked on a query
-axis), sliding, batch and cumulative aggregation with
-group-by and having, ``#window.unique``, ``#window.delay`` and
-``insert expired events``. Joins, tables, partitions, query chaining,
+axis), the slot NFA's patterns and sequences, sliding, batch and
+cumulative aggregation with group-by and having, ``#window.unique``,
+``#window.delay`` and ``insert expired events``. Joins, tables, partitions, query chaining,
 ``insert all events`` and output rate limiting raise ``SiddhiQLError``
 naming the later slice of the port (ROADMAP.md Queue 1); the JAX package
 ``flink_siddhi_tpu`` runs them.

@@ -43,8 +43,9 @@ Per plan runtime, ``SegmentGraphs`` holds:
 A segment with a tape whose chain matcher must read its relevant count (a
 host-known bound above the compact width) cannot be captured; it runs its
 steps eagerly on the card, and the caller counts it (``Job.
-eager_segments``). Nothing else runs eagerly on the card, and a capture
-that fails raises.
+eager_segments``). Nothing else runs eagerly on the card (the slot NFA's
+scan reads its relevant count on the card, so its steps always capture),
+and a capture that fails raises.
 
 Kernel wrappers and artifacts count on the host (launches, compaction
 reads). A capture records what each counted and restores the counts (a

@@ -11,7 +11,7 @@
   counter stays 0) and raises for any other device.
 * Every zoo plan outside the slices ported so far raises
   ``SiddhiQLError`` naming the torch port, instead of running something
-  else.
+  else, and every form still refused names its ROADMAP item.
 """
 
 import dataclasses
@@ -166,9 +166,23 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors_only():
     )
     assert rows.tolist() == [[1.0, 1.0, 1.0], [2.0, 2.0, 5.0]]
     assert valid.tolist() == [False, True] and bufs.tolist() == [[0.0, 5.0]]
+    # K4's plain version: one event arms a slot of a sequence
+    art = fpt.compile_plan(
+        "from every a = S[id == 1], b = S[id == 2] "
+        "select a.timestamp as t insert into o",
+        {"S": fpt.StreamSchema([("id", "int"), ("timestamp", "long")])},
+    ).artifacts[0]
+    mat, scal = art._pack_state(art.init_state("cpu"))
+    one = torch.ones(1, dtype=torch.int32)
+    mat, scal, buf = cuda_ops.slot_nfa_scan(
+        art.scan_plan, mat, scal, one * 5, torch.ones(1, dtype=torch.bool),
+        one, one, torch.stack([one * 5]),
+    )
+    assert mat[0].tolist()[:2] == [1, 0] and scal.tolist() == [0, 1, 0, 0]
+    assert tuple(buf.shape) == (2, 1 + art.slots)
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
-        "unique_window_fold": 0,
+        "unique_window_fold": 0, "slot_nfa_scan": 0,
     }
     # a tensor on any other device is refused, never quietly computed
     meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
@@ -189,10 +203,20 @@ def test_cpu_run_builds_no_kernel():
         "select a.timestamp as t1, b.timestamp as t2 insert into o"
     ).returns("o")
     assert rows[0] == (1001, 1002) and len(rows) == 10
+    # and a slot-NFA pattern through K4's plain version
+    rows = fpt.SiddhiCEP.define(
+        "S", [(i % 3, 1000 + i) for i in range(30)], ["id", "timestamp"],
+        device="cpu",
+    ).cql(
+        "from every a = S[id == 1]<2:3> -> b = S[id == 2] "
+        "select a[0].timestamp as t1, a[1].timestamp as t2, "
+        "b.timestamp as t3 insert into o"
+    ).returns("o")
+    assert rows[0] == (1001, 1004, 1005) and len(rows) == 9
     assert cuda_ops.LIBRARIES._libs == {}
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
-        "unique_window_fold": 0,
+        "unique_window_fold": 0, "slot_nfa_scan": 0,
     }
 
 
@@ -201,7 +225,8 @@ _OUTSIDE_SLICE = sorted(
                      "chain_pattern_within", "pattern_absence",
                      "multiquery_stack6", "unique_window", "sort_window",
                      "length_window_agg", "time_window_groupby",
-                     "timebatch_window", "expired_events"}
+                     "timebatch_window", "expired_events",
+                     "slot_nfa_quantified", "sequence"}
 )
 
 
@@ -215,6 +240,26 @@ def test_zoo_plans_outside_the_slice_raise(name):
     }
     with pytest.raises(SiddhiQLError, match="torch port"):
         fpt.compile_plan(PLAN_ZOO[name], schemas)
+
+
+@pytest.mark.parametrize("cql,item", [
+    ("from S#window.length(4) as a join S#window.length(4) as b "
+     "on a.id == b.id select a.id insert into o", 8),
+    ("define table T (id int); from S select id insert into T", 8),
+    ("from S[id > 1] select id insert into mid; "
+     "from mid select id insert into o", 8),
+    ("partition with (id of S) begin from S select id insert into o; end",
+     8),
+    ("from S#window.length(2) select id insert all events into o", 8),
+    ("from S select id output last every 2 events insert into o", 9),
+], ids=["join", "table", "chained_query", "partition", "all_events",
+        "output_rate"])
+def test_refused_forms_name_their_roadmap_item(cql, item):
+    # every form still outside the port names the ROADMAP item it waits
+    # for (the slot NFA's were item 8 too, until it came)
+    schema = fpt.StreamSchema([("id", "int"), ("timestamp", "long")])
+    with pytest.raises(SiddhiQLError, match=f"item {item}\\b"):
+        fpt.compile_plan(cql, {"S": schema})
 
 
 def test_engine_config_wire_options_leave_raw_group_column_off():

@@ -75,6 +75,8 @@ CASES = {
     "window_groupby": ("from inputStream#window.length(1000) select id, "
                        "sum(price) as total, count() as cnt group by id "
                        "insert into matches", "inputStream", "matches"),
+    # the slot NFA: a segment holding its scan replays as one graph too
+    "slot_nfa_quantified": (PLAN_ZOO["slot_nfa_quantified"], "S", "out"),
 }
 # ids the stream draws from, per case (bench.py: 1,000 for window_groupby)
 _N_IDS = {"window_groupby": 1000}
@@ -159,6 +161,10 @@ def test_streaming_rows_match_jax(case):
         # no filter to push; the id travels as its group code only
         assert plan.spec.device_columns == ("inputStream.price",)
         return
+    if case == "slot_nfa_quantified":
+        # the reference gives a slot plan no wire options: the default tape
+        assert plan.spec.device_columns is None and not plan.spec.host_preds
+        return
     assert plan.spec.host_preds  # every other case pushes its filters
     # the wire carries predicate bits and the columns the device needs
     assert plan.spec.device_columns is not None
@@ -173,9 +179,13 @@ def test_resident_rows_match_jax_and_streaming(case):
     streamed, _ = _streaming("torch", cql, data, stream, out, **BENCH)
     _assert_same_rows(case, got, ref, data)
     assert got == streamed
-    # a window's rows decode through its encoder, not a lazy ring
+    # a window's rows decode through its encoder, a slot plan's from its
+    # buffer, neither through a lazy ring
     lazy = tjob._plans["p"].lazy
-    assert lazy.missed == 0 if case != "window_groupby" else lazy is None
+    if case in ("window_groupby", "slot_nfa_quantified"):
+        assert lazy is None
+    else:
+        assert lazy.missed == 0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
