@@ -12,7 +12,8 @@ fault:
 
 1. device: the card's name and power limit;
 2. build: the four kernels (and empty ones: the launch floor, and the
-   slot scan's serial floor of empty barrier rounds) compiled from the
+   slot scan's serial floors: empty barrier rounds and empty warp
+   rounds) compiled from the
    checkout's sources, one nvcc per source, all started together
    (seconds);
 3. kernels: each kernel held to its plain PyTorch version at the shapes the
@@ -41,8 +42,12 @@ fault:
    for eight spec shapes (quantified, sequence, cross filter, or group,
    grouped every, mid-chain every fork, and group, a full pool) at S = 64
    and E = 4,096, some at S = 1,024 and E = 16,384, with a device count of
-   0 and of E, NaN and +-inf prices, and captured into a CUDA graph
-   replayed on new inputs;
+   0 and of E, NaN and +-inf prices (the first port's 17 cases); every
+   launch shape (one warp at S = 1, 31, 32, 33; more warps at S = 65,
+   1,024, 2,048, 4,096), a full pool that forks at S = 64 and 96,
+   programs with `/` and `%`, a 22-deep stack and 1,708 words, and the
+   cross query hoisted; and captured into a CUDA graph replayed on new
+   inputs;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -82,7 +87,8 @@ fault:
    completions (reported), the fetch thread's waits equal the drains'
    fetches, and the drains whose counts reached the host while a later
    segment still ran are counted (drains overlapped: the headline must
-   have some);
+   have some); last, a fused Job captures after a dropped resident Job,
+   with one collection inside its first capture (``capture_after_drop``);
 5c. drain pipeline: the five bench configs in sink mode as bench.py's
    _mode_sink runs them (fused, build_job's settings, prewarm_drains(), a
    columnar counting sink on every output stream; a warm run over two
@@ -142,7 +148,11 @@ fault:
    rows and checksum), then counts-only: three reruns (events/s median
    and best), graphs captured, no eager segment, K4 once a step on the
    host and in a traced rerun, one staged segment under sync debug mode
-   "error". K4's inputs of each query's third step go to phase 9;
+   "error"; K4 on the third step's input: ms a step, events visited, us
+   a visited event, its old serial floor (empty barrier rounds at the
+   pool's width) and its warp floor (empty `__syncwarp` + `__shfl_sync`
+   rounds in one warp). K4's inputs of each query's third step go to
+   phase 9;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -156,8 +166,8 @@ fault:
    stacked shapes (held exactly to their plain versions first), and their
    kernel launches per call counted in a profiler trace (each must be 1);
    K4 on each slot query's recorded step (CUDA events around back-to-back
-   calls), per visited event, beside its byte bound and its serial floor
-   (the visited events' count of empty barrier rounds), held exactly to
+   calls), per visited event, beside its byte bound and its serial and
+   warp floors (the visited events' count of empty rounds), held exactly to
    its plain version on the quantified query's step (the plain version
    timed on the CPU, where it runs);
 10. where the quote board's time goes, over its first 4 micro-batches:
@@ -206,6 +216,22 @@ allocated and reserved) and streaming counts-only with
 fused_segment_len FUSED_K (a checkout before the fused mode steps one tape
 at a time): events/s median and best of AB_RERUNS runs. Give the
 checkouts as A B B A here too.
+
+    python3 chip_smoke.py --ab-slots DIR [DIR ...]
+
+runs phase 8b's four slot queries with the package of each checkout, each
+in a process of its own: resident counts-only (stage seconds, AB_RERUNS
+reruns: events/s median and best, the count emitted) and K4 on the third
+step's recorded input (ms a step, events visited, us a visited event).
+Give the checkouts as A B B A.
+
+    python3 chip_smoke.py --capture-after-drop DIR [DIR ...]
+
+runs ``capture_after_drop`` (a fused Job capturing after a dropped
+resident Job, with one collection inside its first capture; also the end
+of phase 5b) with the package of each checkout, in a process of its own:
+a checkout whose runtime frees a dropped Job's graphs inside a capture
+fails there.
 """
 
 import dataclasses
@@ -1005,8 +1031,10 @@ SLOT_QUERIES = (
      "s2 = inputStream[id >= 10 and id < 30]+, s3 = inputStream[id >= 30] "
      "select s1.timestamp as t1, s2[0].price as p2first, "
      "s2[last].price as p2last, s3.price as p3 insert into matches"),
-    # (c) a cross-element filter: its mask is the stream gate, so every
-    # event is relevant (a full scan)
+    # (c) a cross-element filter: its event-only conjunct `id == 2` is the
+    # element's mask, only `price > s1.price` runs per slot, and the scan
+    # visits the events with id 1 or 2 (before the hoist, the mask was the
+    # stream gate and every event was visited)
     ("cross",
      "from every s1 = inputStream[id == 1] -> "
      "s2 = inputStream[id == 2 and price > s1.price] within 1 sec "
@@ -1050,6 +1078,39 @@ SLOT_SHAPES = dict(
         "s2 = inputStream[id == 49]<2:3> select s1.price as p1, "
         "s2[1].price as p2 insert into matches",
         (0.5, 0.001)),
+    # (c) with the masks of its hoisted conjunct: ids 1 and 2
+    cross_hoisted=(SLOT_QUERIES[2][1], (0.02, 0.02)),
+    # a full pool whose partials fork (mid-chain every, no within)
+    fork_pool=(
+        "from every s1 = inputStream[id < 25] -> "
+        "every s2 = inputStream[id < 40] -> s3 = inputStream[id == 49] "
+        "select s1.price as p1, s2.price as p2, s3.price as p3 "
+        "insert into matches",
+        (0.3, 0.3, 0.01)),
+    # `/` and `%`, int and float: s1.id is 1, so (s1.id - 1) divides by 0
+    div_mod=(
+        "from every s1 = inputStream[id == 1] -> s2 = inputStream["
+        "price / s1.price > 1.5 or id % (s1.id + 1) == 0 or "
+        "(id - 25) / (s1.id - 1) < -3 or price % s1.price < 1.0 or "
+        "id % (s1.id - 1) == 0 or price % (s1.price - 50.0) > 7.0] "
+        "within 1 sec select s1.price as p1, s2.price as p2 "
+        "insert into matches",
+        (0.02, 1.0)),
+    # a program 22 entries deep (the stack held 16 before): price >
+    # s1.price - 10
+    deep_program=(
+        "from every s1 = inputStream[id == 1] -> s2 = inputStream[price > "
+        + "".join(f"({k} - " for k in range(20)) + "s1.price" + ")" * 20
+        + "] within 1 sec select s1.price as p1, s2.price as p2 "
+        "insert into matches",
+        (0.02, 1.0)),
+    # a program of 1,708 words (programs held 1,024 words before)
+    long_program=(
+        "from every s1 = inputStream[id == 1] -> s2 = inputStream["
+        + " and ".join(f"price != s1.price + {k}" for k in range(190))
+        + "] within 50 ms select s1.price as p1, s2.price as p2 "
+        "insert into matches",
+        (0.01, 1.0)),
 )
 
 
@@ -1166,21 +1227,40 @@ def slot_graph_check(co, art, E, density, rng, dev, replays=3):
     return replays
 
 
+# phase 3's original spec shapes (each at S = 64, E = 4,096)
+SLOT_SHAPES_BASE = ("quantified", "sequence", "cross", "or_group",
+                    "grouped_every", "midchain_fork", "and_group",
+                    "full_pool")
+
+
 def check_slot_nfa(fpt, co, dev):
-    """K4 held exactly to its plain version on random inputs: every spec
-    shape at S = 64 and E = 4,096; the quantified, cross and fork shapes at
-    S = 1,024; the sequence and cross shapes at E = 16,384 (S = 64), the
-    quantified and sequence shapes at S = 1,024 and E = 16,384; a device
-    count of 0 and of E; a full pool (overflow); NaN and +-inf prices;
-    and a CUDA graph replayed on new inputs."""
+    """K4 held exactly to its plain version on random inputs. The 17 cases
+    of the first port: every original spec shape at S = 64 and E = 4,096; the
+    quantified, cross and fork shapes at S = 1,024; the sequence and cross
+    shapes at E = 16,384 (S = 64), the quantified and sequence shapes at S
+    = 1,024 and E = 16,384; a device count of 0 and of E; a full pool
+    (overflow); NaN and +-inf prices. Then every launch shape of the
+    redesign (one warp at S = 1, 31, 32, 33; the multi-warp pools at S =
+    65, 1,024, 2,048, 4,096), a full pool that forks at S = 64 and 96,
+    programs with `/` and `%`, a 22-deep stack and 1,708 words, and (c)
+    hoisted. And a CUDA graph replayed on new inputs."""
     rng = np.random.default_rng(11)
     t0 = time.perf_counter()
-    cases = [(name, 64, 4096, None) for name in SLOT_SHAPES]
+    cases = [(name, 64, 4096, None) for name in SLOT_SHAPES_BASE]
     cases += [(n, 1024, 4096, None)
               for n in ("quantified", "cross", "midchain_fork")]
     cases += [(n, 64, 16384, None) for n in ("sequence", "cross")]
     cases += [(n, 1024, 16384, None) for n in ("quantified", "sequence")]
     cases += [("quantified", 64, 4096, 0), ("quantified", 64, 4096, 4096)]
+    n_base = len(cases)
+    cases += [("quantified", S, 4096, None) for S in (1, 31, 32, 33, 65)]
+    cases += [("midchain_fork", S, 4096, None) for S in (31, 33, 65)]
+    cases += [("sequence", S, 4096, None) for S in (1, 33, 65)]
+    cases += [("quantified", S, 4096, None) for S in (2048, 4096)]
+    cases += [("fork_pool", S, 4096, None) for S in (64, 96)]
+    cases += [(n, 64, 4096, None) for n in ("div_mod", "deep_program",
+                                            "cross_hoisted")]
+    cases += [("long_program", 64, 1024, None)]
     out = {}
     arts = {}
     for name, S, E, forced in cases:
@@ -1192,14 +1272,16 @@ def check_slot_nfa(fpt, co, dev):
         rows, over = slot_check(co, art, E, SLOT_SHAPES[name][1], rng, dev,
                                 what, forced)
         out[what] = {"rows": rows, "overflow": over}
-    if not out["full_pool S=64 E=4096"]["overflow"]:
-        raise AssertionError("slot_nfa_scan: the full pool did not overflow")
+    for what in ("full_pool S=64 E=4096", "fork_pool S=64 E=4096",
+                 "fork_pool S=96 E=4096"):
+        if not out[what]["overflow"]:
+            raise AssertionError(f"slot_nfa_scan: {what} did not overflow")
     if not all(v["rows"] for k, v in out.items() if "count=0" not in k):
         raise AssertionError(f"slot_nfa_scan: a case emitted nothing: {out}")
     replays = slot_graph_check(co, arts[("cross", 64)], 4096,
                                SLOT_SHAPES["cross"][1], rng, dev)
     log(f"  slot_nfa_scan exact against its plain version in {len(cases)} "
-        f"cases and {replays} graph replays "
+        f"cases ({n_base} of the first port's) and {replays} graph replays "
         f"({time.perf_counter() - t0:.1f} s): {json.dumps(out)}")
     return 0
 
@@ -2551,6 +2633,12 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
         raise AssertionError(f"{name}: K4 ran {traced_launch} times on the "
                              f"card in a rerun of {steps} steps")
     scan_args = rec.args
+    # K4 on this run's third step: events visited, us a visited event,
+    # beside the old serial floor and the warp floor
+    k4 = slot_scan_times(co, scan_args, None)
+    log(f"  {name}: K4 {k4['ms']} ms a step, {k4['events_visited']} events "
+        f"visited, {k4['per_event_us']} us a visited event; serial floor "
+        f"{k4['serial_floor_ms']} ms, warp floor {k4['warp_floor_ms']} ms")
     result = {
         "path": f"slot_{name}",
         "cql": cql,
@@ -2568,6 +2656,7 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
         "rows": rows,
         "checksum": checksum,
         "overflow": overflow,
+        "k4": k4,
         "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
                       "launches": launches},
         "resident": {
@@ -3071,9 +3160,11 @@ def slot_scan_work(args):
 def slot_scan_times(co, args, floor_ms):
     """K4 on one recorded input: its time a call (CUDA events around
     back-to-back calls: the kernel and its buffer's zero fill) and a
-    single call's, per visited event, its byte bound, and its serial floor
+    single call's, per visited event, its byte bound, its old serial floor
     (the events' count of empty block barrier rounds in a block of the
-    scan's width, measured the same way)."""
+    pool's width, as the first port's one thread a slot took) and its warp
+    floor (as many empty `__syncwarp` + `__shfl_sync` rounds in one warp,
+    the one-warp pool's), each measured the same way."""
     plan = args[0]
     fn = rotating(lambda *a: co.slot_nfa_scan(*a), args)
     # a call lasts tens of ms to a second: CUDA events around
@@ -3082,13 +3173,16 @@ def slot_scan_times(co, args, floor_ms):
     nbytes, n = slot_scan_work(args)
     bound_ms, bound_by = bound_of(nbytes, n * plan.slots, INT32_OPS_PER_S)
     serial_ms, _ = timed_back_to_back(
-        lambda: co.launch_barrier_rounds(n, plan.slots), SLOT_TIMED_RUNS)
+        lambda: co.launch_barrier_rounds(n, min(plan.slots, 1024)),
+        SLOT_TIMED_RUNS)
+    warp_ms, _ = timed_back_to_back(lambda: co.launch_warp_rounds(n),
+                                    SLOT_TIMED_RUNS)
     return {"ms": ms, "call_ms": call_ms,
             "events_visited": n, "events": int(args[3].shape[0]),
             "per_event_us": ms * 1e3 / max(n, 1),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "serial_floor_ms": serial_ms, "floor_ms": floor_ms,
-            "slots": plan.slots, "bytes": nbytes}
+            "serial_floor_ms": serial_ms, "warp_floor_ms": warp_ms,
+            "floor_ms": floor_ms, "slots": plan.slots, "bytes": nbytes}
 
 
 def time_slot_nfa(co, recorded, launches, floor_ms):
@@ -3121,7 +3215,8 @@ def time_slot_nfa(co, recorded, launches, floor_ms):
         "launches": launches, "max_abs_err": err,
         **{k: main[k] for k in ("ms", "call_ms", "bound_ms",
                                 "bound_by", "serial_floor_ms",
-                                "per_event_us", "events_visited")},
+                                "warp_floor_ms", "per_event_us",
+                                "events_visited")},
         "plain_ms": plain_s * 1e3,
         "plain_device": "cpu",
         "library_ms": None,
@@ -3131,8 +3226,9 @@ def time_slot_nfa(co, recorded, launches, floor_ms):
     for name, q in queries.items():
         log(f"  slot_nfa_scan {name}: {q['ms']} ms a call on the card "
             f"({q['call_ms']} ms single), {q['events_visited']} "
-            f"events, {q['per_event_us']} us/event, serial floor "
-            f"{q['serial_floor_ms']} ms, bound {q['bound_ms']} ms")
+            f"events visited, {q['per_event_us']} us a visited event, "
+            f"serial floor {q['serial_floor_ms']} ms, warp floor "
+            f"{q['warp_floor_ms']} ms, bound {q['bound_ms']} ms")
     return entry
 
 
@@ -3271,6 +3367,9 @@ def main():
                                    batches, chain=False)
     bench_p2 = bench_main_path(fpt, co, "pattern2", PATTERN2, schema,
                                batches, chain=True)
+    drop = capture_after_drop(fpt, schema, batches[:4])
+    log(f"  a fused Job captured after a dropped resident Job: "
+        f"{json.dumps(drop)}")
 
     lap("phases 5 and 5b")
     # 5c. the drain pipeline: the five bench configs in sink mode (a
@@ -3705,6 +3804,133 @@ def ab_drain_one(root):
     return 0
 
 
+def ab_slots_one(root):
+    """The four slot queries (SLOT_QUERIES) with the package of the
+    checkout at ``root`` (bench settings, S = 64): resident counts-only
+    (stage, run() + flush(), AB_RERUNS reruns: events/s median and best,
+    the count emitted), and K4 on the third step's recorded input (CUDA
+    events around back-to-back calls: ms a step, events visited, us a
+    visited event)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+    from flink_siddhi_tpu_torch.compiler import nfa
+
+    if not os.path.abspath(fpt.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {fpt.__file__}, not {root}'s")
+    co.build()
+    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    n_events = sum(len(b) for b in batches)
+    out = {"checkout": root, "queries": []}
+    for name, cql in SLOT_QUERIES:
+        job = replay_job(fpt, cql, schema, batches, retain=False)
+        rep = fpt.ResidentReplay(job)
+        rep.stage()
+        rep.run()
+        job.flush()
+        torch.cuda.synchronize()
+        count = sum(job.emitted_counts.values())
+        reruns = [rep.rerun() for _ in range(AB_RERUNS)]
+        stage_s = rep.stage_seconds
+        del rep, job
+        rec = Recorder(co.slot_nfa_scan, keep=3)
+        nfa.slot_nfa_scan = rec
+        try:
+            run_job(fpt, cql, schema, batches[:3], "cuda",
+                    config=bench_config(fpt))
+        finally:
+            nfa.slot_nfa_scan = co.slot_nfa_scan
+        args = rec.args
+        ms, call_ms = timed_back_to_back(lambda: co.slot_nfa_scan(*args),
+                                         SLOT_TIMED_RUNS)
+        n = int(args[-1][0]) if args[-1] is not None else int(
+            args[3].shape[0])
+        out["queries"].append({
+            "query": name, "stage_s": stage_s, "rerun_s": reruns,
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "events_per_s_best": n_events / min(reruns),
+            "emitted": count, "k4_ms": ms, "k4_call_ms": call_ms,
+            "events_visited": n, "k4_us_per_visited_event": ms * 1e3 / n,
+        })
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def capture_after_drop(fpt, schema, batches):
+    """A dropped Job's CUDA graphs against the next Job's captures (the
+    fault behind `--ab-graphs`' "a fused capture was invalidated"): a
+    resident headline replay, its segments captured and a rerun traced,
+    is dropped (what sits in reference cycles is garbage the cyclic
+    collector frees later); then a fused Job captures its segments, with
+    one run of the
+    collector inside its first capture, as Python may run it at any
+    allocation there. Freeing a CUDA graph inside a capture invalidates
+    it; a runtime that frees the garbage before it captures passes.
+    Returns what the collector found inside the capture, the graphs
+    captured and the count emitted; raises if a capture fails."""
+    import gc
+
+    import torch
+
+    from flink_siddhi_tpu_torch.runtime import graphs
+
+    from torch.profiler import ProfilerActivity, profile
+
+    job = replay_job(fpt, HEADLINE, schema, batches, retain=False)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    rep.run()
+    job.flush()
+    # a traced rerun, as `--ab-graphs` makes one before its fused Job
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep.rerun()
+    torch.cuda.synchronize()
+    del rep, job, prof
+    inner = graphs.capture
+    found = []
+
+    def collecting(fn, *args, **kwargs):
+        def body():
+            if not found:
+                found.append(gc.collect())
+            return fn()
+        return inner(body, *args, **kwargs)
+
+    graphs.capture = collecting
+    try:
+        fjob = fused_job(fpt, HEADLINE, schema, batches, False,
+                         bench_config(fpt))
+        fjob.run()
+        torch.cuda.synchronize()
+    finally:
+        graphs.capture = inner
+    return {"collected_in_capture": found[0] if found else None,
+            "graphs_captured": fjob.graphs_captured,
+            "emitted": sum(fjob.emitted_counts.values())}
+
+
+def capture_after_drop_one(root):
+    """``capture_after_drop`` with the package of the checkout at
+    ``root``, over the bench stream's first 4 micro-batches."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    if not os.path.abspath(fpt.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {fpt.__file__}, not {root}'s")
+    co.build()
+    schema, batches = bench_stream(fpt, BATCH * 4, BATCH)
+    print(json.dumps({"checkout": root,
+                      **capture_after_drop(fpt, schema, batches)}),
+          flush=True)
+    return 0
+
+
 def ab(roots, mode="--ab-one"):
     for root in roots:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -3898,6 +4124,14 @@ if __name__ == "__main__":
         sys.exit(ab_drain_one(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ab-drain":
         sys.exit(ab(sys.argv[2:], mode="--ab-drain-one"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--capture-after-drop-one":
+        sys.exit(capture_after_drop_one(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--capture-after-drop":
+        sys.exit(ab(sys.argv[2:], mode="--capture-after-drop-one"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-slots-one":
+        sys.exit(ab_slots_one(sys.argv[2]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab-slots":
+        sys.exit(ab(sys.argv[2:], mode="--ab-slots-one"))
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

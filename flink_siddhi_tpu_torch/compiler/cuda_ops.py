@@ -96,9 +96,10 @@ _ARGTYPES = {
     "fst_unique_fold_scratch": [
         ctypes.c_longlong, ctypes.c_longlong, _I, _P, _I, _P,
     ],
+    "fst_warp_rounds": [_I, _P],
     "fst_slot_nfa_scan": [
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-        _I, _I, _P,
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+        _P, _P, _I, _I, _P,
     ],
 }
 
@@ -252,6 +253,17 @@ def launch_barrier_rounds(n: int, threads: int) -> None:
         n, threads, _stream(torch.cuda.current_device())
     )
     _check_launch("barrier_rounds", err)
+
+
+def launch_warp_rounds(n: int) -> None:
+    """One launch of ``n`` empty warp rounds (a ``__syncwarp`` and a
+    dependent ``__shfl_sync`` each) in one warp (csrc/empty.cu) on the
+    current stream: the serial floor under the one-warp slot NFA scan of
+    ``n`` events, measured by chip_smoke.py. No path calls it."""
+    err = LIBRARIES.get("empty").fst_warp_rounds(
+        n, _stream(torch.cuda.current_device())
+    )
+    _check_launch("warp_rounds", err)
 
 
 # --------------------------------------------------------------------------
@@ -740,21 +752,35 @@ unique_window_fold = UniqueWindowFold()
 # K4: slot NFA scan
 # --------------------------------------------------------------------------
 
-# slot_nfa.cu's SlotPlan limits
-SLOT_MAX_SLOTS = 1024
+# slot_nfa.cu's SlotPlan tables: 32-bit element, group and pair masks
 SLOT_MAX_ELEMS = 32  # and groups; K + indexed captures <= 31 (mbits word)
 SLOT_MAX_PAIRS = 32
-SLOT_MAX_IDX = 16
-SLOT_MAX_CAP_ROWS = 64
-SLOT_MAX_COLS = 64
-SLOT_MAX_CODE = 1024
 SLOT_FIXED_ROWS = 7  # active, step, count, start, last, matched, idxv
-SLOT_STAGE_WORDS = 6  # a fork's staged scalar state
-SLOT_MAX_SHARED = 232448 - 1024  # an H100 block's, less the static arrays
-_SLOT_HEADER = 16
-SLOT_PLAN_WORDS = (_SLOT_HEADER + 11 * SLOT_MAX_ELEMS + 1
-                   + 4 * SLOT_MAX_PAIRS + 3 * SLOT_MAX_IDX
-                   + 2 * SLOT_MAX_CAP_ROWS + SLOT_MAX_CODE)
+SLOT_STAGE_WORDS = 6  # a fork's staged scalar state (multi-warp pools)
+SLOT_TILE = 32  # events a tile (the columns' shared-memory tiles)
+SLOT_MAX_SHARED = 232448  # an H100 block's shared memory
+SLOT_MAX_R = 16  # slots a thread in the largest pools
+_SLOT_HEADER = 20
+SLOT_PLAN_WORDS = _SLOT_HEADER + 17 * SLOT_MAX_ELEMS + 1
+_SLOT_COL_BITS = 20  # a pair descriptor's column field
+
+
+def slot_launch_shape(S: int) -> Optional[Tuple[bool, int, int]]:
+    """(multi-warp, slots a thread R, threads) of slot_nfa.cu's launch for
+    a pool of S slots: one warp at S <= 64 (R = 1 or 2), else as many warps
+    of R = 2, 4, 8 or 16 slots a thread as the pool needs. None past
+    1,024 threads x SLOT_MAX_R slots."""
+    if S <= 32:
+        return False, 1, 32
+    if S <= 64:
+        return False, 2, 32
+    r = 2
+    while r <= SLOT_MAX_R:
+        warps = -(-S // (32 * r))
+        if warps <= 32:
+            return True, r, 32 * warps
+        r *= 2
+    return None
 
 
 @dataclass(frozen=True)
@@ -804,12 +830,27 @@ class SlotScanPlan:
         return 1 + int(self.needs_mbits) + len(self.cap_rows)
 
     @property
+    def depth(self) -> int:
+        """The deepest program's stack (slot_nfa.cu's per-thread stack)."""
+        from .slot_program import _depth
+
+        return max((_depth(c) for c in self.cross if c is not None),
+                   default=0)
+
+    @property
     def shared_bytes(self) -> int:
         """slot_nfa.cu's dynamic shared memory: the plan, each slot's
-        capture words and, with forks, its staged state."""
+        capture words, each thread's program stack, two tiles of the
+        columns and, on a multi-warp pool, the forks' staged state and the
+        ballot words (a pool ``slot_launch_shape`` takes)."""
+        multi, R, T = slot_launch_shape(self.slots)
         words = 2 * len(self.pair_elem) + len(self.idx_caps)
-        return 4 * (SLOT_PLAN_WORDS + self.slots * (
-            words + (SLOT_STAGE_WORDS if self.marked else 0)))
+        return 4 * (SLOT_PLAN_WORDS + len(self.cap_rows)
+                    + self.slots * words + self.depth * T
+                    + 2 * self.n_cols * SLOT_TILE
+                    + (SLOT_STAGE_WORDS * self.slots
+                       if multi and self.marked else 0)
+                    + (6 * (T // 32) * R if multi else 0))
 
     @property
     def min_prefix(self) -> Tuple[int, ...]:
@@ -819,23 +860,44 @@ class SlotScanPlan:
         return tuple(out)
 
     def check(self) -> None:
-        """Raise ValueError for a plan slot_nfa.cu cannot hold."""
+        """Raise ValueError for a plan slot_nfa.cu cannot hold, naming the
+        limit: the 32-bit element, group and capture-pair masks, the
+        mbits word (elements + indexed captures <= 31), the block's
+        threads and its shared memory."""
         G, K = len(self.groups), self.n_elements
-        code = sum(len(c) for c in self.cross if c is not None)
-        if not (1 <= self.slots <= SLOT_MAX_SLOTS and 1 <= G <= K
-                and K + len(self.idx_caps) <= 31
-                and len(self.pair_elem) <= SLOT_MAX_PAIRS
-                and len(self.idx_caps) <= SLOT_MAX_IDX
-                and len(self.cap_rows) <= SLOT_MAX_CAP_ROWS
-                and self.n_cols <= SLOT_MAX_COLS
-                and code <= SLOT_MAX_CODE
-                and self.shared_bytes <= SLOT_MAX_SHARED):
+        P, I = len(self.pair_elem), len(self.idx_caps)
+        if not 1 <= G <= K <= SLOT_MAX_ELEMS - 1 or K + I > 31:
             raise ValueError(
-                f"slot_nfa_scan: plan outside slot_nfa.cu's limits ({self.slots}"
-                f" slots, {K} elements, {len(self.pair_elem)} capture pairs, "
-                f"{len(self.idx_caps)} indexed, {self.n_cols} columns, "
-                f"{code} program words)"
-            )
+                f"slot_nfa_scan: {K} elements and {I} indexed captures "
+                "exceed the 31 bits of the match-bitmask word")
+        if P > SLOT_MAX_PAIRS:
+            raise ValueError(
+                f"slot_nfa_scan: {P} capture pairs exceed the 32-bit pair "
+                "mask of an element")
+        if self.n_cols >= 1 << _SLOT_COL_BITS:
+            raise ValueError(
+                f"slot_nfa_scan: {self.n_cols} columns exceed a pair "
+                f"descriptor's {_SLOT_COL_BITS}-bit column field")
+        if slot_launch_shape(self.slots) is None:
+            raise ValueError(
+                f"slot_nfa_scan: {self.slots} slots exceed one block of "
+                f"1,024 threads holding {SLOT_MAX_R} slots each")
+        if self.shared_bytes > SLOT_MAX_SHARED:
+            raise ValueError(
+                f"slot_nfa_scan: {self.shared_bytes} bytes of shared memory "
+                f"({self.slots} slots x {2 * P + I} capture words, a "
+                f"{self.depth}-deep program stack, {self.n_cols} columns) "
+                f"exceed a block's {SLOT_MAX_SHARED}")
+
+    def aux(self) -> list:
+        """slot_nfa.cu's aux buffer: each emission capture row's capture
+        word, then the programs."""
+        P = len(self.pair_elem)
+        out = [2 * P + i if kind == 2 else 2 * i + kind
+               for kind, i in self.cap_rows]
+        for c in self.cross:
+            out.extend(c or ())
+        return out
 
     def words(self) -> list:
         """slot_nfa.cu's SlotPlan struct as int32 words."""
@@ -846,51 +908,61 @@ class SlotScanPlan:
         def pad(vals, n, fill=0):
             return list(vals) + [fill] * (n - len(vals))
 
-        offs, lens, code = [], [], []
+        offs, lens = [], []
+        at = len(self.cap_rows)
         for c in self.cross:
-            offs.append(len(code) if c is not None else -1)
+            offs.append(at if c is not None else -1)
             lens.append(len(c) if c is not None else 0)
-            code.extend(c or ())
+            at += len(c or ())
         marked = 0
         for g in self.marked:
             marked |= 1 << g
+        cross_mask = sum(1 << k for k, c in enumerate(self.cross)
+                         if c is not None)
         header = [
             self.n_elements, G, self.slots, int(self.sequence),
             int(self.every), int(self.every_grouped),
             int(self.within is not None), int(self.within or 0),
             marked, P, I, self.n_cols, self.buf_rows, int(self.needs_mbits),
-            int(any(c is not None for c in self.cross)), len(code),
+            cross_mask, at, self.depth, len(self.cap_rows), 0, 0,
         ]
         assert len(header) == _SLOT_HEADER
         gmask = [sum(1 << e for e in mem) for mem in self.groups]
+        pre = self.min_prefix
+        reach = []
+        for g in range(G):
+            # slot_nfa.cu's advance loop from step g: t = g + 1 on, while
+            # every group in between is optional
+            bits, t = 0, max(g + 1, 1)
+            while t < G and pre[t] == pre[min(g + 1, G)]:
+                bits |= gmask[t]
+                t += 1
+            reach.append(bits)
+        pair_desc = [c | (int(len(self.groups[g_of[e]]) == 1) << 20)
+                     | (g_of[e] << 21)
+                     for e, c in zip(self.pair_elem, self.pair_col)]
+        E32 = SLOT_MAX_ELEMS
         words = (
             header
-            + pad(gmask, SLOT_MAX_ELEMS)
-            + pad([int(a) for a in self.group_and], SLOT_MAX_ELEMS)
-            + pad(self.mins, SLOT_MAX_ELEMS)
-            + pad(self.maxs, SLOT_MAX_ELEMS)
-            + pad(self.min_prefix, SLOT_MAX_ELEMS + 1)
-            + pad(offs, SLOT_MAX_ELEMS, -1)
-            + pad(lens, SLOT_MAX_ELEMS)
-            + pad(self.cross_ref, SLOT_MAX_ELEMS)
-            + pad(self.cross_idx, SLOT_MAX_ELEMS)
+            + pad(gmask, E32)
+            + pad([int(a) for a in self.group_and], E32)
+            + pad(self.mins, E32)
+            + pad(self.maxs, E32)
+            + pad(pre, E32 + 1)
+            + pad(reach, E32)
+            + pad(offs, E32, -1)
+            + pad(lens, E32)
+            + pad(self.cross_ref, E32)
+            + pad(self.cross_idx, E32)
             + pad(self.pair_elem, SLOT_MAX_PAIRS)
-            + pad(self.pair_col, SLOT_MAX_PAIRS)
-            + pad([g_of[e] for e in self.pair_elem], SLOT_MAX_PAIRS)
-            + pad([int(len(self.groups[g_of[e]]) == 1)
-                   for e in self.pair_elem], SLOT_MAX_PAIRS)
+            + pad(pair_desc, SLOT_MAX_PAIRS)
             + pad([sum(1 << p for p, pe in enumerate(self.pair_elem)
-                       if pe == e) for e in range(self.n_elements)],
-                  SLOT_MAX_ELEMS)
+                       if pe == e) for e in range(self.n_elements)], E32)
             + pad([sum(1 << j for j, (ie, _, _) in enumerate(self.idx_caps)
-                       if ie == e) for e in range(self.n_elements)],
-                  SLOT_MAX_ELEMS)
-            + pad([e for e, _, _ in self.idx_caps], SLOT_MAX_IDX)
-            + pad([p for _, p, _ in self.idx_caps], SLOT_MAX_IDX)
-            + pad([k for _, _, k in self.idx_caps], SLOT_MAX_IDX)
-            + pad([k for k, _ in self.cap_rows], SLOT_MAX_CAP_ROWS)
-            + pad([i for _, i in self.cap_rows], SLOT_MAX_CAP_ROWS)
-            + pad(code, SLOT_MAX_CODE)
+                       if ie == e) for e in range(self.n_elements)], E32)
+            + pad([e for e, _, _ in self.idx_caps], E32)
+            + pad([k for _, _, k in self.idx_caps], E32)
+            + pad([self.pair_col[p] for _, p, _ in self.idx_caps], E32)
         )
         assert len(words) == SLOT_PLAN_WORDS
         return words
@@ -1197,8 +1269,9 @@ class SlotNFAScan:
     compaction; the count stays on the device), else every event. Returns
     ``(state, scal [4] = done, started, overflow, n, buf [R, E + S])``.
 
-    On CUDA one call is one kernel launch: one block of S threads, thread s
-    owning slot s."""
+    On CUDA one call is one kernel launch of one block
+    (``slot_launch_shape``): one warp at S <= 64, each lane owning R =
+    ceil(S / 32) slots; more warps of R slots a thread above."""
 
     name = "slot_nfa_scan"
     source = "flink_siddhi_tpu_torch/csrc/slot_nfa.cu"
@@ -1208,7 +1281,8 @@ class SlotNFAScan:
         self._plans: Dict[Tuple, Tuple] = {}
 
     def plan_buffers(self, plan: SlotScanPlan, dev) -> Tuple:
-        """The plan's struct as a host array and on ``dev``, made at its
+        """The plan's struct as a host array and on ``dev``, and its aux
+        buffer (capture rows' words, programs) on ``dev``, made at its
         first use there (never inside a CUDA graph capture: the first step
         of a plan runs eagerly, warm-up included)."""
         key = (plan, str(dev))
@@ -1219,9 +1293,11 @@ class SlotNFAScan:
                     "slot_nfa_scan: the plan is not on the capturing device "
                     "yet; run the captured work once first"
                 )
-            words = plan.words()
+            words, aux = plan.words(), plan.aux()
             bufs = ((ctypes.c_int * len(words))(*words),
-                    torch.tensor(words, dtype=torch.int32).to(dev))
+                    torch.tensor(words, dtype=torch.int32).to(dev),
+                    torch.tensor(aux or [0], dtype=torch.int32).to(dev),
+                    len(aux))
             self._plans[key] = bufs
         return bufs
 
@@ -1233,7 +1309,7 @@ class SlotNFAScan:
         dev = ts.device
         E = int(ts.shape[0])
         S = plan.slots
-        plan_host, plan_dev = self.plan_buffers(plan, dev)
+        plan_host, plan_dev, aux, n_aux = self.plan_buffers(plan, dev)
         _check(state, "state", torch.int32, dev, (plan.state_rows, S))
         _check(scal, "scal", torch.int32, dev, (3,))
         _check(ts, "ts", torch.int32, dev, (E,))
@@ -1257,7 +1333,8 @@ class SlotNFAScan:
         with _on_device(dev):
             err = lib.fst_slot_nfa_scan(
                 ctypes.addressof(plan_host), len(plan_host),
-                plan_dev.data_ptr(), state.data_ptr(),
+                plan_dev.data_ptr(), aux.data_ptr(), n_aux,
+                state.data_ptr(),
                 scal.data_ptr(), ts.data_ptr(), valid.data_ptr(),
                 mword.data_ptr(), eword.data_ptr(),
                 cols.data_ptr() if plan.n_cols else null,

@@ -279,13 +279,17 @@ class _PatternSpec:
     # reference (else None), and every capture pair it reads
     proj_srcs: Tuple[Optional[Tuple[int, str]], ...] = ()
     # cross-element filters (`s2 = S[price > s1.price]`): per element, the
-    # full filter compiled to a slot program over BOTH the current event's
-    # columns and earlier elements' captures; such elements have pred_fns
-    # None (the event-only mask is just the stream gate) and are evaluated
-    # per slot inside the scan (the reference keeps compile_expr closures
-    # here, nfa.py:276)
+    # filter's top-level conjuncts that read a capture, compiled to a slot
+    # program over BOTH the current event's columns and earlier elements'
+    # captures, evaluated per slot inside the scan (the reference keeps
+    # the whole filter as one compile_expr closure here, nfa.py:276). The
+    # event-only conjuncts are the element's pred_fns entry (its mask),
+    # None when there is none (the mask is the stream gate)
     cross_fns: Tuple[Optional[SlotProgram], ...] = ()
-    evt_keys: Tuple[str, ...] = ()  # tape columns the cross filters read
+    # derived columns the programs load: key -> compile_expr function of a
+    # function call over the event's own columns, computed over the batch
+    derived_fns: Dict[str, Callable] = dataclasses.field(
+        default_factory=dict)
     # per element: indices of earlier elements its cross filter reads; a
     # referenced element that was SKIPPED (optional, min 0) makes the
     # filter false (Siddhi: comparisons with null never hold)
@@ -518,6 +522,7 @@ def _build_spec(
         return tuple(sorted(out))
 
     host_pred_fns: List = []
+    derived_fns: Dict[str, Callable] = {}
     for i, el in enumerate(inp.elements):
         schema = schemas[el.stream_id]
         if el.filter is None:
@@ -535,11 +540,7 @@ def _build_spec(
             and a.qualifier != el.alias
         }
         if not foreign:
-            scopes = {
-                el.alias: (el.stream_id, schema),
-                el.stream_id: (el.stream_id, schema),
-            }
-            resolver = ExprResolver(scopes, default_scope=el.alias)
+            resolver = _own_resolver(el, schema)
             ce = compile_expr(el.filter, resolver, extensions)
             if ce.atype != AttributeType.BOOL:
                 raise SiddhiQLError("pattern element filter must be boolean")
@@ -561,9 +562,35 @@ def _build_spec(
         ce = compile_expr(el.filter, resolver, extensions)
         if ce.atype != AttributeType.BOOL:
             raise SiddhiQLError("pattern element filter must be boolean")
-        pred_fns.append(None)  # event-only mask = stream gate
+        own = _own_resolver(el, schema)
+
+        def event_only(expr) -> bool:
+            return not any(
+                a.qualifier is not None and a.qualifier in alias_idx
+                and a.qualifier != el.alias for a in ast.iter_attrs(expr)
+            )
+
+        # the top-level conjuncts that read only the event go into the
+        # element's mask (an event failing one fails the filter for every
+        # slot); only the rest is evaluated per slot
+        hoisted, rest = [], []
+        for c in _conjuncts(el.filter):
+            (hoisted if event_only(c) else rest).append(c)
+        pred_fns.append(
+            compile_expr(_and_all(hoisted), own, extensions).fn
+            if hoisted else None
+        )
+
+        def derive(expr):
+            if not event_only(expr):
+                return None
+            key = f"fn:{i}:{len(derived_fns)}"
+            dce = compile_expr(expr, own, extensions)
+            derived_fns[key] = dce.fn
+            return key, dce.atype, dce.table
+
         cross_fns.append(compile_slot_program(
-            el.filter, resolver, lambda key: key in evt_keys
+            _and_all(rest), resolver, lambda key: key in evt_keys, derive,
         ))
         cross_refs.append(tuple(sorted(alias_idx[a] for a in foreign)))
         cross_idx_refs.append(_indexed_refs(el.filter))
@@ -587,14 +614,7 @@ def _build_spec(
                 "cross-element references are not supported in absent "
                 "('not') element filters"
             )
-        schema = schemas[el.stream_id]
-        resolver = ExprResolver(
-            {
-                el.alias: (el.stream_id, schema),
-                el.stream_id: (el.stream_id, schema),
-            },
-            default_scope=el.alias,
-        )
+        resolver = _own_resolver(el, schemas[el.stream_id])
         ce = compile_expr(ef, resolver, extensions)
         if ce.atype != AttributeType.BOOL:
             raise SiddhiQLError("sequence absence guard must be boolean")
@@ -688,7 +708,6 @@ def _build_spec(
         output_stream=q.output_stream,
         proj_srcs=tuple(proj_srcs),
         cross_fns=tuple(cross_fns),
-        evt_keys=tuple(evt_keys),
         cross_refs=tuple(cross_refs),
         groups=tuple(groups),
         group_ops=tuple(group_ops),
@@ -701,7 +720,32 @@ def _build_spec(
         ),
         entry_guard_fns=tuple(entry_guard_fns),
         host_pred_fns=tuple(host_pred_fns),
+        derived_fns=derived_fns,
     )
+
+
+def _own_resolver(el, schema) -> ExprResolver:
+    """An element's filter over its own event only: its alias and its
+    stream id name the event's columns."""
+    return ExprResolver(
+        {el.alias: (el.stream_id, schema),
+         el.stream_id: (el.stream_id, schema)},
+        default_scope=el.alias,
+    )
+
+
+def _conjuncts(expr: ast.Expr) -> List[ast.Expr]:
+    """The operands of a top-level chain of ``and``, left to right."""
+    if isinstance(expr, ast.Binary) and expr.op == "and":
+        return _conjuncts(expr.left) + _conjuncts(expr.right)
+    return [expr]
+
+
+def _and_all(exprs: List[ast.Expr]) -> ast.Expr:
+    out = exprs[0]
+    for e in exprs[1:]:
+        out = ast.Binary("and", out, e)
+    return out
 
 
 def _cap_pairs(spec: _PatternSpec) -> List[Tuple[int, str]]:
@@ -2264,24 +2308,19 @@ class SlotNFAArtifact:
         self._min_prefix = np.concatenate(
             [[0], np.cumsum(self._mins)]
         ).astype(np.int32)
-        if self.slots > cuda_ops.SLOT_MAX_SLOTS:
-            raise SiddhiQLError(
-                f"pattern_slots {self.slots} exceeds the slot NFA kernel's "
-                f"one block of {cuda_ops.SLOT_MAX_SLOTS} threads (ROADMAP.md "
-                "Queue 2, K4: a multi-block scan)"
-            )
         self.scan_plan = self._scan_plan()
 
     def _scan_plan(self) -> "cuda_ops.SlotScanPlan":
         """The scan's tables: the event columns (capture sources, then the
-        cross programs' own columns), the capture words and the linked
-        cross programs."""
+        columns the cross programs load: tape columns and derived ones),
+        the capture words and the linked cross programs."""
         spec = self.spec
         pairs = _cap_pairs(spec)
         cols: List[str] = []
-        for key in [spec.cap_src_key[p] for p in pairs] + list(
-            spec.evt_keys
-        ):
+        progs = [p for p in spec.cross_fns or () if p is not None]
+        for key in [spec.cap_src_key[p] for p in pairs] + [
+            k for p in progs for k in p.evt_keys
+        ]:
             if key not in cols:
                 cols.append(key)
         self._cols = tuple(cols)
@@ -2434,11 +2473,16 @@ class SlotNFAArtifact:
                 if f is not None:
                     p = p & f(env)
                 eword = eword | (p.to(_I32) << k)
-        cols = (
-            torch.stack([as_i32(tape.cols[key]) for key in self._cols])
-            if self._cols
-            else torch.zeros((0, E), dtype=_I32, device=dev)
-        )
+        if self._cols:
+            derived = spec.derived_fns
+            env = dict(tape.cols)
+            cols = torch.stack([
+                as_i32(torch.broadcast_to(derived[key](env), (E,)))
+                if key in derived else as_i32(tape.cols[key])
+                for key in self._cols
+            ])
+        else:
+            cols = torch.zeros((0, E), dtype=_I32, device=dev)
         idx = cnt = None
         if spec.kind == "pattern" and E >= _COMPACT_MIN_E:
             # '->' ignores events matching no element: the scan visits the

@@ -21,17 +21,25 @@ arithmetic rounds each operation on its own (no fused multiply-add).
 
 Covered: loads of the event's own columns and of a slot's captures (first,
 last and indexed), literals (numbers, time literals, interned strings),
-``+ - *`` and unary ``-``, the six comparisons, ``and``, ``or`` (which
-the kernel short-circuits), ``not``.
-Anything else (``/``, ``%``, function calls) raises ``SiddhiQLError`` at
-compile time, on every device.
+``+ - * / %`` and unary ``-``, the six comparisons, ``and``, ``or`` (which
+the kernel short-circuits), ``not``. ``/`` and ``%`` are the reference's
+``jnp.floor_divide`` (int32), ``jnp.divide`` (float32) and ``jnp.mod``,
+bit for bit: XLA's integer division by zero (``x // 0`` is -1 adjusted
+for the signs, ``x % 0`` is 0) and ``INT_MIN // -1 == INT_MIN`` included.
+A program's stack is as deep as it needs (the kernel sizes its stack from
+the plan). A function call over the event's own columns is evaluated by
+the caller over the whole batch (``derive``: a derived column the program
+loads like an event column); a call whose arguments read a capture raises
+``SiddhiQLError`` at compile time, on every device: a registered function
+is a torch function over a batch and cannot run per slot inside the scan.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..query import ast
@@ -55,8 +63,8 @@ OP_AND, OP_OR, OP_NOT = 25, 26, 27
 # operands have no side effects, so the kernel's skip and the plain
 # version's evaluation of both sides give one value.
 OP_ANDJ, OP_ORJ = 28, 29
+OP_DIV_I, OP_MOD_I, OP_DIV_F, OP_MOD_F = 30, 31, 32, 33
 
-MAX_STACK = 16  # slot_nfa.cu's kMaxStack
 _CMP = ("==", "!=", "<", "<=", ">", ">=")
 
 
@@ -122,21 +130,34 @@ class SlotProgram:
         return tuple(out)
 
 
+def _has_call(expr) -> bool:
+    if isinstance(expr, ast.Call):
+        return True
+    if isinstance(expr, ast.Unary):
+        return _has_call(expr.operand)
+    if isinstance(expr, ast.Binary):
+        return _has_call(expr.left) or _has_call(expr.right)
+    return False
+
+
 class _Compiler:
-    def __init__(self, resolver, is_event: Callable[[str], bool]) -> None:
+    def __init__(self, resolver, is_event: Callable[[str], bool],
+                 derive: Optional[Callable] = None) -> None:
         self._resolver = resolver
         self._is_event = is_event
+        self._derive = derive
         self.evt_keys: List[str] = []
         self.cap_keys: List[str] = []
 
+    def _load_key(self, key: str, event: bool) -> List[int]:
+        keys, op = ((self.evt_keys, OP_EVT) if event
+                    else (self.cap_keys, OP_CAP))
+        if key not in keys:
+            keys.append(key)
+        return [op | (keys.index(key) << 8)]
+
     def _load(self, r: ResolvedAttr) -> List[int]:
-        if self._is_event(r.key):
-            keys, op = self.evt_keys, OP_EVT
-        else:
-            keys, op = self.cap_keys, OP_CAP
-        if r.key not in keys:
-            keys.append(r.key)
-        return [op | (keys.index(r.key) << 8)]
+        return self._load_key(r.key, self._is_event(r.key))
 
     @staticmethod
     def _lit(value, atype: AttributeType) -> List[int]:
@@ -151,6 +172,13 @@ class _Compiler:
 
     def compile(self, expr) -> Tuple[List[int], str, object]:
         """(code, kind, string table or None) of ``expr``."""
+        if self._derive is not None and _has_call(expr):
+            # the largest event-only subexpression holding a call: a
+            # column the caller computes over the batch
+            got = self._derive(expr)
+            if got is not None:
+                key, atype, table = got
+                return self._load_key(key, True), _kind(atype), table
         if isinstance(expr, ast.Literal):
             if expr.atype == AttributeType.STRING:
                 return [], "s", None  # only inside a string comparison
@@ -173,7 +201,14 @@ class _Compiler:
         if isinstance(expr, ast.Binary):
             return self._binary(expr)
         if isinstance(expr, ast.Call):
-            raise _later(f"the function {expr.full_name!r}")
+            raise SiddhiQLError(
+                f"the function {expr.full_name!r} over an earlier element's "
+                "capture in a cross-element filter is not in the torch "
+                "port's slot program (ROADMAP.md Queue 1 item 8): a "
+                "registered function is a torch function over a batch and "
+                "cannot run per slot inside the scan; the JAX package "
+                "flink_siddhi_tpu runs it"
+            )
         raise _later(f"the expression {type(expr).__name__}")
 
     def _binary(self, expr: ast.Binary):
@@ -190,11 +225,12 @@ class _Compiler:
         if op in _CMP:
             return self._compare(expr, lcode, lk, ltab, rcode, rk, rtab), \
                 "b", None
-        if op in ("+", "-", "*"):
+        if op in ("+", "-", "*", "/", "%"):
             out = _promote(lk, rk)
             lcode, rcode = self._to(lcode, lk, out), self._to(rcode, rk, out)
             fam = {"+": (OP_ADD_I, OP_ADD_F), "-": (OP_SUB_I, OP_SUB_F),
-                   "*": (OP_MUL_I, OP_MUL_F)}[op]
+                   "*": (OP_MUL_I, OP_MUL_F), "/": (OP_DIV_I, OP_DIV_F),
+                   "%": (OP_MOD_I, OP_MOD_F)}[op]
             return lcode + rcode + [fam[out == "f"]], out, None
         raise _later(f"the operator {op!r}")
 
@@ -263,20 +299,20 @@ def _depth(code) -> int:
 
 
 def compile_slot_program(expr: ast.Expr, resolver,
-                         is_event: Callable[[str], bool]) -> SlotProgram:
+                         is_event: Callable[[str], bool],
+                         derive: Optional[Callable] = None) -> SlotProgram:
     """Compile a boolean filter. ``resolver`` resolves its attributes (the
     slot NFA's ``_ElemFilterResolver``); ``is_event(key)`` tells an event
-    column's key from a capture's."""
-    c = _Compiler(resolver, is_event)
+    column's key from a capture's. ``derive(expr)``, for a subexpression
+    holding a function call, returns (column key, type, string table) of
+    a column the caller computes over the batch when ``expr`` reads only
+    the event, else None."""
+    c = _Compiler(resolver, is_event, derive)
     code, kind, _ = c.compile(expr)
     if kind != "b":
         raise SiddhiQLError("pattern element filter must be boolean")
-    depth = _depth(code)
-    if depth > MAX_STACK:
-        raise _later(f"an expression {depth} deep (the program's stack "
-                     f"holds {MAX_STACK})")
     return SlotProgram(tuple(code), tuple(c.evt_keys), tuple(c.cap_keys),
-                       depth)
+                       _depth(code))
 
 
 # --------------------------------------------------------------------------
@@ -295,11 +331,60 @@ def _b(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32)
 
 
+def _trunc_divmod(a: torch.Tensor, b: torch.Tensor):
+    """XLA's truncating int32 division and remainder, in int64: x / 0 is
+    -1 and x % 0 is x; INT_MIN / -1 comes out as 2^31 (INT_MIN once
+    wrapped) and INT_MIN % -1 as 0."""
+    a, b = torch.broadcast_tensors(a.long(), b.long())
+    zero = b == 0
+    q = torch.div(a, torch.where(zero, 1, b), rounding_mode="trunc")
+    q = torch.where(zero, -1, q)
+    r = torch.where(zero, a, a - q * b)
+    return q, r
+
+
+def _floor_div_i(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.floor_divide on int32 words."""
+    q, r = _trunc_divmod(a, b)
+    adj = (torch.sign(a.long()) != torch.sign(b.long())) & (r != 0)
+    return (q - adj.long()).to(torch.int32)
+
+
+def _mod_i(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.mod on int32 words: a zero divisor becomes 1."""
+    d = torch.where(b == 0, 1, b)
+    _, t = _trunc_divmod(a, d)
+    plus = ((t < 0) != (d < 0)) & (t != 0)
+    return torch.where(plus, t + d.long(), t).to(torch.int32)
+
+
+def _fmod(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """C's fmodf, exact (torch.fmod on the CPU divides first and can lose
+    everything: fmod(-3e38, 1e-30) comes out NaN)."""
+    fa, fb = torch.broadcast_tensors(fa, fb)
+    if fa.device.type == "cpu":
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return torch.from_numpy(np.fmod(fa.numpy(), fb.numpy()))
+    return torch.fmod(fa, fb)
+
+
+def _mod_f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.mod on float32 words: fmod, then the divisor added when the
+    signs differ (each step rounded)."""
+    fa, fb = _f(a), _f(b)
+    t = _fmod(fa, fb)
+    plus = ((t < 0) != (fb < 0)) & (t != 0)
+    return _w(torch.where(plus, t + fb, t))
+
+
 _BINARY = {
     OP_ADD_I: torch.add, OP_SUB_I: torch.sub, OP_MUL_I: torch.mul,
     OP_ADD_F: lambda a, b: _w(_f(a) + _f(b)),
     OP_SUB_F: lambda a, b: _w(_f(a) - _f(b)),
     OP_MUL_F: lambda a, b: _w(_f(a) * _f(b)),
+    OP_DIV_I: _floor_div_i, OP_MOD_I: _mod_i,
+    OP_DIV_F: lambda a, b: _w(_f(a) / _f(b)),
+    OP_MOD_F: _mod_f,
     OP_AND: torch.bitwise_and, OP_OR: torch.bitwise_or,
 }
 for _i, _fn in enumerate((torch.eq, torch.ne, torch.lt, torch.le, torch.gt,

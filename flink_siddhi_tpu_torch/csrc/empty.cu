@@ -1,5 +1,5 @@
-// An empty kernel: one block of 256 threads that does nothing; and a
-// kernel of empty block barrier rounds.
+// An empty kernel: one block of 256 threads that does nothing; a kernel of
+// empty block barrier rounds; and a kernel of empty warp rounds.
 //
 // Replaces no TPU kernel. chip_smoke.py times the empty kernel the way it
 // times the others (a profiler trace over 25 calls after warm-up) as the
@@ -8,7 +8,10 @@
 // The barrier kernel is the serial floor of the slot NFA scan
 // (slot_nfa.cu), which walks its events one after another in one block
 // with at least one __syncthreads a event: n rounds of a barrier and
-// nothing else, in one block of the scan's width.
+// nothing else, in one block of the scan's width. The warp kernel is the
+// serial floor of the scan's one-warp pools (S <= 64): n rounds of a
+// __syncwarp and a __shfl_sync whose result the next round's depends on,
+// in one warp.
 #include <cuda_runtime.h>
 
 namespace {
@@ -20,6 +23,15 @@ __global__ void barrier_kernel(int n, int* sink) {
   for (int i = 0; i < n; ++i) {
     x += threadIdx.x ^ i;
     __syncthreads();
+  }
+  if (x == -1) *sink = x;  // keeps the loop; never true for n < 2^20
+}
+
+__global__ void warp_kernel(int n, int* sink) {
+  int x = threadIdx.x;
+  for (int i = 0; i < n; ++i) {
+    __syncwarp();
+    x = __shfl_sync(0xffffffffu, x, (x + i) & 31) + 1;
   }
   if (x == -1) *sink = x;  // keeps the loop; never true for n < 2^20
 }
@@ -40,5 +52,15 @@ extern "C" int fst_barrier_rounds(int n, int threads, void* stream) {
   }
   barrier_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       n, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n (at most 2^20) empty warp rounds in one warp on `stream`; returns a
+// cudaError_t.
+extern "C" int fst_warp_rounds(int n, void* stream) {
+  if (n < 0 || n > (1 << 20)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  warp_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(n, nullptr);
   return static_cast<int>(cudaGetLastError());
 }

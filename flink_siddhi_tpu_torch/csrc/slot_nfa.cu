@@ -21,79 +21,99 @@
 // reverts; forks past the free slots count as overflow); arming into the
 // lowest free slot under the `every` / grouped `every` / single-match
 // rules. int32 arithmetic wraps (unsigned), float32 arithmetic rounds each
-// operation (__fadd_rn etc.: no fused multiply-add), as torch's.
-//
-// Design: one block of S threads (S = the pattern's slot pool, at most
-// 1,024), thread s owning slot s. Its scalar state (active, step, count,
-// start, last, matched, indexed-capture validity) lives in registers, its
-// captures in shared memory ([word][slot], so that a warp's accesses fall
-// in distinct banks), the plan (groups, bounds, capture layout, programs)
-// in shared memory, copied once a launch. Every thread reads the event's
-// words itself (ts, valid, the element masks as bits of one int32, the
-// entry-guarded masks likewise): the same address across the block, one
-// event ahead. The block-wide parts (the emission ranks, any active slot,
-// the lowest free slot, the fork ranks) come from warp ballots written to
-// shared memory (double-buffered by event parity) with one __syncthreads a
-// event, and two more at an event that forks. An event with no active
-// slot and no first-group bit changes nothing but a flag every thread
-// knows: it is skipped without a barrier. Programs short-circuit `and` and
-// `or`. With relevance
-// compaction the event list is `idx[0, *cnt)`: the count is read on the
-// device, so the launch needs no host read and a CUDA graph captures it.
+// operation (__fadd_rn etc.: no fused multiply-add), as torch's; `/` and
+// `%` follow jnp.floor_divide, jnp.divide and jnp.mod (XLA's integer
+// division by zero and INT_MIN / -1 included).
 //
 // What bounds it on an H100: the chain of events, not bytes. Event i + 1
-// depends on event i's slot state, so the block walks the events one after
-// another on one SM; each event costs a block barrier round plus the
-// dependent arithmetic. The bytes (the event's 17 bytes, the emitted rows)
-// are tiny beside that. A faster design stages tiles of events in shared
-// memory and, for sequences, skips runs of events that no slot can use
-// (ROADMAP.md Queue 2, K4).
+// depends on event i's slot state, so the pool walks the events one after
+// another on one SM; each event costs the dependent arithmetic of a slot's
+// transition plus the pool-wide ranks (emission order, lowest free slot,
+// fork targets). The bytes (an event's 17 bytes and its columns, the
+// emitted rows) are tiny beside that.
+//
+// Design, against that bound:
+// - One warp per pool at S <= 64 (R = ceil(S / 32) slots a lane, slot
+//   r * 32 + lane, so that slot order is register-major, lane-minor). The
+//   pool-wide ranks are popcounts of R `__ballot_sync` words held in every
+//   lane's registers: no shared-memory round trip and no block barrier. A
+//   fork's scalar state moves between lanes by `__shfl_sync`; the capture
+//   words ([word][slot] in shared memory) are ordered by `__syncwarp`.
+//   Larger pools take as many warps as they need (R = 2 up to 2,048
+//   slots, more a thread above), with the ballot words in shared memory
+//   and one block barrier an event (three at a fork). One templated kernel
+//   over (multi-warp, R): the barrier code compiles out at one warp.
+// - Event tiles: each warp loads 32 events' words (the index entry two
+//   tiles ahead, then ts, valid, the masks one tile ahead) with one
+//   coalesced load a lane and hands each event to every lane with
+//   `__shfl_sync`. The columns of a tile's events (captures and programs
+//   read them) are staged in shared memory one tile ahead with `cp.async`,
+//   so a firing slot reads shared memory, not a dependent global gather.
+// - With no active slot, one ballot over the tile finds the next event
+//   with a first-group bit: idle runs are skipped 32 events at a time.
+// - Each slot keeps its current group's tables (members, bounds, the
+//   groups an advance can reach, the next group's members) in registers
+//   while its step stays; a capture pair is one packed descriptor.
+// - Programs run from a device buffer of their own length through the
+//   read-only cache, with a per-thread stack in shared memory as deep as
+//   the plan's deepest program; they short-circuit `and` and `or`, and
+//   run only for the elements a slot can take at the event. A cross
+//   filter's event-only conjuncts never reach the kernel: they are the
+//   element's mask (compiler/nfa.py).
+// What is left of the bound: per slot, the transition, the captures and
+// the arming are chains of divergent branches and dependent shared-memory
+// reads, with one warp and nothing to hide them (PERF.md §6).
+// With relevance compaction the event list is `idx[0, *cnt)`: the count is
+// read on the device, so the launch needs no host read and a CUDA graph
+// captures it.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxSlots = 1024;
-constexpr int kMaxWarps = kMaxSlots / 32;
 constexpr int kMaxElems = 32;
 constexpr int kMaxPairs = 32;
-constexpr int kMaxIdx = 16;
-constexpr int kMaxCapRows = 64;
-constexpr int kMaxCols = 64;
-constexpr int kMaxCode = 1024;
-constexpr int kMaxStack = 16;
+constexpr int kMaxIdx = 32;
 constexpr int kFixedRows = 7;  // active, step, count, start, last, matched, idxv
-constexpr int kStageWords = 6;  // a fork's staged scalar state
-// an H100 block's shared memory (232,448 bytes) less this kernel's static
-// arrays
-constexpr int kMaxShared = 232448 - 1024;
+constexpr int kStageWords = 6;  // a fork's staged scalar state (multi-warp)
+constexpr int kTile = 32;       // events a tile
+constexpr int kHeader = 20;
+// an H100 block's shared memory (232,448 bytes); the kernel has no static
+// shared arrays
+constexpr int kMaxShared = 232448;
 
-// cuda_ops.SlotScanPlan.words(): header, then fixed-size tables
+// cuda_ops.SlotScanPlan.words(): header, then fixed-size tables. The
+// capture rows' words and the programs follow in a buffer of their own
+// (`aux`).
 struct SlotPlan {
   int K, G, S, seq, every, grouped, has_within, within;
-  int marked, P, I, n_cols, n_rows, mbits, has_cross, n_code;
+  int marked, P, I, n_cols, n_rows, mbits, cross_mask, n_aux;
+  int depth, n_cap_rows, pad0, pad1;
   int gmask[kMaxElems];   // per group: its member elements' bits
   int gand[kMaxElems];    // per group: an 'and' group
   int mins[kMaxElems];
   int maxs[kMaxElems];
   int pre[kMaxElems + 1];  // min-count prefix sums
-  int cross_off[kMaxElems];  // per element: its program in code, or -1
+  // per group: the members of every group an advance from it can reach
+  // (the next group and the optional ones after it)
+  int reach[kMaxElems];
+  int cross_off[kMaxElems];  // per element: its program in aux
   int cross_len[kMaxElems];
   int cross_ref[kMaxElems];  // matched bits the filter needs
   int cross_idx[kMaxElems];  // indexed-capture validity bits it needs
   int pair_elem[kMaxPairs];
-  int pair_col[kMaxPairs];
-  int pair_group[kMaxPairs];
-  int pair_single[kMaxPairs];
+  // per pair: its column | single-member group << 20 | its group << 21
+  int pair_desc[kMaxPairs];
   int elem_pairs[kMaxElems];  // per element: its capture pairs' bits
   int elem_idx[kMaxElems];    // per element: its indexed captures' bits
   int idx_elem[kMaxIdx];
-  int idx_pair[kMaxIdx];
   int idx_k[kMaxIdx];
-  int cap_kind[kMaxCapRows];   // 0 first, 1 last, 2 indexed
-  int cap_index[kMaxCapRows];  // pair, or indexed capture
-  int code[kMaxCode];
+  int idx_col[kMaxIdx];  // per indexed capture: its column
 };
 constexpr int kPlanWords = sizeof(SlotPlan) / 4;
+static_assert(kPlanWords == kHeader + 17 * 32 + 1, "SlotPlan layout");
+constexpr int kColMask = (1 << 20) - 1;
+constexpr int kRowRegs = 8;  // emission capture rows whose words stay in
+                             // registers
 
 // slot_program.py's opcodes
 enum Op {
@@ -103,6 +123,7 @@ enum Op {
   kEqI, kNeI, kLtI, kLeI, kGtI, kGeI,
   kEqF, kNeF, kLtF, kLeF, kGtF, kGeF,
   kAnd, kOr, kNot, kAndJ, kOrJ,
+  kDivI, kModI, kDivF, kModF,
 };
 
 __device__ __forceinline__ float f32(int w) { return __int_as_float(w); }
@@ -110,23 +131,58 @@ __device__ __forceinline__ int w32(float f) { return __float_as_int(f); }
 __device__ __forceinline__ unsigned u32(int w) {
   return static_cast<unsigned>(w);
 }
+__device__ __forceinline__ int sgn(int x) { return (x > 0) - (x < 0); }
 
-// One program for slot s at event e: 0 or 1. The top of the stack lives
-// in a register, the values under it in `st`.
-__device__ int run_program(const int* code, int len,
-                           const int* __restrict__ cols, long long E, int e,
-                           const int* caps, int S, int s) {
-  int st[kMaxStack];
+// XLA's integer division and remainder: x / 0 = -1, x % 0 = x,
+// INT_MIN / -1 = INT_MIN, INT_MIN % -1 = 0 (C++ leaves them undefined)
+__device__ __forceinline__ int xla_div(int a, int b) {
+  if (b == 0) return -1;
+  if (b == -1) return static_cast<int>(0u - u32(a));
+  return a / b;
+}
+__device__ __forceinline__ int xla_rem(int a, int b) {
+  if (b == 0) return a;
+  if (b == -1) return 0;
+  return a % b;
+}
+// jnp.floor_divide on int32
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = xla_div(a, b);
+  const bool adj = sgn(a) != sgn(b) && xla_rem(a, b) != 0;
+  return adj ? static_cast<int>(u32(q) - 1u) : q;
+}
+// jnp.mod on int32 (a zero divisor becomes 1: the result is 0)
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int d = b == 0 ? 1 : b;
+  const int t = xla_rem(a, d);
+  const bool plus = ((t < 0) != (d < 0)) && t != 0;
+  return plus ? static_cast<int>(u32(t) + u32(d)) : t;
+}
+// jnp.mod on float32: fmodf, then the divisor added when the signs differ
+__device__ __forceinline__ float fmod_floor(float a, float b) {
+  const float t = fmodf(a, b);
+  const bool plus = ((t < 0.f) != (b < 0.f)) && t != 0.f;
+  return plus ? __fadd_rn(t, b) : t;
+}
+
+// One program for slot s at the event whose columns are ev[c * kTile]:
+// 0 or 1. The top of the stack lives in a register, the values under it
+// in `st` (this thread's column of a [depth][threads] array).
+__device__ __forceinline__ int run_program(const int* __restrict__ code,
+                                           int len, const int* ev,
+                                           const int* caps, int S, int s,
+                                           int* st, int T) {
   int sp = 0;
   int top = 0;
   for (int pc = 0; pc < len; ++pc) {
-    const int w = code[pc];
+    const int w = __ldg(code + pc);
     const int op = w & 0xff;
     const int arg = w >> 8;
     if (op <= kCap) {  // a load: push
-      st[sp++] = top;
-      top = op == kLit ? code[++pc]
-            : op == kEvt ? __ldg(cols + arg * E + e)
+      st[sp * T] = top;
+      ++sp;
+      top = op == kLit ? __ldg(code + ++pc)
+            : op == kEvt ? ev[arg * kTile]
                          : caps[arg * S + s];
     } else if (op == kI2F) {
       top = w32(__int2float_rn(top));
@@ -140,7 +196,8 @@ __device__ int run_program(const int* code, int len,
       // the left operand decides: skip the right one and its and/or
       if (top == (op == kOrJ ? 1 : 0)) pc += arg;
     } else {
-      const int a = st[--sp];
+      --sp;
+      const int a = st[sp * T];
       const int b = top;
       switch (op) {
         case kAddI: top = static_cast<int>(u32(a) + u32(b)); break;
@@ -149,6 +206,10 @@ __device__ int run_program(const int* code, int len,
         case kAddF: top = w32(__fadd_rn(f32(a), f32(b))); break;
         case kSubF: top = w32(__fsub_rn(f32(a), f32(b))); break;
         case kMulF: top = w32(__fmul_rn(f32(a), f32(b))); break;
+        case kDivI: top = floor_div(a, b); break;
+        case kModI: top = floor_mod(a, b); break;
+        case kDivF: top = w32(__fdiv_rn(f32(a), f32(b))); break;
+        case kModF: top = w32(fmod_floor(f32(a), f32(b))); break;
         case kEqI: top = a == b; break;
         case kNeI: top = a != b; break;
         case kLtI: top = a < b; break;
@@ -170,39 +231,86 @@ __device__ int run_program(const int* code, int len,
   return top;
 }
 
-// The slot holding the k-th (0-based) set bit of the warp masks m[0..nw).
-__device__ __forceinline__ int nth_slot(const unsigned* m, int nw, int k) {
-  for (int w = 0; w < nw; ++w) {
-    const int c = __popc(m[w]);
-    if (k < c) {
-      unsigned x = m[w];
-      for (int j = 0; j < k; ++j) x &= x - 1;  // drop the k lowest bits
-      return w * 32 + __ffs(x) - 1;
-    }
+// The position of the k-th (0-based) set bit of x (k < popc(x)).
+__device__ __forceinline__ int nth_bit(unsigned x, int k) {
+  for (int j = 0; j < k; ++j) x &= x - 1;  // drop the k lowest bits
+  return __ffs(x) - 1;
+}
+
+// The slot holding the k-th (0-based) set bit of the slot-ordered words
+// m[0..n) in shared memory; -1 past the last.
+__device__ __forceinline__ int nth_slot(const unsigned* m, int n, int k) {
+  for (int q = 0; q < n; ++q) {
+    const int c = __popc(m[q]);
+    if (k < c) return q * 32 + nth_bit(m[q], k);
     k -= c;
   }
   return -1;
 }
 
-struct Event {
-  int e, ts, m, me;
-  bool valid;
-};
-
-__device__ __forceinline__ Event load_event(
-    int e, const int* __restrict__ ts, const unsigned char* __restrict__ valid,
-    const int* __restrict__ mword, const int* __restrict__ eword) {
-  Event ev;
-  ev.e = e;
-  ev.ts = __ldg(ts + e);
-  ev.valid = __ldg(valid + e) != 0;
-  ev.m = __ldg(mword + e);
-  ev.me = __ldg(eword + e);
-  return ev;
+// The same over R words in registers (one warp's pool).
+template <int R>
+__device__ __forceinline__ int nth_slot_reg(const unsigned (&m)[R], int k) {
+  int out = -1;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int c = __popc(m[q]);
+    if (out < 0) {
+      if (k < c) {
+        out = q * 32 + nth_bit(m[q], k);
+      } else {
+        k -= c;
+      }
+    }
+  }
+  return out;
 }
 
-__global__ void __launch_bounds__(kMaxSlots)
-slot_nfa_kernel(const int* __restrict__ plan_g,
+struct SlotState {
+  int act, step, cnt, start, last, matched, idxv;
+};
+
+// A slot's current group's tables, kept in registers while its step
+// stays: its members, 'and' (as a mask: -1 or 0), count bounds, min-count
+// prefix, the members an advance can reach, and the next group's members
+// and 'and'
+struct StepInfo {
+  int gm, andm, min, max, from, reach, ngm, nandm;
+};
+
+// One slot's move at one event, before the pool-wide ranks.
+struct Move {
+  int absorb, advance, eob, killed, mtl, emit, fork, alloc, act2;
+  int adv_t, fire_e, step, cnt, start, last, matched, idxv;
+};
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+template <bool kMulti>
+__device__ __forceinline__ void pool_sync() {
+  if (kMulti) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kValidBit = static_cast<int>(0x80000000u);
+
+template <bool kMulti, int R>
+__global__ void __launch_bounds__(kMulti ? 1024 : 32)
+slot_nfa_kernel(const int* __restrict__ plan_g, const int* __restrict__ aux,
                 const int* __restrict__ state_in,
                 const int* __restrict__ scal_in, const int* __restrict__ ts,
                 const unsigned char* __restrict__ valid,
@@ -212,351 +320,644 @@ slot_nfa_kernel(const int* __restrict__ plan_g,
                 int* __restrict__ state_out, int* __restrict__ scal_out,
                 int* __restrict__ buf) {
   extern __shared__ int smem[];
-  __shared__ unsigned s_emit[2][kMaxWarps];
-  __shared__ unsigned s_free[2][kMaxWarps];
-  __shared__ unsigned s_alloc[2][kMaxWarps];
   const SlotPlan& pl = *reinterpret_cast<const SlotPlan*>(smem);
-  const int S = blockDim.x;
-  const int s = threadIdx.x;
-  for (int i = s; i < kPlanWords; i += S) smem[i] = __ldg(plan_g + i);
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int NQ = (T >> 5) * R;  // ballot words, slot order
+  for (int i = tid; i < kPlanWords; i += T) smem[i] = __ldg(plan_g + i);
   __syncthreads();
   // the plan's scalars, read once
+  const int S = pl.S;
   const int K = pl.K, G = pl.G, P = pl.P, I = pl.I;
   const int ncw = 2 * P + I;
   const bool seq = pl.seq, every = pl.every, grouped = pl.grouped;
-  const bool has_within = pl.has_within, has_cross = pl.has_cross;
+  const bool has_within = pl.has_within;
   const bool mbits = pl.mbits;
   const int within = pl.within, marked = pl.marked, n_cols = pl.n_cols;
-  const int n_rows = pl.n_rows, gmask0 = pl.gmask[0];
+  const int gmask0 = pl.gmask[0];
+  const int cross_mask = pl.cross_mask;
   const int max_last = pl.maxs[G - 1], min_last = pl.mins[G - 1];
   const int pre_end = pl.pre[G];
-  int* caps = smem + kPlanWords;  // [ncw][S]
-  int* stage = caps + ncw * S;    // [kStageWords][S], forks only
+  int* cap_word = smem + kPlanWords;    // per emission capture row: its word
+  int* caps = cap_word + pl.n_cap_rows;  // [ncw][S]
+  int* stack = caps + ncw * S;          // [depth][T]
+  int* colt = stack + pl.depth * T;     // [2][n_cols][kTile]
+  int* stage = colt + 2 * n_cols * kTile;  // [kStageWords][S]: multi, forks
+  unsigned* bal = reinterpret_cast<unsigned*>(
+      stage + (kMulti && marked ? kStageWords * S : 0));  // [2][3][NQ]
+  int* my_stack = stack + tid;
+  const int* prog = aux;  // the programs (their offsets count from aux)
   const long long M = static_cast<long long>(E) + S;
   const long long LE = E;
+  const unsigned lt_mask = (1u << lane) - 1;
 
-  bool act = state_in[s] != 0;
-  int step = state_in[S + s];
-  int cnt_ = state_in[2 * S + s];
-  int start = state_in[3 * S + s];
-  int last = state_in[4 * S + s];
-  int matched = state_in[5 * S + s];
-  int idxv = state_in[6 * S + s];
-  for (int w = 0; w < ncw; ++w) {
-    caps[w * S + s] = state_in[(kFixedRows + w) * S + s];
+  for (int i = tid; i < pl.n_cap_rows; i += T) cap_word[i] = __ldg(aux + i);
+  // the first kRowRegs capture rows' words, in registers
+  const int n_cap_rows = pl.n_cap_rows;
+  int cwr[kRowRegs];
+#pragma unroll
+  for (int i = 0; i < kRowRegs; ++i) {
+    cwr[i] = i < n_cap_rows ? __ldg(aux + i) : 0;
   }
+  auto step_info = [&](int step) -> StepInfo {
+    const int sc = min(max(step, 0), G - 1);
+    const int nx = min(max(step + 1, 1), G - 1);
+    const bool has_next = max(step + 1, 1) < G;
+    return StepInfo{pl.gmask[sc], pl.gand[sc] ? -1 : 0, pl.mins[sc],
+                    pl.maxs[sc], pl.pre[min(max(step + 1, 0), G)],
+                    pl.reach[sc], has_next ? pl.gmask[nx] : 0,
+                    has_next && pl.gand[nx] ? -1 : 0};
+  };
+  // the fired element's capture words of a slot that moved by `o` (its
+  // count before the event: old_cnt), written to slot t
+  auto take_caps = [&](const Move& o, int old_cnt, const int* ev, int t) {
+    const int fe = o.fire_e;
+    for (unsigned mk = pl.elem_pairs[fe]; mk; mk &= mk - 1) {
+      const int p = __ffs(mk) - 1;
+      const int d = pl.pair_desc[p];
+      const int v = ev[(d & kColMask) * kTile];
+      if (!((d >> 20) & 1) || (o.advance && o.adv_t == (d >> 21)) ||
+          old_cnt == 0) {
+        caps[2 * p * S + t] = v;
+      }
+      caps[(2 * p + 1) * S + t] = v;
+    }
+    if (I) {
+      for (unsigned mk = pl.elem_idx[fe]; mk; mk &= mk - 1) {
+        const int jj = __ffs(mk) - 1;
+        if (o.cnt == pl.idx_k[jj] + 1) {
+          caps[(2 * P + jj) * S + t] = ev[pl.idx_col[jj] * kTile];
+        }
+      }
+    }
+  };
+  // capture word w of slot s as it would be after take_caps (for a fork
+  // that emits: its prefix keeps the old words)
+  auto cap_new = [&](const Move& o, int old_cnt, const int* ev, int s,
+                     int w) -> int {
+    const int old = caps[w * S + s];
+    const int fe = o.fire_e;
+    if (fe < 0) return old;
+    if (w < 2 * P) {
+      const int p = w >> 1;
+      if (pl.pair_elem[p] != fe) return old;
+      const int d = pl.pair_desc[p];
+      if ((w & 1) == 0 && ((d >> 20) & 1) &&
+          !((o.advance && o.adv_t == (d >> 21)) || old_cnt == 0)) {
+        return old;
+      }
+      return ev[(d & kColMask) * kTile];
+    }
+    const int jj = w - 2 * P;
+    if (pl.idx_elem[jj] != fe || o.cnt != pl.idx_k[jj] + 1) return old;
+    return ev[pl.idx_col[jj] * kTile];
+  };
+
+  SlotState sl[R];
+  StepInfo si[R];
+  bool exists[R];
+  unsigned vmask[R];  // the existing slots of each of this warp's words
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = (warp * R + r) * 32 + lane;
+    exists[r] = s < S;
+    vmask[r] = __ballot_sync(kFull, exists[r]);
+    if (exists[r]) {
+      sl[r].act = state_in[s] != 0;
+      sl[r].step = state_in[S + s];
+      sl[r].cnt = state_in[2 * S + s];
+      sl[r].start = state_in[3 * S + s];
+      sl[r].last = state_in[4 * S + s];
+      sl[r].matched = state_in[5 * S + s];
+      sl[r].idxv = state_in[6 * S + s];
+      for (int w = 0; w < ncw; ++w) {
+        caps[w * S + s] = state_in[(kFixedRows + w) * S + s];
+      }
+    } else {
+      sl[r] = SlotState{0, 0, 0, 0, 0, 0, 0};
+    }
+    si[r] = step_info(sl[r].step);
+  }
+  int par = 0;  // the ballot words' buffer (multi-warp), flipped by each
+                // event that uses it
   bool done = scal_in[0] != 0;
   bool started = scal_in[1] != 0;
   unsigned overflow = u32(scal_in[2]);
   long long n0 = 0;
-
-  const int warp = s >> 5;
-  const int lane = s & 31;
-  const int nw = (S + 31) >> 5;
-  const unsigned lanes =
-      (warp == nw - 1 && (S & 31)) ? ((1u << (S & 31)) - 1) : 0xffffffffu;
-  const unsigned lt_mask = (1u << lane) - 1;
   const int n_ev = idx != nullptr ? min(max(__ldg(cnt), 0), E) : E;
 
-  // one event ahead: its words; two ahead: its index
-  int e1 = 0;
-  Event cur = {};
-  if (n_ev > 0) {
-    cur = load_event(idx != nullptr ? __ldg(idx) : 0, ts, valid, mword,
-                     eword);
-    e1 = n_ev > 1 ? (idx != nullptr ? __ldg(idx + 1) : 1) : 0;
+  // whether any slot is active (every thread knows it)
+  bool any_active;
+  {
+    bool mine = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) mine = mine || sl[r].act;
+    any_active = kMulti ? __syncthreads_or(mine) != 0
+                        : __any_sync(kFull, mine);
   }
-  // whether any slot is active (known to every thread: the ballots)
-  bool any_active = __syncthreads_or(act) != 0;
-  int par = 0;  // the ballot buffers' parity, flipped by each event that
-                // uses them (a skipped event uses none)
-  for (int i = 0; i < n_ev; ++i) {
-    const int e2 = i + 2 < n_ev ? (idx != nullptr ? __ldg(idx + i + 2) : i + 2)
-                                : 0;
-    const Event nxt = i + 1 < n_ev ? load_event(e1, ts, valid, mword, eword)
-                                   : cur;
-    if (s < n_cols && i + 1 < n_ev) {
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(cols + s * LE + e1));
-    }
-    const int e = cur.e;
-    const int ts_e = cur.ts;
-    const bool v_e = cur.valid;
-    if (!any_active && (cur.m & gmask0) == 0) {
-      // no slot to advance and nothing to arm: the event changes only
-      // `started` (a non-every pattern's, no partial alive) — the same
-      // for every thread, so no barrier
-      started = started && done;
-      cur = nxt;
-      e1 = e2;
-      continue;
-    }
 
-    // -- this slot's transition -------------------------------------------
-    bool absorb = false, advance = false, eob = false, killed = false;
-    bool alf = false, mtl = false;
-    int adv_t = G, fire_e = -1, eff = cur.m;
-    int new_step = step, new_cnt = cnt_, new_last = last;
-    int new_matched = matched, new_idxv = idxv, new_start = start;
-    if (act) {
-      int effe = cur.me;
-      if (has_cross) {
-        int clear = 0;
-        for (int k = 0; k < K; ++k) {
-          if (pl.cross_off[k] < 0) continue;
-          bool ok = run_program(pl.code + pl.cross_off[k], pl.cross_len[k],
-                                cols, LE, e, caps, S, s) != 0;
-          const int ref = pl.cross_ref[k], iref = pl.cross_idx[k];
-          ok = ok && (matched & ref) == ref && (idxv & iref) == iref;
-          if (!ok) clear |= 1 << k;
+  auto ev_index = [&](int i) -> int {
+    return i < n_ev ? (idx != nullptr ? __ldg(idx + i) : i) : 0;
+  };
+  // a tile's columns into colt[b]: lane j's event's, this warp's columns
+  auto stage_cols = [&](int b, int base, int e) {
+    if (base + lane < n_ev) {
+      for (int c = kMulti ? warp : 0; c < n_cols; c += T >> 5) {
+        cp_async4(colt + (b * n_cols + c) * kTile + lane, cols + c * LE + e);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this lane's event of the current tile and of the next; the index
+  // entry two tiles ahead
+  int te = ev_index(lane);
+  int te1 = ev_index(kTile + lane);
+  int tts = 0, tmv = 0, tme = 0;
+  if (lane < n_ev) {
+    tts = __ldg(ts + te);
+    tmv = __ldg(mword + te) | (__ldg(valid + te) ? kValidBit : 0);
+    tme = __ldg(eword + te);
+  }
+  stage_cols(0, 0, te);
+
+  for (int base = 0; base < n_ev; base += kTile) {
+    const int cb = (base / kTile) & 1;
+    const int nb = base + kTile;
+    // the next tile's words, used at the next tile
+    const int ne = te1;
+    te1 = ev_index(nb + kTile + lane);
+    int nts = 0, nmv = 0, nme = 0;
+    if (nb + lane < n_ev) {
+      nts = __ldg(ts + ne);
+      nmv = __ldg(mword + ne) | (__ldg(valid + ne) ? kValidBit : 0);
+      nme = __ldg(eword + ne);
+    }
+    // the next tile's columns, into the buffer the previous tile read
+    pool_sync<kMulti>();
+    stage_cols(cb ^ 1, nb, ne);
+    cp_async_wait1();  // this tile's columns have landed
+    pool_sync<kMulti>();
+    const int* ct = colt + cb * n_cols * kTile;
+    const int nin = min(kTile, n_ev - base);
+
+    for (int j = 0; j < nin; ++j) {
+      if (!any_active) {
+        // no slot to advance: the next event with a first-group bit; the
+        // events before it change only `started` (a non-every pattern's,
+        // no partial alive), the same for every thread
+        const unsigned arm =
+            __ballot_sync(kFull, (tmv & gmask0) != 0 && lane >= j &&
+                                     lane < nin);
+        if (arm == 0) {
+          started = started && done;
+          break;
         }
-        eff &= ~clear;
-        effe &= ~clear;
+        const int jn = __ffs(arm) - 1;
+        if (jn > j) started = started && done;
+        j = jn;
       }
-      if (has_within && v_e) {
-        const int span = static_cast<int>(u32(ts_e) - u32(start));
-        if (span > within) act = false;
-      }
-      if (act) {
-        const int sc = min(max(step, 0), G - 1);
-        const int gm = pl.gmask[sc];
-        const bool m_at =
-            (pl.gand[sc] ? (eff & ~matched & gm) : (eff & gm)) != 0;
-        absorb = v_e && m_at && cnt_ < pl.maxs[sc];
-        const bool can_leave = cnt_ >= pl.mins[sc];
-        const int from = pl.pre[min(max(step + 1, 0), G)];
-        if (v_e && can_leave) {
-          // smallest t > step whose entry mask matches, every group in
-          // between optional
-          for (int t = max(step + 1, 1); t < G && pl.pre[t] == from; ++t) {
-            if (effe & pl.gmask[t]) {
-              adv_t = t;
-              break;
+      const int ts_e = __shfl_sync(kFull, tts, j);
+      const int mv = __shfl_sync(kFull, tmv, j);
+      const int me = __shfl_sync(kFull, tme, j);
+      const bool v_e = mv < 0;
+      const int m = mv & 0x7fffffff;
+      const int* ev = ct + j;  // column c of the event: ev[c * kTile]
+
+      // -- each slot's transition ---------------------------------------
+      Move mv_[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int s = (warp * R + r) * 32 + lane;
+        const SlotState& x = sl[r];
+        const StepInfo& c = si[r];
+        Move& o = mv_[r];
+        o.absorb = o.advance = o.eob = o.killed = o.mtl = 0;
+        o.adv_t = G;
+        o.fire_e = -1;
+        o.step = x.step;
+        o.cnt = x.cnt;
+        o.start = x.start;
+        o.last = x.last;
+        o.matched = x.matched;
+        o.idxv = x.idxv;
+        bool act = x.act;
+        if (act && has_within && v_e) {
+          const int span = static_cast<int>(u32(ts_e) - u32(x.start));
+          if (span > within) act = false;
+        }
+        int alf = 0;
+        // (a register whose lanes are all idle skips the whole move: a
+        // warp-uniform branch, no divergence)
+        if (__any_sync(kFull, act) && act) {
+          int eff = m, effe = me;
+          // the cross filters of the elements this slot can take at this
+          // event (absorb at its group, advance into a reachable one):
+          // another element's filter cannot change the slot's move
+          unsigned need = u32(m & (c.gm | c.reach) & cross_mask);
+          if (need) {
+            int clear = 0;
+            for (; need; need &= need - 1) {
+              const int k = __ffs(need) - 1;
+              const int ref = pl.cross_ref[k], iref = pl.cross_idx[k];
+              bool ok = (x.matched & ref) == ref && (x.idxv & iref) == iref;
+              ok = ok && run_program(prog + pl.cross_off[k], pl.cross_len[k],
+                                     ev, caps, S, s, my_stack, T) != 0;
+              if (!ok) clear |= 1 << k;
+            }
+            eff &= ~clear;
+            effe &= ~clear;
+          }
+          const bool m_at = (eff & c.gm & ~(x.matched & c.andm)) != 0;
+          o.absorb = v_e && m_at && x.cnt < c.max;
+          const bool can_leave = x.cnt >= c.min;
+          if (v_e && can_leave && (effe & c.reach)) {
+            // smallest t > step whose entry mask matches, every group in
+            // between optional (the next group's, most often)
+            if (effe & c.ngm) {
+              o.adv_t = max(x.step + 1, 1);
+            } else {
+              for (int t = max(x.step + 2, 2); t < G && pl.pre[t] == c.from;
+                   ++t) {
+                if (effe & pl.gmask[t]) {
+                  o.adv_t = t;
+                  break;
+                }
+              }
+            }
+          }
+          o.advance = !o.absorb && o.adv_t < G;
+          const int cnt_a = x.cnt + (o.absorb ? 1 : 0);
+          alf = x.step == G - 1 && cnt_a >= max_last && cnt_a >= min_last;
+          o.mtl = o.advance && o.adv_t == G - 1 && max_last == 1;
+          if (seq && v_e && !o.absorb && !o.advance) {
+            o.killed = 1;
+            o.eob = can_leave && pre_end == c.from;
+          }
+          if (o.absorb) o.cnt = x.cnt + 1;
+          if (o.advance) {
+            o.step = o.adv_t;
+            o.cnt = 1;
+          }
+          if (o.absorb || o.advance) {
+            o.last = ts_e;
+            int cand;
+            if (o.absorb) {
+              cand = eff & c.gm & ~(x.matched & c.andm);
+            } else if (o.adv_t == max(x.step + 1, 1)) {
+              cand = eff & c.ngm & ~(x.matched & c.nandm);
+            } else {
+              cand = eff & pl.gmask[o.adv_t];
+              if (pl.gand[o.adv_t]) cand &= ~x.matched;
+            }
+            if (cand) {
+              o.fire_e = __ffs(cand) - 1;
+              o.matched |= 1 << o.fire_e;
+              if (I) {
+                for (unsigned mk = pl.elem_idx[o.fire_e]; mk; mk &= mk - 1) {
+                  const int jj = __ffs(mk) - 1;
+                  if (o.cnt == pl.idx_k[jj] + 1) o.idxv |= 1 << jj;
+                }
+              }
             }
           }
         }
-        advance = !absorb && adv_t < G;
-        const int cnt_a = cnt_ + (absorb ? 1 : 0);
-        alf = step == G - 1 && cnt_a >= max_last && cnt_a >= min_last;
-        mtl = advance && adv_t == G - 1 && max_last == 1;
-        if (seq && v_e && !absorb && !advance) {
-          killed = true;
-          eob = can_leave && pre_end == from;
+        o.emit = o.eob || alf || o.mtl;
+        o.fork = o.advance && ((marked >> o.adv_t) & 1);
+        o.act2 = act && !((o.emit && !o.fork) || o.killed);
+        o.alloc = o.fork && !o.mtl;
+      }
+
+      // -- the pool-wide ranks, in slot order --------------------------------
+      unsigned be[R], bf[R], ba[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        be[r] = __ballot_sync(kFull, mv_[r].emit);
+        bf[r] = __ballot_sync(kFull, !mv_[r].act2) & vmask[r];
+        ba[r] = __ballot_sync(kFull, mv_[r].alloc);
+      }
+      int n_emit = 0, n_free = 0, n_alloc = 0;
+      int e_base = 0, f_base = 0, a_base = 0;  // words before this warp's
+      unsigned* wb = bal + par * 3 * NQ;
+      par ^= 1;
+      // the slot holding the k-th free slot, slot order
+      auto nth_free = [&](int k) -> int {
+        if constexpr (kMulti) {
+          return nth_slot(wb + NQ, NQ, k);
+        } else {
+          return nth_slot_reg<R>(bf, k);
         }
-        if (absorb) new_cnt = cnt_ + 1;
-        if (advance) {
-          new_step = adv_t;
-          new_cnt = 1;
-        }
-        if (absorb || advance) {
-          new_last = ts_e;
-          const int fg = absorb ? step : adv_t;
-          int cand = eff & pl.gmask[fg];
-          if (pl.gand[fg]) cand &= ~matched;
-          if (cand) {
-            fire_e = __ffs(cand) - 1;
-            new_matched |= 1 << fire_e;
+      };
+      if constexpr (kMulti) {
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            wb[warp * R + r] = be[r];
+            wb[NQ + warp * R + r] = bf[r];
+            wb[2 * NQ + warp * R + r] = ba[r];
           }
-          if (fire_e >= 0) {
-            for (unsigned mk = pl.elem_idx[fire_e]; mk; mk &= mk - 1) {
-              const int j = __ffs(mk) - 1;
-              if (new_cnt == pl.idx_k[j] + 1) new_idxv |= 1 << j;
+        }
+        __syncthreads();
+        for (int q = 0; q < NQ; ++q) {
+          const int ce = __popc(wb[q]);
+          const int cf = __popc(wb[NQ + q]);
+          const int ca = __popc(wb[2 * NQ + q]);
+          if (q < warp * R) {
+            e_base += ce;
+            f_base += cf;
+            a_base += ca;
+          }
+          n_emit += ce;
+          n_free += cf;
+          n_alloc += ca;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          n_emit += __popc(be[r]);
+          n_free += __popc(bf[r]);
+          n_alloc += __popc(ba[r]);
+        }
+      }
+      int emit_before[R], free_before[R], alloc_before[R];
+      {
+        int ce = e_base, cf = f_base, ca = a_base;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          emit_before[r] = ce + __popc(be[r] & lt_mask);
+          free_before[r] = cf + __popc(bf[r] & lt_mask);
+          alloc_before[r] = ca + __popc(ba[r] & lt_mask);
+          ce += __popc(be[r]);
+          cf += __popc(bf[r]);
+          ca += __popc(ba[r]);
+        }
+      }
+
+      // -- each slot's own captures, then emissions in slot order ------------
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int s = (warp * R + r) * 32 + lane;
+        const Move& o = mv_[r];
+        const int fe = o.fire_e;
+        // a slot that fired takes its new captures (a fork's prefix keeps
+        // its old ones; its advanced instance takes them below)
+        const bool takes = !o.fork && fe >= 0;
+        if (__any_sync(kFull, takes) && takes) {
+          take_caps(o, sl[r].cnt, ev, s);
+        }
+        if (be[r] && o.emit) {
+          const long long pos = n0 + emit_before[r];
+          if (pos < M) {
+            buf[pos] = o.eob ? sl[r].last : ts_e;
+            int rr = 1;
+            if (mbits) {
+              buf[M + pos] = o.matched | (o.idxv << K);
+              rr = 2;
+            }
+            if (o.fork) {
+              // a fork that emits (it completes the pattern) kept its
+              // old captures: its row takes the fired ones here
+              for (int cr = 0; cr < n_cap_rows; ++cr) {
+                buf[(rr + cr) * M + pos] =
+                    cap_new(o, sl[r].cnt, ev, s, cap_word[cr]);
+              }
+            } else {
+#pragma unroll
+              for (int cr = 0; cr < kRowRegs; ++cr) {
+                if (cr < n_cap_rows) {
+                  buf[(rr + cr) * M + pos] = caps[cwr[cr] * S + s];
+                }
+              }
+              for (int cr = kRowRegs; cr < n_cap_rows; ++cr) {
+                buf[(rr + cr) * M + pos] = caps[cap_word[cr] * S + s];
+              }
             }
           }
         }
       }
-    }
-    const bool emit = eob || alf || mtl;
-    const bool fork = advance && ((marked >> adv_t) & 1);
-    bool act2 = act && !((emit && !fork) || killed);
-    const bool alloc = fork && !mtl;
+      n0 = min(n0 + n_emit, M);
 
-    // the new value of capture word w of this slot
-    auto cap_new = [&](int w) -> int {
-      const int old = caps[w * S + s];
-      if (fire_e < 0) return old;
-      if (w < 2 * P) {
-        const int p = w >> 1;
-        if (pl.pair_elem[p] != fire_e) return old;
-        if ((w & 1) == 0 && pl.pair_single[p] &&
-            !((advance && adv_t == pl.pair_group[p]) || cnt_ == 0)) {
-          return old;
+      // -- forks: each placed advanced instance into its free slot ------------
+      // after every slot's own update and emission (the free slot may have
+      // just emitted or fired), hence the first sync; the second orders the
+      // copies before any later read
+      int placed = 0;
+      if (n_alloc > 0) {
+        placed = min(n_alloc, n_free);
+        pool_sync<kMulti>();
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const Move& o = mv_[r];
+          if (!(o.alloc && alloc_before[r] < n_free)) continue;
+          const int s = (warp * R + r) * 32 + lane;
+          const int t = nth_free(alloc_before[r]);
+          if constexpr (kMulti) {
+            stage[t] = o.step;
+            stage[S + t] = o.cnt;
+            stage[2 * S + t] = sl[r].start;
+            stage[3 * S + t] = o.last;
+            stage[4 * S + t] = o.matched;
+            stage[5 * S + t] = o.idxv;
+          }
+          for (int w = 0; w < ncw; ++w) caps[w * S + t] = caps[w * S + s];
+          if (o.fire_e >= 0) take_caps(o, sl[r].cnt, ev, t);
         }
-        return __ldg(cols + pl.pair_col[p] * LE + e);
+        pool_sync<kMulti>();
+        if constexpr (kMulti) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            Move& o = mv_[r];
+            if (!o.act2 && exists[r] && free_before[r] < placed) {
+              const int s = (warp * R + r) * 32 + lane;
+              o.act2 = 1;
+              o.step = stage[s];
+              o.cnt = stage[S + s];
+              o.start = stage[2 * S + s];
+              o.last = stage[3 * S + s];
+              o.matched = stage[4 * S + s];
+              o.idxv = stage[5 * S + s];
+            }
+          }
+        } else {
+          // the source of each receiving slot: the (free rank)-th fork in
+          // slot order; its scalar state moves by shuffles
+          int src_lane[R], src_r[R];
+          bool recv[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            recv[r] = !mv_[r].act2 && exists[r] && free_before[r] < placed;
+            const int src = recv[r] ? nth_slot_reg<R>(ba, free_before[r]) : 0;
+            src_lane[r] = src & 31;
+            src_r[r] = src >> 5;
+          }
+          SlotState got[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) got[r] = SlotState{0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+          for (int rs = 0; rs < R; ++rs) {
+            const Move& o = mv_[rs];
+            const int start_rs = sl[rs].start;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const int sl_ = src_lane[r];
+              const int v0 = __shfl_sync(kFull, o.step, sl_);
+              const int v1 = __shfl_sync(kFull, o.cnt, sl_);
+              const int v2 = __shfl_sync(kFull, start_rs, sl_);
+              const int v3 = __shfl_sync(kFull, o.last, sl_);
+              const int v4 = __shfl_sync(kFull, o.matched, sl_);
+              const int v5 = __shfl_sync(kFull, o.idxv, sl_);
+              if (recv[r] && src_r[r] == rs) {
+                got[r] = SlotState{1, v0, v1, v2, v3, v4, v5};
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (recv[r]) {
+              Move& o = mv_[r];
+              o.act2 = 1;
+              o.step = got[r].step;
+              o.cnt = got[r].cnt;
+              o.start = got[r].start;
+              o.last = got[r].last;
+              o.matched = got[r].matched;
+              o.idxv = got[r].idxv;
+            }
+          }
+        }
       }
-      const int j = w - 2 * P;
-      if (pl.idx_elem[j] != fire_e || new_cnt != pl.idx_k[j] + 1) return old;
-      return __ldg(cols + pl.pair_col[pl.idx_pair[j]] * LE + e);
-    };
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        Move& o = mv_[r];
+        if (o.fork) {  // the prefix slot reverts and stays armed
+          o.step = sl[r].step;
+          o.cnt = sl[r].cnt;
+          o.last = sl[r].last;
+          o.matched = sl[r].matched;
+        }
+      }
 
-    const unsigned b_emit = __ballot_sync(lanes, emit);
-    const unsigned b_free = __ballot_sync(lanes, !act2);
-    const unsigned b_alloc = __ballot_sync(lanes, alloc);
-    if (lane == 0) {
-      s_emit[par][warp] = b_emit;
-      s_free[par][warp] = b_free;
-      s_alloc[par][warp] = b_alloc;
-    }
-    __syncthreads();
-    int n_emit = 0, emit_before = 0, n_free = 0, free_before = 0;
-    int n_alloc = 0, alloc_before = 0;
-    for (int w = 0; w < nw; ++w) {
-      const int ce = __popc(s_emit[par][w]);
-      const int cf = __popc(s_free[par][w]);
-      const int ca = __popc(s_alloc[par][w]);
-      if (w < warp) {
-        emit_before += ce;
-        free_before += cf;
-        alloc_before += ca;
+      // -- arming into the lowest free slot ----------------------------------
+      const bool any_act2 = S - n_free + placed > 0;
+      const bool started_now = started && (any_act2 || done);
+      const int m0 = m & gmask0;
+      bool want, any_done;
+      if (every) {
+        any_done = done;
+        want = m0 != 0 && v_e;
+        if (grouped) want = want && !any_act2 && n_emit == 0;
+      } else {
+        any_done = done || n_emit > 0;
+        want = m0 != 0 && v_e && !started_now && !any_done;
       }
-      n_emit += ce;
-      n_free += cf;
-      n_alloc += ca;
-    }
-    emit_before += __popc(b_emit & lt_mask);
-    free_before += __popc(b_free & lt_mask);
-    alloc_before += __popc(b_alloc & lt_mask);
-
-    // -- emissions, in slot order -----------------------------------------
-    if (emit) {
-      const long long pos = n0 + emit_before;
-      if (pos < M) {
-        buf[pos] = eob ? last : ts_e;
-        int r = 1;
-        if (mbits) {
-          buf[M + pos] = new_matched | (new_idxv << K);
-          r = 2;
-        }
-        for (int c = 0; c < n_rows - r; ++c) {
-          const int j = pl.cap_index[c];
-          const int w = pl.cap_kind[c] == 2 ? 2 * P + j
-                                            : 2 * j + pl.cap_kind[c];
-          buf[(r + c) * M + pos] = cap_new(w);
+      const bool has_free = placed < n_free;
+      if (want && has_free) {
+        const int t = nth_free(placed);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int s = (warp * R + r) * 32 + lane;
+          if (s != t) continue;
+          const int arm_e = __ffs(m0) - 1;
+          Move& o = mv_[r];
+          o.act2 = 1;
+          o.step = 0;
+          o.cnt = 1;
+          o.start = ts_e;
+          o.last = ts_e;
+          o.matched = 1 << arm_e;
+          o.idxv = 0;
+          for (unsigned mk = pl.elem_pairs[arm_e]; mk; mk &= mk - 1) {
+            const int p = __ffs(mk) - 1;
+            const int v = ev[(pl.pair_desc[p] & kColMask) * kTile];
+            caps[2 * p * S + s] = v;
+            caps[(2 * p + 1) * S + s] = v;
+          }
         }
       }
-    }
-    n0 = min(n0 + n_emit, M);
-
-    // -- captures, and the forks' placement ---------------------------------
-    // a slot that fired takes its new captures (a fork's prefix keeps its
-    // old ones); then, at an event that forks, each placed fork copies its
-    // advanced instance into its free slot, overwriting that slot's
-    // captures — after every slot's own update and emission (a barrier
-    // between them: the free slot may have just emitted or fired)
-    // the fired element's capture words of this slot, written to slot t
-    auto take_caps = [&](int t) {
-      for (unsigned mk = pl.elem_pairs[fire_e]; mk; mk &= mk - 1) {
-        const int p = __ffs(mk) - 1;
-        const int v = __ldg(cols + pl.pair_col[p] * LE + e);
-        if (!pl.pair_single[p] || (advance && adv_t == pl.pair_group[p]) ||
-            cnt_ == 0) {
-          caps[2 * p * S + t] = v;
-        }
-        caps[(2 * p + 1) * S + t] = v;
-      }
-      for (unsigned mk = pl.elem_idx[fire_e]; mk; mk &= mk - 1) {
-        const int j = __ffs(mk) - 1;
-        if (new_cnt == pl.idx_k[j] + 1) {
-          caps[(2 * P + j) * S + t] =
-              __ldg(cols + pl.pair_col[pl.idx_pair[j]] * LE + e);
-        }
-      }
-    };
-    if (!fork && fire_e >= 0) take_caps(s);
-    int placed = 0;
-    if (n_alloc > 0) {
-      placed = min(n_alloc, n_free);
-      __syncthreads();
-      if (alloc && alloc_before < n_free) {
-        const int t = nth_slot(s_free[par], nw, alloc_before);
-        stage[t] = new_step;
-        stage[S + t] = new_cnt;
-        stage[2 * S + t] = start;
-        stage[3 * S + t] = new_last;
-        stage[4 * S + t] = new_matched;
-        stage[5 * S + t] = new_idxv;
-        for (int w = 0; w < ncw; ++w) caps[w * S + t] = caps[w * S + s];
-        if (fire_e >= 0) take_caps(t);
-      }
-      __syncthreads();
-      if (!act2 && free_before < placed) {
-        act2 = true;
-        new_step = stage[s];
-        new_cnt = stage[S + s];
-        new_start = stage[2 * S + s];
-        new_last = stage[3 * S + s];
-        new_matched = stage[4 * S + s];
-        new_idxv = stage[5 * S + s];
+      overflow += (want && !has_free ? 1u : 0u) + u32(n_alloc - placed);
+      any_active = any_act2 || (want && has_free);
+      started = started_now || want;
+      done = any_done;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const Move& o = mv_[r];
+        const bool moved = o.step != sl[r].step;
+        if (__any_sync(kFull, moved) && moved) si[r] = step_info(o.step);
+        sl[r] = SlotState{o.act2, o.step, o.cnt, o.start, o.last, o.matched,
+                          o.idxv};
       }
     }
-    if (fork) {  // the prefix slot reverts and stays armed
-      new_step = step;
-      new_cnt = cnt_;
-      new_last = last;
-      new_matched = matched;
-    }
-
-    // -- arming into the lowest free slot ----------------------------------
-    const bool any_act2 = S - n_free + placed > 0;
-    const bool started_now = started && (any_act2 || done);
-    const int m0 = cur.m & gmask0;
-    bool want, any_done;
-    if (every) {
-      any_done = done;
-      want = m0 != 0 && v_e;
-      if (grouped) want = want && !any_act2 && n_emit == 0;
-    } else {
-      any_done = done || n_emit > 0;
-      want = m0 != 0 && v_e && !started_now && !any_done;
-    }
-    const bool has_free = placed < n_free;
-    if (want && has_free && s == nth_slot(s_free[par], nw, placed)) {
-      const int arm_e = __ffs(m0) - 1;
-      act2 = true;
-      new_step = 0;
-      new_cnt = 1;
-      new_start = ts_e;
-      new_last = ts_e;
-      new_matched = 1 << arm_e;
-      new_idxv = 0;
-      for (int p = 0; p < P; ++p) {
-        if (pl.pair_elem[p] == arm_e) {
-          const int v = __ldg(cols + pl.pair_col[p] * LE + e);
-          caps[2 * p * S + s] = v;
-          caps[(2 * p + 1) * S + s] = v;
-        }
-      }
-    }
-    overflow += (want && !has_free ? 1u : 0u) + u32(n_alloc - placed);
-    any_active = any_act2 || (want && has_free);
-    par ^= 1;
-    started = started_now || want;
-    done = any_done;
-    act = act2;
-    step = new_step;
-    cnt_ = new_cnt;
-    start = new_start;
-    last = new_last;
-    matched = new_matched;
-    idxv = new_idxv;
-    cur = nxt;
-    e1 = e2;
+    tts = nts;
+    tmv = nmv;
+    tme = nme;
   }
 
-  state_out[s] = act ? 1 : 0;
-  state_out[S + s] = step;
-  state_out[2 * S + s] = cnt_;
-  state_out[3 * S + s] = start;
-  state_out[4 * S + s] = last;
-  state_out[5 * S + s] = matched;
-  state_out[6 * S + s] = idxv;
-  for (int w = 0; w < ncw; ++w) {
-    state_out[(kFixedRows + w) * S + s] = caps[w * S + s];
+  asm volatile("cp.async.wait_all;\n" ::);
+  pool_sync<kMulti>();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!exists[r]) continue;
+    const int s = (warp * R + r) * 32 + lane;
+    state_out[s] = sl[r].act ? 1 : 0;
+    state_out[S + s] = sl[r].step;
+    state_out[2 * S + s] = sl[r].cnt;
+    state_out[3 * S + s] = sl[r].start;
+    state_out[4 * S + s] = sl[r].last;
+    state_out[5 * S + s] = sl[r].matched;
+    state_out[6 * S + s] = sl[r].idxv;
+    for (int w = 0; w < ncw; ++w) {
+      state_out[(kFixedRows + w) * S + s] = caps[w * S + s];
+    }
   }
-  if (s == 0) {
+  if (tid == 0) {
     scal_out[0] = done ? 1 : 0;
     scal_out[1] = started ? 1 : 0;
     scal_out[2] = static_cast<int>(overflow);
     scal_out[3] = static_cast<int>(n0);
+  }
+}
+
+typedef void (*KernelFn)(const int*, const int*, const int*, const int*,
+                         const int*, const unsigned char*, const int*,
+                         const int*, const int*, const int*, const int*, int,
+                         int*, int*, int*);
+
+// The launch shape of a pool of S slots (cuda_ops.slot_launch_shape):
+// one warp at S <= 64, else as many warps of R slots a thread as needed.
+// 0 when the pool is past 1,024 threads x 16 slots.
+int launch_shape(int S, bool* multi, int* R) {
+  if (S <= 32) {
+    *multi = false;
+    *R = 1;
+    return 32;
+  }
+  if (S <= 64) {
+    *multi = false;
+    *R = 2;
+    return 32;
+  }
+  *multi = true;
+  for (int r = 2; r <= 16; r *= 2) {
+    const int warps = (S + 32 * r - 1) / (32 * r);
+    if (warps <= 32) {
+      *R = r;
+      return warps * 32;
+    }
+  }
+  return 0;
+}
+
+KernelFn kernel_of(bool multi, int R) {
+  if (!multi) {
+    return R == 1 ? slot_nfa_kernel<false, 1> : slot_nfa_kernel<false, 2>;
+  }
+  switch (R) {
+    case 2: return slot_nfa_kernel<true, 2>;
+    case 4: return slot_nfa_kernel<true, 4>;
+    case 8: return slot_nfa_kernel<true, 8>;
+    default: return slot_nfa_kernel<true, 16>;
   }
 }
 
@@ -565,58 +966,73 @@ slot_nfa_kernel(const int* __restrict__ plan_g,
 // One micro-batch of the slot NFA. plan_host / plan_dev: the same
 // SlotPlan words (plan_len of them) in host and device memory; the host
 // copy is validated and sizes the launch, the kernel reads the device copy.
-// state: int32 [W, S] (W = 7 + 2P + I), scal: int32 [3] (done, started,
-// overflow); ts, mword, eword: int32 [E]; valid: bool [E]; cols: int32
-// [n_cols, E]; idx: int32 [E] and cnt: int32 [1] on the device (the scan
-// visits idx[0, *cnt)), or both null (every event). Outputs: state_out
-// [W, S], scal_out [4] (done, started, overflow, n), buf int32 [R, E + S]
-// (R = 1 + mbits + capture rows), which the caller zeroes. One launch on
-// `stream`; returns a cudaError_t.
+// aux: the capture rows' words and the programs (aux_len words) on the
+// device. state: int32 [W, S] (W = 7 + 2P + I), scal: int32 [3] (done,
+// started, overflow); ts, mword, eword: int32 [E]; valid: bool [E]; cols:
+// int32 [n_cols, E]; idx: int32 [E] and cnt: int32 [1] on the device (the
+// scan visits idx[0, *cnt)), or both null (every event). Outputs:
+// state_out [W, S], scal_out [4] (done, started, overflow, n), buf int32
+// [R, E + S] (R = 1 + mbits + capture rows), which the caller zeroes. One
+// launch on `stream`; returns a cudaError_t.
 extern "C" int fst_slot_nfa_scan(const int* plan_host, int plan_len,
-                                 const int* plan_dev, const int* state,
+                                 const int* plan_dev, const int* aux,
+                                 int aux_len, const int* state,
                                  const int* scal, const int* ts,
                                  const void* valid, const int* mword,
                                  const int* eword, const int* cols,
                                  const int* idx, const int* cnt, int E, int S,
                                  int* state_out, int* scal_out, int* buf,
                                  int W, int R, void* stream) {
-  static size_t shared_set = 48 * 1024;  // the default dynamic limit
-  if (plan_len != kPlanWords || E < 0 || S < 1 || S > kMaxSlots ||
+  static size_t shared_set[6] = {48 * 1024, 48 * 1024, 48 * 1024,
+                                 48 * 1024, 48 * 1024, 48 * 1024};
+  if (plan_len != kPlanWords || E < 0 || S < 1 || aux_len < 0 ||
       (idx == nullptr) != (cnt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SlotPlan& pl = *reinterpret_cast<const SlotPlan*>(plan_host);
   if (pl.S != S || pl.K < 1 || pl.K > 31 || pl.G < 1 || pl.G > pl.K ||
-      pl.P < 0 || pl.P > kMaxPairs || pl.I < 0 || pl.I > kMaxIdx ||
-      pl.K + pl.I > 31 || pl.n_cols < 0 || pl.n_cols > kMaxCols ||
-      pl.n_code < 0 || pl.n_code > kMaxCode ||
-      W != kFixedRows + 2 * pl.P + pl.I ||
-      R != pl.n_rows || R < 1 + pl.mbits || R - 1 - pl.mbits > kMaxCapRows ||
+      pl.P < 0 || pl.P > kMaxPairs || pl.I < 0 || pl.K + pl.I > 31 ||
+      pl.n_cols < 0 || pl.depth < 0 || pl.n_aux != aux_len ||
+      pl.n_cap_rows < 0 || pl.n_cap_rows > aux_len ||
+      (aux_len > 0 && aux == nullptr) ||
+      W != kFixedRows + 2 * pl.P + pl.I || R != pl.n_rows ||
+      R != 1 + pl.mbits + pl.n_cap_rows ||
       (pl.n_cols > 0 && cols == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int k = 0; k < pl.K; ++k) {
-    if (pl.cross_off[k] >= 0 &&
-        (pl.cross_len[k] < 1 || pl.cross_off[k] + pl.cross_len[k] > pl.n_code)) {
+    if (((pl.cross_mask >> k) & 1) &&
+        (pl.cross_len[k] < 1 || pl.cross_off[k] < pl.n_cap_rows ||
+         pl.cross_off[k] + pl.cross_len[k] > aux_len)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const size_t shared =
-      sizeof(SlotPlan) +
-      sizeof(int) * static_cast<size_t>(S) *
-          (2 * pl.P + pl.I + (pl.marked ? kStageWords : 0));
+  bool multi = false;
+  int Rs = 1;
+  const int T = launch_shape(S, &multi, &Rs);
+  if (T == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t words =
+      static_cast<size_t>(kPlanWords) + pl.n_cap_rows +
+      static_cast<size_t>(S) * (2 * pl.P + pl.I) +
+      static_cast<size_t>(pl.depth) * T + 2 * pl.n_cols * kTile +
+      (multi && pl.marked ? static_cast<size_t>(kStageWords) * S : 0) +
+      (multi ? static_cast<size_t>(6) * (T / 32) * Rs : 0);
+  const size_t shared = 4 * words;
   if (shared > static_cast<size_t>(kMaxShared)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (shared > shared_set) {  // raised once, at the first such launch
+  const KernelFn fn = kernel_of(multi, Rs);
+  const int which = multi ? 1 + (Rs == 2 ? 0 : Rs == 4 ? 1 : Rs == 8 ? 2 : 3)
+                          : (Rs == 1 ? 0 : 5);
+  if (shared > shared_set[which]) {  // raised once, at the first such launch
     const cudaError_t err = cudaFuncSetAttribute(
-        slot_nfa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
-    shared_set = shared;
+    shared_set[which] = shared;
   }
-  slot_nfa_kernel<<<1, S, shared, static_cast<cudaStream_t>(stream)>>>(
-      plan_dev, state, scal, ts, static_cast<const unsigned char*>(valid),
+  fn<<<1, T, shared, static_cast<cudaStream_t>(stream)>>>(
+      plan_dev, aux, state, scal, ts, static_cast<const unsigned char*>(valid),
       mword, eword, cols, idx, cnt, E, state_out, scal_out, buf);
   return static_cast<int>(cudaGetLastError());
 }

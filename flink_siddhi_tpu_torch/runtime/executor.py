@@ -50,6 +50,7 @@ import concurrent.futures
 import logging
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
@@ -73,6 +74,10 @@ from .sources import Source
 from .tape import WireTape, bucket_size, build_wire_tape
 
 _LOG = logging.getLogger(__name__)
+
+# every live Job of the process: a graph capture (any Job's) first waits
+# for their fetch threads' CUDA calls (``Job._settle_drains``)
+_LIVE_JOBS: "weakref.WeakSet[Job]" = weakref.WeakSet()
 
 MAX_WM = np.iinfo(np.int64).max
 MIN_WM = -(2 ** 62)  # pre-first-event watermark sentinel
@@ -341,6 +346,7 @@ class Job:
         # stage-attributed wall clock, drain latency legs, counters
         self.telemetry = MetricsRegistry()
         self._fetch_pool_: Optional[concurrent.futures.Executor] = None
+        _LIVE_JOBS.add(self)
         # the drains' copy streams: counts (issued by the run loop) and
         # data (by the fetch thread), apart so that a data copy never
         # queues behind the counts of a later, unfinished dispatch
@@ -929,10 +935,30 @@ class Job:
             self._drain_poll(rt, block=True)
 
     def _settle_drains(self) -> None:
-        """Complete every queued drain of every plan (before a graph
-        capture: the fetch thread's CUDA calls must not overlap one)."""
+        """Complete every queued drain of every plan, then wait for every
+        other live Job's running fetches (before a graph capture: no fetch
+        thread's CUDA calls may overlap one, whichever Job's)."""
         for rt in self._plans.values():
             self._drain_poll(rt, block=True)
+        for job in list(_LIVE_JOBS):
+            if job is not self:
+                job._await_fetches()
+
+    def _await_fetches(self) -> None:
+        """Wait for the fetches handed to this Job's fetch thread (their
+        results stay queued for its own run loop)."""
+        futs = [entry["fut"] for rt in self._plans.values()
+                for entry in rt.drain_q if "fut" in entry]
+        concurrent.futures.wait(futs)
+
+    def close(self) -> None:
+        """Complete the queued drains and stop the fetch thread (a later
+        drain starts a new one). A Job that is dropped without ``close``
+        stops its thread when it is collected."""
+        self._settle_drains()
+        pool, self._fetch_pool_ = self._fetch_pool_, None
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     def _interval_drain(self) -> None:
         """The staleness pass over plans someone observes: plans whose
@@ -1113,9 +1139,11 @@ class Job:
         run there (the lazy ring locks); sinks only ever run on the run
         loop (``_drain_poll`` emits)."""
         if self._fetch_pool_ is None:
-            self._fetch_pool_ = concurrent.futures.ThreadPoolExecutor(
+            pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="fpt-fetch"
             )
+            weakref.finalize(self, pool.shutdown, False)
+            self._fetch_pool_ = pool
         return self._fetch_pool_
 
     def _advance_ready(self, rt: _PlanRuntime, all_: bool = False) -> None:

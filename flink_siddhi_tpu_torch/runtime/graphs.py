@@ -37,8 +37,16 @@ Per plan runtime, ``SegmentGraphs`` holds:
   constants, the reverse cummin's look-back scratch of that stream), then
   captured on that stream with torch's sync debug mode "error": a step
   that would wait for the device fails the capture, loudly. Before that,
-  ``before_capture`` (the job's) completes every queued drain, so that a
-  capture and the drain fetch thread's CUDA calls never overlap.
+  ``before_capture`` (the job's) completes every queued drain and waits
+  for every other live Job's running fetches, so that a capture and a
+  drain fetch thread's CUDA calls never overlap; and ``capture_guard``
+  collects the process's garbage first and holds the cyclic collector off
+  until the capture ends. A graph capture runs in torch's default
+  "global" mode, where destroying a CUDA graph from any thread
+  invalidates it: a dropped Job's graphs (its runtimes sit in reference
+  cycles) were once collected in the middle of another Job's capture,
+  which then failed ("operation not permitted when stream is capturing",
+  in ``CUDAGraph::reset``).
 
 A segment with a tape whose chain matcher must read its relevant count (a
 host-known bound above the compact width) cannot be captured; it runs its
@@ -60,6 +68,8 @@ path.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -117,6 +127,21 @@ def _copy_into(dst, src) -> None:
         return
     if src is not dst:
         dst.copy_(src)
+
+
+@contextlib.contextmanager
+def capture_guard():
+    """Around a capture: collect the garbage first (a dropped Job's CUDA
+    graphs and events are freed here, not inside the capture) and keep
+    the cyclic collector off until the capture ends."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class Captured:
@@ -283,9 +308,14 @@ class SegmentGraphs:
         if key is None or key in self.graphs:
             return key
         self.before_capture()
+        with capture_guard():
+            self._warm_and_capture(rt, seg, key)
+        return key
+
+    def _warm_and_capture(self, rt, seg: Segment, key: Tuple) -> None:
         if not self.cuda:
             self._keep(key, [None] * len(rt.ring))
-            return key
+            return
         slot = self._slot(seg)
         tapes = seg.tapes(slot)
         with torch.cuda.device(self.device):
@@ -308,7 +338,6 @@ class SegmentGraphs:
         self._keep(key, graphs)
         self.captured += len(graphs)
         self.keys += 1
-        return key
 
     def _keep(self, key: Tuple, graphs: List) -> None:
         self.graphs[key] = graphs

@@ -5,11 +5,11 @@ Run from the root of a checkout on a machine with a GPU and nvcc:
     python3 scripts/k4_phase_profile.py
 
 It builds a copy of ``flink_siddhi_tpu_torch/csrc/slot_nfa.cu`` with
-``clock64()`` markers between the phases of an event (thread 0's view: its
-barrier wait holds the slowest slot's work) into ``build/k4/``, runs it on
-the third step of each of ``chip_smoke.py``'s slot queries over the bench
-stream, checks its outputs against the package's kernel, and prints the
-cycles an event per phase, one JSON line a query (also written to
+``clock64()`` markers between the phases of an event (thread 0's view) into
+``build/k4/``, runs it on the third step of each of ``chip_smoke.py``'s
+slot queries over the bench stream (S = 64: one warp, two slots a lane),
+checks its outputs against the package's kernel, and prints the cycles an
+event per phase, one JSON line a query (also written to
 ``build/k4/phases.json``).
 """
 
@@ -30,37 +30,41 @@ import flink_siddhi_tpu_torch as fpt  # noqa: E402
 from flink_siddhi_tpu_torch.compiler import cuda_ops as co, nfa  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "k4")
-PHASES = ("loads and idle check", "transition", "ballots and barrier",
-          "emission", "captures and forks", "arming and commit",
-          "skipped events")
+PHASES = ("tile loads and column staging", "idle skip and broadcast",
+          "transition", "ranks (ballots)", "emission and captures",
+          "forks", "arming and commit")
 # (anchor in slot_nfa.cu, what the profiled copy puts there); acc[k] sums
 # the cycles of PHASES[k]
 MARKERS = (
-    ("  for (int i = 0; i < n_ev; ++i) {\n",
+    ("  for (int base = 0; base < n_ev; base += kTile) {\n",
      "  unsigned long long acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
-     "  for (int i = 0; i < n_ev; ++i) {\n    long long tc = clock64();\n"),
-    ("      cur = nxt;\n      e1 = e2;\n      continue;",
-     "      cur = nxt;\n      e1 = e2;\n      acc[6] += clock64() - tc;\n"
-     "      continue;"),
-    ("    // -- this slot's transition ---",
-     "    acc[0] += clock64() - tc; tc = clock64();\n    // ---"),
-    ("    const unsigned b_emit = __ballot_sync(lanes, emit);\n",
-     "    acc[1] += clock64() - tc; tc = clock64();\n"
-     "    const unsigned b_emit = __ballot_sync(lanes, emit);\n"),
-    ("    alloc_before += __popc(b_alloc & lt_mask);\n",
-     "    alloc_before += __popc(b_alloc & lt_mask);\n"
-     "    acc[2] += clock64() - tc; tc = clock64();\n"),
-    ("    n0 = min(n0 + n_emit, M);\n",
-     "    n0 = min(n0 + n_emit, M);\n"
-     "    acc[3] += clock64() - tc; tc = clock64();\n"),
-    ("    // -- arming into the lowest free slot ---",
-     "    acc[4] += clock64() - tc; tc = clock64();\n    // ---"),
-    ("    cur = nxt;\n    e1 = e2;\n  }\n",
-     "    acc[5] += clock64() - tc;\n    cur = nxt;\n    e1 = e2;\n  }\n"),
-    ("  state_out[s] = act ? 1 : 0;\n",
-     "  if (s == 0) for (int k = 0; k < 8; ++k) "
+     "  for (int base = 0; base < n_ev; base += kTile) {\n"
+     "    long long tc = clock64();\n"),
+    ("    const int nin = min(kTile, n_ev - base);\n",
+     "    const int nin = min(kTile, n_ev - base);\n"
+     "    acc[0] += clock64() - tc; tc = clock64();\n"),
+    ("          started = started && done;\n          break;\n",
+     "          started = started && done;\n"
+     "          acc[1] += clock64() - tc; tc = clock64();\n          break;\n"),
+    ("      const int* ev = ct + j;  // column c of the event: ev[c * kTile]\n",
+     "      const int* ev = ct + j;\n"
+     "      acc[1] += clock64() - tc; tc = clock64();\n"),
+    ("      // -- the pool-wide ranks, in slot order ---",
+     "      acc[2] += clock64() - tc; tc = clock64();\n      // ---"),
+    ("      // -- each slot's own captures, then emissions in slot order ---",
+     "      acc[3] += clock64() - tc; tc = clock64();\n      // ---"),
+    ("      n0 = min(n0 + n_emit, M);\n",
+     "      n0 = min(n0 + n_emit, M);\n"
+     "      acc[4] += clock64() - tc; tc = clock64();\n"),
+    ("      // -- arming into the lowest free slot ---",
+     "      acc[5] += clock64() - tc; tc = clock64();\n      // ---"),
+    ("                          o.idxv};\n      }\n    }\n",
+     "                          o.idxv};\n      }\n"
+     "      acc[6] += clock64() - tc; tc = clock64();\n    }\n"),
+    ("  if (tid == 0) {\n    scal_out[0]",
+     "  if (tid == 0) for (int k = 0; k < 8; ++k) "
      "reinterpret_cast<unsigned long long*>(scal_out + 4)[k] = acc[k];\n"
-     "  state_out[s] = act ? 1 : 0;\n"),
+     "  if (tid == 0) {\n    scal_out[0]"),
 )
 
 
@@ -103,7 +107,7 @@ def profile(fn, args):
     per phase, and whether its outputs equal the package kernel's."""
     plan, state, scal, ts, valid, mword, eword, cols, idx, cnt = args
     E, S = int(ts.shape[0]), plan.slots
-    host, dev = co.slot_nfa_scan.plan_buffers(plan, ts.device)
+    host, dev, aux, n_aux = co.slot_nfa_scan.plan_buffers(plan, ts.device)
     state_o = torch.empty_like(state)
     scal_o = torch.zeros(4 + 16, dtype=torch.int32, device=ts.device)
     buf = torch.zeros((plan.buf_rows, E + S), dtype=torch.int32,
@@ -111,7 +115,7 @@ def profile(fn, args):
 
     def call():
         err = fn(ctypes.addressof(host), len(host), dev.data_ptr(),
-                 state.data_ptr(), scal.data_ptr(), ts.data_ptr(),
+                 aux.data_ptr(), n_aux, state.data_ptr(), scal.data_ptr(), ts.data_ptr(),
                  valid.data_ptr(), mword.data_ptr(), eword.data_ptr(),
                  cols.data_ptr() if plan.n_cols else 0,
                  idx.data_ptr() if idx is not None else 0,
