@@ -11,9 +11,9 @@ of JAX and nothing of the JAX package. Phases, each failing the run on any
 fault:
 
 1. device: the card's name and power limit;
-2. build: the four kernels (and empty ones: the launch floor, and the
+2. build: the five kernels (and empty ones: the launch floor, and the
    slot scan's serial floors: empty barrier rounds and empty warp
-   rounds) compiled from the
+   rounds; and the float probe) compiled with -ftz=true from the
    checkout's sources, one nvcc per source, all started together
    (seconds);
 3. kernels: each kernel held to its plain PyTorch version at the shapes the
@@ -47,7 +47,16 @@ fault:
    1,024, 2,048, 4,096), a full pool that forks at S = 64 and 96,
    programs with `/` and `%`, a 22-deep stack and 1,708 words, and the
    cross query hoisted; and captured into a CUDA graph replayed on new
-   inputs;
+   inputs; the join's pair step (K5) exactly (every rank below its cap,
+   and n) against its plain version on CPU copies at E = 8,192 in six
+   cases (a length window with J1's `on`; a time window over ring
+   timestamps in order and out of order; past its cap with outer rows; a
+   self-join with `within`; a float program with `/`, `%` and comparisons
+   over subnormal values, through the interpreter K4 shares), and, with
+   the plain version on the card, at E = 524,288 past its cap of
+   2,097,152 and at E = 131,072 with pairs past 2^31 (n saturated at
+   2^31 - 1); and captured into a CUDA graph replayed on new inputs; then the float probe (what -ftz=true does to the
+   intrinsics alone) is printed;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -153,6 +162,26 @@ fault:
    pool's width) and its warp floor (empty `__syncwarp` + `__shfl_sync`
    rounds in one warp). K4's inputs of each query's third step go to
    phase 9;
+8c. joins and chaining (in a process of its own, `--joins OUT`):
+   inputStream1 and inputStream2 (the bench schema and generator, seeds 7
+   and 8, one event a ms each, 5,242,880 each, interleaved: a tape of
+   524,288 events holds 262,144 of each) under bench.py's settings: J1,
+   the reference's own join test with its windows scaled (`length(100)`
+   join `time(100)` on `s1.id == s2.id`, about 2 pairs an event); G1, J1
+   aggregated (`sum(s2.price)`, `count()` group by `s1.id`: the
+   aggregated-join rewrite into a chain); C1 over the bench stream (a
+   filter query chained into `#window.length(1000)` with `sum`). Each:
+   rows of the first 65,536 events at a 4,096-event tape on the card
+   equal to the CPU path's (float sums within rtol 1e-5); rows at a
+   524,288-event tape over the first 1,048,576 events equal, as sorted
+   multisets, to the card's at 4,096; the streaming Job over the whole
+   streams (a counting columnar sink; K5 once a step and no other kernel;
+   overflow 0); ResidentReplay (a run with the sink, the same count; then
+   counts-only: three reruns, events/s median and best, graphs captured,
+   no eager segment, one staged segment under sync debug mode "error", K5
+   once a step on the host and in a traced rerun). Then a left outer join
+   with `within 50`, rows only, card against CPU on 65,536 events. K5's
+   input of J1's third step goes to phase 9;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -169,7 +198,13 @@ fault:
    calls), per visited event, beside its byte bound and its serial and
    warp floors (the visited events' count of empty rounds), held exactly to
    its plain version on the quantified query's step (the plain version
-   timed on the CPU, where it runs);
+   timed on the CPU, where it runs); K5 on J1's third step (CUDA events
+   around back-to-back calls), the candidates its walk visits and ns per
+   visited candidate, beside its byte bound and the launch floor, held
+   exactly to its plain version (the dense pair mask, in chunks) run on
+   the card on the same input, whose time is the plain time; then the
+   same step with one event of the time window ten windows late, exact
+   and timed;
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -437,7 +472,8 @@ def timed_back_to_back(fn, runs, warmup=1):
 TRACED_KERNELS = {"multi_reverse_cummin": "suffix_min_kernel",
                   "chain_advance": "chain_advance_kernel",
                   "unique_window_fold": "rows_kernel",
-                  "slot_nfa_scan": "slot_nfa_kernel"}
+                  "slot_nfa_scan": "slot_nfa_kernel",
+                  "join_pairs": "join_write_kernel"}
 
 
 def traced_launches(prof):
@@ -560,10 +596,11 @@ def same(a, b, what):
 
 
 def no_slot_scan(launches, what):
-    """The slot NFA scan (K4) runs on no path but the slot NFA's."""
-    if launches.get("slot_nfa_scan"):
-        raise AssertionError(f"{what}: slot_nfa_scan launched "
-                             f"{launches['slot_nfa_scan']} times")
+    """The slot NFA scan (K4) and the join's pair step (K5) run on no path
+    but their own."""
+    for k in ("slot_nfa_scan", "join_pairs"):
+        if launches.get(k):
+            raise AssertionError(f"{what}: {k} launched {launches[k]} times")
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
@@ -1284,6 +1321,231 @@ def check_slot_nfa(fpt, co, dev):
         f"cases ({n_base} of the first port's) and {replays} graph replays "
         f"({time.perf_counter() - t0:.1f} s): {json.dumps(out)}")
     return 0
+
+
+# -- phase 3, K5: the join's pair step ------------------------------------------
+
+JOIN_CHECK_E = 8_192  # phase 3's K5 inputs: tape positions a call
+JOIN_BIG_E = 524_288  # ... and at J1's batch
+JOIN_HUGE_E = 131_072  # ... and where the pairs pass 2^31
+
+
+def _f32_words(x):
+    return x.astype(np.float32).view(np.int32)
+
+
+def join_inputs(co, E, C, rng, dev, mode_time, sorted_ts, n=100, span=100,
+                outer=(False, False), prog=None, depth=0, dense=False,
+                subnormal=False):
+    """One K5 call's inputs (two ``JoinDir``s and the tape's ts) as a join
+    step makes them: each tape position arrives on one side (ts one ms
+    apart, two streams interleaved); each side's combined buffer is its
+    ring of C entries (``seen`` events before, the last C valid) then its
+    batch events in tape order. Columns: id in [0, 50) (or [0, 2):
+    ``dense``), a float price (with subnormal values: ``subnormal``).
+    ``sorted_ts=False`` moves some ring timestamps out of order."""
+    import torch
+
+    side = rng.integers(0, 2, E)
+    ts = (np.arange(E) + 5_000).astype(np.int32)
+    ids = rng.integers(0, 2 if dense else 50, E).astype(np.int32)
+    price = (rng.random(E) * 100).astype(np.float32)
+    if subnormal:
+        # subnormal values, and small normal ones whose remainders are
+        # subnormal (fmodf under -ftz=true flushes those)
+        tiny = np.float32(np.finfo(np.float32).tiny)
+        u = rng.random(E)
+        k = u < 0.3
+        price[k] = (rng.uniform(-4, 4, int(k.sum())) * tiny / 8).astype(
+            np.float32)
+        k = (u >= 0.3) & (u < 0.5)
+        price[k] = (rng.uniform(1, 4, int(k.sum())) * tiny).astype(
+            np.float32)
+    dirs = []
+    for d in (0, 1):
+        a_mask = side == d
+        b_mask = side != d
+        M = int(b_mask.sum())
+        seen = int(rng.integers(C // 2, 4 * C))
+        order = np.concatenate([np.flatnonzero(b_mask),
+                                np.flatnonzero(~b_mask)])
+        ring_ts = np.sort(5_000 - rng.integers(1, 4 * min(span, 1000),
+                                                C)).astype(np.int32)
+        if not sorted_ts:
+            ring_ts = rng.permutation(ring_ts)
+        b_ts = np.concatenate([ring_ts, ts[order]])
+        b_valid = np.concatenate([np.arange(C) >= C - min(seen, C),
+                                  np.arange(E) < M])
+        b_posid = np.concatenate([np.full(C, -1), order]).astype(np.int32)
+        b_cum = (seen + np.cumsum(b_mask)).astype(np.int32)
+        ring_ids = rng.integers(0, 2 if dense else 50, C).astype(np.int32)
+        ring_px = (rng.random(C) * 100).astype(np.float32)
+        b_cols = np.stack([np.concatenate([ring_ids, ids[order]]),
+                           _f32_words(np.concatenate([ring_px,
+                                                      price[order]]))])
+        a_cols = np.stack([ids, _f32_words(price)])
+        t = lambda x, dt=torch.int32: torch.from_numpy(
+            np.ascontiguousarray(x)).to(dt).to(dev)
+        dirs.append(co.JoinDir(
+            a_mask=t(a_mask, torch.bool), a_cols=t(a_cols),
+            b_ts=t(b_ts), b_valid=t(b_valid, torch.bool),
+            b_posid=t(b_posid), b_cum=t(b_cum),
+            b_seen=t(np.asarray([seen])), b_cols=t(b_cols),
+            prog=prog or (), depth=depth, mode_time=mode_time and d == 0,
+            n=n, span=span, C=C, outer=outer[d],
+        ))
+    return dirs, torch.from_numpy(ts).to(dev)
+
+
+JOIN_PLAIN_CARD_CELLS = 1 << 28  # the plain version's chunk on the card
+
+
+def join_plain(co, dirs, ts, cap, self_join, within, on_card=False):
+    """K5's plain version on CPU copies of its inputs, or ``on_card`` on
+    the card's own (in chunks of JOIN_PLAIN_CARD_CELLS mask cells: the
+    dense formulation at a full-width step, which the CPU cannot run in
+    the time limit). Returns its (i, j, seg, n) and its ms."""
+    import torch
+
+    if not on_card:
+        dirs, ts = join_args_copy((dirs, ts))
+    chunk = co._PLAIN_CHUNK_CELLS
+    co._PLAIN_CHUNK_CELLS = JOIN_PLAIN_CARD_CELLS if on_card else chunk
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = co.join_pairs_plain(dirs, ts, cap, self_join, within)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        co._PLAIN_CHUNK_CELLS = chunk
+    return ref, ms
+
+
+def join_check(co, dirs, ts, cap, self_join, within, what, on_card=False):
+    """K5 against its plain version (CPU copies, or on the card:
+    ``join_plain``), exactly: every rank below cap and n. Returns (n, cap,
+    the largest difference (0), the plain version's ms)."""
+    got = co.join_pairs(dirs, ts, cap, self_join, within)
+    ref, ms = join_plain(co, dirs, ts, cap, self_join, within, on_card)
+    err = 0
+    for g, r, part in zip(got, ref, ("i", "j", "segment", "n")):
+        err = max(err, same(g.to(r.device), r,
+                            f"join_pairs {what}: {part}"))
+    return int(ref[3][0]), cap, err, ms
+
+
+def check_join_pairs(fpt, co, dev):
+    """Phase 3, K5: the kernel exactly equal to its plain version on the
+    card's inputs at E = 8,192 (a length window and a time window over
+    ring timestamps in and out of order), past its cap, with outer rows, a
+    self-join, `within`, and `on` programs (J1's equality; `/` and `%` and
+    comparisons over float columns with subnormal values, through the
+    interpreter K4 shares); at E = 524,288 (J1's batch: many tiles a
+    thread in the scan, binary searches over 262k-entry buffers) past its
+    cap of 2,097,152; and at E = 131,072 with no `on` over windows that
+    hold every earlier event, whose pairs pass 2^31 (the count saturates
+    at 2^31 - 1); the last two with the plain version on the card. Then a
+    CUDA graph replay of one call. Also prints the float probe: what the
+    build's -ftz=true does to the intrinsics alone."""
+    import torch
+
+    from flink_siddhi_tpu_torch.compiler import slot_program as sp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    E, C = JOIN_CHECK_E, 128
+    eq = (sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I)  # a.id == b.id
+    one = int(np.float32(1.0).view(np.int32))
+    half = int(np.float32(0.5).view(np.int32))
+    fprog = (  # a.price / b.price > 1.0 or a.price % b.price < 0.5 ...
+        sp.OP_EVT | 1 << 8, sp.OP_CAP | 1 << 8, sp.OP_DIV_F,
+        sp.OP_LIT, one, sp.OP_GT_F, sp.OP_ORJ | 7 << 8,
+        sp.OP_EVT | 1 << 8, sp.OP_CAP | 1 << 8, sp.OP_MOD_F,
+        sp.OP_LIT, half, sp.OP_LT_F, sp.OP_OR,
+        sp.OP_ANDJ | 4 << 8, sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I, sp.OP_AND,
+    )
+    cases = [
+        ("length n=100, J1's on", dict(mode_time=False, sorted_ts=True,
+                                       prog=eq, depth=2), 4 * E, False,
+         None),
+        ("time, ring ts in order", dict(mode_time=True,
+                                        sorted_ts=True, prog=eq,
+                                        depth=2), 4 * E, False, None),
+        ("time, ring ts out of order", dict(mode_time=True,
+                                            sorted_ts=False, prog=eq,
+                                            depth=2), 4 * E, False, None),
+        ("past cap, outer rows", dict(mode_time=True, sorted_ts=True,
+                                      dense=True, outer=(True, True)),
+         E, False, None),
+        ("self-join, within, unsorted", dict(mode_time=True,
+                                             sorted_ts=False, prog=eq,
+                                             depth=2, outer=(True, False)),
+         4 * E, True, 40),
+        ("float program, subnormals", dict(mode_time=False,
+                                           sorted_ts=True, prog=fprog,
+                                           depth=3, subnormal=True,
+                                           dense=True), 4 * E, False, None),
+    ]
+    big = JOIN_BIG_E
+    cases += [
+        (f"E = {big}, past cap", dict(mode_time=True, sorted_ts=True,
+                                     dense=True, prog=eq, depth=2),
+         4 * big, False, None, big),
+        ("pairs past 2^31", dict(mode_time=True, sorted_ts=True,
+                                 n=1 << 30, span=1 << 30),
+         4 * JOIN_HUGE_E, False, None, JOIN_HUGE_E),
+    ]
+    out = {}
+    err = 0
+    for what, kw, cap, self_join, within, *e in cases:
+        dirs, ts = join_inputs(co, e[0] if e else E, C, rng, dev, **kw)
+        n, cap, e_, ms = join_check(co, dirs, ts, cap, self_join, within,
+                                    what, on_card=bool(e))
+        err = max(err, e_)
+        out[what] = {"n": n, "cap": cap}
+        if e:
+            out[what]["plain_ms_on_card"] = ms
+        if "past cap" in what and n <= cap:
+            raise AssertionError(f"join_pairs {what}: n {n} within cap")
+        if "2^31" in what and n != co.N_MAX:
+            raise AssertionError(f"join_pairs {what}: n {n} unsaturated")
+        del dirs, ts
+        torch.cuda.empty_cache()
+    # a CUDA graph replay of one call, on new inputs copied in
+    dirs, ts = join_inputs(co, E, C, rng, dev, mode_time=True,
+                           sorted_ts=True, prog=eq, depth=2)
+    co.join_pairs(dirs, ts, 4 * E, False, None)  # warm (the program)
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        with torch.cuda.graph(g, stream=s):
+            res = co.join_pairs(dirs, ts, 4 * E, False, None)
+    torch.cuda.current_stream().wait_stream(s)
+    new, _ = join_inputs(co, E, C, rng, dev, mode_time=True,
+                         sorted_ts=True, prog=eq, depth=2)
+    for d, nd in zip(dirs, new):
+        for f in dataclasses.fields(d):
+            v = getattr(d, f.name)
+            if isinstance(v, torch.Tensor):
+                v.copy_(getattr(nd, f.name))
+    g.replay()
+    torch.cuda.synchronize()
+    ref = co.join_pairs(new, ts, 4 * E, False, None)
+    for a, b, part in zip(res, ref, ("i", "j", "segment", "n")):
+        same(a, b, f"join_pairs graph replay: {part}")
+    # the float probe: the intrinsics under -ftz=true, no explicit flush
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    a = torch.tensor([tiny / 4, tiny * 1.5, 3e-39, 1.0], device=dev)
+    b = torch.tensor([0.0, tiny, 1.0, 3e-39], device=dev)
+    probe = co.ftz_probe(a, b).cpu().numpy()
+    log(f"  float probe (+, *, /, <, ==, fmodf of {a.tolist()} and "
+        f"{b.tolist()}): {probe.tolist()}")
+    log(f"  join_pairs: exact against its plain version in "
+        f"{len(cases)} cases and a graph replay ({json.dumps(out)}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return err
 
 
 # -- phases 4 and 5: the main path end to end ----------------------------------
@@ -2567,7 +2829,8 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
         nfa.slot_nfa_scan = co.slot_nfa_scan
     launches = co.launch_counts()
     if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
-                    "unique_window_fold": 0, "slot_nfa_scan": N_BATCHES}:
+                    "unique_window_fold": 0, "slot_nfa_scan": N_BATCHES,
+                    "join_pairs": 0}:
         raise AssertionError(f"{name}: streaming launches {launches}, "
                              f"expected K4 once a micro-batch")
     drain_accounts(job, f"{name}: streaming")
@@ -2720,6 +2983,414 @@ def slots_main(out_path):
     return 0
 
 
+# -- phase 8c: stream joins and query chaining ---------------------------------
+
+JOIN_MS = BATCH * N_BATCHES // 2  # each stream: one event a ms (5,242,880)
+JOIN_STREAM_BATCH = BATCH // 2  # each stream's events a step: the tape BATCH
+JOIN_SMALL = 4_096  # the row checks' tape (2,048 events of each stream)
+JOIN_CHECK_MS = 32_768  # held to the CPU path: 65,536 events
+JOIN_ROW_STEPS = 2  # steps at BATCH held to the card's JOIN_SMALL rows
+JOIN_RTOL = 1e-5  # G1's and C1's float sums across batchings
+# J1: the reference's own join test (SiddhiCEPITCase.java:306-327), its
+# windows scaled to one event a ms: about 2 pairs an event
+J1 = (
+    "from inputStream1#window.length(100) as s1 "
+    "join inputStream2#window.time(100) as s2 on s1.id == s2.id "
+    "select s1.timestamp as t, s1.name as n, s1.price as p1, "
+    "s2.price as p2 insert into JoinStream"
+)
+# G1: J1 aggregated (the aggregated-join rewrite: a join into an
+# intermediate stream, a grouped cumulative aggregation over it)
+G1 = (
+    "from inputStream1#window.length(100) as s1 "
+    "join inputStream2#window.time(100) as s2 on s1.id == s2.id "
+    "select s1.id as id, sum(s2.price) as total, count() as n "
+    "group by s1.id insert into JoinStream"
+)
+# C1: query chaining over the single bench stream
+C1 = (
+    "from inputStream[price > 10.0] select id, price insert into mid; "
+    "from mid#window.length(1000) select sum(price) as s insert into out"
+)
+J1_OUTER = (
+    "from inputStream1#window.length(100) as s1 left outer join "
+    "inputStream2#window.time(100) as s2 on s1.id == s2.id within 50 "
+    "select s1.id as id, s2.price as p2 insert into JoinStream"
+)
+JOIN_QUERIES = (("J1", J1, ("inputStream1", "inputStream2"), "JoinStream"),
+                ("G1", G1, ("inputStream1", "inputStream2"), "JoinStream"),
+                ("C1", C1, ("inputStream",), "out"))
+
+
+def join_columns(fpt, sids, n_ms):
+    """The bench schema (one object, one string table) and, per stream,
+    the bench generator's columns over ``n_ms`` events one ms apart (ts
+    1000 + i): id uniform in [0, N_IDS), name "test_event", price uniform
+    x 100; stream k's rng seed 7 + k (inputStream1 and inputStream have
+    the bench's own seed)."""
+    schema = fpt.StreamSchema([("id", "int"), ("name", "string"),
+                               ("price", "double"), ("timestamp", "long")])
+    code = schema.string_tables["name"].intern("test_event")
+    cols = {}
+    for k, sid in enumerate(sids):
+        rng = np.random.default_rng(7 + k)
+        ts = 1000 + np.arange(n_ms, dtype=np.int64)
+        cols[sid] = {"id": rng.integers(0, N_IDS, n_ms).astype(np.int32),
+                     "name": np.full(n_ms, code, dtype=np.int32),
+                     "price": rng.random(n_ms) * 100.0, "timestamp": ts}
+    return schema, cols
+
+
+def join_batches(fpt, schema, cols, per_batch, n_ms=None):
+    """Each stream's columns cut into batches of ``per_batch`` events (the
+    first ``n_ms`` events)."""
+    out = {}
+    for sid, c in cols.items():
+        n = len(c["timestamp"]) if n_ms is None else n_ms
+        out[sid] = [fpt.EventBatch(sid, schema,
+                                   {k: v[s:min(s + per_batch, n)]
+                                    for k, v in c.items()},
+                                   c["timestamp"][s:min(s + per_batch, n)])
+                    for s in range(0, n, per_batch)]
+    return out
+
+
+def join_job(fpt, cql, schema, streams, device, retain=True):
+    """A Job over ``streams`` ({sid: batches}, one batch a stream a cycle:
+    the tape holds every stream's batch) with the bench's settings."""
+    plan = fpt.compile_plan(cql, {sid: schema for sid in streams},
+                            plan_id="bench", config=bench_config(fpt))
+    return fpt.Job([plan], [fpt.BatchSource(sid, schema, iter(bs))
+                            for sid, bs in streams.items()],
+                   batch_size=BATCH, time_mode="processing",
+                   retain_results=retain, device=device)
+
+
+class ColumnRows:
+    """A columnar sink that keeps every column (``keep``) or only counts
+    the rows."""
+
+    def __init__(self, keep=True):
+        self.keep, self.rows = keep, 0
+        self.parts = []
+
+    def accept_columns(self, ts, cols):
+        self.rows += len(ts)
+        if self.keep:
+            self.parts.append((np.asarray(ts).copy(),
+                               {k: np.asarray(v).copy()
+                                for k, v in cols.items()}))
+
+    def table(self):
+        ts = np.concatenate([p[0] for p in self.parts])
+        return ts, {k: np.concatenate([p[1][k] for p in self.parts])
+                    for k in self.parts[0][1]}
+
+
+def join_rows_equal(name, got, ref, what):
+    """Rows as sorted multisets: J1's exactly; G1's by (id, n) and C1's by
+    ts, their float sums within JOIN_RTOL. Returns the largest relative
+    difference."""
+    (gts, g), (rts, r) = got, ref
+    if len(gts) != len(rts):
+        raise AssertionError(f"{name} {what}: {len(gts)} rows, expected "
+                             f"{len(rts)}")
+    if name == "J1":
+        keys = ("p2", "p1", "t")
+    elif name == "G1":
+        keys = ("n", "id")
+    else:
+        keys = ()
+    go = np.lexsort([g[k] for k in keys] + [gts])
+    ro = np.lexsort([r[k] for k in keys] + [rts])
+    if not np.array_equal(gts[go], rts[ro]):
+        raise AssertionError(f"{name} {what}: timestamps differ")
+    worst = 0.0
+    for k in g:
+        a, b = g[k][go], r[k][ro]
+        if name != "J1" and k in ("total", "s"):
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+            worst = max(worst, float(rel.max()) if len(rel) else 0.0)
+            if not worst <= JOIN_RTOL:
+                raise AssertionError(f"{name} {what}: {k} differs by "
+                                     f"{worst}")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"{name} {what}: column {k} differs")
+    return worst
+
+
+def join_table(fpt, cql, schema, streams, device, out):
+    """Every row of ``out`` (columns, through a columnar sink) of a run."""
+    import torch
+
+    job = join_job(fpt, cql, schema, streams, device, retain=False)
+    sink = ColumnRows()
+    job.add_sink(out, sink)
+    t0 = time.perf_counter()
+    job.run()
+    job.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return sink.table(), time.perf_counter() - t0, job
+
+
+def join_query(fpt, co, name, cql, sids, out, cols, schema):
+    """One query of phase 8c, the bench's settings:
+
+    - rows of the first JOIN_CHECK_MS ms of every stream at a JOIN_SMALL
+      tape on the card equal to the CPU path's (floats within JOIN_RTOL);
+    - rows at a BATCH tape over the first JOIN_ROW_STEPS steps equal, as
+      sorted multisets, to the card's at JOIN_SMALL over the same events;
+    - the streaming Job over the whole streams (a counting columnar sink;
+      K5 once a step and no other kernel; K5's third call's inputs
+      recorded);
+    - ResidentReplay: a run with the sink (the same count), then
+      counts-only as bench.py's resident mode: three reruns, graphs
+      captured, no eager segment, one segment under sync debug mode
+      "error", K5 once a step on the host and in a traced rerun.
+    Returns (result, K5's recorded inputs or None)."""
+    import torch
+
+    join = name != "C1"
+    small_cpu = join_batches(fpt, schema, cols, JOIN_SMALL // len(sids),
+                             JOIN_CHECK_MS)
+    small_dev = join_batches(fpt, schema, cols, JOIN_SMALL // len(sids),
+                             JOIN_CHECK_MS)
+    cpu_rows, cpu_s, cpu_job = join_table(fpt, cql, schema, small_cpu,
+                                          "cpu", out)
+    kinds = [type(a).__name__ for a in cpu_job._plans["bench"].plan.artifacts]
+    del cpu_job
+    card_rows, _, _ = join_table(fpt, cql, schema, small_dev, "cuda", out)
+    rel_cpu = join_rows_equal(name, card_rows, cpu_rows,
+                              f"first {JOIN_CHECK_MS} ms, card vs CPU")
+    if len(cpu_rows[0]) < 1000:
+        raise AssertionError(f"{name}: {len(cpu_rows[0])} CPU rows")
+    # a BATCH tape against the card's JOIN_SMALL tape, the same events
+    n_ms = JOIN_ROW_STEPS * BATCH // len(sids)
+    big_rows, _, _ = join_table(
+        fpt, cql, schema,
+        join_batches(fpt, schema, cols, BATCH // len(sids), n_ms), "cuda",
+        out)
+    small_rows, _, _ = join_table(
+        fpt, cql, schema,
+        join_batches(fpt, schema, cols, JOIN_SMALL // len(sids), n_ms),
+        "cuda", out)
+    rel_big = join_rows_equal(name, big_rows, small_rows,
+                              f"first {JOIN_ROW_STEPS} steps, tape {BATCH} "
+                              f"vs {JOIN_SMALL}")
+    del big_rows, small_rows
+    streams = join_batches(fpt, schema, cols, BATCH // len(sids))
+    n_events = sum(len(c["timestamp"]) for c in cols.values())
+
+    # the streaming Job over the whole streams, K5's third call recorded
+    sink = ColumnRows(keep=False)
+    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
+    job.add_sink(out, sink)
+    recorded = {}
+    real = co.join_pairs
+
+    def record(*args, **kwargs):
+        recorded["calls"] = recorded.get("calls", 0) + 1
+        if recorded["calls"] == 3:
+            recorded["args"] = join_args_copy(args)
+        return real(*args, **kwargs)
+
+    co.join_pairs = record
+    torch.cuda.synchronize()
+    co.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        job.run()
+        job.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        co.join_pairs = real
+    launches = co.launch_counts()
+    steps = len(streams[sids[0]])  # one batch of each stream a step
+    want = dict.fromkeys(launches, 0)
+    if join:
+        want["join_pairs"] = steps
+    if launches != want:
+        raise AssertionError(f"{name}: streaming launches {launches}, "
+                             f"expected {want}")
+    drain_accounts(job, f"{name}: streaming")
+    rows = sink.rows
+    states = job._plans["bench"].states
+    overflow = sum(int(st["overflow"]) for st in states.values()
+                   if "overflow" in st)
+    if rows < 1000 or overflow:
+        raise AssertionError(f"{name}: {rows} rows, overflow {overflow}")
+    del job
+
+    # ResidentReplay: with the sink, then counts-only
+    torch.cuda.reset_peak_memory_stats()
+    rsink = ColumnRows(keep=False)
+    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
+    job.add_sink(out, rsink)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    (pid, segs), = rep.segments.items()
+    rsteps = sum(len(seg) for seg in segs)
+    captured = job.graphs_captured
+    co.reset_launches()
+    t0 = time.perf_counter()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rlaunch = co.launch_counts()
+    drain_accounts(job, f"{name}: resident run")
+    if rsink.rows != rows:
+        raise AssertionError(f"{name}: resident {rsink.rows} rows, "
+                             f"streaming {rows}")
+    if (rlaunch["join_pairs"] != (rsteps if join else 0)
+            or job.eager_segments or not captured
+            or job.graphs_captured != captured):
+        raise AssertionError(
+            f"{name}: K5 launched {rlaunch['join_pairs']} times in "
+            f"{rsteps} steps, {job.eager_segments} eager segments, "
+            f"{job.graphs_captured} graphs ({captured} at stage)")
+    job._sinks.clear()  # counts-only from here: rerun() replays
+    reruns = []
+    for _ in range(3):
+        before = job.emitted_counts.get(out, 0)
+        reruns.append(rep.rerun())
+        if job.emitted_counts.get(out, 0) - before != rows:
+            raise AssertionError(f"{name}: a rerun emitted another count")
+    if job.graphs_captured != captured:
+        raise AssertionError(f"{name}: a rerun captured a graph")
+    peak = torch.cuda.max_memory_allocated()
+    job.reset_engine_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep.run_segment(pid, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    prof, traced_s, traced_launch = traced_run(
+        co, rep.rerun, f"{name}: traced resident rerun")
+    traced = traced_share(prof, traced_s, len(segs), rsteps)
+    del prof
+    if traced_launch["join_pairs"] != (rsteps if join else 0):
+        raise AssertionError(f"{name}: K5 ran {traced_launch} times on "
+                             f"the card in a rerun of {rsteps} steps")
+    result = {
+        "path": f"join_{name}",
+        "cql": cql,
+        "artifacts": kinds,
+        "events": n_events,
+        "batch": BATCH,
+        "cpu_check_events": JOIN_CHECK_MS * len(sids),
+        "cpu_check_rows": len(cpu_rows[0]),
+        "cpu_check_s": cpu_s,
+        "cpu_check_max_rel": rel_cpu,
+        "batch_check_events": n_ms * len(sids),
+        "batch_check_max_rel": rel_big,
+        "rows": rows,
+        "overflow": overflow,
+        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
+                      "launches": launches},
+        "resident": {
+            "stage_s": rep.stage_seconds,
+            "first_run_s": first_s,
+            "rerun_s": reruns,
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "events_per_s_best": n_events / min(reruns),
+            "steps": rsteps,
+            "segments": [len(seg) for seg in segs],
+            "launches": rlaunch,
+            "launches_traced": traced_launch,
+            "graphs_captured": captured,
+            "eager_segments": job.eager_segments,
+            "segment_sync_free": True,
+            "max_memory_allocated_bytes": peak,
+            **traced,
+        },
+    }
+    log(json.dumps(result))
+    return result, recorded.get("args")
+
+
+def join_args_copy(args, device="cpu"):
+    """A copy of one K5 call's arguments (its JoinDirs' tensors copied)."""
+    import torch
+
+    dirs, ts, *rest = args
+    return ([dataclasses.replace(d, **{
+        f.name: getattr(d, f.name).to(device, copy=True)
+        for f in dataclasses.fields(d)
+        if isinstance(getattr(d, f.name), torch.Tensor)}) for d in dirs],
+        ts.to(device, copy=True), *rest)
+
+
+def outer_join_rows(fpt, co):
+    """The left outer join with `within 50` (J1_OUTER): rows only, on the
+    first JOIN_CHECK_MS ms of both streams at a JOIN_SMALL tape, the card's
+    equal to the CPU path's (missing sides None)."""
+    sids = ("inputStream1", "inputStream2")
+    schema, cols = join_columns(fpt, sids, JOIN_CHECK_MS)
+    out = []
+    for dev in ("cpu", "cuda"):
+        job = join_job(fpt, J1_OUTER, schema,
+                       join_batches(fpt, schema, cols, JOIN_SMALL // 2),
+                       dev)
+        job.run()
+        job.flush()
+        out.append(job.results_with_ts("JoinStream"))
+    if out[0] != out[1] or len(out[0]) < 1000:
+        raise AssertionError(f"left outer join: {len(out[1])} card rows, "
+                             f"{len(out[0])} CPU rows, not equal")
+    missing = sum(1 for _, r in out[0] if r[1] is None)
+    if not missing:
+        raise AssertionError("left outer join: no unmatched row")
+    return {"rows": len(out[0]), "unmatched_rows": missing}
+
+
+def join_phase(fpt, co, out_path):
+    """J1, G1 (two streams) and C1 (the bench stream) as ``join_query``
+    runs them, and the left outer join's rows; the result goes to
+    ``out_path``, J1's recorded K5 inputs to ``out_path``.pt."""
+    import torch
+
+    results, recorded = [], None
+    for name, cql, sids, out in JOIN_QUERIES:
+        t0 = time.perf_counter()
+        schema, cols = join_columns(fpt, sids, JOIN_MS * 2 // len(sids))
+        res, args = join_query(fpt, co, name, cql, sids, out, cols, schema)
+        del cols
+        res["phase_s"] = time.perf_counter() - t0
+        results.append(res)
+        if name == "J1":
+            recorded = args
+        log(f"  {name}: {res['rows']} rows, resident "
+            f"{res['resident']['events_per_s_median']:.4g} events/s, "
+            f"{res['phase_s']:.1f} s")
+    outer = outer_join_rows(fpt, co)
+    log(f"  left outer join within 50: {json.dumps(outer)}")
+    with open(out_path, "w") as f:
+        json.dump({"queries": results, "outer": outer}, f)
+    torch.save(recorded, out_path + ".pt")
+
+
+def joins_main(out_path):
+    """Phase 8c alone (``--joins OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    join_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
 # -- phase 6: the quote board (#window.unique aggregation) -------------------
 
 def quote_stream(fpt, n_events, batch, seed=11):
@@ -2795,7 +3466,7 @@ def quote_board(fpt, co):
                              "of distinct symbols")
     if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
                     "unique_window_fold": QUOTE_BATCHES,
-                    "slot_nfa_scan": 0}:
+                    "slot_nfa_scan": 0, "join_pairs": 0}:
         raise AssertionError(
             f"quote board: launches {launches}, expected the unique fold "
             f"once per micro-batch ({QUOTE_BATCHES})"
@@ -3232,6 +3903,106 @@ def time_slot_nfa(co, recorded, launches, floor_ms):
     return entry
 
 
+def join_pairs_work(args, visits, n):
+    """(bytes, operations) of one K5 call on THESE inputs: every input
+    the pairs need read once (each direction's arriving mask and program
+    columns, its b-counts, the other side's combined ts, valid flags and
+    program columns, its tape positions only for a self-join, the tape's
+    ts), the ``n`` pairs it emits written once (three int32 words each,
+    and n); per candidate the walk visited, its checks (valid, self-join,
+    window, within: 4) and its program's words. The wrapper's zero fill of
+    the ranks past n is not the function's work: ``time_join_pairs``
+    reports its bytes apart."""
+    dirs, ts, cap, self_join = args[0], args[1], args[2], args[3]
+    E = int(ts.shape[0])
+    nbytes = 4 * E + 3 * 4 * min(n, cap) + 4
+    for d in dirs:
+        Nb = int(d.b_ts.shape[0])
+        nbytes += E + 4 * E * (int(d.a_cols.shape[0]) + 1)
+        nbytes += Nb * (4 + 1 + 4 * int(d.b_cols.shape[0])) + 4
+        if self_join:
+            nbytes += 4 * Nb
+    per = 4 + max(len(d.prog) for d in dirs)
+    return nbytes, visits * per
+
+
+def late_event(args):
+    """A copy of one K5 call's arguments with one event of the time
+    window's combined buffer moved out of order: the batch entry in the
+    middle stamped ten windows late. Returns (args, the entry, its new
+    ts)."""
+    args = join_args_copy(args, "cuda")
+    for d in args[0]:
+        if d.mode_time:
+            j = d.C + int(d.b_valid[d.C:].sum()) // 2
+            ts_j = int(d.b_ts[j]) - 10 * d.span
+            d.b_ts[j] = ts_j
+            return args, j, ts_j
+    raise AssertionError("late_event: no time window in the call")
+
+
+def time_join_pairs(co, recorded, launches, err, floor_ms):
+    """K5 on J1's third step's recorded input: held exactly (every rank
+    below cap, and n) to its plain version run on the card on the same
+    input (the dense pair mask in chunks; its time is the plain time);
+    timed (CUDA events around back-to-back calls); the candidates its
+    walk visits (the count stage's counter), ns per visited candidate,
+    its bound. Then the same with one event of the time window moved out
+    of order (``late_event``): exact against the plain version too, its
+    time and visits beside the in-order step's."""
+    import torch
+
+    args = join_args_copy(recorded, "cuda")
+    n, _, e, plain_ms = join_check(co, *args, "J1's third step",
+                                   on_card=True)
+    err = max(err, e)
+    ms, call_ms = timed_back_to_back(lambda: co.join_pairs(*args), 20)
+    visits_t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    co.join_pairs(*args, visits=visits_t)
+    visits = int(visits_t[0])
+    nbytes, ops = join_pairs_work(args, visits, n)
+    bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
+    late, j, ts_j = late_event(recorded)
+    late_n, _, e, _ = join_check(co, *late, "J1's third step, a late event",
+                                 on_card=True)
+    err = max(err, e)
+    late_ms, _ = timed_back_to_back(lambda: co.join_pairs(*late), 20)
+    visits_t.zero_()
+    co.join_pairs(*late, visits=visits_t)
+    late_visits = int(visits_t[0])
+    E, cap = int(args[1].shape[0]), int(args[2])
+    entry = {
+        "name": co.join_pairs.name, "route": "cuda",
+        "source": co.join_pairs.source,
+        "replaces": "flink_siddhi_tpu/compiler/join.py:335 (no Pallas "
+                    "counterpart: the reference's dense pair mask and "
+                    "argsort, JoinArtifact._direction and step :310)",
+        "launches": launches, "max_abs_err": err,
+        "max_abs_err_by": "exact comparison with the plain version on "
+                          "J1's third step (on the card) and phase 3's cases",
+        "ms": ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "plain_device": "cuda",
+        "plain_shape": f"J1's third step (E = {E}), mask chunks of "
+                       f"{JOIN_PLAIN_CARD_CELLS} cells",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "floor_ms": floor_ms,
+        "events": E, "pairs": n, "cap": cap,
+        "candidates_visited": visits,
+        "ns_per_visited_candidate": ms * 1e6 / max(visits, 1),
+        "bytes": nbytes, "operations": ops,
+        "zero_fill_bytes": 3 * 4 * cap,
+        "late_event": {"entry": j, "ts": ts_j, "ms": late_ms,
+                       "pairs": late_n, "candidates_visited": late_visits},
+    }
+    log(f"  join_pairs on J1's third step: {ms} ms a call ({call_ms} ms "
+        f"single), {n} pairs of {E} events, {visits} candidates visited, "
+        f"{entry['ns_per_visited_candidate']} ns each; bound {bound_ms} ms "
+        f"({bound_by}); exact against the plain version on the card "
+        f"({plain_ms} ms); one event ten windows late: {late_ms} ms, "
+        f"{late_visits} candidates visited, exact too")
+    return entry
+
+
 @dataclasses.dataclass
 class Event:
     id: int
@@ -3330,6 +4101,7 @@ def main():
     err_k1 = max(err_k1, check_reverse_cummin_replay(co, graphs, dev,
                                                      gen_dev))
     err_k4 = check_slot_nfa(fpt, co, dev)
+    err_k5 = check_join_pairs(fpt, co, dev)
 
     def lap(what):
         log(f"  {what} done at {time.perf_counter() - t_start:.1f} s")
@@ -3489,7 +4261,36 @@ def main():
                "slot_nfa_scan"]}
         for q in slots]}))
 
-    lap("phases 7, 8 and 8b")
+    # 8c. stream joins and query chaining: J1 and G1 over two streams, C1
+    # over the bench stream (in a process of its own, as 8b; J1's recorded
+    # K5 inputs go to phase 9)
+    log(f"[8c/11] joins and chaining: J1, G1 over two streams of "
+        f"{JOIN_MS} events each, C1 over the bench stream")
+    t_join = time.perf_counter()
+    join_path = os.path.join(SMOKE_DIR, "joins.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--joins", join_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"joins phase failed ({r.returncode})")
+    with open(join_path) as f:
+        joins = json.load(f)
+    log(f"  joins phase {time.perf_counter() - t_join:.1f} s")
+    log(json.dumps({"joins": [{k: q[k] for k in (
+        "path", "artifacts", "rows", "overflow", "cpu_check_rows",
+        "cpu_check_max_rel", "batch_check_max_rel")}
+        | {"resident_events_per_s_median":
+           q["resident"]["events_per_s_median"],
+           "resident_events_per_s_best": q["resident"]["events_per_s_best"],
+           "streaming_events_per_s": q["streaming"]["events_per_s"],
+           "idle_share": q["resident"]["traced_idle_share"],
+           "eager_segments": q["resident"]["eager_segments"],
+           "graphs_captured": q["resident"]["graphs_captured"],
+           "steps": q["resident"]["steps"],
+           "launches_traced": q["resident"]["launches_traced"][
+               "join_pairs"]}
+        for q in joins["queries"]], "outer": joins["outer"]}))
+
+    lap("phases 7, 8, 8b and 8c")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -3504,13 +4305,18 @@ def main():
                      for name, r in (("k1", rec_k1), ("k1_full", full_k1),
                                      ("k2", rec_k2), ("k2_full", full_k2),
                                      ("k3", rec_k3))},
-        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4],
+        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5],
         "launches": {"head": head["launches"], "board": board["launches"],
                      "slots": sum(q["streaming"]["launches"]["slot_nfa_scan"]
                                   for q in slots),
                      "bench": bench_head["resident"]["launches_traced"],
                      "mq": mq["bench"]["resident"]["launches_traced"],
-                     "fqb": board["fused_streaming"]["launches_traced"]},
+                     "fqb": board["fused_streaming"]["launches_traced"],
+                     "joins": joins["queries"][0]["streaming"]["launches"][
+                         "join_pairs"],
+                     "joins_traced": {
+                         q["path"]: q["resident"]["launches_traced"]
+                         for q in joins["queries"]}},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -3964,7 +4770,7 @@ def kernels_main(path):
         for r in (saved["recorded"][k] for k in (
             "k1", "k1_full", "k2", "k2_full", "k3"))
     )
-    err_k1, err_k2, err_k3, rel_k3, err_k4 = saved["err"]
+    err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5 = saved["err"]
     launches = saved["launches"]
     mq_inputs = torch.load(os.path.join(SMOKE_DIR, "multiquery64.json.pt"))
     # 9. kernel timing on each path's own inputs
@@ -4023,8 +4829,14 @@ def kernels_main(path):
                          launches["board"]["unique_window_fold"], err_k3,
                          rel_k3, floor_ms),
         time_slot_nfa(co, slot_recorded, launches["slots"], floor_ms),
+        time_join_pairs(co, torch.load(os.path.join(SMOKE_DIR,
+                                                    "joins.json.pt"),
+                                       weights_only=False),
+                        launches["joins"], err_k5, floor_ms),
     ]
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], err_k4)
+    kernels[4]["launches_joins_resident_traced"] = {
+        p: t["join_pairs"] for p, t in launches["joins_traced"].items()}
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -4108,6 +4920,8 @@ if __name__ == "__main__":
         sys.exit(windows_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--slots":
         sys.exit(slots_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--joins":
+        sys.exit(joins_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the engine's hot scan primitives.
 
 The counterpart of ``flink_siddhi_tpu/compiler/pallas_ops.py`` for an
-NVIDIA Hopper card. Four kernels live here, all CUDA C++ under ``csrc/``:
+NVIDIA Hopper card. Five kernels live here, all CUDA C++ under ``csrc/``:
 
 * **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
   the chain matcher's "next match at/after position p" tables: one
@@ -16,6 +16,12 @@ NVIDIA Hopper card. Four kernels live here, all CUDA C++ under ``csrc/``:
   event's count/sum/avg/min/max over the valid slots, as a pipeline of
   data-parallel kernels (a radix sort by slot, device-wide scans and
   interval-stabbing trees over the event axis).
+* **join pairs** (``join_pairs``, csrc/join_pairs.cu) — a windowed
+  two-stream join's pairs of one micro-batch (every arriving event against
+  the other side's ring and batch, with the ``on`` program), ranked and cut
+  as the reference's dense pair mask and sort rank them, without building
+  the mask. No Pallas counterpart: the reference runs it as XLA ops
+  (``flink_siddhi_tpu/compiler/join.py:335-403``).
 * **slot NFA scan** (``slot_nfa_scan``, csrc/slot_nfa.cu) — the slot NFA's
   walk over one micro-batch's events, every partial-match slot advanced at
   each event (sequences, quantifiers, and/or groups, cross-element filters,
@@ -55,12 +61,17 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .slot_program import eval_program
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+# -ftz=true: float32 flushes subnormals, as the reference's XLA does on
+# the CPU (the program interpreter, csrc/program.cuh, also flushes
+# explicitly)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-ftz=true", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 # kernel name -> its source under csrc/
@@ -69,6 +80,7 @@ SOURCES = {
     "chain_advance": "chain_advance.cu",
     "unique_fold": "unique_fold.cu",
     "slot_nfa": "slot_nfa.cu",
+    "join_pairs": "join_pairs.cu",
     "empty": "empty.cu",
 }
 CUMMIN_TILE = 2048  # reverse_cummin.cu's kTile: events per block
@@ -97,6 +109,8 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_longlong, _I, _P, _I, _P,
     ],
     "fst_warp_rounds": [_I, _P],
+    "fst_ftz_probe": [_P, _P, _P, _I, _P],
+    "fst_join_pairs": [_P, _P],
     "fst_slot_nfa_scan": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
         _P, _P, _I, _I, _P,
@@ -123,7 +137,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the source and every shared header it may include
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -264,6 +280,21 @@ def launch_warp_rounds(n: int) -> None:
         n, _stream(torch.cuda.current_device())
     )
     _check_launch("warp_rounds", err)
+
+
+def ftz_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float probe (csrc/empty.cu) on float32 CUDA tensors ``a``, ``b``
+    ``[n]``: ``[n, 6]`` of a + b, a * b, a / b, a < b, a == b, fmodf(a, b)
+    as the build computes them without the interpreter's explicit flush.
+    No path calls it."""
+    n = int(a.shape[0])
+    out = torch.empty((n, 6), dtype=torch.float32, device=a.device)
+    err = LIBRARIES.get("empty").fst_ftz_probe(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+        _stream(a.device.index),
+    )
+    _check_launch("ftz_probe", err)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1350,8 +1381,255 @@ class SlotNFAScan:
 
 slot_nfa_scan = SlotNFAScan()
 
+# --------------------------------------------------------------------------
+# K5: the join's pair step
+# --------------------------------------------------------------------------
+
+JOIN_THREADS = 256  # join_pairs.cu's kThreads
+JOIN_MAX_DEPTH = 227  # program stack words a thread (a block's shared memory)
+JOIN_MAX_TILE = 4096  # join_pairs.cu's kMaxTile
+N_MAX = 2 ** 31 - 1  # a join step's pair count saturates here
+
+
+@dataclass
+class JoinDir:
+    """One direction of a join's pair step: the arriving side ``a`` (its
+    events on the tape) against the other side ``b`` (its combined buffer:
+    the ring's ``C`` entries, then this batch's b-events compacted in tape
+    order). Tensors on one device:
+
+    - ``a_mask`` bool ``[E]``; ``a_cols`` int32 ``[a_n, E]`` (the program's
+      event loads, float32 by bit pattern);
+    - ``b_ts`` int32, ``b_valid`` bool, ``b_posid`` int32 (tape position,
+      -1 for a ring entry) ``[Nb]``; ``b_cum`` int32 ``[E]`` (b-events up
+      to and including tape position i, ``b_seen`` included); ``b_seen``
+      int32 ``[1]`` (b-events before this batch; entry j is ordinal
+      ``seen - C + j``); ``b_cols`` int32 ``[b_n, Nb]`` (the program's
+      other loads);
+
+    and the host values: ``prog`` (the linked ``on`` program, event loads
+    from ``a_cols``, the other kind from ``b_cols``; empty for no
+    condition) and its stack ``depth``; b's window (``mode_time``, ``n``
+    the length, ``span`` the time span), ``C`` and whether a's unmatched
+    events emit an outer row."""
+
+    a_mask: torch.Tensor
+    a_cols: torch.Tensor
+    b_ts: torch.Tensor
+    b_valid: torch.Tensor
+    b_posid: torch.Tensor
+    b_cum: torch.Tensor
+    b_seen: torch.Tensor
+    b_cols: torch.Tensor
+    prog: Tuple[int, ...]
+    depth: int
+    mode_time: bool
+    n: int
+    span: int
+    C: int
+    outer: bool
+
+
+def _join_member(d: JoinDir, ts: torch.Tensor, rows: torch.Tensor,
+                 self_join: bool, within: Optional[int]) -> torch.Tensor:
+    """The reference's pair mask (join.py:335-379) for tape rows
+    ``rows``: bool ``[len(rows), Nb]``."""
+    Nb = int(d.b_ts.shape[0])
+    dev = ts.device
+    base = d.b_seen.reshape(()) - d.C
+    ords = base + torch.arange(Nb, dtype=torch.int32, device=dev)
+    cum = d.b_cum[rows][:, None]
+    ts_i = ts[rows][:, None]
+    member = d.b_valid[None, :] & d.a_mask[rows][:, None]
+    member = member & (ords[None, :] < cum)
+    if self_join:
+        member = member & (d.b_posid[None, :] != rows[:, None].to(torch.int32))
+    if d.mode_time:
+        member = member & (d.b_ts[None, :] > ts_i - d.span)
+    else:
+        member = member & (ords[None, :] >= cum - d.n)
+    if within is not None:
+        member = member & (torch.abs(ts_i - d.b_ts[None, :]) <= within)
+    if d.prog:
+        ok = eval_program(d.prog, lambda c: d.a_cols[c][rows][:, None],
+                          lambda c: d.b_cols[c][None, :])
+        member = member & (ok != 0)
+    return member
+
+
+def join_pairs_plain(dirs: Sequence[JoinDir], ts: torch.Tensor, cap: int,
+                     self_join: bool, within: Optional[int]):
+    """The plain version: the reference's dense pair masks per direction
+    (l -> r, then r -> l) and its stable compaction, in torch (rows in
+    chunks, so the mask never holds more than ``_PLAIN_CHUNK_CELLS`` cells
+    at once; the order is the flattened mask's; pairs past ``cap`` are
+    counted, not kept). Returns ``(i, j, seg, n)``: int32 ``[cap]`` ranks
+    (zeros past ``n``) and ``n`` int32 ``[1]``, the count before the cut
+    at ``cap``, saturated at ``N_MAX``."""
+    E = int(ts.shape[0])
+    dev = ts.device
+    segs = []
+    n = 0
+
+    def keep(i, j, seg):
+        nonlocal n
+        if n < cap:
+            k = cap - n
+            segs.append((i[:k], j[:k], torch.full_like(i[:k], seg)))
+        n += int(i.shape[0])
+
+    for di, d in enumerate(dirs):
+        Nb = int(d.b_ts.shape[0])
+        step = max(1, _PLAIN_CHUNK_CELLS // max(Nb, 1))
+        hit = []
+        for r0 in range(0, E, step):
+            rows = torch.arange(r0, min(r0 + step, E), device=dev)
+            member = _join_member(d, ts, rows, self_join, within)
+            hit.append(member.any(dim=1))
+            if n < cap:
+                nz = torch.nonzero(member)
+                keep(rows[nz[:, 0]], nz[:, 1], 2 * di)
+            else:
+                n += int(member.sum())
+        if d.outer:
+            oi = torch.nonzero(d.a_mask & ~torch.cat(hit))[:, 0]
+            keep(oi, torch.zeros_like(oi), 2 * di + 1)
+    out = []
+    for k in range(3):
+        o = torch.zeros(cap, dtype=torch.int32, device=dev)
+        if segs:
+            v = torch.cat([s[k] for s in segs])
+            o[:v.shape[0]] = v.to(torch.int32)
+        out.append(o)
+    return (*out, torch.tensor([min(n, N_MAX)], dtype=torch.int32,
+                               device=dev))
+
+
+class _DirArgs(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "a_mask", "a_cols", "b_ts", "b_valid", "b_posid", "b_cum",
+        "b_seen", "b_cols", "tsmax", "tmax", "prog")] + [(f, _I) for f in (
+            "a_n", "b_n", "Nb", "Cb", "mode_time", "n", "span", "outer",
+            "prog_len", "pad")]
+
+
+class _JoinArgs(ctypes.Structure):
+    _fields_ = [("d", _DirArgs * 2)] + [(f, _P) for f in (
+        "ts", "cnt", "tile", "out_i", "out_j", "out_seg", "n_out",
+        "visits")] + [(f, _I) for f in (
+            "E", "cap", "self_join", "has_within", "within", "depth")]
+
+
+class JoinPairs:
+    """A join's pair step over one micro-batch: ``(i, j, seg, n)`` for the
+    two directions ``dirs`` (``JoinDir``, l -> r then r -> l), the tape's
+    ``ts`` int32 ``[E]``, the cut ``cap``, whether it is a self-join (an
+    event never pairs with itself: same tape position) and ``within`` (ms,
+    or None). ``seg`` is 0 / 2 for a pair of direction 0 / 1 (``i`` the
+    arriving tape position, ``j`` the other side's combined entry), 1 / 3
+    for an unmatched outer row (``j`` 0). Ranks past ``n`` are zeros;
+    ``n`` saturates at ``N_MAX``.
+
+    On CUDA one call launches the kernel's three stages (count, scan,
+    write) on the current stream, with no host read: ``n`` stays on the
+    device. ``visits`` (an int64 ``[1]`` CUDA tensor, or None) adds the
+    candidates the count stage walked."""
+
+    name = "join_pairs"
+    source = "flink_siddhi_tpu_torch/csrc/join_pairs.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._progs: Dict[Tuple, torch.Tensor] = {}
+
+    def _prog(self, prog: Tuple[int, ...], dev) -> torch.Tensor:
+        key = (tuple(prog), str(dev))
+        t = self._progs.get(key)
+        if t is None:
+            if _capturing(dev):
+                raise RuntimeError(
+                    "join_pairs: the program is not on the capturing device "
+                    "yet; run the captured work once first")
+            t = torch.tensor(list(prog) or [0], dtype=torch.int32).to(dev)
+            self._progs[key] = t
+        return t
+
+    def __call__(self, dirs: Sequence[JoinDir], ts: torch.Tensor, cap: int,
+                 self_join: bool, within: Optional[int], visits=None):
+        if _device_kind(ts, "ts") == "cpu":
+            return join_pairs_plain(dirs, ts, cap, self_join, within)
+        dev = ts.device
+        E = int(ts.shape[0])
+        _check(ts, "ts", torch.int32, dev, (E,))
+        if len(dirs) != 2:
+            raise ValueError("join_pairs: two directions")
+        if E >= 2 ** 29 or cap >= 2 ** 31:
+            raise ValueError(f"join_pairs: {E} events, cap {cap}")
+        args = _JoinArgs()
+        depth = 0
+        keep = []
+        for k, d in enumerate(dirs):
+            Nb = int(d.b_ts.shape[0])
+            _check(d.a_mask, "a_mask", torch.bool, dev, (E,))
+            _check(d.b_ts, "b_ts", torch.int32, dev, (Nb,))
+            _check(d.b_valid, "b_valid", torch.bool, dev, (Nb,))
+            _check(d.b_posid, "b_posid", torch.int32, dev, (Nb,))
+            _check(d.b_cum, "b_cum", torch.int32, dev, (E,))
+            _check(d.b_seen, "b_seen", torch.int32, dev, (1,))
+            a_n, b_n = int(d.a_cols.shape[0]), int(d.b_cols.shape[0])
+            _check(d.a_cols, "a_cols", torch.int32, dev, (a_n, E))
+            _check(d.b_cols, "b_cols", torch.int32, dev, (b_n, Nb))
+            if not 1 <= d.C <= Nb:
+                raise ValueError(f"join_pairs: ring {d.C} of {Nb} entries")
+            prog = self._prog(d.prog, dev)
+            keep.append(prog)
+            depth = max(depth, d.depth if d.prog else 0)
+            a = args.d[k]
+            a.a_mask, a.a_cols = d.a_mask.data_ptr(), d.a_cols.data_ptr()
+            a.b_ts, a.b_valid = d.b_ts.data_ptr(), d.b_valid.data_ptr()
+            a.b_posid, a.b_cum = d.b_posid.data_ptr(), d.b_cum.data_ptr()
+            a.b_seen, a.b_cols = d.b_seen.data_ptr(), d.b_cols.data_ptr()
+            # the running max of a time window's valid ts (the kernel's
+            # scratch: the entries, then the 4,096-entry tiles' maxima)
+            tsmax = torch.empty(Nb + -(-Nb // JOIN_MAX_TILE),
+                                dtype=torch.int32, device=dev)
+            keep.append(tsmax)
+            a.tsmax, a.tmax = tsmax.data_ptr(), tsmax[Nb:].data_ptr()
+            a.prog = prog.data_ptr()
+            a.a_n, a.b_n, a.Nb, a.Cb = a_n, b_n, Nb, d.C
+            a.mode_time, a.n, a.span = int(d.mode_time), d.n, d.span
+            a.outer, a.prog_len = int(d.outer), len(d.prog)
+        if depth > JOIN_MAX_DEPTH:
+            raise ValueError(
+                f"join_pairs: a {depth}-deep program exceeds a block's "
+                f"shared memory ({JOIN_MAX_DEPTH} words a thread)")
+        nb = -(-E // JOIN_THREADS)
+        cnt = torch.empty(4 * E, dtype=torch.int32, device=dev)
+        tile = torch.empty(4 * nb, dtype=torch.int64, device=dev)
+        out = [torch.zeros(cap, dtype=torch.int32, device=dev)
+               for _ in range(3)]
+        n = torch.empty(1, dtype=torch.int32, device=dev)
+        args.ts, args.cnt, args.tile = ts.data_ptr(), cnt.data_ptr(), \
+            tile.data_ptr()
+        args.out_i, args.out_j, args.out_seg = (o.data_ptr() for o in out)
+        args.n_out = n.data_ptr()
+        args.visits = visits.data_ptr() if visits is not None else 0
+        args.E, args.cap, args.self_join = E, cap, int(self_join)
+        args.has_within = int(within is not None)
+        args.within = int(within) if within is not None else 0
+        args.depth = depth
+        with _on_device(dev):
+            err = LIBRARIES.get("join_pairs").fst_join_pairs(
+                ctypes.addressof(args), _stream(dev.index))
+        _check_launch(self.name, err)
+        self.launches += 1
+        return (*out, n)
+
+
+join_pairs = JoinPairs()
+
 KERNELS = (multi_reverse_cummin, chain_advance, unique_window_fold,
-           slot_nfa_scan)
+           slot_nfa_scan, join_pairs)
 
 
 def reset_launches() -> None:

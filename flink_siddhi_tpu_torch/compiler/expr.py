@@ -145,6 +145,71 @@ def _dt(atype: AttributeType) -> torch.dtype:
     return torch_dtype(atype.device_dtype)
 
 
+# --------------------------------------------------------------------------
+# float32 as the reference computes it: flush-to-zero and denormals-are-zero
+# --------------------------------------------------------------------------
+# XLA on the CPU runs every float32 operation with FTZ and DAZ: a subnormal
+# operand counts as a (signed) zero and a subnormal result becomes one
+# (``a - b``, ``a * b``, ``a / b``, the comparisons; unary minus is a sign
+# flip and keeps a subnormal). The port applies the same flush explicitly,
+# on every device: to the operands and the result of each float32
+# operation, and to the operands of each float32 comparison.
+
+_EXP_BITS = 0x7F800000
+_SIGN_BIT = -0x80000000
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor with each subnormal replaced by a zero of its
+    sign; any other tensor as it is."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+        return x
+    w = x.view(torch.int32)
+    return torch.where((w & _EXP_BITS) == 0, w & _SIGN_BIT,
+                       w).view(torch.float32)
+
+
+def fmod_exact(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """C's fmodf, exact (torch.fmod on the CPU divides first and can lose
+    everything: fmod(-3e38, 1e-30) comes out NaN)."""
+    if fa.device.type == "cpu" and fb.device.type == "cpu":
+        fa, fb = torch.broadcast_tensors(fa, fb)
+        with _np.errstate(invalid="ignore", divide="ignore"):
+            return torch.from_numpy(_np.fmod(fa.contiguous().numpy(),
+                                             fb.contiguous().numpy()))
+    return torch.fmod(fa, fb)
+
+
+def mod_f32(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """jnp.mod on float32 as the reference's CPU computes it: fmod of the
+    operand over the flushed divisor (the remainder itself is exact and not
+    flushed), then the divisor added when the flushed remainder's sign
+    differs from it."""
+    fb = ftz(fb)
+    t = fmod_exact(fa, fb)
+    tz = ftz(t)
+    plus = ((tz < 0) != (fb < 0)) & (tz != 0)
+    return torch.where(plus, ftz(tz + fb), t)
+
+
+def _float_op(fn):
+    """``fn`` over float32 operands with the reference's flush (operands
+    and result); integer operands untouched."""
+    def op(a, b):
+        if a.dtype != torch.float32:
+            return fn(a, b)
+        return ftz(fn(ftz(a), ftz(b)))
+    return op
+
+
+def _float_cmp(fn):
+    def op(a, b):
+        if a.dtype != torch.float32:
+            return fn(a, b)
+        return fn(ftz(a), ftz(b))
+    return op
+
+
 def compile_expr(
     expr: ast.Expr,
     resolver: ExprResolver,
@@ -228,11 +293,11 @@ def _compile_binary(
         lf, rf = left.fn, right.fn
         dtype = _dt(out_type)
         ops = {
-            "+": torch.add,
-            "-": torch.sub,
-            "*": torch.mul,
+            "+": _float_op(torch.add),
+            "-": _float_op(torch.sub),
+            "*": _float_op(torch.mul),
             # python-style sign of the result, as jnp.mod
-            "%": torch.remainder,
+            "%": (mod_f32 if dtype == torch.float32 else torch.remainder),
         }
         if op == "/":
             # Siddhi division: int/int stays integral (floored)
@@ -241,9 +306,8 @@ def _compile_binary(
                     lf(env).to(dtype), rf(env).to(dtype)
                 )
             else:
-                fn = lambda env: torch.div(
-                    lf(env).to(dtype), rf(env).to(dtype)
-                )
+                div = _float_op(torch.div)
+                fn = lambda env: div(lf(env).to(dtype), rf(env).to(dtype))
         else:
             top = ops[op]
             fn = lambda env: top(lf(env).to(dtype), rf(env).to(dtype))
@@ -317,8 +381,9 @@ def _compile_comparison(
 
     dtype = _dt(promote(lt, rt))
     lf, rf = left.fn, right.fn
+    cmp = _float_cmp(top)
     return CompiledExpr(
-        lambda env: top(lf(env).to(dtype), rf(env).to(dtype)),
+        lambda env: cmp(lf(env).to(dtype), rf(env).to(dtype)),
         AttributeType.BOOL,
     )
 

@@ -12,15 +12,18 @@ This port covers plain stream queries (filter / projection, also over a
 window), chain patterns (structurally identical ones stacked on a query
 axis), the slot NFA's patterns and sequences, sliding, batch and
 cumulative aggregation with group-by and having, ``#window.unique``,
-``#window.delay`` and ``insert expired events``. Joins, tables, partitions, query chaining,
-``insert all events`` and output rate limiting raise ``SiddhiQLError``
-naming the later slice of the port (ROADMAP.md Queue 1); the JAX package
-``flink_siddhi_tpu`` runs them.
+``#window.delay``, ``insert expired events`` and ``insert all events``,
+windowed two-stream joins (``compiler/join.py``; an aggregated join runs
+as a join into an intermediate stream and an aggregation over it) and
+query chaining (a query reading another query's output inside the same
+step). Tables, partitions and output rate limiting raise
+``SiddhiQLError`` naming the later slice of the port (ROADMAP.md Queue
+1); the JAX package ``flink_siddhi_tpu`` runs them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,10 +32,10 @@ import torch
 from ..extensions.registry import ExtensionRegistry, builtin_registry
 from ..query import ast, parse_plan
 from ..query.lexer import SiddhiQLError
-from ..runtime.tape import TapeSpec, WireTape
+from ..runtime.tape import Tape, TapeSpec, WireTape
 from ..schema.stream_schema import StreamSchema
 from .config import DEFAULT_CONFIG, EngineConfig
-from .expr import ExprResolver, as_i32
+from .expr import ExprResolver, _dt, as_column, as_i32
 from .select import compile_select
 
 _I32 = torch.int32
@@ -45,6 +48,22 @@ def _later(what: str, item: int) -> SiddhiQLError:
     )
 
 
+@dataclass(frozen=True)
+class ChainedInput:
+    """A query whose input stream is ANOTHER query's output (query
+    chaining, ``insert into mid`` -> ``from mid#window...``): the
+    consumer reads a synthetic tape built from the producer's emissions
+    inside the same step — the reference's multi-query composition style
+    (package-info.java:19-51), with batch-granular propagation instead of
+    per-event."""
+
+    producer: str  # producing artifact's name
+    stream_id: str  # the intermediate stream
+    code: int  # stream code on the synthetic tape
+    fields: Tuple  # producer OutputSchema fields (name/type order)
+    mode: str  # producer output_mode: buffered | aligned | packed
+
+
 @dataclass
 class CompiledPlan:
     plan_id: str
@@ -54,6 +73,8 @@ class CompiledPlan:
     config: EngineConfig = DEFAULT_CONFIG
     # oversized micro-batches step in chunks of this tape capacity
     tape_capacity_limit: Optional[int] = None
+    # consumer artifact name -> its chained (internal) input descriptor
+    chained: Dict[str, ChainedInput] = field(default_factory=dict)
 
     def init_state(self, device) -> Dict:
         return {a.name: a.init_state(device) for a in self.artifacts}
@@ -70,13 +91,17 @@ class CompiledPlan:
 
     def step(self, states: Dict, tape) -> Tuple[Dict, Dict]:
         """Advance every query one micro-batch (a staged wire tape is
-        expanded on the device first)."""
+        expanded on the device first); chained consumers read a synthetic
+        tape built from their producer's emissions this same step."""
         if isinstance(tape, WireTape):
             tape = tape.expand()
         new_states = {}
         outputs = {}
         for a in self.artifacts:
-            s, out = a.step(states[a.name], tape)
+            ci = self.chained.get(a.name)
+            a_tape = (tape if ci is None
+                      else _synthetic_tape(outputs[ci.producer], ci))
+            s, out = a.step(states[a.name], a_tape)
             new_states[a.name] = s
             outputs[a.name] = out
         return new_states, outputs
@@ -220,7 +245,8 @@ class CompiledPlan:
 
     def drain_decode(self, counts: np.ndarray, data: np.ndarray,
                      lookup=None, columnar_streams=frozenset(),
-                     lookup_np=None) -> Dict[str, List]:
+                     lookup_np=None,
+                     count_only_streams=frozenset()) -> Dict[str, List]:
         """Host side of a drain: unpack the fetched buffer slice into
         per-artifact lists of (output_schema, decoded payload). ``data``
         is ``buf[:, :max(counts)]`` already on host; ``lookup`` resolves
@@ -234,7 +260,9 @@ class CompiledPlan:
         tuple; ``lookup_np`` is the ring's vectorized resolver for it.
         Every payload is a copy: no decode returns a view of ``data``
         (each reorders by ``emission_order``), so the caller may reuse
-        the buffer ``data`` lies in."""
+        the buffer ``data`` lies in. An artifact of one output stream in
+        ``count_only_streams`` (nothing observes its rows) is not decoded:
+        its payload is its row count, an int."""
         out: Dict[str, List] = {}
         for ai, (a, (row0, n_rows)) in enumerate(
             zip(self.artifacts, self.acc_layout())
@@ -242,6 +270,10 @@ class CompiledPlan:
             n = int(counts[ai])
             if n == 0:
                 out[a.name] = []
+                continue
+            if (a.output_schema.stream_id in count_only_streams
+                    and not hasattr(a, "members")):
+                out[a.name] = [(a.output_schema, n)]
                 continue
             block = data[row0:row0 + n_rows, :n]
             if hasattr(a, "decode_packed"):
@@ -284,6 +316,48 @@ class CompiledPlan:
                     m.output_schema.stream_id, []
                 ).append(m.output_schema)
         return by_stream
+
+
+def _synthetic_tape(out, ci: ChainedInput) -> Tape:
+    """Producer emissions -> the consumer's input Tape, inside the same
+    step. All three artifact output modes convert losslessly: buffered
+    (n, ts, cols), aligned (mask, ts, cols), packed (n, block with
+    bitcast int32 rows)."""
+    if ci.mode == "aligned":
+        mask, ts, cols = out
+        valid = mask
+        width = int(valid.shape[0])
+        col_vals = [as_column(c, width, ts) for c in cols]
+    elif ci.mode == "buffered":
+        n, ts, cols = out
+        width = int(ts.shape[0])
+        valid = torch.arange(width, dtype=_I32, device=ts.device) < n
+        col_vals = [as_column(c, width, ts) for c in cols]
+    else:  # packed: ts row + one bitcast int32 row per output column
+        n, block = out[0], out[1]
+        width = int(block.shape[1])
+        ts = block[0]
+        valid = torch.arange(width, dtype=_I32, device=ts.device) < n
+        col_vals = []
+        for i, f in enumerate(ci.fields):
+            row = block[1 + i]
+            dt = _dt(f.atype)
+            col_vals.append(row.view(torch.float32) if dt == torch.float32
+                            else row.to(dt))
+    # producer emission buffers are in SLOT order; the consumer must see
+    # stream time (order-sensitive consumers — per-event cumulative
+    # prefixes — would otherwise accumulate in buffer order). Stable
+    # sort keeps emission order within a timestamp.
+    ts = ts.to(_I32)
+    order = torch.argsort(torch.where(valid, ts, 2 ** 31 - 1), stable=True)
+    ts = ts[order]
+    valid = valid[order]
+    col_vals = [v[order] for v in col_vals]
+    stream = torch.where(valid, ci.code, -1).to(_I32)
+    cols_map = {
+        f"{ci.stream_id}.{f.name}": v for f, v in zip(ci.fields, col_vals)
+    }
+    return Tape(ts, stream, valid, cols_map)
 
 
 def compile_plan(
@@ -330,26 +404,58 @@ def compile_plan(
     if not parsed.queries:
         raise SiddhiQLError("execution plan contains no queries")
 
+    # direct `group by` / `having` / aggregation ON a join query: legal
+    # SiddhiQL served by rewriting into the chaining form — join into a
+    # synthesized intermediate stream, aggregate that (same step). The
+    # reference's windowed-mutation rewrite between the two waits for
+    # tables (item 8): its forms are table writes, refused above.
+    parsed = _rewrite_aggregated_joins(parsed, {}, all_schemas)
+    parsed = _rewrite_all_events(parsed)
+
     # fail fast on undefined inputs (UndefinedStreamException parity,
-    # SiddhiCEP.java:134-140)
-    produced = {q.output_stream for q in parsed.queries}
+    # SiddhiCEP.java:134-140). A stream produced by an EARLIER query's
+    # `insert into` is a valid chained input (query composition): the
+    # consumer reads the producer's emissions inside the same step.
+    producer_of: Dict[str, int] = {}
+    multi_producer = set()
+    for qi, q in enumerate(parsed.queries):
+        if q.output_stream in producer_of:
+            multi_producer.add(q.output_stream)
+        else:
+            producer_of[q.output_stream] = qi
+
     input_ids: List[str] = []
-    for q in parsed.queries:
+    internal_ids: List[str] = []
+    for qi, q in enumerate(parsed.queries):
         for sid in q.input_stream_ids():
             if sid in all_schemas:
                 if sid not in input_ids:
                     input_ids.append(sid)
                 continue
-            if sid in produced:
-                raise _later(
-                    f"query chaining (stream {sid!r} fed by another "
-                    "query)", 8,
-                )
+            pq = producer_of.get(sid)
+            if pq is not None and pq < qi:
+                if sid in multi_producer:
+                    raise SiddhiQLError(
+                        f"chained stream {sid!r} has multiple producer "
+                        "queries; define it as a stream and union instead"
+                    )
+                if not isinstance(q.input, ast.StreamInput):
+                    raise SiddhiQLError(
+                        f"chained stream {sid!r} can only feed a plain "
+                        "windowed/filtered query (joins and patterns over "
+                        "intermediate streams are not supported yet)"
+                    )
+                if sid not in internal_ids:
+                    internal_ids.append(sid)
+                continue
             raise SiddhiQLError(
                 f"input stream {sid!r} is not defined or registered"
             )
 
     stream_codes = {sid: i for i, sid in enumerate(input_ids)}
+    internal_codes = {
+        sid: len(input_ids) + j for j, sid in enumerate(internal_ids)
+    }
     # materialize only fields some query REFERENCES (by field name,
     # conservatively across streams). ``select *`` anywhere disables
     # pruning (the set is unknowable).
@@ -368,19 +474,65 @@ def compile_plan(
     artifacts = []
     used_names = set()
     encoded = []
+    chained: Dict[str, ChainedInput] = {}
+    merged_codes = {**stream_codes, **internal_codes}
     for qi, q in enumerate(parsed.queries):
         qname = q.name or f"query_{qi}"
         if qname in used_names:
             raise SiddhiQLError(f"duplicate query name {qname!r}")
         used_names.add(qname)
         art = _compile_query(
-            q, qname, all_schemas, stream_codes, extensions, config
+            q, qname, all_schemas, merged_codes, extensions, config
         )
+        inp = q.input
+        if (
+            isinstance(inp, ast.StreamInput)
+            and inp.stream_id in internal_codes
+        ):
+            new_enc = []
+            for enc in getattr(art, "encoded_columns", ()):
+                if any(
+                    k.split(".", 1)[0] == inp.stream_id
+                    for k in enc.in_keys
+                ):
+                    enc = _rewire_chained_group(
+                        art, enc, q, inp.stream_id, all_schemas,
+                        merged_codes,
+                    )
+                new_enc.append(enc)
+            if new_enc:
+                art.encoded_columns = tuple(new_enc)
+            producer = artifacts[producer_of[inp.stream_id]]
+            if getattr(producer, "_nullable", False):
+                raise SiddhiQLError(
+                    f"chained stream {inp.stream_id!r} comes from an "
+                    "outer join whose unmatched rows carry nulls; only "
+                    "inner-join / stream producers can be chained"
+                )
+            chained[qname] = ChainedInput(
+                producer=producer.name,
+                stream_id=inp.stream_id,
+                code=internal_codes[inp.stream_id],
+                fields=tuple(producer.output_schema.fields),
+                mode=producer.output_mode,
+            )
         encoded.extend(getattr(art, "encoded_columns", ()))
         artifacts.append(art)
+        # an intermediate stream becomes visible as a schema for the
+        # queries AFTER its producer (validation already ordered this)
+        if (
+            q.output_stream in internal_codes
+            and q.output_stream not in all_schemas
+        ):
+            all_schemas[q.output_stream] = StreamSchema(
+                [(f.name, f.atype) for f in art.output_schema.fields],
+                shared_strings=shared_strings,
+            )
 
     # multi-query parallelism: structurally identical chain patterns
-    # stack onto a device query axis and advance together
+    # stack onto a device query axis and advance together. Chained
+    # producers keep their own artifact (consumers read their outputs by
+    # name).
     from .nfa import (
         ChainPatternArtifact,
         StackedChainArtifact,
@@ -388,7 +540,11 @@ def compile_plan(
         group_chain_artifacts,
     )
 
-    artifacts = group_chain_artifacts(artifacts, column_types=column_types)
+    artifacts = group_chain_artifacts(
+        artifacts,
+        exclude=frozenset(ci.producer for ci in chained.values()),
+        column_types=column_types,
+    )
 
     # late materialization and wire predicate pushdown (opt-in), for a
     # plan of one chain pattern, one select or one sliding window (a stack
@@ -443,6 +599,7 @@ def compile_plan(
         schemas=all_schemas,
         config=config,
         tape_capacity_limit=cap_limit,
+        chained=chained,
     )
 
 
@@ -458,10 +615,6 @@ def _compile_query(
         raise _later("'partition with'", 8)
     if q.output_action != "insert":
         raise _later(f"table {q.output_action}", 8)
-    if q.output_events == "all":
-        # the reference splits it into a current-events query and an
-        # expired one (its plan rewrite)
-        raise _later("'insert all events into'", 8)
     if q.output_rate is not None:
         raise _later("output rate limiting ('output ... every')", 9)
     inp = q.input
@@ -520,8 +673,235 @@ def _compile_query(
             q, name, schemas, stream_codes, extensions, config
         )
     if isinstance(inp, ast.JoinInput):
-        raise _later("joins", 8)
+        from .join import compile_join_query
+
+        return compile_join_query(
+            q, name, schemas, stream_codes, extensions, config
+        )
     raise SiddhiQLError(f"unsupported input clause {type(inp).__name__}")
+
+
+def _rewrite_aggregated_joins(parsed, table_schemas, all_schemas):
+    """Expand ``from A join B ... select sum(x) group by k`` into the
+    two-query chaining form: the join projects every referenced raw
+    column into a synthesized intermediate stream; the aggregation runs
+    over that stream. The reference composes multi-query plans the same
+    way (package-info.java:19-51); this makes the single-query spelling
+    — legal SiddhiQL — compile instead of raising a chaining hint."""
+    import dataclasses
+
+    out = []
+    changed = False
+    for q in parsed.queries:
+        inp = q.input
+        is_stream_join = isinstance(inp, ast.JoinInput) and not (
+            inp.left.stream_id in table_schemas
+            or inp.right.stream_id in table_schemas
+        )
+        sel = q.selector
+        has_agg = any(
+            ast.contains_aggregate(i.expr) for i in sel.items
+        ) or bool(sel.group_by) or sel.having is not None
+        if not (is_stream_join and has_agg) or q.output_action != "insert":
+            out.append(q)
+            continue
+        if sel.is_star:
+            raise SiddhiQLError(
+                "select * with aggregation over a join is ambiguous; "
+                "name the columns"
+            )
+        changed = True
+        mid = f"@j:{q.output_stream}:{len(out)}"
+        side_of = {
+            inp.left.ref_name: inp.left.stream_id,
+            inp.left.stream_id: inp.left.stream_id,
+            inp.right.ref_name: inp.right.stream_id,
+            inp.right.stream_id: inp.right.stream_id,
+        }
+        group_sources: Dict[str, str] = {}
+
+        # every raw attr the outer selector/having reads gets a flat
+        # alias on the intermediate stream
+        mangled: Dict[Tuple, str] = {}
+        join_items: List[ast.SelectItem] = []
+
+        def flat(attr: ast.Attr) -> str:
+            key = (attr.qualifier, attr.name)
+            name = mangled.get(key)
+            if name is None:
+                name = (
+                    f"{attr.qualifier}_{attr.name}"
+                    if attr.qualifier
+                    else attr.name
+                )
+                # collisions (e.g. `a_b` vs qualifier a, name b): suffix
+                while any(i.alias == name for i in join_items):
+                    name += "_"
+                mangled[key] = name
+                join_items.append(ast.SelectItem(attr, name))
+                # provenance: which SOURCE column this flat field carries
+                if attr.qualifier is not None:
+                    sid = side_of.get(attr.qualifier)
+                    if sid is not None:
+                        group_sources[name] = f"{sid}.{attr.name}"
+                else:
+                    hits = [
+                        sid
+                        for sid in (
+                            inp.left.stream_id, inp.right.stream_id
+                        )
+                        if sid in all_schemas
+                        and attr.name in all_schemas[sid]
+                    ]
+                    if len(set(hits)) == 1:
+                        group_sources[name] = f"{hits[0]}.{attr.name}"
+            return name
+
+        def _flat_attr(a: ast.Attr) -> ast.Attr:
+            if a.index is not None:
+                raise SiddhiQLError(
+                    "indexed references are not valid on join queries"
+                )
+            return ast.Attr(flat(a))
+
+        def rewrite(e: ast.Expr) -> ast.Expr:
+            return ast.map_expr(e, _flat_attr)
+
+        new_items = tuple(
+            ast.SelectItem(rewrite(i.expr), i.output_name())
+            for i in sel.items
+        )
+        out_aliases = {i.output_name() for i in sel.items}
+
+        def rewrite_having(e: ast.Expr) -> ast.Expr:
+            # having may reference SELECT aliases — those resolve
+            # downstream against the aggregation's own output slots,
+            # not against the join's raw columns
+            return ast.map_expr(
+                e,
+                lambda a: (
+                    a
+                    if a.qualifier is None and a.name in out_aliases
+                    else _flat_attr(a)
+                ),
+            )
+
+        new_having = (
+            rewrite_having(sel.having) if sel.having is not None else None
+        )
+        # group keys carry onto the intermediate stream under their
+        # flattened alias (qualified keys keep their side)
+        new_group = tuple(
+            flat(ast.split_group_key(g)) for g in sel.group_by
+        )
+
+        join_q = dataclasses.replace(
+            q,
+            selector=ast.Selector(tuple(join_items)),
+            output_stream=mid,
+            name=(f"{q.name}@join" if q.name else None),
+            output_rate=None,
+        )
+        agg_q = dataclasses.replace(
+            q,
+            input=ast.StreamInput(mid),
+            selector=ast.Selector(new_items, new_group, new_having),
+            group_sources=tuple(sorted(group_sources.items())),
+        )
+        out.extend([join_q, agg_q])
+    if not changed:
+        return parsed
+    return dataclasses.replace(parsed, queries=tuple(out))
+
+
+def _rewire_chained_group(art, enc, q, mid_sid, all_schemas, codes):
+    """Group-by over a CHAINED stream: the group values exist only on
+    device, so the host cannot build the code column. When the key's
+    SOURCE column is known (synthesized join rewrites record it) and
+    numeric, rewire: intern over the source column (intern-only, no wire
+    column) and have the artifact map values -> codes on device from
+    the synced sorted table."""
+    import dataclasses as _dc
+
+    from .window import CumulativeAggArtifact
+
+    unsupported = SiddhiQLError(
+        f"group by over chained stream {mid_sid!r} is not supported "
+        "for this query shape (group keys are interned host-side but "
+        "intermediate values exist only on device); group in the "
+        "upstream query instead"
+    )
+    sources = dict(q.group_sources)
+    if (
+        not isinstance(art, CumulativeAggArtifact)
+        or len(enc.in_keys) != 1
+    ):
+        raise unsupported
+    mid_field = enc.in_keys[0].split(".", 1)[1]
+    src_key = sources.get(mid_field)
+    if src_key is None:
+        raise unsupported
+    src_sid, src_field = src_key.split(".", 1)
+    atype = all_schemas[src_sid].field_type(src_field)
+    if not (atype.is_numeric or atype.is_encoded):
+        raise unsupported  # no ordered device representation to map
+    # STRING/OBJECT keys work exactly like numerics here: both host
+    # batches and device columns carry the shared-dictionary int32
+    # CODES (schema/types.py is_encoded), so interning the source
+    # column's codes and mapping value->group on device through the
+    # synced sorted table is the same int32 searchsorted; group-key
+    # output decode goes code -> string through the field decoder
+    art.chained_group_src = enc.in_keys[0]
+    art.chained_group_dtype = atype.device_dtype
+    return _dc.replace(
+        enc,
+        in_keys=(src_key,),
+        stream_code=codes[src_sid],
+        select_fn=None,  # intern the source superset
+        materialize=False,
+    )
+
+
+def _rewrite_all_events(parsed):
+    """``insert all events into X``: siddhi emits BOTH arriving
+    (current) and leaving (expired) window events into one stream.
+    Re-expressed as two queries writing the same output — a current-
+    events pass-through and the expired-events artifact — which is
+    exactly what siddhi-core's StreamJunction receives from a window
+    processor in ALL_EVENTS mode."""
+    import dataclasses
+
+    out = []
+    changed = False
+    for q in parsed.queries:
+        if q.output_events != "all":
+            out.append(q)
+            continue
+        if q.output_rate is not None:
+            # the split halves would share one stream limiter, thinning
+            # interleaved current/expired rows as one sequence — and
+            # the multi-writer check would blame a "second query" the
+            # user never wrote. Name the real combination instead.
+            raise SiddhiQLError(
+                "'insert all events into' combined with 'output ... "
+                "every ...' is not supported; rate-limit the current-"
+                "events and expired-events queries separately"
+            )
+        changed = True
+        base = q.name or f"allq{len(out)}"
+        out.append(
+            dataclasses.replace(
+                q, output_events="current", name=f"{base}@cur"
+            )
+        )
+        out.append(
+            dataclasses.replace(
+                q, output_events="expired", name=f"{base}@exp"
+            )
+        )
+    if not changed:
+        return parsed
+    return dataclasses.replace(parsed, queries=tuple(out))
 
 
 def _referenced_field_names(parsed):

@@ -17,7 +17,9 @@ its bit pattern, a boolean as 0 or 1. The device types of the port's
 DOUBLE float32, STRING an int32 dictionary code), and its promotions are
 reproduced exactly: an int32 operand of a float32 operation converts with
 round-to-nearest-even (``OP_I2F``), int32 arithmetic wraps, float32
-arithmetic rounds each operation on its own (no fused multiply-add).
+arithmetic rounds each operation on its own (no fused multiply-add) and
+flushes as the reference's CPU does (a subnormal operand or result is a
+zero of its sign: ``expr.ftz``).
 
 Covered: loads of the event's own columns and of a slot's captures (first,
 last and indexed), literals (numbers, time literals, interned strings),
@@ -39,13 +41,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..query import ast
 from ..query.lexer import SiddhiQLError
 from ..schema.types import AttributeType
-from .expr import ResolvedAttr, _dt
+from .expr import ResolvedAttr, _dt, ftz, mod_f32
 
 # opcodes (csrc/slot_nfa.cu's enum Op)
 OP_LIT = 1
@@ -173,12 +174,14 @@ class _Compiler:
     def compile(self, expr) -> Tuple[List[int], str, object]:
         """(code, kind, string table or None) of ``expr``."""
         if self._derive is not None and _has_call(expr):
-            # the largest event-only subexpression holding a call: a
-            # column the caller computes over the batch
+            # the largest one-sided subexpression holding a call: a column
+            # the caller computes over the batch (an event column, unless
+            # ``derive`` says otherwise with a fourth element)
             got = self._derive(expr)
             if got is not None:
-                key, atype, table = got
-                return self._load_key(key, True), _kind(atype), table
+                key, atype, table = got[:3]
+                event = got[3] if len(got) > 3 else True
+                return self._load_key(key, event), _kind(atype), table
         if isinstance(expr, ast.Literal):
             if expr.atype == AttributeType.STRING:
                 return [], "s", None  # only inside a string comparison
@@ -358,39 +361,31 @@ def _mod_i(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(plus, t + d.long(), t).to(torch.int32)
 
 
-def _fmod(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
-    """C's fmodf, exact (torch.fmod on the CPU divides first and can lose
-    everything: fmod(-3e38, 1e-30) comes out NaN)."""
-    fa, fb = torch.broadcast_tensors(fa, fb)
-    if fa.device.type == "cpu":
-        with np.errstate(invalid="ignore", divide="ignore"):
-            return torch.from_numpy(np.fmod(fa.numpy(), fb.numpy()))
-    return torch.fmod(fa, fb)
-
-
 def _mod_f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """jnp.mod on float32 words: fmod, then the divisor added when the
-    signs differ (each step rounded)."""
-    fa, fb = _f(a), _f(b)
-    t = _fmod(fa, fb)
-    plus = ((t < 0) != (fb < 0)) & (t != 0)
-    return _w(torch.where(plus, t + fb, t))
+    """jnp.mod on float32 words, with the reference's flush."""
+    return _w(mod_f32(_f(a), _f(b)))
+
+
+def _fop(fn):
+    """A float32 operation on words, with the reference's flush of the
+    operands and the result (``expr.ftz``)."""
+    return lambda a, b: _w(ftz(fn(ftz(_f(a)), ftz(_f(b)))))
 
 
 _BINARY = {
     OP_ADD_I: torch.add, OP_SUB_I: torch.sub, OP_MUL_I: torch.mul,
-    OP_ADD_F: lambda a, b: _w(_f(a) + _f(b)),
-    OP_SUB_F: lambda a, b: _w(_f(a) - _f(b)),
-    OP_MUL_F: lambda a, b: _w(_f(a) * _f(b)),
+    OP_ADD_F: _fop(torch.add), OP_SUB_F: _fop(torch.sub),
+    OP_MUL_F: _fop(torch.mul),
     OP_DIV_I: _floor_div_i, OP_MOD_I: _mod_i,
-    OP_DIV_F: lambda a, b: _w(_f(a) / _f(b)),
+    OP_DIV_F: _fop(torch.div),
     OP_MOD_F: _mod_f,
     OP_AND: torch.bitwise_and, OP_OR: torch.bitwise_or,
 }
 for _i, _fn in enumerate((torch.eq, torch.ne, torch.lt, torch.le, torch.gt,
                           torch.ge)):
     _BINARY[OP_EQ_I + _i] = lambda a, b, fn=_fn: _b(fn(a, b))
-    _BINARY[OP_EQ_F + _i] = lambda a, b, fn=_fn: _b(fn(_f(a), _f(b)))
+    _BINARY[OP_EQ_F + _i] = lambda a, b, fn=_fn: _b(
+        fn(ftz(_f(a)), ftz(_f(b))))
 
 
 def eval_program(code, evt: Callable[[int], torch.Tensor],

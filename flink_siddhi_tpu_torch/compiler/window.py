@@ -366,8 +366,8 @@ def _pad_groups(state: Dict, need: int) -> Dict:
     the ``enabled`` flag as they are)."""
     out = dict(state)
     for k, v in state.items():
-        if v.dim() == 0:
-            continue
+        if v.dim() == 0 or k.startswith("@g"):
+            continue  # the chained group tables are rebuilt, not padded
         fill = (_identity(k[:3], v.dtype) if k.startswith(("min", "max"))
                 else 0)
         pad = torch.full((need - v.shape[0],), fill, dtype=v.dtype,
@@ -894,6 +894,12 @@ class CumulativeAggArtifact:
     proj_fns: List
     having_fn: Optional[Callable]
     output_mode: str = "aligned"
+    # chained-input group-by: the group VALUES exist only on the device
+    # (the producer's emissions), so instead of a host-built code column
+    # the device maps values -> codes through a sorted intern table synced
+    # from the (intern-only) host encoder (plan._rewire_chained_group)
+    chained_group_src: Optional[str] = None
+    chained_group_dtype: object = None
 
     def _stats(self) -> Dict[int, set]:
         return _acc_stats_for(self.aggs)
@@ -903,10 +909,49 @@ class CumulativeAggArtifact:
             return 1
         return _bucket(len(self.encoder), MIN_GROUP_CAPACITY)
 
+    def _chained_tables(self, G: int, device) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+        """(sorted values, codes) ``[G]`` for the device value->code map,
+        made on the host from the encoder and cached on (encoder size, G,
+        device): while the encoder does not grow, every step reads the
+        same two tensors (no upload)."""
+        key = (len(self.encoder), G, str(device))
+        cached = getattr(self, "_ct_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1], cached[2]
+        dt = np.dtype(self.chained_group_dtype)
+        vals = np.asarray(
+            [self.encoder.value(i)[0] for i in range(len(self.encoder))],
+            dtype=dt,
+        )
+        order = np.argsort(vals, kind="stable")
+        gv = np.full(G, np.inf if np.issubdtype(dt, np.floating)
+                     else np.iinfo(dt).max, dtype=dt)
+        gc = np.zeros(G, np.int32)
+        gv[: len(vals)] = vals[order]
+        gc[: len(vals)] = order.astype(np.int32)
+        out = (torch.from_numpy(gv).to(device),
+               torch.from_numpy(gc).to(device))
+        self._ct_cache = (key, *out)
+        return out
+
+    def _group_codes(self, env, state) -> torch.Tensor:
+        """Group code per tape position: the host-built code column, or
+        the on-device sorted-table lookup for chained inputs."""
+        if self.chained_group_src is None:
+            return env[self.code_key].to(_I32)
+        gv = state["@gv"]
+        vals = env[self.chained_group_src].to(gv.dtype)
+        pos = torch.clamp(torch.searchsorted(gv, vals, side="left"),
+                          0, gv.shape[0] - 1)
+        return state["@gc"][pos]
+
     def init_state(self, device) -> Dict:
         G = self._G()
         st = {"enabled": torch.tensor(True, device=device),
               "cnt": torch.zeros(G, dtype=_I32, device=device)}
+        if self.chained_group_src is not None:
+            st["@gv"], st["@gc"] = self._chained_tables(G, device)
         # float sums carry a Neumaier compensation: an UNBOUNDED float32
         # running sum otherwise loses every update once its magnitude
         # outgrows the mantissa
@@ -916,9 +961,15 @@ class CumulativeAggArtifact:
 
     def grow_state(self, state: Dict) -> Dict:
         need = self._G()
-        if need <= state["cnt"].shape[0]:
-            return state
-        return _pad_groups(state, need)
+        G = int(state["cnt"].shape[0])
+        if need > G:
+            state = _pad_groups(state, need)
+            G = need
+        if self.chained_group_src is not None:
+            gv, gc = self._chained_tables(G, state["cnt"].device)
+            if gv is not state["@gv"]:
+                state = dict(state, **{"@gv": gv, "@gc": gc})
+        return state
 
     def step(self, state: Dict, tape) -> Tuple[Dict, Tuple]:
         env: ColumnEnv = dict(tape.cols)
@@ -927,7 +978,7 @@ class CumulativeAggArtifact:
         G = int(state["cnt"].shape[0])
         dev = mask.device
 
-        g = (env[self.code_key].to(_I32) if self.code_key is not None
+        g = (self._group_codes(env, state) if self.code_key is not None
              else torch.zeros(E, dtype=_I32, device=dev))
         segkey = torch.where(mask, g, G).long()
         # stable: groups contiguous, in tape order, pad last

@@ -11,7 +11,9 @@
 // nothing else, in one block of the scan's width. The warp kernel is the
 // serial floor of the scan's one-warp pools (S <= 64): n rounds of a
 // __syncwarp and a __shfl_sync whose result the next round's depends on,
-// in one warp.
+// in one warp. The float probe reports what the build's -ftz=true does to
+// the intrinsics the program interpreter (program.cuh) uses, without its
+// explicit flush: chip_smoke.py prints it beside the interpreter's check.
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,7 +38,29 @@ __global__ void warp_kernel(int n, int* sink) {
   if (x == -1) *sink = x;  // keeps the loop; never true for n < 2^20
 }
 
+// per pair k: out[6 k ..] = a + b, a * b, a / b (__fadd_rn, __fmul_rn,
+// __fdiv_rn), a < b, a == b, fmodf(a, b), with no explicit flush
+__global__ void ftz_probe_kernel(const float* a, const float* b, float* out,
+                                 int n) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  out[6 * k] = __fadd_rn(a[k], b[k]);
+  out[6 * k + 1] = __fmul_rn(a[k], b[k]);
+  out[6 * k + 2] = __fdiv_rn(a[k], b[k]);
+  out[6 * k + 3] = a[k] < b[k] ? 1.f : 0.f;
+  out[6 * k + 4] = a[k] == b[k] ? 1.f : 0.f;
+  out[6 * k + 5] = fmodf(a[k], b[k]);
+}
+
 }  // namespace
+
+// The float probe over n pairs on `stream`; returns a cudaError_t.
+extern "C" int fst_ftz_probe(const float* a, const float* b, float* out,
+                             int n, void* stream) {
+  ftz_probe_kernel<<<(n + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // One launch on `stream`; returns a cudaError_t.
 extern "C" int fst_empty(void* stream) {

@@ -20,10 +20,10 @@
 // instance goes to the lowest free slots in rank order, the prefix slot
 // reverts; forks past the free slots count as overflow); arming into the
 // lowest free slot under the `every` / grouped `every` / single-match
-// rules. int32 arithmetic wraps (unsigned), float32 arithmetic rounds each
-// operation (__fadd_rn etc.: no fused multiply-add), as torch's; `/` and
-// `%` follow jnp.floor_divide, jnp.divide and jnp.mod (XLA's integer
-// division by zero and INT_MIN / -1 included).
+// rules. The cross filters run in the interpreter shared with K5
+// (program.cuh): int32 arithmetic wraps, float32 rounds each operation and
+// flushes subnormals as the reference's CPU does; `/` and `%` follow
+// jnp.floor_divide, jnp.divide and jnp.mod.
 //
 // What bounds it on an H100: the chain of events, not bytes. Event i + 1
 // depends on event i's slot state, so the pool walks the events one after
@@ -68,7 +68,11 @@
 // captures it.
 #include <cuda_runtime.h>
 
+#include "program.cuh"
+
 namespace {
+
+using namespace fst_program;
 
 constexpr int kMaxElems = 32;
 constexpr int kMaxPairs = 32;
@@ -114,122 +118,6 @@ static_assert(kPlanWords == kHeader + 17 * 32 + 1, "SlotPlan layout");
 constexpr int kColMask = (1 << 20) - 1;
 constexpr int kRowRegs = 8;  // emission capture rows whose words stay in
                              // registers
-
-// slot_program.py's opcodes
-enum Op {
-  kLit = 1, kEvt, kCap, kI2F,
-  kAddI, kSubI, kMulI, kNegI,
-  kAddF, kSubF, kMulF, kNegF,
-  kEqI, kNeI, kLtI, kLeI, kGtI, kGeI,
-  kEqF, kNeF, kLtF, kLeF, kGtF, kGeF,
-  kAnd, kOr, kNot, kAndJ, kOrJ,
-  kDivI, kModI, kDivF, kModF,
-};
-
-__device__ __forceinline__ float f32(int w) { return __int_as_float(w); }
-__device__ __forceinline__ int w32(float f) { return __float_as_int(f); }
-__device__ __forceinline__ unsigned u32(int w) {
-  return static_cast<unsigned>(w);
-}
-__device__ __forceinline__ int sgn(int x) { return (x > 0) - (x < 0); }
-
-// XLA's integer division and remainder: x / 0 = -1, x % 0 = x,
-// INT_MIN / -1 = INT_MIN, INT_MIN % -1 = 0 (C++ leaves them undefined)
-__device__ __forceinline__ int xla_div(int a, int b) {
-  if (b == 0) return -1;
-  if (b == -1) return static_cast<int>(0u - u32(a));
-  return a / b;
-}
-__device__ __forceinline__ int xla_rem(int a, int b) {
-  if (b == 0) return a;
-  if (b == -1) return 0;
-  return a % b;
-}
-// jnp.floor_divide on int32
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = xla_div(a, b);
-  const bool adj = sgn(a) != sgn(b) && xla_rem(a, b) != 0;
-  return adj ? static_cast<int>(u32(q) - 1u) : q;
-}
-// jnp.mod on int32 (a zero divisor becomes 1: the result is 0)
-__device__ __forceinline__ int floor_mod(int a, int b) {
-  const int d = b == 0 ? 1 : b;
-  const int t = xla_rem(a, d);
-  const bool plus = ((t < 0) != (d < 0)) && t != 0;
-  return plus ? static_cast<int>(u32(t) + u32(d)) : t;
-}
-// jnp.mod on float32: fmodf, then the divisor added when the signs differ
-__device__ __forceinline__ float fmod_floor(float a, float b) {
-  const float t = fmodf(a, b);
-  const bool plus = ((t < 0.f) != (b < 0.f)) && t != 0.f;
-  return plus ? __fadd_rn(t, b) : t;
-}
-
-// One program for slot s at the event whose columns are ev[c * kTile]:
-// 0 or 1. The top of the stack lives in a register, the values under it
-// in `st` (this thread's column of a [depth][threads] array).
-__device__ __forceinline__ int run_program(const int* __restrict__ code,
-                                           int len, const int* ev,
-                                           const int* caps, int S, int s,
-                                           int* st, int T) {
-  int sp = 0;
-  int top = 0;
-  for (int pc = 0; pc < len; ++pc) {
-    const int w = __ldg(code + pc);
-    const int op = w & 0xff;
-    const int arg = w >> 8;
-    if (op <= kCap) {  // a load: push
-      st[sp * T] = top;
-      ++sp;
-      top = op == kLit ? __ldg(code + ++pc)
-            : op == kEvt ? ev[arg * kTile]
-                         : caps[arg * S + s];
-    } else if (op == kI2F) {
-      top = w32(__int2float_rn(top));
-    } else if (op == kNegI) {
-      top = static_cast<int>(0u - u32(top));
-    } else if (op == kNegF) {
-      top = w32(-f32(top));
-    } else if (op == kNot) {
-      top ^= 1;
-    } else if (op == kAndJ || op == kOrJ) {
-      // the left operand decides: skip the right one and its and/or
-      if (top == (op == kOrJ ? 1 : 0)) pc += arg;
-    } else {
-      --sp;
-      const int a = st[sp * T];
-      const int b = top;
-      switch (op) {
-        case kAddI: top = static_cast<int>(u32(a) + u32(b)); break;
-        case kSubI: top = static_cast<int>(u32(a) - u32(b)); break;
-        case kMulI: top = static_cast<int>(u32(a) * u32(b)); break;
-        case kAddF: top = w32(__fadd_rn(f32(a), f32(b))); break;
-        case kSubF: top = w32(__fsub_rn(f32(a), f32(b))); break;
-        case kMulF: top = w32(__fmul_rn(f32(a), f32(b))); break;
-        case kDivI: top = floor_div(a, b); break;
-        case kModI: top = floor_mod(a, b); break;
-        case kDivF: top = w32(__fdiv_rn(f32(a), f32(b))); break;
-        case kModF: top = w32(fmod_floor(f32(a), f32(b))); break;
-        case kEqI: top = a == b; break;
-        case kNeI: top = a != b; break;
-        case kLtI: top = a < b; break;
-        case kLeI: top = a <= b; break;
-        case kGtI: top = a > b; break;
-        case kGeI: top = a >= b; break;
-        case kEqF: top = f32(a) == f32(b); break;
-        case kNeF: top = f32(a) != f32(b); break;
-        case kLtF: top = f32(a) < f32(b); break;
-        case kLeF: top = f32(a) <= f32(b); break;
-        case kGtF: top = f32(a) > f32(b); break;
-        case kGeF: top = f32(a) >= f32(b); break;
-        case kAnd: top = a & b; break;
-        case kOr: top = a | b; break;
-        default: top = 0;
-      }
-    }
-  }
-  return top;
-}
 
 // The position of the k-th (0-based) set bit of x (k < popc(x)).
 __device__ __forceinline__ int nth_bit(unsigned x, int k) {
@@ -563,8 +451,11 @@ slot_nfa_kernel(const int* __restrict__ plan_g, const int* __restrict__ aux,
               const int k = __ffs(need) - 1;
               const int ref = pl.cross_ref[k], iref = pl.cross_idx[k];
               bool ok = (x.matched & ref) == ref && (x.idxv & iref) == iref;
-              ok = ok && run_program(prog + pl.cross_off[k], pl.cross_len[k],
-                                     ev, caps, S, s, my_stack, T) != 0;
+              ok = ok && run_program(
+                             prog + pl.cross_off[k], pl.cross_len[k],
+                             [&](int arg) { return ev[arg * kTile]; },
+                             [&](int arg) { return caps[arg * S + s]; },
+                             my_stack, T) != 0;
               if (!ok) clear |= 1 << k;
             }
             eff &= ~clear;

@@ -1107,6 +1107,8 @@ class Job:
             # resolved now, so that a sink attached later (add_sink
             # drains first) cannot race it
             "columnar": self._columnar_streams(rt) if want else frozenset(),
+            "unobserved": (self._unobserved_streams(rt) if want
+                           else frozenset()),
             "t_req": time.monotonic(),
             # staleness: only consumer-visible drains report it
             "t_dirty": t_dirty if want else None,
@@ -1126,6 +1128,15 @@ class Job:
             if self._sinks.get(sid)
             and all(hasattr(s, "accept_columns") for s in self._sinks[sid])
         )
+
+    def _unobserved_streams(self, rt: _PlanRuntime) -> frozenset:
+        """Output streams of this plan that nothing observes (host
+        retention off, no sink: a chained plan's intermediate streams,
+        most often): counted, never decoded."""
+        if self.retain_results:
+            return frozenset()
+        return frozenset(sid for sid in rt.plan.output_streams()
+                         if not self._sinks.get(sid))
 
     def _has_consumers(self, rt: _PlanRuntime) -> bool:
         """Whether any host-side consumer observes this plan's rows."""
@@ -1165,6 +1176,7 @@ class Job:
             entry["fut"] = self._fetch_pool.submit(
                 self._fetch_acc, rt, entry, entry.pop("acc"),
                 entry.pop("want"), entry.pop("columnar"),
+                entry.pop("unobserved"),
             )
 
     def _copy_to_host(self, dst: torch.Tensor, src: torch.Tensor, stream,
@@ -1185,7 +1197,8 @@ class Job:
         return done
 
     def _fetch_acc(self, rt: _PlanRuntime, entry: Dict, acc: Dict,
-                   want: bool, columnar: frozenset):
+                   want: bool, columnar: frozenset,
+                   unobserved: frozenset = frozenset()):
         """The fetch thread's body, two-phase: the counts (their copy was
         issued at the request); then, only when a consumer wants rows and
         any were emitted, the used columns at a width bucketed from the
@@ -1224,6 +1237,7 @@ class Job:
             lookup=lazy.lookup if lazy is not None else None,
             columnar_streams=columnar,
             lookup_np=lazy.lookup_np if lazy is not None else None,
+            count_only_streams=unobserved,
         )
         stages["t_fetch1"] = time.monotonic()
         return counts, overflow, decoded, 2
@@ -1348,7 +1362,11 @@ class Job:
             return
         for a in plan.artifacts:
             for schema, payload in decoded.get(a.name) or []:
-                if isinstance(payload, ColumnBatch):
+                if isinstance(payload, int):  # a stream nothing observes
+                    sid = schema.stream_id
+                    self.emitted_counts[sid] = (
+                        self.emitted_counts.get(sid, 0) + payload)
+                elif isinstance(payload, ColumnBatch):
                     self._emit_columns(schema, payload)
                 else:
                     self._emit_rows(schema, payload)

@@ -47,13 +47,18 @@ class EncodedColumn:
     ``select_fn`` (cols -> bool mask), when set, restricts interning to rows
     the owning query's filters accept — otherwise a heavily filtered query
     over a high-cardinality stream would grow its state table for keys that
-    can never emit. It takes the host tape's numpy columns."""
+    can never emit. It takes the host tape's numpy columns.
+
+    ``materialize=False``: intern only, with no wire column (a group-by
+    over a chained stream interns its source column on the host; the
+    consumer maps values to codes on the device)."""
 
     out_key: str
     in_keys: Tuple[str, ...]
     stream_code: int
     encoder: object  # GroupEncoder
     select_fn: object = None
+    materialize: bool = True
 
 
 @dataclass(frozen=True)
@@ -576,12 +581,16 @@ def build_host_tape(
                 sid_k, fld_k = k.split(".", 1)
                 col = _merged_stream_values(
                     batches, sid_k, fld_k, total, order, identity,
-                    spec.column_types[k].device_dtype,
+                    spec.column_types[k].device_dtype
+                    if k in spec.column_types
+                    else None,
                 )
                 if col is None:
                     col = np.zeros(total, dtype=np.int64)
             in_cols.append(col)
         codes = enc.encoder.intern_rows(in_cols, select)
+        if not enc.materialize:
+            continue  # interning side effect only
         col = np.zeros(cap, dtype=np.int32)
         col[:total] = codes
         cols[enc.out_key] = col

@@ -9,9 +9,9 @@
 * The port runs on the CUDA device by default and raises without one; a
   kernel wrapper takes its plain version for CPU tensors only (its launch
   counter stays 0) and raises for any other device.
-* Every zoo plan outside the slices ported so far raises
-  ``SiddhiQLError`` naming the torch port, instead of running something
-  else, and every form still refused names its ROADMAP item.
+* Every zoo plan compiles in the port, and every form still refused
+  raises ``SiddhiQLError`` naming its ROADMAP item, instead of running
+  something else.
 """
 
 import dataclasses
@@ -182,7 +182,7 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors_only():
     assert tuple(buf.shape) == (2, 1 + art.slots)
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
-        "unique_window_fold": 0, "slot_nfa_scan": 0,
+        "unique_window_fold": 0, "slot_nfa_scan": 0, "join_pairs": 0,
     }
     # a tensor on any other device is refused, never quietly computed
     meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
@@ -216,47 +216,48 @@ def test_cpu_run_builds_no_kernel():
     assert cuda_ops.LIBRARIES._libs == {}
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
-        "unique_window_fold": 0, "slot_nfa_scan": 0,
+        "unique_window_fold": 0, "slot_nfa_scan": 0, "join_pairs": 0,
     }
 
 
-_OUTSIDE_SLICE = sorted(
-    set(PLAN_ZOO) - {"filter_select", "chain_pattern",
-                     "chain_pattern_within", "pattern_absence",
-                     "multiquery_stack6", "unique_window", "sort_window",
-                     "length_window_agg", "time_window_groupby",
-                     "timebatch_window", "expired_events",
-                     "slot_nfa_quantified", "sequence"}
-)
-
-
-@pytest.mark.parametrize("name", _OUTSIDE_SLICE)
-def test_zoo_plans_outside_the_slice_raise(name):
+@pytest.mark.parametrize("name", sorted(PLAN_ZOO))
+def test_every_zoo_plan_compiles_in_the_port(name):
+    # the whole zoo is inside the port since its joins and chaining came
     schemas = {
         sid: fpt.StreamSchema(
             [(n, t.value) for n, t in zip(s.field_names, s.field_types)]
         )
         for sid, s in zoo_schemas().items()
     }
-    with pytest.raises(SiddhiQLError, match="torch port"):
-        fpt.compile_plan(PLAN_ZOO[name], schemas)
+    plan = fpt.compile_plan(PLAN_ZOO[name], schemas)
+    assert plan.artifacts
 
 
 @pytest.mark.parametrize("cql,item", [
-    ("from S#window.length(4) as a join S#window.length(4) as b "
-     "on a.id == b.id select a.id insert into o", 8),
     ("define table T (id int); from S select id insert into T", 8),
-    ("from S[id > 1] select id insert into mid; "
-     "from mid select id insert into o", 8),
+    ("define table T (id int); from S#window.length(4) as a join T "
+     "on a.id == T.id select a.id insert into o", 8),
+    ("from S select id update T on T.id == id", 8),
+    ("from S select id delete T on T.id == id", 8),
+    ("define table T (id int); from S#window.length(2) select id "
+     "update T on T.id == id", 8),
+    ("from S#window.session(5 sec) select id, count() as c insert into o",
+     8),
     ("partition with (id of S) begin from S select id insert into o; end",
      8),
-    ("from S#window.length(2) select id insert all events into o", 8),
+    ("partition with (id of S) begin from S#window.length(2) as a join "
+     "S#window.length(2) as b on a.id == b.id select a.id insert into o; "
+     "end", 8),
+    ("from S#window.length(4) as a join S#window.length(4) as b "
+     "on math:abs(a.id - b.id) < 2 select a.id insert into o", 8),
     ("from S select id output last every 2 events insert into o", 9),
-], ids=["join", "table", "chained_query", "partition", "all_events",
-        "output_rate"])
+], ids=["table", "table_join", "table_update", "table_delete",
+        "windowed_mutation", "session_window", "partition",
+        "partition_join", "on_call_both_sides", "output_rate"])
 def test_refused_forms_name_their_roadmap_item(cql, item):
     # every form still outside the port names the ROADMAP item it waits
-    # for (the slot NFA's were item 8 too, until it came)
+    # for (joins, chained queries and 'insert all events' were item 8 too,
+    # until they came)
     schema = fpt.StreamSchema([("id", "int"), ("timestamp", "long")])
     with pytest.raises(SiddhiQLError, match=f"item {item}\\b"):
         fpt.compile_plan(cql, {"S": schema})
