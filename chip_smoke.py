@@ -52,11 +52,17 @@ fault:
    cases (a length window with J1's `on`; a time window over ring
    timestamps in order and out of order; past its cap with outer rows; a
    self-join with `within`; a float program with `/`, `%` and comparisons
-   over subnormal values, through the interpreter K4 shares), and, with
-   the plain version on the card, at E = 524,288 past its cap of
-   2,097,152 and at E = 131,072 with pairs past 2^31 (n saturated at
-   2^31 - 1); and captured into a CUDA graph replayed on new inputs; then the float probe (what -ftz=true does to the
-   intrinsics alone) is printed;
+   over subnormal values, through the interpreter K4 shares) and six of
+   its slow paths (warps whose pairs overflow their staging; a union of
+   bands past one shared-memory chunk, both seen walking again by the
+   kernel's counter; a disordered tape under a time window; E = 8,269,
+   not a multiple of the tile; a direction with no arriving event; a
+   self-join of one stream with `within` and outer rows on both sides),
+   and, with the plain version on the card, at E = 524,288 past its cap
+   of 2,097,152 and at E = 131,072 with pairs past 2^31 (n saturated at
+   2^31 - 1); and captured into a CUDA graph replayed on new inputs; then
+   the float probe (what -ftz=true does to the intrinsics alone) is
+   printed;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -199,12 +205,12 @@ fault:
    warp floors (the visited events' count of empty rounds), held exactly to
    its plain version on the quantified query's step (the plain version
    timed on the CPU, where it runs); K5 on J1's third step (CUDA events
-   around back-to-back calls), the candidates its walk visits and ns per
-   visited candidate, beside its byte bound and the launch floor, held
-   exactly to its plain version (the dense pair mask, in chunks) run on
-   the card on the same input, whose time is the plain time; then the
-   same step with one event of the time window ten windows late, exact
-   and timed;
+   around back-to-back calls), the candidates in its bands and ns per
+   candidate, the tiles it walked again, beside its bound and the launch
+   floor, held exactly to its plain version (the dense pair mask, in
+   chunks) run on the card on the same input, whose time is the plain
+   time; then the same step with one event of the time window ten
+   windows late, exact and timed;
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -473,7 +479,7 @@ TRACED_KERNELS = {"multi_reverse_cummin": "suffix_min_kernel",
                   "chain_advance": "chain_advance_kernel",
                   "unique_window_fold": "rows_kernel",
                   "slot_nfa_scan": "slot_nfa_kernel",
-                  "join_pairs": "join_write_kernel"}
+                  "join_pairs": "join_walk_kernel"}
 
 
 def traced_launches(prof):
@@ -1336,18 +1342,25 @@ def _f32_words(x):
 
 def join_inputs(co, E, C, rng, dev, mode_time, sorted_ts, n=100, span=100,
                 outer=(False, False), prog=None, depth=0, dense=False,
-                subnormal=False):
+                subnormal=False, jitter=0, sides="both"):
     """One K5 call's inputs (two ``JoinDir``s and the tape's ts) as a join
     step makes them: each tape position arrives on one side (ts one ms
     apart, two streams interleaved); each side's combined buffer is its
     ring of C entries (``seen`` events before, the last C valid) then its
     batch events in tape order. Columns: id in [0, 50) (or [0, 2):
     ``dense``), a float price (with subnormal values: ``subnormal``).
-    ``sorted_ts=False`` moves some ring timestamps out of order."""
+    ``sorted_ts=False`` moves some ring timestamps out of order;
+    ``jitter`` moves each tape ts by up to that many ms either way (a
+    disordered stream). ``sides``: "both" (two streams), "one" (every
+    event on stream 0: direction 1 has no arriving event) or "same" (a
+    self-join: every event arrives on both sides and is in both
+    buffers)."""
     import torch
 
-    side = rng.integers(0, 2, E)
+    side = rng.integers(0, 2, E) if sides == "both" else np.zeros(E, int)
     ts = (np.arange(E) + 5_000).astype(np.int32)
+    if jitter:
+        ts = (ts + rng.integers(-jitter, jitter + 1, E)).astype(np.int32)
     ids = rng.integers(0, 2 if dense else 50, E).astype(np.int32)
     price = (rng.random(E) * 100).astype(np.float32)
     if subnormal:
@@ -1363,8 +1376,8 @@ def join_inputs(co, E, C, rng, dev, mode_time, sorted_ts, n=100, span=100,
             np.float32)
     dirs = []
     for d in (0, 1):
-        a_mask = side == d
-        b_mask = side != d
+        a_mask = side == d if sides != "same" else np.ones(E, bool)
+        b_mask = side != d if sides != "same" else np.ones(E, bool)
         M = int(b_mask.sum())
         seen = int(rng.integers(C // 2, 4 * C))
         order = np.concatenate([np.flatnonzero(b_mask),
@@ -1435,18 +1448,37 @@ def join_check(co, dirs, ts, cap, self_join, within, what, on_card=False):
     return int(ref[3][0]), cap, err, ms
 
 
+def join_counts(co, dirs, ts, cap, self_join, within):
+    """One more K5 call on the same inputs, with its counters: (the
+    candidates in the arriving events' bands, the tiles walked again)."""
+    import torch
+
+    visits = torch.zeros(1, dtype=torch.int64, device=ts.device)
+    rewalks = torch.zeros(1, dtype=torch.int64, device=ts.device)
+    co.join_pairs(dirs, ts, cap, self_join, within, visits=visits,
+                  rewalks=rewalks)
+    return int(visits[0]), int(rewalks[0])
+
+
 def check_join_pairs(fpt, co, dev):
     """Phase 3, K5: the kernel exactly equal to its plain version on the
     card's inputs at E = 8,192 (a length window and a time window over
     ring timestamps in and out of order), past its cap, with outer rows, a
     self-join, `within`, and `on` programs (J1's equality; `/` and `%` and
     comparisons over float columns with subnormal values, through the
-    interpreter K4 shares); at E = 524,288 (J1's batch: many tiles a
-    thread in the scan, binary searches over 262k-entry buffers) past its
-    cap of 2,097,152; and at E = 131,072 with no `on` over windows that
-    hold every earlier event, whose pairs pass 2^31 (the count saturates
-    at 2^31 - 1); the last two with the plain version on the card. Then a
-    CUDA graph replay of one call. Also prints the float probe: what the
+    interpreter K4 shares); the redesign's slow paths, each asserted to
+    run by the kernel's re-walk counter where it has one: warps whose
+    pairs overflow their staging, a length window whose tiles' union of
+    bands passes one shared-memory chunk, a disordered tape under a time
+    window (a tile's bands start out of order), a tape that ends inside a
+    tile, a direction with no arriving event, a self-join of one stream
+    with `within` and outer rows on both sides; at E = 524,288 (J1's
+    batch: 4,096 tiles in the look-back, binary searches over 262k-entry
+    buffers) past its cap of 2,097,152; and at E = 131,072 with no `on`
+    over windows that hold every earlier event, whose pairs pass 2^31
+    (the count saturates at 2^31 - 1; every tile's union streams in
+    chunks); the last two with the plain version on the card. Then a CUDA
+    graph replay of one call. Also prints the float probe: what the
     build's -ftz=true does to the intrinsics alone."""
     import torch
 
@@ -1487,6 +1519,33 @@ def check_join_pairs(fpt, co, dev):
                                            depth=3, subnormal=True,
                                            dense=True), 4 * E, False, None),
     ]
+    odd = E + 77
+    cases += [  # the redesign's slow paths (`at_E`: another tape)
+        ("staging overflow", dict(mode_time=False, sorted_ts=True,
+                                  prog=eq, depth=2, dense=True),
+         64 * E, False, None),
+        ("union past one chunk", dict(mode_time=False, sorted_ts=True,
+                                      prog=eq, depth=2, n=E),
+         128 * E, False, None),
+        ("time, a disordered tape", dict(mode_time=True, sorted_ts=False,
+                                         prog=eq, depth=2, jitter=300),
+         4 * E, False, None),
+        ("E not a multiple of the tile", dict(mode_time=True,
+                                              sorted_ts=True, prog=eq,
+                                              depth=2, at_E=odd,
+                                              outer=(True, True)),
+         4 * odd, False, None),
+        ("a direction with no arrivals", dict(mode_time=True,
+                                              sorted_ts=True, prog=eq,
+                                              depth=2, sides="one",
+                                              outer=(True, True)),
+         4 * E, False, None),
+        ("self-join, within, outer rows", dict(mode_time=True,
+                                               sorted_ts=False, prog=eq,
+                                               depth=2, sides="same",
+                                               outer=(True, True)),
+         8 * E, True, 40),
+    ]
     big = JOIN_BIG_E
     cases += [
         (f"E = {big}, past cap", dict(mode_time=True, sorted_ts=True,
@@ -1499,27 +1558,38 @@ def check_join_pairs(fpt, co, dev):
     out = {}
     err = 0
     for what, kw, cap, self_join, within, *e in cases:
-        dirs, ts = join_inputs(co, e[0] if e else E, C, rng, dev, **kw)
+        at_E = kw.pop("at_E", e[0] if e else E)
+        dirs, ts = join_inputs(co, at_E, C, rng, dev, **kw)
         n, cap, e_, ms = join_check(co, dirs, ts, cap, self_join, within,
                                     what, on_card=bool(e))
         err = max(err, e_)
-        out[what] = {"n": n, "cap": cap}
+        visits, rewalks = join_counts(co, dirs, ts, cap, self_join, within)
+        out[what] = {"n": n, "cap": cap, "visits": visits,
+                     "rewalks": rewalks}
         if e:
             out[what]["plain_ms_on_card"] = ms
         if "past cap" in what and n <= cap:
             raise AssertionError(f"join_pairs {what}: n {n} within cap")
         if "2^31" in what and n != co.N_MAX:
             raise AssertionError(f"join_pairs {what}: n {n} unsaturated")
+        if what in ("staging overflow", "union past one chunk",
+                    "pairs past 2^31") and not rewalks:
+            raise AssertionError(f"join_pairs {what}: no tile walked "
+                                 "again")
+        if what.startswith("union") and n > cap:
+            raise AssertionError(f"join_pairs {what}: n {n} past cap, "
+                                 "the re-walk's writes unchecked")
         del dirs, ts
         torch.cuda.empty_cache()
     # a CUDA graph replay of one call, on new inputs copied in
     dirs, ts = join_inputs(co, E, C, rng, dev, mode_time=True,
                            sorted_ts=True, prog=eq, depth=2)
-    co.join_pairs(dirs, ts, 4 * E, False, None)  # warm (the program)
     g = torch.cuda.CUDAGraph()
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
+        # warm on the capturing stream (the program, the look-back scratch)
+        co.join_pairs(dirs, ts, 4 * E, False, None)
         with torch.cuda.graph(g, stream=s):
             res = co.join_pairs(dirs, ts, 4 * E, False, None)
     torch.cuda.current_stream().wait_stream(s)
@@ -3945,21 +4015,18 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
     """K5 on J1's third step's recorded input: held exactly (every rank
     below cap, and n) to its plain version run on the card on the same
     input (the dense pair mask in chunks; its time is the plain time);
-    timed (CUDA events around back-to-back calls); the candidates its
-    walk visits (the count stage's counter), ns per visited candidate,
-    its bound. Then the same with one event of the time window moved out
-    of order (``late_event``): exact against the plain version too, its
-    time and visits beside the in-order step's."""
-    import torch
-
+    timed (CUDA events around back-to-back calls); the candidates in the
+    arriving events' bands (the kernel's counter), ns per candidate, the
+    tiles walked again, its bound. Then the same with one event of the
+    time window moved out of order
+    (``late_event``): exact against the plain version too, its time and
+    visits beside the in-order step's."""
     args = join_args_copy(recorded, "cuda")
     n, _, e, plain_ms = join_check(co, *args, "J1's third step",
                                    on_card=True)
     err = max(err, e)
     ms, call_ms = timed_back_to_back(lambda: co.join_pairs(*args), 20)
-    visits_t = torch.zeros(1, dtype=torch.int64, device="cuda")
-    co.join_pairs(*args, visits=visits_t)
-    visits = int(visits_t[0])
+    visits, rewalks = join_counts(co, *args)
     nbytes, ops = join_pairs_work(args, visits, n)
     bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
     late, j, ts_j = late_event(recorded)
@@ -3967,9 +4034,7 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
                                  on_card=True)
     err = max(err, e)
     late_ms, _ = timed_back_to_back(lambda: co.join_pairs(*late), 20)
-    visits_t.zero_()
-    co.join_pairs(*late, visits=visits_t)
-    late_visits = int(visits_t[0])
+    late_visits, late_rewalks = join_counts(co, *late)
     E, cap = int(args[1].shape[0]), int(args[2])
     entry = {
         "name": co.join_pairs.name, "route": "cuda",
@@ -3989,17 +4054,21 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
         "events": E, "pairs": n, "cap": cap,
         "candidates_visited": visits,
         "ns_per_visited_candidate": ms * 1e6 / max(visits, 1),
+        "tiles": 2 * -(-E // co.JOIN_TILE), "rewalked_tiles": rewalks,
         "bytes": nbytes, "operations": ops,
         "zero_fill_bytes": 3 * 4 * cap,
         "late_event": {"entry": j, "ts": ts_j, "ms": late_ms,
-                       "pairs": late_n, "candidates_visited": late_visits},
+                       "pairs": late_n, "candidates_visited": late_visits,
+                       "rewalked_tiles": late_rewalks},
     }
     log(f"  join_pairs on J1's third step: {ms} ms a call ({call_ms} ms "
         f"single), {n} pairs of {E} events, {visits} candidates visited, "
-        f"{entry['ns_per_visited_candidate']} ns each; bound {bound_ms} ms "
-        f"({bound_by}); exact against the plain version on the card "
-        f"({plain_ms} ms); one event ten windows late: {late_ms} ms, "
-        f"{late_visits} candidates visited, exact too")
+        f"{entry['ns_per_visited_candidate']} ns each, {rewalks} of "
+        f"{entry['tiles']} tiles walked again; bound {bound_ms} ms "
+        f"({bound_by}); {launches} launches in the J1 run; exact against "
+        f"the plain version on the card ({plain_ms} ms); one event ten "
+        f"windows late: {late_ms} ms, {late_visits} candidates visited, "
+        f"{late_rewalks} tiles walked again, exact too")
     return entry
 
 

@@ -20,7 +20,9 @@ NVIDIA Hopper card. Five kernels live here, all CUDA C++ under ``csrc/``:
   two-stream join's pairs of one micro-batch (every arriving event against
   the other side's ring and batch, with the ``on`` program), ranked and cut
   as the reference's dense pair mask and sort rank them, without building
-  the mask. No Pallas counterpart: the reference runs it as XLA ops
+  the mask: one walk a candidate, a warp's lanes over an event's
+  candidates, the tile's bands in shared memory. No Pallas counterpart:
+  the reference runs it as XLA ops
   (``flink_siddhi_tpu/compiler/join.py:335-403``).
 * **slot NFA scan** (``slot_nfa_scan``, csrc/slot_nfa.cu) — the slot NFA's
   walk over one micro-batch's events, every partial-match slot advanced at
@@ -61,7 +63,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .slot_program import eval_program
+from .slot_program import (OP_AND, OP_ANDJ, OP_CAP, OP_EQ_I, OP_EVT,
+                           OP_LIT, eval_program)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -1385,10 +1388,51 @@ slot_nfa_scan = SlotNFAScan()
 # K5: the join's pair step
 # --------------------------------------------------------------------------
 
-JOIN_THREADS = 256  # join_pairs.cu's kThreads
-JOIN_MAX_DEPTH = 227  # program stack words a thread (a block's shared memory)
-JOIN_MAX_TILE = 4096  # join_pairs.cu's kMaxTile
+JOIN_TILE = 256  # join_pairs.cu's kThreads: tape positions a tile
+JOIN_WARP = 32  # positions a warp takes, candidates a round
+JOIN_STAGE = 128  # join_pairs.cu's kStage: pairs a warp stages
+JOIN_UNION_WORDS = 6144  # shared-memory words of a tile's union chunk
+JOIN_MAX_DEPTH = 227  # program stack words a thread (its local array)
+JOIN_MAX_TILE = 4096  # join_pairs.cu's kMaxTile (the running max)
 N_MAX = 2 ** 31 - 1  # a join step's pair count saturates here
+
+
+def join_key_hint(prog: Sequence[int]) -> Tuple[int, int]:
+    """``(a, b)`` of the first top-level conjunct of the ``on`` program
+    ``prog`` that is an int32 equality of event column ``a`` and
+    other-side column ``b`` (``EVT a, CAP b, EQ_I`` or ``CAP b, EVT a,
+    EQ_I``), else ``(-1, -1)``. K5 tests it before the program: a
+    candidate that fails it fails the program."""
+    prog = list(prog)
+    ops, pc = set(), 0
+    while pc < len(prog):  # the opcodes' positions (a literal is data)
+        ops.add(pc)
+        pc += 2 if prog[pc] & 0xFF == OP_LIT else 1
+
+    def conjuncts(lo: int, hi: int):
+        if hi - lo >= 3 and prog[hi - 1] & 0xFF == OP_AND:
+            for k in range(lo, hi - 1):
+                if (k in ops and prog[k] & 0xFF == OP_ANDJ
+                        and prog[k] >> 8 == hi - k - 1):
+                    yield from conjuncts(lo, k)
+                    yield from conjuncts(k + 1, hi - 1)
+                    return
+        yield prog[lo:hi]
+
+    for c in conjuncts(0, len(prog)):
+        if len(c) == 3 and c[2] == OP_EQ_I:
+            kinds = (c[0] & 0xFF, c[1] & 0xFF)
+            if kinds == (OP_EVT, OP_CAP):
+                return c[0] >> 8, c[1] >> 8
+            if kinds == (OP_CAP, OP_EVT):
+                return c[1] >> 8, c[0] >> 8
+    return -1, -1
+
+
+def join_union_cap(b_n: int) -> int:
+    """Entries of b's buffer that one union chunk holds in shared memory
+    (ts, a key word and ``b_n`` program columns each), a multiple of 32."""
+    return max(32, JOIN_UNION_WORDS // (2 + b_n) // 32 * 32)
 
 
 @dataclass
@@ -1510,14 +1554,16 @@ class _DirArgs(ctypes.Structure):
         "a_mask", "a_cols", "b_ts", "b_valid", "b_posid", "b_cum",
         "b_seen", "b_cols", "tsmax", "tmax", "prog")] + [(f, _I) for f in (
             "a_n", "b_n", "Nb", "Cb", "mode_time", "n", "span", "outer",
-            "prog_len", "pad")]
+            "prog_len", "key_a", "key_b")]
 
 
 class _JoinArgs(ctypes.Structure):
     _fields_ = [("d", _DirArgs * 2)] + [(f, _P) for f in (
-        "ts", "cnt", "tile", "out_i", "out_j", "out_seg", "n_out",
-        "visits")] + [(f, _I) for f in (
-            "E", "cap", "self_join", "has_within", "within", "depth")]
+        "ts", "tile", "meta", "pool_ctr", "pool", "cnt", "omask", "out_i",
+        "out_j", "out_seg", "n_out", "visits", "rewalks")] + [
+            (f, _I) for f in ("E", "cap", "self_join", "has_within",
+                              "within", "depth", "ucap", "nt",
+                              "pool_cap")]
 
 
 class JoinPairs:
@@ -1530,10 +1576,14 @@ class JoinPairs:
     for an unmatched outer row (``j`` 0). Ranks past ``n`` are zeros;
     ``n`` saturates at ``N_MAX``.
 
-    On CUDA one call launches the kernel's three stages (count, scan,
-    write) on the current stream, with no host read: ``n`` stays on the
-    device. ``visits`` (an int64 ``[1]`` CUDA tensor, or None) adds the
-    candidates the count stage walked."""
+    On CUDA one call launches the kernel's stages (a time window's
+    running max; walk, scan, write) on the current stream, with no host
+    read: ``n`` stays on the device.
+    ``visits`` (an int64 ``[1]`` CUDA tensor, or None) adds the
+    candidates in the arriving events' bands; ``rewalks`` (the same, or
+    None) the tiles that walked their candidates again (a warp's pairs
+    past its staging, a union of bands past one shared-memory chunk, or
+    no room left in the pool)."""
 
     name = "join_pairs"
     source = "flink_siddhi_tpu_torch/csrc/join_pairs.cu"
@@ -1555,7 +1605,8 @@ class JoinPairs:
         return t
 
     def __call__(self, dirs: Sequence[JoinDir], ts: torch.Tensor, cap: int,
-                 self_join: bool, within: Optional[int], visits=None):
+                 self_join: bool, within: Optional[int], visits=None,
+                 rewalks=None):
         if _device_kind(ts, "ts") == "cpu":
             return join_pairs_plain(dirs, ts, cap, self_join, within)
         dev = ts.device
@@ -1563,7 +1614,7 @@ class JoinPairs:
         _check(ts, "ts", torch.int32, dev, (E,))
         if len(dirs) != 2:
             raise ValueError("join_pairs: two directions")
-        if E >= 2 ** 29 or cap >= 2 ** 31:
+        if not 1 <= E < 2 ** 29 or not 1 <= cap < 2 ** 31:
             raise ValueError(f"join_pairs: {E} events, cap {cap}")
         args = _JoinArgs()
         depth = 0
@@ -1599,25 +1650,45 @@ class JoinPairs:
             a.a_n, a.b_n, a.Nb, a.Cb = a_n, b_n, Nb, d.C
             a.mode_time, a.n, a.span = int(d.mode_time), d.n, d.span
             a.outer, a.prog_len = int(d.outer), len(d.prog)
+            a.key_a, a.key_b = join_key_hint(d.prog)
         if depth > JOIN_MAX_DEPTH:
             raise ValueError(
-                f"join_pairs: a {depth}-deep program exceeds a block's "
-                f"shared memory ({JOIN_MAX_DEPTH} words a thread)")
-        nb = -(-E // JOIN_THREADS)
-        cnt = torch.empty(4 * E, dtype=torch.int32, device=dev)
-        tile = torch.empty(4 * nb, dtype=torch.int64, device=dev)
+                f"join_pairs: a {depth}-deep program exceeds a thread's "
+                f"stack ({JOIN_MAX_DEPTH} words)")
+        for v in (visits, rewalks):
+            if v is not None:
+                _check(v, "visits/rewalks", torch.int64, dev, (1,))
+        nt = -(-E // JOIN_TILE)
+        # the kernel's scratch: per tile (2 nt) its sums, then offsets
+        # (segment-major), its pool offset and pairs, its warps' outer
+        # masks, each event's count (a tile walked again); the pool of
+        # staged pairs (ranks below cap: at most cap of them) and its
+        # counter
+        tile = torch.empty(4 * nt, dtype=torch.int64, device=dev)
+        meta = torch.empty(4 * nt, dtype=torch.int64, device=dev)
+        omask = torch.empty(2 * nt * (JOIN_TILE // JOIN_WARP),
+                            dtype=torch.int32, device=dev)
+        cnt = torch.empty(2 * nt * JOIN_TILE, dtype=torch.int32,
+                          device=dev)
+        pool = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+        pool_ctr = torch.zeros(1, dtype=torch.int64, device=dev)
         out = [torch.zeros(cap, dtype=torch.int32, device=dev)
                for _ in range(3)]
         n = torch.empty(1, dtype=torch.int32, device=dev)
-        args.ts, args.cnt, args.tile = ts.data_ptr(), cnt.data_ptr(), \
-            tile.data_ptr()
+        args.ts, args.tile, args.meta = (ts.data_ptr(), tile.data_ptr(),
+                                         meta.data_ptr())
+        args.pool_ctr, args.pool = pool_ctr.data_ptr(), pool.data_ptr()
+        args.cnt, args.omask = cnt.data_ptr(), omask.data_ptr()
         args.out_i, args.out_j, args.out_seg = (o.data_ptr() for o in out)
         args.n_out = n.data_ptr()
         args.visits = visits.data_ptr() if visits is not None else 0
+        args.rewalks = rewalks.data_ptr() if rewalks is not None else 0
         args.E, args.cap, args.self_join = E, cap, int(self_join)
         args.has_within = int(within is not None)
         args.within = int(within) if within is not None else 0
         args.depth = depth
+        args.ucap = join_union_cap(max(args.d[0].b_n, args.d[1].b_n))
+        args.nt, args.pool_cap = nt, cap
         with _on_device(dev):
             err = LIBRARIES.get("join_pairs").fst_join_pairs(
                 ctypes.addressof(args), _stream(dev.index))

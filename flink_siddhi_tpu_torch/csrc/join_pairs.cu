@@ -20,31 +20,59 @@
 // first, then i, then j, each direction's unmatched outer rows after its
 // pairs: four segments (l -> r pairs, l outer, r -> l pairs, r outer).
 // Ranks below `cap` are written as (i, j, segment); `n` is the count
-// before the cut.
+// before the cut, saturated at 2^31 - 1.
 //
-// Design: running max, count, scan, write (six launches, no host read).
-// - running max (time windows only, three launches): each 4,096-entry
-//   tile's max of the valid b_ts, an exclusive max-scan of the tile
-//   maxima, and each tile's running max from its carry, into `tsmax`.
-// - count: one thread per (direction, i) walks its candidates and writes
-//   its pair count and outer flag; each block adds its tiles' sums.
-// - scan: one block turns the 4 x nb tile sums into exclusive offsets in
-//   segment order, and writes n.
-// - write: each thread scans its block's counts, adds its tile's offset,
-//   and walks again, writing ranks below cap.
-// Tile sums, offsets and the total are 64-bit: a batch's pairs may pass
-// 2^31 (a wide window with no selective `on`). `n` saturates at 2^31 - 1;
-// ranks below cap (< 2^31) are exact.
-// A length window walks only its band of n ordinals (ordinals are
-// contiguous in the combined buffer: entry j is ordinal seen - C + j). A
-// time window binary-searches the first entry whose running maximum of
-// valid ts (`tsmax`, non-decreasing by construction) exceeds ts_i - span:
-// every valid entry before it has ts <= ts_i - span, so the walk starts
-// there and checks each ts. On an in-order stream the walk is the window;
-// disorder adds only the entries that fall out of the window yet arrived
-// after a later-stamped one.
-// What bounds it: the walks (candidates visited x the program), then the
-// second walk of count-then-write.
+// What bounds it on an H100: the walk's issue slots and latency. Every
+// candidate (an arriving event's band: about 100 on a join of 100-event
+// windows) costs a few shared-memory loads and the window, `within` and
+// key checks; every candidate that passes them, the `on` program's
+// interpreter. The bytes the function must move (each input once, each
+// pair once) take about 0.01 ms at 3.35 TB/s. The first port (one thread
+// a tape position, a count walk and a write walk) lost to dependent
+// global loads: each lane walked its own band alone, half the lanes of a
+// warp held no arriving event, every candidate ran the interpreter, and
+// every candidate was walked twice.
+//
+// Design: walk, scan, write (plus a time window's running max, three
+// short launches), with no host read.
+// - walk: a block takes a tile of 256 tape positions of one direction,
+//   one thread a position for its band [lo, hi): a length window's
+//   ordinals, or a time window's binary search for the first entry whose
+//   running maximum of valid ts (`tsmax`, non-decreasing) exceeds
+//   ts_i - span. The union of the tile's bands [min lo, max hi) (lo need
+//   not be monotone in i on a disordered stream) goes to shared memory
+//   with cp.async: ts, a key word (-2 for an invalid entry, else the tape
+//   position for a self-join, else -1) and the program's b-columns.
+//   Warp w takes the arriving events among positions 32w..32w+31 in tape
+//   order (a ballot over the mask: no lane holds a masked-out position)
+//   and walks one event at a time with its 32 lanes over 32 consecutive
+//   candidates; the event's ts, band and key word are warp-uniform. The
+//   window's checks and the program's key equality (cuda_ops.
+//   join_key_hint: its first top-level conjunct `a.x == b.y` over int
+//   columns, a necessary condition) queue the candidates that pass, in
+//   (i, j) order; each 32 queued run the program through the interpreter
+//   (program.cuh) as one full warp, and a ballot and a popc rank the
+//   pairs, which are staged in the warp's shared memory (128 pairs). The
+//   tile then reserves room for its pairs in a pool (one atomicAdd) and
+//   copies them there, coalesced, and writes its (pairs, outer) sums.
+//   No block waits on another (a single pass with look-back made every
+//   tile wait for the slowest earlier one: a third of a tile's time).
+// - scan: one block turns the tiles' sums, in segment order, into
+//   exclusive offsets (64-bit), and writes n saturated at 2^31 - 1.
+// - write: each tile's outer rows at their ranks; its staged pairs
+//   copied from the pool to their ranks, coalesced. A tile whose warps'
+//   pairs overflowed their staging, whose union passed one shared-memory
+//   chunk (a window holding every earlier event: the union streams
+//   through the buffer in chunks, counted in the walk), or which found
+//   the pool full (its pool holds `cap` pairs: only ranks below cap are
+//   written), walks again here, each pair at its event's offset from the
+//   counts the walk kept: correct and slower, and counted (`rewalks`).
+// - Sums, offsets and the total are 64-bit: a batch's pairs may pass
+//   2^31 (a wide window with no selective `on`); ranks below cap (< 2^31)
+//   are exact.
+// The program's stack lives in local memory (a thread's private array,
+// cached in L1), so a deep program does not take the union's room.
+#include <climits>
 #include <cuda_runtime.h>
 
 #include "program.cuh"
@@ -53,12 +81,22 @@ namespace {
 
 using namespace fst_program;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // tape positions a tile, one a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;   // the walk's blocks an SM (64 registers)
+constexpr int kStage = 128;     // pairs a warp stages
+constexpr int kQueue = 64;      // candidates a warp queues for its program
+constexpr int kRounds = 2;      // rounds of 32 candidates an iteration
+constexpr int kMaxDepth = 227;  // cuda_ops.JOIN_MAX_DEPTH
 constexpr int kScanThreads = 1024;
+constexpr int kScanItems = 8;   // tile sums a scan thread holds
 constexpr int kMaxThreads = 1024;  // the running max's blocks
 constexpr int kMaxItems = 4;       // entries a thread
 constexpr int kMaxTile = kMaxThreads * kMaxItems;
 constexpr int kLow = -2147483647 - 1;  // the max's identity
+constexpr int kInvalid = -2;           // the key of an invalid entry
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSmem = 232448;  // a block's shared memory on Hopper
 
 // One direction, as cuda_ops.JoinPairs packs it (ctypes `_JoinDir`).
 struct DirArgs {
@@ -73,83 +111,329 @@ struct DirArgs {
   int* tsmax;                     // [Nb] scratch: running max of valid b_ts
   int* tmax;                      // [nt] scratch: tile maxima, then carries
   const int* prog;               // the `on` program of this direction
-  int a_n, b_n, Nb, Cb, mode_time, n, span, outer, prog_len, pad;
+  int a_n, b_n, Nb, Cb, mode_time, n, span, outer, prog_len;
+  int key_a, key_b;  // the program's key equality a_cols[key_a] ==
+                     // b_cols[key_b], or -1
 };
 
+// S = 2 * nt tiles, direction 0's then direction 1's.
 struct JoinArgs {
   DirArgs d[2];
-  const int* ts;        // [E] the tape's timestamps
-  int* cnt;             // [4E] scratch: per segment and i
-  long long* tile;      // [4 nb] scratch: per segment and block
-  int* out_i;           // [cap]
-  int* out_j;           // [cap]
-  int* out_seg;         // [cap]
-  int* n_out;           // [1]
-  long long* visits;    // [1] candidates walked by the count pass, or null
-  int E, cap, self_join, has_within, within, depth;
+  const int* ts;                 // [E] the tape's timestamps
+  long long* tile;               // [4 nt] each tile's pairs and outer rows,
+                                 // segment-major; then their offsets
+  long long* meta;               // [2 S] each tile's pool offset (-1: walk
+                                 // again), then its pairs
+  unsigned long long* pool_ctr;  // [1] the pool's used pairs (zeroed)
+  int2* pool;                    // [pool_cap] staged (i, j)
+  int* cnt;                      // [S * kThreads] each event's pairs, for
+                                 // a tile that walks again
+  unsigned* omask;               // [S * kWarps] each warp's outer events
+  int* out_i;                    // [cap]
+  int* out_j;                    // [cap]
+  int* out_seg;                  // [cap]
+  int* n_out;                    // [1]
+  long long* visits;             // [1] candidates in the bands, or null
+  long long* rewalks;            // [1] tiles walked again, or null
+  int E, cap, self_join, has_within, within, depth, ucap, nt, pool_cap;
 };
 
 __device__ __forceinline__ int wrap_sub(int a, int b) {
   return static_cast<int>(u32(a) - u32(b));
 }
 
-// i's candidates [lo, hi) in b's combined buffer.
-__device__ __forceinline__ void band(const JoinArgs& p, const DirArgs& d,
-                                     int i, int tlo, int& lo, int& hi) {
-  const int base = *d.b_seen - d.Cb;  // ordinal of entry 0
-  const int cum = d.b_cum[i];
-  hi = min(cum - base, d.Nb);
-  lo = 0;
-  if (!d.mode_time) {
-    lo = max(cum - d.n - base, 0);
-  } else {
-    int a = 0, b = max(hi, 0);  // first j with tsmax[j] > tlo
-    while (a < b) {
-      const int m = (a + b) >> 1;
-      if (d.tsmax[m] > tlo) b = m; else a = m + 1;
-    }
-    lo = a;
-  }
+// -- the tile's shared memory ----------------------------------------------
+
+struct Tile {
+  int* lo;      // [kThreads] each position's band
+  int* hi;
+  int* tsi;     // [kThreads] each position's ts
+  int* aw;      // [kThreads] each position's key word (a_cols[key_a])
+  int* stage;   // [kWarps][2][kStage] staged (i, j)
+  int* queue;   // [kWarps][2][kQueue] queued candidates (k, j)
+  int* evx;     // [kWarps][32] each event's pairs (a write: written)
+  int* u_ts;    // [ucap] the union chunk: ts
+  int* u_key;   // [ucap] -2 invalid, else posid (self-join) or -1
+  int* u_cols;  // [b_n][ucap] the program's b-columns
+};
+
+// The dynamic shared memory's words (the host sizes it the same way).
+__host__ __device__ constexpr size_t tile_words(int ucap, int bn) {
+  return 5 * static_cast<size_t>(kThreads) +
+         2 * static_cast<size_t>(kWarps) * (kStage + kQueue) +
+         static_cast<size_t>(ucap) * (2 + bn);
 }
 
-// Walks i's candidates: counts them, or writes them from rank `out0`.
-template <bool kWrite>
-__device__ int walk(const JoinArgs& p, const DirArgs& d, int dir, int i,
-                    int* st, int out0, int* visited) {
-  const int ts_i = p.ts[i];
-  const int tlo = wrap_sub(ts_i, d.span);
-  int lo, hi;
-  band(p, d, i, tlo, lo, hi);
-  if (visited) *visited = max(hi - lo, 0);
-  int c = 0;
-  for (int j = lo; j < hi; ++j) {
-    if (!d.b_valid[j]) continue;
-    if (p.self_join && d.b_posid[j] == i) continue;
-    const int tj = d.b_ts[j];
-    if (d.mode_time && !(tj > tlo)) continue;
-    if (p.has_within) {
-      const int dd = wrap_sub(ts_i, tj);
-      const int ad = dd < 0 ? wrap_sub(0, dd) : dd;
-      if (ad > p.within) continue;
+__device__ __forceinline__ Tile tile_layout(int* smem, int ucap) {
+  Tile t;
+  t.lo = smem;
+  t.hi = t.lo + kThreads;
+  t.tsi = t.hi + kThreads;
+  t.aw = t.tsi + kThreads;
+  t.stage = t.aw + kThreads;
+  t.queue = t.stage + kWarps * 2 * kStage;
+  t.evx = t.queue + kWarps * 2 * kQueue;
+  t.u_ts = t.evx + kThreads;
+  t.u_key = t.u_ts + ucap;
+  t.u_cols = t.u_key + ucap;
+  return t;
+}
+
+// The tile's union of bands [u0, u1), in `nch` chunks of the buffer.
+struct Union {
+  int u0, u1, nch;
+};
+
+// Every thread: its position's band [lo, hi) into the tile (a length
+// window's ordinals; a time window's first entry whose running maximum of
+// valid ts exceeds ts_i - span), each warp's arriving positions into
+// `amask`, the union of the tile's non-empty bands, and in `vis` the
+// candidates in them.
+__device__ __forceinline__ Union tile_bands(const JoinArgs& p,
+                                            const DirArgs& d, const Tile& t,
+                                            int t0, unsigned* amask,
+                                            long long& vis) {
+  __shared__ int s_umin[kWarps], s_umax[kWarps];
+  __shared__ long long s_vis[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int i = t0 + tid;
+  const bool arr = i < p.E && d.a_mask[i];
+  int lo = 0, hi = 0;
+  if (arr) {
+    const int ts_i = p.ts[i];
+    const int base = *d.b_seen - d.Cb;  // ordinal of entry 0
+    const int cum = d.b_cum[i];
+    hi = min(cum - base, d.Nb);
+    if (!d.mode_time) {
+      lo = max(cum - d.n - base, 0);
+    } else {
+      const int tlo = wrap_sub(ts_i, d.span);
+      int a = 0, b = max(hi, 0);  // first j with tsmax[j] > tlo
+      while (a < b) {
+        const int m = (a + b) >> 1;
+        if (d.tsmax[m] > tlo) b = m; else a = m + 1;
+      }
+      lo = a;
     }
-    if (d.prog_len &&
-        !run_program(
-            d.prog, d.prog_len,
-            [&](int a) { return d.a_cols[static_cast<size_t>(a) * p.E + i]; },
-            [&](int a) { return d.b_cols[static_cast<size_t>(a) * d.Nb + j]; },
-            st, kThreads))
-      continue;
-    if (kWrite) {
-      if (c >= p.cap - out0) break;  // out0 < cap: no overflow
-      const int r = out0 + c;
+    t.tsi[tid] = ts_i;
+    if (d.key_b >= 0) {
+      t.aw[tid] = __ldg(d.a_cols + static_cast<size_t>(d.key_a) * p.E + i);
+    }
+  }
+  t.lo[tid] = lo;
+  t.hi[tid] = hi;
+  const unsigned am = __ballot_sync(kFull, arr);
+  const bool some = arr && hi > lo;
+  int umin = some ? lo : INT_MAX, umax = some ? hi : 0;
+  long long v = some ? hi - lo : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    umin = min(umin, __shfl_xor_sync(kFull, umin, o));
+    umax = max(umax, __shfl_xor_sync(kFull, umax, o));
+    v += __shfl_xor_sync(kFull, v, o);
+  }
+  if (lane == 0) {
+    amask[w] = am;
+    s_umin[w] = umin;
+    s_umax[w] = umax;
+    s_vis[w] = v;
+  }
+  __syncthreads();
+  Union u = {INT_MAX, 0, 0};
+  vis = 0;
+  for (int k = 0; k < kWarps; ++k) {
+    u.u0 = min(u.u0, s_umin[k]);
+    u.u1 = max(u.u1, s_umax[k]);
+    vis += s_vis[k];
+  }
+  u.nch = u.u0 < u.u1 ? (u.u1 - u.u0 + p.ucap - 1) / p.ucap : 0;
+  return u;
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Entries [c0, c1) of b's buffer into the union chunk (every thread).
+__device__ void load_chunk(const JoinArgs& p, const DirArgs& d,
+                           const Tile& t, int c0, int c1) {
+  __syncthreads();  // the last chunk's readers are done
+  for (int k = threadIdx.x; k < c1 - c0; k += kThreads) {
+    const int j = c0 + k;
+    cp_async4(t.u_ts + k, d.b_ts + j);
+    for (int r = 0; r < d.b_n; ++r) {
+      cp_async4(t.u_cols + r * p.ucap + k,
+                d.b_cols + static_cast<size_t>(r) * d.Nb + j);
+    }
+    t.u_key[k] = !d.b_valid[j] ? kInvalid
+                               : (p.self_join ? d.b_posid[j] : -1);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+}
+
+enum Mode { kStageMode, kCountMode, kWriteMode };
+
+// One batch of a warp's queue (its first `m` entries, m <= 32: event k,
+// candidate j; in (i, j) order) through the `on` program, a lane an
+// entry. The passing pairs are staged (kStageMode: from rank `total`,
+// while the staging has room), counted (kCountMode) or written at their
+// ranks (kWriteMode: event k's first rank is `ev_base` of lane k plus
+// `evx[k]`, its pairs written before); `evx[k]` (the warp's event counts,
+// or in kWriteMode its written counts) and `total` grow by the passing
+// pairs.
+template <Mode kMode>
+__device__ __forceinline__ void run_batch(const JoinArgs& p,
+                                          const DirArgs& d, int dir,
+                                          const Tile& t, int w, int lane,
+                                          int t0, int c0, int m,
+                                          long long ev_base,
+                                          long long& total) {
+  int stk[kMaxDepth];
+  const int* qk = t.queue + w * 2 * kQueue;
+  const int* qj = qk + kQueue;
+  int* evx = t.evx + w * 32;
+  const bool has = lane < m;
+  const int k = has ? qk[lane] : 0;
+  const int j = has ? qj[lane] : 0;
+  const int i = t0 + w * 32 + k;
+  bool ok = has;
+  if (ok && d.prog_len) {
+    const int u = j - c0, ucap = p.ucap;
+    ok = run_program(
+             d.prog, d.prog_len,
+             [&](int a) {
+               return __ldg(d.a_cols + static_cast<size_t>(a) * p.E + i);
+             },
+             [&](int a) { return t.u_cols[a * ucap + u]; }, stk, 1) != 0;
+  }
+  const unsigned okm = __ballot_sync(kFull, ok);
+  // the lanes of one event (a lane without an entry is a group alone)
+  const unsigned grp = __match_any_sync(kFull, has ? k : 32 + lane);
+  const unsigned lt = (1u << lane) - 1u;
+  if (kMode == kStageMode) {
+    const long long r = total + __popc(okm & lt);
+    if (ok && r < kStage) {
+      int* st_i = t.stage + w * 2 * kStage;
+      st_i[r] = i;
+      st_i[kStage + r] = j;
+    }
+  } else if (kMode == kWriteMode) {
+    const long long r = __shfl_sync(kFull, ev_base, k) + evx[k] +
+                        __popc(grp & okm & lt);
+    if (ok && r < p.cap) {
       p.out_i[r] = i;
       p.out_j[r] = j;
       p.out_seg[r] = 2 * dir;
     }
-    ++c;
   }
-  return c;
+  __syncwarp();
+  if (has && (grp & lt) == 0) evx[k] += __popc(grp & okm);
+  __syncwarp();
+  total += __popc(okm);
 }
+
+// Warp w walks its arriving events against the chunk [c0, c1) of b's
+// buffer, one event at a time with its lanes over 32 candidates a round
+// (kRounds rounds an iteration):
+// the window's checks, and the `on` program's key equality where it has
+// one (`key_a`, `key_b`: a necessary condition, so the program confirms
+// every pair), queue the candidates that pass in (i, j) order; each 32
+// queued run the program as one batch (`run_batch`). Returns the warp's
+// pairs.
+template <Mode kMode>
+__device__ __forceinline__ long long walk(const JoinArgs& p,
+                                          const DirArgs& d, int dir,
+                                          const Tile& t, unsigned amask,
+                                          int w, int lane, int t0, int c0,
+                                          int c1, long long ev_base) {
+  const int ucap = p.ucap, span = d.span, within = p.within;
+  const bool self_join = p.self_join, has_within = p.has_within;
+  const bool mode_time = d.mode_time;
+  const int key_b = d.key_b;
+  int* qk = t.queue + w * 2 * kQueue;
+  int* qj = qk + kQueue;
+  const unsigned lt = (1u << lane) - 1u;
+  long long total = 0;
+  int qn = 0;  // queued, warp-uniform
+  while (amask) {
+    const int k = __ffs(amask) - 1;
+    amask &= amask - 1;
+    const int q = w * 32 + k;
+    const int jlo = max(t.lo[q], c0), jhi = min(t.hi[q], c1);
+    if (jlo >= jhi) continue;
+    if (kMode == kWriteMode && __shfl_sync(kFull, ev_base, k) >= p.cap) {
+      continue;  // every later rank of the warp too
+    }
+    const int i = t0 + q;
+    const int ts_i = t.tsi[q];
+    const int tlo = wrap_sub(ts_i, span);
+    const int aw = t.aw[q];
+    // candidate j against the window's checks and the key
+    auto passes = [&](int j) {
+      if (j >= jhi) return false;
+      const int u = j - c0;
+      const int key = t.u_key[u];
+      const int tj = t.u_ts[u];
+      bool ok = key != kInvalid && !(self_join && key == i);
+      if (ok && mode_time) ok = tj > tlo;
+      if (ok && has_within) {
+        const int dd = wrap_sub(ts_i, tj);
+        const int ad = dd < 0 ? wrap_sub(0, dd) : dd;
+        ok = !(ad > within);
+      }
+      if (ok && key_b >= 0) ok = t.u_cols[key_b * ucap + u] == aw;
+      return ok;
+    };
+    // a round's passing candidates to the queue; 32 queued run as a batch
+    auto push = [&](unsigned b, bool ok, int j) {
+      if (ok) {
+        const int at = qn + __popc(b & lt);
+        qk[at] = k;
+        qj[at] = j;
+      }
+      qn += __popc(b);
+      if (qn >= 32) {
+        __syncwarp();
+        run_batch<kMode>(p, d, dir, t, w, lane, t0, c0, 32, ev_base, total);
+        // the rest (at most 31) to the front
+        const int rest = qn - 32;
+        const int rk = lane < rest ? qk[32 + lane] : 0;
+        const int rj = lane < rest ? qj[32 + lane] : 0;
+        __syncwarp();
+        if (lane < rest) {
+          qk[lane] = rk;
+          qj[lane] = rj;
+        }
+        __syncwarp();
+        qn = rest;
+      }
+    };
+    // kRounds rounds an iteration: their loads and checks overlap
+    for (int j0 = jlo; j0 < jhi; j0 += 32 * kRounds) {
+      bool ok[kRounds];
+      unsigned b[kRounds];
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) ok[r] = passes(j0 + 32 * r + lane);
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) b[r] = __ballot_sync(kFull, ok[r]);
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        if (b[r]) push(b[r], ok[r], j0 + 32 * r + lane);
+      }
+    }
+  }
+  if (qn > 0) {
+    __syncwarp();
+    run_batch<kMode>(p, d, dir, t, w, lane, t0, c0, qn, ev_base, total);
+  }
+  return total;
+}
+
+// -- the running max of a time window's valid ts ---------------------------
 
 // Block-wide exclusive max-scan of one value a thread (kMaxThreads
 // threads); `total` is the block's max.
@@ -158,7 +442,7 @@ __device__ __forceinline__ int block_max_excl(int v, int* warp_tot,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   int x = v;
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const int y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x = max(x, y);
   }
   if (lane == 31) warp_tot[w] = x;
@@ -166,14 +450,14 @@ __device__ __forceinline__ int block_max_excl(int v, int* warp_tot,
   if (w == 0) {
     int t = warp_tot[lane];  // kMaxThreads / 32 == 32 warps
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, o);
+      const int y = __shfl_up_sync(kFull, t, o);
       if (lane >= o) t = max(t, y);
     }
     warp_tot[lane] = t;  // inclusive
   }
   __syncthreads();
   int before = w ? warp_tot[w - 1] : kLow;
-  const int up = __shfl_up_sync(0xffffffffu, x, 1);
+  const int up = __shfl_up_sync(kFull, x, 1);
   if (lane) before = max(before, up);
   total = warp_tot[31];
   __syncthreads();
@@ -241,152 +525,237 @@ join_run_max_kernel(JoinArgs p) {
   }
 }
 
-// Block-wide exclusive scan of one value a thread (kThreads threads),
-// in 64 bits.
-__device__ __forceinline__ long long block_excl(long long v,
-                                                long long* warp_tot,
-                                                long long& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  long long x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    long long t = lane < kThreads / 32 ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    if (lane < kThreads / 32) warp_tot[lane] = t;  // inclusive
-  }
-  __syncthreads();
-  const long long before = w ? warp_tot[w - 1] : 0;
-  total = warp_tot[kThreads / 32 - 1];
-  __syncthreads();
-  return before + x - v;
-}
+// -- the pair step -----------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-join_count_kernel(JoinArgs p, int nb) {
-  extern __shared__ int stack[];
-  __shared__ long long warp_tot[kThreads / 32];
-  const int dir = blockIdx.y;
+// 1 of 3: each tile walks its candidates once, stages its pairs and
+// copies them to the pool, or (its pairs past the staging, its union in
+// several chunks, or no room left in the pool) keeps each event's count
+// for the write's walk.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+join_walk_kernel(JoinArgs p) {
+  extern __shared__ int smem[];
+  __shared__ unsigned s_amask[kWarps];
+  __shared__ long long s_wcnt[kWarps];  // each warp's pairs
+  __shared__ int s_wout[kWarps];        // each warp's outer rows
+  __shared__ long long s_pool;          // the tile's pool offset, or -1
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int dir = blockIdx.y, seq = dir * p.nt + blockIdx.x;
   const DirArgs& d = p.d[dir];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  int c = 0, o = 0, visited = 0;
-  if (i < p.E && d.a_mask[i]) {
-    c = walk<false>(p, d, dir, i, stack + threadIdx.x, 0,
-                    p.visits ? &visited : nullptr);
-    o = d.outer && c == 0;
+  const int t0 = blockIdx.x * kThreads;
+  const Tile t = tile_layout(smem, p.ucap);
+  long long vis;
+  const Union u = tile_bands(p, d, t, t0, s_amask, vis);
+  if (p.visits && tid == 0 && vis) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p.visits),
+              static_cast<unsigned long long>(vis));
   }
-  if (i < p.E) {
-    p.cnt[(2 * dir) * p.E + i] = c;
-    p.cnt[(2 * dir + 1) * p.E + i] = o;
+  const unsigned my = s_amask[w];
+  t.evx[tid] = 0;
+  long long wcount = 0;
+  if (u.nch == 1) {
+    load_chunk(p, d, t, u.u0, u.u1);
+    wcount = walk<kStageMode>(p, d, dir, t, my, w, lane, t0, u.u0, u.u1, 0);
+  } else {
+    for (int c = 0; c < u.nch; ++c) {
+      const int c0 = u.u0 + c * p.ucap, c1 = min(c0 + p.ucap, u.u1);
+      load_chunk(p, d, t, c0, c1);
+      wcount += walk<kCountMode>(p, d, dir, t, my, w, lane, t0, c0, c1, 0);
+    }
   }
-  long long tc, to;
-  block_excl(c, warp_tot, tc);
-  block_excl(o, warp_tot, to);
-  if (p.visits) {
-    long long tv;
-    block_excl(visited, warp_tot, tv);
-    if (threadIdx.x == 0 && tv)
-      atomicAdd(reinterpret_cast<unsigned long long*>(p.visits),
-                static_cast<unsigned long long>(tv));
+  __syncwarp();
+  const int ev_cnt = t.evx[tid];
+  const unsigned om =
+      d.outer ? __ballot_sync(kFull, ((my >> lane) & 1u) && ev_cnt == 0)
+              : 0u;
+  if (lane == 0) {
+    s_wcnt[w] = wcount;
+    s_wout[w] = __popc(om);
+    p.omask[seq * kWarps + w] = om;
   }
-  if (threadIdx.x == 0) {
-    p.tile[(2 * dir) * nb + blockIdx.x] = tc;
-    p.tile[(2 * dir + 1) * nb + blockIdx.x] = to;
+  __syncthreads();
+  if (tid == 0) {
+    long long tp = 0, to = 0;
+    bool over = false;
+    for (int k = 0; k < kWarps; ++k) {
+      tp += s_wcnt[k];
+      to += s_wout[k];
+      over |= s_wcnt[k] > 0 && (u.nch > 1 || s_wcnt[k] > kStage);
+    }
+    long long po = tp == 0 ? 0 : -1;
+    if (tp > 0 && !over) {
+      const unsigned long long o =
+          atomicAdd(p.pool_ctr, static_cast<unsigned long long>(tp));
+      if (o + tp <= static_cast<unsigned long long>(p.pool_cap)) {
+        po = static_cast<long long>(o);
+      }
+    }
+    s_pool = po;
+    p.tile[(2 * dir) * p.nt + blockIdx.x] = tp;
+    p.tile[(2 * dir + 1) * p.nt + blockIdx.x] = to;
+    p.meta[seq] = po;
+    p.meta[2 * p.nt + seq] = tp;
+  }
+  __syncthreads();
+  const long long po = s_pool;
+  if (po >= 0) {
+    long long at = po;
+    for (int k = 0; k < w; ++k) at += s_wcnt[k];
+    const int* st_i = t.stage + w * 2 * kStage;
+    const int* st_j = st_i + kStage;
+    for (int k = lane; k < wcount; k += 32) {
+      p.pool[at + k] = make_int2(st_i[k], st_j[k]);
+    }
+  } else {
+    p.cnt[static_cast<size_t>(seq) * kThreads + tid] = ev_cnt;
   }
 }
 
-// The tile sums (segment-major) -> exclusive offsets, and their total
-// (saturated to int32).
+// 2 of 3: the tile sums (segment-major) -> exclusive offsets, and their
+// total (saturated to int32): one block, kScanItems sums a thread in
+// registers, a carry from one round of the block to the next.
 __global__ void __launch_bounds__(kScanThreads)
 join_scan_kernel(long long* tile, int m, int* n_out) {
   __shared__ long long warp_tot[kScanThreads / 32];
-  const int per = (m + kScanThreads - 1) / kScanThreads;
-  const int a = threadIdx.x * per, b = min(a + per, m);
-  long long s = 0;
-  for (int k = a; k < b; ++k) s += tile[k];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  long long x = s;
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    long long t = warp_tot[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
+  long long carry = 0;
+  for (int base = 0; base < m; base += kScanThreads * kScanItems) {
+    const int a = base + threadIdx.x * kScanItems;
+    long long v[kScanItems];
+    long long s = 0;
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      v[k] = a + k < m ? tile[a + k] : 0;
+      s += v[k];
     }
-    warp_tot[lane] = t;
+    long long x = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_tot[w] = x;
+    __syncthreads();
+    if (w == 0) {
+      long long t = warp_tot[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(kFull, t, o);
+        if (lane >= o) t += y;
+      }
+      warp_tot[lane] = t;
+    }
+    __syncthreads();
+    long long run = carry + (w ? warp_tot[w - 1] : 0) + x - s;
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      if (a + k < m) tile[a + k] = run;
+      run += v[k];
+    }
+    carry += warp_tot[31];
+    __syncthreads();  // warp_tot is reused
   }
-  __syncthreads();
-  long long run = (w ? warp_tot[w - 1] : 0) + x - s;
-  for (int k = a; k < b; ++k) {
-    const long long v = tile[k];
-    tile[k] = run;
-    run += v;
-  }
-  if (threadIdx.x == kScanThreads - 1)
-    *n_out = static_cast<int>(min(warp_tot[31], 2147483647LL));
+  if (threadIdx.x == 0) *n_out = static_cast<int>(min(carry, 2147483647LL));
 }
 
+// 3 of 3: each tile's outer rows at their ranks; its staged pairs copied
+// from the pool, coalesced, or its candidates walked again and each pair
+// written at its event's offset (ranks below cap).
 __global__ void __launch_bounds__(kThreads)
-join_write_kernel(JoinArgs p, int nb) {
-  extern __shared__ int stack[];
-  __shared__ long long warp_tot[kThreads / 32];
-  const int dir = blockIdx.y;
+join_write_kernel(JoinArgs p) {
+  extern __shared__ int smem[];
+  __shared__ unsigned s_amask[kWarps];
+  __shared__ long long s_wcnt[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int dir = blockIdx.y, seq = dir * p.nt + blockIdx.x;
   const DirArgs& d = p.d[dir];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool in = i < p.E;
-  const int c = in ? p.cnt[(2 * dir) * p.E + i] : 0;
-  const int o = in ? p.cnt[(2 * dir + 1) * p.E + i] : 0;
-  long long tc, to;
-  const long long ec = block_excl(c, warp_tot, tc);
-  const long long eo = block_excl(o, warp_tot, to);
-  const long long pc = p.tile[(2 * dir) * nb + blockIdx.x] + ec;
-  const long long po = p.tile[(2 * dir + 1) * nb + blockIdx.x] + eo;
-  if (c > 0 && pc < p.cap)
-    walk<true>(p, d, dir, i, stack + threadIdx.x, static_cast<int>(pc),
-               nullptr);
-  if (o && po < p.cap) {
-    p.out_i[static_cast<int>(po)] = i;
-    p.out_j[static_cast<int>(po)] = 0;
-    p.out_seg[static_cast<int>(po)] = 2 * dir + 1;
+  const int t0 = blockIdx.x * kThreads;
+  if (d.outer) {
+    const unsigned* om = p.omask + seq * kWarps;
+    const unsigned mine = om[w];
+    if ((mine >> lane) & 1u) {
+      long long r = p.tile[(2 * dir + 1) * p.nt + blockIdx.x] +
+                    __popc(mine & ((1u << lane) - 1u));
+      for (int k = 0; k < w; ++k) r += __popc(om[k]);
+      if (r < p.cap) {
+        p.out_i[r] = t0 + tid;
+        p.out_j[r] = 0;
+        p.out_seg[r] = 2 * dir + 1;
+      }
+    }
+  }
+  const long long off = p.tile[(2 * dir) * p.nt + blockIdx.x];
+  const long long po = p.meta[seq], tp = p.meta[2 * p.nt + seq];
+  if (tp == 0 || off >= p.cap) return;
+  if (po >= 0) {
+    const long long m = tp < p.cap - off ? tp : p.cap - off;
+    for (long long k = tid; k < m; k += kThreads) {
+      const int2 v = p.pool[po + k];
+      p.out_i[off + k] = v.x;
+      p.out_j[off + k] = v.y;
+      p.out_seg[off + k] = 2 * dir;
+    }
+    return;
+  }
+  if (p.rewalks && tid == 0) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p.rewalks), 1ull);
+  }
+  const Tile t = tile_layout(smem, p.ucap);
+  long long vis;
+  const Union u = tile_bands(p, d, t, t0, s_amask, vis);
+  // lane k's event starts at the warp's offset plus the counts before it
+  const int ev_cnt = p.cnt[static_cast<size_t>(seq) * kThreads + tid];
+  long long x = ev_cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_wcnt[w] = x;
+  __syncthreads();
+  long long wbase = off;
+  for (int k = 0; k < w; ++k) wbase += s_wcnt[k];
+  const long long ev_base = wbase + x - ev_cnt;
+  const bool again = s_wcnt[w] > 0 && wbase < p.cap;
+  const unsigned my = s_amask[w];
+  t.evx[tid] = 0;
+  for (int c = 0; c < u.nch; ++c) {
+    const int c0 = u.u0 + c * p.ucap, c1 = min(c0 + p.ucap, u.u1);
+    load_chunk(p, d, t, c0, c1);
+    if (again) {
+      walk<kWriteMode>(p, d, dir, t, my, w, lane, t0, c0, c1, ev_base);
+    }
   }
 }
 
 }  // namespace
 
-// `args` points at a JoinArgs (cuda_ops._JoinArgs); returns a cudaError_t.
+// `args` points at a JoinArgs (cuda_ops._JoinArgs; `pool_ctr` zeroed);
+// returns a cudaError_t.
 extern "C" int fst_join_pairs(const void* args, void* stream) {
   const JoinArgs p = *static_cast<const JoinArgs*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (p.E + kThreads - 1) / kThreads;
+  const int bn = max(p.d[0].b_n, p.d[1].b_n);
+  const size_t smem = sizeof(int) * tile_words(p.ucap, bn);
+  if (p.E < 1 || p.nt != (p.E + kThreads - 1) / kThreads || p.ucap < 32 ||
+      p.depth > kMaxDepth || smem > kMaxSmem - 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p.d[0].mode_time || p.d[1].mode_time) {
     const int nt = (max(p.d[0].Nb, p.d[1].Nb) + kMaxTile - 1) / kMaxTile;
     join_tile_max_kernel<<<dim3(nt, 2), kMaxThreads, 0, s>>>(p);
     join_tile_carry_kernel<<<dim3(1, 2), kMaxThreads, 0, s>>>(p);
     join_run_max_kernel<<<dim3(nt, 2), kMaxThreads, 0, s>>>(p);
   }
-  const size_t smem = static_cast<size_t>(p.depth) * kThreads * sizeof(int);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(join_count_kernel,
+    cudaFuncSetAttribute(join_walk_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
     cudaFuncSetAttribute(join_write_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
-  join_count_kernel<<<dim3(nb, 2), kThreads, smem, s>>>(p, nb);
-  join_scan_kernel<<<1, kScanThreads, 0, s>>>(p.tile, 4 * nb, p.n_out);
-  join_write_kernel<<<dim3(nb, 2), kThreads, smem, s>>>(p, nb);
+  join_walk_kernel<<<dim3(p.nt, 2), kThreads, smem, s>>>(p);
+  join_scan_kernel<<<1, kScanThreads, 0, s>>>(p.tile, 4 * p.nt, p.n_out);
+  join_write_kernel<<<dim3(p.nt, 2), kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

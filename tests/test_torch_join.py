@@ -648,86 +648,241 @@ def test_join_on_call_over_both_sides_names_its_item():
 
 # -- K5's algorithm, emulated ------------------------------------------------
 
-def _emulate_k5(dirs, ts, cap, self_join, within):
-    """csrc/join_pairs.cu step by step in Python: per (direction, i) the
+def _emulate_k5(dirs, ts, cap, self_join, within, tile=cuda_ops.JOIN_TILE,
+                stage=cuda_ops.JOIN_STAGE, ucap=None, pool_cap=None, seed=0,
+                stats=None):
+    """csrc/join_pairs.cu step by step in Python, with its tile of
+    ``tile`` positions, its warps' staging of ``stage`` pairs, its union
+    chunk of ``ucap`` entries and its pool of ``pool_cap`` pairs (the
+    kernel's by default: ``cap``; small ones force the slow paths). The
+    walk, per tile (direction 0's, then direction 1's): each position's
     band (a length window's ordinals; a time window's binary search over
-    the running maximum of valid ts), the walk's checks, the counts, the
-    scan over the four segments, the writes below cap and the count
-    saturated at ``N_MAX``."""
+    the running maximum of valid ts), the union of the tile's bands in
+    chunks, each warp's arriving events walked in rounds of 32 candidates
+    (a ballot rank a passing candidate) and staged, or counted when the
+    staging overflows or the union takes more than one chunk; the staged
+    tiles' room in the pool, reserved in a random order (``seed``). The
+    scan of the tiles' sums in segment order, the count saturated at
+    ``N_MAX``. The write: the outer rows after each direction's pairs;
+    the staged pairs copied to their ranks; the other tiles walked again,
+    each pair at its event's offset. ``stats`` (a dict) gets the visits,
+    the tiles walked again, the tiles whose union took more than one
+    chunk and those whose first arriving event's lo was not the union's
+    start."""
+    W = cuda_ops.JOIN_WARP
     E = int(ts.shape[0])
     ts = ts.tolist()
+    nt = -(-E // tile)
+    S = 2 * nt
+    if ucap is None:
+        ucap = cuda_ops.join_union_cap(max(int(d.b_cols.shape[0])
+                                           for d in dirs))
+    if pool_cap is None:
+        pool_cap = cap
+    st = dict(visits=0, rewalks=0, chunked=0, lo_inside=0)
 
     def wrap(x):
         return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
 
-    def walk(d, i):
+    prep = []
+    for d in dirs:
+        valid = d.b_valid.numpy()
+        b_ts = d.b_ts.numpy()
+        prep.append(dict(
+            ts=b_ts.tolist(),
+            key=np.where(valid, d.b_posid.numpy() if self_join else -1,
+                         -2).tolist(),
+            cols=d.b_cols.numpy(),
+            # the kernel's running max of the valid ts
+            tsmax=np.maximum.accumulate(np.where(
+                valid, b_ts, np.iinfo(np.int32).min)).tolist(),
+            # the `on` program at every (i, j): the interpreter is
+            # K4's and K5's, held to compile_expr elsewhere
+            ok=(eval_program(d.prog, lambda c: d.a_cols[c][:, None],
+                             lambda c: d.b_cols[c][None, :]).numpy() != 0
+                if d.prog else None),
+        ))
+
+    def band(d, pr, i):
         base = int(d.b_seen[0]) - d.C
         cum = int(d.b_cum[i])
         hi = min(cum - base, int(d.b_ts.shape[0]))
-        lo = 0
-        tlo = wrap(ts[i] - d.span)
-        b_ts = d.b_ts.tolist()
-        # the kernel's running max of the valid ts
-        tsmax = np.maximum.accumulate(np.where(
-            d.b_valid.numpy(), d.b_ts.numpy(),
-            np.iinfo(np.int32).min)).tolist()
         if not d.mode_time:
-            lo = max(cum - d.n - base, 0)
-        else:
-            a, b = 0, max(hi, 0)
-            while a < b:
-                m = (a + b) >> 1
-                if tsmax[m] > tlo:
-                    b = m
-                else:
-                    a = m + 1
-            lo = a
-        out = []
-        for j in range(lo, hi):
-            if not bool(d.b_valid[j]):
+            return max(cum - d.n - base, 0), hi
+        tlo = wrap(ts[i] - d.span)
+        a, b = 0, max(hi, 0)
+        while a < b:
+            m = (a + b) >> 1
+            if pr["tsmax"][m] > tlo:
+                b = m
+            else:
+                a = m + 1
+        return a, hi
+
+    def warp_walk(d, pr, chunk, evs, bands, skip=lambda i: False):
+        """A warp's arriving events ``evs`` against the union chunk (c0,
+        its ts, keys and program columns), one event at a time, 32
+        candidates a round: the window's checks and the program's key
+        equality (``join_key_hint``) queue a candidate; each 32 queued
+        (and the rest at the end) run the program as a batch. Returns the
+        passing (i, j) in order."""
+        c0, u_ts, u_key, u_cols = chunk
+        c1 = c0 + len(u_ts)
+        ka, kb = cuda_ops.join_key_hint(d.prog)
+        queue, out = [], []
+
+        def run_batch(m):
+            batch = queue[:m]
+            del queue[:m]
+            assert len(batch) <= W
+            out.extend((i, j) for i, j in batch
+                       if pr["ok"] is None or pr["ok"][i, j])
+
+        for i in evs:
+            lo, hi = bands[i]
+            jlo, jhi = max(lo, c0), min(hi, c1)
+            if jlo >= jhi or skip(i):
                 continue
-            if self_join and int(d.b_posid[j]) == i:
-                continue
-            if d.mode_time and not b_ts[j] > tlo:
-                continue
-            if within is not None:
-                dd = wrap(ts[i] - b_ts[j])
-                if abs(dd) > within and dd != -2 ** 31:
-                    continue
-            if d.prog:
-                ok = eval_program(d.prog, lambda c: d.a_cols[c][i],
-                                  lambda c: d.b_cols[c][j])
-                if int(ok) == 0:
-                    continue
-            out.append(j)
+            tlo = wrap(ts[i] - d.span)
+            aw = int(d.a_cols[ka][i]) if kb >= 0 else 0
+            for j0 in range(jlo, jhi, W):
+                for j in range(j0, min(j0 + W, jhi)):
+                    key, tj = u_key[j - c0], u_ts[j - c0]
+                    ok = key != -2 and not (self_join and key == i)
+                    if ok and d.mode_time:
+                        ok = tj > tlo
+                    if ok and within is not None:
+                        dd = wrap(ts[i] - tj)
+                        ok = not (abs(dd) > within and dd != -2 ** 31)
+                    if ok and kb >= 0 and u_cols[kb][j - c0] != aw:
+                        # the key is a necessary condition of the program
+                        assert not pr["ok"][i, j]
+                        ok = False
+                    if ok:
+                        queue.append((i, j))
+                if len(queue) >= W:
+                    run_batch(W)
+        if queue:
+            run_batch(len(queue))
         return out
 
-    cnt = np.zeros(4 * E, np.int64)
-    walks = {}
-    for di, d in enumerate(dirs):
-        for i in range(E):
-            if bool(d.a_mask[i]):
-                walks[(di, i)] = w = walk(d, i)
-                cnt[2 * di * E + i] = len(w)
-                cnt[(2 * di + 1) * E + i] = int(d.outer and not w)
-    off = np.concatenate([[0], np.cumsum(cnt)[:-1]])
-    n = min(int(cnt.sum()), cuda_ops.N_MAX)
+    def chunks(pr, u0, u1):
+        for c0 in range(u0, u1, ucap):
+            c1 = min(c0 + ucap, u1)
+            yield (c0, pr["ts"][c0:c1], pr["key"][c0:c1],
+                   pr["cols"][:, c0:c1])
+
+    # the walk, each tile on its own
+    tiles = []
+    for seq in range(S):
+        di = int(seq >= nt)
+        d, pr = dirs[di], prep[di]
+        t0 = (seq - di * nt) * tile
+        bands = {i: band(d, pr, i) for i in range(t0, min(t0 + tile, E))
+                 if bool(d.a_mask[i])}
+        some = {i: b for i, b in bands.items() if b[1] > b[0]}
+        st["visits"] += sum(hi - lo for lo, hi in some.values())
+        u0 = min((lo for lo, _ in some.values()), default=0)
+        u1 = max((hi for _, hi in some.values()), default=0)
+        nch = -(-(u1 - u0) // ucap) if some else 0
+        st["chunked"] += nch > 1
+        st["lo_inside"] += bool(some) and some[min(some)][0] != u0
+        warps = []
+        for w in range(tile // W):
+            evs = [i for i in range(t0 + w * W, t0 + (w + 1) * W)
+                   if i in bands]
+            ev_cnt = dict.fromkeys(evs, 0)
+            staged, total = [], 0
+            for chunk in chunks(pr, u0, u1):
+                got = warp_walk(d, pr, chunk, evs, bands)
+                if nch == 1:
+                    staged = got[:stage]
+                for i, _ in got:
+                    ev_cnt[i] += 1
+                total += len(got)
+            warps.append(dict(
+                evs=evs, ev_cnt=ev_cnt, staged=staged, total=total,
+                over=total > 0 and (nch > 1 or total > stage),
+                outer=[i for i in evs if d.outer and ev_cnt[i] == 0]))
+        tiles.append(dict(di=di, bands=bands, u=(u0, u1), warps=warps,
+                          pairs=sum(w["total"] for w in warps),
+                          outer=sum(len(w["outer"]) for w in warps)))
+
+    # the pool: each tile that staged all its pairs reserves room for them
+    # (the kernel's atomicAdd, in the order the tiles finish: ``seed``);
+    # a tile that overflowed, or finds the pool full, keeps its events'
+    # counts and walks again in the write stage
+    pool_off = [0 if t["pairs"] == 0 else -1 for t in tiles]
+    pool, used = [None] * pool_cap, 0
+    for seq in np.random.default_rng(seed).permutation(S).tolist():
+        t = tiles[seq]
+        if t["pairs"] == 0 or any(w["over"] for w in t["warps"]):
+            continue
+        o, used = used, used + t["pairs"]
+        if o + t["pairs"] <= pool_cap:
+            pool_off[seq] = o
+            staged = [ij for w in t["warps"] for ij in w["staged"]]
+            pool[o:o + len(staged)] = staged
+            assert len(pool) == pool_cap
+    # the scan: each tile's pairs and outer rows, segment-major, to
+    # exclusive offsets
+    sums = np.zeros(4 * nt, np.int64)
+    for seq, t in enumerate(tiles):
+        di, k = t["di"], seq - t["di"] * nt
+        sums[2 * di * nt + k] = t["pairs"]
+        sums[(2 * di + 1) * nt + k] = t["outer"]
+    offs = np.concatenate([[0], np.cumsum(sums)[:-1]])
+    n = min(int(sums.sum()), cuda_ops.N_MAX)
+
+    # the writes: outer rows; staged pairs copied from the pool; the other
+    # tiles walked again, each pair at its event's offset
     oi, oj, og = (np.zeros(cap, np.int32) for _ in range(3))
-    for di in range(2):
-        for i in range(E):
-            o = off[2 * di * E + i]
-            for k, j in enumerate(walks.get((di, i), ())):
-                if o + k < cap:
-                    oi[o + k], oj[o + k], og[o + k] = i, j, 2 * di
-            if cnt[(2 * di + 1) * E + i] and off[(2 * di + 1) * E + i] < cap:
-                r = off[(2 * di + 1) * E + i]
-                oi[r], oj[r], og[r] = i, 0, 2 * di + 1
+    for seq, t in enumerate(tiles):
+        di, k = t["di"], seq - t["di"] * nt
+        d, pr = dirs[di], prep[di]
+        r = offs[(2 * di + 1) * nt + k]
+        for w in t["warps"]:
+            for i in w["outer"]:
+                if r < cap:
+                    oi[r], oj[r], og[r] = i, 0, 2 * di + 1
+                r += 1
+        off = offs[2 * di * nt + k]
+        if t["pairs"] == 0 or off >= cap:
+            continue
+        if pool_off[seq] >= 0:
+            for q in range(min(t["pairs"], cap - off)):
+                oi[off + q], oj[off + q] = pool[pool_off[seq] + q]
+                og[off + q] = 2 * di
+            continue
+        st["rewalks"] += 1
+        wbase = off
+        for w in t["warps"]:
+            ev_base, run = {}, wbase
+            for i in w["evs"]:
+                ev_base[i] = run
+                run += w["ev_cnt"][i]
+            done = dict.fromkeys(w["evs"], 0)
+            if w["total"] > 0 and wbase < cap:
+                for chunk in chunks(pr, *t["u"]):
+                    for i, j in warp_walk(d, pr, chunk, w["evs"],
+                                          t["bands"],
+                                          lambda i: ev_base[i] >= cap):
+                        r = ev_base[i] + done[i]
+                        if r < cap:
+                            oi[r], oj[r], og[r] = i, j, 2 * di
+                        done[i] += 1
+            wbase += w["total"]
+    if stats is not None:
+        stats.update(st)
     return oi, oj, og, n
 
 
-def _random_dirs(rng, E, C, mode_time, sorted_ts, outer, prog):
+def _random_dirs(rng, E, C, mode_time, sorted_ts, outer, prog,
+                 sorted_tape=True, n=None, n_ids=4):
     dirs = []
     ts = np.sort(rng.integers(0, 4 * E, E)).astype(np.int32)
+    if not sorted_tape:
+        ts = rng.permutation(ts)
     for di in range(2):
         Nb = C + E
         mask = rng.random(E) < 0.5
@@ -747,15 +902,15 @@ def _random_dirs(rng, E, C, mode_time, sorted_ts, outer, prog):
         dirs.append(cuda_ops.JoinDir(
             a_mask=torch.from_numpy(mask),
             a_cols=torch.from_numpy(
-                rng.integers(0, 4, (1, E)).astype(np.int32)),
+                rng.integers(0, n_ids, (1, E)).astype(np.int32)),
             b_ts=torch.from_numpy(b_ts), b_valid=torch.from_numpy(b_valid),
             b_posid=torch.from_numpy(b_posid),
             b_cum=torch.from_numpy(b_cum),
             b_seen=torch.tensor([seen], dtype=torch.int32),
             b_cols=torch.from_numpy(
-                rng.integers(0, 4, (1, Nb)).astype(np.int32)),
+                rng.integers(0, n_ids, (1, Nb)).astype(np.int32)),
             prog=prog, depth=2, mode_time=mode_time,
-            n=min(C, 7) if not mode_time else C, span=int(E // 2),
+            n=n or (min(C, 7) if not mode_time else C), span=int(E // 2),
             C=C, outer=outer and di == 0,
         ))
     return dirs, torch.from_numpy(ts)
@@ -814,6 +969,133 @@ def test_join_pair_count_saturates(mode_time, monkeypatch):
     for a, b, e in zip(full[:3], got[:3], emu[:3]):
         assert torch.equal(a, b)
         assert np.array_equal(b.numpy(), e)
+
+
+@pytest.mark.parametrize("on,hint", [
+    ("b.id == a.id", True),
+    ("a.vol > 3 and b.id == a.id", True),
+    ("(a.vol > 3 and a.price < 50.0) and a.id == b.id", True),
+    ("a.vol > b.vol + 3 and (b.id == a.id and a.price > 2.0)", True),
+    ("a.vol > 3 or b.id == a.id", None),
+    ("not (b.id == a.id)", None),
+    ("a.price == b.price", None),
+    ("a.id + 0 == b.id", None),
+])
+def test_join_key_hint_is_a_top_level_int_equality(on, hint):
+    """K5 tests an `on` program's key equality before the program: the
+    first top-level conjunct ``EVT a, CAP b, EQ_I`` (either order) of each
+    direction's program, a necessary condition of the program; none
+    under `or`, `not`, a float equality or arithmetic."""
+    cql = ("from A#window.length(8) as a join B#window.length(8) as b "
+           f"on {on} select a.vol as v insert into o")
+    schemas = {s: fpt.StreamSchema(STEP_FIELDS) for s in ("A", "B")}
+    art = fpt.compile_plan(cql, schemas).artifacts[0]
+    for tag in ("l", "r"):
+        prog = art.on_progs[tag]
+        got = cuda_ops.join_key_hint(prog.code)
+        if hint is None:
+            assert got == (-1, -1)
+            continue
+        a, b = got
+        assert prog.evt_keys[a].split(".")[-1] == "id"
+        assert prog.cap_keys[b].split(".")[-1] == "id"
+    # a literal word that reads as an opcode does not split the program
+    from flink_siddhi_tpu_torch.compiler import slot_program as sp
+    fake = (sp.OP_LIT, sp.OP_ANDJ | 2 << 8, sp.OP_EVT, sp.OP_CAP,
+            sp.OP_EQ_I, sp.OP_AND)
+    assert cuda_ops.join_key_hint(fake) == (-1, -1)
+
+
+def _emulation_held_to_plain(dirs, ts, cap, self_join, within, **kw):
+    """The emulation of K5 (with ``kw``: its tile, staging, union chunk,
+    look-back order) equal to ``join_pairs_plain``: every rank below cap,
+    and n. Returns (n, the emulation's stats)."""
+    stats = {}
+    pi, pj, pg, n = cuda_ops.join_pairs_plain(dirs, ts, cap, self_join,
+                                              within)
+    ei, ej, eg, en = _emulate_k5(dirs, ts, cap, self_join, within,
+                                 stats=stats, **kw)
+    assert int(n[0]) == en
+    assert np.array_equal(pi.numpy(), ei)
+    assert np.array_equal(pj.numpy(), ej)
+    assert np.array_equal(pg.numpy(), eg)
+    return en, stats
+
+
+_K5_SLOW_PATHS = {
+    # name: (E, C, mode_time, sorted_ts, sorted_tape, window n, self-join,
+    #        within, outer (l, r), emulation constants, the stat to see)
+    "staging_overflow": (192, 16, True, True, True, None, False, None,
+                         (True, False), dict(tile=64, stage=6), "rewalks"),
+    "staging_overflow_past_cap": (192, 16, False, True, True, 12, False,
+                                  None, (False, True),
+                                  dict(tile=64, stage=6), "rewalks"),
+    "union_in_chunks_length": (160, 64, False, True, True, 60, False, None,
+                               (True, True), dict(tile=64, ucap=32),
+                               "chunked"),
+    "union_in_chunks_time": (160, 16, True, False, True, None, True, 90,
+                             (False, True), dict(tile=64, ucap=32),
+                             "chunked"),
+    "disordered_lo_inside_tile": (192, 16, True, False, False, None, False,
+                                  None, (True, False), dict(tile=64),
+                                  "lo_inside"),
+    "E_not_a_multiple_of_the_tile": (200, 16, True, True, True, None,
+                                     False, 25, (True, True),
+                                     dict(tile=64, seed=3), None),
+    "a_direction_without_arrivals": (160, 16, False, True, True, 9, False,
+                                     None, (True, True), dict(tile=64),
+                                     None),
+    "self_join_within_outer_rows": (160, 16, True, False, True, None, True,
+                                    30, (True, True),
+                                    dict(tile=64, seed=5), None),
+    "kernel_constants_three_tiles": (700, 32, True, False, False, None,
+                                     False, None, (True, True), {}, None),
+    "pool_full": (192, 16, True, True, True, None, False, None,
+                  (True, True), dict(tile=64, pool_cap=40, seed=2),
+                  "rewalks"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K5_SLOW_PATHS))
+@pytest.mark.parametrize("cut", [False, True])
+def test_k5_emulation_slow_paths_equal_the_plain_version(case, cut):
+    """The emulation of K5 on the paths J1 rarely takes, with small
+    constants that force them (each case asserts that its path ran):
+    a warp's pairs past its staging (walked again), a union of bands in
+    several shared-memory chunks (counted, then walked again), a pool
+    too small for every staged tile (the late ones walked again), a
+    disordered tape whose first event's band does not start the union,
+    a tape that ends inside a tile, a direction with no arriving event,
+    a self-join with ``within`` and outer rows on both sides, and the
+    kernel's own constants over several tiles; each whole and cut inside
+    its output (``cut``), in several pool orders."""
+    from flink_siddhi_tpu_torch.compiler import slot_program as sp
+
+    (E, C, mode_time, sorted_ts, sorted_tape, n, self_join, within, outer,
+     kw, path) = _K5_SLOW_PATHS[case]
+    rng = np.random.default_rng(sorted(_K5_SLOW_PATHS).index(case))
+    dirs, ts = _random_dirs(rng, E, C, mode_time, sorted_ts, False,
+                            (sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I),
+                            sorted_tape=sorted_tape, n=n, n_ids=3)
+    dirs = [dataclasses.replace(d, outer=o) for d, o in zip(dirs, outer)]
+    if case == "a_direction_without_arrivals":
+        dirs[1] = dataclasses.replace(dirs[1],
+                                      a_mask=torch.zeros_like(
+                                          dirs[1].a_mask))
+    cap = 4 * E
+    if cut:
+        full = int(cuda_ops.join_pairs_plain(dirs, ts, cap, self_join,
+                                             within)[3][0])
+        cap = max(1, full // 3)
+    n_pairs, stats = _emulation_held_to_plain(dirs, ts, cap, self_join,
+                                              within, **kw)
+    assert n_pairs > 0 and stats["visits"] > 0
+    if cut:
+        assert n_pairs > cap
+    if path is not None:
+        assert stats[path] > 0, stats
+    if case == "a_direction_without_arrivals":
+        assert not bool(dirs[1].a_mask.any())
 
 
 # -- the runtime with two streams --------------------------------------------
