@@ -11,7 +11,7 @@ of JAX and nothing of the JAX package. Phases, each failing the run on any
 fault:
 
 1. device: the card's name and power limit;
-2. build: the five kernels (and empty ones: the launch floor, and the
+2. build: the six kernels (and empty ones: the launch floor, and the
    slot scan's serial floors: empty barrier rounds and empty warp
    rounds; and the float probe) compiled with -ftz=true from the
    checkout's sources, one nvcc per source, all started together
@@ -62,7 +62,15 @@ fault:
    of 2,097,152 and at E = 131,072 with pairs past 2^31 (n saturated at
    2^31 - 1); and captured into a CUDA graph replayed on new inputs; then
    the float probe (what -ftz=true does to the intrinsics alone) is
-   printed;
+   printed; the table mutation (K6) exactly (each row's last match, and
+   the table a delete and an update leave) against its plain version at
+   E = 8,192 and C = 1,024: a delete, an update with many events a row
+   (the last writer wins), a float condition with no int key, an `on`
+   over a select output that is no table column, an empty and a full
+   table, E not a multiple of the kernel's chunk; with the plain version
+   on the card, C = 16,384 (E = 65,536) and the tables path's shape (E =
+   524,288, C = 1,024); a CUDA graph replay; and K5 on a table direction
+   (the stream-table join with outer rows) against its plain version;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -188,6 +196,22 @@ fault:
    once a step on the host and in a traced rerun). Then a left outer join
    with `within 50`, rows only, card against CPU on 65,536 events. K5's
    input of J1's third step goes to phase 9;
+8d. event tables (in a process of its own, `--tables OUT`): TABLES, the
+   shape of Siddhi's event-table example (a PriceTable of 1,024 rows fed
+   by inputStream1's `price > 99.8`, updated by inputStream2's `price <
+   50.0` and pruned by its `price > 99.5` on the id, inputStream2 joined
+   against it), over the two streams of 8c with 10,000 ids: the card's
+   `joined` rows and final table (valid, ptr, columns) equal to the CPU
+   path's at the same tape size over the first two steps; the streaming
+   Job over the whole streams (a counting columnar sink; K6 twice a step,
+   the update's and the delete's, K5 once; overflow 0; the table's valid
+   rows at the end); ResidentReplay (a run with the sink: the same count
+   and table; counts-only reruns, events/s median and best, graphs
+   captured, no eager segment, one segment under sync debug mode "error",
+   the kernels once a query a step on the host and in a traced rerun:
+   idle share, device ms a step, the heaviest device ops); the left outer
+   variant, rows only, card against CPU on 65,536 events at a 16,384
+   tape. The third step's K6 and K5 inputs go to phase 9;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -210,7 +234,12 @@ fault:
    floor, held exactly to its plain version (the dense pair mask, in
    chunks) run on the card on the same input, whose time is the plain
    time; then the same step with one event of the time window ten
-   windows late, exact and timed;
+   windows late, exact and timed; K6 on the tables path's third step
+   (the update and the delete; CUDA events around back-to-back calls),
+   exact against its plain version run on the card, the candidates it
+   walked, those the rows need and E x C, its bound (bytes, and the needed
+   candidates at 67e12 int32 operations/s; also at E x C); K5 on the
+   tables path's third step (the stream-table join), exact and timed;
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -479,20 +508,21 @@ TRACED_KERNELS = {"multi_reverse_cummin": "suffix_min_kernel",
                   "chain_advance": "chain_advance_kernel",
                   "unique_window_fold": "rows_kernel",
                   "slot_nfa_scan": "slot_nfa_kernel",
-                  "join_pairs": "join_walk_kernel"}
+                  "join_pairs": "join_walk_kernel",
+                  "table_mutate": "table_mutate_kernel"}
 
 
-def traced_launches(prof):
-    """Per kernel wrapper, its calls that ran on the card in a profiler
-    trace: the records of the kernel it launches once a call
-    (TRACED_KERNELS)."""
+def traced_launches(prof, names=TRACED_KERNELS):
+    """Per kernel wrapper in ``names`` (the wrappers a checkout's package
+    has), its calls that ran on the card in a profiler trace: the records
+    of the kernel it launches once a call (TRACED_KERNELS)."""
     import re
 
     from torch.autograd import DeviceType
 
-    pats = {k: re.compile(rf"(?<!\w){n}(?!\w)")
-            for k, n in TRACED_KERNELS.items()}
-    out = dict.fromkeys(TRACED_KERNELS, 0)
+    pats = {k: re.compile(rf"(?<!\w){TRACED_KERNELS[k]}(?!\w)")
+            for k in names}
+    out = dict.fromkeys(names, 0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             for k, pat in pats.items():
@@ -522,7 +552,7 @@ def traced_run(co, run, what, prepare=None, attempts=3):
                                  ProfilerActivity.CUDA]) as prof:
             wall = run()
         host = co.launch_counts()
-        traced = traced_launches(prof)
+        traced = traced_launches(prof, host)
         if traced == host:
             return prof, wall, traced
         if any(traced[k] > host[k] for k in host):
@@ -602,9 +632,9 @@ def same(a, b, what):
 
 
 def no_slot_scan(launches, what):
-    """The slot NFA scan (K4) and the join's pair step (K5) run on no path
-    but their own."""
-    for k in ("slot_nfa_scan", "join_pairs"):
+    """The slot NFA scan (K4), the join's pair step (K5) and the table
+    mutation (K6) run on no path but their own."""
+    for k in ("slot_nfa_scan", "join_pairs", "table_mutate"):
         if launches.get(k):
             raise AssertionError(f"{what}: {k} launched {launches[k]} times")
 
@@ -1616,6 +1646,175 @@ def check_join_pairs(fpt, co, dev):
         f"{len(cases)} cases and a graph replay ({json.dumps(out)}; "
         f"{time.perf_counter() - t0:.1f} s)")
     return err
+
+
+TABLE_CHECK_E = 8_192  # phase 3's K6 inputs: tape positions a call
+TABLE_C = 1_024  # the reference's default table_capacity
+TABLE_BIG_C = 16_384
+MUTATE_PLAIN_CARD_CELLS = 1 << 28  # the plain version's chunk on the card
+
+
+def mutate_inputs(E, C, rng, dev, n_ids=2_048, p_mask=0.5, fill=0.7):
+    """One K6 call's inputs as a table update makes them: the events' words
+    (id, price, and a select output ``price * 2.0`` that is no table
+    column), the query's mask, and a table of C rows (id, price) with
+    ``fill`` of them valid."""
+    import torch
+
+    ids = rng.integers(0, n_ids, E).astype(np.int32)
+    price = (rng.random(E) * 100).astype(np.float32)
+    a_cols = np.stack([ids, _f32_words(price), _f32_words(price * 2)])
+    b_cols = np.stack([rng.integers(0, n_ids, C).astype(np.int32),
+                       _f32_words((rng.random(C) * 100).astype(np.float32))])
+    t = lambda x, dt=torch.int32: torch.from_numpy(
+        np.ascontiguousarray(x)).to(dt).to(dev)
+    return (t(rng.random(E) < p_mask, torch.bool), t(a_cols),
+            t(rng.random(C) < fill, torch.bool), t(b_cols))
+
+
+def mutate_plain(co, args, on_card=False):
+    """K6's plain version on CPU copies of its inputs, or ``on_card`` on
+    the card's own (in chunks of MUTATE_PLAIN_CARD_CELLS cells). Returns
+    its ``last`` and its ms."""
+    import torch
+
+    if not on_card:
+        args = tuple(keep_copy(a, "cpu") for a in args)
+    chunk = co._PLAIN_CHUNK_CELLS
+    co._PLAIN_CHUNK_CELLS = MUTATE_PLAIN_CARD_CELLS if on_card else chunk
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = co.table_mutate_plain(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        co._PLAIN_CHUNK_CELLS = chunk
+    return ref, ms
+
+
+def mutate_apply(args, last):
+    """The table after the match, as TableMutateArtifact applies it: the
+    rows a delete leaves valid, and an update's id and price columns (each
+    from the event's words at ``last``)."""
+    import torch
+
+    _mask, a_cols, valid, b_cols = args[:4]
+    hit = last >= 0
+    at = torch.clamp(last, min=0).long()
+    return (valid & ~hit,
+            torch.where(hit[None, :], a_cols[:2][:, at], b_cols))
+
+
+def mutate_check(co, args, what, on_card=False):
+    """K6 against its plain version, exactly: ``last`` and the table after
+    a delete and after an update. Returns (last, the candidates the kernel
+    walked, the plain version's ms)."""
+    import torch
+
+    got = co.table_mutate(*args)
+    ref, ms = mutate_plain(co, args, on_card)
+    same(got.to(ref.device), ref, f"table_mutate {what}: last")
+    ref_args = args if on_card else tuple(keep_copy(a, "cpu") for a in args)
+    for g, r, part in zip(mutate_apply(args, got),
+                          mutate_apply(ref_args, ref), ("valid", "columns")):
+        same(g.to(r.device), r, f"table_mutate {what}: {part}")
+    visits = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    co.table_mutate(*args, visits=visits)
+    return got, int(visits[0]), ms
+
+
+def check_table_mutate(fpt, co, dev):
+    """Phase 3, K6: the kernel exactly equal to its plain version (``last``
+    and the table it leaves after a delete and an update) at E = 8,192 and
+    C = 1,024: a delete (`T.id == id`), an update with many events a row
+    (the last writer wins), a float condition with no int key (the
+    interpreter on every candidate), an `on` reading a select output that
+    is no table column, an empty table, a full table, E not a multiple of
+    the kernel's chunk; with the plain version on the card, C = 16,384 at
+    E = 65,536 and the path's shape (E = 524,288, C = 1,024); a CUDA graph
+    replay of one call. Then K5 on a table direction (``table_join_dir``,
+    the stream-table join, outer rows) against its plain version."""
+    import torch
+
+    from flink_siddhi_tpu_torch.compiler import slot_program as sp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    E, C = TABLE_CHECK_E, TABLE_C
+    key = (sp.OP_CAP, sp.OP_EVT, sp.OP_EQ_I)  # T.id == id
+    no_key = (sp.OP_CAP | 1 << 8, sp.OP_EVT | 1 << 8, sp.OP_LT_F)
+    out_only = key + (sp.OP_ANDJ | 4 << 8, sp.OP_EVT | 2 << 8,
+                      sp.OP_CAP | 1 << 8, sp.OP_GT_F, sp.OP_AND)
+    cases = [  # what, input kwargs, program, depth, E, C, on the card
+        ("delete", {}, key, 2, E, C, False),
+        ("update, many events a row", dict(n_ids=16), key, 2, E, C, False),
+        ("float condition, no int key", {}, no_key, 2, E, C, False),
+        ("on over a select output", dict(n_ids=64), out_only, 2, E, C,
+         False),
+        ("empty table", dict(fill=0.0), key, 2, E, C, False),
+        ("full table", dict(fill=1.0, n_ids=256), key, 2, E, C, False),
+        ("E not a multiple of the chunk", dict(n_ids=64), key, 2,
+         E + 77, C, False),
+        (f"C = {TABLE_BIG_C}", dict(n_ids=10_000), key, 2, 65_536,
+         TABLE_BIG_C, True),
+        (f"E = {BATCH}, C = {C}", dict(n_ids=10_000, p_mask=0.25), key, 2,
+         BATCH, C, True),
+    ]
+    out = {}
+    for what, kw, prog, depth, e, c, on_card in cases:
+        args = (*mutate_inputs(e, c, rng, dev, **kw), prog, depth)
+        last, visits, ms = mutate_check(co, args, what, on_card)
+        hits = int((last >= 0).sum())
+        out[what] = {"E": e, "C": c, "rows_matched": hits,
+                     "visits": visits}
+        if on_card:
+            out[what]["plain_ms_on_card"] = ms
+        if what == "empty table" and hits:
+            raise AssertionError("table_mutate: a match in an empty table")
+        if what != "empty table" and not hits:
+            raise AssertionError(f"table_mutate {what}: no row matched")
+        if what.startswith("float") and co.join_key_hint(prog) != (-1, -1):
+            raise AssertionError("table_mutate: the float case has a key")
+        if what.startswith("update"):
+            mask, a_cols, valid, b_cols = (x.cpu() for x in args[:4])
+            m = mask[:, None] & valid[None, :] & (a_cols[0][:, None]
+                                                  == b_cols[0][None, :])
+            if int(m.sum(0).max()) < 10:
+                raise AssertionError("table_mutate: too few events a row")
+        del args
+    # a CUDA graph replay of one call, on new inputs copied in
+    args = (*mutate_inputs(E, C, rng, dev), key, 2)
+    g = torch.cuda.CUDAGraph()
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(st):
+        co.table_mutate(*args)  # the program on the capturing device
+        with torch.cuda.graph(g, stream=st):
+            res = co.table_mutate(*args)
+    torch.cuda.current_stream().wait_stream(st)
+    new = mutate_inputs(E, C, rng, dev)
+    for a, b in zip(args, new):
+        a.copy_(b)
+    g.replay()
+    torch.cuda.synchronize()
+    same(res, co.table_mutate(*args), "table_mutate graph replay")
+    # K5 on a table direction: the stream-table join's pair step
+    mask, a_cols, valid, b_cols = mutate_inputs(E, C, rng, dev, n_ids=512)
+    d = co.table_join_dir(mask, a_cols, valid, b_cols,
+                          (sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I), 2, True)
+    ts = torch.arange(E, dtype=torch.int32, device=dev)
+    n, _, _, _ = join_check(co, [d], ts, 4 * E, False, None,
+                            "a table direction, outer rows")
+    visits, rewalks = join_counts(co, [d], ts, 4 * E, False, None)
+    out["join_pairs on a table direction"] = {
+        "n": n, "visits": visits, "rewalks": rewalks}
+    if not n:
+        raise AssertionError("join_pairs on a table direction: no row")
+    log(f"  table_mutate: exact against its plain version in {len(cases)} "
+        f"cases and a graph replay; join_pairs on a table direction exact "
+        f"({json.dumps(out)}; {time.perf_counter() - t0:.1f} s)")
+    return 0
 
 
 # -- phases 4 and 5: the main path end to end ----------------------------------
@@ -2898,9 +3097,7 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
     finally:
         nfa.slot_nfa_scan = co.slot_nfa_scan
     launches = co.launch_counts()
-    if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
-                    "unique_window_fold": 0, "slot_nfa_scan": N_BATCHES,
-                    "join_pairs": 0}:
+    if launches != dict.fromkeys(launches, 0) | {"slot_nfa_scan": N_BATCHES}:
         raise AssertionError(f"{name}: streaming launches {launches}, "
                              f"expected K4 once a micro-batch")
     drain_accounts(job, f"{name}: streaming")
@@ -3092,10 +3289,10 @@ JOIN_QUERIES = (("J1", J1, ("inputStream1", "inputStream2"), "JoinStream"),
                 ("C1", C1, ("inputStream",), "out"))
 
 
-def join_columns(fpt, sids, n_ms):
+def join_columns(fpt, sids, n_ms, n_ids=N_IDS):
     """The bench schema (one object, one string table) and, per stream,
     the bench generator's columns over ``n_ms`` events one ms apart (ts
-    1000 + i): id uniform in [0, N_IDS), name "test_event", price uniform
+    1000 + i): id uniform in [0, n_ids), name "test_event", price uniform
     x 100; stream k's rng seed 7 + k (inputStream1 and inputStream have
     the bench's own seed)."""
     schema = fpt.StreamSchema([("id", "int"), ("name", "string"),
@@ -3105,7 +3302,7 @@ def join_columns(fpt, sids, n_ms):
     for k, sid in enumerate(sids):
         rng = np.random.default_rng(7 + k)
         ts = 1000 + np.arange(n_ms, dtype=np.int64)
-        cols[sid] = {"id": rng.integers(0, N_IDS, n_ms).astype(np.int32),
+        cols[sid] = {"id": rng.integers(0, n_ids, n_ms).astype(np.int32),
                      "name": np.full(n_ms, code, dtype=np.int32),
                      "price": rng.random(n_ms) * 100.0, "timestamp": ts}
     return schema, cols
@@ -3461,6 +3658,310 @@ def joins_main(out_path):
     return 0
 
 
+# -- phase 8d: event tables ----------------------------------------------------
+
+TABLE_N_IDS = 10_000  # the tables phase's ids
+TABLE_CHECK_STEPS = 2  # steps at BATCH held to the CPU path
+TABLE_OUTER_MS = 32_768  # the outer join's rows: 65,536 events
+TABLE_OUTER_TAPE = 16_384
+# Siddhi's event-table example in shape: a reference table fed by one
+# stream, updated and pruned by another, looked up by it
+TABLES = (
+    "define table PriceTable (id int, price double); "
+    "from inputStream1[price > 99.8] select id, price "
+    "insert into PriceTable; "
+    "from inputStream2[price < 50.0] select id, price "
+    "update PriceTable on PriceTable.id == id; "
+    "from inputStream2[price > 99.5] select id "
+    "delete PriceTable on PriceTable.id == id; "
+    "from inputStream2 {join} PriceTable "
+    "on inputStream2.id == PriceTable.id "
+    "select inputStream2.id as id, inputStream2.price as p2, "
+    "PriceTable.price as p1 insert into joined"
+)
+TABLE_SIDS = ("inputStream1", "inputStream2")
+
+
+def table_state(job):
+    """The PriceTable's state of a run (valid, ptr, the columns) on the
+    host, and the insert's and the join's overflow counters."""
+    states = job._plans["bench"].states
+    tbl = {k: v.cpu() for k, v in states["@tables"]["PriceTable"].items()}
+    over = {name: int(st["overflow"]) for name, st in states.items()
+            if name != "@tables" and "overflow" in st}
+    return tbl, over
+
+
+def table_rows_equal(got, ref, what):
+    """Rows in emission order, exactly (float columns by bit pattern)."""
+    (gts, g), (rts, r) = got, ref
+    if len(gts) != len(rts) or not np.array_equal(gts, rts):
+        raise AssertionError(f"tables {what}: {len(gts)} rows, expected "
+                             f"{len(rts)}, or their timestamps differ")
+    for k in r:
+        a, b = np.asarray(g[k]), np.asarray(r[k])
+        if a.dtype.kind == "f":
+            a, b = a.astype(np.float32).view(np.int32), \
+                b.astype(np.float32).view(np.int32)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"tables {what}: column {k} differs")
+
+
+def table_check(fpt, schema, cols):
+    """The card's `joined` rows and final table state against the CPU
+    path's at the same tape size (BATCH) over the first TABLE_CHECK_STEPS
+    steps: table writes are sequenced by micro-batch, so rows compare only
+    at one tape size."""
+    n_ms = TABLE_CHECK_STEPS * BATCH // 2
+    out = {}
+    for dev in ("cpu", "cuda"):
+        rows, secs, job = join_table(
+            fpt, TABLES.format(join="join"), schema,
+            join_batches(fpt, schema, cols, BATCH // 2, n_ms), dev,
+            "joined")
+        out[dev] = (rows, secs, *table_state(job))
+        del job
+    (crow, csec, ctbl, cover), (grow, _, gtbl, gover) = out["cpu"], \
+        out["cuda"]
+    table_rows_equal(grow, crow, f"first {TABLE_CHECK_STEPS} steps, card "
+                                 "vs CPU")
+    for k, v in ctbl.items():
+        same(gtbl[k], v, f"tables: the final PriceTable's {k}, card vs CPU")
+    if gover != cover or len(crow[0]) < 1000:
+        raise AssertionError(f"tables: overflow {gover} vs {cover}, "
+                             f"{len(crow[0])} CPU rows")
+    return {"cpu_check_events": 2 * n_ms, "cpu_check_rows": len(crow[0]),
+            "cpu_check_s": csec,
+            "cpu_check_valid_rows": int(ctbl["valid"].sum())}
+
+
+def table_outer_rows(fpt, schema):
+    """The left outer variant, rows only: TABLE_OUTER_MS ms of both streams
+    at a TABLE_OUTER_TAPE tape, the card's rows and table equal to the CPU
+    path's."""
+    _, cols = join_columns(fpt, TABLE_SIDS, TABLE_OUTER_MS,
+                           n_ids=TABLE_N_IDS)
+    out = []
+    for dev in ("cpu", "cuda"):
+        rows, _, job = join_table(
+            fpt, TABLES.format(join="left outer join"), schema,
+            join_batches(fpt, schema, cols, TABLE_OUTER_TAPE // 2), dev,
+            "joined")
+        out.append((rows, table_state(job)[0]))
+    (crows, ctbl), (grows, gtbl) = out
+    table_rows_equal(grows, crows, "left outer join, card vs CPU")
+    for k, v in ctbl.items():
+        same(gtbl[k], v, f"tables outer: the final PriceTable's {k}")
+    ts, c = crows
+    unmatched = int((c["p1"] == 0).sum())
+    if not unmatched or len(ts) < 1000:
+        raise AssertionError(f"tables outer: {len(ts)} rows, {unmatched} "
+                             "unmatched")
+    return {"events": 2 * TABLE_OUTER_MS, "tape": TABLE_OUTER_TAPE,
+            "rows": len(ts), "unmatched_rows": unmatched}
+
+
+def args_copy(args, device="cpu"):
+    """A copy of a kernel call's arguments: its tensors (a JoinDir's too)
+    copied to ``device``."""
+    import torch
+
+    if isinstance(args[0], list):
+        return join_args_copy(args, device)
+    return tuple(a.to(device, copy=True) if isinstance(a, torch.Tensor)
+                 else a for a in args)
+
+
+def table_phase(fpt, co, out_path):
+    """Phase 8d: the TABLES plan over inputStream1 and inputStream2 (the
+    bench generator, seeds 7 and 8, TABLE_N_IDS ids, one event a ms each,
+    JOIN_MS each; a BATCH tape holds half of each) under bench.py's
+    settings:
+
+    - the card's rows and final table against the CPU path's
+      (``table_check``);
+    - the streaming Job over the whole streams (a counting columnar sink;
+      K6 twice a step, the update's and the delete's, K5 once; the third
+      step's K6 and K5 inputs recorded for phase 9);
+    - ResidentReplay: a run with the sink (the same count), then
+      counts-only: three reruns, graphs captured, no eager segment, one
+      segment under sync debug mode "error", the kernels once a query a
+      step on the host and in a traced rerun;
+    - the left outer variant, rows only (``table_outer_rows``).
+    The result goes to ``out_path``, the recorded inputs to
+    ``out_path``.pt."""
+    import torch
+
+    t_phase = time.perf_counter()
+    schema, cols = join_columns(fpt, TABLE_SIDS, JOIN_MS,
+                                n_ids=TABLE_N_IDS)
+    cql = TABLES.format(join="join")
+    check = table_check(fpt, schema, cols)
+    streams = join_batches(fpt, schema, cols, BATCH // 2)
+    n_events = 2 * JOIN_MS
+    steps = len(streams[TABLE_SIDS[0]])
+
+    # the streaming Job, the third step's kernel inputs recorded
+    sink = ColumnRows(keep=False)
+    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
+    job.add_sink("joined", sink)
+    recorded, calls = {}, {"table_mutate": 0, "join_pairs": 0}
+    real = {name: getattr(co, name) for name in calls}
+
+    def recorder(name, keep):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            if calls[name] in keep:
+                recorded[keep[calls[name]]] = args_copy(args)
+            return real[name](*args, **kwargs)
+        return call
+
+    # per step: the update's K6, then the delete's, then the join's K5
+    co.table_mutate = recorder("table_mutate", {5: "update", 6: "delete"})
+    co.join_pairs = recorder("join_pairs", {3: "join"})
+    torch.cuda.synchronize()
+    co.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        job.run()
+        job.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        co.table_mutate, co.join_pairs = real["table_mutate"], \
+            real["join_pairs"]
+    launches = co.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(table_mutate=2 * steps, join_pairs=steps)
+    if launches != want:
+        raise AssertionError(f"tables: streaming launches {launches}, "
+                             f"expected {want}")
+    drain_accounts(job, "tables: streaming")
+    rows = sink.rows
+    tbl, overflow = table_state(job)
+    valid_end = int(tbl["valid"].sum())
+    if rows < 1000 or any(overflow.values()) or not valid_end:
+        raise AssertionError(f"tables: {rows} rows, overflow {overflow}, "
+                             f"{valid_end} valid rows at the end")
+    del job
+
+    # ResidentReplay: with the sink, then counts-only
+    torch.cuda.reset_peak_memory_stats()
+    rsink = ColumnRows(keep=False)
+    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
+    job.add_sink("joined", rsink)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    stage_s = rep.stage_seconds
+    (pid, segs), = rep.segments.items()
+    rsteps = sum(len(seg) for seg in segs)
+    captured = job.graphs_captured
+    co.reset_launches()
+    t0 = time.perf_counter()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rlaunch = co.launch_counts()
+    drain_accounts(job, "tables: resident run")
+    rtbl, _ = table_state(job)
+    for k, v in tbl.items():
+        same(rtbl[k], v, f"tables: resident PriceTable's {k} vs streaming")
+    if rsink.rows != rows:
+        raise AssertionError(f"tables: resident {rsink.rows} rows, "
+                             f"streaming {rows}")
+    if (rlaunch["table_mutate"] != 2 * rsteps
+            or rlaunch["join_pairs"] != rsteps or job.eager_segments
+            or not captured or job.graphs_captured != captured):
+        raise AssertionError(
+            f"tables: K6 {rlaunch['table_mutate']}, K5 "
+            f"{rlaunch['join_pairs']} launches in {rsteps} steps, "
+            f"{job.eager_segments} eager segments, {job.graphs_captured} "
+            f"graphs ({captured} at stage)")
+    job._sinks.clear()  # counts-only from here: rerun() replays
+    reruns = []
+    for _ in range(3):
+        before = job.emitted_counts.get("joined", 0)
+        reruns.append(rep.rerun())
+        if job.emitted_counts.get("joined", 0) - before != rows:
+            raise AssertionError("tables: a rerun emitted another count")
+    if job.graphs_captured != captured:
+        raise AssertionError("tables: a rerun captured a graph")
+    eager = job.eager_segments
+    peak = torch.cuda.max_memory_allocated()
+    job.reset_engine_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep.run_segment(pid, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    prof, traced_s, traced_launch = traced_run(
+        co, rep.rerun, "tables: traced resident rerun")
+    traced = traced_share(prof, traced_s, len(segs), rsteps)
+    del prof
+    if (traced_launch["table_mutate"] != 2 * rsteps
+            or traced_launch["join_pairs"] != rsteps):
+        raise AssertionError(f"tables: {traced_launch} kernel calls on the "
+                             f"card in a rerun of {rsteps} steps")
+    del job, rep
+    outer = table_outer_rows(fpt, schema)
+    result = {
+        "path": "tables",
+        "cql": cql,
+        "events": n_events,
+        "batch": BATCH,
+        "n_ids": TABLE_N_IDS,
+        **check,
+        "rows": rows,
+        "overflow": overflow,
+        "valid_rows_at_end": valid_end,
+        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
+                      "launches": launches},
+        "resident": {
+            "stage_s": stage_s,
+            "first_run_s": first_s,
+            "rerun_s": reruns,
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "events_per_s_best": n_events / min(reruns),
+            "steps": rsteps,
+            "segments": [len(seg) for seg in segs],
+            "launches": rlaunch,
+            "launches_traced": traced_launch,
+            "graphs_captured": captured,
+            "eager_segments": eager,
+            "segment_sync_free": True,
+            "max_memory_allocated_bytes": peak,
+            "device_ms_per_step": traced["traced_device_busy_s"] * 1e3
+            / rsteps,
+            **traced,
+        },
+        "outer": outer,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(json.dumps(result))
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    torch.save(recorded, out_path + ".pt")
+
+
+def tables_main(out_path):
+    """Phase 8d alone (``--tables OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    table_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
 # -- phase 6: the quote board (#window.unique aggregation) -------------------
 
 def quote_stream(fpt, n_events, batch, seed=11):
@@ -3534,9 +4035,8 @@ def quote_board(fpt, co):
     if rows[-1][1][1] != n_keys:
         raise AssertionError("quote board: final count is not the number "
                              "of distinct symbols")
-    if launches != {"multi_reverse_cummin": 0, "chain_advance": 0,
-                    "unique_window_fold": QUOTE_BATCHES,
-                    "slot_nfa_scan": 0, "join_pairs": 0}:
+    if launches != dict.fromkeys(launches, 0) | {
+            "unique_window_fold": QUOTE_BATCHES}:
         raise AssertionError(
             f"quote board: launches {launches}, expected the unique fold "
             f"once per micro-batch ({QUOTE_BATCHES})"
@@ -4072,6 +4572,142 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
     return entry
 
 
+def mutate_work(co, args, last):
+    """(bytes, operations, candidates) of one K6 call on THESE inputs: each
+    input read once (the mask, the program's event and table words, the
+    valid flags) and ``last`` written once; the candidates the rows need
+    (per valid row, the query's events from its last match to the tape's
+    end, all of them for a row with no match: what a walk that stops at
+    the match must visit), one key comparison each, or the program's
+    words each when it has no key."""
+    import torch
+
+    mask, a_cols, valid, b_cols, prog, _depth = args
+    E, C = int(mask.shape[0]), int(valid.shape[0])
+    nbytes = (E + 4 * E * int(a_cols.shape[0]) + C
+              + 4 * C * int(b_cols.shape[0]) + 4 * C)
+    after = torch.cumsum(mask.flip(0).long(), 0).flip(0)  # events at >= i
+    total = int(mask.sum())
+    need = torch.where(last >= 0, after[torch.clamp(last, min=0).long()],
+                       total)
+    needed = int(need[valid].sum())
+    per = 1 if co.join_key_hint(prog) != (-1, -1) else max(len(prog), 1)
+    return nbytes, needed * per, needed
+
+
+def time_table_mutate(co, recorded, launches, floor_ms):
+    """K6 on the tables path's third step (phase 8d's recorded update and
+    delete calls): held exactly to its plain version run on the card on
+    the same input; timed (CUDA events around back-to-back calls); the
+    candidates it walked, those the rows need (``mutate_work``) and E x C;
+    its bound from this input's bytes and needed candidates, and the bound
+    at E x C candidates. Returns the kernels-line entry (the update's
+    numbers; the delete's under "delete")."""
+    out = {}
+    for name in ("update", "delete"):
+        args = args_copy(recorded[name], "cuda")
+        last, visits, plain_ms = mutate_check(
+            co, args, f"the tables path's third step, {name}", on_card=True)
+        ms, call_ms = timed_back_to_back(lambda: co.table_mutate(*args), 20)
+        nbytes, ops, needed = mutate_work(co, args, last)
+        bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
+        E, C = int(args[0].shape[0]), int(args[2].shape[0])
+        out[name] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_all_candidates": max(
+                nbytes / HBM_BYTES_PER_S, E * C / INT32_OPS_PER_S) * 1e3,
+            "events": E, "rows": C, "events_masked": int(args[0].sum()),
+            "rows_valid": int(args[2].sum()),
+            "rows_matched": int((last >= 0).sum()),
+            "candidates_all": E * C, "candidates_needed": needed,
+            "candidates_walked": visits, "bytes": nbytes,
+            "operations": ops,
+        }
+        log(f"  table_mutate on the tables path's third step ({name}): "
+            f"{ms} ms a call ({call_ms} ms single), {out[name]['rows_valid']}"
+            f" valid rows, {out[name]['events_masked']} events, "
+            f"{out[name]['rows_matched']} rows matched; candidates: "
+            f"{visits} walked, {needed} needed, {E * C} E x C; bound "
+            f"{bound_ms} ms ({bound_by}), "
+            f"{out[name]['bound_ms_all_candidates']} ms at E x C; exact "
+            f"against the plain version on the card ({plain_ms} ms)")
+    up = out["update"]
+    return {
+        "name": co.table_mutate.name, "route": "cuda",
+        "source": co.table_mutate.source,
+        "replaces": "flink_siddhi_tpu/compiler/table.py:362 (no Pallas "
+                    "counterpart: the reference's dense (E, C) match and "
+                    "argmax, TableMutateArtifact.step_tables)",
+        "launches": launches, "max_abs_err": 0,
+        "max_abs_err_by": "exact comparison with the plain version on the "
+                          "tables path's third step (on the card) and "
+                          "phase 3's cases",
+        **{k: up[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                              "bound_by")},
+        "plain_device": "cuda",
+        "plain_shape": f"the update of the tables path's third step (E = "
+                       f"{up['events']}, C = {up['rows']}), chunks of "
+                       f"{MUTATE_PLAIN_CARD_CELLS} cells",
+        "library_ms": None, "floor_ms": floor_ms,
+        "update": up, "delete": out["delete"],
+    }
+
+
+def table_join_work(co, args, n):
+    """(bytes, operations) that the stream-table join needs on THESE
+    inputs (one direction, ``table_join_dir``): the probe mask and the
+    ``on``'s event words read once, the table's valid flags and words read
+    once, the ``n`` rows written once (three int32 words each) and n; with
+    an int key, one key comparison per masked event and per valid row (a
+    hash join's probe and build) and the program's words per row; without
+    one, the program's words per (masked event, valid row). The direction's
+    fixed window tensors and every candidate the walk visits are not the
+    function's work: ``join_pairs_work`` gives the walk's own bound."""
+    (d,), ts, cap = args[0], args[1], args[2]
+    E, C = int(ts.shape[0]), int(d.b_valid.shape[0])
+    rows = min(n, cap)
+    nbytes = (E + 4 * E * int(d.a_cols.shape[0]) + C
+              + 4 * C * int(d.b_cols.shape[0]) + 3 * 4 * rows + 4)
+    masked, valid = int(d.a_mask.sum()), int(d.b_valid.sum())
+    per = max(len(d.prog), 1)
+    if co.join_key_hint(d.prog) != (-1, -1):
+        return nbytes, masked + valid + rows * per
+    return nbytes, masked * valid * per
+
+
+def time_table_join(co, recorded, floor_ms):
+    """K5 on the tables path's third step (the stream-table join, one
+    direction): exact against its plain version run on the card, timed
+    (CUDA events around back-to-back calls), its candidates; its bound
+    from the work the function needs (``table_join_work``), and the bound
+    of the candidates the walk visited (``join_pairs_work``) beside it."""
+    args = args_copy(recorded, "cuda")
+    n, _, _, plain_ms = join_check(co, *args, "the tables path's third "
+                                   "step", on_card=True)
+    ms, call_ms = timed_back_to_back(lambda: co.join_pairs(*args), 20)
+    visits, rewalks = join_counts(co, *args)
+    nbytes, ops = table_join_work(co, args, n)
+    bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
+    w_bytes, w_ops = join_pairs_work(args, visits, n)
+    walked_ms, walked_by = bound_of(w_bytes, w_ops, INT32_OPS_PER_S)
+    E = int(args[1].shape[0])
+    entry = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "events": E,
+             "pairs": n, "candidates_visited": visits,
+             "rewalked_tiles": rewalks, "bytes": nbytes, "operations": ops,
+             "bound_ms_walked_candidates": walked_ms,
+             "bound_walked_by": walked_by, "bytes_walked": w_bytes,
+             "operations_walked": w_ops}
+    log(f"  join_pairs on the tables path's third step (the table join): "
+        f"{ms} ms a call ({call_ms} ms single), {n} rows of {E} events, "
+        f"{visits} candidates, {rewalks} tiles walked again; bound "
+        f"{bound_ms} ms ({bound_by}: {nbytes} bytes, {ops} operations), "
+        f"{walked_ms} ms ({walked_by}) for the candidates walked; exact "
+        f"against the plain version on the card ({plain_ms} ms)")
+    return entry
+
+
 @dataclasses.dataclass
 class Event:
     id: int
@@ -4171,6 +4807,7 @@ def main():
                                                      gen_dev))
     err_k4 = check_slot_nfa(fpt, co, dev)
     err_k5 = check_join_pairs(fpt, co, dev)
+    err_k6 = check_table_mutate(fpt, co, dev)
 
     def lap(what):
         log(f"  {what} done at {time.perf_counter() - t_start:.1f} s")
@@ -4359,7 +4996,39 @@ def main():
                "join_pairs"]}
         for q in joins["queries"]], "outer": joins["outer"]}))
 
-    lap("phases 7, 8, 8b and 8c")
+    # 8d. event tables: the TABLES plan over two streams (in a process of
+    # its own, as 8c; the third step's K6 and K5 inputs go to phase 9)
+    log(f"[8d/11] tables: insert, update, delete and a stream-table join "
+        f"over two streams of {JOIN_MS} events each")
+    t_tab = time.perf_counter()
+    table_path = os.path.join(SMOKE_DIR, "tables.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--tables", table_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"tables phase failed ({r.returncode})")
+    with open(table_path) as f:
+        tables = json.load(f)
+    log(f"  tables phase {time.perf_counter() - t_tab:.1f} s")
+    res = tables["resident"]
+    log(json.dumps({"tables": {
+        k: tables[k] for k in (
+            "rows", "overflow", "valid_rows_at_end", "cpu_check_rows",
+            "cpu_check_valid_rows", "outer")}
+        | {"resident_events_per_s_median": res["events_per_s_median"],
+           "resident_events_per_s_best": res["events_per_s_best"],
+           "streaming_events_per_s": tables["streaming"]["events_per_s"],
+           "idle_share": res["traced_idle_share"],
+           "device_ms_per_step": res["device_ms_per_step"],
+           "top_device_ms": res["top_device_ms"],
+           "eager_segments": res["eager_segments"],
+           "graphs_captured": res["graphs_captured"],
+           "steps": res["steps"],
+           "launches": {k: tables["streaming"]["launches"][k]
+                        for k in ("table_mutate", "join_pairs")},
+           "launches_traced": {k: res["launches_traced"][k]
+                               for k in ("table_mutate", "join_pairs")}}}))
+
+    lap("phases 7, 8, 8b, 8c and 8d")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -4374,7 +5043,7 @@ def main():
                      for name, r in (("k1", rec_k1), ("k1_full", full_k1),
                                      ("k2", rec_k2), ("k2_full", full_k2),
                                      ("k3", rec_k3))},
-        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5],
+        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5, err_k6],
         "launches": {"head": head["launches"], "board": board["launches"],
                      "slots": sum(q["streaming"]["launches"]["slot_nfa_scan"]
                                   for q in slots),
@@ -4385,7 +5054,9 @@ def main():
                          "join_pairs"],
                      "joins_traced": {
                          q["path"]: q["resident"]["launches_traced"]
-                         for q in joins["queries"]}},
+                         for q in joins["queries"]},
+                     "tables": tables["streaming"]["launches"],
+                     "tables_traced": tables["resident"]["launches_traced"]},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -4839,7 +5510,7 @@ def kernels_main(path):
         for r in (saved["recorded"][k] for k in (
             "k1", "k1_full", "k2", "k2_full", "k3"))
     )
-    err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5 = saved["err"]
+    err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5, err_k6 = saved["err"]
     launches = saved["launches"]
     mq_inputs = torch.load(os.path.join(SMOKE_DIR, "multiquery64.json.pt"))
     # 9. kernel timing on each path's own inputs
@@ -4903,9 +5574,21 @@ def kernels_main(path):
                                        weights_only=False),
                         launches["joins"], err_k5, floor_ms),
     ]
+    table_recorded = torch.load(os.path.join(SMOKE_DIR, "tables.json.pt"),
+                                weights_only=False)
+    kernels.append(time_table_mutate(
+        co, table_recorded, launches["tables"]["table_mutate"], floor_ms))
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], err_k4)
+    kernels[5]["max_abs_err"] = max(kernels[5]["max_abs_err"], err_k6)
+    kernels[5]["launches_tables_resident_traced"] = \
+        launches["tables_traced"]["table_mutate"]
     kernels[4]["launches_joins_resident_traced"] = {
         p: t["join_pairs"] for p, t in launches["joins_traced"].items()}
+    kernels[4]["launches_tables"] = launches["tables"]["join_pairs"]
+    kernels[4]["launches_tables_resident_traced"] = \
+        launches["tables_traced"]["join_pairs"]
+    kernels[4]["table_join"] = time_table_join(
+        co, table_recorded["join"], floor_ms)
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -4991,6 +5674,8 @@ if __name__ == "__main__":
         sys.exit(slots_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--joins":
         sys.exit(joins_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tables":
+        sys.exit(tables_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

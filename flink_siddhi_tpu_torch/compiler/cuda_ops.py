@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the engine's hot scan primitives.
 
 The counterpart of ``flink_siddhi_tpu/compiler/pallas_ops.py`` for an
-NVIDIA Hopper card. Five kernels live here, all CUDA C++ under ``csrc/``:
+NVIDIA Hopper card. Six kernels live here, all CUDA C++ under ``csrc/``:
 
 * **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
   the chain matcher's "next match at/after position p" tables: one
@@ -24,6 +24,13 @@ NVIDIA Hopper card. Five kernels live here, all CUDA C++ under ``csrc/``:
   candidates, the tile's bands in shared memory. No Pallas counterpart:
   the reference runs it as XLA ops
   (``flink_siddhi_tpu/compiler/join.py:335-403``).
+* **table mutate** (``table_mutate``, csrc/table_mutate.cu) — an event
+  table's update or delete: each table row's last matching event of a
+  micro-batch through the ``on`` program (the interpreter K4 and K5
+  share). No Pallas counterpart: the reference builds a dense (E, C)
+  match matrix and an ``argmax`` over it (``flink_siddhi_tpu/compiler/
+  table.py:362-408``). A stream-table join runs on ``join_pairs`` with
+  one direction (``table_join_dir``).
 * **slot NFA scan** (``slot_nfa_scan``, csrc/slot_nfa.cu) — the slot NFA's
   walk over one micro-batch's events, every partial-match slot advanced at
   each event (sequences, quantifiers, and/or groups, cross-element filters,
@@ -84,6 +91,7 @@ SOURCES = {
     "unique_fold": "unique_fold.cu",
     "slot_nfa": "slot_nfa.cu",
     "join_pairs": "join_pairs.cu",
+    "table_mutate": "table_mutate.cu",
     "empty": "empty.cu",
 }
 CUMMIN_TILE = 2048  # reverse_cummin.cu's kTile: events per block
@@ -114,6 +122,7 @@ _ARGTYPES = {
     "fst_warp_rounds": [_I, _P],
     "fst_ftz_probe": [_P, _P, _P, _I, _P],
     "fst_join_pairs": [_P, _P],
+    "fst_table_mutate": [_P, _P],
     "fst_slot_nfa_scan": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
         _P, _P, _I, _I, _P,
@@ -1549,6 +1558,47 @@ def join_pairs_plain(dirs: Sequence[JoinDir], ts: torch.Tensor, cap: int,
                                device=dev))
 
 
+_TABLE_DIR_FIXED: Dict[Tuple[int, int, str], Tuple[torch.Tensor, ...]] = {}
+
+
+def _table_dir_fixed(E: int, C: int, dev) -> Tuple[torch.Tensor, ...]:
+    """A table direction's fixed tensors (``b_ts`` zeros, ``b_posid`` -1,
+    ``b_cum`` C at every position, ``b_seen`` C), read only, made once a
+    (E, C, device) outside a CUDA graph capture (a tensor made inside one
+    is filled only when the graph replays, so it is not kept)."""
+    key = (E, C, str(dev))
+    got = _TABLE_DIR_FIXED.get(key)
+    if got is None:
+        got = (torch.zeros(C, dtype=torch.int32, device=dev),
+               torch.full((C,), -1, dtype=torch.int32, device=dev),
+               torch.full((E,), C, dtype=torch.int32, device=dev),
+               torch.full((1,), C, dtype=torch.int32, device=dev))
+        if not _capturing(torch.device(dev)):
+            _TABLE_DIR_FIXED[key] = got
+    return got
+
+
+def table_join_dir(a_mask: torch.Tensor, a_cols: torch.Tensor,
+                   valid: torch.Tensor, b_cols: torch.Tensor,
+                   prog: Tuple[int, ...], depth: int,
+                   outer: bool) -> JoinDir:
+    """A stream-table join as one ``JoinDir``: the stream's events
+    (``a_mask``, ``a_cols``) arrive against a table of ``C`` slots
+    (``valid`` bool ``[C]``, ``b_cols`` int32 ``[b_n, C]``). The table is
+    b's "ring" and nothing arrives in the batch: a length window of ``C``
+    with ``C`` events seen before and ``C`` at every position, so every
+    valid slot is in every event's window, entry j at ordinal j, and the
+    pairs come in (i, j) order with the outer rows after them."""
+    E, C = int(a_mask.shape[0]), int(valid.shape[0])
+    b_ts, b_posid, b_cum, b_seen = _table_dir_fixed(E, C, a_mask.device)
+    return JoinDir(
+        a_mask=a_mask, a_cols=a_cols, b_ts=b_ts, b_valid=valid,
+        b_posid=b_posid, b_cum=b_cum, b_seen=b_seen, b_cols=b_cols,
+        prog=tuple(prog), depth=depth, mode_time=False, n=C, span=0, C=C,
+        outer=outer,
+    )
+
+
 class _DirArgs(ctypes.Structure):
     _fields_ = [(f, _P) for f in (
         "a_mask", "a_cols", "b_ts", "b_valid", "b_posid", "b_cum",
@@ -1563,12 +1613,13 @@ class _JoinArgs(ctypes.Structure):
         "out_j", "out_seg", "n_out", "visits", "rewalks")] + [
             (f, _I) for f in ("E", "cap", "self_join", "has_within",
                               "within", "depth", "ucap", "nt",
-                              "pool_cap")]
+                              "pool_cap", "ndirs")]
 
 
 class JoinPairs:
     """A join's pair step over one micro-batch: ``(i, j, seg, n)`` for the
-    two directions ``dirs`` (``JoinDir``, l -> r then r -> l), the tape's
+    directions ``dirs`` (``JoinDir``, l -> r then r -> l; a stream-table
+    join has one: ``table_join_dir``), the tape's
     ``ts`` int32 ``[E]``, the cut ``cap``, whether it is a self-join (an
     event never pairs with itself: same tape position) and ``within`` (ms,
     or None). ``seg`` is 0 / 2 for a pair of direction 0 / 1 (``i`` the
@@ -1612,8 +1663,8 @@ class JoinPairs:
         dev = ts.device
         E = int(ts.shape[0])
         _check(ts, "ts", torch.int32, dev, (E,))
-        if len(dirs) != 2:
-            raise ValueError("join_pairs: two directions")
+        if len(dirs) not in (1, 2):
+            raise ValueError("join_pairs: one or two directions")
         if not 1 <= E < 2 ** 29 or not 1 <= cap < 2 ** 31:
             raise ValueError(f"join_pairs: {E} events, cap {cap}")
         args = _JoinArgs()
@@ -1659,17 +1710,17 @@ class JoinPairs:
             if v is not None:
                 _check(v, "visits/rewalks", torch.int64, dev, (1,))
         nt = -(-E // JOIN_TILE)
-        # the kernel's scratch: per tile (2 nt) its sums, then offsets
+        S = len(dirs) * nt
+        # the kernel's scratch: per tile (S) its sums, then offsets
         # (segment-major), its pool offset and pairs, its warps' outer
         # masks, each event's count (a tile walked again); the pool of
         # staged pairs (ranks below cap: at most cap of them) and its
         # counter
-        tile = torch.empty(4 * nt, dtype=torch.int64, device=dev)
-        meta = torch.empty(4 * nt, dtype=torch.int64, device=dev)
-        omask = torch.empty(2 * nt * (JOIN_TILE // JOIN_WARP),
+        tile = torch.empty(2 * S, dtype=torch.int64, device=dev)
+        meta = torch.empty(2 * S, dtype=torch.int64, device=dev)
+        omask = torch.empty(S * (JOIN_TILE // JOIN_WARP),
                             dtype=torch.int32, device=dev)
-        cnt = torch.empty(2 * nt * JOIN_TILE, dtype=torch.int32,
-                          device=dev)
+        cnt = torch.empty(S * JOIN_TILE, dtype=torch.int32, device=dev)
         pool = torch.empty((cap, 2), dtype=torch.int32, device=dev)
         pool_ctr = torch.zeros(1, dtype=torch.int64, device=dev)
         out = [torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -1687,8 +1738,9 @@ class JoinPairs:
         args.has_within = int(within is not None)
         args.within = int(within) if within is not None else 0
         args.depth = depth
-        args.ucap = join_union_cap(max(args.d[0].b_n, args.d[1].b_n))
-        args.nt, args.pool_cap = nt, cap
+        args.ucap = join_union_cap(max(int(d.b_cols.shape[0])
+                                       for d in dirs))
+        args.nt, args.pool_cap, args.ndirs = nt, cap, len(dirs)
         with _on_device(dev):
             err = LIBRARIES.get("join_pairs").fst_join_pairs(
                 ctypes.addressof(args), _stream(dev.index))
@@ -1699,8 +1751,120 @@ class JoinPairs:
 
 join_pairs = JoinPairs()
 
+# --------------------------------------------------------------------------
+# K6: the table mutation's match
+# --------------------------------------------------------------------------
+
+MUTATE_CHUNK = 2048  # table_mutate.cu's kChunk: tape positions a block
+MUTATE_MAX_DEPTH = 227  # table_mutate.cu's kMaxDepth: a thread's stack
+
+
+def table_mutate_plain(mask: torch.Tensor, a_cols: torch.Tensor,
+                       valid: torch.Tensor, b_cols: torch.Tensor,
+                       prog: Sequence[int], depth: int) -> torch.Tensor:
+    """The plain version: the reference's dense (E, C) match (``mask[i] &
+    valid[j] & on(i, j)``, ``flink_siddhi_tpu/compiler/table.py:362-408``)
+    in row chunks of at most ``_PLAIN_CHUNK_CELLS`` cells, reduced to each
+    table row's last matching tape position: int32 ``[C]``, -1 where no
+    event matches."""
+    E, C = int(mask.shape[0]), int(valid.shape[0])
+    dev = mask.device
+    last = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    step = max(1, _PLAIN_CHUNK_CELLS // max(C, 1))
+    for r0 in range(0, E, step):
+        rows = torch.arange(r0, min(r0 + step, E), device=dev)
+        match = mask[rows][:, None] & valid[None, :]
+        if prog:
+            ok = eval_program(prog, lambda c: a_cols[c][rows][:, None],
+                              lambda c: b_cols[c][None, :])
+            match = match & (ok != 0)
+        at = torch.where(match, rows[:, None].to(torch.int32), -1)
+        last = torch.maximum(last, at.amax(dim=0))
+    return last
+
+
+class _MutateArgs(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "mask", "a_cols", "valid", "b_cols", "prog", "last", "visits")] + [
+            (f, _I) for f in ("E", "C", "a_n", "b_n", "prog_len", "key_a",
+                              "key_b")]
+
+
+class TableMutate:
+    """K6: each table row's last matching tape position for an update or
+    delete, ``last`` int32 ``[C]`` (-1: no event matches). ``mask`` bool
+    ``[E]`` (the query's events), ``a_cols`` int32 ``[a_n, E]`` (the
+    program's event loads: stream columns and select outputs, float32 by
+    bit pattern), ``valid`` bool ``[C]``, ``b_cols`` int32 ``[b_n, C]``
+    (the table columns it loads), the linked ``on`` program ``prog`` and
+    its stack ``depth``. Row j's candidate i matches when ``mask[i] &
+    valid[j]`` and the program is true.
+
+    On CUDA one call fills ``last`` with -1 and launches the kernel on the
+    current stream, with no host read. ``visits`` (an int64 ``[1]`` CUDA
+    tensor, or None) adds the candidates the kernel walked."""
+
+    name = "table_mutate"
+    source = "flink_siddhi_tpu_torch/csrc/table_mutate.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._progs: Dict[Tuple, torch.Tensor] = {}
+
+    def _prog(self, prog: Tuple[int, ...], dev) -> torch.Tensor:
+        key = (tuple(prog), str(dev))
+        t = self._progs.get(key)
+        if t is None:
+            if _capturing(dev):
+                raise RuntimeError(
+                    "table_mutate: the program is not on the capturing "
+                    "device yet; run the captured work once first")
+            t = torch.tensor(list(prog) or [0], dtype=torch.int32).to(dev)
+            self._progs[key] = t
+        return t
+
+    def __call__(self, mask, a_cols, valid, b_cols, prog, depth,
+                 visits=None) -> torch.Tensor:
+        if _device_kind(mask, "mask") == "cpu":
+            return table_mutate_plain(mask, a_cols, valid, b_cols, prog,
+                                      depth)
+        dev = mask.device
+        E, C = int(mask.shape[0]), int(valid.shape[0])
+        a_n, b_n = int(a_cols.shape[0]), int(b_cols.shape[0])
+        _check(mask, "mask", torch.bool, dev, (E,))
+        _check(a_cols, "a_cols", torch.int32, dev, (a_n, E))
+        _check(valid, "valid", torch.bool, dev, (C,))
+        _check(b_cols, "b_cols", torch.int32, dev, (b_n, C))
+        if not 1 <= E <= 65535 * MUTATE_CHUNK or not 1 <= C < 2 ** 31:
+            raise ValueError(f"table_mutate: {E} events, {C} rows")
+        if prog and depth > MUTATE_MAX_DEPTH:
+            raise ValueError(
+                f"table_mutate: a {depth}-deep program exceeds a thread's "
+                f"stack ({MUTATE_MAX_DEPTH} words)")
+        if visits is not None:
+            _check(visits, "visits", torch.int64, dev, (1,))
+        code = self._prog(prog, dev)
+        last = torch.full((C,), -1, dtype=torch.int32, device=dev)
+        args = _MutateArgs()
+        args.mask, args.a_cols = mask.data_ptr(), a_cols.data_ptr()
+        args.valid, args.b_cols = valid.data_ptr(), b_cols.data_ptr()
+        args.prog, args.last = code.data_ptr(), last.data_ptr()
+        args.visits = visits.data_ptr() if visits is not None else 0
+        args.E, args.C, args.a_n, args.b_n = E, C, a_n, b_n
+        args.prog_len = len(prog)
+        args.key_a, args.key_b = join_key_hint(prog)
+        with _on_device(dev):
+            err = LIBRARIES.get("table_mutate").fst_table_mutate(
+                ctypes.addressof(args), _stream(dev.index))
+        _check_launch(self.name, err)
+        self.launches += 1
+        return last
+
+
+table_mutate = TableMutate()
+
 KERNELS = (multi_reverse_cummin, chain_advance, unique_window_fold,
-           slot_nfa_scan, join_pairs)
+           slot_nfa_scan, join_pairs, table_mutate)
 
 
 def reset_launches() -> None:

@@ -45,7 +45,7 @@ from . import cuda_ops
 from .expr import (ColumnEnv, ExprResolver, ResolvedAttr, _dt, as_column,
                    compile_expr)
 from .output import OutputField, OutputSchema
-from .slot_program import SlotProgram, compile_slot_program
+from .slot_program import OnProgram, compile_on
 from .window import _window_of
 
 _I32 = torch.int32
@@ -146,29 +146,12 @@ class _Side:
 
 
 @dataclass
-class _OnProgram:
-    """The ``on`` condition of one direction (arriving side ``tag``):
-    the linked program, its depth, and the env keys of its event loads
-    (the arriving side's) and of its other loads (the other side's)."""
-
-    code: Tuple[int, ...]
-    depth: int
-    evt_keys: Tuple[str, ...]
-    cap_keys: Tuple[str, ...]
-
-    @classmethod
-    def of(cls, p: SlotProgram) -> "_OnProgram":
-        return cls(p.link(p.evt_keys.index, p.cap_keys.index), p.depth,
-                   p.evt_keys, p.cap_keys)
-
-
-@dataclass
 class JoinArtifact:
     name: str
     output_schema: OutputSchema
     left: _Side
     right: _Side
-    on_progs: Optional[Dict[str, _OnProgram]]  # arriving tag -> program
+    on_progs: Optional[Dict[str, OnProgram]]  # arriving tag -> program
     # derived columns (an `on` call over one side): key -> (side, fn)
     derived: Dict[str, Tuple[str, Callable]]
     within: Optional[int]
@@ -404,36 +387,10 @@ def _later_call(call: ast.Call) -> SiddhiQLError:
 
 def _compile_on(on, resolver: _JoinResolver, extensions):
     """The ``on`` condition as one program per direction (arriving tag ->
-    ``_OnProgram``) and its derived columns (a call over one side)."""
-    derived: Dict[str, Tuple[str, Callable]] = {}
-    by_node: Dict[int, Tuple[str, AttributeType, object, str]] = {}
-
-    def derive_for(arriving: str):
-        def derive(expr):
-            tags = resolver.tags(expr) or {arriving}
-            if len(tags) != 1:
-                if isinstance(expr, ast.Call):
-                    raise _later_call(expr)
-                return None
-            got = by_node.get(id(expr))
-            if got is None:
-                tag = next(iter(tags))
-                key = f"{tag}:@fn{len(derived)}"
-                ce = compile_expr(expr, resolver, extensions)
-                derived[key] = (tag, ce.fn)
-                got = by_node[id(expr)] = (key, ce.atype, ce.table, tag)
-            key, atype, table, tag = got
-            return key, atype, table, tag == arriving
-        return derive
-
-    progs = {}
-    for tag in ("l", "r"):
-        p = compile_slot_program(
-            on, resolver, lambda key, t=tag: key.startswith(f"{t}:"),
-            derive_for(tag),
-        )
-        progs[tag] = _OnProgram.of(p)
-    return progs, derived
+    ``OnProgram``) and its derived columns (a call over one side)."""
+    return compile_on(on, resolver, extensions, ("l", "r"), resolver.tags,
+                      lambda key: key.split(":", 1)[0],
+                      lambda tag, n: f"{tag}:@fn{n}", _later_call)
 
 
 def compile_join_query(

@@ -14,11 +14,14 @@ axis), the slot NFA's patterns and sequences, sliding, batch and
 cumulative aggregation with group-by and having, ``#window.unique``,
 ``#window.delay``, ``insert expired events`` and ``insert all events``,
 windowed two-stream joins (``compiler/join.py``; an aggregated join runs
-as a join into an intermediate stream and an aggregation over it) and
-query chaining (a query reading another query's output inside the same
-step). Tables, partitions and output rate limiting raise
-``SiddhiQLError`` naming the later slice of the port (ROADMAP.md Queue
-1); the JAX package ``flink_siddhi_tpu`` runs them.
+as a join into an intermediate stream and an aggregation over it), query
+chaining (a query reading another query's output inside the same step)
+and event tables (``compiler/table.py``: ``define table``, insert,
+update / delete ``on``, stream-table joins; the tables ride the state
+under ``@tables`` and thread through the queries in order). Windowed
+table writes, partitions and output rate limiting raise ``SiddhiQLError``
+naming the later slice of the port (ROADMAP.md Queue 1); the JAX package
+``flink_siddhi_tpu`` runs them.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..schema.stream_schema import StreamSchema
 from .config import DEFAULT_CONFIG, EngineConfig
 from .expr import ExprResolver, _dt, as_column, as_i32
 from .select import compile_select
+from .table import init_table_state
 
 _I32 = torch.int32
 
@@ -75,9 +79,17 @@ class CompiledPlan:
     tape_capacity_limit: Optional[int] = None
     # consumer artifact name -> its chained (internal) input descriptor
     chained: Dict[str, ChainedInput] = field(default_factory=dict)
+    table_schemas: Dict[str, StreamSchema] = field(default_factory=dict)
 
     def init_state(self, device) -> Dict:
-        return {a.name: a.init_state(device) for a in self.artifacts}
+        states = {a.name: a.init_state(device) for a in self.artifacts}
+        if self.table_schemas:
+            states["@tables"] = {
+                tid: init_table_state(tid, sch, device,
+                                      self.config.table_capacity)
+                for tid, sch in self.table_schemas.items()
+            }
+        return states
 
     def grow_state(self, states: Dict) -> Dict:
         """Re-bucket keyed state tables after host interning discovered
@@ -91,19 +103,29 @@ class CompiledPlan:
 
     def step(self, states: Dict, tape) -> Tuple[Dict, Dict]:
         """Advance every query one micro-batch (a staged wire tape is
-        expanded on the device first); chained consumers read a synthetic
-        tape built from their producer's emissions this same step."""
+        expanded on the device first). Tables are threaded through the
+        artifacts in query order, so later queries see earlier queries'
+        table writes (batch-granular sequencing); chained consumers read a
+        synthetic tape built from their producer's emissions this same
+        step."""
         if isinstance(tape, WireTape):
             tape = tape.expand()
         new_states = {}
         outputs = {}
+        tables = states.get("@tables", {})
         for a in self.artifacts:
             ci = self.chained.get(a.name)
             a_tape = (tape if ci is None
                       else _synthetic_tape(outputs[ci.producer], ci))
-            s, out = a.step(states[a.name], a_tape)
+            if getattr(a, "uses_tables", False):
+                s, tables, out = a.step_tables(states[a.name], tables,
+                                               a_tape)
+            else:
+                s, out = a.step(states[a.name], a_tape)
             new_states[a.name] = s
             outputs[a.name] = out
+        if "@tables" in states:
+            new_states["@tables"] = tables
         return new_states, outputs
 
     @property
@@ -399,17 +421,23 @@ def compile_plan(
             all_schemas[sd.stream_id] = StreamSchema(
                 list(sd.fields), shared_strings=shared_strings
             )
-    if parsed.table_defs:
-        raise _later("event tables ('define table')", 8)
+    # tables share the string dictionary too, so a join or an `on` over a
+    # string key compares the same codes
+    table_schemas = {
+        td.table_id: StreamSchema(
+            list(td.fields), shared_strings=shared_strings
+        )
+        for td in parsed.table_defs
+    }
     if not parsed.queries:
         raise SiddhiQLError("execution plan contains no queries")
 
     # direct `group by` / `having` / aggregation ON a join query: legal
     # SiddhiQL served by rewriting into the chaining form — join into a
     # synthesized intermediate stream, aggregate that (same step). The
-    # reference's windowed-mutation rewrite between the two waits for
-    # tables (item 8): its forms are table writes, refused above.
-    parsed = _rewrite_aggregated_joins(parsed, {}, all_schemas)
+    # reference's windowed-mutation rewrite after it (a windowed update /
+    # delete through an intermediate stream) waits for item 8.
+    parsed = _rewrite_aggregated_joins(parsed, table_schemas, all_schemas)
     parsed = _rewrite_all_events(parsed)
 
     # fail fast on undefined inputs (UndefinedStreamException parity,
@@ -428,6 +456,8 @@ def compile_plan(
     internal_ids: List[str] = []
     for qi, q in enumerate(parsed.queries):
         for sid in q.input_stream_ids():
+            if sid in table_schemas:
+                continue  # table join side, not a stream input
             if sid in all_schemas:
                 if sid not in input_ids:
                     input_ids.append(sid)
@@ -482,7 +512,8 @@ def compile_plan(
             raise SiddhiQLError(f"duplicate query name {qname!r}")
         used_names.add(qname)
         art = _compile_query(
-            q, qname, all_schemas, merged_codes, extensions, config
+            q, qname, all_schemas, merged_codes, extensions,
+            table_schemas, config,
         )
         inp = q.input
         if (
@@ -600,6 +631,7 @@ def compile_plan(
         config=config,
         tape_capacity_limit=cap_limit,
         chained=chained,
+        table_schemas=table_schemas,
     )
 
 
@@ -609,17 +641,39 @@ def _compile_query(
     schemas: Dict[str, StreamSchema],
     stream_codes: Dict[str, int],
     extensions: ExtensionRegistry,
+    table_schemas: Optional[Dict[str, StreamSchema]] = None,
     config: EngineConfig = DEFAULT_CONFIG,
 ):
+    table_schemas = table_schemas or {}
     if q.partition_with:
         raise _later("'partition with'", 8)
-    if q.output_action != "insert":
-        raise _later(f"table {q.output_action}", 8)
+    if q.output_stream in table_schemas or q.output_action in (
+        "update", "delete",
+    ):
+        from .table import compile_table_write
+
+        if q.output_stream not in table_schemas:
+            raise SiddhiQLError(
+                f"{q.output_action} target {q.output_stream!r} is not a "
+                "defined table"
+            )
+        art = compile_table_write(
+            q, name, schemas, table_schemas, stream_codes, extensions,
+            config,
+        )
+        if q.output_rate is not None:
+            # table writes apply on the device; the host limiter cannot
+            # throttle them — refuse rather than silently ignore
+            raise SiddhiQLError(
+                "output rate limiting on a table write is not supported"
+            )
+        return art
     if q.output_rate is not None:
         raise _later("output rate limiting ('output ... every')", 9)
     inp = q.input
     if (
         isinstance(inp, ast.StreamInput)
+        and inp.stream_id not in table_schemas  # table reads reject below
         and len(inp.windows) == 1
         and inp.windows[0].name.split(".")[-1].lower() == "delay"
         and q.output_events == "current"
@@ -639,7 +693,22 @@ def _compile_query(
         return compile_expired_window(
             q, name, schemas, stream_codes, extensions, config
         )
+    if isinstance(inp, ast.JoinInput) and (
+        inp.left.stream_id in table_schemas
+        or inp.right.stream_id in table_schemas
+    ):
+        from .table import compile_table_join
+
+        return compile_table_join(
+            q, name, schemas, table_schemas, stream_codes, extensions,
+            config,
+        )
     if isinstance(inp, ast.StreamInput):
+        if inp.stream_id in table_schemas:
+            raise SiddhiQLError(
+                f"cannot read table {inp.stream_id!r} as a stream; join a "
+                "stream against it instead"
+            )
         has_agg = any(
             ast.contains_aggregate(i.expr) for i in q.selector.items
         )
@@ -993,6 +1062,9 @@ def state_from_numpy(plan: CompiledPlan, states_np: Dict, device,
         if a.name not in states_np:
             raise KeyError(f"no state for artifact {a.name!r}")
         out[a.name] = load(a.name, states_np[a.name], fresh[a.name])
+    if "@tables" in fresh:
+        out["@tables"] = load("@tables", states_np.get("@tables"),
+                              fresh["@tables"])
     return out
 
 

@@ -39,14 +39,14 @@ is a torch function over a batch and cannot run per slot inside the scan.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..query import ast
 from ..query.lexer import SiddhiQLError
 from ..schema.types import AttributeType
-from .expr import ResolvedAttr, _dt, ftz, mod_f32
+from .expr import ResolvedAttr, _dt, compile_expr, ftz, mod_f32
 
 # opcodes (csrc/slot_nfa.cu's enum Op)
 OP_LIT = 1
@@ -316,6 +316,66 @@ def compile_slot_program(expr: ast.Expr, resolver,
         raise SiddhiQLError("pattern element filter must be boolean")
     return SlotProgram(tuple(code), tuple(c.evt_keys), tuple(c.cap_keys),
                        _depth(code))
+
+
+@dataclass
+class OnProgram:
+    """An ``on`` condition (of a join or a table write) compiled for one
+    arriving side: the linked program (event loads index ``evt_keys``, the
+    other side's loads ``cap_keys``), its stack depth and those keys."""
+
+    code: Tuple[int, ...]
+    depth: int
+    evt_keys: Tuple[str, ...]
+    cap_keys: Tuple[str, ...]
+
+    @classmethod
+    def of(cls, p: SlotProgram) -> "OnProgram":
+        return cls(p.link(p.evt_keys.index, p.cap_keys.index), p.depth,
+                   p.evt_keys, p.cap_keys)
+
+
+def compile_on(on: ast.Expr, resolver, extensions, arriving: Sequence[str],
+               sides: Callable[[ast.Expr], set],
+               key_side: Callable[[str], str],
+               derived_key: Callable[[str, int], str],
+               later_call: Callable[[ast.Call], SiddhiQLError]):
+    """An ``on`` condition (already checked boolean) as one program per
+    arriving side, and its derived columns. ``sides(expr)`` is the set of
+    side tags ``expr`` reads (none: the arriving side's), ``key_side(key)``
+    a resolved column key's side; a load is an event load when its side is
+    the arriving one. A function call over one side is a derived column of
+    that side, keyed ``derived_key(side, n)`` and shared by the programs;
+    a call over two sides raises ``later_call(call)``. Returns
+    ``({arriving side: OnProgram}, {key: (side, fn)})``."""
+    derived: Dict[str, Tuple[str, Callable]] = {}
+    by_node: Dict[int, Tuple] = {}
+
+    def derive_for(arr: str):
+        def derive(expr):
+            tags = sides(expr) or {arr}
+            if len(tags) != 1:
+                if isinstance(expr, ast.Call):
+                    raise later_call(expr)
+                return None
+            got = by_node.get(id(expr))
+            if got is None:
+                tag = next(iter(tags))
+                key = derived_key(tag, len(derived))
+                ce = compile_expr(expr, resolver, extensions)
+                derived[key] = (tag, ce.fn)
+                got = by_node[id(expr)] = (key, ce.atype, ce.table, tag)
+            key, atype, table, tag = got
+            return key, atype, table, tag == arr
+        return derive
+
+    progs = {}
+    for arr in arriving:
+        p = compile_slot_program(on, resolver,
+                                 lambda key, a=arr: key_side(key) == a,
+                                 derive_for(arr))
+        progs[arr] = OnProgram.of(p)
+    return progs, derived
 
 
 # --------------------------------------------------------------------------

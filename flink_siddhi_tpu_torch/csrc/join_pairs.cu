@@ -116,11 +116,12 @@ struct DirArgs {
                      // b_cols[key_b], or -1
 };
 
-// S = 2 * nt tiles, direction 0's then direction 1's.
+// S = ndirs * nt tiles, direction 0's then direction 1's (a stream-table
+// join has one direction).
 struct JoinArgs {
   DirArgs d[2];
   const int* ts;                 // [E] the tape's timestamps
-  long long* tile;               // [4 nt] each tile's pairs and outer rows,
+  long long* tile;               // [2 S] each tile's pairs and outer rows,
                                  // segment-major; then their offsets
   long long* meta;               // [2 S] each tile's pool offset (-1: walk
                                  // again), then its pairs
@@ -136,6 +137,7 @@ struct JoinArgs {
   long long* visits;             // [1] candidates in the bands, or null
   long long* rewalks;            // [1] tiles walked again, or null
   int E, cap, self_join, has_within, within, depth, ucap, nt, pool_cap;
+  int ndirs;                     // 1 or 2
 };
 
 __device__ __forceinline__ int wrap_sub(int a, int b) {
@@ -593,7 +595,7 @@ join_walk_kernel(JoinArgs p) {
     p.tile[(2 * dir) * p.nt + blockIdx.x] = tp;
     p.tile[(2 * dir + 1) * p.nt + blockIdx.x] = to;
     p.meta[seq] = po;
-    p.meta[2 * p.nt + seq] = tp;
+    p.meta[p.ndirs * p.nt + seq] = tp;
   }
   __syncthreads();
   const long long po = s_pool;
@@ -684,7 +686,7 @@ join_write_kernel(JoinArgs p) {
     }
   }
   const long long off = p.tile[(2 * dir) * p.nt + blockIdx.x];
-  const long long po = p.meta[seq], tp = p.meta[2 * p.nt + seq];
+  const long long po = p.meta[seq], tp = p.meta[p.ndirs * p.nt + seq];
   if (tp == 0 || off >= p.cap) return;
   if (po >= 0) {
     const long long m = tp < p.cap - off ? tp : p.cap - off;
@@ -734,17 +736,25 @@ join_write_kernel(JoinArgs p) {
 extern "C" int fst_join_pairs(const void* args, void* stream) {
   const JoinArgs p = *static_cast<const JoinArgs*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bn = max(p.d[0].b_n, p.d[1].b_n);
+  if (p.ndirs < 1 || p.ndirs > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int bn = 0, nb = 0, mode_time = 0;
+  for (int k = 0; k < p.ndirs; ++k) {
+    bn = max(bn, p.d[k].b_n);
+    nb = max(nb, p.d[k].Nb);
+    mode_time |= p.d[k].mode_time;
+  }
   const size_t smem = sizeof(int) * tile_words(p.ucap, bn);
   if (p.E < 1 || p.nt != (p.E + kThreads - 1) / kThreads || p.ucap < 32 ||
       p.depth > kMaxDepth || smem > kMaxSmem - 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (p.d[0].mode_time || p.d[1].mode_time) {
-    const int nt = (max(p.d[0].Nb, p.d[1].Nb) + kMaxTile - 1) / kMaxTile;
-    join_tile_max_kernel<<<dim3(nt, 2), kMaxThreads, 0, s>>>(p);
-    join_tile_carry_kernel<<<dim3(1, 2), kMaxThreads, 0, s>>>(p);
-    join_run_max_kernel<<<dim3(nt, 2), kMaxThreads, 0, s>>>(p);
+  if (mode_time) {
+    const int nt = (nb + kMaxTile - 1) / kMaxTile;
+    join_tile_max_kernel<<<dim3(nt, p.ndirs), kMaxThreads, 0, s>>>(p);
+    join_tile_carry_kernel<<<dim3(1, p.ndirs), kMaxThreads, 0, s>>>(p);
+    join_run_max_kernel<<<dim3(nt, p.ndirs), kMaxThreads, 0, s>>>(p);
   }
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(join_walk_kernel,
@@ -754,8 +764,9 @@ extern "C" int fst_join_pairs(const void* args, void* stream) {
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
-  join_walk_kernel<<<dim3(p.nt, 2), kThreads, smem, s>>>(p);
-  join_scan_kernel<<<1, kScanThreads, 0, s>>>(p.tile, 4 * p.nt, p.n_out);
-  join_write_kernel<<<dim3(p.nt, 2), kThreads, smem, s>>>(p);
+  join_walk_kernel<<<dim3(p.nt, p.ndirs), kThreads, smem, s>>>(p);
+  join_scan_kernel<<<1, kScanThreads, 0, s>>>(p.tile, 2 * p.ndirs * p.nt,
+                                              p.n_out);
+  join_write_kernel<<<dim3(p.nt, p.ndirs), kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,7 @@ from flink_siddhi_tpu.query.planner import (
 
 import flink_siddhi_tpu_torch as fpt
 from flink_siddhi_tpu_torch.compiler import cuda_ops
+from flink_siddhi_tpu_torch.compiler import slot_program as sp
 from flink_siddhi_tpu_torch.compiler.config import EngineConfig
 from flink_siddhi_tpu_torch.query import parse_plan as torch_parse_plan
 from flink_siddhi_tpu_torch.query.lexer import SiddhiQLError
@@ -180,9 +181,19 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors_only():
     )
     assert mat[0].tolist()[:2] == [1, 0] and scal.tolist() == [0, 1, 0, 0]
     assert tuple(buf.shape) == (2, 1 + art.slots)
+    # K6's plain version: the last of two matching events wins row 0
+    last = cuda_ops.table_mutate(
+        torch.tensor([True, True, False]),
+        torch.tensor([[7, 7, 7]], dtype=torch.int32),
+        torch.tensor([True, True]),
+        torch.tensor([[7, 8]], dtype=torch.int32),
+        (sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I), 2,
+    )
+    assert last.tolist() == [1, -1]
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
         "unique_window_fold": 0, "slot_nfa_scan": 0, "join_pairs": 0,
+        "table_mutate": 0,
     }
     # a tensor on any other device is refused, never quietly computed
     meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
@@ -217,6 +228,7 @@ def test_cpu_run_builds_no_kernel():
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
         "unique_window_fold": 0, "slot_nfa_scan": 0, "join_pairs": 0,
+        "table_mutate": 0,
     }
 
 
@@ -234,11 +246,14 @@ def test_every_zoo_plan_compiles_in_the_port(name):
 
 
 @pytest.mark.parametrize("cql,item", [
-    ("define table T (id int); from S select id insert into T", 8),
-    ("define table T (id int); from S#window.length(4) as a join T "
-     "on a.id == T.id select a.id insert into o", 8),
-    ("from S select id update T on T.id == id", 8),
-    ("from S select id delete T on T.id == id", 8),
+    ("define table T (id int); from S#window.length(2) select id "
+     "insert into T", 8),
+    ("define table T (id int); from S join T on math:abs(S.id - T.id) < 2 "
+     "select S.id insert into o", 8),
+    ("define table T (id int); from S select id, count() as c group by id "
+     "update T on T.id == id", 8),
+    ("define table T (id int); from S#window.lengthBatch(2) select id "
+     "delete T on T.id == id", 8),
     ("define table T (id int); from S#window.length(2) select id "
      "update T on T.id == id", 8),
     ("from S#window.session(5 sec) select id, count() as c insert into o",
@@ -256,8 +271,9 @@ def test_every_zoo_plan_compiles_in_the_port(name):
         "partition_join", "on_call_both_sides", "output_rate"])
 def test_refused_forms_name_their_roadmap_item(cql, item):
     # every form still outside the port names the ROADMAP item it waits
-    # for (joins, chained queries and 'insert all events' were item 8 too,
-    # until they came)
+    # for (joins, chained queries, 'insert all events' and the plain table
+    # writes and joins were item 8 too, until they came: the table cases
+    # are the table forms still outside it)
     schema = fpt.StreamSchema([("id", "int"), ("timestamp", "long")])
     with pytest.raises(SiddhiQLError, match=f"item {item}\\b"):
         fpt.compile_plan(cql, {"S": schema})
