@@ -60,7 +60,9 @@ fault:
    self-join of one stream with `within` and outer rows on both sides),
    and, with the plain version on the card, at E = 524,288 past its cap
    of 2,097,152 and at E = 131,072 with pairs past 2^31 (n saturated at
-   2^31 - 1); and captured into a CUDA graph replayed on new inputs; then
+   2^31 - 1); a 487-word `on` program 241 deep (past the kernel's local
+   stack: its global stack) at E = 1,024, one block a tile and a cut
+   grid; and captured into a CUDA graph replayed on new inputs; then
    the float probe (what -ftz=true does to the intrinsics alone) is
    printed; the table mutation (K6) exactly (each row's last match, and
    the table a delete and an update leave) against its plain version at
@@ -69,7 +71,9 @@ fault:
    over a select output that is no table column, an empty and a full
    table, E not a multiple of the kernel's chunk; with the plain version
    on the card, C = 16,384 (E = 65,536) and the tables path's shape (E =
-   524,288, C = 1,024); a CUDA graph replay; and K5 on a table direction
+   524,288, C = 1,024); the 487-word program at E = 4,096 and C = 128,
+   one block a chunk and a cut grid; a CUDA graph replay; and K5 on a
+   table direction
    (the stream-table join with outer rows) against its plain version;
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
@@ -212,6 +216,25 @@ fault:
    idle share, device ms a step, the heaviest device ops); the left outer
    variant, rows only, card against CPU on 65,536 events at a 16,384
    tape. The third step's K6 and K5 inputs go to phase 9;
+8e. partitions and windowed table writes (in a process of its own,
+   `--partitions OUT`): P1, the headline kept per account (`partition
+   with (user of inputStream)`: the slot NFA with the implicit
+   `sK.user == s1.user` filter, within 10 sec, 512 slots) and P2 (a
+   per-key `#window.length(1000)` with sum, avg and count, and a
+   partitioned running sum: no kernel) over the bench stream with an
+   account column (1,000 accounts); W1, phase 8d's TABLES with its insert
+   aggregated (`sum(price) group by id`) and its update windowed
+   (`#window.lengthBatch(1024)` with `avg(price) group by id`: rewritten
+   into a synthesized stream, then K6) over 8d's streams. Each: rows of
+   the first 65,536 events on the card equal to the CPU path's (W1 at a
+   16,384 tape, with its final table; floats within rtol 1e-5); the
+   streaming Job over the whole stream (counting columnar sinks; P1 K4
+   once a step, W1 K6 twice and K5 once, P2 no kernel; overflow 0);
+   ResidentReplay (a run with the sinks, the same counts; counts-only
+   reruns, events/s median and best, graphs captured, no eager segment,
+   one segment under sync debug mode "error", the launches on the host
+   and in a traced rerun). P1's K4 and W1's K6 inputs of the third step
+   go to phase 9;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -240,6 +263,9 @@ fault:
    walked, those the rows need and E x C, its bound (bytes, and the needed
    candidates at 67e12 int32 operations/s; also at E x C); K5 on the
    tables path's third step (the stream-table join), exact and timed;
+   K4 on P1's third step at 512 slots and K6 on W1's (the rewritten
+   update and the delete), each exact against its plain version and
+   timed;
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -1370,6 +1396,27 @@ def _f32_words(x):
     return x.astype(np.float32).view(np.int32)
 
 
+DEEP_LOADS = 240  # phase 3's deep `on` program: loads of its right side
+DEEP_CUT_WORDS = 1 << 16  # ... and a global stack this small: a cut grid
+
+
+def deep_on_program(sp, n=DEEP_LOADS):
+    """A program of more than 300 words, past K5's and K6's 227-word local
+    stacks: ``a.id == b.id and a.price + (b.price + (a.price + ...)) > n *
+    50.0``, its ``n`` price loads (alternately the event's and the
+    other side's) pushed before their adds: about 2 n words, a stack n + 1
+    deep; about half of the key's candidates pass. Returns (program,
+    depth)."""
+    lit = int(np.float32(n * 50.0).view(np.int32))
+    loads = tuple(sp.OP_EVT | 1 << 8 if k % 2 == 0 else sp.OP_CAP | 1 << 8
+                  for k in range(n))
+    right = loads + (sp.OP_ADD_F,) * (n - 1) + (sp.OP_LIT, lit,
+                                                sp.OP_GT_F)
+    prog = ((sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I,
+             sp.OP_ANDJ | (len(right) + 1) << 8) + right + (sp.OP_AND,))
+    return prog, sp._depth(prog)
+
+
 def join_inputs(co, E, C, rng, dev, mode_time, sorted_ts, n=100, span=100,
                 outer=(False, False), prog=None, depth=0, dense=False,
                 subnormal=False, jitter=0, sides="both"):
@@ -1502,7 +1549,11 @@ def check_join_pairs(fpt, co, dev):
     bands passes one shared-memory chunk, a disordered tape under a time
     window (a tile's bands start out of order), a tape that ends inside a
     tile, a direction with no arriving event, a self-join of one stream
-    with `within` and outer rows on both sides; at E = 524,288 (J1's
+    with `within` and outer rows on both sides; a program deeper than the
+    kernel's local stack (``deep_on_program``: its global stack) at E =
+    1,024, one block a tile and a cut grid (a global stack of
+    DEEP_CUT_WORDS words: each block walks its tiles in turn); at E =
+    524,288 (J1's
     batch: 4,096 tiles in the look-back, binary searches over 262k-entry
     buffers) past its cap of 2,097,152; and at E = 131,072 with no `on`
     over windows that hold every earlier event, whose pairs pass 2^31
@@ -1576,6 +1627,20 @@ def check_join_pairs(fpt, co, dev):
                                                outer=(True, True)),
          8 * E, True, 40),
     ]
+    deep, ddepth = deep_on_program(sp)
+    if len(deep) < 300 or ddepth <= co.STACK_LOCAL_DEPTH:
+        raise AssertionError(f"the deep program: {len(deep)} words, "
+                             f"depth {ddepth}")
+    dE = 1_024  # the plain version's dense mask runs the whole program
+    cases += [  # the global stack: one block a tile, then a cut grid
+        (f"a {len(deep)}-word program, depth {ddepth}", dict(
+            mode_time=False, sorted_ts=True, prog=deep, depth=ddepth,
+            at_E=dE), 4 * dE, False, None),
+        (f"a {len(deep)}-word program, a cut grid", dict(
+            mode_time=True, sorted_ts=False, prog=deep, depth=ddepth,
+            outer=(True, True), at_E=dE, stack_words=DEEP_CUT_WORDS),
+         4 * dE, False, None),
+    ]
     big = JOIN_BIG_E
     cases += [
         (f"E = {big}, past cap", dict(mode_time=True, sorted_ts=True,
@@ -1589,11 +1654,17 @@ def check_join_pairs(fpt, co, dev):
     err = 0
     for what, kw, cap, self_join, within, *e in cases:
         at_E = kw.pop("at_E", e[0] if e else E)
+        words = kw.pop("stack_words", co.STACK_WORDS)
         dirs, ts = join_inputs(co, at_E, C, rng, dev, **kw)
-        n, cap, e_, ms = join_check(co, dirs, ts, cap, self_join, within,
-                                    what, on_card=bool(e))
+        words, co.STACK_WORDS = co.STACK_WORDS, words
+        try:
+            n, cap, e_, ms = join_check(co, dirs, ts, cap, self_join,
+                                        within, what, on_card=bool(e))
+            visits, rewalks = join_counts(co, dirs, ts, cap, self_join,
+                                          within)
+        finally:
+            co.STACK_WORDS = words
         err = max(err, e_)
-        visits, rewalks = join_counts(co, dirs, ts, cap, self_join, within)
         out[what] = {"n": n, "cap": cap, "visits": visits,
                      "rewalks": rewalks}
         if e:
@@ -1732,9 +1803,12 @@ def check_table_mutate(fpt, co, dev):
     interpreter on every candidate), an `on` reading a select output that
     is no table column, an empty table, a full table, E not a multiple of
     the kernel's chunk; with the plain version on the card, C = 16,384 at
-    E = 65,536 and the path's shape (E = 524,288, C = 1,024); a CUDA graph
-    replay of one call. Then K5 on a table direction (``table_join_dir``,
-    the stream-table join, outer rows) against its plain version."""
+    E = 65,536 and the path's shape (E = 524,288, C = 1,024); a program
+    deeper than the kernel's local stack (``deep_on_program``) at E =
+    4,096, C = 128, with one block a chunk and with a cut grid (a global
+    stack of DEEP_CUT_WORDS words); a CUDA graph replay of one call. Then
+    K5 on a table direction (``table_join_dir``, the stream-table join,
+    outer rows) against its plain version."""
     import torch
 
     from flink_siddhi_tpu_torch.compiler import slot_program as sp
@@ -1746,6 +1820,7 @@ def check_table_mutate(fpt, co, dev):
     no_key = (sp.OP_CAP | 1 << 8, sp.OP_EVT | 1 << 8, sp.OP_LT_F)
     out_only = key + (sp.OP_ANDJ | 4 << 8, sp.OP_EVT | 2 << 8,
                       sp.OP_CAP | 1 << 8, sp.OP_GT_F, sp.OP_AND)
+    deep, ddepth = deep_on_program(sp)
     cases = [  # what, input kwargs, program, depth, E, C, on the card
         ("delete", {}, key, 2, E, C, False),
         ("update, many events a row", dict(n_ids=16), key, 2, E, C, False),
@@ -1760,11 +1835,24 @@ def check_table_mutate(fpt, co, dev):
          TABLE_BIG_C, True),
         (f"E = {BATCH}, C = {C}", dict(n_ids=10_000, p_mask=0.25), key, 2,
          BATCH, C, True),
+        # the global stack: every chunk a block, then a cut grid (each
+        # block walking its chunks in turn); E = 4,096 and 128 rows, as
+        # the plain version's dense match runs the whole program
+        (f"a {len(deep)}-word program, depth {ddepth}", dict(n_ids=16),
+         deep, ddepth, 4_096, 128, False),
+        (f"a {len(deep)}-word program, a cut grid",
+         dict(n_ids=16, stack_words=DEEP_CUT_WORDS), deep, ddepth, 4_096,
+         128, False),
     ]
     out = {}
     for what, kw, prog, depth, e, c, on_card in cases:
+        words = kw.pop("stack_words", co.STACK_WORDS)
         args = (*mutate_inputs(e, c, rng, dev, **kw), prog, depth)
-        last, visits, ms = mutate_check(co, args, what, on_card)
+        words, co.STACK_WORDS = co.STACK_WORDS, words
+        try:
+            last, visits, ms = mutate_check(co, args, what, on_card)
+        finally:
+            co.STACK_WORDS = words
         hits = int((last >= 0).sum())
         out[what] = {"E": e, "C": c, "rows_matched": hits,
                      "visits": visits}
@@ -3051,19 +3139,179 @@ SLOT_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
 SLOT_TIMED_RUNS = 5  # phase 9's timed calls of K4 on each query's input
 
 
+def keep_calls(fn, keep, into, copy=None):
+    """A stand-in for the kernel wrapper ``fn``: it forwards every call and
+    keeps a copy of the inputs of the calls in ``keep`` ({call number:
+    key}) in ``into`` (``copy``: ``args_copy``, to the host, by
+    default)."""
+    calls = [0]
+
+    def call(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] in keep:
+            into[keep[calls[0]]] = (copy or args_copy)(args)
+        return fn(*args, **kwargs)
+    return call
+
+
+def main_path_runs(fpt, co, name, outs, make_job, want, steps, n_events,
+                   patches=(), make_sink=None, tables=False):
+    """The runs phases 8b-8e make of one plan over its whole stream:
+
+    - the streaming Job (``make_job(device, retain)``; a sink on each of
+      ``outs``, ``make_sink()`` or a counting columnar one; each kernel
+      launched ``want`` times a step over ``steps`` steps, no other;
+      overflow 0; ``patches``, (module, name, stand-in), in place for this
+      run only, record kernel inputs);
+    - ResidentReplay: a run with the sinks (the same rows, a row sink's
+      checksum, with ``tables`` the same final PriceTable), then
+      counts-only: three reruns (events/s median and best), graphs
+      captured, no eager segment, one staged segment under sync debug mode
+      "error", the launches on the host and in a traced rerun.
+    Returns the part of the result all these phases share."""
+    import torch
+
+    make_sink = make_sink or (lambda: ColumnRows(keep=False))
+
+    def sunk(sinks):  # what the two runs must share
+        return {o: snk.fold() if isinstance(snk, RowCount) else snk.rows
+                for o, snk in sinks.items()}
+
+    # the streaming Job over the whole stream, kernel inputs recorded
+    sinks = {o: make_sink() for o in outs}
+    job = make_job("cuda", False)
+    for o, snk in sinks.items():
+        job.add_sink(o, snk)
+    real = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, stand_in in patches:
+        setattr(mod, attr, stand_in)
+    torch.cuda.synchronize()
+    co.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        job.run()
+        job.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, attr, fn in real:
+            setattr(mod, attr, fn)
+    launches = co.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update({k: v * steps for k, v in want.items()})
+    if launches != expect:
+        raise AssertionError(f"{name}: streaming launches {launches}, "
+                             f"expected {expect}")
+    drain_accounts(job, f"{name}: streaming")
+    rows = {o: snk.rows for o, snk in sinks.items()}
+    got = sunk(sinks)
+    overflow = overflow_counts(job)
+    tbl = table_state(job)[0] if tables else None
+    if min(rows.values()) < 1000 or any(overflow.values()):
+        raise AssertionError(f"{name}: rows {rows}, overflow {overflow}")
+    if tables and not int(tbl["valid"].sum()):
+        raise AssertionError(f"{name}: no valid table row at the end")
+    del job
+
+    # ResidentReplay: with the sinks, then counts-only
+    torch.cuda.reset_peak_memory_stats()
+    rsinks = {o: make_sink() for o in outs}
+    job = make_job("cuda", False)
+    for o, snk in rsinks.items():
+        job.add_sink(o, snk)
+    rep = fpt.ResidentReplay(job)
+    rep.stage()
+    (pid, segs), = rep.segments.items()
+    rsteps = sum(len(seg) for seg in segs)
+    captured = job.graphs_captured
+    co.reset_launches()
+    t0 = time.perf_counter()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rlaunch = co.launch_counts()
+    drain_accounts(job, f"{name}: resident run")
+    rexpect = dict(expect, **{k: v * rsteps for k, v in want.items()})
+    if sunk(rsinks) != got:
+        raise AssertionError(f"{name}: resident rows {sunk(rsinks)}, "
+                             f"streaming {got}")
+    if tables:
+        for k, v in table_state(job)[0].items():
+            same(v, tbl[k], f"{name}: resident PriceTable's {k} vs "
+                            "streaming")
+    if (rlaunch != rexpect or job.eager_segments or not captured
+            or job.graphs_captured != captured):
+        raise AssertionError(
+            f"{name}: launches {rlaunch} in {rsteps} steps (expected "
+            f"{rexpect}), {job.eager_segments} eager segments, "
+            f"{job.graphs_captured} graphs ({captured} at stage)")
+    job._sinks.clear()  # counts-only from here: rerun() replays
+    reruns = []
+    for _ in range(3):
+        before = {o: job.emitted_counts.get(o, 0) for o in outs}
+        reruns.append(rep.rerun())
+        if {o: job.emitted_counts.get(o, 0) - before[o]
+                for o in outs} != rows:
+            raise AssertionError(f"{name}: a rerun emitted other counts")
+    if job.graphs_captured != captured:
+        raise AssertionError(f"{name}: a rerun captured a graph")
+    eager = job.eager_segments
+    peak = torch.cuda.max_memory_allocated()
+    # one staged segment with no host wait inside a step
+    job.reset_engine_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep.run_segment(pid, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    prof, traced_s, traced_launch = traced_run(
+        co, rep.rerun, f"{name}: traced resident rerun")
+    traced = traced_share(prof, traced_s, len(segs), rsteps)
+    del prof
+    if traced_launch != rexpect:
+        raise AssertionError(f"{name}: {traced_launch} kernel calls on the "
+                             f"card in a rerun of {rsteps} steps")
+    result = {
+        "events": n_events,
+        "batch": BATCH,
+        "rows": rows,
+        "overflow": overflow,
+        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
+                      "launches": launches},
+        "resident": {
+            "stage_s": rep.stage_seconds,
+            "first_run_s": first_s,
+            "rerun_s": reruns,
+            "events_per_s_median": n_events / statistics.median(reruns),
+            "events_per_s_best": n_events / min(reruns),
+            "steps": rsteps,
+            "segments": [len(seg) for seg in segs],
+            "launches": rlaunch,
+            "launches_traced": traced_launch,
+            "graphs_captured": captured,
+            "eager_segments": eager,
+            "segment_sync_free": True,
+            "max_memory_allocated_bytes": peak,
+            "device_ms_per_step": traced["traced_device_busy_s"] * 1e3
+            / rsteps,
+            **traced,
+        },
+    }
+    if tables:
+        result["valid_rows_at_end"] = int(tbl["valid"].sum())
+    return result
+
+
 def slot_query(fpt, co, nfa, name, cql, schema, batches):
     """One slot-NFA query over the bench stream, the bench's settings:
     rows of the first SLOT_CHECK_EVENTS events on the card equal to the
-    CPU path's; the streaming Job over the whole stream with a row sink
-    (rows, an exact checksum, K4 launched once a micro-batch and no other
-    kernel); ResidentReplay (stage, run() + flush() with a row sink: the
-    same rows and checksum; then, its sink dropped, counts-only as
-    bench.py's resident mode runs it: three reruns, each the same count;
-    graphs captured, no eager segment, K4 once a step on the host and in a
-    traced rerun, one staged segment under sync debug mode "error").
-    Returns (result, K4's recorded inputs)."""
-    import torch
-
+    CPU path's; then ``main_path_runs`` with a row sink (rows and an exact
+    checksum; K4 once a micro-batch and no other kernel; its third call's
+    inputs recorded) and K4 timed on them. Returns (result, K4's recorded
+    inputs)."""
     cfg = bench_config(fpt)
     prefix = [batches[0].slice(0, SLOT_CHECK_EVENTS)]
     cpu_rows, cpu_s, cpu_job = run_job(fpt, cql, schema, prefix, "cpu",
@@ -3080,88 +3328,18 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
     fields = [(i, f.name) for i, f in enumerate(art.output_schema.fields)
               if f.atype.name != "STRING"]
     n_events = sum(len(b) for b in batches)
-
-    # the streaming Job over the whole stream (K4's inputs recorded)
-    sink = RowCount(fields)
-    job = replay_job(fpt, cql, schema, batches, retain=False)
-    job.add_sink("matches", sink)
     rec = Recorder(co.slot_nfa_scan, keep=3)
-    nfa.slot_nfa_scan = rec
-    torch.cuda.synchronize()
-    co.reset_launches()
-    try:
-        t0 = time.perf_counter()
-        job.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        nfa.slot_nfa_scan = co.slot_nfa_scan
-    launches = co.launch_counts()
-    if launches != dict.fromkeys(launches, 0) | {"slot_nfa_scan": N_BATCHES}:
-        raise AssertionError(f"{name}: streaming launches {launches}, "
-                             f"expected K4 once a micro-batch")
-    drain_accounts(job, f"{name}: streaming")
-    rows, checksum = sink.fold()
-    if rows < 1000:
-        raise AssertionError(f"{name}: {rows} rows over the stream")
-    overflow = int(job._plans["bench"].states[art.name]["overflow"])
-    del job
+    sinks = []
 
-    # ResidentReplay: a run with a row sink (the streaming run's rows and
-    # checksum), then counts-only, as bench.py's resident mode runs it
-    torch.cuda.reset_peak_memory_stats()
-    rsink = RowCount(fields)
-    job = replay_job(fpt, cql, schema, batches, retain=False)
-    job.add_sink("matches", rsink)
-    rep = fpt.ResidentReplay(job)
-    rep.stage()
-    (pid, segs), = rep.segments.items()
-    steps = sum(len(seg) for seg in segs)
-    captured = job.graphs_captured
-    co.reset_launches()
-    t0 = time.perf_counter()
-    rep.run()
-    job.flush()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    rlaunch = co.launch_counts()
-    drain_accounts(job, f"{name}: resident run")
-    if rsink.fold() != (rows, checksum):
-        raise AssertionError(f"{name}: resident rows/checksum "
-                             f"{rsink.fold()}, streaming {(rows, checksum)}")
-    if (rlaunch["slot_nfa_scan"] != steps or job.eager_segments
-            or not captured or job.graphs_captured != captured):
-        raise AssertionError(
-            f"{name}: K4 launched {rlaunch['slot_nfa_scan']} times in "
-            f"{steps} steps, {job.eager_segments} eager segments, "
-            f"{job.graphs_captured} graphs ({captured} at stage)")
-    job._sinks.clear()  # counts-only from here: rerun() replays
-    count = rows
-    reruns = []
-    for _ in range(3):
-        before = sum(job.emitted_counts.values())
-        reruns.append(rep.rerun())
-        if sum(job.emitted_counts.values()) - before != count:
-            raise AssertionError(f"{name}: a rerun emitted another count")
-    if job.graphs_captured != captured:
-        raise AssertionError(f"{name}: a rerun captured a graph")
-    peak = torch.cuda.max_memory_allocated()
-    # one staged segment with no host wait inside a step
-    job.reset_engine_state()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        rep.run_segment(pid, 0)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    prof, traced_s, traced_launch = traced_run(
-        co, rep.rerun, f"{name}: traced resident rerun")
-    traced = traced_share(prof, traced_s, len(segs), steps)
-    del prof
-    if traced_launch["slot_nfa_scan"] != steps:
-        raise AssertionError(f"{name}: K4 ran {traced_launch} times on the "
-                             f"card in a rerun of {steps} steps")
+    def make_sink():
+        sinks.append(RowCount(fields))
+        return sinks[-1]
+
+    runs = main_path_runs(
+        fpt, co, f"slot {name}", ("matches",),
+        lambda dev, retain: replay_job(fpt, cql, schema, batches, retain),
+        {"slot_nfa_scan": 1}, N_BATCHES, n_events,
+        patches=((nfa, "slot_nfa_scan", rec),), make_sink=make_sink)
     scan_args = rec.args
     # K4 on this run's third step: events visited, us a visited event,
     # beside the old serial floor and the warp floor
@@ -3172,8 +3350,6 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
     result = {
         "path": f"slot_{name}",
         "cql": cql,
-        "events": n_events,
-        "batch": BATCH,
         "kind": art.spec.kind,
         # the scan visits the relevant events of a '->' pattern's tape; a
         # sequence's, or a pattern's whose every event is relevant, is full
@@ -3183,28 +3359,11 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
         "cpu_check_events": SLOT_CHECK_EVENTS,
         "cpu_check_rows": len(cpu_rows),
         "cpu_check_s": cpu_s,
-        "rows": rows,
-        "checksum": checksum,
-        "overflow": overflow,
+        **runs,
+        "rows": runs["rows"]["matches"],
+        "checksum": sinks[0].checksum,
+        "overflow": sum(runs["overflow"].values()),
         "k4": k4,
-        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
-                      "launches": launches},
-        "resident": {
-            "stage_s": rep.stage_seconds,
-            "first_run_s": first_s,
-            "rerun_s": reruns,
-            "events_per_s_median": n_events / statistics.median(reruns),
-            "events_per_s_best": n_events / min(reruns),
-            "steps": steps,
-            "segments": [len(seg) for seg in segs],
-            "launches": rlaunch,
-            "launches_traced": traced_launch,
-            "graphs_captured": captured,
-            "eager_segments": job.eager_segments,
-            "segment_sync_free": True,
-            "max_memory_allocated_bytes": peak,
-            **traced,
-        },
     }
     log(json.dumps(result))
     return result, scan_args
@@ -3409,16 +3568,9 @@ def join_query(fpt, co, name, cql, sids, out, cols, schema):
       tape on the card equal to the CPU path's (floats within JOIN_RTOL);
     - rows at a BATCH tape over the first JOIN_ROW_STEPS steps equal, as
       sorted multisets, to the card's at JOIN_SMALL over the same events;
-    - the streaming Job over the whole streams (a counting columnar sink;
-      K5 once a step and no other kernel; K5's third call's inputs
-      recorded);
-    - ResidentReplay: a run with the sink (the same count), then
-      counts-only as bench.py's resident mode: three reruns, graphs
-      captured, no eager segment, one segment under sync debug mode
-      "error", K5 once a step on the host and in a traced rerun.
+    - ``main_path_runs`` over the whole streams (K5 once a step and no
+      other kernel; K5's third call's inputs recorded).
     Returns (result, K5's recorded inputs or None)."""
-    import torch
-
     join = name != "C1"
     small_cpu = join_batches(fpt, schema, cols, JOIN_SMALL // len(sids),
                              JOIN_CHECK_MS)
@@ -3448,134 +3600,28 @@ def join_query(fpt, co, name, cql, sids, out, cols, schema):
                               f"vs {JOIN_SMALL}")
     del big_rows, small_rows
     streams = join_batches(fpt, schema, cols, BATCH // len(sids))
-    n_events = sum(len(c["timestamp"]) for c in cols.values())
-
-    # the streaming Job over the whole streams, K5's third call recorded
-    sink = ColumnRows(keep=False)
-    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
-    job.add_sink(out, sink)
     recorded = {}
-    real = co.join_pairs
-
-    def record(*args, **kwargs):
-        recorded["calls"] = recorded.get("calls", 0) + 1
-        if recorded["calls"] == 3:
-            recorded["args"] = join_args_copy(args)
-        return real(*args, **kwargs)
-
-    co.join_pairs = record
-    torch.cuda.synchronize()
-    co.reset_launches()
-    try:
-        t0 = time.perf_counter()
-        job.run()
-        job.flush()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        co.join_pairs = real
-    launches = co.launch_counts()
-    steps = len(streams[sids[0]])  # one batch of each stream a step
-    want = dict.fromkeys(launches, 0)
-    if join:
-        want["join_pairs"] = steps
-    if launches != want:
-        raise AssertionError(f"{name}: streaming launches {launches}, "
-                             f"expected {want}")
-    drain_accounts(job, f"{name}: streaming")
-    rows = sink.rows
-    states = job._plans["bench"].states
-    overflow = sum(int(st["overflow"]) for st in states.values()
-                   if "overflow" in st)
-    if rows < 1000 or overflow:
-        raise AssertionError(f"{name}: {rows} rows, overflow {overflow}")
-    del job
-
-    # ResidentReplay: with the sink, then counts-only
-    torch.cuda.reset_peak_memory_stats()
-    rsink = ColumnRows(keep=False)
-    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
-    job.add_sink(out, rsink)
-    rep = fpt.ResidentReplay(job)
-    rep.stage()
-    (pid, segs), = rep.segments.items()
-    rsteps = sum(len(seg) for seg in segs)
-    captured = job.graphs_captured
-    co.reset_launches()
-    t0 = time.perf_counter()
-    rep.run()
-    job.flush()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    rlaunch = co.launch_counts()
-    drain_accounts(job, f"{name}: resident run")
-    if rsink.rows != rows:
-        raise AssertionError(f"{name}: resident {rsink.rows} rows, "
-                             f"streaming {rows}")
-    if (rlaunch["join_pairs"] != (rsteps if join else 0)
-            or job.eager_segments or not captured
-            or job.graphs_captured != captured):
-        raise AssertionError(
-            f"{name}: K5 launched {rlaunch['join_pairs']} times in "
-            f"{rsteps} steps, {job.eager_segments} eager segments, "
-            f"{job.graphs_captured} graphs ({captured} at stage)")
-    job._sinks.clear()  # counts-only from here: rerun() replays
-    reruns = []
-    for _ in range(3):
-        before = job.emitted_counts.get(out, 0)
-        reruns.append(rep.rerun())
-        if job.emitted_counts.get(out, 0) - before != rows:
-            raise AssertionError(f"{name}: a rerun emitted another count")
-    if job.graphs_captured != captured:
-        raise AssertionError(f"{name}: a rerun captured a graph")
-    peak = torch.cuda.max_memory_allocated()
-    job.reset_engine_state()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        rep.run_segment(pid, 0)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    prof, traced_s, traced_launch = traced_run(
-        co, rep.rerun, f"{name}: traced resident rerun")
-    traced = traced_share(prof, traced_s, len(segs), rsteps)
-    del prof
-    if traced_launch["join_pairs"] != (rsteps if join else 0):
-        raise AssertionError(f"{name}: K5 ran {traced_launch} times on "
-                             f"the card in a rerun of {rsteps} steps")
+    runs = main_path_runs(
+        fpt, co, name, (out,),
+        lambda dev, retain: join_job(fpt, cql, schema, streams, dev, retain),
+        {"join_pairs": 1} if join else {}, len(streams[sids[0]]),
+        sum(len(c["timestamp"]) for c in cols.values()),
+        patches=((co, "join_pairs",
+                  keep_calls(co.join_pairs, {3: "args"}, recorded,
+                             join_args_copy)),))
     result = {
         "path": f"join_{name}",
         "cql": cql,
         "artifacts": kinds,
-        "events": n_events,
-        "batch": BATCH,
         "cpu_check_events": JOIN_CHECK_MS * len(sids),
         "cpu_check_rows": len(cpu_rows[0]),
         "cpu_check_s": cpu_s,
         "cpu_check_max_rel": rel_cpu,
         "batch_check_events": n_ms * len(sids),
         "batch_check_max_rel": rel_big,
-        "rows": rows,
-        "overflow": overflow,
-        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
-                      "launches": launches},
-        "resident": {
-            "stage_s": rep.stage_seconds,
-            "first_run_s": first_s,
-            "rerun_s": reruns,
-            "events_per_s_median": n_events / statistics.median(reruns),
-            "events_per_s_best": n_events / min(reruns),
-            "steps": rsteps,
-            "segments": [len(seg) for seg in segs],
-            "launches": rlaunch,
-            "launches_traced": traced_launch,
-            "graphs_captured": captured,
-            "eager_segments": job.eager_segments,
-            "segment_sync_free": True,
-            "max_memory_allocated_bytes": peak,
-            **traced,
-        },
+        **runs,
+        "rows": runs["rows"][out],
+        "overflow": sum(runs["overflow"].values()),
     }
     log(json.dumps(result))
     return result, recorded.get("args")
@@ -3780,13 +3826,10 @@ def table_phase(fpt, co, out_path):
 
     - the card's rows and final table against the CPU path's
       (``table_check``);
-    - the streaming Job over the whole streams (a counting columnar sink;
-      K6 twice a step, the update's and the delete's, K5 once; the third
-      step's K6 and K5 inputs recorded for phase 9);
-    - ResidentReplay: a run with the sink (the same count), then
-      counts-only: three reruns, graphs captured, no eager segment, one
-      segment under sync debug mode "error", the kernels once a query a
-      step on the host and in a traced rerun;
+    - ``main_path_runs`` over the whole streams (K6 twice a step, the
+      update's and the delete's, K5 once; the third step's K6 and K5
+      inputs recorded for phase 9; the final table the same resident and
+      streaming);
     - the left outer variant, rows only (``table_outer_rows``).
     The result goes to ``out_path``, the recorded inputs to
     ``out_path``.pt."""
@@ -3798,145 +3841,26 @@ def table_phase(fpt, co, out_path):
     cql = TABLES.format(join="join")
     check = table_check(fpt, schema, cols)
     streams = join_batches(fpt, schema, cols, BATCH // 2)
-    n_events = 2 * JOIN_MS
-    steps = len(streams[TABLE_SIDS[0]])
-
-    # the streaming Job, the third step's kernel inputs recorded
-    sink = ColumnRows(keep=False)
-    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
-    job.add_sink("joined", sink)
-    recorded, calls = {}, {"table_mutate": 0, "join_pairs": 0}
-    real = {name: getattr(co, name) for name in calls}
-
-    def recorder(name, keep):
-        def call(*args, **kwargs):
-            calls[name] += 1
-            if calls[name] in keep:
-                recorded[keep[calls[name]]] = args_copy(args)
-            return real[name](*args, **kwargs)
-        return call
-
+    recorded = {}
     # per step: the update's K6, then the delete's, then the join's K5
-    co.table_mutate = recorder("table_mutate", {5: "update", 6: "delete"})
-    co.join_pairs = recorder("join_pairs", {3: "join"})
-    torch.cuda.synchronize()
-    co.reset_launches()
-    try:
-        t0 = time.perf_counter()
-        job.run()
-        job.flush()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        co.table_mutate, co.join_pairs = real["table_mutate"], \
-            real["join_pairs"]
-    launches = co.launch_counts()
-    want = dict.fromkeys(launches, 0)
-    want.update(table_mutate=2 * steps, join_pairs=steps)
-    if launches != want:
-        raise AssertionError(f"tables: streaming launches {launches}, "
-                             f"expected {want}")
-    drain_accounts(job, "tables: streaming")
-    rows = sink.rows
-    tbl, overflow = table_state(job)
-    valid_end = int(tbl["valid"].sum())
-    if rows < 1000 or any(overflow.values()) or not valid_end:
-        raise AssertionError(f"tables: {rows} rows, overflow {overflow}, "
-                             f"{valid_end} valid rows at the end")
-    del job
-
-    # ResidentReplay: with the sink, then counts-only
-    torch.cuda.reset_peak_memory_stats()
-    rsink = ColumnRows(keep=False)
-    job = join_job(fpt, cql, schema, streams, "cuda", retain=False)
-    job.add_sink("joined", rsink)
-    rep = fpt.ResidentReplay(job)
-    rep.stage()
-    stage_s = rep.stage_seconds
-    (pid, segs), = rep.segments.items()
-    rsteps = sum(len(seg) for seg in segs)
-    captured = job.graphs_captured
-    co.reset_launches()
-    t0 = time.perf_counter()
-    rep.run()
-    job.flush()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    rlaunch = co.launch_counts()
-    drain_accounts(job, "tables: resident run")
-    rtbl, _ = table_state(job)
-    for k, v in tbl.items():
-        same(rtbl[k], v, f"tables: resident PriceTable's {k} vs streaming")
-    if rsink.rows != rows:
-        raise AssertionError(f"tables: resident {rsink.rows} rows, "
-                             f"streaming {rows}")
-    if (rlaunch["table_mutate"] != 2 * rsteps
-            or rlaunch["join_pairs"] != rsteps or job.eager_segments
-            or not captured or job.graphs_captured != captured):
-        raise AssertionError(
-            f"tables: K6 {rlaunch['table_mutate']}, K5 "
-            f"{rlaunch['join_pairs']} launches in {rsteps} steps, "
-            f"{job.eager_segments} eager segments, {job.graphs_captured} "
-            f"graphs ({captured} at stage)")
-    job._sinks.clear()  # counts-only from here: rerun() replays
-    reruns = []
-    for _ in range(3):
-        before = job.emitted_counts.get("joined", 0)
-        reruns.append(rep.rerun())
-        if job.emitted_counts.get("joined", 0) - before != rows:
-            raise AssertionError("tables: a rerun emitted another count")
-    if job.graphs_captured != captured:
-        raise AssertionError("tables: a rerun captured a graph")
-    eager = job.eager_segments
-    peak = torch.cuda.max_memory_allocated()
-    job.reset_engine_state()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        rep.run_segment(pid, 0)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    prof, traced_s, traced_launch = traced_run(
-        co, rep.rerun, "tables: traced resident rerun")
-    traced = traced_share(prof, traced_s, len(segs), rsteps)
-    del prof
-    if (traced_launch["table_mutate"] != 2 * rsteps
-            or traced_launch["join_pairs"] != rsteps):
-        raise AssertionError(f"tables: {traced_launch} kernel calls on the "
-                             f"card in a rerun of {rsteps} steps")
-    del job, rep
+    runs = main_path_runs(
+        fpt, co, "tables", ("joined",),
+        lambda dev, retain: join_job(fpt, cql, schema, streams, dev, retain),
+        {"table_mutate": 2, "join_pairs": 1}, len(streams[TABLE_SIDS[0]]),
+        2 * JOIN_MS,
+        patches=((co, "table_mutate", keep_calls(
+            co.table_mutate, {5: "update", 6: "delete"}, recorded)),
+            (co, "join_pairs", keep_calls(co.join_pairs, {3: "join"},
+                                          recorded))),
+        tables=True)
     outer = table_outer_rows(fpt, schema)
     result = {
         "path": "tables",
         "cql": cql,
-        "events": n_events,
-        "batch": BATCH,
         "n_ids": TABLE_N_IDS,
         **check,
-        "rows": rows,
-        "overflow": overflow,
-        "valid_rows_at_end": valid_end,
-        "streaming": {"wall_s": wall, "events_per_s": n_events / wall,
-                      "launches": launches},
-        "resident": {
-            "stage_s": stage_s,
-            "first_run_s": first_s,
-            "rerun_s": reruns,
-            "events_per_s_median": n_events / statistics.median(reruns),
-            "events_per_s_best": n_events / min(reruns),
-            "steps": rsteps,
-            "segments": [len(seg) for seg in segs],
-            "launches": rlaunch,
-            "launches_traced": traced_launch,
-            "graphs_captured": captured,
-            "eager_segments": eager,
-            "segment_sync_free": True,
-            "max_memory_allocated_bytes": peak,
-            "device_ms_per_step": traced["traced_device_busy_s"] * 1e3
-            / rsteps,
-            **traced,
-        },
+        **runs,
+        "rows": runs["rows"]["joined"],
         "outer": outer,
         "phase_s": time.perf_counter() - t_phase,
     }
@@ -3958,6 +3882,233 @@ def tables_main(out_path):
 
     co.build()
     table_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
+# -- phase 8e: partitions and windowed table writes ---------------------------
+
+PART_USERS = 1_000  # the partition key: accounts uniform in [0, 1,000)
+PART_USER_SEED = 23  # the account column's own rng seed
+PART_CHECK_EVENTS = 65_536  # rows held to the CPU path over these events
+PART_SLOTS = 512  # P1's pool: about 200 partials live at a time
+PART_RTOL = 1e-5  # float sums and averages, card against the CPU
+W1_CHECK_STEPS = 1  # W1's row check: steps at BATCH
+# P1: the headline kept per account (keyed CEP: a partial advances only on
+# its own account's events, through the implicit `sK.user == s1.user`)
+P1 = (
+    "partition with (user of inputStream) begin "
+    "from every s1 = inputStream[id == 1] -> s2 = inputStream[id == 2] "
+    "-> s3 = inputStream[id == 3] within 10 sec "
+    "select s1.user as u, s1.timestamp as t1, s3.timestamp as t3 "
+    "insert into matches; end"
+)
+# P2: per-key state with no kernel: each account's own last 1,000 events
+# (PerKeyWindowArtifact) and its running total (a grouped cumulative
+# aggregation)
+P2 = (
+    "partition with (user of inputStream) begin "
+    "from inputStream#window.length(1000) select user, sum(price) as s, "
+    "avg(price) as a, count() as c insert into o; "
+    "from inputStream select user, sum(price) as total insert into totals; "
+    "end"
+)
+# W1: TABLES with its insert aggregated and its update windowed (the
+# rewrite: a lengthBatch window into a synthesized stream, then K6)
+W1 = (
+    "define table PriceTable (id int, price double); "
+    "from inputStream1[price > 99.8] select id, sum(price) as price "
+    "group by id insert into PriceTable; "
+    "from inputStream2#window.lengthBatch(1024) select id, "
+    "avg(price) as price group by id "
+    "update PriceTable on PriceTable.id == id; "
+    "from inputStream2[price > 99.5] select id "
+    "delete PriceTable on PriceTable.id == id; "
+    "from inputStream2 join PriceTable "
+    "on inputStream2.id == PriceTable.id "
+    "select inputStream2.id as id, inputStream2.price as p2, "
+    "PriceTable.price as p1 insert into joined"
+)
+
+
+def partition_stream(fpt, n_events, batch):
+    """The bench stream (``bench_stream``: seed 7, one event a ms, id in
+    [0, 50), price uniform x 100) with an int column ``user`` uniform in
+    [0, PART_USERS) from its own seed."""
+    _, base = bench_stream(fpt, n_events, batch)
+    schema = fpt.StreamSchema([("id", "int"), ("name", "string"),
+                               ("price", "double"), ("user", "int"),
+                               ("timestamp", "long")])
+    code = schema.string_tables["name"].intern("test_event")
+    rng = np.random.default_rng(PART_USER_SEED)
+    out = []
+    for b in base:
+        m = len(b)
+        cols = dict(b.columns, name=np.full(m, code, dtype=np.int32),
+                    user=rng.integers(0, PART_USERS, m).astype(np.int32))
+        out.append(fpt.EventBatch("inputStream", schema, cols,
+                                  cols["timestamp"]))
+    return schema, out
+
+
+def part_job(fpt, cql, schema, batches, device, retain, config=None):
+    """A Job of one plan over the stream ``inputStream`` at BATCH."""
+    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="bench",
+                            config=config or bench_config(fpt))
+    return fpt.Job([plan], [fpt.BatchSource("inputStream", schema,
+                                            iter(batches))],
+                   batch_size=BATCH, time_mode="processing",
+                   retain_results=retain, device=device)
+
+
+def overflow_counts(job):
+    """Each artifact's own overflow counter (dropped partials, table rows
+    that did not land, join rows past the cut)."""
+    return {name: int(st["overflow"])
+            for name, st in job._plans["bench"].states.items()
+            if name != "@tables" and "overflow" in st}
+
+
+def part_plan(fpt, co, name, cql, outs, make_job, check_job, want, steps,
+              n_events, patches=(), tables=False):
+    """One plan of phase 8e: rows of ``check_job``'s events on the card
+    equal to the CPU path's (floats within PART_RTOL; W1 at one tape size,
+    its final table too), then ``main_path_runs`` over the whole stream.
+    Returns the result."""
+    import torch
+
+    t_plan = time.perf_counter()
+    got = {}
+    for dev in ("cpu", "cuda"):
+        job = check_job(dev)
+        t0 = time.perf_counter()
+        job.run()
+        job.flush()
+        got[dev] = ({o: job.results_with_ts(o) for o in outs},
+                    time.perf_counter() - t0,
+                    table_state(job)[0] if tables else None)
+        del job
+    worst = 0.0
+    for o in outs:
+        worst = max(worst, rows_match(got["cuda"][0][o], got["cpu"][0][o],
+                                      PART_RTOL, f"{name} {o}: card vs CPU"))
+    check_rows = sum(len(r) for r in got["cpu"][0].values())
+    if tables:
+        for k, v in got["cpu"][2].items():
+            a, b = got["cuda"][2][k], v
+            if a.dtype.is_floating_point:
+                if not torch.allclose(a, b, rtol=PART_RTOL, atol=0):
+                    raise AssertionError(f"{name}: the final PriceTable's "
+                                         f"{k}, card vs CPU")
+            else:
+                same(a, b, f"{name}: the final PriceTable's {k}, card vs "
+                           "CPU")
+    if check_rows < 10:  # P1: about 30 matches in 65,536 events
+        raise AssertionError(f"{name}: {check_rows} CPU rows in the check")
+    runs = main_path_runs(fpt, co, name, outs, make_job, want, steps,
+                          n_events, patches=patches, tables=tables)
+    return {
+        "path": name,
+        "cql": cql,
+        "cpu_check_rows": check_rows,
+        "cpu_check_s": got["cpu"][1],
+        "cpu_check_max_rel": worst,
+        **runs,
+        "plan_s": time.perf_counter() - t_plan,
+    }
+
+
+def partition_phase(fpt, co, out_path):
+    """Phase 8e: P1 (a keyed pattern on K4 at PART_SLOTS slots) and P2 (a
+    per-key length window and a partitioned aggregation: no kernel) over
+    the partition stream, W1 (TABLES with an aggregated insert and a
+    windowed update: K6 twice a step, K5 once) over phase 8d's streams,
+    each through ``part_plan`` under bench.py's settings. K4's inputs of
+    P1's third step and K6's of W1's go to ``out_path``.pt, the result to
+    ``out_path``."""
+    import torch
+
+    from flink_siddhi_tpu_torch.compiler import nfa
+
+    t_phase = time.perf_counter()
+    schema, batches = partition_stream(fpt, BATCH * N_BATCHES, BATCH)
+    n_events = BATCH * N_BATCHES
+    prefix = [batches[0].slice(0, PART_CHECK_EVENTS)]
+    p1_cfg = fpt.EngineConfig(pattern_slots=PART_SLOTS,
+                              lazy_projection=True, pred_pushdown=True)
+    results, recorded = [], {}
+    for name, cql, outs, want, cfg, patches in (
+        ("P1", P1, ("matches",), {"slot_nfa_scan": 1}, p1_cfg,
+         ((nfa, "slot_nfa_scan", keep_calls(co.slot_nfa_scan, {3: "k4"},
+                                            recorded)),)),
+        ("P2", P2, ("o", "totals"), {}, None, ()),
+    ):
+        res = part_plan(
+            fpt, co, name, cql, outs,
+            lambda dev, retain, _c=cql, _g=cfg: part_job(
+                fpt, _c, schema, batches, dev, retain, _g),
+            lambda dev, _c=cql, _g=cfg: part_job(
+                fpt, _c, schema, prefix, dev, True, _g),
+            want, N_BATCHES, n_events, patches=patches)
+        kinds = [type(a).__name__ for a in
+                 fpt.compile_plan(cql, {"inputStream": schema},
+                                  config=cfg).artifacts]
+        res["artifacts"] = kinds
+        results.append(res)
+    if results[0]["artifacts"] != ["SlotNFAArtifact"] or results[1][
+            "artifacts"] != ["PerKeyWindowArtifact", "CumulativeAggArtifact"]:
+        raise AssertionError(f"partitions: compiled to "
+                             f"{[r['artifacts'] for r in results]}")
+    del batches, prefix
+
+    tschema, cols = join_columns(fpt, TABLE_SIDS, JOIN_MS,
+                                 n_ids=TABLE_N_IDS)
+    streams = join_batches(fpt, tschema, cols, BATCH // 2)
+    # the first W1_CHECK_STEPS steps at BATCH: the full-size lengthBatch
+    # grid and its synthesized tape on both paths
+    check = join_batches(fpt, tschema, cols, BATCH // 2,
+                         W1_CHECK_STEPS * BATCH // 2)
+    kept = {}
+    # per step: the update's K6, then the delete's, then the join's K5
+    res = part_plan(
+        fpt, co, "W1", W1, ("joined",),
+        lambda dev, retain: join_job(fpt, W1, tschema, streams, dev, retain),
+        lambda dev: join_job(fpt, W1, tschema, check, dev),
+        {"table_mutate": 2, "join_pairs": 1}, len(streams[TABLE_SIDS[0]]),
+        2 * JOIN_MS, patches=((co, "table_mutate", keep_calls(
+            co.table_mutate, {5: "update", 6: "delete"}, kept)),),
+        tables=True)
+    res["artifacts"] = [type(a).__name__ for a in fpt.compile_plan(
+        W1, {sid: tschema for sid in TABLE_SIDS}).artifacts]
+    res["cpu_check_events"] = W1_CHECK_STEPS * BATCH
+    results.append(res)
+    recorded["w1"] = kept
+    for r in results:
+        log(f"  {r['path']}: rows {r['rows']}, overflow {r['overflow']}, "
+            f"resident {r['resident']['events_per_s_median']:.4g} events/s "
+            f"(best {r['resident']['events_per_s_best']:.4g}), streaming "
+            f"{r['streaming']['events_per_s']:.4g}, idle "
+            f"{r['resident']['traced_idle_share']:.3f}, launches "
+            f"{r['resident']['launches_traced']}, {r['plan_s']:.1f} s")
+    out = {"plans": results, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(out))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.save(recorded, out_path + ".pt")
+
+
+def partitions_main(out_path):
+    """Phase 8e alone (``--partitions OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    partition_phase(fpt, co, out_path)
     torch.cuda.synchronize()
     return 0
 
@@ -4573,9 +4724,10 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
 
 
 def mutate_work(co, args, last):
-    """(bytes, operations, candidates) of one K6 call on THESE inputs: each
-    input read once (the mask, the program's event and table words, the
-    valid flags) and ``last`` written once; the candidates the rows need
+    """(bytes, operations, candidates) of one K6 call on THESE inputs: the
+    mask and the valid flags read once, the program's event words of the
+    masked events only (no other event can match), the table's words, and
+    ``last`` written once; the candidates the rows need
     (per valid row, the query's events from its last match to the tape's
     end, all of them for a row with no match: what a walk that stops at
     the match must visit), one key comparison each, or the program's
@@ -4584,10 +4736,10 @@ def mutate_work(co, args, last):
 
     mask, a_cols, valid, b_cols, prog, _depth = args
     E, C = int(mask.shape[0]), int(valid.shape[0])
-    nbytes = (E + 4 * E * int(a_cols.shape[0]) + C
+    total = int(mask.sum())
+    nbytes = (E + 4 * total * int(a_cols.shape[0]) + C
               + 4 * C * int(b_cols.shape[0]) + 4 * C)
     after = torch.cumsum(mask.flip(0).long(), 0).flip(0)  # events at >= i
-    total = int(mask.sum())
     need = torch.where(last >= 0, after[torch.clamp(last, min=0).long()],
                        total)
     needed = int(need[valid].sum())
@@ -4595,7 +4747,8 @@ def mutate_work(co, args, last):
     return nbytes, needed * per, needed
 
 
-def time_table_mutate(co, recorded, launches, floor_ms):
+def time_table_mutate(co, recorded, launches, floor_ms,
+                      what="the tables path's third step"):
     """K6 on the tables path's third step (phase 8d's recorded update and
     delete calls): held exactly to its plain version run on the card on
     the same input; timed (CUDA events around back-to-back calls); the
@@ -4607,7 +4760,7 @@ def time_table_mutate(co, recorded, launches, floor_ms):
     for name in ("update", "delete"):
         args = args_copy(recorded[name], "cuda")
         last, visits, plain_ms = mutate_check(
-            co, args, f"the tables path's third step, {name}", on_card=True)
+            co, args, f"{what}, {name}", on_card=True)
         ms, call_ms = timed_back_to_back(lambda: co.table_mutate(*args), 20)
         nbytes, ops, needed = mutate_work(co, args, last)
         bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
@@ -4624,7 +4777,7 @@ def time_table_mutate(co, recorded, launches, floor_ms):
             "candidates_walked": visits, "bytes": nbytes,
             "operations": ops,
         }
-        log(f"  table_mutate on the tables path's third step ({name}): "
+        log(f"  table_mutate on {what} ({name}): "
             f"{ms} ms a call ({call_ms} ms single), {out[name]['rows_valid']}"
             f" valid rows, {out[name]['events_masked']} events, "
             f"{out[name]['rows_matched']} rows matched; candidates: "
@@ -4640,15 +4793,14 @@ def time_table_mutate(co, recorded, launches, floor_ms):
                     "counterpart: the reference's dense (E, C) match and "
                     "argmax, TableMutateArtifact.step_tables)",
         "launches": launches, "max_abs_err": 0,
-        "max_abs_err_by": "exact comparison with the plain version on the "
-                          "tables path's third step (on the card) and "
-                          "phase 3's cases",
+        "max_abs_err_by": f"exact comparison with the plain version on "
+                          f"{what} (on the card) and phase 3's cases",
         **{k: up[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                               "bound_by")},
         "plain_device": "cuda",
-        "plain_shape": f"the update of the tables path's third step (E = "
-                       f"{up['events']}, C = {up['rows']}), chunks of "
-                       f"{MUTATE_PLAIN_CARD_CELLS} cells",
+        "plain_shape": f"the update of {what} (E = {up['events']}, C = "
+                       f"{up['rows']}), chunks of {MUTATE_PLAIN_CARD_CELLS} "
+                       "cells",
         "library_ms": None, "floor_ms": floor_ms,
         "update": up, "delete": out["delete"],
     }
@@ -4656,9 +4808,10 @@ def time_table_mutate(co, recorded, launches, floor_ms):
 
 def table_join_work(co, args, n):
     """(bytes, operations) that the stream-table join needs on THESE
-    inputs (one direction, ``table_join_dir``): the probe mask and the
-    ``on``'s event words read once, the table's valid flags and words read
-    once, the ``n`` rows written once (three int32 words each) and n; with
+    inputs (one direction, ``table_join_dir``): the probe mask read once,
+    the ``on``'s event words of the masked probes, the table's valid flags
+    and words read once, the ``n`` rows written once (three int32 words
+    each) and n; with
     an int key, one key comparison per masked event and per valid row (a
     hash join's probe and build) and the program's words per row; without
     one, the program's words per (masked event, valid row). The direction's
@@ -4667,9 +4820,9 @@ def table_join_work(co, args, n):
     (d,), ts, cap = args[0], args[1], args[2]
     E, C = int(ts.shape[0]), int(d.b_valid.shape[0])
     rows = min(n, cap)
-    nbytes = (E + 4 * E * int(d.a_cols.shape[0]) + C
-              + 4 * C * int(d.b_cols.shape[0]) + 3 * 4 * rows + 4)
     masked, valid = int(d.a_mask.sum()), int(d.b_valid.sum())
+    nbytes = (E + 4 * masked * int(d.a_cols.shape[0]) + C
+              + 4 * C * int(d.b_cols.shape[0]) + 3 * 4 * rows + 4)
     per = max(len(d.prog), 1)
     if co.join_key_hint(d.prog) != (-1, -1):
         return nbytes, masked + valid + rows * per
@@ -5028,7 +5181,39 @@ def main():
            "launches_traced": {k: res["launches_traced"][k]
                                for k in ("table_mutate", "join_pairs")}}}))
 
-    lap("phases 7, 8, 8b, 8c and 8d")
+    # 8e. partitions and windowed table writes: P1, P2 over the partition
+    # stream, W1 over 8d's streams (in a process of its own, as 8d; P1's
+    # K4 and W1's K6 inputs of the third step go to phase 9)
+    log(f"[8e/11] partitions and windowed table writes: P1, P2 over "
+        f"{BATCH * N_BATCHES} events with {PART_USERS} accounts, W1 over "
+        f"two streams of {JOIN_MS} events each")
+    t_part = time.perf_counter()
+    part_path = os.path.join(SMOKE_DIR, "partitions.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--partitions", part_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"partitions phase failed ({r.returncode})")
+    with open(part_path) as f:
+        parts = json.load(f)
+    log(f"  partitions phase {time.perf_counter() - t_part:.1f} s")
+    log(json.dumps({"partitions": [{k: q[k] for k in (
+        "path", "artifacts", "rows", "overflow", "cpu_check_rows",
+        "cpu_check_max_rel")}
+        | {"resident_events_per_s_median":
+           q["resident"]["events_per_s_median"],
+           "resident_events_per_s_best": q["resident"]["events_per_s_best"],
+           "streaming_events_per_s": q["streaming"]["events_per_s"],
+           "idle_share": q["resident"]["traced_idle_share"],
+           "device_ms_per_step": q["resident"]["device_ms_per_step"],
+           "top_device_ms": q["resident"]["top_device_ms"],
+           "eager_segments": q["resident"]["eager_segments"],
+           "graphs_captured": q["resident"]["graphs_captured"],
+           "steps": q["resident"]["steps"],
+           "launches": q["streaming"]["launches"],
+           "launches_traced": q["resident"]["launches_traced"]}
+        for q in parts["plans"]], "phase_s": parts["phase_s"]}))
+
+    lap("phases 7, 8, 8b, 8c, 8d and 8e")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -5056,7 +5241,12 @@ def main():
                          q["path"]: q["resident"]["launches_traced"]
                          for q in joins["queries"]},
                      "tables": tables["streaming"]["launches"],
-                     "tables_traced": tables["resident"]["launches_traced"]},
+                     "tables_traced": tables["resident"]["launches_traced"],
+                     "partitions": {q["path"]: q["streaming"]["launches"]
+                                    for q in parts["plans"]},
+                     "partitions_traced": {
+                         q["path"]: q["resident"]["launches_traced"]
+                         for q in parts["plans"]}},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -5589,6 +5779,36 @@ def kernels_main(path):
         launches["tables_traced"]["join_pairs"]
     kernels[4]["table_join"] = time_table_join(
         co, table_recorded["join"], floor_ms)
+    # phase 8e's inputs: K4 on P1's third step (S = PART_SLOTS, the keyed
+    # pattern's cross program), K6 on W1's (the rewritten windowed update
+    # and the delete)
+    part_recorded = torch.load(os.path.join(SMOKE_DIR,
+                                            "partitions.json.pt"),
+                               weights_only=False)
+    p1_args = tuple(a.to("cuda") if isinstance(a, torch.Tensor) else a
+                    for a in part_recorded["k4"])
+    for g, r, what in zip(co.slot_nfa_scan(*p1_args),
+                          co.slot_nfa_scan_plain(*part_recorded["k4"]),
+                          ("state", "scalars", "buffer")):
+        same(g.cpu(), r, f"slot_nfa_scan on P1's third step: {what}")
+    p1 = slot_scan_times(co, p1_args, floor_ms)
+    log(f"  slot_nfa_scan on P1's third step (S = {p1['slots']}): "
+        f"{p1['ms']} ms a call ({p1['call_ms']} ms single), "
+        f"{p1['events_visited']} events visited, {p1['per_event_us']} us "
+        f"a visited event, bound {p1['bound_ms']} ms; exact against its "
+        "plain version (CPU copies)")
+    kernels[3]["partitioned_p1"] = p1
+    kernels[3]["launches_partitions"] = launches["partitions"]
+    kernels[3]["launches_partitions_resident_traced"] = {
+        p: t["slot_nfa_scan"] for p, t in launches["partitions_traced"].items()}
+    kernels[5]["w1"] = time_table_mutate(
+        co, part_recorded["w1"], launches["partitions"]["W1"]["table_mutate"],
+        floor_ms, what="W1's third step")
+    kernels[5]["launches_w1_resident_traced"] = \
+        launches["partitions_traced"]["W1"]["table_mutate"]
+    kernels[4]["launches_w1"] = launches["partitions"]["W1"]["join_pairs"]
+    kernels[4]["launches_w1_resident_traced"] = \
+        launches["partitions_traced"]["W1"]["join_pairs"]
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -5676,6 +5896,8 @@ if __name__ == "__main__":
         sys.exit(joins_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--tables":
         sys.exit(tables_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--partitions":
+        sys.exit(partitions_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

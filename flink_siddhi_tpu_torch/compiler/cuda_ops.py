@@ -1401,9 +1401,13 @@ JOIN_TILE = 256  # join_pairs.cu's kThreads: tape positions a tile
 JOIN_WARP = 32  # positions a warp takes, candidates a round
 JOIN_STAGE = 128  # join_pairs.cu's kStage: pairs a warp stages
 JOIN_UNION_WORDS = 6144  # shared-memory words of a tile's union chunk
-JOIN_MAX_DEPTH = 227  # program stack words a thread (its local array)
 JOIN_MAX_TILE = 4096  # join_pairs.cu's kMaxTile (the running max)
 N_MAX = 2 ** 31 - 1  # a join step's pair count saturates here
+# K5's and K6's `on` program stack: a thread's local array (kLocalDepth)
+# up to this depth; a deeper program takes a global stack of depth words a
+# thread, its grid cut so that the stack holds at most STACK_WORDS words
+STACK_LOCAL_DEPTH = 227
+STACK_WORDS = 1 << 24
 
 
 def join_key_hint(prog: Sequence[int]) -> Tuple[int, int]:
@@ -1610,10 +1614,10 @@ class _DirArgs(ctypes.Structure):
 class _JoinArgs(ctypes.Structure):
     _fields_ = [("d", _DirArgs * 2)] + [(f, _P) for f in (
         "ts", "tile", "meta", "pool_ctr", "pool", "cnt", "omask", "out_i",
-        "out_j", "out_seg", "n_out", "visits", "rewalks")] + [
+        "out_j", "out_seg", "n_out", "visits", "rewalks", "stack")] + [
             (f, _I) for f in ("E", "cap", "self_join", "has_within",
                               "within", "depth", "ucap", "nt",
-                              "pool_cap", "ndirs")]
+                              "pool_cap", "ndirs", "stack_x")]
 
 
 class JoinPairs:
@@ -1702,10 +1706,6 @@ class JoinPairs:
             a.mode_time, a.n, a.span = int(d.mode_time), d.n, d.span
             a.outer, a.prog_len = int(d.outer), len(d.prog)
             a.key_a, a.key_b = join_key_hint(d.prog)
-        if depth > JOIN_MAX_DEPTH:
-            raise ValueError(
-                f"join_pairs: a {depth}-deep program exceeds a thread's "
-                f"stack ({JOIN_MAX_DEPTH} words)")
         for v in (visits, rewalks):
             if v is not None:
                 _check(v, "visits/rewalks", torch.int64, dev, (1,))
@@ -1741,6 +1741,12 @@ class JoinPairs:
         args.ucap = join_union_cap(max(int(d.b_cols.shape[0])
                                        for d in dirs))
         args.nt, args.pool_cap, args.ndirs = nt, cap, len(dirs)
+        if depth > STACK_LOCAL_DEPTH:
+            args.stack_x = max(1, min(nt, STACK_WORDS // (
+                depth * len(dirs) * JOIN_TILE)))
+            stack = torch.empty(depth * args.stack_x * len(dirs) * JOIN_TILE,
+                                dtype=torch.int32, device=dev)
+            args.stack = stack.data_ptr()
         with _on_device(dev):
             err = LIBRARIES.get("join_pairs").fst_join_pairs(
                 ctypes.addressof(args), _stream(dev.index))
@@ -1756,7 +1762,7 @@ join_pairs = JoinPairs()
 # --------------------------------------------------------------------------
 
 MUTATE_CHUNK = 2048  # table_mutate.cu's kChunk: tape positions a block
-MUTATE_MAX_DEPTH = 227  # table_mutate.cu's kMaxDepth: a thread's stack
+MUTATE_ROWS = 256  # table_mutate.cu's kRows: table rows a block
 
 
 def table_mutate_plain(mask: torch.Tensor, a_cols: torch.Tensor,
@@ -1785,9 +1791,10 @@ def table_mutate_plain(mask: torch.Tensor, a_cols: torch.Tensor,
 
 class _MutateArgs(ctypes.Structure):
     _fields_ = [(f, _P) for f in (
-        "mask", "a_cols", "valid", "b_cols", "prog", "last", "visits")] + [
+        "mask", "a_cols", "valid", "b_cols", "prog", "last", "visits",
+        "stack")] + [
             (f, _I) for f in ("E", "C", "a_n", "b_n", "prog_len", "key_a",
-                              "key_b")]
+                              "key_b", "depth", "stack_y")]
 
 
 class TableMutate:
@@ -1801,8 +1808,10 @@ class TableMutate:
     valid[j]`` and the program is true.
 
     On CUDA one call fills ``last`` with -1 and launches the kernel on the
-    current stream, with no host read. ``visits`` (an int64 ``[1]`` CUDA
-    tensor, or None) adds the candidates the kernel walked."""
+    current stream, with no host read; a program deeper than
+    ``STACK_LOCAL_DEPTH`` gets a global stack of depth words a thread and
+    a grid of at most ``STACK_WORDS`` / depth threads. ``visits`` (an int64 ``[1]``
+    CUDA tensor, or None) adds the candidates the kernel walked."""
 
     name = "table_mutate"
     source = "flink_siddhi_tpu_torch/csrc/table_mutate.cu"
@@ -1837,10 +1846,6 @@ class TableMutate:
         _check(b_cols, "b_cols", torch.int32, dev, (b_n, C))
         if not 1 <= E <= 65535 * MUTATE_CHUNK or not 1 <= C < 2 ** 31:
             raise ValueError(f"table_mutate: {E} events, {C} rows")
-        if prog and depth > MUTATE_MAX_DEPTH:
-            raise ValueError(
-                f"table_mutate: a {depth}-deep program exceeds a thread's "
-                f"stack ({MUTATE_MAX_DEPTH} words)")
         if visits is not None:
             _check(visits, "visits", torch.int64, dev, (1,))
         code = self._prog(prog, dev)
@@ -1853,6 +1858,14 @@ class TableMutate:
         args.E, args.C, args.a_n, args.b_n = E, C, a_n, b_n
         args.prog_len = len(prog)
         args.key_a, args.key_b = join_key_hint(prog)
+        args.depth = depth if prog else 0
+        if args.depth > STACK_LOCAL_DEPTH:
+            gx = -(-C // MUTATE_ROWS)
+            args.stack_y = max(1, min(-(-E // MUTATE_CHUNK), STACK_WORDS // (
+                depth * gx * MUTATE_ROWS)))
+            stack = torch.empty(depth * gx * args.stack_y * MUTATE_ROWS,
+                                dtype=torch.int32, device=dev)
+            args.stack = stack.data_ptr()
         with _on_device(dev):
             err = LIBRARIES.get("table_mutate").fst_table_mutate(
                 ctypes.addressof(args), _stream(dev.index))

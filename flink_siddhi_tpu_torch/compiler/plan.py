@@ -15,13 +15,15 @@ cumulative aggregation with group-by and having, ``#window.unique``,
 ``#window.delay``, ``insert expired events`` and ``insert all events``,
 windowed two-stream joins (``compiler/join.py``; an aggregated join runs
 as a join into an intermediate stream and an aggregation over it), query
-chaining (a query reading another query's output inside the same step)
-and event tables (``compiler/table.py``: ``define table``, insert,
-update / delete ``on``, stream-table joins; the tables ride the state
-under ``@tables`` and thread through the queries in order). Windowed
-table writes, partitions and output rate limiting raise ``SiddhiQLError``
-naming the later slice of the port (ROADMAP.md Queue 1); the JAX package
-``flink_siddhi_tpu`` runs them.
+chaining (a query reading another query's output inside the same step),
+event tables (``compiler/table.py``: ``define table``, insert, also
+from a window or an aggregation, update / delete ``on``, also windowed
+through an intermediate stream, stream-table joins; the tables ride the
+state under ``@tables`` and thread through the queries in order) and
+``partition with`` (per-key patterns, per-key length windows, partitioned
+aggregations: ``_rewrite_partitioned``). Output rate limiting raises
+``SiddhiQLError`` naming the later slice of the port (ROADMAP.md Queue
+1); the JAX package ``flink_siddhi_tpu`` runs it.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..schema.stream_schema import StreamSchema
 from .config import DEFAULT_CONFIG, EngineConfig
 from .expr import ExprResolver, _dt, as_column, as_i32
 from .select import compile_select
-from .table import init_table_state
+from .table import _windowed, init_table_state
 
 _I32 = torch.int32
 
@@ -132,22 +134,32 @@ class CompiledPlan:
     def has_flush(self) -> bool:
         """Whether end-of-stream flush can do ANY work."""
         return any(
-            getattr(a, "flush", None) is not None
-            and not getattr(a, "flush_is_noop", False)
+            getattr(a, "flush_tables", None) is not None
+            or (getattr(a, "flush", None) is not None
+                and not getattr(a, "flush_is_noop", False))
             for a in self.artifacts
         )
 
     def flush(self, states: Dict) -> Tuple[Dict, Dict]:
         """End-of-stream flush (timed-absence patterns emit their pending
-        deadlines)."""
+        deadlines, batch windows their last windows). Artifacts writing to
+        a table flush through the table state: a windowed table insert's
+        last rows land in the table."""
         new_states = dict(states)
         outputs = {}
+        tables = states.get("@tables", {})
         for a in self.artifacts:
+            flt = getattr(a, "flush_tables", None)
+            if flt is not None:
+                new_states[a.name], tables = flt(states[a.name], tables)
+                continue
             fl = getattr(a, "flush", None)
             if fl is not None:
                 s, out = fl(states[a.name])
                 new_states[a.name] = s
                 outputs[a.name] = out
+        if "@tables" in states:
+            new_states["@tables"] = tables
         return new_states, outputs
 
     # -- device-side output accumulation ------------------------------------
@@ -434,10 +446,11 @@ def compile_plan(
 
     # direct `group by` / `having` / aggregation ON a join query: legal
     # SiddhiQL served by rewriting into the chaining form — join into a
-    # synthesized intermediate stream, aggregate that (same step). The
-    # reference's windowed-mutation rewrite after it (a windowed update /
-    # delete through an intermediate stream) waits for item 8.
+    # synthesized intermediate stream, aggregate that (same step); a
+    # windowed or aggregated update / delete the same way (the window
+    # into a synthesized stream, a plain mutation over it)
     parsed = _rewrite_aggregated_joins(parsed, table_schemas, all_schemas)
+    parsed = _rewrite_windowed_mutations(parsed, table_schemas)
     parsed = _rewrite_all_events(parsed)
 
     # fail fast on undefined inputs (UndefinedStreamException parity,
@@ -635,6 +648,136 @@ def compile_plan(
     )
 
 
+def _rewrite_partitioned(q: ast.Query, schemas) -> ast.Query:
+    """Lower ``partition with (key of S) begin ... end`` semantics.
+
+    Patterns: every non-first element gets an implicit cross-element
+    equality filter ``el.key == e0.key`` — a partial match only advances
+    on its own key's events, which is exactly Siddhi's per-partition NFA
+    instance; the filter is a cross-element program, so a partitioned
+    pattern runs on the slot NFA (K4). All keys share the one slot pool
+    of ``EngineConfig.pattern_slots``, as in the reference.
+    Aggregations: the key joins the group-by clause (per-key state); a
+    partitioned length window compiles to ``PerKeyWindowArtifact``
+    (``window.compile_window_query``). The forms the reference refuses
+    here raise its messages.
+    """
+    import dataclasses
+
+    if not q.partition_with:
+        return q
+    keymap = dict(q.partition_with)
+    inp = q.input
+    if isinstance(inp, ast.StreamInput):
+        if inp.stream_id not in keymap:
+            raise SiddhiQLError(
+                f"stream {inp.stream_id!r} has no partition key; add "
+                f"'<attr> of {inp.stream_id}' to the partition clause"
+            )
+        attr = keymap[inp.stream_id]
+        if attr not in schemas[inp.stream_id]:
+            raise SiddhiQLError(
+                f"partition key {attr!r} is not an attribute of "
+                f"{inp.stream_id!r}"
+            )
+        sel = q.selector
+        has_agg = sel.group_by or any(
+            ast.contains_aggregate(i.expr) for i in sel.items
+        )
+        if inp.windows:
+            # per-partition window: EACH key's window holds that key's
+            # last C events (NOT a group-by over one shared window) —
+            # compiles to the per-key window artifact, which reads the
+            # partition key from group_by (the canonical Siddhi
+            # partition use; README.md:77-96)
+            if q.output_events != "current":
+                # per-key EXPIRY order differs from a shared window's;
+                # silently compiling to shared-window expiry would be
+                # exactly the wrong-answer class the partition carve-out
+                # exists to prevent
+                raise SiddhiQLError(
+                    "'insert expired events into' inside 'partition "
+                    "with' is not supported yet"
+                )
+            if not has_agg:
+                # plain windowed projection emits arriving CURRENT
+                # events unchanged; partitioning changes nothing
+                return dataclasses.replace(q, partition_with=())
+            bare = tuple(ast.bare_group_key(n) for n in sel.group_by)
+            if attr not in bare:
+                sel = dataclasses.replace(
+                    sel, group_by=tuple(sel.group_by) + (attr,)
+                )
+            return dataclasses.replace(q, selector=sel)
+        if has_agg and attr not in tuple(
+            ast.bare_group_key(n) for n in sel.group_by
+        ):
+            sel = dataclasses.replace(
+                sel, group_by=tuple(sel.group_by) + (attr,)
+            )
+            return dataclasses.replace(q, selector=sel)
+        return q
+    if isinstance(inp, ast.JoinInput):
+        raise SiddhiQLError(
+            "joins inside 'partition with' are not supported yet"
+        )
+    # pattern / sequence
+    if inp.kind == "sequence":
+        raise SiddhiQLError(
+            "sequences inside 'partition with' are not supported yet "
+            "(strict continuity is per-partition, not global)"
+        )
+    if not inp.every_:
+        raise SiddhiQLError(
+            "non-'every' patterns inside 'partition with' are not "
+            "supported yet (the single-match rule is per partition key, "
+            "but the engine's match gate is per instance)"
+        )
+    els = inp.elements
+    el0 = els[0]
+    if (el0.min_count, el0.max_count) != (1, 1):
+        raise SiddhiQLError(
+            "the first element of a partitioned pattern cannot be "
+            "quantified yet"
+        )
+    if len(els) > 1 and els[1].group_link is not None:
+        raise SiddhiQLError(
+            "an 'and'/'or' group as the first step of a partitioned "
+            "pattern is not supported yet"
+        )
+    for sid in {el.stream_id for el in els}:
+        if sid not in keymap:
+            raise SiddhiQLError(
+                f"stream {sid!r} has no partition key; add "
+                f"'<attr> of {sid}' to the partition clause"
+            )
+    new_els = [el0]
+    attr0 = keymap[el0.stream_id]
+    if attr0 not in schemas[el0.stream_id]:
+        raise SiddhiQLError(
+            f"partition key {attr0!r} is not an attribute of "
+            f"{el0.stream_id!r}"
+        )
+    for el in els[1:]:
+        if el.negated:
+            raise SiddhiQLError(
+                "absent ('not') elements inside 'partition with' "
+                "patterns are not supported yet"
+            )
+        eq = ast.Binary(
+            "==",
+            ast.Attr(keymap[el.stream_id], qualifier=el.alias),
+            ast.Attr(attr0, qualifier=el0.alias),
+        )
+        filt = (
+            eq if el.filter is None else ast.Binary("and", el.filter, eq)
+        )
+        new_els.append(dataclasses.replace(el, filter=filt))
+    return dataclasses.replace(
+        q, input=dataclasses.replace(inp, elements=tuple(new_els))
+    )
+
+
 def _compile_query(
     q: ast.Query,
     name: str,
@@ -645,8 +788,7 @@ def _compile_query(
     config: EngineConfig = DEFAULT_CONFIG,
 ):
     table_schemas = table_schemas or {}
-    if q.partition_with:
-        raise _later("'partition with'", 8)
+    q = _rewrite_partitioned(q, schemas)
     if q.output_stream in table_schemas or q.output_action in (
         "update", "delete",
     ):
@@ -968,6 +1110,64 @@ def _rewrite_all_events(parsed):
                 q, output_events="expired", name=f"{base}@exp"
             )
         )
+    if not changed:
+        return parsed
+    return dataclasses.replace(parsed, queries=tuple(out))
+
+
+def _rewrite_windowed_mutations(parsed, table_schemas):
+    """``from S#window.x(...) select ... update T on ...`` (and delete):
+    siddhi-core evaluates the window chain before the table mutation.
+    Re-expressed through chaining: the windowed/aggregated selection
+    emits into a synthesized intermediate stream; a plain mutate query
+    consumes it (same device step)."""
+    import dataclasses
+
+    out = []
+    changed = False
+    for q in parsed.queries:
+        windowed = (
+            q.output_action in ("update", "delete")
+            and q.output_stream in table_schemas
+            and isinstance(q.input, ast.StreamInput)
+            and (_windowed(q) or q.selector.having is not None)
+        )
+        if not windowed:
+            out.append(q)
+            continue
+        changed = True
+        mid = f"@t:{q.output_stream}:{len(out)}"
+        win_q = dataclasses.replace(
+            q,
+            output_stream=mid,
+            output_action="insert",
+            on_condition=None,
+            name=(f"{q.name}@win" if q.name else None),
+            output_rate=None,  # rate-limiting applies to the MUTATION
+        )
+        # the mutate's projection carries only fields the mutation can
+        # use: table columns and on-condition references (the windowed
+        # query may also emit having-only fields like a count alias)
+        tcols = set(table_schemas[q.output_stream].field_names)
+        on_names = {
+            a.name for a in ast.iter_attrs(q.on_condition)
+        } if q.on_condition is not None else set()
+        kept = tuple(
+            ast.SelectItem(ast.Attr(i.output_name()), i.output_name())
+            for i in q.selector.items
+            if i.output_name() in tcols or i.output_name() in on_names
+        )
+        if not kept:
+            raise SiddhiQLError(
+                f"windowed {q.output_action} into {q.output_stream!r} "
+                "selects no table column or on-condition field"
+            )
+        mut_q = dataclasses.replace(
+            q,
+            input=ast.StreamInput(mid),
+            selector=ast.Selector(kept),
+        )
+        out.extend([win_q, mut_q])
     if not changed:
         return parsed
     return dataclasses.replace(parsed, queries=tuple(out))

@@ -151,6 +151,13 @@ def compile_scan_window(
 ):
     kind, args = window
     inp = q.input
+    if q.partition_with:
+        if kind in ("frequent", "lossyFrequent"):
+            raise SiddhiQLError(
+                f"#window.{kind} inside 'partition with' is not "
+                "supported yet"
+            )
+        raise _later(f"#window.{kind} inside 'partition with'", 8)
     if kind in ("session", "frequent", "lossyFrequent"):
         raise _later(f"#window.{kind}", 8)
     if q.selector.group_by:

@@ -29,9 +29,13 @@ siddhi-core's per-event sequencing: the rows depend on the tape size).
   join_pairs``, the windowed join's pair step) over one direction whose
   "window" is every valid table slot (``cuda_ops.table_join_dir``).
 
-Windowed and aggregated table writes (the reference's
-``WindowedTableInsertArtifact`` and its windowed-mutation rewrite) raise
-``SiddhiQLError`` naming ROADMAP.md Queue 1 item 8.
+- **windowed / aggregated insert** (``WindowedTableInsertArtifact``): a
+  window or aggregation artifact of ``window.py`` whose emitted rows
+  append to the ring instead of an output stream; at the end of the
+  stream its last rows (a batch window's carry) land through
+  ``flush_tables``. A windowed or aggregated update / delete is rewritten
+  by ``plan._rewrite_windowed_mutations`` into a windowed query into a
+  synthesized stream and a plain mutation over it.
 """
 
 from __future__ import annotations
@@ -426,19 +430,93 @@ class TableJoinArtifact:
                                    tape.ts[pi], cols)
 
 
+@dataclass
+class WindowedTableInsertArtifact:
+    """``from S#window... select <aggs> ... insert into T``: a window or
+    aggregation artifact (sliding, cumulative or batch) whose emitted rows
+    append to the table ring instead of an output stream. State: the inner
+    artifact's under ``win`` and the rows that did not land under
+    ``overflow``."""
+
+    name: str
+    output_schema: OutputSchema  # degenerate: no stream output
+    table_id: str
+    col_names: List[str]
+    inner: object  # the compiled window / aggregation artifact
+    uses_tables: bool = True
+    output_mode: str = "buffered"
+
+    @property
+    def encoded_columns(self):
+        # the inner artifact's group keys are still interned on the host
+        return getattr(self.inner, "encoded_columns", ())
+
+    @property
+    def host_columns(self):
+        # host-computed tape columns (#window.cron's window ids)
+        return getattr(self.inner, "host_columns", ())
+
+    def init_state(self, device) -> Dict:
+        return {"win": self.inner.init_state(device),
+                "overflow": torch.tensor(0, dtype=_I32, device=device)}
+
+    def grow_state(self, state: Dict) -> Dict:
+        grow = getattr(self.inner, "grow_state", None)
+        if grow is None:
+            return state
+        return dict(state, win=grow(state["win"]))
+
+    def _apply(self, state: Dict, wst: Dict, out, tables):
+        """The inner artifact's emission ``out`` appended to the table:
+        (new state, new tables)."""
+        if self.inner.output_mode == "aligned":
+            keep, ts, cols = out
+        else:  # buffered: the first n rows
+            n, ts, cols = out
+            keep = torch.arange(int(ts.shape[0]), dtype=_I32,
+                                device=ts.device) < n
+        L = int(keep.shape[0])
+        named = [(c, as_column(v, L, ts))
+                 for c, v in zip(self.col_names, cols)]
+        tbl, M = _ring_append(tables[self.table_id], self.table_id, keep,
+                              named)
+        C = int(tbl["valid"].shape[0])
+        new_tables = dict(tables)
+        new_tables[self.table_id] = tbl
+        return ({"win": wst,
+                 "overflow": state["overflow"] + torch.clamp(M - C, min=0)},
+                new_tables)
+
+    def step_tables(self, state, tables, tape):
+        wst, out = self.inner.step(state["win"], tape)
+        new_state, new_tables = self._apply(state, wst, out, tables)
+        return new_state, new_tables, _empty(self.output_schema,
+                                             tape.ts.device)
+
+    def flush_tables(self, state, tables):
+        """End of stream: the inner window's flush rows (a batch window's
+        last windows) land in the table too. Returns (state, tables)."""
+        flush = getattr(self.inner, "flush", None)
+        if flush is None:
+            return state, tables
+        wst, out = flush(state["win"])
+        return self._apply(state, wst, out, tables)
+
+
 # --------------------------------------------------------------------------
 # compile entry points (called from plan.py)
 # --------------------------------------------------------------------------
 
 def _windowed(q: ast.Query) -> bool:
-    """A table write the reference runs through a window/aggregation
-    artifact (its ``WindowedTableInsertArtifact`` or windowed-mutation
-    rewrite)."""
+    """A table write over a window or an aggregation: an insert runs it
+    through ``WindowedTableInsertArtifact``, an update or delete through
+    ``plan._rewrite_windowed_mutations`` (which also takes a ``having``;
+    an insert with one is refused by ``_stream_front``, as the
+    reference's)."""
     inp = q.input
     return isinstance(inp, ast.StreamInput) and bool(
         inp.windows
         or q.selector.group_by
-        or q.selector.having is not None
         or any(ast.contains_aggregate(i.expr) for i in q.selector.items)
     )
 
@@ -452,12 +530,28 @@ def compile_table_write(
     extensions,
     config=None,
 ):
-    from .plan import _later
-
     tid = q.output_stream
     tschema = table_schemas[tid]
-    if _windowed(q):
-        raise _later("windowed/aggregated table writes", 8)
+    if q.output_action == "insert" and _windowed(q):
+        # windowed / aggregated insert: compile the full window artifact
+        # and redirect its emissions into the table ring
+        from .window import compile_window_query
+
+        inner = compile_window_query(
+            q, f"{name}@win", schemas, stream_codes, extensions, config
+        )
+        for f in inner.output_schema.fields:
+            if f.name not in tschema:
+                raise SiddhiQLError(
+                    f"table {tid!r} has no column {f.name!r}"
+                )
+        return WindowedTableInsertArtifact(
+            name=name,
+            output_schema=OutputSchema(f"@void:{name}", ()),
+            table_id=tid,
+            col_names=[f.name for f in inner.output_schema.fields],
+            inner=inner,
+        )
     inp, resolver, filter_fns, proj = _stream_front(
         q, schemas, stream_codes, extensions
     )

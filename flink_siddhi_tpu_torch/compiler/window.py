@@ -31,9 +31,10 @@ gathers (``M + arange(C)``), never through Python ints. The product of the
 reference's ``associative_scan`` is a doubling scan (``_seg_scan``), a
 fixed sequence of whole-array ops.
 
-Not in this port yet: ``PerKeyWindowArtifact`` (windows inside
-``partition with``, ROADMAP.md Queue 1 item 8; ``compile_plan`` refuses
-partitions before they reach this module).
+Inside ``partition with`` a length window is ``PerKeyWindowArtifact``
+(each key's own last C events: per-key prefix differences, a ring of
+prefix checkpoints), a time window the shared time window grouped by the
+key; any other window raises the reference's message.
 """
 
 from __future__ import annotations
@@ -1575,6 +1576,41 @@ def compile_window_query(
         name, group_resolved, sc, filter_fns
     )
 
+    if q.partition_with and window is not None and window[0] != "time":
+        # a per-partition window: each key's own last C events. (A time
+        # window inside a partition is the shared time window grouped by
+        # the key, below: expiry does not depend on the key, so each key's
+        # members are the same either way; _rewrite_partitioned put the
+        # key in group_by.)
+        if window[0] != "length":
+            raise SiddhiQLError(
+                f"#window.{window[0]} inside 'partition with' is not "
+                "supported yet (length and time windows only)"
+            )
+        attr = dict(q.partition_with).get(inp.stream_id)
+        if tuple(ast.bare_group_key(n) for n in group_names) != (attr,):
+            raise SiddhiQLError(
+                "additional 'group by' inside a partitioned window "
+                "query is not supported yet (the partition key is the "
+                "grouping)"
+            )
+        art = PerKeyWindowArtifact(
+            name=name,
+            output_schema=out_schema,
+            stream_code=sc,
+            filter_fns=filter_fns,
+            capacity=int(window[1]),
+            aggs=collector.aggs,
+            arg_fns=collector.arg_fns,
+            arg_types=collector.arg_types,
+            code_key=code_key,
+            encoder=encoder,
+            proj_fns=proj_fns,
+            having_fn=having_fn,
+        )
+        art.encoded_columns = encoded
+        return art
+
     if window is None:
         art = CumulativeAggArtifact(
             name=name,
@@ -1975,6 +2011,159 @@ def compile_expired_window(
     )
     art.encoded_columns = ()
     return art
+
+
+# --------------------------------------------------------------------------
+# Per-key sliding windows: ``partition with (k of S) begin ...#window.length``
+# --------------------------------------------------------------------------
+
+@dataclass
+class PerKeyWindowArtifact:
+    """``partition with (k of S) ... #window.length(C)``: every key has a
+    window of its own last C matching events (Siddhi's per-partition
+    instance, not a group-by over one shared window).
+
+    A key's window sum at its n-th arrival is ``S_k(n) - S_k(n - C)``,
+    ``S_k`` the key's compensated (Neumaier) running sum. State: a ``[G]``
+    arrival count, the running sums ``S_*`` with their compensation
+    ``kc_*``, and a ``[G, C]`` ring ``ring_*`` of each key's last C prefix
+    checkpoints (slot ``n mod C``). A batch is one stable sort by key,
+    segmented scans, two gathers and the ring write of each key's last
+    ``min(C, arrivals)`` checkpoints: no loop over events and no host
+    read. ``G`` buckets with the key encoder (``grow_state``)."""
+
+    name: str
+    output_schema: OutputSchema
+    stream_code: int
+    filter_fns: List
+    capacity: int  # C: a key's window length
+    aggs: List[_Agg]
+    arg_fns: List[Callable]
+    arg_types: List[AttributeType]
+    code_key: str
+    encoder: GroupEncoder
+    proj_fns: List
+    having_fn: Optional[Callable]
+    output_mode: str = "aligned"
+
+    def __post_init__(self):
+        if any(s not in ("sum", "sumsq")
+               for stats in self._stats().values() for s in stats):
+            raise SiddhiQLError(
+                "per-partition windows support sum/count/avg/stddev "
+                "aggregates (min/max need the window matrix; group by "
+                "outside the partition instead)"
+            )
+
+    def _stats(self) -> Dict[int, set]:
+        return _acc_stats_for(self.aggs)
+
+    def _G(self) -> int:
+        return _bucket(len(self.encoder), MIN_GROUP_CAPACITY)
+
+    def init_state(self, device) -> Dict:
+        G, C = self._G(), self.capacity
+        st = {"enabled": torch.tensor(True, device=device),
+              "cnt": torch.zeros(G, dtype=_I32, device=device)}
+        for arg_idx, stats in self._stats().items():
+            for s in stats:
+                for key, shape in ((f"S_{s}{arg_idx}", (G,)),
+                                   (f"kc_{s}{arg_idx}", (G,)),
+                                   (f"ring_{s}{arg_idx}", (G, C))):
+                    st[key] = torch.zeros(shape, dtype=torch.float32,
+                                          device=device)
+        return st
+
+    def grow_state(self, state: Dict) -> Dict:
+        G, need = int(state["cnt"].shape[0]), self._G()
+        if need <= G:
+            return state
+        out = dict(state)
+        for k, v in state.items():
+            if k != "enabled":
+                out[k] = torch.cat([v, v.new_zeros((need - G,)
+                                                   + tuple(v.shape[1:]))])
+        return out
+
+    def step(self, state: Dict, tape) -> Tuple[Dict, Tuple]:
+        env: ColumnEnv = dict(tape.cols)
+        mask = _query_mask(self, state, tape, env)
+        E, C = tape.capacity, self.capacity
+        G = int(state["cnt"].shape[0])
+        dev = mask.device
+
+        segkey = torch.where(mask, env[self.code_key].to(_I32), G).long()
+        g_s, order = torch.sort(segkey, stable=True)  # keys contiguous
+        inv = _inverse(order)
+        flags = torch.ones(E, dtype=torch.bool, device=dev)
+        flags[1:] = g_s[1:] != g_s[:-1]
+        ends = torch.ones_like(flags)
+        ends[:-1] = flags[1:]
+        gather_g = torch.clamp(g_s, max=G - 1)
+        mask_s = mask[order]
+
+        ones = torch.ones(E, dtype=_I32, device=dev)
+        seg_rank = _seg_scan(flags, ones, torch.add) - 1  # 0-based, local
+        local_n = state["cnt"][gather_g] + seg_rank  # the key's ordinal
+        pos = torch.arange(E, device=dev)
+        new_state = dict(state)
+        new_state["cnt"] = state["cnt"] + _segment_reduce(
+            mask.to(_I32), segkey, G, "sum")
+        # the windowed count has a closed form
+        stats_env: Dict[str, torch.Tensor] = {
+            "cnt": torch.clamp(local_n + 1, max=C)[inv]}
+        # each key's arrivals this batch, and its last min(C, arrivals)
+        seg_len = _segment_reduce(mask_s.to(_I32),
+                                  torch.where(mask_s, gather_g, G), G, "sum")
+        is_tail = mask_s & (seg_rank >= seg_len[gather_g] - C)
+        widx = torch.where(is_tail, gather_g * C + torch.remainder(
+            local_n, C), G * C)
+        slot = torch.remainder(torch.clamp(local_n - C, min=0), C)
+        in_batch = seg_rank >= C
+        gi = torch.where(ends & (g_s < G), g_s, G)
+
+        for arg_idx, stats in self._stats().items():
+            v = as_column(self.arg_fns[arg_idx](env), E, tape.ts)
+            v_s = torch.where(mask_s, v[order].to(torch.float32), 0.0)
+            for s in stats:
+                vals = v_s * v_s if s == "sumsq" else v_s
+                skey, kckey, rkey = (f"S_{s}{arg_idx}", f"kc_{s}{arg_idx}",
+                                     f"ring_{s}{arg_idx}")
+                acc, kc, ring = state[skey], state[kckey], state[rkey]
+                base = (acc + kc)[gather_g]
+                p_scan, c_scan = _seg_scan_sum_kahan(flags, vals)
+                pref = p_scan + c_scan
+                s_at = base + pref  # S_k(n), inclusive
+                # S_k(n - C): in this batch's run when seg_rank >= C, else
+                # the ring's checkpoint, else 0
+                prev_batch = pref[torch.clamp(pos - C, min=0)] + base
+                prev_ring = ring[gather_g, slot.long()]
+                s_prev = torch.where(
+                    in_batch, prev_batch,
+                    torch.where(local_n >= C, prev_ring, 0.0))
+                stats_env[f"{s}{arg_idx}"] = (s_at - s_prev)[inv]
+                # the ring: slot n mod C of each key's tail (distinct
+                # slots); the rest to a dump slot, sliced off
+                flat = torch.cat([ring.reshape(G * C), ring.new_zeros(1)])
+                flat.index_put_((widx,), s_at)
+                new_state[rkey] = flat[:G * C].reshape(G, C)
+                # the batch's totals into the running sums (two-sum)
+                tot = torch.zeros(G + 1, dtype=torch.float32, device=dev)
+                tot.index_put_((gi,), torch.where(ends, p_scan, 0.0))
+                tot_c = torch.zeros_like(tot)
+                tot_c.index_put_((gi,), torch.where(ends, c_scan, 0.0))
+                tot, tot_c = tot[:G], tot_c[:G]
+                t = acc + tot
+                err = torch.where(acc.abs() >= tot.abs(),
+                                  (acc - t) + tot, (tot - t) + acc)
+                new_state[skey] = t
+                new_state[kckey] = kc + err + tot_c
+
+        for agg in self.aggs:
+            env[agg.slot] = _agg_from_stats(agg, stats_env).to(
+                _dt(agg.out_type))
+        cols, out_mask = _project(self, env, E, tape.ts, mask)
+        return new_state, (out_mask, tape.ts, cols)
 
 
 def window_wire_opts(artifact: SlidingWindowArtifact, config):

@@ -71,7 +71,12 @@
 //   2^31 (a wide window with no selective `on`); ranks below cap (< 2^31)
 //   are exact.
 // The program's stack lives in local memory (a thread's private array,
-// cached in L1), so a deep program does not take the union's room.
+// cached in L1), so a deep program does not take the union's room. A
+// program deeper than that array (kLocalDepth) takes a global stack of
+// depth x threads words that the wrapper allocates (cuda_ops.JoinPairs):
+// the walk and the write then run `stack_x` blocks a direction, each
+// taking its tiles in turn, so that the stack stays within
+// cuda_ops.STACK_WORDS.
 #include <climits>
 #include <cuda_runtime.h>
 
@@ -87,7 +92,7 @@ constexpr int kMinBlocks = 4;   // the walk's blocks an SM (64 registers)
 constexpr int kStage = 128;     // pairs a warp stages
 constexpr int kQueue = 64;      // candidates a warp queues for its program
 constexpr int kRounds = 2;      // rounds of 32 candidates an iteration
-constexpr int kMaxDepth = 227;  // cuda_ops.JOIN_MAX_DEPTH
+constexpr int kLocalDepth = 227;  // cuda_ops.STACK_LOCAL_DEPTH
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 8;   // tile sums a scan thread holds
 constexpr int kMaxThreads = 1024;  // the running max's blocks
@@ -136,8 +141,29 @@ struct JoinArgs {
   int* n_out;                    // [1]
   long long* visits;             // [1] candidates in the bands, or null
   long long* rewalks;            // [1] tiles walked again, or null
+  int* stack;                    // a deep program's [depth][threads] stack
   int E, cap, self_join, has_within, within, depth, ucap, nt, pool_cap;
   int ndirs;                     // 1 or 2
+  int stack_x;                   // a deep program's blocks a direction
+};
+
+// The `on` program's stack of this thread: its local array, or (kDeep)
+// its column of the global stack; `T` is the column's stride.
+template <bool kDeep>
+struct Stack {
+  int local[kDeep ? 1 : kLocalDepth];
+  int* at;
+  int T;
+  __device__ __forceinline__ Stack(const JoinArgs& p) {
+    if (kDeep) {
+      T = gridDim.x * gridDim.y * blockDim.x;
+      at = p.stack + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                      blockIdx.x) * blockDim.x + threadIdx.x;
+    } else {
+      T = 1;
+      at = local;
+    }
+  }
 };
 
 __device__ __forceinline__ int wrap_sub(int a, int b) {
@@ -287,14 +313,14 @@ enum Mode { kStageMode, kCountMode, kWriteMode };
 // `evx[k]`, its pairs written before); `evx[k]` (the warp's event counts,
 // or in kWriteMode its written counts) and `total` grow by the passing
 // pairs.
-template <Mode kMode>
+template <Mode kMode, bool kDeep>
 __device__ __forceinline__ void run_batch(const JoinArgs& p,
                                           const DirArgs& d, int dir,
                                           const Tile& t, int w, int lane,
                                           int t0, int c0, int m,
                                           long long ev_base,
                                           long long& total) {
-  int stk[kMaxDepth];
+  Stack<kDeep> stk(p);
   const int* qk = t.queue + w * 2 * kQueue;
   const int* qj = qk + kQueue;
   int* evx = t.evx + w * 32;
@@ -310,7 +336,8 @@ __device__ __forceinline__ void run_batch(const JoinArgs& p,
              [&](int a) {
                return __ldg(d.a_cols + static_cast<size_t>(a) * p.E + i);
              },
-             [&](int a) { return t.u_cols[a * ucap + u]; }, stk, 1) != 0;
+             [&](int a) { return t.u_cols[a * ucap + u]; }, stk.at,
+             stk.T) != 0;
   }
   const unsigned okm = __ballot_sync(kFull, ok);
   // the lanes of one event (a lane without an entry is a group alone)
@@ -346,7 +373,7 @@ __device__ __forceinline__ void run_batch(const JoinArgs& p,
 // every pair), queue the candidates that pass in (i, j) order; each 32
 // queued run the program as one batch (`run_batch`). Returns the warp's
 // pairs.
-template <Mode kMode>
+template <Mode kMode, bool kDeep>
 __device__ __forceinline__ long long walk(const JoinArgs& p,
                                           const DirArgs& d, int dir,
                                           const Tile& t, unsigned amask,
@@ -400,7 +427,8 @@ __device__ __forceinline__ long long walk(const JoinArgs& p,
       qn += __popc(b);
       if (qn >= 32) {
         __syncwarp();
-        run_batch<kMode>(p, d, dir, t, w, lane, t0, c0, 32, ev_base, total);
+        run_batch<kMode, kDeep>(p, d, dir, t, w, lane, t0, c0, 32, ev_base,
+                                total);
         // the rest (at most 31) to the front
         const int rest = qn - 32;
         const int rk = lane < rest ? qk[32 + lane] : 0;
@@ -430,7 +458,7 @@ __device__ __forceinline__ long long walk(const JoinArgs& p,
   }
   if (qn > 0) {
     __syncwarp();
-    run_batch<kMode>(p, d, dir, t, w, lane, t0, c0, qn, ev_base, total);
+    run_batch<kMode, kDeep>(p, d, dir, t, w, lane, t0, c0, qn, ev_base, total);
   }
   return total;
 }
@@ -533,17 +561,19 @@ join_run_max_kernel(JoinArgs p) {
 // copies them to the pool, or (its pairs past the staging, its union in
 // several chunks, or no room left in the pool) keeps each event's count
 // for the write's walk.
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-join_walk_kernel(JoinArgs p) {
+// A block walks tile `bx` of direction blockIdx.y.
+template <bool kDeep>
+__device__ __forceinline__ void walk_tile(const JoinArgs& p, int bx) {
   extern __shared__ int smem[];
   __shared__ unsigned s_amask[kWarps];
   __shared__ long long s_wcnt[kWarps];  // each warp's pairs
   __shared__ int s_wout[kWarps];        // each warp's outer rows
   __shared__ long long s_pool;          // the tile's pool offset, or -1
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int dir = blockIdx.y, seq = dir * p.nt + blockIdx.x;
+  const int dir = blockIdx.y;
   const DirArgs& d = p.d[dir];
-  const int t0 = blockIdx.x * kThreads;
+  const int seq = dir * p.nt + bx;
+  const int t0 = bx * kThreads;
   const Tile t = tile_layout(smem, p.ucap);
   long long vis;
   const Union u = tile_bands(p, d, t, t0, s_amask, vis);
@@ -556,12 +586,14 @@ join_walk_kernel(JoinArgs p) {
   long long wcount = 0;
   if (u.nch == 1) {
     load_chunk(p, d, t, u.u0, u.u1);
-    wcount = walk<kStageMode>(p, d, dir, t, my, w, lane, t0, u.u0, u.u1, 0);
+    wcount = walk<kStageMode, kDeep>(p, d, dir, t, my, w, lane, t0, u.u0,
+                                     u.u1, 0);
   } else {
     for (int c = 0; c < u.nch; ++c) {
       const int c0 = u.u0 + c * p.ucap, c1 = min(c0 + p.ucap, u.u1);
       load_chunk(p, d, t, c0, c1);
-      wcount += walk<kCountMode>(p, d, dir, t, my, w, lane, t0, c0, c1, 0);
+      wcount += walk<kCountMode, kDeep>(p, d, dir, t, my, w, lane, t0, c0,
+                                        c1, 0);
     }
   }
   __syncwarp();
@@ -592,8 +624,8 @@ join_walk_kernel(JoinArgs p) {
       }
     }
     s_pool = po;
-    p.tile[(2 * dir) * p.nt + blockIdx.x] = tp;
-    p.tile[(2 * dir + 1) * p.nt + blockIdx.x] = to;
+    p.tile[(2 * dir) * p.nt + bx] = tp;
+    p.tile[(2 * dir + 1) * p.nt + bx] = to;
     p.meta[seq] = po;
     p.meta[p.ndirs * p.nt + seq] = tp;
   }
@@ -609,6 +641,19 @@ join_walk_kernel(JoinArgs p) {
     }
   } else {
     p.cnt[static_cast<size_t>(seq) * kThreads + tid] = ev_cnt;
+  }
+}
+
+template <bool kDeep>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+join_walk_kernel(JoinArgs p) {
+  if (!kDeep) {  // one tile a block
+    walk_tile<kDeep>(p, blockIdx.x);
+    return;
+  }
+  for (int bx = blockIdx.x; bx < p.nt; bx += gridDim.x) {
+    if (bx != blockIdx.x) __syncthreads();  // the last tile is done
+    walk_tile<kDeep>(p, bx);
   }
 }
 
@@ -662,20 +707,22 @@ join_scan_kernel(long long* tile, int m, int* n_out) {
 // 3 of 3: each tile's outer rows at their ranks; its staged pairs copied
 // from the pool, coalesced, or its candidates walked again and each pair
 // written at its event's offset (ranks below cap).
-__global__ void __launch_bounds__(kThreads)
-join_write_kernel(JoinArgs p) {
+// A block writes tile `bx` of direction blockIdx.y.
+template <bool kDeep>
+__device__ __forceinline__ void write_tile(const JoinArgs& p, int bx) {
   extern __shared__ int smem[];
   __shared__ unsigned s_amask[kWarps];
   __shared__ long long s_wcnt[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int dir = blockIdx.y, seq = dir * p.nt + blockIdx.x;
+  const int dir = blockIdx.y;
   const DirArgs& d = p.d[dir];
-  const int t0 = blockIdx.x * kThreads;
+  const int seq = dir * p.nt + bx;
+  const int t0 = bx * kThreads;
   if (d.outer) {
     const unsigned* om = p.omask + seq * kWarps;
     const unsigned mine = om[w];
     if ((mine >> lane) & 1u) {
-      long long r = p.tile[(2 * dir + 1) * p.nt + blockIdx.x] +
+      long long r = p.tile[(2 * dir + 1) * p.nt + bx] +
                     __popc(mine & ((1u << lane) - 1u));
       for (int k = 0; k < w; ++k) r += __popc(om[k]);
       if (r < p.cap) {
@@ -685,7 +732,7 @@ join_write_kernel(JoinArgs p) {
       }
     }
   }
-  const long long off = p.tile[(2 * dir) * p.nt + blockIdx.x];
+  const long long off = p.tile[(2 * dir) * p.nt + bx];
   const long long po = p.meta[seq], tp = p.meta[p.ndirs * p.nt + seq];
   if (tp == 0 || off >= p.cap) return;
   if (po >= 0) {
@@ -724,15 +771,47 @@ join_write_kernel(JoinArgs p) {
     const int c0 = u.u0 + c * p.ucap, c1 = min(c0 + p.ucap, u.u1);
     load_chunk(p, d, t, c0, c1);
     if (again) {
-      walk<kWriteMode>(p, d, dir, t, my, w, lane, t0, c0, c1, ev_base);
+      walk<kWriteMode, kDeep>(p, d, dir, t, my, w, lane, t0, c0, c1,
+                              ev_base);
     }
+  }
+}
+
+template <bool kDeep>
+__global__ void __launch_bounds__(kThreads)
+join_write_kernel(JoinArgs p) {
+  if (!kDeep) {  // one tile a block
+    write_tile<kDeep>(p, blockIdx.x);
+    return;
+  }
+  for (int bx = blockIdx.x; bx < p.nt; bx += gridDim.x) {
+    if (bx != blockIdx.x) __syncthreads();  // the last tile is done
+    write_tile<kDeep>(p, bx);
   }
 }
 
 }  // namespace
 
-// `args` points at a JoinArgs (cuda_ops._JoinArgs; `pool_ctr` zeroed);
-// returns a cudaError_t.
+// Walk, scan, write with `nx` walk and write blocks a direction.
+template <bool kDeep>
+void launch_pairs(const JoinArgs& p, size_t smem, int nx, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(join_walk_kernel<kDeep>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    cudaFuncSetAttribute(join_write_kernel<kDeep>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  join_walk_kernel<kDeep><<<dim3(nx, p.ndirs), kThreads, smem, s>>>(p);
+  join_scan_kernel<<<1, kScanThreads, 0, s>>>(p.tile, 2 * p.ndirs * p.nt,
+                                              p.n_out);
+  join_write_kernel<kDeep><<<dim3(nx, p.ndirs), kThreads, smem, s>>>(p);
+}
+
+// `args` points at a JoinArgs (cuda_ops._JoinArgs; `pool_ctr` zeroed;
+// `stack` sized depth x the walk's threads when the program is deeper
+// than kLocalDepth); returns a cudaError_t.
 extern "C" int fst_join_pairs(const void* args, void* stream) {
   const JoinArgs p = *static_cast<const JoinArgs*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -746,8 +825,10 @@ extern "C" int fst_join_pairs(const void* args, void* stream) {
     mode_time |= p.d[k].mode_time;
   }
   const size_t smem = sizeof(int) * tile_words(p.ucap, bn);
+  const bool deep = p.depth > kLocalDepth;
   if (p.E < 1 || p.nt != (p.E + kThreads - 1) / kThreads || p.ucap < 32 ||
-      p.depth > kMaxDepth || smem > kMaxSmem - 1024) {
+      smem > kMaxSmem - 1024 ||
+      (deep && (p.stack == nullptr || p.stack_x < 1 || p.stack_x > p.nt))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (mode_time) {
@@ -756,17 +837,10 @@ extern "C" int fst_join_pairs(const void* args, void* stream) {
     join_tile_carry_kernel<<<dim3(1, p.ndirs), kMaxThreads, 0, s>>>(p);
     join_run_max_kernel<<<dim3(nt, p.ndirs), kMaxThreads, 0, s>>>(p);
   }
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(join_walk_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    cudaFuncSetAttribute(join_write_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  if (deep) {
+    launch_pairs<true>(p, smem, p.stack_x, s);
+  } else {
+    launch_pairs<false>(p, smem, p.nt, s);
   }
-  join_walk_kernel<<<dim3(p.nt, p.ndirs), kThreads, smem, s>>>(p);
-  join_scan_kernel<<<1, kScanThreads, 0, s>>>(p.tile, 2 * p.ndirs * p.nt,
-                                              p.n_out);
-  join_write_kernel<<<dim3(p.nt, p.ndirs), kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

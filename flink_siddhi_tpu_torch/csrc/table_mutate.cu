@@ -37,6 +37,12 @@
 // candidate that passes it, and stops at its first match; all lanes read
 // the same event's words at each step (a broadcast). The match goes into
 // `last[j]` by atomicMax (chunks of one row may finish in any order).
+//
+// The program's stack: a thread's local array of kLocalDepth words for a
+// program up to that deep; a deeper one takes a global stack of depth x
+// threads words that the wrapper allocates (cuda_ops.TableMutate), its
+// grid cut to `stack_y` chunk rows (each block walks its chunks from the
+// end in turn) so that the stack stays within cuda_ops.STACK_WORDS.
 #include <cuda_runtime.h>
 
 #include "program.cuh"
@@ -49,7 +55,7 @@ constexpr int kRows = 256;      // table rows a block, one a thread
 constexpr int kWarps = kRows / 32;
 constexpr int kChunk = 2048;    // tape positions a block
 constexpr int kPer = kChunk / kRows;
-constexpr int kMaxDepth = 227;  // cuda_ops.MUTATE_MAX_DEPTH
+constexpr int kLocalDepth = 227;  // cuda_ops.STACK_LOCAL_DEPTH
 constexpr unsigned kFull = 0xffffffffu;
 
 // cuda_ops.TableMutate packs it (ctypes `_MutateArgs`).
@@ -61,17 +67,24 @@ struct MutateArgs {
   const int* prog;             // the `on` program
   int* last;                   // [C] filled with -1: the last match
   long long* visits;           // [1] candidates walked, or null
+  int* stack;                  // a deep program's [depth][threads] stack
   int E, C, a_n, b_n, prog_len;
   int key_a, key_b;  // the program's key equality a_cols[key_a] ==
                      // b_cols[key_b], or -1
+  int depth;         // the program's stack depth
+  int stack_y;       // a deep program's chunk rows in the grid
 };
 
-__global__ void __launch_bounds__(kRows) table_mutate_kernel(MutateArgs p) {
+// The block's table rows against chunk `ch` of the tape; adds the
+// candidates the thread walked to `walked`. `stk` is the program's stack
+// (a column of stride `T`).
+__device__ __forceinline__ void mutate_chunk(const MutateArgs& p, int ch,
+                                             int* stk, int T,
+                                             long long& walked) {
   __shared__ int s_idx[kChunk];  // the chunk's masked events, in tape order
   __shared__ int s_key[kChunk];  // ... and their key words
   __shared__ int s_cnt[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int ch = gridDim.y - 1 - blockIdx.y;  // the tape's end first
   const int c0 = ch * kChunk, c1 = min(c0 + kChunk, p.E);
   const int j = blockIdx.x * kRows + tid;
   const bool keyed = p.key_b >= 0;
@@ -107,11 +120,9 @@ __global__ void __launch_bounds__(kRows) table_mutate_kernel(MutateArgs p) {
 
   // each row walks the events from the end to its first match
   int found = -1;
-  long long walked = 0;
   if (live) {
     const int bkey =
         keyed ? __ldg(p.b_cols + static_cast<size_t>(p.key_b) * p.C + j) : 0;
-    int stk[kMaxDepth];
     for (int k = n - 1; k >= 0; --k) {
       ++walked;
       if (keyed && s_key[k] != bkey) continue;
@@ -126,7 +137,7 @@ __global__ void __launch_bounds__(kRows) table_mutate_kernel(MutateArgs p) {
                  [&](int a) {
                    return __ldg(p.b_cols + static_cast<size_t>(a) * p.C + j);
                  },
-                 stk, 1) != 0;
+                 stk, T) != 0;
       }
       if (ok) {
         found = i;
@@ -135,10 +146,32 @@ __global__ void __launch_bounds__(kRows) table_mutate_kernel(MutateArgs p) {
     }
   }
   if (found >= 0) atomicMax(p.last + j, found);
+}
+
+// kDeep: the program's stack is the thread's column of `p.stack`, and the
+// grid may hold fewer chunk rows than the tape has chunks (each block then
+// takes its chunks in turn, the tape's end first); else a local array and
+// one chunk a block (blockIdx.y 0 the last chunk).
+template <bool kDeep>
+__global__ void __launch_bounds__(kRows) table_mutate_kernel(MutateArgs p) {
+  const int nch = (p.E + kChunk - 1) / kChunk;
+  long long walked = 0;
+  if (!kDeep) {
+    int stk[kLocalDepth];
+    mutate_chunk(p, nch - 1 - blockIdx.y, stk, 1, walked);
+  } else {
+    int* stk = p.stack + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                          blockIdx.x) * kRows + threadIdx.x;
+    const int T = gridDim.x * gridDim.y * kRows;
+    for (int y = blockIdx.y; y < nch; y += gridDim.y) {
+      if (y != blockIdx.y) __syncthreads();  // the last chunk is done
+      mutate_chunk(p, nch - 1 - y, stk, T, walked);
+    }
+  }
   if (p.visits) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) walked += __shfl_xor_sync(kFull, walked, o);
-    if (lane == 0 && walked) {
+    if ((threadIdx.x & 31) == 0 && walked) {
       atomicAdd(reinterpret_cast<unsigned long long*>(p.visits),
                 static_cast<unsigned long long>(walked));
     }
@@ -148,16 +181,24 @@ __global__ void __launch_bounds__(kRows) table_mutate_kernel(MutateArgs p) {
 }  // namespace
 
 // `args` points at a MutateArgs (cuda_ops._MutateArgs; `last` filled with
-// -1); returns a cudaError_t.
+// -1; `stack` sized depth x the grid's threads when the program is deeper
+// than kLocalDepth); returns a cudaError_t.
 extern "C" int fst_table_mutate(const void* args, void* stream) {
   const MutateArgs p = *static_cast<const MutateArgs*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long chunks = (static_cast<long long>(p.E) + kChunk - 1) / kChunk;
+  const bool deep = p.prog_len > 0 && p.depth > kLocalDepth;
   if (p.E < 1 || p.C < 1 || chunks > 65535 ||
-      (p.key_b >= 0 && (p.key_a < 0 || p.key_a >= p.a_n || p.key_b >= p.b_n))) {
+      (p.key_b >= 0 && (p.key_a < 0 || p.key_a >= p.a_n || p.key_b >= p.b_n)) ||
+      (deep && (p.stack == nullptr || p.stack_y < 1 || p.stack_y > chunks))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((p.C + kRows - 1) / kRows, static_cast<unsigned>(chunks));
-  table_mutate_kernel<<<grid, kRows, 0, s>>>(p);
+  const unsigned gx = (p.C + kRows - 1) / kRows;
+  if (deep) {
+    table_mutate_kernel<true><<<dim3(gx, p.stack_y), kRows, 0, s>>>(p);
+  } else {
+    table_mutate_kernel<false>
+        <<<dim3(gx, static_cast<unsigned>(chunks)), kRows, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

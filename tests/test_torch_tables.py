@@ -1,10 +1,12 @@
 """Event tables in the torch port, held to the JAX package.
 
-* The non-windowed cases of ``tests/test_table_e2e.py`` run through both
+* The cases of ``tests/test_table_e2e.py`` run through both
   packages' APIs on the CPU, at several batch sizes, with equal rows (and
   the reference test's own rows at its batch size); the compile-time
-  refusals carry the JAX package's text; the windowed table writes of that
-  file raise ``SiddhiQLError`` naming ROADMAP.md Queue 1 item 8.
+  refusals carry the JAX package's text. Its windowed and aggregated
+  table writes (and a ``timeBatch`` insert whose last window lands at the
+  flush) leave the reference's rows and final table; a plan of them is
+  stepped against the JAX plan, its state loaded mid-stream.
 * ``TableMutateArtifact``, ``TableInsertArtifact`` and
   ``TableJoinArtifact`` (their kernels' plain versions on the CPU) equal
   the reference artifacts' ``step_tables`` bit for bit on the same tables
@@ -20,7 +22,9 @@
 """
 
 import dataclasses
+import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -245,39 +249,226 @@ def test_table_refusal_citations():
     assert "JoinInputStreamParser" in msg
 
 
+# -- tests/test_table_e2e.py:173-357: windowed and aggregated writes -----------
+
+SQ = {"S": [("id", "int"), ("price", "double"), ("timestamp", "long")],
+      "Q": [("id", "int"), ("timestamp", "long")]}
+KV = {"S": [("k", "int"), ("v", "double"), ("timestamp", "long")]}
 WINDOWED = {
-    # the forms of tests/test_table_e2e.py:173-357
+    # case: (schemas, cql, S columns, Q columns or None, batch)
     "aggregated_insert": (
-        [("id", "int"), ("price", "double"), ("timestamp", "long")],
+        SQ,
         "define table Totals (id int, total double);"
         "from S select id, sum(price) as total group by id "
-        "insert into Totals"),
+        "insert into Totals;"
+        "from Q join Totals on Q.id == Totals.id "
+        "select Q.id as qid, Totals.total as total insert into o",
+        {"id": [1, 2, 1, 2, 1], "price": [1.0, 10.0, 2.0, 20.0, 3.0],
+         "timestamp": [1000, 1001, 1002, 1003, 1004]},
+        {"id": [1, 2], "timestamp": [2000, 2001]}, 16),
     "length_batch_insert": (
-        [("id", "int"), ("price", "double"), ("timestamp", "long")],
+        SQ,
         "define table Sums (total double);"
         "from S#window.lengthBatch(3) select sum(price) as total "
-        "insert into Sums"),
+        "insert into Sums;"
+        "from Q join Sums select Q.id as qid, Sums.total as total "
+        "insert into o",
+        {"id": [0] * 6, "price": [1.0, 2.0, 3.0, 10.0, 20.0, 30.0],
+         "timestamp": list(range(1000, 1006))},
+        {"id": [9], "timestamp": [5000]}, 16),
     "windowed_update": (
-        [("k", "int"), ("v", "double"), ("timestamp", "long")],
+        KV,
         "define table T (k int, total double);"
         "from S[timestamp < 1002] select k, 0.0 as total insert into T;"
         "from S#window.lengthBatch(4) select k, sum(v) as total group by k "
-        "update T on T.k == k"),
+        "update T on T.k == k",
+        {"k": [0, 1, 0, 1, 0, 1, 0, 1],
+         "v": [1.0, 10.0, 2.0, 20.0, 4.0, 40.0, 8.0, 80.0],
+         "timestamp": list(range(1000, 1008))}, None, 8),
     "windowed_delete": (
-        [("k", "int"), ("v", "double"), ("timestamp", "long")],
+        KV,
         "define table T (k int);"
         "from S[timestamp < 1002] select k insert into T;"
         "from S#window.lengthBatch(4) select k, count() as c group by k "
-        "having c > 2 delete T on T.k == k"),
+        "having c > 2 delete T on T.k == k",
+        {"k": [0, 1, 0, 0, 1, 0, 0, 0], "v": [1.0] * 8,
+         "timestamp": list(range(1000, 1008))}, None, 8),
+    # a timeBatch window's last window reaches the table only at the flush
+    "time_batch_insert_flushes": (
+        KV,
+        "define table T (k int, total double);"
+        "from S#window.timeBatch(4 ms) select k, sum(v) as total group by k "
+        "insert into T",
+        {"k": [0, 1, 0, 1, 0, 1, 0, 1, 0, 1],
+         "v": [1.0, 10.0, 2.0, 20.0, 4.0, 40.0, 8.0, 80.0, 16.0, 160.0],
+         "timestamp": list(range(1000, 1010))}, None, 4),
+}
+# what tests/test_table_e2e.py asserts of each (the flush case: its three
+# windows of two keys, the last one landed by the flush)
+WINDOWED_EXPECT = {
+    "aggregated_insert": lambda rows, tbl: (
+        max(t for q, t in rows if q == 1) == 6.0
+        and max(t for q, t in rows if q == 2) == 30.0),
+    "length_batch_insert": lambda rows, tbl: (
+        sorted(t for _, t in rows) == [6.0, 60.0]),
+    "windowed_update": lambda rows, tbl: (
+        dict(zip(tbl["k"], tbl["total"])) == {0: 12.0, 1: 120.0}),
+    "windowed_delete": lambda rows, tbl: tbl["k"] == [1],
+    "time_batch_insert_flushes": lambda rows, tbl: (
+        sorted(zip(tbl["k"], tbl["total"])) == [
+            (0, 3.0), (0, 12.0), (0, 16.0), (1, 30.0), (1, 120.0),
+            (1, 160.0)]),
 }
 
 
+def _run_windowed(pkg, case):
+    """The case's Job in one package (the port on the CPU): its ``o`` rows
+    and its final table's valid rows, column by column."""
+    schemas, cql, s_cols, q_cols, batch = WINDOWED[case]
+    if pkg == "jax":
+        from flink_siddhi_tpu.runtime.executor import Job
+        from flink_siddhi_tpu.runtime.sources import BatchSource
+        from flink_siddhi_tpu.schema.batch import EventBatch
+        Schema, compile_plan, kw = JaxSchema, jax_compile, {}
+    else:
+        Job, BatchSource, EventBatch = fpt.Job, fpt.BatchSource, fpt.EventBatch
+        Schema, compile_plan, kw = fpt.StreamSchema, fpt.compile_plan, {
+            "device": "cpu"}
+    sch = {sid: Schema(f) for sid, f in schemas.items()}
+    sources = []
+    for sid, cols in (("S", s_cols), ("Q", q_cols)):
+        if cols is None:
+            continue
+        fields = dict(schemas[sid])
+        arrs = {k: np.asarray(v, np.int64 if fields[k] == "long" else
+                              np.int32 if fields[k] == "int" else
+                              np.float64) for k, v in cols.items()}
+        ts = arrs["timestamp"]
+        sources.append(BatchSource(sid, sch[sid], iter([
+            EventBatch(sid, sch[sid], {k: v[s:s + batch]
+                                       for k, v in arrs.items()},
+                       ts[s:s + batch])
+            for s in range(0, len(ts), batch)])))
+    plan = compile_plan(cql, sch)
+    job = Job([plan], sources, batch_size=batch, time_mode="processing",
+              **kw)
+    job.run()
+    rows = job.results("o") if q_cols is not None else []
+    (rt,) = job._plans.values()
+    tid = next(iter(rt.states["@tables"]))
+    tstate = {k: np.asarray(v) for k, v in rt.states["@tables"][tid].items()}
+    valid = tstate["valid"]
+    tbl = {k.split(".", 1)[1]: v[valid].tolist()
+           for k, v in tstate.items() if k.startswith("@tbl:")}
+    return rows, tbl, plan
+
+
 @pytest.mark.parametrize("case", sorted(WINDOWED))
-def test_windowed_table_writes_name_their_item(case):
-    fields, cql = WINDOWED[case]
-    jax_compile(cql, {"S": JaxSchema(fields)})  # the reference runs it
-    with pytest.raises(SiddhiQLError, match="Queue 1 item 8"):
-        fpt.compile_plan(cql, {"S": fpt.StreamSchema(fields)})
+def test_windowed_table_writes_match_the_reference(case):
+    ref_rows, ref_tbl, _ = _run_windowed("jax", case)
+    rows, tbl, plan = _run_windowed("torch", case)
+    assert rows == ref_rows and tbl == ref_tbl
+    assert WINDOWED_EXPECT[case](rows, tbl)
+    kinds = {type(a).__name__ for a in plan.artifacts}
+    if case.startswith("windowed_"):  # the rewrite: window, then K6
+        assert kinds == {"BatchWindowArtifact", "TableInsertArtifact",
+                         "TableMutateArtifact"}
+    else:
+        assert "WindowedTableInsertArtifact" in kinds
+
+
+def test_time_batch_table_insert_lands_its_last_window_at_the_flush():
+    schemas, cql, s_cols, _, _ = WINDOWED["time_batch_insert_flushes"]
+    plan = fpt.compile_plan(cql, {"S": fpt.StreamSchema(schemas["S"])})
+    assert plan.has_flush
+    job = fpt.Job([plan], [fpt.BatchSource(
+        "S", plan.schemas["S"], iter([fpt.EventBatch(
+            "S", plan.schemas["S"],
+            {"k": np.asarray(s_cols["k"], np.int32),
+             "v": np.asarray(s_cols["v"]),
+             "timestamp": np.asarray(s_cols["timestamp"], np.int64)},
+            np.asarray(s_cols["timestamp"], np.int64))]))],
+        batch_size=16, time_mode="processing", device="cpu")
+    while not job.finished:  # the whole stream, nothing flushed yet
+        job.run_cycle()
+    (rt,) = job._plans.values()
+    before = int(rt.states["@tables"]["T"]["valid"].sum())
+    job.flush()
+    assert (before, int(rt.states["@tables"]["T"]["valid"].sum())) == (4, 6)
+
+
+WINDOWED_PLAN = (
+    "define table T (tid int, tprice double, tag int);"
+    "from S[kind == 0]#window.lengthBatch(16) select id as tid, "
+    "sum(price) as tprice, count() as tag group by id insert into T;"
+    "from S[kind == 1] select id as tid, sum(price) as tprice group by id "
+    "insert into T;"
+    "from S[kind == 2]#window.length(8) select id as tid, avg(price) as "
+    "tprice group by id update T on T.tid == tid;"
+    "from S[kind == 0] join T on S.id == T.tid "
+    "select S.id as i, T.tprice as tp, T.tag as tg insert into out"
+)
+
+
+def _tree_close(ref, got, path=""):
+    """Ints and bools exact, floats within rtol 1e-5 (window sums); a
+    running sum's compensation ``kc_<sum>`` is compared added to its sum,
+    the value they stand for."""
+    if isinstance(ref, dict):
+        assert set(ref) == set(got), path
+        for k in ref:
+            if k.startswith("kc_"):
+                b = k[3:]
+                np.testing.assert_allclose(
+                    got[b].double().numpy() + got[k].double().numpy(),
+                    np.asarray(ref[b], np.float64) + np.asarray(ref[k]),
+                    rtol=1e-5, atol=1e-6, err_msg=f"{path}.{k}")
+                continue
+            _tree_close(ref[k], got[k], f"{path}.{k}")
+        return
+    r, g = np.asarray(ref), got.numpy()
+    assert r.dtype == g.dtype and r.shape == g.shape, path
+    if r.dtype.kind == "f":
+        np.testing.assert_allclose(g, r, rtol=1e-5, err_msg=path)
+    else:
+        assert np.array_equal(r, g), path
+
+
+@pytest.mark.parametrize("load_at", [None, 2])
+def test_windowed_plan_state_carries_across_packages(load_at):
+    """A plan of windowed and aggregated inserts, a windowed update (its
+    synthesized stream and K6's plain version) and a table join, stepped
+    against the JAX plan; the JAX state (each windowed insert's nested
+    ``win`` state, its ``overflow``, the encoders) loaded mid-stream."""
+    jplan, tplan = _plans(WINDOWED_PLAN, table_capacity=32)
+    rng = np.random.default_rng(12)
+    jst, tst = jplan.init_state(), tplan.init_state("cpu")
+    encs = [(je.encoder, te.encoder)
+            for je, te in zip(jplan.spec.encoded, tplan.spec.encoded)]
+    assert len(encs) == 3
+    for k in range(4):
+        ts, stream, valid, cols = _tape(rng, 128, n_ids=40)
+        jcols, tcols = dict(cols), dict(cols)
+        for (je, te), jenc, tenc in zip(
+                encs, jplan.spec.encoded, tplan.spec.encoded):
+            # each query's group codes, over its own filter's events
+            sel = valid & tenc.select_fn(
+                {c: v for c, v in cols.items() if c != "S.timestamp"})
+            jcols[jenc.out_key] = je.intern_rows([cols["S.id"]], sel)
+            tcols[tenc.out_key] = te.intern_rows([cols["S.id"]], sel)
+        jt, _ = _tapes_of((ts, stream, valid, jcols))
+        _, tt = _tapes_of((ts, stream, valid, tcols))
+        jst, tst = jplan.grow_state(jst), tplan.grow_state(tst)
+        if k == load_at:
+            tst = fpt.state_from_numpy(
+                tplan, jax_tree_np(jst), "cpu",
+                {e.out_key: e.encoder.state_dict()
+                 for e in jplan.spec.encoded})
+        jst, jout = jax.jit(jplan.step)(jst, jt)
+        tst, tout = tplan.step(tst, tt)
+        _tree_close(jst, tst)
+    assert bool(tst["@tables"]["T"]["valid"].any())
+    assert any(isinstance(v, dict) and "win" in v for v in tst.values())
 
 
 def test_call_over_both_sides_names_its_item():
@@ -810,3 +1001,53 @@ def test_table_join_dir_shares_its_fixed_tensors():
         a.a_mask[:E - 1], torch.zeros((0, E - 1), dtype=torch.int32),
         a.b_valid, a.b_cols, (), 0, False)
     assert other.b_cum is not a.b_cum and other.b_cum.shape == (E - 1,)
+
+
+# -- `on` programs deeper than a thread's local stack ------------------------------
+
+def _deep(attr: str, n: int) -> str:
+    """``attr + (attr + (... attr))``: a program ``n`` + 1 values deep."""
+    e = attr
+    for _ in range(n):
+        e = f"({attr} + {e})"
+    return e
+
+
+DEEP = {
+    "table_update": (
+        "define table T (tid int, tprice double);"
+        "from S[kind == 0] select id as tid, price as tprice insert into T;"
+        "from S[kind == 2] select id as tid, price as tprice update T on "
+        "T.tid == tid and T.tprice * 300.0 > " + _deep("tprice", 240) + ";"
+        "from S[kind == 1] join T on S.id == T.tid "
+        "select S.id as i, T.tprice as tp insert into out"),
+    "stream_join": (
+        "from S[kind == 0]#window.length(6) as a join "
+        "S[kind == 1]#window.length(6) as b on a.id == b.id and "
+        "a.price * 300.0 > " + _deep("b.price", 240) +
+        " select a.id as i, a.price as pa, b.price as pb insert into out"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEEP))
+def test_deep_on_programs_give_the_reference_rows(case):
+    """An ``on`` program 243 values deep (past the kernels' 227-word local
+    stacks; on the card it takes their global stack) runs on the CPU
+    through the plain path and gives the JAX package's rows."""
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(20000)  # both parsers recurse per parenthesis
+    try:
+        schema = fpt.StreamSchema(SCHEMA)
+        plan = fpt.compile_plan(DEEP[case], {"S": schema})
+        depths = [p.depth for a in plan.artifacts
+                  for p in ([a.on] if hasattr(a, "on") else
+                            (getattr(a, "on_progs", None) or {}).values())]
+        assert max(depths) > 227
+        rng = np.random.default_rng(31)
+        events = [Event(int(rng.integers(0, 6)), int(rng.integers(0, 3)),
+                        float(np.round(rng.random() * 10, 1)), 1000 + i)
+                  for i in range(300)]
+        rows = run_both(events, DEEP[case], 64)
+    finally:
+        sys.setrecursionlimit(limit)
+    assert rows

@@ -289,10 +289,20 @@ _LATER = {
 }
 
 
+# forms of _LATER that a later slice brought into the port: each compiles
+# to its artifact (the case keeps its id)
+_CAME = {"partitioned_length_window": "PerKeyWindowArtifact"}
+
+
 @pytest.mark.parametrize("name", sorted(_LATER))
 def test_later_slices_raise_naming_the_port(name):
     cql = _LATER[name]
     # the reference compiles it; the port names its later slice
     jax_compile(cql, {"StockStream": JaxSchema(_FIELDS)})
+    if name in _CAME:
+        plan = fpt.compile_plan(
+            cql, {"StockStream": fpt.StreamSchema(_FIELDS)})
+        assert [type(a).__name__ for a in plan.artifacts] == [_CAME[name]]
+        return
     with pytest.raises(SiddhiQLError, match="torch port"):
         fpt.compile_plan(cql, {"StockStream": fpt.StreamSchema(_FIELDS)})
