@@ -11,7 +11,7 @@ of JAX and nothing of the JAX package. Phases, each failing the run on any
 fault:
 
 1. device: the card's name and power limit;
-2. build: the six kernels (and empty ones: the launch floor, and the
+2. build: the nine kernels (and empty ones: the launch floor, and the
    slot scan's serial floors: empty barrier rounds and empty warp
    rounds; and the float probe) compiled with -ftz=true from the
    checkout's sources, one nvcc per source, all started together
@@ -75,6 +75,17 @@ fault:
    one block a chunk and a cut grid; a CUDA graph replay; and K5 on a
    table direction
    (the stream-table join with outer rows) against its plain version;
+   K3's integer path (int32 value columns, most past 2^24: the table and
+   int32 minima and maxima exact, sums within rtol 1e-5) in four cases;
+   and the scan windows' kernels against their plain versions (run on CPU
+   copies, from a carried state the plain version left after a first
+   batch): K7 (session_scan) equal as stored, sums too, at S1's shape
+   (524,288 events, 1,024 keys, stragglers, an int column), unkeyed and
+   at 64 keys; K8 (frequency_scan) at F1's and F2's shapes, a full lossy
+   table (victims), codes past its lookup map, a 70,000-slot table in
+   device memory and Zipf codes; K9 (sort_window_scan) at O1's and O2's
+   shapes, C = 100 with NaN keys and a 20,000-slot buffer in device
+   memory (``check_scan_windows``);
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream, with the launch counters reset just before
@@ -165,7 +176,9 @@ fault:
    the stack's full-width branch (its peak memory, its rows equal to the
    compacted branch's). The chain kernels' stacked inputs go to phase 9;
 8b. slot NFA (in a process of its own, `--slots OUT`): four slot-NFA
-   queries over the bench stream under bench.py's settings (SLOT_QUERIES:
+   queries over SLOT_STEPS = 8 tapes of the bench stream (4,194,304
+   events; 20 tapes before phase 8f came, cut for the time limit) under
+   bench.py's settings (SLOT_QUERIES:
    a quantified middle element and an 'or' group, both relevance-
    compacted; a sequence with `+` and a cross-element filter, both
    scanning every event): rows of the first 32,768 events on the card
@@ -235,6 +248,19 @@ fault:
    one segment under sync debug mode "error", the launches on the host
    and in a traced rerun). P1's K4 and W1's K6 inputs of the third step
    go to phase 9;
+8f. scan windows (in a process of its own, `--scan-windows OUT`):
+   SCAN_STEPS = 4 tapes of 524,288 events each of S1 (`#window.session(2
+   sec, user)` over the partition stream: K7, and the flush's rows), O1
+   (`#window.sort(10, price)`, one buffer: K9 on one warp), O2 (a
+   `sort(4, price, 'desc')` per id inside `partition with`: K9, a warp a
+   partition), F1 (`#window.frequent(8, id)`: K8), F2
+   (`lossyFrequent(0.015, 0.0015, id)`, 4,096 slots: K8) over the bench
+   stream, and U1 (the quote board over INT/LONG volumes: K3's integer
+   path) over phase 6's quote stream, each through ``part_plan``: rows
+   of the first 8,192 events on the card equal to the CPU path's (floats
+   and U1's LONG sum within rtol 1e-5), then the streaming and resident
+   runs of 8b-8e (the kernel once a step on the host and in a traced
+   rerun). Each plan's third-step kernel inputs go to phase 9;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -265,7 +291,13 @@ fault:
    tables path's third step (the stream-table join), exact and timed;
    K4 on P1's third step at 512 slots and K6 on W1's (the rewritten
    update and the delete), each exact against its plain version and
-   timed;
+   timed; K7 on S1's third step, K8 on F1's and F2's, K9 on O1's and
+   O2's (``time_scan_kernel``: held to the plain version on the CPU
+   copies, on the whole tape or, where the plain version walks event by
+   event, its first 4,096 events; CUDA events around back-to-back calls;
+   the byte bound and the longest chain's serial floor of empty warp
+   rounds), K7 unkeyed over S1's third step (one thread walks the tape),
+   and K3's integer path on U1's third step;
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -535,7 +567,10 @@ TRACED_KERNELS = {"multi_reverse_cummin": "suffix_min_kernel",
                   "unique_window_fold": "rows_kernel",
                   "slot_nfa_scan": "slot_nfa_kernel",
                   "join_pairs": "join_walk_kernel",
-                  "table_mutate": "table_mutate_kernel"}
+                  "table_mutate": "table_mutate_kernel",
+                  "session_scan": "session_scan_kernel",
+                  "frequency_scan": "frequency_scan_kernel",
+                  "sort_window_scan": "sort_window_kernel"}
 
 
 def traced_launches(prof, names=TRACED_KERNELS):
@@ -1026,12 +1061,50 @@ def non_finite(dev, gen, args):
     return t[0], t[1], t[2], t[3], t[4]
 
 
-def fold_err(got, ref, slots, what):
+def int_columns(dev, gen, args, int_cols):
+    """The same batch with the columns ``int_cols`` holding int32 values by
+    bit pattern (K3's integer path): 80% uniform in [0, 2^31) (so most are
+    past 2^24, where float32 rounds them), the rest in [-100, 100), in the
+    events and the carried table. Large values of both signs would cancel
+    in the sums, where the plain version's float32 sum (as the
+    reference's) strays past FOLD_RTOL from the kernel's exact one."""
+    import torch
+
+    mask, codes, vals, valid0, bufs0 = (x.cpu() for x in args)
+    vals, bufs0 = vals.clone(), bufs0.clone()
+    for a in int_cols:
+        for t in (vals, bufs0):
+            n = int(t.shape[1])
+            big = torch.randint(0, 2 ** 31 - 1, (n,), generator=gen,
+                                dtype=torch.int64)
+            small = torch.randint(-100, 100, (n,), generator=gen)
+            pick = torch.rand(n, generator=gen) < 0.8
+            t[a] = torch.where(pick, big, small).to(torch.int32).view(
+                torch.float32)
+    t = [x.to(dev) for x in (mask, codes, vals, valid0, bufs0)]
+    return t[0], t[1], t[2], t[3], t[4]
+
+
+def fold_err(got, ref, slots, what, int_cols=()):
     """Kernel vs plain fold, NaN-aware: the table bitwise equal; NaN at the
     same places of every row; elsewhere counts, minima and maxima equal and
-    sums and averages within FOLD_RTOL. Returns the rows' max abs and max
-    relative error over the finite values."""
+    sums and averages within FOLD_RTOL (an int column's min and max rows
+    equal as int32). Returns the rows' max abs and max relative error over
+    the finite float values."""
     import torch
+
+    rows, ref_rows = got[2], ref[2]
+    int_rows = [s for s, (kind, a) in enumerate(slots)
+                if kind in ("min", "max") and a in int_cols]
+    for s in int_rows:
+        if not torch.equal(rows[s].view(torch.int32),
+                           ref_rows[s].view(torch.int32)):
+            raise AssertionError(f"{what}: int32 {slots[s][0]} row {s} "
+                                 "differs")
+    keep = [s for s in range(len(slots)) if s not in int_rows]
+    got = (got[0], got[1], rows[keep])
+    ref = (ref[0], ref[1], ref_rows[keep])
+    slots = [slots[s] for s in keep]
 
     if not torch.equal(got[0], ref[0]):
         raise AssertionError(f"{what}: valid differs")
@@ -1042,6 +1115,8 @@ def fold_err(got, ref, slots, what):
     rows, ref_rows = got[2], ref[2]
     if rows.shape != ref_rows.shape:
         raise AssertionError(f"{what}: rows shape differs")
+    if not slots:
+        return 0.0, 0.0
     for s, (kind, _) in enumerate(slots):
         nan = torch.isnan(ref_rows[s])
         if not torch.equal(torch.isnan(rows[s]), nan):
@@ -1095,22 +1170,343 @@ def check_unique_fold(co, dev, gen):
         ("NaN, +inf and -inf E=524288 C=16384", BATCH, 16_384, 2, both,
          zipf, {}),
     ]
+    # K3's integer path: column 0 int32 (U1's volume), column 1 float
+    # (NaN and infinities in the second case)
+    ints = [
+        ("int32 column E=3001 C=128", 3001, 128, 2, both, None, {}),
+        ("int32 column E=524288 C=16384", BATCH, 16_384, 2, both, zipf,
+         {}),
+        ("int32 column, float NaN and inf E=20000 C=4096", 20_000, 4096, 2,
+         both, None, {}),
+        ("int32 columns only E=65536 C=16384", 65_536, 16_384, 2, both,
+         None, {}),
+    ]
     err = rel = 0.0
-    for i, (name, E, C, A, slots, codes, kw) in enumerate(cases + nonfinite):
+    for i, (name, E, C, A, slots, codes, kw) in enumerate(
+            cases + nonfinite + ints):
         args = fold_inputs(dev, gen, E, C, A, codes=codes, **kw)
-        if i >= len(cases):
+        int_cols = ()
+        if i >= len(cases) + len(nonfinite):
+            int_cols = (0, 1) if "only" in name else (0,)
+            if "NaN" in name:
+                args = non_finite(dev, gen, args)
+            args = int_columns(dev, gen, args, int_cols)
+        elif i >= len(cases):
             args = non_finite(dev, gen, args)
-        got = co.unique_window_fold(*args, slots)
-        ref = co.unique_window_fold_plain(*args, slots)
+        got = co.unique_window_fold(*args, slots, int_cols)
+        ref = co.unique_window_fold_plain(*args, slots, int_cols)
         torch.cuda.synchronize()
-        e, r = fold_err(got, ref, slots, f"unique_window_fold {name}")
-        n_nan = int(torch.isnan(ref[2]).sum())
+        e, r = fold_err(got, ref, slots, f"unique_window_fold {name}",
+                        int_cols)
+        n_nan = int(torch.isnan(ref[2][[
+            s for s, (k, a) in enumerate(slots)
+            if not (k in ("min", "max") and a in int_cols)]]).sum())
         err, rel = max(err, e), max(rel, r)
         log(f"  unique_window_fold {name}: table exact, rows max abs err "
             f"{e:.6g}, max rel err {r:.3g}, NaN cells {n_nan}, "
             f"{co.unique_window_fold.kernel_launches} kernel launches, "
             f"{co.unique_window_fold.scratch_bytes} B scratch")
     return err, rel
+
+
+# -- phase 3, K7-K9: the scan windows' loops --------------------------------
+
+SCAN_RTOL = 1e-5  # K8 / K9 sums: the kernels' fp64 warp sums vs float32
+
+
+def same_bits(a, b, what):
+    """Equal as stored: float32 by bit pattern, except that any NaN equals
+    any NaN (the kernels write the canonical NaN)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} against "
+                             f"{b.dtype}{tuple(b.shape)}")
+    if a.dtype == torch.float32:
+        nan = torch.isnan(b)
+        if not torch.equal(torch.isnan(a), nan) or not torch.equal(
+                a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]):
+            raise AssertionError(f"{what}: kernel and plain version disagree")
+        return 0
+    return same(a, b, what)
+
+
+def scan_rows_err(got, ref, slots, int_cols, what):
+    """K8 / K9 rows, kernel against plain: counts, minima and maxima equal
+    as stored (an int column's by int32 bits; NaN places equal), sums and
+    averages within SCAN_RTOL with NaN and infinities in the same places.
+    Returns the largest relative difference."""
+    import torch
+
+    worst = 0.0
+    for s, (kind, a) in enumerate(slots):
+        g, r = got[s], ref[s]
+        if kind in ("min", "max") and a in int_cols:
+            same(g.view(torch.int32), r.view(torch.int32), f"{what} {kind}")
+            continue
+        if kind in ("count", "min", "max"):
+            same_bits(g, r, f"{what} {kind} row {s}")
+            continue
+        nan = torch.isnan(r)
+        fin = torch.isfinite(r)
+        if (not torch.equal(torch.isnan(g), nan)
+                or not torch.equal(g[~fin & ~nan], r[~fin & ~nan])
+                or not torch.allclose(g[fin], r[fin], rtol=SCAN_RTOL,
+                                      atol=0)):
+            raise AssertionError(f"{what}: {kind} row {s} differs")
+        if fin.any():
+            rel = ((g[fin] - r[fin]).abs()
+                   / r[fin].abs().clamp(min=1e-30)).max()
+            worst = max(worst, float(rel))
+    return worst
+
+
+def scan_values(rng, E, A, int_cols, p_nan=0.0):
+    """Float32 ``[A, E]`` argument values: prices in [1, 500) to the cent,
+    an int column's int32 values in [0, 2^31) (most past 2^24; one sign,
+    as ``int_columns`` says why) by bit pattern, a share ``p_nan`` of a
+    float column NaN."""
+    v = np.round(rng.random((A, E)) * 499 + 1, 2).astype(np.float32)
+    for a in range(A):
+        if a in int_cols:
+            v[a] = rng.integers(0, 2 ** 31 - 1, E).astype(
+                np.int32).view(np.float32)
+        elif p_nan:
+            v[a][rng.random(E) < p_nan] = np.nan
+    return v
+
+
+def session_inputs(co, rng, E, G, A, int_cols, gap, keyed=True):
+    """K7's inputs: 80% of E events masked, one ms apart with 1% of them
+    up to three gaps late (stragglers), keys uniform over G (all 0
+    unkeyed), float32 arguments (an int column's values as float32, as the
+    artifact casts them), and a carried table from the plain version's
+    walk over a first batch of the same shape."""
+    import torch
+
+    def batch(t0):
+        ts = t0 + np.arange(E, dtype=np.int64)
+        late = rng.random(E) < 0.01
+        ts[late] -= rng.integers(1, 3 * gap, int(late.sum()))
+        codes = (rng.integers(0, G, E) if keyed else np.zeros(E)).astype(
+            np.int32)
+        vals = np.round(rng.random((A, E)) * 499 + 1, 2).astype(np.float32)
+        for a in int_cols:
+            vals[a] = rng.integers(-2 ** 31, 2 ** 31 - 1, E).astype(
+                np.float32)
+        return (torch.from_numpy(rng.random(E) < 0.8),
+                torch.from_numpy(codes), torch.from_numpy(ts.astype(np.int32)),
+                torch.from_numpy(vals))
+
+    ident = [(2 ** 31 - 1, -2 ** 31) if a in int_cols
+             else (float("inf"), float("-inf")) for a in range(A)]
+    mn = torch.zeros((A, G), dtype=torch.float32)
+    mx = torch.zeros((A, G), dtype=torch.float32)
+    for a, (lo, hi) in enumerate(ident):
+        if a in int_cols:
+            mn[a] = torch.full((G,), lo, dtype=torch.int32).view(
+                torch.float32)
+            mx[a] = torch.full((G,), hi, dtype=torch.int32).view(
+                torch.float32)
+        else:
+            mn[a], mx[a] = lo, hi
+    state = (torch.zeros(G, dtype=torch.bool),
+             torch.zeros(G, dtype=torch.int32),
+             torch.zeros(G, dtype=torch.int32),
+             torch.zeros((A, G), dtype=torch.float32), mn, mx)
+    first = co.session_scan_plain(*batch(1000), *state, gap, int_cols)[:6]
+    return (*batch(1000 + E), *first, gap, int_cols)
+
+
+def session_check(co, args, what, dev):
+    """K7 on ``dev`` against its plain version on the CPU copies: every
+    output equal as stored (the sums too: both add in the reference's
+    order)."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref = co.session_scan_plain(*args)
+    plain_s = time.perf_counter() - t0
+    got = co.session_scan(*[a.to(dev) if isinstance(a, torch.Tensor) else a
+                            for a in args])
+    torch.cuda.synchronize()
+    names = ("open", "last", "cnt", "s", "mn", "mx", "closes", "c_last",
+             "c_cnt", "c_s", "c_mn", "c_mx")
+    for g, r, n in zip(got, ref, names):
+        same_bits(g.cpu(), r, f"session_scan {what}: {n}")
+    return int(ref[6].sum()), plain_s
+
+
+def frequency_inputs(co, rng, E, C, A, int_cols, lossy, n_codes,
+                     support=0.015, error=0.0015, zipf=False, k_map=None,
+                     full=False):
+    """K8's inputs: 80% of E events masked, codes uniform (or Zipf) over
+    ``n_codes``, ``scan_values`` arguments, and a carried table from the
+    plain version over a first batch of the same shape (``full``: every
+    slot valid, holding codes 0 .. C - 1 with small counts, so unseen
+    codes take the lossy victim path). ``k_map`` cuts the lookup map below
+    the codes (the ballot-scan path)."""
+    import torch
+
+    width = max(int(np.ceil(1.0 / error)), 1) if lossy else 0
+    factor = float(np.float32(support - error))
+    slots = [("count", -1)] + [(k, a) for a in range(A)
+                               for k in ("sum", "min", "max", "avg")]
+
+    def batch():
+        if zipf:
+            w = 1.0 / np.arange(1, n_codes + 1)
+            codes = rng.choice(n_codes, E, p=w / w.sum())
+        else:
+            codes = rng.integers(0, n_codes, E)
+        return (torch.from_numpy(rng.random(E) < 0.8),
+                torch.from_numpy(codes.astype(np.int32)),
+                torch.from_numpy(scan_values(rng, E, A, int_cols, 0.001)))
+
+    state = (torch.zeros(C, dtype=torch.bool),
+             torch.full((C,), -1, dtype=torch.int32),
+             torch.zeros(C, dtype=torch.int32),
+             torch.zeros(C, dtype=torch.int32),
+             torch.tensor(0, dtype=torch.int32),
+             torch.zeros((A, C), dtype=torch.float32))
+    tail = (slots, int_cols, lossy, width, factor,
+            n_codes if k_map is None else k_map)
+    first = co.frequency_scan_plain(*batch(), *state, *tail)[:6]
+    if full:
+        first = (torch.ones(C, dtype=torch.bool),
+                 torch.arange(C, dtype=torch.int32),
+                 torch.from_numpy(rng.integers(1, 6, C).astype(np.int32)),
+                 torch.from_numpy(rng.integers(0, 3, C).astype(np.int32)),
+                 torch.tensor(40, dtype=torch.int32),
+                 torch.from_numpy(scan_values(rng, C, A, int_cols)))
+    return (*batch(), *first, *tail)
+
+
+def frequency_check(co, args, what, dev):
+    """K8 on ``dev`` against its plain version on the CPU copies: the
+    table, ``seen`` and ``emit`` equal, the rows by ``scan_rows_err``."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref = co.frequency_scan_plain(*args)
+    plain_s = time.perf_counter() - t0
+    got = co.frequency_scan(*[a.to(dev) if isinstance(a, torch.Tensor)
+                              else a for a in args])
+    torch.cuda.synchronize()
+    for g, r, n in zip(got[:7], ref[:7], ("valid", "code", "freq", "delta",
+                                          "seen", "bufs", "emit")):
+        same_bits(g.cpu(), r, f"frequency_scan {what}: {n}")
+    rel = scan_rows_err(got[7].cpu(), ref[7], args[9], args[10],
+                        f"frequency_scan {what}")
+    return int(ref[6].sum()), rel, plain_s
+
+
+def sort_inputs(co, rng, E, P, C, A, int_cols, n_parts=None,
+                p_nan_key=0.0):
+    """K9's inputs: 80% of E events masked, partitions uniform over
+    ``n_parts`` (of P buffers), float32 keys (a share ``p_nan_key`` NaN),
+    ``scan_values`` arguments, and carried buffers from the plain version
+    over a first batch of the same shape."""
+    import torch
+
+    slots = [("count", -1)] + [(k, a) for a in range(A)
+                               for k in ("sum", "min", "max", "avg")]
+
+    def batch():
+        keys = np.round(rng.random(E) * 100, 2).astype(np.float32)
+        keys[rng.random(E) < p_nan_key] = np.nan
+        return (torch.from_numpy(rng.random(E) < 0.8),
+                torch.from_numpy(rng.integers(0, n_parts or P, E).astype(
+                    np.int32)),
+                torch.from_numpy(keys),
+                torch.from_numpy(scan_values(rng, E, A, int_cols, 0.001)))
+
+    state = (torch.zeros((P, C), dtype=torch.bool),
+             torch.zeros((P, C), dtype=torch.float32),
+             torch.zeros((A, P, C), dtype=torch.float32))
+    first = co.sort_window_scan_plain(*batch(), *state, slots, int_cols)[:3]
+    return (*batch(), *first, slots, int_cols)
+
+
+def sort_check(co, args, what, dev):
+    """K9 on ``dev`` against its plain version on the CPU copies: the
+    buffers equal as stored, the rows by ``scan_rows_err``."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref = co.sort_window_scan_plain(*args)
+    plain_s = time.perf_counter() - t0
+    got = co.sort_window_scan(*[a.to(dev) if isinstance(a, torch.Tensor)
+                                else a for a in args])
+    torch.cuda.synchronize()
+    for g, r, n in zip(got[:3], ref[:3], ("valid", "bkey", "bufs")):
+        same_bits(g.cpu(), r, f"sort_window_scan {what}: {n}")
+    return scan_rows_err(got[3].cpu(), ref[3], args[7], args[8],
+                         f"sort_window_scan {what}"), plain_s
+
+
+def check_scan_windows(co, dev):
+    """Phase 3, K7-K9: each kernel against its plain version (run on CPU
+    copies), from a carried state the plain version left after a first
+    batch. K7 (session_scan) equal as stored: S1's shape (E = 524,288,
+    1,024 keys, 2 s gap, an int column past 2^24, stragglers), an unkeyed
+    walk (E = 2,048) and 64 keys. K8 (frequency_scan): F1's `frequent(8)`
+    and F2's `lossyFrequent(0.015, 0.0015)` (4,096 slots) over 50 codes,
+    a lossy table of 16 slots over 300 codes (the victim path), codes past
+    the lookup map (the ballot scan), a 70,000-slot `frequent` table in
+    device memory (past shared memory), Zipf codes. K9
+    (sort_window_scan): O1's shape (C = 10, one partition), O2's (64
+    buffers of 4, 50 partitions), C = 100 (four chunks), NaN keys, a
+    20,000-slot buffer in device memory. Int columns in each. Returns
+    (max relative sum error, the plain versions' seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    rel = 0.0
+    plain_s = 0.0
+    for what, E, G, A, ints, gap, keyed in (
+            ("S1 shape E=524288 G=1024", BATCH, 1024, 2, (1,), 2000, True),
+            ("unkeyed E=2048", 2048, 128, 2, (1,), 3, False),
+            ("64 keys E=65536 gap 80 ms", 65_536, 64, 1, (), 80, True)):
+        args = session_inputs(co, rng, E, G, A, ints, gap, keyed)
+        closed, ps = session_check(co, args, what, dev)
+        plain_s += ps
+        log(f"  session_scan {what}: exact, {closed} sessions closed "
+            f"(plain {ps:.2f} s)")
+    for what, E, C, A, ints, lossy, n_codes, kw in (
+            ("F1 frequent(8) E=8192", 8192, 8, 2, (1,), False, 50, {}),
+            ("F2 lossyFrequent cap 4096 E=8192", 8192, 4096, 1, (), True,
+             50, {}),
+            ("lossy full 16 slots, 300 Zipf codes (victims)", 4096, 16, 2,
+             (0,), True, 300, dict(support=0.35, error=0.3, zipf=True,
+                                   full=True)),
+            ("codes past the map", 4096, 8, 1, (), False, 50,
+             dict(k_map=10)),
+            ("frequent 70000 slots in device memory", 1024, 70_000, 1, (),
+             False, 90_000, {}),
+            ("lossy Zipf codes", 8192, 256, 1, (0,), True, 2000,
+             dict(support=0.05, error=0.01, zipf=True))):
+        args = frequency_inputs(co, rng, E, C, A, ints, lossy, n_codes, **kw)
+        emitted, r, ps = frequency_check(co, args, what, dev)
+        rel, plain_s = max(rel, r), plain_s + ps
+        log(f"  frequency_scan {what}: exact, {emitted} rows, sums rel err "
+            f"{r:.3g} (plain {ps:.2f} s)")
+    for what, E, P, C, A, ints, kw in (
+            ("O1 shape C=10 E=4096", 4096, 1, 10, 2, (1,), {}),
+            ("O2 shape 64 x 4, 50 partitions E=65536", 65_536, 64, 4, 1,
+             (), dict(n_parts=50)),
+            ("C=100 E=2048, NaN keys", 2048, 1, 100, 2, (0,),
+             dict(p_nan_key=0.01)),
+            ("C=20000 in device memory E=512", 512, 1, 20_000, 3, (2,),
+             {})):
+        args = sort_inputs(co, rng, E, P, C, A, ints, **kw)
+        r, ps = sort_check(co, args, what, dev)
+        rel, plain_s = max(rel, r), plain_s + ps
+        log(f"  sort_window_scan {what}: exact, sums rel err {r:.3g} "
+            f"(plain {ps:.2f} s)")
+    log(f"  K7-K9 checks {time.perf_counter() - t0:.1f} s")
+    return rel, plain_s
 
 
 # -- phase 3, K4: the slot NFA scan -----------------------------------------
@@ -2088,10 +2484,12 @@ def replay_job(fpt, cql, schema, batches, retain):
                    retain_results=retain, device="cuda")
 
 
-def rows_match(got, ref, rtol, what):
+def rows_match(got, ref, rtol, what, int_close=()):
     """Fails unless the rows ``got`` equal ``ref``: the same timestamps in
     the same order and every value equal, float values within ``rtol``
-    (0: exactly). Returns the largest relative difference of a float."""
+    (0: exactly), and so the int columns ``int_close`` (an INT/LONG sum is
+    a float32 sum cast to int, whose rounding moves with the order of the
+    adds). Returns the largest relative difference of a float."""
     if got == ref:
         return 0.0
     if rtol == 0.0:
@@ -2102,10 +2500,11 @@ def rows_match(got, ref, rtol, what):
     for (tg, rg), (tr, rr) in zip(got, ref):
         if tg != tr or len(rg) != len(rr):
             raise AssertionError(f"{what}: row at {tr} differs: {rg} {rr}")
-        for a, b in zip(rg, rr):
+        for c, (a, b) in enumerate(zip(rg, rr)):
             if a == b:
                 continue
-            if not (isinstance(b, float) and isinstance(a, float)):
+            if not (isinstance(b, float) and isinstance(a, float)
+                    or c in int_close):
                 raise AssertionError(f"{what}: row at {tr}: {rg} vs {rr}")
             rel = abs(a - b) / abs(b)
             if not rel <= rtol:
@@ -3137,6 +3536,7 @@ def multiquery_phase(fpt, co, out_path):
 
 SLOT_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
 SLOT_TIMED_RUNS = 5  # phase 9's timed calls of K4 on each query's input
+SLOT_STEPS = 8  # phase 8b's tapes of BATCH (20 before phase 8f: the budget)
 
 
 def keep_calls(fn, keep, into, copy=None):
@@ -3338,7 +3738,7 @@ def slot_query(fpt, co, nfa, name, cql, schema, batches):
     runs = main_path_runs(
         fpt, co, f"slot {name}", ("matches",),
         lambda dev, retain: replay_job(fpt, cql, schema, batches, retain),
-        {"slot_nfa_scan": 1}, N_BATCHES, n_events,
+        {"slot_nfa_scan": 1}, len(batches), n_events,
         patches=((nfa, "slot_nfa_scan", rec),), make_sink=make_sink)
     scan_args = rec.args
     # K4 on this run's third step: events visited, us a visited event,
@@ -3377,7 +3777,7 @@ def slot_phase(fpt, co, out_path):
 
     from flink_siddhi_tpu_torch.compiler import nfa
 
-    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    schema, batches = bench_stream(fpt, BATCH * SLOT_STEPS, BATCH)
     results, recorded = [], {}
     for name, cql in SLOT_QUERIES:
         t0 = time.perf_counter()
@@ -3970,11 +4370,11 @@ def overflow_counts(job):
 
 
 def part_plan(fpt, co, name, cql, outs, make_job, check_job, want, steps,
-              n_events, patches=(), tables=False):
-    """One plan of phase 8e: rows of ``check_job``'s events on the card
-    equal to the CPU path's (floats within PART_RTOL; W1 at one tape size,
-    its final table too), then ``main_path_runs`` over the whole stream.
-    Returns the result."""
+              n_events, patches=(), tables=False, int_close=()):
+    """One plan of phases 8e and 8f: rows of ``check_job``'s events on the
+    card equal to the CPU path's (floats and the ``int_close`` columns
+    within PART_RTOL; W1 at one tape size, its final table too), then
+    ``main_path_runs`` over the whole stream. Returns the result."""
     import torch
 
     t_plan = time.perf_counter()
@@ -3991,7 +4391,8 @@ def part_plan(fpt, co, name, cql, outs, make_job, check_job, want, steps,
     worst = 0.0
     for o in outs:
         worst = max(worst, rows_match(got["cuda"][0][o], got["cpu"][0][o],
-                                      PART_RTOL, f"{name} {o}: card vs CPU"))
+                                      PART_RTOL, f"{name} {o}: card vs CPU",
+                                      int_close))
     check_rows = sum(len(r) for r in got["cpu"][0].values())
     if tables:
         for k, v in got["cpu"][2].items():
@@ -4109,6 +4510,126 @@ def partitions_main(out_path):
 
     co.build()
     partition_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
+# -- phase 8f: the scan windows ----------------------------------------------
+
+SCAN_STEPS = 4  # tapes of BATCH each plan runs (the kernels walk in series)
+SCAN_CHECK_EVENTS = 8_192  # rows held to the CPU path over these events
+SCAN_PLAIN_EVENTS = 4_096  # phase 9: a walking plain version's prefix
+S1 = ("from inputStream#window.session(2 sec, user) select user, "
+      "count() as c, sum(price) as s, max(price) as hi insert into sessions")
+O1 = ("from inputStream#window.sort(10, price) select id, count() as c, "
+      "min(price) as mn, max(price) as mx, sum(price) as s insert into lows")
+O2 = ("partition with (id of inputStream) begin "
+      "from inputStream#window.sort(4, price, 'desc') select id, "
+      "max(price) as hi, min(price) as lo, count() as c insert into tops; "
+      "end")
+F1 = ("from inputStream#window.frequent(8, id) select id, count() as c, "
+      "sum(price) as s insert into heavy")
+F2 = ("from inputStream#window.lossyFrequent(0.015, 0.0015, id) select id, "
+      "count() as c insert into hitters")
+U1 = ("from StockStream#window.unique(symbol) select symbol, "
+      "count() as symbols, sum(volume) as v, max(volume) as vmax, "
+      "avg(price) as p insert into Board")
+# name, cql, output, stream (partition, bench, quote), kernel, artifact,
+# int columns compared within PART_RTOL (a LONG sum)
+SCAN_PLANS = (
+    ("S1", S1, "sessions", "partition", "session_scan",
+     "SessionWindowArtifact", ()),
+    ("O1", O1, "lows", "bench", "sort_window_scan", "ScanWindowArtifact",
+     ()),
+    ("O2", O2, "tops", "bench", "sort_window_scan", "ScanWindowArtifact",
+     ()),
+    ("F1", F1, "heavy", "bench", "frequency_scan", "FrequencyWindowArtifact",
+     ()),
+    ("F2", F2, "hitters", "bench", "frequency_scan",
+     "FrequencyWindowArtifact", ()),
+    ("U1", U1, "Board", "quote", "unique_window_fold", "ScanWindowArtifact",
+     (2,)),
+)
+
+
+def scan_job(fpt, cql, sid, schema, batches, device, retain):
+    """A Job of one plan over the stream ``sid`` at BATCH, bench.py's
+    settings."""
+    plan = fpt.compile_plan(cql, {sid: schema}, plan_id="bench",
+                            config=bench_config(fpt))
+    return fpt.Job([plan], [fpt.BatchSource(sid, schema, iter(batches))],
+                   batch_size=BATCH, time_mode="processing",
+                   retain_results=retain, device=device)
+
+
+def scan_phase(fpt, co, out_path):
+    """Phase 8f: S1 (a keyed session over the partition stream: K7), O1
+    and O2 (a sort window, unpartitioned and per id: K9), F1 and F2
+    (frequent and lossyFrequent: K8) over the bench stream, U1 (the quote
+    board over INT/LONG volumes: K3's integer path) over phase 6's quote
+    stream, each SCAN_STEPS tapes of BATCH through ``part_plan`` (its rows
+    of the first SCAN_CHECK_EVENTS events held to the CPU path). Each
+    kernel's inputs of its plan's third step go to ``out_path``.pt, the
+    result to ``out_path``."""
+    import torch
+
+    from flink_siddhi_tpu_torch.compiler import scan_windows
+
+    t_phase = time.perf_counter()
+    n_events = BATCH * SCAN_STEPS
+    streams = {"partition": partition_stream(fpt, n_events, BATCH),
+               "bench": bench_stream(fpt, n_events, BATCH),
+               "quote": quote_stream(fpt, n_events, BATCH)[:2]}
+    sids = {"partition": "inputStream", "bench": "inputStream",
+            "quote": "StockStream"}
+    results, recorded = [], {}
+    for name, cql, out, stream, kernel, art_name, int_close in SCAN_PLANS:
+        schema, batches = streams[stream]
+        sid = sids[stream]
+        prefix = [batches[0].slice(0, SCAN_CHECK_EVENTS)]
+        res = part_plan(
+            fpt, co, name, cql, (out,),
+            lambda dev, retain, _c=cql, _s=sid, _h=schema, _b=batches:
+                scan_job(fpt, _c, _s, _h, _b, dev, retain),
+            lambda dev, _c=cql, _s=sid, _h=schema, _p=prefix:
+                scan_job(fpt, _c, _s, _h, _p, dev, True),
+            {kernel: 1}, SCAN_STEPS, n_events,
+            patches=((scan_windows, kernel, keep_calls(
+                getattr(co, kernel), {3: name}, recorded)),),
+            int_close=int_close)
+        res["artifacts"] = [type(a).__name__ for a in fpt.compile_plan(
+            cql, {sid: schema}, config=bench_config(fpt)).artifacts]
+        if res["artifacts"] != [art_name]:
+            raise AssertionError(f"{name}: compiled to {res['artifacts']}")
+        res["kernel"] = kernel
+        results.append(res)
+        log(f"  {name}: rows {res['rows']}, resident "
+            f"{res['resident']['events_per_s_median']:.4g} events/s (best "
+            f"{res['resident']['events_per_s_best']:.4g}), streaming "
+            f"{res['streaming']['events_per_s']:.4g}, idle "
+            f"{res['resident']['traced_idle_share']:.3f}, device "
+            f"{res['resident']['device_ms_per_step']:.4g} ms a step, "
+            f"launches {res['resident']['launches_traced'][kernel]} traced, "
+            f"{res['plan_s']:.1f} s")
+    out = {"plans": results, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(out))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.save(recorded, out_path + ".pt")
+
+
+def scan_windows_main(out_path):
+    """Phase 8f alone (``--scan-windows OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    scan_phase(fpt, co, out_path)
     torch.cuda.synchronize()
     return 0
 
@@ -4493,7 +5014,7 @@ def fold_stage_ms(fn, runs, launches_per_call, attempts=3):
 def time_unique_fold(co, args, launches, err, rel, floor_ms):
     import math
 
-    mask, codes, vals, valid0, bufs0, slots = args
+    mask, codes, vals, valid0, bufs0, slots = args[:6]
     runs = 25
     ms, call_ms = timed_back_to_back(lambda: co.unique_window_fold(*args),
                                      runs=runs)
@@ -4877,6 +5398,197 @@ class Quote:
     timestamp: int
 
 
+SCAN_REPLACES = {
+    "session_scan": "flink_siddhi_tpu/compiler/scan_windows.py:769 (no "
+                    "Pallas counterpart: the reference's lax.scan in "
+                    "SessionWindowArtifact.step, :684)",
+    "frequency_scan": "flink_siddhi_tpu/compiler/scan_windows.py:1086 (no "
+                      "Pallas counterpart: the reference's lax.scan in "
+                      "FrequencyWindowArtifact.step, :962)",
+    "sort_window_scan": "flink_siddhi_tpu/compiler/scan_windows.py:305 (no "
+                        "Pallas counterpart: the reference's lax.scan over "
+                        "body_sort, :246, in ScanWindowArtifact.step)",
+}
+
+
+def cut_events(args, n, per_event):
+    """A kernel call's CPU arguments cut to the first ``n`` events (the
+    per-event tensors at positions ``per_event``; a value array's last
+    axis), the carried state kept."""
+    out = list(args)
+    for i in per_event:
+        out[i] = args[i][..., :n].contiguous()
+    return tuple(out)
+
+
+def scan_work(kernel, args, rows):
+    """(bytes, operations, the longest serial chain) of one K7 / K8 / K9
+    call on THESE inputs, which close or emit ``rows`` rows (K7, K8): each
+    input read once and each output written once (the closed, emitted or
+    masked rows), and the work its events need: a session's few updates
+    an event and value; a frequency table's update an event and, per
+    emitted row, each slot statistic over the slots valid at the end; a
+    sort buffer's count, shift and statistics over its C slots per event.
+    The chain is what runs in series: a key's events (K7), every masked
+    event (K8), a partition's events (K9)."""
+    import torch
+
+    mask = args[0]
+    E, m = int(mask.shape[0]), int(mask.sum())
+    if kernel == "session_scan":
+        codes, vals = args[1], args[3]
+        A, G = int(vals.shape[0]), int(args[4].shape[0])
+        nbytes = (E * (1 + 4 + 4 + 4 * A) + 2 * G * (1 + 4 + 4 + 12 * A)
+                  + rows * (1 + 8 + 12 * A))
+        chain = int(torch.bincount(codes[mask].long()).max()) if m else 0
+        return nbytes, m * (4 + 4 * A), chain
+    if kernel == "frequency_scan":
+        vals, valid, slots = args[2], args[3], args[9]
+        A, C, S = int(vals.shape[0]), int(valid.shape[0]), len(slots)
+        emitted = rows
+        members = int(valid.sum())
+        nbytes = (E * (1 + 4 + 4 * A) + 2 * C * (13 + 4 * A) + E
+                  + emitted * S * 4)
+        return nbytes, m * (4 + A) + emitted * members * S, m
+    part, vals, valid, slots = args[1], args[3], args[4], args[7]
+    A, S = int(vals.shape[0]), len(slots)
+    P, C = int(valid.shape[0]), int(valid.shape[1])
+    nbytes = E * (1 + 4 + 4 + 4 * A) + 2 * P * C * (5 + 4 * A) + m * S * 4
+    chain = int(torch.bincount(part[mask].long()).max()) if m else 0
+    return nbytes, m * C * (2 + A + S), chain
+
+
+def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
+                     dev="cuda"):
+    """K7, K8 or K9 on phase 8f's recorded third steps of ``plans`` (the
+    first plan's is the kernels-line entry, the others under their names):
+    held to its plain version (run on the CPU copies) on the whole tape,
+    or, where the plain version walks event by event (one partition, one
+    global table), on the first SCAN_PLAIN_EVENTS events with the carried
+    state; timed (CUDA events around back-to-back calls) on the whole
+    tape; its bound from ``scan_work``, and its serial floor (the longest
+    chain's count of empty warp rounds, csrc/empty.cu)."""
+    per_event = {"session_scan": (0, 1, 2, 3), "frequency_scan": (0, 1, 2),
+                 "sort_window_scan": (0, 1, 2, 3)}[kernel]
+    check = {"session_scan": session_check,
+             "frequency_scan": frequency_check,
+             "sort_window_scan": sort_check}[kernel]
+    entries = {}
+    for name in plans:
+        args = recorded[name]
+        walks = (kernel == "frequency_scan"
+                 or (kernel == "sort_window_scan"
+                     and int(args[4].shape[0]) == 1))
+        held = (cut_events(args, SCAN_PLAIN_EVENTS, per_event) if walks
+                else args)
+        res = check(co, held, f"{name}'s third step"
+                    + (f" (first {SCAN_PLAIN_EVENTS} events)" if walks
+                       else ""), dev)
+        plain_s, rel = res[-1], (res[-2] if kernel != "session_scan"
+                                 else 0.0)
+        cargs = args_copy(args, dev)
+        fn = getattr(co, kernel)
+        ms, call_ms = timed_back_to_back(lambda: fn(*cargs), 2)
+        # the rows the checked call closed or emitted (K7, K8)
+        rows = 0 if kernel == "sort_window_scan" else res[0]
+        nbytes, ops, chain = scan_work(kernel, held, rows)
+        if walks:  # the whole tape's bytes and work, scaled from the cut
+            full = int(args[0].sum()) / max(int(held[0].sum()), 1)
+            nbytes, ops = nbytes * full, ops * full
+            chain = scan_work(kernel, args, 0)[2]
+        bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
+        floor_serial, _ = timed_back_to_back(
+            lambda: co.launch_warp_rounds(max(chain, 1)), 2)
+        entries[name] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_s * 1e3,
+            "plain_device": "cpu",
+            "plain_shape": (f"the first {SCAN_PLAIN_EVENTS} events of the "
+                            "third step" if walks else "the third step"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "operations": ops, "serial_chain_events": chain,
+            "serial_floor_ms": floor_serial, "max_rel_err": rel,
+            "events": int(args[0].shape[0]),
+            "events_masked": int(args[0].sum()),
+        }
+        log(f"  {kernel} on {name}'s third step: {ms} ms a call "
+            f"({call_ms} ms single), {entries[name]['events_masked']} "
+            f"events, longest chain {chain} events, serial floor "
+            f"{floor_serial} ms, bound {bound_ms} ms ({bound_by}); held to "
+            f"its plain version on {entries[name]['plain_shape']} (CPU "
+            f"{plain_s:.2f} s), sums rel err {rel:.3g}")
+    first = entries[plans[0]]
+    return {
+        "name": kernel, "route": "cuda", "source": fn.source,
+        "replaces": SCAN_REPLACES[kernel],
+        "launches": launches[plans[0]], "max_abs_err": 0,
+        "max_abs_err_by": "equal as stored against the plain version "
+                          "(sums within SCAN_RTOL, max_rel_err) on each "
+                          "plan's third step and phase 3's cases",
+        **{k: first[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
+        "plain_device": "cpu", "plain_shape": first["plain_shape"],
+        "library_ms": None, "floor_ms": floor_ms,
+        "launches_by_plan": {p: launches[p] for p in plans},
+        "plans": entries,
+    }
+
+
+def time_unkeyed_session(co, recorded):
+    """K7 with every code 0 (an unkeyed session: one thread walks the whole
+    tape) on S1's third step: exact against the plain version on its first
+    2,048 events, timed over the whole tape."""
+    import torch
+
+    args = list(recorded["S1"])
+    args[1] = torch.zeros_like(args[1])
+    args = tuple(args)
+    check = cut_events(args, 2048, (0, 1, 2, 3))
+    session_check(co, check, "an unkeyed session (first 2,048 events)",
+                  "cuda")
+    cargs = args_copy(args, "cuda")
+    ms, call_ms = timed_back_to_back(lambda: co.session_scan(*cargs), 2)
+    n = int(args[0].sum())
+    floor_ms, _ = timed_back_to_back(lambda: co.launch_warp_rounds(n), 2)
+    log(f"  session_scan unkeyed over S1's third step: {ms} ms a call, "
+        f"{n} events on one thread ({ms / max(n, 1) * 1e6:.1f} ns each), "
+        f"serial floor {floor_ms} ms")
+    return {"ms": ms, "call_ms": call_ms, "events_masked": n,
+            "ns_per_event": ms / max(n, 1) * 1e6,
+            "serial_floor_ms": floor_ms}
+
+
+def time_fold_int(co, args, launches):
+    """K3's integer path on U1's recorded third step: exact against its
+    plain version on the card (the table, counts and int32 extremes
+    equal, sums within FOLD_RTOL), timed."""
+    import torch
+
+    cargs = args_copy(args, "cuda")
+    got = co.unique_window_fold(*cargs)
+    t0 = time.perf_counter()
+    ref = co.unique_window_fold_plain(*cargs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, rel = fold_err(got, ref, args[5], "unique_window_fold on U1's "
+                        "third step", args[6])
+    ms, call_ms = timed_back_to_back(lambda: co.unique_window_fold(*cargs),
+                                     10)
+    mask, vals, valid0 = args[0], args[2], args[3]
+    E, C, A, S = (int(mask.shape[0]), int(valid0.shape[0]),
+                  int(vals.shape[0]), len(args[5]))
+    nbytes = E * (1 + 4 + 4 * A) + S * E * 4 + 2 * (C + 4 * A * C)
+    bound_ms, bound_by = bound_of(nbytes, 0, INT32_OPS_PER_S)
+    log(f"  unique_window_fold (int32 columns) on U1's third step: {ms} ms "
+        f"a call ({call_ms} ms single), bound {bound_ms} ms ({bound_by}); "
+        f"exact (sums rel err {rel:.3g}) against the plain version on the "
+        f"card ({plain_ms:.1f} ms)")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "plain_device": "cuda", "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "max_rel_err": rel,
+            "launches": launches, "int_cols": list(args[6]),
+            "shape": {"E": E, "C": C, "A": A, "S": S}}
+
+
 def api_check(fpt):
     """The README's quick start, pattern and quote board through SiddhiCEP
     on the default device, against the CPU."""
@@ -4961,6 +5673,7 @@ def main():
     err_k4 = check_slot_nfa(fpt, co, dev)
     err_k5 = check_join_pairs(fpt, co, dev)
     err_k6 = check_table_mutate(fpt, co, dev)
+    rel_k789, _ = check_scan_windows(co, dev)
 
     def lap(what):
         log(f"  {what} done at {time.perf_counter() - t_start:.1f} s")
@@ -5097,7 +5810,7 @@ def main():
     # process of its own, as phases 7 and 8; K4's recorded inputs go to
     # phase 9)
     log(f"[8b/11] slot NFA: {len(SLOT_QUERIES)} queries over "
-        f"{BATCH * N_BATCHES} events")
+        f"{BATCH * SLOT_STEPS} events")
     t_slot = time.perf_counter()
     slot_path = os.path.join(SMOKE_DIR, "slots.json")
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -5213,7 +5926,38 @@ def main():
            "launches_traced": q["resident"]["launches_traced"]}
         for q in parts["plans"]], "phase_s": parts["phase_s"]}))
 
-    lap("phases 7, 8, 8b, 8c, 8d and 8e")
+    # 8f. the scan windows: S1 (K7), O1, O2 (K9), F1, F2 (K8), U1 (K3's
+    # integer path), SCAN_STEPS tapes each (in a process of its own, as
+    # 8e; each plan's third-step kernel inputs go to phase 9)
+    log(f"[8f/11] scan windows: S1, O1, O2, F1, F2, U1 over "
+        f"{BATCH * SCAN_STEPS} events each")
+    t_scan = time.perf_counter()
+    scan_path = os.path.join(SMOKE_DIR, "scan_windows.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--scan-windows", scan_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"scan windows phase failed ({r.returncode})")
+    with open(scan_path) as f:
+        scans = json.load(f)
+    log(f"  scan windows phase {time.perf_counter() - t_scan:.1f} s")
+    log(json.dumps({"scan_windows": [{k: q[k] for k in (
+        "path", "artifacts", "kernel", "rows", "cpu_check_rows",
+        "cpu_check_max_rel")}
+        | {"resident_events_per_s_median":
+           q["resident"]["events_per_s_median"],
+           "resident_events_per_s_best": q["resident"]["events_per_s_best"],
+           "streaming_events_per_s": q["streaming"]["events_per_s"],
+           "idle_share": q["resident"]["traced_idle_share"],
+           "device_ms_per_step": q["resident"]["device_ms_per_step"],
+           "top_device_ms": q["resident"]["top_device_ms"],
+           "eager_segments": q["resident"]["eager_segments"],
+           "graphs_captured": q["resident"]["graphs_captured"],
+           "steps": q["resident"]["steps"],
+           "launches": q["streaming"]["launches"][q["kernel"]],
+           "launches_traced": q["resident"]["launches_traced"][q["kernel"]]}
+        for q in scans["plans"]], "phase_s": scans["phase_s"]}))
+
+    lap("phases 7, 8, 8b, 8c, 8d, 8e and 8f")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -5228,7 +5972,8 @@ def main():
                      for name, r in (("k1", rec_k1), ("k1_full", full_k1),
                                      ("k2", rec_k2), ("k2_full", full_k2),
                                      ("k3", rec_k3))},
-        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5, err_k6],
+        "err": [err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5, err_k6,
+                rel_k789],
         "launches": {"head": head["launches"], "board": board["launches"],
                      "slots": sum(q["streaming"]["launches"]["slot_nfa_scan"]
                                   for q in slots),
@@ -5246,7 +5991,12 @@ def main():
                                     for q in parts["plans"]},
                      "partitions_traced": {
                          q["path"]: q["resident"]["launches_traced"]
-                         for q in parts["plans"]}},
+                         for q in parts["plans"]},
+                     "scans": {q["path"]: q["streaming"]["launches"][
+                         q["kernel"]] for q in scans["plans"]},
+                     "scans_traced": {q["path"]: q["resident"][
+                         "launches_traced"][q["kernel"]]
+                         for q in scans["plans"]}},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -5700,7 +6450,8 @@ def kernels_main(path):
         for r in (saved["recorded"][k] for k in (
             "k1", "k1_full", "k2", "k2_full", "k3"))
     )
-    err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5, err_k6 = saved["err"]
+    (err_k1, err_k2, err_k3, rel_k3, err_k4, err_k5, err_k6,
+     rel_k789) = saved["err"]
     launches = saved["launches"]
     mq_inputs = torch.load(os.path.join(SMOKE_DIR, "multiquery64.json.pt"))
     # 9. kernel timing on each path's own inputs
@@ -5741,7 +6492,8 @@ def kernels_main(path):
     floor_ms, floor_call_ms = timed(co.launch_empty)
     log(f"  launch floor: an empty kernel's device time {floor_ms} ms "
         f"(call {floor_call_ms} ms)")
-    slots = rec_k3.args[-1]
+    slots = rec_k3.args[5]  # (mask, codes, vals, valid0, bufs0, slots,
+    # int_cols)
     e3, r3 = fold_err(co.unique_window_fold(*rec_k3.args),
                       co.unique_window_fold_plain(*rec_k3.args), slots,
                       "unique_window_fold main-path input")
@@ -5809,6 +6561,26 @@ def kernels_main(path):
     kernels[4]["launches_w1"] = launches["partitions"]["W1"]["join_pairs"]
     kernels[4]["launches_w1_resident_traced"] = \
         launches["partitions_traced"]["W1"]["join_pairs"]
+    # phase 8f's inputs: K7 on S1's third step (and unkeyed), K9 on O1's
+    # and O2's, K8 on F1's and F2's, K3's integer path on U1's
+    scan_recorded = torch.load(os.path.join(SMOKE_DIR,
+                                            "scan_windows.json.pt"),
+                               weights_only=False)
+    for kernel, plans in (("session_scan", ("S1",)),
+                          ("frequency_scan", ("F1", "F2")),
+                          ("sort_window_scan", ("O1", "O2"))):
+        entry = time_scan_kernel(co, kernel, plans, scan_recorded,
+                                 launches["scans"], floor_ms)
+        entry["max_rel_err"] = max(rel_k789, max(
+            e["max_rel_err"] for e in entry["plans"].values()))
+        entry["launches_resident_traced"] = {
+            p: launches["scans_traced"][p] for p in plans}
+        kernels.append(entry)
+    kernels[6]["unkeyed"] = time_unkeyed_session(co, scan_recorded)
+    kernels[2]["int_path_u1"] = time_fold_int(co, scan_recorded["U1"],
+                                              launches["scans"]["U1"])
+    kernels[2]["launches_u1_resident_traced"] = launches["scans_traced"][
+        "U1"]
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -5898,6 +6670,8 @@ if __name__ == "__main__":
         sys.exit(tables_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--partitions":
         sys.exit(partitions_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--scan-windows":
+        sys.exit(scan_windows_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

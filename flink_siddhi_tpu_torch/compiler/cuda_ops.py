@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the engine's hot scan primitives.
 
 The counterpart of ``flink_siddhi_tpu/compiler/pallas_ops.py`` for an
-NVIDIA Hopper card. Six kernels live here, all CUDA C++ under ``csrc/``:
+NVIDIA Hopper card. Nine kernels live here, all CUDA C++ under ``csrc/``:
 
 * **reverse cummin** (``multi_reverse_cummin``, csrc/reverse_cummin.cu) —
   the chain matcher's "next match at/after position p" tables: one
@@ -15,7 +15,8 @@ NVIDIA Hopper card. Six kernels live here, all CUDA C++ under ``csrc/``:
   one micro-batch folded into the ``#window.unique`` slot table, with every
   event's count/sum/avg/min/max over the valid slots, as a pipeline of
   data-parallel kernels (a radix sort by slot, device-wide scans and
-  interval-stabbing trees over the event axis).
+  interval-stabbing trees over the event axis); float32 and int32 value
+  columns.
 * **join pairs** (``join_pairs``, csrc/join_pairs.cu) — a windowed
   two-stream join's pairs of one micro-batch (every arriving event against
   the other side's ring and batch, with the ``on`` program), ranked and cut
@@ -37,6 +38,13 @@ NVIDIA Hopper card. Six kernels live here, all CUDA C++ under ``csrc/``:
   indexed captures, the ``every`` forms). It has no Pallas counterpart: the
   reference runs this loop as ``lax.scan`` (``flink_siddhi_tpu/compiler/
   nfa.py:3107``).
+* **the scan windows' loops**, each a ``lax.scan`` in the reference
+  (``flink_siddhi_tpu/compiler/scan_windows.py``) and no Pallas kernel:
+  ``session_scan`` (csrc/session_scan.cu, a thread walks a key's events),
+  ``frequency_scan`` (csrc/frequency_scan.cu, one warp walks the batch
+  over a counted-key table) and ``sort_window_scan`` (csrc/sort_window.cu,
+  a warp walks a partition's events over its top-n buffer); K8 and K9
+  share their aggregate rows (csrc/warp_rows.cuh).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
@@ -92,6 +100,9 @@ SOURCES = {
     "slot_nfa": "slot_nfa.cu",
     "join_pairs": "join_pairs.cu",
     "table_mutate": "table_mutate.cu",
+    "session_scan": "session_scan.cu",
+    "frequency_scan": "frequency_scan.cu",
+    "sort_window": "sort_window.cu",
     "empty": "empty.cu",
 }
 CUMMIN_TILE = 2048  # reverse_cummin.cu's kTile: events per block
@@ -123,11 +134,20 @@ _ARGTYPES = {
     "fst_ftz_probe": [_P, _P, _P, _I, _P],
     "fst_join_pairs": [_P, _P],
     "fst_table_mutate": [_P, _P],
+    "fst_session_scan": [_P, _P],
+    "fst_frequency_scan": [_P, _P],
+    "fst_frequency_smem": [_I, _I, _I],
+    "fst_sort_window": [_P, _P],
+    "fst_sort_window_smem": [_I, _I, _I],
     "fst_slot_nfa_scan": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
         _P, _P, _I, _I, _P,
     ],
 }
+
+# entry points that return something other than a cudaError_t
+_RESTYPES = {"fst_frequency_smem": ctypes.c_longlong,
+             "fst_sort_window_smem": ctypes.c_longlong}
 
 
 class KernelBuildError(RuntimeError):
@@ -202,7 +222,7 @@ class _Libraries:
                     fn = getattr(lib, fn_name, None)
                     if fn is not None:
                         fn.argtypes = argtypes
-                        fn.restype = ctypes.c_int
+                        fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
                 self._libs[n] = lib
         return time.perf_counter() - t0
 
@@ -374,6 +394,28 @@ def _capturing(device: torch.device) -> bool:
     """Whether work on ``device`` is being captured into a CUDA graph."""
     return (device.type == "cuda"
             and torch.cuda.is_current_stream_capturing())
+
+
+class _DeviceInts:
+    """Small int32 constants (an ``on`` program, a slot plan) kept on
+    their device, each made at its first use there and never inside a
+    CUDA graph capture (the first step of a plan runs eagerly)."""
+
+    def __init__(self, what: str) -> None:
+        self.what = what
+        self._cache: Dict[Tuple, torch.Tensor] = {}
+
+    def __call__(self, values: Sequence[int], dev) -> torch.Tensor:
+        key = (tuple(values), str(dev))
+        t = self._cache.get(key)
+        if t is None:
+            if _capturing(dev):
+                raise RuntimeError(
+                    f"{self.what} is not on the capturing device yet; run "
+                    "the captured work once first")
+            t = torch.tensor(list(values) or [0], dtype=torch.int32).to(dev)
+            self._cache[key] = t
+        return t
 
 
 class LookbackScratch:
@@ -636,10 +678,16 @@ _STAT_OP = {"count": 0, "sum": 1, "avg": 1, "min": 2, "max": 3}
 _PLAIN_CHUNK_CELLS = 1 << 22
 
 
-def _fold_rows(valid, bufs, slots):
+_INT_MIN, _INT_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _fold_rows(valid, bufs, slots, int_cols=()):
     """Every aggregate slot over the valid slots of ``[T, C]`` tables:
-    ``valid`` bool and ``bufs[a]`` float32. Returns float32 ``[S, T]``
-    (the reference's ``ScanWindowArtifact._agg_rows``, per event row)."""
+    ``valid`` bool and ``bufs[a]`` float32, or int32 for a column in
+    ``int_cols``. Returns float32 ``[S, T]`` (the reference's
+    ``ScanWindowArtifact._agg_rows``, per event row): an integer column's
+    sum is the float32 sum of its values cast to float32, its min and max
+    int32 rows by bit pattern."""
     cnt = valid.sum(1).to(torch.float32)
     sums: Dict[int, torch.Tensor] = {}
     out = []
@@ -648,9 +696,15 @@ def _fold_rows(valid, bufs, slots):
             out.append(cnt)
         elif kind in ("sum", "avg"):
             if a not in sums:
-                sums[a] = torch.where(valid, bufs[a], 0.0).sum(1)
+                sums[a] = torch.where(valid, bufs[a], 0).to(
+                    torch.float32).sum(1)
             out.append(sums[a] if kind == "sum"
                        else sums[a] / torch.clamp(cnt, min=1.0))
+        elif a in int_cols:
+            ident = _INT_MAX if kind == "min" else _INT_MIN
+            masked = torch.where(valid, bufs[a], ident)
+            r = masked.amin(1) if kind == "min" else masked.amax(1)
+            out.append(r.to(torch.int32).view(torch.float32))
         else:
             ident = float("inf") if kind == "min" else float("-inf")
             masked = torch.where(valid, bufs[a], ident)
@@ -658,16 +712,27 @@ def _fold_rows(valid, bufs, slots):
     return torch.stack(out)
 
 
-def unique_window_fold_plain(mask, codes, vals, valid0, bufs0, slots):
+def _typed(words: torch.Tensor, a: int, int_cols) -> torch.Tensor:
+    """Column ``a`` of an int32 word array: as int32 when it is an integer
+    column, else as float32 (a view: bits unchanged)."""
+    w = words[a]
+    return w if a in int_cols else w.view(torch.float32)
+
+
+def unique_window_fold_plain(mask, codes, vals, valid0, bufs0, slots,
+                             int_cols=()):
     """The plain version, in chunks of events: for T events at a time the
     ``[T, C]`` table of each slot's latest writer in the chunk comes from
     one scatter and a cummax down the chunk; the T table states follow by
-    gathers, and masked reductions over C give the T aggregate rows."""
+    gathers, and masked reductions over C give the T aggregate rows. The
+    table moves as int32 words (an integer column's bits kept)."""
     E = int(mask.shape[0])
     C = int(valid0.shape[0])
     dev = mask.device
     rows = torch.empty((len(slots), E), dtype=torch.float32, device=dev)
-    valid, bufs = valid0.clone(), bufs0.clone()
+    int_cols = frozenset(int_cols)
+    vals = vals.view(torch.int32)
+    valid, bufs = valid0.clone(), bufs0.view(torch.int32).clone()
     code = codes.clamp(0, C - 1)
     T = max(1, min(E, _PLAIN_CHUNK_CELLS // C))
     for t0 in range(0, E, T):
@@ -685,16 +750,19 @@ def unique_window_fold_plain(mask, codes, vals, valid0, bufs0, slots):
             torch.where(hit, vals[a, t0:t0 + n][at], bufs[a][None, :])
             for a in range(int(bufs.shape[0]))
         ]
-        rows[:, t0:t0 + n] = _fold_rows(v_t, b_t, slots)
+        rows[:, t0:t0 + n] = _fold_rows(
+            v_t, [b if a in int_cols else b.view(torch.float32)
+                  for a, b in enumerate(b_t)], slots, int_cols)
         valid = v_t[-1].clone()
         for a, b in enumerate(b_t):
             bufs[a] = b[-1]
-    return valid, bufs, rows
+    return valid, bufs.view(torch.float32), rows
 
 
-def _fold_plan(slots) -> list:
-    """unique_fold.cu's plan: slot kinds, and the distinct statistics
-    ``(op, column)`` the slots read (statistic 0 the count)."""
+def _fold_plan(slots, A: int = 0, int_cols=()) -> list:
+    """unique_fold.cu's plan: slot kinds, the distinct statistics ``(op,
+    column)`` the slots read (statistic 0 the count), and per value column
+    whether it holds int32 values."""
     stats = [(_STAT_OP["count"], -1)]
     slot_stat = []
     for kind, a in slots:
@@ -710,6 +778,7 @@ def _fold_plan(slots) -> list:
         + slot_stat
         + [op for op, _ in stats]
         + [a for _, a in stats]
+        + [int(a in int_cols) for a in range(A)]
     )
 
 
@@ -722,7 +791,10 @@ class UniqueWindowFold:
     aggregate, kind one of count/sum/avg/min/max (arg -1 for count).
     Event t with ``mask[t]`` sets slot ``clip(codes[t], 0, C - 1)``; then
     every slot is computed over the valid slots. Returns ``(valid bool[C],
-    bufs float32[A, C], rows float32[S, E])``.
+    bufs float32[A, C], rows float32[S, E])``. A column in ``int_cols``
+    holds int32 values by bit pattern (``.view(torch.float32)``) in
+    ``vals`` and ``bufs``; its min and max rows are int32 bit patterns too
+    (exact), its sum the float32 sum of its values cast to float32.
 
     On CUDA one call launches the kernel pipeline of csrc/unique_fold.cu
     (``kernel_launches`` kernels, ``scratch_bytes`` of scratch from
@@ -737,10 +809,11 @@ class UniqueWindowFold:
         self.kernel_launches = 0
         self.scratch_bytes = 0
 
-    def __call__(self, mask, codes, vals, valid0, bufs0, slots):
+    def __call__(self, mask, codes, vals, valid0, bufs0, slots,
+                 int_cols=()):
         if _device_kind(mask, "mask") == "cpu":
             return unique_window_fold_plain(mask, codes, vals, valid0,
-                                            bufs0, slots)
+                                            bufs0, slots, int_cols)
         dev = mask.device
         E = int(mask.shape[0])
         C = int(valid0.shape[0])
@@ -758,7 +831,9 @@ class UniqueWindowFold:
         _check(vals, "vals", torch.float32, dev, (A, E))
         _check(valid0, "valid0", torch.bool, dev, (C,))
         _check(bufs0, "bufs0", torch.float32, dev, (A, C))
-        plan = _fold_plan(slots)
+        if any(not 0 <= a < A for a in int_cols):
+            raise ValueError("unique_window_fold: int column out of range")
+        plan = _fold_plan(slots, A, int_cols)
         plan_c = (ctypes.c_int * len(plan))(*plan)
         plan_p = ctypes.cast(plan_c, ctypes.c_void_p)
         lib = LIBRARIES.get("unique_fold")
@@ -1645,19 +1720,7 @@ class JoinPairs:
 
     def __init__(self) -> None:
         self.launches = 0
-        self._progs: Dict[Tuple, torch.Tensor] = {}
-
-    def _prog(self, prog: Tuple[int, ...], dev) -> torch.Tensor:
-        key = (tuple(prog), str(dev))
-        t = self._progs.get(key)
-        if t is None:
-            if _capturing(dev):
-                raise RuntimeError(
-                    "join_pairs: the program is not on the capturing device "
-                    "yet; run the captured work once first")
-            t = torch.tensor(list(prog) or [0], dtype=torch.int32).to(dev)
-            self._progs[key] = t
-        return t
+        self._prog = _DeviceInts("join_pairs: the program")
 
     def __call__(self, dirs: Sequence[JoinDir], ts: torch.Tensor, cap: int,
                  self_join: bool, within: Optional[int], visits=None,
@@ -1818,19 +1881,7 @@ class TableMutate:
 
     def __init__(self) -> None:
         self.launches = 0
-        self._progs: Dict[Tuple, torch.Tensor] = {}
-
-    def _prog(self, prog: Tuple[int, ...], dev) -> torch.Tensor:
-        key = (tuple(prog), str(dev))
-        t = self._progs.get(key)
-        if t is None:
-            if _capturing(dev):
-                raise RuntimeError(
-                    "table_mutate: the program is not on the capturing "
-                    "device yet; run the captured work once first")
-            t = torch.tensor(list(prog) or [0], dtype=torch.int32).to(dev)
-            self._progs[key] = t
-        return t
+        self._prog = _DeviceInts("table_mutate: the program")
 
     def __call__(self, mask, a_cols, valid, b_cols, prog, depth,
                  visits=None) -> torch.Tensor:
@@ -1876,8 +1927,471 @@ class TableMutate:
 
 table_mutate = TableMutate()
 
+# --------------------------------------------------------------------------
+# K7-K9: the scan windows' per-event loops
+# --------------------------------------------------------------------------
+
+_ROW_KINDS = {"count": 0, "sum": 1, "avg": 2, "min": 3, "max": 4}
+SCAN_MAX_SHARED = 227 * 1024  # a block's table staged in shared memory up to
+SCAN_MAX_ARGS = 1024  # value columns a K8 / K9 call takes (their staging)
+
+
+def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA converts (the reference's ``astype``):
+    toward zero, saturating at the int32 range, NaN to 0."""
+    return (x.to(torch.float64).nan_to_num(0.0).clamp(_INT_MIN, _INT_MAX)
+            .trunc().to(torch.int32))
+
+
+def _grouped(mask: torch.Tensor, keys: torch.Tensor, n: int):
+    """The masked events grouped by ``keys`` (in [0, n)), tape order kept
+    within a key: ``(order, starts)``, int64 ``[E]`` and ``[n + 1]`` (key
+    k's events are ``order[starts[k]:starts[k + 1]]``; unmasked events sort
+    last). A stable sort and a search: no host read."""
+    k = torch.where(mask, keys.to(torch.int64), n)
+    ks, order = torch.sort(k, stable=True)
+    starts = torch.searchsorted(
+        ks, torch.arange(n + 1, dtype=torch.int64, device=mask.device))
+    return order, starts
+
+
+def _rounds(mask: torch.Tensor, keys: torch.Tensor, n: int):
+    """The plain versions' schedule: the masked events in rounds, round r
+    holding the r-th event of every key that has one (so a round's keys
+    are distinct and the rounds keep each key's order). Yields ``(events,
+    keys)`` int64 index tensors. Reads counts on the host."""
+    order, starts = _grouped(mask, keys, n)
+    m = int(starts[-1])
+    if not m:
+        return
+    order = order[:m]
+    k = torch.where(mask, keys.to(torch.int64), n)[order]
+    rank = torch.arange(m, device=mask.device) - starts[k]
+    by_rank = torch.sort(rank, stable=True).indices
+    off = 0
+    for cnt in torch.bincount(rank).tolist():
+        sel = by_rank[off:off + cnt]
+        off += cnt
+        yield order[sel], k[sel]
+
+
+def _row_plan(slots, A: int, int_cols) -> Tuple[int, ...]:
+    """warp_rows.cuh's slot plan: kind[S], arg[S], then per value column 1
+    for an int32 column."""
+    return (tuple(_ROW_KINDS[k] for k, _ in slots)
+            + tuple(a for _, a in slots)
+            + tuple(int(a in int_cols) for a in range(A)))
+
+
+def _check_slots(slots, A: int, int_cols, who: str) -> None:
+    if not slots:
+        raise ValueError(f"{who}: no aggregate slot")
+    for kind, a in slots:
+        if kind not in _ROW_KINDS:
+            raise ValueError(f"{who}: no {kind!r} aggregate")
+        if kind != "count" and not 0 <= a < A:
+            raise ValueError(f"{who}: slot column {a} out of range")
+    if any(not 0 <= a < A for a in int_cols):
+        raise ValueError(f"{who}: int column out of range")
+    if A > SCAN_MAX_ARGS:
+        raise ValueError(f"{who}: {A} value columns, at most {SCAN_MAX_ARGS}")
+
+
+def _words(*parts: torch.Tensor) -> torch.Tensor:
+    """Rows of 32-bit words (bool as 0/1, float32 by bit pattern) stacked
+    along dimension -2."""
+    return torch.stack([
+        p.to(torch.int32) if p.dtype == torch.bool
+        else (p.view(torch.int32) if p.dtype == torch.float32 else p)
+        for p in parts], -2).contiguous()
+
+
+class _SessionArgs(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "order", "starts", "ts", "vals", "arg_int", "open", "last", "cnt",
+        "s", "mn", "mx", "closes", "c_last", "c_cnt", "c_s", "c_mn",
+        "c_mx")] + [(f, _I) for f in ("E", "G", "A", "gap")]
+
+
+def session_scan_plain(mask, codes, ts, vals, open_, last, cnt, s, mn, mx,
+                       gap, int_cols=()):
+    """The plain version of ``session_scan``: the reference's per-event
+    body (``SessionWindowArtifact.step``) run in rounds of ``_rounds`` (one
+    event of every key a round, vectorized over the keys)."""
+    E, G, A = int(mask.shape[0]), int(open_.shape[0]), int(vals.shape[0])
+    dev = mask.device
+    op, la, cn = open_.clone(), last.clone(), cnt.clone()
+    s_ = s.clone()
+    mn_w, mx_w = mn.view(torch.int32).clone(), mx.view(torch.int32).clone()
+    mn_f, mx_f = mn_w.view(torch.float32), mx_w.view(torch.float32)
+    closes = torch.zeros(E, dtype=torch.bool, device=dev)
+    c_last = torch.zeros(E, dtype=torch.int32, device=dev)
+    c_cnt = torch.zeros(E, dtype=torch.int32, device=dev)
+    c_s = torch.zeros((A, E), dtype=torch.float32, device=dev)
+    c_mn = torch.zeros((A, E), dtype=torch.int32, device=dev)
+    c_mx = torch.zeros((A, E), dtype=torch.int32, device=dev)
+    for t, c in _rounds(mask, codes.clamp(0, G - 1), G):
+        tt, was, lc = ts[t], op[c], la[c]
+        shut = was & (_wrap32(tt.long() - lc.long()) > gap)
+        tc, cc = t[shut], c[shut]
+        closes[tc] = True
+        c_last[tc], c_cnt[tc] = la[cc], cn[cc]
+        c_s[:, tc], c_mn[:, tc], c_mx[:, tc] = (s_[:, cc], mn_w[:, cc],
+                                                mx_w[:, cc])
+        fresh = shut | ~was
+        op[c] = True
+        la[c] = torch.maximum(lc, tt)
+        cn[c] = torch.where(fresh, 0, cn[c]) + 1
+        v = vals[:, t]
+        s_[:, c] = torch.where(fresh, 0.0, s_[:, c]) + v
+        for a in range(A):
+            if a in int_cols:
+                iv = f32_to_i32(v[a])
+                mn_w[a, c] = torch.minimum(
+                    torch.where(fresh, _INT_MAX, mn_w[a, c]), iv)
+                mx_w[a, c] = torch.maximum(
+                    torch.where(fresh, _INT_MIN, mx_w[a, c]), iv)
+            else:
+                mn_f[a, c] = torch.minimum(
+                    torch.where(fresh, float("inf"), mn_f[a, c]), v[a])
+                mx_f[a, c] = torch.maximum(
+                    torch.where(fresh, float("-inf"), mx_f[a, c]), v[a])
+    return (op, la, cn, s_, mn_f, mx_f, closes, c_last, c_cnt, c_s,
+            c_mn.view(torch.float32), c_mx.view(torch.float32))
+
+
+class SessionScan:
+    """K7: one micro-batch of the session window, per key.
+
+    ``mask`` bool, ``codes`` int32 (the session keys, in [0, G)) and
+    ``ts`` int32 ``[E]``; ``vals`` float32 ``[A, E]`` (every argument cast
+    to float32); the session table ``open`` bool, ``last`` and ``cnt``
+    int32 ``[G]``, ``s`` float32 ``[A, G]``, ``mn`` / ``mx`` float32 ``[A,
+    G]`` (an int column's by int32 bit pattern); ``gap`` ms; ``int_cols``
+    the int columns. Returns the new table (the same six) and, per event,
+    ``closes`` bool ``[E]`` (the event closed its key's open session) with
+    that session's ``last``, ``cnt`` (int32 ``[E]``), sums, minima and
+    maxima (float32 ``[A, E]``) before the event, zero elsewhere.
+
+    On CUDA one call groups the events by key (a stable sort and a search)
+    and launches csrc/session_scan.cu, one thread a key; ``launches``
+    counts the calls."""
+
+    name = "session_scan"
+    source = "flink_siddhi_tpu_torch/csrc/session_scan.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._consts = _DeviceInts(f"{self.name}: the column types")
+
+    def __call__(self, mask, codes, ts, vals, open_, last, cnt, s, mn, mx,
+                 gap, int_cols=()):
+        if _device_kind(mask, "mask") == "cpu":
+            return session_scan_plain(mask, codes, ts, vals, open_, last,
+                                      cnt, s, mn, mx, gap, int_cols)
+        dev = mask.device
+        E, G, A = int(mask.shape[0]), int(open_.shape[0]), int(vals.shape[0])
+        if not 1 <= E < 2 ** 31 or G < 1 or any(
+                not 0 <= a < A for a in int_cols):
+            raise ValueError(f"session_scan: {E} events, {G} keys, int "
+                             f"columns {tuple(int_cols)} of {A}")
+        _check(mask, "mask", torch.bool, dev, (E,))
+        _check(codes, "codes", torch.int32, dev, (E,))
+        _check(ts, "ts", torch.int32, dev, (E,))
+        _check(vals, "vals", torch.float32, dev, (A, E))
+        _check(open_, "open", torch.bool, dev, (G,))
+        for t, what in ((last, "last"), (cnt, "cnt")):
+            _check(t, what, torch.int32, dev, (G,))
+        for t, what in ((s, "s"), (mn, "mn"), (mx, "mx")):
+            _check(t, what, torch.float32, dev, (A, G))
+        arg_int = self._consts(
+            tuple(int(a in int_cols) for a in range(A)), dev)
+        order, starts = _grouped(mask, codes, G)
+        st = [t.clone() for t in (open_, last, cnt, s, mn, mx)]
+        closes = torch.zeros(E, dtype=torch.bool, device=dev)
+        c_last = torch.zeros(E, dtype=torch.int32, device=dev)
+        c_cnt = torch.zeros(E, dtype=torch.int32, device=dev)
+        c_s, c_mn, c_mx = (torch.zeros((A, E), dtype=torch.float32,
+                                       device=dev) for _ in range(3))
+        args = _SessionArgs()
+        for f, t in zip(
+                ("order", "starts", "ts", "vals", "arg_int", "open", "last",
+                 "cnt", "s", "mn", "mx", "closes", "c_last", "c_cnt", "c_s",
+                 "c_mn", "c_mx"),
+                (order, starts, ts, vals, arg_int, *st, closes, c_last,
+                 c_cnt, c_s, c_mn, c_mx)):
+            setattr(args, f, t.data_ptr())
+        args.E, args.G, args.A, args.gap = E, G, A, int(gap)
+        with _on_device(dev):
+            err = LIBRARIES.get("session_scan").fst_session_scan(
+                ctypes.addressof(args), _stream(dev.index))
+        _check_launch(self.name, err)
+        self.launches += 1
+        return (*st, closes, c_last, c_cnt, c_s, c_mn, c_mx)
+
+
+session_scan = SessionScan()
+
+
+class _FreqArgs(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "mask", "codes", "vals", "plan", "table", "seen", "map", "emit",
+        "rows")] + [(f, _I) for f in (
+            "E", "C", "A", "S", "K", "lossy", "width")] + [
+        ("thresh_factor", ctypes.c_float), ("in_shared", _I)]
+
+
+def frequency_scan_plain(mask, codes, vals, valid, code, freq, delta, seen,
+                         bufs, slots, int_cols, lossy, width, thresh_factor,
+                         n_codes):
+    """The plain version of ``frequency_scan``: the reference's per-event
+    body (``FrequencyWindowArtifact.step``), one masked event at a time,
+    vectorized over the table's slots."""
+    import numpy as np
+
+    E, C, A = int(mask.shape[0]), int(valid.shape[0]), int(vals.shape[0])
+    dev = mask.device
+    int_cols = frozenset(int_cols)
+    valid, code, freq = valid.clone(), code.clone(), freq.clone()
+    delta = delta.clone()
+    bw = bufs.view(torch.int32).clone()
+    vw = vals.view(torch.int32)
+    emit = torch.zeros(E, dtype=torch.bool, device=dev)
+    rows = torch.zeros((len(slots), E), dtype=torch.float32, device=dev)
+    n = int(seen)
+    f32 = np.float32
+    tf = f32(thresh_factor)
+    for t in torch.nonzero(mask).flatten().tolist():
+        c = int(codes[t])
+        n = _wrap32(n + 1)
+        eq = valid & (code == c)
+        hit = bool(eq.any())
+        free = ~valid
+        slot = (int(eq.to(torch.uint8).argmax()) if hit
+                else int(free.to(torch.uint8).argmax()) if bool(free.any())
+                else -1)
+        if lossy:
+            bucket = int(np.ceil(f32(n) / f32(width)))
+            if slot < 0:
+                slot = int(torch.where(valid, freq + delta, _INT_MAX).argmin())
+        if slot >= 0:
+            freq[slot] = freq[slot] + 1 if hit else 1
+            if lossy and not hit:
+                delta[slot] = bucket - 1
+            valid[slot], code[slot] = True, c
+            bw[:, slot] = vw[:, t]
+            if lossy and n % width == 0:
+                valid &= freq + delta > bucket
+        else:
+            freq = torch.clamp(freq - 1, min=0)
+            valid &= freq > 0
+        member = valid
+        ok = slot >= 0
+        if lossy:
+            thresh = tf * f32(n)
+            ok = bool(valid[slot]) and f32(int(freq[slot])) >= thresh
+            member = valid & (freq.to(torch.float32) >= float(thresh))
+        if ok:
+            emit[t] = True
+            rows[:, t] = _fold_rows(
+                member[None],
+                [_typed(bw, a, int_cols)[None] for a in range(A)],
+                slots, int_cols)[:, 0]
+    seen_out = torch.tensor(n, dtype=torch.int32, device=dev)
+    return (valid, code, freq, delta, seen_out, bw.view(torch.float32), emit,
+            rows)
+
+
+class FrequencyScan:
+    """K8: one micro-batch of ``#window.frequent`` (``lossy`` False) or
+    ``#window.lossyFrequent`` (True).
+
+    ``mask`` bool and ``codes`` int32 ``[E]`` (the keys' codes);
+    ``vals`` float32 ``[A, E]`` (an int column by int32 bit pattern); the
+    table ``valid`` bool, ``code``, ``freq`` and ``delta`` int32 ``[C]``
+    (``delta`` zero for ``frequent``), ``seen`` int32 ``[]``, ``bufs``
+    float32 ``[A, C]``; ``slots`` ``(kind, arg)`` per aggregate;
+    ``int_cols``; ``width`` (ceil(1 / error)) and ``thresh_factor``
+    (float32(support - error)) for lossyFrequent; ``n_codes``, the key
+    encoder's size (the lookup map's). Returns the new table (valid, code,
+    freq, delta, seen, bufs), ``emit`` bool ``[E]`` and ``rows`` float32
+    ``[S, E]`` (each emitting event's aggregates over the members, an int
+    column's min and max by int32 bit pattern; zero elsewhere).
+
+    On CUDA one call launches csrc/frequency_scan.cu (one warp walks the
+    batch; no host read); ``launches`` counts the calls."""
+
+    name = "frequency_scan"
+    source = "flink_siddhi_tpu_torch/csrc/frequency_scan.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._consts = _DeviceInts(f"{self.name}: the slot plan")
+
+    def __call__(self, mask, codes, vals, valid, code, freq, delta, seen,
+                 bufs, slots, int_cols, lossy, width, thresh_factor,
+                 n_codes):
+        if _device_kind(mask, "mask") == "cpu":
+            return frequency_scan_plain(
+                mask, codes, vals, valid, code, freq, delta, seen, bufs,
+                slots, int_cols, lossy, width, thresh_factor, n_codes)
+        dev = mask.device
+        E, C, A = int(mask.shape[0]), int(valid.shape[0]), int(vals.shape[0])
+        S = len(slots)
+        _check_slots(slots, A, int_cols, self.name)
+        if not 1 <= E < 2 ** 31 or C < 1 or (lossy and width < 1):
+            raise ValueError(f"frequency_scan: {E} events, {C} slots, "
+                             f"width {width}")
+        _check(mask, "mask", torch.bool, dev, (E,))
+        _check(codes, "codes", torch.int32, dev, (E,))
+        _check(vals, "vals", torch.float32, dev, (A, E))
+        _check(valid, "valid", torch.bool, dev, (C,))
+        for t, what in ((code, "code"), (freq, "freq"), (delta, "delta")):
+            _check(t, what, torch.int32, dev, (C,))
+        _check(seen, "seen", torch.int32, dev, ())
+        _check(bufs, "bufs", torch.float32, dev, (A, C))
+        plan = self._consts(_row_plan(slots, A, int_cols), dev)
+        table = _words(valid, code, freq, delta, *bufs)
+        seen_out = seen.clone()
+        K = max(int(n_codes), 1)
+        cmap = torch.full((K,), _INT_MAX, dtype=torch.int32, device=dev)
+        emit = torch.zeros(E, dtype=torch.bool, device=dev)
+        rows = torch.zeros((S, E), dtype=torch.float32, device=dev)
+        lib = LIBRARIES.get("frequency_scan")
+        args = _FreqArgs()
+        for f, t in zip(("mask", "codes", "vals", "plan", "table", "seen",
+                         "map", "emit", "rows"),
+                        (mask, codes, vals, plan, table, seen_out, cmap, emit,
+                         rows)):
+            setattr(args, f, t.data_ptr())
+        args.E, args.C, args.A, args.S, args.K = E, C, A, S, K
+        args.lossy, args.width = int(bool(lossy)), int(width)
+        args.thresh_factor = float(thresh_factor)
+        args.in_shared = int(lib.fst_frequency_smem(C, A, 1)
+                             <= SCAN_MAX_SHARED)
+        with _on_device(dev):
+            err = lib.fst_frequency_scan(ctypes.addressof(args),
+                                         _stream(dev.index))
+        _check_launch(self.name, err)
+        self.launches += 1
+        return (table[0] != 0, table[1], table[2], table[3], seen_out,
+                table[4:].view(torch.float32), emit, rows)
+
+
+frequency_scan = FrequencyScan()
+
+
+class _SortArgs(ctypes.Structure):
+    _fields_ = [(f, _P) for f in (
+        "order", "starts", "keys", "vals", "plan", "buf", "rows")] + [
+            (f, _I) for f in ("E", "P", "C", "A", "S", "in_shared")]
+
+
+def sort_window_scan_plain(mask, part, keys, vals, valid, bkey, bufs, slots,
+                           int_cols=()):
+    """The plain version of ``sort_window_scan``: the reference's
+    ``body_sort`` run in rounds of ``_rounds`` (one event of every
+    partition a round, vectorized over the partitions)."""
+    E, A = int(mask.shape[0]), int(vals.shape[0])
+    P, C = int(valid.shape[0]), int(valid.shape[1])
+    dev = mask.device
+    int_cols = frozenset(int_cols)
+    valid, bkey = valid.clone(), bkey.clone()
+    bw = bufs.view(torch.int32).clone()
+    vw = vals.view(torch.int32)
+    rows = torch.zeros((len(slots), E), dtype=torch.float32, device=dev)
+    iota = torch.arange(C, device=dev)[None, :]
+    for t, p in _rounds(mask, part, P):
+        k = keys[t]
+        pos = (valid[p] & (bkey[p] < k[:, None])).sum(1)[:, None]
+        do = pos < C
+        src = torch.where(iota > pos, iota - 1, iota).expand(len(t), C)
+
+        def ins(row, new):
+            put = torch.where(iota == pos, new[:, None],
+                              torch.gather(row, 1, src))
+            return torch.where(do, put, row)
+
+        valid[p] = ins(valid[p], torch.ones_like(k, dtype=torch.bool))
+        bkey[p] = ins(bkey[p], k)
+        for a in range(A):
+            bw[a, p] = ins(bw[a, p], vw[a, t])
+        rows[:, t] = _fold_rows(
+            valid[p], [_typed(bw, a, int_cols)[p] for a in range(A)], slots,
+            int_cols)
+    return valid, bkey, bw.view(torch.float32), rows
+
+
+class SortWindowScan:
+    """K9: one micro-batch of ``#window.sort`` with aggregates.
+
+    ``mask`` bool, ``part`` int32 (the partition, in [0, P); zeros when
+    unpartitioned) and ``keys`` float32 ``[E]`` (negated for 'desc');
+    ``vals`` float32 ``[A, E]`` (an int column by int32 bit pattern); the
+    buffers ``valid`` bool and ``bkey`` float32 ``[P, C]``, ``bufs``
+    float32 ``[A, P, C]``; ``slots`` and ``int_cols`` as ``frequency_scan``.
+    Returns the new buffers (valid, bkey, bufs) and ``rows`` float32 ``[S,
+    E]`` (each masked event's aggregates over its partition's valid slots;
+    zero elsewhere).
+
+    On CUDA one call groups the events by partition (a stable sort and a
+    search) and launches csrc/sort_window.cu, one warp a partition;
+    ``launches`` counts the calls."""
+
+    name = "sort_window_scan"
+    source = "flink_siddhi_tpu_torch/csrc/sort_window.cu"
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._consts = _DeviceInts(f"{self.name}: the slot plan")
+
+    def __call__(self, mask, part, keys, vals, valid, bkey, bufs, slots,
+                 int_cols=()):
+        if _device_kind(mask, "mask") == "cpu":
+            return sort_window_scan_plain(mask, part, keys, vals, valid,
+                                          bkey, bufs, slots, int_cols)
+        dev = mask.device
+        E, A = int(mask.shape[0]), int(vals.shape[0])
+        P, C = int(valid.shape[0]), int(valid.shape[1])
+        S = len(slots)
+        _check_slots(slots, A, int_cols, self.name)
+        if not 1 <= E < 2 ** 31 or P < 1 or C < 1:
+            raise ValueError(f"sort_window_scan: {E} events, {P} x {C}")
+        _check(mask, "mask", torch.bool, dev, (E,))
+        _check(part, "part", torch.int32, dev, (E,))
+        _check(keys, "keys", torch.float32, dev, (E,))
+        _check(vals, "vals", torch.float32, dev, (A, E))
+        _check(valid, "valid", torch.bool, dev, (P, C))
+        _check(bkey, "bkey", torch.float32, dev, (P, C))
+        _check(bufs, "bufs", torch.float32, dev, (A, P, C))
+        plan = self._consts(_row_plan(slots, A, int_cols), dev)
+        order, starts = _grouped(mask, part, P)
+        buf = _words(valid, bkey, *bufs)  # [P, 2 + A, C]
+        rows = torch.zeros((S, E), dtype=torch.float32, device=dev)
+        lib = LIBRARIES.get("sort_window")
+        args = _SortArgs()
+        for f, t in zip(("order", "starts", "keys", "vals", "plan", "buf",
+                         "rows"),
+                        (order, starts, keys, vals, plan, buf, rows)):
+            setattr(args, f, t.data_ptr())
+        args.E, args.P, args.C, args.A, args.S = E, P, C, A, S
+        args.in_shared = int(lib.fst_sort_window_smem(C, A, 1)
+                             <= SCAN_MAX_SHARED)
+        with _on_device(dev):
+            err = lib.fst_sort_window(ctypes.addressof(args),
+                                      _stream(dev.index))
+        _check_launch(self.name, err)
+        self.launches += 1
+        return (buf[:, 0] != 0, buf[:, 1].contiguous().view(torch.float32),
+                buf[:, 2:].permute(1, 0, 2).contiguous().view(torch.float32),
+                rows)
+
+
+sort_window_scan = SortWindowScan()
+
 KERNELS = (multi_reverse_cummin, chain_advance, unique_window_fold,
-           slot_nfa_scan, join_pairs, table_mutate)
+           slot_nfa_scan, join_pairs, table_mutate, session_scan,
+           frequency_scan, sort_window_scan)
 
 
 def reset_launches() -> None:

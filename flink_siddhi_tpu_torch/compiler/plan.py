@@ -11,8 +11,9 @@ eagerly by torch on the plan's device.
 This port covers plain stream queries (filter / projection, also over a
 window), chain patterns (structurally identical ones stacked on a query
 axis), the slot NFA's patterns and sequences, sliding, batch and
-cumulative aggregation with group-by and having, ``#window.unique``,
-``#window.delay``, ``insert expired events`` and ``insert all events``,
+cumulative aggregation with group-by and having, the scan windows
+(``#window.unique``, ``sort``, ``session``, ``frequent``,
+``lossyFrequent``: ``scan_windows.py``), ``#window.delay``, ``insert expired events`` and ``insert all events``,
 windowed two-stream joins (``compiler/join.py``; an aggregated join runs
 as a join into an intermediate stream and an aggregation over it), query
 chaining (a query reading another query's output inside the same step),

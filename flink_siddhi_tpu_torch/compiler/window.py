@@ -34,7 +34,12 @@ fixed sequence of whole-array ops.
 Inside ``partition with`` a length window is ``PerKeyWindowArtifact``
 (each key's own last C events: per-key prefix differences, a ring of
 prefix checkpoints), a time window the shared time window grouped by the
-key; any other window raises the reference's message.
+key; a sort or session window goes to ``scan_windows.py`` (a buffer a
+partition, a session a key), a unique window raises naming ROADMAP.md
+Queue 1 item 8; any other window raises the reference's message. The
+scan windows (``#window.sort``, ``unique``, ``session``, ``frequent``,
+``lossyFrequent``) are ``scan_windows.py``'s, each one kernel call a
+micro-batch.
 """
 
 from __future__ import annotations
@@ -1531,7 +1536,7 @@ def compile_window_query(
         from .scan_windows import compile_scan_window
 
         return compile_scan_window(
-            q, name, window, resolver, stream_codes, extensions,
+            q, name, window, resolver, schemas, stream_codes, extensions,
             filter_fns, rewritten, collector, having_re,
         )
 

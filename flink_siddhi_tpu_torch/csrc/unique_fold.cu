@@ -13,6 +13,13 @@
 //   min with identity +inf, max with identity -inf      -> rows[s, t].
 // Outputs: rows float32 [S, E], the new valid [C] and the new bufs [A, C].
 //
+// Integer columns (INT and LONG are int32 on the device): a column flagged
+// in the plan holds int32 values in the same 32-bit words (vals and bufs
+// by bit pattern; moved, never computed on as floats). Its sum is the fp64
+// scan of float32(v), as the reference sums where(valid, v, 0) cast to
+// float32; its min and max are exact int32 (identities INT_MAX and
+// INT_MIN), written into rows by bit pattern; it has no NaN or inf counts.
+//
 // What bounds it on an H100: the function must read E x (1 + 4 + 4A) bytes
 // of events and both tables and write S x E x 4 bytes of rows — a few
 // microseconds at 3.35 TB/s for a 524,288-event batch.
@@ -99,6 +106,8 @@ struct Fold {
   signed char dbl_col[kMaxArgs];     // fp64 column -> u
   signed char tree_arg[kMaxStats];   // tree -> row of vals / bufs
   signed char tree_max[kMaxStats];   // tree -> 1 for max, 0 for min
+  signed char col_int[kMaxArgs];     // u -> 1 for an int32 column
+  signed char tree_int[kMaxStats];   // tree -> 1 over an int32 column
 };
 
 // Floats to uint32 keys in the same order (no NaN ever goes in).
@@ -109,6 +118,18 @@ __device__ __forceinline__ unsigned order_key(float x) {
 
 __device__ __forceinline__ float order_val(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// A column's 32-bit word as stored (no float arithmetic touches it).
+__device__ __forceinline__ unsigned word_at(const float* p, long long i) {
+  return reinterpret_cast<const unsigned*>(p)[i];
+}
+
+// The value a sum adds: a float's finite part, an int32's float32 value.
+__device__ __forceinline__ double summand(unsigned w, bool is_int) {
+  if (is_int) return static_cast<double>(__int2float_rn(static_cast<int>(w)));
+  const float x = __uint_as_float(w);
+  return isfinite(x) ? static_cast<double>(x) : 0.0;
 }
 
 __device__ __forceinline__ int clip_slot(int code, int C) {
@@ -362,10 +383,6 @@ __device__ __forceinline__ int int_indicator(int kind, float x) {
                          : (kind == kColPinf ? (x == INFINITY) : (x == -INFINITY));
 }
 
-__device__ __forceinline__ double finite_or_zero(float x) {
-  return isfinite(x) ? static_cast<double>(x) : 0.0;
-}
-
 __global__ void __launch_bounds__(kThreads)
 table_kernel(const unsigned char* __restrict__ valid0,
              const float* __restrict__ bufs0, const float* __restrict__ vals,
@@ -404,8 +421,10 @@ table_kernel(const unsigned char* __restrict__ valid0,
     __syncthreads();
   }
   for (int j = 0; j < f.n_dbl; ++j) {
+    const int u = f.dbl_col[j];
     const double x =
-        v0 ? finite_or_zero(bufs0[static_cast<long long>(f.col_arg[f.dbl_col[j]]) * C + c])
+        v0 ? summand(word_at(bufs0, static_cast<long long>(f.col_arg[u]) * C + c),
+                     f.col_int[u] != 0)
            : 0.0;
     const double tot = cub::BlockReduce<double, kThreads>(tmp.d).Sum(x);
     if (threadIdx.x == 0) sD[static_cast<long long>(j) * n_seeds + blockIdx.x] = tot;
@@ -451,9 +470,11 @@ delta_kernel(const unsigned char* __restrict__ mask,
   for (int j = 0; j < f.n_dbl; ++j) {
     double x = 0.0;
     if (m) {
-      const int a = f.col_arg[f.dbl_col[j]];
-      x = finite_or_zero(vals[static_cast<long long>(a) * E + t]) -
-          (has_old ? finite_or_zero(old_of(a)) : 0.0);
+      const int u = f.dbl_col[j];
+      const int a = f.col_arg[u];
+      const bool is_int = f.col_int[u] != 0;
+      x = summand(word_at(vals, static_cast<long long>(a) * E + t), is_int) -
+          (has_old ? summand(__float_as_uint(old_of(a)), is_int) : 0.0);
     }
     D[static_cast<long long>(j) * E + t] = x;
   }
@@ -473,6 +494,7 @@ interval_kernel(const float* __restrict__ vals, const float* __restrict__ bufs0,
   const int k = blockIdx.y;
   const int a = f.tree_arg[k];
   const bool is_max = f.tree_max[k] != 0;
+  const bool is_int = f.tree_int[k] != 0;
   const unsigned ident = is_max ? 0u : ~0u;
   unsigned* tr = trees + static_cast<long long>(k) * 2 * Ep;
   const int n_top = min(kTopNodes, 2 * Ep);
@@ -480,23 +502,25 @@ interval_kernel(const float* __restrict__ vals, const float* __restrict__ bufs0,
   __syncthreads();
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   int lo = 0, hi = 0;
-  float x = 0.0f;
+  unsigned w = 0;
   if (i < E) {
     const int q = next[i];
     if (q > i) {
-      x = vals[static_cast<long long>(a) * E + i];
+      w = word_at(vals, static_cast<long long>(a) * E + i);
       lo = static_cast<int>(i);
       hi = q;
     }
   } else if (i < static_cast<long long>(E) + C) {
     const long long c = i - E;
     if (valid0[c] && first[c] > 0) {
-      x = bufs0[static_cast<long long>(a) * C + c];
+      w = word_at(bufs0, static_cast<long long>(a) * C + c);
       hi = first[c];
     }
   }
-  if (hi > lo && x == x) {
-    const unsigned key = order_key(x);
+  // an int32's key flips its sign bit; a float's is order_key (no NaN)
+  const bool ok = is_int || (w & 0x7fffffffu) <= 0x7f800000u;
+  if (hi > lo && ok) {
+    const unsigned key = is_int ? (w ^ 0x80000000u) : order_key(__uint_as_float(w));
     unsigned l = static_cast<unsigned>(lo + Ep), r = static_cast<unsigned>(hi + Ep);
     while (l < r) {
       unsigned nodes[2];
@@ -526,16 +550,19 @@ interval_kernel(const float* __restrict__ vals, const float* __restrict__ bufs0,
 
 // -- 5. the rows -----------------------------------------------------------
 
-__device__ __forceinline__ float stab(const unsigned* __restrict__ tr, int Ep,
-                                      int t, bool is_max) {
+// The min or max over leaf t's ancestors, as the row's 32-bit word: a
+// float's bits, or an int32's (identity INT_MIN / INT_MAX).
+__device__ __forceinline__ unsigned stab(const unsigned* __restrict__ tr, int Ep,
+                                         int t, bool is_max, bool is_int) {
   const unsigned ident = is_max ? 0u : ~0u;
   unsigned acc = ident;
   for (unsigned nd = static_cast<unsigned>(Ep + t); nd >= 1; nd >>= 1) {
     const unsigned v = tr[nd];
     acc = is_max ? max(acc, v) : min(acc, v);
   }
-  if (acc == ident) return is_max ? -INFINITY : INFINITY;
-  return order_val(acc);
+  if (is_int) return acc ^ 0x80000000u;  // the identity maps to INT_MIN / INT_MAX
+  if (acc == ident) return __float_as_uint(is_max ? -INFINITY : INFINITY);
+  return __float_as_uint(order_val(acc));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -552,10 +579,14 @@ rows_kernel(const int* __restrict__ I, const double* __restrict__ D,
     float r = cnt;
     if (kind != kCount) {
       const int u = f.stat_col[j];
-      const bool nan = I[static_cast<long long>(f.col_nan[u]) * E + t] > 0;
+      // an int32 column has no NaN or inf counts
+      const bool nan =
+          f.col_nan[u] >= 0 && I[static_cast<long long>(f.col_nan[u]) * E + t] > 0;
       if (kind == kSum || kind == kAvg) {
-        const bool pinf = I[static_cast<long long>(f.col_pinf[u]) * E + t] > 0;
-        const bool ninf = I[static_cast<long long>(f.col_ninf[u]) * E + t] > 0;
+        const bool pinf =
+            f.col_pinf[u] >= 0 && I[static_cast<long long>(f.col_pinf[u]) * E + t] > 0;
+        const bool ninf =
+            f.col_ninf[u] >= 0 && I[static_cast<long long>(f.col_ninf[u]) * E + t] > 0;
         r = (nan || (pinf && ninf))
                 ? qnan
                 : (pinf ? INFINITY
@@ -564,9 +595,11 @@ rows_kernel(const int* __restrict__ I, const double* __restrict__ D,
                                       D[static_cast<long long>(f.col_sum[u]) * E + t])));
         if (kind == kAvg) r = r / fmaxf(cnt, 1.0f);
       } else {
+        const int k = f.stat_tree[j];
         r = nan ? qnan
-                : stab(trees + static_cast<long long>(f.stat_tree[j]) * 2 * Ep, Ep,
-                       static_cast<int>(t), kind == kMax);
+                : __uint_as_float(stab(trees + static_cast<long long>(k) * 2 * Ep, Ep,
+                                       static_cast<int>(t), kind == kMax,
+                                       f.tree_int[k] != 0));
       }
     }
     rows[static_cast<long long>(s) * E + t] = r;
@@ -582,9 +615,13 @@ int parse_plan(const int* plan, int plan_len, int A, Fold* f) {
   *f = Fold{};
   if (plan_len < 2) return static_cast<int>(cudaErrorInvalidValue);
   const int S = plan[0], K = plan[1];
-  if (S < 1 || S > kMaxSlots || K < 1 || K > kMaxStats ||
-      plan_len != 2 + 2 * S + 2 * K || A < 0 || A > kMaxArgs) {
+  if (S < 1 || S > kMaxSlots || K < 1 || K > kMaxStats || A < 0 || A > kMaxArgs ||
+      plan_len != 2 + 2 * S + 2 * K + A) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* arg_int = plan + 2 + 2 * S + 2 * K;  // per value column: 1 = int32
+  for (int a = 0; a < A; ++a) {
+    if (arg_int[a] != 0 && arg_int[a] != 1) return static_cast<int>(cudaErrorInvalidValue);
   }
   f->n_slots = S;
   for (int s = 0; s < S; ++s) {
@@ -610,6 +647,7 @@ int parse_plan(const int* plan, int plan_len, int A, Fold* f) {
     if (op == kOpCount) continue;
     if (col_of_arg[a] < 0) {
       col_of_arg[a] = f->n_cols;
+      f->col_int[f->n_cols] = static_cast<signed char>(arg_int[a]);
       f->col_arg[f->n_cols++] = static_cast<signed char>(a);
     }
     const int u = col_of_arg[a];
@@ -620,6 +658,7 @@ int parse_plan(const int* plan, int plan_len, int A, Fold* f) {
       f->stat_tree[j] = static_cast<signed char>(f->n_trees);
       f->tree_arg[f->n_trees] = static_cast<signed char>(a);
       f->tree_max[f->n_trees] = op == kOpMax ? 1 : 0;
+      f->tree_int[f->n_trees] = static_cast<signed char>(arg_int[a]);
       ++f->n_trees;
     }
   }
@@ -631,15 +670,20 @@ int parse_plan(const int* plan, int plan_len, int A, Fold* f) {
   }
   f->int_code[f->n_int++] = kColCount;
   for (int u = 0; u < f->n_cols; ++u) {
-    f->col_nan[u] = static_cast<short>(f->n_int);
-    f->int_code[f->n_int++] = static_cast<short>(u * 4 + kColNan);
-    f->col_pinf[u] = f->col_ninf[u] = -1;
+    const bool is_float = f->col_int[u] == 0;
+    f->col_nan[u] = f->col_pinf[u] = f->col_ninf[u] = -1;
     f->col_sum[u] = -1;
+    if (is_float) {
+      f->col_nan[u] = static_cast<short>(f->n_int);
+      f->int_code[f->n_int++] = static_cast<short>(u * 4 + kColNan);
+    }
     if (needs_sum[u]) {
-      f->col_pinf[u] = static_cast<short>(f->n_int);
-      f->int_code[f->n_int++] = static_cast<short>(u * 4 + kColPinf);
-      f->col_ninf[u] = static_cast<short>(f->n_int);
-      f->int_code[f->n_int++] = static_cast<short>(u * 4 + kColNinf);
+      if (is_float) {
+        f->col_pinf[u] = static_cast<short>(f->n_int);
+        f->int_code[f->n_int++] = static_cast<short>(u * 4 + kColPinf);
+        f->col_ninf[u] = static_cast<short>(f->n_int);
+        f->int_code[f->n_int++] = static_cast<short>(u * 4 + kColNinf);
+      }
       f->col_sum[u] = static_cast<signed char>(f->n_dbl);
       f->dbl_col[f->n_dbl++] = static_cast<signed char>(u);
     }
@@ -718,7 +762,8 @@ extern "C" int fst_unique_fold_scratch(long long E, long long C, int A,
 // [A, C] and rows float32 [S, E]; scratch: scratch_bytes of device memory
 // (fst_unique_fold_scratch's count). plan_host (host memory): [n_slots,
 // n_stats, slot_kind x n_slots, slot_stat x n_slots, stat_op x n_stats,
-// stat_arg x n_stats], statistic 0 the count. Launches the pipeline on
+// stat_arg x n_stats, is_int x A], statistic 0 the count; an int32 column's
+// words in vals and bufs are int32 bit patterns, and its min / max rows too. Launches the pipeline on
 // `stream` and counts its kernel launches in *launches; returns a
 // cudaError_t (the first failed launch's, or cudaErrorInvalidValue for a
 // malformed plan, size or scratch).

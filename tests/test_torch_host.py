@@ -190,10 +190,37 @@ def test_kernel_wrappers_take_plain_version_for_cpu_tensors_only():
         (sp.OP_EVT, sp.OP_CAP, sp.OP_EQ_I), 2,
     )
     assert last.tolist() == [1, -1]
+    # K7-K9's plain versions: a session closes, a key is counted, an
+    # event is inserted into a sort buffer
+    f32 = torch.float32
+    out = cuda_ops.session_scan(
+        torch.tensor([True, True]), torch.zeros(2, dtype=torch.int32),
+        torch.tensor([10, 50], dtype=torch.int32), torch.tensor([[1.0, 2.0]]),
+        torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.zeros((1, 1)),
+        torch.full((1, 1), float("inf")), torch.full((1, 1), float("-inf")),
+        5)
+    assert out[6].tolist() == [False, True] and out[8].tolist() == [0, 1]
+    out = cuda_ops.frequency_scan(
+        torch.tensor([True, True]), torch.tensor([3, 3], dtype=torch.int32),
+        torch.tensor([[1.0, 2.0]]), torch.zeros(2, dtype=torch.bool),
+        torch.full((2,), -1, dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+        torch.tensor(0, dtype=torch.int32), torch.zeros((1, 2)),
+        [("count", -1), ("sum", 0)], (), False, 0, 0.0, 4)
+    assert out[2].tolist() == [2, 0] and out[7].tolist() == [
+        [1.0, 1.0], [1.0, 2.0]]
+    out = cuda_ops.sort_window_scan(
+        torch.tensor([True, True]), torch.zeros(2, dtype=torch.int32),
+        torch.tensor([5.0, 3.0]), torch.tensor([[5.0, 3.0]]),
+        torch.zeros((1, 2), dtype=torch.bool), torch.zeros((1, 2), dtype=f32),
+        torch.zeros((1, 1, 2)), [("min", 0)])
+    assert out[1].tolist() == [[3.0, 5.0]] and out[3].tolist() == [[5.0, 3.0]]
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
         "unique_window_fold": 0, "slot_nfa_scan": 0, "join_pairs": 0,
-        "table_mutate": 0,
+        "table_mutate": 0, "session_scan": 0, "frequency_scan": 0,
+        "sort_window_scan": 0,
     }
     # a tensor on any other device is refused, never quietly computed
     meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
@@ -228,7 +255,8 @@ def test_cpu_run_builds_no_kernel():
     assert cuda_ops.launch_counts() == {
         "multi_reverse_cummin": 0, "chain_advance": 0,
         "unique_window_fold": 0, "slot_nfa_scan": 0, "join_pairs": 0,
-        "table_mutate": 0,
+        "table_mutate": 0, "session_scan": 0, "frequency_scan": 0,
+        "sort_window_scan": 0,
     }
 
 
@@ -257,7 +285,8 @@ def test_every_zoo_plan_compiles_in_the_port(name):
     ("define table T (id int); from S#window.length(2) select id "
      "update T on T.id == id", None),
     ("from S#window.session(5 sec) select id, count() as c insert into o",
-     8),
+     "#window.session select items must be the session key or "
+     "aggregations"),
     ("partition with (id of S) begin from S select id insert into o; end",
      None),
     ("partition with (id of S) begin from S#window.length(2) as a join "
@@ -278,7 +307,8 @@ def test_refused_forms_name_their_roadmap_item(cql, item):
     # reference refuses itself carries the reference's text (a str).
     # Joins, chained queries, 'insert all events', the table writes and
     # joins, windowed table writes and partitions were item 8 until they
-    # came: the cases kept their ids.
+    # came: the cases kept their ids. So was the session window, whose
+    # case (a plain attribute beside the aggregate) the reference refuses.
     schema = fpt.StreamSchema([("id", "int"), ("timestamp", "long")])
     if item is None:
         assert fpt.compile_plan(cql, {"S": schema}).artifacts

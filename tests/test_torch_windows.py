@@ -291,7 +291,12 @@ _LATER = {
 
 # forms of _LATER that a later slice brought into the port: each compiles
 # to its artifact (the case keeps its id)
-_CAME = {"partitioned_length_window": "PerKeyWindowArtifact"}
+_CAME = {"partitioned_length_window": "PerKeyWindowArtifact",
+         "sort_with_aggregates": "ScanWindowArtifact",
+         "session": "SessionWindowArtifact",
+         "frequent": "FrequencyWindowArtifact",
+         "int_value_column": "ScanWindowArtifact",
+         "more_aggregates_than_the_fold_plan": "ScanWindowArtifact"}
 
 
 @pytest.mark.parametrize("name", sorted(_LATER))
