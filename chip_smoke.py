@@ -249,7 +249,9 @@ fault:
    and in a traced rerun). P1's K4 and W1's K6 inputs of the third step
    go to phase 9;
 8f. scan windows (in a process of its own, `--scan-windows OUT`):
-   SCAN_STEPS = 4 tapes of 524,288 events each of S1 (`#window.session(2
+   SCAN_STEPS = 4 tapes of 524,288 events (2, SCAN_SHORT_STEPS, for the
+   one-warp plans O1, F1 and F2 since phase 8g came) each of S1
+   (`#window.session(2
    sec, user)` over the partition stream: K7, and the flush's rows), O1
    (`#window.sort(10, price)`, one buffer: K9 on one warp), O2 (a
    `sort(4, price, 'desc')` per id inside `partition with`: K9, a warp a
@@ -260,7 +262,40 @@ fault:
    of the first 8,192 events on the card equal to the CPU path's (floats
    and U1's LONG sum within rtol 1e-5), then the streaming and resident
    runs of 8b-8e (the kernel once a step on the host and in a traced
-   rerun). Each plan's third-step kernel inputs go to phase 9;
+   rerun). Each plan's third-step (a short plan's second-step) kernel
+   inputs go to phase 9;
+8g. event time and recovery (in a process of its own, `--event-time
+   OUT`): E1, the headline as the bench runs it (bench.py's settings,
+   the fused streaming Job, 8 tapes a segment) over ET_TAPES = 8 tapes
+   of the bench stream through `DisorderSource` (arrival shuffled by up
+   to 2,000 ms, 64 stragglers held back 20,000 ms, seeded; polls of
+   ET_CHUNK events) under `with_watermarks(2,000)` in event time with
+   late_policy 'side_output': its rows equal to the same Job's over the
+   in-order stream (the stragglers left out), `late_events` and the side
+   output's rows equal to the injected stragglers exactly, K1 and K2
+   launched (counted by their wrappers), then counts-only reruns of both
+   for events/s (printed beside phase 5b's fused rate; not a gate); E2,
+   E1 saved after 4 tapes (`save_checkpoint`) and restored into a fresh
+   Job that runs to the end: under the bench settings the same row count
+   and the same rows wherever no lazy column was carried across the
+   restore, the first Job restored in place (its graphs' tensors
+   overwritten) giving the fresh Job's rows; with lazy projection off the
+   rows of the uninterrupted run exactly; the snapshot's bytes and the
+   save and restore times; E3, slot query (a) of phase 8b (K4) and the
+   tables path of 8d (K6, K5) over 4 tapes, saved after 2 and restored
+   into a fresh Job: the uninterrupted run's rows and final table; and a
+   file the CPU path writes (after 2 of 4 tapes of 4,096 events) restored
+   on the card gives the CPU path's rows; E4, the quote board (K3) with
+   `output last every 4096 events` and window_groupby with `output
+   snapshot every 1 sec`, card against CPU over the first 65,536 events
+   (the window's last snapshot, one row a group); E5, a Supervisor over
+   E1's fused headline (late policy 'drop', lazy projection off) killed
+   at source pulls 3 and 9 and in its second checkpoint (checkpoints
+   every 2 cycles, 3 kept): 3 crashes, no committed row duplicated or
+   lost against the unfaulted run, `late_dropped` exact, its
+   `last_recovery_ms`; then the resident drive over 4 tapes, killed
+   mid-stage and in its first checkpoint, its rows the unfaulted
+   resident run's;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -291,8 +326,9 @@ fault:
    tables path's third step (the stream-table join), exact and timed;
    K4 on P1's third step at 512 slots and K6 on W1's (the rewritten
    update and the delete), each exact against its plain version and
-   timed; K7 on S1's third step, K8 on F1's and F2's, K9 on O1's and
-   O2's (``time_scan_kernel``: held to the plain version on the CPU
+   timed; K7 on S1's third step, K8 on F1's and F2's second, K9 on
+   O1's second and O2's third (``time_scan_kernel``: held to the plain
+   version on the CPU
    copies, on the whole tape or, where the plain version walks event by
    event, its first 4,096 events; CUDA events around back-to-back calls;
    the byte bound and the longest chain's serial floor of empty warp
@@ -4517,6 +4553,11 @@ def partitions_main(out_path):
 # -- phase 8f: the scan windows ----------------------------------------------
 
 SCAN_STEPS = 4  # tapes of BATCH each plan runs (the kernels walk in series)
+# the plans whose kernel runs on one warp (K8, K9 unpartitioned: 0.5-0.8 s
+# a step) run 2 tapes (4 before phase 8g came: the time limit); phase 9
+# times their kernel on the last step
+SCAN_SHORT = ("O1", "F1", "F2")
+SCAN_SHORT_STEPS = 2
 SCAN_CHECK_EVENTS = 8_192  # rows held to the CPU path over these events
 SCAN_PLAIN_EVENTS = 4_096  # phase 9: a walking plain version's prefix
 S1 = ("from inputStream#window.session(2 sec, user) select user, "
@@ -4550,6 +4591,17 @@ SCAN_PLANS = (
     ("U1", U1, "Board", "quote", "unique_window_fold", "ScanWindowArtifact",
      (2,)),
 )
+
+
+def scan_steps(name):
+    """The tapes phase 8f runs plan ``name`` over."""
+    return SCAN_SHORT_STEPS if name in SCAN_SHORT else SCAN_STEPS
+
+
+def scan_recorded_step(name):
+    """The step whose kernel inputs phase 9 times: the third, or a short
+    plan's last."""
+    return min(3, scan_steps(name))
 
 
 def scan_job(fpt, cql, sid, schema, batches, device, retain):
@@ -4586,6 +4638,8 @@ def scan_phase(fpt, co, out_path):
     for name, cql, out, stream, kernel, art_name, int_close in SCAN_PLANS:
         schema, batches = streams[stream]
         sid = sids[stream]
+        steps = scan_steps(name)
+        batches = batches[:steps]
         prefix = [batches[0].slice(0, SCAN_CHECK_EVENTS)]
         res = part_plan(
             fpt, co, name, cql, (out,),
@@ -4593,9 +4647,10 @@ def scan_phase(fpt, co, out_path):
                 scan_job(fpt, _c, _s, _h, _b, dev, retain),
             lambda dev, _c=cql, _s=sid, _h=schema, _p=prefix:
                 scan_job(fpt, _c, _s, _h, _p, dev, True),
-            {kernel: 1}, SCAN_STEPS, n_events,
+            {kernel: 1}, steps, BATCH * steps,
             patches=((scan_windows, kernel, keep_calls(
-                getattr(co, kernel), {3: name}, recorded)),),
+                getattr(co, kernel), {scan_recorded_step(name): name},
+                recorded)),),
             int_close=int_close)
         res["artifacts"] = [type(a).__name__ for a in fpt.compile_plan(
             cql, {sid: schema}, config=bench_config(fpt)).artifacts]
@@ -4630,6 +4685,592 @@ def scan_windows_main(out_path):
 
     co.build()
     scan_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
+# -- phase 8g: event time and recovery ----------------------------------------
+
+ET_TAPES = 8  # E1: tapes of BATCH of the bench stream (4,194,304 events)
+# the disordered source's polls: a release (a poll plus the rows the gate
+# held back) stays within one BATCH tape
+ET_CHUNK = BATCH - 8_192
+ET_SEED = 41
+ET_SKEW_MS = 2_000  # the disorder bound and the watermark's (1 ms an event)
+ET_LATE = 64  # injected stragglers
+ET_LATE_RELEASE_MS = 20_000  # each released this far behind the stream
+ET_SAVE_AFTER = 4  # E2: cycles (tapes) before the checkpoint
+ET_STATE_TAPES = 4  # E3: tapes of each plan, the checkpoint after 2
+ET_CPU_TAPE = 4_096  # E3: the CPU-written file's tapes (4 of them)
+ET_RATE_EVENTS = 65_536  # E4: events held to the CPU path
+ET_RATE_TAPE = 16_384
+ET_RESIDENT_TAPES = 4  # E5: the resident drive's tapes
+ET_QUOTE_RATE = QUOTE_BOARD.replace(
+    "insert into Board", "output last every 4096 events insert into Board")
+ET_WINDOW_SNAPSHOT = WINDOW_GROUPBY.replace(
+    "insert into matches", "output snapshot every 1 sec insert into matches")
+
+
+def et_disorder(fpt, schema, batches):
+    """The bench stream through ``DisorderSource``: arrival shuffled by up
+    to ET_SKEW_MS and ET_LATE stragglers held back ET_LATE_RELEASE_MS
+    (seeded); served in ET_CHUNK polls."""
+    from flink_siddhi_tpu_torch.runtime.faultinject import (
+        DisorderSchedule,
+        DisorderSource,
+    )
+
+    sched = DisorderSchedule(seed=ET_SEED, skew_ms=ET_SKEW_MS,
+                             late_count=ET_LATE,
+                             late_release_ms=ET_LATE_RELEASE_MS)
+    return DisorderSource(fpt.BatchSource("inputStream", schema,
+                                          iter(batches)), sched,
+                          chunk=ET_CHUNK)
+
+
+def et_replay(src):
+    """The arranged stream of ``src`` from its start, watermarked at the
+    disorder bound (a new source object; the arrangement is shared)."""
+    import copy
+
+    from flink_siddhi_tpu_torch.runtime.sources import with_watermarks
+
+    fresh = copy.copy(src)
+    fresh.injected = dict(src.injected)
+    fresh.load_state_dict({"pos": 0})
+    return with_watermarks(fresh, skew_ms=ET_SKEW_MS)
+
+
+def et_job(fpt, schema, source, retain, config=None, policy="side_output"):
+    """E1's Job: the headline in the fused streaming Job (FUSED_K tapes a
+    segment) in event time, bench.py's settings unless ``config``."""
+    plan = fpt.compile_plan(HEADLINE, {"inputStream": schema},
+                            plan_id="bench",
+                            config=config or bench_config(fpt))
+    job = fpt.Job([plan], [source], batch_size=BATCH, time_mode="event",
+                  retain_results=retain, device="cuda")
+    job.fused_segment_len = FUSED_K
+    job.late_policy = policy
+    return job
+
+
+def et_run(job):
+    """Run ``job`` to its end; the wall seconds (synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    job.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def et_rerun(fpt, job, source):
+    """A counts-only rerun of ``job`` (its graphs captured already) over
+    ``source``: fresh engine state and gate, no sink, no retention.
+    Returns events/s."""
+    from flink_siddhi_tpu_torch.runtime.executor import MIN_WM
+
+    job._sinks.clear()
+    job.retain_results = False
+    job.reset_engine_state()
+    job._sources, job._source_wm, job._source_done = [source], [MIN_WM], \
+        [False]
+    job.late_events = job.late_dropped = 0
+    n = job.processed_events
+    wall = et_run(job)
+    return (job.processed_events - n) / wall
+
+
+def on_card(states):
+    """Whether every tensor of a (nested) engine state is on the card."""
+    if isinstance(states, dict):
+        return all(on_card(v) for v in states.values())
+    return states.device.type == "cuda"
+
+
+def sorted_rows(rows):
+    return sorted(rows, key=lambda r: (r[0], tuple(
+        (v is None, v if v is not None else 0) for v in r[1])))
+
+
+def et_headline(fpt, co, schema, batches, src):
+    """E1: the disordered headline against the same Job over the in-order
+    stream (the pristine stream without the stragglers), the stragglers
+    on the side output exactly, K1 and K2 launched; then counts-only
+    reruns of both for events/s. Returns (result, the disordered run's
+    rows)."""
+    from flink_siddhi_tpu_torch.runtime.executor import late_stream
+    from flink_siddhi_tpu_torch.runtime.sources import with_watermarks
+
+    keep = np.ones(len(src.pristine), dtype=bool)
+    keep[src.late_log] = False
+    in_order = src.pristine.take(np.nonzero(keep)[0])
+    ordered = [in_order.slice(s, s + ET_CHUNK)
+               for s in range(0, len(in_order), ET_CHUNK)]
+
+    def ordered_source():
+        return with_watermarks(fpt.BatchSource("inputStream", schema,
+                                               iter(ordered)), skew_ms=0)
+
+    ref_job = et_job(fpt, schema, ordered_source(), True)
+    et_run(ref_job)
+    ref = ref_job.results_with_ts("matches")
+    if ref_job.late_events or len(ref) < 1000:
+        raise AssertionError(f"E1 in order: {ref_job.late_events} late, "
+                             f"{len(ref)} rows")
+    job = et_job(fpt, schema, et_replay(src), True)
+    co.reset_launches()
+    wall = et_run(job)
+    launches = co.launch_counts()
+    rows = job.results_with_ts("matches")
+    late_rows = job.collected.get(late_stream("inputStream"), [])
+    want_late = sorted(
+        (int(t), tuple(r[n] for n in schema.field_names))
+        for t, r in zip(src.pristine.timestamps[src.late_log].tolist(),
+                        src.pristine.take(src.late_log).records()))
+    if sorted_rows(rows) != sorted_rows(ref):
+        raise AssertionError(f"E1: {len(rows)} rows under disorder, "
+                             f"{len(ref)} in order, or they differ")
+    if (job.late_events != ET_LATE or job.late_dropped
+            or sorted(late_rows) != want_late):
+        raise AssertionError(f"E1: late_events {job.late_events}, dropped "
+                             f"{job.late_dropped}, {len(late_rows)} rows on "
+                             f"the side output, {ET_LATE} injected")
+    if (not launches["multi_reverse_cummin"] or not launches["chain_advance"]
+            or any(v for k, v in launches.items()
+                   if k not in ("multi_reverse_cummin", "chain_advance"))):
+        raise AssertionError(f"E1: launches {launches}")
+    if job.eager_segments:
+        raise AssertionError(f"E1: {job.eager_segments} eager segments")
+    n = len(src.pristine)
+    result = {
+        "events": n, "tape": BATCH, "poll": ET_CHUNK,
+        "skew_ms": ET_SKEW_MS, "late_injected": ET_LATE,
+        "late_release_ms": ET_LATE_RELEASE_MS, "rows": len(rows),
+        "late_events": job.late_events,
+        "side_output_rows": len(late_rows),
+        "launches": launches, "graphs_captured": job.graphs_captured,
+        "first_run_s": wall,
+        "watermark_lag_ms": hist_ms(job, "watermark.lag"),
+        "gate_residency_ms": hist_ms(job, "gate.residency"),
+        "reorder_s": job.telemetry.snapshot()["stages"].get(
+            "reorder", {}).get("seconds"),
+    }
+    result["events_per_s"] = et_rerun(fpt, job, et_replay(src))
+    result["in_order_events_per_s"] = et_rerun(fpt, ref_job,
+                                               ordered_source())
+    if job.graphs_captured != result["graphs_captured"]:
+        raise AssertionError("E1: the counts-only rerun captured a graph")
+    del job, ref_job
+    return result, rows
+
+
+def et_split(fpt, schema, src, config, path):
+    """E2's split run: ET_SAVE_AFTER cycles, ``save_checkpoint``, then a
+    fresh Job restores the file and runs to the end. Returns (rows before
+    the save, rows after the restore, the late rows of both, timings, the
+    first Job)."""
+    import torch
+
+    from flink_siddhi_tpu_torch.runtime.executor import late_stream
+
+    first = et_job(fpt, schema, et_replay(src), True, config)
+    for _ in range(ET_SAVE_AFTER):
+        first.run_cycle()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    second = et_job(fpt, schema, et_replay(src), True, config)
+    t0 = time.perf_counter()
+    second.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not on_card(second._plans["bench"].states):
+        raise AssertionError("E2: the restored state is not on the card")
+    et_run(second)
+    late = (first.collected.get(late_stream("inputStream"), [])
+            + second.collected.get(late_stream("inputStream"), []))
+    if second.late_events != ET_LATE or len(late) != ET_LATE:
+        raise AssertionError(f"E2: {second.late_events} late events after "
+                             f"the restore, {len(late)} late rows")
+    return (first.results_with_ts("matches"),
+            second.results_with_ts("matches"),
+            {"save_s": save_s, "restore_s": restore_s,
+             "snapshot_bytes": os.path.getsize(path)}, first)
+
+
+def et_checkpoint(fpt, schema, src, whole):
+    """E2: E1 checkpointed after ET_SAVE_AFTER tapes and restored into a
+    fresh Job. Under the bench settings the rows count as the
+    uninterrupted run's (``whole``) and equal them where no lazy column
+    was carried across the restore; the first Job restored in place (its
+    graphs bound to its state) gives the fresh Job's rows. With
+    lazy_projection off the rows equal the uninterrupted run's exactly.
+    Returns (the result, the uninterrupted rows with lazy projection
+    off)."""
+    import collections
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "event_time.ckpt")
+    before, after, timing, first = et_split(fpt, schema, src, None, path)
+    split = before + after
+    with_none = [r for r in split if None in r[1]]
+    extra = (collections.Counter(r for r in split if None not in r[1])
+             - collections.Counter(whole))
+    if len(split) != len(whole) or sum(extra.values()):
+        raise AssertionError(f"E2: {len(split)} rows split, {len(whole)} "
+                             f"whole, {sum(extra.values())} not in it")
+    # the first Job restored in place: its graphs' tensors overwritten
+    n0 = len(before)
+    graphs = first.graphs_captured
+    first.restore(path)
+    et_run(first)
+    again = first.results_with_ts("matches")[n0:]
+    if sorted_rows(again) != sorted_rows(after):
+        raise AssertionError("E2: the Job restored in place differs from "
+                             "the fresh one")
+    if first.graphs_captured != graphs:
+        raise AssertionError(f"E2: the in-place restore captured "
+                             f"{first.graphs_captured - graphs} graphs")
+    del first
+    # lazy projection off: exact
+    eager_cfg = fpt.EngineConfig(lazy_projection=False, pred_pushdown=True)
+    ref = et_job(fpt, schema, et_replay(src), True, eager_cfg)
+    et_run(ref)
+    exact = ref.results_with_ts("matches")
+    del ref
+    before2, after2, timing2, first2 = et_split(fpt, schema, src, eager_cfg,
+                                                path)
+    del first2
+    if sorted_rows(before2 + after2) != sorted_rows(exact):
+        raise AssertionError("E2: with lazy projection off the split rows "
+                             "differ from the uninterrupted run's")
+    return {"rows": len(split), "rows_with_none": len(with_none),
+            "rows_before_save": len(before), **timing,
+            "lazy_off": {"rows": len(exact), **timing2},
+            "in_place_restore_rows": len(again)}, exact
+
+
+def et_state(fpt, co, name, make_job, outs, kernels, tables=False):
+    """E3 for one plan: the uninterrupted run of ET_STATE_TAPES tapes and
+    the split one (2 tapes, ``save_checkpoint``, a fresh Job restores and
+    runs 2 more): the same rows and, with ``tables``, the same final
+    table; each of ``kernels`` launched."""
+    import torch
+
+    path = os.path.join(SMOKE_DIR, f"event_time_{name}.ckpt")
+    whole = make_job("cuda", ET_STATE_TAPES)
+    co.reset_launches()
+    et_run(whole)
+    launches = co.launch_counts()
+    if any(not launches[k] for k in kernels):
+        raise AssertionError(f"E3 {name}: launches {launches}")
+    first = make_job("cuda", ET_STATE_TAPES)
+    first.run_cycle()
+    first.run_cycle()
+    first.save_checkpoint(path)
+    second = make_job("cuda", ET_STATE_TAPES)
+    t0 = time.perf_counter()
+    second.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    et_run(second)
+    for o in outs:
+        got = first.results_with_ts(o) + second.results_with_ts(o)
+        want = whole.results_with_ts(o)
+        if sorted_rows(got) != sorted_rows(want) or len(want) < 10:
+            raise AssertionError(f"E3 {name} {o}: {len(got)} rows split, "
+                                 f"{len(want)} whole, or they differ")
+    if tables:
+        a, b = table_state(second)[0], table_state(whole)[0]
+        for k, v in b.items():
+            same(a[k], v, f"E3 {name}: the final PriceTable's {k}")
+    return {"rows": {o: len(whole.results_with_ts(o)) for o in outs},
+            "launches": launches, "snapshot_bytes": os.path.getsize(path),
+            "restore_s": restore_s}
+
+
+def et_cpu_file(fpt, name, make_job, outs):
+    """E3: a file the CPU path writes (after 2 of 4 tapes of ET_CPU_TAPE)
+    restores on the card, and the rows after it equal the CPU path's
+    restored from the same file."""
+    path = os.path.join(SMOKE_DIR, f"event_time_{name}_cpu.ckpt")
+    cpu = make_job("cpu", 4)
+    cpu.run_cycle()
+    cpu.run_cycle()
+    cpu.save_checkpoint(path)
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        job = make_job(dev, 4)
+        job.restore(path)
+        et_run(job) if dev == "cuda" else job.run()
+        rows[dev] = {o: job.results_with_ts(o) for o in outs}
+    for o in outs:
+        if rows["cuda"][o] != rows["cpu"][o] or not rows["cpu"][o]:
+            raise AssertionError(f"E3 {name}: the CPU file restored on the "
+                                 f"card gives {len(rows['cuda'][o])} rows, "
+                                 f"the CPU {len(rows['cpu'][o])}")
+    return {o: len(rows["cpu"][o]) for o in outs}
+
+
+def et_states(fpt, co, batches):
+    """E3: slot query (a) of phase 8b (K4) and the tables path of 8d (K6,
+    K5) across a restore on the card, and files of the CPU path restored
+    on the card."""
+    from flink_siddhi_tpu_torch.runtime.sources import ReplayBatchSource
+
+    schema = batches[0].schema
+    slot_cql = SLOT_QUERIES[0][1]
+
+    def slot_job(dev, tapes, tape=BATCH):
+        events = [b.slice(s, s + tape) for b in batches
+                  for s in range(0, len(b), tape)][:tapes]
+        plan = fpt.compile_plan(slot_cql, {"inputStream": schema},
+                                plan_id="bench", config=bench_config(fpt))
+        job = fpt.Job([plan], [ReplayBatchSource("inputStream", schema,
+                                                 events)],
+                      batch_size=tape, time_mode="processing", device=dev)
+        if dev == "cuda":
+            job.fused_segment_len = FUSED_K
+        return job
+
+    tschema, cols = join_columns(fpt, TABLE_SIDS,
+                                 ET_STATE_TAPES * BATCH // 2,
+                                 n_ids=TABLE_N_IDS)
+    # the CPU-written file's streams: N_IDS ids, so that the table fills
+    # and the join emits in 16,384 events
+    _, small = join_columns(fpt, TABLE_SIDS, 4 * ET_CPU_TAPE // 2)
+
+    def table_job(dev, tapes, tape=BATCH, cols=cols):
+        streams = join_batches(fpt, tschema, cols, tape // 2,
+                               tapes * tape // 2)
+        plan = fpt.compile_plan(TABLES.format(join="join"),
+                                {sid: tschema for sid in streams},
+                                plan_id="bench", config=bench_config(fpt))
+        job = fpt.Job([plan], [ReplayBatchSource(sid, tschema, bs)
+                               for sid, bs in streams.items()],
+                      batch_size=tape, time_mode="processing", device=dev)
+        if dev == "cuda":
+            job.fused_segment_len = FUSED_K
+        return job
+
+    out = {
+        "slot_a": et_state(fpt, co, "slot_a", slot_job, ("matches",),
+                           ("slot_nfa_scan",)),
+        "tables": et_state(fpt, co, "tables", table_job, ("joined",),
+                           ("table_mutate", "join_pairs"), tables=True),
+    }
+    out["slot_a"]["cpu_file_rows"] = et_cpu_file(
+        fpt, "slot_a", lambda dev, n: slot_job(dev, n, ET_CPU_TAPE),
+        ("matches",))
+    out["tables"]["cpu_file_rows"] = et_cpu_file(
+        fpt, "tables", lambda dev, n: table_job(dev, n, ET_CPU_TAPE, small),
+        ("joined",))
+    return out
+
+
+def et_rates(fpt, co):
+    """E4: the quote board (K3) with `output last every 4096 events` and
+    window_groupby with `output snapshot every 1 sec` over their first
+    ET_RATE_EVENTS events at ET_RATE_TAPE tapes, card against CPU (the
+    window's last snapshot, flushed at the end: one row a group)."""
+    qschema, qbatches, _ = quote_stream(fpt, ET_RATE_EVENTS, ET_RATE_TAPE)
+    wschema, wbatches = bench_stream(fpt, ET_RATE_EVENTS, ET_RATE_TAPE,
+                                     n_ids=N_IDS_WINDOW)
+    out = {}
+    for name, cql, sid, schema, batches, o in (
+            ("quote_board", ET_QUOTE_RATE, "StockStream", qschema, qbatches,
+             "Board"),
+            ("window_groupby", ET_WINDOW_SNAPSHOT, "inputStream", wschema,
+             wbatches, "matches")):
+        rows, launches = {}, None
+        for dev in ("cpu", "cuda"):
+            plan = fpt.compile_plan(cql, {sid: schema}, plan_id="bench",
+                                    config=bench_config(fpt))
+            if o not in plan.output_rates:
+                raise AssertionError(f"E4 {name}: no rate on {o}")
+            job = fpt.Job([plan], [fpt.BatchSource(sid, schema,
+                                                   iter(batches))],
+                          batch_size=ET_RATE_TAPE, time_mode="processing",
+                          device=dev)
+            co.reset_launches()
+            job.run()
+            rows[dev] = job.results_with_ts(o)
+            if dev == "cuda":
+                launches = co.launch_counts()
+        got, ref = rows["cuda"], rows["cpu"]
+        if name == "window_groupby":
+            groups = N_IDS_WINDOW
+            got, ref = (sorted(r[-groups:], key=lambda x: x[1][0])
+                        for r in (got, ref))
+            if len({r[1][0] for r in ref}) != groups:
+                raise AssertionError(f"E4 {name}: the last snapshot holds "
+                                     f"{len(ref)} rows, not one a group")
+        rel = rows_match(got, ref, WINDOW_RTOL, f"E4 {name}: card vs CPU")
+        if name == "quote_board":
+            if (len(ref) != ET_RATE_EVENTS // 4096
+                    or not launches["unique_window_fold"]):
+                raise AssertionError(f"E4 {name}: {len(ref)} rows, "
+                                     f"launches {launches}")
+        out[name] = {"rows": len(rows["cpu"]), "compared_rows": len(ref),
+                     "max_rel": rel, "launches": launches}
+    return out
+
+
+def et_supervised(fpt, schema, batches, src, whole):
+    """E5: a Supervisor over E1's fused headline (late policy 'drop',
+    lazy projection off: under it a partial carried across a restore
+    decodes its lazy columns as None, E2), killed at source pulls 3 and 9
+    and in its second checkpoint: 3 crashes, the committed rows equal the
+    unfaulted run's (``whole``) with none duplicated or lost,
+    late_dropped exact; then the resident drive (bench.py's settings)
+    over ET_RESIDENT_TAPES tapes, killed mid-stage and in its first
+    checkpoint, its rows equal an unfaulted resident run's."""
+    import collections
+    import shutil
+
+    from flink_siddhi_tpu_torch.runtime.faultinject import (
+        CrashPlan,
+        DisorderSchedule,
+        DisorderSource,
+        wrap_job,
+    )
+    from flink_siddhi_tpu_torch.runtime.sources import with_watermarks
+    from flink_siddhi_tpu_torch.runtime.supervisor import Supervisor
+
+    sup_dir = os.path.join(SMOKE_DIR, "supervised")
+    shutil.rmtree(sup_dir, ignore_errors=True)
+    os.makedirs(sup_dir)
+    crash = CrashPlan(at_pulls=(3, 9), at_checkpoints=(2,))
+
+    eager_cfg = fpt.EngineConfig(lazy_projection=False, pred_pushdown=True)
+
+    def factory():
+        return wrap_job(et_job(fpt, schema, et_replay(src), False,
+                               eager_cfg, policy="drop"), crash)
+
+    sup = Supervisor(factory, os.path.join(sup_dir, "ckpt"),
+                     checkpoint_every_cycles=2, keep_checkpoints=3,
+                     max_restarts=10, restart_window_s=3600.0)
+    t0 = time.perf_counter()
+    final = sup.run()
+    wall = time.perf_counter() - t0
+    committed = collections.Counter(sup.results_with_ts("matches"))
+    oracle = collections.Counter(whole)
+    dup = sum((committed - oracle).values())
+    lost = sum((oracle - committed).values())
+    tel = sup.telemetry.snapshot()
+    if crash.crashes != 3 or dup or lost \
+            or final.late_dropped != ET_LATE:
+        raise AssertionError(f"E5: {crash.crashes} crashes, {dup} "
+                             f"duplicate and {lost} lost rows, late_dropped "
+                             f"{final.late_dropped} of {ET_LATE}")
+    result = {
+        "crashes": crash.crashes, "duplicate_rows": dup, "lost_rows": lost,
+        "rows": sum(committed.values()), "late_dropped": final.late_dropped,
+        "last_recovery_ms": sup.last_recovery_ms,
+        "restore_ms": tel["histograms"]["recovery.restore_ms"],
+        "checkpoints": tel["counters"]["recovery.checkpoints"],
+        "events_replayed": tel["counters"].get("recovery.events_replayed",
+                                               0),
+        "rows_discarded": tel["counters"].get("recovery.rows_discarded", 0),
+        "wall_s": wall,
+    }
+    # the resident drive
+    short = DisorderSource(
+        fpt.BatchSource("inputStream", schema,
+                        iter(batches[:ET_RESIDENT_TAPES])),
+        DisorderSchedule(seed=ET_SEED, skew_ms=ET_SKEW_MS), chunk=ET_CHUNK)
+    rcrash = CrashPlan(at_pulls=(2,), at_checkpoints=(1,))
+
+    def resident_job():
+        return et_job(fpt, schema, et_replay(short), False)
+
+    ref = resident_job()
+    got_ref = []
+    ref.add_sink("matches", lambda t, row: got_ref.append((t, row)))
+    rep = fpt.ResidentReplay(ref)
+    rep.stage()
+    rep.run()
+    ref.flush()
+    del ref, rep
+    rsup = Supervisor(lambda: wrap_job(resident_job(), rcrash),
+                      os.path.join(sup_dir, "resident"), mode="resident",
+                      max_restarts=5, restart_window_s=3600.0)
+    rsup.run()
+    if rcrash.crashes != 2 or sorted_rows(
+            rsup.results_with_ts("matches")) != sorted_rows(got_ref) \
+            or len(got_ref) < 1000:
+        raise AssertionError(f"E5 resident: {rcrash.crashes} crashes, "
+                             f"{len(rsup.results_with_ts('matches'))} rows, "
+                             f"{len(got_ref)} unfaulted")
+    result["resident"] = {"crashes": rcrash.crashes, "rows": len(got_ref),
+                          "events": int(len(short.pristine))}
+    shutil.rmtree(sup_dir, ignore_errors=True)
+    return result
+
+
+def event_time_phase(fpt, co, out_path):
+    """Phase 8g: E1 to E5 (see the module docstring). The result goes to
+    ``out_path``."""
+    import torch
+
+    t_phase = time.perf_counter()
+    schema, batches = bench_stream(fpt, BATCH * ET_TAPES, BATCH)
+    src = et_disorder(fpt, schema, batches)
+    laps = {}
+    t = time.perf_counter()
+    e1, rows = et_headline(fpt, co, schema, batches, src)
+    laps["e1_s"] = time.perf_counter() - t
+    log(f"  E1: {e1['rows']} rows under disorder equal to the in-order "
+        f"run's, {e1['late_events']} late rows on the side output, "
+        f"{e1['events_per_s']:.4g} events/s (in order "
+        f"{e1['in_order_events_per_s']:.4g}), launches {e1['launches']}")
+    t = time.perf_counter()
+    e2, exact = et_checkpoint(fpt, schema, src, rows)
+    laps["e2_s"] = time.perf_counter() - t
+    log(f"  E2: snapshot {e2['snapshot_bytes']} bytes, save "
+        f"{e2['save_s']:.3f} s, restore {e2['restore_s']:.3f} s; "
+        f"{e2['rows']} rows, {e2['rows_with_none']} with a lazy column "
+        f"carried across the restore; lazy projection off: exact")
+    t = time.perf_counter()
+    e3 = et_states(fpt, co, batches)
+    laps["e3_s"] = time.perf_counter() - t
+    log(f"  E3: {json.dumps(e3)}")
+    t = time.perf_counter()
+    e4 = et_rates(fpt, co)
+    laps["e4_s"] = time.perf_counter() - t
+    log(f"  E4: {json.dumps(e4)}")
+    t = time.perf_counter()
+    e5 = et_supervised(fpt, schema, batches, src, exact)
+    laps["e5_s"] = time.perf_counter() - t
+    log(f"  E5: {e5['crashes']} crashes, {e5['duplicate_rows']} duplicate "
+        f"and {e5['lost_rows']} lost rows, late_dropped "
+        f"{e5['late_dropped']}, last_recovery_ms "
+        f"{e5['last_recovery_ms']:.1f}; resident "
+        f"{e5['resident']['crashes']} crashes, rows equal")
+    torch.cuda.synchronize()
+    out = {"E1": e1, "E2": e2, "E3": e3, "E4": e4, "E5": e5, **laps,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"event_time": out}))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def event_time_main(out_path):
+    """Phase 8g alone (``--event-time OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    event_time_phase(fpt, co, out_path)
     torch.cuda.synchronize()
     return 0
 
@@ -5460,7 +6101,7 @@ def scan_work(kernel, args, rows):
 
 def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
                      dev="cuda"):
-    """K7, K8 or K9 on phase 8f's recorded third steps of ``plans`` (the
+    """K7, K8 or K9 on phase 8f's recorded steps of ``plans`` (the
     first plan's is the kernels-line entry, the others under their names):
     held to its plain version (run on the CPU copies) on the whole tape,
     or, where the plain version walks event by event (one partition, one
@@ -5481,7 +6122,8 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
                      and int(args[4].shape[0]) == 1))
         held = (cut_events(args, SCAN_PLAIN_EVENTS, per_event) if walks
                 else args)
-        res = check(co, held, f"{name}'s third step"
+        step = f"step {scan_recorded_step(name)}"
+        res = check(co, held, f"{name}'s {step}"
                     + (f" (first {SCAN_PLAIN_EVENTS} events)" if walks
                        else ""), dev)
         plain_s, rel = res[-1], (res[-2] if kernel != "session_scan"
@@ -5502,15 +6144,15 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
         entries[name] = {
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_s * 1e3,
             "plain_device": "cpu",
-            "plain_shape": (f"the first {SCAN_PLAIN_EVENTS} events of the "
-                            "third step" if walks else "the third step"),
+            "plain_shape": (f"the first {SCAN_PLAIN_EVENTS} events of "
+                            f"{step}" if walks else step),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "operations": ops, "serial_chain_events": chain,
             "serial_floor_ms": floor_serial, "max_rel_err": rel,
             "events": int(args[0].shape[0]),
             "events_masked": int(args[0].sum()),
         }
-        log(f"  {kernel} on {name}'s third step: {ms} ms a call "
+        log(f"  {kernel} on {name}'s {step}: {ms} ms a call "
             f"({call_ms} ms single), {entries[name]['events_masked']} "
             f"events, longest chain {chain} events, serial floor "
             f"{floor_serial} ms, bound {bound_ms} ms ({bound_by}); held to "
@@ -5523,7 +6165,7 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
         "launches": launches[plans[0]], "max_abs_err": 0,
         "max_abs_err_by": "equal as stored against the plain version "
                           "(sums within SCAN_RTOL, max_rel_err) on each "
-                          "plan's third step and phase 3's cases",
+                          "plan's recorded step and phase 3's cases",
         **{k: first[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                  "bound_by")},
         "plain_device": "cpu", "plain_shape": first["plain_shape"],
@@ -5957,7 +6599,37 @@ def main():
            "launches_traced": q["resident"]["launches_traced"][q["kernel"]]}
         for q in scans["plans"]], "phase_s": scans["phase_s"]}))
 
-    lap("phases 7, 8, 8b, 8c, 8d, 8e and 8f")
+    # 8g. event time and recovery: the disordered headline, checkpoints
+    # and restores on the card, output rate limiting, the supervisor (in
+    # a process of its own, as 8f)
+    log(f"[8g/11] event time and recovery: the headline over "
+        f"{BATCH * ET_TAPES} events under disorder, checkpoints, output "
+        f"rate limiting, the supervisor")
+    t_et = time.perf_counter()
+    et_path = os.path.join(SMOKE_DIR, "event_time.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--event-time", et_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"event time phase failed ({r.returncode})")
+    with open(et_path) as f:
+        et = json.load(f)
+    log(f"  event time phase {time.perf_counter() - t_et:.1f} s")
+    e1, e2, e5 = et["E1"], et["E2"], et["E5"]
+    log(json.dumps({"event_time": {
+        "E1": {k: e1[k] for k in (
+            "events", "rows", "late_events", "side_output_rows",
+            "events_per_s", "in_order_events_per_s", "launches")}
+        | {"phase_5b_fused_events_per_s_median":
+           bench_head["fused_streaming"]["events_per_s_median"]},
+        "E2": {k: e2[k] for k in ("snapshot_bytes", "save_s", "restore_s",
+                                  "rows", "rows_with_none", "lazy_off")},
+        "E3": et["E3"], "E4": et["E4"],
+        "E5": {k: e5[k] for k in (
+            "crashes", "duplicate_rows", "lost_rows", "late_dropped",
+            "last_recovery_ms", "resident")},
+        "phase_s": et["phase_s"]}}))
+
+    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f and 8g")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -5996,7 +6668,12 @@ def main():
                          q["kernel"]] for q in scans["plans"]},
                      "scans_traced": {q["path"]: q["resident"][
                          "launches_traced"][q["kernel"]]
-                         for q in scans["plans"]}},
+                         for q in scans["plans"]},
+                     "event_time": {
+                         "E1": et["E1"]["launches"],
+                         "E3": {p: et["E3"][p]["launches"]
+                                for p in ("slot_a", "tables")},
+                         "E4": et["E4"]["quote_board"]["launches"]}},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -6581,6 +7258,17 @@ def kernels_main(path):
                                               launches["scans"]["U1"])
     kernels[2]["launches_u1_resident_traced"] = launches["scans_traced"][
         "U1"]
+    # phase 8g's launches: E1's disordered headline (K1, K2), E3's runs
+    # across a restore (K4; K6 and K5), E4's rate-limited quote board (K3)
+    et_l = launches["event_time"]
+    for k, count in (
+            (kernels[0], et_l["E1"]["multi_reverse_cummin"]),
+            (kernels[1], et_l["E1"]["chain_advance"]),
+            (kernels[2], et_l["E4"]["unique_window_fold"]),
+            (kernels[3], et_l["E3"]["slot_a"]["slot_nfa_scan"]),
+            (kernels[4], et_l["E3"]["tables"]["join_pairs"]),
+            (kernels[5], et_l["E3"]["tables"]["table_mutate"])):
+        k["launches_event_time"] = count
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -6672,6 +7360,8 @@ if __name__ == "__main__":
         sys.exit(partitions_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--scan-windows":
         sys.exit(scan_windows_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--event-time":
+        sys.exit(event_time_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

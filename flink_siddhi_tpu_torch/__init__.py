@@ -14,8 +14,10 @@ count/sum/avg/min/max, driven by the streaming ``Job`` or, over a bounded
 stream staged on the device beforehand, by ``ResidentReplay``; with
 ``EngineConfig(lazy_projection=True, pred_pushdown=True)`` (the bench's
 settings) a plan of one select or one chain ships only packed predicate
-bits and the columns the device needs. Everything else raises
-``SiddhiQLError`` naming the later slice;
+bits and the columns the device needs. The runtime has the reference's
+event time (watermark strategies, late policies, idle sources), output
+rate limiting, checkpoints in the reference's format and the supervisor.
+Everything else raises ``SiddhiQLError`` naming the later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.
 
@@ -29,9 +31,21 @@ from .api.cep import CEPEnvironment, SiddhiCEP
 from .api.stream import ExecutionStream, Row
 from .compiler.config import EngineConfig
 from .compiler.plan import CompiledPlan, compile_plan, state_from_numpy
-from .runtime.executor import ColumnarSink, Job
+from .runtime.executor import ColumnarSink, Job, late_stream
 from .runtime.replay import ResidentReplay
-from .runtime.sources import BatchSource, ListSource, Source
+from .runtime.sources import (
+    BatchSource,
+    BoundedDisorderWatermark,
+    CallbackSource,
+    ListSource,
+    PunctuatedWatermark,
+    ReplayBatchSource,
+    Source,
+    WatermarkStrategy,
+    WatermarkedSource,
+    with_watermarks,
+)
+from .runtime.supervisor import RestartBudgetExceeded, Supervisor
 from .schema.batch import EventBatch
 from .schema.stream_schema import StreamSchema
 from .schema.types import AttributeType
@@ -41,7 +55,9 @@ __version__ = "0.1.0"
 __all__ = [
     "AttributeType",
     "BatchSource",
+    "BoundedDisorderWatermark",
     "CEPEnvironment",
+    "CallbackSource",
     "ColumnarSink",
     "CompiledPlan",
     "EngineConfig",
@@ -49,11 +65,19 @@ __all__ = [
     "ExecutionStream",
     "Job",
     "ListSource",
+    "PunctuatedWatermark",
+    "ReplayBatchSource",
     "ResidentReplay",
+    "RestartBudgetExceeded",
     "Row",
     "SiddhiCEP",
     "Source",
     "StreamSchema",
+    "Supervisor",
+    "WatermarkStrategy",
+    "WatermarkedSource",
     "compile_plan",
+    "late_stream",
     "state_from_numpy",
+    "with_watermarks",
 ]

@@ -22,9 +22,9 @@ from a window or an aggregation, update / delete ``on``, also windowed
 through an intermediate stream, stream-table joins; the tables ride the
 state under ``@tables`` and thread through the queries in order) and
 ``partition with`` (per-key patterns, per-key length windows, partitioned
-aggregations: ``_rewrite_partitioned``). Output rate limiting raises
-``SiddhiQLError`` naming the later slice of the port (ROADMAP.md Queue
-1); the JAX package ``flink_siddhi_tpu`` runs it.
+aggregations: ``_rewrite_partitioned``). Output rate limiting
+(``output ... every``) compiles to per-stream settings that the executor's
+host limiter applies where rows surface.
 """
 
 from __future__ import annotations
@@ -83,6 +83,11 @@ class CompiledPlan:
     # consumer artifact name -> its chained (internal) input descriptor
     chained: Dict[str, ChainedInput] = field(default_factory=dict)
     table_schemas: Dict[str, StreamSchema] = field(default_factory=dict)
+    # output stream -> its ``output ... every`` clause (ast.OutputRate),
+    # applied by the executor's host limiter; for a snapshot, the group
+    # keys' positions in the output row
+    output_rates: Dict[str, object] = field(default_factory=dict)
+    snapshot_keys: Dict[str, tuple] = field(default_factory=dict)
 
     def init_state(self, device) -> Dict:
         states = {a.name: a.init_state(device) for a in self.artifacts}
@@ -635,6 +640,8 @@ def compile_plan(
     ):
         cap_limit = 131072
 
+    output_rates, snapshot_keys = _output_rates(parsed, internal_codes,
+                                                table_schemas)
     return CompiledPlan(
         plan_id=plan_id,
         spec=TapeSpec(stream_codes, tuple(columns), column_types,
@@ -646,7 +653,80 @@ def compile_plan(
         tape_capacity_limit=cap_limit,
         chained=chained,
         table_schemas=table_schemas,
+        output_rates=output_rates,
+        snapshot_keys=snapshot_keys,
     )
+
+
+def _output_rates(parsed, internal_codes, table_schemas):
+    """``output [all|last|first] every N events | <duration>`` and
+    ``output snapshot every <duration>``: the host limiter's settings per
+    output stream (``runtime/executor.py:_OutputRateLimiter``) and, for a
+    snapshot, the positions of the group keys in the output row. The
+    reference's checks and refusals, with its text."""
+    output_rates = {}
+    snapshot_keys: Dict[str, tuple] = {}
+    writers: Dict[str, int] = {}
+    for q in parsed.queries:
+        writers[q.output_stream] = writers.get(q.output_stream, 0) + 1
+    for q in parsed.queries:
+        r = q.output_rate
+        if r is None:
+            continue
+        if r.mode == "snapshot":
+            # periodic CURRENT-VALUE emission: one row per group with the
+            # latest aggregate. A plain window-contents snapshot (every
+            # retained event) would need device window dumps
+            has_agg = q.selector.group_by or any(
+                ast.contains_aggregate(i.expr) for i in q.selector.items
+            )
+            if not has_agg:
+                raise SiddhiQLError(
+                    "'output snapshot every ...' is supported for "
+                    "aggregation queries (periodic current aggregate "
+                    "per group); a plain window-contents snapshot is "
+                    "not supported yet"
+                )
+            gb = {ast.bare_group_key(g) for g in q.selector.group_by}
+            keys = []
+            projected = set()
+            for i, item in enumerate(q.selector.items):
+                if isinstance(item.expr, ast.Attr) and item.expr.name in gb:
+                    keys.append(i)
+                    projected.add(item.expr.name)
+            if gb - projected:
+                # EVERY group key must be in the row, or distinct groups
+                # overwrite one snapshot slot
+                raise SiddhiQLError(
+                    "'output snapshot' on a group-by query must "
+                    "project every group key in the select "
+                    f"(missing: {sorted(gb - projected)}); snapshot "
+                    "rows are keyed by them"
+                )
+            snapshot_keys[q.output_stream] = tuple(keys)
+        if writers[q.output_stream] > 1:
+            # the limiter is keyed by stream: a second writer would be
+            # throttled through the first one's limiter
+            raise SiddhiQLError(
+                f"output rate limiting on {q.output_stream!r} with "
+                "multiple writer queries is not supported yet"
+            )
+        if q.output_stream in internal_codes:
+            # chained consumers read the producer's emissions on the
+            # device, unthinned
+            raise SiddhiQLError(
+                f"output rate limiting on chained stream "
+                f"{q.output_stream!r} is not supported (the downstream "
+                "query consumes the unthinned device emissions)"
+            )
+        if q.output_stream in table_schemas:
+            # table writes apply on the device; the host limiter cannot
+            # throttle them
+            raise SiddhiQLError(
+                "output rate limiting on a table write is not supported"
+            )
+        output_rates[q.output_stream] = r
+    return output_rates, snapshot_keys
 
 
 def _rewrite_partitioned(q: ast.Query, schemas) -> ast.Query:
@@ -800,19 +880,10 @@ def _compile_query(
                 f"{q.output_action} target {q.output_stream!r} is not a "
                 "defined table"
             )
-        art = compile_table_write(
+        return compile_table_write(
             q, name, schemas, table_schemas, stream_codes, extensions,
             config,
         )
-        if q.output_rate is not None:
-            # table writes apply on the device; the host limiter cannot
-            # throttle them — refuse rather than silently ignore
-            raise SiddhiQLError(
-                "output rate limiting on a table write is not supported"
-            )
-        return art
-    if q.output_rate is not None:
-        raise _later("output rate limiting ('output ... every')", 9)
     inp = q.input
     if (
         isinstance(inp, ast.StreamInput)

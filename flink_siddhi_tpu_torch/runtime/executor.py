@@ -35,10 +35,19 @@ forced completion, counted). On the CPU the same code runs, every drain
 ready at once. Drain latency legs go to ``Job.telemetry``
 (``telemetry/``).
 
-Not in this port yet (ROADMAP.md Queue 1): the control plane,
-checkpoints, shared subplans and loopback, output rate limiting, trace
-sampling and SLOs, and the late/idle/backpressure policies beyond the
-default (late rows are dropped and counted).
+Event time is the reference's (``_pull_sources``, ``_release_ready``): a
+monotone gate watermark over the sources that are not idle, a late policy
+('drop', 'side_output' onto ``late_stream(sid)``, 'allow' with
+``allowed_lateness_ms``), idle sources and a bounded backlog
+(``max_pending_events`` with 'block' or 'drop_oldest'). Output rate
+limiting (``output ... every``) thins rows where they surface
+(``_OutputRateLimiter``). ``snapshot``, ``save_checkpoint`` and
+``restore`` (``runtime/checkpoint.py``) carry the whole job in the JAX
+package's checkpoint format; ``runtime/supervisor.py`` restarts from them.
+
+Not in this port yet (ROADMAP.md Queue 1): the control plane (item 10),
+shared subplans and loopback, the flight recorder, trace sampling and
+SLOs (item 12).
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
@@ -82,6 +91,14 @@ _LIVE_JOBS: "weakref.WeakSet[Job]" = weakref.WeakSet()
 MAX_WM = np.iinfo(np.int64).max
 MIN_WM = -(2 ** 62)  # pre-first-event watermark sentinel
 _LAZY_ORD_WRAP = 1 << 30  # reset lazy ordinal space before int32 wrap
+# side-output channel naming: a stream's late rows surface on
+# '<stream_id>@late' (attach sinks there; ColumnarSink-capable)
+LATE_STREAM_SUFFIX = "@late"
+
+
+def late_stream(stream_id: str) -> str:
+    """The side-output stream id carrying ``stream_id``'s late rows."""
+    return stream_id + LATE_STREAM_SUFFIX
 
 
 def retire_tickets(tickets: Deque, limit: int) -> int:
@@ -118,6 +135,210 @@ class ColumnarSink:
         self, ts: np.ndarray, cols: Dict[str, np.ndarray]
     ) -> None:
         raise NotImplementedError
+
+
+class _OutputRateLimiter:
+    """Host emission-layer rate limiter (``output [all|last|first] every
+    N events | <duration>`` and ``output snapshot every <duration>``), the
+    reference's ``_OutputRateLimiter`` (``flink_siddhi_tpu/runtime/
+    executor.py:297-505``): the role of siddhi-core's output rate
+    limiters, applied where rows surface to collectors and sinks, so that
+    thinned streams also skip the retention and callback cost."""
+
+    def __init__(self, rate, snapshot_keys: tuple = ()) -> None:
+        self.mode = rate.mode  # 'events' | 'time' | 'snapshot'
+        self.which = rate.which  # all | last | first
+        self.n = max(int(rate.n_events), 1)
+        self.ms = float(rate.ms)
+        self.count = 0  # events-mode position within the chunk
+        self.buf: List = []
+        self.deadline: Optional[float] = None
+        # snapshot mode: latest row per group key (positions into the
+        # output row); emitted in full every interval
+        self.snapshot_keys = tuple(snapshot_keys or ())
+        self.cur: Dict = {}
+
+    def _normalize_buf_rows(self) -> None:
+        """A stream can change lanes mid-flight (a row sink attached via
+        add_sink drops it off the columnar lane): column fragments the
+        other lane buffered are lifted to ``(ts, row)`` pairs so chunk
+        accounting continues exactly where it left off."""
+        if any(isinstance(b, ColumnBatch) for b in self.buf):
+            self.buf = [
+                r
+                for b in self.buf
+                for r in (
+                    b.rows() if isinstance(b, ColumnBatch) else [b]
+                )
+            ]
+
+    def _normalize_buf_columns(self, field_names) -> None:
+        """Inverse lane switch: row-era ``(ts, row)`` entries become
+        single-row ColumnBatches (order preserved) so concat/take on
+        the columnar path stay uniform."""
+        def lift(entry):
+            if isinstance(entry, ColumnBatch):
+                return entry
+            ts, row = entry
+            return ColumnBatch(
+                np.asarray([ts], dtype=np.int64),
+                {
+                    name: np.asarray([val], dtype=object)
+                    for name, val in zip(field_names, row)
+                },
+            )
+
+        if not all(isinstance(b, ColumnBatch) for b in self.buf):
+            self.buf = [lift(b) for b in self.buf]
+
+    def feed(self, rows: List) -> List:
+        # normalize only when rows are actually absorbed into the
+        # buffer: a flush (idle interval poll or elapsed deadline)
+        # releases buffered entries AS-IS — _emit_pending/flush route
+        # ColumnBatch entries through the columnar emit path, so a
+        # columnar-lane buffer never explodes into per-row tuples just
+        # to be rebuilt into columns for its own sinks
+        if self.buf and rows:
+            self._normalize_buf_rows()
+        if self.mode == "snapshot":
+            # roll the interval BEFORE absorbing, as in time mode: rows
+            # arriving after a deadline belong to the new interval
+            now = time.monotonic()
+            if self.deadline is None:
+                self.deadline = now + self.ms / 1e3
+            flushed: List = []
+            if now >= self.deadline:
+                flushed = list(self.cur.values())
+                self.deadline = now + self.ms / 1e3
+            for r in rows:  # (rel_ts, row)
+                k = tuple(r[1][i] for i in self.snapshot_keys)
+                self.cur[k] = r
+            return flushed
+        if self.mode == "events":
+            out: List = []
+            for r in rows:
+                pos = self.count % self.n
+                self.count += 1
+                if self.which == "first":
+                    if pos == 0:
+                        out.append(r)
+                elif self.which == "last":
+                    self.buf = [r]
+                    if pos == self.n - 1:
+                        out.append(r)
+                        self.buf = []
+                else:  # all: release the chunk when it completes
+                    self.buf.append(r)
+                    if pos == self.n - 1:
+                        out.extend(self.buf)
+                        self.buf = []
+            return out
+        # time mode (processing time): roll the interval over BEFORE
+        # processing — rows arriving after a deadline belong to the NEW
+        # interval (processing them first would drop the new interval's
+        # first event / misattribute late rows to the old interval)
+        now = time.monotonic()
+        if self.deadline is None:
+            self.deadline = now + self.ms / 1e3
+        flushed: List = []
+        if now >= self.deadline:
+            if self.which != "first":
+                flushed = (
+                    self.buf if self.which == "all" else self.buf[-1:]
+                )
+            self.buf = []
+            self.deadline = now + self.ms / 1e3
+        if self.which == "first":
+            out = list(flushed)
+            for r in rows:
+                if not self.buf:
+                    self.buf = [r]  # first of the interval
+                    out.append(r)
+            return out
+        self.buf.extend(rows)
+        return flushed
+
+    def feed_columns(self, cb) -> List:
+        """Columnar twin of :meth:`feed`: account a whole ColumnBatch
+        with index arithmetic and array slices — no row tuples. Events
+        and time modes only (snapshot needs per-group latest rows and
+        is excluded from the columnar lane by Job._columnar_streams).
+        Parity with the row path is pinned by tests."""
+        n = len(cb)
+        if self.buf:
+            self._normalize_buf_columns(list(cb.cols))
+        if self.mode == "events":
+            pos0 = self.count
+            self.count += n
+            pos = (pos0 + np.arange(n, dtype=np.int64)) % self.n
+            if self.which == "first":
+                sel = np.nonzero(pos == 0)[0]
+                return [cb.take(sel)] if sel.size else []
+            if self.which == "last":
+                sel = np.nonzero(pos == self.n - 1)[0]
+                out = [cb.take(sel)] if sel.size else []
+                if n and (pos0 + n) % self.n != 0:
+                    # an incomplete chunk's latest row waits for flush()
+                    self.buf = [cb.take(np.array([n - 1]))]
+                elif sel.size:
+                    self.buf = []
+                return out
+            # all: release through the end of the last COMPLETE chunk
+            complete = np.nonzero(pos == self.n - 1)[0]
+            if not complete.size:
+                if n:
+                    self.buf.append(cb)
+                return []
+            cut = int(complete[-1]) + 1
+            parts = list(self.buf) + ([cb.take(np.arange(cut))]
+                                      if cut else [])
+            self.buf = (
+                [cb.take(np.arange(cut, n))] if cut < n else []
+            )
+            return [ColumnBatch.concat(parts)] if parts else []
+        # time mode: same deadline-roll-before-absorb contract as feed()
+        now = time.monotonic()
+        if self.deadline is None:
+            self.deadline = now + self.ms / 1e3
+        flushed: List = []
+        if now >= self.deadline:
+            if self.which != "first":
+                flushed = (
+                    self.buf if self.which == "all" else self.buf[-1:]
+                )
+            self.buf = []
+            self.deadline = now + self.ms / 1e3
+        if self.which == "first":
+            out = list(flushed)
+            if not self.buf and n:
+                head = cb.take(np.array([0]))
+                self.buf = [head]
+                out.append(head)
+            return out
+        if n:
+            if self.which == "last":
+                # only the latest row can ever surface: keep just it
+                self.buf = [cb.take(np.array([n - 1]))]
+            else:
+                self.buf.append(cb)
+        return flushed
+
+    def flush(self) -> List:
+        """End of stream: pending buffered output surfaces."""
+        if self.mode == "snapshot":
+            out = list(self.cur.values())
+            self.cur = {}
+            return out
+        if self.which == "first":
+            self.buf = []
+            return []
+        out = (
+            self.buf
+            if self.which == "all"
+            else self.buf[-1:]
+        )
+        self.buf = []
+        return out
 
 
 class _LazyRing:
@@ -351,13 +572,44 @@ class Job:
         # data (by the fetch thread), apart so that a data copy never
         # queues behind the counts of a later, unfinished dispatch
         self._meta_stream = self._data_stream = None
-        # event-time gate: the horizon released so far (rows at or below
-        # it are late, dropped and counted) and the monotone gate wm
+        # output rate limiting: stream_id -> limiter (from the plans'
+        # ``output ... every`` clauses, applied at emission)
+        self._rate_limiters: Dict[str, _OutputRateLimiter] = {}
+        # the interval cadence of time-mode limiters (run_cycle)
+        self._last_full_drain = time.monotonic()
+        # graceful degradation: bound the host reorder backlog. None =
+        # unbounded. Over the bound, 'block' stops pulling every source
+        # but the watermark laggards; 'drop_oldest' sheds the oldest
+        # pending batches, counted (shed_events, faults.shed_events)
+        self.max_pending_events: Optional[int] = None
+        self.shed_policy: str = "block"  # 'block' | 'drop_oldest'
+        self.shed_events = 0
+        self._shed_warned_at = -1e9
+        # the event-time gate. A row at or below the horizon already
+        # released (_released_wm) is late; late_policy decides: 'drop'
+        # (counted in late_dropped), 'side_output' (the full input row on
+        # late_stream(sid)), 'allow' (the released horizon is held back by
+        # allowed_lateness_ms, so rows late by at most that still merge in
+        # order; later ones drop, loudly). The gate watermark (_gate_wm)
+        # is monotone: an un-idled source cannot drag it back
+        self.late_policy: str = "drop"
+        self.allowed_lateness_ms: int = 0
+        self.late_events = 0  # rows classified late (every policy)
+        self.late_dropped = 0  # the subset discarded
+        self._late_warned_at = -1e9
         self._released_wm: int = MIN_WM
         self._gate_wm: int = MIN_WM
         self._max_event_ts: Optional[int] = None
-        self.late_events = 0
-        self.late_dropped = 0
+        # idle sources: a source that yields nothing for idle_timeout_ms
+        # stops pinning the min watermark until its next event (0: at its
+        # first empty poll; None: never)
+        self.idle_timeout_ms: Optional[float] = None
+        self._source_idle: List[bool] = [False] * len(self._sources)
+        self._source_last_t: List[Optional[float]] = (
+            [None] * len(self._sources))
+        # gate residency: per stream, (arrival time, batch max ts) of
+        # each pending batch, retired once the horizon passes its max
+        self._pending_t: Dict[str, List[Tuple[float, int]]] = {}
         # fused streaming dispatch: K tapes a segment, one graph replay a
         # segment (None or 1: one step per tape)
         self.fused_segment_len: Optional[int] = None
@@ -400,6 +652,9 @@ class Job:
             rt.lazy = _LazyRing(plan.config.lazy_ring_budget_bytes)
             rt.lazy_state_name = lazy_arts[0].name
         self._plans[plan.plan_id] = rt
+        for sid, rate in plan.output_rates.items():
+            self._rate_limiters[sid] = _OutputRateLimiter(
+                rate, plan.snapshot_keys.get(sid, ()))
 
     def add_sink(self, output_stream: str, fn: Callable) -> None:
         """Attach a sink: ``fn(abs_ts, row_tuple)``, or an object with
@@ -446,28 +701,50 @@ class Job:
         the accumulator ring, are reset in place."""
         self._settle_drains()
         for rt in self._plans.values():
-            fresh = rt.plan.grow_state(rt.plan.init_state(self.device))
-            if rt.graphs is None or not rt.graphs.reset(rt, fresh):
-                rt.states = fresh
-            for acc in rt.ring:
-                acc["meta"].zero_()
-            rt.acc, rt.acc_pos = rt.ring[0], 0
-            rt.ring_release = [None] * len(rt.ring)
-            rt.seg_pending = []
-            rt.tickets.clear()
-            rt.acc_dirty = False
-            rt.dirty_since = None
-            if rt.lazy is not None:
-                rt.lazy = _LazyRing(rt.lazy.budget)
-                rt.lazy_base = 0
-                rt.lazy_miss_warned = 0
+            self._install_states(
+                rt, rt.plan.grow_state(rt.plan.init_state(self.device)))
+        # host-side emission state too: a carried limiter phase would
+        # make the second run emit at different boundaries
+        for lim in self._rate_limiters.values():
+            lim.count = 0
+            lim.buf = []
+            lim.cur = {}
+            lim.deadline = None
         self._cycles_since_drain = 0
+        self._last_full_drain = time.monotonic()
         self._cycle_ema = self._last_cycle_t = None
         # a rerun replays the SAME stream, so a carried released horizon
         # would classify every row late
         self._released_wm = MIN_WM
         self._gate_wm = MIN_WM
         self._max_event_ts = None
+        self._pending_t.clear()
+        self._source_idle = [False] * len(self._sources)
+        self._source_last_t = [None] * len(self._sources)
+
+    def _install_states(self, rt: _PlanRuntime, states: Dict,
+                        lazy_base: int = 0) -> None:
+        """Make ``states`` the plan's engine state (a rerun's fresh state,
+        or a restored one) with every drain settled: the tensors that
+        segment graphs are bound to are overwritten in place when
+        ``states`` has their signature (otherwise the next segment
+        rebinds, and drops every graph of the old binding), the
+        accumulator ring is emptied, staged tapes and in-flight tickets
+        dropped, and the lazy ring restarts at ordinal ``lazy_base``."""
+        if rt.graphs is None or not rt.graphs.reset(rt, states):
+            rt.states = states
+        for acc in rt.ring:
+            acc["meta"].zero_()
+        rt.acc, rt.acc_pos = rt.ring[0], 0
+        rt.ring_release = [None] * len(rt.ring)
+        rt.seg_pending = []
+        rt.tickets.clear()
+        rt.acc_dirty = False
+        rt.dirty_since = None
+        if rt.lazy is not None:
+            rt.lazy = _LazyRing(rt.lazy.budget)
+            rt.lazy_base = lazy_base
+            rt.lazy_miss_warned = 0
 
     # -- run loop ------------------------------------------------------------
     def run(self, max_cycles: Optional[int] = None) -> None:
@@ -490,6 +767,10 @@ class Job:
             with self.telemetry.span("flush"):
                 rt.states, outputs = rt.plan.flush(rt.states)
                 self._decode_outputs(rt, outputs)
+        # stream end: rate-limited output still buffered surfaces now
+        with self.telemetry.span("flush"):
+            for sid, limiter in self._rate_limiters.items():
+                self._emit_pending(sid, limiter.flush())
 
     @property
     def finished(self) -> bool:
@@ -545,6 +826,12 @@ class Job:
             if due is not None and time.monotonic() >= due:
                 with tel.span("drain"):
                     self._interval_drain()
+            # time-mode limiters emit on their own schedule, on the same
+            # interval cadence (they hold host-side rows only)
+            if time.monotonic() - self._last_full_drain >= interval_s:
+                with tel.span("drain"):
+                    self._poll_rate_limiters()
+                self._last_full_drain = time.monotonic()
         if ready and self._cycles_since_drain >= min(
             self.drain_every_cycles,
             min(self._drain_hints.values(), default=self.drain_every_cycles),
@@ -574,30 +861,132 @@ class Job:
         self._last_cycle_t = t_now
 
     def _watermark(self) -> int:
-        """min watermark across sources."""
-        return min(self._source_wm) if self._source_wm else MAX_WM
+        """The min watermark across the sources that are not idle. With
+        every source idle it holds at the gate's last value instead of
+        jumping to the end of the stream: idle means no information, not
+        done (Flink's idleness)."""
+        idle = self._source_idle
+        wms = [wm for i, wm in enumerate(self._source_wm)
+               if not (i < len(idle) and idle[i])]
+        if not wms:
+            return self._gate_wm if self._sources else MAX_WM
+        return min(wms)
+
+    def _pending_total(self) -> int:
+        return sum(len(b) for bs in self._pending.values() for b in bs)
+
+    def idle_source_ids(self) -> List[str]:
+        """Stream ids of the sources currently marked idle."""
+        return [getattr(src, "stream_id", f"source[{i}]")
+                for i, (src, idle) in enumerate(
+                    zip(list(self._sources), list(self._source_idle)))
+                if idle]
 
     def _pull_sources(self) -> None:
+        """Poll every source that is not done into the reorder buffer.
+        Over ``max_pending_events`` under 'block', only the sources at
+        or below the monotone gate watermark keep polling (they pin the
+        min, so the backlog could not release without them); under
+        'drop_oldest' the oldest pending batches are shed after the
+        pulls. Idle tracking as the reference's (``idle_timeout_ms``)."""
+        over = (self.max_pending_events is not None
+                and self._pending_total() >= self.max_pending_events)
+        block = over and self.shed_policy == "block"
+        if block:
+            wm = max(self._watermark(), self._gate_wm)
+        if len(self._source_idle) != len(self._sources):
+            # a caller swapped job._sources: re-size the idle tracking
+            self._source_idle = [False] * len(self._sources)
+            self._source_last_t = [None] * len(self._sources)
+        timeout = self.idle_timeout_ms
+        now = time.monotonic() if timeout is not None else 0.0
         for i, src in enumerate(self._sources):
             if self._source_done[i]:
                 continue
+            if block and self._source_wm[i] > wm:
+                self.telemetry.inc("faults.backpressure_blocks")
+                continue
             batch, swm, done = src.poll(self.batch_size)
             if batch is not None and len(batch):
-                self._pending.setdefault(src.stream_id, []).append(batch)
+                sid = src.stream_id
+                self._pending.setdefault(sid, []).append(batch)
                 bmax = int(batch.timestamps.max())
+                self._pending_t.setdefault(sid, []).append(
+                    (time.monotonic(), bmax))
                 if self._max_event_ts is None or bmax > self._max_event_ts:
                     self._max_event_ts = bmax
+                if timeout is not None:
+                    self._source_last_t[i] = now
+                    if self._source_idle[i]:
+                        # its watermark claim rejoins the min from now on
+                        self._source_idle[i] = False
+                        self.telemetry.inc("idle.unidled")
+            elif timeout is not None and not self._source_idle[i]:
+                if self._source_last_t[i] is None:
+                    self._source_last_t[i] = now  # armed at the first poll
+                if (now - self._source_last_t[i]) * 1e3 >= timeout:
+                    self._source_idle[i] = True
+                    self.telemetry.inc("idle.marked")
+                    _LOG.debug(
+                        "source %s idle for %.0f ms; left out of the min "
+                        "watermark until its next event", src.stream_id,
+                        (now - self._source_last_t[i]) * 1e3,
+                    )
             if swm is not None:
                 self._source_wm[i] = max(self._source_wm[i], swm)
             if done:
                 self._source_done[i] = True
                 self._source_wm[i] = MAX_WM
+                self._source_idle[i] = False
+        if (self.max_pending_events is not None
+                and self.shed_policy == "drop_oldest"):
+            self._shed_pending()
+
+    def _shed_pending(self) -> None:
+        """'drop_oldest': shed whole pending batches, oldest event time
+        first, until the backlog is within the bound (a shed may overshoot
+        by up to one batch), counted and warned at most once a second."""
+        total = self._pending_total()
+        if total <= self.max_pending_events:
+            return
+        shed = 0
+        while total > self.max_pending_events:
+            sid = min(
+                (s for s, bs in self._pending.items() if bs),
+                key=lambda s: (int(self._pending[s][0].timestamps.min())
+                               if len(self._pending[s][0]) else MAX_WM),
+                default=None,
+            )
+            if sid is None:
+                break
+            batch = self._pending[sid].pop(0)
+            if not self._pending[sid]:
+                del self._pending[sid]
+            total -= len(batch)
+            shed += len(batch)
+        if shed:
+            self.shed_events += shed
+            self.telemetry.inc("faults.shed_events", shed)
+            now = time.monotonic()
+            if now - self._shed_warned_at >= 1.0:
+                self._shed_warned_at = now
+                _LOG.warning(
+                    "pending backlog over max_pending_events=%d: shed "
+                    "%d oldest events (%d total shed so far); matches "
+                    "they would have produced are LOST — raise the "
+                    "bound or switch shed_policy to 'block'",
+                    self.max_pending_events, shed, self.shed_events,
+                )
 
     def _release_ready(self) -> List[EventBatch]:
         """Watermark gate: release per-stream prefixes with ts <= the min
         watermark (processing mode releases everything). The gate
-        watermark is monotone; rows at or below the horizon already
-        released are late and are dropped (counted in late_events)."""
+        watermark is monotone; under the 'allow' policy the released
+        horizon is held back by ``allowed_lateness_ms``; rows at or below
+        the horizon already released are late (``_handle_late``).
+        Telemetry: ``watermark.lag`` (max event time minus the gate
+        watermark) and ``gate.residency`` (the buffer age of released
+        rows)."""
         if self.time_mode == "processing":
             ready = [
                 EventBatch.concat(bs).sort_by_time()
@@ -605,51 +994,141 @@ class Job:
                 if bs
             ]
             self._pending.clear()
+            self._pending_t.clear()
             return ready
         raw = self._watermark()
         # the MAX end-of-stream sentinel releases everything but is never
-        # kept as gate state
+        # kept as gate state: a checkpoint taken at the end of a stream
+        # restores into jobs that go on with more data, and a stored MAX
+        # horizon would classify every later row late
         if raw != MAX_WM and raw > self._gate_wm:
             self._gate_wm = raw
         wm = MAX_WM if raw == MAX_WM else self._gate_wm
+        eff = wm
+        if (self.late_policy == "allow" and self.allowed_lateness_ms > 0
+                and wm != MAX_WM and wm > MIN_WM):
+            # hold the released horizon back by the allowance: a row late
+            # by at most that still merges in order
+            eff = wm - self.allowed_lateness_ms
+        tel = self.telemetry
+        if (tel.enabled and self._max_event_ts is not None
+                and MIN_WM < wm < MAX_WM):
+            tel.record_seconds("watermark.lag",
+                               max(self._max_event_ts - wm, 0) / 1e3)
         horizon = self._released_wm
         ready: List[EventBatch] = []
+        now = time.monotonic()
         for sid in list(self._pending):
             merged = EventBatch.concat(self._pending[sid]).sort_by_time()
             if horizon > MIN_WM:
-                n_late = int(
-                    np.searchsorted(
-                        merged.timestamps, horizon, side="right"
-                    )
-                )
+                n_late = int(np.searchsorted(merged.timestamps, horizon,
+                                             side="right"))
                 if n_late:
-                    self.late_events += n_late
-                    self.late_dropped += n_late
-                    _LOG.warning(
-                        "%d late rows on %r dropped (event time at or "
-                        "below the released horizon)", n_late, sid,
-                    )
+                    self._handle_late(merged.slice(0, n_late))
                     merged = merged.slice(n_late, len(merged))
-            n_ready = int(
-                np.searchsorted(merged.timestamps, wm, side="right")
-            )
+            n_ready = int(np.searchsorted(merged.timestamps, eff,
+                                          side="right"))
+            entries = self._pending_t.get(sid)
             if n_ready:
                 ready.append(merged.slice(0, n_ready))
+                if entries and tel.enabled:
+                    # the buffer age of the oldest batch still pending
+                    tel.record_seconds("gate.residency",
+                                       now - entries[0][0])
+            if entries is not None:
+                # retire the batches the horizon released in full
+                while entries and entries[0][1] <= eff:
+                    entries.pop(0)
             rest = merged.slice(n_ready, len(merged))
             if len(rest):
                 self._pending[sid] = [rest]
             else:
                 del self._pending[sid]
-        if wm != MAX_WM:
-            if wm > self._released_wm:
-                self._released_wm = wm
-        elif (
-            self._max_event_ts is not None
-            and self._max_event_ts > self._released_wm
-        ):
-            # end of stream: everything observed has been released
+                self._pending_t.pop(sid, None)
+        if eff != MAX_WM:
+            if eff > self._released_wm:
+                self._released_wm = eff
+        elif (self._max_event_ts is not None
+              and self._max_event_ts > self._released_wm):
+            # end of stream: everything observed has been released, so
+            # the max observed event time is the horizon (exact), and it
+            # survives a restore into a continued stream
             self._released_wm = self._max_event_ts
         return ready
+
+    def _handle_late(self, batch: EventBatch) -> None:
+        """Apply ``late_policy`` to rows at or below the released horizon.
+        The counters are exact: the disorder tests reconcile them against
+        the injected schedule."""
+        n = len(batch)
+        self.late_events += n
+        tel = self.telemetry
+        if self.late_policy == "side_output":
+            tel.inc("faults.late_side_output", n)
+            self._emit_late(batch)
+            return
+        self.late_dropped += n
+        tel.inc("faults.late_dropped", n)
+        now = time.monotonic()
+        if now - self._late_warned_at < 1.0:
+            return
+        self._late_warned_at = now
+        if self.late_policy == "allow":
+            _LOG.warning(
+                "%s: %d rows later than allowed_lateness_ms=%d dropped "
+                "(%d total). Admitting them would require window RE-FIRE "
+                "(retracting and re-emitting panes already released), "
+                "which this engine rejects by design. Raise "
+                "allowed_lateness_ms or route them with "
+                "late_policy='side_output'.",
+                batch.stream_id, n, self.allowed_lateness_ms,
+                self.late_dropped,
+            )
+        else:
+            _LOG.warning(
+                "%s: %d late rows dropped below the released watermark "
+                "(%d total; policy 'drop'). Use late_policy='side_output' "
+                "to capture them, or 'allow' + allowed_lateness_ms to "
+                "admit bounded lateness in order.",
+                batch.stream_id, n, self.late_dropped,
+            )
+
+    def _emit_late(self, batch: EventBatch) -> None:
+        """'side_output': the full input rows surface on
+        ``late_stream(stream_id)``, kept in ``collected`` under that id
+        when retention is on and delivered to its sinks either way (a
+        columnar sink gets the decoded column arrays)."""
+        sid = late_stream(batch.stream_id)
+        schema = batch.schema
+        names = list(schema.field_names)
+        self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(batch)
+        sinks = self._sinks.get(sid) or []
+        col_sinks = [s for s in sinks if hasattr(s, "accept_columns")]
+        row_sinks = [s for s in sinks if not hasattr(s, "accept_columns")]
+        if col_sinks:
+            cols: Dict[str, np.ndarray] = {}
+            for name in names:
+                col = batch.columns[name]
+                if schema.field_type(name).is_encoded:
+                    cols[name] = np.asarray(
+                        schema.string_tables[name].decode(col), dtype=object)
+                else:
+                    cols[name] = col
+            with self.telemetry.span("sink"):
+                for sink in col_sinks:
+                    sink.accept_columns(batch.timestamps, cols)
+        if not (row_sinks or self.retain_results):
+            return
+        rows = [(int(ts), tuple(rec[n] for n in names))
+                for ts, rec in zip(batch.timestamps.tolist(),
+                                   batch.records())]
+        if self.retain_results:
+            self.collected.setdefault(sid, []).extend(rows)
+        if row_sinks:
+            with self.telemetry.span("sink"):
+                for ts, row in rows:
+                    for sink in row_sinks:
+                        sink(ts, row)
 
     def _plan_windows(
         self, rt: _PlanRuntime, ready: List[EventBatch]
@@ -1127,6 +1606,9 @@ class Job:
             sid for sid in rt.plan.output_streams()
             if self._sinks.get(sid)
             and all(hasattr(s, "accept_columns") for s in self._sinks[sid])
+            # a snapshot limiter keeps the latest row per group key
+            and getattr(self._rate_limiters.get(sid), "mode",
+                        None) != "snapshot"
         )
 
     def _unobserved_streams(self, rt: _PlanRuntime) -> frozenset:
@@ -1397,13 +1879,21 @@ class Job:
             for schema, rows in decoded:
                 self._emit_rows(schema, rows)
 
-    def _emit_rows(self, schema, rows) -> None:
-        """Append decoded rows (relative ts) to collectors and sinks; a
-        columnar sink on a stream that decodes row-wise gets them
-        converted once a batch (object-dtype columns)."""
+    def _emit_rows(self, schema, rows, rate_limit: bool = True) -> None:
+        """Append decoded rows (relative ts) to collectors and sinks,
+        through the stream's rate limiter unless ``rate_limit`` is off
+        (rows it already released); a columnar sink on a stream that
+        decodes row-wise gets them converted once a batch (object-dtype
+        columns)."""
         if not rows:
             return
         sid = schema.stream_id
+        if rate_limit:
+            limiter = self._rate_limiters.get(sid)
+            if limiter is not None:
+                rows = limiter.feed(rows)
+                if not rows:
+                    return
         epoch = self._epoch_ms or 0
         self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(rows)
         if self.retain_results:
@@ -1430,19 +1920,145 @@ class Job:
                     for rel_ts, row in rows:
                         sink(epoch + rel_ts, row)
 
-    def _emit_columns(self, schema, cb: ColumnBatch) -> None:
-        """The columnar lane's emission: counts and sink delivery account
-        arrays, never row tuples. Reached only for streams that
-        ``_columnar_streams`` approved (every consumer columnar)."""
+    def _emit_columns(self, schema, cb: ColumnBatch,
+                      rate_limit: bool = True) -> None:
+        """The columnar lane's emission: counts, rate limiting and sink
+        delivery account arrays, never row tuples. Reached only for
+        streams that ``_columnar_streams`` approved (every consumer
+        columnar)."""
         if not len(cb):
             return
         sid = schema.stream_id
+        if rate_limit:
+            limiter = self._rate_limiters.get(sid)
+            if limiter is not None:
+                for part in limiter.feed_columns(cb):
+                    self._emit_columns(schema, part, rate_limit=False)
+                return
         epoch = self._epoch_ms or 0
         self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(cb)
         abs_ts = cb.ts + np.int64(epoch)
         with self.telemetry.span("sink"):
             for sink in self._sinks.get(sid) or ():
                 sink.accept_columns(abs_ts, cb.cols)
+
+    def _poll_rate_limiters(self) -> None:
+        """Time-mode and snapshot limiters emit on a schedule, not only
+        when new rows arrive for their stream: buffered output whose
+        interval elapsed surfaces from the interval-drain cadence."""
+        for sid, limiter in self._rate_limiters.items():
+            if limiter.mode == "time":
+                if not limiter.buf:
+                    continue
+            elif limiter.mode == "snapshot":
+                if not limiter.cur:
+                    continue
+            else:
+                continue
+            self._emit_pending(sid, limiter.feed([]))
+
+    def _emit_pending(self, sid: str, pending: List) -> None:
+        """Emit limiter-released output to ``sid``'s first output schema,
+        past the limiter (it released it). Entries are ``(ts, row)``
+        pairs or ColumnBatch fragments, by the lane that fed it."""
+        if not pending:
+            return
+        for rt in self._plans.values():
+            schemas = rt.plan.output_streams().get(sid)
+            if schemas:
+                rows = [p for p in pending if not isinstance(p, ColumnBatch)]
+                if rows:
+                    self._emit_rows(schemas[0], rows, rate_limit=False)
+                for p in pending:
+                    if isinstance(p, ColumnBatch):
+                        self._emit_columns(schemas[0], p, rate_limit=False)
+                return
+
+    # -- checkpoint / restore ------------------------------------------------
+    def _prepare_sink_commits(self) -> None:
+        """Phase one of a transactional sink's commit: after the drain
+        surfaced every row, each sink with ``prepare_commit`` stamps its
+        open transaction pending, so the snapshot carries its identity.
+        Other sinks are untouched."""
+        for sinks in self._sinks.values():
+            for s in sinks:
+                prep = getattr(s, "prepare_commit", None)
+                if prep is not None:
+                    prep()
+
+    def commit_sink_transactions(self) -> None:
+        """Phase two, driven by the supervisor once the snapshot is
+        durable: ``commit_transaction`` on every sink that has it."""
+        for sinks in self._sinks.values():
+            for s in sinks:
+                commit = getattr(s, "commit_transaction", None)
+                if commit is not None:
+                    commit()
+
+    def snapshot(self) -> Dict:
+        """The job's whole state as a picklable dict
+        (``runtime/checkpoint.py``, the JAX package's format). Staged
+        tapes are dispatched and every drain completes first, so that the
+        rows emitted so far have surfaced and the accumulators are
+        empty."""
+        from .checkpoint import snapshot_job
+
+        self.drain_outputs()
+        self._prepare_sink_commits()
+        return snapshot_job(self)
+
+    def save_checkpoint(self, path: str, keep: int = 1) -> None:
+        """``snapshot`` written to ``path`` atomically; ``keep > 1`` keeps
+        the latest generations as ``path.1`` .. (``checkpoint.save``)."""
+        from .checkpoint import save
+
+        self.drain_outputs()
+        self._prepare_sink_commits()
+        save(self, path, keep=keep)
+
+    def restore(self, snapshot_or_path) -> None:
+        """Load a snapshot (a dict, or a file ``save_checkpoint`` wrote,
+        either package's) into this job, which runs the same plans. The
+        engine state goes to this job's device, or the restore raises."""
+        import os
+
+        from .checkpoint import load, restore_job
+
+        if isinstance(snapshot_or_path, (str, os.PathLike)):
+            load(self, os.fspath(snapshot_or_path))
+        else:
+            restore_job(self, snapshot_or_path)
+
+    # -- observability ---------------------------------------------------------
+    def metrics(self, drain: bool = False) -> Dict[str, object]:
+        """Counters of the job: processed and emitted, the event-time
+        view (per-source watermark and idle state, the late account) and
+        the telemetry registry's snapshot. ``drain=True`` completes the
+        drains first."""
+        if drain:
+            self.drain_outputs()
+        wm = self._watermark()
+        idle = list(self._source_idle) + [False] * len(self._sources)
+        return {
+            "processed_events": self.processed_events,
+            "emitted": dict(self.emitted_counts),
+            "pending_batches": sum(len(b) for b in self._pending.values()),
+            "watermark": None if wm in (MAX_WM, MIN_WM) else wm,
+            "sources": [
+                {"stream_id": getattr(src, "stream_id", None),
+                 "watermark": (None if swm in (MAX_WM, MIN_WM)
+                               else int(swm)),
+                 "idle": bool(i), "done": bool(d)}
+                for src, swm, i, d in zip(self._sources, self._source_wm,
+                                          idle, self._source_done)
+            ],
+            "idle_sources": self.idle_source_ids(),
+            "late_events": self.late_events,
+            "late_dropped": self.late_dropped,
+            "late_policy": self.late_policy,
+            "shed_events": self.shed_events,
+            "telemetry": self.telemetry.snapshot(),
+        }
 
     # -- results -------------------------------------------------------------
     def results(self, output_stream: str) -> List[Tuple]:

@@ -56,6 +56,7 @@ _COPIED = [
     "query/parser.py", "query/planner.py",
     "compiler/config.py", "compiler/output.py", "utils/cron.py",
     "telemetry/histogram.py", "telemetry/spans.py", "telemetry/registry.py",
+    "runtime/faultinject.py", "runtime/supervisor.py",
 ]
 
 
@@ -92,6 +93,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, flink_siddhi_tpu_torch\n"
         "import flink_siddhi_tpu_torch.compiler.cuda_ops\n"
+        "import flink_siddhi_tpu_torch.runtime.checkpoint\n"
+        "import flink_siddhi_tpu_torch.runtime.supervisor\n"
+        "import flink_siddhi_tpu_torch.runtime.faultinject\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'flink_siddhi_tpu' "
         "or m.startswith('flink_siddhi_tpu.') or m == 'triton')\n"
@@ -294,13 +298,31 @@ def test_every_zoo_plan_compiles_in_the_port(name):
      "end", "joins inside 'partition with' are not supported yet"),
     ("from S#window.length(4) as a join S#window.length(4) as b "
      "on math:abs(a.id - b.id) < 2 select a.id insert into o", 8),
-    ("from S select id output last every 2 events insert into o", 9),
+    ("from S select id output last every 2 events insert into o", None),
     ("partition with (id of S) begin from S#window.unique(id) select id, "
      "count() as c insert into o; end", 8),
+    ("from S select id output snapshot every 1 sec insert into o",
+     "'output snapshot every ...' is supported for aggregation queries"),
+    ("from S select id, count() as c group by id, timestamp output "
+     "snapshot every 1 sec insert into o",
+     "'output snapshot' on a group-by query must project every group key "
+     "in the select (missing: ['timestamp'])"),
+    ("from S[id > 1] select id output last every 2 events insert into o; "
+     "from S[id < 1] select id insert into o",
+     "output rate limiting on 'o' with multiple writer queries is not "
+     "supported yet"),
+    ("from S select id output last every 2 events insert into m; "
+     "from m#window.length(2) select id insert into o",
+     "output rate limiting on chained stream 'm' is not supported"),
+    ("define table T (id int); from S select id output all every 2 events "
+     "insert into T",
+     "output rate limiting on a table write is not supported"),
 ], ids=["table", "table_join", "table_update", "table_delete",
         "windowed_mutation", "session_window", "partition",
         "partition_join", "on_call_both_sides", "output_rate",
-        "partition_unique"])
+        "partition_unique", "output_snapshot_plain",
+        "output_snapshot_keys", "output_rate_two_writers",
+        "output_rate_chained", "output_rate_table"])
 def test_refused_forms_name_their_roadmap_item(cql, item):
     # every form still outside the port names the ROADMAP item it waits
     # for; a form that came into the port compiles (None), and one the

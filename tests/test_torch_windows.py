@@ -296,7 +296,8 @@ _CAME = {"partitioned_length_window": "PerKeyWindowArtifact",
          "session": "SessionWindowArtifact",
          "frequent": "FrequencyWindowArtifact",
          "int_value_column": "ScanWindowArtifact",
-         "more_aggregates_than_the_fold_plan": "ScanWindowArtifact"}
+         "more_aggregates_than_the_fold_plan": "ScanWindowArtifact",
+         "output_rate_limit": "SlidingWindowArtifact"}
 
 
 @pytest.mark.parametrize("name", sorted(_LATER))
