@@ -150,10 +150,13 @@ fault:
 7. windows (in a process of its own, `--windows`): the bench's
    window_groupby (`#window.length(1000) select id,
    sum(price), count() group by id`, 1,000 ids) as phase 5b runs the
-   bench main path — streaming rows of the first 1,048,576 events held to
+   bench main path over WINDOW_GROUPBY_BATCHES = 14 tapes of 524,288 (20
+   before phase 8h came, cut for the time limit; two resident segments of
+   7 tapes, so the row check replays a graph on a segment it was not
+   captured on) — streaming rows of the first 1,048,576 events held to
    the CPU path (float sums within rtol 1e-5), host syncs only the
    drains', the raw id off the wire, then ResidentReplay counts-only with
-   10,485,760 rows a run (every event emits one), reruns, wire bytes, peak
+   a row an event, reruns, wire bytes, peak
    memory, a traced rerun's idle share and one segment under sync debug
    mode "error"; then every other window class through the streaming Job
    over two micro-batches of 524,288 events (65,536 on the matrix path),
@@ -165,11 +168,13 @@ fault:
 8. multiquery64 (in a process of its own, `--multiquery OUT`): the bench's
    64 two-step chains (query q from id q mod 50 to id (7q + 1) mod 50,
    each into its own stream) compiled to one stacked artifact stepping
-   131,072-event windows, as phase 5b runs the bench main path: streaming
-   rows of the first 1,048,576 events held to the CPU path in all 64
-   streams, host syncs only the drains', ResidentReplay counts-only with
-   both chain kernels launched once per step (80 a run, on the host and
-   in the trace) and no compaction read, and the rest of phase 5b (fused
+   131,072-event windows, as phase 5b runs the bench main path over
+   MQ_BATCHES = 8 tapes of 524,288 (20 before phase 8h came, cut for the
+   time limit): streaming rows of the first 1,048,576 events held to the
+   CPU path in all 64 streams, host syncs only the drains', ResidentReplay
+   counts-only with both chain kernels launched once per step (32 a run,
+   on the host and in the trace) and no compaction read, and the rest of
+   phase 5b (fused
    streaming included; the resident and fused rows over the first
    1,048,576 events: 4 segments of 2 steps on one graph); then one
    step on
@@ -246,8 +251,9 @@ fault:
    ResidentReplay (a run with the sinks, the same counts; counts-only
    reruns, events/s median and best, graphs captured, no eager segment,
    one segment under sync debug mode "error", the launches on the host
-   and in a traced rerun). P1's K4 and W1's K6 inputs of the third step
-   go to phase 9;
+   and in a traced rerun). P1 and P2 run PART_STEPS = 8 tapes of 524,288
+   (20 before phase 8h came, cut for the time limit). P1's K4 and W1's K6
+   inputs of the third step go to phase 9;
 8f. scan windows (in a process of its own, `--scan-windows OUT`):
    SCAN_STEPS = 4 tapes of 524,288 events (2, SCAN_SHORT_STEPS, for the
    one-warp plans O1, F1 and F2 since phase 8g came) each of S1
@@ -296,6 +302,33 @@ fault:
    `last_recovery_ms`; then the resident drive over 4 tapes, killed
    mid-stage and in its first checkpoint, its rows the unfaulted
    resident run's;
+8h. ingestion and the deployable pipeline (in a process of its own,
+   `--pipeline OUT`): H0, the native decoder built from the port's copy
+   of fast_decode.cpp into build/torch_native/ (its seconds; it must
+   load); H1, the headline through ``CEPPipeline``: the bench stream
+   over PIPE_EVENTS events as JSON records in a 4-partition topic of
+   tests/torch_fake_kafka.py (v2 batches of 16,384 records, gzip'd on
+   the wire, round robin over the partitions), read from `kafka://` in
+   event time with per-partition watermarks, checkpointed every second
+   into a transactional `kafka://` output: the output topic read
+   committed holds the in-order Job's rows exactly once, K1 and K2
+   launched and nothing else, the fault counters 0, a commit marker a
+   committed epoch; printed (not gated): events/s end to end and the
+   split into fetch (with the records' decode), the native JSON decode,
+   the gate, the tape build, the device step (CUDA events), sink
+   emission and produce plus commit; H2, the same over 262,144 events,
+   checkpointed every cycle, killed by runtime/faultinject.py at its
+   second source pull and inside its second checkpoint and restarted
+   by the pipeline's restart strategy: 2 crashes, the committed rows
+   the in-order Job's with 0 duplicated and 0 lost, the dead run's
+   orphan aborted, `txn_stats` agreeing with the topic's markers; H3,
+   the quote board (K3) from a JSON-lines file and window_groupby from a
+   CSV file through ``CEPPipeline``: the quote board over 1,048,576
+   events (its decode rate in MB/s, K3 launched), its rows of the first
+   65,536 events and window_groupby's over 65,536 against the CPU path's
+   (floats within rtol 1e-5; the CPU path in a helper process,
+   `--pipeline-cpu OUT`, started first so that it runs beside H1 and
+   H2);
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -416,6 +449,9 @@ CHECK_BATCHES = 2  # rows held to the CPU path over these micro-batches
 N_IDS = 50
 N_IDS_WINDOW = 1_000  # window_groupby's ids (bench.py:479)
 WINDOW_CLASS_BATCHES = 2  # micro-batches of each other window class
+# phase 7's window_groupby: tapes of BATCH (20 before phase 8h came: the
+# smoke's time limit)
+WINDOW_GROUPBY_BATCHES = 14
 MATRIX_BATCH = 65_536  # the matrix path's batch: [E, C] windows per column
 WINDOW_RTOL = 1e-5  # float sums and averages, card against the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
@@ -468,6 +504,8 @@ MULTIQUERY64 = "; ".join(
 )
 MQ_OUTS = tuple(f"m{q}" for q in range(64))
 MQ_STEP_EVENTS = 131_072  # a stack of 16 or more queries steps this wide
+# phase 8's tapes of BATCH (20 before phase 8h came: the smoke's time limit)
+MQ_BATCHES = 8
 
 
 def log(*a):
@@ -3421,8 +3459,8 @@ def window_phase(fpt, co):
     1,000 ids), then every other window class through the streaming Job
     at batch 524,288 (65,536 on the matrix path) over
     WINDOW_CLASS_BATCHES micro-batches."""
-    wschema, wbatches = bench_stream(fpt, BATCH * N_BATCHES, BATCH,
-                                     n_ids=N_IDS_WINDOW)
+    wschema, wbatches = bench_stream(fpt, BATCH * WINDOW_GROUPBY_BATCHES,
+                                     BATCH, n_ids=N_IDS_WINDOW)
     plan = fpt.compile_plan(WINDOW_GROUPBY, {"inputStream": wschema},
                             config=bench_config(fpt))
     if plan.spec.device_columns != ("inputStream.price",):
@@ -3431,7 +3469,7 @@ def window_phase(fpt, co):
     bench = bench_main_path(fpt, co, "window_groupby", WINDOW_GROUPBY,
                             wschema, wbatches, chain=False,
                             rtol=WINDOW_RTOL,
-                            expect_rows=BATCH * N_BATCHES)
+                            expect_rows=BATCH * WINDOW_GROUPBY_BATCHES)
     os.makedirs(SMOKE_DIR, exist_ok=True)
     with open(os.path.join(SMOKE_DIR, "window_groupby.json"), "w") as f:
         json.dump(bench, f)
@@ -3520,7 +3558,7 @@ def multiquery_phase(fpt, co, out_path):
     import torch
     from flink_siddhi_tpu_torch.compiler import nfa
 
-    schema, batches = bench_stream(fpt, BATCH * N_BATCHES, BATCH)
+    schema, batches = bench_stream(fpt, BATCH * MQ_BATCHES, BATCH)
     plan = fpt.compile_plan(MULTIQUERY64, {"inputStream": schema},
                             config=bench_config(fpt))
     (art,) = plan.artifacts
@@ -3544,7 +3582,7 @@ def multiquery_phase(fpt, co, out_path):
     finally:
         nfa.multi_reverse_cummin = co.multi_reverse_cummin
         nfa.chain_advance = co.chain_advance
-    steps = N_BATCHES * BATCH // MQ_STEP_EVENTS
+    steps = MQ_BATCHES * BATCH // MQ_STEP_EVENTS
     res = bench["resident"]
     for k in ("multi_reverse_cummin", "chain_advance"):
         if res["launches"][k] != steps or res["launches_traced"][k] != steps:
@@ -4329,6 +4367,9 @@ PART_USER_SEED = 23  # the account column's own rng seed
 PART_CHECK_EVENTS = 65_536  # rows held to the CPU path over these events
 PART_SLOTS = 512  # P1's pool: about 200 partials live at a time
 PART_RTOL = 1e-5  # float sums and averages, card against the CPU
+# P1's and P2's tapes of BATCH (20 before phase 8h came: the smoke's time
+# limit)
+PART_STEPS = 8
 W1_CHECK_STEPS = 1  # W1's row check: steps at BATCH
 # P1: the headline kept per account (keyed CEP: a partial advances only on
 # its own account's events, through the implicit `sK.user == s1.user`)
@@ -4468,8 +4509,8 @@ def partition_phase(fpt, co, out_path):
     from flink_siddhi_tpu_torch.compiler import nfa
 
     t_phase = time.perf_counter()
-    schema, batches = partition_stream(fpt, BATCH * N_BATCHES, BATCH)
-    n_events = BATCH * N_BATCHES
+    schema, batches = partition_stream(fpt, BATCH * PART_STEPS, BATCH)
+    n_events = BATCH * PART_STEPS
     prefix = [batches[0].slice(0, PART_CHECK_EVENTS)]
     p1_cfg = fpt.EngineConfig(pattern_slots=PART_SLOTS,
                               lazy_projection=True, pred_pushdown=True)
@@ -4486,7 +4527,7 @@ def partition_phase(fpt, co, out_path):
                 fpt, _c, schema, batches, dev, retain, _g),
             lambda dev, _c=cql, _g=cfg: part_job(
                 fpt, _c, schema, prefix, dev, True, _g),
-            want, N_BATCHES, n_events, patches=patches)
+            want, PART_STEPS, n_events, patches=patches)
         kinds = [type(a).__name__ for a in
                  fpt.compile_plan(cql, {"inputStream": schema},
                                   config=cfg).artifacts]
@@ -5271,6 +5312,573 @@ def event_time_main(out_path):
 
     co.build()
     event_time_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
+# -- phase 8h: ingestion and the deployable pipeline --------------------------
+
+PIPE_EVENTS = 2 * BATCH  # H1: the bench stream over 2 tapes (1,048,576)
+PIPE_PARTITIONS = 4  # H1's input topic
+PIPE_RECORDS = 16_384  # records a v2 batch, round robin over the partitions
+PIPE_CKPT_S = 1.0  # H1's checkpoint interval (each commits its rows)
+# a fetch asks each partition for this much: one or two gzip'd batches
+PIPE_FETCH_BYTES = 1 << 18
+PIPE_CRASH_EVENTS = BATCH // 2  # H2: 262,144 events
+PIPE_CRASH = dict(at_pulls=(2,), at_checkpoints=(2,))  # H2's kill points
+PIPE_FILE_EVENTS = 2 * BATCH  # H3: the decode rate over 1,048,576 events
+PIPE_CHECK_EVENTS = 65_536  # H3: rows held to the CPU path over these
+PIPE_FILE_CHUNK = 64 << 20  # H3: bytes a file source reads a poll
+PIPE_FIELDS = [("id", "int"), ("name", "string"), ("price", "double"),
+               ("timestamp", "long")]
+QUOTE_FIELDS = [("symbol", "string"), ("price", "double"),
+                ("volume", "long"), ("timestamp", "long")]
+
+
+def fake_kafka():
+    """``tests/torch_fake_kafka.py`` (the in-process broker on the port's
+    wire-format copies), imported by its path."""
+    import importlib.util
+
+    name = "torch_fake_kafka"
+    if name in sys.modules:
+        return sys.modules[name]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_fake_kafka.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_json(batches):
+    """The bench stream's events as JSON record values (floats by repr:
+    they decode to the same doubles)."""
+    vals = []
+    for b in batches:
+        c = b.columns
+        vals += [b'{"id":%d,"name":"test_event","price":%r,"timestamp":%d}'
+                 % t for t in zip(c["id"].tolist(), c["price"].tolist(),
+                                  c["timestamp"].tolist())]
+    return vals
+
+
+def fill_topic(broker, topic, vals):
+    """``vals`` into ``topic``: v2 batches of PIPE_RECORDS records, batch
+    b on partition b mod PIPE_PARTITIONS."""
+    broker.create_topic(topic, partitions=PIPE_PARTITIONS)
+    for b, s in enumerate(range(0, len(vals), PIPE_RECORDS)):
+        broker.append(topic, b % PIPE_PARTITIONS, vals[s:s + PIPE_RECORDS])
+
+
+class _Seconds:
+    """Wall seconds spent inside wrapped calls, by name; a call nested in
+    another of the same name counts once."""
+
+    def __init__(self):
+        self.s, self.bytes, self._depth = {}, 0, {}
+
+    def wrap(self, name, fn, count_bytes=False):
+        def timed_call(*a, **kw):
+            d = self._depth.get(name, 0)
+            self._depth[name] = d + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._depth[name] = d
+                if d == 0:
+                    self.s[name] = (self.s.get(name, 0.0)
+                                    + time.perf_counter() - t0)
+                    if count_bytes:
+                        self.bytes += len(a[0])
+        return timed_call
+
+
+def smoke_pipeline(fpt):
+    """``CEPPipeline`` as a deployment drives a bounded input: each built
+    job's Kafka source is closed at once (it drains the topic, then the
+    job finishes), its calls are timed (``secs``: broker fetch with the
+    records' decode, the native decode, the sinks' produce and commit;
+    the device step by CUDA events), and ``crash`` (a CrashPlan) arms its
+    kill points."""
+    import torch
+
+    from flink_siddhi_tpu_torch.runtime.faultinject import wrap_job
+
+    class SmokePipeline(fpt.CEPPipeline):
+        crash = None
+
+        def build(self):
+            job = super().build()
+            self.secs, self.step_events = _Seconds(), []
+            sec = self.secs
+            src = job._sources[0]
+            src = getattr(src, "inner", src)
+            if hasattr(src, "client"):
+                src.close()
+                src.client.fetch = sec.wrap("fetch", src.client.fetch)
+            if not src._decoder.native:
+                raise AssertionError("a byte source decodes in Python")
+            for m in ("decode_json", "decode_csv"):
+                setattr(src._decoder, m, sec.wrap(
+                    "decode", getattr(src._decoder, m), count_bytes=True))
+            for sink in getattr(self, "_kafka_sinks", ()):
+                for m in ("flush", "prepare_commit", "commit_transaction"):
+                    setattr(sink, m, sec.wrap("produce_commit",
+                                              getattr(sink, m)))
+            step = job._step_plan
+            cuda = job.device.type == "cuda"
+
+            def timed_step(rt, ready):
+                if not cuda:
+                    return sec.wrap("device_step", step)(rt, ready)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = step(rt, ready)
+                e1.record()
+                self.step_events.append((e0, e1))
+                return out
+
+            job._step_plan = timed_step
+            return job if self.crash is None else wrap_job(job, self.crash)
+
+        def split(self):
+            """The last built job's split: seconds by layer."""
+            stages = self.job.telemetry.snapshot()["stages"]
+            out = {k: self.secs.s.get(k, 0.0)
+                   for k in ("fetch", "decode", "produce_commit")}
+            # the Job's spans (a span inside another is kept as nested.*)
+            for key, span in (("ingest", "ingest"), ("gate", "reorder"),
+                              ("tape_build", "tape_build"),
+                              ("sink_emit", "sink"), ("drain", "drain")):
+                out[key] = sum(stages.get(k, {}).get("seconds", 0.0)
+                               for k in (span, "nested." + span))
+            if self.step_events:
+                torch.cuda.synchronize()
+                out["device_step"] = sum(
+                    a.elapsed_time(b) for a, b in self.step_events) / 1e3
+            else:
+                out["device_step"] = self.secs.s.get("device_step", 0.0)
+            return out
+
+    return SmokePipeline
+
+
+def kafka_config(fpt, bootstrap, topic, out, ckpt, interval_s, txn_id):
+    """The headline from ``kafka://`` in event time (per-partition
+    watermarks: each partition's records are in order, so skew 0 covers
+    the interleave) into a transactional ``kafka://`` output."""
+    return fpt.PipelineConfig(
+        stream_id="inputStream", fields=PIPE_FIELDS, cql=HEADLINE,
+        input_path=f"kafka://{bootstrap}/{topic}",
+        output_path=f"kafka://{bootstrap}/{out}", ts_field="timestamp",
+        batch_size=BATCH, watermark_skew_ms=0, checkpoint_path=ckpt,
+        checkpoint_interval_s=interval_s, restart_attempts=4,
+        restart_delay_s=0.0, transactional_id=txn_id,
+        fetch_max_bytes=PIPE_FETCH_BYTES)
+
+
+def in_order_rows(fpt, schema, batches, device):
+    """The port's streaming Job over the same events in order (the oracle
+    of phase 8g's E1, with the pipeline's default settings)."""
+    from flink_siddhi_tpu_torch.runtime.sources import with_watermarks
+
+    plan = fpt.compile_plan(HEADLINE, {"inputStream": schema})
+    job = fpt.Job([plan], [with_watermarks(
+        fpt.BatchSource("inputStream", schema, iter(batches)), skew_ms=0)],
+        batch_size=BATCH, device=device)
+    job.run()
+    return [(t, tuple(float(v) if isinstance(v, float) else v for v in r))
+            for t, r in job.results_with_ts("matches")]
+
+
+def committed_rows(fk, broker, topic):
+    """The output topic read committed (the external observer), as
+    (ts, (t1, t3, price)) rows in topic order."""
+    rows = []
+    for v in fk.read_topic(broker.bootstrap, topic, committed=True):
+        d = json.loads(v)
+        if d.pop("stream") != "matches":
+            raise AssertionError(f"a row of stream {d}")
+        rows.append((d["ts"], (d["t1"], d["t3"], d["price"])))
+    return rows
+
+
+def row_account(got, want, what):
+    """Fails unless ``got`` holds ``want``'s rows exactly once (as
+    multisets); returns (duplicated, lost)."""
+    import collections
+
+    g, w = collections.Counter(got), collections.Counter(want)
+    dup, lost = sum((g - w).values()), sum((w - g).values())
+    if dup or lost or not want:
+        raise AssertionError(f"{what}: {len(got)} rows committed against "
+                             f"{len(want)}: {dup} duplicated, {lost} lost")
+    return dup, lost
+
+
+def control_markers(broker, topic):
+    """The output partition's transaction markers by kind."""
+    import collections
+
+    return dict(collections.Counter(
+        m["control"] for m in broker.batch_meta.get((topic, 0), ())
+        if m["control"] is not None))
+
+
+def pipe_kafka(fpt, co, fk, schema, batches, device, n_events, tmp):
+    """H1: the headline read from a 4-partition topic through CEPPipeline
+    into a transactional topic, checkpointed every PIPE_CKPT_S; its
+    committed rows against the in-order Job's. Returns the result."""
+    import torch
+
+    Pipe = smoke_pipeline(fpt)
+    vals = bench_json(batches)
+    t0 = time.perf_counter()
+    broker = fk.FakeBroker()
+    try:
+        fill_topic(broker, "in", vals)
+        broker.create_topic("out")
+        fill_s = time.perf_counter() - t0
+        want = in_order_rows(fpt, schema, batches, device)
+        ckpt = os.path.join(tmp, "h1.ckpt")
+        pipe = Pipe(kafka_config(fpt, broker.bootstrap, "in", "out", ckpt,
+                                 PIPE_CKPT_S, "h1"), device=device)
+        co.reset_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = co.launch_counts()
+        job = pipe.job
+        split = pipe.split()
+        stats = [s.txn_stats() for s in pipe._kafka_sinks]
+        counters = job.metrics()["telemetry"]["counters"]
+        pipe.close()
+        got = committed_rows(fk, broker, "out")
+        dup, lost = row_account(got, want, "H1")
+        if job.processed_events != n_events or job.late_events:
+            raise AssertionError(f"H1: {job.processed_events} events, "
+                                 f"{job.late_events} late")
+        if (not launches["multi_reverse_cummin"]
+                or not launches["chain_advance"]
+                or any(v for k, v in launches.items()
+                       if k not in ("multi_reverse_cummin",
+                                    "chain_advance"))):
+            raise AssertionError(f"H1: launches {launches}")
+        faults = {k: v for k, v in counters.items() if k.startswith("faults.")}
+        txn_life = {k: faults.pop(k, 0) for k in ("faults.txn.begin",
+                                                  "faults.txn.commit")}
+        if any(faults.values()):
+            raise AssertionError(f"H1: fault counters {faults}")
+        markers = control_markers(broker, "out")
+        if (stats[0]["pending"] or markers.get("abort")
+                or markers.get("commit") != stats[0]["epoch_n"]):
+            raise AssertionError(f"H1: txn_stats {stats}, markers {markers}")
+        return {
+            "events": n_events, "partitions": PIPE_PARTITIONS,
+            "records_a_batch": PIPE_RECORDS, "tape": BATCH,
+            "json_bytes": sum(map(len, vals)), "topic_fill_s": fill_s,
+            "rows": len(got), "duplicated": dup, "lost": lost,
+            "in_topic_order": got == sorted(got, key=lambda r: r[0]),
+            "wall_s": wall, "events_per_s": n_events / wall,
+            "split_s": split, "cycles": counters.get("cycles"),
+            "checkpoints": markers.get("commit"), "txn_stats": stats[0],
+            "faults": faults, "txn_lifecycle": txn_life,
+            "launches": launches,
+        }
+    finally:
+        broker.close()
+
+
+def pipe_crashes(fpt, co, fk, schema, batches, device, h1_rows_of, tmp):
+    """H2: H1's pipeline over PIPE_CRASH_EVENTS, checkpointed every cycle,
+    killed at a source pull and inside a checkpoint
+    (``runtime/faultinject.py``) and restarted by its restart strategy:
+    the committed rows exactly once."""
+    from flink_siddhi_tpu_torch.runtime.faultinject import CrashPlan
+
+    Pipe = smoke_pipeline(fpt)
+    broker = fk.FakeBroker()
+    try:
+        fill_topic(broker, "in", bench_json(batches))
+        broker.create_topic("out")
+        want = h1_rows_of(batches)
+        pipe = Pipe(kafka_config(fpt, broker.bootstrap, "in", "out",
+                                 os.path.join(tmp, "h2.ckpt"), 0.0, "h2"),
+                    device=device, sleep=lambda s: None)
+        pipe.crash = CrashPlan(**PIPE_CRASH)
+        co.reset_launches()
+        t0 = time.perf_counter()
+        pipe.run()
+        wall = time.perf_counter() - t0
+        launches = co.launch_counts()
+        stats = pipe._kafka_sinks[0].txn_stats()
+        pipe.close()
+        got = committed_rows(fk, broker, "out")
+        dup, lost = row_account(got, want, "H2")
+        markers = control_markers(broker, "out")
+        uncommitted = len(fk.read_topic(broker.bootstrap, "out",
+                                        committed=False))
+        crashes = pipe.crash.crashes
+        if (crashes != 2 or stats["pending"] or stats["fenced"]
+                or markers.get("commit") != stats["epoch_n"]
+                or not markers.get("abort") or uncommitted <= len(got)):
+            raise AssertionError(f"H2: {crashes} crashes, txn_stats {stats}, "
+                                 f"markers {markers}, {uncommitted} rows "
+                                 f"written, {len(got)} committed")
+        return {"events": sum(len(b) for b in batches), "crashes": crashes,
+                "rows": len(got), "duplicated": dup, "lost": lost,
+                "rows_written_uncommitted_included": uncommitted,
+                "markers": markers, "txn_stats": stats, "wall_s": wall,
+                "launches": launches}
+    finally:
+        broker.close()
+
+
+def write_lines(path, lines):
+    with open(path, "wb") as f:
+        f.write(b"\n".join(lines) + b"\n")
+    return os.path.getsize(path)
+
+
+def quote_json(fpt, batches, schema):
+    table = schema.string_tables["symbol"]
+    names = [table.value(i).encode() for i in range(len(table))]
+    out = []
+    for b in batches:
+        c = b.columns
+        out += [b'{"symbol":"%s","price":%r,"volume":%d,"timestamp":%d}'
+                % (names[s], p, v, t) for s, p, v, t in zip(
+                    c["symbol"].tolist(), c["price"].tolist(),
+                    c["volume"].tolist(), b.timestamps.tolist())]
+    return out
+
+
+def file_run(fpt, Pipe, cfg_kw, device, out_path, keep=None):
+    """One pipeline run over a file into a JSON-lines file: (its first
+    ``keep`` rows as dicts (None: all), its row count, the pipeline, wall
+    seconds)."""
+    import torch
+
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    pipe = Pipe(fpt.PipelineConfig(output_path=out_path, **cfg_kw),
+                device=device)
+    t0 = time.perf_counter()
+    pipe.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pipe.close()
+    with open(out_path, "rb") as f:
+        lines = f.read().splitlines()
+    return [json.loads(line) for line in lines[:keep]], len(lines), pipe, \
+        wall
+
+
+def h3_files(fpt, tmp):
+    """H3's inputs, written into ``tmp`` (the same bytes in every
+    process): the quote stream's first PIPE_FILE_EVENTS and first
+    PIPE_CHECK_EVENTS events as JSON lines, and window_groupby's stream
+    over PIPE_CHECK_EVENTS events as CSV. Returns their paths."""
+    qschema, qbatches, _ = quote_stream(fpt, PIPE_FILE_EVENTS, BATCH)
+    lines = quote_json(fpt, qbatches, qschema)
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("big", "quotes.jsonl"), ("small", "quotes_check.jsonl"),
+        ("csv", "window.csv"))}
+    write_lines(paths["big"], lines)
+    write_lines(paths["small"], lines[:PIPE_CHECK_EVENTS])
+    del lines, qbatches
+    _, wbatches = bench_stream(fpt, PIPE_CHECK_EVENTS, BATCH,
+                               n_ids=N_IDS_WINDOW)
+    c = wbatches[0].columns
+    write_lines(paths["csv"], [b"id,name,price,timestamp"] + [
+        b"%d,test_event,%r,%d" % t for t in zip(
+            c["id"].tolist(), c["price"].tolist(), c["timestamp"].tolist())])
+    return paths
+
+
+def h3_configs(paths):
+    """(the quote board's config over the check file, window_groupby's)"""
+    board = dict(stream_id="StockStream", fields=QUOTE_FIELDS,
+                 cql=QUOTE_BOARD, ts_field="timestamp", batch_size=BATCH,
+                 chunk_bytes=PIPE_FILE_CHUNK, input_path=paths["small"])
+    window = dict(stream_id="inputStream", fields=PIPE_FIELDS,
+                  cql=WINDOW_GROUPBY, input_path=paths["csv"], format="csv",
+                  csv_header=True, ts_field="timestamp", batch_size=BATCH,
+                  chunk_bytes=PIPE_FILE_CHUNK)
+    return board, window
+
+
+def h3_cpu_main(out_path):
+    """H3's CPU path (``--pipeline-cpu OUT``): the quote board's and
+    window_groupby's rows over the first PIPE_CHECK_EVENTS events through
+    CEPPipeline on the CPU, as JSON to OUT. Phase 8h starts it first, so
+    that it runs beside H1 and H2."""
+    import tempfile
+
+    import torch
+
+    import flink_siddhi_tpu_torch as fpt
+
+    torch.set_num_threads(4)
+    Pipe = smoke_pipeline(fpt)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=SMOKE_DIR) as tmp:
+        board, window = h3_configs(h3_files(fpt, tmp))
+        out = os.path.join(tmp, "rows.jsonl")
+        rows = {"quote_board": file_run(fpt, Pipe, board, "cpu", out)[0],
+                "window_groupby": file_run(fpt, Pipe, window, "cpu",
+                                           out)[0]}
+    with open(out_path, "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def pipe_files(fpt, co, device, tmp, cpu_rows):
+    """H3: the quote board (K3) through CEPPipeline from a JSON-lines file
+    and window_groupby from a CSV file; over the first PIPE_CHECK_EVENTS
+    events the card's rows against the CPU path's (``cpu_rows()``, from
+    ``h3_cpu_main``); the quote board's decode rate over
+    PIPE_FILE_EVENTS events."""
+    Pipe = smoke_pipeline(fpt)
+    paths = h3_files(fpt, tmp)
+    board, window = h3_configs(paths)
+    cols = ("symbol", "symbols", "notional", "avg_price", "lo", "hi")
+
+    def board_rows(rows):
+        return [(r["ts"], tuple(r[c] for c in cols)) for r in rows]
+
+    def window_rows(rows):
+        return [(r["ts"], (r["id"], r["total"], r["cnt"])) for r in rows]
+
+    # the card's rows of the first PIPE_CHECK_EVENTS events come from the
+    # run over the whole file: a unique window's row depends on the events
+    # before it only
+    out = os.path.join(tmp, "rows.jsonl")
+    co.reset_launches()
+    card, n_rows, pipe, wall = file_run(
+        fpt, Pipe, dict(board, input_path=paths["big"]), device, out,
+        keep=PIPE_CHECK_EVENTS)
+    launches = co.launch_counts()
+    wcard, n_wrows, wpipe, wwall = file_run(fpt, Pipe, window, device, out)
+    os.remove(out)
+    cpu = cpu_rows()
+    rel = board_err(board_rows(card), board_rows(cpu["quote_board"]),
+                    "H3 quote board")
+    wrel = rows_match(window_rows(wcard), window_rows(cpu["window_groupby"]),
+                      WINDOW_RTOL, "H3 window_groupby")
+    if (n_rows != PIPE_FILE_EVENTS
+            or pipe.job.processed_events != PIPE_FILE_EVENTS
+            or n_wrows != PIPE_CHECK_EVENTS):
+        raise AssertionError(f"H3: {n_rows} rows of {PIPE_FILE_EVENTS}, "
+                             f"window_groupby {n_wrows}")
+    if device != "cpu" and not launches["unique_window_fold"]:
+        raise AssertionError(f"H3: launches {launches}")
+    split = pipe.split()
+    big_bytes = os.path.getsize(paths["big"])
+    return {"quote_board": {
+        "events": PIPE_FILE_EVENTS, "file_bytes": big_bytes,
+        "rows": n_rows, "cpu_check_events": PIPE_CHECK_EVENTS,
+        "cpu_check_rows": len(card), "cpu_check_max_rel": rel,
+        "wall_s": wall, "events_per_s": PIPE_FILE_EVENTS / wall,
+        "decode_s": split["decode"],
+        "decode_mb_per_s": pipe.secs.bytes / split["decode"] / 1e6,
+        "split_s": split, "launches": launches,
+    }, "window_groupby": {
+        "events": PIPE_CHECK_EVENTS, "rows": len(wcard),
+        "cpu_check_max_rel": wrel, "wall_s": wwall,
+        "decode_mb_per_s": wpipe.secs.bytes / wpipe.secs.s["decode"] / 1e6}}
+
+
+def pipeline_phase(fpt, co, out_path, device="cuda"):
+    """Phase 8h: H0 to H3 (see the module docstring). The result goes to
+    ``out_path``."""
+    from flink_siddhi_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    build_s = native.build()
+    if not native.available():
+        raise AssertionError("H0: the native decoder did not build or load")
+    log(f"  H0: native decoder built in {build_s:.2f} s into "
+        f"{native.library_path()}")
+    fk = fake_kafka()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    # H3's CPU path in a process of its own, beside H1 and H2
+    cpu_path = os.path.join(SMOKE_DIR, "pipeline_cpu.json")
+    cpu_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--pipeline-cpu", cpu_path])
+
+    def cpu_rows():
+        if cpu_proc.wait(timeout=600) != 0:
+            raise AssertionError(f"H3's CPU path failed "
+                                 f"({cpu_proc.returncode})")
+        with open(cpu_path) as f:
+            return json.load(f)
+
+    schema, batches = bench_stream(fpt, PIPE_EVENTS, BATCH)
+    laps = {}
+    try:
+        pipe_runs(fpt, co, fk, schema, batches, device, cpu_rows, laps)
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+    out = {"H0": {"build_s": build_s, "library": native.library_path()},
+           **laps, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"pipeline": out}))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def pipe_runs(fpt, co, fk, schema, batches, device, cpu_rows, laps):
+    """H1 to H3 into ``laps`` (with each one's seconds)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=SMOKE_DIR) as tmp:
+        t = time.perf_counter()
+        h1 = pipe_kafka(fpt, co, fk, schema, batches, device, PIPE_EVENTS,
+                        tmp)
+        laps["h1_s"] = time.perf_counter() - t
+        log(f"  H1: {h1['rows']} rows committed, equal to the in-order "
+            f"Job's; {h1['events_per_s']:.4g} events/s end to end; split "
+            f"{json.dumps(h1['split_s'])}; launches {h1['launches']}")
+        t = time.perf_counter()
+        crash_batches = [b.slice(0, PIPE_CRASH_EVENTS) for b in batches[:1]]
+        h2 = pipe_crashes(fpt, co, fk, schema, crash_batches, device,
+                          lambda bs: in_order_rows(fpt, schema, bs, device),
+                          tmp)
+        laps["h2_s"] = time.perf_counter() - t
+        log(f"  H2: {h2['crashes']} crashes, {h2['rows']} rows committed, "
+            f"{h2['duplicated']} duplicated, {h2['lost']} lost; "
+            f"markers {h2['markers']}; txn_stats {h2['txn_stats']}")
+        del batches, crash_batches
+        t = time.perf_counter()
+        h3 = pipe_files(fpt, co, device, tmp, cpu_rows)
+        laps["h3_s"] = time.perf_counter() - t
+        log(f"  H3: {json.dumps(h3)}")
+    laps.update(H1=h1, H2=h2, H3=h3)
+
+
+def pipeline_main(out_path):
+    """Phase 8h alone (``--pipeline OUT``), run by ``main`` in a child
+    process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    pipeline_phase(fpt, co, out_path)
     torch.cuda.synchronize()
     return 0
 
@@ -6398,7 +7006,8 @@ def main():
     lap("phase 6")
     # 7. windows and aggregation: the bench's window_groupby and every other
     # window class (no kernel on these paths)
-    log(f"[7/11] windows: window_groupby over {BATCH * N_BATCHES} events "
+    log(f"[7/11] windows: window_groupby over "
+        f"{BATCH * WINDOW_GROUPBY_BATCHES} events "
         f"({N_IDS_WINDOW} ids), then {len(WINDOW_CLASSES)} window classes")
     # in a process of its own: after this phase's traced rerun, the
     # kernel timing's traces in the same process lost records
@@ -6412,7 +7021,7 @@ def main():
     # 8. multiquery64: 64 chain queries stacked on one query axis (in a
     # process of its own, as phase 7)
     log(f"[8/11] multiquery64: 64 stacked chain queries over "
-        f"{BATCH * N_BATCHES} events, {MQ_STEP_EVENTS}-event steps")
+        f"{BATCH * MQ_BATCHES} events, {MQ_STEP_EVENTS}-event steps")
     t_mq = time.perf_counter()
     mq_path = os.path.join(SMOKE_DIR, "multiquery64.json")
     os.makedirs(SMOKE_DIR, exist_ok=True)
@@ -6540,7 +7149,7 @@ def main():
     # stream, W1 over 8d's streams (in a process of its own, as 8d; P1's
     # K4 and W1's K6 inputs of the third step go to phase 9)
     log(f"[8e/11] partitions and windowed table writes: P1, P2 over "
-        f"{BATCH * N_BATCHES} events with {PART_USERS} accounts, W1 over "
+        f"{BATCH * PART_STEPS} events with {PART_USERS} accounts, W1 over "
         f"two streams of {JOIN_MS} events each")
     t_part = time.perf_counter()
     part_path = os.path.join(SMOKE_DIR, "partitions.json")
@@ -6629,7 +7238,37 @@ def main():
             "last_recovery_ms", "resident")},
         "phase_s": et["phase_s"]}}))
 
-    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f and 8g")
+    # 8h. ingestion and the deployable pipeline: the headline read from a
+    # Kafka topic into a transactional one, across crashes, and the file
+    # endpoints (in a process of its own, as 8g)
+    log(f"[8h/11] ingestion and the pipeline: the headline over "
+        f"{PIPE_EVENTS} events from a {PIPE_PARTITIONS}-partition Kafka "
+        f"topic, exactly once across crashes, JSON-lines and CSV files")
+    t_pipe = time.perf_counter()
+    pipe_path = os.path.join(SMOKE_DIR, "pipeline.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--pipeline", pipe_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"pipeline phase failed ({r.returncode})")
+    with open(pipe_path) as f:
+        pipe = json.load(f)
+    log(f"  pipeline phase {time.perf_counter() - t_pipe:.1f} s")
+    h1, h2, h3 = pipe["H1"], pipe["H2"], pipe["H3"]
+    log(json.dumps({"pipeline": {
+        "H0": pipe["H0"],
+        "H1": {k: h1[k] for k in (
+            "events", "rows", "duplicated", "lost", "events_per_s",
+            "split_s", "faults", "launches")},
+        "H2": {k: h2[k] for k in (
+            "events", "crashes", "rows", "duplicated", "lost", "markers",
+            "txn_stats")},
+        "H3": {"quote_board": {k: h3["quote_board"][k] for k in (
+            "events", "cpu_check_rows", "cpu_check_max_rel",
+            "events_per_s", "decode_mb_per_s", "launches")},
+            "window_groupby": h3["window_groupby"]},
+        "phase_s": pipe["phase_s"]}}))
+
+    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g and 8h")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -6673,7 +7312,10 @@ def main():
                          "E1": et["E1"]["launches"],
                          "E3": {p: et["E3"][p]["launches"]
                                 for p in ("slot_a", "tables")},
-                         "E4": et["E4"]["quote_board"]["launches"]}},
+                         "E4": et["E4"]["quote_board"]["launches"]},
+                     "pipeline": {
+                         "H1": h1["launches"], "H2": h2["launches"],
+                         "H3": h3["quote_board"]["launches"]}},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -7269,6 +7911,12 @@ def kernels_main(path):
             (kernels[4], et_l["E3"]["tables"]["join_pairs"]),
             (kernels[5], et_l["E3"]["tables"]["table_mutate"])):
         k["launches_event_time"] = count
+    # phase 8h's launches: the headline from Kafka (H1) and across its
+    # crashes (H2), the quote board from a JSON-lines file (H3)
+    pl = launches["pipeline"]
+    for k in kernels[:2]:
+        k["launches_pipeline"] = {h: pl[h][k["name"]] for h in ("H1", "H2")}
+    kernels[2]["launches_pipeline"] = {"H3": pl["H3"]["unique_window_fold"]}
     # the kernels' calls that ran on the card in a traced rerun of the
     # bench main path's resident headline and multiquery64's, and in a
     # traced fused run of the quote board (kernel records in the profiler
@@ -7362,6 +8010,10 @@ if __name__ == "__main__":
         sys.exit(scan_windows_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--event-time":
         sys.exit(event_time_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--pipeline":
+        sys.exit(pipeline_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--pipeline-cpu":
+        sys.exit(h3_cpu_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

@@ -16,7 +16,10 @@ stream staged on the device beforehand, by ``ResidentReplay``; with
 settings) a plan of one select or one chain ships only packed predicate
 bits and the columns the device needs. The runtime has the reference's
 event time (watermark strategies, late policies, idle sources), output
-rate limiting, checkpoints in the reference's format and the supervisor.
+rate limiting, checkpoints in the reference's format and the supervisor;
+its ingestion (JSON-lines, CSV and socket sources on the native column
+decoder, a Kafka wire-protocol source and transactional sink) and
+``CEPPipeline``, the deployable job, are the reference's own host code.
 Everything else raises ``SiddhiQLError`` naming the later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.
@@ -37,9 +40,12 @@ from .runtime.sources import (
     BatchSource,
     BoundedDisorderWatermark,
     CallbackSource,
+    CsvSource,
+    JsonLinesSource,
     ListSource,
     PunctuatedWatermark,
     ReplayBatchSource,
+    SocketLineSource,
     Source,
     WatermarkStrategy,
     WatermarkedSource,
@@ -49,6 +55,7 @@ from .runtime.supervisor import RestartBudgetExceeded, Supervisor
 from .schema.batch import EventBatch
 from .schema.stream_schema import StreamSchema
 from .schema.types import AttributeType
+from .app.pipeline import CEPPipeline, PipelineConfig
 
 __version__ = "0.1.0"
 
@@ -57,20 +64,25 @@ __all__ = [
     "BatchSource",
     "BoundedDisorderWatermark",
     "CEPEnvironment",
+    "CEPPipeline",
     "CallbackSource",
     "ColumnarSink",
     "CompiledPlan",
+    "CsvSource",
     "EngineConfig",
     "EventBatch",
     "ExecutionStream",
     "Job",
+    "JsonLinesSource",
     "ListSource",
+    "PipelineConfig",
     "PunctuatedWatermark",
     "ReplayBatchSource",
     "ResidentReplay",
     "RestartBudgetExceeded",
     "Row",
     "SiddhiCEP",
+    "SocketLineSource",
     "Source",
     "StreamSchema",
     "Supervisor",

@@ -629,6 +629,13 @@ class Job:
         # chain matcher must read its count): on a GPU they run their
         # steps eagerly (graphs.py)
         self.eager_segments = 0
+        # fault visibility: sources that report transport or state faults
+        # (KafkaSource's retry counters, a byte source's degraded
+        # positions) count them into this job's registry
+        for src in self._sources:
+            bind = getattr(src, "bind_telemetry", None)
+            if bind is not None:
+                bind(self.telemetry)
         for p in plans:
             self.add_plan(p)
 
@@ -660,9 +667,15 @@ class Job:
         """Attach a sink: ``fn(abs_ts, row_tuple)``, or an object with
         ``accept_columns(abs_ts_array, cols)`` (``ColumnarSink``). Rows
         accumulated before the sink attached are drained first and not
-        delivered to it; rows after are."""
+        delivered to it; rows after are. A sink with ``bind_telemetry``
+        (``KafkaSink``: its ``faults.kafka.*`` and ``faults.txn.*``
+        counters) is bound to this job's registry; ``bind_flightrec``
+        waits for the flight recorder (ROADMAP.md Queue 1 item 12)."""
         for rt in self._plans.values():
             self._drain_plan(rt)
+        bind = getattr(fn, "bind_telemetry", None)
+        if bind is not None:
+            bind(self.telemetry)
         self._sinks.setdefault(output_stream, []).append(fn)
 
     @property

@@ -1,24 +1,28 @@
 """Ingest sources.
 
-Role of the reference's SourceFunction fixtures (test:
-source/RandomEventSource.java:25-82). A source hands the executor columnar
-chunks plus a watermark; the executor owns event-time ordering (the
-reference's per-subtask priority queue, AbstractSiddhiOperator.java:221-232,
-becomes a host-side reorder buffer that releases watermark-complete prefixes
-to the device).
+Role of the reference's SourceFunction fixtures + Kafka adapters
+(test: source/RandomEventSource.java:25-82; experimental CEPPipeline Kafka
+ingestion). A source hands the executor columnar chunks plus a watermark;
+the executor owns event-time ordering (the reference's per-subtask
+priority queue, AbstractSiddhiOperator.java:221-232, becomes a host-side
+reorder buffer that releases watermark-complete prefixes to the device).
 
 Watermark generation is a per-source policy (``WatermarkStrategy``,
-``with_watermarks``); the in-memory sources carry checkpointable
-positions. Not in the port yet: ``ControlListSource`` (ROADMAP.md Queue 1
-item 10) and the byte sources with ``make_column_decoder`` (they wait for
-the ``native/`` loader, item 9).
+``with_watermarks``); the in-memory and byte sources carry checkpointable
+positions. The byte sources (JSON lines, CSV, a socket; ``runtime/kafka.py``
+for a topic) decode on the host with the ``native/`` column decoder. Not
+in the port yet: ``ControlListSource`` (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Iterator, Optional, Sequence, Tuple
+import logging
+
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+_LOG = logging.getLogger(__name__)
 
 from ..schema.batch import EventBatch
 from ..schema.stream_schema import StreamSchema
@@ -189,6 +193,11 @@ class WatermarkedSource(Source):
         close = getattr(self.inner, "close", None)
         if close is not None:
             close()
+
+    def bind_telemetry(self, registry) -> None:
+        bind = getattr(self.inner, "bind_telemetry", None)
+        if bind is not None:
+            bind(registry)
 
     # -- checkpoint support -------------------------------------------------
     def state_dict(self) -> dict:
@@ -382,3 +391,372 @@ class CallbackSource(Source):
         if self._closed and not self._pending:
             wm = np.iinfo(np.int64).max
         return batch, wm, self._closed and not self._pending
+
+
+def make_column_decoder(schema: StreamSchema):
+    """Shared native-decoder setup for byte sources (file/socket/Kafka):
+    -> (fields, ColumnDecoder) where fields = [(name, kind, string
+    table-or-None)] in schema order."""
+    from ..native import (
+        KIND_BOOL,
+        KIND_DOUBLE,
+        KIND_INT,
+        KIND_STRING,
+        ColumnDecoder,
+    )
+    from ..schema.types import AttributeType
+
+    kind_of = {
+        AttributeType.INT: KIND_INT,
+        AttributeType.LONG: KIND_INT,
+        AttributeType.FLOAT: KIND_DOUBLE,
+        AttributeType.DOUBLE: KIND_DOUBLE,
+        AttributeType.BOOL: KIND_BOOL,
+        AttributeType.STRING: KIND_STRING,
+        AttributeType.OBJECT: KIND_STRING,
+    }
+    fields = [
+        (name, kind_of[atype], schema.string_tables.get(name))
+        for name, atype in zip(schema.field_names, schema.field_types)
+    ]
+    return fields, ColumnDecoder(fields)
+
+
+def decoded_columns(fields, schema: StreamSchema, cols):
+    """Decoder output arrays -> schema-typed host columns (string
+    fields keep their canonical int32 dictionary codes)."""
+    columns = {}
+    for (name, _kind, table), arr in zip(fields, cols):
+        if table is not None:
+            columns[name] = arr.astype(np.int32, copy=False)
+        else:
+            atype = schema.field_type(name)
+            columns[name] = arr.astype(atype.host_dtype, copy=False)
+    return columns
+
+
+class _DecodedLinesSource(Source):
+    """Shared machinery for byte-stream sources decoded by the native
+    columnar decoder (flink_siddhi_tpu/native): reads a chunk of lines,
+    decodes to columns in C++ (pure-Python fallback), assembles an
+    EventBatch. Timestamps come from ``ts_field`` (epoch ms) or arrival
+    order.
+
+    Watermarks advance to each decoded chunk's max timestamp minus
+    ``allowed_lateness_ms``. With the default 0 the input's ``ts_field``
+    must be globally non-decreasing across chunks — a later chunk holding
+    older timestamps would be released after newer events and silently
+    change pattern/window results. For inputs with bounded disorder, set
+    ``allowed_lateness_ms`` to the max expected skew so the executor's
+    reorder buffer can re-sort within that horizon."""
+
+    def __init__(
+        self,
+        stream_id: str,
+        schema: StreamSchema,
+        fileobj,
+        ts_field: Optional[str] = None,
+        chunk_bytes: int = 1 << 20,
+        drop_invalid: bool = True,
+        allowed_lateness_ms: int = 0,
+    ) -> None:
+        self.stream_id = stream_id
+        self.schema = schema
+        self._f = fileobj
+        self._ts_field = ts_field
+        self._chunk_bytes = chunk_bytes
+        self._drop_invalid = drop_invalid
+        self._carry = b""
+        self._done = False
+        self._arrival = 0
+        self._lateness = int(allowed_lateness_ms)
+        self._fields, self._decoder = make_column_decoder(schema)
+        # checkpoint-position health: True once a tell()/seek() failed,
+        # i.e. the checkpointed position is NOT exact (resume is
+        # at-least-once from wherever the stream actually is). Sources
+        # with no tell/seek at all (sockets) are not degraded — an
+        # arrival-order position was never promised for them.
+        self._state_degraded = False
+        # fst:ephemeral registry handle; Job.__init__ re-binds after restore
+        self._telemetry = None
+
+    def bind_telemetry(self, registry) -> None:
+        """Job.__init__ wiring: state-capture faults land in the job's
+        registry as ``faults.source_state``."""
+        self._telemetry = registry
+
+    def _note_state_fault(self, what: str, exc: Exception) -> None:
+        self._state_degraded = True
+        if self._telemetry is not None:
+            self._telemetry.inc("faults.source_state")
+        _LOG.warning(
+            "%s: source position %s failed (%s); the checkpoint is "
+            "marked degraded — restore replays from the stream's "
+            "current position (at-least-once)",
+            self.stream_id, what, exc,
+        )
+
+    def _decode(self, data: bytes, max_rows: int):
+        raise NotImplementedError
+
+    def poll(self, max_events: int):
+        if self._done:
+            return None, np.iinfo(np.int64).max, True
+        data = self._carry
+        raw = self._f.read(self._chunk_bytes)
+        if isinstance(raw, str):
+            raw = raw.encode("utf-8")
+        eof = not raw
+        data += raw
+        if not eof:
+            # hold back the trailing partial line
+            cut = data.rfind(b"\n")
+            if cut < 0:
+                self._carry = data
+                return None, None, False
+            self._carry, data = data[cut + 1:], data[: cut + 1]
+        else:
+            self._carry = b""
+        if not data.strip():
+            self._done = eof
+            wm = np.iinfo(np.int64).max if self._done else None
+            return None, wm, self._done
+        n_lines = data.count(b"\n") + (0 if data.endswith(b"\n") else 1)
+        if n_lines > max_events:
+            # honor the executor's batch size: decode only max_events
+            # lines now, push the rest back in front of the carry
+            nl = np.nonzero(
+                np.frombuffer(data, dtype=np.uint8) == 0x0A
+            )[0]
+            cut = int(nl[max_events - 1]) + 1
+            self._carry = data[cut:] + self._carry
+            data = data[:cut]
+            n_lines = max_events
+            eof = False  # more data pending regardless of file state
+        self._done = eof
+        cols, valid, n = self._decode(data, n_lines)
+        columns = decoded_columns(self._fields, self.schema, cols)
+        if self._ts_field is not None:
+            ts = columns[self._ts_field].astype(np.int64)
+        else:
+            ts = self._arrival + np.arange(n, dtype=np.int64)
+            self._arrival += n
+        if self._drop_invalid and not valid.all():
+            keep = valid.astype(bool)
+            columns = {k: v[keep] for k, v in columns.items()}
+            ts = ts[keep]
+        batch = EventBatch(self.stream_id, self.schema, columns, ts)
+        wm = int(ts.max()) - self._lateness if len(ts) else None
+        if self._done:
+            wm = np.iinfo(np.int64).max
+        return (batch if len(ts) else None), wm, self._done
+
+    @property
+    def native(self) -> bool:
+        return self._decoder.native
+
+    # -- checkpoint/resume: byte offset into a seekable input -------------
+    def state_dict(self) -> dict:
+        tell = getattr(self._f, "tell", None)
+        pos = None
+        if tell is not None:
+            try:
+                pos = int(tell()) - len(self._carry)
+            except (OSError, ValueError) as e:
+                # NOT silent: a position we could not capture means the
+                # checkpoint cannot promise exactly-once resume for
+                # this source — count it, mark the state degraded, and
+                # let the snapshot carry the marker instead of a
+                # silently-wrong position
+                self._note_state_fault("capture (tell)", e)
+        d = {
+            "pos": pos,
+            "arrival": self._arrival,
+            "done": self._done,
+        }
+        if self._state_degraded:
+            d["degraded"] = True
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        self._arrival = int(d.get("arrival", 0))
+        self._done = bool(d.get("done", False))
+        self._state_degraded = bool(d.get("degraded", False))
+        pos = d.get("pos")
+        if pos is not None and hasattr(self._f, "seek"):
+            try:
+                self._f.seek(pos)
+                self._carry = b""
+            except (OSError, ValueError) as e:
+                # at-least-once replay from the stream's current
+                # position — counted and marked, never silent
+                self._note_state_fault("restore (seek)", e)
+
+
+class JsonLinesSource(_DecodedLinesSource):
+    """Newline-delimited JSON ingest (the Kafka-JSON-topic analog of the
+    reference's experimental pipeline, CEPPipeline.scala:41-55), decoded by
+    the native C++ column decoder."""
+
+    def __init__(self, stream_id, schema, path_or_fileobj, **kw):
+        f = (
+            open(path_or_fileobj, "rb")
+            if isinstance(path_or_fileobj, (str, bytes))
+            else path_or_fileobj
+        )
+        super().__init__(stream_id, schema, f, **kw)
+
+    def _decode(self, data: bytes, max_rows: int):
+        return self._decoder.decode_json(data, max_rows)
+
+
+class CsvSource(_DecodedLinesSource):
+    """Delimiter-separated ingest; columns map to schema fields by
+    position. ``header=True`` skips the first line."""
+
+    def __init__(
+        self, stream_id, schema, path_or_fileobj, delim=",",
+        header=False, **kw,
+    ):
+        f = (
+            open(path_or_fileobj, "rb")
+            if isinstance(path_or_fileobj, (str, bytes))
+            else path_or_fileobj
+        )
+        self._delim = delim
+        self._skip_header = header
+        super().__init__(stream_id, schema, f, **kw)
+
+    def _decode(self, data: bytes, max_rows: int):
+        if self._skip_header:
+            cut = data.find(b"\n")
+            data = data[cut + 1:] if cut >= 0 else b""
+            self._skip_header = False
+        return self._decoder.decode_csv(data, max_rows, self._delim)
+
+    def load_state_dict(self, d: dict) -> None:
+        super().load_state_dict(d)
+        if d.get("pos"):  # resuming mid-file: the header is behind us
+            self._skip_header = False
+
+
+class SocketLineSource(_DecodedLinesSource):
+    """TCP line ingest: listen on (host, port); every connected client
+    streams newline-delimited JSON (``fmt='json'``) or CSV
+    (``fmt='csv'``) events. This is the in-repo analog of the
+    reference's experimental Kafka source (CEPPipeline.scala:33-78) with
+    no external broker: ``nc host port < events.jsonl`` deploys it.
+
+    A background acceptor + one reader thread per client append
+    complete lines to a bounded byte queue that backs the parent's
+    chunk reads; the source is UNBOUNDED — the job finishes only after
+    ``close()`` drains what is buffered."""
+
+    def __init__(
+        self,
+        stream_id: str,
+        schema: StreamSchema,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        fmt: str = "json",
+        delim: str = ",",
+        max_buffer_bytes: int = 64 << 20,
+        **kw,
+    ) -> None:
+        import socket
+        import threading
+
+        if fmt not in ("json", "csv"):
+            raise ValueError(fmt)
+        self._fmt = fmt
+        self._delim = delim
+        self._q: list = []
+        # fst:ephemeral live socket buffer accounting; network data is not checkpointable (sockets have no position)
+        self._q_bytes = 0
+        self._max_buffer = max_buffer_bytes
+        self.dropped_bytes = 0
+        self._qlock = threading.Lock()
+        # fst:ephemeral close() marker: a restored listener is open by construction
+        self._closed = False
+
+        src = self
+
+        class _QueueFile:
+            def read(self, n):
+                with src._qlock:
+                    if not src._q:
+                        return b""
+                    data = b"".join(src._q)
+                    src._q.clear()
+                    src._q_bytes = 0
+                return data
+
+        super().__init__(stream_id, schema, _QueueFile(), **kw)
+        self._server = socket.create_server((host, port))
+        self._server.settimeout(0.2)
+        self.host, self.port = self._server.getsockname()[:2]
+        threading.Thread(target=self._accept_loop, daemon=True).start()
+
+    # fst:thread-root name=ingest
+    def _accept_loop(self) -> None:
+        import socket
+        import threading
+
+        while not self._closed:
+            try:
+                conn, _ = self._server.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            threading.Thread(
+                target=self._reader, args=(conn,), daemon=True
+            ).start()
+
+    # fst:thread-root name=ingest
+    def _reader(self, conn) -> None:
+        carry = b""
+        try:
+            while not self._closed:
+                chunk = conn.recv(1 << 16)
+                if not chunk:
+                    break
+                carry += chunk
+                cut = carry.rfind(b"\n")
+                if cut < 0:
+                    continue
+                complete, carry = carry[: cut + 1], carry[cut + 1:]
+                with self._qlock:
+                    if self._q_bytes + len(complete) > self._max_buffer:
+                        # bounded-memory policy: shed newest, count it
+                        self.dropped_bytes += len(complete)
+                    else:
+                        self._q.append(complete)
+                        self._q_bytes += len(complete)
+        finally:
+            if carry.strip():
+                with self._qlock:
+                    self._q.append(carry + b"\n")
+                    self._q_bytes += len(carry) + 1
+            conn.close()
+
+    def close(self) -> None:
+        """Stop accepting; the job drains what is buffered and ends."""
+        self._closed = True
+        try:
+            self._server.close()
+        except OSError:
+            pass
+
+    def _decode(self, data: bytes, max_rows: int):
+        if self._fmt == "json":
+            return self._decoder.decode_json(data, max_rows)
+        return self._decoder.decode_csv(data, max_rows, self._delim)
+
+    def poll(self, max_events: int):
+        batch, wm, done = super().poll(max_events)
+        if done and not self._closed:
+            # an empty read is "no data right now", not end-of-stream
+            self._done = False
+            return batch, None, False
+        return batch, wm, done

@@ -57,6 +57,12 @@ _COPIED = [
     "compiler/config.py", "compiler/output.py", "utils/cron.py",
     "telemetry/histogram.py", "telemetry/spans.py", "telemetry/registry.py",
     "runtime/faultinject.py", "runtime/supervisor.py",
+    "connectors/__init__.py", "connectors/kafka/__init__.py",
+    "connectors/kafka/varint.py", "connectors/kafka/crc32c.py",
+    "connectors/kafka/errors.py", "connectors/kafka/codecs.py",
+    "connectors/kafka/retry.py", "connectors/kafka/protocol.py",
+    "connectors/kafka/records.py", "connectors/kafka/txn.py",
+    "runtime/kafka.py", "native/fast_decode.cpp",
 ]
 
 
@@ -64,6 +70,33 @@ _COPIED = [
 def test_copied_module_is_identical_to_its_original(rel):
     original = (_REPO / "flink_siddhi_tpu" / rel).read_bytes()
     assert (_PORT / rel).read_bytes() == original
+
+
+def _to_port(text):
+    """The reference's text with its package imports pointed at the port
+    (and ``tests.fake_kafka`` at ``tests.torch_fake_kafka``)."""
+    text = re.sub(r"^(\s*)from flink_siddhi_tpu\.", r"\1from flink_siddhi_tpu_torch.",
+                  text, flags=re.MULTILINE)
+    return re.sub(r"^(\s*)from tests\.fake_kafka import",
+                  r"\1from tests.torch_fake_kafka import", text,
+                  flags=re.MULTILINE)
+
+
+# test-side copies: the reference's broker and its wire-format cases,
+# with only their imports pointed at the port
+_COPIED_TESTS = [
+    ("fake_kafka.py", "torch_fake_kafka.py"),
+    ("test_connectors_kafka.py", "test_torch_connectors_kafka.py"),
+]
+
+
+@pytest.mark.parametrize("original,copy", _COPIED_TESTS)
+def test_copied_test_module_differs_only_in_its_imports(original, copy):
+    tests = _REPO / "tests"
+    ref = (tests / original).read_text()
+    got = (tests / copy).read_text()
+    assert got == _to_port(ref)
+    assert got != ref
 
 
 def _plain(obj):
@@ -96,6 +129,9 @@ def test_import_pulls_in_no_jax():
         "import flink_siddhi_tpu_torch.runtime.checkpoint\n"
         "import flink_siddhi_tpu_torch.runtime.supervisor\n"
         "import flink_siddhi_tpu_torch.runtime.faultinject\n"
+        "import flink_siddhi_tpu_torch.runtime.kafka\n"
+        "import flink_siddhi_tpu_torch.app.pipeline\n"
+        "import flink_siddhi_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'flink_siddhi_tpu' "
         "or m.startswith('flink_siddhi_tpu.') or m == 'triton')\n"
@@ -125,6 +161,8 @@ def test_port_sources_import_no_jax_and_no_reference_package():
         if _BAD_IMPORT.search(f.read_text())
     ]
     assert offenders == []
+    broker = (_REPO / "tests" / "torch_fake_kafka.py").read_text()
+    assert _BAD_IMPORT.search(broker) is None
     smoke = (_REPO / "chip_smoke.py").read_text()
     assert _BAD_IMPORT.search(smoke) is None
     assert "import bench" not in smoke
