@@ -88,14 +88,16 @@ fault:
    memory (``check_scan_windows``);
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
-   10,485,760-event stream, with the launch counters reset just before
+   10,485,760-event stream (N_BATCHES = 20 tapes), with the launch
+   counters reset just before
    and read just after; rows checked against the port's own CPU path on
    the first 1,048,576 events;
 5. filter: the bench's filter query, the same way;
 5b. bench main path: the headline, the filter and pattern2 as bench.py
    runs them, with EngineConfig(lazy_projection=True,
-   pred_pushdown=True): the streaming Job over the whole stream, one step
-   a micro-batch (rows of the first 1,048,576 events held to the CPU path
+   pred_pushdown=True): the streaming Job over the first BENCH_TAPES = 14
+   tapes (20 before phase 8i came, cut for the time limit: 14 keep two
+   full resident segments of 7), one step a micro-batch (rows of the first 1,048,576 events held to the CPU path
    under the same settings; host syncs equal to the drain fetches alone),
    then ResidentReplay counts-only, each segment one CUDA graph replay —
    stage seconds (the graphs' warm-up and capture included), run() +
@@ -142,11 +144,12 @@ fault:
    after phase 8 gathers them;
 6. quote board: `#window.unique(symbol)` with count/sum/avg/min/max over
    StockStream, 10,000 Zipf-weighted symbols (a 16,384-slot table), at
-   batch 524,288 over 10,485,760 events, the unique-window fold called
+   batch 524,288 over 4,194,304 events (QUOTE_BATCHES = 8; 20 before
+   phase 8i came, cut for the time limit), the unique-window fold called
    once per micro-batch and host syncs counted (drains only); rows checked
    against the port's CPU path on the first 32,768 events; then the fused
-   streaming Job, as in phase 5b (its rows over the first 8 micro-batches,
-   cut for time, equal to the one-step-a-tape card path's);
+   streaming Job, as in phase 5b (its rows over the 8 micro-batches
+   equal to the one-step-a-tape card path's);
 7. windows (in a process of its own, `--windows`): the bench's
    window_groupby (`#window.length(1000) select id,
    sum(price), count() group by id`, 1,000 ids) as phase 5b runs the
@@ -200,7 +203,8 @@ fault:
    phase 9;
 8c. joins and chaining (in a process of its own, `--joins OUT`):
    inputStream1 and inputStream2 (the bench schema and generator, seeds 7
-   and 8, one event a ms each, 5,242,880 each, interleaved: a tape of
+   and 8, one event a ms each, 3,670,016 each (5,242,880 before phase
+   8i came), interleaved: a tape of
    524,288 events holds 262,144 of each) under bench.py's settings: J1,
    the reference's own join test with its windows scaled (`length(100)`
    join `time(100)` on `s1.id == s2.id`, about 2 pairs an event); G1, J1
@@ -329,6 +333,51 @@ fault:
    (floats within rtol 1e-5; the CPU path in a helper process,
    `--pipeline-cpu OUT`, started first so that it runs beside H1 and
    H2);
+8i. the dynamic control plane (in a process of its own, `--control
+   OUT`): headline variants (`ctrl_cql`: their ids, operators and
+   windows are slot data, one template) admitted, disabled, updated and
+   retired by a ControlListSource stamped at tape boundaries
+   (`ctrl_timeline`: 4 variants before tape 0 forming group 1, 4 more at
+   tape 2 filling its 8 slots, at tape 3 a 9th opening group 2, a filter
+   on its own runtime and CQL that does not compile (CQL000), at tape 4
+   two disables, two retires and an update, at tape 5 an admit into a
+   reclaimed slot and an enable, at tape 6 group 2's only member and the
+   filter retired) over CTRL_TAPES = 8 tapes of the bench stream, the
+   Job's plan compiler on the default EngineConfig (chain plans fold),
+   beside one static plan: the headline under bench.py's settings
+   (pushdown, lazy projection) on its own runtime, in segments of
+   CTRL_SEGMENT = 4 tapes (a segment whose oldest tape waited 500 ms
+   dispatches short, padded to 4), staged across the control boundaries.
+   First the rate runs: the group with 1 member and with 8, processing
+   time, fused, a warm pass over 8 tapes, a timed one over the next 8
+   (events/s) and a profiler-traced one over them (``traced_run``): K1
+   and K2 ran on the card exactly once each per group step, the group
+   step's device time and the card's idle share; no capture and no eager
+   segment after the warm pass; the group's kernel inputs of an eager
+   third step (K1 on 16 rows of 524,288, K2 at Q = 8, V = 525,312) go to
+   phase 9. D1, the fused streaming Job in event time: the control
+   counters (admitted, stack_join, retired, admission_rejected = 1), the
+   live plan ids, every group's overflow 0, group 1's graphs never
+   rebound (one binding, one state signature in its graph keys) across
+   its folds, evicts and enables, the static plan's binding, graph keys
+   and graph count unchanged across every control event and its rows
+   equal to a static run's, each member that is never disabled (and v6's
+   two incarnations) equal to a static compile of its CQL run alone over
+   the tapes between its admit and its retire, the disabled members
+   silent while disabled, the ms from the boundary to each applied
+   event; D1 again in a profiler trace: the same rows, and K1 and K2 ran
+   on the card once each per step of a chain runtime (the groups' and
+   the static plan's); and the same timeline over the first 65,536
+   events (8 tapes of 8,192) on the card equal, plan by plan, to the CPU
+   path's (in a helper process, `--control-cpu OUT`, started first). D2,
+   the timeline through ResidentReplay in epochs: rows equal to D1's plan
+   by plan. D3, QueryControlService on 127.0.0.1 over a
+   live Job fed 4 tapes of 131,072 events in processing time: POST of 8
+   variants, the listing's 8 folded slots on one host, `/disable`, `PUT`
+   and `DELETE`, each query's rows against its static compile. D4, a
+   checkpoint after tape 3 (the later events still pending in it)
+   restored into a fresh Job that replays `dynamic` into the same slots
+   and runs tapes 4-7: D1's rows, 0 duplicated and 0 lost;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -366,7 +415,10 @@ fault:
    event, its first 4,096 events; CUDA events around back-to-back calls;
    the byte bound and the longest chain's serial floor of empty warp
    rounds), K7 unkeyed over S1's third step (one thread walks the tape),
-   and K3's integer path on U1's third step;
+   and K3's integer path on U1's third step; K1 and K2 at a dynamic
+   group's shapes (phase 8i's recorded step: 16 rows of 524,288 events;
+   Q = 8 over V = 525,312), exact against their plain versions, timed
+   beside their bound and, for K1, torch.cummin;
 10. where the quote board's time goes, over its first 4 micro-batches:
    tape staging, device steps (under
    torch's sync debug mode "error": a host wait inside a step fails the
@@ -445,6 +497,9 @@ import numpy as np
 
 BATCH = 524_288
 N_BATCHES = 20
+# phase 5b's tapes of the bench stream (20 before phase 8i came: the time
+# limit; 14 keep two full resident segments of 7)
+BENCH_TAPES = 14
 CHECK_BATCHES = 2  # rows held to the CPU path over these micro-batches
 N_IDS = 50
 N_IDS_WINDOW = 1_000  # window_groupby's ids (bench.py:479)
@@ -458,7 +513,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 L2_BYTES = 50 * 2**20  # H100 SXM L2, same source
 INT32_OPS_PER_S = 67e12  # non-tensor-core 32-bit rate, same source
 F32_OPS_PER_S = 67e12  # non-tensor-core float32 rate, same source
-QUOTE_BATCHES = 20  # the quote board's stream: 20 x 524,288 events
+QUOTE_BATCHES = 8  # the quote board's stream: 8 x 524,288 events
 QUOTE_CHECK_EVENTS = 32_768  # rows held to the CPU path over these events
 BREAKDOWN_BATCHES = 4  # phase 10's traced quote-board run
 QUOTE_ROW_BATCHES = 8  # the quote board's fused rows against the eager run
@@ -3885,7 +3940,9 @@ def slots_main(out_path):
 
 # -- phase 8c: stream joins and query chaining ---------------------------------
 
-JOIN_MS = BATCH * N_BATCHES // 2  # each stream: one event a ms (5,242,880)
+# 8c's, 8d's and W1's streams: tapes of BATCH (20 before phase 8i came)
+JOIN_TAPES = 14
+JOIN_MS = BATCH * JOIN_TAPES // 2  # each stream: one event a ms (3,670,016)
 JOIN_STREAM_BATCH = BATCH // 2  # each stream's events a step: the tape BATCH
 JOIN_SMALL = 4_096  # the row checks' tape (2,048 events of each stream)
 JOIN_CHECK_MS = 32_768  # held to the CPU path: 65,536 events
@@ -6876,6 +6933,814 @@ def api_check(fpt):
         f"quote board: {len(board)} rows; equal to the CPU")
 
 
+# -- phase 8i: the dynamic control plane -----------------------------------
+
+CTRL_TAPES = 8  # D1, D2, D4: tapes of BATCH of the bench stream (4,194,304)
+CTRL_RATE_TAPES = 8  # the rate runs: a warm pass, then the next 8 tapes
+CTRL_CPU_TAPE = 8_192  # D1's CPU check: the first 65,536 events, 8 tapes
+CTRL_REST_TAPE = BATCH // 4  # D3's tapes (131,072 events), 4 of them
+CTRL_REST_TAPES = 4
+CTRL_SAVE_AFTER = 4  # D4: cycles (tapes 0-3) before the checkpoint
+# the control Jobs' fused segment: the static plan's tapes stay staged
+# across the control boundaries (a group's drain hint makes its own 1)
+CTRL_SEGMENT = 4
+
+
+def ctrl_cql(n, a, b, c, w_s, op2="=="):
+    """A headline variant: its ids, operators and window are slot data,
+    so every variant shares one template (one group)."""
+    return (f"from every s1 = inputStream[id == {a}] -> "
+            f"s2 = inputStream[id {op2} {b}] -> s3 = inputStream[id == {c}] "
+            f"within {w_s} sec select s1.timestamp as t1, s3.timestamp as "
+            f"t3, s3.price as price insert into v{n}")
+
+
+CTRL_QUERIES = {
+    "v1": ctrl_cql(1, 1, 2, 3, 5),  # the headline itself
+    "v2": ctrl_cql(2, 4, 5, 6, 2),
+    "v3": ctrl_cql(3, 7, 8, 9, 5),
+    "v4": ctrl_cql(4, 10, 48, 11, 2, op2=">="),
+    "v5": ctrl_cql(5, 12, 13, 14, 5),
+    "v6": ctrl_cql(6, 15, 16, 17, 2),
+    "v7": ctrl_cql(7, 18, 19, 20, 5),
+    "v8": ctrl_cql(8, 21, 22, 23, 2),
+    "v9": ctrl_cql(9, 24, 25, 26, 5),
+    "v10": ctrl_cql(10, 27, 28, 29, 2),
+    "f1": "from inputStream[id == 30] select id, price insert into f1",
+    "bad": "from inputStream[id == ] select nothing",
+}
+CTRL_UPDATE = ctrl_cql(6, 15, 16, 17, 1)  # v6's PUT: a new within
+CTRL_STREAMS = tuple(f"v{i}" for i in range(1, 11)) + ("f1", "matches")
+# each query's incarnations: (tape it applies at, tape it retires at,
+# its CQL); v2 and v3 are disabled at tape 4 (v2 enabled again at 5)
+CTRL_LIFE = {
+    "v1": [(0, 8, "v1")], "v4": [(0, 4, "v4")], "v5": [(2, 4, "v5")],
+    "v6": [(2, 4, "v6"), (4, 8, "update")], "v7": [(2, 8, "v7")],
+    "v8": [(2, 8, "v8")], "v9": [(3, 6, "v9")], "v10": [(5, 8, "v10")],
+    "f1": [(3, 6, "f1")],
+}
+CTRL_COUNTERS = {"admitted": 12, "stack_join": 9, "retired": 5,
+                 "admission_rejected": 1}
+
+
+def ctrl_timeline(tape):
+    """The control timeline, each event stamped at a tape boundary (tape
+    k's first ts, 1000 + k * tape; 0 before tape 0): every mode applies it
+    at the same boundary."""
+    from flink_siddhi_tpu_torch.control.events import (
+        MetadataControlEvent as M,
+        OperationControlEvent as O,
+    )
+
+    def at(k):
+        return 1000 + k * tape
+
+    def add(*pids):
+        b = M.builder()
+        for pid in pids:
+            b.add_execution_plan(CTRL_QUERIES[pid], plan_id=pid)
+        return b.build()
+
+    drop4 = M.builder().remove_execution_plan("v4").remove_execution_plan(
+        "v5").build()
+    drop6 = M.builder().remove_execution_plan("v9").remove_execution_plan(
+        "f1").build()
+    return [
+        (0, add("v1", "v2", "v3", "v4")),  # group 1
+        (at(2), add("v5", "v6", "v7", "v8")),  # fills its 8 slots
+        (at(3), add("v9", "f1", "bad")),  # group 2, a runtime, CQL000
+        (at(4), O.disable_query("v2")), (at(4), O.disable_query("v3")),
+        (at(4), drop4),
+        (at(4), M.builder().update_execution_plan("v6", CTRL_UPDATE)
+         .build()),
+        (at(5), add("v10")),  # into a reclaimed slot
+        (at(5), O.enable_query("v2")),
+        (at(6), drop6),  # group 2's only member: its host is dropped
+    ]
+
+
+def static_plan(fpt, schema):
+    """Phase 8i's static plan: the headline under bench.py's settings."""
+    return fpt.compile_plan(HEADLINE, {"inputStream": schema},
+                            plan_id="bench", config=bench_config(fpt))
+
+
+def ctrl_job(fpt, schema, batches, device, tape, control=True,
+             time_mode="event", retain=True, static=True):
+    """The control plane's streaming Job: the static plan (``static``), a
+    ControlListSource of the timeline, the default EngineConfig for the
+    plans it adds (chain plans fold), fused dispatch in segments of
+    CTRL_SEGMENT tapes."""
+    job = fpt.Job(
+        [static_plan(fpt, schema)] if static else [],
+        [fpt.BatchSource("inputStream", schema, iter(batches))],
+        batch_size=tape, time_mode=time_mode, device=device,
+        retain_results=retain,
+        control_sources=([fpt.ControlListSource(ctrl_timeline(tape))]
+                         if control is True else list(control or ())),
+        plan_compiler=lambda cql, pid: fpt.compile_plan(
+            cql, {"inputStream": schema}, plan_id=pid),
+    )
+    job.fused_segment_len = CTRL_SEGMENT
+    return job
+
+
+def ctrl_rows(job, as_lists=False):
+    out = {}
+    for s in CTRL_STREAMS:
+        rows = job.results_with_ts(s)
+        out[s] = ([[t, list(r)] for t, r in rows] if as_lists else rows)
+    return out
+
+
+def ctrl_status(job):
+    c = job.control_status()["counters"]
+    return {"counters": {k: c.get(k, 0) for k in CTRL_COUNTERS},
+            "plan_ids": sorted(job.plan_ids),
+            "folded": {p: list(f) for p, f in sorted(job._folded.items())}}
+
+
+def ctrl_scaled(fpt, device):
+    """The timeline over the first 65,536 events of the bench stream in
+    tapes of CTRL_CPU_TAPE (D1's row check)."""
+    schema, batches = bench_stream(fpt, BATCH, BATCH)
+    first = batches[0]
+    tapes = [first.slice(s, s + CTRL_CPU_TAPE)
+             for s in range(0, CTRL_TAPES * CTRL_CPU_TAPE, CTRL_CPU_TAPE)]
+    job = ctrl_job(fpt, schema, tapes, device, CTRL_CPU_TAPE)
+    job.run()
+    return {"rows": ctrl_rows(job, as_lists=True), **ctrl_status(job)}
+
+
+def control_cpu_main(out_path):
+    """D1's CPU path (``--control-cpu OUT``): the timeline over the first
+    65,536 events on the CPU, as JSON to OUT. Phase 8i starts it first,
+    so that it runs beside the card's runs."""
+    import torch
+
+    import flink_siddhi_tpu_torch as fpt
+
+    torch.set_num_threads(4)
+    with open(out_path, "w") as f:
+        json.dump(ctrl_scaled(fpt, "cpu"), f)
+    return 0
+
+
+def ctrl_static(fpt, schema, cql, batches, out, time_mode="event"):
+    """The oracle: a static compile of one query's CQL, run alone on the
+    card over the tapes it lived through."""
+    plan = fpt.compile_plan(cql, {"inputStream": schema}, plan_id="static")
+    job = fpt.Job([plan], [fpt.BatchSource("inputStream", schema,
+                                           iter(batches))],
+                  batch_size=len(batches[0]), time_mode=time_mode,
+                  device="cuda")
+    job.run()
+    return job.results_with_ts(out)
+
+
+def static_alone(fpt, schema, batches):
+    """D1's static plan run alone, as D1 runs it (fused, CTRL_SEGMENT
+    tapes a segment, event time): its rows, graph keys and graphs."""
+    job = fpt.Job([static_plan(fpt, schema)],
+                  [fpt.BatchSource("inputStream", schema, iter(batches))],
+                  batch_size=BATCH, time_mode="event", device="cuda")
+    job.fused_segment_len = CTRL_SEGMENT
+    job.run()
+    g = job._plans["bench"].graphs
+    out = {"rows": job.results_with_ts("matches"), "graph_keys": g.keys,
+           "graphs_captured": g.captured,
+           "eager_segments": job.eager_segments}
+    del job
+    return out
+
+
+class CtrlWatch:
+    """Wraps ``job._apply_control``: the ms of each event's application
+    (synchronized: the boundary to an applied event), before each event
+    every group host's overflow, and its and the static plan's graph
+    binding and graph counts, and the events that changed the static
+    plan's runtime (its binding, graphs, states or staged tapes) while
+    they applied. Wraps ``job._run_segment``: each
+    runtime's steps (a segment's tapes, padding included), and the steps
+    its warm-ups ran (a segment whose graph key is new runs its steps once
+    eagerly, on copies of the states, before the capture)."""
+
+    def __init__(self, job):
+        import torch
+
+        from flink_siddhi_tpu_torch.compiler import nfa
+
+        self.job = job
+        self.applied = []
+        self.hosts = {}
+        self.steps = {}
+        self.warm = {}
+        self.chain = set()  # runtimes whose steps run K1 and K2
+        self.static_changed = []
+        inner = job._apply_control
+        run_segment = job._run_segment
+
+        def run_seg(rt, seg):
+            pid = rt.plan.plan_id
+            keys = rt.graphs.keys if rt.graphs is not None else 0
+            out = run_segment(rt, seg)
+            self.steps[pid] = self.steps.get(pid, 0) + len(seg)
+            self.warm[pid] = self.warm.get(pid, 0) + (
+                len(seg) if rt.graphs.keys > keys else 0)
+            if any(isinstance(a, (nfa.DynamicChainGroup,
+                                  nfa.ChainPatternArtifact))
+                   for a in rt.plan.artifacts):
+                self.chain.add(pid)
+            return out
+
+        job._run_segment = run_seg
+
+        def apply(ev):
+            self.look()
+            static = self.static_runtime()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(ev)
+            torch.cuda.synchronize()
+            self.applied.append((type(ev).__name__,
+                                 sorted(getattr(ev, "added_plans", {})),
+                                 (time.perf_counter() - t0) * 1e3))
+            if self.static_runtime() != static:
+                self.static_changed.append(repr(ev))
+
+        job._apply_control = apply
+
+    def static_runtime(self):
+        rt = self.job._plans.get("bench")
+        if rt is None:
+            return None
+        g = rt.graphs
+        return (id(rt.states), [id(t) for t in rt.states.values()],
+                len(rt.seg_pending), rt.acc_pos,
+                None if g is None else (id(g._bound), g.keys, g.captured))
+
+    def look(self):
+        for pid, rt in list(self.job._plans.items()):
+            if not (pid.startswith("@dyn:") or pid == "bench"):
+                continue
+            h = self.hosts.setdefault(pid, {"overflow": 0, "bound": set(),
+                                            "keys": [], "captured": []})
+            if pid != "bench":
+                g = rt.plan.artifacts[0]
+                h["overflow"] = max(h["overflow"], int(
+                    rt.states[g.name]["overflow"].sum()))
+            if rt.graphs is not None and rt.graphs._bound is not None:
+                h["bound"].add(id(rt.graphs._bound))
+                h["keys"].append(rt.graphs.keys)
+                h["captured"].append(rt.graphs.captured)
+
+
+def ctrl_rate(fpt, co, nfa, schema, batches, members):
+    """The group with ``members`` live members (all admitted before tape
+    0), processing time, fused: a warm pass over the first
+    CTRL_RATE_TAPES tapes (its graphs captured there), a timed pass over
+    the next ones (events/s), then a profiler-traced pass over them
+    (``traced_run``): K1 and K2 ran on the card once each per group step
+    (a replay adds its capture's counts to the host's, so only the trace
+    shows it), the step's device time and the card's idle share. With 8
+    members, the kernels' inputs of an eager third step are recorded for
+    phase 9."""
+    import torch
+
+    from flink_siddhi_tpu_torch.control.events import MetadataControlEvent
+
+    b = MetadataControlEvent.builder()
+    for i in range(members):
+        b.add_execution_plan(CTRL_QUERIES[f"v{i + 1}"], plan_id=f"v{i + 1}")
+    warm, timed_b = (batches[:CTRL_RATE_TAPES],
+                     batches[CTRL_RATE_TAPES:2 * CTRL_RATE_TAPES])
+    job = ctrl_job(fpt, schema, warm, "cuda", BATCH,
+                   control=[fpt.ControlListSource([(0, b.build())])],
+                   time_mode="processing", retain=False, static=False)
+    job.run()
+    torch.cuda.synchronize()
+    (pid, rt), = job._plans.items()
+    group = rt.plan.artifacts[0]
+    if sum(m is not None for m in group.members) != members:
+        raise AssertionError(f"control: {members} members did not fold "
+                             "into one group")
+    captured = job.graphs_captured
+    re_source(fpt, job, schema, timed_b)
+    co.reset_launches()
+    disp0 = job.fusion_dispatches
+    t0 = time.perf_counter()
+    job.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = co.launch_counts()
+    steps = (job.fusion_dispatches - disp0) * job._fused_k(rt)
+    n = sum(len(x) for x in timed_b)
+    emitted = sum(job.emitted_counts.values())
+    box = {}
+
+    def traced():
+        d0 = job.fusion_dispatches
+        t0 = time.perf_counter()
+        job.run()
+        torch.cuda.synchronize()
+        box["dispatches"] = job.fusion_dispatches - d0
+        return time.perf_counter() - t0
+
+    prof, traced_s, traced_k = traced_run(
+        co, traced, f"control rate, {members} member(s)",
+        prepare=lambda: re_source(fpt, job, schema, timed_b))
+    t_steps = box["dispatches"] * job._fused_k(rt)
+    share = traced_share(prof, traced_s, box["dispatches"], t_steps)
+    del prof
+    kernels = ("multi_reverse_cummin", "chain_advance")
+    for k in kernels:
+        if launches[k] != steps or traced_k[k] != t_steps:
+            raise AssertionError(
+                f"control: {k} launched {launches[k]} times in {steps} "
+                f"group steps, ran {traced_k[k]} times on the card in "
+                f"{t_steps} traced ones, with {members} member(s)")
+    if job.eager_segments or job.graphs_captured != captured:
+        raise AssertionError(
+            f"control: {job.eager_segments} eager segments, "
+            f"{job.graphs_captured - captured} graphs captured after the "
+            "warm pass")
+    out = {"members": members, "events": n, "run_s": wall,
+           "events_per_s": n / wall, "steps": steps,
+           "segment_len": job._fused_k(rt),
+           "launches": {k: launches[k] for k in kernels},
+           "launches_traced": {k: traced_k[k] for k in kernels},
+           "traced_steps": t_steps,
+           "device_ms_per_step": share["traced_device_busy_s"] * 1e3
+           / t_steps,
+           "traced": share,
+           "graphs_captured": captured, "emitted": emitted}
+    recorded = None
+    if members == 8:
+        rec_k1 = Recorder(co.multi_reverse_cummin, keep=3)
+        rec_k2 = Recorder(co.chain_advance, keep=3)
+        nfa.multi_reverse_cummin, nfa.chain_advance = rec_k1, rec_k2
+        try:
+            states = {k: {n_: t.clone() for n_, t in v.items()}
+                      for k, v in rt.states.items()}
+            acc = rt.plan.init_acc(job.device)
+            epoch = int(warm[0].timestamps.min())
+            for tape in stage_wire_tapes(rt.plan, warm[:3], epoch,
+                                         job.device):
+                states, acc = rt.plan.step_acc(states, acc, tape)
+            torch.cuda.synchronize()
+        finally:
+            nfa.multi_reverse_cummin = co.multi_reverse_cummin
+            nfa.chain_advance = co.chain_advance
+        recorded = {
+            "k1": [keep_copy(a, "cpu") for a in rec_k1.args],
+            "k1_kw": rec_k1.kwargs,
+            "k2": [keep_copy(a, "cpu") for a in rec_k2.args],
+        }
+    del job
+    return out, recorded
+
+
+def ctrl_d1(fpt, co, schema, batches):
+    """D1: the timeline at full width through the fused streaming Job;
+    then D1 again in a profiler trace (``traced_run``): the same rows, and
+    K1 and K2 ran on the card once each per step of a chain runtime."""
+    import torch
+
+    box = {}
+
+    def prepare():
+        box.clear()
+        box["job"] = ctrl_job(fpt, schema, batches, "cuda", BATCH)
+        box["watch"] = CtrlWatch(box["job"])
+
+    def run():
+        t0 = time.perf_counter()
+        box["job"].run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prepare()
+    co.reset_launches()
+    wall = run()
+    launches = co.launch_counts()
+    job, watch = box["job"], box["watch"]
+    watch.look()
+    rows = ctrl_rows(job)
+    status = ctrl_status(job)
+    hosts = {pid: {"overflow": h["overflow"], "bindings": len(h["bound"]),
+                   "graph_keys": h["keys"][-1] if h["keys"] else 0,
+                   "graphs_captured": h["captured"][-1] if h["captured"]
+                   else 0, "keys_seen": sorted(set(h["keys"])),
+                   "looks_bound": len(h["keys"])}
+             for pid, h in watch.hosts.items()}
+    g1 = job._plans.get("@dyn:v1")
+    keys = list(g1.graphs.graphs) if g1 is not None and g1.graphs else []
+    state_sigs = {k[2] for k in keys}
+    eager = job.eager_segments
+    dispatches = job.fusion_dispatches
+    applied = watch.applied
+    static_changed = watch.static_changed
+    del job, watch
+    box.clear()
+    prof, traced_s, traced_k = traced_run(co, run, "control D1",
+                                          prepare=prepare)
+    tjob, twatch = box["job"], box["watch"]
+    share = traced_share(prof, traced_s, tjob.fusion_dispatches,
+                         sum(twatch.steps.values()))
+    del prof
+    if ctrl_rows(tjob) != rows:
+        raise AssertionError("control D1: the traced run's rows differ")
+    chain_steps = sum(twatch.steps[p] + twatch.warm[p]
+                      for p in twatch.chain)
+    kernels = ("multi_reverse_cummin", "chain_advance")
+    for k in kernels:
+        if traced_k[k] != chain_steps:
+            raise AssertionError(
+                f"control D1: {k} ran {traced_k[k]} times on the card in "
+                f"{chain_steps} steps of the chain runtimes, warm-ups "
+                f"included (steps {twatch.steps}, warm {twatch.warm}, "
+                f"chain {sorted(twatch.chain)})")
+    out = {"rows": rows, **status, "wall_s": wall,
+           "events": sum(len(b) for b in batches),
+           "launches": {k: launches[k] for k in kernels},
+           "launches_traced": {k: traced_k[k] for k in kernels},
+           "steps": {p: twatch.steps[p] for p in sorted(twatch.steps)},
+           "warm_steps": {p: twatch.warm[p] for p in sorted(twatch.warm)},
+           "chain_runtimes": sorted(twatch.chain),
+           "dispatches": dispatches, "traced": share,
+           "hosts": hosts, "group1_state_sigs": len(state_sigs),
+           "group1_keys": len(keys),
+           "applied": applied, "static_changed_by": static_changed,
+           "eager_segments": eager}
+    del tjob, twatch
+    box.clear()
+    return out
+
+
+def ctrl_oracles(fpt, schema, batches, d1_rows, tape):
+    """Each member never disabled: its rows equal a static compile of its
+    CQL run alone over the tapes between its admit and its retire. The
+    disabled ones emit no row while disabled."""
+    checked = 0
+    for s, lives in CTRL_LIFE.items():
+        want = []
+        for lo, hi, q in lives:
+            cql = CTRL_UPDATE if q == "update" else CTRL_QUERIES[q]
+            want += ctrl_static(fpt, schema, cql, batches[lo:hi], s)
+        got = d1_rows[s]
+        if sorted(got) != sorted(want) or not want:
+            raise AssertionError(
+                f"control D1: {s}'s {len(got)} rows differ from its static "
+                f"compile's {len(want)} over tapes {lives}")
+        checked += len(got)
+
+    def starts(k):
+        return 1000 + k * tape
+
+    if any(starts(4) <= t < starts(5) for t, _ in d1_rows["v2"]):
+        raise AssertionError("control D1: v2 emitted while disabled")
+    if any(t >= starts(4) for t, _ in d1_rows["v3"]):
+        raise AssertionError("control D1: v3 emitted while disabled")
+    if not d1_rows["v2"] or not any(t >= starts(5) for t, _ in
+                                    d1_rows["v2"]):
+        raise AssertionError("control D1: v2 emitted nothing once enabled")
+    return checked
+
+
+def ctrl_d2(fpt, schema, batches, d1_rows):
+    """D2: the same timeline through ResidentReplay, in epochs."""
+    import torch
+
+    job = ctrl_job(fpt, schema, batches, "cuda", BATCH)
+    rep = fpt.ResidentReplay(job)
+    t0 = time.perf_counter()
+    rep.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = ctrl_rows(job)
+    for s in CTRL_STREAMS:
+        if rows[s] != d1_rows[s]:
+            raise AssertionError(f"control D2: {s}'s resident rows differ "
+                                 "from the streaming run's")
+    out = {"epochs": len(rep._epochs), "wall_s": wall,
+           "eager_segments": job.eager_segments,
+           "graphs_captured": job.graphs_captured, **ctrl_status(job)}
+    del job, rep
+    return out
+
+
+class FeedSource:
+    """A live source the caller feeds one batch at a time."""
+
+    def __init__(self, schema):
+        self.stream_id, self.schema = "inputStream", schema
+        self.queue = []
+
+    def poll(self, max_events):
+        if self.queue:
+            return self.queue.pop(0), None, False
+        return None, None, False
+
+
+def ctrl_d3(fpt, schema, batches):
+    """D3: QueryControlService over a live Job fed the bench stream in
+    processing time: POST 8 variants, GET the listing, disable, PUT and
+    DELETE; each query's rows against its static compile."""
+    import http.client
+
+    import torch
+
+    from flink_siddhi_tpu_torch.app.service import (
+        ControlQueueSource,
+        QueryControlService,
+    )
+
+    tapes = [batches[0].slice(s, s + CTRL_REST_TAPE)
+             for s in range(0, CTRL_REST_TAPES * CTRL_REST_TAPE,
+                            CTRL_REST_TAPE)]
+    feed = FeedSource(schema)
+    ctrl = ControlQueueSource()
+    job = fpt.Job([], [feed], batch_size=CTRL_REST_TAPE,
+                  time_mode="processing", device="cuda",
+                  control_sources=[ctrl],
+                  plan_compiler=lambda cql, pid: fpt.compile_plan(
+                      cql, {"inputStream": schema}, plan_id=pid))
+    svc = QueryControlService(
+        ctrl, job=job, validate=lambda cql: fpt.compile_plan(
+            cql, {"inputStream": schema})).start()
+    statuses = []
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", svc.port, timeout=10)
+
+        def call(method, path, body=None):
+            conn.request(method, path,
+                         body=json.dumps(body) if body else None,
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            statuses.append(r.status)
+            return r.status, json.loads(r.read() or b"{}")
+
+        ids = [f"r{i}" for i in range(1, 9)]
+        for i, rid in enumerate(ids):
+            st, body = call("POST", "/api/v1/queries",
+                            {"cql": CTRL_QUERIES[f"v{i + 1}"], "id": rid})
+            if st != 201 or body["id"] != rid:
+                raise AssertionError(f"control D3: POST {rid} -> {st}")
+
+        def step(k):
+            feed.queue.append(tapes[k])
+            job.run_cycle()
+
+        step(0)
+        step(1)
+        st, listing = call("GET", "/api/v1/queries")
+        folded = sorted(q["folded"]["slot"] for q in listing["queries"])
+        hosts = {q["folded"]["host"] for q in listing["queries"]}
+        if st != 200 or folded != list(range(8)) or len(hosts) != 1:
+            raise AssertionError(f"control D3: listing {listing}")
+        if call("POST", "/api/v1/queries/r2/disable")[0] != 200:
+            raise AssertionError("control D3: disable")
+        if call("PUT", "/api/v1/queries/r6",
+                {"cql": CTRL_UPDATE})[0] != 200:
+            raise AssertionError("control D3: PUT")
+        if call("DELETE", "/api/v1/queries/r4")[0] != 200:
+            raise AssertionError("control D3: DELETE")
+        step(2)
+        step(3)
+        job.drain_outputs()
+        st, after = call("GET", "/api/v1/queries")
+        by_id = {q["id"]: q for q in after["queries"]}
+        if sorted(by_id) != sorted(set(ids) - {"r4"}) \
+                or by_id["r2"]["enabled"] is not False:
+            raise AssertionError(f"control D3: listing after {after}")
+        st, one = call("GET", "/api/v1/queries/r6")
+        if st != 200 or one["state"] != "live":
+            raise AssertionError(f"control D3: r6 {one}")
+        st, health = call("GET", "/api/v1/health")
+        if st != 200 or health["control"]["counters"]["admitted"] != 9:
+            raise AssertionError(f"control D3: health {health}")
+    finally:
+        svc.stop()
+    torch.cuda.synchronize()
+    # each query's rows: r2 until its disable, r4 until its DELETE, r6's
+    # two incarnations, the others all four tapes
+    checked = 0
+    for i, rid in enumerate(ids):
+        s = f"v{i + 1}"
+        if rid in ("r2", "r4"):
+            want = ctrl_static(fpt, schema, CTRL_QUERIES[s], tapes[:2], s,
+                               "processing")
+        elif rid == "r6":
+            want = (ctrl_static(fpt, schema, CTRL_QUERIES[s], tapes[:2], s,
+                                "processing")
+                    + ctrl_static(fpt, schema, CTRL_UPDATE, tapes[2:], s,
+                                  "processing"))
+        else:
+            want = ctrl_static(fpt, schema, CTRL_QUERIES[s], tapes, s,
+                               "processing")
+        got = job.results_with_ts(s)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"control D3: {rid}'s {len(got)} rows "
+                                 f"differ from its static compile's "
+                                 f"{len(want)}")
+        checked += len(got)
+    out = {"statuses": sorted(set(statuses)), "requests": len(statuses),
+           "rows_checked": checked, "events": sum(len(t) for t in tapes),
+           **ctrl_status(job)}
+    del job
+    return out
+
+
+def ctrl_d4(fpt, schema, batches, d1_rows):
+    """D4: a checkpoint after tape 3 (the events of tapes 4-7 still
+    pending in it), restored into a fresh Job that replays ``dynamic``
+    into the same slots, then tapes 4-7: rows equal D1's, none duplicated
+    or lost. The static plan's lazy columns of a partial match carried
+    across the restore decode as None, as in the JAX package (its rows
+    count as D1's, the others equal)."""
+    import torch
+
+    first = ctrl_job(fpt, schema, batches, "cuda", BATCH)
+    first.run(max_cycles=CTRL_SAVE_AFTER)
+    path = os.path.join(SMOKE_DIR, "control_ckpt.bin")
+    t0 = time.perf_counter()
+    first.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    before = ctrl_rows(first)
+    folded = dict(first._folded)
+    pending = len(first._control_pending)
+    del first
+    job = ctrl_job(fpt, schema, batches[CTRL_SAVE_AFTER:], "cuda", BATCH,
+                   control=None)
+    t0 = time.perf_counter()
+    job.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if {p: tuple(f) for p, f in job._folded.items()} != \
+            {p: tuple(f) for p, f in folded.items()}:
+        raise AssertionError("control D4: the restore re-formed other "
+                             "slots")
+    job.run()
+    after = ctrl_rows(job)
+    dup = lost = 0
+    holes = []
+    for s in CTRL_STREAMS:
+        got = before[s] + after[s]
+        want = d1_rows[s]
+        if s == "matches":
+            # one row with None for each of D1's rows the others miss
+            holes = [r for r in got if None in r[1]]
+            got = [r for r in got if None not in r[1]]
+            kept = set(got)
+            if len(set(want) - kept) != len(holes):
+                raise AssertionError(
+                    f"control D4: {len(holes)} static rows with None for "
+                    f"{len(set(want) - kept)} of D1's missing")
+            want = [r for r in want if r in kept]
+        dup += len(got) - len(set(got))
+        lost += len(set(want) - set(got))
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"control D4: {s}'s rows across the "
+                                 "restore differ from D1's")
+    out = {"pending_at_save": pending, "save_s": save_s,
+           "restore_s": restore_s, "snapshot_bytes": os.path.getsize(path),
+           "duplicate_rows": dup, "lost_rows": lost,
+           "lazy_none_rows": len(holes), **ctrl_status(job)}
+    os.remove(path)
+    del job
+    return out
+
+
+def control_phase(fpt, co, out_path):
+    """Phase 8i: the rate runs, D1 to D4 (see the module docstring). The
+    result goes to ``out_path``, the group's kernel inputs to
+    ``out_path``.pt."""
+    import torch
+
+    from flink_siddhi_tpu_torch.compiler import nfa
+
+    t_phase = time.perf_counter()
+    parts = {}  # seconds of each part of the phase
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    cpu_path = os.path.join(SMOKE_DIR, "control_cpu.json")
+    cpu_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--control-cpu", cpu_path])
+    try:
+        schema, batches = bench_stream(fpt, 2 * CTRL_RATE_TAPES * BATCH,
+                                       BATCH)
+        rates = {}
+        recorded = None
+        for m in (1, 8):
+            rates[m], rec = ctrl_rate(fpt, co, nfa, schema, batches, m)
+            recorded = rec or recorded
+            log(f"  rate, {m} member(s): {rates[m]['events_per_s']:.4g} "
+                f"events/s; {rates[m]['launches_traced']} on the card in "
+                f"{rates[m]['traced_steps']} traced group steps, "
+                f"{rates[m]['device_ms_per_step']:.4g} device ms a step")
+        part("rate")
+        batches = batches[:CTRL_TAPES]
+        d1 = ctrl_d1(fpt, co, schema, batches)
+        part("D1_and_traced_D1")
+        expect = CTRL_COUNTERS
+        if d1["counters"] != expect:
+            raise AssertionError(f"control D1: counters {d1['counters']} "
+                                 f"!= {expect}")
+        if d1["plan_ids"] != ["bench", "v1", "v10", "v2", "v3", "v6", "v7",
+                              "v8"]:
+            raise AssertionError(f"control D1: plan ids {d1['plan_ids']}")
+        for pid, h in d1["hosts"].items():
+            if h["overflow"]:
+                raise AssertionError(f"control D1: {pid} overflowed")
+        g1 = d1["hosts"]["@dyn:v1"]
+        if g1["bindings"] != 1 or d1["group1_state_sigs"] != 1:
+            raise AssertionError(
+                f"control D1: group 1's graphs were rebound "
+                f"({g1['bindings']} bindings, {d1['group1_state_sigs']} "
+                "state signatures)")
+        if d1["eager_segments"]:
+            raise AssertionError("control D1: eager segments")
+        # the static plan, left alone by every control event: no event
+        # changed its runtime while it applied (binding, graphs, states,
+        # staged tapes), one binding (seen bound at 3 control events or
+        # more), its rows those of a run without the control plane
+        alone = static_alone(fpt, schema, batches)
+        st = d1["hosts"]["bench"]
+        if sorted(d1["rows"]["matches"]) != sorted(alone["rows"]) \
+                or not alone["rows"]:
+            raise AssertionError(
+                f"control D1: the static plan's {len(d1['rows']['matches'])}"
+                f" rows differ from its {len(alone['rows'])} alone")
+        if (d1["static_changed_by"] or st["bindings"] != 1
+                or st["looks_bound"] < 3 or alone["eager_segments"]):
+            raise AssertionError(
+                f"control D1: the static plan's runtime {st}, changed by "
+                f"{d1['static_changed_by']}")
+        d1["static_alone"] = {k: v for k, v in alone.items() if k != "rows"}
+        del alone
+        part("static_alone")
+        d1["oracle_rows_checked"] = ctrl_oracles(fpt, schema, batches,
+                                                 d1["rows"], BATCH)
+        part("oracles")
+        scaled = ctrl_scaled(fpt, "cuda")
+        part("scaled")
+        if cpu_proc.wait(timeout=600) != 0:
+            raise AssertionError("control D1's CPU path failed")
+        part("cpu_wait")
+        with open(cpu_path) as f:
+            cpu = json.load(f)
+        for k in ("counters", "plan_ids", "folded"):
+            if scaled[k] != cpu[k]:
+                raise AssertionError(f"control D1 (65,536 events): {k} "
+                                     f"{scaled[k]} != the CPU's {cpu[k]}")
+        for s in CTRL_STREAMS:
+            if scaled["rows"][s] != cpu["rows"][s]:
+                raise AssertionError(f"control D1 (65,536 events): {s}'s "
+                                     "rows differ from the CPU path's")
+        d1["cpu_check_rows"] = sum(len(r) for r in cpu["rows"].values())
+        d1_rows = d1.pop("rows")
+        d1["rows"] = {s: len(r) for s, r in d1_rows.items()}
+        d2 = ctrl_d2(fpt, schema, batches, d1_rows)
+        part("D2")
+        d3 = ctrl_d3(fpt, schema, batches)
+        part("D3")
+        d4 = ctrl_d4(fpt, schema, batches, d1_rows)
+        part("D4")
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+    torch.cuda.synchronize()
+    admits = [a for a in d1["applied"] if a[1]]
+    out = {"rate": {str(m): r for m, r in rates.items()}, "D1": d1,
+           "D2": d2, "D3": d3, "D4": d4,
+           "admit_apply_ms": [[a[1], a[2]] for a in admits],
+           "part_s": parts, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"control": out}))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.save(recorded, out_path + ".pt")
+
+
+def control_main(out_path):
+    """Phase 8i alone (``--control OUT``), run by ``main`` in a child
+    process (alone it also builds the CUDA kernels)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    control_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
 def main():
     import torch
 
@@ -6955,12 +7820,14 @@ def main():
     # Job and ResidentReplay
     log("[5b/11] bench main path: lazy projection + predicate pushdown, "
         "streaming Job and ResidentReplay")
+    bench_batches = batches[:BENCH_TAPES]
     bench_head = bench_main_path(fpt, co, "headline", HEADLINE, schema,
-                                 batches, chain=True)
+                                 bench_batches, chain=True)
     bench_filter = bench_main_path(fpt, co, "filter", FILTER, schema,
-                                   batches, chain=False)
+                                   bench_batches, chain=False)
     bench_p2 = bench_main_path(fpt, co, "pattern2", PATTERN2, schema,
-                               batches, chain=True)
+                               bench_batches, chain=True)
+    del bench_batches
     drop = capture_after_drop(fpt, schema, batches[:4])
     log(f"  a fused Job captured after a dropped resident Job: "
         f"{json.dumps(drop)}")
@@ -7268,7 +8135,42 @@ def main():
             "window_groupby": h3["window_groupby"]},
         "phase_s": pipe["phase_s"]}}))
 
-    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g and 8h")
+    # 8i. the dynamic control plane: control events at tape boundaries,
+    # dynamic groups on K1 and K2, control-in-replay, the REST service, a
+    # checkpoint with dynamic queries and pending events (in a process of
+    # its own, as 8h)
+    log(f"[8i/11] control plane: admit, update, retire and enable at "
+        f"epoch boundaries over {BATCH * CTRL_TAPES} events, dynamic "
+        f"groups, ResidentReplay in epochs, the REST service, a "
+        f"checkpoint")
+    t_ctrl = time.perf_counter()
+    ctrl_path = os.path.join(SMOKE_DIR, "control.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--control", ctrl_path], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"control phase failed ({r.returncode})")
+    with open(ctrl_path) as f:
+        ctrl = json.load(f)
+    log(f"  control phase {time.perf_counter() - t_ctrl:.1f} s")
+    d1 = ctrl["D1"]
+    log(json.dumps({"control": {
+        "rate": {m: {k: r[k] for k in (
+            "events_per_s", "steps", "launches", "launches_traced",
+            "device_ms_per_step")} | {
+                "idle_share": r["traced"]["traced_idle_share"]}
+                 for m, r in ctrl["rate"].items()},
+        "D1": {k: d1[k] for k in (
+            "counters", "plan_ids", "rows", "oracle_rows_checked",
+            "cpu_check_rows", "hosts", "static_alone", "wall_s",
+            "launches", "launches_traced", "steps", "warm_steps")},
+        "D2": ctrl["D2"], "D3": ctrl["D3"],
+        "D4": {k: ctrl["D4"][k] for k in (
+            "pending_at_save", "duplicate_rows", "lost_rows",
+            "snapshot_bytes", "save_s", "restore_s")},
+        "admit_apply_ms": ctrl["admit_apply_ms"],
+        "part_s": ctrl["part_s"], "phase_s": ctrl["phase_s"]}}))
+
+    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g, 8h and 8i")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -7315,7 +8217,11 @@ def main():
                          "E4": et["E4"]["quote_board"]["launches"]},
                      "pipeline": {
                          "H1": h1["launches"], "H2": h2["launches"],
-                         "H3": h3["quote_board"]["launches"]}},
+                         "H3": h3["quote_board"]["launches"]},
+                     "control": {
+                         "D1": d1["launches_traced"],
+                         "rate": {m: r["launches_traced"]
+                                  for m, r in ctrl["rate"].items()}}},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -7808,6 +8714,26 @@ def kernels_main(path):
             err_k2 = max(err_k2, same(g, r, f"chain_advance {what} input"))
     log("  stacked kernel inputs: K1 and K2 exact against their plain "
         "versions")
+    # phase 8i's: K1 and K2 at a dynamic group's shapes (8 slots)
+    ctrl_rec = torch.load(os.path.join(SMOKE_DIR, "control.json.pt"),
+                          weights_only=False)
+    g_k1 = [keep_copy(a, "cuda") for a in ctrl_rec["k1"]]
+    g_pad = ctrl_rec["k1_kw"].get("pad")
+    g_k2 = tuple(keep_copy(a, "cuda") for a in ctrl_rec["k2"])
+    if tuple(g_k1[0].shape) != (16, BATCH) or \
+            tuple(g_k2[4].shape) != (8, 1024 + BATCH):
+        raise AssertionError(
+            f"dynamic group inputs: K1 {tuple(g_k1[0].shape)}, K2 "
+            f"{tuple(g_k2[4].shape)}")
+    err_g1 = same(co.multi_reverse_cummin(g_k1[0], pad=g_pad),
+                  co.reverse_cummin_plain(g_k1[0], g_pad),
+                  "reverse_cummin dynamic group input")
+    err_g2 = 0
+    for g, r in zip(co.chain_advance(*g_k2), co.chain_advance_plain(*g_k2)):
+        err_g2 = max(err_g2, same(g, r, "chain_advance dynamic group input"))
+    err_k1, err_k2 = max(err_k1, err_g1), max(err_k2, err_g2)
+    log("  dynamic group kernel inputs: K1 and K2 exact against their "
+        "plain versions")
     floor_ms, floor_call_ms = timed(co.launch_empty)
     log(f"  launch floor: an empty kernel's device time {floor_ms} ms "
         f"(call {floor_call_ms} ms)")
@@ -7938,6 +8864,23 @@ def kernels_main(path):
     kernels[1]["stacked"] = chain_advance_times(co, tuple(mq_k2))
     kernels[1]["stacked"]["full_width"] = chain_advance_times(
         co, tuple(mq_k2_full))
+    # the chain kernels at a dynamic group's shapes, and their launches in
+    # phase 8i, counted in profiler traces (D1: once a step of a chain
+    # runtime, warm-ups included; the rate runs: once a group step)
+    kernels[0]["dynamic_group"] = reverse_cummin_times(co, g_k1[0], g_pad)
+    kernels[1]["dynamic_group"] = chain_advance_times(co, g_k2)
+    for k, e in zip(kernels[:2], (err_g1, err_g2)):
+        k["dynamic_group"]["max_abs_err"] = e
+        k["launches_control"] = {
+            "D1": launches["control"]["D1"][k["name"]],
+            "rate": {m: c[k["name"]]
+                     for m, c in launches["control"]["rate"].items()},
+            "by": "kernel records in a profiler trace"}
+        g = k["dynamic_group"]
+        log(f"  {k['name']} at a dynamic group's shape {g['shape']}: "
+            f"{g['ms']} ms (call {g['call_ms']}), plain {g['plain_ms']}, "
+            f"library {g['library_ms']}, bound {g['bound_ms']} "
+            f"({g['bound_by']})")
     for k in kernels[:2]:
         st = k["stacked"]
         log(f"  {k['name']} stacked: {st['ms']} ms (call {st['call_ms']}), "
@@ -8014,6 +8957,10 @@ if __name__ == "__main__":
         sys.exit(pipeline_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--pipeline-cpu":
         sys.exit(h3_cpu_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--control":
+        sys.exit(control_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--control-cpu":
+        sys.exit(control_cpu_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

@@ -20,6 +20,11 @@ rate limiting, checkpoints in the reference's format and the supervisor;
 its ingestion (JSON-lines, CSV and socket sources on the native column
 decoder, a Kafka wire-protocol source and transactional sink) and
 ``CEPPipeline``, the deployable job, are the reference's own host code.
+The dynamic control plane (``control/``: control events, runtime admit,
+update, retire and enable at epoch boundaries, template-able chain
+queries folded into padded ``DynamicChainGroup`` slots as data writes,
+``ControlPlane`` and the REST ``QueryControlService``) runs in the
+streaming ``Job``, its fused mode and ``ResidentReplay``.
 Everything else raises ``SiddhiQLError`` naming the later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.
@@ -31,7 +36,7 @@ compile at their first CUDA use.
 """
 
 from .api.cep import CEPEnvironment, SiddhiCEP
-from .api.stream import ExecutionStream, Row
+from .api.stream import DynamicExecutionStream, ExecutionStream, Row
 from .compiler.config import EngineConfig
 from .compiler.plan import CompiledPlan, compile_plan, state_from_numpy
 from .runtime.executor import ColumnarSink, Job, late_stream
@@ -40,6 +45,7 @@ from .runtime.sources import (
     BatchSource,
     BoundedDisorderWatermark,
     CallbackSource,
+    ControlListSource,
     CsvSource,
     JsonLinesSource,
     ListSource,
@@ -56,6 +62,14 @@ from .schema.batch import EventBatch
 from .schema.stream_schema import StreamSchema
 from .schema.types import AttributeType
 from .app.pipeline import CEPPipeline, PipelineConfig
+from .app.service import ControlQueueSource, QueryControlService
+from .control.events import (
+    CONTROL_STREAM,
+    ControlEvent,
+    MetadataControlEvent,
+    OperationControlEvent,
+)
+from .control.plane import AdmissionGate, ControlPlane, ControlRejected
 
 __version__ = "0.1.0"
 
@@ -66,6 +80,17 @@ __all__ = [
     "CEPEnvironment",
     "CEPPipeline",
     "CallbackSource",
+    "CONTROL_STREAM",
+    "AdmissionGate",
+    "ControlEvent",
+    "ControlListSource",
+    "ControlPlane",
+    "ControlQueueSource",
+    "ControlRejected",
+    "DynamicExecutionStream",
+    "MetadataControlEvent",
+    "OperationControlEvent",
+    "QueryControlService",
     "ColumnarSink",
     "CompiledPlan",
     "CsvSource",

@@ -12,6 +12,10 @@ Parity map (SiddhiStream.java):
 The job underlying an ExecutionStream is created exactly once and reused by
 every typed adapter (the reference memoizes the operator DataStream the same
 way, SiddhiStream.java:421-432). It runs on the environment's device.
+``cql(control_events)`` starts a ``DynamicExecutionStream``: no plans at
+first, queries added, updated, removed, paused and resumed by control
+events at run time (cql(DataStream<ControlEvent>), SiddhiStream.java:
+126-140).
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Type
 
 from ..compiler.plan import CompiledPlan, compile_plan
-from ..query.lexer import SiddhiQLError
 from ..runtime.executor import Job
 
 
@@ -35,15 +38,21 @@ class _StreamBase:
         self.env = env
         self.stream_ids = list(stream_ids)
 
-    def cql(self, plan: str, plan_id: str = "plan") -> "ExecutionStream":
-        """``cql("from ... insert into ...")`` binds one plan
-        (ExecutableStream.cql(String), SiddhiStream.java:116-119)."""
-        if not isinstance(plan, str):
-            raise SiddhiQLError(
-                "control-event driven plans are not in the torch port yet "
-                "(ROADMAP.md Queue 1 item 10); pass the plan's CQL text"
+    def cql(self, plan_or_control, plan_id: str = "plan"):
+        """Static path: ``cql("from ... insert into ...")`` binds one plan
+        (ExecutableStream.cql(String), SiddhiStream.java:116-119).
+
+        Dynamic path: ``cql(control_events)`` — a list of (ts,
+        ControlEvent) pairs or ControlEvents, or a control source —
+        starts with zero plans and manages them at run time
+        (cql(DataStream<ControlEvent>), SiddhiStream.java:126-140)."""
+        if isinstance(plan_or_control, str):
+            return ExecutionStream(
+                self.env, self.stream_ids, plan_or_control, plan_id
             )
-        return ExecutionStream(self.env, self.stream_ids, plan, plan_id)
+        return DynamicExecutionStream(
+            self.env, self.stream_ids, plan_or_control
+        )
 
 
 class SingleStream(_StreamBase):
@@ -149,3 +158,51 @@ class ExecutionStream:
         raise KeyError(
             f"plan has no query inserting into {output_stream!r}"
         )
+
+
+class DynamicExecutionStream(ExecutionStream):
+    """Control-plane-managed execution: plans are added, updated,
+    removed, paused and resumed by control events instead of a static
+    CQL string."""
+
+    def __init__(self, env, stream_ids, control):
+        from ..runtime.sources import ControlListSource
+
+        self.env = env
+        self.stream_ids = list(stream_ids)
+        self.plan_text = None
+        self.plan = None
+        if not hasattr(control, "poll"):
+            control = ControlListSource(control)
+        self._control = control
+        self._job: Optional[Job] = None
+
+    def _compile(self, cql: str, plan_id: str) -> CompiledPlan:
+        return compile_plan(
+            cql,
+            {sid: self.env.get_schema(sid) for sid in self.stream_ids},
+            extensions=self.env.extensions,
+            plan_id=plan_id,
+        )
+
+    @property
+    def job(self) -> Job:
+        if self._job is None:
+            self._job = Job(
+                [],
+                [self.env.sources[sid] for sid in self.stream_ids],
+                batch_size=self.env.batch_size,
+                time_mode=self.env.time_mode,
+                device=self.env.device,
+                control_sources=[self._control],
+                plan_compiler=self._compile,
+            )
+        return self._job
+
+    def _fields(self, output_stream: str) -> List[str]:
+        # output schemas exist only once control events installed plans
+        for rt in list(self.job._plans.values()):
+            schemas = rt.plan.output_streams().get(output_stream)
+            if schemas:
+                return schemas[0].field_names
+        raise KeyError(f"no runtime query inserts into {output_stream!r}")

@@ -15,9 +15,11 @@ With ``transactional_id`` set, a ``kafka://`` output is the two-phase
 commit ``KafkaSink``: each checkpoint's rows commit after the checkpoint
 is on disk, so a read-committed consumer of the output topic sees every
 row exactly once across crashes and restarts. ``fetch_max_bytes`` sizes
-a ``kafka://`` input's fetches. The control plane
-(``control_sources``) and the REST service (``app/service.py``) wait for
-ROADMAP.md Queue 1 item 10.
+a ``kafka://`` input's fetches. ``control_sources`` (a
+``ControlListSource``, or the ``ControlQueueSource`` a
+``QueryControlService`` pushes onto) add, update, retire and pause
+queries while the job runs; their CQL compiles against the pipeline's
+stream.
 """
 
 from __future__ import annotations
@@ -151,11 +153,6 @@ class CEPPipeline:
         sleep: Callable[[float], None] = time.sleep,
         device: DeviceLike = None,  # None = the CUDA device
     ) -> None:
-        if control_sources:
-            raise NotImplementedError(
-                "control sources (the control plane) are not in the torch "
-                "port yet (ROADMAP.md Queue 1 item 10)"
-            )
         if config.transactional_id is not None and (
             not config.output_path.startswith("kafka://")
             or not config.checkpoint_path
@@ -167,6 +164,7 @@ class CEPPipeline:
         self.device = resolve_device(device)
         self.config = config
         self.extensions = extensions or builtin_registry()
+        self._control_sources = list(control_sources)
         self._clock = clock
         self._sleep = sleep
         self.job: Optional[Job] = None
@@ -234,6 +232,11 @@ class CEPPipeline:
             # grow memory without bound over an unbounded input stream
             retain_results=False,
             device=self.device,
+            control_sources=self._control_sources,
+            plan_compiler=lambda cql, plan_id: compile_plan(
+                cql, {cfg.stream_id: schema},
+                extensions=self.extensions, plan_id=plan_id,
+            ),
         )
         if cfg.late_policy not in ("drop", "side_output", "allow"):
             raise ValueError(

@@ -1,0 +1,370 @@
+"""REST query-management service.
+
+The port of ``flink_siddhi_tpu/app/service.py``. The reference sketched
+this API and left every route unimplemented (CEPService.scala:43-95:
+``/api/v1/queries`` CRUD, all bodies ``???``). This is the working
+version: a small stdlib HTTP server that translates REST calls into
+control events (``control/events.py``) pushed onto a
+``ControlQueueSource`` that a running ``Job`` consumes at epoch
+boundaries — the path a control stream takes. A handler thread only runs
+the caller's ``validate`` and pushes events: it never touches the job's
+state, launches on the card or captures a graph (the run loop does all
+of that when it applies the event).
+
+Routes (JSON in/out):
+    GET    /api/v1/metrics               -> Job.metrics() snapshot
+    GET    /api/v1/health                -> liveness: alive, processed
+                                           events, idle sources, the late
+                                           account and the control block
+                                           (job.control_status()); with a
+                                           supervisor its health() (503
+                                           once its restart budget is
+                                           spent)
+    GET    /api/v1/queries               -> {"queries": [{id, tenant,
+                                           enabled, folded}]}
+    GET    /api/v1/queries/<id>          -> per-query status: enabled,
+                                           tenant, fold host/slot, or the
+                                           recorded refusal (rule ids)
+    POST   /api/v1/queries   {"cql": s,
+                              "tenant"?,
+                              "id"?}     -> {"id": plan_id,
+                                            "admission": None}
+    PUT    /api/v1/queries/<id> {"cql"}  -> {"id": id}
+    DELETE /api/v1/queries/<id>          -> {"id": id}
+    POST   /api/v1/queries/<id>/enable   -> {"id": id}
+    POST   /api/v1/queries/<id>/disable  -> {"id": id}
+
+Not in the port yet, each answering 501 with a body naming its ROADMAP.md
+Queue 1 item: ``/api/v1/metrics/prometheus``, ``/api/v1/traces``,
+``/api/v1/flightrecorder`` and ``/api/v1/slo`` (the telemetry modules,
+item 12), the admission gate at the boundary (``admission=``, item 12)
+and the fleet's ``/api/v1/fleet/drain`` (item 13).
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..control.events import MetadataControlEvent, OperationControlEvent
+
+# GET routes whose modules wait for a later ROADMAP item
+_LATER_ROUTES = {
+    ("api", "v1", "metrics", "prometheus"): (
+        12, "the OpenMetrics exposition (telemetry/openmetrics.py)"),
+    ("api", "v1", "traces"): (
+        12, "per-event trace sampling (telemetry/tracing.py)"),
+    ("api", "v1", "flightrecorder"): (
+        12, "the flight recorder (telemetry/flightrec.py)"),
+    ("api", "v1", "slo"): (12, "the SLO watchdog (telemetry/slo.py)"),
+}
+
+
+def _later_body(item: int, what: str) -> dict:
+    return {"error": f"{what} is not in the torch port yet (ROADMAP.md "
+                     f"Queue 1 item {item})"}
+
+
+def _json_safe(obj):
+    """A metrics snapshot as JSON-serializable primitives: numpy scalars
+    and arrays become Python ints, floats and lists."""
+    if isinstance(obj, dict):
+        return {str(k): _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return [_json_safe(v) for v in obj.tolist()]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    return str(obj)
+
+
+class ControlQueueSource:
+    """Push-style control source: the service enqueues events, the job's
+    executor drains them at epoch boundaries. Stays open until
+    ``close()`` (a pipeline with a live control service never finishes on
+    its own). ``push``, ``close`` and ``poll`` are thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._pending: List[Tuple[int, object]] = []
+        self._closed = False
+
+    def push(self, event, timestamp_ms: Optional[int] = None) -> None:
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("control source closed")
+            ts = (
+                int(timestamp_ms)
+                if timestamp_ms is not None
+                else int(event.created_ms)
+            )
+            self._pending.append((ts, event))
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+
+    def poll(self, max_events: int):
+        with self._lock:
+            take = self._pending[:max_events]
+            self._pending = self._pending[max_events:]
+            done = self._closed and not self._pending
+            # a live (empty) control queue must not hold back the data
+            # watermark: control applies at the next batch boundary anyway
+            wm = np.iinfo(np.int64).max if (done or not self._pending) else (
+                take[-1][0] if take else None
+            )
+            return take, wm, done
+
+
+class QueryControlService:
+    """HTTP facade over a ControlQueueSource (optionally reading a live
+    Job for the GET routes)."""
+
+    def __init__(
+        self,
+        control: ControlQueueSource,
+        job=None,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        validate=None,  # callable(cql) raising on bad queries
+        supervisor=None,  # runtime.supervisor.Supervisor for /health
+        admission=None,
+    ) -> None:
+        if admission is not None:
+            raise NotImplementedError(
+                "QueryControlService(admission=...): the admission gate "
+                "is not in the torch port yet (ROADMAP.md Queue 1 item 12)"
+            )
+        self.control = control
+        self.job = job
+        self.validate = validate
+        self.supervisor = supervisor
+        service = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):  # quiet
+                pass
+
+            def _reply(self, code: int, payload: dict) -> None:
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _body(self) -> dict:
+                n = int(self.headers.get("Content-Length") or 0)
+                if not n:
+                    return {}
+                try:
+                    return json.loads(self.rfile.read(n))
+                except ValueError:
+                    return {}
+
+            def _route(self):
+                parts = [p for p in self.path.split("/") if p]
+                # expect ['api', 'v1', 'queries', <id>?, <action>?]
+                if parts[:3] != ["api", "v1", "queries"]:
+                    return None
+                return parts[3:]
+
+            def do_GET(self):
+                from urllib.parse import urlsplit
+
+                parts = tuple(
+                    p for p in urlsplit(self.path).path.split("/") if p)
+                later = _LATER_ROUTES.get(parts)
+                if later is not None:
+                    return self._reply(501, _later_body(*later))
+                if parts == ("api", "v1", "health"):
+                    return self._reply(*service._health())
+                if parts == ("api", "v1", "metrics"):
+                    job = service._live_job()
+                    if job is None:
+                        return self._reply(200, {})
+                    # host-side counters only: never touches the device
+                    # from this thread
+                    return self._reply(200, _json_safe(job.metrics()))
+                tail = self._route()
+                if tail is None:
+                    return self._reply(404, {"error": "not found"})
+                if len(tail) == 1:
+                    return self._reply(*service._query_status(tail[0]))
+                if tail:
+                    return self._reply(404, {"error": "not found"})
+                job = service._live_job()
+                listing = job.query_listing() if job is not None else []
+                self._reply(200, {"queries": _json_safe(listing)})
+
+            def do_POST(self):
+                parts = [p for p in self.path.split("/") if p]
+                if parts == ["api", "v1", "fleet", "drain"]:
+                    return self._reply(501, _later_body(
+                        13, "the serving fleet's drain (fleet/)"))
+                tail = self._route()
+                if tail is None:
+                    return self._reply(404, {"error": "not found"})
+                if not tail:  # add query
+                    body = self._body()
+                    cql = body.get("cql")
+                    if not cql:
+                        return self._reply(400, {"error": "missing cql"})
+                    err = service._check(cql)
+                    if err:
+                        return self._reply(400, {"error": err})
+                    # a client may supply the plan id; otherwise the
+                    # service mints one
+                    plan_id = body.get("id")
+                    if plan_id is not None and (
+                        not isinstance(plan_id, str)
+                        or not re.fullmatch(r"[\w.:-]{1,128}", plan_id)
+                    ):
+                        return self._reply(400, {"error": "invalid id"})
+                    if plan_id is None:
+                        plan_id = MetadataControlEvent.new_plan_id()
+                    b = MetadataControlEvent.builder()
+                    b.add_execution_plan(cql, plan_id=plan_id)
+                    ev = b.build()
+                    ev.tenant = body.get("tenant")
+                    service.control.push(ev)
+                    return self._reply(
+                        201, {"id": plan_id, "admission": None})
+                if len(tail) == 2 and tail[1] in ("enable", "disable"):
+                    ev = (
+                        OperationControlEvent.enable_query(tail[0])
+                        if tail[1] == "enable"
+                        else OperationControlEvent.disable_query(tail[0])
+                    )
+                    service.control.push(ev)
+                    return self._reply(200, {"id": tail[0]})
+                self._reply(404, {"error": "not found"})
+
+            def do_PUT(self):
+                tail = self._route()
+                if tail is None or len(tail) != 1:
+                    return self._reply(404, {"error": "not found"})
+                body = self._body()
+                cql = body.get("cql")
+                if not cql:
+                    return self._reply(400, {"error": "missing cql"})
+                err = service._check(cql)
+                if err:
+                    return self._reply(400, {"error": err})
+                b = MetadataControlEvent.builder()
+                b.update_execution_plan(tail[0], cql)
+                ev = b.build()
+                ev.tenant = body.get("tenant")
+                service.control.push(ev)
+                self._reply(200, {"id": tail[0], "admission": None})
+
+            def do_DELETE(self):
+                tail = self._route()
+                if tail is None or len(tail) != 1:
+                    return self._reply(404, {"error": "not found"})
+                b = MetadataControlEvent.builder()
+                b.remove_execution_plan(tail[0])
+                service.control.push(b.build())
+                self._reply(200, {"id": tail[0]})
+
+        self._server = ThreadingHTTPServer((host, port), Handler)
+        self._thread: Optional[threading.Thread] = None
+
+    def _live_job(self):
+        """The job every GET route reads: the attached one, else the
+        supervised pipeline's current job (None mid-restart)."""
+        job = self.job
+        if job is None and self.supervisor is not None:
+            job = self.supervisor.job
+        return job
+
+    def _health(self):
+        """(code, payload) for GET /api/v1/health: 200 while supervised
+        and alive (or unsupervised), 503 once the supervisor's restart
+        budget is spent."""
+        sup = self.supervisor
+        if sup is not None:
+            payload = _json_safe(sup.health())
+            return (200 if payload.get("alive") else 503), payload
+        job = self.job
+        if job is None:
+            return 200, {"alive": True, "supervised": False}
+        return 200, {
+            "alive": True,
+            "supervised": False,
+            "finished": bool(job.finished),
+            "processed_events": int(job.processed_events),
+            "idle_sources": job.idle_source_ids(),
+            "late_dropped": int(job.late_dropped),
+            "control": _json_safe(job.control_status()),
+        }
+
+    def _query_status(self, plan_id: str):
+        """(code, payload) for GET /api/v1/queries/<id>."""
+        job = self._live_job()
+        if job is None:
+            return 404, {"error": "no job attached"}
+        folded = job._folded.get(plan_id)
+        if folded is not None:
+            host, slot = folded
+            return 200, {
+                "id": plan_id,
+                "state": "live",
+                "tenant": job.tenant_of(plan_id),
+                "enabled": bool(job._folded_enabled.get(plan_id, True)),
+                "folded": {"host": host, "slot": int(slot)},
+            }
+        rt = job._plans.get(plan_id)
+        if rt is not None:
+            return 200, {
+                "id": plan_id,
+                "state": "live",
+                "tenant": job.tenant_of(plan_id),
+                "enabled": bool(rt.enabled),
+                "folded": None,
+            }
+        rej = job.control_rejections.get(plan_id)
+        if rej is not None:
+            return 200, {"id": plan_id, "state": "rejected",
+                         **_json_safe(rej)}
+        return 404, {"error": f"unknown query {plan_id!r}"}
+
+    def _check(self, cql: str) -> Optional[str]:
+        """Fail-fast validation at the REST boundary (the reference's
+        validateSiddhiApp, AbstractSiddhiOperator.java:291-299): an error
+        string, or None."""
+        if self.validate is None:
+            return None
+        try:
+            self.validate(cql)
+            return None
+        except Exception as e:
+            return str(e)
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    def start(self) -> "QueryControlService":
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)

@@ -1694,6 +1694,41 @@ _CMP_CODE = {op: i for i, op in enumerate(_CMP_OPS)}
 _CMP_FNS = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
 
 
+def _cmp_select(col, lits, sel):
+    """``col OP lits`` with the operator chosen per query: ``sel`` pairs
+    each operator code with the mask of the queries that use it (the first
+    pair's compare stands where no later mask holds)."""
+    out = None
+    for oc, mask in sel:
+        m = _CMP_FNS[oc](col, lits)
+        out = m if out is None else torch.where(mask, m, out)
+    return out
+
+
+def _qid_rows(emit_ts, cols) -> torch.Tensor:
+    """(R, Q, V) rows of a query axis: ts, the query's index, columns."""
+    Q, V = int(emit_ts.shape[0]), int(emit_ts.shape[1])
+    qid = torch.arange(Q, dtype=_I32, device=emit_ts.device).unsqueeze(1)
+    return torch.stack([as_i32(emit_ts), qid.expand(Q, V)]
+                       + [as_i32(c) for c in cols])
+
+
+def _pack_rows(rows, complete, out_w: int):
+    """Pack the completed columns of ``rows`` (R, Q, V), query-major, into
+    one (R, out_w) block: completions past ``out_w`` drop, counted in the
+    third element (it feeds the drained overflow counter)."""
+    R, Q, V = (int(d) for d in rows.shape)
+    flat = rows.reshape(R, Q * V)
+    flags = complete.reshape(Q * V)
+    n_total = flags.sum(dtype=_I32)
+    pos = torch.cumsum(flags, 0, dtype=_I32) - 1
+    dest = torch.where(flags & (pos < out_w), pos, out_w).long()
+    packed = torch.zeros((R, out_w + 1), dtype=_I32, device=rows.device)
+    packed.scatter_(1, dest.unsqueeze(0).expand(R, Q * V), flat)
+    n_emitted = torch.clamp(n_total, max=out_w)
+    return n_emitted, packed[:, :out_w], n_total - n_emitted
+
+
 def _template_conjuncts(el, column_types):
     """Flatten an element filter into <=2 ``attr OP literal`` conjuncts,
     sorted by column key: ``[(key, op code, literal)]``, or None when the
@@ -1884,11 +1919,7 @@ class StackedChainArtifact:
             for j, (key, _opcodes, _vals) in enumerate(conjs):
                 col = tape.cols[key].unsqueeze(0)
                 lits, sel = consts[(k, j)]
-                cm = None
-                for oc, member_mask in sel.items():
-                    m = _CMP_FNS[oc](col, lits)
-                    cm = m if cm is None else torch.where(member_mask, m, cm)
-                mk = mk & cm
+                mk = mk & _cmp_select(col, lits, sel.items())
             out.append(mk & enabled.unsqueeze(1))
         return torch.stack(out, 1)
 
@@ -1956,7 +1987,6 @@ class StackedChainArtifact:
         Q, P = len(self.members), self.pool
         dev = complete.device
         V_ = int(complete.shape[1])
-        qid_row = torch.arange(Q, dtype=_I32, device=dev).unsqueeze(1)
         # when every member's column c is the same plain capture, the
         # stacked capture buffers ARE the output rows
         col_srcs = []
@@ -1967,11 +1997,9 @@ class StackedChainArtifact:
                 break
             col_srcs.append(next(iter(srcs)))
         if col_srcs is not None:
-            rows = torch.stack(
-                [as_i32(emit_ts), qid_row.expand(Q, V_)]
-                + [as_i32(caps[pair]) for pair in col_srcs]
-            )  # (R, Q, V_)
+            rows = _qid_rows(emit_ts, [caps[pair] for pair in col_srcs])
         else:
+            qid_row = torch.arange(Q, dtype=_I32, device=dev).unsqueeze(1)
             per_q = []
             for qi, m in enumerate(self.members):
                 env = _emit_env(m.spec, {
@@ -1983,19 +2011,8 @@ class StackedChainArtifact:
                        for p in m.spec.proj_fns]
                 ))
             rows = torch.stack(per_q, 1)  # (R, Q, V_)
-        R = int(rows.shape[0])
-        flat = rows.reshape(R, Q * V_)
-        cflat = complete.reshape(Q * V_)
-        n_total = cflat.sum(dtype=_I32)
         out_w = min(Q * (P + E), min(Q, _STACK_OUT_CAP) * E + Q * P)
-        pos = torch.cumsum(cflat, 0, dtype=_I32) - 1
-        dest = torch.where(cflat & (pos < out_w), pos, out_w).long()
-        packed = torch.zeros((R, out_w + 1), dtype=_I32, device=dev)
-        packed.scatter_(1, dest.unsqueeze(0).expand(R, Q * V_), flat)
-        n_emitted = torch.clamp(n_total, max=out_w)
-        # completions beyond the emission buffer are dropped; the third
-        # element feeds the drained overflow counter
-        return new_state, (n_emitted, packed[:, :out_w], n_total - n_emitted)
+        return new_state, _pack_rows(rows, complete, out_w)
 
     def step(self, state: Dict, tape) -> Tuple[Dict, Tuple]:
         cfg = self._cfg
@@ -2119,6 +2136,259 @@ def _decode_qid_block(n: int, block, slot_schemas):
             ))
         )
     return out
+
+
+# --------------------------------------------------------------------------
+# Dynamic (parametric) chain groups: a runtime query add or remove is a
+# DATA update, not a recompile (SURVEY.md §7 hard part 4). A group
+# pre-allocates padded query slots; a structurally identical chain query
+# (same shape, per-element ``attr OP literal`` filters over the same
+# attributes) folds into a free slot by writing its literals, operators
+# and ``within`` into per-slot state. Reference analog: the add path of
+# AbstractSiddhiOperator.onEventReceived (:416-424), which pays a full
+# SiddhiQL compile per add.
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ChainTemplate:
+    """The static shape shared by all members of a dynamic chain group.
+    Everything here fixes the step's structure; everything NOT here
+    (filter literals, comparison OPERATORS, within values, enable flags)
+    is state — so ``price > 100``, ``price <= 5`` and ``id == 2`` over
+    the same column all fold into one slot family."""
+
+    K: int
+    every: bool
+    has_within: bool
+    stream_ids: Tuple[str, ...]  # per element
+    # per element: tape col key per conjunct (up to 2, e.g. a range
+    # `lo < x and x < hi`); () = unfiltered element
+    filter_keys: Tuple[Tuple[str, ...], ...]
+    pairs: Tuple[Tuple[int, str], ...]
+    cap_dtypes: Tuple[str, ...]
+    proj_srcs: Tuple[Tuple[int, str], ...]
+
+
+def chain_template_of(
+    artifact, column_types: Optional[Dict] = None
+) -> Optional[Tuple["ChainTemplate", List, int]]:
+    """(template, per-element literal params, within_ms) when the chain
+    fits the parametric family, else None. With ``column_types``, a
+    literal that does not losslessly convert to its column's device type
+    rejects the template (a truncated param would match DIFFERENT events
+    than the statically compiled query)."""
+    if not isinstance(artifact, ChainPatternArtifact):
+        return None
+    if artifact.lazy_pairs or artifact.pushed_preds:
+        # a lazy-projected / predicate-pushed plan's tape lacks the raw
+        # columns the parametric group would read; it keeps its own
+        # runtime
+        return None
+    spec = artifact.spec
+    if spec.kind != "pattern" or spec.has_cross:
+        return None
+    if any(len(g) > 1 for g in spec.groups):
+        return None
+    if any(
+        el.negated or (el.min_count, el.max_count) != (1, 1)
+        for el in spec.elements
+    ):
+        return None
+    if not spec.proj_srcs or any(s is None for s in spec.proj_srcs):
+        return None
+    filter_keys: List[Tuple[str, ...]] = []
+    params: List = []
+    for el in spec.elements:
+        if el.filter is None:
+            filter_keys.append(())
+            params.append(())
+            continue
+        conj = _template_conjuncts(el, column_types)
+        if conj is None:
+            return None
+        filter_keys.append(tuple(key for key, _op, _v in conj))
+        params.append(tuple((op, v) for _key, op, v in conj))
+    pairs = tuple(_cap_pairs(spec))
+    return (
+        ChainTemplate(
+            K=spec.n_elements,
+            every=spec.every,
+            has_within=spec.within is not None,
+            stream_ids=tuple(el.stream_id for el in spec.elements),
+            filter_keys=tuple(filter_keys),
+            pairs=pairs,
+            cap_dtypes=tuple(
+                np.dtype(spec.cap_dtype[p]).name for p in pairs
+            ),
+            proj_srcs=tuple(spec.proj_srcs),
+        ),
+        params,
+        spec.within or 0,
+    )
+
+
+DYN_QUERY_SLOTS = 8  # pre-padded slots per dynamic chain group
+
+
+@dataclass
+class DynamicChainGroup:
+    """Padded parametric chain group: up to ``capacity`` structurally
+    identical chain queries advanced by ONE chain core over a leading
+    query axis — one ``multi_reverse_cummin`` launch over capacity x
+    (K-1) rows and one ``chain_advance`` launch over capacity queries per
+    step, whatever the number of live members. Per-slot predicates are
+    ``tape_col OP param[q]`` with the params and operators in state, so
+    admit, evict and enable are data writes, made in place into the
+    state tensors (those a runtime's segment graphs are bound to)."""
+
+    name: str
+    template: ChainTemplate
+    stream_code_of: Tuple[int, ...]  # codes in the HOST plan's spec
+    column_types: Dict[str, object]  # tape col key -> AttributeType
+    members: List  # per slot: None | (plan_id, OutputSchema)
+    pool: int = DEFAULT_PARTIAL_POOL
+    capacity: int = DYN_QUERY_SLOTS
+    output_mode: str = "packed"
+
+    @property
+    def output_schema(self) -> OutputSchema:
+        for m in self.members:
+            if m is not None:
+                return m[1]
+        raise RuntimeError("dynamic chain group has no members")
+
+    @property
+    def acc_rows(self) -> int:
+        return 2 + len(self.template.proj_srcs)  # ts + qid + columns
+
+    def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
+        """The packed block's width, the reference's: min(Q, 8) x E +
+        Q x pool (lossless for 8 slots)."""
+        q = self.capacity
+        return min(q, _STACK_OUT_CAP) * tape_capacity + q * self.pool
+
+    def _cfg(self) -> _ChainCfg:
+        t = self.template
+        return _ChainCfg(
+            K=t.K, every=t.every, has_within=t.has_within, pairs=t.pairs,
+            cap_dtypes=t.cap_dtypes, positive=tuple(range(t.K)),
+            guards=((),) * t.K,
+        )
+
+    def init_state(self, device) -> Dict:
+        Qc, P = self.capacity, self.pool
+        st = {
+            "enabled": torch.zeros(Qc, dtype=torch.bool, device=device),
+            "active": torch.zeros((Qc, P), dtype=torch.bool, device=device),
+            "step": torch.ones((Qc, P), dtype=_I32, device=device),
+            "start": torch.zeros((Qc, P), dtype=_I32, device=device),
+            "done": torch.zeros(Qc, dtype=torch.bool, device=device),
+            "overflow": torch.zeros(Qc, dtype=_I32, device=device),
+        }
+        if self.template.has_within:
+            st["within"] = torch.zeros(Qc, dtype=_I32, device=device)
+        for k, keys in enumerate(self.template.filter_keys):
+            for j, key in enumerate(keys):
+                st[f"param{k}_{j}"] = torch.zeros(
+                    Qc, dtype=torch_dtype(self.column_types[key].device_dtype),
+                    device=device,
+                )
+                st[f"op{k}_{j}"] = torch.zeros(Qc, dtype=_I32, device=device)
+        for pair, dt in zip(self.template.pairs, self.template.cap_dtypes):
+            st[_skey("cap", *pair)] = torch.zeros(
+                (Qc, P), dtype=torch_dtype(dt), device=device)
+        return st
+
+    # -- slot management: in-place writes into the live state ------------
+    def free_slot(self) -> Optional[int]:
+        for s, m in enumerate(self.members):
+            if m is None:
+                return s
+        return None
+
+    def admit(self, state: Dict, slot: int, plan_id: str, schema,
+              params: List, within_ms: int, string_tables) -> Dict:
+        """Write one query into ``slot`` (data writes, in place)."""
+        self.members[slot] = (plan_id, schema)
+        state["enabled"][slot] = True
+        state["done"][slot] = False
+        state["active"][slot] = False
+        state["overflow"][slot] = 0
+        if self.template.has_within:
+            state["within"][slot] = int(within_ms)
+        for k, (keys, el_params) in enumerate(
+            zip(self.template.filter_keys, params)
+        ):
+            for j, (key, (op, val)) in enumerate(zip(keys, el_params)):
+                if self.column_types[key] == AttributeType.STRING:
+                    val = string_tables[key].intern(val)
+                state[f"param{k}_{j}"][slot] = val
+                state[f"op{k}_{j}"][slot] = int(op)
+        return state
+
+    def evict(self, state: Dict, slot: int) -> Dict:
+        """Leave ``slot`` row-inert (disabled, no carried partial): a
+        later admit reclaims it."""
+        self.members[slot] = None
+        state["enabled"][slot] = False
+        state["active"][slot] = False
+        return state
+
+    def set_enabled(self, state: Dict, slot: int, on: bool) -> Dict:
+        state["enabled"][slot] = bool(on)
+        return state
+
+    # -- device step ----------------------------------------------------
+    def _preds(self, state: Dict, tape) -> torch.Tensor:
+        """(Qc, K, E) element masks: each conjunct evaluates all six
+        comparison variants in the column's own dtype and selects by the
+        slot's operator code (data, not structure)."""
+        t = self.template
+        rows = []
+        for k in range(t.K):
+            row = (tape.valid & (tape.stream == self.stream_code_of[k]))
+            row = row.unsqueeze(0)
+            for j, key in enumerate(t.filter_keys[k]):
+                col = tape.cols[key].unsqueeze(0)
+                pk = state[f"param{k}_{j}"].to(col.dtype).unsqueeze(1)
+                op = state[f"op{k}_{j}"].unsqueeze(1)
+                row = row & _cmp_select(col, pk, (
+                    (ci, op == ci) for ci in range(len(_CMP_FNS))))
+            rows.append(row & state["enabled"].unsqueeze(1))
+        return torch.stack(rows, 1)
+
+    def step(self, state: Dict, tape) -> Tuple[Dict, Tuple]:
+        t = self.template
+        Qc, P = self.capacity, self.pool
+        E = tape.capacity
+        preds = self._preds(state, tape)
+        cap_srcs = {
+            pair: tape.cols[f"{t.stream_ids[pair[0]]}.{pair[1]}"].expand(
+                Qc, E)
+            for pair in t.pairs
+        }
+        within_vec = (state["within"] if t.has_within
+                      else torch.zeros(Qc, dtype=_I32, device=tape.ts.device))
+        core_keys = ["enabled", "active", "step", "start", "done",
+                     "overflow"] + [_skey("cap", *p) for p in t.pairs]
+        new_core, complete, emit_ts, caps = _chain_core(
+            self._cfg(), P, {k: state[k] for k in core_keys}, preds,
+            cap_srcs, within_vec, tape.ts.expand(Qc, E),
+            tape.valid.expand(Qc, E),
+        )
+        new_state = dict(state)
+        new_state.update(new_core)
+        # uniform emission: qid row + stacked capture buffers, query-major
+        rows = _qid_rows(emit_ts, [caps[pair] for pair in t.proj_srcs])
+        return new_state, _pack_rows(rows, complete,
+                                     self.emit_block_width(E, state))
+
+    def decode_packed(self, n: int, block: np.ndarray):
+        """Split the packed block by query slot -> member streams."""
+        return _decode_qid_block(
+            n, block,
+            ((s, m[1]) for s, m in enumerate(self.members) if m is not None),
+        )
 
 
 def group_chain_artifacts(

@@ -351,10 +351,13 @@ class CompiledPlan:
         every member's schema)."""
         by_stream: Dict[str, List] = {}
         for a in self.artifacts:
+            # stacks hold artifacts; dynamic groups hold (plan_id, schema)
+            # per slot, None for a free one
             for m in getattr(a, "members", None) or (a,):
-                by_stream.setdefault(
-                    m.output_schema.stream_id, []
-                ).append(m.output_schema)
+                if m is None:
+                    continue
+                sch = m.output_schema if hasattr(m, "output_schema") else m[1]
+                by_stream.setdefault(sch.stream_id, []).append(sch)
         return by_stream
 
 

@@ -14,11 +14,18 @@ written by either package loads in the other:
   monotone gate watermark, idle flags, the late account) and the reorder
   buffer;
 * source positions and sink states, for those that expose ``state_dict``;
-* the output-rate limiters' phase.
+* the output-rate limiters' phase;
+* the control plane: the dynamically added queries (``dynamic``: each
+  one's CQL, its group slot, its enable flag and tenant), which a restore
+  replays into the same runtimes and slots before the state overlay
+  (``Job._replay_dynamic``), and the control events still pending behind
+  the watermark (``control_pending``), which the restored job applies
+  exactly once. The events are pickled under the JAX package's module
+  name, ``flink_siddhi_tpu.control.events``, and either package's name
+  loads into this package's own classes, so such a file moves both ways.
 
 The blocks of modules the port does not have yet are written empty, and a
 snapshot in which one is not empty is refused, naming its ROADMAP item:
-``dynamic`` and ``control_pending`` (the control plane, item 10),
 ``routers`` (parallel, item 11), ``shared`` (subplan sharing, item 10) and
 ``fleet`` (item 13). The flight recorder's journal (item 12) is not
 written, and a reference snapshot's journal is not restored.
@@ -68,14 +75,30 @@ def _rate_limiter_rows(lim) -> list:
     return list(lim.buf)
 
 
+def _owned(tree):
+    """numpy copies of a fetched state (on the CPU a tensor's numpy view
+    shares its memory, and group slots are written in place)."""
+    if isinstance(tree, dict):
+        return {k: _owned(v) for k, v in tree.items()}
+    return np.array(tree)
+
+
 def snapshot_job(job) -> Dict[str, Any]:
     """Capture everything needed to resume ``job`` in a fresh process."""
+    missing_cql = set(job._folded) - set(job._dynamic_cql)
+    if missing_cql:
+        raise ValueError(
+            f"dynamically-added plans {sorted(missing_cql)} have no "
+            "recorded CQL, so the checkpoint could not be restored; add "
+            "them through control events or pass cql= to "
+            "add_plan(dynamic=True)"
+        )
     plans = {}
     strings = _first_string_table(job)
     for plan_id, rt in job._plans.items():
         plans[plan_id] = {
-            "states": state_to_numpy(rt.states),
-            "enabled": True,
+            "states": _owned(state_to_numpy(rt.states)),
+            "enabled": rt.enabled,
             "encoders": {enc.out_key: enc.encoder.state_dict()
                          for enc in rt.plan.spec.encoded},
         }
@@ -127,12 +150,19 @@ def snapshot_job(job) -> Dict[str, Any]:
         "plans": plans,
         "strings": strings.state_dict() if strings is not None else None,
         "pending": pending,
-        "control_pending": [],
+        "control_pending": list(job._control_pending),
         "sources": sources,
         "routers": {},
         "sinks": sinks,
-        "dynamic": {"cql": {}, "folded": {}, "enabled": {}, "tenants": {},
-                    "admitted_bytes": {}},
+        # dynamically added queries: CQL and group slots, so a restore
+        # replays them into identical runtimes and slots
+        "dynamic": {
+            "cql": dict(job._dynamic_cql),
+            "folded": dict(job._folded),
+            "enabled": dict(job._folded_enabled),
+            "tenants": dict(job._plan_tenant),
+            "admitted_bytes": {},
+        },
         "shared": {},
         "flightrec": None,
         # events-mode chunk position and buffered rows survive, so that a
@@ -154,13 +184,8 @@ def _check_later_blocks(snap: Dict[str, Any]) -> None:
     """Refuse a snapshot that holds state of a module the port does not
     have yet, naming its ROADMAP item (restoring without it would
     silently drop that state)."""
-    dyn = snap.get("dynamic") or {}
     fleet = snap.get("fleet") or {}
     later = (
-        ("dynamically added queries ('dynamic')",
-         any(dyn.get(k) for k in ("cql", "folded", "enabled")), 10),
-        ("undelivered control events ('control_pending')",
-         bool(snap.get("control_pending")), 10),
         ("shared subplans ('shared')", bool(snap.get("shared")), 10),
         ("sharded routers ('routers')", bool(snap.get("routers")), 11),
         ("the serving fleet's account ('fleet')",
@@ -189,6 +214,19 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
             "semantics differ — rebuild the job with the original mode"
         )
     _check_later_blocks(snap)
+    # dynamically added queries: tenants first, then the replay into the
+    # same runtimes and slots, BEFORE the plan-set check below
+    dyn = snap.get("dynamic") or {}
+    job._plan_tenant.update(dyn.get("tenants") or {})
+    if dyn.get("cql"):
+        if job._plan_compiler is None:
+            raise ValueError(
+                "checkpoint contains dynamically-added queries but the "
+                "job has no plan compiler; rebuild it through the "
+                "dynamic cql() path"
+            )
+        job._replay_dynamic(dyn["cql"], dyn.get("folded", {}),
+                            dyn.get("enabled", {}))
     job_only = set(job._plans) - set(snap["plans"])
     if job_only:
         raise ValueError(
@@ -200,12 +238,6 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
             raise ValueError(
                 f"checkpoint has plan {plan_id!r} but the job does not; "
                 "rebuild the job with the same plans before restoring"
-            )
-        if not prec.get("enabled", True):
-            raise ValueError(
-                f"the checkpoint holds plan {plan_id!r} disabled, which "
-                "the torch port cannot restore yet (enable flags are the "
-                "control plane's, ROADMAP.md Queue 1 item 10)"
             )
     # queued drains complete before any state is replaced
     job._settle_drains()
@@ -257,6 +289,7 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
             lazy_base = int(np.asarray(
                 prec["states"][rt.lazy_state_name]["seen"]))
         job._install_states(rt, states, lazy_base=lazy_base)
+        rt.enabled = bool(prec.get("enabled", True))
     job._cycles_since_drain = 0
 
     # 3. the reorder buffer
@@ -275,6 +308,8 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
             )
             for b in blobs
         ]
+    # ... and the control events still pending behind the watermark
+    job._control_pending = list(snap.get("control_pending") or [])
 
     # 4. source positions
     for i, sd in snap.get("sources", {}).items():
@@ -355,8 +390,12 @@ def save(job, path: str, keep: int = 1) -> None:
     ..., the oldest dropped); stale ``path.tmp.*`` files of a writer that
     died are swept after the replace (one writer a path)."""
     tmp = f"{path}.tmp.{os.getpid()}"
+    snap = snapshot_job(job)
     with open(tmp, "wb") as f:
-        pickle.dump(snapshot_job(job), f, protocol=pickle.HIGHEST_PROTOCOL)
+        if snap["control_pending"]:
+            _EventPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(snap)
+        else:
+            pickle.dump(snap, f, protocol=pickle.HIGHEST_PROTOCOL)
         f.flush()
         os.fsync(f.fileno())
     if keep > 1 and os.path.exists(path):
@@ -395,18 +434,48 @@ _SAFE_NUMPY = {
 }
 
 
+# the control events a snapshot's control_pending holds: written under the
+# JAX package's module name, loaded from either package's into this one's
+_EVENT_MODULES = ("flink_siddhi_tpu.control.events",
+                  "flink_siddhi_tpu_torch.control.events")
+_EVENT_CLASSES = ("ControlEvent", "MetadataControlEvent",
+                  "OperationControlEvent")
+
+
+class _EventPickler(pickle._Pickler):
+    """A pickler that names this package's control event classes by the
+    JAX package's module, so that the JAX package's restore (which admits
+    only its own module's events) loads the file too."""
+
+    def save_global(self, obj, name=None):
+        from ..control import events
+
+        if (getattr(obj, "__module__", None) == events.__name__
+                and obj.__qualname__ in _EVENT_CLASSES):
+            self.save(_EVENT_MODULES[0])
+            self.save(obj.__qualname__)
+            self.write(pickle.STACK_GLOBAL)
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
 class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if module == "builtins" and name in _SAFE_BUILTINS:
             return super().find_class(module, name)
         if (module, name) in _SAFE_NUMPY:
             return super().find_class(module, name)
+        if module in _EVENT_MODULES and name in _EVENT_CLASSES:
+            from ..control import events
+
+            return getattr(events, name)
         raise pickle.UnpicklingError(
             f"checkpoint names {module}.{name}, which is not on the "
             "restore safelist (numpy scalars/arrays, builtin "
-            "containers). A checkpoint produced by save() never "
-            "contains it — the file is corrupt, from a different engine "
-            "version, or hostile."
+            "containers, control events). A checkpoint produced by "
+            "save() never contains it — the file is corrupt, from a "
+            "different engine version, or hostile."
         )
 
 

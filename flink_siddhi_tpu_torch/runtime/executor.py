@@ -45,9 +45,23 @@ limiting (``output ... every``) thins rows where they surface
 ``restore`` (``runtime/checkpoint.py``) carry the whole job in the JAX
 package's checkpoint format; ``runtime/supervisor.py`` restarts from them.
 
-Not in this port yet (ROADMAP.md Queue 1): the control plane (item 10),
-shared subplans and loopback, the flight recorder, trace sampling and
-SLOs (item 12).
+The control plane (the reference's ``control_sources``, ``add_plan(...,
+dynamic=True)``, ``remove_plan``, ``set_plan_enabled``): control events
+from control sources apply at epoch boundaries, at the start of a cycle's
+ingest (``_apply_ready_control``), gated by the same watermark as the
+data; in fused mode the pending segment dispatches before any mutation of
+its runtime, so a mutation never tears a step. A template-able chain
+query admitted at run time folds into a padded ``DynamicChainGroup``
+(``compiler/nfa.py``) as a data write into the state tensors the
+runtime's graphs are bound to: no new runtime, no new graph key. A bad
+control event is refused (``control_rejections``, the
+``control.admission_rejected`` counter) and never stops the loop.
+``RUNLOOP_OWNERSHIP_GUARD`` asserts that the mutators run on the run-loop
+thread.
+
+Not in this port yet (ROADMAP.md Queue 1): shared subplans and loopback
+and the executable cache (item 10's next slice), the admission analysis,
+the flight recorder, trace sampling and SLOs (item 12).
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
@@ -56,6 +70,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import logging
 import threading
 import time
@@ -83,6 +98,34 @@ from .sources import Source
 from .tape import WireTape, bucket_size, build_wire_tape
 
 _LOG = logging.getLogger(__name__)
+
+# Run-loop ownership contract: with the guard on, the first run()/
+# run_cycle() stamps its thread id as the run-loop owner, and every
+# state-mutating control entry point (add_plan / remove_plan /
+# set_plan_enabled / _apply_control / reset_engine_state) asserts it runs
+# on that thread: state mutates only via control events applied on the
+# run loop (a REST handler thread pushes events, nothing else)
+RUNLOOP_OWNERSHIP_GUARD = False
+
+
+class OwnershipViolation(RuntimeError):
+    """A run-loop-owned mutation entry point ran on a thread other than
+    the stamped run-loop owner."""
+
+
+@contextlib.contextmanager
+def _device_work():
+    """Device work inside a plan mutation (a segment dispatch, a blocking
+    drain, a write into a group's state). Its failure propagates as it
+    is, marked, so that ``Job._apply_control_safely`` lets it stop the run
+    (the dispatched tapes are gone) rather than log it as a bad control
+    event."""
+    try:
+        yield
+    except Exception as e:
+        e.control_device_fault = True
+        raise
+
 
 # every live Job of the process: a graph capture (any Job's) first waits
 # for their fetch threads' CUDA calls (``Job._settle_drains``)
@@ -496,6 +539,8 @@ class _PlanRuntime:
     # the segment runner (graphs.py): the tensors segments update in
     # place and, on a GPU, the captured graphs; made at the first segment
     graphs: Optional[SegmentGraphs] = None
+    # a disabled standalone plan steps no tape (OperationControlEvent)
+    enabled: bool = True
 
 
 class Job:
@@ -517,15 +562,10 @@ class Job:
         retain_results: bool = True,  # keep emitted rows in collected[]
         device: DeviceLike = None,  # None = the CUDA device
         control_sources: Sequence = (),
+        plan_compiler: Optional[Callable] = None,  # (cql, plan_id) -> plan
     ) -> None:
         if time_mode not in ("event", "processing"):
             raise ValueError(time_mode)
-        if control_sources:
-            raise NotImplementedError(
-                "control sources (the control plane, and control-in-replay "
-                "for ResidentReplay) are not in the torch port yet "
-                "(ROADMAP.md Queue 1 item 10)"
-            )
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.time_mode = time_mode
@@ -636,16 +676,127 @@ class Job:
             bind = getattr(src, "bind_telemetry", None)
             if bind is not None:
                 bind(self.telemetry)
+        # -- the control plane ----------------------------------------------
+        # control sources poll (ts, event) pairs; their watermarks join
+        # the data sources' in the gate, and pending events apply at the
+        # epoch boundary the watermark passes them
+        self._control = list(control_sources)
+        self._control_wm: List[int] = [MIN_WM] * len(self._control)
+        self._control_done: List[bool] = [False] * len(self._control)
+        self._control_pending: List[Tuple[int, object]] = []
+        self._plan_compiler = plan_compiler
+        # dynamic chain groups: user plan_id -> (host runtime id, slot);
+        # the enabled flags' host mirror; each dynamic plan's CQL (what a
+        # checkpoint replays); each plan's tenant
+        self._folded: Dict[str, Tuple[str, int]] = {}
+        self._folded_enabled: Dict[str, bool] = {}
+        self._dynamic_cql: Dict[str, str] = {}
+        self._plan_tenant: Dict[str, str] = {}
+        # the run-loop owner's thread id (RUNLOOP_OWNERSHIP_GUARD), stamped
+        # at the first cycle; a restored job re-stamps at its own
+        self._runloop_thread: Optional[int] = None
+        # recent control-path refusals by plan id: rule ids, rendered
+        # findings, tenant, source. Bounded ring, oldest evicted first;
+        # lock-guarded (a REST thread may read it while the run loop
+        # records)
+        self.control_rejections: Dict[str, dict] = {}
+        self._rejections_lock = threading.Lock()
+        self.MAX_REJECTIONS_KEPT = 64
         for p in plans:
             self.add_plan(p)
 
-    def add_plan(self, plan: CompiledPlan) -> None:
+    # -- item 10's next slice and item 12 -------------------------------------
+    @property
+    def share_subplans(self) -> bool:
+        """Subplan sharing (the reference's ``_try_share`` rung and its
+        loopback): not in the port yet, always off."""
+        return False
+
+    @share_subplans.setter
+    def share_subplans(self, value: bool) -> None:
+        if value:
+            raise NotImplementedError(
+                "subplan sharing (analysis/share.py, the shared-prefix "
+                "hosts and their loopback) is not in the torch port yet "
+                "(ROADMAP.md Queue 1 item 10)"
+            )
+
+    @property
+    def admission_budgets(self):
+        """The apply-time admission budgets: not in the port yet (None)."""
+        return None
+
+    @admission_budgets.setter
+    def admission_budgets(self, value) -> None:
+        if value is not None:
+            raise NotImplementedError(
+                "admission budgets (analysis/admit.py and "
+                "analysis/plancheck.py over the port's plans) are not in "
+                "the torch port yet (ROADMAP.md Queue 1 item 12)"
+            )
+
+    # -- run-loop ownership guard ---------------------------------------------
+    def _stamp_runloop_owner(self) -> None:
+        if self._runloop_thread is None:
+            self._runloop_thread = threading.get_ident()
+
+    def _assert_runloop_owner(self, what: str) -> None:
+        """No-op unless RUNLOOP_OWNERSHIP_GUARD is on and a run loop has
+        stamped ownership (set-up from the constructing thread is
+        legitimate)."""
+        if not RUNLOOP_OWNERSHIP_GUARD or self._runloop_thread is None:
+            return
+        me = threading.get_ident()
+        if me != self._runloop_thread:
+            raise OwnershipViolation(
+                f"{what} executed on thread {me}, but the run loop "
+                f"(thread {self._runloop_thread}) owns Job state — "
+                "state mutates only via control events applied at "
+                "micro-batch boundaries (push a control event instead "
+                "of mutating directly; docs/control_plane.md)"
+            )
+
+    # -- plans: static and dynamic adds, retire, enable -----------------------
+    def add_plan(self, plan: CompiledPlan, dynamic: bool = False,
+                 cql: Optional[str] = None) -> None:
+        """Run ``plan``. ``dynamic=True`` (the control plane's add): a
+        template-able chain plan folds into a live dynamic group's free
+        slot (a data write) or becomes a new padded group; a re-add of a
+        live id replaces it. Pass ``cql`` so a direct dynamic add can be
+        checkpointed (the control-event path records it)."""
+        self._assert_runloop_owner("add_plan")
+        if not dynamic:
+            self._create_runtime(plan)
+            return
+        if plan.plan_id in self._folded or plan.plan_id in self._plans:
+            # a redelivered add (an at-least-once control channel)
+            # replaces, never double-registers
+            self.remove_plan(plan.plan_id)
+        if cql is not None:
+            self._dynamic_cql[plan.plan_id] = cql
+        self.telemetry.inc("control.admitted")
+        if self._try_fold(plan):
+            self.telemetry.inc("control.stack_join")
+            return
+        plan, admit0 = self._wrap_dynamic(plan)
+        self._create_runtime(plan, admit0)
+
+    def tenant_of(self, plan_id: str) -> str:
+        """The tenant a plan is attributed to ('default' when it was
+        admitted without one)."""
+        return self._plan_tenant.get(plan_id) or "default"
+
+    def _create_runtime(self, plan: CompiledPlan,
+                        admit0: Optional[Callable] = None) -> None:
         if plan.plan_id in self._plans:
             raise ValueError(f"plan {plan.plan_id!r} is already running")
-        acc = plan.init_acc(self.device)
-        rt = _PlanRuntime(plan, plan.init_state(self.device), acc,
-                          ring=[acc], ring_release=[None],
-                          ring_size=self.MAX_PENDING_DRAINS + 1)
+        with _device_work():
+            acc = plan.init_acc(self.device)
+            rt = _PlanRuntime(plan, plan.init_state(self.device), acc,
+                              ring=[acc], ring_release=[None],
+                              ring_size=self.MAX_PENDING_DRAINS + 1)
+            if admit0 is not None:
+                rt.states = admit0(rt.states)
         lazy_arts = [
             a for a in plan.artifacts if getattr(a, "lazy_src_keys", ())
         ]
@@ -662,6 +813,423 @@ class Job:
         for sid, rate in plan.output_rates.items():
             self._rate_limiters[sid] = _OutputRateLimiter(
                 rate, plan.snapshot_keys.get(sid, ()))
+
+    # -- dynamic chain groups (data-write adds) --------------------------------
+    def _group_string_tables(self, plan: CompiledPlan, tpl) -> Dict:
+        """The string tables a group interns its members' STRING params
+        through: the host plan's schemas' (the environment's shared
+        dictionary)."""
+        out = {}
+        for keys in tpl.filter_keys:
+            for key in keys:
+                sid, fname = key.split(".", 1)
+                out[key] = plan.schemas[sid].string_tables.get(fname)
+        return out
+
+    def _fold_into(self, host_id: str, plan: CompiledPlan, slot: int,
+                   t) -> None:
+        """Write ``plan`` into the host group's ``slot``, in place into the
+        state tensors the runtime's graphs are bound to (no new state
+        signature, so no new graph). Fused mode: the tapes staged before
+        this add step without the new member first."""
+        rt = self._plans[host_id]
+        group = rt.plan.artifacts[0]
+        tpl, params, within = t
+        with _device_work():
+            self._dispatch_segment(rt)
+            group.admit(
+                rt.states[group.name], slot, plan.plan_id,
+                plan.artifacts[0].output_schema, params, within,
+                self._group_string_tables(rt.plan, tpl),
+            )
+        self._folded[plan.plan_id] = (host_id, slot)
+        self._folded_enabled[plan.plan_id] = True
+
+    def _try_fold(self, plan: CompiledPlan) -> bool:
+        from ..compiler.nfa import DynamicChainGroup, chain_template_of
+
+        if len(plan.artifacts) != 1:
+            return False
+        t = chain_template_of(plan.artifacts[0], plan.spec.column_types)
+        if t is None:
+            return False
+        tpl = t[0]
+        for host_id, rt in self._plans.items():
+            arts = rt.plan.artifacts
+            if not (len(arts) == 1
+                    and isinstance(arts[0], DynamicChainGroup)
+                    and arts[0].template == tpl):
+                continue
+            slot = arts[0].free_slot()
+            if slot is None:
+                continue
+            self._fold_into(host_id, plan, slot, t)
+            return True
+        return False
+
+    def _wrap_dynamic(self, plan: CompiledPlan,
+                      host_id: Optional[str] = None, slot: int = 0):
+        """A single template-able chain plan becomes a padded dynamic
+        group (so the NEXT structurally identical add is a data write);
+        returns (the host plan, its first member's admit) or (``plan``,
+        None). The host's tape spec drops the member's relevance entry:
+        the group steps the full tape (its members' literals differ), so
+        it never reads a relevant count and captures on every path."""
+        import dataclasses
+
+        from ..compiler.nfa import DynamicChainGroup, chain_template_of
+
+        if len(plan.artifacts) != 1:
+            return plan, None
+        t = chain_template_of(plan.artifacts[0], plan.spec.column_types)
+        if t is None:
+            return plan, None
+        tpl, params, within = t
+        art = plan.artifacts[0]
+        host_id = host_id or f"@dyn:{plan.plan_id}"
+        if host_id in self._plans:  # an id collision
+            return plan, None
+        group = DynamicChainGroup(
+            name=art.name,
+            template=tpl,
+            stream_code_of=tuple(
+                plan.spec.stream_codes[sid] for sid in tpl.stream_ids
+            ),
+            column_types=dict(plan.spec.column_types),
+            members=[None] * plan.config.dyn_query_slots,
+            pool=art.pool,
+            capacity=plan.config.dyn_query_slots,
+        )
+        spec = dataclasses.replace(plan.spec, relevance=tuple(
+            r for r in plan.spec.relevance if r[0] != art.name))
+        new_plan = dataclasses.replace(
+            plan, plan_id=host_id, artifacts=[group], spec=spec)
+        tables = self._group_string_tables(plan, tpl)
+
+        def admit0(states):
+            group.admit(states[group.name], slot, plan.plan_id,
+                        art.output_schema, params, within, tables)
+            return states
+
+        self._folded[plan.plan_id] = (host_id, slot)
+        self._folded_enabled[plan.plan_id] = True
+        return new_plan, admit0
+
+    def _replay_dynamic(self, dynamic_cql: Dict[str, str],
+                        folded: Dict[str, Tuple[str, int]],
+                        enabled: Dict[str, bool]) -> None:
+        """Checkpoint restore: re-add the dynamically added queries so
+        that runtimes, groups and SLOT assignments match the snapshot
+        (the state restore then overlays params and partial pools)."""
+        from ..compiler.nfa import chain_template_of
+
+        by_host: Dict[str, List[Tuple[int, str]]] = {}
+        for pid, (host_id, slot) in folded.items():
+            by_host.setdefault(host_id, []).append((int(slot), pid))
+        for host_id, members in sorted(by_host.items()):
+            members.sort()
+            first = True
+            for slot, pid in members:
+                cql = dynamic_cql.get(pid)
+                if cql is None:
+                    _LOG.warning(
+                        "dynamic plan %r has no recorded CQL; it cannot "
+                        "be restored", pid,
+                    )
+                    continue
+                plan = self._plan_compiler(cql, pid)
+                if first:
+                    wrapped, admit0 = self._wrap_dynamic(
+                        plan, host_id=host_id, slot=slot)
+                    self._create_runtime(wrapped, admit0)
+                    if wrapped.plan_id != host_id:
+                        # the group could not be re-formed: its members
+                        # restore as standalone runtimes
+                        _LOG.warning(
+                            "dynamic group %r could not be re-formed; "
+                            "restoring its members as standalone plans",
+                            host_id,
+                        )
+                        self._folded.pop(pid, None)
+                        self._folded_enabled.pop(pid, None)
+                        for s2, p2 in members:
+                            if s2 <= slot or p2 not in dynamic_cql:
+                                continue
+                            self._create_runtime(
+                                self._plan_compiler(dynamic_cql[p2], p2))
+                        break
+                    first = False
+                else:
+                    t = chain_template_of(plan.artifacts[0],
+                                          plan.spec.column_types)
+                    if t is None:
+                        _LOG.warning(
+                            "dynamic plan %r no longer folds into group "
+                            "%r; restoring it standalone", pid, host_id,
+                        )
+                        self._folded.pop(pid, None)
+                        self._folded_enabled.pop(pid, None)
+                        self._create_runtime(plan)
+                        continue
+                    self._fold_into(host_id, plan, slot, t)
+        for pid, cql in dynamic_cql.items():
+            if pid not in folded and pid not in self._plans:
+                # standalone dynamic plans (not template-able)
+                self._create_runtime(self._plan_compiler(cql, pid))
+        for pid, on in enabled.items():
+            if not on:
+                self.set_plan_enabled(pid, False)
+        self._dynamic_cql.update(dynamic_cql)
+
+    def remove_plan(self, plan_id: str) -> None:
+        """Retire a plan. Its rows produced so far surface first: a
+        waiting drain of its runtime completes every queued drain (the
+        fetch thread decodes a group's block by its members at decode
+        time, so no queued block may outlive the member it holds rows
+        of). A folded member's slot is then left row-inert, for a later
+        admit to reclaim; the last member's retire drops the host."""
+        self._assert_runloop_owner("remove_plan")
+        folded = self._folded.pop(plan_id, None)
+        self._folded_enabled.pop(plan_id, None)
+        self._dynamic_cql.pop(plan_id, None)
+        if folded is not None:
+            host_id, slot = folded
+            self.telemetry.inc("control.retired")
+            rt = self._plans.get(host_id)
+            if rt is None:
+                return
+            group = rt.plan.artifacts[0]
+            with _device_work():
+                self._drain_plan(rt)
+                group.evict(rt.states[group.name], slot)
+            if all(m is None for m in group.members):
+                self._plans.pop(host_id, None)
+                self._drain_hints.pop(host_id, None)
+            return
+        rt = self._plans.get(plan_id)
+        if rt is not None:
+            with _device_work():
+                self._drain_plan(rt)
+            self.telemetry.inc("control.retired")
+        self._plans.pop(plan_id, None)
+        self._drain_hints.pop(plan_id, None)
+
+    def set_plan_enabled(self, plan_id: str, enabled: bool) -> None:
+        """Pause or resume a plan at this boundary: a folded member's
+        enable flag is a data write into its group's state; a standalone
+        plan steps no tape while disabled. Fused mode: the tapes staged
+        before it step under the old setting first."""
+        self._assert_runloop_owner("set_plan_enabled")
+        folded = self._folded.get(plan_id)
+        if folded is not None:
+            self._folded_enabled[plan_id] = enabled
+            host_id, slot = folded
+            rt = self._plans.get(host_id)
+            if rt is not None:
+                group = rt.plan.artifacts[0]
+                with _device_work():
+                    self._dispatch_segment(rt)
+                    group.set_enabled(rt.states[group.name], slot, enabled)
+            return
+        rt = self._plans.get(plan_id)
+        if rt is not None:
+            if not enabled:
+                with _device_work():
+                    self._dispatch_segment(rt)
+            rt.enabled = enabled
+
+    @property
+    def plan_ids(self) -> List[str]:
+        """Live user plan ids (group hosts excluded, their members
+        included). Safe off-thread: GIL-atomic list() snapshots."""
+        return [pid for pid in list(self._plans)
+                if not pid.startswith("@dyn:")] + list(self._folded)
+
+    # -- control events --------------------------------------------------------
+    def _pull_control(self) -> None:
+        for i, src in enumerate(self._control):
+            if self._control_done[i]:
+                continue
+            events, wm, done = src.poll(self.batch_size)
+            self._control_pending.extend(events)
+            if wm is not None:
+                self._control_wm[i] = max(self._control_wm[i], wm)
+            if done:
+                self._control_done[i] = True
+                self._control_wm[i] = MAX_WM
+
+    def _pop_ready_control(self) -> List:
+        """Ready control events — ts at or below the current watermark
+        (processing mode: all of them) — removed from the pending list in
+        timestamp order. The one definition of the epoch-boundary
+        selection: the streaming loop applies what this returns, and the
+        resident replay (``runtime/replay.py``) partitions the bounded
+        stream at the same boundaries."""
+        pending = self._control_pending
+        if not pending:
+            return []
+        pending.sort(key=lambda p: p[0])
+        n_apply = len(pending)
+        if self.time_mode != "processing":
+            wm = self._watermark()
+            n_apply = 0
+            while n_apply < len(pending) and pending[n_apply][0] <= wm:
+                n_apply += 1
+        out = [ev for _ts, ev in pending[:n_apply]]
+        if n_apply:
+            del pending[:n_apply]
+        return out
+
+    def _apply_ready_control(self) -> None:
+        for ev in self._pop_ready_control():
+            self._apply_control_safely(ev)
+
+    def _apply_control_safely(self, ev) -> None:
+        """Apply one control event; a bad one (say, unparsable CQL pushed
+        past any validation) is logged and never stops the loop. A failure
+        of the device work a mutation does (``_device_work``) stops it."""
+        try:
+            self._apply_control(ev)
+        except Exception as e:
+            if getattr(e, "control_device_fault", False):
+                raise
+            _LOG.exception("control event rejected: %r", ev)
+
+    def _apply_control(self, ev) -> None:
+        self._assert_runloop_owner("_apply_control")
+        from ..control.events import (
+            MetadataControlEvent,
+            OperationControlEvent,
+        )
+
+        if isinstance(ev, MetadataControlEvent):
+            if (ev.added_plans or ev.updated_plans) \
+                    and self._plan_compiler is None:
+                raise RuntimeError(
+                    "control event adds a plan but the job has no plan "
+                    "compiler (create it through the dynamic cql() path)"
+                )
+            # a verdict carried on the event that rejected a plan keeps
+            # it from the compiler; the rest of the event still applies
+            verdicts = getattr(ev, "admission", None) or {}
+            tenant = getattr(ev, "tenant", None)
+
+            def rejected(plan_id: str) -> bool:
+                v = verdicts.get(plan_id)
+                if v is None or v.get("admitted", True):
+                    return False
+                findings = v.get("findings", ())
+                self._record_rejection(
+                    plan_id, [f.get("rule") for f in findings],
+                    [f.get("message", "") for f in findings], tenant,
+                    source="carried-verdict",
+                )
+                _LOG.warning(
+                    "control event plan %s refused: its admission "
+                    "verdict rejected it (%s)", plan_id,
+                    [f.get("rule") for f in findings],
+                )
+                return True
+
+            for plan_id, cql in ev.added_plans.items():
+                if rejected(plan_id):
+                    continue
+                plan = self._compile_admitted(plan_id, cql, tenant)
+                if plan is None:
+                    continue
+                if tenant is not None:
+                    self._plan_tenant[plan_id] = tenant
+                self.add_plan(plan, dynamic=True)
+                self._dynamic_cql.setdefault(plan_id, cql)
+            for plan_id, cql in ev.updated_plans.items():
+                if rejected(plan_id):
+                    continue  # the running plan stays as it is
+                plan = self._compile_admitted(plan_id, cql, tenant)
+                if plan is None:
+                    continue
+                self.remove_plan(plan_id)
+                if tenant is not None:
+                    self._plan_tenant[plan_id] = tenant
+                self.add_plan(plan, dynamic=True)
+                self._dynamic_cql.setdefault(plan_id, cql)
+            for plan_id in ev.deleted_plan_ids:
+                self.remove_plan(plan_id)
+        elif isinstance(ev, OperationControlEvent):
+            self.set_plan_enabled(ev.plan_id, ev.action == "enable")
+        else:
+            raise TypeError(f"unknown control event {type(ev)!r}")
+
+    def _compile_admitted(self, plan_id: str, cql: str,
+                          tenant: Optional[str] = None):
+        """Apply-time admission: compile the candidate and return the
+        plan, or None after recording the refusal — CQL that does not
+        compile is refused as ``CQL000`` instead of taking down the
+        running queries. (The reference also runs its plan checks and
+        admission analysis here: ROADMAP.md Queue 1 item 12.)"""
+        try:
+            return self._plan_compiler(cql, plan_id)
+        except Exception as e:  # noqa: BLE001 — unparsable/uncompilable
+            self._record_rejection(
+                plan_id, ["CQL000"], [f"{type(e).__name__}: {e}"], tenant,
+                source="apply-time",
+            )
+            _LOG.warning(
+                "control-path plan %s refused at apply time: %s",
+                plan_id, ["CQL000"],
+            )
+            return None
+
+    def _record_rejection(self, plan_id: str, rules, findings,
+                          tenant: Optional[str] = None,
+                          source: str = "apply-time") -> None:
+        self.telemetry.inc("control.admission_rejected")
+        with self._rejections_lock:
+            # re-insert at the ring's tail: a repeated refusal refreshes
+            # its eviction position
+            self.control_rejections.pop(plan_id, None)
+            self.control_rejections[plan_id] = {
+                "rules": [r for r in rules if r],
+                "findings": list(findings),
+                "tenant": tenant,
+                "source": source,
+            }
+            while len(self.control_rejections) > self.MAX_REJECTIONS_KEPT:
+                self.control_rejections.pop(
+                    next(iter(self.control_rejections)))
+
+    def control_status(self) -> Dict[str, object]:
+        """The control plane's host-side view (safe off-thread): the
+        ``control.*`` counters and the recent refusals."""
+        counters = self.telemetry.snapshot().get("counters", {})
+        with self._rejections_lock:
+            rejections = dict(self.control_rejections)
+        return {
+            "counters": {
+                k.split("control.", 1)[1]: v
+                for k, v in counters.items() if k.startswith("control.")
+            },
+            "rejections": rejections,
+        }
+
+    def query_listing(self) -> List[Dict[str, object]]:
+        """GET /api/v1/queries: id, tenant, enabled state and fold
+        host/slot per live plan. Safe off-thread (GIL-atomic
+        snapshots)."""
+        out: List[Dict[str, object]] = []
+        folded = dict(self._folded)
+        folded_enabled = dict(self._folded_enabled)
+        for pid in self.plan_ids:
+            f = folded.get(pid)
+            if f is not None:
+                enabled = bool(folded_enabled.get(pid, True))
+                fold = {"host": f[0], "slot": int(f[1])}
+            else:
+                rt = self._plans.get(pid)
+                enabled = bool(rt.enabled) if rt is not None else False
+                fold = None
+            out.append({"id": pid, "tenant": self.tenant_of(pid),
+                        "enabled": enabled, "folded": fold})
+        return out
 
     def add_sink(self, output_stream: str, fn: Callable) -> None:
         """Attach a sink: ``fn(abs_ts, row_tuple)``, or an object with
@@ -700,7 +1268,8 @@ class Job:
     @property
     def graph_keys(self) -> int:
         """Graph keys captured so far, over every plan: the segment
-        shapes, each captured once for every ring position."""
+        shapes, each captured once for every ring position (on the CPU,
+        where nothing is captured, the keys first seen)."""
         return sum(rt.graphs.keys for rt in self._plans.values()
                    if rt.graphs is not None)
 
@@ -712,6 +1281,9 @@ class Job:
         Sticky wire widths and tape capacities stay: the staged tapes were
         built with them. Tensors that segment graphs are bound to, and
         the accumulator ring, are reset in place."""
+        self._assert_runloop_owner("reset_engine_state")
+        # a rerun is a fresh drive: its run loop re-stamps ownership
+        self._runloop_thread = None
         self._settle_drains()
         for rt in self._plans.values():
             self._install_states(
@@ -787,18 +1359,26 @@ class Job:
 
     @property
     def finished(self) -> bool:
-        return all(self._source_done) and not any(
-            batches for batches in self._pending.values()
+        return (
+            all(self._source_done)
+            and all(self._control_done)
+            and not any(batches for batches in self._pending.values())
+            and not self._control_pending
         )
 
     def run_cycle(self) -> int:
         """Pull, reorder, step, poll the drains, drain when due. Returns
         events processed. Never waits for the card, except in the
         in-flight window and a forced drain completion."""
+        self._stamp_runloop_owner()
         tel = self.telemetry
         tel.inc("cycles")
         with tel.span("ingest"):
             self._pull_sources()
+            # control at the epoch boundary: events the watermark passed
+            # apply before this cycle's events step
+            self._pull_control()
+            self._apply_ready_control()
         with tel.span("reorder"):
             ready = self._release_ready()
         total = 0
@@ -809,8 +1389,9 @@ class Job:
                 self._epoch_ms = min(
                     int(b.timestamps.min()) for b in ready
                 )
-            for rt in self._plans.values():
-                self._step_plan(rt, ready)
+            for rt in list(self._plans.values()):
+                if rt.enabled:
+                    self._step_plan(rt, ready)
             self._cycles_since_drain += 1
             self._adapt_depth()
         # advance any in-flight drain (never waits)
@@ -874,13 +1455,14 @@ class Job:
         self._last_cycle_t = t_now
 
     def _watermark(self) -> int:
-        """The min watermark across the sources that are not idle. With
-        every source idle it holds at the gate's last value instead of
-        jumping to the end of the stream: idle means no information, not
-        done (Flink's idleness)."""
+        """The min watermark across the sources that are not idle and the
+        control streams. With every data source idle and no control
+        stream it holds at the gate's last value instead of jumping to the
+        end of the stream: idle means no information, not done (Flink's
+        idleness)."""
         idle = self._source_idle
         wms = [wm for i, wm in enumerate(self._source_wm)
-               if not (i < len(idle) and idle[i])]
+               if not (i < len(idle) and idle[i])] + self._control_wm
         if not wms:
             return self._gate_wm if self._sources else MAX_WM
         return min(wms)
@@ -2070,6 +2652,7 @@ class Job:
             "late_dropped": self.late_dropped,
             "late_policy": self.late_policy,
             "shed_events": self.shed_events,
+            "control": self.control_status(),
             "telemetry": self.telemetry.snapshot(),
         }
 

@@ -221,7 +221,9 @@ class SegmentGraphs:
         )
         self.slots: Dict[Tuple, torch.Tensor] = {}
         self.captured = 0  # graphs captured so far
-        self.keys = 0  # graph keys captured so far (each for every position)
+        # graph keys captured so far (each for every position); on the
+        # CPU, keys first seen
+        self.keys = 0
         self._bound = None  # the bound states
         self._bound_flat: Optional[List] = None
         self._chains = [a for a in plan.artifacts
@@ -314,7 +316,9 @@ class SegmentGraphs:
 
     def _warm_and_capture(self, rt, seg: Segment, key: Tuple) -> None:
         if not self.cuda:
+            # nothing to capture; the key still counts as first seen
             self._keep(key, [None] * len(rt.ring))
+            self.keys += 1
             return
         slot = self._slot(seg)
         tapes = seg.tapes(slot)

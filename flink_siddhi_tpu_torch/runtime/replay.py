@@ -38,9 +38,13 @@ the budget horizon decode as None (warned at drain time). Such a plan is also
 refused past ``_LAZY_ORD_WRAP`` staged events, where streaming mode would
 reset its ordinal space between two steps.
 
-Not in the port yet: control-in-replay (the reference's epoch partitioning
-of the stream by control events; the port's ``Job`` refuses control
-sources, ROADMAP.md Queue 1 item 10) and ``ShardedResidentReplay`` (item
+Control-in-replay: a job with control sources replays in EPOCHS. The
+control timeline partitions the bounded stream at exactly the micro-batch
+boundaries the streaming loop would apply each control event at (the same
+watermark gate, ``Job._pop_ready_control``), and each epoch applies its
+events (the executor's own epoch-boundary paths), then stages and replays
+its tapes under the resulting plan set. A live control source that never
+finishes is refused. Not in the port yet: ``ShardedResidentReplay`` (item
 11).
 """
 
@@ -80,6 +84,9 @@ class ResidentReplay:
         # plan_id -> its segments on the device
         self.segments: Dict[str, List[Segment]] = {}
         self.stage_seconds = 0.0
+        # control-in-replay: the epochs, each its control events and its
+        # ready micro-batches (None: no control sources, one pass)
+        self._epochs: Optional[List[Dict]] = None
 
     # -- staging ----------------------------------------------------------
     def stage(self) -> None:
@@ -87,6 +94,12 @@ class ResidentReplay:
         and capture, all OFF the replay clock."""
         t0 = time.perf_counter()
         job = self.job
+        if job._control or job._control_pending:
+            # control-in-replay: pull and partition now; each epoch stages
+            # in run(), after its control events apply
+            self._pull_epochs()
+            self.stage_seconds = time.perf_counter() - t0
+            return
         tel = job.telemetry
         ready_sets: List[List[EventBatch]] = []
         with tel.span("stage.source_pull"):
@@ -187,6 +200,106 @@ class ResidentReplay:
             runner.prepare(rt, seg)
         return segs
 
+    # -- control-in-replay (epoch partitioning) ---------------------------
+    def _pull_epochs(self) -> None:
+        """Pull every source AND control stream dry, partitioned into
+        epochs at the exact boundaries streaming mode would apply each
+        control event at. Bounded replay needs bounded control: a live
+        control source that never finishes cannot drain, and is refused
+        loudly instead of spinning."""
+        job = self.job
+        epochs: List[Dict] = []
+        current: Dict = {"control": [], "ready": []}
+        stalled = 0
+        with job.telemetry.span("stage.source_pull"):
+            while not (all(job._source_done)
+                       and not any(job._pending.values())):
+                before = (
+                    self.total_events, job._pending_total(),
+                    len(job._control_pending), sum(job._control_done),
+                    sum(job._source_done),
+                )
+                job._pull_sources()
+                job._pull_control()
+                ready_ctrl = job._pop_ready_control()
+                if ready_ctrl:
+                    # a boundary: events released from here on step under
+                    # the post-control plan set
+                    if current["ready"] or current["control"]:
+                        epochs.append(current)
+                        current = {"control": [], "ready": []}
+                    current["control"].extend(ready_ctrl)
+                ready = job._release_ready()
+                if ready:
+                    if job._epoch_ms is None:
+                        job._epoch_ms = min(
+                            int(b.timestamps.min()) for b in ready)
+                    current["ready"].append(ready)
+                    self.total_events += sum(len(b) for b in ready)
+                # pulled-but-gated batches count as progress
+                after = (
+                    self.total_events, job._pending_total(),
+                    len(job._control_pending), sum(job._control_done),
+                    sum(job._source_done),
+                )
+                stalled = stalled + 1 if after == before else 0
+                if stalled > 10_000:
+                    raise RuntimeError(
+                        "bounded replay cannot drain its inputs: a "
+                        "control source that never finishes (e.g. an "
+                        "un-closed ControlQueueSource) is holding the "
+                        "watermark; close() it before stage(), or run "
+                        "streaming mode (docs/control_plane.md)"
+                    )
+            # trailing control (ts past the last data row): streaming
+            # would still apply it before finishing
+            job._pull_control()
+            tail = job._pop_ready_control()
+            if tail:
+                if current["ready"] or current["control"]:
+                    epochs.append(current)
+                    current = {"control": [], "ready": []}
+                current["control"].extend(tail)
+        if current["ready"] or current["control"]:
+            epochs.append(current)
+        job.processed_events += self.total_events
+        self._epochs = epochs
+
+    def _run_epochs(self) -> None:
+        """Epoch by epoch: apply the epoch's control events (the
+        executor's own paths, so a mutation never tears a segment), stage
+        the epoch's tapes for every live plan, replay its segments, and
+        complete its drains before the next epoch's events apply."""
+        job = self.job
+        tel = job.telemetry
+        for ep in self._epochs or []:
+            for ev in ep["control"]:
+                job._apply_control_safely(ev)
+            if not ep["ready"]:
+                continue
+            staged: Dict[str, List[Segment]] = {}
+            for pid, rt in list(job._plans.items()):
+                if not rt.enabled:
+                    continue
+                wires = self._plan_wires(rt, ep["ready"])
+                if wires is None:
+                    continue
+                with tel.span("stage.h2d"):
+                    staged[pid] = self._stage_plan(rt, wires)
+            if staged:
+                with tel.span("stage.prewarm"):
+                    job.prewarm_drains()
+            for pid, segs in staged.items():
+                rt = job._plans[pid]
+                for seg in segs:
+                    with tel.span("replay.dispatch"):
+                        job._run_segment(rt, seg)
+                    with tel.span("replay.drain"):
+                        job._drain_request(rt)
+                        job._drain_poll(rt)
+                with tel.span("replay.drain"):
+                    job._drain_poll(rt, block=True)
+
     # -- execution --------------------------------------------------------
     def run_segment(self, plan_id: str, index: int) -> None:
         """One staged segment: one graph replay on a GPU, with no host
@@ -199,7 +312,10 @@ class ResidentReplay:
     def run(self) -> None:
         """The replay itself: each segment (one dispatch), then a drain
         request and a poll that never waits, so that the fetches overlap
-        the next segments; per plan at the end, a waiting poll."""
+        the next segments; per plan at the end, a waiting poll. With
+        control sources, the epoch-sequential form instead."""
+        if self._epochs is not None:
+            return self._run_epochs()
         job = self.job
         tel = job.telemetry
         for pid, segs in self.segments.items():
@@ -225,6 +341,12 @@ class ResidentReplay:
         queue) and replay the SAME staged tapes again, returning elapsed
         seconds (run and flush, synchronized). Counts-only jobs only:
         collectors or sinks would observe every row once per run."""
+        if self._epochs is not None:
+            raise ValueError(
+                "rerun() does not support control-in-replay jobs: "
+                "epochs mutate the plan set mid-run, so a reset replay "
+                "would not traverse the same control timeline"
+            )
         job = self.job
         for pid in self.segments:
             if job._has_consumers(job._plans[pid]):

@@ -10,8 +10,10 @@ reorder buffer that releases watermark-complete prefixes to the device).
 Watermark generation is a per-source policy (``WatermarkStrategy``,
 ``with_watermarks``); the in-memory and byte sources carry checkpointable
 positions. The byte sources (JSON lines, CSV, a socket; ``runtime/kafka.py``
-for a topic) decode on the host with the ``native/`` column decoder. Not
-in the port yet: ``ControlListSource`` (ROADMAP.md Queue 1 item 10).
+for a topic) decode on the host with the ``native/`` column decoder.
+``ControlListSource`` replays a timestamped control timeline (the control
+plane's bounded source; ``app/service.py:ControlQueueSource`` is the live
+one).
 """
 
 from __future__ import annotations
@@ -351,6 +353,35 @@ class ReplayBatchSource(BatchSource):
 
     def load_state_dict(self, d: dict) -> None:
         self._pos = int(d["pos"])
+
+
+class ControlListSource:
+    """Replays timestamped control events (the control-topic analog of the
+    reference's dynamic path, SiddhiStream.java:126-140: control events ride
+    a broadcast stream interleaved with data by event time).
+
+    ``events``: iterable of ``(timestamp_ms, ControlEvent)`` pairs, or bare
+    ControlEvents (timestamped by their ``created_ms``)."""
+
+    def __init__(self, events) -> None:
+        pairs = []
+        for e in events:
+            if isinstance(e, tuple):
+                pairs.append((int(e[0]), e[1]))
+            else:
+                pairs.append((int(e.created_ms), e))
+        self._events = sorted(pairs, key=lambda p: p[0])
+        self._pos = 0
+
+    def poll(self, max_events: int):
+        """Return (list[(ts, event)], watermark_ms, done)."""
+        if self._pos >= len(self._events):
+            return [], np.iinfo(np.int64).max, True
+        take = self._events[self._pos : self._pos + max_events]
+        self._pos += len(take)
+        done = self._pos >= len(self._events)
+        wm = np.iinfo(np.int64).max if done else take[-1][0]
+        return take, wm, done
 
 
 class CallbackSource(Source):

@@ -9,9 +9,11 @@ on the CPU, held to the JAX package's.
 * ``tests/test_socket_source.py``'s two cases.
 * What the port adds: ``transactional_id`` (a ``kafka://`` output
   committed with each checkpoint: exactly once across crashes killed by
-  ``runtime/faultinject.py`` and the pipeline's own restarts), the
-  ``device`` argument (CUDA by default, raising without it) and the
-  control sources' refusal naming ROADMAP item 10.
+  ``runtime/faultinject.py`` and the pipeline's own restarts) and the
+  ``device`` argument (CUDA by default, raising without it).
+* A pipeline with control sources: a ``ControlListSource`` adds, pauses,
+  resumes, updates and retires queries mid-file, rows equal to the
+  reference pipeline's.
 """
 
 import collections
@@ -399,11 +401,68 @@ def test_main_runs_a_config_file_on_the_cpu(tmp_path):
         [float(i) for i in range(3, 40, 4)]
 
 
-def test_control_sources_name_their_roadmap_item():
-    cfg = PipelineConfig(stream_id="S", fields=FIELDS, cql="",
-                         input_path="x", output_path="x")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        CEPPipeline(cfg, control_sources=[object()], device="cpu")
+def _control_pipeline(pkg, tmp_path):
+    from flink_siddhi_tpu.control import events as jax_events
+    from flink_siddhi_tpu.runtime.sources import (
+        ControlListSource as JaxControlList,
+    )
+    from flink_siddhi_tpu_torch.control import events as port_events
+    from flink_siddhi_tpu_torch.runtime.sources import ControlListSource
+
+    ev, ctl = ((port_events, ControlListSource) if pkg == "torch"
+               else (jax_events, JaxControlList))
+    add = ev.MetadataControlEvent.builder()
+    add.add_execution_plan(
+        "from every s1 = S[id == 1] -> s2 = S[id == 3] "
+        "select s1.price as price, s2.name as name insert into matches",
+        plan_id="chain")
+    add.add_execution_plan(
+        "from S[id == 0] select name, price insert into matches",
+        plan_id="zeros")
+    upd = ev.MetadataControlEvent.builder().update_execution_plan(
+        "zeros", "from S[id == 0 and price > 90.0] select name, price "
+                 "insert into matches").build()
+    drop = ev.MetadataControlEvent.builder().remove_execution_plan(
+        "chain").build()
+    control = ctl([
+        (1020, add.build()),
+        (1040, ev.OperationControlEvent.disable_query("chain")),
+        (1050, ev.OperationControlEvent.enable_query("chain")),
+        (1070, upd),
+        (1100, drop),
+    ])
+    inp = tmp_path / f"in-{pkg}.jsonl"
+    write_events(inp)
+    outp = tmp_path / f"out-{pkg}.jsonl"
+    pipe = _pipe(pkg, dict(
+        cql="from S[id == 2] select name, price insert into matches",
+        input_path=str(inp), output_path=str(outp), ts_field="timestamp",
+        batch_size=8), control_sources=[control], sleep=lambda s: None)
+    job = pipe.run()
+    pipe.close()
+    status = job.control_status()["counters"]
+    return ([json.loads(line) for line in open(outp)], sorted(job.plan_ids),
+            {k: status.get(k) for k in ("admitted", "retired",
+                                        "stack_join")})
+
+
+def test_pipeline_control_sources_match_the_reference(tmp_path):
+    # three plans write one stream: their rows interleave by drain, so
+    # compare them in (ts, name, price) order
+    def key(r):
+        return r["ts"], r["name"], r["price"]
+
+    rows, ids, counters = _control_pipeline("torch", tmp_path)
+    ref_rows, ref_ids, ref_counters = _control_pipeline("jax", tmp_path)
+    assert sorted(rows, key=key) == sorted(ref_rows, key=key)
+    assert (ids, counters) == (ref_ids, ref_counters)
+    assert ids == ["plan", "zeros"]
+    assert counters == {"admitted": 3, "retired": 2, "stack_join": None}
+    # 'zeros' (id 0: ts = 0 mod 4, price = ts - 1000) runs from its add
+    # to the end, with only prices above 90 after its update
+    zeros = [r["ts"] for r in rows if r["ts"] % 4 == 0]
+    assert 1000 not in zeros and 1060 in zeros and 1096 in zeros
+    assert not any(1080 <= t <= 1090 for t in zeros)
 
 
 def test_transactional_output_needs_kafka_and_checkpoints(tmp_path):

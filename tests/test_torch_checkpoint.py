@@ -14,6 +14,9 @@ against the JAX package on the CPU.
   from the same file; then the other way round. The headline chain (also
   under the bench's lazy projection and pushdown), the slot NFA, a
   group-by window, a join, a table and a session window.
+* The control plane's blocks (``dynamic``: the dynamically added queries
+  and their group slots and enable flags; ``control_pending``: the control
+  events still behind the watermark) in files moved both ways.
 * The blocks of modules the port does not have yet refuse to restore,
   naming their ROADMAP item; saving keeps K generations.
 """
@@ -192,9 +195,6 @@ def test_keep_rotates_generations_and_sweeps_temp_files(tmp_path):
 
 
 @pytest.mark.parametrize("block,value,item", [
-    ("dynamic", {"cql": {"q": "from S select id insert into o"},
-                 "folded": {}, "enabled": {}}, 10),
-    ("control_pending", [(1, "event")], 10),
     ("shared", {"k": {}}, 10),
     ("routers", {"p": {}}, 11),
     ("fleet", {"epoch": 3, "last_handoff": None}, 13),
@@ -415,6 +415,93 @@ def test_checkpoint_file_moves_between_packages(tmp_path, name, writer):
     else:
         _same_rows(sorted(split), sorted(whole.results_with_ts("o")),
                    f"{name}: split against whole")
+
+
+def _control_timeline(pkg, block):
+    """Chain variants that fold into one group, a filter, a pause; for
+    ``control_pending`` the later half still waits behind the watermark
+    when the file is saved (ts 4,493 after five tapes)."""
+    if pkg == "torch":
+        from flink_siddhi_tpu_torch.control import events as ev
+    else:
+        from flink_siddhi_tpu.control import events as ev
+
+    def chain(a, b, w):
+        return (f"from every s1 = S[id == {a}] -> s2 = S[id == {b}] "
+                f"within {w} sec select s1.timestamp as t1, "
+                f"s2.price as p insert into o")
+
+    add = ev.MetadataControlEvent.builder()
+    add.add_execution_plan(chain(1, 2, 2), plan_id="c1")
+    add.add_execution_plan(chain(3, 4, 1), plan_id="c2")
+    later = ev.MetadataControlEvent.builder()
+    later.add_execution_plan(chain(2, 5, 3), plan_id="c3")
+    later.add_execution_plan(
+        "from S[id == 0] select timestamp as t1, price as p insert into o",
+        plan_id="f")
+    late = 6000 if block == "control_pending" else 1500
+    return [(0, add.build()),
+            (2500, ev.OperationControlEvent.disable_query("c2")),
+            (late, later.build()),
+            (late + 800, ev.OperationControlEvent.disable_query("c1")),
+            (late + 2000, ev.OperationControlEvent.enable_query("c2"))]
+
+
+def _control_job(pkg, block, streams, control):
+    Schema, Batch, Source, compile_plan, Job, _, kw = PKGS[pkg]
+    if pkg == "torch":
+        from flink_siddhi_tpu_torch.runtime.sources import ControlListSource
+    else:
+        from flink_siddhi_tpu.runtime.sources import ControlListSource
+    schema = Schema(SCHEMA_FIELDS)
+    data = dict(streams)
+    codes = np.array([schema.string_tables["name"].intern(n)
+                      for n in NAMES], np.int32)
+    data["name"] = codes[data["name"]]
+    batches = [Batch("S", schema, {k: v[s:s + 100] for k, v in data.items()},
+                     data["timestamp"][s:s + 100])
+               for s in range(0, len(data["timestamp"]), 100)]
+    return Job([], [Source("S", schema, batches)], batch_size=100,
+               time_mode="event",
+               control_sources=([ControlListSource(
+                   _control_timeline(pkg, block))] if control else []),
+               plan_compiler=lambda cql, pid: compile_plan(
+                   cql, {"S": schema}, plan_id=pid), **kw)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("block", ["dynamic", "control_pending"])
+def test_control_blocks_move_between_packages(tmp_path, block, writer):
+    """A job driven by control events saves a file mid-stream with its
+    ``dynamic`` block (folded group members, one disabled) and, for
+    ``control_pending``, events still behind the watermark; a fresh job of
+    each package (no control source: what is pending rides the file)
+    restores it and runs to the end. The rows after the restore, the plan
+    ids and the group slots agree between the packages, and the writer's
+    rows before the save plus after it equal its uninterrupted run."""
+    cols = _columns(1200, 6, 9)
+    first = _control_job(writer, block, cols, control=True)
+    first.run(max_cycles=5)
+    assert not first.finished
+    path = str(tmp_path / "ck")
+    first.save_checkpoint(path)
+    snap = first.snapshot()
+    assert snap["dynamic"]["folded"]
+    assert bool(snap["control_pending"]) == (block == "control_pending")
+    out = {}
+    for pkg in ("jax", "torch"):
+        job = _control_job(pkg, block, cols, control=False)
+        job.restore(path)
+        job.run()
+        out[pkg] = (sorted(job.results_with_ts("o")), sorted(job.plan_ids),
+                    sorted(job._folded.items()),
+                    sorted(job._folded_enabled.items()))
+    assert out["torch"] == out["jax"]
+    whole = _control_job(writer, block, cols, control=True)
+    whole.run()
+    split = sorted(first.results_with_ts("o") + out[writer][0])
+    assert split == sorted(whole.results_with_ts("o"))
+    assert len(out["jax"][0]) > 20
 
 
 def test_jax_snapshot_dict_restores_into_the_port():

@@ -62,7 +62,7 @@ _COPIED = [
     "connectors/kafka/errors.py", "connectors/kafka/codecs.py",
     "connectors/kafka/retry.py", "connectors/kafka/protocol.py",
     "connectors/kafka/records.py", "connectors/kafka/txn.py",
-    "runtime/kafka.py", "native/fast_decode.cpp",
+    "runtime/kafka.py", "native/fast_decode.cpp", "control/events.py",
 ]
 
 
@@ -131,6 +131,8 @@ def test_import_pulls_in_no_jax():
         "import flink_siddhi_tpu_torch.runtime.faultinject\n"
         "import flink_siddhi_tpu_torch.runtime.kafka\n"
         "import flink_siddhi_tpu_torch.app.pipeline\n"
+        "import flink_siddhi_tpu_torch.app.service\n"
+        "import flink_siddhi_tpu_torch.control.plane\n"
         "import flink_siddhi_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'flink_siddhi_tpu' "

@@ -334,10 +334,86 @@ def test_resident_replay_refuses_to_cross_the_ordinal_wrap(monkeypatch):
 
 
 def test_refusals_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fpt.Job([], [], device="cpu", control_sources=[object()])
     with pytest.raises(NotImplementedError, match="item 11"):
         ShardedResidentReplay(fpt.Job([], [], device="cpu"))
+
+
+def _control_timeline(pkg):
+    """Admits, a pause, an update and retires stamped at tape boundaries
+    (a tape's first ts): three headline variants fold into one group."""
+    if pkg == "torch":
+        from flink_siddhi_tpu_torch.control import events as ev
+    else:
+        from flink_siddhi_tpu.control import events as ev
+
+    def chain(a, b, c, w, out):
+        return (f"from every s1 = inputStream[id == {a}] -> "
+                f"s2 = inputStream[id == {b}] -> "
+                f"s3 = inputStream[id == {c}] within {w} sec "
+                f"select s1.timestamp as t1, s3.timestamp as t3, "
+                f"s3.price as price insert into {out}")
+
+    add = ev.MetadataControlEvent.builder()
+    add.add_execution_plan(chain(1, 2, 3, 5, "m1"), plan_id="v1")
+    add.add_execution_plan(chain(4, 5, 6, 2, "m2"), plan_id="v2")
+    more = ev.MetadataControlEvent.builder()
+    more.add_execution_plan(chain(7, 8, 9, 5, "m3"), plan_id="v3")
+    more.add_execution_plan(
+        "from inputStream[id == 2] select id, price insert into f",
+        plan_id="f")
+    upd = ev.MetadataControlEvent.builder().update_execution_plan(
+        "v1", chain(1, 2, 3, 1, "m1")).build()
+    drop = ev.MetadataControlEvent.builder()
+    drop.remove_execution_plan("v2")
+    drop.remove_execution_plan("f")
+    at = [1000 + k * BATCH for k in range(8)]
+    return [(0, add.build()), (at[2], more.build()),
+            (at[3], ev.OperationControlEvent.disable_query("v3")),
+            (at[4], upd),
+            (at[5], ev.OperationControlEvent.enable_query("v3")),
+            (at[6], drop.build())]
+
+
+def _control_run(pkg, mode):
+    Schema, Batch, Source, compile_plan, Job, _, Replay, kw = _PKGS[pkg]
+    if pkg == "torch":
+        from flink_siddhi_tpu_torch.runtime.sources import ControlListSource
+    else:
+        from flink_siddhi_tpu.runtime.sources import ControlListSource
+    schema = Schema(_FIELDS)
+    codes = np.array(
+        [schema.string_tables["name"].intern(n) for n in _NAMES], np.int32)
+    batches = [Batch("inputStream", schema,
+                     {"id": d["id"], "name": codes[d["name"]],
+                      "price": d["price"], "timestamp": d["ts"]}, d["ts"])
+               for d in _columns(10)]
+    job = Job([], [Source("inputStream", schema, iter(batches))],
+              batch_size=BATCH, time_mode="event",
+              control_sources=[ControlListSource(_control_timeline(pkg))],
+              plan_compiler=lambda cql, pid: compile_plan(
+                  cql, {"inputStream": schema}, plan_id=pid), **kw)
+    if mode == "resident":
+        Replay(job).execute()
+    else:
+        job.run()
+    counters = job.control_status()["counters"]
+    return ({s: job.results_with_ts(s) for s in ("m1", "m2", "m3", "f")},
+            sorted(job.plan_ids),
+            {k: counters.get(k) for k in ("admitted", "stack_join",
+                                          "retired")})
+
+
+def test_control_in_replay_matches_jax_and_streaming():
+    # the control timeline partitions the bounded stream into epochs at
+    # the boundaries the streaming loop applies it at; each epoch replays
+    # under its own plan set
+    got = _control_run("torch", "resident")
+    assert got == _control_run("torch", "streaming")
+    assert got == _control_run("jax", "resident")
+    rows, ids, counters = got
+    assert ids == ["v1", "v3"]
+    assert counters == {"admitted": 5, "stack_join": 3, "retired": 3}
+    assert all(len(r) > 0 for r in rows.values())
 
 
 def test_timed_absence_under_bench_config_matches_jax():
