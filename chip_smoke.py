@@ -378,6 +378,49 @@ fault:
    checkpoint after tape 3 (the later events still pending in it)
    restored into a fresh Job that replays `dynamic` into the same slots
    and runs tapes 4-7: D1's rows, 0 duplicated and 0 lost;
+8j. subplan sharing and admission (in a process of its own, `--share
+   OUT`): A1, bench.py's subplan-share fleet (`share_fleet`: four
+   families of six structurally distinct tenants, each family behind the
+   exact prefix `price < P`, P = 3, 5, 7, 10, the sixth the chain
+   pattern whose shared suffix runs on K1 and K2) over `S(id, price,
+   timestamp)` on the bench stream, 8 tapes of 524,288 events, admitted
+   through ControlPlane with the admission gate (default budgets; the
+   Job re-checks at apply time, precleared) before tape 0, a columnar
+   sink on each tenant's stream, the fused Job (bench.py's 8 tapes a
+   segment, the Job's own ring; processing time) once with
+   `share_subplans` off and once on: tape 0 the warm-up (its captures), tapes 1-7 timed with the closing
+   drain (events/s; the speedup printed, not gated), then tape 1 again in
+   a profiler trace of the card (K1 and K2 on the card equal to the
+   host's counts, never 0); each side's plans, hosts and members,
+   `subplan_share` (24 shared) and `stack_join`, graphs captured (after
+   the warm-up too, and each suffix's), the loopback's mid rows and its
+   host seconds; each tenant's rows shared equal to unshared over all
+   events (float aggregates within WINDOW_RTOL: a window's sum rounds
+   from float64 running sums over the tapes its rows ride), the rows the
+   tenants emitted summing to the job's emitted total (mid streams count
+   nowhere), 0 dropped events, no suffix tape regrown; the fleet over
+   the first 65,536 events (tapes of 8,192, one step a tape) shared and
+   unshared on the card and on the CPU (`--share-cpu OUT`, started
+   first), all equal. A2, in event time over 8 tapes of 131,072 events
+   (1,048,576, cut for the time limit): family 0's six members retired at
+   tape 2 (its host drops, `subplan_unshare` 1), one re-admitted at tape
+   3 (the host re-forms), fused; a checkpoint after tape 3 with the share
+   table (one step a tape) restored into a fresh Job that runs tapes
+   4-7: 0 duplicated and 0 lost rows against the uninterrupted run; the
+   same timeline through ResidentReplay in epochs: rows equal to the
+   fused run's. A3, every plan of the JAX package's zoo (its CQL copied
+   here) and a unique window with aggregates (K3): the apply-time static
+   tier's ms and the deep tier's (meta tensors), admitted, then one tape
+   of 65,536 events on the card with the admitted footprint (state and
+   a full accumulator ring) recorded: measured bytes at most admitted, no
+   overrun, and at most what torch's allocator holds for the Job (the
+   rest reported: tapes, slots); then a fused Job fed a tape a cycle
+   takes the zoo through QueryControlService with the gate on a REST
+   thread, which goes on gating the zoo until its run loop, applying the
+   admits, captured graphs during a gate call (no capture error), the
+   gate's ms per CQL, and every hostile-zoo entry refused with HTTP
+   422 by its exact rule id (its profile's budgets) and, pushed raw past
+   the gate, at apply time by the same id;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -412,9 +455,10 @@ fault:
    O1's second and O2's third (``time_scan_kernel``: held to the plain
    version on the CPU
    copies, on the whole tape or, where the plain version walks event by
-   event, its first 4,096 events; CUDA events around back-to-back calls;
-   the byte bound and the longest chain's serial floor of empty warp
-   rounds), K7 unkeyed over S1's third step (one thread walks the tape),
+   event, its first 4,096 events; CUDA events around back-to-back calls,
+   K8 and K9 one call each way after the held call (two runs and a
+   warm-up before phase 8j came, cut for its time); the byte bound and
+   the longest chain's serial floor of empty warp rounds), K7 unkeyed over S1's third step (one thread walks the tape),
    and K3's integer path on U1's third step; K1 and K2 at a dynamic
    group's shapes (phase 8i's recorded step: 16 rows of 524,288 events;
    Q = 8 over V = 525,312), exact against their plain versions, timed
@@ -721,7 +765,7 @@ def traced_launches(prof, names=TRACED_KERNELS):
     return out
 
 
-def traced_run(co, run, what, prepare=None, attempts=3):
+def traced_run(co, run, what, prepare=None, attempts=3, host_ops=True):
     """``run()``, which returns its wall seconds, in a profiler trace of
     the card and the host, after ``prepare()`` and with the wrappers'
     launch counts reset. The launches each wrapper counted on the host
@@ -730,16 +774,20 @@ def traced_run(co, run, what, prepare=None, attempts=3):
     the host counts, so only the trace shows that a replay ran each
     kernel. A trace with fewer records than the host counted (the tracer
     loses records at times, see ``kernel_records``) is taken again, up to
-    ``attempts`` times; one with more fails at once. Returns (trace,
-    seconds, launches counted in the trace)."""
+    ``attempts`` times; one with more fails at once. ``host_ops=False``
+    traces the card alone (a run of many runtimes records far fewer
+    events; the trace then holds no host op). Returns (trace, seconds,
+    launches counted in the trace)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
     for _ in range(attempts):
         if prepare is not None:
             prepare()
         co.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             wall = run()
         host = co.launch_counts()
         traced = traced_launches(prof, host)
@@ -6795,7 +6843,10 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
                                  else 0.0)
         cargs = args_copy(args, dev)
         fn = getattr(co, kernel)
-        ms, call_ms = timed_back_to_back(lambda: fn(*cargs), 2)
+        # K8 and K9 take 0.5-0.8 s a call: one timed call each way (the
+        # held call above warmed them), cut for phase 8j's time
+        runs, warm = (1, 0) if kernel != "session_scan" else (2, 1)
+        ms, call_ms = timed_back_to_back(lambda: fn(*cargs), runs, warm)
         # the rows the checked call closed or emitted (K7, K8)
         rows = 0 if kernel == "sort_window_scan" else res[0]
         nbytes, ops, chain = scan_work(kernel, held, rows)
@@ -6805,7 +6856,7 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
             chain = scan_work(kernel, args, 0)[2]
         bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
         floor_serial, _ = timed_back_to_back(
-            lambda: co.launch_warp_rounds(max(chain, 1)), 2)
+            lambda: co.launch_warp_rounds(max(chain, 1)), runs, warm)
         entries[name] = {
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_s * 1e3,
             "plain_device": "cpu",
@@ -7432,8 +7483,8 @@ def ctrl_d2(fpt, schema, batches, d1_rows):
 class FeedSource:
     """A live source the caller feeds one batch at a time."""
 
-    def __init__(self, schema):
-        self.stream_id, self.schema = "inputStream", schema
+    def __init__(self, schema, stream_id="inputStream"):
+        self.stream_id, self.schema = stream_id, schema
         self.queue = []
 
     def poll(self, max_events):
@@ -7739,6 +7790,929 @@ def control_main(out_path):
     control_phase(fpt, co, out_path)
     torch.cuda.synchronize()
     return 0
+
+
+# -- phase 8j: subplan sharing and admission ---------------------------------
+
+SHARE_TAPES = 8  # A1, A2: tapes of BATCH of the bench stream (4,194,304)
+# the families' prefixes, price < P: 3-10% of the bench stream's uniform
+# prices pass each, as bench.py's fleet intends for its own stream
+SHARE_PRICES = (3.0, 5.0, 7.0, 10.0)
+SHARE_TRACED_TAPES = 1  # A1: tape 1 again, in a profiler trace
+SHARE_CPU_TAPE = 8_192  # A1's CPU check: the first 65,536 events, 8 tapes
+SHARE_SAVE_AFTER = 4  # A2: cycles (tapes 0-3) before the checkpoint
+SHARE_A2_TAPE = BATCH // 4  # A2's tapes (8 of them: 1,048,576 events)
+ADMIT_TAPE = 65_536  # A3: the events of each zoo plan's one tape
+# A3: the plan zoo and the hostile zoo of the JAX package's
+# analysis/zoo.py (its CQL, copied: nothing of that package is imported)
+ZOO = {
+    "filter_select": "from S[id == 2] select id, name, price insert into out",
+    "length_window_agg": (
+        "from S#window.length(16) select sum(price) as total, "
+        "count() as c insert into out"),
+    "time_window_groupby": (
+        "from S#window.time(3 sec) select id, avg(price) as a "
+        "group by id insert into out"),
+    "timebatch_window": (
+        "from S#window.timeBatch(2 sec) select sum(price) as s "
+        "insert into out"),
+    "unique_window": (
+        "from S#window.unique(id) select id, price insert into out"),
+    "sort_window": (
+        "from S#window.sort(8, price) select id, price insert into out"),
+    "expired_events": (
+        "from S#window.length(4) select id, price "
+        "insert expired events into out"),
+    "chain_pattern": (
+        "from every s1 = S[id == 1] -> s2 = S[id == 2] -> "
+        "s3 = S[id == 3] "
+        "select s1.price as p1, s3.price as p3 insert into out"),
+    "chain_pattern_within": (
+        "from every s1 = S[id == 1] -> s2 = S[price > 50.0] "
+        "within 5 sec "
+        "select s1.id as a, s2.price as p insert into out"),
+    "pattern_absence": (
+        "from every s1 = S[id == 1] -> not S[id == 9] -> "
+        "s2 = S[id == 2] "
+        "select s1.price as p1, s2.price as p2 insert into out"),
+    "slot_nfa_quantified": (
+        "from every s1 = S[id == 1] -> s2 = S[id == 2]<2:4> -> "
+        "s3 = S[id == 3] "
+        "select s1.price as a, s3.price as b insert into out"),
+    "sequence": (
+        "from every s1 = S[id == 1], s2 = S[id == 2] "
+        "select s1.price as p1, s2.price as p2 insert into out"),
+    "window_join": (
+        "from S#window.length(8) as a join Trades#window.length(8) "
+        "as b on a.id == b.vol "
+        "select a.id, b.price insert into out"),
+    "join_groupby_rewrite": (
+        "from S#window.length(8) as a join Trades#window.length(8) "
+        "as b on a.id == b.vol "
+        "select a.id, sum(b.price) as total group by a.id "
+        "insert into out"),
+    "chained_composition": (
+        "from S[price > 10.0] select id, price insert into mid; "
+        "from mid#window.length(8) select sum(price) as s "
+        "insert into out"),
+    "multiquery_stack6": "; ".join(
+        f"from every s1 = S[id == {i}] -> s2 = S[id == {i + 1}] "
+        f"select s1.price as p1, s2.price as p2 insert into out{i}"
+        for i in range(6)),
+}
+# the zoo's unique window selects no aggregate (a select); this one runs
+# the unique-window fold (K3)
+ZOO_EXTRA = {"unique_window_agg": (
+    "from S#window.unique(id) select id, count() as c, sum(price) as s, "
+    "max(price) as hi insert into out")}
+HOSTILE = {
+    "hostile_length_window_1m": (
+        "from S#window.length(1048576) select sum(price) as s "
+        "insert into out", "ADM101", "default"),
+    "hostile_join_amplification": (
+        "from S#window.length(131072) as a join "
+        "Trades#window.length(131072) as b on a.id == b.vol "
+        "select a.id, b.price insert into out", "ADM120", "default"),
+    "hostile_pattern_no_within": (
+        "from every s1 = S[id == 1] -> s2 = S[id == 2] "
+        "select s1.price as p1, s2.price as p2 insert into out",
+        "ADM110", "strict"),
+    "hostile_eternal_within": (
+        "from every s1 = S[id == 1] -> s2 = S[id == 2] within 3600 sec "
+        "select s1.price as p1, s2.price as p2 insert into out",
+        "ADM111", "strict"),
+    "hostile_unbounded_join": (
+        "from S as a join Trades as b on a.id == b.vol "
+        "select a.id, b.price insert into out", "ADM112", "strict"),
+}
+
+
+def share_fleet():
+    """bench.py's ``_subplan_fleet_mix(4, 6)`` with the families'
+    predicates ``price < SHARE_PRICES[f]``: per family six structurally
+    distinct tenants behind one exact prefix, the sixth the chain pattern
+    whose shared suffix runs on K1 and K2. (plan id, tenant, CQL, its
+    output stream)."""
+    fleet = []
+    for f, p in enumerate(SHARE_PRICES):
+        pred = f"price < {p}"
+        a, b = (f * 11 + 3) % N_IDS, (f * 7 + 1) % N_IDS
+        shapes = [
+            (f"sh_eq{f}", f"from S[{pred}][id == {a}] "
+                          f"select id, price insert into sh_eq{f}"),
+            (f"sh_gt{f}", f"from S[{pred}][id > {a}] "
+                          f"select id, price insert into sh_gt{f}"),
+            (f"sh_lt{f}", f"from S[{pred}][id < {a + 1}] "
+                          f"select id, price insert into sh_lt{f}"),
+            (f"sh_w{f}", f"from S[{pred}]#window.lengthBatch(128) "
+                         f"select sum(price) as tot insert into sh_w{f}"),
+            (f"sh_ff{f}", f"from S[{pred}][id == {a}][price > 1.0] "
+                          f"select id insert into sh_ff{f}"),
+            (f"sh_p{f}", f"from every s1 = S[{pred} and id == {a}] -> "
+                         f"s2 = S[{pred} and id == {b}] within 1 sec "
+                         "select s1.timestamp as t1, s2.timestamp as t2 "
+                         f"insert into sh_p{f}"),
+        ]
+        for m, (out, cql) in enumerate(shapes):
+            fleet.append((f"f{f}m{m}", f"fam{f}", cql, out))
+    return fleet
+
+
+SHARE_OUTS = tuple(t[3] for t in share_fleet())
+
+
+def share_stream(fpt, n_events, tape):
+    """The bench stream as ``S(id int, price double, timestamp long)``."""
+    _, batches = bench_stream(fpt, n_events, tape)
+    schema = fpt.StreamSchema([("id", "int"), ("price", "double"),
+                               ("timestamp", "long")])
+    return schema, [
+        fpt.EventBatch("S", schema, {k: b.columns[k] for k in
+                                     ("id", "price", "timestamp")},
+                       b.timestamps)
+        for b in batches]
+
+
+def share_compiler(fpt, schemas):
+    return lambda cql, pid: fpt.compile_plan(cql, schemas, plan_id=pid)
+
+
+def share_job(fpt, schema, batches, device, share, control,
+              time_mode="processing", fused=True):
+    job = fpt.Job(
+        [], [fpt.BatchSource("S", schema, iter(batches))],
+        batch_size=len(batches[0]), time_mode=time_mode, device=device,
+        control_sources=[control],
+        plan_compiler=share_compiler(fpt, {"S": schema}))
+    job.share_subplans = share
+    if fused:
+        # bench.py's segment and the Job's own accumulator ring: a
+        # loopback consumer's segments are one tape (Job._fused_k)
+        job.fused_segment_len = FUSED_K
+    return job
+
+
+def admit_fleet(fpt, job, ctrl, schema):
+    """The fleet through ControlPlane with the admission gate (default
+    budgets; the job re-checks at apply time under the same): the gate's
+    ms over the 24 CQL strings, on this thread."""
+    from flink_siddhi_tpu_torch.analysis import DEFAULT_BUDGETS
+
+    job.admission_budgets = DEFAULT_BUDGETS
+    plane = fpt.ControlPlane(job, ctrl, gate=fpt.AdmissionGate(
+        share_compiler(fpt, {"S": schema}), budgets=DEFAULT_BUDGETS))
+    t0 = time.perf_counter()
+    for pid, tenant, cql, _ in share_fleet():
+        plane.admit(cql, plan_id=pid, tenant=tenant, timestamp_ms=0)
+    ctrl.close()
+    return (time.perf_counter() - t0) * 1e3
+
+
+class LoopbackWatch:
+    """Wraps ``job._feed_loopback`` and ``job._flush_loopback``: the mid
+    rows the hosts fed, and the host seconds spent feeding and flushing
+    (the flush steps the suffixes)."""
+
+    def __init__(self, job):
+        self.rows = 0
+        self.seconds = 0.0
+        feed, flush = job._feed_loopback, job._flush_loopback
+
+        def fed(schema, rows):
+            t0 = time.perf_counter()
+            feed(schema, rows)
+            self.rows += len(rows)
+            self.seconds += time.perf_counter() - t0
+
+        def flushed(force=False):
+            t0 = time.perf_counter()
+            flush(force)
+            self.seconds += time.perf_counter() - t0
+
+        job._feed_loopback, job._flush_loopback = fed, flushed
+
+
+def share_hosts(job):
+    return {e["host"]: sorted(e["members"])
+            for e in job.control_status()["shared"].values()}
+
+
+def share_rows(job):
+    return {s: sorted(job.results_with_ts(s)) for s in SHARE_OUTS}
+
+
+def share_same(got, ref, what):
+    """Each tenant's rows of ``got`` against ``ref``: equal, float values
+    within WINDOW_RTOL (a window's sum is a difference of float64 running
+    sums over the tapes its rows ride, and a suffix's tapes are the mid
+    stream's, so the rounding to float32 can move by an ulp). Returns the
+    largest relative difference."""
+    worst = 0.0
+    for s in SHARE_OUTS:
+        worst = max(worst, rows_match(got[s], ref[s], WINDOW_RTOL,
+                                      f"{what}: {s}"))
+    return worst
+
+
+def share_key(row):
+    """A row's identity for the duplicate and lost counts: its timestamp
+    and its non-float values (floats are held by ``share_same``)."""
+    t, r = row
+    return t, tuple(None if isinstance(v, float) else v for v in r)
+
+
+class TenantSink:
+    """A columnar sink (``accept_columns``): one tenant's rows as arrays,
+    so that no tenant row becomes a tuple (nor a mid row: the loopback
+    takes columns)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def accept_columns(self, ts, cols):
+        self.parts.append((np.asarray(ts), {k: np.asarray(v)
+                                            for k, v in cols.items()}))
+
+    def rows(self):
+        """(timestamps, [columns]) in (ts, column values) order."""
+        if not self.parts:
+            return np.zeros(0, np.int64), []
+        ts = np.concatenate([p[0] for p in self.parts])
+        names = list(self.parts[0][1])
+        cols = [np.concatenate([p[1][n] for p in self.parts])
+                for n in names]
+        order = np.lexsort(cols[::-1] + [ts])
+        return ts[order], [c[order] for c in cols]
+
+
+def cols_same(got, ref, what):
+    """Each tenant's columnar rows against ``ref``'s: equal, float columns
+    within WINDOW_RTOL (see ``share_same``). Returns the largest relative
+    difference."""
+    worst = 0.0
+    for s in SHARE_OUTS:
+        (tg, cg), (tr, cr) = got[s], ref[s]
+        if not np.array_equal(tg, tr) or len(cg) != len(cr):
+            raise AssertionError(f"{what}: {s}'s rows differ ({len(tg)} "
+                                 f"against {len(tr)})")
+        for a, b in zip(cg, cr):
+            if a.dtype.kind == "f":
+                rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+                w = float(rel.max()) if len(rel) else 0.0
+                if not w <= WINDOW_RTOL:
+                    raise AssertionError(f"{what}: {s}'s values differ "
+                                         f"by {w}")
+                worst = max(worst, w)
+            elif not np.array_equal(a, b):
+                raise AssertionError(f"{what}: {s}'s values differ")
+    return worst
+
+
+def share_side(fpt, co, schema, batches, share):
+    """A1, one side: the fleet admitted before tape 0, a columnar sink on
+    each tenant's stream, the fused Job over tape 0 (the warm-up: its
+    captures), then timed over tapes 1-7 with the closing drain
+    (bench.py's timed window), then tape 1 again in a profiler trace (K1
+    and K2 on the card, equal to the host's counts)."""
+    import torch
+
+    t_side = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_side - sum(parts.values())
+
+    ctrl = fpt.ControlQueueSource()
+    job = share_job(fpt, schema, batches[:1], "cuda", share, ctrl)
+    job.retain_results = False
+    sinks = {}
+    for s in SHARE_OUTS:
+        sinks[s] = TenantSink()
+        job.add_sink(s, sinks[s])
+    gate_ms = admit_fleet(fpt, job, ctrl, schema)
+    watch = LoopbackWatch(job)
+    part("admit")
+    job.run()
+    job.drain_outputs()
+    torch.cuda.synchronize()
+    warm = {pid: (rt.graphs.captured if rt.graphs is not None else 0)
+            for pid, rt in job._plans.items()}
+    part("warm_tape")
+    re_source(fpt, job, schema, batches[1:], stream="S")
+    co.reset_launches()
+    lb0 = (watch.rows, watch.seconds)
+    t0 = time.perf_counter()
+    job.run()
+    job.drain_outputs()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    part("timed")
+    launches = co.launch_counts()
+    n = sum(len(b) for b in batches[1:])
+    rows = {s: sinks[s].rows() for s in SHARE_OUTS}
+    part("rows")
+    captured = {pid: (rt.graphs.captured if rt.graphs is not None else 0)
+                for pid, rt in job._plans.items()}
+    emitted = dict(job.emitted_counts)
+    st = job.control_status()["counters"]
+    out = {
+        "share": share, "events": n, "run_s": wall, "events_per_s": n / wall,
+        "plans": len(job._plans), "tenants": len(job.plan_ids),
+        "hosts": share_hosts(job),
+        "subplan_share": st.get("subplan_share", 0),
+        "stack_join": st.get("stack_join", 0),
+        "admitted": st.get("admitted", 0), "preclear": st.get("preclear", 0),
+        "admission_rejected": st.get("admission_rejected", 0),
+        "gate_ms_24": gate_ms,
+        "graphs_captured": job.graphs_captured,
+        "graphs_captured_after_warmup": {
+            p: captured[p] - warm.get(p, 0) for p in captured
+            if captured[p] != warm.get(p, 0)},
+        # each suffix runtime's graphs (a folded suffix's: its group's)
+        "suffix_graphs": {p: captured[p] for p, rt in job._plans.items()
+                          if any(s.startswith("_shr_")
+                                 for s in rt.plan.spec.stream_codes)},
+        "eager_segments": job.eager_segments,
+        "loopback_rows": watch.rows - lb0[0],
+        "loopback_host_s": watch.seconds - lb0[1],
+        "launches": {k: launches[k] for k in
+                     ("multi_reverse_cummin", "chain_advance")},
+        "dropped_events": (SHARE_TAPES * BATCH - job.processed_events
+                           - job.shed_events - job.late_dropped),
+        "emitted": sum(emitted.values()),
+        "rows": sum(len(r[0]) for r in rows.values()),
+    }
+    # the loopback's flush chunks never regrew a suffix's tape
+    for pid, rt in job._plans.items():
+        if any(s.startswith("_shr_") for s in rt.plan.spec.stream_codes) \
+                and rt.tape_capacity != BATCH:
+            raise AssertionError(f"share A1: suffix {pid}'s tape grew to "
+                                 f"{rt.tape_capacity}")
+    # rows attributed to tenants sum to the job's emitted total: the mid
+    # streams count nowhere (hosts are plumbing)
+    if any(s.startswith("_shr_") for s in emitted) or \
+            sum(emitted.get(s, 0) for s in SHARE_OUTS) != out["emitted"]:
+        raise AssertionError(f"share A1: emitted {emitted} is not the "
+                             "tenants' rows alone")
+    for s in SHARE_OUTS:
+        if emitted.get(s, 0) != len(rows[s][0]):
+            raise AssertionError(f"share A1: {s} counted {emitted.get(s)}"
+                                 f" rows, its sink took {len(rows[s][0])}")
+    if out["dropped_events"]:
+        raise AssertionError(f"share A1: {out['dropped_events']} events "
+                             "dropped")
+
+    def traced():
+        t0 = time.perf_counter()
+        job.run()
+        job.drain_outputs()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prof, traced_s, traced_k = traced_run(
+        co, traced, f"share A1 ({'shared' if share else 'unshared'})",
+        prepare=lambda: re_source(
+            fpt, job, schema, batches[1:1 + SHARE_TRACED_TAPES],
+            stream="S"), host_ops=False)
+    out["traced_idle_share"] = traced_share(
+        prof, traced_s, 1, 1)["traced_idle_share"]
+    del prof
+    out["launches_traced"] = {k: traced_k[k] for k in
+                              ("multi_reverse_cummin", "chain_advance")}
+    for k, c in out["launches_traced"].items():
+        if not c:
+            raise AssertionError(f"share A1: {k} never ran on the card")
+    part("traced")
+    out["part_s"] = parts
+    del job
+    return out, rows
+
+
+def share_scaled(fpt, device):
+    """A1's row check: the fleet over the first 65,536 events of the bench
+    stream in tapes of SHARE_CPU_TAPE, shared and unshared, one step a
+    tape."""
+    schema, batches = share_stream(fpt, BATCH, BATCH)
+    first = batches[0]
+    tapes = [first.slice(s, s + SHARE_CPU_TAPE)
+             for s in range(0, 8 * SHARE_CPU_TAPE, SHARE_CPU_TAPE)]
+    out = {}
+    for share in (False, True):
+        ctrl = fpt.ControlQueueSource()
+        job = share_job(fpt, schema, tapes, device, share, ctrl,
+                        fused=False)
+        admit_fleet(fpt, job, ctrl, schema)
+        job.run()
+        out["shared" if share else "unshared"] = {
+            s: [[t, list(r)] for t, r in rows]
+            for s, rows in share_rows(job).items()}
+    return out
+
+
+def share_cpu_main(out_path):
+    """A1's CPU path (``--share-cpu OUT``), as JSON to OUT; phase 8j starts
+    it first, so that it runs beside the card's runs."""
+    import torch
+
+    import flink_siddhi_tpu_torch as fpt
+
+    torch.set_num_threads(4)
+    with open(out_path, "w") as f:
+        json.dump(share_scaled(fpt, "cpu"), f)
+    return 0
+
+
+def share_timeline(fpt, tape):
+    """A2's timeline in event time, at boundaries of tapes of ``tape``
+    events: the fleet before tape 0, family 0's six members retired at
+    tape 2 (its host drops), one of its shapes re-admitted at tape 3 (the
+    host re-forms)."""
+    from flink_siddhi_tpu_torch.control.events import MetadataControlEvent
+
+    def at(k):
+        return 1000 + k * tape
+
+    add = MetadataControlEvent.builder()
+    fleet = share_fleet()
+    for pid, _, cql, _ in fleet:
+        add.add_execution_plan(cql, plan_id=pid)
+    drop = MetadataControlEvent.builder()
+    for pid, _, _, _ in fleet[:6]:
+        drop.remove_execution_plan(pid)
+    again = MetadataControlEvent.builder()
+    again.add_execution_plan(fleet[0][2], plan_id="f0r")
+    return [(0, add.build()), (at(2), drop.build()), (at(3), again.build())]
+
+
+def share_a2(fpt, schema, batches):
+    """A2 over SHARE_TAPES tapes of SHARE_A2_TAPE events in event time, one
+    step a tape: family 0's members retired (its host drops,
+    ``subplan_unshare`` 1) and one re-admitted (the host re-forms); a
+    checkpoint after tape 3 with the share table restored into a fresh Job
+    that runs tapes 4-7 (0 duplicated and 0 lost rows against the
+    uninterrupted run)."""
+    import torch
+
+    tape = len(batches[0])
+
+    def job_of(tapes, control):
+        return share_job(fpt, schema, tapes, "cuda", True,
+                         fpt.ControlListSource(control), time_mode="event",
+                         fused=False)
+
+    whole = job_of(batches, share_timeline(fpt, tape))
+    t0 = time.perf_counter()
+    whole.run()
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    hosts = share_hosts(whole)
+    counters = whole.control_status()["counters"]
+    fam0 = [h for h, m in hosts.items() if m == ["f0r"]]
+    if counters.get("subplan_unshare") != 1 or len(hosts) != 4 or not fam0:
+        raise AssertionError(f"share A2: hosts {hosts}, counters "
+                             f"{counters}")
+    whole_rows = share_rows(whole)
+    del whole
+    first = job_of(batches, share_timeline(fpt, tape))
+    first.run(max_cycles=SHARE_SAVE_AFTER)
+    path = os.path.join(SMOKE_DIR, "share_ckpt.bin")
+    t0 = time.perf_counter()
+    first.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    saved_hosts = share_hosts(first)
+    before = share_rows(first)
+    del first
+    job = job_of(batches[SHARE_SAVE_AFTER:], [])
+    t0 = time.perf_counter()
+    job.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if share_hosts(job) != saved_hosts:
+        raise AssertionError("share A2: the restore re-formed other hosts")
+    job.run()
+    after = share_rows(job)
+    dup = lost = 0
+    split = {}
+    for s in SHARE_OUTS:
+        got = before[s] + after[s]
+        keys = [share_key(r) for r in got]
+        dup += len(keys) - len(set(keys))
+        lost += len({share_key(r) for r in whole_rows[s]} - set(keys))
+        split[s] = sorted(got)
+    rel_split = share_same(split, whole_rows, "share A2 across the restore")
+    if dup or lost:
+        raise AssertionError(f"share A2: {dup} duplicated, {lost} lost rows "
+                             "across the restore")
+    snapshot_bytes = os.path.getsize(path)
+    os.remove(path)
+    del job
+    out = {"tape": tape, "whole_s": whole_s, "hosts_after_readmit": hosts,
+           "subplan_unshare": counters.get("subplan_unshare"),
+           "subplan_share": counters.get("subplan_share"),
+           "hosts_at_save": len(saved_hosts), "save_s": save_s,
+           "restore_s": restore_s, "snapshot_bytes": snapshot_bytes,
+           "rows": sum(len(r) for r in whole_rows.values()),
+           "duplicate_rows": dup, "lost_rows": lost,
+           "max_rel_split": rel_split}
+    return out
+
+
+def share_resident(fpt, schema, batches, fused_rows):
+    """A2's resident run: the fleet (admitted at ts 0) through
+    ResidentReplay in epochs over A1's 8 tapes, with a columnar sink on
+    each tenant's stream: rows equal to A1's fused shared run's."""
+    import torch
+
+    job = share_job(fpt, schema, batches, "cuda", True,
+                    fpt.ControlListSource(share_timeline(fpt, BATCH)[:1]),
+                    time_mode="event", fused=False)
+    job.retain_results = False
+    sinks = {s: TenantSink() for s in SHARE_OUTS}
+    for s, sink in sinks.items():
+        job.add_sink(s, sink)
+    watch = LoopbackWatch(job)
+    t0 = time.perf_counter()
+    rep = fpt.ResidentReplay(job)
+    rep.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rel = cols_same({s: sinks[s].rows() for s in SHARE_OUTS}, fused_rows,
+                    "share A2, resident against A1's fused run")
+    out = {"wall_s": wall, "events_per_s": job.processed_events / wall,
+           "epochs": len(rep._epochs), "stage_s": rep.stage_seconds,
+           "graphs_captured": job.graphs_captured,
+           "eager_segments": job.eager_segments,
+           "hosts": len(share_hosts(job)), "loopback_rows": watch.rows,
+           "loopback_host_s": watch.seconds, "max_rel_fused": rel}
+    del job, rep
+    return out
+
+
+def zoo_schemas(fpt):
+    return {
+        "S": fpt.StreamSchema([("id", "int"), ("name", "string"),
+                               ("price", "double"), ("timestamp", "long")]),
+        "Trades": fpt.StreamSchema([("sym", "string"), ("price", "double"),
+                                    ("vol", "int"), ("timestamp", "long")]),
+    }
+
+
+def zoo_tapes(fpt, schemas, n, seed=11):
+    """One tape of ``n`` events of each zoo stream (ids and volumes in
+    [0, 50), prices uniform x 100, 1 ms apart), as EventBatches."""
+    rng = np.random.default_rng(seed)
+    ts = 1000 + np.arange(n, dtype=np.int64)
+    s, t = schemas["S"], schemas["Trades"]
+    names = np.array([s.string_tables["name"].intern(x)
+                      for x in ("a", "b", "c")], np.int32)
+    syms = np.array([t.string_tables["sym"].intern(x)
+                     for x in ("IBM", "WSO2", "ORCL")], np.int32)
+    return {
+        "S": fpt.EventBatch("S", s, {
+            "id": rng.integers(0, N_IDS, n).astype(np.int32),
+            "name": names[rng.integers(0, 3, n)],
+            "price": rng.random(n) * 100.0, "timestamp": ts}, ts),
+        "Trades": fpt.EventBatch("Trades", t, {
+            "sym": syms[rng.integers(0, 3, n)],
+            "price": rng.random(n) * 100.0,
+            "vol": rng.integers(0, N_IDS, n).astype(np.int32),
+            "timestamp": ts}, ts),
+    }
+
+
+def admit_zoo(fpt, co):
+    """A3's plans: each zoo plan analyzed (the deep tier on meta tensors,
+    default budgets: admitted), its apply-time static tier timed, then
+    one tape of ADMIT_TAPE events of each stream on the card with the
+    admitted footprint recorded (state and a full accumulator ring):
+    measured bytes at most admitted, no overrun, and the measured bytes
+    live on the card: at most what the caching allocator counts as held
+    since before the Job (``torch.cuda.memory_allocated``); the rest of
+    what it holds (tapes, graph slots and pools) is outside the meter and
+    reported. The unique-window fold (K3) runs in ``unique_window_agg``."""
+    import torch
+
+    from flink_siddhi_tpu_torch.analysis import (
+        DEFAULT_BUDGETS,
+        analyze_plan,
+        verify_plan,
+    )
+
+    out = {}
+    k3 = 0
+    for name, cql in {**ZOO, **ZOO_EXTRA}.items():
+        schemas = zoo_schemas(fpt)
+        plan = fpt.compile_plan(cql, schemas, plan_id=name)
+        t0 = time.perf_counter()
+        issues = verify_plan(plan, trace=False, raise_on_error=False)
+        static = analyze_plan(plan, deep=False)
+        static_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rep = analyze_plan(plan, budgets=DEFAULT_BUDGETS, deep=True)
+        deep_ms = (time.perf_counter() - t0) * 1e3
+        if issues or static.findings or not rep.admitted:
+            raise AssertionError(f"share A3: {name} refused: "
+                                 f"{[i.render() for i in issues]} "
+                                 f"{[i.render() for i in rep.findings]}")
+        tapes = zoo_tapes(fpt, schemas, ADMIT_TAPE)
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        job = fpt.Job([plan], [fpt.BatchSource(sid, schemas[sid],
+                                               iter([tapes[sid]]))
+                               for sid in ("S", "Trades")],
+                      batch_size=ADMIT_TAPE, time_mode="processing",
+                      device="cuda", retain_results=False)
+        job.set_admitted_footprint(
+            name, job.admitted_bytes(rep.state_bytes, rep.acc_bytes))
+        co.reset_launches()
+        job.run()
+        job.drain_outputs()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - held0
+        launches = co.launch_counts()
+        k3 += launches["unique_window_fold"]
+        fp = job.footprint_status()[name]
+        overruns = job.telemetry.snapshot()["counters"].get(
+            "footprint.overruns", 0)
+        if fp["measured_bytes"] > fp["admitted_bytes"] or overruns:
+            raise AssertionError(f"share A3: {name} measured {fp} "
+                                 f"({overruns} overruns)")
+        if fp["measured_bytes"] > held:
+            raise AssertionError(
+                f"share A3: {name} meter counts {fp['measured_bytes']} B, "
+                f"the allocator holds {held} B for the Job")
+        out[name] = {
+            "state_bytes": rep.state_bytes, "acc_bytes": rep.acc_bytes,
+            "admitted_bytes": fp["admitted_bytes"],
+            "ring": len(job._plans[name].ring),
+            "measured_bytes": fp["measured_bytes"],
+            "allocator_held_bytes": held,
+            "unmetered_bytes": held - fp["measured_bytes"],
+            "utilization": fp["utilization"],
+            "amplification": rep.amplification,
+            "residency_ms": (None if rep.residency_ms is None
+                             else float(rep.residency_ms)),
+            "static_tier_ms": static_ms, "deep_tier_ms": deep_ms,
+            "emitted": sum(job.emitted_counts.values()),
+            "launches": {k: v for k, v in launches.items() if v}}
+        del job
+    if not out["unique_window_agg"]["launches"].get("unique_window_fold"):
+        raise AssertionError("share A3: the unique-window fold never ran")
+    return out, k3
+
+
+def admit_during_capture(fpt, co):
+    """A3's gate while the run loop captures graphs: a fused Job in
+    processing time, fed a tape a cycle, takes the zoo through
+    QueryControlService with the admission gate (default budgets) on a
+    REST thread, while its run loop applies the admits and captures each
+    new runtime's segment graphs; the hostile zoo posted to services whose
+    gate holds each entry's profile (HTTP 422 with its exact rule id);
+    then each hostile entry pushed raw past the gate and refused at apply
+    time by the same rule id. After the posts the gate runs on over the
+    zoo on the same thread until the run loop captured graphs during one
+    of its calls. The gate's ms per CQL; no capture error."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from flink_siddhi_tpu_torch.analysis import (
+        DEFAULT_BUDGETS,
+        STRICT_BUDGETS,
+    )
+    from flink_siddhi_tpu_torch.control.events import MetadataControlEvent
+
+    profiles = {"default": DEFAULT_BUDGETS, "strict": STRICT_BUDGETS}
+    schemas = zoo_schemas(fpt)
+    compiler = share_compiler(fpt, schemas)
+    src = FeedSource(schemas["S"], "S")
+    ctrl = fpt.ControlQueueSource()
+    job = fpt.Job([], [src], batch_size=SHARE_CPU_TAPE,
+                  time_mode="processing", device="cuda",
+                  control_sources=[ctrl], plan_compiler=compiler,
+                  retain_results=False)
+    # segments of 2 tapes: each new runtime captures within the few
+    # cycles the gate's calls take (this part times no throughput)
+    job.fused_segment_len = 2
+    job.admission_budgets = DEFAULT_BUDGETS
+    gates = {p: fpt.AdmissionGate(compiler, budgets=b)
+             for p, b in profiles.items()}
+    svcs = {p: fpt.QueryControlService(ctrl, job=job,
+                                       admission=gates[p]).start()
+            for p in profiles}
+    gate_ms, refused, errors = {}, {}, []
+    state = {"done": False, "captures": [], "overlapping": 0, "calls": 0}
+
+    def captured():
+        # the CPU (the dry run) captures nothing; its keys still count
+        return (job.graphs_captured if job.device.type == "cuda"
+                else job.graph_keys)
+
+    def post(profile, name, cql):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{svcs[profile].port}/api/v1/queries",
+            data=json.dumps({"cql": cql, "id": name}).encode(),
+            method="POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req) as r:
+                return r.status, json.loads(r.read()), \
+                    (time.perf_counter() - t0) * 1e3
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), \
+                (time.perf_counter() - t0) * 1e3
+
+    def rest():
+        try:
+            state["captures"].append((job.graph_keys, job.graphs_captured))
+            for name, cql in {**ZOO, **ZOO_EXTRA}.items():
+                code, body, ms = post("default", name, cql)
+                if code != 201 or not body["admission"]["admitted"]:
+                    errors.append((name, code, body))
+                gate_ms[name] = ms
+            for name, (cql, rule, profile) in HOSTILE.items():
+                code, body, ms = post(profile, name, cql)
+                refused[name] = {"http": code, "rules": body.get("rules"),
+                                 "gate_ms": ms}
+                if code != 422 or rule not in body.get("rules", ()):
+                    errors.append((name, code, body))
+            # the posts return once their events are pushed, and the
+            # run loop applies and captures over its next cycles: the
+            # gate goes on over the zoo on this thread until a capture
+            # has run during one of its calls
+            deadline = time.perf_counter() + 120
+            cqls = list({**ZOO, **ZOO_EXTRA}.values())
+            while not state["overlapping"]:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("no capture during a gate call")
+                c = captured()
+                gates["default"](cqls[state["calls"] % len(cqls)])
+                state["calls"] += 1
+                state["overlapping"] += captured() > c
+            state["captures"].append((job.graph_keys, job.graphs_captured))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(("rest thread", repr(e)))
+        finally:
+            state["done"] = True
+
+    th = threading.Thread(target=rest)
+    schema = schemas["S"]
+    base = zoo_tapes(fpt, schemas, SHARE_CPU_TAPE)["S"]
+    cycles = 0
+    try:
+        th.start()
+        deadline = time.perf_counter() + 300
+        while not state["done"] or cycles < 4:
+            ts = base.timestamps + cycles * SHARE_CPU_TAPE
+            src.queue.append(fpt.EventBatch("S", schema, dict(
+                base.columns, timestamp=ts), ts))
+            job.run_cycle()
+            cycles += 1
+            if time.perf_counter() > deadline:
+                raise AssertionError("share A3: the REST thread hung")
+        th.join()
+        for _ in range(4):  # the last admits apply and capture
+            ts = base.timestamps + cycles * SHARE_CPU_TAPE
+            src.queue.append(fpt.EventBatch("S", schema, dict(
+                base.columns, timestamp=ts), ts))
+            job.run_cycle()
+            cycles += 1
+        job.drain_outputs()
+        torch.cuda.synchronize()
+    finally:
+        for svc in svcs.values():
+            svc.stop()
+    if errors:
+        raise AssertionError(f"share A3: {errors}")
+    (k0, c0), (k1, c1) = state["captures"]
+    if k1 <= k0 or (job.device.type == "cuda" and c1 <= c0):
+        raise AssertionError("share A3: no graph was captured while the "
+                             "gate ran")
+    if set(job.plan_ids) != set(ZOO) | set(ZOO_EXTRA):
+        raise AssertionError(f"share A3: live plans {sorted(job.plan_ids)}")
+    # apply time: each hostile entry pushed raw (no verdict) under its
+    # profile's budgets, refused by the same rule id
+    apply = {}
+    for name, (cql, rule, profile) in HOSTILE.items():
+        job.admission_budgets = profiles[profile]
+        b = MetadataControlEvent.builder()
+        b.add_execution_plan(cql, plan_id=f"raw:{name}")
+        ctrl.push(b.build())
+        t0 = time.perf_counter()
+        job.run_cycle()
+        apply[name] = (time.perf_counter() - t0) * 1e3
+        rules = job.control_rejections.get(f"raw:{name}", {}).get("rules")
+        if not rules or rule not in rules or f"raw:{name}" in job.plan_ids:
+            raise AssertionError(f"share A3: {name} at apply time: {rules}")
+        refused[name]["apply_rules"] = rules
+        refused[name]["apply_cycle_ms"] = apply[name]
+    out = {"cycles": cycles, "graphs_captured": job.graphs_captured,
+           "graph_keys_while_gating": k1 - k0,
+           "captured_while_gating": c1 - c0,
+           "gate_calls_after_posts": state["calls"],
+           "eager_segments": job.eager_segments,
+           "gate_ms": gate_ms, "hostile": refused,
+           "preclear": job.control_status()["counters"].get("preclear", 0)}
+    del job
+    return out
+
+
+def share_phase(fpt, co, out_path):
+    """Phase 8j: A1 (the fleet, shared and unshared), A2 (retire, restore,
+    resident) and A3 (admission), see the module docstring."""
+    import torch
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    cpu_path = os.path.join(SMOKE_DIR, "share_cpu.json")
+    cpu_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--share-cpu", cpu_path])
+    try:
+        schema, batches = share_stream(fpt, SHARE_TAPES * BATCH, BATCH)
+        unshared, u_rows = share_side(fpt, co, schema, batches, False)
+        part("A1_unshared")
+        shared, s_rows = share_side(fpt, co, schema, batches, True)
+        part("A1_shared")
+        rel_sides = cols_same(s_rows, u_rows, "share A1, shared against "
+                              "unshared")
+        del u_rows
+        resident = share_resident(fpt, schema, batches, s_rows)
+        del s_rows
+        part("A2_resident")
+        if shared["subplan_share"] != 24 or len(shared["hosts"]) != 4:
+            raise AssertionError(f"share A1: {shared['subplan_share']} "
+                                 f"shares, hosts {shared['hosts']}")
+        scaled = share_scaled(fpt, "cuda")
+        part("A1_scaled")
+        if cpu_proc.wait(timeout=600) != 0:
+            raise AssertionError("share A1's CPU path failed")
+        part("cpu_wait")
+        with open(cpu_path) as f:
+            cpu = json.load(f)
+        def tuples(rows):
+            return {s: [(t, tuple(r)) for t, r in rows[s]]
+                    for s in SHARE_OUTS}
+
+        ref = tuples(cpu["unshared"])
+        rel_cpu = max(
+            share_same(tuples(rows[side]), ref,
+                       f"share A1 (65,536 events), {where} {side}")
+            for where, rows in (("card", scaled), ("CPU", cpu))
+            for side in ("unshared", "shared"))
+        cpu_rows = sum(len(r) for r in cpu["unshared"].values())
+        schema2, small = share_stream(fpt, SHARE_TAPES * SHARE_A2_TAPE,
+                                      SHARE_A2_TAPE)
+        a2 = share_a2(fpt, schema2, small)
+        a2["resident"] = resident
+        part("A2")
+        zoo, k3 = admit_zoo(fpt, co)
+        part("A3_zoo")
+        gate = admit_during_capture(fpt, co)
+        part("A3_gate")
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+    torch.cuda.synchronize()
+    out = {"A1": {"unshared": unshared, "shared": shared,
+                  "speedup": shared["events_per_s"]
+                  / unshared["events_per_s"],
+                  "rows": shared["rows"], "cpu_check_rows": cpu_rows,
+                  "max_rel_shared_unshared": rel_sides,
+                  "max_rel_cpu": rel_cpu},
+           "A2": a2, "A3": {"zoo": zoo, "gate": gate},
+           "launches": {"K1": shared["launches_traced"][
+                            "multi_reverse_cummin"],
+                        "K2": shared["launches_traced"]["chain_advance"],
+                        "K3": k3},
+           "part_s": parts, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"share": out}))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def share_main(out_path):
+    """Phase 8j alone (``--share OUT``), run by ``main`` in a child
+    process (alone it also builds the CUDA kernels)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    share_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
 
 
 def main():
@@ -8170,7 +9144,47 @@ def main():
         "admit_apply_ms": ctrl["admit_apply_ms"],
         "part_s": ctrl["part_s"], "phase_s": ctrl["phase_s"]}}))
 
-    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g, 8h and 8i")
+    # 8j. subplan sharing and admission: the 24-tenant fleet shared and
+    # unshared, retire and restore, the zoo through the admission gate
+    # while graphs are captured (in a process of its own, as 8i)
+    log(f"[8j/11] subplan sharing and admission: {len(share_fleet())} "
+        f"tenants over {BATCH * SHARE_TAPES} events, shared and unshared; "
+        f"retire, restore, resident; the plan zoo through the gate")
+    t_share = time.perf_counter()
+    share_path = os.path.join(SMOKE_DIR, "share.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--share", share_path], timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"share phase failed ({r.returncode})")
+    with open(share_path) as f:
+        share = json.load(f)
+    log(f"  share phase {time.perf_counter() - t_share:.1f} s")
+    a1 = share["A1"]
+    keep = ("events_per_s", "plans", "hosts", "subplan_share", "stack_join",
+            "graphs_captured", "graphs_captured_after_warmup",
+            "suffix_graphs", "launches_traced", "loopback_rows",
+            "loopback_host_s", "dropped_events", "traced_idle_share")
+    log(json.dumps({"share": {
+        "A1": {"unshared": {k: a1["unshared"][k] for k in keep},
+               "shared": {k: a1["shared"][k] for k in keep},
+               "speedup": a1["speedup"], "rows": a1["rows"],
+               "cpu_check_rows": a1["cpu_check_rows"],
+               "max_rel_shared_unshared": a1["max_rel_shared_unshared"],
+               "max_rel_cpu": a1["max_rel_cpu"]},
+        "A2": share["A2"],
+        "A3": {"zoo": {n: {k: z[k] for k in (
+                   "state_bytes", "acc_bytes", "admitted_bytes", "ring",
+                   "measured_bytes", "allocator_held_bytes",
+                   "static_tier_ms", "deep_tier_ms")}
+                   for n, z in share["A3"]["zoo"].items()},
+               "gate": share["A3"]["gate"]},
+        "launches": share["launches"],
+        "part_s": share["part_s"], "phase_s": share["phase_s"]}}))
+    log(f"  share: speedup {a1['speedup']:.3f} (shared "
+        f"{a1['shared']['events_per_s']:.4g} events/s, unshared "
+        f"{a1['unshared']['events_per_s']:.4g})")
+
+    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g, 8h, 8i and 8j")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -8221,7 +9235,8 @@ def main():
                      "control": {
                          "D1": d1["launches_traced"],
                          "rate": {m: r["launches_traced"]
-                                  for m, r in ctrl["rate"].items()}}},
+                                  for m, r in ctrl["rate"].items()}},
+                     "share": share["launches"]},
     }, k_path + ".pt")
     del rec_k1, rec_k2, rec_k3, full_k1, full_k2, mq_inputs
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -8822,6 +9837,10 @@ def kernels_main(path):
             p: launches["scans_traced"][p] for p in plans}
         kernels.append(entry)
     kernels[6]["unkeyed"] = time_unkeyed_session(co, scan_recorded)
+    kernels[2]["launches_share"] = {
+        "A3_zoo": launches["share"]["K3"],
+        "by": "the wrapper's count over phase 8j's one-tape zoo runs "
+              "(unique_window_agg)"}
     kernels[2]["int_path_u1"] = time_fold_int(co, scan_recorded["U1"],
                                               launches["scans"]["U1"])
     kernels[2]["launches_u1_resident_traced"] = launches["scans_traced"][
@@ -8876,6 +9895,11 @@ def kernels_main(path):
             "rate": {m: c[k["name"]]
                      for m, c in launches["control"]["rate"].items()},
             "by": "kernel records in a profiler trace"}
+        k["launches_share"] = {
+            "A1_shared": launches["share"]["K1" if k is kernels[0]
+                                           else "K2"],
+            "by": "kernel records in a profiler trace of phase 8j's "
+                  f"shared fleet over {SHARE_TRACED_TAPES} tape"}
         g = k["dynamic_group"]
         log(f"  {k['name']} at a dynamic group's shape {g['shape']}: "
             f"{g['ms']} ms (call {g['call_ms']}), plain {g['plain_ms']}, "
@@ -8961,6 +9985,10 @@ if __name__ == "__main__":
         sys.exit(control_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--control-cpu":
         sys.exit(control_cpu_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--share":
+        sys.exit(share_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--share-cpu":
+        sys.exit(share_cpu_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

@@ -24,7 +24,12 @@ The dynamic control plane (``control/``: control events, runtime admit,
 update, retire and enable at epoch boundaries, template-able chain
 queries folded into padded ``DynamicChainGroup`` slots as data writes,
 ``ControlPlane`` and the REST ``QueryControlService``) runs in the
-streaming ``Job``, its fused mode and ``ResidentReplay``.
+streaming ``Job``, its fused mode and ``ResidentReplay``, with the
+reference's plan verifier and admission analysis (``analysis/``:
+``verify_plan``, ``analyze_plan``, ``AdmissionBudgets``, the
+``AdmissionGate`` at the REST boundary and at apply time) and its subplan
+sharing (``Job.share_subplans``: tenants with one filter prefix share a
+producer host whose rows loop back into their suffixes).
 Everything else raises ``SiddhiQLError`` naming the later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.

@@ -28,17 +28,28 @@ Routes (JSON in/out):
     POST   /api/v1/queries   {"cql": s,
                               "tenant"?,
                               "id"?}     -> {"id": plan_id,
-                                            "admission": None}
-    PUT    /api/v1/queries/<id> {"cql"}  -> {"id": id}
+                                            "admission": summary}
+    PUT    /api/v1/queries/<id> {"cql"}  -> {"id": id,
+                                            "admission": summary}
     DELETE /api/v1/queries/<id>          -> {"id": id}
     POST   /api/v1/queries/<id>/enable   -> {"id": id}
     POST   /api/v1/queries/<id>/disable  -> {"id": id}
 
+Admission: construct the service with
+``admission=control.plane.AdmissionGate(compile_fn, budgets)`` and every
+POST/PUT body is compiled, plan-verified and admission-analyzed BEFORE an
+event is pushed — on the handler thread, on meta tensors and the CPU, so
+it never touches the card while the run loop captures a graph. A hostile
+or over-budget query is refused at the boundary with HTTP 422 and the
+exact PLC/ADM rule ids in the body (and recorded in the job's rejection
+ring); a passing verdict rides the control event, and the executor
+re-checks it at apply time.
+
 Not in the port yet, each answering 501 with a body naming its ROADMAP.md
 Queue 1 item: ``/api/v1/metrics/prometheus``, ``/api/v1/traces``,
 ``/api/v1/flightrecorder`` and ``/api/v1/slo`` (the telemetry modules,
-item 12), the admission gate at the boundary (``admission=``, item 12)
-and the fleet's ``/api/v1/fleet/drain`` (item 13).
+item 12's telemetry half) and the fleet's ``/api/v1/fleet/drain`` (item
+13).
 """
 
 from __future__ import annotations
@@ -139,14 +150,10 @@ class QueryControlService:
         port: int = 0,
         validate=None,  # callable(cql) raising on bad queries
         supervisor=None,  # runtime.supervisor.Supervisor for /health
-        admission=None,
+        admission=None,  # AdmissionGate: (cql, plan_id) -> summary
     ) -> None:
-        if admission is not None:
-            raise NotImplementedError(
-                "QueryControlService(admission=...): the admission gate "
-                "is not in the torch port yet (ROADMAP.md Queue 1 item 12)"
-            )
         self.control = control
+        self.admission = admission
         self.job = job
         self.validate = validate
         self.supervisor = supervisor
@@ -234,13 +241,18 @@ class QueryControlService:
                         return self._reply(400, {"error": "invalid id"})
                     if plan_id is None:
                         plan_id = MetadataControlEvent.new_plan_id()
+                    summary, reject = service._admit(
+                        cql, plan_id, tenant=body.get("tenant"))
+                    if reject is not None:
+                        return self._reply(422, reject)
                     b = MetadataControlEvent.builder()
-                    b.add_execution_plan(cql, plan_id=plan_id)
+                    b.add_execution_plan(cql, admission=summary,
+                                         plan_id=plan_id)
                     ev = b.build()
                     ev.tenant = body.get("tenant")
                     service.control.push(ev)
                     return self._reply(
-                        201, {"id": plan_id, "admission": None})
+                        201, {"id": plan_id, "admission": summary})
                 if len(tail) == 2 and tail[1] in ("enable", "disable"):
                     ev = (
                         OperationControlEvent.enable_query(tail[0])
@@ -262,12 +274,18 @@ class QueryControlService:
                 err = service._check(cql)
                 if err:
                     return self._reply(400, {"error": err})
+                summary, reject = service._admit(
+                    cql, tail[0], tenant=body.get("tenant"))
+                if reject is not None:
+                    return self._reply(422, reject)
                 b = MetadataControlEvent.builder()
                 b.update_execution_plan(tail[0], cql)
+                if summary is not None:
+                    b.with_admission(tail[0], summary)
                 ev = b.build()
                 ev.tenant = body.get("tenant")
                 service.control.push(ev)
-                self._reply(200, {"id": tail[0], "admission": None})
+                self._reply(200, {"id": tail[0], "admission": summary})
 
             def do_DELETE(self):
                 tail = self._route()
@@ -288,6 +306,36 @@ class QueryControlService:
         if job is None and self.supervisor is not None:
             job = self.supervisor.job
         return job
+
+    def _admit(self, cql: str, plan_id: str, tenant=None):
+        """Run the admission gate at the REST boundary. Returns
+        ``(summary, None)`` on pass (summary None when no gate is
+        configured) or ``(None, reject_payload)`` carrying the exact
+        PLC/ADM rule ids — the 422 body. A refusal is also recorded in
+        the attached job's rejection ring (source ``"service"``), so it
+        shows in ``GET /health`` and ``GET /queries/<id>`` like an
+        apply-time one."""
+        if self.admission is None:
+            return None, None
+        from ..control.plane import ControlRejected
+
+        try:
+            return self.admission(cql, plan_id), None
+        except ControlRejected as e:
+            rules, findings = e.rules, e.findings
+        except Exception as e:  # noqa: BLE001 — unparsable CQL etc.
+            rules, findings = ["CQL000"], [f"{type(e).__name__}: {e}"]
+        job = self._live_job()
+        if job is not None:
+            job._record_rejection(
+                plan_id, rules, findings, tenant, source="service"
+            )
+        return None, {
+            "error": "admission rejected",
+            "id": plan_id,
+            "rules": rules,
+            "findings": findings,
+        }
 
     def _health(self):
         """(code, payload) for GET /api/v1/health: 200 while supervised

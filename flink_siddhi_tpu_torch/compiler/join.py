@@ -163,8 +163,48 @@ class JoinArtifact:
     out_factor: int = 4
     encoded_columns: Tuple = ()
 
-    # cost_info (the admission descriptor) waits for ROADMAP Queue 1 item
-    # 12 (the port's analysis layer)
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor (analysis/admit.py): one arriving
+        event can pair with every retained row of the OPPOSITE ring —
+        the semantic output demand admission budgets against (the
+        emission buffer truncates beyond out_factor*E with counted
+        overflow). A window-less side retains unbounded history
+        (ADM112); time sides retain for their span; 'within' bounds
+        the pair distance, which caps residency when both sides would
+        otherwise hold longer."""
+        residencies = []
+        unbounded_sides = []
+        for side in (self.left, self.right):
+            if side.unbounded:
+                unbounded_sides.append(side.stream_id)
+                residencies.append(float("inf"))
+            elif side.window_mode == "time" and side.time_ms is not None:
+                residencies.append(float(side.time_ms))
+        res: object = max(residencies) if residencies else None
+        if (
+            res is not None
+            and self.within is not None
+            and float(self.within) < res
+        ):
+            res = float(self.within)
+            unbounded_sides = []
+        info = {
+            "name": self.name,
+            "kind": "join",
+            "amplification": int(
+                max(self.left.window_n, self.right.window_n)
+                + (1 if self._nullable else 0)
+            ),
+            "residency_ms": res,
+        }
+        if unbounded_sides:
+            info["unbounded"] = (
+                f"join side(s) {unbounded_sides} declare no window — "
+                "retention is semantically unbounded and silently "
+                "truncated at ring capacity "
+                f"{[self.left.window_n, self.right.window_n]}"
+            )
+        return info
 
     def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
         """Widest per-cycle emission block (drain-cadence contract)."""

@@ -1159,6 +1159,67 @@ def _chain_core(
     return new_state, complete, v_emit_ts, caps
 
 
+def _spec_check_info(name: str, spec: "_PatternSpec", **extra) -> Dict:
+    """One pattern's transition tables in the neutral dict form
+    analysis.plancheck consumes — the compiler's side of the plancheck
+    contract (the verifier never reaches into private spec fields)."""
+    cfg = _ChainCfg.of(spec)
+    info = dict(
+        name=name,
+        n_elements=spec.n_elements,
+        positive=cfg.positive,
+        guards=cfg.guards,
+        t_guard=cfg.t_guard,
+        negated=tuple(el.negated for el in spec.elements),
+        quantifiers=tuple(
+            (el.min_count, el.max_count) for el in spec.elements
+        ),
+        # first-occurrence guards (sequence absence before a quantified
+        # element): PLC203 pins their placement — quantified, non-first,
+        # mandatory-min elements only
+        entry_guards=tuple(
+            k
+            for k, f in enumerate(spec.entry_guard_fns or ())
+            if f is not None
+        ),
+    )
+    info.update(extra)
+    return info
+
+
+def _pattern_cost(name: str, spec: "_PatternSpec", pool: int) -> Dict:
+    """One pattern's admission-cost descriptor (analysis/admit.py).
+
+    Residency: ``within`` when declared; without it an ``every`` pattern
+    (incl. mid-chain ``-> every`` forks) arms partials that NEVER expire
+    — unbounded slot residency, the ADM110 reject class. A non-every
+    pattern keeps a single instance in flight, so its unexpired state is
+    one slot, not a growing population."""
+    every = spec.every or any(spec.every_marks or ())
+    if spec.within is not None:
+        res: object = float(spec.within)
+        unbounded = None
+    elif every:
+        res = float("inf")
+        unbounded = (
+            "'every' pattern with no 'within' clause: armed partial "
+            f"matches never expire and pin the {pool}-slot pool "
+            "(matches beyond it drop with counted overflow)"
+        )
+    else:
+        res = None
+        unbounded = None
+    info = {
+        "name": name,
+        "kind": "pattern",
+        "amplification": int(pool) if every else 1,
+        "residency_ms": res,
+    }
+    if unbounded is not None:
+        info["unbounded"] = unbounded
+    return info
+
+
 @dataclass
 class ChainPatternArtifact:
     """``[every] e0 -> e1 -> ... -> eK``, each element exactly once.
@@ -1188,6 +1249,20 @@ class ChainPatternArtifact:
     # wire predicate pushdown: element indices whose event-only filters
     # are host-evaluated and shipped as packed mask bits ("@p:<i>" cols)
     pushed_preds: Tuple[int, ...] = ()
+
+    def nfa_check_info(self) -> List[Dict]:
+        """Transition-table descriptors for analysis.plancheck (PLC2xx:
+        positive/guard partition, quantifier bounds, bitmask width)."""
+        return [_spec_check_info(self.name, self.spec)]
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor (analysis/admit.py): under
+        ``every`` each trigger event arms a fresh partial, and one
+        later event can complete EVERY armed prefix at once — worst
+        case ``pool`` rows per input event, and without ``within`` the
+        armed partials never expire (the ADM110 unbounded-residency
+        surface)."""
+        return _pattern_cost(self.name, self.spec, self.pool)
 
     def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
         """Widest per-cycle emission block (drain-cadence contract)."""
@@ -1810,6 +1885,48 @@ class StackedChainArtifact:
     # exceeds the compact width
     host_syncs: int = 0
 
+    @property
+    def out_cap_factor(self) -> int:
+        """The emission buffer's query factor: ``min(Q, factor) * E +
+        Q * pool`` columns (``_STACK_OUT_CAP``)."""
+        return _STACK_OUT_CAP
+
+    def nfa_check_info(self) -> List[Dict]:
+        return [
+            _spec_check_info(f"{self.name}[{m.name}]", m.spec)
+            for m in self.members
+        ]
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: one event feeds EVERY stacked
+        member, so the group's worst-case output demand is the sum of
+        the members' (the emission buffer truncates beyond
+        min(Q, out_cap_factor)*E + Q*pool with counted overflow)."""
+        member_costs = [
+            _pattern_cost(f"{self.name}[{m.name}]", m.spec, m.pool)
+            for m in self.members
+        ]
+        res: object = None
+        unbounded = None
+        for mc in member_costs:
+            r = mc["residency_ms"]
+            if r is not None:
+                res = r if res is None else max(res, r)
+            if unbounded is None and "unbounded" in mc:
+                unbounded = mc["unbounded"]
+        info = {
+            "name": self.name,
+            "kind": "pattern",
+            "amplification": int(
+                sum(mc["amplification"] for mc in member_costs)
+            ),
+            "residency_ms": res,
+            "members": [mc["name"] for mc in member_costs],
+        }
+        if unbounded is not None:
+            info["unbounded"] = unbounded
+        return info
+
     def __post_init__(self):
         self.pool = self.members[0].pool
         self._cfg = _ChainCfg.of(self.members[0].spec)
@@ -2250,6 +2367,32 @@ class DynamicChainGroup:
     capacity: int = DYN_QUERY_SLOTS
     output_mode: str = "packed"
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: the padded group's worst case is
+        every slot occupied and every slot's pool completable by one
+        event. Per-member ``within`` values are device DATA written in
+        place into the group's slot state (each member's own compile
+        was admitted separately before folding); ``has_within=False``
+        under ``every`` is the unbounded-residency class for the whole
+        slot family."""
+        t = self.template
+        per_member = self.pool if t.every else 1
+        info = {
+            "name": self.name,
+            "kind": "pattern",
+            "amplification": int(self.capacity * per_member),
+            "residency_ms": (
+                None if t.has_within else
+                (float("inf") if t.every else None)
+            ),
+        }
+        if t.every and not t.has_within:
+            info["unbounded"] = (
+                "dynamic chain group compiled without 'within' "
+                "support: every member's armed partials never expire"
+            )
+        return info
+
     @property
     def output_schema(self) -> OutputSchema:
         for m in self.members:
@@ -2475,6 +2618,26 @@ class SlotNFAArtifact:
     output_schema: OutputSchema
     output_mode: str = "buffered"
     slots: int = DEFAULT_SLOTS
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: the slot engine's partial-match
+        population is its ``slots`` pool — same every/within residency
+        semantics as the chain matcher."""
+        return _pattern_cost(self.name, self.spec, self.slots)
+
+    def nfa_check_info(self) -> List[Dict]:
+        """Slot-engine tables for analysis.plancheck: the generic chain
+        descriptors plus the group/min-prefix machinery the scan body
+        indexes by (PLC207/208/209)."""
+        return [
+            _spec_check_info(
+                self.name,
+                self.spec,
+                groups=self._groups,
+                min_prefix=self._min_prefix,
+                mask_bits=self.spec.n_elements + len(self._idx),
+            )
+        ]
 
     def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
         """Widest per-cycle emission block (drain-cadence contract)."""

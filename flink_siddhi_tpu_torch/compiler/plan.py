@@ -88,6 +88,24 @@ class CompiledPlan:
     # keys' positions in the output row
     output_rates: Dict[str, object] = field(default_factory=dict)
     snapshot_keys: Dict[str, tuple] = field(default_factory=dict)
+    # the parsed plan after the compiler's rewrites: the admission
+    # signature's structural descriptor and the subplan-share split read it
+    source_ast: object = None
+
+    def signature(self, capacity: int = 128) -> str:
+        """The shape-bucket class key (``analysis/admit.plan_signature``)
+        memoized per capacity: an admit hashes the same plan more than
+        once (the report and the summary it carries)."""
+        memo = self.__dict__.setdefault("_signature_memo", {})
+        from ..runtime.tape import bucket_size
+
+        cap = bucket_size(int(capacity))
+        sig = memo.get(cap)
+        if sig is None:
+            from ..analysis.admit import plan_signature
+
+            sig = memo[cap] = plan_signature(self, capacity=cap)
+        return sig
 
     def init_state(self, device) -> Dict:
         states = {a.name: a.init_state(device) for a in self.artifacts}
@@ -645,7 +663,7 @@ def compile_plan(
 
     output_rates, snapshot_keys = _output_rates(parsed, internal_codes,
                                                 table_schemas)
-    return CompiledPlan(
+    plan = CompiledPlan(
         plan_id=plan_id,
         spec=TapeSpec(stream_codes, tuple(columns), column_types,
                       tuple(encoded), device_columns=device_columns,
@@ -658,7 +676,32 @@ def compile_plan(
         table_schemas=table_schemas,
         output_rates=output_rates,
         snapshot_keys=snapshot_keys,
+        source_ast=parsed,
     )
+    # compiled-plan verification and admission (the reference's tiers):
+    # FST_VERIFY_PLANS=1 (the test lane) runs the static NFA/stack checks
+    # and the cost-hook check on every compile; config.verify_plans or
+    # =full adds the trace tier (one CPU step over the inert tape) and
+    # the footprint + signature; a configured AdmissionBudgets turns
+    # findings into AdmissionError; =0 turns everything off. The budgets'
+    # verdict (meta tensors) comes before any CPU step: a plan over its
+    # budgets is never stepped with its whole state on the host
+    import os
+
+    env = os.environ.get("FST_VERIFY_PLANS")
+    if env != "0":
+        from ..analysis.admit import admit_plan
+        from ..analysis.plancheck import verify_plan
+
+        full = bool(config.verify_plans) or env == "full"
+        budgets = config.admission_budgets
+        if budgets is not None:
+            admit_plan(plan, budgets=budgets, deep=False, signature=False)
+        if full or env == "1":
+            verify_plan(plan, trace=full)
+        if full or env == "1" or budgets is not None:
+            admit_plan(plan, budgets=budgets, deep=full)
+    return plan
 
 
 def _output_rates(parsed, internal_codes, table_schemas):

@@ -163,6 +163,20 @@ class ScanWindowArtifact:
     part_key: Optional[str] = None
     part_encoder: Optional[GroupEncoder] = None
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor (analysis/admit.py): sort keeps a
+        fixed top-N buffer; unique keeps the last event per key in a
+        bucketed table that grows with key cardinality."""
+        info = {
+            "name": self.name,
+            "kind": "scan_window",
+            "amplification": 1,
+            "residency_ms": None,
+        }
+        if self.kind == "unique":
+            info["grows_with"] = "keys"
+        return info
+
     def _cap(self) -> int:
         if self.kind == "sort":
             return self.sort_n
@@ -300,6 +314,18 @@ class SessionWindowArtifact:
     arg_types: List[AttributeType]
     proj_map: List  # per select item: ('key',) | ('agg', slot)
     output_mode: str = "packed"
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: per-key session aggregates (no
+        events retained); one closed-session row per closing event.
+        The session table grows with key cardinality."""
+        return {
+            "name": self.name,
+            "kind": "session_window",
+            "amplification": 1,
+            "residency_ms": None,
+            "grows_with": "keys",
+        }
 
     def _cap(self) -> int:
         return _bucket(len(self.encoder) if self.encoder else 1,
@@ -518,6 +544,17 @@ class FrequencyWindowArtifact:
     arg_types: List[AttributeType]
     proj_fns: List
     output_mode: str = "aligned"
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: fixed-slot heavy-hitter sketch —
+        the canonical bounded-memory shape; one row per admitted
+        arrival."""
+        return {
+            "name": self.name,
+            "kind": "sketch_window",
+            "amplification": 1,
+            "residency_ms": None,
+        }
 
     @property
     def _lossy(self) -> bool:

@@ -62,6 +62,17 @@ class SelectArtifact:
     # evaluated host-side and shipped as one packed mask bit
     pushed_preds: Tuple[int, ...] = ()
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor (analysis/admit.py): stateless
+        pass-through — at most one row out per input event, nothing
+        retained."""
+        return {
+            "name": self.name,
+            "kind": "select",
+            "amplification": 1,
+            "residency_ms": 0,
+        }
+
     @property
     def lazy_src_keys(self) -> Tuple[str, ...]:
         return self.lazy_pairs

@@ -298,6 +298,17 @@ class TableInsertArtifact:
     uses_tables: bool = True
     output_mode: str = "buffered"
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: table writes emit no stream rows;
+        table rows are user-managed state in a fixed ring (the @tables
+        footprint rides the plan state)."""
+        return {
+            "name": self.name,
+            "kind": "table_write",
+            "amplification": 0,
+            "residency_ms": None,
+        }
+
     def init_state(self, device) -> Dict:
         return {"enabled": torch.tensor(True, device=device),
                 "overflow": torch.tensor(0, dtype=_I32, device=device)}
@@ -341,6 +352,16 @@ class TableMutateArtifact:
     derived: Dict[str, Tuple[str, Callable]]  # the on's: key -> (side, fn)
     uses_tables: bool = True
     output_mode: str = "buffered"
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: in-place table mutation — no
+        stream emission, no retention of its own."""
+        return {
+            "name": self.name,
+            "kind": "table_write",
+            "amplification": 0,
+            "residency_ms": 0,
+        }
 
     def init_state(self, device) -> Dict:
         return {"enabled": torch.tensor(True, device=device)}
@@ -397,6 +418,22 @@ class TableJoinArtifact:
     outer: bool  # left outer (stream side preserved)
     uses_tables: bool = True
     output_mode: str = "buffered"
+    # the table ring's rows: the worst-case pairs of one stream event
+    table_capacity: int = 1024
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: one stream event can match every
+        current table row — the table capacity is the worst-case
+        per-event output demand. Table rows are user-managed (insert/
+        update/delete), so no residency clock applies."""
+        return {
+            "name": self.name,
+            "kind": "table_join",
+            "amplification": int(
+                self.table_capacity + (1 if self.outer else 0)
+            ),
+            "residency_ms": None,
+        }
 
     def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
         """Widest per-cycle emission block (drain-cadence contract)."""
@@ -445,6 +482,22 @@ class WindowedTableInsertArtifact:
     inner: object  # the compiled window / aggregation artifact
     uses_tables: bool = True
     output_mode: str = "buffered"
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: the inner window/aggregation's
+        retention with the table write's zero stream emission."""
+        inner_hook = getattr(self.inner, "cost_info", None)
+        inner = inner_hook() if inner_hook is not None else {}
+        info = {
+            "name": self.name,
+            "kind": "table_write",
+            "amplification": 0,
+            "residency_ms": inner.get("residency_ms"),
+        }
+        for k in ("grows_with", "unbounded"):
+            if k in inner:
+                info[k] = inner[k]
+        return info
 
     @property
     def encoded_columns(self):
@@ -742,4 +795,5 @@ def compile_table_join(
         derived=derived,
         proj_fns=proj_fns,
         outer=stream_outer,
+        table_capacity=(1024 if config is None else config.table_capacity),
     )

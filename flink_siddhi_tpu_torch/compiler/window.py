@@ -465,6 +465,24 @@ class SlidingWindowArtifact:
     group_keys_: Tuple = ()
     group_code_proj: Tuple = ()
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor (analysis/admit.py): one aligned
+        row per input event; retention is the ring (length windows
+        evict by count, time windows by span)."""
+        info = {
+            "name": self.name,
+            "kind": "window",
+            "amplification": 1,
+            "residency_ms": (
+                int(self.time_ms)
+                if self.window_mode == "time" and self.time_ms is not None
+                else None
+            ),
+        }
+        if self.encoder is not None:
+            info["grows_with"] = "groups"
+        return info
+
     def init_state(self, device) -> Dict:
         C = self.capacity
         ring = {
@@ -907,6 +925,19 @@ class CumulativeAggArtifact:
     chained_group_src: Optional[str] = None
     chained_group_dtype: object = None
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: running aggregates — one row per
+        event, no events retained (per-group scalar state only)."""
+        info = {
+            "name": self.name,
+            "kind": "aggregate",
+            "amplification": 1,
+            "residency_ms": 0,
+        }
+        if self.encoder is not None:
+            info["grows_with"] = "groups"
+        return info
+
     def _stats(self) -> Dict[int, set]:
         return _acc_stats_for(self.aggs)
 
@@ -1097,6 +1128,23 @@ class BatchWindowArtifact:
     # (utils/cron.py). A window completes when a LATER-window event
     # exists — the event-driven equivalent of the timer firing
     wid_key: Optional[str] = None
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: batch windows emit one aggregate
+        row per closed window per group — per input event that is
+        amortized <= 1; retention is one batch span."""
+        res = None
+        if self.window_mode == "timeBatch" and self.time_ms is not None:
+            res = int(self.time_ms)
+        info = {
+            "name": self.name,
+            "kind": "batch_window",
+            "amplification": 1,
+            "residency_ms": res,
+        }
+        if self.encoder is not None:
+            info["grows_with"] = "groups"
+        return info
 
     def emit_block_width(self, tape_capacity: int, state: Dict) -> int:
         """Widest per-cycle emission block: every window-grid cell can
@@ -1833,6 +1881,21 @@ class ExpiredWindowArtifact:
     ref_keys: List[str]  # tape columns the projections read
     ref_dtypes: Dict[str, object]  # device dtype per ref column
 
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: each event expires exactly once
+        — one expired row out per input event; retention is the window
+        it leaves."""
+        return {
+            "name": self.name,
+            "kind": "expired_window",
+            "amplification": 1,
+            "residency_ms": (
+                int(self.time_ms)
+                if self.window_mode == "time" and self.time_ms is not None
+                else None
+            ),
+        }
+
     def init_state(self, device) -> Dict:
         C = self.capacity
         ring: Dict[str, torch.Tensor] = {
@@ -2050,6 +2113,18 @@ class PerKeyWindowArtifact:
     proj_fns: List
     having_fn: Optional[Callable]
     output_mode: str = "aligned"
+
+    def cost_info(self) -> Dict:
+        """Admission-cost descriptor: per-key count-evicted windows —
+        one row per event; state grows with key cardinality (bucketed
+        [G, C] re-buckets as keys intern)."""
+        return {
+            "name": self.name,
+            "kind": "perkey_window",
+            "amplification": 1,
+            "residency_ms": None,
+            "grows_with": "keys",
+        }
 
     def __post_init__(self):
         if any(s not in ("sum", "sumsq")

@@ -22,13 +22,18 @@ written by either package loads in the other:
   the watermark (``control_pending``), which the restored job applies
   exactly once. The events are pickled under the JAX package's module
   name, ``flink_siddhi_tpu.control.events``, and either package's name
-  loads into this package's own classes, so such a file moves both ways.
+  loads into this package's own classes, so such a file moves both ways;
+* the share table (``shared``: per share key, the producer host's id, its
+  mid stream, its prefix CQL, the source stream and the members), whose
+  hosts a restore re-forms from their prefix CQL before the dynamic
+  replay re-admits the member suffixes (``Job._replay_shared``), so that
+  hosts precede their consumers; and the admitted footprints.
 
 The blocks of modules the port does not have yet are written empty, and a
 snapshot in which one is not empty is refused, naming its ROADMAP item:
-``routers`` (parallel, item 11), ``shared`` (subplan sharing, item 10) and
-``fleet`` (item 13). The flight recorder's journal (item 12) is not
-written, and a reference snapshot's journal is not restored.
+``routers`` (parallel, item 11) and ``fleet`` (item 13). The flight
+recorder's journal (item 12's telemetry half) is not written, and a
+reference snapshot's journal is not restored.
 
 ``save``/``load`` write one file (atomic replace, keep-last-K rotation,
 stale-temp sweep; ``load`` reads it under a safelisting unpickler: numpy
@@ -161,9 +166,21 @@ def snapshot_job(job) -> Dict[str, Any]:
             "folded": dict(job._folded),
             "enabled": dict(job._folded_enabled),
             "tenants": dict(job._plan_tenant),
-            "admitted_bytes": {},
+            "admitted_bytes": dict(job._plan_admitted_bytes),
         },
-        "shared": {},
+        # the share table: a restore re-forms each host from its prefix
+        # CQL before the dynamic replay re-admits the member suffixes
+        # (their CQL is in dynamic.cql)
+        "shared": {
+            key: {
+                "host_id": e["host_id"],
+                "mid": e["mid"],
+                "prefix_cql": e["prefix_cql"],
+                "src": e["src"],
+                "members": list(e["members"]),
+            }
+            for key, e in job._shared.items()
+        },
         "flightrec": None,
         # events-mode chunk position and buffered rows survive, so that a
         # restored job emits at the same chunk boundaries; time-mode
@@ -186,7 +203,6 @@ def _check_later_blocks(snap: Dict[str, Any]) -> None:
     silently drop that state)."""
     fleet = snap.get("fleet") or {}
     later = (
-        ("shared subplans ('shared')", bool(snap.get("shared")), 10),
         ("sharded routers ('routers')", bool(snap.get("routers")), 11),
         ("the serving fleet's account ('fleet')",
          bool(fleet.get("epoch")) or fleet.get("last_handoff") is not None,
@@ -218,15 +234,23 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
     # same runtimes and slots, BEFORE the plan-set check below
     dyn = snap.get("dynamic") or {}
     job._plan_tenant.update(dyn.get("tenants") or {})
-    if dyn.get("cql"):
+    job._plan_admitted_bytes.update(
+        {k: int(v) for k, v in (dyn.get("admitted_bytes") or {}).items()})
+    shared = snap.get("shared") or {}
+    if shared or dyn.get("cql"):
         if job._plan_compiler is None:
             raise ValueError(
                 "checkpoint contains dynamically-added queries but the "
                 "job has no plan compiler; rebuild it through the "
                 "dynamic cql() path"
             )
-        job._replay_dynamic(dyn["cql"], dyn.get("folded", {}),
-                            dyn.get("enabled", {}))
+        # shared hosts re-form FIRST: the loopback routing exists, and
+        # the hosts precede their member suffixes in runtime order
+        if shared:
+            job._replay_shared(shared)
+        if dyn.get("cql"):
+            job._replay_dynamic(dyn["cql"], dyn.get("folded", {}),
+                                dyn.get("enabled", {}))
     job_only = set(job._plans) - set(snap["plans"])
     if job_only:
         raise ValueError(
@@ -239,8 +263,10 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
                 f"checkpoint has plan {plan_id!r} but the job does not; "
                 "rebuild the job with the same plans before restoring"
             )
-    # queued drains complete before any state is replaced
+    # queued drains complete before any state is replaced; mid rows still
+    # buffered for the loopback belong to the replaced state
     job._settle_drains()
+    job._loopback_buf.clear()
     job._epoch_ms = snap["epoch_ms"]
     job.processed_events = snap["processed_events"]
 

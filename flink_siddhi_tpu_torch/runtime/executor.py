@@ -59,9 +59,30 @@ control event is refused (``control_rejections``, the
 ``RUNLOOP_OWNERSHIP_GUARD`` asserts that the mutators run on the run-loop
 thread.
 
-Not in this port yet (ROADMAP.md Queue 1): shared subplans and loopback
-and the executable cache (item 10's next slice), the admission analysis,
-the flight recorder, trace sampling and SLOs (item 12).
+Admission (``analysis/``): an applied add or update is compiled, verified
+(``plancheck``'s static tier) and analyzed (``admit``'s cost hooks, and
+under ``Job.admission_budgets`` the footprint and the budget verdicts)
+before it touches the stack; a refusal is recorded with its rule ids. A
+verdict the service gate already passed rides the event (``precleared``)
+and skips the deep re-check. The footprint meter (``footprint_status``)
+holds each runtime's measured CUDA state and accumulator-ring bytes
+against the bytes admission predicted for them. Staged tapes, graph
+slots and graph pools are outside both.
+
+Subplan sharing (``share_subplans``, ``FST_SUBPLAN_SHARE=1``): a dynamic
+add whose query opens with a shareable filter prefix (``analysis/
+share.py``) splits into a producer host ``@shr:<key>`` that runs the
+prefix once for every tenant with the same predicate, and the tenant's
+suffix reading the host's mid stream ``_shr_<key>``. The mid rows loop
+back on the host as columns: the host's drains decode them on the fetch
+thread to ``ColumnBatch``es (``_emit_columns`` hands them to
+``_feed_loopback`` before any counter or sink), and ``_flush_loopback``
+sorts them by time and steps the suffixes with them, in ``batch_size``
+chunks, on the run loop. Retire reference-counts the members;
+checkpoints carry the share table (``shared``).
+
+Not in this port yet (ROADMAP.md Queue 1): the executable cache, and the
+flight recorder, trace sampling and SLOs (item 12's telemetry half).
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
@@ -81,6 +102,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.admit import _tree_nbytes
 from ..compiler.output import ColumnBatch
 from ..compiler.plan import CompiledPlan
 from ..device import DeviceLike, resolve_device
@@ -142,6 +164,26 @@ LATE_STREAM_SUFFIX = "@late"
 def late_stream(stream_id: str) -> str:
     """The side-output stream id carrying ``stream_id``'s late rows."""
     return stream_id + LATE_STREAM_SUFFIX
+
+
+def _encode_mid(schema, cb: ColumnBatch, order: np.ndarray) -> Dict:
+    """A mid stream's decoded columns, reordered by ``order``, encoded
+    for the source's ``schema`` (the host's ``select *`` keeps its field
+    order): device dtypes, strings interned in the source's dictionary,
+    which every suffix's mid DDL shares."""
+    cols: Dict[str, np.ndarray] = {}
+    for name, atype, col in zip(schema.field_names, schema.field_types,
+                                cb.cols.values()):
+        col = col[order]
+        if atype.is_encoded:
+            vals = col.tolist()
+            table = schema.string_tables[name]
+            codes = {v: table.intern(v) for v in dict.fromkeys(vals)}
+            cols[name] = np.fromiter(map(codes.__getitem__, vals),
+                                     np.int32, len(vals))
+        else:
+            cols[name] = np.asarray(col, dtype=atype.device_dtype)
+    return cols
 
 
 def retire_tickets(tickets: Deque, limit: int) -> int:
@@ -702,38 +744,40 @@ class Job:
         self.control_rejections: Dict[str, dict] = {}
         self._rejections_lock = threading.Lock()
         self.MAX_REJECTIONS_KEPT = 64
+        # apply-time admission budgets (analysis/admit.AdmissionBudgets):
+        # None runs the static tiers only; set, an applied add or update
+        # is refused on any ADM finding
+        self.admission_budgets = None
+        # the footprint meter's denominators: plan id -> the bytes
+        # admission predicted (state + accumulator)
+        self._plan_admitted_bytes: Dict[str, int] = {}
+        self._footprint_warned_at = -1e9
+        # -- subplan sharing (analysis/share.py) ----------------------------
+        # share key -> {host_id, mid, prefix_cql, src, mid_schema,
+        # members}: the host (@shr:<key>) runs the prefix once and its
+        # mid-stream rows loop back on the host into every member's
+        # suffix runtime; retire reference-counts the members and drops
+        # the host with the last one. Run loop only; off-thread readers
+        # take dict() snapshots
+        self._shared: Dict[str, Dict] = {}
+        # member plan id -> share key (the refcount's edges)
+        self._shared_member: Dict[str, str] = {}
+        # mid stream id -> share key: _emit_columns hands these streams
+        # to the loopback before any counter or sink (mid rows are
+        # plumbing, not output)
+        self._loopback: Dict[str, str] = {}
+        # mid stream id -> [[ColumnBatch of abs timestamps], rows, wall
+        # time of the oldest]: coalesced between flushes, so that the
+        # suffixes step once a flush, not once a drained host payload
+        self._loopback_buf: Dict[str, list] = {}
+        # opt-in: sharing changes the runtime layout of a dynamic admit
+        # (host + suffix instead of one runtime)
+        import os
+
+        self.share_subplans = os.environ.get(
+            "FST_SUBPLAN_SHARE", "0").lower() not in ("0", "", "false")
         for p in plans:
             self.add_plan(p)
-
-    # -- item 10's next slice and item 12 -------------------------------------
-    @property
-    def share_subplans(self) -> bool:
-        """Subplan sharing (the reference's ``_try_share`` rung and its
-        loopback): not in the port yet, always off."""
-        return False
-
-    @share_subplans.setter
-    def share_subplans(self, value: bool) -> None:
-        if value:
-            raise NotImplementedError(
-                "subplan sharing (analysis/share.py, the shared-prefix "
-                "hosts and their loopback) is not in the torch port yet "
-                "(ROADMAP.md Queue 1 item 10)"
-            )
-
-    @property
-    def admission_budgets(self):
-        """The apply-time admission budgets: not in the port yet (None)."""
-        return None
-
-    @admission_budgets.setter
-    def admission_budgets(self, value) -> None:
-        if value is not None:
-            raise NotImplementedError(
-                "admission budgets (analysis/admit.py and "
-                "analysis/plancheck.py over the port's plans) are not in "
-                "the torch port yet (ROADMAP.md Queue 1 item 12)"
-            )
 
     # -- run-loop ownership guard ---------------------------------------------
     def _stamp_runloop_owner(self) -> None:
@@ -768,23 +812,114 @@ class Job:
         if not dynamic:
             self._create_runtime(plan)
             return
+        # the control path records the event's tenant before this call,
+        # so admits and stack joins count into its scope too
+        tenant = self.tenant_of(plan.plan_id)
         if plan.plan_id in self._folded or plan.plan_id in self._plans:
             # a redelivered add (an at-least-once control channel)
             # replaces, never double-registers
             self.remove_plan(plan.plan_id)
         if cql is not None:
             self._dynamic_cql[plan.plan_id] = cql
-        self.telemetry.inc("control.admitted")
         if self._try_fold(plan):
-            self.telemetry.inc("control.stack_join")
+            # a data write into a live group's slot: the cheapest admit
+            for name in ("control.admitted", "control.stack_join"):
+                self.telemetry.inc(name)
+                self._inc_tenant(tenant, name)
+            return
+        if self.share_subplans and self._try_share(plan, tenant):
+            # the prefix runs as a shared host and the tenant rode in as
+            # its suffix; _try_share's inner dynamic add counted it
             return
         plan, admit0 = self._wrap_dynamic(plan)
+        self.telemetry.inc("control.admitted")
+        self._inc_tenant(tenant, "control.admitted")
         self._create_runtime(plan, admit0)
 
     def tenant_of(self, plan_id: str) -> str:
         """The tenant a plan is attributed to ('default' when it was
         admitted without one)."""
         return self._plan_tenant.get(plan_id) or "default"
+
+    def _inc_tenant(self, tenant: Optional[str], name: str,
+                    n: int = 1) -> None:
+        """A tenant-scoped counter (``scopes.tenant.<id>``)."""
+        tel = self.telemetry
+        if tel.enabled:
+            tel.scope("tenant", tenant or "default").inc(name, n)
+
+    # -- the footprint meter (admitted vs measured) ---------------------------
+    def admitted_bytes(self, state_bytes: int, acc_bytes: int) -> int:
+        """The device bytes a plan with these admission footprints may
+        hold here: its state and a full accumulator ring
+        (``MAX_PENDING_DRAINS`` + 1 accumulators: the live one and those
+        that queued drains still read). ``ADM102`` prices one
+        accumulator, as the reference's budget does."""
+        return int(state_bytes) + (self.MAX_PENDING_DRAINS + 1) * int(
+            acc_bytes)
+
+    def set_admitted_footprint(self, plan_id: str, nbytes: int) -> None:
+        """Record the admission-predicted device bytes of a plan
+        (``admitted_bytes``: state + accumulator ring): the meter's
+        denominator. The control path records it from the admission
+        analysis; static jobs set it from
+        ``analysis.admit.analyze_plan(plan, deep=True)``."""
+        self._plan_admitted_bytes[plan_id] = int(nbytes)
+
+    def _update_footprint(self, rt: _PlanRuntime) -> None:
+        """Measure the runtime's live device bytes (states + every
+        accumulator of its ring) against the admission-time prediction,
+        at drain boundaries only. Publishes ``footprint.measured_bytes``
+        in the plan's scope and, with a recorded prediction,
+        ``footprint.admitted_bytes``, ``footprint.utilization`` and the
+        ``footprint.overruns`` counter when measured exceeds admitted (a
+        live soundness monitor on the analyzer). Group hosts publish
+        measured bytes only: a member's prediction prices a standalone
+        query."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        # tensor metadata only: no device wait
+        measured = _tree_nbytes(rt.states) + sum(
+            _tree_nbytes(acc) for acc in (rt.ring or [rt.acc]))
+        pid = rt.plan.plan_id
+        sc = tel.scope("plan", pid)
+        sc.gauge("footprint.measured_bytes", int(measured))
+        admitted = self._plan_admitted_bytes.get(pid)
+        if admitted is None or admitted <= 0:
+            return
+        sc.gauge("footprint.admitted_bytes", int(admitted))
+        sc.gauge("footprint.utilization", round(measured / admitted, 6))
+        if measured > admitted:
+            tel.inc("footprint.overruns")
+            sc.inc("footprint.overruns")
+            now = time.monotonic()
+            if now - self._footprint_warned_at >= 1.0:
+                self._footprint_warned_at = now
+                _LOG.warning(
+                    "%s: measured device footprint %d B exceeds the "
+                    "admitted %d B — the admission prediction was unsound "
+                    "for this plan, or its state grew past the admission-"
+                    "time shapes", pid, measured, admitted,
+                )
+
+    def footprint_status(self) -> Dict[str, Dict[str, object]]:
+        """The last-polled footprint per runtime ({plan_id: {measured,
+        admitted?, utilization?}}); reads scope gauges only, safe
+        off-thread."""
+        out: Dict[str, Dict[str, object]] = {}
+        for pid, reg in self.telemetry.scope_map("plan").items():
+            measured = reg.gauge_value("footprint.measured_bytes")
+            if measured is None:
+                continue
+            ent: Dict[str, object] = {"measured_bytes": int(measured)}
+            admitted = reg.gauge_value("footprint.admitted_bytes")
+            if admitted is not None:
+                ent["admitted_bytes"] = int(admitted)
+                ent["utilization"] = reg.gauge_value(
+                    "footprint.utilization")
+            out[pid] = ent
+        return out
 
     def _create_runtime(self, plan: CompiledPlan,
                         admit0: Optional[Callable] = None) -> None:
@@ -981,17 +1116,233 @@ class Job:
                 self.set_plan_enabled(pid, False)
         self._dynamic_cql.update(dynamic_cql)
 
+    # -- cross-tenant shared subplans (analysis/share.py) ---------------------
+    def _try_share(self, plan: CompiledPlan, tenant) -> bool:
+        """The subplan-share rung (below the stack join): split a
+        shareable filter prefix off the candidate, attach the tenant's
+        residue as a consumer suffix, and run the prefix ONCE as a
+        producer host shared by every tenant whose predicate is exactly
+        equal. Both halves are rendered, compiled and verified before any
+        state changes; any failure returns False and the admit falls
+        through to the unshared rungs — never to a wrong program."""
+        from ..analysis import share as shr
+        from ..analysis.plancheck import verify_plan
+
+        if self._plan_compiler is None:
+            return False
+        src = plan.source_ast
+        if (src is None or len(src.queries) != 1 or src.stream_defs
+                or src.table_defs or plan.chained):
+            return False
+        sp = shr.split_shared_prefix(src.queries[0])
+        if sp is None:
+            return False
+        src_schema = plan.schemas.get(sp.stream_id)
+        if src_schema is None:
+            return False
+        key = sp.key()
+        mid = shr.mid_stream_of(key)
+        host_id = shr.host_id_of(key)
+        entry = self._shared.get(key)
+        pid = plan.plan_id
+        try:
+            s_cql = shr.suffix_cql(src.queries[0], sp, mid, src_schema)
+            suffix_plan = self._plan_compiler(s_cql, pid)
+            if verify_plan(suffix_plan, trace=False, raise_on_error=False):
+                return False
+            host_plan = None
+            if entry is None:
+                p_cql = shr.prefix_cql(sp, mid)
+                host_plan = self._plan_compiler(p_cql, host_id)
+                if verify_plan(host_plan, trace=False,
+                               raise_on_error=False):
+                    return False
+        except Exception:  # noqa: BLE001 — the renderer or the compiler
+            # refused: this predicate is outside the faithful subset and
+            # the admit proceeds unshared (fail closed, never wrong)
+            return False
+        if entry is None:
+            self._create_runtime(host_plan)
+            entry = {
+                "host_id": host_id,
+                "mid": mid,
+                "prefix_cql": p_cql,
+                "src": sp.stream_id,
+                # the loopback's encode schema: the prefix is `select *`,
+                # so mid rows carry the SOURCE stream's fields in source
+                # order; encoded with the source schema (the environment's
+                # string dictionary, which every suffix's mid DDL shares),
+                # string codes stay comparable across the loopback
+                "mid_schema": src_schema,
+                "members": [],
+            }
+            self._shared[key] = entry
+            self._loopback[mid] = key
+        if entry["members"]:
+            host_rt = self._plans.get(entry["host_id"])
+            if host_rt is not None:
+                # the live host's pending mid rows go to the EXISTING
+                # members before this one attaches: a late joiner must
+                # never see rows produced before its admit
+                self._drain_plan(host_rt)
+        entry["members"].append(pid)
+        self._shared_member[pid] = key
+        # a checkpoint replays the SUFFIX (the host re-forms from the
+        # "shared" block first); _apply_control's setdefault keeps it
+        self._dynamic_cql[pid] = s_cql
+        self.telemetry.inc("control.subplan_share")
+        self._inc_tenant(tenant, "control.subplan_share")
+        # the suffix takes the rest of the ladder itself: structurally
+        # equal suffixes stack-join into one dynamic group (recursion is
+        # safe: split_shared_prefix refuses readers of a mid stream)
+        self.add_plan(suffix_plan, dynamic=True)
+        folded = self._folded.get(pid)
+        rt = self._plans.get(folded[0] if folded is not None else pid)
+        if rt is not None:
+            # pre-size the suffix's tape to the flush chunk bound
+            # (_flush_loopback chunks at batch_size): a flush never
+            # regrows a tape a captured segment is bound to
+            rt.tape_capacity = max(rt.tape_capacity,
+                                   bucket_size(self.batch_size))
+        return True
+
+    def _feed_loopback(self, schema, cb: ColumnBatch) -> None:
+        """Buffer a shared prefix's decoded mid-stream columns for its
+        consumer suffixes (absolute timestamps). Reached from
+        ``_emit_columns`` before any counter, collector or sink: mid rows
+        are plumbing, not output."""
+        mid = schema.stream_id
+        if mid not in self._loopback:
+            return
+        pend = self._loopback_buf.get(mid)
+        if pend is None:
+            # [batches, rows, the wall time of the OLDEST buffered row
+            # (the freshness bound for jobs that never drain with a wait)]
+            pend = self._loopback_buf[mid] = [[], 0, time.monotonic()]
+        pend[0].append(ColumnBatch(cb.ts + np.int64(self._epoch_ms or 0),
+                                   cb.cols))
+        pend[1] += len(cb)
+
+    def _flush_loopback(self, force: bool = False) -> None:
+        """Step the consumer suffixes with their mid streams' coalesced
+        rows, on the run loop. Two regimes:
+
+        * threshold (``force=False``, the steady drain polls): a mid
+          flushes once it has buffered ``batch_size`` rows, or once its
+          oldest row is one drain interval old — the suffixes' dispatch
+          rate follows the prefix's MATCH volume, not the source's tape
+          volume;
+        * barrier (``force=True``, every waiting drain: results,
+          snapshot, retire, attach): everything flushes, so that rows the
+          host produced are visible to the members before state is read,
+          a member retires, or a late joiner attaches.
+
+        Rows step time-ordered (a stable sort of the buffered columns) in
+        chunks of ``batch_size``, so a suffix's tape capacity stays at the
+        bucket it was pre-sized to."""
+        if not self._loopback_buf:
+            return
+        limit = max(1, int(self.batch_size or 1))
+        age_s = (self.drain_interval_ms or 0.0) / 1e3
+        now = time.monotonic()
+        ready = [
+            mid for mid, (_, n, t0) in list(self._loopback_buf.items())
+            if force or n >= limit or (age_s and now - t0 >= age_s)
+        ]
+        for mid in ready:
+            pending = self._loopback_buf.pop(mid, None)
+            if pending is None:
+                continue  # a nested barrier flush took it
+            entry = self._shared.get(self._loopback.get(mid, ""))
+            if entry is None or not pending[1]:
+                continue
+            cb = ColumnBatch.concat(pending[0])
+            order = np.argsort(cb.ts, kind="stable")
+            ts = cb.ts[order]
+            mid_schema = entry["mid_schema"]
+            cols = _encode_mid(mid_schema, cb, order)
+            consumers = [
+                rt for rt in list(self._plans.values())
+                if rt.enabled and mid in rt.plan.spec.stream_codes
+            ]
+            for i in range(0, len(ts), limit):
+                batch = EventBatch(
+                    mid, mid_schema,
+                    {k: c[i:i + limit] for k, c in cols.items()},
+                    ts[i:i + limit],
+                )
+                for rt in consumers:
+                    self._step_plan(rt, [batch])
+
+    def _replay_shared(self, shared: Dict[str, Dict]) -> None:
+        """Checkpoint restore of the share table: re-form every producer
+        host from its prefix CQL and rebuild the loopback routing BEFORE
+        ``_replay_dynamic`` re-admits the member suffixes, so that hosts
+        precede their consumers in runtime insertion order (a host drains
+        before its consumers)."""
+        for key, info in sorted(shared.items()):
+            members = [str(m) for m in info.get("members", ())]
+            if not members:
+                continue
+            host_id = str(info["host_id"])
+            try:
+                host_plan = self._plan_compiler(str(info["prefix_cql"]),
+                                                host_id)
+            except Exception:  # noqa: BLE001
+                _LOG.warning(
+                    "shared host %r could not be re-formed from its "
+                    "prefix CQL; its members restore without a producer "
+                    "— retire and re-admit them", host_id,
+                )
+                continue
+            self._create_runtime(host_plan)
+            mid = str(info["mid"])
+            src = str(info["src"])
+            self._shared[key] = {
+                "host_id": host_id,
+                "mid": mid,
+                "prefix_cql": str(info["prefix_cql"]),
+                "src": src,
+                "mid_schema": host_plan.schemas[src],
+                "members": members,
+            }
+            self._loopback[mid] = key
+            for pid in members:
+                self._shared_member[pid] = key
+
     def remove_plan(self, plan_id: str) -> None:
         """Retire a plan. Its rows produced so far surface first: a
         waiting drain of its runtime completes every queued drain (the
         fetch thread decodes a group's block by its members at decode
         time, so no queued block may outlive the member it holds rows
         of). A folded member's slot is then left row-inert, for a later
-        admit to reclaim; the last member's retire drops the host."""
+        admit to reclaim; the last member's retire drops the host. A
+        shared member's host drains first (its mid rows step into this
+        member's suffix, whose own drain then carries them out); the last
+        member's retire drops the shared host."""
         self._assert_runloop_owner("remove_plan")
+        skey = self._shared_member.pop(plan_id, None)
+        if skey is not None:
+            entry = self._shared.get(skey)
+            if entry is not None:
+                host_rt = self._plans.get(entry["host_id"])
+                if host_rt is not None:
+                    self._drain_plan(host_rt)
+                entry["members"] = [
+                    m for m in entry["members"] if m != plan_id]
+                if not entry["members"]:
+                    self._plans.pop(entry["host_id"], None)
+                    self._drain_hints.pop(entry["host_id"], None)
+                    self._loopback.pop(entry["mid"], None)
+                    self._loopback_buf.pop(entry["mid"], None)
+                    self._shared.pop(skey, None)
+                    self.telemetry.inc("control.subplan_unshare")
         folded = self._folded.pop(plan_id, None)
         self._folded_enabled.pop(plan_id, None)
         self._dynamic_cql.pop(plan_id, None)
+        # the footprint denominator dies with the runtime (an update
+        # records it again)
+        self._plan_admitted_bytes.pop(plan_id, None)
         if folded is not None:
             host_id, slot = folded
             self.telemetry.inc("control.retired")
@@ -1040,10 +1391,12 @@ class Job:
 
     @property
     def plan_ids(self) -> List[str]:
-        """Live user plan ids (group hosts excluded, their members
-        included). Safe off-thread: GIL-atomic list() snapshots."""
+        """Live user plan ids (group and shared hosts excluded, their
+        members included). Safe off-thread: GIL-atomic list()
+        snapshots."""
         return [pid for pid in list(self._plans)
-                if not pid.startswith("@dyn:")] + list(self._folded)
+                if not pid.startswith(("@dyn:", "@shr:"))] \
+            + list(self._folded)
 
     # -- control events --------------------------------------------------------
     def _pull_control(self) -> None:
@@ -1131,25 +1484,57 @@ class Job:
                 )
                 return True
 
+            def precleared(plan_id: str) -> bool:
+                """A carried PASSING service-gate verdict with the deep
+                tier's footprint numbers: the gate already ran the whole
+                analysis on this exact CQL, so apply time skips the deep
+                re-check. Events without one (a raw control topic, a
+                checkpointed pre-gate event) keep the full path."""
+                v = verdicts.get(plan_id)
+                return bool(
+                    v is not None and v.get("admitted", False)
+                    and v.get("state_bytes") is not None
+                    and v.get("acc_bytes") is not None
+                )
+
+            def note_admission(plan_id: str, plan) -> None:
+                """Tenant and admitted-footprint bookkeeping of an
+                accepted add or update, before add_plan (its counters
+                land in the tenant's scope, the meter has its denominator
+                from the first drain). The apply-time analysis's own
+                prediction wins over the carried summary."""
+                if tenant is not None:
+                    self._plan_tenant[plan_id] = tenant
+                nb = getattr(plan, "_admitted_nbytes", None)
+                if nb is None:
+                    v = verdicts.get(plan_id) or {}
+                    sb, ab = v.get("state_bytes"), v.get("acc_bytes")
+                    if sb is not None and ab is not None:
+                        nb = self.admitted_bytes(sb, ab)
+                if nb is not None:
+                    self._plan_admitted_bytes[plan_id] = int(nb)
+
             for plan_id, cql in ev.added_plans.items():
                 if rejected(plan_id):
                     continue
-                plan = self._compile_admitted(plan_id, cql, tenant)
+                plan = self._compile_admitted(
+                    plan_id, cql, tenant, precleared=precleared(plan_id))
                 if plan is None:
                     continue
-                if tenant is not None:
-                    self._plan_tenant[plan_id] = tenant
+                note_admission(plan_id, plan)
                 self.add_plan(plan, dynamic=True)
+                # setdefault: a subplan-share admit already recorded the
+                # tenant's SUFFIX CQL (what a checkpoint replays)
                 self._dynamic_cql.setdefault(plan_id, cql)
             for plan_id, cql in ev.updated_plans.items():
                 if rejected(plan_id):
                     continue  # the running plan stays as it is
-                plan = self._compile_admitted(plan_id, cql, tenant)
+                plan = self._compile_admitted(
+                    plan_id, cql, tenant, precleared=precleared(plan_id))
                 if plan is None:
                     continue
                 self.remove_plan(plan_id)
-                if tenant is not None:
-                    self._plan_tenant[plan_id] = tenant
+                note_admission(plan_id, plan)
                 self.add_plan(plan, dynamic=True)
                 self._dynamic_cql.setdefault(plan_id, cql)
             for plan_id in ev.deleted_plan_ids:
@@ -1160,24 +1545,63 @@ class Job:
             raise TypeError(f"unknown control event {type(ev)!r}")
 
     def _compile_admitted(self, plan_id: str, cql: str,
-                          tenant: Optional[str] = None):
-        """Apply-time admission: compile the candidate and return the
-        plan, or None after recording the refusal — CQL that does not
-        compile is refused as ``CQL000`` instead of taking down the
-        running queries. (The reference also runs its plan checks and
-        admission analysis here: ROADMAP.md Queue 1 item 12.)"""
+                          tenant: Optional[str] = None,
+                          precleared: bool = False):
+        """Apply-time admission: compile the candidate, run plancheck's
+        static tier and the admission analysis against
+        ``self.admission_budgets``, and return the plan — or None after
+        recording the refusal with its rule ids (CQL that does not
+        compile is ``CQL000``). Defense in depth behind the service
+        gate: an event injected past the REST layer is still judged
+        before it touches the stack.
+
+        ``precleared``: the event carried a PASSING gate verdict with the
+        deep tier's numbers, so the deep footprint + budget re-verdict is
+        skipped (counted in ``control.preclear``; the carried bytes feed
+        the footprint meter). The static verify and cost-hook tier still
+        runs, so a forged verdict cannot smuggle an invalid plan in."""
+        from ..analysis.admit import AdmissionError, analyze_plan
+        from ..analysis.plancheck import PlanCheckError, verify_plan
+
+        rules: List[str] = []
+        rendered: List[str] = []
         try:
-            return self._plan_compiler(cql, plan_id)
+            plan = self._plan_compiler(cql, plan_id)
+            issues = verify_plan(plan, trace=False, raise_on_error=False)
+            rules += [i.rule for i in issues]
+            rendered += [i.render() for i in issues]
+            if not issues:
+                budgets = self.admission_budgets
+                if precleared and budgets is not None:
+                    budgets = None
+                    self.telemetry.inc("control.preclear")
+                report = analyze_plan(plan, budgets=budgets,
+                                      deep=budgets is not None)
+                rules += [i.rule for i in report.findings]
+                rendered += [i.render() for i in report.findings]
+                if (report.state_bytes is not None
+                        and report.acc_bytes is not None):
+                    # the footprint meter's denominator: what THIS
+                    # compiled plan was predicted to cost
+                    plan._admitted_nbytes = self.admitted_bytes(
+                        report.state_bytes, report.acc_bytes)
+        except (PlanCheckError, AdmissionError) as e:
+            # compile_plan itself verifies under FST_VERIFY_PLANS or the
+            # config's budgets: the same refusal, the same record
+            rules += [i.rule for i in e.issues]
+            rendered += [i.render() for i in e.issues]
         except Exception as e:  # noqa: BLE001 — unparsable/uncompilable
-            self._record_rejection(
-                plan_id, ["CQL000"], [f"{type(e).__name__}: {e}"], tenant,
-                source="apply-time",
-            )
+            rules += ["CQL000"]
+            rendered += [f"{type(e).__name__}: {e}"]
+        if rules:
+            self._record_rejection(plan_id, rules, rendered, tenant,
+                                   source="apply-time")
             _LOG.warning(
                 "control-path plan %s refused at apply time: %s",
-                plan_id, ["CQL000"],
+                plan_id, rules,
             )
             return None
+        return plan
 
     def _record_rejection(self, plan_id: str, rules, findings,
                           tenant: Optional[str] = None,
@@ -1209,15 +1633,26 @@ class Job:
                 for k, v in counters.items() if k.startswith("control.")
             },
             "rejections": rejections,
+            # the share table: per share key, the producer host and its
+            # members (the retire refcount)
+            "shared": {
+                key: {
+                    "host": e["host_id"],
+                    "mid": e["mid"],
+                    "members": list(e["members"]),
+                }
+                for key, e in dict(self._shared).items()
+            },
         }
 
     def query_listing(self) -> List[Dict[str, object]]:
-        """GET /api/v1/queries: id, tenant, enabled state and fold
-        host/slot per live plan. Safe off-thread (GIL-atomic
+        """GET /api/v1/queries: id, tenant, enabled state, fold host/slot
+        and shared host/key per live plan. Safe off-thread (GIL-atomic
         snapshots)."""
         out: List[Dict[str, object]] = []
         folded = dict(self._folded)
         folded_enabled = dict(self._folded_enabled)
+        shared_member = dict(self._shared_member)
         for pid in self.plan_ids:
             f = folded.get(pid)
             if f is not None:
@@ -1227,8 +1662,14 @@ class Job:
                 rt = self._plans.get(pid)
                 enabled = bool(rt.enabled) if rt is not None else False
                 fold = None
-            out.append({"id": pid, "tenant": self.tenant_of(pid),
-                        "enabled": enabled, "folded": fold})
+            skey = shared_member.get(pid)
+            se = self._shared.get(skey) if skey is not None else None
+            out.append({
+                "id": pid, "tenant": self.tenant_of(pid),
+                "enabled": enabled, "folded": fold,
+                "shared": (None if se is None
+                           else {"host": se["host_id"], "key": skey}),
+            })
         return out
 
     def add_sink(self, output_stream: str, fn: Callable) -> None:
@@ -1285,6 +1726,8 @@ class Job:
         # a rerun is a fresh drive: its run loop re-stamps ownership
         self._runloop_thread = None
         self._settle_drains()
+        # mid rows of the run before belong to no state of the rerun
+        self._loopback_buf.clear()
         for rt in self._plans.values():
             self._install_states(
                 rt, rt.plan.grow_state(rt.plan.init_state(self.device)))
@@ -1788,9 +2231,15 @@ class Job:
         """This plan's segment length: the configured K, clamped so that
         the accumulator holds a whole segment's emissions (no drain runs
         inside a segment: the drain hint's bound, as the resident replay
-        applies it)."""
+        applies it). A loopback consumer's segments are one tape: its
+        tapes come a chunk at a time from the loopback's flushes, and a
+        barrier flush would otherwise pad its one chunk to K, stepping
+        K - 1 empty tapes of the full capacity."""
         k = self.fused_segment_len
         if not k or k <= 1 or not rt.plan.artifacts:
+            return 1
+        if self._loopback and not self._loopback.keys().isdisjoint(
+                rt.plan.spec.stream_codes):
             return 1
         hint = self._drain_hints.get(rt.plan.plan_id)
         if hint:
@@ -1997,9 +2446,26 @@ class Job:
             # staged, undispatched tapes reach the device first
             self._dispatch_segment(rt)
         with self.telemetry.span("drain"):
-            for rt in self._plans.values():
+            for rt in list(self._plans.values()):
                 self._drain_request(rt)
                 self._drain_poll(rt, block=wait)
+        if self._loopback and wait:
+            # the hosts' drains above may have stepped mid rows into
+            # their suffixes AFTER those suffixes' own drains (and, fused,
+            # staged them without a dispatch): a waiting drain settles
+            # them too. Hosts precede their members in insertion order,
+            # so one more pass over the consumers suffices
+            mids = set(self._loopback)
+            with self.telemetry.span("drain"):
+                for rt in list(self._plans.values()):
+                    if not (mids & set(rt.plan.spec.stream_codes)):
+                        continue
+                    if (not rt.seg_pending and rt.dirty_since is None
+                            and not rt.drain_q):
+                        continue  # nothing left to surface
+                    self._dispatch_segment(rt)
+                    self._drain_request(rt)
+                    self._drain_poll(rt, block=True)
 
     def _drain_plan(self, rt: _PlanRuntime) -> None:
         """A waiting drain of one plan."""
@@ -2012,8 +2478,10 @@ class Job:
         """Complete every queued drain of every plan, then wait for every
         other live Job's running fetches (before a graph capture: no fetch
         thread's CUDA calls may overlap one, whichever Job's)."""
-        for rt in self._plans.values():
-            self._drain_poll(rt, block=True)
+        for rt in list(self._plans.values()):
+            # no loopback flush here: it would step suffixes (and, fused,
+            # capture their graphs) inside another capture's preparation
+            self._drain_poll_inner(rt, block=True)
         for job in list(_LIVE_JOBS):
             if job is not self:
                 job._await_fetches()
@@ -2120,10 +2588,12 @@ class Job:
 
     def _force_oldest(self, rt: _PlanRuntime) -> None:
         """Complete the oldest queued drain on the run loop (a counted
-        wait)."""
+        wait). No loopback flush here: it runs inside an accumulator swap,
+        where a suffix's step would append to the accumulator being
+        swapped out; the next poll flushes."""
         self.drains_forced += 1
         self.telemetry.inc("drains.forced")
-        self._drain_poll(rt, block=True, limit=1)
+        self._drain_poll_inner(rt, block=True, limit=1)
 
     def _swap_acc(self, rt: _PlanRuntime) -> None:
         """Make a free ring position the live accumulator: grow the ring
@@ -2150,7 +2620,12 @@ class Job:
         filled it, the copy of its counts issued behind that event (on
         the CPU done at once), the consumers' lane, and the clock stamps.
         Past ``MAX_PENDING_DRAINS`` queued, the oldest completes."""
-        if not rt.plan.artifacts or not rt.acc_dirty:
+        if not rt.plan.artifacts:
+            return
+        # the footprint meter polls at drain boundaries only (tensor
+        # metadata, no device wait)
+        self._update_footprint(rt)
+        if not rt.acc_dirty:
             return  # provably empty: nothing to swap or fetch
         old, pos = rt.acc, rt.acc_pos
         ready = None
@@ -2192,13 +2667,16 @@ class Job:
             self._force_oldest(rt)
 
     def _columnar_streams(self, rt: _PlanRuntime) -> frozenset:
-        """Output streams of this plan whose rows never need to exist:
-        host retention off, and every attached sink speaks the columnar
-        protocol."""
+        """Output streams of this plan whose rows never need to exist: a
+        shared host's mid stream (the loopback takes columns), and, with
+        host retention off, a stream whose every attached sink speaks
+        the columnar protocol."""
+        streams = rt.plan.output_streams()
+        mids = frozenset(sid for sid in streams if sid in self._loopback)
         if self.retain_results:
-            return frozenset()
-        return frozenset(
-            sid for sid in rt.plan.output_streams()
+            return mids
+        return mids | frozenset(
+            sid for sid in streams
             if self._sinks.get(sid)
             and all(hasattr(s, "accept_columns") for s in self._sinks[sid])
             # a snapshot limiter keeps the latest row per group key
@@ -2212,14 +2690,18 @@ class Job:
         most often): counted, never decoded."""
         if self.retain_results:
             return frozenset()
+        # a shared host's mid stream is observed by its suffixes
         return frozenset(sid for sid in rt.plan.output_streams()
-                         if not self._sinks.get(sid))
+                         if not self._sinks.get(sid)
+                         and sid not in self._loopback)
 
     def _has_consumers(self, rt: _PlanRuntime) -> bool:
-        """Whether any host-side consumer observes this plan's rows."""
+        """Whether any host-side consumer observes this plan's rows (a
+        shared host's consumers are its member suffixes)."""
         if self.retain_results:
             return True
-        return any(self._sinks.get(sid) for sid in rt.plan.output_streams())
+        return any(self._sinks.get(sid) or sid in self._loopback
+                   for sid in rt.plan.output_streams())
 
     @property
     def _fetch_pool(self) -> concurrent.futures.Executor:
@@ -2325,7 +2807,16 @@ class Job:
         (decoded on the fetch thread already) to collectors and sinks.
         Without ``block`` this never waits; with it, every queued drain
         (or the first ``limit``) completes, and a poll that had to wait
-        counts one run-loop wait."""
+        counts one run-loop wait. Then the loopback flushes: at its
+        thresholds, or, for a waiting poll (a barrier: results, snapshot,
+        retire, attach), everything."""
+        try:
+            self._drain_poll_inner(rt, block, limit)
+        finally:
+            self._flush_loopback(force=block)
+
+    def _drain_poll_inner(self, rt: _PlanRuntime, block: bool = False,
+                          limit: int = 0) -> None:
         waited = False
         try:
             self._advance_ready(rt, all_=block)
@@ -2520,10 +3011,15 @@ class Job:
         """The columnar lane's emission: counts, rate limiting and sink
         delivery account arrays, never row tuples. Reached only for
         streams that ``_columnar_streams`` approved (every consumer
-        columnar)."""
+        columnar, or a shared host's mid stream)."""
         if not len(cb):
             return
         sid = schema.stream_id
+        if self._loopback and sid in self._loopback:
+            # a shared prefix's mid stream: host-side plumbing into the
+            # member suffixes — no counters, collectors or sinks
+            self._feed_loopback(schema, cb)
+            return
         if rate_limit:
             limiter = self._rate_limiters.get(sid)
             if limiter is not None:

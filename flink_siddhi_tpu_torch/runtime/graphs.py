@@ -40,13 +40,15 @@ Per plan runtime, ``SegmentGraphs`` holds:
   ``before_capture`` (the job's) completes every queued drain and waits
   for every other live Job's running fetches, so that a capture and a
   drain fetch thread's CUDA calls never overlap; and ``capture_guard``
-  collects the process's garbage first and holds the cyclic collector off
-  until the capture ends. A graph capture runs in torch's default
-  "global" mode, where destroying a CUDA graph from any thread
-  invalidates it: a dropped Job's graphs (its runtimes sit in reference
-  cycles) were once collected in the middle of another Job's capture,
-  which then failed ("operation not permitted when stream is capturing",
-  in ``CUDAGraph::reset``).
+  collects the young garbage first and holds the cyclic collector off
+  until the capture ends (over every thread's captures). A graph capture
+  runs in torch's default "global" mode, where destroying a CUDA graph
+  from any thread invalidates it: a dropped Job's graphs (its runtimes
+  sit in reference cycles) were once collected in the middle of another
+  Job's capture, which then failed ("operation not permitted when stream
+  is capturing", in ``CUDAGraph::reset``). So a collected runtime's
+  graphs are never destroyed by the collection: its finalizer buries
+  them, and the next ``capture_guard`` destroys them before it captures.
 
 A segment with a tape whose chain matcher must read its relevant count (a
 host-known bound above the compact width) cannot be captured; it runs its
@@ -70,6 +72,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -129,19 +133,64 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
+def _card_short() -> bool:
+    """Whether torch's caching allocator holds more than half the card:
+    then a dropped Job's device memory is worth a full collection."""
+    if not torch.cuda.is_initialized():
+        return False
+    dev = torch.cuda.current_device()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return torch.cuda.memory_reserved(dev) > total // 2
+
+
+_GC_HOLD = threading.Lock()
+_gc_holds = 0  # captures in progress, over every thread
+_gc_was_enabled = True  # the collector's state when the first began
+
+# The graph table of every live ``SegmentGraphs`` on a CUDA device, by id.
+# A runtime freed by the cyclic collector may be collected inside another
+# runtime's capture, and destroying a CUDA graph there invalidates that
+# capture ("global" capture mode): its table moves to ``_BURIED`` instead,
+# and its graphs are destroyed at the next ``capture_guard``, before the
+# capture.
+_TABLES: Dict[int, Dict] = {}
+_BURIED: List[Dict] = []
+
+
+def _bury(key: int) -> None:
+    """A collected ``SegmentGraphs``' finalizer: keep its graphs alive."""
+    table = _TABLES.pop(key, None)
+    if table:
+        _BURIED.append(table)
+
+
 @contextlib.contextmanager
 def capture_guard():
-    """Around a capture: collect the garbage first (a dropped Job's CUDA
-    graphs and events are freed here, not inside the capture) and keep
-    the cyclic collector off until the capture ends."""
-    gc.collect()
-    enabled = gc.isenabled()
-    gc.disable()
+    """Around a capture: collect the young garbage first, destroy the
+    graphs of runtimes collected since the last capture (``_BURIED``),
+    and keep the cyclic collector off until the capture ends. Older
+    garbage waits for an ordinary collection, which cannot run while any
+    capture holds the collector off (captures on several threads share
+    one hold, released by the last to end); a collection that runs inside
+    a capture all the same (``gc.collect()`` called there) buries the
+    graphs it frees. A full collection walks every live object, so it
+    runs here only while the card is short of memory (``_card_short``),
+    not before every capture key."""
+    global _gc_holds, _gc_was_enabled
+    with _GC_HOLD:
+        if _gc_holds == 0:
+            gc.collect() if _card_short() else gc.collect(1)
+            _BURIED.clear()  # no capture runs: their graphs may go
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
     try:
         yield
     finally:
-        if enabled:
-            gc.enable()
+        with _GC_HOLD:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 class Captured:
@@ -212,13 +261,15 @@ class SegmentGraphs:
         self.device = device
         self.cuda = device.type == "cuda"
         self.before_capture = before_capture
-        if self.cuda:
-            self.stream = torch.cuda.Stream(device)  # warm-up and capture
-            self.pool = torch.cuda.graph_pool_handle()
         # key -> one captured graph per ring position (None on the CPU)
         self.graphs: "collections.OrderedDict[Tuple, List]" = (
             collections.OrderedDict()
         )
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)  # warm-up and capture
+            self.pool = torch.cuda.graph_pool_handle()
+            _TABLES[id(self)] = self.graphs
+            weakref.finalize(self, _bury, id(self))
         self.slots: Dict[Tuple, torch.Tensor] = {}
         self.captured = 0  # graphs captured so far
         # graph keys captured so far (each for every position); on the

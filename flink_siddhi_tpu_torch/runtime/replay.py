@@ -44,7 +44,11 @@ boundaries the streaming loop would apply each control event at (the same
 watermark gate, ``Job._pop_ready_control``), and each epoch applies its
 events (the executor's own epoch-boundary paths), then stages and replays
 its tapes under the resulting plan set. A live control source that never
-finishes is refused. Not in the port yet: ``ShardedResidentReplay`` (item
+finishes is refused. With ``Job.share_subplans`` on, a shared host's
+segments run like any plan's, and its drain polls step the member
+suffixes with the mid rows on the run loop between segments (the
+loopback's threshold flush, and everything at the waiting poll that
+closes the host's epoch). Not in the port yet: ``ShardedResidentReplay`` (item
 11).
 """
 

@@ -195,7 +195,6 @@ def test_keep_rotates_generations_and_sweeps_temp_files(tmp_path):
 
 
 @pytest.mark.parametrize("block,value,item", [
-    ("shared", {"k": {}}, 10),
     ("routers", {"p": {}}, 11),
     ("fleet", {"epoch": 3, "last_handoff": None}, 13),
 ])
@@ -307,8 +306,14 @@ def _columns(n, n_ids, seed, step_ms=7, t0=1000, offset=0):
     }
 
 
-def _build(pkg, cql, streams, batch, config):
+def _build(pkg, cql, streams, batch, config, control=True):
+    """A job over seeded streams: one static plan of ``cql``, or, with
+    ``share_subplans`` in ``config``, its queries admitted as tenants
+    through control events at ts 0 with subplan sharing on (``control``
+    False: no control source, for a job a checkpoint restores into)."""
     Schema, Batch, Source, compile_plan, Job, Config, kw = PKGS[pkg]
+    config = dict(config)
+    share = config.pop("share_subplans", False)
     schemas, sources = {}, []
     strings = None
     for sid, cols in streams.items():
@@ -326,8 +331,35 @@ def _build(pkg, cql, streams, batch, config):
             for s in range(0, n, batch)
         ]
         sources.append(Source(sid, schema, batches))
+    if share:
+        return _tenant_job(pkg, cql, schemas, sources, batch, control)
     plan = compile_plan(cql, schemas, plan_id="p", config=Config(**config))
     return Job([plan], sources, batch_size=batch, time_mode="event", **kw)
+
+
+def _tenant_job(pkg, cql, schemas, sources, batch, control):
+    _, _, _, compile_plan, Job, _, kw = PKGS[pkg]
+    if pkg == "torch":
+        from flink_siddhi_tpu_torch.control import events as ev
+        from flink_siddhi_tpu_torch.runtime.sources import ControlListSource
+    else:
+        from flink_siddhi_tpu.control import events as ev
+        from flink_siddhi_tpu.runtime.sources import ControlListSource
+    timeline = []
+    for i, q in enumerate(cql.split(";")):
+        b = ev.MetadataControlEvent.builder()
+        b.add_execution_plan(q.strip(), plan_id=f"t{i}")
+        add = b.build()
+        add.tenant = f"tenant{i}"
+        timeline.append((0, add))
+    job = Job([], sources, batch_size=batch, time_mode="event",
+              control_sources=([ControlListSource(timeline)]
+                               if control else []),
+              plan_compiler=lambda q, pid: compile_plan(q, schemas,
+                                                        plan_id=pid),
+              **kw)
+    job.share_subplans = True
+    return job
 
 
 def _same_rows(got, ref, what):
@@ -375,6 +407,18 @@ CROSS = {
         "from S#window.session(25 ms, id) select id, count() as c, "
         "sum(price) as s, max(price) as hi insert into o",
         {"S": (20, 8)}, {}),
+    # three tenants on one shared prefix (a string predicate: the mid
+    # rows' codes cross the loopback), the file's "shared" block
+    "shared_fleet": (
+        "from S[name != 'gamma' and price > 30.0][id == 1] "
+        "select timestamp as t, name as n, price as p insert into o; "
+        "from S[name != 'gamma' and price > 30.0]#window.lengthBatch(4) "
+        "select sum(price) as s insert into o; "
+        "from every s1 = S[name != 'gamma' and price > 30.0 and id == 2] "
+        "-> s2 = S[name != 'gamma' and price > 30.0 and name == 'beta'] "
+        "within 1 sec select s1.timestamp as t1, s2.price as p "
+        "insert into o",
+        {"S": (4, 10)}, {"share_subplans": True}),
 }
 
 
@@ -394,10 +438,17 @@ def test_checkpoint_file_moves_between_packages(tmp_path, name, writer):
     assert not first.finished
     path = str(tmp_path / "ck")
     first.save_checkpoint(path)
+    if config.get("share_subplans"):
+        shared = first.snapshot()["shared"]
+        assert len(shared) == 1
+        assert sorted(next(iter(shared.values()))["members"]) == [
+            "t0", "t1", "t2"]
     rows = {}
     for pkg in ("jax", "torch"):
-        job = _build(pkg, cql, streams, batch, config)
+        job = _build(pkg, cql, streams, batch, config, control=False)
         job.restore(path)
+        if config.get("share_subplans"):
+            assert job.control_status()["shared"], pkg
         job.run()
         rows[pkg] = job.results_with_ts("o")
     assert rows["jax"], f"{name}: no rows after the restore"

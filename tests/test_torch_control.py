@@ -13,15 +13,18 @@ sides:
   the run-loop ownership guard, the refused unparsable CQL, the REST
   service under sustained load, the resident replay in epochs against the
   streaming run, a live control queue in a resident replay, a checkpoint
-  taken with an admit still pending, and the tenant's JSON round trip (the
-  admission gate runs on the reference side only: it is item 12);
+  taken with an admit still pending, and the tenant's JSON round trip,
+  with the admission gate on both sides; its hostile query refused by
+  ADM110 at the REST boundary (422) and at apply time, the gate refusing
+  before any event is pushed, and a gated admit skipping the apply-time
+  deep tier (``control.preclear``);
 * ``tests/test_app.py``'s REST round trip over the ported routes, and
   ``tests/test_replay.py``'s control-streams contract;
 * ``DynamicChainGroup.step`` against the reference's on random tapes
   (states and packed blocks equal), one call of each chain kernel per
   group step with 1 member or 8, a retire followed by an admit into the
   same slot within one drain interval (rows attributed to the member that
-  produced them), and the refusals that name later ROADMAP items.
+  produced them), and what still waits for a later ROADMAP item.
 """
 
 import dataclasses
@@ -87,7 +90,7 @@ TORCH = types.SimpleNamespace(
     ControlListSource=t_sources.ControlListSource,
     ControlQueueSource=t_service.ControlQueueSource,
     QueryControlService=t_service.QueryControlService,
-    ControlPlane=t_plane.ControlPlane, AdmissionGate=None,
+    ControlPlane=t_plane.ControlPlane, AdmissionGate=t_plane.AdmissionGate,
     MetadataControlEvent=t_events.MetadataControlEvent,
     OperationControlEvent=t_events.OperationControlEvent,
     ResidentReplay=t_replay.ResidentReplay,
@@ -598,10 +601,8 @@ def _cp_job(pk, src, ctrl, schema, **kw):
 
 
 def _plane(pk, job, ctrl, schema):
-    if pk is JAX:
-        return pk.ControlPlane(
-            job, ctrl, gate=pk.AdmissionGate(_compiler(pk, schema)))
-    return pk.ControlPlane(job, ctrl)
+    return pk.ControlPlane(
+        job, ctrl, gate=pk.AdmissionGate(_compiler(pk, schema)))
 
 
 def cp_admit_stack_join_retire_reclaim_slot(pk):
@@ -706,9 +707,9 @@ def cp_service_sustained_load_zero_drops_bounded_latency(pk):
     job = pk.Job([], [src], batch_size=4096, time_mode="processing",
                  control_sources=[ctrl],
                  plan_compiler=_compiler(pk, schema), retain_results=False)
-    kw = ({"admission": pk.AdmissionGate(_compiler(pk, schema))}
-          if pk is JAX else {})
-    svc = pk.QueryControlService(ctrl, job=job, **kw).start()
+    svc = pk.QueryControlService(
+        ctrl, job=job,
+        admission=pk.AdmissionGate(_compiler(pk, schema))).start()
     fed = 0
     cyc = []
     try:
@@ -891,8 +892,114 @@ def cp_tenant_field_json_round_trip(pk):
     return ev2.tenant, ev2.added_plans, op2.tenant, op3.tenant
 
 
+# the hostile zoo's unbounded-residency query: plancheck-clean, refused
+# under the strict multi-tenant budgets by exactly ADM110
+HOSTILE_CQL = (
+    "from every s1 = S[id == 1] -> s2 = S[id == 2] "
+    "select s1.price as p1, s2.price as p2 insert into out"
+)
+
+
+def _strict(pk):
+    if pk is JAX:
+        from flink_siddhi_tpu.analysis.admit import STRICT_BUDGETS
+    else:
+        from flink_siddhi_tpu_torch.analysis.admit import STRICT_BUDGETS
+    return STRICT_BUDGETS
+
+
+def cp_hostile_refused_by_rule_id_rest_and_apply_time(pk):
+    import urllib.error
+
+    schema = _schema(pk)
+    src = pk.CallbackSource("S", schema)
+    ctrl = pk.ControlQueueSource()
+    job = _cp_job(pk, src, ctrl, schema)
+    job.admission_budgets = _strict(pk)
+    gate = pk.AdmissionGate(_compiler(pk, schema), budgets=_strict(pk))
+    svc = pk.QueryControlService(ctrl, job=job, admission=gate).start()
+    seen = []
+    try:
+        base = f"http://127.0.0.1:{svc.port}/api/v1"
+        req = urllib.request.Request(
+            f"{base}/queries",
+            data=json.dumps({"cql": HOSTILE_CQL}).encode(),
+            method="POST",
+        )
+        try:
+            urllib.request.urlopen(req)
+            raise AssertionError("hostile add returned 2xx")
+        except urllib.error.HTTPError as e:
+            assert e.code == 422
+            body = json.loads(e.read())
+            assert body["rules"] == ["ADM110"]
+        boundary_id = body["id"]
+        assert job.control_rejections[boundary_id]["source"] == "service"
+        with urllib.request.urlopen(f"{base}/queries/{boundary_id}") as r:
+            status = json.loads(r.read())
+        assert status["state"] == "rejected"
+        assert status["rules"] == ["ADM110"]
+        seen.append((body["rules"], status["state"], status["rules"]))
+        req = urllib.request.Request(
+            f"{base}/queries",
+            data=json.dumps({"cql": _cp_chain(1, 2),
+                             "tenant": "acme"}).encode(),
+            method="POST",
+        )
+        with urllib.request.urlopen(req) as resp:
+            assert resp.status == 201
+            created = json.loads(resp.read())
+        assert created["admission"]["admitted"] is True
+        assert created["admission"]["signature"]
+        _emit(src, 0, 4)
+        job.run_cycle()
+        assert created["id"] in job.plan_ids
+        seen.append((created["admission"]["admitted"],
+                     created["admission"]["residency_ms"],
+                     created["admission"]["amplification"]))
+        b = pk.MetadataControlEvent.builder()
+        hostile_id = b.add_execution_plan(HOSTILE_CQL, plan_id="hostile-1")
+        ctrl.push(b.build())
+        job.run_cycle()
+        assert hostile_id not in job.plan_ids
+        assert job.control_rejections[hostile_id]["rules"] == ["ADM110"]
+        with urllib.request.urlopen(f"{base}/health") as resp:
+            health = json.loads(resp.read())
+        counters = health["control"]["counters"]
+        assert counters["admission_rejected"] >= 1
+        assert hostile_id in health["control"]["rejections"]
+        with urllib.request.urlopen(f"{base}/queries/{hostile_id}") as r:
+            status = json.loads(r.read())
+        assert status["state"] == "rejected"
+        assert status["rules"] == ["ADM110"]
+        seen.append((status["rules"], counters["admission_rejected"],
+                     counters.get("preclear")))
+    finally:
+        svc.stop()
+    return seen
+
+
+def cp_gate_rejects_before_event_ever_pushed(pk):
+    ctrl = pk.ControlQueueSource()
+    plane = pk.ControlPlane(
+        None, ctrl,
+        gate=pk.AdmissionGate(_compiler(pk, _schema(pk)),
+                              budgets=_strict(pk)))
+    with pytest.raises(ControlRejected_of(pk)) as ei:
+        plane.admit(HOSTILE_CQL)
+    assert ei.value.rules == ["ADM110"]
+    assert ctrl.poll(16)[0] == []  # nothing reached the stream
+    return ei.value.rules, ei.value.summary["admitted"]
+
+
+def ControlRejected_of(pk):
+    return (j_plane if pk is JAX else t_plane).ControlRejected
+
+
 CP_CASES = {
     f.__name__[len("cp_"):]: f for f in (
+        cp_hostile_refused_by_rule_id_rest_and_apply_time,
+        cp_gate_rejects_before_event_ever_pushed,
         cp_admit_stack_join_retire_reclaim_slot,
         cp_unparsable_cql_refused_not_fatal,
         cp_service_sustained_load_zero_drops_bounded_latency,
@@ -907,6 +1014,84 @@ CP_CASES = {
 @pytest.mark.parametrize("name", sorted(CP_CASES))
 def test_control_plane_matches_the_reference(name):
     _both(CP_CASES[name])
+
+
+HUGE_WINDOW_CQL = ("from S#window.length(1073741824) select sum(price) as s "
+                   "insert into out")
+
+
+@pytest.mark.parametrize("where", ["rest", "apply_time", "compile"])
+def test_state_budget_refuses_a_huge_window_before_any_host_state(
+        where, monkeypatch):
+    """A 2^30-event window (about 9 GiB of state) is refused by ADM101
+    on its meta-tensor footprint: no tier allocates its state on the
+    host or steps it first. ``init_state`` on any device but meta fails
+    before it allocates, so a regression fails here, not by memory."""
+    import resource
+    import time
+    import urllib.error
+
+    from flink_siddhi_tpu_torch.analysis.admit import (
+        DEFAULT_BUDGETS, AdmissionError)
+    from flink_siddhi_tpu_torch.compiler.config import EngineConfig
+    from flink_siddhi_tpu_torch.compiler.plan import CompiledPlan
+
+    real = CompiledPlan.init_state
+    devices = []
+
+    def meta_only(self, device):
+        devices.append(torch.device(device).type)
+        if torch.device(device).type != "meta":
+            raise AssertionError(f"{self.plan_id}: state on {device}")
+        return real(self, device)
+
+    monkeypatch.setattr(CompiledPlan, "init_state", meta_only)
+    pk = TORCH
+    schema = _schema(pk)
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.monotonic()
+    if where == "compile":
+        with pytest.raises(AdmissionError) as ei:
+            pk.compile_plan(HUGE_WINDOW_CQL, {"S": schema}, plan_id="huge",
+                            config=EngineConfig(
+                                admission_budgets=DEFAULT_BUDGETS,
+                                verify_plans=True))
+        rules = [i.rule for i in ei.value.issues]
+    else:
+        src = pk.CallbackSource("S", schema)
+        ctrl = pk.ControlQueueSource()
+        job = _cp_job(pk, src, ctrl, schema)
+        job.admission_budgets = DEFAULT_BUDGETS
+        if where == "apply_time":
+            b = pk.MetadataControlEvent.builder()
+            pid = b.add_execution_plan(HUGE_WINDOW_CQL, plan_id="huge")
+            ctrl.push(b.build())
+            job.run_cycle()
+            assert pid not in job.plan_ids
+            rules = job.control_rejections[pid]["rules"]
+        else:
+            gate = pk.AdmissionGate(_compiler(pk, schema),
+                                    budgets=DEFAULT_BUDGETS)
+            svc = pk.QueryControlService(ctrl, job=job,
+                                         admission=gate).start()
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{svc.port}/api/v1/queries",
+                    data=json.dumps({"cql": HUGE_WINDOW_CQL}).encode(),
+                    method="POST",
+                )
+                with pytest.raises(urllib.error.HTTPError) as ei:
+                    urllib.request.urlopen(req)
+                assert ei.value.code == 422
+                rules = json.loads(ei.value.read())["rules"]
+            finally:
+                svc.stop()
+    seconds = time.monotonic() - t0
+    grown_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - rss0
+    assert rules == ["ADM101"]
+    assert devices and set(devices) == {"meta"}
+    assert seconds < 10.0
+    assert grown_kib < 256 * 1024
 
 
 def test_ownership_guard_catches_off_thread_mutation(monkeypatch):
@@ -1370,25 +1555,11 @@ def test_device_failure_at_a_control_boundary_stops_the_run(event):
 
 def test_later_items_refuse_naming_their_item():
     job = TORCH.Job([], [])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        job.admission_budgets = object()
-    job.admission_budgets = None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        job.share_subplans = True
-    job.share_subplans = False
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_plane.AdmissionGate(lambda cql, pid: None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TORCH.ControlPlane(job, TORCH.ControlQueueSource(), gate=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TORCH.QueryControlService(TORCH.ControlQueueSource(),
-                                  admission=object())
-    snap = job.snapshot()
-    snap["shared"] = {"k": {"host_id": "@shr:k"}}
-    with pytest.raises(ValueError, match="item 10\\b"):
-        TORCH.Job([], []).restore(snap)
     st = job.control_status()
-    assert "aot_cache" not in st and "shared" not in st
+    # the executable cache waits for the graph cache keyed by
+    # plan_signature
+    assert "aot_cache" not in st
+    assert st["shared"] == {}
 
 
 def test_control_events_module_is_exported_like_the_reference():

@@ -456,3 +456,62 @@ def test_hoisted_and_derived_slot_step_makes_no_host_read(monkeypatch):
         _, acc = step_segment(rt.plan, rt.states, rt.acc, tapes)
     assert len(calls) == len(tapes)
     assert int(acc["meta"][0].sum()) > 0
+
+
+def test_capture_guards_on_two_threads_share_one_hold():
+    """The collector stays off until the last of two overlapping captures
+    ends: the first to end must not turn it back on under the other."""
+    entered, release = threading.Event(), threading.Event()
+    seen = []
+
+    def other():
+        with graphs.capture_guard():
+            entered.set()
+            release.wait(10)
+            seen.append(gc.isenabled())
+
+    t = threading.Thread(target=other)
+    with graphs.capture_guard():
+        t.start()
+        assert entered.wait(10)
+    seen.append(gc.isenabled())  # the other capture still holds it
+    release.set()
+    t.join(10)
+    assert seen == [False, False]
+    assert gc.isenabled()
+
+
+class _Graph:
+    """Stands for a captured CUDA graph: its destruction is logged."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def __del__(self):
+        self.log.append("graph destroyed")
+
+
+class _Runtime:
+    """Stands for a dropped Job's segment runtime, in a reference cycle."""
+
+
+def test_a_collected_runtimes_graphs_wait_for_the_next_capture():
+    # registered as SegmentGraphs registers its table on a CUDA device
+    import weakref
+
+    log = []
+    rt = _Runtime()
+    rt.me = rt
+    rt.graphs = {"key": [_Graph(log)]}
+    graphs._TABLES[id(rt)] = rt.graphs
+    weakref.finalize(rt, graphs._bury, id(rt))
+    gc.collect()  # the runtime is old: the guard's young pass skips it
+    del rt
+    with graphs.capture_guard():
+        log.append("capture")
+        gc.collect()  # a collection inside the capture
+        log.append("captured")
+    with graphs.capture_guard():
+        log.append("next capture")
+    assert log == ["capture", "captured", "graph destroyed", "next capture"]
+    assert not graphs._BURIED
