@@ -310,7 +310,8 @@ fault:
    `--pipeline OUT`): H0, the native decoder built from the port's copy
    of fast_decode.cpp into build/torch_native/ (its seconds; it must
    load); H1, the headline through ``CEPPipeline``: the bench stream
-   over PIPE_EVENTS events as JSON records in a 4-partition topic of
+   over PIPE_EVENTS = 524,288 events (1,048,576 before phase 8k came)
+   as JSON records in a 4-partition topic of
    tests/torch_fake_kafka.py (v2 batches of 16,384 records, gzip'd on
    the wire, round robin over the partitions), read from `kafka://` in
    event time with per-partition watermarks, checkpointed every second
@@ -421,6 +422,40 @@ fault:
    gate's ms per CQL, and every hostile-zoo entry refused with HTTP
    422 by its exact rule id (its profile's budgets) and, pushed raw past
    the gate, at apply time by the same id;
+8k. telemetry (in a process of its own, `--telemetry OUT`), bench.py's
+   settings throughout (lazy projection, pushdown, batch 524,288): T1,
+   the fused counts-only headline over TEL_TAPES = 8 tapes, a warm run,
+   then A B B A runs of the same Job with the registry off
+   (`telemetry.enabled = False`: spans, tracer, journal and SLO
+   silenced) and on at the default `sample_every` (1,024): events/s of
+   each and their ratio, K1 and K2 launched in every run; one more run
+   each way under cProfile, the functions whose own time grows most with
+   the registry on (ms a tape: where the telemetry's host time goes);
+   then one
+   resident replay of the tapes with the registry on and a collector:
+   its rows over the first 131,072 events equal to the CPU path's,
+   `trace.e2e` and `drain.staleness` p50/p99 (the replay stages off the
+   clock, so `trace.e2e` includes staging), the limiting leg and
+   coverage of `metrics()["attribution"]`; T2, the headline behind a
+   `SocketLineSource` in processing time, every event sampled, and a
+   `SideChannelProber` in its own process sending 200 sentinel triples
+   (ids 1, 2, 3, the probe's number in the third's price, which the
+   headline's `s3.price` carries into its row) every 20 ms: every probe
+   received or listed lost, the prober's pid not this one's, its p99
+   within max(3x, 250 ms) of `trace.e2e`'s; T3, phase 8i's template
+   (tenant acme's v1 and v2, bobcorp's v3 folding into their group while
+   v2 is disabled, v2 enabled, v1 retired, at tape boundaries, beside the
+   static headline) over 4 tapes in the streaming, fused and resident
+   modes: the per-plan `rows_emitted` summing to the emitted rows, the
+   same split in every mode; in the fused run SLO policies on both
+   tenants (acme's p99 of 0.001 ms breaches) behind QueryControlService,
+   `/api/v1/metrics/prometheus` fetched while the run loop steps and
+   passed by the reference suite's text checker, `/api/v1/slo`
+   reconciled with `/api/v1/flightrecorder`'s counts,
+   `metrics()["compiles"]` per plan equal to the graphs each runtime
+   captured; the timeline over 4 tapes of 8,192 on the card and on the
+   CPU: the same per-plan split and journal; that card Job checkpointed
+   and restored into a fresh one, its journal whole and its seq going on;
 9. kernels (with phase 10 in a process of its own, `--kernels OUT`: late in
    a long process profiler traces lost records): each kernel timed on the
    inputs it was given on its path — its
@@ -443,7 +478,10 @@ fault:
    floor, held exactly to its plain version (the dense pair mask, in
    chunks) run on the card on the same input, whose time is the plain
    time; then the same step with one event of the time window ten
-   windows late, exact and timed; K6 on the tables path's third step
+   windows late, timed and held exactly to `late_witness` (the in-order
+   pairs with the moved entry's one mask column recomputed: E x 1 cells,
+   where the dense plain version's 10.3 s a call does not fit the time
+   limit); K6 on the tables path's third step
    (the update and the delete; CUDA events around back-to-back calls),
    exact against its plain version run on the card, the candidates it
    walked, those the rows need and E x C, its bound (bytes, and the needed
@@ -531,7 +569,9 @@ import dataclasses
 import inspect
 import itertools
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -5423,7 +5463,9 @@ def event_time_main(out_path):
 
 # -- phase 8h: ingestion and the deployable pipeline --------------------------
 
-PIPE_EVENTS = 2 * BATCH  # H1: the bench stream over 2 tapes (1,048,576)
+# H1: the bench stream over 1 tape (524,288; 2 tapes before phase 8k came:
+# the time limit)
+PIPE_EVENTS = BATCH
 PIPE_PARTITIONS = 4  # H1's input topic
 PIPE_RECORDS = 16_384  # records a v2 batch, round robin over the partitions
 PIPE_CKPT_S = 1.0  # H1's checkpoint interval (each commits its rows)
@@ -6522,12 +6564,12 @@ def join_pairs_work(args, visits, n):
     return nbytes, visits * per
 
 
-def late_event(args):
+def late_event(args, device="cuda"):
     """A copy of one K5 call's arguments with one event of the time
     window's combined buffer moved out of order: the batch entry in the
     middle stamped ten windows late. Returns (args, the entry, its new
     ts)."""
-    args = join_args_copy(args, "cuda")
+    args = join_args_copy(args, device)
     for d in args[0]:
         if d.mode_time:
             j = d.C + int(d.b_valid[d.C:].sum()) // 2
@@ -6537,6 +6579,63 @@ def late_event(args):
     raise AssertionError("late_event: no time window in the call")
 
 
+def late_witness(co, inorder, late, j):
+    """K5 on a late-event step held exactly, at full width, to a witness
+    that costs E x 1 mask cells where the dense plain version costs E x
+    Nb (10.3 s a call at J1's step): a pair-mask cell depends on its row
+    and its buffer entry alone, so moving entry ``j`` of the time window's
+    direction changes that direction's column ``j`` only. The late step's
+    (i, j, segment, n) are the in-order step's (``inorder``, the kernel's
+    output that ``join_check`` held to the plain version) with column
+    ``j`` taken from the plain mask over that one column and the
+    direction's outer rows derived again, in the plain version's order:
+    by segment, then i, then j. Returns the late step's n."""
+    import torch
+
+    dirs, ts, cap, self_join, within = late
+    di = next(k for k, d in enumerate(dirs) if d.mode_time)
+    d = dirs[di]
+    n0 = int(inorder[3][0])
+    if n0 > cap:
+        raise AssertionError(f"late witness: {n0} pairs pass the cap {cap}")
+    i0, j0, s0 = (x[:n0].long() for x in inorder[:3])
+    one = dataclasses.replace(
+        d, b_ts=d.b_ts[j:j + 1], b_valid=d.b_valid[j:j + 1],
+        b_posid=d.b_posid[j:j + 1], b_cols=d.b_cols[:, j:j + 1],
+        b_seen=d.b_seen + j)
+    E = int(ts.shape[0])
+    col = co._join_member(one, ts, torch.arange(E, device=ts.device),
+                          self_join, within)[:, 0]
+    pairs = s0 == 2 * di
+    keep = ~(pairs & (j0 == j)) & (s0 != 2 * di + 1)
+    new_i = torch.nonzero(col)[:, 0]
+    parts = [(i0[keep], j0[keep], s0[keep]),
+             (new_i, torch.full_like(new_i, j),
+              torch.full_like(new_i, 2 * di))]
+    if d.outer:
+        hit = col.clone()
+        hit[i0[pairs & (j0 != j)]] = True
+        oi = torch.nonzero(d.a_mask & ~hit)[:, 0]
+        parts.append((oi, torch.zeros_like(oi),
+                      torch.full_like(oi, 2 * di + 1)))
+    i1, j1, s1 = (torch.cat(p) for p in zip(*parts))
+    n1 = int(i1.shape[0])
+    if n1 > cap:
+        raise AssertionError(f"late witness: {n1} pairs pass the cap {cap}")
+    nb = max(int(x.b_ts.shape[0]) for x in dirs)
+    order = torch.argsort((s1 * E + i1) * nb + j1)
+    got = co.join_pairs(*late)
+    for g, w, part in zip(got, (i1, j1, s1), ("i", "j", "segment")):
+        want = torch.zeros(cap, dtype=torch.int32, device=ts.device)
+        want[:n1] = w[order].to(torch.int32)
+        same(g, want, f"join_pairs late-event step against its witness: "
+                      f"{part}")
+    if int(got[3][0]) != n1:
+        raise AssertionError(f"join_pairs late-event step: n "
+                             f"{int(got[3][0])} against the witness's {n1}")
+    return n1
+
+
 def time_join_pairs(co, recorded, launches, err, floor_ms):
     """K5 on J1's third step's recorded input: held exactly (every rank
     below cap, and n) to its plain version run on the card on the same
@@ -6544,9 +6643,10 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
     timed (CUDA events around back-to-back calls); the candidates in the
     arriving events' bands (the kernel's counter), ns per candidate, the
     tiles walked again, its bound. Then the same with one event of the
-    time window moved out of order
-    (``late_event``): exact against the plain version too, its time and
-    visits beside the in-order step's."""
+    time window moved out of order (``late_event``): its time, pairs and
+    visits beside the in-order step's, held exactly to ``late_witness``
+    (the dense plain version on the card, 10.3 s a call, left out for the
+    time limit)."""
     args = join_args_copy(recorded, "cuda")
     n, _, e, plain_ms = join_check(co, *args, "J1's third step",
                                    on_card=True)
@@ -6556,9 +6656,7 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
     nbytes, ops = join_pairs_work(args, visits, n)
     bound_ms, bound_by = bound_of(nbytes, ops, INT32_OPS_PER_S)
     late, j, ts_j = late_event(recorded)
-    late_n, _, e, _ = join_check(co, *late, "J1's third step, a late event",
-                                 on_card=True)
-    err = max(err, e)
+    late_n = late_witness(co, co.join_pairs(*args), late, j)
     late_ms, _ = timed_back_to_back(lambda: co.join_pairs(*late), 20)
     late_visits, late_rewalks = join_counts(co, *late)
     E, cap = int(args[1].shape[0]), int(args[2])
@@ -6570,7 +6668,9 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
                     "argsort, JoinArtifact._direction and step :310)",
         "launches": launches, "max_abs_err": err,
         "max_abs_err_by": "exact comparison with the plain version on "
-                          "J1's third step (on the card) and phase 3's cases",
+                          "J1's third step (on the card) and phase 3's "
+                          "cases; its late-event step exact against "
+                          "late_witness",
         "ms": ms, "call_ms": call_ms,
         "plain_ms": plain_ms, "plain_device": "cuda",
         "plain_shape": f"J1's third step (E = {E}), mask chunks of "
@@ -6593,8 +6693,9 @@ def time_join_pairs(co, recorded, launches, err, floor_ms):
         f"{entry['tiles']} tiles walked again; bound {bound_ms} ms "
         f"({bound_by}); {launches} launches in the J1 run; exact against "
         f"the plain version on the card ({plain_ms} ms); one event ten "
-        f"windows late: {late_ms} ms, {late_visits} candidates visited, "
-        f"{late_rewalks} tiles walked again, exact too")
+        f"windows late: {late_ms} ms, {late_n} pairs (exact against its "
+        f"witness), {late_visits} candidates visited, {late_rewalks} "
+        f"tiles walked again")
     return entry
 
 
@@ -8715,6 +8816,607 @@ def share_main(out_path):
 
 
 
+# -- phase 8k: telemetry on the card ----------------------------------------
+
+TEL_TAPES = 8  # T1: tapes of BATCH of the bench stream (4,194,304)
+TEL_CPU_EVENTS = 131_072  # T1: resident rows against the CPU path over these
+TEL_PROBES = 200  # T2: sentinel triples, one a period
+TEL_PROBE_PERIOD_S = 0.02
+TEL_PROBE_MAGIC = 1_000_000.0  # T2: a probe's s3.price, MAGIC + its number
+TEL_PROBE_T0 = 2_000_000_000  # T2: triple k at T0 + 10 s x k (+0, 1, 2 ms)
+TEL_CTRL_TAPES = 4  # T3: tapes of BATCH in each of the three modes
+TEL_CTRL_CPU_TAPE = 8_192  # T3's card-against-CPU check: 4 tapes of 8,192
+TEL_TENANTS = {"v1": "acme", "v2": "acme", "v3": "bobcorp"}
+
+# the reference suite's standalone Prometheus text checker
+# (tests/test_scoped_metrics.py): the port's one copy, which the port's
+# telemetry tests import from here
+
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(\{[^{}]*\})?"
+    r" (-?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)$"
+)
+LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+_VALID_TYPES = ("counter", "gauge", "summary", "histogram", "untyped")
+
+
+def check_prometheus_text(text):
+    """Standalone Prometheus text-format (0.0.4) checker — no client
+    dependency. Every line must be blank, a comment, or a parsable
+    ``name{labels} value`` sample; every sample's family must have
+    exactly one TYPE declared before its samples; counter values
+    non-negative; all values finite. Returns (n_samples, types)."""
+    types_ = {}
+    n_samples = 0
+    for ln, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            assert len(parts) == 4, f"line {ln}: malformed TYPE"
+            name, mtype = parts[2], parts[3]
+            assert mtype in _VALID_TYPES, f"line {ln}: {mtype!r}"
+            assert name not in types_, (
+                f"line {ln}: duplicate TYPE for {name}"
+            )
+            types_[name] = mtype
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        assert m, f"line {ln}: unparsable sample {line!r}"
+        name, labels, value = m.group(1), m.group(2), m.group(3)
+        family = name
+        for suffix in ("_count", "_sum"):
+            base = name[: -len(suffix)] if name.endswith(suffix) else None
+            if base and base in types_:
+                family = base
+        assert family in types_, (
+            f"line {ln}: sample {name} has no TYPE declaration"
+        )
+        v = float(value)
+        assert math.isfinite(v), f"line {ln}: non-finite {value}"
+        if types_[family] == "counter":
+            assert v >= 0, f"line {ln}: negative counter"
+        if labels:
+            body = labels[1:-1]
+            pairs = LABEL_RE.findall(body)
+            rebuilt = ",".join(f'{k}="{v2}"' for k, v2 in pairs)
+            assert rebuilt == body, (
+                f"line {ln}: malformed labels {labels!r}"
+            )
+        n_samples += 1
+    return n_samples, types_
+
+
+def tel_overhead(fpt, co, schema, batches):
+    """T1: the fused counts-only headline over the tapes, as bench.py's
+    streaming mode runs it: a warm run (the captures), then A B B A runs
+    of the same Job (reset and re-sourced) with the registry disabled (A:
+    spans, tracer, journal and SLO silenced) and enabled at the default
+    ``sample_every`` (B): events/s of each, K1 and K2 launches of each.
+    Then one resident replay of the same tapes with the registry on and
+    a collector: its rows over the first TEL_CPU_EVENTS events against
+    the CPU path's, ``trace.e2e`` and ``drain.staleness`` p50/p99, and the
+    limiting leg of ``metrics()["attribution"]``."""
+    import torch
+
+    cfg = bench_config(fpt)
+    n = sum(len(b) for b in batches)
+    job = fused_job(fpt, HEADLINE, schema, batches, False, cfg)
+    job.run()
+    torch.cuda.synchronize()
+    captured = job.graphs_captured
+    counts = sum(job.emitted_counts.values())
+    kernels = ("multi_reverse_cummin", "chain_advance")
+    sides = []
+    for enabled in (False, True, True, False):
+        job.reset_engine_state()
+        re_source(fpt, job, schema, batches)
+        job.telemetry.enabled = enabled
+        before = sum(job.emitted_counts.values())
+        co.reset_launches()
+        t0 = time.perf_counter()
+        job.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = co.launch_counts()
+        if sum(job.emitted_counts.values()) - before != counts:
+            raise AssertionError("telemetry T1: a run emitted another count")
+        if not all(launches[k] for k in kernels):
+            raise AssertionError(f"telemetry T1: {launches}")
+        sides.append({"telemetry": enabled, "run_s": wall,
+                      "events_per_s": n / wall,
+                      "launches": {k: launches[k] for k in kernels}})
+    if job.eager_segments or job.graphs_captured != captured:
+        raise AssertionError(
+            f"telemetry T1: {job.eager_segments} eager segments, "
+            f"{job.graphs_captured - captured} captures after the warm run")
+    off = statistics.median(s["events_per_s"] for s in sides
+                            if not s["telemetry"])
+    on = statistics.median(s["events_per_s"] for s in sides
+                           if s["telemetry"])
+    sampled = job.tracer.snapshot()["sampled"]
+    profile = tel_host_profile(fpt, job, schema, batches)
+    del job
+
+    # the resident replay with the registry on and a collector
+    cut = batches[0].slice(0, TEL_CPU_EVENTS)
+    cpu_rows, _, _ = run_job(fpt, HEADLINE, schema, [cut], "cpu",
+                             config=cfg)
+    job = replay_job(fpt, HEADLINE, schema, batches, True)
+    co.reset_launches()
+    rep = fpt.ResidentReplay(job)
+    t0 = time.perf_counter()
+    rep.stage()
+    rep.run()
+    job.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = co.launch_counts()
+    rows = job.results_with_ts("matches")
+    last = int(cut.timestamps[-1])
+    rows_match([r for r in rows if r[0] <= last], cpu_rows, 0.0,
+               "telemetry T1: resident rows against the CPU path")
+    if not cpu_rows or not all(launches[k] for k in kernels):
+        raise AssertionError(f"telemetry T1 resident: {len(cpu_rows)} CPU "
+                             f"rows, launches {launches}")
+    m = job.metrics()
+    hists = m["telemetry"]["histograms"]
+    trace = m["telemetry"]["trace"]
+    att = m["attribution"]
+    rows_by_plan = m["telemetry"]["scopes"]["plan"]["bench"]["counters"][
+        "rows_emitted"]
+    if rows_by_plan != len(rows) or trace["completed"] < 1:
+        raise AssertionError(f"telemetry T1 resident: {rows_by_plan} rows "
+                             f"attributed of {len(rows)}, trace {trace}")
+
+    def p(h):
+        return {"count": h["count"], "p50_ms": h["p50_ms"],
+                "p99_ms": h["p99_ms"]}
+
+    out = {
+        "events": n, "sides": sides,
+        "events_per_s_off": off, "events_per_s_on": on,
+        "ratio_on_off": on / off, "sampled_per_run": sampled,
+        "host_profile": profile,
+        "resident": {
+            "events": n, "wall_s": wall, "rows": len(rows),
+            "cpu_check_rows": len(cpu_rows),
+            "launches": {k: launches[k] for k in kernels},
+            "trace_sampled": trace["sampled"],
+            "trace_completed": trace["completed"],
+            "trace_e2e": p(trace["e2e"]),
+            "drain_staleness": p(hists["drain.staleness"]),
+            "limiting_leg": att["limiting_leg"],
+            "limiting_share": att["limiting_share"],
+            "coverage": att["coverage"],
+        },
+    }
+    del job, rep
+    return out
+
+
+def tel_host_profile(fpt, job, schema, batches):
+    """T1's host profile: one more run each way (registry on, then off)
+    under cProfile, after the timed ones. Returns the profiled seconds of
+    each run, and the functions whose own time grows most with the
+    registry on, in ms a tape, with their calls in the on run: where the
+    telemetry's host time goes."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    own = {}
+    wall = {}
+    for enabled in (True, False):
+        job.reset_engine_state()
+        re_source(fpt, job, schema, batches)
+        job.telemetry.enabled = enabled
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        job.run()
+        torch.cuda.synchronize()
+        prof.disable()
+        wall[enabled] = time.perf_counter() - t0
+        side = own[enabled] = {}
+        for (path, line, name), (_, calls, tt, _, _) in \
+                pstats.Stats(prof).stats.items():
+            side[f"{os.path.basename(path)}:{line}:{name}"] = (tt, calls)
+    tapes = len(batches)
+    grown = sorted(
+        ((own[True][k][0] - own[False].get(k, (0.0, 0))[0], k)
+         for k in own[True]), reverse=True)[:8]
+    return {"profiled_s_on": wall[True], "profiled_s_off": wall[False],
+            "grown_ms_a_tape": [
+                [k, d * 1e3 / tapes, own[True][k][1]] for d, k in grown]}
+
+
+def tel_nonce(row):
+    """T2: the probe number a headline row carries in its s3.price (None
+    for a row of ordinary traffic)."""
+    p = float(row[2])
+    if p < TEL_PROBE_MAGIC / 2:
+        return None
+    return int(round(p - TEL_PROBE_MAGIC))
+
+
+def tel_probe_lines(k, price3):
+    """One sentinel triple: ids 1, 2, 3 a ms apart, 10 s after the last
+    (one match each, none across triples: `within 5 sec`)."""
+    t = TEL_PROBE_T0 + 10_000 * k
+    return "".join(
+        json.dumps({"id": i + 1, "name": "probe", "price": price,
+                    "timestamp": t + i}) + "\n"
+        for i, price in enumerate((0.5, 0.5, price3)))
+
+
+def tel_prober(fpt, co, schema):
+    """T2: the headline on the card behind a SocketLineSource in
+    processing time, every event sampled; a SideChannelProber in its own
+    process sends TEL_PROBES sentinel triples through the socket, one
+    every TEL_PROBE_PERIOD_S, and times each match's ack on its own
+    clock. Every probe received or listed lost, the prober's pid not
+    ours, its p99 within max(3x, 250 ms) of ``trace.e2e``'s."""
+    import torch
+
+    from flink_siddhi_tpu_torch.telemetry.prober import SideChannelProber
+
+    src = fpt.SocketLineSource("inputStream", schema, port=0,
+                               ts_field="timestamp")
+    plan = fpt.compile_plan(HEADLINE, {"inputStream": schema},
+                            plan_id="bench", config=bench_config(fpt))
+    job = fpt.Job([plan], [src], batch_size=BATCH, time_mode="processing",
+                  retain_results=False, device="cuda")
+    job.drain_interval_ms = 20.0
+    job.tracer.sample_every = 1
+    seen = []
+    payloads = [tel_probe_lines(k + 1, TEL_PROBE_MAGIC + k)
+                for k in range(TEL_PROBES)]
+    prober = SideChannelProber(src.host, src.port, payloads,
+                               period_s=TEL_PROBE_PERIOD_S, timeout_s=10.0)
+    sink = prober.make_sink(tel_nonce)
+
+    def counting_sink(ts, row):
+        seen.append(ts)
+        sink(ts, row)
+
+    job.add_sink("matches", counting_sink)
+    try:
+        # the first steps off the probes' clock: one triple of ordinary
+        # traffic, its match surfaced
+        import socket
+
+        with socket.create_connection((src.host, src.port)) as c:
+            c.sendall(tel_probe_lines(0, 1.0).encode())
+        t_end = time.monotonic() + 30.0
+        while not seen and time.monotonic() < t_end:
+            job.run_cycle()
+            time.sleep(0.001)
+        if not seen:
+            raise AssertionError("telemetry T2: the warm-up triple's match "
+                                 "never surfaced")
+        co.reset_launches()
+        prober.start()
+        t0 = time.perf_counter()
+        t_end = time.monotonic() + 60.0
+        while prober.poll_result() is None and time.monotonic() < t_end:
+            job.run_cycle()
+            time.sleep(0.001)
+        report = prober.result(10.0)
+        wall = time.perf_counter() - t0
+        launches = co.launch_counts()
+        torch.cuda.synchronize()
+    finally:
+        prober.close()
+        src.close()
+    if report is None:
+        raise AssertionError("telemetry T2: the prober produced no report")
+    trace = job.tracer.snapshot()
+    e2e = trace["e2e"]
+    p50, p99 = report.percentile_ms(50), report.percentile_ms(99)
+    out = {"n_sent": report.n_sent, "received": report.n_received,
+           "lost": list(report.lost), "prober_pid": report.pid,
+           "smoke_pid": os.getpid(), "clock": report.clock,
+           "prober_p50_ms": p50, "prober_p99_ms": p99,
+           "trace_e2e_count": e2e["count"], "trace_e2e_p50_ms": e2e["p50_ms"],
+           "trace_e2e_p99_ms": e2e["p99_ms"], "wall_s": wall,
+           "launches": {k: launches[k] for k in ("multi_reverse_cummin",
+                                                 "chain_advance")}}
+    del job
+    if (report.n_sent != TEL_PROBES
+            or report.n_received + len(report.lost) != report.n_sent
+            or report.pid == os.getpid() or prober.child_pid != report.pid
+            or report.n_received < 1):
+        raise AssertionError(f"telemetry T2: {out}")
+    if e2e["count"] < report.n_received:
+        raise AssertionError(f"telemetry T2: {e2e['count']} traces for "
+                             f"{report.n_received} probes received")
+    t99 = e2e["p99_ms"]
+    if not (p99 <= max(3 * t99, t99 + 250.0)
+            and t99 <= max(3 * p99, p99 + 250.0)):
+        raise AssertionError(f"telemetry T2: the prober's p99 {p99} ms "
+                             f"against trace.e2e's {t99} ms")
+    if not all(out["launches"].values()):
+        raise AssertionError(f"telemetry T2: launches {out['launches']}")
+    return out
+
+
+def tel_timeline(tape):
+    """T3's control timeline (phase 8i's template): tenant acme's v1 and
+    v2 before tape 0, bobcorp's v3 folding into their group at tape 1
+    while v2 is disabled, v2 enabled at tape 2, v1 retired at tape 3."""
+    from flink_siddhi_tpu_torch.control.events import (
+        MetadataControlEvent as M,
+        OperationControlEvent as O,
+    )
+
+    def at(k):
+        return 1000 + k * tape
+
+    def add(pid):
+        b = M.builder()
+        b.add_execution_plan(CTRL_QUERIES[pid], plan_id=pid)
+        ev = b.build()
+        ev.tenant = TEL_TENANTS[pid]
+        return ev
+
+    return [
+        (0, add("v1")), (0, add("v2")),
+        (at(1), add("v3")), (at(1), O.disable_query("v2")),
+        (at(2), O.enable_query("v2")),
+        (at(3), M.builder().remove_execution_plan("v1").build()),
+    ]
+
+
+def tel_job(fpt, schema, batches, device, tape, mode):
+    """T3's Job: phase 8i's, over this timeline, in ``mode``."""
+    job = ctrl_job(fpt, schema, batches, device, tape,
+                   control=[fpt.ControlListSource(tel_timeline(tape))])
+    if mode == "streaming":
+        job.fused_segment_len = None
+    return job
+
+
+def tel_account(job):
+    """A T3 run's attribution: per user plan ``rows_emitted`` (group and
+    shared hosts left out), the emitted total, the journal's (kind, plan,
+    tenant) sequence without the card's own compile entries."""
+    rows = {pid: reg.counter_value("rows_emitted")
+            for pid, reg in job.telemetry.scope_map("plan").items()
+            if not pid.startswith(("@dyn:", "@shr:"))}
+    journal = [[e["kind"], e.get("plan"), e.get("tenant")]
+               for e in job.flightrec.events(limit=4096)
+               if not e["kind"].startswith("compile.")]
+    return {"rows_by_plan": rows,
+            "emitted": sum(n for s, n in job.emitted_counts.items()
+                           if not s.endswith("@late")),
+            "journal": journal}
+
+
+def tel_scrape(base, texts, stop):
+    """Fetch the Prometheus text until ``stop`` is set (a thread beside
+    the run loop)."""
+    import urllib.request
+
+    while not stop.is_set():
+        with urllib.request.urlopen(f"{base}/metrics/prometheus") as r:
+            texts.append((time.perf_counter(), r.read().decode("utf-8")))
+        time.sleep(0.02)
+
+
+def tel_control(fpt, co, schema, batches):
+    """T3: the timeline beside the static headline (bench settings) at
+    full width in three modes (streaming, fused, resident in epochs): the
+    per-plan ``rows_emitted`` summing to the emitted rows, the same split
+    in every mode; the fused run with SLO policies on both tenants (acme's
+    tight enough to breach) behind QueryControlService, the Prometheus
+    text fetched while the run loop steps and checked, ``/api/v1/slo``
+    reconciled against ``/api/v1/flightrecorder``'s counts, and
+    ``metrics()["compiles"]`` per plan equal to the graphs each runtime
+    captured. Then the timeline over 4 tapes of TEL_CTRL_CPU_TAPE events
+    on the card and on the CPU: the same per-plan split and journal; that
+    card Job checkpointed and restored into a fresh one, its seq going
+    on."""
+    import threading
+
+    import torch
+
+    from flink_siddhi_tpu_torch.telemetry import SLOPolicy
+
+    kernels = ("multi_reverse_cummin", "chain_advance")
+    modes = {}
+    for mode in ("streaming", "fused", "resident"):
+        job = tel_job(fpt, schema, batches, "cuda", BATCH, mode)
+        svc = stop = scraper = None
+        texts = []
+        if mode == "fused":
+            job.slo.min_interval_s = 0.0
+            job.slo.set_policy(SLOPolicy(tenant="acme", p99_ms=1e-3))
+            job.slo.set_policy(SLOPolicy(tenant="bobcorp", p99_ms=1e9))
+            svc = fpt.QueryControlService(fpt.ControlQueueSource(),
+                                          job=job).start()
+            base = f"http://127.0.0.1:{svc.port}/api/v1"
+            stop = threading.Event()
+            scraper = threading.Thread(target=tel_scrape,
+                                       args=(base, texts, stop))
+        co.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            if scraper is not None:
+                scraper.start()
+            if mode == "resident":
+                fpt.ResidentReplay(job).execute()
+            else:
+                job.run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if scraper is not None:
+                stop.set()
+                scraper.join()
+                slo, frec = tel_get(base, "/slo"), tel_get(
+                    base, "/flightrecorder?kind=slo&limit=4096")
+        finally:
+            if svc is not None:
+                stop.set()
+                svc.stop()
+        launches = co.launch_counts()
+        acct = tel_account(job)
+        if sum(acct["rows_by_plan"].values()) != acct["emitted"] \
+                or not acct["emitted"]:
+            raise AssertionError(f"telemetry T3 {mode}: rows by plan "
+                                 f"{acct['rows_by_plan']}, emitted "
+                                 f"{acct['emitted']}")
+        if not all(launches[k] for k in kernels):
+            raise AssertionError(f"telemetry T3 {mode}: {launches}")
+        res = {"wall_s": t1 - t0, **acct,
+               "launches": {k: launches[k] for k in kernels},
+               "graphs_captured": job.graphs_captured}
+        if mode == "fused":
+            during = [t for t, _ in texts if t0 <= t <= t1]
+            for _, text in texts:
+                check_prometheus_text(text)
+            n_samples, _ = check_prometheus_text(texts[-1][1])
+            evs = frec["events"]
+            counted = {k: sum(1 + e.get("collapsed", 0) for e in evs
+                              if e["kind"] == k)
+                       for k in ("slo.violation", "slo.recovered")}
+            if not (during and slo["reconciled"]
+                    and counted["slo.violation"] == slo["violations_total"]
+                    and counted["slo.recovered"] == slo["recoveries_total"]
+                    and slo["violations_total"] >= 1
+                    and not slo["tenants"]["acme"]["compliant"]
+                    and slo["tenants"]["bobcorp"]["compliant"]):
+                raise AssertionError(f"telemetry T3: {len(during)} scrapes "
+                                     f"during the run, slo {slo}, journal "
+                                     f"{counted}")
+            captured = {f"plan:{pid}": rt.graphs.captured
+                        for pid, rt in job._plans.items()
+                        if rt.graphs is not None and rt.graphs.captured}
+            compiles = job.metrics()["compiles"]
+            if compiles["by_signature"] != captured or not captured:
+                raise AssertionError(f"telemetry T3: compiles "
+                                     f"{compiles['by_signature']} against "
+                                     f"graphs captured {captured}")
+            res.update({
+                "scrapes": len(texts), "scrapes_during_run": len(during),
+                "prometheus_samples": n_samples,
+                "slo": {k: slo[k] for k in (
+                    "reconciled", "violations_total", "recoveries_total",
+                    "evaluations", "worst_burning_tenant")},
+                "journal_slo": counted,
+                "compiles": compiles["by_signature"],
+                "compile_s": compiles["total_duration_s"],
+            })
+        modes[mode] = res
+        del job
+    split = {m: r["rows_by_plan"] for m, r in modes.items()}
+    if len({json.dumps(s, sort_keys=True) for s in split.values()}) != 1:
+        raise AssertionError(f"telemetry T3: per-plan splits {split}")
+
+    # the same timeline over small tapes on the card and on the CPU
+    first = batches[0]
+    tapes = [first.slice(s, s + TEL_CTRL_CPU_TAPE) for s in range(
+        0, TEL_CTRL_TAPES * TEL_CTRL_CPU_TAPE, TEL_CTRL_CPU_TAPE)]
+    small = {}
+    for device in ("cuda", "cpu"):
+        job = tel_job(fpt, schema, tapes, device, TEL_CTRL_CPU_TAPE,
+                      "fused")
+        job.run()
+        small[device] = (tel_account(job), job)
+    card, cpu = small["cuda"][0], small["cpu"][0]
+    if (card["rows_by_plan"] != cpu["rows_by_plan"]
+            or card["journal"] != cpu["journal"]):
+        raise AssertionError(f"telemetry T3 ({TEL_CTRL_TAPES} tapes of "
+                             f"{TEL_CTRL_CPU_TAPE}): card {card} against "
+                             f"the CPU's {cpu}")
+    # a checkpoint with the journal, restored into a fresh Job
+    job = small["cuda"][1]
+    path = os.path.join(SMOKE_DIR, "telemetry.ckpt")
+    job.save_checkpoint(path)
+    at_save = [(e["seq"], e["kind"]) for e in job.flightrec.events(
+        limit=4096)]
+    fresh = ctrl_job(fpt, schema, [], "cuda", TEL_CTRL_CPU_TAPE,
+                     control=False)
+    fresh.restore(path)
+    got = [(e["seq"], e["kind"]) for e in fresh.flightrec.events(
+        limit=4096)]
+    if got[:-1] != at_save or got[-1] != (at_save[-1][0] + 1,
+                                          "checkpoint.restore"):
+        raise AssertionError(f"telemetry T3: the restored journal ends "
+                             f"{got[-3:]}, saved {at_save[-3:]}")
+    del small, job, fresh
+    return {"modes": {m: {k: v for k, v in r.items() if k != "journal"}
+                      for m, r in modes.items()},
+            "journal": modes["fused"]["journal"],
+            "split": split["fused"],
+            "cpu_check": {"rows_by_plan": cpu["rows_by_plan"],
+                          "journal_entries": len(cpu["journal"])},
+            "checkpoint": {"seq_at_save": at_save[-1][0],
+                           "seq_after_restore": got[-1][0]}}
+
+
+def tel_get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}{path}") as r:
+        return json.loads(r.read())
+
+
+def telemetry_phase(fpt, co, out_path):
+    """Phase 8k: T1 (overhead), T2 (the prober), T3 (the control
+    timeline's attribution, journal, SLO, exposition, compiles and a
+    checkpoint), see the module docstring."""
+    import torch
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    schema, batches = bench_stream(fpt, TEL_TAPES * BATCH, BATCH)
+    part("stream")
+    t1 = tel_overhead(fpt, co, schema, batches)
+    part("T1")
+    t2 = tel_prober(fpt, co, schema)
+    part("T2")
+    t3 = tel_control(fpt, co, schema, batches[:TEL_CTRL_TAPES])
+    part("T3")
+    torch.cuda.synchronize()
+    launches = {k: {"T1": t1["sides"][1]["launches"][k],
+                    "T1_resident": t1["resident"]["launches"][k],
+                    "T2": t2["launches"][k],
+                    **{f"T3_{m}": r["launches"][k]
+                       for m, r in t3["modes"].items()}}
+                for k in ("multi_reverse_cummin", "chain_advance")}
+    out = {"T1": t1, "T2": t2, "T3": t3, "launches": launches,
+           "part_s": parts, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"telemetry_detail": out}))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def telemetry_main(out_path):
+    """Phase 8k alone (``--telemetry OUT``), run by ``main`` in a child
+    process (alone it also builds the CUDA kernels)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    import flink_siddhi_tpu_torch as fpt
+    from flink_siddhi_tpu_torch.compiler import cuda_ops as co
+
+    co.build()
+    telemetry_phase(fpt, co, out_path)
+    torch.cuda.synchronize()
+    return 0
+
+
 def main():
     import torch
 
@@ -9184,7 +9886,51 @@ def main():
         f"{a1['shared']['events_per_s']:.4g} events/s, unshared "
         f"{a1['unshared']['events_per_s']:.4g})")
 
-    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g, 8h, 8i and 8j")
+    # 8k. telemetry: the overhead of the hooks on the fused headline, the
+    # out-of-process prober, the control timeline's attribution, journal,
+    # SLO, exposition and compiles (in a process of its own, as 8j)
+    log(f"[8k/11] telemetry: the fused headline over {BATCH * TEL_TAPES} "
+        f"events with the registry off and on, {TEL_PROBES} probes from "
+        f"another process, the control timeline in three modes")
+    t_tel = time.perf_counter()
+    tel_path = os.path.join(SMOKE_DIR, "telemetry.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--telemetry", tel_path], timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"telemetry phase failed ({r.returncode})")
+    with open(tel_path) as f:
+        tel = json.load(f)
+    log(f"  telemetry phase {time.perf_counter() - t_tel:.1f} s")
+    t1, t2, t3 = tel["T1"], tel["T2"], tel["T3"]
+    log(json.dumps({"telemetry": {
+        "T1": {k: t1[k] for k in (
+            "events", "events_per_s_off", "events_per_s_on",
+            "ratio_on_off", "sampled_per_run")}
+        | {"sides": [[s_["telemetry"], s_["events_per_s"], s_["launches"]]
+                     for s_ in t1["sides"]],
+           "resident": t1["resident"],
+           "host_profile": t1["host_profile"]},
+        "T2": {k: t2[k] for k in (
+            "n_sent", "received", "lost", "prober_pid", "smoke_pid",
+            "prober_p50_ms", "prober_p99_ms", "trace_e2e_count",
+            "trace_e2e_p50_ms", "trace_e2e_p99_ms", "launches")},
+        "T3": {"split": t3["split"], "modes": {
+            m: {k: r_[k] for k in ("wall_s", "emitted", "launches",
+                                   "graphs_captured")}
+            for m, r_ in t3["modes"].items()},
+            "fused": {k: t3["modes"]["fused"][k] for k in (
+                "scrapes", "scrapes_during_run", "prometheus_samples",
+                "slo", "journal_slo", "compiles", "compile_s")},
+            "journal_entries": len(t3["journal"]),
+            "cpu_check": t3["cpu_check"], "checkpoint": t3["checkpoint"]},
+        "launches": tel["launches"],
+        "part_s": tel["part_s"], "phase_s": tel["phase_s"]}}))
+    log(f"  telemetry: {t1['events_per_s_on']:.4g} events/s on, "
+        f"{t1['events_per_s_off']:.4g} off ({t1['ratio_on_off']:.4f}); "
+        f"prober p99 {t2['prober_p99_ms']} ms, trace.e2e p99 "
+        f"{t2['trace_e2e_p99_ms']} ms")
+
+    lap("phases 7, 8, 8b, 8c, 8d, 8e, 8f, 8g, 8h, 8i, 8j and 8k")
     # 9 and 10 in a process of its own: late in a long process, profiler
     # traces lost records (kernel_records); a fresh one held them
     log("[9/11] kernels on their paths' inputs (in a process of its own)")
@@ -9989,6 +10735,8 @@ if __name__ == "__main__":
         sys.exit(share_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--share-cpu":
         sys.exit(share_cpu_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--telemetry":
+        sys.exit(telemetry_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--multiquery":
         sys.exit(multiquery_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":

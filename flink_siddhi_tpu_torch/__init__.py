@@ -29,7 +29,9 @@ reference's plan verifier and admission analysis (``analysis/``:
 ``verify_plan``, ``analyze_plan``, ``AdmissionBudgets``, the
 ``AdmissionGate`` at the REST boundary and at apply time) and its subplan
 sharing (``Job.share_subplans``: tenants with one filter prefix share a
-producer host whose rows loop back into their suffixes).
+producer host whose rows loop back into their suffixes), with the
+reference's serving telemetry (``telemetry/``: the flight recorder,
+per-event trace sampling, SLOs, per-plan attribution, OpenMetrics).
 Everything else raises ``SiddhiQLError`` naming the later slice;
 ``flink_siddhi_tpu`` (the JAX package beside this one) is the reference the
 port is held against, row for row.

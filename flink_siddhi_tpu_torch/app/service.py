@@ -11,19 +11,35 @@ the caller's ``validate`` and pushes events: it never touches the job's
 state, launches on the card or captures a graph (the run loop does all
 of that when it applies the event).
 
-Routes (JSON in/out):
+Routes (JSON in/out, unless stated):
     GET    /api/v1/metrics               -> Job.metrics() snapshot
+    GET    /api/v1/metrics/prometheus    -> Job.openmetrics(): Prometheus
+                                           text format 0.0.4
+                                           (telemetry/openmetrics.py)
+    GET    /api/v1/traces                -> the trace sampler's snapshot
+                                           (telemetry/tracing.py)
+    GET    /api/v1/flightrecorder        -> {"seq", "events"}: the
+                                           journal (telemetry/flightrec.py),
+                                           filtered by ?kind= (dotted
+                                           prefix), ?plan=, ?tenant=,
+                                           ?since_seq= (strictly after),
+                                           ?limit= (default 512)
+    GET    /api/v1/slo                   -> the SLO watchdog's snapshot
+                                           (telemetry/slo.py)
     GET    /api/v1/health                -> liveness: alive, processed
                                            events, idle sources, the late
-                                           account and the control block
-                                           (job.control_status()); with a
-                                           supervisor its health() (503
-                                           once its restart budget is
-                                           spent)
+                                           account, the control block
+                                           (job.control_status()) and the
+                                           SLO watchdog's compact block;
+                                           with a supervisor its health()
+                                           (503 once its restart budget
+                                           is spent)
     GET    /api/v1/queries               -> {"queries": [{id, tenant,
                                            enabled, folded}]}
     GET    /api/v1/queries/<id>          -> per-query status: enabled,
-                                           tenant, fold host/slot, or the
+                                           tenant, fold host/slot and its
+                                           scoped metrics
+                                           (Job.plan_metrics), or the
                                            recorded refusal (rule ids)
     POST   /api/v1/queries   {"cql": s,
                               "tenant"?,
@@ -45,11 +61,13 @@ exact PLC/ADM rule ids in the body (and recorded in the job's rejection
 ring); a passing verdict rides the control event, and the executor
 re-checks it at apply time.
 
-Not in the port yet, each answering 501 with a body naming its ROADMAP.md
-Queue 1 item: ``/api/v1/metrics/prometheus``, ``/api/v1/traces``,
-``/api/v1/flightrecorder`` and ``/api/v1/slo`` (the telemetry modules,
-item 12's telemetry half) and the fleet's ``/api/v1/fleet/drain`` (item
-13).
+Every read route takes host-side snapshots under the telemetry modules'
+locks (the flight recorder's ``seq`` read before its events, so a cursor
+client can only re-read an entry, never skip one): none waits for the
+card or mutates run-loop state.
+
+Not in the port yet, answering 501 with a body naming its ROADMAP.md
+Queue 1 item: the fleet's ``POST /api/v1/fleet/drain`` (item 13).
 """
 
 from __future__ import annotations
@@ -64,15 +82,10 @@ import numpy as np
 
 from ..control.events import MetadataControlEvent, OperationControlEvent
 
-# GET routes whose modules wait for a later ROADMAP item
+# POST routes whose modules wait for a later ROADMAP item
 _LATER_ROUTES = {
-    ("api", "v1", "metrics", "prometheus"): (
-        12, "the OpenMetrics exposition (telemetry/openmetrics.py)"),
-    ("api", "v1", "traces"): (
-        12, "per-event trace sampling (telemetry/tracing.py)"),
-    ("api", "v1", "flightrecorder"): (
-        12, "the flight recorder (telemetry/flightrec.py)"),
-    ("api", "v1", "slo"): (12, "the SLO watchdog (telemetry/slo.py)"),
+    ("api", "v1", "fleet", "drain"): (
+        13, "the serving fleet's drain (fleet/)"),
 }
 
 
@@ -164,9 +177,14 @@ class QueryControlService:
                 pass
 
             def _reply(self, code: int, payload: dict) -> None:
-                body = json.dumps(payload).encode()
+                self._reply_text(code, json.dumps(payload),
+                                 "application/json")
+
+            def _reply_text(self, code: int, text: str,
+                            content_type: str) -> None:
+                body = text.encode("utf-8")
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
@@ -188,15 +206,27 @@ class QueryControlService:
                 return parts[3:]
 
             def do_GET(self):
-                from urllib.parse import urlsplit
+                from urllib.parse import parse_qs, urlsplit
 
-                parts = tuple(
-                    p for p in urlsplit(self.path).path.split("/") if p)
-                later = _LATER_ROUTES.get(parts)
-                if later is not None:
-                    return self._reply(501, _later_body(*later))
+                url = urlsplit(self.path)
+                parts = tuple(p for p in url.path.split("/") if p)
+                if parts == ("api", "v1", "flightrecorder"):
+                    return self._reply(*service._flightrecorder(
+                        parse_qs(url.query)))
                 if parts == ("api", "v1", "health"):
                     return self._reply(*service._health())
+                if parts == ("api", "v1", "slo"):
+                    slo = getattr(service._live_job(), "slo", None)
+                    return self._reply(
+                        200, {} if slo is None
+                        else _json_safe(slo.snapshot()))
+                if parts == ("api", "v1", "metrics", "prometheus"):
+                    from ..telemetry.openmetrics import CONTENT_TYPE
+
+                    job = service._live_job()
+                    return self._reply_text(
+                        200, "# no job attached\n" if job is None
+                        else job.openmetrics(), CONTENT_TYPE)
                 if parts == ("api", "v1", "metrics"):
                     job = service._live_job()
                     if job is None:
@@ -204,6 +234,11 @@ class QueryControlService:
                     # host-side counters only: never touches the device
                     # from this thread
                     return self._reply(200, _json_safe(job.metrics()))
+                if parts == ("api", "v1", "traces"):
+                    tracer = getattr(service._live_job(), "tracer", None)
+                    return self._reply(
+                        200, {} if tracer is None
+                        else _json_safe(tracer.snapshot()))
                 tail = self._route()
                 if tail is None:
                     return self._reply(404, {"error": "not found"})
@@ -216,10 +251,10 @@ class QueryControlService:
                 self._reply(200, {"queries": _json_safe(listing)})
 
             def do_POST(self):
-                parts = [p for p in self.path.split("/") if p]
-                if parts == ["api", "v1", "fleet", "drain"]:
-                    return self._reply(501, _later_body(
-                        13, "the serving fleet's drain (fleet/)"))
+                parts = tuple(p for p in self.path.split("/") if p)
+                later = _LATER_ROUTES.get(parts)
+                if later is not None:
+                    return self._reply(501, _later_body(*later))
                 tail = self._route()
                 if tail is None:
                     return self._reply(404, {"error": "not found"})
@@ -348,6 +383,7 @@ class QueryControlService:
         job = self.job
         if job is None:
             return 200, {"alive": True, "supervised": False}
+        slo = getattr(job, "slo", None)
         return 200, {
             "alive": True,
             "supervised": False,
@@ -356,7 +392,36 @@ class QueryControlService:
             "idle_sources": job.idle_source_ids(),
             "late_dropped": int(job.late_dropped),
             "control": _json_safe(job.control_status()),
+            # the SLO watchdog's compact, alertable view
+            "slo": _json_safe(slo.health_summary()
+                              if slo is not None else None),
         }
+
+    def _flightrecorder(self, query: dict):
+        """(code, payload) for GET /api/v1/flightrecorder: the journal
+        filtered by kind / plan / tenant / since_seq / limit."""
+        fr = getattr(self._live_job(), "flightrec", None)
+        if fr is None:
+            return 200, {"seq": 0, "events": []}
+
+        def one(name):
+            v = query.get(name)
+            return v[0] if v else None
+
+        # seq BEFORE events(): an entry recorded between the two reads
+        # (separate lock acquisitions) is then re-read by a cursor
+        # client's next poll, never skipped
+        seq = fr.seq
+        try:
+            since, limit = one("since_seq"), one("limit")
+            events = fr.events(
+                kind=one("kind"), plan=one("plan"), tenant=one("tenant"),
+                since_seq=int(since) if since is not None else None,
+                limit=int(limit) if limit is not None else 512,
+            )
+        except ValueError:
+            return 400, {"error": "since_seq/limit must be ints"}
+        return 200, {"seq": seq, "events": _json_safe(events)}
 
     def _query_status(self, plan_id: str):
         """(code, payload) for GET /api/v1/queries/<id>."""
@@ -372,6 +437,9 @@ class QueryControlService:
                 "tenant": job.tenant_of(plan_id),
                 "enabled": bool(job._folded_enabled.get(plan_id, True)),
                 "folded": {"host": host, "slot": int(slot)},
+                # live scoped metrics: rows, matches, drain legs and the
+                # host's footprint
+                "metrics": _json_safe(job.plan_metrics(plan_id)),
             }
         rt = job._plans.get(plan_id)
         if rt is not None:
@@ -381,6 +449,7 @@ class QueryControlService:
                 "tenant": job.tenant_of(plan_id),
                 "enabled": bool(rt.enabled),
                 "folded": None,
+                "metrics": _json_safe(job.plan_metrics(plan_id)),
             }
         rej = job.control_rejections.get(plan_id)
         if rej is not None:

@@ -78,6 +78,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..telemetry import compile_events
 from .slot_program import (OP_AND, OP_ANDJ, OP_CAP, OP_EQ_I, OP_EVT,
                            OP_LIT, eval_program)
 
@@ -214,6 +215,9 @@ class _Libraries:
                     failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
                 else:
                     os.replace(tmp, path)
+                    # a compile event of the port (compile_events.py):
+                    # this source's nvcc, from the start of the builds
+                    compile_events.record("build", time.perf_counter() - t0)
             if failed:
                 raise KernelBuildError("\n".join(failed))
             for n in todo:

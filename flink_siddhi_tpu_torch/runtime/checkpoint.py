@@ -32,8 +32,9 @@ written by either package loads in the other:
 The blocks of modules the port does not have yet are written empty, and a
 snapshot in which one is not empty is refused, naming its ROADMAP item:
 ``routers`` (parallel, item 11) and ``fleet`` (item 13). The flight
-recorder's journal (item 12's telemetry half) is not written, and a
-reference snapshot's journal is not restored.
+recorder's journal (``flightrec``: its seq and entries) is written and
+restored last, before the transactional sinks, so a journal survives a
+restore exactly once, and it moves between the packages with the file.
 
 ``save``/``load`` write one file (atomic replace, keep-last-K rotation,
 stale-temp sweep; ``load`` reads it under a safelisting unpickler: numpy
@@ -181,7 +182,9 @@ def snapshot_job(job) -> Dict[str, Any]:
             }
             for key, e in job._shared.items()
         },
-        "flightrec": None,
+        # the flight recorder's journal: entries after this snapshot roll
+        # back with a crash; the restored recorder continues the seq
+        "flightrec": job.flightrec.state_dict(),
         # events-mode chunk position and buffered rows survive, so that a
         # restored job emits at the same chunk boundaries; time-mode
         # deadlines are monotonic-clock values and re-arm at restore
@@ -353,8 +356,16 @@ def restore_job(job, snap: Dict[str, Any]) -> None:
             lim.cur = {tuple(k): tuple(v) for k, v in d.get("snap", [])}
             lim.deadline = None
 
-    # 6. sinks with a state (a rebuilt job may attach fewer: the missing
-    # indices are skipped)
+    # 6. the flight recorder's journal, LAST before the sinks: it
+    # overwrites the entries the restore itself made (the dynamic replay
+    # re-runs add_plan, whose control.admit entries reconstruct admits
+    # the journal already holds); absent in an older file: a fresh journal
+    if snap.get("flightrec"):
+        job.flightrec.restore_state(snap["flightrec"])
+
+    # 7. sinks with a state (a rebuilt job may attach fewer: the missing
+    # indices are skipped), AFTER the journal: a resumed transaction's
+    # commit is a new action of the restored run and extends the journal
     for sid, per in (snap.get("sinks") or {}).items():
         fns = job._sinks.get(sid, [])
         for i, sd in per.items():

@@ -81,8 +81,22 @@ sorts them by time and steps the suffixes with them, in ``batch_size``
 chunks, on the run loop. Retire reference-counts the members;
 checkpoints carry the share table (``shared``).
 
-Not in this port yet (ROADMAP.md Queue 1): the executable cache, and the
-flight recorder, trace sampling and SLOs (item 12's telemetry half).
+Telemetry (``telemetry/``, the reference's): the registry's spans and
+drain legs; the flight recorder (``Job.flightrec``: control applies,
+checkpoint save and restore, shed, late, stall and backpressure bursts,
+compiles), which a checkpoint carries; per-event trace sampling
+(``Job.tracer``: stamped at the source pull, marked at staging and
+dispatch, completed where a row surfaces); per-plan attribution (every
+output schema stamped with the plan id its rows count to, a dynamic
+group's members with their own; ``matches`` and ``rows_emitted`` counted
+at the emission sites, drain legs in every member's scope); the SLO
+watchdog (``Job.slo``, evaluated once a cycle); compile events (CUDA graph
+captures and kernel builds, ``telemetry/compile_events.py``) attributed to
+the plan whose section fired them; and the OpenMetrics text
+(``Job.openmetrics``). Every hook runs on the host at a segment, drain or
+cycle boundary, on arrays the host holds, never inside a captured graph.
+
+Not in this port yet (ROADMAP.md Queue 1): the executable cache.
 
 The job runs on the CUDA device unless ``device`` names another one.
 """
@@ -107,7 +121,11 @@ from ..compiler.output import ColumnBatch
 from ..compiler.plan import CompiledPlan
 from ..device import DeviceLike, resolve_device
 from ..schema.batch import EventBatch
-from ..telemetry import MetricsRegistry
+from ..telemetry import MetricsRegistry, compile_events
+from ..telemetry.attribution import limiting_leg as _attr_limiting_leg
+from ..telemetry.flightrec import FlightRecorder
+from ..telemetry.slo import SLOWatchdog
+from ..telemetry.tracing import TraceSampler
 from .graphs import SegmentGraphs
 from .segment import (
     Segment,
@@ -778,6 +796,34 @@ class Job:
             "FST_SUBPLAN_SHARE", "0").lower() not in ("0", "", "false")
         for p in plans:
             self.add_plan(p)
+        # -- the serving telemetry (made after the static adds, as the
+        # reference's: a static add journals nothing) ------------------------
+        # the flight recorder: the job's bounded journal (control applies,
+        # checkpoint save and restore, shed/late/stall bursts, compiles),
+        # silenced with the registry; a checkpoint carries it, so it
+        # survives a restore exactly once
+        self.flightrec = FlightRecorder(registry=self.telemetry)
+        # compile events (CUDA graph captures, kernel builds) of sections
+        # marked with _compile_scope: per-plan counts in
+        # metrics()["compiles"], the compile.* registry series, the journal
+        self._compile_sink = compile_events.CompileSink(
+            self.telemetry, self.flightrec)
+        compile_events.install()
+        # per-event trace sampling: events with abs_ts % sample_every == 0
+        # are stamped at the source pull and completed where a row with
+        # that timestamp surfaces (trace.e2e); sample_every=0 turns it off
+        self.tracer = TraceSampler(self.telemetry)
+        # id(batch) -> (batch, its sampled subset) for the batches pulled
+        # and still pending or released this cycle: the one full-batch
+        # pass of the sampling rule, taken at the pull, serves the stamp
+        # and the staged and dispatch marks (_sampled_of)
+        self._trace_pulled: Dict[int, Tuple[EventBatch, np.ndarray]] = {}
+        # per-tenant SLO objectives, evaluated once a cycle (a no-op
+        # without policies: job.slo.set_policy). It reads the job through
+        # a weak proxy: a watchdog holding the job would make every Job a
+        # reference cycle, whose device memory only the cyclic collector
+        # frees
+        self.slo = SLOWatchdog(weakref.proxy(self))
 
     # -- run-loop ownership guard ---------------------------------------------
     def _stamp_runloop_owner(self) -> None:
@@ -826,11 +872,17 @@ class Job:
             for name in ("control.admitted", "control.stack_join"):
                 self.telemetry.inc(name)
                 self._inc_tenant(tenant, name)
+            self.flightrec.record(
+                "control.admit", plan=plan.plan_id, tenant=tenant,
+                stack_join=True)
             return
         if self.share_subplans and self._try_share(plan, tenant):
             # the prefix runs as a shared host and the tenant rode in as
             # its suffix; _try_share's inner dynamic add counted it
             return
+        self.flightrec.record(
+            "control.admit", plan=plan.plan_id, tenant=tenant,
+            stack_join=False)
         plan, admit0 = self._wrap_dynamic(plan)
         self.telemetry.inc("control.admitted")
         self._inc_tenant(tenant, "control.admitted")
@@ -847,6 +899,75 @@ class Job:
         tel = self.telemetry
         if tel.enabled:
             tel.scope("tenant", tenant or "default").inc(name, n)
+
+    # -- per-plan attribution --------------------------------------------------
+    def _stamp_attribution(self, plan: CompiledPlan) -> None:
+        """Stamp every output schema of ``plan`` with the plan id its rows
+        count to (``plan_attr``, read by ``_attr_scope`` where rows are
+        counted), so per-plan counts are exact even when plans insert into
+        one output stream. A dynamic group decodes each slot with its
+        MEMBER's own schema, stamped with the member's id."""
+        from ..compiler.nfa import DynamicChainGroup
+
+        for schemas in plan.output_streams().values():
+            for sch in schemas:
+                sch.plan_attr = plan.plan_id
+        for a in plan.artifacts:
+            if isinstance(a, DynamicChainGroup):
+                for m in a.members:
+                    if m is not None:
+                        m[1].plan_attr = m[0]
+
+    def _attr_scope(self, schema):
+        """The plan scope a schema's rows count to (None for a schema no
+        plan stamped)."""
+        pid = getattr(schema, "plan_attr", None)
+        if pid is None:
+            return None
+        return self.telemetry.scope("plan", pid)
+
+    def _scope_plans_of(self, rt: _PlanRuntime) -> List[str]:
+        """The USER plan ids a runtime serves: itself for a standalone
+        plan, every live member for a dynamic group host or a shared
+        prefix host. A host's drain legs record into each member's scope
+        (every member's matches waited through that drain)."""
+        pid = rt.plan.plan_id
+        if pid.startswith("@shr:"):
+            for e in list(self._shared.values()):
+                if e["host_id"] == pid:
+                    return list(e["members"]) or [pid]
+            return [pid]
+        if not pid.startswith("@dyn:"):
+            return [pid]
+        from ..compiler.nfa import DynamicChainGroup
+
+        arts = rt.plan.artifacts
+        if arts and isinstance(arts[0], DynamicChainGroup):
+            return [m[0] for m in arts[0].members if m is not None]
+        return [pid]
+
+    def _scoped_drain_record(self, rt: _PlanRuntime, total_s: float,
+                             staleness_s: Optional[float]) -> None:
+        """The plan-scoped twins of ``drain.total`` and
+        ``drain.staleness``, in the scope of every plan the runtime
+        serves."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        for pid in self._scope_plans_of(rt):
+            sc = tel.scope("plan", pid)
+            sc.record_seconds("drain.total", total_s)
+            if staleness_s is not None:
+                sc.record_seconds("drain.staleness", staleness_s)
+
+    def _compile_scope(self, rt: _PlanRuntime):
+        """The compile-attribution scope of one plan's section
+        (``telemetry/compile_events.py``): a CUDA graph capture or a
+        kernel build inside it counts under ``plan:<id>`` in
+        ``metrics()["compiles"]``. Thread-local and re-entrant; entering it
+        is an attribute store."""
+        return compile_events.attribution(self._compile_sink,
+                                          f"plan:{rt.plan.plan_id}")
 
     # -- the footprint meter (admitted vs measured) ---------------------------
     def admitted_bytes(self, state_bytes: int, acc_bytes: int) -> int:
@@ -945,6 +1066,9 @@ class Job:
             rt.lazy = _LazyRing(plan.config.lazy_ring_budget_bytes)
             rt.lazy_state_name = lazy_arts[0].name
         self._plans[plan.plan_id] = rt
+        # after admit0: a dynamic host's first member is registered by now,
+        # so its schema gets the MEMBER's id
+        self._stamp_attribution(plan)
         for sid, rate in plan.output_rates.items():
             self._rate_limiters[sid] = _OutputRateLimiter(
                 rate, plan.snapshot_keys.get(sid, ()))
@@ -979,6 +1103,9 @@ class Job:
             )
         self._folded[plan.plan_id] = (host_id, slot)
         self._folded_enabled[plan.plan_id] = True
+        # the group decodes this slot with the member's schema object:
+        # stamp it with the MEMBER's id (every member shares one stream)
+        plan.artifacts[0].output_schema.plan_attr = plan.plan_id
 
     def _try_fold(self, plan: CompiledPlan) -> bool:
         from ..compiler.nfa import DynamicChainGroup, chain_template_of
@@ -1192,6 +1319,9 @@ class Job:
         self._dynamic_cql[pid] = s_cql
         self.telemetry.inc("control.subplan_share")
         self._inc_tenant(tenant, "control.subplan_share")
+        self.flightrec.record(
+            "control.subplan_share", plan=pid, tenant=tenant, host=host_id,
+            mid=mid, key=key, members=len(entry["members"]))
         # the suffix takes the rest of the ladder itself: structurally
         # equal suffixes stack-join into one dynamic group (recursion is
         # safe: split_shared_prefix refuses readers of a mid stream)
@@ -1321,6 +1451,10 @@ class Job:
         member's suffix, whose own drain then carries them out); the last
         member's retire drops the shared host."""
         self._assert_runloop_owner("remove_plan")
+        if plan_id in self._folded or plan_id in self._plans:
+            self.flightrec.record(
+                "control.retire", plan=plan_id,
+                tenant=self._plan_tenant.get(plan_id))
         skey = self._shared_member.pop(plan_id, None)
         if skey is not None:
             entry = self._shared.get(skey)
@@ -1337,6 +1471,9 @@ class Job:
                     self._loopback_buf.pop(entry["mid"], None)
                     self._shared.pop(skey, None)
                     self.telemetry.inc("control.subplan_unshare")
+                    self.flightrec.record(
+                        "control.subplan_unshare", plan=plan_id,
+                        host=entry["host_id"], key=skey)
         folded = self._folded.pop(plan_id, None)
         self._folded_enabled.pop(plan_id, None)
         self._dynamic_cql.pop(plan_id, None)
@@ -1371,6 +1508,8 @@ class Job:
         plan steps no tape while disabled. Fused mode: the tapes staged
         before it step under the old setting first."""
         self._assert_runloop_owner("set_plan_enabled")
+        self.flightrec.record(
+            "control.enable" if enabled else "control.disable", plan=plan_id)
         folded = self._folded.get(plan_id)
         if folded is not None:
             self._folded_enabled[plan_id] = enabled
@@ -1575,6 +1714,8 @@ class Job:
                 if precleared and budgets is not None:
                     budgets = None
                     self.telemetry.inc("control.preclear")
+                    self.flightrec.record(
+                        "control.preclear", plan=plan_id, tenant=tenant)
                 report = analyze_plan(plan, budgets=budgets,
                                       deep=budgets is not None)
                 rules += [i.rule for i in report.findings]
@@ -1607,6 +1748,11 @@ class Job:
                           tenant: Optional[str] = None,
                           source: str = "apply-time") -> None:
         self.telemetry.inc("control.admission_rejected")
+        # the recorder has its own lock: the service thread records
+        # boundary refusals while the run loop records apply-time ones
+        self.flightrec.record(
+            "control.reject", plan=plan_id, tenant=tenant,
+            rules=[r for r in rules if r], source=source)
         with self._rejections_lock:
             # re-insert at the ring's tail: a repeated refusal refreshes
             # its eviction position
@@ -1678,13 +1824,17 @@ class Job:
         accumulated before the sink attached are drained first and not
         delivered to it; rows after are. A sink with ``bind_telemetry``
         (``KafkaSink``: its ``faults.kafka.*`` and ``faults.txn.*``
-        counters) is bound to this job's registry; ``bind_flightrec``
-        waits for the flight recorder (ROADMAP.md Queue 1 item 12)."""
+        counters) is bound to this job's registry, and one with
+        ``bind_flightrec`` (``KafkaSink``'s transaction lifecycle) to its
+        flight recorder."""
         for rt in self._plans.values():
             self._drain_plan(rt)
         bind = getattr(fn, "bind_telemetry", None)
         if bind is not None:
             bind(self.telemetry)
+        bind_f = getattr(fn, "bind_flightrec", None)
+        if bind_f is not None:
+            bind_f(self.flightrec)
         self._sinks.setdefault(output_stream, []).append(fn)
 
     @property
@@ -1747,6 +1897,7 @@ class Job:
         self._gate_wm = MIN_WM
         self._max_event_ts = None
         self._pending_t.clear()
+        self._trace_pulled.clear()
         self._source_idle = [False] * len(self._sources)
         self._source_last_t = [None] * len(self._sources)
 
@@ -1877,6 +2028,9 @@ class Job:
             # without a host wait
             self.drain_outputs(wait=False)
             self._cycles_since_drain = 0
+        # SLO evaluation at the epoch boundary, after this cycle's drains
+        # (rate-limited inside; a no-op without policies)
+        self.slo.evaluate()
         return total
 
     def _adapt_depth(self) -> None:
@@ -1920,6 +2074,27 @@ class Job:
                     zip(list(self._sources), list(self._source_idle)))
                 if idle]
 
+    def _sampled(self, timestamps: np.ndarray) -> np.ndarray:
+        """The tracer's sampled subset of a batch's int64 timestamps
+        (``abs_ts % sample_every == 0``). For a power-of-two
+        ``sample_every`` the floor modulo is the low bits, so the pass is
+        a bitwise and: the same subset at a third of the modulo's host
+        time."""
+        n = self.tracer.sample_every
+        if n <= 0 or n & (n - 1) or not self.tracer.enabled:
+            return self.tracer.sampled_subset(timestamps)
+        return timestamps[np.flatnonzero((timestamps & (n - 1)) == 0)]
+
+    def _sampled_of(self, batch: EventBatch) -> np.ndarray:
+        """A released batch's sampled subset: the pull's when the batch
+        is the one pulled (masking a sampled subset returns it unchanged,
+        so the marks record what a full pass would), else a pass of its
+        own (a merged, sorted or sliced batch)."""
+        hit = self._trace_pulled.get(id(batch))
+        if hit is not None and hit[0] is batch:
+            return hit[1]
+        return self._sampled(batch.timestamps)
+
     def _pull_sources(self) -> None:
         """Poll every source that is not done into the reorder buffer.
         Over ``max_pending_events`` under 'block', only the sources at
@@ -1936,6 +2111,12 @@ class Job:
             # a caller swapped job._sources: re-size the idle tracking
             self._source_idle = [False] * len(self._sources)
             self._source_last_t = [None] * len(self._sources)
+        if self._trace_pulled:
+            # the batches released by the last pull's cycle are staged:
+            # keep the subsets of those still pending
+            live = {id(b) for bs in self._pending.values() for b in bs}
+            self._trace_pulled = {k: v for k, v in self._trace_pulled.items()
+                                  if k in live}
         timeout = self.idle_timeout_ms
         now = time.monotonic() if timeout is not None else 0.0
         for i, src in enumerate(self._sources):
@@ -1943,6 +2124,8 @@ class Job:
                 continue
             if block and self._source_wm[i] > wm:
                 self.telemetry.inc("faults.backpressure_blocks")
+                self.flightrec.record(
+                    "fault.backpressure", stream=src.stream_id)
                 continue
             batch, swm, done = src.poll(self.batch_size)
             if batch is not None and len(batch):
@@ -1953,18 +2136,30 @@ class Job:
                     (time.monotonic(), bmax))
                 if self._max_event_ts is None or bmax > self._max_event_ts:
                     self._max_event_ts = bmax
+                # trace sampling stamps INGEST time (before the gate), so
+                # a completed trace includes the reorder queueing
+                if self.tracer.enabled:
+                    sampled = self._sampled(batch.timestamps)
+                    self.tracer.stamp_ingest(sampled)
+                    self._trace_pulled[id(batch)] = (batch, sampled)
                 if timeout is not None:
                     self._source_last_t[i] = now
                     if self._source_idle[i]:
                         # its watermark claim rejoins the min from now on
                         self._source_idle[i] = False
                         self.telemetry.inc("idle.unidled")
+                        self.flightrec.record(
+                            "watermark.unidle", stream=src.stream_id)
             elif timeout is not None and not self._source_idle[i]:
                 if self._source_last_t[i] is None:
                     self._source_last_t[i] = now  # armed at the first poll
                 if (now - self._source_last_t[i]) * 1e3 >= timeout:
                     self._source_idle[i] = True
                     self.telemetry.inc("idle.marked")
+                    self.flightrec.record(
+                        "watermark.idle", stream=src.stream_id,
+                        idle_ms=round(
+                            (now - self._source_last_t[i]) * 1e3, 1))
                     _LOG.debug(
                         "source %s idle for %.0f ms; left out of the min "
                         "watermark until its next event", src.stream_id,
@@ -2005,6 +2200,9 @@ class Job:
         if shed:
             self.shed_events += shed
             self.telemetry.inc("faults.shed_events", shed)
+            # rate-collapsed in the journal; the counters carry the totals
+            self.flightrec.record(
+                "fault.shed", events=shed, policy="drop_oldest")
             now = time.monotonic()
             if now - self._shed_warned_at >= 1.0:
                 self._shed_warned_at = now
@@ -2083,6 +2281,12 @@ class Job:
             else:
                 del self._pending[sid]
                 self._pending_t.pop(sid, None)
+        if not ready and self._pending and wm != MAX_WM:
+            # the gate holds data it cannot release this cycle: a
+            # watermark stall (rate-collapsed in the journal)
+            self.flightrec.record(
+                "watermark.stall", pending=self._pending_total(),
+                gate_wm=int(self._gate_wm) if self._gate_wm > MIN_WM else None)
         if eff != MAX_WM:
             if eff > self._released_wm:
                 self._released_wm = eff
@@ -2100,7 +2304,21 @@ class Job:
         the injected schedule."""
         n = len(batch)
         self.late_events += n
+        self.flightrec.record(
+            "fault.late", events=n, policy=self.late_policy,
+            stream=batch.stream_id)
         tel = self.telemetry
+        if tel.enabled:
+            # lateness is a fact of the input stream: it counts to a plan
+            # only when exactly one live plan consumes the stream
+            consumers = [
+                member
+                for rt in list(self._plans.values())
+                if batch.stream_id in rt.plan.spec.stream_codes
+                for member in self._scope_plans_of(rt)
+            ]
+            if len(consumers) == 1:
+                tel.scope("plan", consumers[0]).inc("late_events", n)
         if self.late_policy == "side_output":
             tel.inc("faults.late_side_output", n)
             self._emit_late(batch)
@@ -2196,7 +2414,9 @@ class Job:
                 self._stage_fused(rt, involved)
                 continue
             tape = self._stage_tape(rt, involved).to(self.device)
-            with self.telemetry.span("dispatch"):
+            tel = self.telemetry
+            with self._compile_scope(rt), tel.span("dispatch"):
+                t0 = time.monotonic()
                 # host interning may have discovered new keys: re-bucket
                 # the keyed state tables before the step (host-known
                 # sizes)
@@ -2206,6 +2426,16 @@ class Job:
                 rt.acc_dirty = True
                 if rt.dirty_since is None:
                     rt.dirty_since = time.monotonic()
+                if tel.enabled:
+                    # the host side of one dispatch (the device's time
+                    # hides behind it)
+                    tel.record_seconds("dispatch.enqueue",
+                                       time.monotonic() - t0)
+            # sampled events' ingest->dispatch leg (the step is queued on
+            # the card: the point their work was handed to it)
+            for b in involved:
+                self.tracer.mark(self._sampled_of(b), "dispatch",
+                                 presampled=True)
             self._update_drain_hint(rt, tape.capacity)
 
     def _ticket(self, rt: _PlanRuntime) -> None:
@@ -2257,7 +2487,13 @@ class Job:
             sig = wire_sig(tape)
         if rt.seg_pending and rt.seg_pending[0][1] != sig:
             self._dispatch_segment(rt)
-        rt.seg_pending.append((tape, sig, time.monotonic()))
+        with self.telemetry.span("tape_build"):
+            # the pull's sampled subsets serve the "staged" mark here and
+            # the "dispatch" mark later
+            sampled = [self._sampled_of(b) for b in involved]
+            rt.seg_pending.append((tape, sig, time.monotonic(), sampled))
+            for ts in sampled:
+                self.tracer.mark(ts, "staged", presampled=True)
         self.fusion_batches += 1
         self.telemetry.inc("fusion.batches")
         if len(rt.seg_pending) >= self._fused_k(rt):
@@ -2275,6 +2511,7 @@ class Job:
         k = max(self._fused_k(rt), len(wires))
         tel = self.telemetry
         with tel.span("dispatch"):
+            t0 = time.monotonic()
             seg = self._stack_segment(pad_segment(wires, k))
             # host interning may have found new group keys: grow once a
             # segment, before the call
@@ -2283,8 +2520,19 @@ class Job:
                 # its events have waited since the oldest tape was staged
                 rt.dirty_since = pending[0][2]
             self._run_segment(rt, seg)
+            if tel.enabled:
+                # the host side of one segment's dispatch, under the fused
+                # stage's name and the mode-agnostic one
+                dt = time.monotonic() - t0
+                tel.record_seconds("dispatch.segment", dt)
+                tel.record_seconds("dispatch.enqueue", dt)
         self.fusion_dispatches += 1
         tel.inc("fusion.dispatches")
+        # the sampled events' work is handed to the card: their dispatch
+        # leg ends here, before any wait of the in-flight window
+        for p in pending:
+            for ts in p[3]:
+                self.tracer.mark(ts, "dispatch", presampled=True)
         self._ticket(rt)
 
     def _stack_segment(self, wires: List[WireTape]) -> Segment:
@@ -2316,7 +2564,9 @@ class Job:
         (``graphs.py``). A segment that cannot be captured (a tape's chain
         matcher must read its count) runs its steps eagerly, counted in
         ``eager_segments`` on any device."""
-        if not self._segments(rt).run(rt, seg):
+        with self._compile_scope(rt):
+            captured = self._segments(rt).run(rt, seg)
+        if not captured:
             self.eager_segments += 1
         rt.acc_dirty = True
         if rt.dirty_since is None:
@@ -2836,7 +3086,7 @@ class Job:
                 if self._overlapped(entry, rt):
                     self.drains_overlapped += 1
                     self.telemetry.inc("drains.overlapped")
-                self._record_drain(entry)
+                self._record_drain(rt, entry)
                 self._complete_drain(rt, counts, overflow, decoded)
                 done += 1
                 if limit and done >= limit:
@@ -2857,7 +3107,7 @@ class Job:
         later = rt.drain_q[0]["ready"]
         return not later.query() or done.elapsed_time(later) > 0
 
-    def _record_drain(self, entry: Dict) -> None:
+    def _record_drain(self, rt: _PlanRuntime, entry: Dict) -> None:
         """A completed drain's latency legs, into ``drain.*``
         histograms: wait_ready (request to the hand-off to the fetch
         thread: its counts on the host, or a waiting poll), queue (to the
@@ -2887,11 +3137,17 @@ class Job:
             legs["fetch_meta"] = st["t_meta"] - t_f0
         for leg, dt in legs.items():
             tel.record_seconds(f"drain.{leg}", dt)
-        if entry.get("t_dirty") is not None:
-            tel.record_seconds("drain.staleness", now - entry["t_dirty"])
+        t_dirty = entry.get("t_dirty")
+        if t_dirty is not None:
+            tel.record_seconds("drain.staleness", now - t_dirty)
         tel.record_seconds("drain.transport",
                            legs["wait_ready"] + legs["fetch"])
         tel.inc("drains.completed")
+        # the plan-scoped twins of total and staleness: every plan this
+        # runtime serves waited through this drain
+        self._scoped_drain_record(
+            rt, legs["total"],
+            (now - t_dirty) if t_dirty is not None else None)
 
     def _complete_drain(self, rt: _PlanRuntime, counts, overflow,
                         decoded) -> None:
@@ -2917,16 +3173,23 @@ class Job:
                 plan.plan_id, rt.lazy.missed - rt.lazy_miss_warned,
             )
             rt.lazy_miss_warned = rt.lazy.missed
+        tel = self.telemetry
         if decoded is None:
             # counts-only drain (no consumers, or nothing emitted): keep
-            # the counters truthful (a stack counts to its first member)
+            # the counters truthful. A stack (or a dynamic group) counts
+            # to its representative member, in the plan scopes too: the
+            # data block is never fetched, so it cannot split by slot
             for ai, a in enumerate(plan.artifacts):
                 c = int(counts[ai])
                 if c:
-                    sid = a.output_schema.stream_id
-                    self.emitted_counts[sid] = (
-                        self.emitted_counts.get(sid, 0) + c
+                    sch = a.output_schema
+                    self.emitted_counts[sch.stream_id] = (
+                        self.emitted_counts.get(sch.stream_id, 0) + c
                     )
+                    sc = self._attr_scope(sch) if tel.enabled else None
+                    if sc is not None:
+                        sc.inc("rows_emitted", c)
+                        sc.inc("matches", c)
             return
         for a in plan.artifacts:
             for schema, payload in decoded.get(a.name) or []:
@@ -2934,7 +3197,19 @@ class Job:
                     sid = schema.stream_id
                     self.emitted_counts[sid] = (
                         self.emitted_counts.get(sid, 0) + payload)
-                elif isinstance(payload, ColumnBatch):
+                    sc = self._attr_scope(schema) if tel.enabled else None
+                    if sc is not None:
+                        sc.inc("rows_emitted", payload)
+                        sc.inc("matches", payload)
+                    continue
+                if tel.enabled:
+                    # matches: drained rows BEFORE rate limiting
+                    # (rows_emitted is the post-limit twin); a group's
+                    # per-slot decode attributes each member exactly
+                    sc = self._attr_scope(schema)
+                    if sc is not None:
+                        sc.inc("matches", len(payload))
+                if isinstance(payload, ColumnBatch):
                     self._emit_columns(schema, payload)
                 else:
                     self._emit_rows(schema, payload)
@@ -2981,7 +3256,16 @@ class Job:
                 if not rows:
                     return
         epoch = self._epoch_ms or 0
+        # rows surfacing to a consumer complete their event's trace (after
+        # the limiter: a thinned row is not visible)
+        self.tracer.complete_rows(epoch, rows)
         self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(rows)
+        if self.telemetry.enabled:
+            # per-plan attribution at the site the job total counts, so
+            # the plan scopes sum to it
+            sc = self._attr_scope(schema)
+            if sc is not None:
+                sc.inc("rows_emitted", len(rows))
         if self.retain_results:
             self.collected.setdefault(sid, []).extend(
                 (epoch + rel_ts, row) for rel_ts, row in rows
@@ -3027,7 +3311,12 @@ class Job:
                     self._emit_columns(schema, part, rate_limit=False)
                 return
         epoch = self._epoch_ms or 0
+        self.tracer.complete_ts(epoch, cb.ts)
         self.emitted_counts[sid] = self.emitted_counts.get(sid, 0) + len(cb)
+        if self.telemetry.enabled:
+            sc = self._attr_scope(schema)
+            if sc is not None:
+                sc.inc("rows_emitted", len(cb))
         abs_ts = cb.ts + np.int64(epoch)
         with self.telemetry.span("sink"):
             for sink in self._sinks.get(sid) or ():
@@ -3101,10 +3390,19 @@ class Job:
     def save_checkpoint(self, path: str, keep: int = 1) -> None:
         """``snapshot`` written to ``path`` atomically; ``keep > 1`` keeps
         the latest generations as ``path.1`` .. (``checkpoint.save``)."""
+        import os
+
         from .checkpoint import save
 
         self.drain_outputs()
         self._prepare_sink_commits()
+        # journaled BEFORE the state capture: the save is part of the
+        # snapshot, so a restored journal shows the save that made it,
+        # once (fspath: the restore's safelisting unpickler refuses a
+        # pathlib.Path)
+        self.flightrec.record(
+            "checkpoint.save", path=os.fspath(path), keep=int(keep),
+            processed_events=int(self.processed_events))
         save(self, path, keep=keep)
 
     def restore(self, snapshot_or_path) -> None:
@@ -3119,21 +3417,48 @@ class Job:
             load(self, os.fspath(snapshot_or_path))
         else:
             restore_job(self, snapshot_or_path)
+        # after restore_job adopted the checkpointed journal: the restore
+        # extends it with the next seq
+        self.flightrec.record(
+            "checkpoint.restore", processed_events=int(self.processed_events),
+            plans=len(self._plans))
 
     # -- observability ---------------------------------------------------------
     def metrics(self, drain: bool = False) -> Dict[str, object]:
-        """Counters of the job: processed and emitted, the event-time
-        view (per-source watermark and idle state, the late account) and
-        the telemetry registry's snapshot. ``drain=True`` completes the
-        drains first."""
+        """The job's snapshot, the reference's blocks: processed and
+        emitted, live plans and the tenant rollup, the footprint meter,
+        the event-time view (per-source watermark and idle state, the late
+        account), the control plane, compiles, the limiting-leg
+        attribution, the flight recorder's summary, the SLO watchdog and
+        the telemetry registry with the trace view. ``drain=False`` reads
+        host-side state only (safe from another thread, as the REST
+        service calls it); ``drain=True`` completes the drains first and
+        runs on the run loop."""
         if drain:
             self.drain_outputs()
         wm = self._watermark()
         idle = list(self._source_idle) + [False] * len(self._sources)
+        telemetry = self.telemetry.snapshot()
+        telemetry["trace"] = self.tracer.snapshot()
         return {
             "processed_events": self.processed_events,
+            # list() snapshots: the run loop mutates these dicts while an
+            # off-thread reader takes the snapshot
+            "plans": {
+                **{pid: {"enabled": rt.enabled,
+                         "tenant": self.tenant_of(pid)}
+                   for pid, rt in list(self._plans.items())
+                   if not pid.startswith(("@dyn:", "@shr:"))},
+                **{pid: {"enabled": on, "tenant": self.tenant_of(pid)}
+                   for pid, on in list(self._folded_enabled.items())},
+            },
+            # plan scopes merged per tenant (counters summed, histograms
+            # merged bucket-exactly)
+            "tenants": self.tenant_rollup(),
+            "footprint": self.footprint_status(),
             "emitted": dict(self.emitted_counts),
-            "pending_batches": sum(len(b) for b in self._pending.values()),
+            "pending_batches": sum(
+                len(b) for b in list(self._pending.values())),
             "watermark": None if wm in (MAX_WM, MIN_WM) else wm,
             "sources": [
                 {"stream_id": getattr(src, "stream_id", None),
@@ -3149,8 +3474,107 @@ class Job:
             "late_policy": self.late_policy,
             "shed_events": self.shed_events,
             "control": self.control_status(),
-            "telemetry": self.telemetry.snapshot(),
+            # compile events (graph captures, kernel builds) per plan label
+            "compiles": self._compile_sink.snapshot(),
+            # the serving fleet (ROADMAP.md Queue 1 item 13): none yet
+            "fleet": None,
+            # the limiting leg over the live stage ledger (shares of the
+            # attributed total)
+            "attribution": _attr_limiting_leg(
+                telemetry.get("stages", {}), None, "streaming",
+                telemetry.get("histograms", {})),
+            # the journal's summary (GET /api/v1/flightrecorder serves it)
+            "flight_recorder": {
+                "seq": self.flightrec.seq,
+                "by_kind": self.flightrec.counts_by_kind(),
+            },
+            "slo": self.slo.snapshot(),
+            "telemetry": telemetry,
         }
+
+    def plan_metrics(self, plan_id: str) -> Dict[str, object]:
+        """One plan's scoped metrics (GET /api/v1/queries/<id>): its
+        scope's counters, gauges and histograms and, for a folded member,
+        its host's footprint (the member's state lives in the host's
+        group). Safe off-thread."""
+        scopes = self.telemetry.scope_map("plan")
+        reg = scopes.get(plan_id)
+        out: Dict[str, object] = {}
+        if reg is not None:
+            snap = reg.snapshot()
+            out = {
+                "counters": snap.get("counters", {}),
+                "gauges": snap.get("gauges", {}),
+                "histograms": snap.get("histograms", {}),
+            }
+        f = self._folded.get(plan_id)
+        if f is not None:
+            host = scopes.get(f[0])
+            if host is not None:
+                measured = host.gauge_value("footprint.measured_bytes")
+                if measured is not None:
+                    out["host_footprint"] = {
+                        "host": f[0], "measured_bytes": int(measured)}
+        return out
+
+    def tenant_rollup(self) -> Dict[str, Dict[str, object]]:
+        """``metrics()["tenants"]``: each tenant's plan scopes rolled up
+        (counters summed, drain histograms merged with
+        ``LatencyHistogram.merge``) with the tenant scope's control
+        counters. Group and shared hosts are left out: their drain legs
+        are in each member's scope already. The port has no executable
+        cache, so ``cache_hits`` and ``cache_misses`` stay 0. Safe
+        off-thread."""
+        reg = self.telemetry
+        by_tenant: Dict[str, List[str]] = {}
+        plan_scopes = reg.scope_map("plan")
+        for pid in plan_scopes:
+            if pid.startswith(("@dyn:", "@shr:")):
+                continue
+            by_tenant.setdefault(self.tenant_of(pid), []).append(pid)
+        for pid in self.plan_ids:  # live plans with no scope yet
+            ids = by_tenant.setdefault(self.tenant_of(pid), [])
+            if pid not in ids:
+                ids.append(pid)
+        tenant_scopes = reg.scope_map("tenant")
+        out: Dict[str, Dict[str, object]] = {}
+        for tenant, pids in sorted(by_tenant.items()):
+            rows = matches = late = 0
+            for pid in pids:
+                sreg = plan_scopes.get(pid)
+                if sreg is None:
+                    continue
+                rows += sreg.counter_value("rows_emitted")
+                matches += sreg.counter_value("matches")
+                late += sreg.counter_value("late_events")
+            treg = tenant_scopes.get(tenant)
+
+            def tcount(name, treg=treg):
+                return treg.counter_value(name) if treg is not None else 0
+
+            out[tenant] = {
+                "plans": sorted(pids),
+                "rows_emitted": rows,
+                "matches": matches,
+                "late_events": late,
+                "drain": reg.merged_scope_histogram(
+                    "plan", pids, "drain.total").snapshot(),
+                "drain_staleness": reg.merged_scope_histogram(
+                    "plan", pids, "drain.staleness").snapshot(),
+                "cache_hits": tcount("control.cache_hit"),
+                "cache_misses": tcount("control.cache_miss"),
+                "stack_joins": tcount("control.stack_join"),
+            }
+        return out
+
+    def openmetrics(self) -> str:
+        """The metrics snapshot as Prometheus text (the body of GET
+        /api/v1/metrics/prometheus; ``telemetry/openmetrics.py``), its
+        ``fst_build_info`` backend this job's device type. Safe
+        off-thread."""
+        from ..telemetry.openmetrics import render_openmetrics
+
+        return render_openmetrics(self.metrics(), backend=self.device.type)
 
     # -- results -------------------------------------------------------------
     def results(self, output_stream: str) -> List[Tuple]:

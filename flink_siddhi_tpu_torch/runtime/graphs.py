@@ -73,6 +73,7 @@ import collections
 import contextlib
 import gc
 import threading
+import time
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -80,6 +81,7 @@ import torch
 
 from ..compiler import cuda_ops
 from ..compiler.nfa import step_branch
+from ..telemetry import compile_events
 from .segment import Segment
 
 MAX_GRAPHS = 8  # graph keys per plan (each a graph per ring position)
@@ -362,15 +364,23 @@ class SegmentGraphs:
             return key
         self.before_capture()
         with capture_guard():
-            self._warm_and_capture(rt, seg, key)
+            seconds = self._warm_and_capture(rt, seg, key)
+        # one compile event a graph captured, recorded once the capture
+        # guard is released (telemetry/compile_events.py: the caller's
+        # attribution scope names the plan)
+        for secs in seconds:
+            compile_events.record("capture", secs)
         return key
 
-    def _warm_and_capture(self, rt, seg: Segment, key: Tuple) -> None:
+    def _warm_and_capture(self, rt, seg: Segment,
+                          key: Tuple) -> List[float]:
+        """Warm ``seg`` and capture its graph for every ring position;
+        returns the seconds each capture took."""
         if not self.cuda:
             # nothing to capture; the key still counts as first seen
             self._keep(key, [None] * len(rt.ring))
             self.keys += 1
-            return
+            return []
         slot = self._slot(seg)
         tapes = seg.tapes(slot)
         with torch.cuda.device(self.device):
@@ -387,12 +397,16 @@ class SegmentGraphs:
             cur.wait_stream(self.stream)
             counted = [a for a in self.plan.artifacts
                        if hasattr(a, "host_syncs")]
-            graphs = [capture(self._body(tapes, acc), self.stream,
-                              self.pool, counted=counted)[0]
-                      for acc in rt.ring]
+            graphs, seconds = [], []
+            for acc in rt.ring:
+                t0 = time.perf_counter()
+                graphs.append(capture(self._body(tapes, acc), self.stream,
+                                      self.pool, counted=counted)[0])
+                seconds.append(time.perf_counter() - t0)
         self._keep(key, graphs)
         self.captured += len(graphs)
         self.keys += 1
+        return seconds
 
     def _keep(self, key: Tuple, graphs: List) -> None:
         self.graphs[key] = graphs

@@ -57,6 +57,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..schema.batch import EventBatch
@@ -106,6 +107,7 @@ class ResidentReplay:
             return
         tel = job.telemetry
         ready_sets: List[List[EventBatch]] = []
+        sampled_sets: List[List[np.ndarray]] = []
         with tel.span("stage.source_pull"):
             while not job.finished:
                 job._pull_sources()
@@ -116,6 +118,7 @@ class ResidentReplay:
                             int(b.timestamps.min()) for b in ready
                         )
                     ready_sets.append(ready)
+                    sampled_sets.append(self._sampled(ready))
                     self.total_events += sum(len(b) for b in ready)
         job.processed_events += self.total_events
         for pid, rt in job._plans.items():
@@ -126,9 +129,27 @@ class ResidentReplay:
         if self.segments:
             with tel.span("stage.prewarm"):
                 job.prewarm_drains()
+        self._mark_staged(sampled_sets)
         if job.device.type == "cuda":
             torch.cuda.synchronize(job.device)
         self.stage_seconds = time.perf_counter() - t0
+
+    def _sampled(self, ready: List[EventBatch]) -> List[np.ndarray]:
+        """The sampled subsets of a released set, taken while the
+        pull's subsets are at hand (the next pull lets them go)."""
+        job = self.job
+        return [job._sampled_of(b) for b in ready] if job.tracer.enabled \
+            else []
+
+    def _mark_staged(self, sampled_sets) -> None:
+        """The end of staging for the sampled events (stamped at the
+        source pull): a replay trace splits into ingest->staged (tape
+        building, upload, capture) and staged->emit. Staging runs off the
+        replay clock, so ``trace.e2e`` includes it."""
+        tracer = self.job.tracer
+        for sampled in sampled_sets:
+            for ts in sampled:
+                tracer.mark(ts, "staged", presampled=True)
 
     def _segment_cycles(self, rt: _PlanRuntime, capacity: int) -> int:
         """Steps per drain: the accumulator must hold a whole segment's
@@ -200,8 +221,10 @@ class ResidentReplay:
         if rt.graphs is None:
             rt.ring_size = min(len(segs), job.MAX_PENDING_DRAINS) + 1
         runner = job._segments(rt)
-        for seg in segs:
-            runner.prepare(rt, seg)
+        # the off-clock captures count under this plan's compile label
+        with job._compile_scope(rt):
+            for seg in segs:
+                runner.prepare(rt, seg)
         return segs
 
     # -- control-in-replay (epoch partitioning) ---------------------------
@@ -213,7 +236,7 @@ class ResidentReplay:
         loudly instead of spinning."""
         job = self.job
         epochs: List[Dict] = []
-        current: Dict = {"control": [], "ready": []}
+        current: Dict = {"control": [], "ready": [], "sampled": []}
         stalled = 0
         with job.telemetry.span("stage.source_pull"):
             while not (all(job._source_done)
@@ -231,7 +254,7 @@ class ResidentReplay:
                     # the post-control plan set
                     if current["ready"] or current["control"]:
                         epochs.append(current)
-                        current = {"control": [], "ready": []}
+                        current = {"control": [], "ready": [], "sampled": []}
                     current["control"].extend(ready_ctrl)
                 ready = job._release_ready()
                 if ready:
@@ -239,6 +262,7 @@ class ResidentReplay:
                         job._epoch_ms = min(
                             int(b.timestamps.min()) for b in ready)
                     current["ready"].append(ready)
+                    current["sampled"].append(self._sampled(ready))
                     self.total_events += sum(len(b) for b in ready)
                 # pulled-but-gated batches count as progress
                 after = (
@@ -262,7 +286,7 @@ class ResidentReplay:
             if tail:
                 if current["ready"] or current["control"]:
                     epochs.append(current)
-                    current = {"control": [], "ready": []}
+                    current = {"control": [], "ready": [], "sampled": []}
                 current["control"].extend(tail)
         if current["ready"] or current["control"]:
             epochs.append(current)
@@ -293,6 +317,7 @@ class ResidentReplay:
             if staged:
                 with tel.span("stage.prewarm"):
                     job.prewarm_drains()
+            self._mark_staged(ep["sampled"])
             for pid, segs in staged.items():
                 rt = job._plans[pid]
                 for seg in segs:

@@ -557,8 +557,9 @@ def test_control_blocks_move_between_packages(tmp_path, block, writer):
 
 def test_jax_snapshot_dict_restores_into_the_port():
     """The in-memory snapshot of a JAX ``Job`` (not only its file) loads
-    into the port: the reference's flight-recorder journal is not
-    restored, and its empty later blocks pass."""
+    into the port: the reference's flight-recorder journal restores with
+    it (the restore's entry continues its seq), and its empty later blocks
+    pass."""
     cql, spec, config = CROSS["group_by_window"]
     streams = {"S": _columns(600, 5, 3)}
     ref = _build("jax", cql, streams, 100, config)
@@ -567,6 +568,8 @@ def test_jax_snapshot_dict_restores_into_the_port():
     assert snap["flightrec"]  # the reference journals
     job = _build("torch", cql, streams, 100, config)
     job.restore(snap)
+    assert job.flightrec.seq == snap["flightrec"]["seq"] + 1
+    assert job.flightrec.events()[-1]["kind"] == "checkpoint.restore"
     ref2 = _build("jax", cql, streams, 100, config)
     ref2.restore(snap)
     job.run()

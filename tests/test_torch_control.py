@@ -1173,10 +1173,7 @@ def rest_roundtrip(pk):
         assert "ones" in m["emitted"]
         seen.append((m["processed_events"], m["emitted"]))
         status, t = call("GET", "/api/v1/traces")
-        if pk is JAX:
-            assert status == 200 and t["sample_every"] > 0
-        else:
-            assert status == 501 and "item 12" in t["error"]
+        assert status == 200 and t["sample_every"] > 0
         status, _ = call("GET", "/api/v1/nope")
         assert status == 404
         status, _ = call("POST", "/api/v1/queries", {})
@@ -1208,23 +1205,77 @@ def test_control_service_rest_roundtrip():
     _both(rest_roundtrip)
 
 
+def _telemetry_route_body(path, status, ctype, raw):
+    """What the telemetry routes answer for a live job (200 and its
+    body), and the fleet's drain (501 naming item 13)."""
+    if path == "/api/v1/fleet/drain":
+        assert status == 501, path
+        assert "item 13" in json.loads(raw)["error"], path
+        return
+    assert status == 200, path
+    if path == "/api/v1/metrics/prometheus":
+        assert ctype.startswith("text/plain"), ctype
+        text = raw.decode("utf-8")
+        assert "# TYPE fst_build_info gauge" in text
+        assert "fst_processed_events_total 8" in text
+        return
+    body = json.loads(raw)
+    if path == "/api/v1/traces":
+        assert body["sample_every"] == 1024 and body["enabled"] is True
+        assert body["sampled"] == 1  # ts 1024 of 1020..1027
+    elif path == "/api/v1/flightrecorder":
+        assert body["seq"] >= 1
+        kinds = [e["kind"] for e in body["events"]]
+        assert kinds[0] == "control.admit"
+        assert body["events"][0]["plan"] == "q1"
+    elif path == "/api/v1/slo":
+        assert body["policies"] == 0 and body["reconciled"] is True
+
+
 def test_service_later_routes_answer_501_naming_their_item():
+    """The one route still to come, the fleet's drain, answers 501
+    naming its ROADMAP item."""
     ctrl = TORCH.ControlQueueSource()
     svc = TORCH.QueryControlService(ctrl).start()
     try:
         conn = http.client.HTTPConnection("127.0.0.1", svc.port, timeout=5)
-        for method, path, item in (
-            ("GET", "/api/v1/metrics/prometheus", 12),
-            ("GET", "/api/v1/traces", 12),
-            ("GET", "/api/v1/flightrecorder", 12),
-            ("GET", "/api/v1/slo", 12),
-            ("POST", "/api/v1/fleet/drain", 13),
-        ):
-            conn.request(method, path)
-            r = conn.getresponse()
-            body = json.loads(r.read())
-            assert r.status == 501, path
-            assert f"item {item}" in body["error"], path
+        conn.request("POST", "/api/v1/fleet/drain")
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        assert r.status == 501
+        assert "item 13" in body["error"]
+    finally:
+        svc.stop()
+
+
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/api/v1/metrics/prometheus"),
+    ("GET", "/api/v1/traces"),
+    ("GET", "/api/v1/flightrecorder"),
+    ("GET", "/api/v1/slo"),
+])
+def test_telemetry_routes_answer_200_with_their_bodies(method, path):
+    """The four telemetry routes answer 200 with their bodies over a
+    live job."""
+    schema = _schema(TORCH)
+    src = TORCH.CallbackSource("S", schema)
+    ctrl = TORCH.ControlQueueSource()
+    job = TORCH.Job([], [src], batch_size=8, time_mode="processing",
+                    control_sources=[ctrl],
+                    plan_compiler=_compiler(TORCH, schema))
+    TORCH.ControlPlane(job, ctrl).admit(
+        "from S[id == 1] select price insert into ones", plan_id="q1")
+    for i in range(8):
+        src.emit(Rec(i % 2, float(i), 1020 + i), 1020 + i)
+    job.run_cycle()
+    job.drain_outputs()
+    svc = TORCH.QueryControlService(ctrl, job=job).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", svc.port, timeout=5)
+        conn.request(method, path)
+        r = conn.getresponse()
+        _telemetry_route_body(path, r.status,
+                              r.getheader("Content-Type", ""), r.read())
     finally:
         svc.stop()
 

@@ -56,6 +56,8 @@ _COPIED = [
     "query/parser.py", "query/planner.py",
     "compiler/config.py", "compiler/output.py", "utils/cron.py",
     "telemetry/histogram.py", "telemetry/spans.py", "telemetry/registry.py",
+    "telemetry/flightrec.py", "telemetry/tracing.py", "telemetry/slo.py",
+    "telemetry/attribution.py", "telemetry/prober.py",
     "runtime/faultinject.py", "runtime/supervisor.py",
     "connectors/__init__.py", "connectors/kafka/__init__.py",
     "connectors/kafka/varint.py", "connectors/kafka/crc32c.py",
@@ -134,6 +136,16 @@ def test_import_pulls_in_no_jax():
         "import flink_siddhi_tpu_torch.app.service\n"
         "import flink_siddhi_tpu_torch.control.plane\n"
         "import flink_siddhi_tpu_torch.native\n"
+        "import flink_siddhi_tpu_torch.telemetry.flightrec\n"
+        "import flink_siddhi_tpu_torch.telemetry.tracing\n"
+        "import flink_siddhi_tpu_torch.telemetry.slo\n"
+        "import flink_siddhi_tpu_torch.telemetry.attribution\n"
+        "import flink_siddhi_tpu_torch.telemetry.prober\n"
+        "import flink_siddhi_tpu_torch.telemetry.compile_events\n"
+        "import flink_siddhi_tpu_torch.telemetry.openmetrics\n"
+        "from flink_siddhi_tpu_torch.telemetry.openmetrics import "
+        "_build_info_labels\n"
+        "_build_info_labels('cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'flink_siddhi_tpu' "
         "or m.startswith('flink_siddhi_tpu.') or m == 'triton')\n"
