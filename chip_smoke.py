@@ -83,9 +83,12 @@ fault:
    (524,288 events, 1,024 keys, stragglers, an int column), unkeyed and
    at 64 keys; K8 (frequency_scan) at F1's and F2's shapes, a full lossy
    table (victims), codes past its lookup map, a 70,000-slot table in
-   device memory and Zipf codes; K9 (sort_window_scan) at O1's and O2's
-   shapes, C = 100 with NaN keys and a 20,000-slot buffer in device
-   memory (``check_scan_windows``);
+   device memory, Zipf codes, C = 32, 33 and tables past the register
+   tiers, and `seen` at the int32 wrap;
+   K9 (sort_window_scan) at O1's and O2's shapes, C = 100 with NaN keys,
+   a 20,000-slot buffer in device memory and its chunked path at chunks
+   of 7-64 (ties across chunks, a NaN partition, a carried buffer)
+   (``check_scan_windows``);
 4. headline: the bench's 3-step `every ... within 5 sec` chain pattern
    through compile_plan -> BatchSource -> Job at batch 524,288 over a
    10,485,760-event stream (N_BATCHES = 20 tapes), with the launch
@@ -259,21 +262,20 @@ fault:
    (20 before phase 8h came, cut for the time limit). P1's K4 and W1's K6
    inputs of the third step go to phase 9;
 8f. scan windows (in a process of its own, `--scan-windows OUT`):
-   SCAN_STEPS = 4 tapes of 524,288 events (2, SCAN_SHORT_STEPS, for the
-   one-warp plans O1, F1 and F2 since phase 8g came) each of S1
+   SCAN_STEPS = 4 tapes of 524,288 events (2 for O1, F1 and F2 from
+   phase 8g's arrival until K8's and K9's redesign) each of S1
    (`#window.session(2
    sec, user)` over the partition stream: K7, and the flush's rows), O1
-   (`#window.sort(10, price)`, one buffer: K9 on one warp), O2 (a
-   `sort(4, price, 'desc')` per id inside `partition with`: K9, a warp a
-   partition), F1 (`#window.frequent(8, id)`: K8), F2
+   (`#window.sort(10, price)`, one buffer: K9's chunks), O2 (a
+   `sort(4, price, 'desc')` per id inside `partition with`: K9's chunks
+   over 50 partitions), F1 (`#window.frequent(8, id)`: K8), F2
    (`lossyFrequent(0.015, 0.0015, id)`, 4,096 slots: K8) over the bench
    stream, and U1 (the quote board over INT/LONG volumes: K3's integer
    path) over phase 6's quote stream, each through ``part_plan``: rows
    of the first 8,192 events on the card equal to the CPU path's (floats
    and U1's LONG sum within rtol 1e-5), then the streaming and resident
    runs of 8b-8e (the kernel once a step on the host and in a traced
-   rerun). Each plan's third-step (a short plan's second-step) kernel
-   inputs go to phase 9;
+   rerun). Each plan's third-step kernel inputs go to phase 9;
 8g. event time and recovery (in a process of its own, `--event-time
    OUT`): E1, the headline as the bench runs it (bench.py's settings,
    the fused streaming Job, 8 tapes a segment) over ET_TAPES = 8 tapes
@@ -489,14 +491,14 @@ fault:
    tables path's third step (the stream-table join), exact and timed;
    K4 on P1's third step at 512 slots and K6 on W1's (the rewritten
    update and the delete), each exact against its plain version and
-   timed; K7 on S1's third step, K8 on F1's and F2's second, K9 on
-   O1's second and O2's third (``time_scan_kernel``: held to the plain
-   version on the CPU
+   timed; K7 on S1's third step, K8 on F1's and F2's, K9 on O1's and
+   O2's (``time_scan_kernel``: held to the plain version on the CPU
    copies, on the whole tape or, where the plain version walks event by
-   event, its first 4,096 events; CUDA events around back-to-back calls,
-   K8 and K9 one call each way after the held call (two runs and a
-   warm-up before phase 8j came, cut for its time); the byte bound and
-   the longest chain's serial floor of empty warp rounds), K7 unkeyed over S1's third step (one thread walks the tape),
+   event, its first 4,096 events, K9 on O1 also over its whole tape
+   against a host walk, ``sort_witness``; CUDA events around two
+   back-to-back calls after a warm-up; the byte bound and the longest
+   chain's serial floor of empty warp rounds), K7 unkeyed over S1's
+   third step (one thread walks the tape),
    and K3's integer path on U1's third step; K1 and K2 at a dynamic
    group's shapes (phase 8i's recorded step: 16 rows of 524,288 events;
    Q = 8 over V = 525,312), exact against their plain versions, timed
@@ -1556,13 +1558,15 @@ def session_check(co, args, what, dev):
 
 def frequency_inputs(co, rng, E, C, A, int_cols, lossy, n_codes,
                      support=0.015, error=0.0015, zipf=False, k_map=None,
-                     full=False):
+                     full=False, seen=None, fresh=False):
     """K8's inputs: 80% of E events masked, codes uniform (or Zipf) over
     ``n_codes``, ``scan_values`` arguments, and a carried table from the
     plain version over a first batch of the same shape (``full``: every
     slot valid, holding codes 0 .. C - 1 with small counts, so unseen
     codes take the lossy victim path). ``k_map`` cuts the lookup map below
-    the codes (the ballot-scan path)."""
+    the codes (the ballot-scan path); ``seen`` replaces the carried count
+    of events seen (near 2^31: the int32 wrap); ``fresh`` carries the
+    empty table instead."""
     import torch
 
     width = max(int(np.ceil(1.0 / error)), 1) if lossy else 0
@@ -1588,7 +1592,8 @@ def frequency_inputs(co, rng, E, C, A, int_cols, lossy, n_codes,
              torch.zeros((A, C), dtype=torch.float32))
     tail = (slots, int_cols, lossy, width, factor,
             n_codes if k_map is None else k_map)
-    first = co.frequency_scan_plain(*batch(), *state, *tail)[:6]
+    first = (state if fresh
+             else co.frequency_scan_plain(*batch(), *state, *tail)[:6])
     if full:
         first = (torch.ones(C, dtype=torch.bool),
                  torch.arange(C, dtype=torch.int32),
@@ -1596,6 +1601,9 @@ def frequency_inputs(co, rng, E, C, A, int_cols, lossy, n_codes,
                  torch.from_numpy(rng.integers(0, 3, C).astype(np.int32)),
                  torch.tensor(40, dtype=torch.int32),
                  torch.from_numpy(scan_values(rng, C, A, int_cols)))
+    if seen is not None:
+        first = (*first[:4], torch.tensor(seen, dtype=torch.int32),
+                 first[5])
     return (*batch(), *first, *tail)
 
 
@@ -1619,23 +1627,32 @@ def frequency_check(co, args, what, dev):
 
 
 def sort_inputs(co, rng, E, P, C, A, int_cols, n_parts=None,
-                p_nan_key=0.0):
+                p_nan_key=0.0, ties=False, nan_parts=(), chunk=None):
     """K9's inputs: 80% of E events masked, partitions uniform over
-    ``n_parts`` (of P buffers), float32 keys (a share ``p_nan_key`` NaN),
-    ``scan_values`` arguments, and carried buffers from the plain version
-    over a first batch of the same shape."""
+    ``n_parts`` (of P buffers), float32 keys (a share ``p_nan_key`` NaN;
+    ``ties``: five values, -0.0 beside 0.0, +-inf; 5% NaN in each of
+    ``nan_parts``), ``scan_values`` arguments, and carried buffers from the
+    plain version over a first batch of the same shape. ``chunk`` goes to
+    the kernel's wrapper only (sort_check)."""
     import torch
 
     slots = [("count", -1)] + [(k, a) for a in range(A)
                                for k in ("sum", "min", "max", "avg")]
 
     def batch():
-        keys = np.round(rng.random(E) * 100, 2).astype(np.float32)
+        if ties:
+            keys = rng.integers(0, 5, E).astype(np.float32)
+            keys[rng.random(E) < 0.1] = -0.0
+            keys[rng.random(E) < 0.02] = np.inf
+            keys[rng.random(E) < 0.02] = -np.inf
+        else:
+            keys = np.round(rng.random(E) * 100, 2).astype(np.float32)
         keys[rng.random(E) < p_nan_key] = np.nan
+        part = rng.integers(0, n_parts or P, E).astype(np.int32)
+        for q in nan_parts:
+            keys[(part == q) & (rng.random(E) < 0.05)] = np.nan
         return (torch.from_numpy(rng.random(E) < 0.8),
-                torch.from_numpy(rng.integers(0, n_parts or P, E).astype(
-                    np.int32)),
-                torch.from_numpy(keys),
+                torch.from_numpy(part), torch.from_numpy(keys),
                 torch.from_numpy(scan_values(rng, E, A, int_cols, 0.001)))
 
     state = (torch.zeros((P, C), dtype=torch.bool),
@@ -1645,16 +1662,18 @@ def sort_inputs(co, rng, E, P, C, A, int_cols, n_parts=None,
     return (*batch(), *first, slots, int_cols)
 
 
-def sort_check(co, args, what, dev):
-    """K9 on ``dev`` against its plain version on the CPU copies: the
-    buffers equal as stored, the rows by ``scan_rows_err``."""
+def sort_check(co, args, what, dev, chunk=None):
+    """K9 on ``dev`` (its chunks of ``chunk`` positions where given)
+    against its plain version on the CPU copies: the buffers equal as
+    stored, the rows by ``scan_rows_err``."""
     import torch
 
     t0 = time.perf_counter()
     ref = co.sort_window_scan_plain(*args)
     plain_s = time.perf_counter() - t0
     got = co.sort_window_scan(*[a.to(dev) if isinstance(a, torch.Tensor)
-                                else a for a in args])
+                                else a for a in args],
+                              **({} if chunk is None else {"chunk": chunk}))
     torch.cuda.synchronize()
     for g, r, n in zip(got[:3], ref[:3], ("valid", "bkey", "bufs")):
         same_bits(g.cpu(), r, f"sort_window_scan {what}: {n}")
@@ -1670,12 +1689,19 @@ def check_scan_windows(co, dev):
     walk (E = 2,048) and 64 keys. K8 (frequency_scan): F1's `frequent(8)`
     and F2's `lossyFrequent(0.015, 0.0015)` (4,096 slots) over 50 codes,
     a lossy table of 16 slots over 300 codes (the victim path), codes past
-    the lookup map (the ballot scan), a 70,000-slot `frequent` table in
-    device memory (past shared memory), Zipf codes. K9
-    (sort_window_scan): O1's shape (C = 10, one partition), O2's (64
-    buffers of 4, 50 partitions), C = 100 (four chunks), NaN keys, a
-    20,000-slot buffer in device memory. Int columns in each. Returns
-    (max relative sum error, the plain versions' seconds)."""
+    the lookup map (the ballot scan, at 8 slots and at 100), a
+    70,000-slot `frequent` table in device memory (past shared memory),
+    Zipf codes, both kinds at C = 32 and 33 (one register tier and two),
+    tables that grow past the 64 register slots into the wide table
+    mid-call, and both kinds with `seen` 300 events below 2^31 (the int32
+    wrap). K9 (sort_window_scan):
+    O1's shape (C = 10, one partition), O2's (64 buffers of 4, 50
+    partitions), C = 100 (four chunks), NaN keys, a 20,000-slot buffer in
+    device memory; and the chunked path at small chunks (a keyword no path
+    sets): ties within and across chunks (-0.0 beside 0.0, +-inf), a
+    partition with NaN keys (its serial branch) beside chunked ones, a
+    carried buffer, C = 32. Int columns in each. Returns (max relative sum
+    error, the plain versions' seconds)."""
     import torch
 
     t0 = time.perf_counter()
@@ -1703,7 +1729,28 @@ def check_scan_windows(co, dev):
             ("frequent 70000 slots in device memory", 1024, 70_000, 1, (),
              False, 90_000, {}),
             ("lossy Zipf codes", 8192, 256, 1, (0,), True, 2000,
-             dict(support=0.05, error=0.01, zipf=True))):
+             dict(support=0.05, error=0.01, zipf=True)),
+            ("codes past the map, 100 slots", 4096, 100, 1, (), False, 80,
+             dict(k_map=10)),
+            ("frequent C=32 (one register tier), 60 codes", 8192, 32, 2,
+             (1,), False, 60, {}),
+            ("frequent C=33 (two tiers), 60 codes", 8192, 33, 2, (1,),
+             False, 60, {}),
+            ("frequent C=65, 90 codes, from empty (past the tiers)", 8192,
+             65, 1, (), False, 90, dict(fresh=True)),
+            ("lossy 4096 slots, 150 codes, from empty (past the tiers)",
+             8192, 4096, 1, (0,), True, 150, dict(support=0.01, error=0.001,
+                                                  fresh=True)),
+            ("lossy full C=32, 300 Zipf codes", 4096, 32, 2, (0,), True,
+             300, dict(support=0.35, error=0.3, zipf=True, full=True)),
+            ("lossy full C=33, 300 Zipf codes", 4096, 33, 2, (0,), True,
+             300, dict(support=0.35, error=0.3, zipf=True, full=True)),
+            ("frequent, seen 2^31 - 300 (the wrap)", 2048, 8, 1, (), False,
+             50, dict(seen=2 ** 31 - 300)),
+            ("lossy, seen 2^31 - 300 (the wrap)", 2048, 16, 1, (0,), True,
+             50, dict(support=0.1, error=0.02, seen=2 ** 31 - 300)),
+            ("lossy 64 slots, seen 2^31 - 300 (the wrap)", 2048, 64, 1, (),
+             True, 80, dict(support=0.05, error=0.01, seen=2 ** 31 - 300))):
         args = frequency_inputs(co, rng, E, C, A, ints, lossy, n_codes, **kw)
         emitted, r, ps = frequency_check(co, args, what, dev)
         rel, plain_s = max(rel, r), plain_s + ps
@@ -1716,9 +1763,17 @@ def check_scan_windows(co, dev):
             ("C=100 E=2048, NaN keys", 2048, 1, 100, 2, (0,),
              dict(p_nan_key=0.01)),
             ("C=20000 in device memory E=512", 512, 1, 20_000, 3, (2,),
-             {})):
+             {}),
+            ("chunks of 16, ties, a NaN partition, 10 partitions E=3000",
+             3000, 12, 6, 2, (1,), dict(n_parts=10, ties=True,
+                                        nan_parts=(4,), chunk=16)),
+            ("chunks of 64, ties, C=32, one buffer E=4096", 4096, 1, 32, 1,
+             (), dict(ties=True, chunk=64)),
+            ("chunks of 7, a NaN buffer carried, E=2048", 2048, 3, 5, 1,
+             (0,), dict(n_parts=3, p_nan_key=0.002, chunk=7))):
+        chunk = kw.pop("chunk", None)
         args = sort_inputs(co, rng, E, P, C, A, ints, **kw)
-        r, ps = sort_check(co, args, what, dev)
+        r, ps = sort_check(co, args, what, dev, chunk)
         rel, plain_s = max(rel, r), plain_s + ps
         log(f"  sort_window_scan {what}: exact, sums rel err {r:.3g} "
             f"(plain {ps:.2f} s)")
@@ -4739,11 +4794,7 @@ def partitions_main(out_path):
 # -- phase 8f: the scan windows ----------------------------------------------
 
 SCAN_STEPS = 4  # tapes of BATCH each plan runs (the kernels walk in series)
-# the plans whose kernel runs on one warp (K8, K9 unpartitioned: 0.5-0.8 s
-# a step) run 2 tapes (4 before phase 8g came: the time limit); phase 9
-# times their kernel on the last step
-SCAN_SHORT = ("O1", "F1", "F2")
-SCAN_SHORT_STEPS = 2
+SCAN_RECORDED_STEP = 3  # the step whose kernel inputs phase 9 times
 SCAN_CHECK_EVENTS = 8_192  # rows held to the CPU path over these events
 SCAN_PLAIN_EVENTS = 4_096  # phase 9: a walking plain version's prefix
 S1 = ("from inputStream#window.session(2 sec, user) select user, "
@@ -4779,15 +4830,6 @@ SCAN_PLANS = (
 )
 
 
-def scan_steps(name):
-    """The tapes phase 8f runs plan ``name`` over."""
-    return SCAN_SHORT_STEPS if name in SCAN_SHORT else SCAN_STEPS
-
-
-def scan_recorded_step(name):
-    """The step whose kernel inputs phase 9 times: the third, or a short
-    plan's last."""
-    return min(3, scan_steps(name))
 
 
 def scan_job(fpt, cql, sid, schema, batches, device, retain):
@@ -4824,8 +4866,7 @@ def scan_phase(fpt, co, out_path):
     for name, cql, out, stream, kernel, art_name, int_close in SCAN_PLANS:
         schema, batches = streams[stream]
         sid = sids[stream]
-        steps = scan_steps(name)
-        batches = batches[:steps]
+        steps = SCAN_STEPS
         prefix = [batches[0].slice(0, SCAN_CHECK_EVENTS)]
         res = part_plan(
             fpt, co, name, cql, (out,),
@@ -4835,7 +4876,7 @@ def scan_phase(fpt, co, out_path):
                 scan_job(fpt, _c, _s, _h, _p, dev, True),
             {kernel: 1}, steps, BATCH * steps,
             patches=((scan_windows, kernel, keep_calls(
-                getattr(co, kernel), {scan_recorded_step(name): name},
+                getattr(co, kernel), {SCAN_RECORDED_STEP: name},
                 recorded)),),
             int_close=int_close)
         res["artifacts"] = [type(a).__name__ for a in fpt.compile_plan(
@@ -6913,6 +6954,109 @@ def scan_work(kernel, args, rows):
     return nbytes, m * C * (2 + A + S), chain
 
 
+def sort_witness(args):
+    """K9's buffers and rows over a whole step, walked on the host where
+    the plain version (one vectorized round an event of the longest
+    partition) would take minutes: each partition's valid slots kept as a
+    sorted list of keys, an event inserted at ``bisect_left`` (the count
+    of keys strictly below it, the reference's `pos`: an equal key goes
+    before the older ones) and the last slot cut at C; a row rebuilt only
+    when the buffer changed (count, min and max exact, sums in float64 then
+    float32, an int column's values cast to float32 first). NaN-free keys
+    and carried buffers that are sorted prefixes only (the serial rule's
+    states on such streams). Returns (valid, bkey, bufs, rows) as the
+    kernel's wrapper does, and the insertions counted."""
+    import bisect
+
+    import torch
+
+    mask, part, keys, vals, valid, bkey, bufs, slots, int_cols = args
+    E, A = int(mask.shape[0]), int(vals.shape[0])
+    P, C = int(valid.shape[0]), int(valid.shape[1])
+    kv = keys.numpy()
+    if np.isnan(kv[mask.numpy()]).any():
+        raise AssertionError("sort witness: a NaN key")
+    words = vals.view(torch.int32).numpy()
+    n_valid = valid.sum(1).tolist()
+    buf_k = [bkey[p, :n_valid[p]].tolist() for p in range(P)]
+    buf_w = [[bufs.view(torch.int32)[:, p, i].tolist()
+              for i in range(n_valid[p])] for p in range(P)]
+    for p in range(P):
+        if (valid[p, :n_valid[p]].sum() != n_valid[p]
+                or buf_k[p] != sorted(buf_k[p])):
+            raise AssertionError(f"sort witness: partition {p}'s carried "
+                                 "buffer is not a sorted prefix")
+    int_cols = frozenset(int_cols)
+
+    def as_f32(w, a):  # a word as its float32 value, in a Python float
+        return float(np.float32(np.int32(w)) if a in int_cols
+                     else np.int32(w).view(np.float32))
+
+    def row(ws):
+        out = []
+        for kind, a in slots:
+            if kind == "count":
+                out.append(np.float32(len(ws)).view(np.int32))
+                continue
+            col = [w[a] for w in ws]
+            if kind in ("sum", "avg"):
+                r = np.float32(sum(as_f32(w, a) for w in col))
+                if kind == "avg":
+                    r = np.float32(r / np.float32(max(len(ws), 1)))
+                out.append(r.view(np.int32))
+            elif a in int_cols:
+                ident = (2 ** 31 - 1) if kind == "min" else -2 ** 31
+                out.append(np.int32((min if kind == "min" else max)(
+                    [np.int32(w) for w in col], default=ident)))
+            else:
+                fs = np.array([as_f32(w, a) for w in col], np.float32)
+                if np.isnan(fs).any():
+                    r = np.float32(np.nan)
+                elif kind == "min":
+                    r = fs.min() if len(fs) else np.float32(np.inf)
+                else:
+                    r = fs.max() if len(fs) else np.float32(-np.inf)
+                out.append(r.view(np.int32))
+        return out
+
+    rows = np.zeros((len(slots), E), np.int32)
+    cache = [None] * P
+    inserted = 0
+    pv = part.numpy()
+    for t in np.nonzero(mask.numpy())[0].tolist():
+        p = int(pv[t])
+        k = float(kv[t])
+        ks = buf_k[p]
+        pos = bisect.bisect_left(ks, k)
+        if pos < C:
+            ks.insert(pos, k)
+            buf_w[p].insert(pos, [int(words[a, t]) for a in range(A)])
+            del ks[C:], buf_w[p][C:]
+            cache[p] = None
+            inserted += 1
+        if cache[p] is None:
+            cache[p] = row(buf_w[p])
+        rows[:, t] = cache[p]
+    # the buffers as the shifts leave them: the carried invalid slots
+    # move down behind the valid ones
+    out_v, out_k = valid.clone(), bkey.clone()
+    out_w = bufs.view(torch.int32).clone()
+    for p in range(P):
+        n0, n1 = n_valid[p], len(buf_k[p])
+        if n1 == n0 and cache[p] is None:
+            continue
+        moved = n1 - n0
+        out_v[p, :n1] = True
+        out_k[p, :n1] = torch.tensor(buf_k[p], dtype=torch.float32)
+        if n1 < C:
+            out_k[p, n1:] = bkey[p, n0:C - moved]
+            out_w[:, p, n1:] = bufs.view(torch.int32)[:, p, n0:C - moved]
+        if n1:
+            out_w[:, p, :n1] = torch.tensor(buf_w[p], dtype=torch.int32).T
+    return (out_v, out_k, out_w.view(torch.float32),
+            torch.from_numpy(rows).view(torch.float32)), inserted
+
+
 def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
                      dev="cuda"):
     """K7, K8 or K9 on phase 8f's recorded steps of ``plans`` (the
@@ -6920,9 +7064,13 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
     held to its plain version (run on the CPU copies) on the whole tape,
     or, where the plain version walks event by event (one partition, one
     global table), on the first SCAN_PLAIN_EVENTS events with the carried
-    state; timed (CUDA events around back-to-back calls) on the whole
-    tape; its bound from ``scan_work``, and its serial floor (the longest
-    chain's count of empty warp rounds, csrc/empty.cu)."""
+    state, and K9 on one partition also on the whole tape against
+    ``sort_witness``; timed (CUDA events around two back-to-back calls
+    after a warm-up) on the whole tape; its bound from ``scan_work``, and
+    its serial floor (the longest chain's count of empty warp rounds,
+    csrc/empty.cu)."""
+    import torch
+
     per_event = {"session_scan": (0, 1, 2, 3), "frequency_scan": (0, 1, 2),
                  "sort_window_scan": (0, 1, 2, 3)}[kernel]
     check = {"session_scan": session_check,
@@ -6936,7 +7084,7 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
                      and int(args[4].shape[0]) == 1))
         held = (cut_events(args, SCAN_PLAIN_EVENTS, per_event) if walks
                 else args)
-        step = f"step {scan_recorded_step(name)}"
+        step = f"step {SCAN_RECORDED_STEP}"
         res = check(co, held, f"{name}'s {step}"
                     + (f" (first {SCAN_PLAIN_EVENTS} events)" if walks
                        else ""), dev)
@@ -6944,9 +7092,26 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
                                  else 0.0)
         cargs = args_copy(args, dev)
         fn = getattr(co, kernel)
-        # K8 and K9 take 0.5-0.8 s a call: one timed call each way (the
-        # held call above warmed them), cut for phase 8j's time
-        runs, warm = (1, 0) if kernel != "session_scan" else (2, 1)
+        witness = None
+        if kernel == "sort_window_scan" and walks:
+            # the whole step, against the host walk
+            t0 = time.perf_counter()
+            ref, inserted = sort_witness(args)
+            witness_s = time.perf_counter() - t0
+            got = fn(*cargs)
+            torch.cuda.synchronize()
+            for g, r, n in zip(got[:3], ref[:3], ("valid", "bkey", "bufs")):
+                same_bits(g.cpu(), r, f"sort_window_scan on {name}'s {step} "
+                          f"against the host witness: {n}")
+            rel = max(rel, scan_rows_err(
+                got[3].cpu(), ref[3], args[7], args[8],
+                f"sort_window_scan on {name}'s {step} (host witness)"))
+            witness = {"events_masked": int(args[0].sum()),
+                       "insertions": inserted, "host_s": witness_s}
+            log(f"  sort_window_scan on {name}'s whole {step}: equal to the "
+                f"host witness ({inserted} insertions, {witness_s:.1f} s on "
+                "the host)")
+        runs, warm = 2, 1
         ms, call_ms = timed_back_to_back(lambda: fn(*cargs), runs, warm)
         # the rows the checked call closed or emitted (K7, K8)
         rows = 0 if kernel == "sort_window_scan" else res[0]
@@ -6968,6 +7133,7 @@ def time_scan_kernel(co, kernel, plans, recorded, launches, floor_ms,
             "serial_floor_ms": floor_serial, "max_rel_err": rel,
             "events": int(args[0].shape[0]),
             "events_masked": int(args[0].sum()),
+            "host_witness": witness,
         }
         log(f"  {kernel} on {name}'s {step}: {ms} ms a call "
             f"({call_ms} ms single), {entries[name]['events_masked']} "

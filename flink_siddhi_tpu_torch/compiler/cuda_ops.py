@@ -42,9 +42,11 @@ NVIDIA Hopper card. Nine kernels live here, all CUDA C++ under ``csrc/``:
   (``flink_siddhi_tpu/compiler/scan_windows.py``) and no Pallas kernel:
   ``session_scan`` (csrc/session_scan.cu, a thread walks a key's events),
   ``frequency_scan`` (csrc/frequency_scan.cu, one warp walks the batch
-  over a counted-key table) and ``sort_window_scan`` (csrc/sort_window.cu,
-  a warp walks a partition's events over its top-n buffer); K8 and K9
-  share their aggregate rows (csrc/warp_rows.cuh).
+  over a counted-key table, in its lanes' registers up to 32 slots) and
+  ``sort_window_scan`` (csrc/sort_window.cu, a top-n buffer a partition:
+  up to 32 slots, chunks of the partitions' events walked in parallel
+  from exact carry-ins, events that change no buffer skipped by a
+  ballot); K8 and K9 share their aggregate rows (csrc/warp_rows.cuh).
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 only then. For a CUDA tensor it launches its kernel or raises: there is no
@@ -136,10 +138,11 @@ _ARGTYPES = {
     "fst_join_pairs": [_P, _P],
     "fst_table_mutate": [_P, _P],
     "fst_session_scan": [_P, _P],
-    "fst_frequency_scan": [_P, _P],
-    "fst_frequency_smem": [_I, _I, _I],
+    "fst_frequency_scan": [_P, _I, _P],
+    "fst_frequency_smem": [_I, _I, _I, _I, _I, _I, _I],
     "fst_sort_window": [_P, _P],
-    "fst_sort_window_smem": [_I, _I, _I],
+    "fst_sort_window_smem": [_I, _I, _I, _I, _I],
+    "fst_sort_window_chunk_words": [],
     "fst_slot_nfa_scan": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
         _P, _P, _I, _I, _P,
@@ -148,7 +151,8 @@ _ARGTYPES = {
 
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"fst_frequency_smem": ctypes.c_longlong,
-             "fst_sort_window_smem": ctypes.c_longlong}
+             "fst_sort_window_smem": ctypes.c_longlong,
+             "fst_sort_window_chunk_words": ctypes.c_longlong}
 
 
 class KernelBuildError(RuntimeError):
@@ -2142,7 +2146,8 @@ class _FreqArgs(ctypes.Structure):
         "mask", "codes", "vals", "plan", "table", "seen", "map", "emit",
         "rows")] + [(f, _I) for f in (
             "E", "C", "A", "S", "K", "lossy", "width")] + [
-        ("thresh_factor", ctypes.c_float), ("in_shared", _I)]
+        ("thresh_factor", ctypes.c_float), ("in_shared", _I),
+        ("map_shared", _I)]
 
 
 def frequency_scan_plain(mask, codes, vals, valid, code, freq, delta, seen,
@@ -2222,8 +2227,13 @@ class FrequencyScan:
     ``[S, E]`` (each emitting event's aggregates over the members, an int
     column's min and max by int32 bit pattern; zero elsewhere).
 
-    On CUDA one call launches csrc/frequency_scan.cu (one warp walks the
-    batch; no host read); ``launches`` counts the calls."""
+    On CUDA one call launches csrc/frequency_scan.cu once, one warp
+    walking the batch (no host read): the slots below 32 (C <= 32) or 64
+    in the lanes' registers with the rows folded a round of 32 events at a
+    time; a table that grows past them (or whose registers' values would
+    not fit in shared memory) in shared memory, device memory past it,
+    with the code -> slot map beside it when the encoder's ``n_codes`` fit
+    (device memory otherwise). ``launches`` counts the calls."""
 
     name = "frequency_scan"
     source = "flink_siddhi_tpu_torch/csrc/frequency_scan.cu"
@@ -2258,23 +2268,33 @@ class FrequencyScan:
         table = _words(valid, code, freq, delta, *bufs)
         seen_out = seen.clone()
         K = max(int(n_codes), 1)
-        cmap = torch.full((K,), _INT_MAX, dtype=torch.int32, device=dev)
+        lib = LIBRARIES.get("frequency_scan")
+
+        def fits(R, in_shared=0, map_shared=0):
+            return lib.fst_frequency_smem(
+                C, A, S, K, R, in_shared, map_shared) <= SCAN_MAX_SHARED
+
+        # the fast table's tiers: slots [0, 32 R) in registers
+        R = next(r for r in ((1 if C <= 32 else 2), 0) if fits(r))
+        wide = C > 32 * R
+        in_shared = int(wide and fits(R, 1))
+        map_shared = int(wide and fits(R, in_shared, 1))
+        cmap = (torch.full((K,), _INT_MAX, dtype=torch.int32, device=dev)
+                if wide and not map_shared else None)
         emit = torch.zeros(E, dtype=torch.bool, device=dev)
         rows = torch.zeros((S, E), dtype=torch.float32, device=dev)
-        lib = LIBRARIES.get("frequency_scan")
         args = _FreqArgs()
         for f, t in zip(("mask", "codes", "vals", "plan", "table", "seen",
                          "map", "emit", "rows"),
                         (mask, codes, vals, plan, table, seen_out, cmap, emit,
                          rows)):
-            setattr(args, f, t.data_ptr())
+            setattr(args, f, None if t is None else t.data_ptr())
         args.E, args.C, args.A, args.S, args.K = E, C, A, S, K
         args.lossy, args.width = int(bool(lossy)), int(width)
         args.thresh_factor = float(thresh_factor)
-        args.in_shared = int(lib.fst_frequency_smem(C, A, 1)
-                             <= SCAN_MAX_SHARED)
+        args.in_shared, args.map_shared = in_shared, map_shared
         with _on_device(dev):
-            err = lib.fst_frequency_scan(ctypes.addressof(args),
+            err = lib.fst_frequency_scan(ctypes.addressof(args), R,
                                          _stream(dev.index))
         _check_launch(self.name, err)
         self.launches += 1
@@ -2285,10 +2305,14 @@ class FrequencyScan:
 frequency_scan = FrequencyScan()
 
 
+SORT_CHUNK = 2048  # sort_window.cu's chunks: positions of the grouped order
+
+
 class _SortArgs(ctypes.Structure):
     _fields_ = [(f, _P) for f in (
-        "order", "starts", "keys", "vals", "plan", "buf", "rows")] + [
-            (f, _I) for f in ("E", "P", "C", "A", "S", "in_shared")]
+        "order", "starts", "part", "keys", "vals", "plan", "buf_in", "buf",
+        "rows", "chunks", "flags")] + [
+            (f, _I) for f in ("E", "P", "C", "A", "S", "L", "in_shared")]
 
 
 def sort_window_scan_plain(mask, part, keys, vals, valid, bkey, bufs, slots,
@@ -2339,8 +2363,13 @@ class SortWindowScan:
     zero elsewhere).
 
     On CUDA one call groups the events by partition (a stable sort and a
-    search) and launches csrc/sort_window.cu, one warp a partition;
-    ``launches`` counts the calls."""
+    search) and runs csrc/sort_window.cu. For C <= 32 (a slot a lane) it
+    cuts the grouped events into chunks of ``chunk`` positions
+    (SORT_CHUNK; a smaller one only to test the chunk boundaries) and
+    launches three kernels: each chunk's summary and NaN flags, one warp's
+    scan of the carry-ins, then a warp a chunk walking its events (a
+    partition flagged for a NaN key walked whole by one warp). For C > 32
+    one kernel, a warp a partition. ``launches`` counts the calls."""
 
     name = "sort_window_scan"
     source = "flink_siddhi_tpu_torch/csrc/sort_window.cu"
@@ -2350,7 +2379,7 @@ class SortWindowScan:
         self._consts = _DeviceInts(f"{self.name}: the slot plan")
 
     def __call__(self, mask, part, keys, vals, valid, bkey, bufs, slots,
-                 int_cols=()):
+                 int_cols=(), chunk=None):
         if _device_kind(mask, "mask") == "cpu":
             return sort_window_scan_plain(mask, part, keys, vals, valid,
                                           bkey, bufs, slots, int_cols)
@@ -2358,9 +2387,11 @@ class SortWindowScan:
         E, A = int(mask.shape[0]), int(vals.shape[0])
         P, C = int(valid.shape[0]), int(valid.shape[1])
         S = len(slots)
+        L = SORT_CHUNK if chunk is None else int(chunk)
         _check_slots(slots, A, int_cols, self.name)
-        if not 1 <= E < 2 ** 31 or P < 1 or C < 1:
-            raise ValueError(f"sort_window_scan: {E} events, {P} x {C}")
+        if not 1 <= E < 2 ** 31 or P < 1 or C < 1 or L < 1:
+            raise ValueError(f"sort_window_scan: {E} events, {P} x {C}, "
+                             f"chunks of {L}")
         _check(mask, "mask", torch.bool, dev, (E,))
         _check(part, "part", torch.int32, dev, (E,))
         _check(keys, "keys", torch.float32, dev, (E,))
@@ -2370,17 +2401,28 @@ class SortWindowScan:
         _check(bufs, "bufs", torch.float32, dev, (A, P, C))
         plan = self._consts(_row_plan(slots, A, int_cols), dev)
         order, starts = _grouped(mask, part, P)
-        buf = _words(valid, bkey, *bufs)  # [P, 2 + A, C]
+        buf_in = _words(valid, bkey, *bufs)  # [P, 2 + A, C]
+        buf = buf_in.clone()
         rows = torch.zeros((S, E), dtype=torch.float32, device=dev)
         lib = LIBRARIES.get("sort_window")
+        chunked = (C <= 32 and lib.fst_sort_window_smem(C, A, S, 1, 0)
+                   <= SCAN_MAX_SHARED)
+        chunks = flags = None
+        if chunked:
+            chunks = torch.empty(
+                (-(-E // L), lib.fst_sort_window_chunk_words()),
+                dtype=torch.int32, device=dev)
+            flags = torch.zeros(P, dtype=torch.int32, device=dev)
         args = _SortArgs()
-        for f, t in zip(("order", "starts", "keys", "vals", "plan", "buf",
-                         "rows"),
-                        (order, starts, keys, vals, plan, buf, rows)):
-            setattr(args, f, t.data_ptr())
+        for f, t in zip(("order", "starts", "part", "keys", "vals", "plan",
+                         "buf_in", "buf", "rows", "chunks", "flags"),
+                        (order, starts, part, keys, vals, plan, buf_in, buf,
+                         rows, chunks, flags)):
+            setattr(args, f, None if t is None else t.data_ptr())
         args.E, args.P, args.C, args.A, args.S = E, P, C, A, S
-        args.in_shared = int(lib.fst_sort_window_smem(C, A, 1)
-                             <= SCAN_MAX_SHARED)
+        args.L = L if chunked else 0
+        args.in_shared = int(not chunked and lib.fst_sort_window_smem(
+            C, A, S, 0, 1) <= SCAN_MAX_SHARED)
         with _on_device(dev):
             err = lib.fst_sort_window(ctypes.addressof(args),
                                       _stream(dev.index))
